@@ -1,0 +1,282 @@
+"""Smoke run of the PyTorch/CUDA port (cpecan_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from csrc/ and drives the strawman signal-alignment
+fast path through them:
+
+1. versions, the card's name and power limit;
+2. the kernel build (nvcc, ptxas register report);
+3. each kernel against its plain PyTorch version on the card, on the first
+   64-read chunk of the bench batch (256 reads x 905 bases x 800 events,
+   seed 7), with the tolerances of cpecan_tpu_torch/parity.py, and the
+   pair sets extracted from both;
+4. the Zymo MinION read against the f64 scan engine's stored pairs;
+5. the main path at bench scale: StrawmanAligner(group=64).run over chunks
+   of 64 reads, compact_k=1024, then extract_pairs_chunk; end-to-end
+   alignments/s and band cells/s (median of 3 after a warm-up), with the
+   kernels' launch counts;
+6. forward + backward device time on the whole batch, kernels vs plain.
+
+Any failed check raises (exit code != 0).  The last two lines are a JSON
+record of the kernels and {"ok": true, "device": ...}.  Exits with 2 and
+prints no result when no CUDA device is present.
+"""
+
+import importlib.metadata
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+sys.modules["jax"] = None  # the port runs without JAX: any import fails
+
+import torch
+
+BATCH = dict(n_reads=256, n_ref=905, n_events=800, seed=7)
+GROUP = CHUNK = 64
+COMPACT_K = 1024
+DEVICE = "cuda"
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def smi_line():
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps, warm=True):
+    """Mean device time of fn() over ``reps`` back-to-back calls (CUDA
+    events), after one warm-up call unless ``warm`` is False."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this check "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from cpecan_tpu_torch.align import AlignmentParams
+    from cpecan_tpu_torch.fixtures import load_zymo_slice
+    from cpecan_tpu_torch.models.state_machines import \
+        StateMachine3SignalStrawman
+    from cpecan_tpu_torch.ops import fb_kernels as fk
+    from cpecan_tpu_torch.ops.compact import (compact_posteriors,
+                                              extract_pairs_auto,
+                                              extract_pairs_chunk)
+    from cpecan_tpu_torch.ops.cuda_build import build_info, load_library
+    from cpecan_tpu_torch.ops.fb import StrawmanAligner
+    from cpecan_tpu_torch.parity import (band_mask, check_fwd, check_pairs,
+                                         check_posts, check_totals)
+    from cpecan_tpu_torch.synthetic import synthetic_batch
+
+    dev = torch.device(DEVICE)
+    thr = AlignmentParams().threshold
+    try:
+        triton = importlib.metadata.version("triton")
+    except importlib.metadata.PackageNotFoundError:
+        triton = "absent"
+    smi = smi_line()
+    log(f"capability: torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"triton {triton}, python {sys.version.split()[0]}, "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
+        f"nvidia-smi: {smi}")
+
+    # -- 2. build --------------------------------------------------------
+    t0 = time.perf_counter()
+    load_library()
+    path, build_s, build_log = build_info()
+    log(f"build: {path.name} in {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {'%.2f s' % build_s if build_s is not None else 'cached'})")
+    for line in build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    # -- 3. kernels vs plain on the first bench chunk --------------------
+    sm, reads = synthetic_batch(**BATCH)
+    pa = StrawmanAligner(AlignmentParams(), device=dev, group=GROUP)
+    prep = pa.prepare(sm, reads[:CHUNK])
+    inp = pa.device_inputs(sm, prep)
+    dims = dict(R=prep["R"], W=prep["W"], ND=prep["ND"], C=prep["C"])
+    args = [inp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
+    bargs = args + [inp["seedf"], inp["raggedf"]]
+    fwd_k = fk.wavefront_fwd(*args, **dims)
+    fwd_p = fk.forward_plain(*args, **dims)
+    fwd_err = check_fwd(fwd_k, fwd_p, band_mask(prep, inp["basef"],
+                                                inp["widthf"]))
+    posts_k, tot_k = fk.wavefront_bwd(*bargs, fwd_k, **dims)
+    posts_p, tot_p = fk.backward_plain(*bargs, fwd_k, **dims)
+    torch.cuda.synchronize()
+    if not torch.all(posts_k[:, 0] == 0):
+        raise AssertionError("diagonal 0 of the posterior plane is not 0")
+    post_err = check_posts(posts_k, posts_p)
+    tot_rel = check_totals(tot_k, tot_p)
+    nds = [b.n_diag for b in prep["bands"]]
+    rels = list(range(len(nds)))
+    chunk_outs = [dict(prep=prep, posteriors=posts,
+                       compact=compact_posteriors(posts, COMPACT_K))
+                  for posts in (posts_k, posts_p)]
+    chunk_parts = [extract_pairs_chunk(o, rels, nds, thr)
+                   for o in chunk_outs]
+    n_fringe = sum(check_pairs(a.tolist(), b.tolist(), *chunk_outs, i, thr)
+                   for i, (a, b) in enumerate(zip(*chunk_parts)))
+    ms = dict(
+        fwd=cuda_ms(lambda: fk.wavefront_fwd(*args, **dims), 5),
+        fwd_plain=cuda_ms(lambda: fk.forward_plain(*args, **dims), 1,
+                          warm=False),
+        bwd=cuda_ms(lambda: fk.wavefront_bwd(*bargs, fwd_k, **dims), 5),
+        bwd_plain=cuda_ms(lambda: fk.backward_plain(*bargs, fwd_k, **dims),
+                          1, warm=False))
+    log(f"kernels vs plain ({CHUNK} reads, ND={dims['ND']}, W={dims['W']}): "
+        f"fwd in-band max|d| {fwd_err:.3g}, posts max|d| {post_err:.3g}, "
+        f"totals rel {tot_rel:.3g}, pairs {sum(map(len, chunk_parts[0]))} "
+        f"({n_fringe} fringe); ms fwd {ms['fwd']:.3f} vs plain "
+        f"{ms['fwd_plain']:.1f}, bwd {ms['bwd']:.3f} vs plain "
+        f"{ms['bwd_plain']:.1f}")
+
+    # -- 4. Zymo read vs the f64 engine ----------------------------------
+    model, zread, zpairs = load_zymo_slice()
+    zout = StrawmanAligner(AlignmentParams(), device=dev, group=1).run(
+        StateMachine3SignalStrawman(model), [zread])
+    got = {(x, y) for _, x, y in extract_pairs_auto(
+        zout, 0, zout["prep"]["bands"][0].n_diag, thr)}
+    want = {(int(x), int(y)) for _, x, y in zpairs}
+    log(f"zymo: {len(got & want)} pairs agree with the f64 engine "
+        f"({len(want)}), {len(got ^ want)} differ")
+    if len(got & want) < 980 or len(got ^ want) > 2:
+        raise AssertionError("Zymo pairs disagree with the f64 engine")
+    torch.cuda.synchronize()
+
+    # -- 5. the main path at bench scale ---------------------------------
+    def main_path():
+        parts, outs = [], []
+        for i in range(0, len(reads), CHUNK):
+            out = pa.run(sm, reads[i:i + CHUNK], compact_k=COMPACT_K)
+            nds = [b.n_diag for b in out["prep"]["bands"]]
+            parts += extract_pairs_chunk(out, list(range(len(nds))), nds,
+                                         thr)
+            outs.append(out)
+        torch.cuda.synchronize()
+        return parts, outs
+
+    fk.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    parts, outs = main_path()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        main_path()
+        times.append(time.perf_counter() - t0)
+    launches = dict(wavefront_fwd=fk.wavefront_fwd.launches,
+                    wavefront_bwd=fk.wavefront_bwd.launches)
+    plain_calls = fk.forward_plain.calls + fk.backward_plain.calls
+    peak = torch.cuda.max_memory_allocated()
+    if min(launches.values()) <= 0 or plain_calls:
+        raise AssertionError(f"main path launches {launches}, plain calls "
+                             f"{plain_calls}")
+    cells = sum(int(b.width.sum()) for o in outs for b in o["prep"]["bands"])
+    for o in outs:
+        tot = o["totals"]
+        if tuple(tot.shape) != (1, CHUNK) or not torch.isfinite(tot).all():
+            raise AssertionError("main path totals not finite")
+    if min(map(len, parts)) == 0 or len(parts) != len(reads):
+        raise AssertionError("a read of the main path has no pairs")
+    for i in rels:   # the main path's first chunk against the plain run
+        check_pairs(parts[i].tolist(), chunk_parts[1][i].tolist(), outs[0],
+                    chunk_outs[1], i, thr)
+    dt = statistics.median(times)
+    log(f"main path: {len(reads)} reads in chunks of {CHUNK}, "
+        f"{sum(map(len, parts))} pairs, {len(reads) / dt:.1f} alignments/s "
+        f"e2e, {cells / dt:.4g} band cells/s e2e (median of "
+        f"{[round(t, 4) for t in times]} s), peak device memory "
+        f"{peak / 1e9:.3f} GB, launches {launches}, plain calls "
+        f"{plain_calls}")
+
+    # where one main-path pass spends its time: the run's stages, each
+    # ended by a synchronize (run() itself overlaps nothing across them)
+    stages = dict.fromkeys(("prepare", "inputs", "fwd", "bwd", "compact",
+                            "extract"), 0.0)
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        stages[name] += time.perf_counter() - t0
+        return res
+
+    for i in range(0, len(reads), CHUNK):
+        sprep = stage("prepare", lambda: pa.prepare(sm, reads[i:i + CHUNK]))
+        sinp = stage("inputs", lambda: pa.device_inputs(sm, sprep))
+        sd = dict(R=sprep["R"], W=sprep["W"], ND=sprep["ND"], C=sprep["C"])
+        sa = [sinp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                                "widthf")]
+        sfwd = stage("fwd", lambda: fk.wavefront_fwd(*sa, **sd))
+        sposts, _ = stage("bwd", lambda: fk.wavefront_bwd(
+            *sa, sinp["seedf"], sinp["raggedf"], sfwd, **sd))
+        scomp = stage("compact", lambda: compact_posteriors(
+            sposts, min(COMPACT_K, sd["ND"] * sd["W"])))
+        sout = dict(prep=sprep, posteriors=sposts, compact=scomp)
+        snd = [b.n_diag for b in sprep["bands"]]
+        stage("extract", lambda: extract_pairs_chunk(
+            sout, list(range(len(snd))), snd, thr))
+    total_s = sum(stages.values())
+    log("main path stages (s, share): " + ", ".join(
+        f"{k} {v:.4f} ({v / total_s:.1%})" for k, v in stages.items()))
+
+    # -- 6. device-only fwd+bwd, whole batch -----------------------------
+    bprep = pa.prepare(sm, reads)
+    binp = pa.device_inputs(sm, bprep)
+    bdims = dict(R=bprep["R"], W=bprep["W"], ND=bprep["ND"], C=bprep["C"])
+    ba = [binp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
+    bb = ba + [binp["seedf"], binp["raggedf"]]
+
+    def once(fwd_fn, bwd_fn):
+        return bwd_fn(*bb, fwd_fn(*ba, **bdims), **bdims)
+
+    dev_ms = cuda_ms(lambda: once(fk.wavefront_fwd, fk.wavefront_bwd), 3)
+    plain_ms = cuda_ms(lambda: once(fk.forward_plain, fk.backward_plain), 1)
+    bcells = sum(int(b.width.sum()) for b in bprep["bands"])
+    log(f"device fwd+bwd ({len(reads)} reads, G={len(bprep['win'])}): "
+        f"kernels {dev_ms:.3f} ms ({bcells / dev_ms * 1e3:.4g} band "
+        f"cells/s), plain {plain_ms:.1f} ms "
+        f"({bcells / plain_ms * 1e3:.4g} band cells/s)")
+    torch.cuda.synchronize()
+
+    src = "cpecan_tpu_torch/csrc/wavefront.cu"
+    log(json.dumps({"kernels": [
+        {"name": "wavefront_fwd", "route": "cuda", "source": src,
+         "replaces": "cpecan_tpu/ops/pallas_fb.py:635",
+         "launches": launches["wavefront_fwd"], "max_abs_err": fwd_err,
+         "ms": ms["fwd"], "plain_ms": ms["fwd_plain"]},
+        {"name": "wavefront_bwd", "route": "cuda", "source": src,
+         "replaces": "cpecan_tpu/ops/pallas_fb.py:857",
+         "launches": launches["wavefront_bwd"], "max_abs_err": post_err,
+         "ms": ms["bwd"], "plain_ms": ms["bwd_plain"]},
+    ]}))
+    log(smi_line())
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,46 @@
+// Log-space helpers of the strawman wavefront kernels, the device twins of
+// cpecan_tpu_torch/ops/fb_kernels.py (log_add, log_add3, gauss) and of
+// cpecan_tpu/ops/pallas_fb.py:44-70.
+//
+// Built with --fmad=false and without fast math, so every expression below
+// rounds like the PyTorch version on the same card: each line keeps the
+// reference's evaluation order.
+#pragma once
+
+#define CPECAN_NEG (-1e30f)  // finite stand-in for LOG_ZERO (no NaNs)
+
+// Reference piecewise-cubic logAdd (impl/pairwiseAligner.c:235-255);
+// all-finite with CPECAN_NEG in place of -inf.
+__device__ __forceinline__ float log_add(float x, float y) {
+    const float lo = fminf(x, y);
+    const float hi = fmaxf(x, y);
+    const float gap = hi - lo;
+    if (gap >= 7.5f) return hi;
+    const float d = gap;
+    float lk;
+    if (d <= 1.0f) {
+        lk = ((-0.009350833524763f * d + 0.130659527668286f) * d
+              + 0.498799810682272f) * d + 0.693203116424741f;
+    } else if (d <= 2.5f) {
+        lk = ((-0.014532321752540f * d + 0.139942324101744f) * d
+              + 0.495635523139337f) * d + 0.692140569840976f;
+    } else if (d <= 4.5f) {
+        lk = ((-0.004605031767994f * d + 0.063427417320019f) * d
+              + 0.695956496475118f) * d + 0.514272634594009f;
+    } else {
+        lk = ((-0.000458661602210f * d + 0.009695946122598f) * d
+              + 0.930734667215156f) * d + 0.168037164329057f;
+    }
+    return lk + lo;
+}
+
+__device__ __forceinline__ float log_add3(float a, float b, float c) {
+    return log_add(log_add(a, b), c);
+}
+
+// log N(x; mu, sd); CPECAN_NEG where sd <= 0 (the reference's guard).
+__device__ __forceinline__ float gauss(float x, float mu, float sd) {
+    if (!(sd > 0.0f)) return CPECAN_NEG;
+    const float a = (x - mu) / sd;
+    return -0.91893853320467267f - logf(sd) - 0.5f * a * a;
+}

@@ -1,0 +1,193 @@
+"""Posterior compaction on the device and pair extraction on the host
+(counterparts of ``cpecan_tpu/ops/pallas_fb.py`` ``compact_posteriors``
+:3416, ``extract_pairs_from_pallas`` :3394, ``_compact_row`` :3482,
+``_flat_ix`` :3495, ``extract_pairs_compact`` :3508, ``extract_pairs_auto``
+:3585 and ``extract_pairs_chunk`` :3625).
+
+The wire format is the JAX package's: per read the top-k cells of the
+windowed posterior plane as u16 fixed-point values (p * 65535, clipped to
+[0, 1]) and the flat plane index (d - 1) * W + l split into ``drow`` (u16
+while the row count fits, else int32) and ``lane`` (u8 for W <= 256, else
+u16).
+"""
+
+import numpy as np
+import torch
+
+from cpecan_tpu.constants import PAIR_ALIGNMENT_PROB_1
+
+
+def host_array(a):
+    """numpy view of a tensor (copied from the device) or array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def compact_posteriors(posts, k=4096):
+    """Per read, the top-k posterior cells over all diagonals of the
+    windowed plane ``posts`` [G, ND+1, R, W] -> (values u16, drow, lane),
+    each [G, R, k], as numpy arrays on the host.
+
+    One exact ``torch.topk`` over the [G, R, ND*W] plane (diagonal 0 is
+    never emitted).  Values are quantized in int32 on the device and take
+    their wire dtypes on the host."""
+    G, ND1, R, W = posts.shape
+    p = posts[:, 1:].permute(0, 2, 1, 3).reshape(G, R, (ND1 - 1) * W)
+    vals, idx = torch.topk(p, min(k, p.shape[-1]), dim=-1)
+    qv = torch.round(torch.clamp(vals, 0.0, 1.0) * 65535.0).to(torch.int32)
+    drow = torch.div(idx, W, rounding_mode="floor").to(torch.int32)
+    lane = (idx % W).to(torch.int32)
+    qv, drow, lane = (host_array(a) for a in (qv, drow, lane))
+    d_dt = np.uint16 if ND1 - 1 < 65536 else np.int32
+    l_dt = np.uint8 if W <= 256 else np.uint16
+    return qv.astype(np.uint16), drow.astype(d_dt), lane.astype(l_dt)
+
+
+def extract_pairs_full(out, read_idx, threshold):
+    """Pairs of one read from the full windowed posterior plane
+    (posteriors[g, d, r, l] = match posterior of cell (x = win[g, d] + l,
+    y = d - x)); counterpart of ``extract_pairs_from_pallas``."""
+    posts = out["posteriors"]
+    prep = out["prep"]
+    R = prep["R"]
+    win = prep["win"]
+    g, r = divmod(read_idx, R)
+    band = prep["bands"][read_idx]
+    pairs = []
+    sub = host_array(posts[g, : band.n_diag + 1, r])
+    d_idx, l_idx = np.nonzero(sub >= threshold)
+    for d, l in zip(d_idx, l_idx):
+        p = min(float(sub[d, l]), 1.0)
+        x = int(win[g, d]) + int(l)
+        pairs.append((int(np.floor(p * PAIR_ALIGNMENT_PROB_1)),
+                      x - 1, int(d) - x - 1))
+    return pairs
+
+
+def _compact_row(vals, g, r):
+    """One read's compacted values as f32 probabilities (dequantizing the
+    u16 wire format)."""
+    v = np.asarray(vals[g, r])
+    if v.dtype == np.uint16:
+        v = v.astype(np.float32) / np.float32(65535.0)
+    return v
+
+
+def _flat_ix(compact_tail, W, sel=None):
+    """int64 flat plane indices from the split (drow, lane) wire format."""
+    drow, lane = (np.asarray(a) for a in compact_tail)
+    if sel is not None:
+        drow, lane = drow[sel], lane[sel]
+    return drow.astype(np.int64) * W + lane.astype(np.int64)
+
+
+def extract_pairs_compact(vals, idx, read_idx, n_diag, prep, threshold,
+                          as_array=False):
+    """Pairs of one read from the compacted (top-k) posteriors; ``idx`` is
+    the (drow, lane) tuple.  ``as_array`` returns an [N, 3] int64
+    (score, x, y) array instead of a list of tuples."""
+    R, W = prep["R"], prep["W"]
+    win = prep["win"]
+    g, r = divmod(read_idx, R)
+    v = _compact_row(vals, g, r)
+    ix = _flat_ix(tuple(a[g, r] for a in idx), W)
+    d = ix // W + 1
+    keep = (v >= threshold) & (d <= n_diag)
+    v = v[keep]
+    d = d[keep]
+    l = ix[keep] % W
+    x = win[g, d] + l
+    scores = np.floor(np.minimum(v.astype(np.float64), 1.0)
+                      * PAIR_ALIGNMENT_PROB_1).astype(np.int64)
+    if as_array:
+        return np.stack([scores, x - 1, d - x - 1], axis=1)
+    return list(zip(scores.tolist(), (x - 1).tolist(),
+                    (d - x - 1).tolist()))
+
+
+def _no_tiled(out):
+    if "tiled" in out:
+        raise NotImplementedError(
+            "tiled long-alignment outputs are not ported yet (ROADMAP "
+            "Queue 1 item 5)")
+    if out["posteriors"].ndim == 5:
+        raise NotImplementedError(
+            "multi-state (echelon) posterior outputs are not ported yet "
+            "(ROADMAP Queue 1 item 3)")
+
+
+def extract_pairs_auto(out, read_idx, n_diag, threshold, as_array=False):
+    """Pair extraction that detects top-k saturation: when every one of a
+    read's k compacted cells clears the threshold, pairs may have been
+    dropped, so read that read's full windowed plane instead."""
+    _no_tiled(out)
+    vals, *idx = out["compact"]
+    idx = tuple(idx)
+    prep = out["prep"]
+    R = prep["R"]
+    g, r = divmod(read_idx, R)
+    v = _compact_row(vals, g, r)
+    if v.size == 0 or v[-1] < threshold:
+        return extract_pairs_compact(vals, idx, read_idx, n_diag, prep,
+                                     threshold, as_array=as_array)
+    # saturated (diagonal 0 is never swept; valid pairs need x, y >= 1)
+    win = prep["win"]
+    sub = host_array(out["posteriors"][g, 1: n_diag + 1, r])
+    d_idx, l_idx = np.nonzero(sub >= threshold)
+    d = d_idx.astype(np.int64) + 1
+    x = win[g, d] + l_idx
+    p = np.minimum(sub[d_idx, l_idx].astype(np.float64), 1.0)
+    keep = (x >= 1) & (d - x >= 1)
+    scores = np.floor(p[keep] * PAIR_ALIGNMENT_PROB_1).astype(np.int64)
+    ap = np.stack([scores, x[keep] - 1, (d - x)[keep] - 1], axis=1)
+    if as_array:
+        return ap
+    return list(map(tuple, ap.tolist()))
+
+
+def extract_pairs_chunk(out, rels, n_diags, threshold):
+    """Batched pair extraction: one vectorized numpy pass over a chunk's
+    compacted posteriors.
+
+    Returns a list of [N, 3] int64 (score, x, y) arrays, one per entry of
+    ``rels`` (read indices into the run's packed groups), each sorted by
+    diagonal x + y with stable ties, exactly ``extract_pairs_auto(...,
+    as_array=True)`` followed by a stable argsort.  Reads whose top-k
+    saturated fall back to the per-read full-plane path."""
+    _no_tiled(out)
+    vals, *idx = out["compact"]
+    prep = out["prep"]
+    R, W = prep["R"], prep["W"]
+    win = np.asarray(prep["win"])
+    rels = np.asarray(rels, np.int64)
+    nd = np.asarray(n_diags, np.int64)
+    v = np.asarray(vals)
+    k = v.shape[-1]
+    v = v.reshape(-1, k)[rels]
+    if v.dtype == np.uint16:
+        v = v.astype(np.float32) / np.float32(65535.0)
+    ix = _flat_ix(tuple(np.asarray(a).reshape(-1, k) for a in idx), W,
+                  sel=rels)
+    sat = (v[:, -1] >= threshold) if k else np.zeros(len(rels), bool)
+    d = ix // W + 1
+    keep = (v >= threshold) & (d <= nd[:, None]) & ~sat[:, None]
+    rsel, csel = np.nonzero(keep)
+    dk = d[rsel, csel]
+    lk = ix[rsel, csel] % W
+    gk = rels[rsel] // R
+    x = win[gk, dk].astype(np.int64) + lk
+    vk = v[rsel, csel].astype(np.float64)
+    scores = np.floor(np.minimum(vk, 1.0)
+                      * PAIR_ALIGNMENT_PROB_1).astype(np.int64)
+    ap = np.stack([scores, x - 1, dk - x - 1], axis=1)
+    # one global stable sort; x + y = d - 2, so diagonal order is d
+    order = np.argsort((rsel << np.int64(32)) | dk, kind="stable")
+    ap = ap[order]
+    splits = np.searchsorted(rsel[order], np.arange(1, len(rels)))
+    parts = np.split(ap, splits)
+    for i in np.nonzero(sat)[0]:
+        full = extract_pairs_auto(out, int(rels[i]), int(nd[i]), threshold,
+                                  as_array=True).reshape(-1, 3)
+        parts[i] = full[np.argsort(full[:, 1] + full[:, 2], kind="stable")]
+    return parts

@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels (``cpecan_tpu_torch/csrc``).
+
+The sources compile with ``nvcc`` into one shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds).  The library lands in ``build/kernels/`` at the repository root
+(gitignored), named by a hash of the sources and flags, and is built at
+first CUDA use: a fresh checkout builds it on its first call.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = ("wavefront.cu", "logspace.cuh")
+# no fast math; --fmad=false keeps the kernels' rounding equal to the plain
+# PyTorch versions' on the same card
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # scal win xf yf basef widthf fwd | G R W ND NDp X C Y | stream
+    "wavefront_fwd": [_P] * 7 + [_I] * 8 + [_P],
+    # scal win xf yf basef widthf seedf raggedf fwd posts totals | ... | stream
+    "wavefront_bwd": [_P] * 11 + [_I] * 8 + [_P],
+}
+
+
+class _Library:
+    """The loaded kernel library plus what its build reported."""
+
+    lib = None
+    path = None
+    build_seconds = None   # None when the library was already built
+    build_log = ""
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA "
+                       "kernels build on first use and need the CUDA toolkit")
+
+
+def _digest():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def load_library():
+    """The ctypes handle of the kernel library, built on first call."""
+    if _Library.lib is not None:
+        return _Library.lib
+    path = BUILD_DIR / f"libcpecan_wavefront_{_digest()}.so"
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / "wavefront.cu")]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(tmp, path)
+        _Library.build_seconds = time.perf_counter() - t0
+        _Library.build_log = res.stdout + res.stderr
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.wavefront_error_string.argtypes = [ctypes.c_int]
+    lib.wavefront_error_string.restype = ctypes.c_char_p
+    _Library.lib, _Library.path = lib, path
+    return lib
+
+
+def build_info():
+    """(library path, build seconds or None, nvcc/ptxas output)."""
+    return _Library.path, _Library.build_seconds, _Library.build_log

@@ -1,0 +1,251 @@
+"""Batched banded forward/backward posterior alignment of the strawman
+3-state signal machine on the wavefront kernels (counterpart of
+``cpecan_tpu/ops/pallas_fb.py`` ``StrawmanPallasAligner``: ``prepare``
+:1599-1702 and the untiled branch of ``run`` :1778-1922).
+
+A batch is packed into groups of R reads.  Each group shares one window of
+W lanes per anti-diagonal (``win[g, d]``, covering the union of the
+group's bands), so every per-read plane is [ND+1, W] instead of the full
+matrix.  ``run`` assembles the features and bands on the device, runs the
+forward and posterior-backward wavefronts (``fb_kernels``), and compacts
+each read's posteriors to its top-k cells for the host
+(``compact.compact_posteriors``).
+"""
+
+import os
+
+import numpy as np
+import torch
+
+from cpecan_tpu.ops.band import make_bands
+
+from ..align import AlignmentParams
+from .compact import compact_posteriors
+from .device_bands import device_bands
+from .fb_kernels import StrawmanSpec, wavefront_bwd, wavefront_fwd
+from .features import assemble_features, feature_inputs, upload_u16
+
+# f32 posterior precision is bounded by the total log magnitude, which
+# grows with the diagonal count: past ~16k diagonals the untiled passes
+# distort mid-sequence posteriors (BASELINE.md "Untiled precision wall"),
+# and the tiled path with per-tile re-centering is the fix
+TILED_MIN_DIAGONALS = 2 ** 14
+TILED_MIN_COLUMNS = 2 ** 15
+# share of the device's memory the banded planes may take
+PLANE_MEMORY_SHARE = 0.85
+
+
+def _round_up(v, m):
+    return ((v + m - 1) // m) * m
+
+
+def device_memory_bytes(device):
+    """Total memory of ``device``: the card's for CUDA, the host's RAM for
+    the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+class StrawmanAligner:
+    """Group-of-R batched banded forward/backward on the wavefront kernels
+    for the strawman machine (getStrawManStateMachine3).
+
+    Exact full backward (no traceback windowing), f32, posteriors emitted
+    as band-local [R, W] windows per diagonal.  ``device`` is where the
+    passes run: a CUDA device runs the CUDA kernels, the CPU runs their
+    plain PyTorch versions.  ``group`` is R (reads per kernel block group).
+    """
+
+    spec = StrawmanSpec
+
+    def __init__(self, params=None, device="cpu", group=32):
+        self.params = params or AlignmentParams()
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {self.device} requested, but "
+                               "torch.cuda.is_available() is False")
+        if self.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {self.device}")
+        self.group = group
+
+    def prepare(self, sm, reads, ragged_right=False, scale_params=None,
+                shape_hint=None, bands=None):
+        """Host-side packing: bands, compact feature and band-metadata
+        uploads, and the per-group windows.  Returns the ``prep`` dict
+        (same keys and layout as the JAX aligner's):
+
+        - ``win`` [G, NDp] int32 group window starts, forward-filled over
+          diagonals with no active band, monotone non-decreasing in d;
+        - ``W`` lanes: 128, widened to cover the widest group union;
+        - ``NDp`` = round_up(ND + 3, 128) + 128 (the backward reads the
+          windows at ND + 1 and ND + 2)."""
+        p = self.params
+        R = self.group
+        if bands is None:
+            bands = make_bands([r[4] for r in reads], [r[2] for r in reads],
+                               [r[3] for r in reads], p.diagonal_expansion)
+        B = len(reads)
+        G = _round_up(B, R) // R
+        Bp = G * R
+        X = _round_up(max(r[2] for r in reads) + 2, 128)
+        ND = max(b.n_diag for b in bands)
+        if shape_hint is not None:
+            # (max l_x, max n_diag) over a larger batch this chunk belongs
+            # to: keeps the shapes of a chunked pipeline fixed
+            hx, hnd = shape_hint
+            X = max(X, _round_up(hx + 2, 128))
+            ND = max(ND, hnd)
+        C = ND + 3
+        NDp = _round_up(ND + 3, 128) + 128
+
+        finputs = feature_inputs(reads + [reads[-1]] * (Bp - B), X)
+        A_max = max(1, max(len(r[4]) for r in reads))
+        # anchors are (x, y) pairs: the wire dtype must cover both axes
+        Y_max = max(r[3] for r in reads)
+        anch = np.full((Bp, A_max, 2), -1,
+                       np.int16 if X < 2 ** 15 and Y_max < 2 ** 15
+                       else np.int32)
+        meta = np.zeros((Bp, 4), np.int32)
+        for r, (_x, _y, l_x, l_y, a) in enumerate(reads):
+            if len(a):
+                anch[r, : len(a)] = np.asarray(a, np.int64)
+            meta[r] = (l_x, l_y, bands[r].n_diag, 1 if ragged_right else 0)
+        # padding rows reuse the last read's band (no ragged end)
+        for r in range(B, Bp):
+            anch[r] = anch[B - 1]
+            meta[r] = meta[B - 1]
+            meta[r, 3] = 0
+
+        # per-group windows [lo, lo+W) covering the union of the group's
+        # bands on every diagonal
+        lo_all = np.full((Bp, NDp), np.inf)
+        hi_all = np.full((Bp, NDp), -np.inf)
+        for r in range(Bp):
+            band = bands[min(r, B - 1)]
+            n = band.n_diag
+            act = band.width > 0
+            lo_all[r, : n + 1] = np.where(act, band.x_lo, np.inf)
+            hi_all[r, : n + 1] = np.where(act, band.x_lo + band.width,
+                                          -np.inf)
+        W = 128
+        for g in range(G):
+            lo = lo_all[g * R:(g + 1) * R].min(axis=0)
+            hi = hi_all[g * R:(g + 1) * R].max(axis=0)
+            spread = np.where(np.isfinite(lo), hi - lo, 0.0)
+            W = max(W, int(_round_up(int(spread.max()), 128)))
+        W = min(W, X)
+        win = np.zeros((G, NDp), np.int32)
+        for g in range(G):
+            lo = lo_all[g * R:(g + 1) * R].min(axis=0)
+            # forward-fill diagonals with no active band with the last
+            # active window start (keeps windows monotone in d)
+            fin = np.isfinite(lo)
+            idx = np.where(fin, np.arange(lo.size), 0)
+            np.maximum.accumulate(idx, out=idx)
+            lo = np.where(fin[idx], lo[idx], 0.0)
+            win[g] = np.clip(lo.astype(np.int64), 0, X - W)
+        if (np.diff(win, axis=1) < 0).any():
+            raise ValueError("non-monotone group window starts (anchor "
+                             "chain must be monotone)")
+        out_extra = {}
+        if scale_params is not None:
+            sp = np.ones((Bp, 5), np.float32)
+            sp[:, 1] = 0.0  # identity: scale 1, shift 0, var/sds 1
+            sp[:B] = np.asarray(scale_params, np.float32)
+            out_extra["sp"] = sp
+        # one int32 upload for (anchors, meta, windows)
+        bandmeta = np.concatenate([
+            anch.astype(np.int32).ravel(), meta.ravel(),
+            win.astype(np.int32).ravel()])
+        return dict(**finputs, **out_extra, anch=anch, meta=meta,
+                    bandmeta=bandmeta, win=win, bands=bands, X=X, ND=ND,
+                    C=C, B=B, Bp=Bp, R=R, W=W, NDp=NDp)
+
+    def device_inputs(self, sm, prep, ragged_left=False):
+        """The wavefront passes' inputs on ``self.device``: a dict of
+        scal, win, xf, yf, basef, widthf, seedf, raggedf."""
+        dev = self.device
+        sm = sm.to(dev)
+        Bp, A = prep["anch"].shape[:2]
+        G, NDp = prep["win"].shape
+        bm = torch.from_numpy(prep["bandmeta"]).to(dev)
+        na, nm = Bp * A * 2, Bp * 4
+        anch = bm[:na].reshape(Bp, A, 2)
+        meta = bm[na:na + nm].reshape(Bp, 4)
+        win = bm[na + nm:].reshape(G, NDp)
+        basef, widthf, seedf, raggedf = device_bands(
+            anch, meta, NDp, int(self.params.diagonal_expansion))
+        sp = prep.get("sp")
+        xf, yf = assemble_features(
+            torch.from_numpy(prep["codes"]).to(dev),
+            upload_u16(prep["evq"], dev),
+            torch.from_numpy(prep["evs"]).to(dev),
+            sm.match_model, sm.gap_y_model, sm.gap_x, prep["C"],
+            prep["C"] + prep["X"] + 256,
+            sp=None if sp is None else torch.from_numpy(sp).to(dev))
+        return dict(scal=sm.scalars(ragged_left=ragged_left), win=win,
+                    xf=xf, yf=yf, basef=basef, widthf=widthf, seedf=seedf,
+                    raggedf=raggedf)
+
+    def run(self, sm, reads, ragged_right=False, ragged_left=False,
+            compact_k=4096, scale_params=None, shape_hint=None, bands=None,
+            expectations=False, mesh=None, tile_diag=None):
+        """Posterior alignment of ``reads`` [(ref, events, l_x, l_y,
+        anchors), ...] on machine ``sm``.
+
+        Returns {"compact": (values u16, drow, lane) numpy arrays [G, R, k]
+        (compact.compact_posteriors), "posteriors": [G, ND+1, R, W] and
+        "totals": [G, R] tensors on the device, "prep": prepare's dict}."""
+        if expectations:
+            raise NotImplementedError(
+                "in-kernel EM expectations are not ported yet (ROADMAP "
+                "Queue 1 item 4)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "data-parallel runs are not ported yet (ROADMAP Queue 1 "
+                "item 9)")
+        if tile_diag is not None:
+            raise NotImplementedError(
+                "the tiled long-alignment path is not ported yet (ROADMAP "
+                "Queue 1 item 5)")
+        est_x = _round_up(max(r[2] for r in reads) + 2, 128)
+        est_nd = est_x + max(r[3] for r in reads) + 3
+        if shape_hint is not None:
+            est_x = max(est_x, _round_up(shape_hint[0] + 2, 128))
+            est_nd = max(est_nd, shape_hint[1])
+        if est_x >= TILED_MIN_COLUMNS or est_nd >= TILED_MIN_DIAGONALS:
+            raise NotImplementedError(
+                f"~{est_nd} diagonals / {est_x} columns need the tiled "
+                "long-alignment path (f32 posteriors degrade past ~16k "
+                "diagonals untiled, BASELINE.md 'Untiled precision wall'), "
+                "which is not ported yet (ROADMAP Queue 1 item 5); split "
+                "the alignment at anchor gaps "
+                "(cpecan_tpu.ops.anchors.get_split_points)")
+        prep = self.prepare(sm, reads, ragged_right=ragged_right,
+                            scale_params=scale_params,
+                            shape_hint=shape_hint, bands=bands)
+        ND, C, W, R = prep["ND"], prep["C"], prep["W"], prep["R"]
+        S = self.spec.S
+        G = prep["Bp"] // R
+        # the fwd plane [G, NDp, S, R, W] dominates device memory
+        plane_bytes = 4 * G * prep["NDp"] * R * W * (S + 1)
+        limit = PLANE_MEMORY_SHARE * device_memory_bytes(self.device)
+        if plane_bytes > limit:
+            raise ValueError(
+                f"banded planes need ~{plane_bytes / 1e9:.1f} GB of the "
+                f"device's {limit / 1e9:.1f} GB (ND={ND} diagonals, {G} "
+                f"groups of {R}): dispatch the batch in smaller chunks, "
+                "lower the group size, or split the alignments at anchor "
+                "gaps (cpecan_tpu.ops.anchors.get_split_points)")
+        inp = self.device_inputs(sm, prep, ragged_left=ragged_left)
+        fwd = wavefront_fwd(inp["scal"], inp["win"], inp["xf"], inp["yf"],
+                            inp["basef"], inp["widthf"], R=R, W=W, ND=ND,
+                            C=C)
+        posts, totals = wavefront_bwd(
+            inp["scal"], inp["win"], inp["xf"], inp["yf"], inp["basef"],
+            inp["widthf"], inp["seedf"], inp["raggedf"], fwd, R=R, W=W,
+            ND=ND, C=C)
+        compact = compact_posteriors(posts, min(compact_k, ND * W))
+        return dict(compact=compact, posteriors=posts, totals=totals,
+                    prep=prep)

@@ -1,0 +1,383 @@
+"""Band-local forward/backward wavefront of the strawman 3-state signal
+machine: the log-space helpers, the machine spec, the two wavefront passes
+as plain PyTorch, and the wrappers that launch their CUDA kernels.
+
+Counterparts in the JAX package (``cpecan_tpu/ops/pallas_fb.py``):
+
+========================  ==============================================
+``NEG``, ``log_add``,      ``NEG``, ``_log_add``, ``_log_add3``,
+``log_add3``, ``gauss``    ``_gauss`` (:44-70)
+``StrawmanSpec``           ``_StrawmanSpec`` (:162-207)
+``wavefront_fwd``          ``_sm3_forward_kernel`` (:635), untiled
+``wavefront_bwd``          ``_sm3_backward_kernel`` -> ``_sm3_backward_body_w``
+                           (:857, :900), ``with_exp=False``, untiled
+========================  ==============================================
+
+Layout (the JAX planes, index for index): G groups of R reads; diagonal d
+of group g is a window of W lanes starting at x = ``win[g, d]``, lane l
+holding cell (x = win[g, d] + l, y = d - x).  ``xf`` [G*R, 9, X] holds the
+per-x model rows, ``yf`` [G*R, 2, C+X+256] the events flipped so that
+column C - y holds event y, ``basef``/``widthf``/``seedf``/``raggedf``
+[G*R, NDp] the band metadata.
+
+Dispatch: ``wavefront_fwd``/``wavefront_bwd`` run the plain version for a
+tensor on the CPU and launch the CUDA kernel
+(``cpecan_tpu_torch/csrc/wavefront.cu``) for a CUDA tensor; nothing falls
+back from one to the other.  Each wrapper counts its kernel launches in
+``.launches``; each plain version counts its calls in ``.calls``.
+"""
+
+import ctypes
+
+import torch
+
+NEG = -1e30  # finite stand-in for LOG_ZERO inside the passes (no NaNs)
+
+# strawman scalar order: [8 transitions, start(3), end(3), ragged_end(3)]
+T_MM, T_XM, T_YM, T_OX, T_EX, T_SX, T_OY, T_EY = range(8)
+
+
+def log_add(x, y):
+    """Reference piecewise-cubic logAdd (impl/pairwiseAligner.c:235-255),
+    branch-free; all-finite with NEG in place of -inf."""
+    lo = torch.minimum(x, y)
+    hi = torch.maximum(x, y)
+    d = torch.clamp(hi - lo, max=7.5)
+    p1 = ((-0.009350833524763 * d + 0.130659527668286) * d + 0.498799810682272) * d + 0.693203116424741
+    p2 = ((-0.014532321752540 * d + 0.139942324101744) * d + 0.495635523139337) * d + 0.692140569840976
+    p3 = ((-0.004605031767994 * d + 0.063427417320019) * d + 0.695956496475118) * d + 0.514272634594009
+    p4 = ((-0.000458661602210 * d + 0.009695946122598) * d + 0.930734667215156) * d + 0.168037164329057
+    lk = torch.where(d <= 1.0, p1, torch.where(
+        d <= 2.5, p2, torch.where(d <= 4.5, p3, p4)))
+    return torch.where((hi - lo) >= 7.5, hi, lk + lo)
+
+
+def log_add3(a, b, c):
+    return log_add(log_add(a, b), c)
+
+
+def gauss(x, mu, sd):
+    """log N(x; mu, sd); NEG where sd <= 0 (the reference's guard)."""
+    log_inv_sqrt_2pi = -0.91893853320467267
+    sd_ok = sd > 0.0
+    sds = torch.where(sd_ok, sd, 1.0)
+    a = (x - mu) / sds
+    return torch.where(sd_ok, log_inv_sqrt_2pi - torch.log(sds) - 0.5 * a * a,
+                       NEG)
+
+
+class StrawmanSpec:
+    """3-state strawman signal machine (stateMachine3_cellCalculate,
+    impl/stateMachine.c:1306-1335): global scalar transitions, gap-X
+    emission from a per-kmer table, Gaussian x Gaussian match emission.
+
+    ``xf`` tensors are [..., 9, W] window rows; transition scalars ``t``
+    are 0-d tensors or floats indexed by T_MM..T_EY."""
+
+    S = 3     # states: M, shortGapX, shortGapY
+    NS = 8    # machine scalars
+
+    @staticmethod
+    def emissions(xf, mean, noise):
+        e_match = (gauss(mean, xf[..., 0, :], xf[..., 1, :])
+                   + gauss(noise, xf[..., 2, :], xf[..., 3, :]))
+        e_gapy = (gauss(mean, xf[..., 4, :], xf[..., 5, :])
+                  + gauss(noise, xf[..., 6, :], xf[..., 7, :]))
+        return e_match, e_gapy
+
+    # inputs arrive aligned to the current window: p1m/p2m at source x-1,
+    # p1 at x; n1 at x, n1p/n2p/em2p at x+1
+    @staticmethod
+    def fwd_update_w(t, xf, e_match, e_gapy, p1m, p1, p2m):
+        e_gapx = xf[..., 8, :]
+        new_x = log_add3(p1m[0] + t[T_OX], p1m[1] + t[T_EX],
+                         p1m[2] + t[T_SX]) + e_gapx
+        new_m = log_add3(p2m[0] + t[T_MM], p2m[1] + t[T_XM],
+                         p2m[2] + t[T_YM]) + e_match
+        new_y = log_add(p1[0] + t[T_OY], p1[2] + t[T_EY]) + e_gapy
+        return [new_m, new_x, new_y]
+
+    @staticmethod
+    def bwd_update_w(t, e_gapx_p, eg1, em2p, n1, n1p, n2p):
+        mid = em2p + n2p[0]
+        bw_m = mid + t[T_MM]
+        bw_x = mid + t[T_XM]
+        bw_y = mid + t[T_YM]
+        up = eg1 + n1[2]
+        bw_m = log_add(bw_m, up + t[T_OY])
+        bw_y = log_add(bw_y, up + t[T_EY])
+        low = e_gapx_p + n1p[1]
+        bw_m = log_add(bw_m, low + t[T_OX])
+        bw_x = log_add(bw_x, low + t[T_EX])
+        bw_y = log_add(bw_y, low + t[T_SX])
+        return [bw_m, bw_x, bw_y]
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch passes: every read of every group at once, one Python step
+# per diagonal.  Tensors are [G, R, W] per state; the per-group window
+# shifts become gathers along the lane axis.
+# ---------------------------------------------------------------------------
+
+class _Frame:
+    """Per-call views shared by the two plain passes."""
+
+    def __init__(self, scal, win, xf, yf, basef, widthf, R, W):
+        self.G = win.shape[0]
+        self.R, self.W = R, W
+        dev = xf.device
+        self.t = scal.reshape(-1).to(torch.float32)
+        self.win = win.to(torch.int64)
+        self.lane = torch.arange(W, device=dev)
+        self.xf = xf.reshape(self.G, R, xf.shape[1], xf.shape[2])
+        self.yf = yf.reshape(self.G, R, yf.shape[1], yf.shape[2])
+        self.basef = basef.reshape(self.G, R, -1)
+        self.widthf = widthf.reshape(self.G, R, -1)
+
+    def align(self, v, s):
+        """out[g, r, l] = v[g, r, l + s[g]]; NEG where l + s[g] falls
+        outside [0, W) (never a wrap)."""
+        j = self.lane[None, :] + s[:, None]                  # [G, W]
+        ok = (j >= 0) & (j < self.W)
+        jc = j.clamp(0, self.W - 1)[:, None, :].expand_as(v)
+        return torch.where(ok[:, None, :], torch.gather(v, 2, jc), NEG)
+
+    def cols(self, plane, start):
+        """plane[g, r, row, start[g] + l] -> [G, R, rows, W]."""
+        j = (start[:, None] + self.lane[None, :]).clamp(
+            max=plane.shape[-1] - 1)
+        j = j[:, None, None, :].expand(self.G, self.R, plane.shape[2], self.W)
+        return torch.gather(plane, 3, j)
+
+    def xcoord(self, w):
+        return (self.lane[None, :] + w[:, None])[:, None, :]   # [G, 1, W]
+
+    def band(self, d, w):
+        base = self.basef[:, :, d:d + 1]
+        width = self.widthf[:, :, d:d + 1]
+        xl = self.xcoord(w).to(torch.float32)
+        return (xl >= base) & (xl < base + width)
+
+    def emissions(self, d, w, C):
+        """(x-feature rows, match, gap-Y emission) of diagonal d at
+        x = w[g] + l."""
+        xfw = self.cols(self.xf, w)
+        ys = self.cols(self.yf, C - d + w)
+        return (xfw,) + StrawmanSpec.emissions(xfw, ys[:, :, 0], ys[:, :, 1])
+
+
+def forward_plain(scal, win, xf, yf, basef, widthf, *, R, W, ND, C):
+    """Plain PyTorch forward pass: fwd plane [G, ND+1, 3, R, W] (f32).
+    Out-of-band cells hold exactly NEG."""
+    forward_plain.calls += 1
+    fr = _Frame(scal, win, xf, yf, basef, widthf, R, W)
+    t, S = fr.t, StrawmanSpec.S
+    out = torch.empty((fr.G, ND + 1, S, R, W), dtype=torch.float32,
+                      device=xf.device)
+    w0 = fr.win[:, 0]
+    m0 = fr.band(0, w0)
+    prev1 = [torch.where(m0, t[StrawmanSpec.NS + i], NEG) for i in range(S)]
+    prev2 = [torch.full((fr.G, R, W), NEG, device=xf.device)] * S
+    for i in range(S):
+        out[:, 0, i] = prev1[i]
+    for d in range(1, ND + 1):
+        w = fr.win[:, d]
+        s1 = w - fr.win[:, d - 1]
+        s2 = w - fr.win[:, max(d - 2, 0)]
+        p1m = [fr.align(v, s1 - 1) for v in prev1]
+        p1a = [fr.align(v, s1) for v in prev1]
+        p2m = [fr.align(v, s2 - 1) for v in prev2]
+        xfw, e_match, e_gapy = fr.emissions(d, w, C)
+        new = StrawmanSpec.fwd_update_w(t, xfw, e_match, e_gapy, p1m, p1a,
+                                        p2m)
+        mask = fr.band(d, w)
+        new = [torch.where(mask, v, NEG) for v in new]
+        for i in range(S):
+            out[:, d, i] = new[i]
+        prev2, prev1 = prev1, new
+    return out
+
+
+forward_plain.calls = 0
+
+
+def _masked_lse(v, mask):
+    """Per-read log-sum-exp over the lanes inside ``mask`` -> [G, R, 1]."""
+    vv = torch.where(mask, v, NEG)
+    m = vv.amax(dim=-1, keepdim=True)
+    s = torch.where(mask, torch.exp(vv - m), 0.0).sum(dim=-1, keepdim=True)
+    return m + torch.log(torch.clamp(s, min=1e-37))
+
+
+def backward_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
+                   R, W, ND, C):
+    """Plain PyTorch posterior backward: (posts [G, ND+1, R, W],
+    totals [G, R]).  Match posterior exp(min(f + b - total, 0.69)) on
+    in-band cells with 0 < x < d, 0 elsewhere and on diagonal 0; the total
+    is the masked log-sum-exp of f + b at each read's seed diagonal."""
+    backward_plain.calls += 1
+    fr = _Frame(scal, win, xf, yf, basef, widthf, R, W)
+    t, S, NS = fr.t, StrawmanSpec.S, StrawmanSpec.NS
+    G, dev = fr.G, xf.device
+    seed = seedf.reshape(G, R, -1)
+    ragged = raggedf.reshape(G, R, -1)
+    posts = torch.empty((G, ND + 1, R, W), dtype=torch.float32, device=dev)
+    posts[:, 0] = 0.0
+    neg = torch.full((G, R, W), NEG, device=dev)
+    n1 = [neg] * S          # bwd[d+1], raw at window w_{d+1}
+    n2 = [neg] * S          # bwd[d+2], raw at window w_{d+2}
+    total = torch.full((G, R, 1), NEG, device=dev)
+    _, em_c, _ = fr.emissions(ND + 2, fr.win[:, ND + 1], C)  # at w_{d+1}
+    for d in range(ND, 0, -1):
+        w = fr.win[:, d]
+        w1 = fr.win[:, d + 1]
+        w2 = fr.win[:, d + 2]
+        sa = seed[:, :, d:d + 1] != 0.0                      # [G, R, 1]
+        ra = ragged[:, :, d:d + 1] != 0.0
+        n1 = [torch.where(sa, NEG, v) for v in n1]
+        n2 = [torch.where(sa, NEG, v) for v in n2]
+        o1 = w - w1
+        o2 = w - w2
+        n1a = [fr.align(v, o1) for v in n1]
+        n1p = [fr.align(v, o1 + 1) for v in n1]
+        n2p = [fr.align(v, o2 + 1) for v in n2]
+        em2p = fr.align(em_c, o1 + 1)
+        _, em1, eg1 = fr.emissions(d + 1, w, C)
+        # gap-X emission at x+1 (clamped at the x range's end: that lane
+        # lies outside every band)
+        e_gapx_p = fr.cols(fr.xf[:, :, 8:9], w + 1)[:, :, 0]
+        bw = StrawmanSpec.bwd_update_w(t, e_gapx_p, eg1, em2p, n1a, n1p,
+                                       n2p)
+        mask = fr.band(d, w)
+        seed_in = sa & mask
+        bw = [torch.where(seed_in,
+                          torch.where(ra, t[NS + 2 * S + i], t[NS + S + i]),
+                          torch.where(mask, v, NEG))
+              for i, v in enumerate(bw)]
+        f = [fwd[:, d, i] for i in range(S)]
+        prod = f[0] + bw[0]
+        for i in range(1, S):
+            prod = log_add(prod, f[i] + bw[i])
+        total = torch.where(sa, _masked_lse(prod, mask), total)
+        xl = fr.xcoord(w)
+        ok = mask & (xl > 0) & (xl < d)
+        posts[:, d] = torch.where(
+            ok, torch.exp(torch.clamp(f[0] + bw[0] - total, max=0.69)), 0.0)
+        n2, n1, em_c = n1, bw, em1
+    return posts, total[..., 0]
+
+
+backward_plain.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: plain version on the CPU, CUDA kernel on the card.
+# ---------------------------------------------------------------------------
+
+def _check_cuda_inputs(named, dtypes, device):
+    for name, tns in named.items():
+        if tns.device != device:
+            raise ValueError(f"{name} is on {tns.device}, expected {device}")
+        if tns.dtype != dtypes.get(name, torch.float32):
+            raise ValueError(f"{name} has dtype {tns.dtype}")
+        if not tns.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(tns):
+    return ctypes.c_void_p(tns.data_ptr())
+
+
+def _raise_on(code, lib, what):
+    if code != 0:
+        msg = lib.wavefront_error_string(code).decode()
+        raise RuntimeError(f"{what} failed to launch: CUDA error {code} "
+                           f"({msg})")
+
+
+def _geometry(win, xf, yf, R, W, ND):
+    G, NDp = win.shape
+    if ND + 3 > NDp:
+        raise ValueError(f"win has {NDp} diagonals, need ND+3 = {ND + 3}")
+    if xf.shape[0] != G * R or yf.shape[0] != G * R:
+        raise ValueError(f"xf/yf hold {xf.shape[0]}/{yf.shape[0]} reads, "
+                         f"expected G*R = {G * R}")
+    if W > 1024 or W % 32:
+        raise ValueError(
+            f"group window W={W} does not fit one thread per lane (a "
+            "multiple of 32, at most 1024): lower the group size or batch "
+            "shape-homogeneous reads so that the group window stays narrow")
+    return G, NDp, xf.shape[2], yf.shape[2]
+
+
+def wavefront_fwd(scal, win, xf, yf, basef, widthf, *, R, W, ND, C):
+    """Forward wavefront -> fwd plane [G, ND+1, 3, R, W] f32.  Plain
+    PyTorch for CPU tensors; the CUDA kernel ``sm3_fwd_kernel`` for CUDA
+    tensors (replaces cpecan_tpu/ops/pallas_fb.py:635
+    _sm3_forward_kernel)."""
+    if xf.device.type == "cpu":
+        return forward_plain(scal, win, xf, yf, basef, widthf, R=R, W=W,
+                             ND=ND, C=C)
+    if xf.device.type != "cuda":
+        raise ValueError(f"no wavefront kernel for device {xf.device}")
+    from .cuda_build import load_library
+
+    G, NDp, X, Y = _geometry(win, xf, yf, R, W, ND)
+    _check_cuda_inputs(dict(scal=scal, win=win, xf=xf, yf=yf, basef=basef,
+                            widthf=widthf), {"win": torch.int32}, xf.device)
+    lib = load_library()
+    fwd = torch.empty((G, ND + 1, StrawmanSpec.S, R, W), dtype=torch.float32,
+                      device=xf.device)
+    stream = torch.cuda.current_stream(xf.device).cuda_stream
+    code = lib.wavefront_fwd(_ptr(scal), _ptr(win), _ptr(xf), _ptr(yf),
+                             _ptr(basef), _ptr(widthf), _ptr(fwd), G, R, W,
+                             ND, NDp, X, C, Y, ctypes.c_void_p(stream))
+    _raise_on(code, lib, "wavefront_fwd")
+    wavefront_fwd.launches += 1
+    return fwd
+
+
+wavefront_fwd.launches = 0
+
+
+def wavefront_bwd(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
+                  R, W, ND, C):
+    """Posterior backward -> (posts [G, ND+1, R, W], totals [G, R]) f32.
+    Plain PyTorch for CPU tensors; the CUDA kernel ``sm3_bwd_kernel`` for
+    CUDA tensors (replaces cpecan_tpu/ops/pallas_fb.py:857/:900
+    _sm3_backward_kernel, with_exp=False)."""
+    if xf.device.type == "cpu":
+        return backward_plain(scal, win, xf, yf, basef, widthf, seedf,
+                              raggedf, fwd, R=R, W=W, ND=ND, C=C)
+    if xf.device.type != "cuda":
+        raise ValueError(f"no wavefront kernel for device {xf.device}")
+    from .cuda_build import load_library
+
+    G, NDp, X, Y = _geometry(win, xf, yf, R, W, ND)
+    if tuple(fwd.shape) != (G, ND + 1, StrawmanSpec.S, R, W):
+        raise ValueError(f"fwd plane has shape {tuple(fwd.shape)}")
+    _check_cuda_inputs(dict(scal=scal, win=win, xf=xf, yf=yf, basef=basef,
+                            widthf=widthf, seedf=seedf, raggedf=raggedf,
+                            fwd=fwd), {"win": torch.int32}, xf.device)
+    lib = load_library()
+    posts = torch.empty((G, ND + 1, R, W), dtype=torch.float32,
+                        device=xf.device)
+    totals = torch.empty((G, R), dtype=torch.float32, device=xf.device)
+    stream = torch.cuda.current_stream(xf.device).cuda_stream
+    code = lib.wavefront_bwd(_ptr(scal), _ptr(win), _ptr(xf), _ptr(yf),
+                             _ptr(basef), _ptr(widthf), _ptr(seedf),
+                             _ptr(raggedf), _ptr(fwd), _ptr(posts),
+                             _ptr(totals), G, R, W, ND, NDp, X, C, Y,
+                             ctypes.c_void_p(stream))
+    _raise_on(code, lib, "wavefront_bwd")
+    wavefront_bwd.launches += 1
+    return posts, totals
+
+
+wavefront_bwd.launches = 0
+
+
+def reset_counts():
+    """Zero every launch and plain-call counter of this module."""
+    wavefront_fwd.launches = wavefront_bwd.launches = 0
+    forward_plain.calls = backward_plain.calls = 0

@@ -1,0 +1,131 @@
+"""Per-read feature inputs of the strawman wavefront kernels.
+
+Host side (numpy): compact uploads, counterparts of ``pallas_fb.py``
+``_quantize_events`` (:1331), ``_base_codes`` (:1360) and
+``StrawmanPallasAligner._feature_inputs`` (:1509).
+
+Device side (torch): ``dequantize_events`` (``_dequantize_events`` :1352),
+``kx_from_codes`` (``_kx_from_codes`` :1376) and ``assemble_features``
+(``StrawmanPallasAligner._assemble_fn`` :1525-1573), which gathers the
+per-x model rows ``xf`` [B, 9, X] and lays the events out flipped in ``yf``
+[B, 2, C+X+256].
+"""
+
+import numpy as np
+import torch
+
+from cpecan_tpu.constants import KMER_LENGTH, N_SENTINEL, NUM_OF_KMERS
+from cpecan_tpu.models import kmers as K
+
+from .fb_kernels import NEG
+
+
+def quantize_events(ev):
+    """Per-channel affine u16 quantization ([B, E, C] f32 -> u16 codes +
+    [2C] f32 scales).  Code 0 is reserved for exact 0.0 (padding), so the
+    no-event value survives bit-exactly; real values map to 1..65535."""
+    C = ev.shape[-1]
+    flat = ev.reshape(-1, C)
+    # range over the real (nonzero) values: zeros are padding
+    masked = np.where(flat == 0.0, np.nan, flat)
+    lo = np.nan_to_num(np.nanmin(masked, axis=0), nan=0.0)
+    hi = np.nan_to_num(np.nanmax(masked, axis=0), nan=0.0)
+    sc = np.maximum((hi - lo) / 65534.0, 1e-12).astype(np.float32)
+    q = np.rint((ev - lo) / sc).astype(np.int64) + 1
+    q = np.where(ev == 0.0, 0, np.clip(q, 1, 65535)).astype(np.uint16)
+    return q, np.concatenate([sc, lo.astype(np.float32)])
+
+
+def base_codes(reads, X):
+    """Per-read base codes [B, X + KMER_LENGTH - 1] u8: position x holds
+    ref[x - 1] as 0..3 (A,C,G,T), 4 for N / padding / the x=0 boundary."""
+    codes = np.full((len(reads), X + KMER_LENGTH - 1), 4, dtype=np.uint8)
+    for r, (ref, *_rest) in enumerate(reads):
+        b = K.seq_to_base_indices(ref)
+        codes[r, 1:1 + len(b)] = np.minimum(b, 4)
+    return codes
+
+
+def feature_inputs(reads, X):
+    """Compact per-read inputs for the device-side assembly: base codes
+    [B, X+5] u8, events [B, E+1, 2] quantized to u16 (+4 f32 scales), and
+    the f32 events they came from."""
+    B = len(reads)
+    max_ev = max(r[1].shape[0] for r in reads)
+    ev = np.zeros((B, max_ev + 1, 2), np.float32)
+    for r, (_ref, events, _l_x, _l_y, _a) in enumerate(reads):
+        ev[r, 1:1 + len(events), :] = events[:, :2]
+    evq, evs = quantize_events(ev)
+    return dict(ev=ev, codes=base_codes(reads, X), evq=evq, evs=evs)
+
+
+def upload_u16(a, device):
+    """A u16 numpy array on ``device`` as its int16 bit pattern (2 bytes
+    per value on the wire; torch's uint16 support on CUDA is partial)."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).to(
+        device)
+
+
+def dequantize_events(evq, evs):
+    """Inverse of quantize_events on the device: ``evq`` is the int16 bit
+    pattern of the u16 codes [..., C] (upload_u16), ``evs`` the [2C] f32
+    scales -> f32 [..., C]."""
+    C = evq.shape[-1]
+    sc, lo = evs[:C], evs[C:]
+    q = evq.to(torch.int32) & 0xFFFF
+    return torch.where(q == 0, 0.0, _fma(q.to(torch.float32) - 1.0, sc, lo))
+
+
+def _fma(a, b, c):
+    """f32 a * b + c rounded once, like the fused multiply-add that XLA
+    emits for the JAX assembly (the f64 product of two f32 is exact)."""
+    return (a.to(torch.float64) * b.to(torch.float64)
+            + c.to(torch.float64)).to(torch.float32)
+
+
+def kx_from_codes(codes):
+    """[B, X + K - 1] u8 base codes -> [B, X] int64 kmer indices; any
+    window holding a non-ACGT code -> N_SENTINEL."""
+    c = codes.to(torch.int64)
+    X = c.shape[1] - (KMER_LENGTH - 1)
+    kx = torch.zeros((c.shape[0], X), dtype=torch.int64, device=c.device)
+    ok = torch.ones((c.shape[0], X), dtype=torch.bool, device=c.device)
+    for i in range(KMER_LENGTH):
+        ci = c[:, i:i + X]
+        kx = kx + ci * (4 ** (KMER_LENGTH - 1 - i))
+        ok = ok & (ci < 4)
+    return torch.where(ok, kx, N_SENTINEL)
+
+
+def assemble_features(codes, evq, evs, mm, gm, gapx, C, Y, sp=None):
+    """(xf [B, 9, X], yf [B, 2, Y]) f32 on the inputs' device.
+
+    ``mm`` [4096, 5] / ``gm`` [4096, 4] / ``gapx`` [4096] are the machine's
+    tables.  With ``sp`` [B, 5] = (scale, shift, var, scale_sd, var_sd)
+    the match rows are scaled per read (emissions_signal_scaleModel,
+    impl/stateMachine.c:632-674), so one unscaled table serves a batch."""
+    kx = kx_from_codes(codes)
+    ev = dequantize_events(evq, evs)
+    valid = kx <= NUM_OF_KMERS
+    safe = kx.clamp(0, NUM_OF_KMERS - 1)
+    if sp is None:
+        rows = [torch.where(valid, mm[safe, c], 0.0) for c in range(4)]
+    else:
+        scale, shift, var, scale_sd, var_sd = (sp[:, i:i + 1]
+                                               for i in range(5))
+        lvl_mu = _fma(mm[safe, 0], scale, shift)
+        lvl_sd = mm[safe, 1] * var
+        nz_mu = mm[safe, 2] * scale_sd
+        # x ** 3 as two products, as XLA's integer_pow computes it
+        nz_sd = torch.sqrt(nz_mu * nz_mu * nz_mu
+                           / torch.clamp(mm[safe, 4] * var_sd, min=1e-30))
+        rows = [torch.where(valid, r, 0.0)
+                for r in (lvl_mu, lvl_sd, nz_mu, nz_sd)]
+    rows += [torch.where(valid, gm[safe, c], 0.0) for c in range(4)]
+    rows += [torch.clamp(torch.where(valid, gapx[safe], NEG), min=NEG)]
+    xf = torch.stack(rows, dim=1).to(torch.float32)
+    B, E, _ = ev.shape
+    n = min(E, C + 1)  # y in [0, C] maps to column C - y >= 0
+    yf = torch.zeros((B, 2, Y), dtype=torch.float32, device=xf.device)
+    yf[:, :, C - n + 1:C + 1] = ev[:, :n, :].flip(1).transpose(1, 2)
+    return xf.contiguous(), yf

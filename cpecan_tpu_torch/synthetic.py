@@ -1,0 +1,59 @@
+"""Synthetic signal reads at realistic scale, made from a seed (counterpart
+of ``__graft_entry__._synthetic_batch``; the same numpy rng call sequence,
+so both packages get byte-identical reads for the same seed)."""
+
+import numpy as np
+
+from cpecan_tpu.constants import KMER_LENGTH, MODEL_PARAMS, NUM_OF_KMERS
+from cpecan_tpu.io.poremodel import PoreModel
+from cpecan_tpu.models.kmers import seq_to_kmer_indices
+
+from .models.state_machines import StateMachine3SignalStrawman
+
+
+def synthetic_batch(n_reads=4, n_ref=160, n_events=150, seed=0,
+                    shape_jitter=0.0):
+    """(machine, reads): a random pore model and ``n_reads`` reads
+    (ref, events [n, 3], l_x, l_y, anchors) whose events follow the model
+    means along the diagonal.
+
+    ``shape_jitter`` > 0 draws each read's (n_ref, n_events) uniformly from
+    [(1-jitter), 1.0] x the nominal sizes."""
+    rng = np.random.default_rng(seed)
+    model_rows = np.zeros((NUM_OF_KMERS, MODEL_PARAMS))
+    model_rows[:, 0] = rng.uniform(50.0, 80.0, NUM_OF_KMERS)  # level mean
+    model_rows[:, 1] = rng.uniform(0.5, 1.5, NUM_OF_KMERS)    # level sd
+    model_rows[:, 2] = rng.uniform(0.5, 1.5, NUM_OF_KMERS)    # noise mean
+    model_rows[:, 3] = rng.uniform(0.05, 0.2, NUM_OF_KMERS)   # noise sd
+    model_rows[:, 4] = rng.uniform(0.5, 2.0, NUM_OF_KMERS)    # noise lambda
+    model = PoreModel(0.0, model_rows, np.full(30, 0.3), 0.0,
+                      model_rows.copy())
+    sm = StateMachine3SignalStrawman(model)
+
+    reads = []
+    for _ in range(n_reads):
+        r_ref, r_events = n_ref, n_events
+        if shape_jitter:
+            r_ref = int(rng.integers(int(n_ref * (1 - shape_jitter)),
+                                     n_ref + 1))
+            r_events = int(rng.integers(int(n_events * (1 - shape_jitter)),
+                                        n_events + 1))
+        ref = "".join(rng.choice(list("ACGT"), r_ref))
+        l_x = r_ref - (KMER_LENGTH - 1)
+        kidx = seq_to_kmer_indices(ref)
+        ev = np.zeros((r_events, 3))
+        for i in range(r_events):
+            k = kidx[min(int(i * l_x / r_events), l_x - 1)]
+            ev[i, 0] = model_rows[k, 0] + rng.normal(0, 1.0)
+            ev[i, 1] = max(model_rows[k, 2] + rng.normal(0, 0.1), 0.05)
+            ev[i, 2] = 0.05
+        anchors = []
+        px = py = -1
+        for j in range(1, 10):
+            x = int(j * (l_x - 2) / 10) + 1
+            y = int(j * (r_events - 2) / 10) + 1
+            if x > px and y > py:
+                anchors.append((x, y))
+                px, py = x, y
+        reads.append((ref, ev, l_x, r_events, anchors))
+    return sm, reads

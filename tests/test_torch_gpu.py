@@ -1,0 +1,111 @@
+"""The port's CUDA kernels on the card against their plain PyTorch versions
+(the versions that tests/test_torch_kernels.py and tests/test_torch_run.py
+hold against the JAX package on the CPU).
+
+Needs a CUDA GPU; skips without one.  Imports no JAX, so it runs where
+JAX is not installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import pytest
+import torch
+
+from cpecan_tpu_torch.align import AlignmentParams
+from cpecan_tpu_torch.fixtures import load_zymo_slice
+from cpecan_tpu_torch.models.state_machines import \
+    StateMachine3SignalStrawman
+from cpecan_tpu_torch.ops import fb_kernels as fk
+from cpecan_tpu_torch.ops.compact import (extract_pairs_auto,
+                                          extract_pairs_chunk)
+from cpecan_tpu_torch.ops.fb import StrawmanAligner
+from cpecan_tpu_torch.parity import (band_mask, check_fwd, check_pairs,
+                                     check_posts, check_totals)
+from cpecan_tpu_torch.synthetic import synthetic_batch
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def batch():
+    # ragged shapes in one group of 8: the group window widens past 128
+    return synthetic_batch(n_reads=8, n_ref=300, n_events=260, seed=5,
+                           shape_jitter=0.4)
+
+
+def _fwd(inp, dims, fn):
+    return fn(inp["scal"], inp["win"], inp["xf"], inp["yf"], inp["basef"],
+              inp["widthf"], **dims)
+
+
+def _bwd(inp, dims, fwd, fn):
+    return fn(inp["scal"], inp["win"], inp["xf"], inp["yf"], inp["basef"],
+              inp["widthf"], inp["seedf"], inp["raggedf"], fwd, **dims)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_cuda_kernels_match_plain(batch, cuda, ragged):
+    """Both kernels against their plain versions on the same card inputs
+    (the plain backward is fed the kernel's forward plane)."""
+    sm, reads = batch
+    pa = StrawmanAligner(device=cuda, group=8)
+    prep = pa.prepare(sm, reads, ragged_right=ragged)
+    inp = pa.device_inputs(sm, prep, ragged_left=ragged)
+    dims = dict(R=prep["R"], W=prep["W"], ND=prep["ND"], C=prep["C"])
+    fk.reset_counts()
+    fwd = _fwd(inp, dims, fk.wavefront_fwd)
+    posts, totals = _bwd(inp, dims, fwd, fk.wavefront_bwd)
+    torch.cuda.synchronize()
+    assert fk.wavefront_fwd.launches == fk.wavefront_bwd.launches == 1
+    assert fk.forward_plain.calls == fk.backward_plain.calls == 0
+    check_fwd(fwd, _fwd(inp, dims, fk.forward_plain),
+              band_mask(prep, inp["basef"], inp["widthf"]))
+    pposts, ptotals = _bwd(inp, dims, fwd, fk.backward_plain)
+    assert torch.all(posts[:, 0] == 0.0)
+    check_posts(posts, pposts)
+    check_totals(totals, ptotals)
+
+
+def test_cuda_run_matches_cpu_run(batch, cuda):
+    """The whole run on the card against the same run on the CPU (plain
+    passes): equal pair sets up to the threshold fringe."""
+    sm, reads = batch
+    thr = AlignmentParams().threshold
+    got = StrawmanAligner(device=cuda, group=8).run(
+        sm, reads, ragged_left=True, compact_k=256)
+    want = StrawmanAligner(device="cpu", group=8).run(
+        sm.to("cpu"), reads, ragged_left=True, compact_k=256)
+    check_posts(got["posteriors"], want["posteriors"])
+    nds = [b.n_diag for b in got["prep"]["bands"]]
+    gparts = extract_pairs_chunk(got, list(range(len(reads))), nds, thr)
+    wparts = extract_pairs_chunk(want, list(range(len(reads))), nds, thr)
+    for i in range(len(reads)):
+        check_pairs(gparts[i].tolist(), wparts[i].tolist(), got, want, i,
+                    thr)
+
+
+def test_cuda_zymo_matches_f64_engine(cuda):
+    model, read, want = load_zymo_slice()
+    thr = AlignmentParams().threshold
+    out = StrawmanAligner(device=cuda, group=1).run(
+        StateMachine3SignalStrawman(model), [read])
+    got = {(x, y) for _, x, y in extract_pairs_auto(
+        out, 0, out["prep"]["bands"][0].n_diag, thr)}
+    want = {(int(x), int(y)) for _, x, y in want}
+    assert len(got ^ want) <= 2 and len(got & want) >= 980
+
+
+def test_wide_group_window_raises(cuda):
+    """W past one thread per lane is refused with the remedy named."""
+    t = torch.zeros((1, 9, 2048), device=cuda)
+    with pytest.raises(ValueError, match="group window"):
+        fk.wavefront_fwd(t, torch.zeros((1, 512), dtype=torch.int32,
+                                        device=cuda), t, t, t, t, R=1,
+                         W=2048, ND=4, C=7)
