@@ -16,7 +16,19 @@ fast path through them:
    of 64 reads, compact_k=1024, then extract_pairs_chunk; end-to-end
    alignments/s and band cells/s (median of 3 after a warm-up), with the
    kernels' launch counts;
-6. forward + backward device time on the whole batch, kernels vs plain.
+6. forward + backward device time on the whole batch, kernels vs plain;
+7. the EM expectation backward against its plain version on the first 32
+   bench reads (ragged ends, per-read scaling), with the untrained machine
+   and with the Zymo fixture's trained one (Y -> X open): forward planes,
+   posteriors, totals and transition sums equal bit for bit, gap-X
+   columns within parity.KERNEL_GAPX_ATOL, the finalized expectations of
+   both, and their times;
+8. two Baum-Welch iterations of trainModels on the Zymo read (both
+   strands) against the JAX package's stored result;
+9. the trainer at full width: three EM iterations (E-step, merge and
+   normalize, a new machine) over the 256-read bench batch, with the
+   E-step rate on bench.py's signal_em shape (128 reads, one dispatch)
+   and a stage split of one E-step.
 
 Any failed check raises (exit code != 0).  The last two lines are a JSON
 record of the kernels and {"ok": true, "device": ...}.  Exits with 2 and
@@ -29,6 +41,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.modules["jax"] = None  # the port runs without JAX: any import fails
@@ -38,6 +51,8 @@ import torch
 BATCH = dict(n_reads=256, n_ref=905, n_events=800, seed=7)
 GROUP = CHUNK = 64
 COMPACT_K = 1024
+EM_GROUP = 32        # the JAX package's EM group (bench_signal_em)
+EM_ITERATIONS = 3
 DEVICE = "cuda"
 
 
@@ -74,8 +89,11 @@ def main():
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
     from cpecan_tpu_torch.align import AlignmentParams
-    from cpecan_tpu_torch.fixtures import load_zymo_slice
+    from cpecan_tpu_torch.fixtures import (load_zymo_slice, load_zymo_train,
+                                           zymo_trained_params)
     from cpecan_tpu_torch.models.state_machines import \
         StateMachine3SignalStrawman
     from cpecan_tpu_torch.ops import fb_kernels as fk
@@ -83,9 +101,15 @@ def main():
                                               extract_pairs_auto,
                                               extract_pairs_chunk)
     from cpecan_tpu_torch.ops.cuda_build import build_info, load_library
-    from cpecan_tpu_torch.ops.fb import StrawmanAligner
-    from cpecan_tpu_torch.parity import (band_mask, check_fwd, check_pairs,
-                                         check_posts, check_totals)
+    from cpecan_tpu_torch.ops.compact import host_array
+    from cpecan_tpu_torch.ops.fb import (StrawmanAligner, exp_dispatch,
+                                         exp_finalize)
+    from cpecan_tpu_torch.parity import (band_mask, check_exp_kernel,
+                                         check_expectations, check_fwd,
+                                         check_pairs, check_posts,
+                                         check_totals, check_trained)
+    from cpecan_tpu_torch.pipeline.train_models import (
+        TrainOptions, add_and_norm_expectations, strand_expectations, train)
     from cpecan_tpu_torch.synthetic import synthetic_batch
 
     dev = torch.device(DEVICE)
@@ -260,6 +284,162 @@ def main():
         f"({bcells / plain_ms * 1e3:.4g} band cells/s)")
     torch.cuda.synchronize()
 
+    # -- 7. K3 vs plain on the first 32 bench reads, training inputs -----
+    # the inputs of phase 9's E-step (ragged ends, per-read scaling), cut
+    # to their first group of 32 reads; once with the untrained machine
+    # (Y -> X closed: LOG_ZERO) and once with a trained one (Y -> X open)
+    em_sp = np.random.default_rng(4).uniform(0.95, 1.05, (len(reads), 5))
+    epa = StrawmanAligner(AlignmentParams(), device=dev, group=EM_GROUP)
+    full = epa.prepare(sm, reads, ragged_right=True, scale_params=em_sp)
+    n = EM_GROUP
+    eprep = dict(full, B=n, codes=full["codes"][:n], bands=full["bands"][:n])
+    edims = dict(R=n, W=full["W"], ND=full["ND"], C=full["C"])
+    tparams, tgap_x = zymo_trained_params()
+    machines = dict(untrained=sm, trained=StateMachine3SignalStrawman(
+        sm.model, params=tparams, gap_x_log_probs=tgap_x))
+    sx = fk.StrawmanSpec.EXP_LANES["sx"]
+    exp_err = 0.0
+    for name, machine in machines.items():
+        finp = epa.device_inputs(machine, full, ragged_left=True)
+        mb = [finp["scal"], finp["win"][:1]] + [
+            finp[k][:n] for k in ("xf", "yf", "basef", "widthf", "seedf",
+                                  "raggedf")]
+        efwd = fk.wavefront_fwd(*mb[:6], **edims)
+        pfwd = fk.forward_plain(*mb[:6], **edims)
+        if not torch.equal(efwd, pfwd):
+            raise AssertionError(
+                f"{name} machine: forward kernel differs from its plain "
+                f"version by {float((efwd - pfwd).abs().max())}")
+        ek = fk.wavefront_bwd_exp(*mb, efwd, **edims)
+        ep = fk.backward_exp_plain(*mb, efwd, **edims)
+        torch.cuda.synchronize()
+        e_gap = check_exp_kernel(ek, ep)
+        y_to_x = ek[2][..., sx]
+        if not bool(torch.all(y_to_x > 0) if name == "trained"
+                    else torch.all(y_to_x == 0)):
+            raise AssertionError(f"{name} machine: Y -> X sums {y_to_x}")
+        mexp, pexp = (exp_finalize(eprep, host_array(exp_dispatch(
+            o[2], o[3], o[1]))) for o in (ek, ep))
+        check_expectations(mexp, pexp)
+        exp_err = max(exp_err, e_gap)
+        if name == "untrained":
+            kexp, eb, ebfwd = mexp, mb, efwd
+        log(f"expectation kernel vs plain, {name} machine ({n} reads, "
+            f"ragged, scaled, ND={edims['ND']}, W={edims['W']}): fwd, "
+            f"posts, totals, trans equal; gapx max|d| {e_gap:.3g}; Y -> X "
+            f"sums {float(y_to_x.min()):.4g}-{float(y_to_x.max()):.4g}")
+    ms.update(
+        bwd_exp=cuda_ms(lambda: fk.wavefront_bwd_exp(*eb, ebfwd, **edims),
+                        5),
+        bwd_exp_plain=cuda_ms(lambda: fk.backward_exp_plain(
+            *eb, ebfwd, **edims), 1, warm=False))
+    log(f"expectation kernel ms ({n} reads, untrained machine): bwd_exp "
+        f"{ms['bwd_exp']:.3f} vs plain {ms['bwd_exp_plain']:.1f}")
+
+    # -- 8. Zymo training vs the JAX package's result ---------------------
+    zargs, zstored = load_zymo_train()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t_hmm, c_hmm, traj = train(
+            **zargs, out_template_hmm=os.path.join(tmp, "t.hmm"),
+            out_complement_hmm=os.path.join(tmp, "c.hmm"),
+            options=TrainOptions(iterations=len(zstored["trajectory"])),
+            log=lambda m: None, device=dev)
+    ztrans = check_trained(t_hmm, c_hmm, traj, zstored)
+    log(f"zymo training ({len(traj)} iterations, both strands) in "
+        f"{time.perf_counter() - t0:.2f} s: trajectory "
+        f"{[tuple(round(v, 2) for v in t) for t in traj]}, transitions "
+        f"max|d| {ztrans:.3g} vs the JAX package")
+
+    # -- 9. the trainer at full width -------------------------------------
+    em_kw = dict(expectations=True, ragged_left=True, ragged_right=True)
+    # the full-width E-step against phase 7's on the reads they share
+    first = epa.run(sm, reads, scale_params=em_sp, **em_kw)["expectations"]
+    first_err = check_expectations({k: v[:n] for k, v in first.items()},
+                                   kexp)
+
+    def em_iteration(machine):
+        accs = strand_expectations(machine, reads, em_sp, epa)
+        merged, lik = add_and_norm_expectations(accs)
+        params, gap_x = merged.to_sm3_params()
+        return StateMachine3SignalStrawman(
+            machine.model, params=params, gap_x_log_probs=gap_x), lik
+
+    fk.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    em_held = torch.cuda.memory_allocated()   # by the earlier phases
+    machine, liks, iter_s = sm, [], []
+    for _ in range(EM_ITERATIONS):
+        t0 = time.perf_counter()
+        machine, lik = em_iteration(machine)
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t0)
+        liks.append(lik)
+    em_launches = dict(wavefront_fwd=fk.wavefront_fwd.launches,
+                       wavefront_bwd_exp=fk.wavefront_bwd_exp.launches)
+    em_plain = (fk.forward_plain.calls + fk.backward_plain.calls
+                + fk.backward_exp_plain.calls)
+    em_peak = torch.cuda.max_memory_allocated()
+    if min(em_launches.values()) <= 0 or em_plain:
+        raise AssertionError(f"EM path launches {em_launches}, plain calls "
+                             f"{em_plain}")
+    if not all(np.isfinite(liks)):
+        raise AssertionError(f"EM likelihoods not finite: {liks}")
+    if not np.isfinite(machine.gap_x_log_probs).all():
+        raise AssertionError("trained gap-X table not finite")
+
+    # bench.py bench_signal_em: 128 reads, one dispatch, median of 3
+    em_sub = reads[:128]
+
+    def estep():
+        return epa.run(sm, em_sub, **em_kw)["expectations"]
+
+    estep()
+    em_times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        estep()
+        em_times.append(time.perf_counter() - t0)
+    em_rate = len(em_sub) / statistics.median(em_times)
+    log(f"EM at full width: {len(reads)} reads x {EM_ITERATIONS} "
+        f"iterations (first E-step vs phase 7's kernel run on its first "
+        f"{n} reads: trans max|d| {first_err:.3g}), likelihoods {liks}, s "
+        f"per iteration {[round(t, 4) for t in iter_s]}, peak device "
+        f"memory {em_peak / 1e9:.3f} GB ({em_held / 1e9:.3f} GB of it held "
+        f"before the EM run), launches {em_launches}, plain calls "
+        f"{em_plain}")
+    log(f"signal_em_estep_reads_per_sec {em_rate:.1f} ({len(em_sub)} reads, "
+        f"group {EM_GROUP}, one dispatch; median of "
+        f"{[round(t, 4) for t in em_times]} s)")
+
+    # where one E-step spends its time, each stage ended by a synchronize
+    est = dict.fromkeys(("prepare", "inputs", "fwd", "bwd_exp",
+                         "dispatch+D2H", "finalize"), 0.0)
+
+    def estage(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        est[name] += time.perf_counter() - t0
+        return res
+
+    sprep = estage("prepare", lambda: epa.prepare(sm, em_sub,
+                                                  ragged_right=True))
+    sinp = estage("inputs", lambda: epa.device_inputs(sm, sprep,
+                                                      ragged_left=True))
+    sd = dict(R=sprep["R"], W=sprep["W"], ND=sprep["ND"], C=sprep["C"])
+    sb = [sinp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf",
+                            "seedf", "raggedf")]
+    sfwd = estage("fwd", lambda: fk.wavefront_fwd(*sb[:6], **sd))
+    sout = estage("bwd_exp", lambda: fk.wavefront_bwd_exp(*sb, sfwd, **sd))
+    flat = estage("dispatch+D2H", lambda: host_array(exp_dispatch(
+        sout[2], sout[3], sout[1])))
+    estage("finalize", lambda: exp_finalize(sprep, flat))
+    est_total = sum(est.values())
+    log("E-step stages (s, share): " + ", ".join(
+        f"{k} {v:.4f} ({v / est_total:.1%})" for k, v in est.items()))
+    torch.cuda.synchronize()
+
     src = "cpecan_tpu_torch/csrc/wavefront.cu"
     log(json.dumps({"kernels": [
         {"name": "wavefront_fwd", "route": "cuda", "source": src,
@@ -270,6 +450,11 @@ def main():
          "replaces": "cpecan_tpu/ops/pallas_fb.py:857",
          "launches": launches["wavefront_bwd"], "max_abs_err": post_err,
          "ms": ms["bwd"], "plain_ms": ms["bwd_plain"]},
+        {"name": "wavefront_bwd_exp", "route": "cuda", "source": src,
+         "replaces": "cpecan_tpu/ops/pallas_fb.py:2221 (with_exp=True)",
+         "launches": em_launches["wavefront_bwd_exp"],
+         "max_abs_err": exp_err, "ms": ms["bwd_exp"],
+         "plain_ms": ms["bwd_exp_plain"]},
     ]}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

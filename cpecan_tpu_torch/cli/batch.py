@@ -1,0 +1,89 @@
+"""Batch CLIs of the port (a subset of ``cpecan_tpu/cli/batch.py``):
+
+  - cpecan-torch-train-models  <- scripts/trainModels.py (signal-HMM
+    Baum-Welch), the E-step on the wavefront kernels
+
+Guide alignments come from a cigar file (one exonerate cigar per read,
+query name == read name), read as the JAX CLI reads them.
+"""
+
+import argparse
+import glob
+import os
+import sys
+
+from cpecan_tpu.cli.batch import _load_guides
+
+# flags of the JAX CLI that neither trainer reads (every read with a guide
+# trains): accepted at their defaults, refused otherwise
+UNREAD_FLAGS = {"train_amount": 1_000_000, "threshold": 0.01}
+UNREAD_HELP = "not read by the trainer; only the default is accepted"
+
+
+def train_models_main(argv=None):
+    p = argparse.ArgumentParser(
+        prog="cpecan-torch-train-models",
+        description="Signal-HMM Baum-Welch (scripts/trainModels.py "
+                    "equivalent) on the PyTorch/CUDA port.")
+    p.add_argument("--file_directory", "-d", required=True)
+    p.add_argument("--ref", "-r", required=True,
+                   help="bare one-line reference sequence file")
+    p.add_argument("--output_location", "-o", required=True)
+    p.add_argument("--iterations", "-i", type=int, default=10)
+    p.add_argument("--train_amount", "-a", type=int,
+                   default=UNREAD_FLAGS["train_amount"], help=UNREAD_HELP)
+    p.add_argument("--stateMachineType", "-smt", default="threeState",
+                   choices=["threeState", "vanilla"])
+    p.add_argument("--threshold", "-t", type=float,
+                   default=UNREAD_FLAGS["threshold"], help=UNREAD_HELP)
+    p.add_argument("--templateModel", "-T", required=True,
+                   help="template pore model file")
+    p.add_argument("--complementModel", "-C", required=True)
+    p.add_argument("--guides", required=True,
+                   help="exonerate cigar file keyed by read name")
+    p.add_argument("--checkpoint_dir", default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--engine", default="pallas", choices=["scan", "pallas"],
+                   help="E-step engine: the batched wavefront kernels "
+                        "(pallas, threeState only) or the per-read scan "
+                        "engine (not ported yet)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the E-step: cuda runs the CUDA "
+                        "kernels, cpu their plain PyTorch versions")
+    args = p.parse_args(argv)
+    for name, default in UNREAD_FLAGS.items():
+        if getattr(args, name) != default:
+            p.error(f"--{name} has no effect on training (the JAX "
+                    f"package's trainer does not read it either); leave it "
+                    f"at {default}")
+
+    from ..pipeline.train_models import TrainOptions, train
+
+    log = lambda m: print(m, file=sys.stderr)
+    guides = _load_guides(args.guides)
+    pairs = []
+    for path in sorted(glob.glob(os.path.join(args.file_directory,
+                                              "*.npRead"))):
+        name = os.path.basename(path).replace(".npRead", "")
+        if name in guides:
+            pairs.append((path, guides[name][1]))
+        else:
+            log(f"no guide for {name}, skipping")
+    if not pairs:
+        p.error("no (npRead, guide) pairs found")
+    os.makedirs(args.output_location, exist_ok=True)
+    opts = TrainOptions(sm_type=args.stateMachineType,
+                        iterations=args.iterations, engine=args.engine)
+    _t_hmm, _c_hmm, trajectory = train(
+        args.ref, pairs, args.templateModel, args.complementModel,
+        os.path.join(args.output_location, "template_trained.hmm"),
+        os.path.join(args.output_location, "complement_trained.hmm"),
+        opts, log=log, checkpoint_dir=args.checkpoint_dir,
+        resume=args.resume, device=args.device)
+    for i, (t_lik, c_lik) in enumerate(trajectory):
+        print(f"iteration {i}\t{t_lik}\t{c_lik}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(train_models_main())

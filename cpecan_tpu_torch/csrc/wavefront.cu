@@ -2,14 +2,18 @@
 // strawman 3-state signal machine (getStrawManStateMachine3), for Hopper
 // (sm_90a).  Plain C entry points, loaded with ctypes by
 // cpecan_tpu_torch/ops/cuda_build.py and wrapped by
-// cpecan_tpu_torch/ops/fb_kernels.py (wavefront_fwd, wavefront_bwd).
+// cpecan_tpu_torch/ops/fb_kernels.py (wavefront_fwd, wavefront_bwd,
+// wavefront_bwd_exp).
 //
 // Replaces (TPU, Pallas):
-//   sm3_fwd_kernel  <- cpecan_tpu/ops/pallas_fb.py _sm3_forward_kernel
-//                      (:635, untiled, _StrawmanSpec)
-//   sm3_bwd_kernel  <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
-//                      -> _sm3_backward_body_w (:857, :900; with_exp=False,
-//                      untiled, _StrawmanSpec)
+//   sm3_fwd_kernel         <- cpecan_tpu/ops/pallas_fb.py _sm3_forward_kernel
+//                             (:635, untiled, _StrawmanSpec)
+//   sm3_bwd_kernel<false>  <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
+//                             -> _sm3_backward_body_w (:857, :900;
+//                             with_exp=False, untiled, _StrawmanSpec)
+//   sm3_bwd_kernel<true>   <- the same body with with_exp=True (EM
+//                             expectations: accumulate_exp :1072 and
+//                             _StrawmanSpec.exp_probs_w :215)
 //
 // Layout (identical to the JAX planes, index for index): G groups of R
 // reads, one group window of W lanes per diagonal starting at x = win[g, d],
@@ -21,6 +25,7 @@
 //   basef, widthf, seedf, raggedf  f32 [G*R, NDp]
 //   fwd    f32 [G, ND+1, 3, R, W]
 //   posts  f32 [G, ND+1, R, W],  totals f32 [G*R]
+//   trans  f32 [G*R, 9]  (lanes frm*3 + to),  gapx f32 [G*R, X]  (EM only)
 //
 // Design: one block per read (grid G*R), one thread per lane (W threads).
 // Each diagonal depends on the previous one or two through lane shifts of
@@ -36,6 +41,34 @@
 // design keeps every carry on chip, issues the plane writes coalesced over
 // lanes and never waits for them; the backward's plane reads are coalesced
 // and independent of the recurrence, so they overlap it.
+//
+// The EM expectations (sm3_bwd_kernel<true>) add, per step, the posterior
+// transition mass into one target diagonal t from sources on t-1 and t-2.
+// The JAX kernel adds target d+2 at step d, which needs fwd[d] shifted in
+// the same step it is fetched; here target t = d+3 is added at step d
+// instead, from fwd[d+1] and fwd[d+2], which sit in a shared-memory ring of
+// three [3, W] slots written one and two barriers ago, so the step keeps a
+// single barrier.  The lag is invisible in the result: a target above a
+// read's seed diagonal n lies outside its band (width 0), and below it the
+// total was already set at step n.  Targets 3, 2 and 1 follow the loop.
+// Where trouble lies, and what the kernel does about it:
+//  1. The seed cut: the target backward bwd[t] is the carry after the cuts
+//     at t-1 and t-2, applied on read (cut = sa(t-1) || sa(t-2)), as K2
+//     applies its cuts.
+//  2. total is updated at a step before that step's expectations.
+//  3. NEG arithmetic: before a read's seed diagonal total is NEG, so
+//     logp - total can be 0 and p 1; the cap min(logp - total, 10) keeps p
+//     finite and the multiply by the target's band mask zeroes it.
+//  4. A trained machine has a finite gap_switch_to_x (Y -> X); nothing
+//     here assumes it is NEG.
+//  5. Windows at the top: win is read up to ND + 2 (NDp >= ND + 3).
+//  6. No fallback: the build keeps --fmad=false and no fast math, and a
+//     failed build or launch raises in the wrapper.
+// The 9 transition sums are per-thread registers across the sweep, reduced
+// once at the end (block_sum, fixed order).  The gap-X mass goes to the
+// read's own row of gapx in global memory, column w_t + l; each column is
+// touched by one thread per target and the per-diagonal barrier orders the
+// read-modify-writes, so no atomics are needed.
 #include <cuda_runtime.h>
 
 #include "logspace.cuh"
@@ -183,6 +216,64 @@ __device__ float block_sum(float v, float* red) {
     return s;
 }
 
+// transition lanes (frm * 3 + to); lane 5 (X -> Y) stays 0
+enum { L_MM = 0, L_OX = 1, L_OY = 2, L_XM = 3, L_EX = 4, L_YM = 6, L_SX = 7,
+       L_EY = 8, NTRANS = 9 };
+
+__device__ __forceinline__ float exp_prob(float logp, float total) {
+    return expf(fminf(logp - total, 10.0f));
+}
+
+// Posterior transition mass into target diagonal tt at x = wt + l
+// (_StrawmanSpec.exp_probs_w + accumulate_exp): sources fm = fwd[tt - 2]
+// at window wm (nullptr for target 1: no middle source) and fl =
+// fwd[tt - 1] at window wl, both shared-memory slots [S][W]; b0..b2 the
+// target's backward at lane l, already cut.  With ``carried`` the JAX
+// kernel takes the target's emissions from last step's carry at window wl,
+// so lanes past that window read NEG there, and here.
+__device__ __forceinline__ void exp_target(
+        const float* t, const float* xb, const float* yb, int X, int Y,
+        int C, int tt, int wt, const float* fm, int wm, const float* fl,
+        int wl, float b0, float b1, float b2, float total, bool m,
+        bool carried, int l, int W, float* acc, float* gap_row) {
+    const int x = wt + l;
+    Emissions e = emissions_at(xb, yb, X, Y, x, C - tt + x);
+    if (carried) {
+        const int j = l + (wt - wl);
+        if (j < 0 || j >= W) e.match = e.gap_y = CPECAN_NEG;
+    }
+    const int sm = wt - wm - 1;
+    const int s1 = wt - wl;
+    const float f0m0 = fm ? shifted(fm, l, sm, W) : CPECAN_NEG;
+    const float f0m1 = fm ? shifted(fm + W, l, sm, W) : CPECAN_NEG;
+    const float f0m2 = fm ? shifted(fm + 2 * W, l, sm, W) : CPECAN_NEG;
+    const float f1m0 = shifted(fl, l, s1 - 1, W);
+    const float f1m1 = shifted(fl + W, l, s1 - 1, W);
+    const float f1m2 = shifted(fl + 2 * W, l, s1 - 1, W);
+    const float f1a0 = shifted(fl, l, s1, W);
+    const float f1a2 = shifted(fl + 2 * W, l, s1, W);
+    // middle: (tt-2, x-1) -> M; lower: (tt-1, x-1) -> X; upper: (tt-1, x)
+    // -> Y
+    const float mid = e.match + b0;
+    const float low = xb[8 * X + x] + b1;
+    const float up = e.gap_y + b2;
+    float p[NTRANS];
+    p[L_MM] = exp_prob(f0m0 + t[T_MM] + mid, total);
+    p[L_XM] = exp_prob(f0m1 + t[T_XM] + mid, total);
+    p[L_YM] = exp_prob(f0m2 + t[T_YM] + mid, total);
+    p[L_OX] = exp_prob(f1m0 + t[T_OX] + low, total);
+    p[L_EX] = exp_prob(f1m1 + t[T_EX] + low, total);
+    p[L_SX] = exp_prob(f1m2 + t[T_SX] + low, total);
+    p[L_OY] = exp_prob(f1a0 + t[T_OY] + up, total);
+    p[L_EY] = exp_prob(f1a2 + t[T_EY] + up, total);
+    p[5] = 0.0f;
+    const float mf = m ? 1.0f : 0.0f;
+#pragma unroll
+    for (int k = 0; k < NTRANS; ++k) acc[k] += p[k] * mf;
+    gap_row[x] += (p[L_OX] + p[L_EX] + p[L_SX]) * mf;
+}
+
+template <bool WITH_EXP>
 __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
                                const int* __restrict__ win,
                                const float* __restrict__ xf,
@@ -193,15 +284,19 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
                                const float* __restrict__ raggedf,
                                const float* __restrict__ fwd,
                                float* __restrict__ posts,
-                               float* __restrict__ totals, int R, int W,
+                               float* __restrict__ totals,
+                               float* __restrict__ trans,
+                               float* __restrict__ gapx, int R, int W,
                                int ND, int NDp, int X, int C, int Y) {
     // ring [3 slots][S][W]: bwd[d] in slot d % 3 (raw, at window w_d);
     // em [2 slots][W]: match emission of diagonal d + 1 at x = w_d + l in
-    // slot d & 1; red [32]: reduction scratch
+    // slot d & 1; red [32]: reduction scratch; with the expectations,
+    // fsh [3 slots][S][W]: fwd[d] in slot d % 3
     extern __shared__ float smem[];
     float* ring = smem;
     float* em = smem + 3 * S * W;
     float* red = em + 2 * W;
+    float* fsh = red + 32;
     const int b = blockIdx.x;
     const int g = b / R;
     const int r = b - g * R;
@@ -240,6 +335,18 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
     }
     float total = CPECAN_NEG;
     bool cut_prev = false;  // the seed cut of diagonal d + 1
+    float acc[NTRANS];      // per-lane transition sums (expectations)
+    float* gap_row = nullptr;
+    if constexpr (WITH_EXP) {
+#pragma unroll
+        for (int k = 0; k < NTRANS; ++k) acc[k] = 0.0f;
+        gap_row = gapx + static_cast<size_t>(b) * X;
+        for (int c = l; c < X; c += W) gap_row[c] = 0.0f;
+        // fwd[ND + 1] = NEG: the lower/upper source of target ND + 2
+#pragma unroll
+        for (int i = 0; i < S; ++i)
+            fsh[(((ND + 1) % 3) * S + i) * W + l] = CPECAN_NEG;
+    }
     __syncthreads();
 
     for (int d = ND; d >= 1; --d) {
@@ -305,6 +412,29 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
         const float z = f0 + bm - total;
         pout[static_cast<size_t>(d) * pplane_d] =
             ok ? expf(fminf(z, 0.69f)) : 0.0f;
+        if constexpr (WITH_EXP) {
+            // target tt = d + 3 from fwd[d + 1] and fwd[d + 2]; its
+            // backward bwd[tt] is this lane's entry of the slot that
+            // bwd[d] overwrites below (no other thread reads that slot in
+            // this step)
+            const int tt = d + 3;
+            if (tt <= ND + 2) {
+                const bool cut = seed[tt - 1] != 0.0f || seed[tt - 2] != 0.0f;
+                const int wt = wg[tt];
+                exp_target(t, xb, yb, X, Y, C, tt, wt,
+                           fsh + ((tt - 2) % 3) * S * W, wg[tt - 2],
+                           fsh + ((tt - 1) % 3) * S * W, wg[tt - 1],
+                           cut ? CPECAN_NEG : cur[l],
+                           cut ? CPECAN_NEG : cur[W + l],
+                           cut ? CPECAN_NEG : cur[2 * W + l], total,
+                           in_band(wt + l, base[tt], width[tt]), true, l, W,
+                           acc, gap_row);
+            }
+            float* fs = fsh + (d % 3) * S * W;
+            fs[l] = f0;
+            fs[W + l] = f1;
+            fs[2 * W + l] = f2;
+        }
         cur[l] = bm;
         cur[W + l] = bx;
         cur[2 * W + l] = by;
@@ -313,12 +443,80 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
         __syncthreads();
     }
     if (l == 0) totals[b] = total;
+    if constexpr (WITH_EXP) {
+        // targets 3, 2 and 1.  The ring holds bwd[1], bwd[2], bwd[3] in
+        // slots 1, 2, 0 and fsh holds fwd[1], fwd[2] in slots 1, 2 (NEG
+        // where the diagonal lies past ND)
+        const float* b3 = ring;
+        const bool cut3 = seed[2] != 0.0f || seed[1] != 0.0f;
+        exp_target(t, xb, yb, X, Y, C, 3, wg[3], fsh + S * W, wg[1],
+                   fsh + 2 * S * W, wg[2], cut3 ? CPECAN_NEG : b3[l],
+                   cut3 ? CPECAN_NEG : b3[W + l],
+                   cut3 ? CPECAN_NEG : b3[2 * W + l], total,
+                   in_band(wg[3] + l, base[3], width[3]), true, l, W, acc,
+                   gap_row);
+        // fwd[0] into slot 0 (target 3 read slots 1 and 2 only)
+#pragma unroll
+        for (int i = 0; i < S; ++i)
+            fsh[i * W + l] = fin[static_cast<size_t>(i) * R * W];
+        __syncthreads();
+        const float* b2 = ring + 2 * S * W;
+        const bool cut2 = seed[1] != 0.0f;
+        exp_target(t, xb, yb, X, Y, C, 2, wg[2], fsh, wg[0], fsh + S * W,
+                   wg[1], cut2 ? CPECAN_NEG : b2[l],
+                   cut2 ? CPECAN_NEG : b2[W + l],
+                   cut2 ? CPECAN_NEG : b2[2 * W + l], total,
+                   in_band(wg[2] + l, base[2], width[2]), true, l, W, acc,
+                   gap_row);
+        __syncthreads();   // orders the gap_row columns of targets 2 and 1
+        // target 1: no middle source, emissions(1) fresh (not a carry)
+        const float* b1 = ring + S * W;
+        exp_target(t, xb, yb, X, Y, C, 1, wg[1], nullptr, 0, fsh, wg[0],
+                   b1[l], b1[W + l], b1[2 * W + l], total,
+                   in_band(wg[1] + l, base[1], width[1]), false, l, W, acc,
+                   gap_row);
+#pragma unroll
+        for (int k = 0; k < NTRANS; ++k) {
+            const float s = block_sum(acc[k], red);
+            if (l == 0) trans[static_cast<size_t>(b) * NTRANS + k] = s;
+        }
+    }
 }
 
 int launch_config_error(int W) {
     // one thread per lane: W must fill whole warps and fit one block
     if (W <= 0 || W % 32 != 0 || W > 1024) return cudaErrorInvalidValue;
     return cudaSuccess;
+}
+
+template <bool WITH_EXP>
+int launch_bwd(const void* scal, const void* win, const void* xf,
+               const void* yf, const void* basef, const void* widthf,
+               const void* seedf, const void* raggedf, const void* fwd,
+               void* posts, void* totals, void* trans, void* gapx, int G,
+               int R, int W, int ND, int NDp, int X, int C, int Y,
+               void* stream) {
+    if (int e = launch_config_error(W)) return e;
+    // ring + em + red, and fsh with the expectations
+    const size_t smem =
+        sizeof(float) * ((3 * S + 2) * W + 32 + (WITH_EXP ? 3 * S * W : 0));
+    if (smem > 48 * 1024) {
+        cudaFuncSetAttribute(sm3_bwd_kernel<WITH_EXP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    }
+    sm3_bwd_kernel<WITH_EXP>
+        <<<G * R, W, smem, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(scal), static_cast<const int*>(win),
+            static_cast<const float*>(xf), static_cast<const float*>(yf),
+            static_cast<const float*>(basef),
+            static_cast<const float*>(widthf),
+            static_cast<const float*>(seedf),
+            static_cast<const float*>(raggedf),
+            static_cast<const float*>(fwd), static_cast<float*>(posts),
+            static_cast<float*>(totals), static_cast<float*>(trans),
+            static_cast<float*>(gapx), R, W, ND, NDp, X, C, Y);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -353,21 +551,20 @@ int wavefront_bwd(const void* scal, const void* win, const void* xf,
                   const void* seedf, const void* raggedf, const void* fwd,
                   void* posts, void* totals, int G, int R, int W, int ND,
                   int NDp, int X, int C, int Y, void* stream) {
-    if (int e = launch_config_error(W)) return e;
-    const size_t smem = sizeof(float) * ((3 * S + 2) * W + 32);
-    if (smem > 48 * 1024) {
-        cudaFuncSetAttribute(sm3_bwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    }
-    sm3_bwd_kernel<<<G * R, W, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(scal), static_cast<const int*>(win),
-        static_cast<const float*>(xf), static_cast<const float*>(yf),
-        static_cast<const float*>(basef), static_cast<const float*>(widthf),
-        static_cast<const float*>(seedf), static_cast<const float*>(raggedf),
-        static_cast<const float*>(fwd), static_cast<float*>(posts),
-        static_cast<float*>(totals), R, W, ND, NDp, X, C, Y);
-    return static_cast<int>(cudaGetLastError());
+    return launch_bwd<false>(scal, win, xf, yf, basef, widthf, seedf,
+                             raggedf, fwd, posts, totals, nullptr, nullptr,
+                             G, R, W, ND, NDp, X, C, Y, stream);
+}
+
+int wavefront_bwd_exp(const void* scal, const void* win, const void* xf,
+                      const void* yf, const void* basef, const void* widthf,
+                      const void* seedf, const void* raggedf,
+                      const void* fwd, void* posts, void* totals,
+                      void* trans, void* gapx, int G, int R, int W, int ND,
+                      int NDp, int X, int C, int Y, void* stream) {
+    return launch_bwd<true>(scal, win, xf, yf, basef, widthf, seedf,
+                            raggedf, fwd, posts, totals, trans, gapx, G, R,
+                            W, ND, NDp, X, C, Y, stream);
 }
 
 }  // extern "C"

@@ -5,6 +5,12 @@ template strand) with its stored lastz anchors and the f64 scan engine's
 aligned pairs from ``tests/fixtures/zymo_template_slice.npz`` (built by
 ``tests/fixtures/make_zymo_template_slice.py``), so a check needs neither
 lastz nor JAX.
+
+``load_zymo_train`` gives what a training check of the same read needs:
+the lastz guide cigar and the JAX package's two-iteration trainModels
+result from ``tests/fixtures/zymo_train.npz`` (built by
+``tests/fixtures/make_zymo_train_fixture.py``); ``zymo_trained_params``
+the strawman machine parameters of its trained template HMM.
 """
 
 import os
@@ -13,12 +19,15 @@ import numpy as np
 
 from cpecan_tpu.constants import KMER_LENGTH
 from cpecan_tpu.fixtures import fixture_path
+from cpecan_tpu.io.cigar import parse_cigar_line
 from cpecan_tpu.io.npread import load_npread
 from cpecan_tpu.io.poremodel import load_pore_model, scale_model
+from cpecan_tpu.models.hmm import ContinuousPairHmm
 
-ZYMO_SLICE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "tests", "fixtures",
-    "zymo_template_slice.npz")
+_FIXTURES = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tests", "fixtures")
+ZYMO_SLICE = os.path.join(_FIXTURES, "zymo_template_slice.npz")
+ZYMO_TRAIN = os.path.join(_FIXTURES, "zymo_train.npz")
 
 
 def load_zymo_slice():
@@ -35,3 +44,38 @@ def load_zymo_slice():
     read = (ref, npr.template_events, len(ref) - (KMER_LENGTH - 1),
             npr.n_template_events, anchors)
     return model, read, stored["pairs"]
+
+
+def load_zymo_train():
+    """(train arguments, stored JAX result).  The arguments are a dict of
+    ``reference_path``, ``read_guide_pairs`` [(npRead path, guide
+    PairwiseAlignment)], ``template_model`` and ``complement_model`` for
+    ``pipeline.train_models.train``; the result holds ``t_trans``/
+    ``c_trans`` [3, 3], ``t_kmer_gap``/``c_kmer_gap`` [4096] and
+    ``trajectory`` [iterations, 2], the same HMMs after the first
+    iteration as ``t1_*``/``c1_*``, and ``guide``, the cigar line."""
+    with np.load(ZYMO_TRAIN) as z:
+        stored = {k: z[k] for k in z.files}
+    args = dict(
+        reference_path=fixture_path("ZymoRef.txt"),
+        read_guide_pairs=[(fixture_path("ZymoC_ch_1_file1.npRead"),
+                           parse_cigar_line(str(stored["guide"])))],
+        template_model=fixture_path("template_median68pA.model"),
+        complement_model=fixture_path("complement_median68pA_pop2.model"))
+    return args, stored
+
+
+def zymo_trained_params():
+    """(params, gap_x_log_probs) for ``StateMachine3SignalStrawman``: the
+    template HMM of the stored JAX training run, through
+    ``ContinuousPairHmm.to_sm3_params`` as the trainer loads it.  Unlike
+    the untrained machine's LOG_ZERO, its ``gap_switch_to_x`` (Y -> X) is
+    finite, and its gap-X table is per k-mer."""
+    _, stored = load_zymo_train()
+    hmm = ContinuousPairHmm()
+    hmm.transitions = stored["t_trans"].copy()
+    hmm.kmer_gap_probs = stored["t_kmer_gap"].copy()
+    params, gap_x = hmm.to_sm3_params()
+    if not np.isfinite(params["gap_switch_to_x"]):
+        raise AssertionError("the trained machine has no Y -> X transition")
+    return params, gap_x

@@ -30,6 +30,8 @@ _SIGNATURES = {
     "wavefront_fwd": [_P] * 7 + [_I] * 8 + [_P],
     # scal win xf yf basef widthf seedf raggedf fwd posts totals | ... | stream
     "wavefront_bwd": [_P] * 11 + [_I] * 8 + [_P],
+    # ... posts totals trans gapx | ... | stream
+    "wavefront_bwd_exp": [_P] * 13 + [_I] * 8 + [_P],
 }
 
 

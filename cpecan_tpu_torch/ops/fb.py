@@ -9,7 +9,10 @@ group's bands), so every per-read plane is [ND+1, W] instead of the full
 matrix.  ``run`` assembles the features and bands on the device, runs the
 forward and posterior-backward wavefronts (``fb_kernels``), and compacts
 each read's posteriors to its top-k cells for the host
-(``compact.compact_posteriors``).
+(``compact.compact_posteriors``).  With ``expectations`` the backward is
+the expectation backward instead, and its per-read EM sums come back in
+one device-to-host copy (``exp_dispatch``, ``exp_finalize``: the branch
+at pallas_fb.py:1877-1907 with :2084-2128).
 """
 
 import os
@@ -17,13 +20,16 @@ import os
 import numpy as np
 import torch
 
+from cpecan_tpu.constants import NUM_OF_KMERS
 from cpecan_tpu.ops.band import make_bands
 
 from ..align import AlignmentParams
-from .compact import compact_posteriors
+from .compact import compact_posteriors, host_array
 from .device_bands import device_bands
-from .fb_kernels import StrawmanSpec, wavefront_bwd, wavefront_fwd
-from .features import assemble_features, feature_inputs, upload_u16
+from .fb_kernels import (StrawmanSpec, wavefront_bwd, wavefront_bwd_exp,
+                         wavefront_fwd)
+from .features import (assemble_features, feature_inputs, kx_from_codes,
+                       upload_u16)
 
 # f32 posterior precision is bounded by the total log magnitude, which
 # grows with the diagonal count: past ~16k diagonals the untiled passes
@@ -196,11 +202,12 @@ class StrawmanAligner:
 
         Returns {"compact": (values u16, drow, lane) numpy arrays [G, R, k]
         (compact.compact_posteriors), "posteriors": [G, ND+1, R, W] and
-        "totals": [G, R] tensors on the device, "prep": prepare's dict}."""
-        if expectations:
-            raise NotImplementedError(
-                "in-kernel EM expectations are not ported yet (ROADMAP "
-                "Queue 1 item 4)")
+        "totals": [G, R] tensors on the device, "prep": prepare's dict}.
+
+        With ``expectations`` the backward also sums each read's EM
+        expectations and "expectations" replaces "compact": {"trans"
+        [B, 3, 3], "kmer_gap" [B, NUM_OF_KMERS + 2], "likelihood" [B]}
+        numpy f64 (``exp_finalize``)."""
         if mesh is not None:
             raise NotImplementedError(
                 "data-parallel runs are not ported yet (ROADMAP Queue 1 "
@@ -215,12 +222,18 @@ class StrawmanAligner:
             est_x = max(est_x, _round_up(shape_hint[0] + 2, 128))
             est_nd = max(est_nd, shape_hint[1])
         if est_x >= TILED_MIN_COLUMNS or est_nd >= TILED_MIN_DIAGONALS:
+            # the JAX package runs expectations untiled here with a
+            # warning; the port refuses (ROADMAP Queue 3)
+            needs = ("an untiled expectation run, which degrades past ~16k "
+                     "diagonals (in-kernel EM expectations have no tiled "
+                     "variant)" if expectations else
+                     "the tiled long-alignment path, which is not ported "
+                     "yet (ROADMAP Queue 1 item 5)")
             raise NotImplementedError(
-                f"~{est_nd} diagonals / {est_x} columns need the tiled "
-                "long-alignment path (f32 posteriors degrade past ~16k "
-                "diagonals untiled, BASELINE.md 'Untiled precision wall'), "
-                "which is not ported yet (ROADMAP Queue 1 item 5); split "
-                "the alignment at anchor gaps "
+                f"~{est_nd} diagonals / {est_x} columns would need {needs}; "
+                "f32 posteriors degrade past ~16k diagonals untiled "
+                "(BASELINE.md 'Untiled precision wall'): split the "
+                "alignment at anchor gaps "
                 "(cpecan_tpu.ops.anchors.get_split_points)")
         prep = self.prepare(sm, reads, ragged_right=ragged_right,
                             scale_params=scale_params,
@@ -239,13 +252,51 @@ class StrawmanAligner:
                 "lower the group size, or split the alignments at anchor "
                 "gaps (cpecan_tpu.ops.anchors.get_split_points)")
         inp = self.device_inputs(sm, prep, ragged_left=ragged_left)
+        dims = dict(R=R, W=W, ND=ND, C=C)
         fwd = wavefront_fwd(inp["scal"], inp["win"], inp["xf"], inp["yf"],
-                            inp["basef"], inp["widthf"], R=R, W=W, ND=ND,
-                            C=C)
-        posts, totals = wavefront_bwd(
-            inp["scal"], inp["win"], inp["xf"], inp["yf"], inp["basef"],
-            inp["widthf"], inp["seedf"], inp["raggedf"], fwd, R=R, W=W,
-            ND=ND, C=C)
+                            inp["basef"], inp["widthf"], **dims)
+        bargs = (inp["scal"], inp["win"], inp["xf"], inp["yf"], inp["basef"],
+                 inp["widthf"], inp["seedf"], inp["raggedf"], fwd)
+        if expectations:
+            # E-step consumers read only the expectations: no compaction
+            posts, totals, trans, gapx = wavefront_bwd_exp(*bargs, **dims)
+            flat = host_array(exp_dispatch(trans, gapx, totals))
+            return dict(expectations=exp_finalize(prep, flat),
+                        posteriors=posts, totals=totals, prep=prep)
+        posts, totals = wavefront_bwd(*bargs, **dims)
         compact = compact_posteriors(posts, min(compact_k, ND * W))
         return dict(compact=compact, posteriors=posts, totals=totals,
                     prep=prep)
+
+
+def exp_dispatch(trans, gapx, totals):
+    """The expectation sums as ONE [G*R, 9 + X + 1] f32 tensor on their
+    device (``_exp_dispatch``, pallas_fb.py:2092-2109): 9 transition lanes,
+    X per-column gap-X masses (the per-kmer scatter happens on the host,
+    where the base codes are), 1 total; a single device-to-host copy takes
+    the whole E-step result."""
+    G, R = totals.shape
+    return torch.cat([trans.reshape(G * R, -1),
+                      gapx[:, 0].reshape(G * R, -1),
+                      totals.reshape(G * R, 1)], dim=1)
+
+
+def exp_finalize(prep, flat):
+    """Per-read expectations from the flat host array (``_exp_finalize``,
+    pallas_fb.py:2111-2128): trans [B, 3, 3], kmer_gap [B, NUM_OF_KMERS + 2]
+    (each column's gap-X mass added to the bin of its k-mer; k-mers with an
+    N and the padding land in the two bins past NUM_OF_KMERS) and
+    likelihood [B] = total * n_diag, as the reference has it; all f64."""
+    B, X = prep["B"], prep["X"]
+    S = StrawmanSpec.S
+    tr = flat[:B, :S * S].reshape(B, S, S).astype(np.float64)
+    gc = flat[:B, S * S:S * S + X].astype(np.float64)
+    tot = flat[:B, S * S + X].astype(np.float64)
+    kx = kx_from_codes(torch.from_numpy(prep["codes"][:B])).numpy()
+    nb = NUM_OF_KMERS + 2
+    idx = np.clip(kx, 0, nb - 1) + nb * np.arange(B)[:, None]
+    # bincount adds in index order, as np.add.at does
+    seg = np.bincount(idx.ravel(), weights=gc.ravel(),
+                      minlength=B * nb).reshape(B, nb)
+    n_diag = np.asarray([b.n_diag for b in prep["bands"]])
+    return {"trans": tr, "kmer_gap": seg, "likelihood": tot * n_diag}

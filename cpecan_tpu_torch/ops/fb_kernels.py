@@ -1,6 +1,7 @@
 """Band-local forward/backward wavefront of the strawman 3-state signal
-machine: the log-space helpers, the machine spec, the two wavefront passes
-as plain PyTorch, and the wrappers that launch their CUDA kernels.
+machine: the log-space helpers, the machine spec, the wavefront passes
+(forward, posterior backward, expectation backward) as plain PyTorch, and
+the wrappers that launch their CUDA kernels.
 
 Counterparts in the JAX package (``cpecan_tpu/ops/pallas_fb.py``):
 
@@ -11,6 +12,8 @@ Counterparts in the JAX package (``cpecan_tpu/ops/pallas_fb.py``):
 ``wavefront_fwd``          ``_sm3_forward_kernel`` (:635), untiled
 ``wavefront_bwd``          ``_sm3_backward_kernel`` -> ``_sm3_backward_body_w``
                            (:857, :900), ``with_exp=False``, untiled
+``wavefront_bwd_exp``      the same body with ``with_exp=True`` (EM
+                           expectations, ``accumulate_exp`` :1072), untiled
 ========================  ==============================================
 
 Layout (the JAX planes, index for index): G groups of R reads; diagonal d
@@ -20,8 +23,8 @@ per-x model rows, ``yf`` [G*R, 2, C+X+256] the events flipped so that
 column C - y holds event y, ``basef``/``widthf``/``seedf``/``raggedf``
 [G*R, NDp] the band metadata.
 
-Dispatch: ``wavefront_fwd``/``wavefront_bwd`` run the plain version for a
-tensor on the CPU and launch the CUDA kernel
+Dispatch: ``wavefront_fwd``/``wavefront_bwd``/``wavefront_bwd_exp`` run
+the plain version for a tensor on the CPU and launch the CUDA kernel
 (``cpecan_tpu_torch/csrc/wavefront.cu``) for a CUDA tensor; nothing falls
 back from one to the other.  Each wrapper counts its kernel launches in
 ``.launches``; each plain version counts its calls in ``.calls``.
@@ -112,6 +115,40 @@ class StrawmanSpec:
         bw_y = log_add(bw_y, low + t[T_SX])
         return [bw_m, bw_x, bw_y]
 
+    # transition lanes of the expectation sums: frm * 3 + to
+    # (ContinuousPairHmm's [3, 3] transition table order; lane 5, X -> Y,
+    # is not a transition of this machine and stays 0)
+    EXP_LANES = {"mm": 0, "ox": 1, "oy": 2, "xm": 3, "ex": 4,
+                 "ym": 6, "sx": 7, "ey": 8}
+
+    @staticmethod
+    def exp_probs_w(t, e_gapx, em_t, eg_t, f0m, f1m, f1a, bw2, total):
+        """Posterior transition probabilities into one target diagonal
+        (cell_signal_updateTransAndKmerSkipExpectations,
+        impl/pairwiseAligner.c:442-459): p = exp(min(fwd_src + transition
+        + emission + bwd_target - total, 10)), in the target diagonal's
+        window.  f0m = fwd[t-2] at source x-1 (middle), f1m = fwd[t-1] at
+        x-1 (lower), f1a = fwd[t-1] at x (upper), bw2 = bwd[t] at x,
+        em_t/eg_t = emissions(t) and e_gapx = the gap-X row at x.  Returns
+        ({name: p} keyed like EXP_LANES, gap-X mass ox + ex + sx)."""
+        def p(logp):
+            # the cap keeps p finite where total is still NEG (before a
+            # read's seed diagonal), so that p * band mask is never NaN
+            return torch.exp(torch.clamp(logp - total, max=10.0))
+
+        mid = em_t + bw2[0]
+        probs = {"mm": p(f0m[0] + t[T_MM] + mid),
+                 "xm": p(f0m[1] + t[T_XM] + mid),
+                 "ym": p(f0m[2] + t[T_YM] + mid)}
+        low = e_gapx + bw2[1]
+        probs["ox"] = p(f1m[0] + t[T_OX] + low)
+        probs["ex"] = p(f1m[1] + t[T_EX] + low)
+        probs["sx"] = p(f1m[2] + t[T_SX] + low)
+        up = eg_t + bw2[2]
+        probs["oy"] = p(f1a[0] + t[T_OY] + up)
+        probs["ey"] = p(f1a[2] + t[T_EY] + up)
+        return probs, probs["ox"] + probs["ex"] + probs["sx"]
+
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch passes: every read of every group at once, one Python step
@@ -120,7 +157,7 @@ class StrawmanSpec:
 # ---------------------------------------------------------------------------
 
 class _Frame:
-    """Per-call views shared by the two plain passes."""
+    """Per-call views shared by the plain passes."""
 
     def __init__(self, scal, win, xf, yf, basef, widthf, R, W):
         self.G = win.shape[0]
@@ -209,13 +246,59 @@ def _masked_lse(v, mask):
     return m + torch.log(torch.clamp(s, min=1e-37))
 
 
-def backward_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
-                   R, W, ND, C):
-    """Plain PyTorch posterior backward: (posts [G, ND+1, R, W],
-    totals [G, R]).  Match posterior exp(min(f + b - total, 0.69)) on
-    in-band cells with 0 < x < d, 0 elsewhere and on diagonal 0; the total
-    is the masked log-sum-exp of f + b at each read's seed diagonal."""
-    backward_plain.calls += 1
+def block_sum(v):
+    """Sum over the last axis (W lanes, a multiple of 32) in the CUDA
+    kernels' ``block_sum`` order: an xor butterfly inside each warp of 32
+    lanes, then the warps' partials left to right."""
+    W = v.shape[-1]
+    v = v.reshape(v.shape[:-1] + (W // 32, 32))
+    lane = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lane ^ o]
+    parts = v[..., 0]
+    s = parts[..., 0]
+    for i in range(1, W // 32):
+        s = s + parts[..., i]
+    return s
+
+
+class _Expectations:
+    """The expectation sums of one plain backward: per-lane transition sums
+    (added up over the target diagonals, reduced over lanes at the end, as
+    the kernel's per-thread registers are) and the per-column gap-X mass
+    [G, R, X] in x frame."""
+
+    def __init__(self, fr):
+        self.fr = fr
+        S = StrawmanSpec.S
+        self.acc = [torch.zeros((fr.G, fr.R, fr.W), device=fr.xf.device)
+                    for _ in range(S * S)]
+        self.gap = torch.zeros((fr.G, fr.R, fr.xf.shape[-1]),
+                               device=fr.xf.device)
+
+    def add(self, d_t, wt, em_t, eg_t, f0m, f1m, f1a, bw2, total):
+        """Contributions of target diagonal ``d_t`` (window ``wt``), every
+        input aligned to that window (``accumulate_exp``, :1072-1095)."""
+        fr = self.fr
+        e_gapx = fr.cols(fr.xf[:, :, 8:9], wt)[:, :, 0]
+        probs, gap = StrawmanSpec.exp_probs_w(fr.t, e_gapx, em_t, eg_t, f0m,
+                                              f1m, f1a, bw2, total)
+        m = fr.band(d_t, wt).to(torch.float32)
+        for name, k in StrawmanSpec.EXP_LANES.items():
+            self.acc[k] = self.acc[k] + probs[name] * m
+        x = fr.xcoord(wt).expand(fr.G, fr.R, fr.W)
+        self.gap.scatter_add_(2, x, gap * m)
+
+    def result(self):
+        """(trans [G, R, 9], gapx [G, 1, R, X])."""
+        trans = torch.stack([block_sum(a) for a in self.acc], dim=-1)
+        return trans, self.gap[:, None]
+
+
+def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
+              ND, C, with_exp):
+    """The plain backward sweep shared by ``backward_plain`` and
+    ``backward_exp_plain`` (``_sm3_backward_body_w``, untiled)."""
     fr = _Frame(scal, win, xf, yf, basef, widthf, R, W)
     t, S, NS = fr.t, StrawmanSpec.S, StrawmanSpec.NS
     G, dev = fr.G, xf.device
@@ -227,7 +310,11 @@ def backward_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
     n1 = [neg] * S          # bwd[d+1], raw at window w_{d+1}
     n2 = [neg] * S          # bwd[d+2], raw at window w_{d+2}
     total = torch.full((G, R, 1), NEG, device=dev)
-    _, em_c, _ = fr.emissions(ND + 2, fr.win[:, ND + 1], C)  # at w_{d+1}
+    # emissions(d+2) at w_{d+1}: match and gap-Y
+    _, em_c, eg_c = fr.emissions(ND + 2, fr.win[:, ND + 1], C)
+    if with_exp:
+        exp = _Expectations(fr)
+        f1 = [neg] * S      # fwd[d+1], raw at window w_{d+1}
     for d in range(ND, 0, -1):
         w = fr.win[:, d]
         w1 = fr.win[:, d + 1]
@@ -259,15 +346,75 @@ def backward_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
         for i in range(1, S):
             prod = log_add(prod, f[i] + bw[i])
         total = torch.where(sa, _masked_lse(prod, mask), total)
+        if with_exp:
+            # target diagonal d+2, after this step's total: middle source
+            # fwd[d] @ w, lower/upper fwd[d+1] @ w1, target backward n2
+            # (cut at d and at d+1) @ w2, emissions(d+2) carried @ w1
+            exp.add(d + 2, w2, fr.align(em_c, w2 - w1),
+                    fr.align(eg_c, w2 - w1),
+                    [fr.align(v, w2 - w - 1) for v in f],
+                    [fr.align(v, w2 - w1 - 1) for v in f1],
+                    [fr.align(v, w2 - w1) for v in f1], n2, total)
+            f1 = f
         xl = fr.xcoord(w)
         ok = mask & (xl > 0) & (xl < d)
         posts[:, d] = torch.where(
             ok, torch.exp(torch.clamp(f[0] + bw[0] - total, max=0.69)), 0.0)
-        n2, n1, em_c = n1, bw, em1
-    return posts, total[..., 0]
+        n2, n1, em_c, eg_c = n1, bw, em1, eg1
+    if not with_exp:
+        return posts, total[..., 0]
+    # epilogue: targets 2 and 1 (the loop covered ND+2..3).  n1 = bwd[1]
+    # @ w_1, n2 = bwd[2] (cut at 1) @ w_2, f1 = fwd[1], em/eg carry =
+    # emissions(2) @ w_1
+    w0, w1, w2 = fr.win[:, 0], fr.win[:, 1], fr.win[:, 2]
+    f0 = [fwd[:, 0, i] for i in range(S)]
+    exp.add(2, w2, fr.align(em_c, w2 - w1), fr.align(eg_c, w2 - w1),
+            [fr.align(v, w2 - w0 - 1) for v in f0],
+            [fr.align(v, w2 - w1 - 1) for v in f1],
+            [fr.align(v, w2 - w1) for v in f1], n2, total)
+    # target 1: no middle source (diagonal -1), emissions(1) fresh
+    _, em_t, eg_t = fr.emissions(1, w1, C)
+    exp.add(1, w1, em_t, eg_t, [neg] * S,
+            [fr.align(v, w1 - w0 - 1) for v in f0],
+            [fr.align(v, w1 - w0) for v in f0], n1, total)
+    return (posts, total[..., 0]) + exp.result()
+
+
+def backward_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
+                   R, W, ND, C):
+    """Plain PyTorch posterior backward: (posts [G, ND+1, R, W],
+    totals [G, R]).  Match posterior exp(min(f + b - total, 0.69)) on
+    in-band cells with 0 < x < d, 0 elsewhere and on diagonal 0; the total
+    is the masked log-sum-exp of f + b at each read's seed diagonal."""
+    backward_plain.calls += 1
+    return _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
+                     R, W, ND, C, with_exp=False)
 
 
 backward_plain.calls = 0
+
+
+def backward_exp_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf,
+                       fwd, *, R, W, ND, C):
+    """Plain PyTorch expectation backward: ``backward_plain``'s (posts,
+    totals) plus the EM sums (diagonalCalculation_signal_Expectations,
+    impl/pairwiseAligner.c:868-912) of every read:
+
+    - trans [G, R, 9]: posterior transition mass, lanes ``frm * 3 + to``
+      (``StrawmanSpec.EXP_LANES``);
+    - gapx [G, 1, R, X]: posterior gap-X mass per reference column x.
+
+    Each target diagonal t takes mass from sources on t-1 and t-2 and is
+    added at the step of diagonal t-2, after that step's total; the
+    epilogue adds targets 2 and 1.  The transition sums are per lane over
+    the targets, then over the lanes (``block_sum``), as the kernel
+    reduces them."""
+    backward_exp_plain.calls += 1
+    return _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
+                     R, W, ND, C, with_exp=True)
+
+
+backward_exp_plain.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -349,6 +496,39 @@ def wavefront_bwd(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
     if xf.device.type == "cpu":
         return backward_plain(scal, win, xf, yf, basef, widthf, seedf,
                               raggedf, fwd, R=R, W=W, ND=ND, C=C)
+    out = _launch_bwd("wavefront_bwd", scal, win, xf, yf, basef, widthf,
+                      seedf, raggedf, fwd, R, W, ND, C, with_exp=False)
+    wavefront_bwd.launches += 1
+    return out
+
+
+wavefront_bwd.launches = 0
+
+
+def wavefront_bwd_exp(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
+                      *, R, W, ND, C):
+    """Expectation backward -> (posts [G, ND+1, R, W], totals [G, R],
+    trans [G, R, 9], gapx [G, 1, R, X]) f32 (see ``backward_exp_plain``).
+    Plain PyTorch for CPU tensors; the CUDA kernel
+    ``sm3_bwd_kernel<true>`` for CUDA tensors (replaces
+    cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
+    with_exp=True)."""
+    if xf.device.type == "cpu":
+        return backward_exp_plain(scal, win, xf, yf, basef, widthf, seedf,
+                                  raggedf, fwd, R=R, W=W, ND=ND, C=C)
+    out = _launch_bwd("wavefront_bwd_exp", scal, win, xf, yf, basef, widthf,
+                      seedf, raggedf, fwd, R, W, ND, C, with_exp=True)
+    wavefront_bwd_exp.launches += 1
+    return out
+
+
+wavefront_bwd_exp.launches = 0
+
+
+def _launch_bwd(name, scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
+                R, W, ND, C, with_exp):
+    """Launch the backward kernel ``name`` of the library on CUDA tensors;
+    returns its outputs."""
     if xf.device.type != "cuda":
         raise ValueError(f"no wavefront kernel for device {xf.device}")
     from .cuda_build import load_library
@@ -360,24 +540,26 @@ def wavefront_bwd(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
                             widthf=widthf, seedf=seedf, raggedf=raggedf,
                             fwd=fwd), {"win": torch.int32}, xf.device)
     lib = load_library()
-    posts = torch.empty((G, ND + 1, R, W), dtype=torch.float32,
-                        device=xf.device)
-    totals = torch.empty((G, R), dtype=torch.float32, device=xf.device)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=xf.device)
+
+    outs = [empty(G, ND + 1, R, W), empty(G, R)]
+    if with_exp:
+        S = StrawmanSpec.S
+        outs += [empty(G, R, S * S), empty(G, 1, R, X)]
     stream = torch.cuda.current_stream(xf.device).cuda_stream
-    code = lib.wavefront_bwd(_ptr(scal), _ptr(win), _ptr(xf), _ptr(yf),
-                             _ptr(basef), _ptr(widthf), _ptr(seedf),
-                             _ptr(raggedf), _ptr(fwd), _ptr(posts),
-                             _ptr(totals), G, R, W, ND, NDp, X, C, Y,
-                             ctypes.c_void_p(stream))
-    _raise_on(code, lib, "wavefront_bwd")
-    wavefront_bwd.launches += 1
-    return posts, totals
-
-
-wavefront_bwd.launches = 0
+    code = getattr(lib, name)(
+        *(_ptr(v) for v in (scal, win, xf, yf, basef, widthf, seedf,
+                            raggedf, fwd, *outs)),
+        G, R, W, ND, NDp, X, C, Y, ctypes.c_void_p(stream))
+    _raise_on(code, lib, name)
+    return tuple(outs)
 
 
 def reset_counts():
     """Zero every launch and plain-call counter of this module."""
     wavefront_fwd.launches = wavefront_bwd.launches = 0
+    wavefront_bwd_exp.launches = 0
     forward_plain.calls = backward_plain.calls = 0
+    backward_exp_plain.calls = 0

@@ -14,10 +14,35 @@ the last bits, and the forward's rounding walks along the diagonals:
   compiled-TPU differential campaign accepted); common pairs' scores
   within the posterior tolerance plus two u16 wire steps.
 
+EM expectations (``run(expectations=True)``) carry the posterior error of
+their terms, so they get the bar that ``tests/test_pallas.py::
+test_pallas_expectations_match_engine`` sets for the f32 kernel against
+the f64 engine:
+
+- transition sums: |d| <= EXP_TRANS_RTOL * |v| + EXP_TRANS_ATOL;
+- gap-X mass per column or per k-mer bin: |d| <= EXP_GAP_RTOL * |v| +
+  EXP_GAP_ATOL, and each read's total within EXP_GAP_SUM_RTOL;
+- likelihood (total * n_diag): relative |d| <= TOTAL_RTOL, as the totals.
+
+The expectation kernel against its plain version on the same card inputs
+runs the same f32 operations in the same order: posts, totals and
+transition sums are equal bit for bit, gap-X columns within
+KERNEL_GAPX_ATOL (the plain version's scatter-add on the card flushes a
+denormal sum that the kernel's adds keep).
+
+Trained HMMs (Baum-Welch iterations from the same start): each iteration
+writes its HMM with six decimals (``%f``) and the next reads it back, so
+two runs that agree to ~1e-5 can round a value apart; the second
+iteration then moves by up to ~7e-5 in k-mer gap probabilities of up to
+~1e-2 (Zymo read, the port against the JAX package).  Transitions keep
+the EXP_TRANS bar, k-mer gap probabilities |d| <= EXP_GAP_RTOL * |v| +
+TRAIN_GAP_ATOL, likelihoods TOTAL_RTOL.
+
 Each check raises AssertionError with the size of the miss.
 """
 
 import numpy as np
+import torch
 
 from .ops.compact import host_array as _host
 from .ops.fb_kernels import NEG
@@ -27,6 +52,11 @@ POST_ATOL = 2e-3
 TOTAL_RTOL = 1e-4
 FRINGE = 2e-3
 SCORE_ATOL = POST_ATOL * 1e7 + 2 * 153
+EXP_TRANS_RTOL, EXP_TRANS_ATOL = 2e-3, 1e-3
+EXP_GAP_RTOL, EXP_GAP_ATOL = 5e-3, 1e-3
+EXP_GAP_SUM_RTOL = 2e-3
+TRAIN_GAP_ATOL = 1e-4
+KERNEL_GAPX_ATOL = 1e-30
 
 
 def band_mask(prep, basef, widthf):
@@ -72,6 +102,90 @@ def check_totals(got, want):
     if not rel <= TOTAL_RTOL:
         raise AssertionError(f"totals differ by {rel} (relative)")
     return rel
+
+
+def _close(what, got, want, rtol, atol):
+    """max |d| of two arrays held to |d| <= rtol * |want| + atol."""
+    got = _host(got).astype(np.float64)
+    want = _host(want).astype(np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shapes {got.shape} vs {want.shape}")
+    err = np.abs(got - want)
+    bound = rtol * np.abs(want) + atol
+    if not np.all(err <= bound):
+        raise AssertionError(
+            f"{what} differ by {(err / bound).max():.3g}x the tolerance")
+    return float(err.max()) if err.size else 0.0
+
+
+def _rel(what, got, want, rtol):
+    got = _host(got).astype(np.float64)
+    want = _host(want).astype(np.float64)
+    rel = float((np.abs(got - want) / np.abs(want)).max())
+    if not rel <= rtol:
+        raise AssertionError(f"{what} differ by {rel} (relative)")
+    return rel
+
+
+def check_exp_sums(trans, gapx, want_trans, want_gapx):
+    """The expectation backward's sums: trans [G, R, 9] and gapx
+    [G, 1, R, X]; returns (trans max |d|, gapx max |d|)."""
+    err_t = _close("transition sums", trans, want_trans, EXP_TRANS_RTOL,
+                   EXP_TRANS_ATOL)
+    err_g = _close("gap-X columns", gapx, want_gapx, EXP_GAP_RTOL,
+                   EXP_GAP_ATOL)
+    _rel("per-read gap-X mass", _host(gapx).sum(-1),
+         _host(want_gapx).sum(-1), EXP_GAP_SUM_RTOL)
+    return err_t, err_g
+
+
+def check_exp_kernel(got, want):
+    """The expectation kernel's (posts, totals, trans, gapx) against its
+    plain version's on the same inputs; returns the gapx max |d|."""
+    for what, g, w in zip(("posterior planes", "totals", "transition sums"),
+                          got[:3], want[:3]):
+        if not torch.equal(g, w):
+            raise AssertionError(
+                f"{what} differ from the plain version by "
+                f"{float((g - w).abs().max())}")
+    err = float((got[3] - want[3]).abs().max())
+    if not err <= KERNEL_GAPX_ATOL:
+        raise AssertionError(f"gap-X columns differ from the plain version "
+                             f"by {err}")
+    return err
+
+
+def check_expectations(got, want):
+    """Finalized per-read expectations {"trans", "kmer_gap",
+    "likelihood"}; returns the transition sums' max |d|."""
+    err = _close("transition expectations", got["trans"], want["trans"],
+                 EXP_TRANS_RTOL, EXP_TRANS_ATOL)
+    _close("k-mer gap expectations", got["kmer_gap"], want["kmer_gap"],
+           EXP_GAP_RTOL, EXP_GAP_ATOL)
+    _rel("per-read k-mer gap mass", np.sum(got["kmer_gap"], -1),
+         np.sum(want["kmer_gap"], -1), EXP_GAP_SUM_RTOL)
+    _rel("likelihoods", got["likelihood"], want["likelihood"], TOTAL_RTOL)
+    return err
+
+
+def check_trained(t_hmm, c_hmm, trajectory, want, first=False):
+    """Trained template/complement ContinuousPairHmm and the likelihood
+    trajectory against ``want`` (the arrays of
+    tests/fixtures/zymo_train.npz): its last iteration, or with ``first``
+    its first (``t1_*``/``c1_*`` and the first trajectory row).  Returns
+    the transitions' max |d|."""
+    tag = "1" if first else ""
+    want_traj = want["trajectory"][:1] if first else want["trajectory"]
+    err = 0.0
+    for name, hmm in (("t", t_hmm), ("c", c_hmm)):
+        err = max(err, _close(f"{name} transitions", hmm.transitions,
+                              want[f"{name}{tag}_trans"], EXP_TRANS_RTOL,
+                              EXP_TRANS_ATOL))
+        _close(f"{name} k-mer gap probabilities", hmm.kmer_gap_probs,
+               want[f"{name}{tag}_kmer_gap"], EXP_GAP_RTOL, TRAIN_GAP_ATOL)
+    _rel("likelihood trajectories", np.asarray(trajectory, np.float64),
+         want_traj, TOTAL_RTOL)
+    return err
 
 
 def _posterior(out, read_idx, x, y):

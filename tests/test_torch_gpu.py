@@ -8,19 +8,24 @@ JAX is not installed:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import numpy as np
 import pytest
 import torch
 
 from cpecan_tpu_torch.align import AlignmentParams
-from cpecan_tpu_torch.fixtures import load_zymo_slice
+from cpecan_tpu_torch.fixtures import (load_zymo_slice, load_zymo_train,
+                                       zymo_trained_params)
 from cpecan_tpu_torch.models.state_machines import \
     StateMachine3SignalStrawman
 from cpecan_tpu_torch.ops import fb_kernels as fk
 from cpecan_tpu_torch.ops.compact import (extract_pairs_auto,
                                           extract_pairs_chunk)
 from cpecan_tpu_torch.ops.fb import StrawmanAligner
-from cpecan_tpu_torch.parity import (band_mask, check_fwd, check_pairs,
-                                     check_posts, check_totals)
+from cpecan_tpu_torch.parity import (band_mask, check_exp_kernel,
+                                     check_expectations, check_fwd,
+                                     check_pairs, check_posts, check_totals,
+                                     check_trained)
+from cpecan_tpu_torch.pipeline.train_models import TrainOptions, train
 from cpecan_tpu_torch.synthetic import synthetic_batch
 
 pytestmark = pytest.mark.gpu
@@ -71,6 +76,68 @@ def test_cuda_kernels_match_plain(batch, cuda, ragged):
     assert torch.all(posts[:, 0] == 0.0)
     check_posts(posts, pposts)
     check_totals(totals, ptotals)
+
+
+@pytest.mark.parametrize("trained", [False, True],
+                         ids=["untrained", "trained"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_cuda_exp_kernel_matches_plain(batch, cuda, ragged, trained):
+    """The forward and the expectation backward against their plain
+    versions, with per-read scaling: bit for bit but for denormal gap-X
+    sums.  The trained machine (the Zymo fixture's template HMM) opens
+    Y -> X, which the untrained one closes with LOG_ZERO."""
+    sm, reads = batch
+    if trained:
+        params, gap_x = zymo_trained_params()
+        sm = StateMachine3SignalStrawman(sm.model, params=params,
+                                         gap_x_log_probs=gap_x)
+    pa = StrawmanAligner(device=cuda, group=8)
+    sp = np.random.default_rng(4).uniform(0.95, 1.05, (len(reads), 5))
+    prep = pa.prepare(sm, reads, ragged_right=ragged, scale_params=sp)
+    inp = pa.device_inputs(sm, prep, ragged_left=ragged)
+    dims = dict(R=prep["R"], W=prep["W"], ND=prep["ND"], C=prep["C"])
+    fwd = _fwd(inp, dims, fk.wavefront_fwd)
+    assert torch.equal(fwd, _fwd(inp, dims, fk.forward_plain))
+    fk.reset_counts()
+    got = _bwd(inp, dims, fwd, fk.wavefront_bwd_exp)
+    torch.cuda.synchronize()
+    assert fk.wavefront_bwd_exp.launches == 1
+    assert fk.backward_exp_plain.calls == 0
+    check_exp_kernel(got, _bwd(inp, dims, fwd, fk.backward_exp_plain))
+    y_to_x = got[2][..., fk.StrawmanSpec.EXP_LANES["sx"]]
+    assert torch.all(y_to_x > 0 if trained else y_to_x == 0.0)
+    assert torch.all(got[2][..., 5] == 0.0)
+    # the posterior outputs are the posterior kernel's
+    kposts, ktotals = _bwd(inp, dims, fwd, fk.wavefront_bwd)
+    assert torch.equal(got[0], kposts) and torch.equal(got[1], ktotals)
+
+
+def test_cuda_exp_run_matches_cpu_run(batch, cuda):
+    """A whole expectation run on the card against the same run on the
+    CPU (plain passes)."""
+    sm, reads = batch
+    kw = dict(expectations=True, ragged_left=True, ragged_right=True,
+              scale_params=np.random.default_rng(4).uniform(
+                  0.95, 1.05, (len(reads), 5)))
+    got = StrawmanAligner(device=cuda, group=8).run(sm, reads, **kw)
+    want = StrawmanAligner(device="cpu", group=8).run(sm.to("cpu"), reads,
+                                                      **kw)
+    check_expectations(got["expectations"], want["expectations"])
+
+
+def test_cuda_zymo_train_matches_fixture(cuda, tmp_path):
+    """Two Baum-Welch iterations on the Zymo read on the card against the
+    JAX package's stored result."""
+    args, stored = load_zymo_train()
+    fk.reset_counts()
+    t_hmm, c_hmm, traj = train(
+        **args, out_template_hmm=str(tmp_path / "t.hmm"),
+        out_complement_hmm=str(tmp_path / "c.hmm"),
+        options=TrainOptions(iterations=len(stored["trajectory"])),
+        log=lambda m: None, device=cuda)
+    assert fk.wavefront_bwd_exp.launches == 2 * len(stored["trajectory"])
+    assert fk.backward_exp_plain.calls == fk.forward_plain.calls == 0
+    check_trained(t_hmm, c_hmm, traj, stored)
 
 
 def test_cuda_run_matches_cpu_run(batch, cuda):

@@ -185,8 +185,11 @@ def test_routing_and_plane_guards_raise(machines, reads, monkeypatch):
         ta.run(tsm, [wide])
     with pytest.raises(NotImplementedError, match="tiled"):
         ta.run(tsm, reads, shape_hint=(100, 2 ** 14))
-    for kw, item in ((dict(expectations=True), "item 4"),
-                     (dict(mesh=object()), "item 9"),
+    # expectation runs have no tiled variant: past the wall they are
+    # refused with the split named
+    with pytest.raises(NotImplementedError, match="get_split_points"):
+        ta.run(tsm, [long_read], expectations=True)
+    for kw, item in ((dict(mesh=object()), "item 9"),
                      (dict(tile_diag=256), "item 5")):
         with pytest.raises(NotImplementedError, match=item):
             ta.run(tsm, reads, **kw)
