@@ -12,12 +12,26 @@ import glob
 import os
 import sys
 
-from cpecan_tpu.cli.batch import _load_guides
+from ..io.cigar import parse_cigar_line
 
 # flags of the JAX CLI that neither trainer reads (every read with a guide
 # trains): accepted at their defaults, refused otherwise
 UNREAD_FLAGS = {"train_amount": 1_000_000, "threshold": 0.01}
 UNREAD_HELP = "not read by the trainer; only the default is accepted"
+
+
+def _load_guides(path):
+    """cigar file -> {query name: (line, PairwiseAlignment)}
+    (``cpecan_tpu/cli/batch.py::_load_guides``)."""
+    out = {}
+    with open(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if not line:
+                continue
+            aln = parse_cigar_line(line)
+            out[aln.contig2] = (line, aln)
+    return out
 
 
 def train_models_main(argv=None):

@@ -3,7 +3,7 @@ need (a subset of ``cpecan_tpu/cli/realign.py``, which imports JAX through
 ``ops.engine`` and so cannot be imported here).  The CLI itself is not
 ported yet (ROADMAP Queue 1 item 8)."""
 
-from cpecan_tpu.io.cigar import PairwiseAlignment
+from ..io.cigar import PairwiseAlignment
 
 
 def convert_alignment_to_anchor_pairs(aln: PairwiseAlignment, trim):

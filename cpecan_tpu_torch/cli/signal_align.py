@@ -3,8 +3,8 @@ need (a subset of ``cpecan_tpu/cli/signal_align.py``, which imports JAX
 through its aligners and so cannot be imported here).  The CLI itself is
 not ported yet (ROADMAP Queue 1 item 8)."""
 
-from cpecan_tpu.io.npread import remap_anchor_pairs_with_offset
-from cpecan_tpu.ops.anchors import filter_to_remove_overlap
+from ..io.npread import remap_anchor_pairs_with_offset
+from ..ops.anchors import filter_to_remove_overlap
 
 
 def get_remapped_anchor_pairs(unmapped, event_map, map_offset):

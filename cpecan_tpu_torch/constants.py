@@ -1,0 +1,31 @@
+"""Constants of the port (the subset of ``cpecan_tpu/constants.py`` that it
+uses).
+
+Parity sources (reference: jeizenga/cPecan):
+  - PAIR_ALIGNMENT_PROB_1: inc/pairwiseAligner.h:27
+  - LOG_ZERO:              inc/pairwiseAligner.h:192
+  - KMER_LENGTH/NUM_OF_KMERS: inc/emissionMatrix.h:4-6
+  - MODEL_PARAMS:          inc/stateMachine.h:14-16
+  - NB_EVENT_PARAMS:       inc/nanopore.h:4
+"""
+
+# Integer fixed-point scale: probability 1.0 == 10^7.
+PAIR_ALIGNMENT_PROB_1 = 10_000_000
+
+LOG_ZERO = float("-inf")
+
+KMER_LENGTH = 6
+NUM_OF_KMERS = 4096  # 4**6
+# Sentinel index returned by the reference for 'N'/unknown symbols
+# (impl/stateMachine.c:116 returns NUM_OF_KMERS + 1).
+N_SENTINEL = NUM_OF_KMERS + 1
+
+# Pore model: level_mean, level_sd, noise_mean, noise_sd, noise_lambda per kmer.
+MODEL_PARAMS = 5
+# Event: mean, stdev, duration.
+NB_EVENT_PARAMS = 3
+
+# State indices of the 3-state machines (inc/stateMachine.h:30-32).
+MATCH = 0
+SHORT_GAP_X = 1
+SHORT_GAP_Y = 2

@@ -3,17 +3,25 @@
 // (sm_90a).  Plain C entry points, loaded with ctypes by
 // cpecan_tpu_torch/ops/cuda_build.py and wrapped by
 // cpecan_tpu_torch/ops/fb_kernels.py (wavefront_fwd, wavefront_bwd,
-// wavefront_bwd_exp).
+// wavefront_bwd_exp, wavefront_fwd_tiled, wavefront_bwd_tiled).
 //
 // Replaces (TPU, Pallas):
-//   sm3_fwd_kernel         <- cpecan_tpu/ops/pallas_fb.py _sm3_forward_kernel
-//                             (:635, untiled, _StrawmanSpec)
-//   sm3_bwd_kernel<false>  <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
+//   sm3_fwd_kernel<false>  <- cpecan_tpu/ops/pallas_fb.py _sm3_forward_kernel
+//                             (:635, untiled, _StrawmanSpec)          K1
+//   sm3_bwd_kernel<false, false>
+//                          <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
 //                             -> _sm3_backward_body_w (:857, :900;
-//                             with_exp=False, untiled, _StrawmanSpec)
-//   sm3_bwd_kernel<true>   <- the same body with with_exp=True (EM
+//                             with_exp=False, untiled, _StrawmanSpec) K2
+//   sm3_bwd_kernel<true, false>
+//                          <- the same body with with_exp=True (EM
 //                             expectations: accumulate_exp :1072 and
-//                             _StrawmanSpec.exp_probs_w :215)
+//                             _StrawmanSpec.exp_probs_w :215)          K3
+//   sm3_fwd_kernel<true>   <- _sm3_forward_kernel(tile=...) (:2304), chained
+//                             over the tiles by _run_tiled (:2447) with
+//                             _tile_steps.recenter (:2381)            K6a
+//   sm3_bwd_kernel<false, true>
+//                          <- _sm3_backward_kernel(tile=...) (:2332), the
+//                             shifts repaid as shf (:947, :1170, :1193) K6b
 //
 // Layout (identical to the JAX planes, index for index): G groups of R
 // reads, one group window of W lanes per diagonal starting at x = win[g, d],
@@ -26,6 +34,7 @@
 //   fwd    f32 [G, ND+1, 3, R, W]
 //   posts  f32 [G, ND+1, R, W],  totals f32 [G*R]
 //   trans  f32 [G*R, 9]  (lanes frm*3 + to),  gapx f32 [G*R, X]  (EM only)
+//   shifts f32 [G*R, NT]  (tiled only; NT = ND / TD)
 //
 // Design: one block per read (grid G*R), one thread per lane (W threads).
 // Each diagonal depends on the previous one or two through lane shifts of
@@ -51,6 +60,22 @@
 // single barrier.  The lag is invisible in the result: a target above a
 // read's seed diagonal n lies outside its band (width 0), and below it the
 // total was already set at step n.  Targets 3, 2 and 1 follow the loop.
+// The tiled long-alignment pair (K6a, K6b) sweeps the same recurrences over
+// ND = NT * TD diagonals in ONE launch each.  On the TPU a tile keeps VMEM
+// O(tile) and lets XLA re-center the carries between calls; here the
+// carried diagonals already live in shared memory at any length, so a tile
+// is only a boundary where the carries re-center, which is what keeps f32
+// posteriors usable past ~16k diagonals:
+//  - K6a, before diagonal t*TD + 1 (t >= 1): the block's max m over its two
+//    carried diagonals (all states and lanes); if m > -1e20 both ring slots
+//    lose m and the running shift A gains it; A after tile t's boundary is
+//    shifts[b, t] (0 for t = 0), the shift every row of tile t carries.
+//  - K6b, at the top t*TD + TD of every tile below the first: the same on
+//    the carried bwd[d+1] and bwd[d+2] (the latter as cut at d+1, since the
+//    ring holds it raw) into B; the tile's rows repay shf = shifts[b, t] + B:
+//    total = lse + shf at the seed diagonal, z = f + b - total + shf.
+// A tiled launch is bound like K1/K2 (the diagonal chain), plus one block
+// max and two barriers per tile.
 // Where trouble lies, and what the kernel does about it:
 //  1. The seed cut: the target backward bwd[t] is the carry after the cuts
 //     at t-1 and t-2, applied on read (cut = sa(t-1) || sa(t-2)), as K2
@@ -112,15 +137,75 @@ __device__ __forceinline__ Emissions emissions_at(const float* xb,
     return e;
 }
 
+// Block-wide reductions; every thread gets the result.  W is a multiple of
+// 32, and the per-warp partials are combined in a fixed order.
+__device__ float block_max(float v, float* red) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) red[warp] = v;
+    __syncthreads();
+    float m = red[0];
+    for (int i = 1; i < static_cast<int>(blockDim.x >> 5); ++i)
+        m = fmaxf(m, red[i]);
+    __syncthreads();
+    return m;
+}
+
+__device__ float block_sum(float v, float* red) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, o);
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) red[warp] = v;
+    __syncthreads();
+    float s = red[0];
+    for (int i = 1; i < static_cast<int>(blockDim.x >> 5); ++i) s += red[i];
+    __syncthreads();
+    return s;
+}
+
+// Re-centering of two carried diagonals a, b ([S][W] shared-memory slots;
+// b reads as CPECAN_NEG where ``cut_b``): m = the block max over both; if
+// m > -1e20 both lose m in this thread's lane and ``shift`` gains it
+// (_tile_steps.recenter).  Ends with a barrier, so the shifted slots are
+// visible to the next step's shifted reads.
+__device__ __forceinline__ void recenter(float* a, float* b, bool cut_b,
+                                         int l, int W, float* red,
+                                         float& shift) {
+    float v = a[l];
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+        v = fmaxf(v, a[i * W + l]);
+        v = fmaxf(v, cut_b ? CPECAN_NEG : b[i * W + l]);
+    }
+    const float m = block_max(v, red);
+    if (m > -1e20f) {
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+            a[i * W + l] -= m;
+            b[i * W + l] -= m;
+        }
+        shift += m;
+    }
+    __syncthreads();
+}
+
+template <bool TILED>
 __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
                                const int* __restrict__ win,
                                const float* __restrict__ xf,
                                const float* __restrict__ yf,
                                const float* __restrict__ basef,
                                const float* __restrict__ widthf,
-                               float* __restrict__ fwd, int R, int W, int ND,
-                               int NDp, int X, int C, int Y) {
-    extern __shared__ float ring[];  // [3 slots][S][W]: diagonal d in d % 3
+                               float* __restrict__ fwd,
+                               float* __restrict__ shifts, int R, int W,
+                               int ND, int NDp, int X, int C, int Y, int TD) {
+    // ring [3 slots][S][W]: diagonal d in d % 3; red [32]: reduction
+    // scratch (tiled only)
+    extern __shared__ float ring[];
+    float* red = ring + 3 * S * W;
     const int b = blockIdx.x;
     const int g = b / R;
     const int r = b - g * R;
@@ -147,9 +232,23 @@ __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
         ring[(2 * S + i) * W + l] = CPECAN_NEG;
         out[static_cast<size_t>(i) * R * W] = v;
     }
+    float shift = 0.0f;   // A, the running re-centering shift (tiled)
+    const int NT = TILED ? ND / TD : 0;
+    if (TILED && l == 0) shifts[static_cast<size_t>(b) * NT] = 0.0f;
     __syncthreads();
 
     for (int d = 1; d <= ND; ++d) {
+        if constexpr (TILED) {
+            if (d > 1 && (d - 1) % TD == 0) {
+                // diagonals d - 1 and d - 2 in slots (d + 2) % 3, (d + 1) % 3
+                recenter(ring + ((d + 2) % 3) * S * W,
+                         ring + ((d + 1) % 3) * S * W, false, l, W, red,
+                         shift);
+                if (l == 0)
+                    shifts[static_cast<size_t>(b) * NT + (d - 1) / TD] =
+                        shift;
+            }
+        }
         const int w = wg[d];
         const int s1 = w - wg[d - 1];
         const int s2 = w - wg[d >= 2 ? d - 2 : 0];
@@ -185,35 +284,6 @@ __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
         od[static_cast<size_t>(2) * R * W] = ny;
         __syncthreads();
     }
-}
-
-// Block-wide reductions; every thread gets the result.  W is a multiple of
-// 32, and the per-warp partials are combined in a fixed order.
-__device__ float block_max(float v, float* red) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    const int warp = threadIdx.x >> 5;
-    if ((threadIdx.x & 31) == 0) red[warp] = v;
-    __syncthreads();
-    float m = red[0];
-    for (int i = 1; i < static_cast<int>(blockDim.x >> 5); ++i)
-        m = fmaxf(m, red[i]);
-    __syncthreads();
-    return m;
-}
-
-__device__ float block_sum(float v, float* red) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, o);
-    const int warp = threadIdx.x >> 5;
-    if ((threadIdx.x & 31) == 0) red[warp] = v;
-    __syncthreads();
-    float s = red[0];
-    for (int i = 1; i < static_cast<int>(blockDim.x >> 5); ++i) s += red[i];
-    __syncthreads();
-    return s;
 }
 
 // transition lanes (frm * 3 + to); lane 5 (X -> Y) stays 0
@@ -273,7 +343,7 @@ __device__ __forceinline__ void exp_target(
     gap_row[x] += (p[L_OX] + p[L_EX] + p[L_SX]) * mf;
 }
 
-template <bool WITH_EXP>
+template <bool WITH_EXP, bool TILED>
 __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
                                const int* __restrict__ win,
                                const float* __restrict__ xf,
@@ -283,11 +353,14 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
                                const float* __restrict__ seedf,
                                const float* __restrict__ raggedf,
                                const float* __restrict__ fwd,
+                               const float* __restrict__ shifts,
                                float* __restrict__ posts,
                                float* __restrict__ totals,
                                float* __restrict__ trans,
                                float* __restrict__ gapx, int R, int W,
-                               int ND, int NDp, int X, int C, int Y) {
+                               int ND, int NDp, int X, int C, int Y,
+                               int TD) {
+    static_assert(!(WITH_EXP && TILED), "the tiled path has no EM sums");
     // ring [3 slots][S][W]: bwd[d] in slot d % 3 (raw, at window w_d);
     // em [2 slots][W]: match emission of diagonal d + 1 at x = w_d + l in
     // slot d & 1; red [32]: reduction scratch; with the expectations,
@@ -335,6 +408,9 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
     }
     float total = CPECAN_NEG;
     bool cut_prev = false;  // the seed cut of diagonal d + 1
+    float shift = 0.0f;     // B, the running re-centering shift (tiled)
+    float shf = 0.0f;       // A_t + B, repaid by the rows of tile t
+    const int NT = TILED ? ND / TD : 0;
     float acc[NTRANS];      // per-lane transition sums (expectations)
     float* gap_row = nullptr;
     if constexpr (WITH_EXP) {
@@ -350,6 +426,17 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
     __syncthreads();
 
     for (int d = ND; d >= 1; --d) {
+        if constexpr (TILED) {
+            if (d % TD == 0) {
+                // the top of tile d / TD - 1; below the first tile the
+                // carried bwd[d + 1] and bwd[d + 2] (cut at d + 1) re-center
+                if (d < ND)
+                    recenter(ring + ((d + 1) % 3) * S * W,
+                             ring + ((d + 2) % 3) * S * W, cut_prev, l, W,
+                             red, shift);
+                shf = shifts[static_cast<size_t>(b) * NT + d / TD - 1] + shift;
+            }
+        }
         const int w = wg[d];
         const int o1 = w - wg[d + 1];
         const int o2 = w - wg[d + 2];
@@ -406,10 +493,12 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
             const float m = block_max(vv, red);
             const float s = block_sum(mask ? expf(vv - m) : 0.0f, red);
             total = m + logf(fmaxf(s, 1e-37f));
+            if constexpr (TILED) total = total + shf;
         }
         const float xl = static_cast<float>(x);
         const bool ok = mask && xl > 0.0f && xl < static_cast<float>(d);
-        const float z = f0 + bm - total;
+        float z = f0 + bm - total;
+        if constexpr (TILED) z = z + shf;
         pout[static_cast<size_t>(d) * pplane_d] =
             ok ? expf(fminf(z, 0.69f)) : 0.0f;
         if constexpr (WITH_EXP) {
@@ -489,23 +578,24 @@ int launch_config_error(int W) {
     return cudaSuccess;
 }
 
-template <bool WITH_EXP>
+template <bool WITH_EXP, bool TILED>
 int launch_bwd(const void* scal, const void* win, const void* xf,
                const void* yf, const void* basef, const void* widthf,
                const void* seedf, const void* raggedf, const void* fwd,
-               void* posts, void* totals, void* trans, void* gapx, int G,
-               int R, int W, int ND, int NDp, int X, int C, int Y,
-               void* stream) {
+               const void* shifts, void* posts, void* totals, void* trans,
+               void* gapx, int G, int R, int W, int ND, int NDp, int X,
+               int C, int Y, int TD, void* stream) {
     if (int e = launch_config_error(W)) return e;
+    if (TILED && (TD <= 0 || ND % TD != 0)) return cudaErrorInvalidValue;
     // ring + em + red, and fsh with the expectations
     const size_t smem =
         sizeof(float) * ((3 * S + 2) * W + 32 + (WITH_EXP ? 3 * S * W : 0));
     if (smem > 48 * 1024) {
-        cudaFuncSetAttribute(sm3_bwd_kernel<WITH_EXP>,
+        cudaFuncSetAttribute(sm3_bwd_kernel<WITH_EXP, TILED>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
     }
-    sm3_bwd_kernel<WITH_EXP>
+    sm3_bwd_kernel<WITH_EXP, TILED>
         <<<G * R, W, smem, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float*>(scal), static_cast<const int*>(win),
             static_cast<const float*>(xf), static_cast<const float*>(yf),
@@ -513,9 +603,34 @@ int launch_bwd(const void* scal, const void* win, const void* xf,
             static_cast<const float*>(widthf),
             static_cast<const float*>(seedf),
             static_cast<const float*>(raggedf),
-            static_cast<const float*>(fwd), static_cast<float*>(posts),
+            static_cast<const float*>(fwd),
+            static_cast<const float*>(shifts), static_cast<float*>(posts),
             static_cast<float*>(totals), static_cast<float*>(trans),
-            static_cast<float*>(gapx), R, W, ND, NDp, X, C, Y);
+            static_cast<float*>(gapx), R, W, ND, NDp, X, C, Y, TD);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <bool TILED>
+int launch_fwd(const void* scal, const void* win, const void* xf,
+               const void* yf, const void* basef, const void* widthf,
+               void* fwd, void* shifts, int G, int R, int W, int ND, int NDp,
+               int X, int C, int Y, int TD, void* stream) {
+    if (int e = launch_config_error(W)) return e;
+    if (TILED && (TD <= 0 || ND % TD != 0)) return cudaErrorInvalidValue;
+    // ring, and the reduction scratch of the re-centering
+    const size_t smem = sizeof(float) * (3 * S * W + (TILED ? 32 : 0));
+    if (smem > 48 * 1024) {
+        cudaFuncSetAttribute(sm3_fwd_kernel<TILED>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    }
+    sm3_fwd_kernel<TILED>
+        <<<G * R, W, smem, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(scal), static_cast<const int*>(win),
+            static_cast<const float*>(xf), static_cast<const float*>(yf),
+            static_cast<const float*>(basef),
+            static_cast<const float*>(widthf), static_cast<float*>(fwd),
+            static_cast<float*>(shifts), R, W, ND, NDp, X, C, Y, TD);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -531,19 +646,17 @@ int wavefront_fwd(const void* scal, const void* win, const void* xf,
                   const void* yf, const void* basef, const void* widthf,
                   void* fwd, int G, int R, int W, int ND, int NDp, int X,
                   int C, int Y, void* stream) {
-    if (int e = launch_config_error(W)) return e;
-    const size_t smem = sizeof(float) * 3 * S * W;
-    if (smem > 48 * 1024) {
-        cudaFuncSetAttribute(sm3_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    }
-    sm3_fwd_kernel<<<G * R, W, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(scal), static_cast<const int*>(win),
-        static_cast<const float*>(xf), static_cast<const float*>(yf),
-        static_cast<const float*>(basef), static_cast<const float*>(widthf),
-        static_cast<float*>(fwd), R, W, ND, NDp, X, C, Y);
-    return static_cast<int>(cudaGetLastError());
+    return launch_fwd<false>(scal, win, xf, yf, basef, widthf, fwd, nullptr,
+                             G, R, W, ND, NDp, X, C, Y, 0, stream);
+}
+
+int wavefront_fwd_tiled(const void* scal, const void* win, const void* xf,
+                        const void* yf, const void* basef,
+                        const void* widthf, void* fwd, void* shifts, int G,
+                        int R, int W, int ND, int NDp, int X, int C, int Y,
+                        int TD, void* stream) {
+    return launch_fwd<true>(scal, win, xf, yf, basef, widthf, fwd, shifts,
+                            G, R, W, ND, NDp, X, C, Y, TD, stream);
 }
 
 int wavefront_bwd(const void* scal, const void* win, const void* xf,
@@ -551,9 +664,10 @@ int wavefront_bwd(const void* scal, const void* win, const void* xf,
                   const void* seedf, const void* raggedf, const void* fwd,
                   void* posts, void* totals, int G, int R, int W, int ND,
                   int NDp, int X, int C, int Y, void* stream) {
-    return launch_bwd<false>(scal, win, xf, yf, basef, widthf, seedf,
-                             raggedf, fwd, posts, totals, nullptr, nullptr,
-                             G, R, W, ND, NDp, X, C, Y, stream);
+    return launch_bwd<false, false>(scal, win, xf, yf, basef, widthf, seedf,
+                                    raggedf, fwd, nullptr, posts, totals,
+                                    nullptr, nullptr, G, R, W, ND, NDp, X, C,
+                                    Y, 0, stream);
 }
 
 int wavefront_bwd_exp(const void* scal, const void* win, const void* xf,
@@ -562,9 +676,23 @@ int wavefront_bwd_exp(const void* scal, const void* win, const void* xf,
                       const void* fwd, void* posts, void* totals,
                       void* trans, void* gapx, int G, int R, int W, int ND,
                       int NDp, int X, int C, int Y, void* stream) {
-    return launch_bwd<true>(scal, win, xf, yf, basef, widthf, seedf,
-                            raggedf, fwd, posts, totals, trans, gapx, G, R,
-                            W, ND, NDp, X, C, Y, stream);
+    return launch_bwd<true, false>(scal, win, xf, yf, basef, widthf, seedf,
+                                   raggedf, fwd, nullptr, posts, totals,
+                                   trans, gapx, G, R, W, ND, NDp, X, C, Y, 0,
+                                   stream);
+}
+
+int wavefront_bwd_tiled(const void* scal, const void* win, const void* xf,
+                        const void* yf, const void* basef,
+                        const void* widthf, const void* seedf,
+                        const void* raggedf, const void* fwd,
+                        const void* shifts, void* posts, void* totals, int G,
+                        int R, int W, int ND, int NDp, int X, int C, int Y,
+                        int TD, void* stream) {
+    return launch_bwd<false, true>(scal, win, xf, yf, basef, widthf, seedf,
+                                   raggedf, fwd, shifts, posts, totals,
+                                   nullptr, nullptr, G, R, W, ND, NDp, X, C,
+                                   Y, TD, stream);
 }
 
 }  // extern "C"

@@ -6,6 +6,12 @@ aligned pairs from ``tests/fixtures/zymo_template_slice.npz`` (built by
 ``tests/fixtures/make_zymo_template_slice.py``), so a check needs neither
 lastz nor JAX.
 
+``load_long_read`` gives the long-alignment path's check: a 10 kb x
+17,000-event strawman read (``synthetic.long_signal_read``, seed 11) with
+the f64 scan engine's pairs and the JAX package's tiled-path pairs from
+``tests/fixtures/long_read.npz`` (built by
+``tests/fixtures/make_long_read_fixture.py``).
+
 ``load_zymo_train`` gives what a training check of the same read needs:
 the lastz guide cigar and the JAX package's two-iteration trainModels
 result from ``tests/fixtures/zymo_train.npz`` (built by
@@ -17,17 +23,35 @@ import os
 
 import numpy as np
 
-from cpecan_tpu.constants import KMER_LENGTH
-from cpecan_tpu.fixtures import fixture_path
-from cpecan_tpu.io.cigar import parse_cigar_line
-from cpecan_tpu.io.npread import load_npread
-from cpecan_tpu.io.poremodel import load_pore_model, scale_model
-from cpecan_tpu.models.hmm import ContinuousPairHmm
+from .constants import KMER_LENGTH
+from .io.cigar import parse_cigar_line
+from .io.npread import load_npread
+from .io.poremodel import load_pore_model, scale_model
+from .models.hmm import ContinuousPairHmm
 
-_FIXTURES = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "tests", "fixtures")
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_FIXTURES = os.path.join(_REPO, "tests", "fixtures")
 ZYMO_SLICE = os.path.join(_FIXTURES, "zymo_template_slice.npz")
 ZYMO_TRAIN = os.path.join(_FIXTURES, "zymo_train.npz")
+LONG_READ = os.path.join(_FIXTURES, "long_read.npz")
+
+# name -> repository-relative path of the vendored data files the port
+# reads (the JAX package's ``fixtures.fixture_path`` names)
+_FILES = {
+    "template_median68pA.model": "models/template_median68pA.model",
+    "complement_median68pA_pop2.model":
+        "models/complement_median68pA_pop2.model",
+    "ZymoRef.txt": "tests/fixtures/ZymoRef.txt",
+    "ZymoC_ch_1_file1.npRead": "tests/fixtures/ZymoC_ch_1_file1.npRead",
+}
+
+
+def fixture_path(name):
+    """Absolute path of a vendored data file of the repository."""
+    path = os.path.join(_REPO, _FILES[name])
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"vendored data file missing: {path}")
+    return path
 
 
 def load_zymo_slice():
@@ -44,6 +68,19 @@ def load_zymo_slice():
     read = (ref, npr.template_events, len(ref) - (KMER_LENGTH - 1),
             npr.n_template_events, anchors)
     return model, read, stored["pairs"]
+
+
+def load_long_read():
+    """(template PoreModel, read (ref, events, l_x, l_y, anchors), stored
+    arrays: ``engine_pairs`` and ``tiled_pairs`` [N, 3] (score, x, y),
+    ``l_x``, ``l_y``, ``seed``, ``tile_diag``)."""
+    from .synthetic import long_signal_read
+
+    with np.load(LONG_READ) as z:
+        stored = {k: z[k] for k in z.files}
+    model, read = long_signal_read(int(stored["l_x"]), int(stored["l_y"]),
+                                   int(stored["seed"]))
+    return model, read, stored
 
 
 def load_zymo_train():

@@ -11,9 +11,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from cpecan_tpu.constants import LOG_ZERO, NUM_OF_KMERS
-from cpecan_tpu.io.poremodel import PoreModel
-
+from ..constants import LOG_ZERO, NUM_OF_KMERS
+from ..io.poremodel import PoreModel
 from ..ops.fb_kernels import NEG
 
 LOG_TENTH = -2.3025850929940455  # log(0.1), impl/stateMachine.c:1557
@@ -96,10 +95,17 @@ class StateMachine3SignalStrawman(nn.Module):
 
 
 def machine_from_jax(sm):
-    """The port's strawman machine with the weights of a JAX
-    ``cpecan_tpu.models.state_machines.StateMachine3SignalStrawman``.
+    """The port's strawman machine with the weights of the JAX package's
+    ``StateMachine3SignalStrawman``.
 
-    Reads only numpy and float attributes (``sm.p``, ``sm.model``,
-    ``sm.gap_x_log_probs``), so it needs no JAX import of its own."""
-    return StateMachine3SignalStrawman(sm.model, params=sm.p,
+    Reads only numpy and float attributes (``sm.p``, ``sm.gap_x_log_probs``
+    and the fields of ``sm.model``), so it needs no JAX import of its own;
+    the JAX package's pore model becomes the port's ``PoreModel``."""
+    m = sm.model
+    model = PoreModel(float(m.match_correlation),
+                      np.asarray(m.match_model, np.float64),
+                      np.asarray(m.skip_bins, np.float64),
+                      float(m.gap_y_correlation),
+                      np.asarray(m.gap_y_model, np.float64))
+    return StateMachine3SignalStrawman(model, params=sm.p,
                                        gap_x_log_probs=sm.gap_x_log_probs)

@@ -2,7 +2,8 @@
 (counterparts of ``cpecan_tpu/ops/pallas_fb.py`` ``compact_posteriors``
 :3416, ``extract_pairs_from_pallas`` :3394, ``_compact_row`` :3482,
 ``_flat_ix`` :3495, ``extract_pairs_compact`` :3508, ``extract_pairs_auto``
-:3585 and ``extract_pairs_chunk`` :3625).
+:3585, ``extract_pairs_chunk`` :3625, ``extract_pairs_long`` :3747, and the
+per-chunk compaction of ``_run_tiled`` :2597-2614).
 
 The wire format is the JAX package's: per read the top-k cells of the
 windowed posterior plane as u16 fixed-point values (p * 65535, clipped to
@@ -14,7 +15,7 @@ u16).
 import numpy as np
 import torch
 
-from cpecan_tpu.constants import PAIR_ALIGNMENT_PROB_1
+from ..constants import PAIR_ALIGNMENT_PROB_1
 
 
 def host_array(a):
@@ -24,24 +25,48 @@ def host_array(a):
     return np.asarray(a)
 
 
+def _top_k(p, k, W, n_rows):
+    """The exact top-k along the last axis of ``p`` (flat (row, lane)
+    plane indices, ``n_rows`` rows of W lanes) in the wire format: (values
+    u16, drow, lane) numpy arrays.  Values are quantized in int32 on the
+    device and take their wire dtypes on the host."""
+    vals, idx = torch.topk(p, min(k, p.shape[-1]), dim=-1)
+    qv = torch.round(torch.clamp(vals, 0.0, 1.0) * 65535.0).to(torch.int32)
+    drow = torch.div(idx, W, rounding_mode="floor").to(torch.int32)
+    lane = (idx % W).to(torch.int32)
+    qv, drow, lane = (host_array(a) for a in (qv, drow, lane))
+    d_dt = np.uint16 if n_rows < 65536 else np.int32
+    l_dt = np.uint8 if W <= 256 else np.uint16
+    return qv.astype(np.uint16), drow.astype(d_dt), lane.astype(l_dt)
+
+
 def compact_posteriors(posts, k=4096):
     """Per read, the top-k posterior cells over all diagonals of the
     windowed plane ``posts`` [G, ND+1, R, W] -> (values u16, drow, lane),
     each [G, R, k], as numpy arrays on the host.
 
     One exact ``torch.topk`` over the [G, R, ND*W] plane (diagonal 0 is
-    never emitted).  Values are quantized in int32 on the device and take
-    their wire dtypes on the host."""
+    never emitted)."""
     G, ND1, R, W = posts.shape
     p = posts[:, 1:].permute(0, 2, 1, 3).reshape(G, R, (ND1 - 1) * W)
-    vals, idx = torch.topk(p, min(k, p.shape[-1]), dim=-1)
-    qv = torch.round(torch.clamp(vals, 0.0, 1.0) * 65535.0).to(torch.int32)
-    drow = torch.div(idx, W, rounding_mode="floor").to(torch.int32)
-    lane = (idx % W).to(torch.int32)
-    qv, drow, lane = (host_array(a) for a in (qv, drow, lane))
-    d_dt = np.uint16 if ND1 - 1 < 65536 else np.int32
-    l_dt = np.uint8 if W <= 256 else np.uint16
-    return qv.astype(np.uint16), drow.astype(d_dt), lane.astype(l_dt)
+    return _top_k(p, k, W, ND1 - 1)
+
+
+def compact_chunks(posts, DC, k):
+    """The tiled path's per-chunk compaction: for every chunk c of DC
+    diagonals (off = c * DC, diagonals off+1 .. off+DC) and every read, the
+    exact top-k of that chunk, as ``compact_posteriors`` of the rows
+    off .. off+DC would give it (drow counts from off).  One ``torch.topk``
+    over [G, R, NC, DC*W]; returns [(off, (values, drow, lane)), ...],
+    each array [G, R, k]."""
+    G, ND1, R, W = posts.shape
+    NC = (ND1 - 1) // DC
+    if NC * DC != ND1 - 1:
+        raise ValueError(f"{ND1 - 1} diagonals are not whole chunks of {DC}")
+    p = posts[:, 1:].reshape(G, NC, DC, R, W).permute(0, 3, 1, 2, 4)
+    wire = _top_k(p.reshape(G, R, NC, DC * W), k, W, DC)
+    return [(c * DC, tuple(np.ascontiguousarray(a[:, :, c]) for a in wire))
+            for c in range(NC)]
 
 
 def extract_pairs_full(out, read_idx, threshold):
@@ -106,11 +131,9 @@ def extract_pairs_compact(vals, idx, read_idx, n_diag, prep, threshold,
                     (d - x - 1).tolist()))
 
 
-def _no_tiled(out):
-    if "tiled" in out:
-        raise NotImplementedError(
-            "tiled long-alignment outputs are not ported yet (ROADMAP "
-            "Queue 1 item 5)")
+def _no_echelon(out):
+    # checked before the tiled route: the JAX package decodes a tiled
+    # multi-state output with W lanes per row (ROADMAP Queue 3)
     if out["posteriors"].ndim == 5:
         raise NotImplementedError(
             "multi-state (echelon) posterior outputs are not ported yet "
@@ -120,8 +143,12 @@ def _no_tiled(out):
 def extract_pairs_auto(out, read_idx, n_diag, threshold, as_array=False):
     """Pair extraction that detects top-k saturation: when every one of a
     read's k compacted cells clears the threshold, pairs may have been
-    dropped, so read that read's full windowed plane instead."""
-    _no_tiled(out)
+    dropped, so read that read's full windowed plane instead.  A tiled
+    run's output goes to ``extract_pairs_long``."""
+    _no_echelon(out)
+    if "tiled" in out:
+        return extract_pairs_long(out, read_idx, n_diag, threshold,
+                                  as_array=as_array)
     vals, *idx = out["compact"]
     idx = tuple(idx)
     prep = out["prep"]
@@ -154,8 +181,14 @@ def extract_pairs_chunk(out, rels, n_diags, threshold):
     ``rels`` (read indices into the run's packed groups), each sorted by
     diagonal x + y with stable ties, exactly ``extract_pairs_auto(...,
     as_array=True)`` followed by a stable argsort.  Reads whose top-k
-    saturated fall back to the per-read full-plane path."""
-    _no_tiled(out)
+    saturated fall back to the per-read full-plane path.  A tiled run's
+    output is extracted per read (``extract_pairs_long``, rows already in
+    that order)."""
+    _no_echelon(out)
+    if "tiled" in out:
+        return [extract_pairs_long(out, int(rel), int(nd_i), threshold,
+                                   as_array=True)
+                for rel, nd_i in zip(rels, n_diags)]
     vals, *idx = out["compact"]
     prep = out["prep"]
     R, W = prep["R"], prep["W"]
@@ -191,3 +224,48 @@ def extract_pairs_chunk(out, rels, n_diags, threshold):
                                   as_array=True).reshape(-1, 3)
         parts[i] = full[np.argsort(full[:, 1] + full[:, 2], kind="stable")]
     return parts
+
+
+def extract_pairs_long(out, read_idx, n_diag, threshold, as_array=False):
+    """Pairs of one read of a tiled run (``StrawmanAligner._run_tiled``):
+    each chunk of ``compact_chunks`` extracts like
+    ``extract_pairs_compact`` with its diagonal offset, and a chunk whose
+    top-k saturated reads that read's rows of the chunk from the full
+    windowed plane instead.  Returns (score, x, y) rows sorted by diagonal
+    (stable), as ``extract_pairs_auto`` + the pipelines' drain order."""
+    prep = out["prep"]
+    R, W = prep["R"], prep["W"]
+    win = prep["win"]
+    DC = out["tiled"]["DC"]
+    g, r = divmod(read_idx, R)
+    parts = []
+    for off, comp in out["compact_chunks"]:
+        if off >= n_diag:
+            break
+        v = _compact_row(comp[0], g, r)
+        if not (v.size and float(v[-1]) >= threshold):
+            ix = _flat_ix(tuple(np.asarray(a)[g, r] for a in comp[1:]), W)
+            d = ix // W + 1 + off
+            keep = (v >= threshold) & (d <= n_diag)
+            d = d[keep]
+            l = ix[keep] % W
+            p = v[keep].astype(np.float64)
+        else:
+            # saturated chunk: this read's rows of the full plane
+            hi = min(off + DC, n_diag)
+            sub = host_array(out["posteriors"][g, off + 1:hi + 1, r])
+            d_i, l = np.nonzero(sub >= threshold)
+            d = d_i.astype(np.int64) + off + 1
+            p = np.minimum(sub[d_i, l].astype(np.float64), 1.0)
+        x = win[g, d].astype(np.int64) + l
+        y = d - x
+        ok = (x >= 1) & (y >= 1)
+        scores = np.floor(np.minimum(p[ok], 1.0)
+                          * PAIR_ALIGNMENT_PROB_1).astype(np.int64)
+        part = np.stack([scores, x[ok] - 1, y[ok] - 1], axis=1)
+        parts.append(part[np.argsort(d[ok], kind="stable")])
+    ap = (np.concatenate(parts, axis=0) if parts
+          else np.zeros((0, 3), np.int64))
+    if as_array:
+        return ap
+    return list(map(tuple, ap.tolist()))

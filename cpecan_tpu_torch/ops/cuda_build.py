@@ -32,6 +32,10 @@ _SIGNATURES = {
     "wavefront_bwd": [_P] * 11 + [_I] * 8 + [_P],
     # ... posts totals trans gapx | ... | stream
     "wavefront_bwd_exp": [_P] * 13 + [_I] * 8 + [_P],
+    # scal win xf yf basef widthf fwd shifts | G R W ND NDp X C Y TD | stream
+    "wavefront_fwd_tiled": [_P] * 8 + [_I] * 9 + [_P],
+    # ... raggedf fwd shifts posts totals | ... TD | stream
+    "wavefront_bwd_tiled": [_P] * 12 + [_I] * 9 + [_P],
 }
 
 

@@ -1,7 +1,7 @@
 """Batched banded forward/backward posterior alignment of the strawman
 3-state signal machine on the wavefront kernels (counterpart of
 ``cpecan_tpu/ops/pallas_fb.py`` ``StrawmanPallasAligner``: ``prepare``
-:1599-1702 and the untiled branch of ``run`` :1778-1922).
+:1599-1702, ``run`` :1778-1922 and ``_run_tiled`` :2447-2616).
 
 A batch is packed into groups of R reads.  Each group shares one window of
 W lanes per anti-diagonal (``win[g, d]``, covering the union of the
@@ -13,6 +13,14 @@ each read's posteriors to its top-k cells for the host
 the expectation backward instead, and its per-read EM sums come back in
 one device-to-host copy (``exp_dispatch``, ``exp_finalize``: the branch
 at pallas_fb.py:1877-1907 with :2084-2128).
+
+Long alignments (2^14 estimated diagonals or more, 2^15 reference columns
+or more, or any run given ``tile_diag``) take the tiled path
+(``_run_tiled``): the planes run to NDT = NT * TD diagonals, the tiled
+kernels re-center each read's carries at every TD-diagonal tile boundary
+and repay the shifts in the posteriors, and the posteriors compact per
+chunk of TD diagonals (``compact.compact_chunks``; extraction:
+``compact.extract_pairs_long``).
 """
 
 import os
@@ -20,14 +28,14 @@ import os
 import numpy as np
 import torch
 
-from cpecan_tpu.constants import NUM_OF_KMERS
-from cpecan_tpu.ops.band import make_bands
-
 from ..align import AlignmentParams
-from .compact import compact_posteriors, host_array
+from ..constants import NUM_OF_KMERS
+from .band import make_bands
+from .compact import compact_chunks, compact_posteriors, host_array
 from .device_bands import device_bands
 from .fb_kernels import (StrawmanSpec, wavefront_bwd, wavefront_bwd_exp,
-                         wavefront_fwd)
+                         wavefront_bwd_tiled, wavefront_fwd,
+                         wavefront_fwd_tiled)
 from .features import (assemble_features, feature_inputs, kx_from_codes,
                        upload_u16)
 
@@ -37,8 +45,12 @@ from .features import (assemble_features, feature_inputs, kx_from_codes,
 # and the tiled path with per-tile re-centering is the fix
 TILED_MIN_DIAGONALS = 2 ** 14
 TILED_MIN_COLUMNS = 2 ** 15
+# the tiled path's diagonals per tile unless the caller sets tile_diag
+TILE_DIAG = 2048
 # share of the device's memory the banded planes may take
 PLANE_MEMORY_SHARE = 0.85
+SPLIT_REMEDY = ("split the alignment at anchor gaps "
+                "(cpecan_tpu_torch.ops.anchors.get_split_points)")
 
 
 def _round_up(v, m):
@@ -59,13 +71,14 @@ class StrawmanAligner:
 
     Exact full backward (no traceback windowing), f32, posteriors emitted
     as band-local [R, W] windows per diagonal.  ``device`` is where the
-    passes run: a CUDA device runs the CUDA kernels, the CPU runs their
-    plain PyTorch versions.  ``group`` is R (reads per kernel block group).
+    passes run: the CUDA device by default, whose CUDA kernels run them;
+    ``"cpu"`` runs their plain PyTorch versions.  ``group`` is R (reads per
+    kernel block group).
     """
 
     spec = StrawmanSpec
 
-    def __init__(self, params=None, device="cpu", group=32):
+    def __init__(self, params=None, device="cuda", group=32):
         self.params = params or AlignmentParams()
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -76,7 +89,7 @@ class StrawmanAligner:
         self.group = group
 
     def prepare(self, sm, reads, ragged_right=False, scale_params=None,
-                shape_hint=None, bands=None):
+                shape_hint=None, bands=None, tile_diag=None):
         """Host-side packing: bands, compact feature and band-metadata
         uploads, and the per-group windows.  Returns the ``prep`` dict
         (same keys and layout as the JAX aligner's):
@@ -84,8 +97,16 @@ class StrawmanAligner:
         - ``win`` [G, NDp] int32 group window starts, forward-filled over
           diagonals with no active band, monotone non-decreasing in d;
         - ``W`` lanes: 128, widened to cover the widest group union;
-        - ``NDp`` = round_up(ND + 3, 128) + 128 (the backward reads the
-          windows at ND + 1 and ND + 2)."""
+        - ``NDp`` = round_up(L + 3, 128) + 128 (the backward reads the
+          windows at L + 1 and L + 2), L the planes' last diagonal: ND, or
+          with ``tile_diag`` the tile plan's NDT;
+        - with ``tile_diag``, ``tiled`` = dict(TD, NT, NDT, DC): TD =
+          max(128, tile_diag // 128 * 128) diagonals per tile, NT =
+          ceil(ND / TD) tiles, NDT = NT * TD, DC = TD diagonals per
+          compaction chunk.  The windows and bands run to NDT's extended
+          range (``_run_tiled``'s repeated last window, :2476-2481), and
+          the events sit at C = NDT + 3, so that the sweep past ND reads
+          inside the feature planes."""
         p = self.params
         R = self.group
         if bands is None:
@@ -102,8 +123,15 @@ class StrawmanAligner:
             hx, hnd = shape_hint
             X = max(X, _round_up(hx + 2, 128))
             ND = max(ND, hnd)
-        C = ND + 3
-        NDp = _round_up(ND + 3, 128) + 128
+        L = ND
+        tiled = None
+        if tile_diag is not None:
+            TD = max(128, int(tile_diag) // 128 * 128)
+            NT = -(-ND // TD)
+            L = NT * TD
+            tiled = dict(TD=TD, NT=NT, NDT=L, DC=TD)
+        C = L + 3
+        NDp = _round_up(L + 3, 128) + 128
 
         finputs = feature_inputs(reads + [reads[-1]] * (Bp - B), X)
         A_max = max(1, max(len(r[4]) for r in reads))
@@ -164,6 +192,8 @@ class StrawmanAligner:
         bandmeta = np.concatenate([
             anch.astype(np.int32).ravel(), meta.ravel(),
             win.astype(np.int32).ravel()])
+        if tiled is not None:
+            out_extra["tiled"] = tiled
         return dict(**finputs, **out_extra, anch=anch, meta=meta,
                     bandmeta=bandmeta, win=win, bands=bands, X=X, ND=ND,
                     C=C, B=B, Bp=Bp, R=R, W=W, NDp=NDp)
@@ -194,6 +224,20 @@ class StrawmanAligner:
                     xf=xf, yf=yf, basef=basef, widthf=widthf, seedf=seedf,
                     raggedf=raggedf)
 
+    def _check_planes(self, prep, n_rows):
+        """Refuse a batch whose fwd [G, n_rows, S, R, W] and posterior
+        [G, n_rows, R, W] planes would not fit the device's
+        PLANE_MEMORY_SHARE, naming the remedies."""
+        G, R, W = prep["Bp"] // prep["R"], prep["R"], prep["W"]
+        plane_bytes = 4 * G * n_rows * R * W * (self.spec.S + 1)
+        limit = PLANE_MEMORY_SHARE * device_memory_bytes(self.device)
+        if plane_bytes > limit:
+            raise ValueError(
+                f"banded planes need ~{plane_bytes / 1e9:.1f} GB of the "
+                f"device's {limit / 1e9:.1f} GB (ND={prep['ND']} diagonals, "
+                f"{G} groups of {R}): dispatch the batch in smaller chunks, "
+                f"lower the group size, or {SPLIT_REMEDY}")
+
     def run(self, sm, reads, ragged_right=False, ragged_left=False,
             compact_k=4096, scale_params=None, shape_hint=None, bands=None,
             expectations=False, mesh=None, tile_diag=None):
@@ -204,6 +248,11 @@ class StrawmanAligner:
         (compact.compact_posteriors), "posteriors": [G, ND+1, R, W] and
         "totals": [G, R] tensors on the device, "prep": prepare's dict}.
 
+        A batch of 2^14 estimated diagonals or more (or 2^15 reference
+        columns), or any run given ``tile_diag``, takes the tiled path
+        (``_run_tiled``, its own output layout); extract its pairs with
+        ``compact.extract_pairs_auto``/``_chunk`` as any other run's.
+
         With ``expectations`` the backward also sums each read's EM
         expectations and "expectations" replaces "compact": {"trans"
         [B, 3, 3], "kmer_gap" [B, NUM_OF_KMERS + 2], "likelihood" [B]}
@@ -212,45 +261,29 @@ class StrawmanAligner:
             raise NotImplementedError(
                 "data-parallel runs are not ported yet (ROADMAP Queue 1 "
                 "item 9)")
-        if tile_diag is not None:
-            raise NotImplementedError(
-                "the tiled long-alignment path is not ported yet (ROADMAP "
-                "Queue 1 item 5)")
         est_x = _round_up(max(r[2] for r in reads) + 2, 128)
         est_nd = est_x + max(r[3] for r in reads) + 3
         if shape_hint is not None:
             est_x = max(est_x, _round_up(shape_hint[0] + 2, 128))
             est_nd = max(est_nd, shape_hint[1])
-        if est_x >= TILED_MIN_COLUMNS or est_nd >= TILED_MIN_DIAGONALS:
-            # the JAX package runs expectations untiled here with a
+        long = est_x >= TILED_MIN_COLUMNS or est_nd >= TILED_MIN_DIAGONALS
+        if expectations and (long or tile_diag is not None):
+            # the JAX package runs long expectation runs untiled with a
             # warning; the port refuses (ROADMAP Queue 3)
-            needs = ("an untiled expectation run, which degrades past ~16k "
-                     "diagonals (in-kernel EM expectations have no tiled "
-                     "variant)" if expectations else
-                     "the tiled long-alignment path, which is not ported "
-                     "yet (ROADMAP Queue 1 item 5)")
             raise NotImplementedError(
-                f"~{est_nd} diagonals / {est_x} columns would need {needs}; "
-                "f32 posteriors degrade past ~16k diagonals untiled "
-                "(BASELINE.md 'Untiled precision wall'): split the "
-                "alignment at anchor gaps "
-                "(cpecan_tpu.ops.anchors.get_split_points)")
-        prep = self.prepare(sm, reads, ragged_right=ragged_right,
-                            scale_params=scale_params,
-                            shape_hint=shape_hint, bands=bands)
+                f"~{est_nd} diagonals / {est_x} columns: in-kernel EM "
+                "expectations have no tiled variant, and f32 posteriors "
+                "degrade past ~16k diagonals untiled (BASELINE.md 'Untiled "
+                f"precision wall'): {SPLIT_REMEDY}")
+        kw = dict(ragged_right=ragged_right, scale_params=scale_params,
+                  shape_hint=shape_hint, bands=bands)
+        if long or tile_diag is not None:
+            return self._run_tiled(sm, reads, ragged_left=ragged_left,
+                                   compact_k=compact_k,
+                                   tile_diag=tile_diag or TILE_DIAG, **kw)
+        prep = self.prepare(sm, reads, **kw)
         ND, C, W, R = prep["ND"], prep["C"], prep["W"], prep["R"]
-        S = self.spec.S
-        G = prep["Bp"] // R
-        # the fwd plane [G, NDp, S, R, W] dominates device memory
-        plane_bytes = 4 * G * prep["NDp"] * R * W * (S + 1)
-        limit = PLANE_MEMORY_SHARE * device_memory_bytes(self.device)
-        if plane_bytes > limit:
-            raise ValueError(
-                f"banded planes need ~{plane_bytes / 1e9:.1f} GB of the "
-                f"device's {limit / 1e9:.1f} GB (ND={ND} diagonals, {G} "
-                f"groups of {R}): dispatch the batch in smaller chunks, "
-                "lower the group size, or split the alignments at anchor "
-                "gaps (cpecan_tpu.ops.anchors.get_split_points)")
+        self._check_planes(prep, prep["NDp"])
         inp = self.device_inputs(sm, prep, ragged_left=ragged_left)
         dims = dict(R=R, W=W, ND=ND, C=C)
         fwd = wavefront_fwd(inp["scal"], inp["win"], inp["xf"], inp["yf"],
@@ -267,6 +300,38 @@ class StrawmanAligner:
         compact = compact_posteriors(posts, min(compact_k, ND * W))
         return dict(compact=compact, posteriors=posts, totals=totals,
                     prep=prep)
+
+    def _run_tiled(self, sm, reads, *, ragged_right=False, ragged_left=False,
+                   compact_k=4096, scale_params=None, shape_hint=None,
+                   bands=None, tile_diag=TILE_DIAG):
+        """The long-alignment path (``_run_tiled``, pallas_fb.py:2447-2616):
+        the tiled forward and backward (``wavefront_fwd_tiled``/
+        ``wavefront_bwd_tiled``, one launch each) over NDT = NT * TD
+        diagonals, then an exact top-k per chunk of DC = TD diagonals.
+
+        Returns {"compact_chunks": [(off, (values, drow, lane)), ...]
+        (``compact.compact_chunks``), "tiled": dict(TD, NT, NDT, DC),
+        "posteriors" [G, NDT+1, R, W] (diagonals past a read's n_diag hold
+        0), "totals" [G, R], "prep"}."""
+        prep = self.prepare(sm, reads, ragged_right=ragged_right,
+                            scale_params=scale_params, shape_hint=shape_hint,
+                            bands=bands, tile_diag=tile_diag)
+        tiled = prep["tiled"]
+        NDT, W = tiled["NDT"], prep["W"]
+        self._check_planes(prep, NDT + 1)
+        inp = self.device_inputs(sm, prep, ragged_left=ragged_left)
+        dims = dict(R=prep["R"], W=W, ND=NDT, C=prep["C"], TD=tiled["TD"])
+        fwd, shifts = wavefront_fwd_tiled(
+            inp["scal"], inp["win"], inp["xf"], inp["yf"], inp["basef"],
+            inp["widthf"], **dims)
+        posts, totals = wavefront_bwd_tiled(
+            inp["scal"], inp["win"], inp["xf"], inp["yf"], inp["basef"],
+            inp["widthf"], inp["seedf"], inp["raggedf"], fwd, shifts, **dims)
+        del fwd   # free the fwd plane before the compaction's copy
+        DC = tiled["DC"]
+        chunks = compact_chunks(posts, DC, min(compact_k, DC * W))
+        return dict(compact_chunks=chunks, tiled=dict(tiled),
+                    posteriors=posts, totals=totals, prep=prep)
 
 
 def exp_dispatch(trans, gapx, totals):

@@ -14,6 +14,11 @@ Counterparts in the JAX package (``cpecan_tpu/ops/pallas_fb.py``):
                            (:857, :900), ``with_exp=False``, untiled
 ``wavefront_bwd_exp``      the same body with ``with_exp=True`` (EM
                            expectations, ``accumulate_exp`` :1072), untiled
+``wavefront_fwd_tiled``    ``_sm3_forward_kernel(tile=...)`` (:2304) chained
+                           over the tiles by ``_run_tiled`` (:2447), with
+                           ``_tile_steps.recenter`` (:2381)
+``wavefront_bwd_tiled``    ``_sm3_backward_kernel(tile=...)`` (:2332) chained
+                           the same way, repaying the shifts (``shf``)
 ========================  ==============================================
 
 Layout (the JAX planes, index for index): G groups of R reads; diagonal d
@@ -23,10 +28,12 @@ per-x model rows, ``yf`` [G*R, 2, C+X+256] the events flipped so that
 column C - y holds event y, ``basef``/``widthf``/``seedf``/``raggedf``
 [G*R, NDp] the band metadata.
 
-Dispatch: ``wavefront_fwd``/``wavefront_bwd``/``wavefront_bwd_exp`` run
-the plain version for a tensor on the CPU and launch the CUDA kernel
+Dispatch: every ``wavefront_*`` wrapper runs the plain version for a
+tensor on the CPU and launches the CUDA kernel
 (``cpecan_tpu_torch/csrc/wavefront.cu``) for a CUDA tensor; nothing falls
-back from one to the other.  Each wrapper counts its kernel launches in
+back from one to the other.  The tiled pair sweeps all ND = NT * TD
+diagonals in one launch each: a tile of the TPU kernels is only a
+boundary here, where the carried diagonals re-center.  Each wrapper counts its kernel launches in
 ``.launches``; each plain version counts its calls in ``.calls``.
 """
 
@@ -203,10 +210,22 @@ class _Frame:
         return (xfw,) + StrawmanSpec.emissions(xfw, ys[:, :, 0], ys[:, :, 1])
 
 
-def forward_plain(scal, win, xf, yf, basef, widthf, *, R, W, ND, C):
-    """Plain PyTorch forward pass: fwd plane [G, ND+1, 3, R, W] (f32).
-    Out-of-band cells hold exactly NEG."""
-    forward_plain.calls += 1
+def _recenter(vals, acc):
+    """Per-read log-space re-centering of carried diagonals (``_tile_steps.
+    recenter``, pallas_fb.py:2381-2394): m = the max over every state and
+    lane of ``vals`` ([G, R, W] tensors); where m > -1e20 (the read is
+    seeded) subtract it from each and add it to the running shift ``acc``
+    [G, R].  Returns (shifted vals, acc)."""
+    m = torch.stack(vals).amax(dim=(0, 3))                    # [G, R]
+    c = torch.where(m > -1e20, m, 0.0)
+    return [v - c[..., None] for v in vals], acc + c
+
+
+def _forward(scal, win, xf, yf, basef, widthf, R, W, ND, C, TD):
+    """The plain forward sweep shared by ``forward_plain`` and
+    ``forward_tiled_plain``; with ``TD`` the carries re-center at every
+    tile boundary (before diagonal t * TD + 1, t >= 1) and the shift each
+    tile's rows carry comes back as [G, R, ND // TD]."""
     fr = _Frame(scal, win, xf, yf, basef, widthf, R, W)
     t, S = fr.t, StrawmanSpec.S
     out = torch.empty((fr.G, ND + 1, S, R, W), dtype=torch.float32,
@@ -215,9 +234,16 @@ def forward_plain(scal, win, xf, yf, basef, widthf, *, R, W, ND, C):
     m0 = fr.band(0, w0)
     prev1 = [torch.where(m0, t[StrawmanSpec.NS + i], NEG) for i in range(S)]
     prev2 = [torch.full((fr.G, R, W), NEG, device=xf.device)] * S
+    if TD:
+        acc = torch.zeros((fr.G, R), device=xf.device)
+        shifts = torch.zeros((fr.G, R, ND // TD), device=xf.device)
     for i in range(S):
         out[:, 0, i] = prev1[i]
     for d in range(1, ND + 1):
+        if TD and d > 1 and (d - 1) % TD == 0:
+            both, acc = _recenter(prev1 + prev2, acc)
+            prev1, prev2 = both[:S], both[S:]
+            shifts[:, :, (d - 1) // TD] = acc
         w = fr.win[:, d]
         s1 = w - fr.win[:, d - 1]
         s2 = w - fr.win[:, max(d - 2, 0)]
@@ -232,17 +258,44 @@ def forward_plain(scal, win, xf, yf, basef, widthf, *, R, W, ND, C):
         for i in range(S):
             out[:, d, i] = new[i]
         prev2, prev1 = prev1, new
-    return out
+    return (out, shifts) if TD else out
+
+
+def forward_plain(scal, win, xf, yf, basef, widthf, *, R, W, ND, C):
+    """Plain PyTorch forward pass: fwd plane [G, ND+1, 3, R, W] (f32).
+    Out-of-band cells hold exactly NEG."""
+    forward_plain.calls += 1
+    return _forward(scal, win, xf, yf, basef, widthf, R, W, ND, C, None)
 
 
 forward_plain.calls = 0
 
 
+def forward_tiled_plain(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
+                        TD):
+    """Plain PyTorch tiled forward over ND = NT * TD diagonals (the long-
+    alignment forward, ``_sm3_forward_kernel(tile=...)`` chained by
+    ``_run_tiled``): (fwd plane [G, ND+1, 3, R, W], shifts [G, R, NT]).
+
+    The same recurrence as ``forward_plain``, but before diagonal
+    t * TD + 1 (t >= 1) the two carried diagonals of each read re-center:
+    their max m over all states and lanes (if > -1e20) is subtracted and
+    added to the read's running shift.  The rows of tile t (diagonals
+    t * TD + 1 .. t * TD + TD, and diagonal 0 for t = 0) hold the absolute
+    forward minus shifts[..., t]; shifts[..., 0] = 0."""
+    forward_tiled_plain.calls += 1
+    return _forward(scal, win, xf, yf, basef, widthf, R, W, ND, C, TD)
+
+
+forward_tiled_plain.calls = 0
+
+
 def _masked_lse(v, mask):
-    """Per-read log-sum-exp over the lanes inside ``mask`` -> [G, R, 1]."""
+    """Per-read log-sum-exp over the lanes inside ``mask`` -> [G, R, 1],
+    the lanes summed in the kernels' ``block_sum`` order."""
     vv = torch.where(mask, v, NEG)
     m = vv.amax(dim=-1, keepdim=True)
-    s = torch.where(mask, torch.exp(vv - m), 0.0).sum(dim=-1, keepdim=True)
+    s = block_sum(torch.where(mask, torch.exp(vv - m), 0.0))[..., None]
     return m + torch.log(torch.clamp(s, min=1e-37))
 
 
@@ -296,9 +349,10 @@ class _Expectations:
 
 
 def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
-              ND, C, with_exp):
-    """The plain backward sweep shared by ``backward_plain`` and
-    ``backward_exp_plain`` (``_sm3_backward_body_w``, untiled)."""
+              ND, C, with_exp, shifts=None, TD=None):
+    """The plain backward sweep shared by ``backward_plain``,
+    ``backward_exp_plain`` and ``backward_tiled_plain``
+    (``_sm3_backward_body_w``; with ``TD`` the tiled body)."""
     fr = _Frame(scal, win, xf, yf, basef, widthf, R, W)
     t, S, NS = fr.t, StrawmanSpec.S, StrawmanSpec.NS
     G, dev = fr.G, xf.device
@@ -315,7 +369,20 @@ def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
     if with_exp:
         exp = _Expectations(fr)
         f1 = [neg] * S      # fwd[d+1], raw at window w_{d+1}
+    if TD:
+        acc = torch.zeros((G, R), device=dev)       # backward shift B
     for d in range(ND, 0, -1):
+        if TD and d % TD == 0:
+            # the top of tile d // TD - 1; below the first tile the two
+            # carried diagonals re-center first (bwd[d+2] as cut at d+1)
+            if d < ND:
+                both, acc = _recenter(n1 + n2, acc)
+                cut_prev = seed[:, :, d + 1:d + 2] != 0.0
+                n1 = both[:S]
+                n2 = [torch.where(cut_prev, NEG, v) for v in both[S:]]
+            # f in this tile is stored minus A_t, bw minus B: repaid
+            # against the absolute total (one f32 add, pallas_fb.py:2430)
+            shf = (shifts[:, :, d // TD - 1] + acc)[..., None]
         w = fr.win[:, d]
         w1 = fr.win[:, d + 1]
         w2 = fr.win[:, d + 2]
@@ -345,7 +412,8 @@ def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
         prod = f[0] + bw[0]
         for i in range(1, S):
             prod = log_add(prod, f[i] + bw[i])
-        total = torch.where(sa, _masked_lse(prod, mask), total)
+        lse = _masked_lse(prod, mask)
+        total = torch.where(sa, lse + shf if TD else lse, total)
         if with_exp:
             # target diagonal d+2, after this step's total: middle source
             # fwd[d] @ w, lower/upper fwd[d+1] @ w1, target backward n2
@@ -358,8 +426,11 @@ def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
             f1 = f
         xl = fr.xcoord(w)
         ok = mask & (xl > 0) & (xl < d)
-        posts[:, d] = torch.where(
-            ok, torch.exp(torch.clamp(f[0] + bw[0] - total, max=0.69)), 0.0)
+        z = f[0] + bw[0] - total
+        if TD:
+            z = z + shf
+        posts[:, d] = torch.where(ok, torch.exp(torch.clamp(z, max=0.69)),
+                                  0.0)
         n2, n1, em_c, eg_c = n1, bw, em1, eg1
     if not with_exp:
         return posts, total[..., 0]
@@ -415,6 +486,27 @@ def backward_exp_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf,
 
 
 backward_exp_plain.calls = 0
+
+
+def backward_tiled_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf,
+                         fwd, shifts, *, R, W, ND, C, TD):
+    """Plain PyTorch tiled posterior backward over ND = NT * TD diagonals
+    (``_sm3_backward_kernel(tile=...)`` chained by ``_run_tiled``), fed the
+    tiled forward's plane and shifts [G, R, NT]: (posts [G, ND+1, R, W],
+    totals [G, R]).
+
+    ``backward_plain``'s sweep, but at the top of every tile below the
+    first (diagonal t * TD + TD, t < NT - 1) the carried bwd[d+1] and
+    bwd[d+2] of each read re-center into a running shift B, and the tile
+    repays shf = shifts[..., t] + B: the total is lse + shf at the seed
+    diagonal (absolute) and a posterior is exp(min(f + b - total + shf,
+    0.69))."""
+    backward_tiled_plain.calls += 1
+    return _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
+                     R, W, ND, C, with_exp=False, shifts=shifts, TD=TD)
+
+
+backward_tiled_plain.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -525,10 +617,78 @@ def wavefront_bwd_exp(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
 wavefront_bwd_exp.launches = 0
 
 
+def _tiles(ND, TD):
+    if TD <= 0 or ND % TD:
+        raise ValueError(f"ND={ND} is not a whole number of TD={TD} tiles")
+    return ND // TD
+
+
+def wavefront_fwd_tiled(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
+                        TD):
+    """Tiled forward over ND = NT * TD diagonals -> (fwd plane
+    [G, ND+1, 3, R, W], shifts [G, R, NT]) f32 (see
+    ``forward_tiled_plain``).  Plain PyTorch for CPU tensors; the CUDA
+    kernel ``sm3_fwd_kernel<true>`` for CUDA tensors (replaces
+    cpecan_tpu/ops/pallas_fb.py:2304 _sm3_forward_kernel(tile=...), K6a)."""
+    NT = _tiles(ND, TD)
+    if xf.device.type == "cpu":
+        return forward_tiled_plain(scal, win, xf, yf, basef, widthf, R=R,
+                                   W=W, ND=ND, C=C, TD=TD)
+    if xf.device.type != "cuda":
+        raise ValueError(f"no wavefront kernel for device {xf.device}")
+    from .cuda_build import load_library
+
+    G, NDp, X, Y = _geometry(win, xf, yf, R, W, ND)
+    _check_cuda_inputs(dict(scal=scal, win=win, xf=xf, yf=yf, basef=basef,
+                            widthf=widthf), {"win": torch.int32}, xf.device)
+    lib = load_library()
+    fwd = torch.empty((G, ND + 1, StrawmanSpec.S, R, W), dtype=torch.float32,
+                      device=xf.device)
+    shifts = torch.empty((G, R, NT), dtype=torch.float32, device=xf.device)
+    stream = torch.cuda.current_stream(xf.device).cuda_stream
+    code = lib.wavefront_fwd_tiled(
+        _ptr(scal), _ptr(win), _ptr(xf), _ptr(yf), _ptr(basef),
+        _ptr(widthf), _ptr(fwd), _ptr(shifts), G, R, W, ND, NDp, X, C, Y, TD,
+        ctypes.c_void_p(stream))
+    _raise_on(code, lib, "wavefront_fwd_tiled")
+    wavefront_fwd_tiled.launches += 1
+    return fwd, shifts
+
+
+wavefront_fwd_tiled.launches = 0
+
+
+def wavefront_bwd_tiled(scal, win, xf, yf, basef, widthf, seedf, raggedf,
+                        fwd, shifts, *, R, W, ND, C, TD):
+    """Tiled posterior backward over ND = NT * TD diagonals -> (posts
+    [G, ND+1, R, W], totals [G, R]) f32 (see ``backward_tiled_plain``).
+    Plain PyTorch for CPU tensors; the CUDA kernel
+    ``sm3_bwd_kernel<false, true>`` for CUDA tensors (replaces
+    cpecan_tpu/ops/pallas_fb.py:2332 _sm3_backward_kernel(tile=...),
+    K6b)."""
+    NT = _tiles(ND, TD)
+    if xf.device.type == "cpu":
+        return backward_tiled_plain(scal, win, xf, yf, basef, widthf, seedf,
+                                    raggedf, fwd, shifts, R=R, W=W, ND=ND,
+                                    C=C, TD=TD)
+    G = win.shape[0]
+    if tuple(shifts.shape) != (G, R, NT):
+        raise ValueError(f"shifts has shape {tuple(shifts.shape)}, expected "
+                         f"{(G, R, NT)}")
+    out = _launch_bwd("wavefront_bwd_tiled", scal, win, xf, yf, basef,
+                      widthf, seedf, raggedf, fwd, R, W, ND, C,
+                      with_exp=False, shifts=shifts, TD=TD)
+    wavefront_bwd_tiled.launches += 1
+    return out
+
+
+wavefront_bwd_tiled.launches = 0
+
+
 def _launch_bwd(name, scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
-                R, W, ND, C, with_exp):
-    """Launch the backward kernel ``name`` of the library on CUDA tensors;
-    returns its outputs."""
+                R, W, ND, C, with_exp, shifts=None, TD=None):
+    """Launch the backward kernel ``name`` of the library on CUDA tensors
+    (the tiled one with ``shifts`` and ``TD``); returns its outputs."""
     if xf.device.type != "cuda":
         raise ValueError(f"no wavefront kernel for device {xf.device}")
     from .cuda_build import load_library
@@ -536,9 +696,11 @@ def _launch_bwd(name, scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
     G, NDp, X, Y = _geometry(win, xf, yf, R, W, ND)
     if tuple(fwd.shape) != (G, ND + 1, StrawmanSpec.S, R, W):
         raise ValueError(f"fwd plane has shape {tuple(fwd.shape)}")
-    _check_cuda_inputs(dict(scal=scal, win=win, xf=xf, yf=yf, basef=basef,
-                            widthf=widthf, seedf=seedf, raggedf=raggedf,
-                            fwd=fwd), {"win": torch.int32}, xf.device)
+    named = dict(scal=scal, win=win, xf=xf, yf=yf, basef=basef,
+                 widthf=widthf, seedf=seedf, raggedf=raggedf, fwd=fwd)
+    if TD:
+        named["shifts"] = shifts
+    _check_cuda_inputs(named, {"win": torch.int32}, xf.device)
     lib = load_library()
 
     def empty(*shape):
@@ -549,10 +711,9 @@ def _launch_bwd(name, scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
         S = StrawmanSpec.S
         outs += [empty(G, R, S * S), empty(G, 1, R, X)]
     stream = torch.cuda.current_stream(xf.device).cuda_stream
-    code = getattr(lib, name)(
-        *(_ptr(v) for v in (scal, win, xf, yf, basef, widthf, seedf,
-                            raggedf, fwd, *outs)),
-        G, R, W, ND, NDp, X, C, Y, ctypes.c_void_p(stream))
+    args = [_ptr(v) for v in (*named.values(), *outs)]
+    args += [G, R, W, ND, NDp, X, C, Y] + ([TD] if TD else [])
+    code = getattr(lib, name)(*args, ctypes.c_void_p(stream))
     _raise_on(code, lib, name)
     return tuple(outs)
 
@@ -561,5 +722,7 @@ def reset_counts():
     """Zero every launch and plain-call counter of this module."""
     wavefront_fwd.launches = wavefront_bwd.launches = 0
     wavefront_bwd_exp.launches = 0
+    wavefront_fwd_tiled.launches = wavefront_bwd_tiled.launches = 0
     forward_plain.calls = backward_plain.calls = 0
     backward_exp_plain.calls = 0
+    forward_tiled_plain.calls = backward_tiled_plain.calls = 0

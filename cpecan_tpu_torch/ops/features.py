@@ -14,9 +14,8 @@ per-x model rows ``xf`` [B, 9, X] and lays the events out flipped in ``yf``
 import numpy as np
 import torch
 
-from cpecan_tpu.constants import KMER_LENGTH, N_SENTINEL, NUM_OF_KMERS
-from cpecan_tpu.models import kmers as K
-
+from ..constants import KMER_LENGTH, N_SENTINEL, NUM_OF_KMERS
+from ..models import kmers as K
 from .fb_kernels import NEG
 
 

@@ -30,6 +30,22 @@ transition sums are equal bit for bit, gap-X columns within
 KERNEL_GAPX_ATOL (the plain version's scatter-add on the card flushes a
 denormal sum that the kernel's adds keep).
 
+The tiled path against the untiled one on the same reads
+(``tests/test_pallas_tiled.py``'s bar): the re-centering moves the f32
+rounding against log totals of -1e3 .. -1e5, so posteriors agree within
+TILED_POST_ATOL, totals within TILED_TOTAL_ATOL, and a pair found by one
+run only scores at most TILED_POST_ATOL above the threshold; common
+scores within TILED_POST_ATOL plus 155 score units.
+
+Long reads (the tiled path, ~27k diagonals; ``fixtures.load_long_read``):
+the stored pairs carry no posterior planes, so a pair in one set only must
+have its score within FRINGE of the threshold, and common pairs' scores
+agree within LONG_SCORE_ATOL (probability units): f32 against the f64
+engine drifts along the read (the JAX tiled path: 8 one-sided pairs, all
+within 1.4e-4 of the threshold, common scores within 2.08e-2 on the
+fixture read), and the port against the JAX tiled path on the CPU agrees
+within 3.9e-3.
+
 Trained HMMs (Baum-Welch iterations from the same start): each iteration
 writes its HMM with six decimals (``%f``) and the next reads it back, so
 two runs that agree to ~1e-5 can round a value apart; the second
@@ -44,6 +60,7 @@ Each check raises AssertionError with the size of the miss.
 import numpy as np
 import torch
 
+from .constants import PAIR_ALIGNMENT_PROB_1
 from .ops.compact import host_array as _host
 from .ops.fb_kernels import NEG
 
@@ -57,6 +74,8 @@ EXP_GAP_RTOL, EXP_GAP_ATOL = 5e-3, 1e-3
 EXP_GAP_SUM_RTOL = 2e-3
 TRAIN_GAP_ATOL = 1e-4
 KERNEL_GAPX_ATOL = 1e-30
+LONG_SCORE_ATOL = 2.5e-2
+TILED_POST_ATOL, TILED_TOTAL_ATOL = 1e-2, 5e-2
 
 
 def band_mask(prep, basef, widthf):
@@ -215,4 +234,58 @@ def check_pairs(got, want, got_out, want_out, read_idx, threshold):
         if abs(gs[key] - ws[key]) > SCORE_ATOL:
             raise AssertionError(f"read {read_idx} pair {key} scores "
                                  f"{gs[key]} vs {ws[key]}")
+    return len(set(gs) ^ set(ws))
+
+
+def check_long_pairs(got, want, threshold):
+    """(score, x, y) rows of one long read against a stored set [N, 3]
+    (LONG_SCORE_ATOL, FRINGE by score); returns (pairs in one set only,
+    their largest distance from the threshold, the largest common-score
+    |d|), the last two in probability units."""
+    gs = {(int(x), int(y)): int(s) for s, x, y in np.asarray(got).tolist()}
+    ws = {(int(x), int(y)): int(s) for s, x, y in np.asarray(want).tolist()}
+    one = set(gs) ^ set(ws)
+    fringe = max((abs(gs.get(k, ws.get(k)) / PAIR_ALIGNMENT_PROB_1
+                      - threshold) for k in one), default=0.0)
+    if fringe > FRINGE:
+        raise AssertionError(f"{len(one)} pairs in one set only, up to "
+                             f"{fringe:.3g} from the threshold")
+    common = max((abs(gs[k] - ws[k]) / PAIR_ALIGNMENT_PROB_1
+                  for k in set(gs) & set(ws)), default=0.0)
+    if common > LONG_SCORE_ATOL:
+        raise AssertionError(f"common pair scores differ by {common:.3g}")
+    return len(one), fringe, common
+
+
+def check_tiled(posts_t, totals_t, posts_u, totals_u):
+    """A tiled run's posteriors [G, NDT+1, R, W] and totals against an
+    untiled run's [G, ND+1, R, W] (the rows past ND must be 0); returns
+    (posteriors max |d|, totals max |d|)."""
+    pt, pu = _host(posts_t), _host(posts_u)
+    if np.any(pt[:, pu.shape[1]:] != 0.0):
+        raise AssertionError("tiled posteriors past ND are not 0")
+    err = float(np.abs(pt[:, :pu.shape[1]] - pu).max())
+    if not err <= TILED_POST_ATOL:
+        raise AssertionError(f"tiled posteriors differ by {err}")
+    terr = float(np.abs(_host(totals_t).astype(np.float64)
+                        - _host(totals_u)).max())
+    if not terr <= TILED_TOTAL_ATOL:
+        raise AssertionError(f"tiled totals differ by {terr}")
+    return err, terr
+
+
+def check_tiled_pairs(got, want, threshold):
+    """One read's (score, x, y) rows from a tiled run against an untiled
+    run's; returns the number of pairs in one set only."""
+    gs = {(int(x), int(y)): int(s) for s, x, y in np.asarray(got).tolist()}
+    ws = {(int(x), int(y)): int(s) for s, x, y in np.asarray(want).tolist()}
+    near = (threshold + TILED_POST_ATOL) * PAIR_ALIGNMENT_PROB_1
+    for k in set(gs) ^ set(ws):
+        if gs.get(k, ws.get(k)) > near:
+            raise AssertionError(f"pair {k} scores {gs.get(k, ws.get(k))} "
+                                 "in one run only")
+    tol = TILED_POST_ATOL * PAIR_ALIGNMENT_PROB_1 + 155
+    for k in set(gs) & set(ws):
+        if abs(gs[k] - ws[k]) > tol:
+            raise AssertionError(f"pair {k} scores {gs[k]} vs {ws[k]}")
     return len(set(gs) ^ set(ws))

@@ -5,8 +5,8 @@ strawman ``threeState`` machine).
 
 Per iteration and strand: one ``StrawmanAligner.run(expectations=True)``
 over all reads (per-read model scaling on the device), per-read
-expectation containers merged and normalized (the M-step, the shared
-framework-free ``ContinuousPairHmm``), the HMM written, the likelihoods
+expectation containers merged and normalized (the M-step,
+``models/hmm.py::ContinuousPairHmm``), the HMM written, the likelihoods
 tracked.  The next iteration's machine is loaded back from the written
 HMM, as the reference does (scripts/trainModels.py:118-236).
 """
@@ -17,20 +17,19 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from cpecan_tpu.constants import KMER_LENGTH
-from cpecan_tpu.io.fasta import reverse_complement
-from cpecan_tpu.io.npread import load_npread
-from cpecan_tpu.io.poremodel import load_pore_model
-from cpecan_tpu.models.hmm import ContinuousPairHmm
-from cpecan_tpu.ops.anchors import filter_to_remove_overlap
-from cpecan_tpu.utils.checkpoint import CheckpointManager
-
 from ..align import AlignmentParams
 from ..cli.realign import convert_alignment_to_anchor_pairs, \
     rebase_coordinates
 from ..cli.signal_align import get_remapped_anchor_pairs, make_event_slice
+from ..constants import KMER_LENGTH
+from ..io.fasta import reverse_complement
+from ..io.npread import load_npread
+from ..io.poremodel import load_pore_model
+from ..models.hmm import ContinuousPairHmm
 from ..models.state_machines import StateMachine3SignalStrawman
+from ..ops.anchors import filter_to_remove_overlap
 from ..ops.fb import StrawmanAligner
+from ..utils.checkpoint import CheckpointManager
 
 # reads per kernel block group at most (the JAX package's compiled EM
 # group); smaller batches use one group of their own size

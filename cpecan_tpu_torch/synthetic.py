@@ -1,13 +1,16 @@
-"""Synthetic signal reads at realistic scale, made from a seed (counterpart
-of ``__graft_entry__._synthetic_batch``; the same numpy rng call sequence,
-so both packages get byte-identical reads for the same seed)."""
+"""Synthetic signal reads at realistic scale, made from a seed.
+
+``synthetic_batch`` is the counterpart of
+``__graft_entry__._synthetic_batch`` and ``long_signal_read`` of
+``tools/exp_long_events.py::synth_read``: the same numpy rng call
+sequences, so both packages get byte-identical reads for the same seed."""
 
 import numpy as np
 
-from cpecan_tpu.constants import KMER_LENGTH, MODEL_PARAMS, NUM_OF_KMERS
-from cpecan_tpu.io.poremodel import PoreModel
-from cpecan_tpu.models.kmers import seq_to_kmer_indices
-
+from .constants import KMER_LENGTH, MODEL_PARAMS, NUM_OF_KMERS
+from .fixtures import fixture_path
+from .io.poremodel import PoreModel, load_pore_model
+from .models.kmers import seq_to_kmer_indices
 from .models.state_machines import StateMachine3SignalStrawman
 
 
@@ -57,3 +60,31 @@ def synthetic_batch(n_reads=4, n_ref=160, n_events=150, seed=0,
                 px, py = x, y
         reads.append((ref, ev, l_x, r_events, anchors))
     return sm, reads
+
+
+# anchors every ANCHOR_STEP reference positions along the event staircase
+ANCHOR_STEP = 25
+
+
+def long_signal_read(l_x=10000, l_y=17000, seed=11):
+    """(template pore model, read (ref, events [l_y, 3], l_x, l_y,
+    anchors)): a nanopore-length strawman read whose events follow the
+    vendored template model's level means along a staircase of l_y / l_x
+    events per base, with a dense monotone anchor chain every ANCHOR_STEP
+    positions that keeps the band narrow (at most 46 cells at 10 kb x 17k
+    events, ND = l_x + l_y diagonals)."""
+    rng = np.random.default_rng(seed)
+    model = load_pore_model(fixture_path("template_median68pA.model"))
+    ref = "".join(rng.choice(list("ACGT"), l_x + 5))
+    kidx = seq_to_kmer_indices(ref)
+    k = kidx[np.minimum((np.arange(l_y) * l_x / l_y).astype(np.int64),
+                        l_x - 1)]
+    # one (level, noise) normal pair per event, drawn in event order
+    z = rng.standard_normal((l_y, 2))
+    ev = np.zeros((l_y, 3))
+    ev[:, 0] = model.match_model[k, 0] + z[:, 0] * 1.0
+    ev[:, 1] = np.maximum(model.match_model[k, 2], 0.1) + np.abs(z[:, 1] * .1)
+    ev[:, 2] = 0.01
+    anchors = [(x, int(x * l_y / l_x))
+               for x in range(20, l_x - 20, ANCHOR_STEP)]
+    return model, (ref, ev, l_x, l_y, anchors)

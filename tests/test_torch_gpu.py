@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from cpecan_tpu_torch.align import AlignmentParams
-from cpecan_tpu_torch.fixtures import (load_zymo_slice, load_zymo_train,
-                                       zymo_trained_params)
+from cpecan_tpu_torch.fixtures import (load_long_read, load_zymo_slice,
+                                       load_zymo_train, zymo_trained_params)
 from cpecan_tpu_torch.models.state_machines import \
     StateMachine3SignalStrawman
 from cpecan_tpu_torch.ops import fb_kernels as fk
@@ -23,7 +23,8 @@ from cpecan_tpu_torch.ops.compact import (extract_pairs_auto,
 from cpecan_tpu_torch.ops.fb import StrawmanAligner
 from cpecan_tpu_torch.parity import (band_mask, check_exp_kernel,
                                      check_expectations, check_fwd,
-                                     check_pairs, check_posts, check_totals,
+                                     check_long_pairs, check_pairs,
+                                     check_posts, check_tiled, check_totals,
                                      check_trained)
 from cpecan_tpu_torch.pipeline.train_models import TrainOptions, train
 from cpecan_tpu_torch.synthetic import synthetic_batch
@@ -176,3 +177,53 @@ def test_wide_group_window_raises(cuda):
         fk.wavefront_fwd(t, torch.zeros((1, 512), dtype=torch.int32,
                                         device=cuda), t, t, t, t, R=1,
                          W=2048, ND=4, C=7)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_cuda_tiled_kernels_match_plain(batch, cuda, ragged):
+    """K6a/K6b against their plain versions on the same card inputs, with
+    tiles of 128 diagonals: fwd plane, shifts, posteriors and totals equal
+    bit for bit; against the untiled kernels within the tiled tolerances."""
+    sm, reads = batch
+    pa = StrawmanAligner(device=cuda, group=8)
+    prep = pa.prepare(sm, reads, ragged_right=ragged, tile_diag=128)
+    inp = pa.device_inputs(sm, prep, ragged_left=ragged)
+    tl = prep["tiled"]
+    assert tl["NT"] >= 4
+    dims = dict(R=prep["R"], W=prep["W"], ND=tl["NDT"], C=prep["C"],
+                TD=tl["TD"])
+    fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
+    ba = fa + [inp["seedf"], inp["raggedf"]]
+    fk.reset_counts()
+    fwd, shifts = fk.wavefront_fwd_tiled(*fa, **dims)
+    posts, totals = fk.wavefront_bwd_tiled(*ba, fwd, shifts, **dims)
+    torch.cuda.synchronize()
+    assert fk.wavefront_fwd_tiled.launches == 1
+    assert fk.wavefront_bwd_tiled.launches == 1
+    assert fk.forward_tiled_plain.calls == fk.backward_tiled_plain.calls == 0
+    pfwd, pshifts = fk.forward_tiled_plain(*fa, **dims)
+    assert torch.equal(fwd, pfwd) and torch.equal(shifts, pshifts)
+    assert torch.all(shifts[..., 1:] != 0.0)
+    pposts, ptotals = fk.backward_tiled_plain(*ba, fwd, shifts, **dims)
+    assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
+    uprep = pa.prepare(sm, reads, ragged_right=ragged)
+    uinp = pa.device_inputs(sm, uprep, ragged_left=ragged)
+    udims = dict(R=uprep["R"], W=uprep["W"], ND=uprep["ND"], C=uprep["C"])
+    ufwd = _fwd(uinp, udims, fk.wavefront_fwd)
+    check_tiled(posts, totals, *_bwd(uinp, udims, ufwd, fk.wavefront_bwd))
+
+
+def test_cuda_long_read_matches_fixture(cuda):
+    """The 27,000-diagonal fixture read routes tiled on the card by itself
+    and its pairs meet the JAX tiled path's and the f64 engine's."""
+    model, read, stored = load_long_read()
+    thr = AlignmentParams().threshold
+    fk.reset_counts()
+    out = StrawmanAligner(device=cuda, group=8).run(
+        StateMachine3SignalStrawman(model), [read])
+    assert fk.wavefront_fwd_tiled.launches == 1
+    assert fk.wavefront_fwd.launches == fk.wavefront_bwd.launches == 0
+    got = extract_pairs_auto(out, 0, out["prep"]["bands"][0].n_diag, thr,
+                             as_array=True)
+    check_long_pairs(got, stored["tiled_pairs"], thr)
+    check_long_pairs(got, stored["engine_pairs"], thr)

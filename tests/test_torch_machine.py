@@ -171,28 +171,35 @@ def test_device_bands_match_host():
 
 
 def test_routing_and_plane_guards_raise(machines, reads, monkeypatch):
-    """Batches the JAX aligner routes to its tiled path raise (the port
-    has no tiled path yet and must not run past the f32 wall untiled);
-    unported options raise; the plane guard sizes from the device."""
+    """Batches the JAX aligner routes to its tiled path (2^14 estimated
+    diagonals, 2^15 columns, a shape hint past them, or ``tile_diag``) go
+    to the port's tiled path; expectation runs there and mesh runs raise;
+    the plane guard sizes from the device."""
     _, tsm = machines
     ta = StrawmanAligner(TorchParams(), device="cpu", group=8)
+    routed = []
+    monkeypatch.setattr(StrawmanAligner, "_run_tiled",
+                        lambda self, sm, reads, **kw: routed.append(kw))
     long_read = ("A" * 505, np.zeros((17000, 3)), 500, 17000,
                  [(100, 3400), (400, 13600)])
-    with pytest.raises(NotImplementedError, match="tiled"):
-        ta.run(tsm, [long_read])
+    ta.run(tsm, [long_read])
     wide = ("A" * 32775, np.zeros((10, 3)), 32770, 10, [])
-    with pytest.raises(NotImplementedError, match="tiled"):
-        ta.run(tsm, [wide])
-    with pytest.raises(NotImplementedError, match="tiled"):
-        ta.run(tsm, reads, shape_hint=(100, 2 ** 14))
-    # expectation runs have no tiled variant: past the wall they are
-    # refused with the split named
+    ta.run(tsm, [wide])
+    ta.run(tsm, reads, shape_hint=(100, 2 ** 14))
+    ta.run(tsm, reads, tile_diag=256)
+    assert [kw["tile_diag"] for kw in routed] == [2048, 2048, 2048, 256]
+    assert routed[2]["shape_hint"] == (100, 2 ** 14)
+    # expectation runs have no tiled variant: past the wall, or with a
+    # tile, they are refused with the split named
+    for kw in (dict(), dict(tile_diag=256)):
+        with pytest.raises(NotImplementedError, match="get_split_points"):
+            ta.run(tsm, [long_read], expectations=True, **kw)
     with pytest.raises(NotImplementedError, match="get_split_points"):
-        ta.run(tsm, [long_read], expectations=True)
-    for kw, item in ((dict(mesh=object()), "item 9"),
-                     (dict(tile_diag=256), "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            ta.run(tsm, reads, **kw)
+        ta.run(tsm, reads, expectations=True, tile_diag=256)
+    for kw in (dict(), dict(tile_diag=256)):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            ta.run(tsm, reads, mesh=object(), **kw)
+    assert len(routed) == 4
     monkeypatch.setattr(tfb, "device_memory_bytes", lambda device: 1e6)
     with pytest.raises(ValueError, match="smaller chunks"):
         ta.run(tsm, reads)

@@ -1,0 +1,265 @@
+"""The port stands alone: every module of ``cpecan_tpu_torch`` imports with
+JAX and the JAX package blocked, no module (nor ``chip_smoke.py``) imports
+either, and each module the port keeps its own copy of behaves as its
+original in the JAX package on the repository's fixtures."""
+
+import ast
+import dataclasses
+import io
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import cpecan_tpu.cli.batch as j_batch
+import cpecan_tpu.constants as j_constants
+import cpecan_tpu.fixtures as j_fixtures
+from cpecan_tpu.io import cigar as j_cigar
+from cpecan_tpu.io import fasta as j_fasta
+from cpecan_tpu.io import npread as j_npread
+from cpecan_tpu.io import poremodel as j_poremodel
+from cpecan_tpu.models import hmm as j_hmm
+from cpecan_tpu.models import kmers as j_kmers
+from cpecan_tpu.ops import anchors as j_anchors
+from cpecan_tpu.ops import band as j_band
+from cpecan_tpu.utils import checkpoint as j_checkpoint
+
+import cpecan_tpu_torch.cli.batch as t_batch
+import cpecan_tpu_torch.constants as t_constants
+import cpecan_tpu_torch.fixtures as t_fixtures
+from cpecan_tpu_torch.io import cigar as t_cigar
+from cpecan_tpu_torch.io import fasta as t_fasta
+from cpecan_tpu_torch.io import npread as t_npread
+from cpecan_tpu_torch.io import poremodel as t_poremodel
+from cpecan_tpu_torch.models import hmm as t_hmm
+from cpecan_tpu_torch.models import kmers as t_kmers
+from cpecan_tpu_torch.ops import anchors as t_anchors
+from cpecan_tpu_torch.ops import band as t_band
+from cpecan_tpu_torch.ops.fb import StrawmanAligner
+from cpecan_tpu_torch.utils import checkpoint as t_checkpoint
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "cpecan_tpu_torch"
+NPREAD = "ZymoC_ch_1_file1.npRead"
+MODEL = "template_median68pA.model"
+
+
+def test_port_imports_with_jax_package_blocked():
+    """Every module imports in a process where ``jax`` and ``cpecan_tpu``
+    cannot be imported."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = sys.modules['cpecan_tpu'] = None\n"
+        "import cpecan_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "cpecan_tpu_torch.__path__, 'cpecan_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "loaded = {m.split('.')[0] for m, v in sys.modules.items() "
+        "if v is not None}\n"
+        "assert not loaded & {'jax', 'cpecan_tpu'}, loaded\n"
+        "print(len(names))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 20
+
+
+def _imports(path):
+    """Top-level package names a Python file imports (absolute imports)."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_no_module_imports_the_jax_package():
+    files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = {str(f.relative_to(REPO)): sorted(_imports(f) & {"jax",
+                                                           "cpecan_tpu"})
+           for f in files}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_aligner_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        StrawmanAligner()
+
+
+def _bands():
+    """Anchor chains of a long read, a flush read and an anchor-less read."""
+    rng = np.random.default_rng(3)
+    lists = [[(x, int(x * 1.7)) for x in range(20, 980, 25)], [], []]
+    xs = np.sort(rng.choice(np.arange(1, 399), 12, replace=False))
+    ys = np.sort(rng.choice(np.arange(1, 349), 12, replace=False))
+    lists[1] = list(zip(xs.tolist(), ys.tolist()))
+    return lists, [1000, 400, 37], [1700, 350, 52]
+
+
+def case_make_bands():
+    lists, lxs, lys = _bands()
+    got = t_band.make_bands(lists, lxs, lys, 20)
+    want = j_band.make_bands(lists, lxs, lys, 20)
+    for g, w, a, lx, ly in zip(got, want, lists, lxs, lys):
+        one = t_band.make_band(a, lx, ly, 20)
+        for f in ("xmy_l", "xmy_r", "x_lo", "width"):
+            np.testing.assert_array_equal(getattr(g, f), getattr(w, f))
+            np.testing.assert_array_equal(getattr(one, f), getattr(w, f))
+        assert (g.n_diag, g.max_width) == (w.n_diag, w.max_width)
+    with pytest.raises(ValueError, match="strictly increasing"):
+        t_band.make_bands([[(5, 5), (4, 6)]], [10], [10], 20)
+
+
+def case_cigar():
+    line = str(np.load(t_fixtures.ZYMO_TRAIN)["guide"])
+    assert dataclasses.asdict(t_cigar.parse_cigar_line(line)) == \
+        dataclasses.asdict(j_cigar.parse_cigar_line(line))
+
+
+def case_load_guides(tmp_path):
+    line = str(np.load(t_fixtures.ZYMO_TRAIN)["guide"])
+    path = tmp_path / "guides.cigar"
+    toks = line.split()
+    toks[1] = "other"          # the query (read) name keys the guides
+    path.write_text(line + "\n\n" + " ".join(toks) + "\n")
+    got = t_batch._load_guides(str(path))
+    want = j_batch._load_guides(str(path))
+    assert got.keys() == want.keys() and len(got) == 2
+    for k in got:
+        assert got[k][0] == want[k][0]
+        assert dataclasses.asdict(got[k][1]) == dataclasses.asdict(want[k][1])
+
+
+def case_npread():
+    got = t_npread.load_npread(t_fixtures.fixture_path(NPREAD))
+    want = j_npread.load_npread(j_fixtures.fixture_path(NPREAD))
+    for f in dataclasses.fields(want):
+        g, w = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(w, np.ndarray):
+            np.testing.assert_array_equal(g, w)
+        elif dataclasses.is_dataclass(w):
+            assert dataclasses.asdict(g) == dataclasses.asdict(w)
+        else:
+            assert g == w
+    pairs = [(3, 10), (40, 100), (200, 500)]
+    assert t_npread.remap_anchor_pairs_with_offset(
+        pairs, got.template_event_map, 5) == \
+        j_npread.remap_anchor_pairs_with_offset(
+            pairs, want.template_event_map, 5)
+
+
+def case_pore_model():
+    got = t_poremodel.load_pore_model(t_fixtures.fixture_path(MODEL))
+    want = j_poremodel.load_pore_model(j_fixtures.fixture_path(MODEL))
+    tp = t_npread.load_npread(t_fixtures.fixture_path(NPREAD)).template_params
+    args = (tp.scale, tp.shift, tp.var, tp.scale_sd, tp.var_sd)
+    for g, w in ((got, want), (t_poremodel.scale_model(got, *args),
+                               j_poremodel.scale_model(want, *args))):
+        for f in dataclasses.fields(w):
+            np.testing.assert_array_equal(getattr(g, f.name),
+                                          getattr(w, f.name))
+
+
+def case_hmm_round_trip(tmp_path):
+    rng = np.random.default_rng(7)
+    acc = {"trans": rng.random((3, 3)), "kmer_gap": rng.random(4098),
+           "likelihood": -1234.5}
+    hmms = []
+    for mod in (t_hmm, j_hmm):
+        h = mod.ContinuousPairHmm(pseudocount=1e-4)
+        h.add_expectations(acc)
+        h.normalize()
+        hmms.append(h)
+    texts = []
+    for h in hmms:
+        fh = io.StringIO()
+        h.write(fh)
+        texts.append(fh.getvalue())
+    assert texts[0] == texts[1]
+    path = tmp_path / "t.hmm"
+    path.write_text(texts[0])
+    got = t_hmm.ContinuousPairHmm.load(str(path))
+    want = j_hmm.ContinuousPairHmm.load(str(path))
+    np.testing.assert_array_equal(got.transitions, want.transitions)
+    np.testing.assert_array_equal(got.kmer_gap_probs, want.kmer_gap_probs)
+    assert got.likelihood == want.likelihood
+    (gp, gg), (wp, wg) = got.to_sm3_params(), want.to_sm3_params()
+    assert gp == wp
+    np.testing.assert_array_equal(gg, wg)
+
+
+def case_kmers():
+    rng = np.random.default_rng(9)
+    seq = "".join(rng.choice(list("ACGTN"), 500, p=[.24, .24, .24, .24, .04]))
+    for s in (seq, "ACG", "ACGTAC", ""):
+        np.testing.assert_array_equal(t_kmers.seq_to_kmer_indices(s),
+                                      j_kmers.seq_to_kmer_indices(s))
+        np.testing.assert_array_equal(t_kmers.seq_to_base_indices(s),
+                                      j_kmers.seq_to_base_indices(s))
+    assert t_fasta.reverse_complement(seq) == j_fasta.reverse_complement(seq)
+
+
+def case_anchors():
+    rng = np.random.default_rng(13)
+    # a diagonal chain with jitter: some pairs cross their neighbours
+    xs = np.arange(0, 300, 3)
+    ys = xs + rng.integers(-4, 5, xs.size)
+    pairs = sorted({(int(x), int(y)) for x, y in zip(xs, ys) if y >= 0})
+    chain = t_anchors.filter_to_remove_overlap(pairs)
+    assert chain == j_anchors.filter_to_remove_overlap(pairs)
+    assert len(chain) > 5
+    for ragged in (False, True):
+        assert t_anchors.get_split_points(chain, 320, 320, 40 * 40, ragged,
+                                          ragged) == \
+            j_anchors.get_split_points(chain, 320, 320, 40 * 40, ragged,
+                                       ragged)
+
+
+def case_checkpoint(tmp_path):
+    meta = {"trajectory": [[-1.5, -2.5]], "template_hmm": "x"}
+    arrays = {"a": np.arange(6.0).reshape(2, 3)}
+    t_checkpoint.CheckpointManager(str(tmp_path / "t"), keep=2)
+    for step in range(3):
+        t_checkpoint.CheckpointManager(str(tmp_path / "t"), keep=2).save(
+            step, arrays, meta)
+        j_checkpoint.CheckpointManager(str(tmp_path / "j"), keep=2).save(
+            step, arrays, meta)
+    assert sorted(os.listdir(tmp_path / "t")) == sorted(
+        os.listdir(tmp_path / "j"))
+    for directory in ("t", "j"):
+        for mod in (t_checkpoint, j_checkpoint):
+            step, arr, m = mod.CheckpointManager(
+                str(tmp_path / directory)).restore()
+            assert step == 2 and m == meta
+            np.testing.assert_array_equal(arr["a"], arrays["a"])
+
+
+def case_constants_and_fixture_paths():
+    for name in dir(t_constants):
+        if name.isupper():
+            assert getattr(t_constants, name) == getattr(j_constants, name)
+    for name in t_fixtures._FILES:
+        assert t_fixtures.fixture_path(name) == j_fixtures.fixture_path(name)
+
+
+CASES = {f.__name__[5:]: f for f in (
+    case_make_bands, case_cigar, case_load_guides, case_npread,
+    case_pore_model, case_hmm_round_trip, case_kmers, case_anchors,
+    case_checkpoint, case_constants_and_fixture_paths)}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_copied_module_matches_original(name, tmp_path):
+    fn = CASES[name]
+    if fn.__code__.co_argcount:
+        fn(tmp_path)
+    else:
+        fn()
