@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ and drives the strawman signal-alignment
-fast path through them:
+paths and the 5-state DNA realigner through them:
 
 1. versions, the card's name and power limit;
 2. the kernel build (nvcc, ptxas register report);
@@ -41,7 +41,37 @@ fast path through them:
    8, compact_k=4096, through run and extract_pairs_chunk: bases/s and
    alignments/s end to end (median of 3 after a warm-up), a stage split,
    peak device memory and the launch counts; then K6a/K6b against their
-   plain versions on its inputs (bit for bit) and their ms per launch.
+   plain versions on its inputs (bit for bit) and their ms per launch;
+13. the dna5 kernels (K1, K2, K6a, K6b for the 5-state DNA machine)
+   against their plain versions on the first 32 pairs of bench.py's realign
+   batch (64 x 2 kb, random.Random(11); group 32, ragged at both ends),
+   untiled and with tile_diag=128: fwd planes, shifts, posteriors and
+   totals equal bit for bit, equal pair sets (the tiled run's distance
+   from the untiled one is logged: it is the untiled f32 drift); the
+   golden AGCG x AGTTCG pairs at threshold 0.2;
+14. the realign CLI (cpecan_tpu_torch.cli.realign) on the card on the
+   stored cigars of tests/fixtures/dna5_realign.npz: at least 7 of 8
+   cigars equal the JAX CLI's --engine pallas output;
+15. realign at bench scale: all 64 pairs through Dna5Aligner(group=32).run
+   in chunks of 32 (shape_hint, ragged ends, compact_k=4096), as bench.py's
+   dna_realign_alignments_per_sec (median of 3 after a warm-up); the CLI
+   end to end on the same 64 cigars, and its stage split (realign.main's
+   own steps, timed through its stage hook); launch counts and peak device
+   memory;
+16. long DNA: the stored 10 kb pair routes tiled by itself and meets the
+   JAX tiled and f64-engine pairs; then bench.py's long_read_bases_per_sec
+   workload (synth_dna_pair(default_rng(7), 100_000), group 8,
+   compact_k=2048, tile_diag=2048, extract_pairs_long): bases/s end to end
+   (median of 3 after a warm-up), a stage split, peak device memory,
+   coverage >= 98% of x, and K6a/K6b dna5 ms per launch; then K6a/K6b dna5
+   against their plain versions at that run's geometry (G 1, R 8, W 128,
+   TD 2048) on a 2 kb pair of the same generator (two tiles): fwd plane,
+   shifts, posteriors and totals equal bit for bit, equal pairs, and the
+   kernels' and plain versions' ms on it.
+
+The stage splits run the path's own code (``WavefrontAligner.run`` and
+``cli.realign.main`` take a ``stage`` hook), each step ended by a
+synchronize.
 
 Each path's launch counts are read from a run that starts with every
 count at 0.  Any failed check raises (exit code != 0).  The last three
@@ -52,6 +82,7 @@ result when no CUDA device is present.
 """
 
 import importlib.metadata
+import io
 import json
 import os
 import statistics
@@ -80,10 +111,21 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 # f32 operations per band cell and diagonal, counted from the kernels'
-# arithmetic (an exp or log counts one): emissions 34, a piecewise-cubic
-# log_add 38, the forward update 205, the backward update and posterior
-# 211, the expectation targets 110 more
-FLOPS_PER_CELL = dict(fwd=240, bwd=245, bwd_exp=355)
+# arithmetic (an exp or log counts one): strawman emissions 34, a
+# piecewise-cubic log_add 38, the forward update 205, the backward update
+# and posterior 211, the expectation targets 110 more.  Dna5: the match
+# emission 14 (five compares, five selects, four adds), eight log_adds and
+# 18 adds per update (322), the band mask 3 and the backward's seed
+# selects and posterior 10
+FLOPS_PER_CELL = dict(fwd=240, bwd=245, bwd_exp=355, dna5_fwd=339,
+                      dna5_bwd=349)
+DNA_GROUP = 32       # phases 13-15: bench.py's realign chunk and group
+DNA_COMPACT_K = 4096
+DNA_LONG = 100_000   # phase 16: bench.py's long_read_bases_per_sec pair
+DNA_LONG_COMPACT_K = 2048
+DNA_LONG_TILE = 2048
+DNA_CHECK = 2_000    # phase 16: the pair held against plain at that geometry
+GOLDEN = {(0, 0), (1, 1), (2, 4), (3, 5)}
 
 
 def log(msg):
@@ -126,6 +168,28 @@ def timed(fn):
     return res, start.elapsed_time(end)
 
 
+class Stages:
+    """The ``stage`` hook of ``WavefrontAligner.run`` and the realign CLI:
+    times each named step, ended by a synchronize (the run overlaps
+    nothing across them), and keeps each step's last result."""
+
+    def __init__(self):
+        self.s, self.out = {}, {}
+
+    def __call__(self, name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t0
+        self.out[name] = res
+        return res
+
+    def line(self):
+        total = sum(self.s.values())
+        return ", ".join(f"{k} {v:.4f} ({v / total:.1%})"
+                         for k, v in self.s.items())
+
+
 def bound(tensors, cells, flops_per_cell):
     """(least ms the card could take, "bytes" or "operations"): every
     tensor read or written once at HBM_BYTES_PER_S, against the f32
@@ -145,21 +209,24 @@ def main():
     import numpy as np
 
     from cpecan_tpu_torch.align import AlignmentParams
-    from cpecan_tpu_torch.fixtures import (load_long_read, load_zymo_slice,
-                                           load_zymo_train,
+    from cpecan_tpu_torch.cli import realign
+    from cpecan_tpu_torch.fixtures import (load_dna5_realign, load_long_read,
+                                           load_zymo_slice, load_zymo_train,
                                            zymo_trained_params)
-    from cpecan_tpu_torch.models.state_machines import \
-        StateMachine3SignalStrawman
+    from cpecan_tpu_torch.models.state_machines import (
+        StateMachine3SignalStrawman, StateMachine5)
     from cpecan_tpu_torch.ops import fb_kernels as fk
     from cpecan_tpu_torch.ops.compact import (compact_chunks,
                                               compact_posteriors,
                                               extract_pairs_auto,
-                                              extract_pairs_chunk)
+                                              extract_pairs_chunk,
+                                              extract_pairs_long)
     from cpecan_tpu_torch.ops.cuda_build import build_info, load_library
     from cpecan_tpu_torch.ops.compact import host_array
-    from cpecan_tpu_torch.ops.fb import (StrawmanAligner, exp_dispatch,
-                                         exp_finalize)
-    from cpecan_tpu_torch.parity import (band_mask, check_exp_kernel,
+    from cpecan_tpu_torch.ops.fb import (Dna5Aligner, StrawmanAligner,
+                                         exp_dispatch, exp_finalize)
+    from cpecan_tpu_torch.parity import (LONG_DNA_ENGINE_SCORE_ATOL,
+                                         band_mask, check_exp_kernel,
                                          check_expectations, check_fwd,
                                          check_long_pairs, check_pairs,
                                          check_posts, check_tiled,
@@ -167,12 +234,16 @@ def main():
                                          check_trained)
     from cpecan_tpu_torch.pipeline.train_models import (
         TrainOptions, add_and_norm_expectations, strand_expectations, train)
-    from cpecan_tpu_torch.synthetic import long_signal_read, synthetic_batch
+    from cpecan_tpu_torch.synthetic import (dna_realign_batch,
+                                            long_signal_read, realign_inputs,
+                                            synth_dna_pair, synthetic_batch)
 
     def same(what, got, want):
+        """0.0, the largest difference of ``got`` from ``want``, or raise."""
         if not torch.equal(got, want):
             raise AssertionError(f"{what} differs from the plain version by "
                                  f"{float((got - want).abs().max())}")
+        return 0.0
 
     dev = torch.device(DEVICE)
     thr = AlignmentParams().threshold
@@ -304,36 +375,15 @@ def main():
         f"{peak / 1e9:.3f} GB, launches {launches}, plain calls "
         f"{plain_calls}")
 
-    # where one main-path pass spends its time: the run's stages, each
-    # ended by a synchronize (run() itself overlaps nothing across them)
-    stages = dict.fromkeys(("prepare", "inputs", "fwd", "bwd", "compact",
-                            "extract"), 0.0)
-
-    def stage(name, fn):
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        stages[name] += time.perf_counter() - t0
-        return res
-
+    # where one main-path pass spends its time: its run's steps
+    st = Stages()
     for i in range(0, len(reads), CHUNK):
-        sprep = stage("prepare", lambda: pa.prepare(sm, reads[i:i + CHUNK]))
-        sinp = stage("inputs", lambda: pa.device_inputs(sm, sprep))
-        sd = dict(R=sprep["R"], W=sprep["W"], ND=sprep["ND"], C=sprep["C"])
-        sa = [sinp[k] for k in ("scal", "win", "xf", "yf", "basef",
-                                "widthf")]
-        sfwd = stage("fwd", lambda: fk.wavefront_fwd(*sa, **sd))
-        sposts, _ = stage("bwd", lambda: fk.wavefront_bwd(
-            *sa, sinp["seedf"], sinp["raggedf"], sfwd, **sd))
-        scomp = stage("compact", lambda: compact_posteriors(
-            sposts, min(COMPACT_K, sd["ND"] * sd["W"])))
-        sout = dict(prep=sprep, posteriors=sposts, compact=scomp)
-        snd = [b.n_diag for b in sprep["bands"]]
-        stage("extract", lambda: extract_pairs_chunk(
+        sout = pa.run(sm, reads[i:i + CHUNK], compact_k=COMPACT_K, stage=st)
+        snd = [b.n_diag for b in sout["prep"]["bands"]]
+        st("extract", lambda: extract_pairs_chunk(
             sout, list(range(len(snd))), snd, thr))
-    total_s = sum(stages.values())
-    log("main path stages (s, share): " + ", ".join(
-        f"{k} {v:.4f} ({v / total_s:.1%})" for k, v in stages.items()))
+    log("main path stages (s, share): " + st.line())
+    del st, sout
 
     # -- 6. device-only fwd+bwd, whole batch -----------------------------
     bprep = pa.prepare(sm, reads)
@@ -484,32 +534,11 @@ def main():
         f"group {EM_GROUP}, one dispatch; median of "
         f"{[round(t, 4) for t in em_times]} s)")
 
-    # where one E-step spends its time, each stage ended by a synchronize
-    est = dict.fromkeys(("prepare", "inputs", "fwd", "bwd_exp",
-                         "dispatch+D2H", "finalize"), 0.0)
-
-    def estage(name, fn):
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        est[name] += time.perf_counter() - t0
-        return res
-
-    sprep = estage("prepare", lambda: epa.prepare(sm, em_sub,
-                                                  ragged_right=True))
-    sinp = estage("inputs", lambda: epa.device_inputs(sm, sprep,
-                                                      ragged_left=True))
-    sd = dict(R=sprep["R"], W=sprep["W"], ND=sprep["ND"], C=sprep["C"])
-    sb = [sinp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf",
-                            "seedf", "raggedf")]
-    sfwd = estage("fwd", lambda: fk.wavefront_fwd(*sb[:6], **sd))
-    sout = estage("bwd_exp", lambda: fk.wavefront_bwd_exp(*sb, sfwd, **sd))
-    flat = estage("dispatch+D2H", lambda: host_array(exp_dispatch(
-        sout[2], sout[3], sout[1])))
-    estage("finalize", lambda: exp_finalize(sprep, flat))
-    est_total = sum(est.values())
-    log("E-step stages (s, share): " + ", ".join(
-        f"{k} {v:.4f} ({v / est_total:.1%})" for k, v in est.items()))
+    # where one E-step spends its time: its run's steps
+    est = Stages()
+    epa.run(sm, em_sub, stage=est, **em_kw)
+    log("E-step stages (s, share): " + est.line())
+    del est
     torch.cuda.synchronize()
 
     # -- 10. K6a/K6b vs plain on the first bench chunk, 14 tiles ----------
@@ -641,41 +670,23 @@ def main():
         f"{big_vs_jax[2]:.3g}; peak device memory {long_peak / 1e9:.3f} GB "
         f"({long_held / 1e9:.3f} GB of it held before), launches "
         f"{long_launches}, plain calls {long_plain}")
-    lbig_tiled = lbig["tiled"]
     del lbig
     torch.cuda.synchronize()
 
-    lst = dict.fromkeys(("prepare", "inputs", "fwd_tiled", "bwd_tiled",
-                         "compact", "extract"), 0.0)
-
-    def lstage(name, fn):
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        lst[name] += time.perf_counter() - t0
-        return res
-
-    sprep = lstage("prepare", lambda: la.prepare(
-        lsm, lreads, tile_diag=lbig_tiled["TD"]))
-    sinp = lstage("inputs", lambda: la.device_inputs(lsm, sprep))
+    lst = Stages()
+    sout = la.run(lsm, lreads, compact_k=LONG_COMPACT_K, stage=lst)
+    snd = [b.n_diag for b in sout["prep"]["bands"]]
+    lst("extract", lambda: extract_pairs_chunk(
+        sout, list(range(len(snd))), snd, thr))
+    log("long path stages (s, share): " + lst.line())
+    sprep, sinp = lst.out["prepare"], lst.out["inputs"]
     stl = sprep["tiled"]
     sd = dict(R=sprep["R"], W=sprep["W"], ND=stl["NDT"], C=sprep["C"],
               TD=stl["TD"])
     sa = [sinp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
     sb = sa + [sinp["seedf"], sinp["raggedf"]]
-    sfwd, ssh = lstage("fwd_tiled", lambda: fk.wavefront_fwd_tiled(*sa,
-                                                                     **sd))
-    sposts, stot = lstage("bwd_tiled", lambda: fk.wavefront_bwd_tiled(
-        *sb, sfwd, ssh, **sd))
-    schunks = lstage("compact", lambda: compact_chunks(
-        sposts, stl["DC"], min(LONG_COMPACT_K, stl["DC"] * sd["W"])))
-    snd = [b.n_diag for b in sprep["bands"]]
-    lstage("extract", lambda: extract_pairs_chunk(
-        dict(prep=sprep, posteriors=sposts, tiled=stl,
-             compact_chunks=schunks), list(range(len(snd))), snd, thr))
-    ltotal = sum(lst.values())
-    log("long path stages (s, share): " + ", ".join(
-        f"{k} {v:.4f} ({v / ltotal:.1%})" for k, v in lst.items()))
+    (sfwd, ssh), (sposts, stot) = lst.out["fwd_tiled"], lst.out["bwd_tiled"]
+    del lst, sout
     # K6a/K6b against their plain versions on the main path's inputs
     (pfwd, psh), ms["fwd_long_plain"] = timed(
         lambda: fk.forward_tiled_plain(*sa, **sd))
@@ -707,6 +718,360 @@ def main():
     del sfwd, sposts
     torch.cuda.synchronize()
 
+    # -- 13. the dna5 kernels vs plain on the first 32 realign pairs ------
+    dreads = dna_realign_batch()
+    dsm = StateMachine5()
+    da = Dna5Aligner(AlignmentParams(), device=dev, group=DNA_GROUP)
+    dprep = da.prepare(dsm, dreads[:DNA_GROUP], ragged_right=True)
+    dinp = da.device_inputs(dsm, dprep, ragged_left=True)
+    ddims = dict(R=dprep["R"], W=dprep["W"], ND=dprep["ND"], C=dprep["C"],
+                 spec=fk.Dna5Spec)
+    dfa = [dinp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
+    dba = dfa + [dinp["seedf"], dinp["raggedf"]]
+    dfwd_k = fk.wavefront_fwd(*dfa, **ddims)
+    dfwd_p, ms["dna5_fwd_plain"] = timed(
+        lambda: fk.forward_plain(*dfa, **ddims))
+    dposts_k, dtot_k = fk.wavefront_bwd(*dba, dfwd_k, **ddims)
+    (dposts_p, dtot_p), ms["dna5_bwd_plain"] = timed(
+        lambda: fk.backward_plain(*dba, dfwd_k, **ddims))
+    for what, got, want in (("K1 dna5 fwd plane", dfwd_k, dfwd_p),
+                            ("K2 dna5 posteriors", dposts_k, dposts_p),
+                            ("K2 dna5 totals", dtot_k, dtot_p)):
+        same(what, got, want)
+    del dfwd_p
+    dnds = [b.n_diag for b in dprep["bands"]]
+    drels = list(range(len(dnds)))
+    dparts = [extract_pairs_chunk(
+        dict(prep=dprep, posteriors=p, compact=compact_posteriors(
+            p, min(DNA_COMPACT_K, ddims["ND"] * ddims["W"]))), drels, dnds,
+        thr) for p in (dposts_k, dposts_p)]
+    for i, (a, b) in enumerate(zip(*dparts)):
+        if not np.array_equal(a, b) or len(a) < dreads[i][2]:
+            raise AssertionError(f"dna5 pairs of pair {i}: kernel and plain "
+                                 "planes give different pairs")
+    ms.update(
+        dna5_fwd=cuda_ms(lambda: fk.wavefront_fwd(*dfa, **ddims), 5),
+        dna5_bwd=cuda_ms(lambda: fk.wavefront_bwd(*dba, dfwd_k, **ddims),
+                         5))
+    dcells = sum(int(b.width.sum()) for b in dprep["bands"])
+    bounds.update(
+        dna5_fwd=bound(dfa + [dfwd_k], dcells, FLOPS_PER_CELL["dna5_fwd"]),
+        dna5_bwd=bound(dba + [dfwd_k, dposts_k, dtot_k], dcells,
+                       FLOPS_PER_CELL["dna5_bwd"]))
+    # the tiled pair on the same pairs, 128 diagonals per tile
+    dtprep = da.prepare(dsm, dreads[:DNA_GROUP], ragged_right=True,
+                        tile_diag=TILE_CHECK)
+    dtinp = da.device_inputs(dsm, dtprep, ragged_left=True)
+    dtl = dtprep["tiled"]
+    dtdims = dict(R=dtprep["R"], W=dtprep["W"], ND=dtl["NDT"],
+                  C=dtprep["C"], TD=dtl["TD"], spec=fk.Dna5Spec)
+    dta = [dtinp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
+    dtb = dta + [dtinp["seedf"], dtinp["raggedf"]]
+    dtfwd_k, dtsh_k = fk.wavefront_fwd_tiled(*dta, **dtdims)
+    (dtfwd_p, dtsh_p), ms["dna5_tile128_fwd_plain"] = timed(
+        lambda: fk.forward_tiled_plain(*dta, **dtdims))
+    dtposts_k, dttot_k = fk.wavefront_bwd_tiled(*dtb, dtfwd_k, dtsh_k,
+                                                **dtdims)
+    (dtposts_p, dttot_p), ms["dna5_tile128_bwd_plain"] = timed(
+        lambda: fk.backward_tiled_plain(*dtb, dtfwd_k, dtsh_k, **dtdims))
+    for what, got, want in (("K6a dna5 fwd plane", dtfwd_k, dtfwd_p),
+                            ("K6a dna5 shifts", dtsh_k, dtsh_p),
+                            ("K6b dna5 posteriors", dtposts_k, dtposts_p),
+                            ("K6b dna5 totals", dttot_k, dttot_p)):
+        same(what, got, want)
+    if not bool((dtsh_k[..., 1:] != 0).all()):
+        raise AssertionError("a dna5 tile boundary did not re-center")
+    # the tiled planes against the untiled ones, logged and not held: at
+    # ~4,000 diagonals the untiled f32 posteriors drift from the f64 engine
+    # by up to 6e-2 (pair 18 of this batch; the JAX package's untiled
+    # kernels give the same plane to 1e-8), the re-centered tiled ones stay
+    # within 1e-3 of it, so the two runs differ by the untiled drift
+    dtraw = float((dtposts_k[:, :ddims["ND"] + 1] - dposts_k).abs().max())
+    dtclip = float((dtposts_k[:, :ddims["ND"] + 1].clamp(max=1.0)
+                    - dposts_k.clamp(max=1.0)).abs().max())
+    dttot_err = float((dttot_k - dtot_k).abs().max())
+    dtparts = []
+    for p in (dtposts_k, dtposts_p):
+        dtparts.append(extract_pairs_chunk(dict(
+            prep=dtprep, posteriors=p, tiled=dtl,
+            compact_chunks=compact_chunks(p, dtl["DC"], min(
+                DNA_COMPACT_K, dtl["DC"] * dtdims["W"]))), drels, dnds, thr))
+    for i, (a, b) in enumerate(zip(*dtparts)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"dna5 tiled pairs of pair {i}: kernel and "
+                                 "plain planes give different pairs")
+    del dtfwd_k, dtfwd_p, dtposts_p
+    gold = Dna5Aligner(AlignmentParams(threshold=0.2), device=dev,
+                       group=1).run(dsm, [("AGCG", "AGTTCG", 4, 6, [])])
+    gpairs = {(x, y) for _, x, y in extract_pairs_auto(
+        gold, 0, gold["prep"]["bands"][0].n_diag, 0.2)}
+    if gpairs != GOLDEN:
+        raise AssertionError(f"golden AGCG x AGTTCG pairs {gpairs}")
+    log(f"dna5 kernels vs plain ({DNA_GROUP} realign pairs, ragged, "
+        f"ND={ddims['ND']}, W={ddims['W']}): K1/K2 fwd plane, posts, "
+        f"totals equal bit for bit, {sum(map(len, dparts[0]))} pairs equal; "
+        f"ms fwd {ms['dna5_fwd']:.3f} vs plain {ms['dna5_fwd_plain']:.1f}, "
+        f"bwd {ms['dna5_bwd']:.3f} vs plain {ms['dna5_bwd_plain']:.1f}; "
+        f"tiled (TD={dtl['TD']}, NT={dtl['NT']}): K6a/K6b fwd plane, shifts, "
+        f"posts, totals equal bit for bit, pairs equal; against the untiled "
+        f"run (the untiled drift) posts max|d| {dtclip:.3g} clipped at 1, "
+        f"{dtraw:.3g} raw (largest posterior untiled "
+        f"{float(dposts_k.max()):.4g}, tiled {float(dtposts_k.max()):.4g}), "
+        f"totals max|d| {dttot_err:.3g}, "
+        f"plain ms {ms['dna5_tile128_fwd_plain']:.1f} / "
+        f"{ms['dna5_tile128_bwd_plain']:.1f}; golden AGCG x AGTTCG {gpairs}")
+    torch.cuda.synchronize()
+
+    # -- 14. the realign CLI on the card vs the JAX CLI's stored output ---
+    def cli(fasta_text, cigars, stage=None):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "realign.fa")
+            with open(path, "w") as fh:
+                fh.write(fasta_text)
+            out = io.StringIO()
+            realign.main([path, "--device", DEVICE],
+                         stdin=io.StringIO("\n".join(cigars) + "\n"),
+                         stdout=out, stage=stage)
+        torch.cuda.synchronize()
+        return out.getvalue().splitlines()
+
+    rfasta, rcigars, lpair, dstored = load_dna5_realign()
+    fk.reset_counts()
+    rst = Stages()
+    rgot = cli(rfasta, rcigars, stage=rst)
+    cli_counts = dict(fk.KERNEL_LAUNCHES)
+    rwant = [str(c) for c in dstored["cigars_out"]]
+    n_same = sum(a == b for a, b in zip(rgot, rwant))
+    if len(rgot) != len(rwant) or n_same < len(rwant) - 1:
+        raise AssertionError(f"realign CLI: {n_same} of {len(rwant)} cigars "
+                             "equal the JAX CLI's")
+    if (cli_counts.get("wavefront_fwd_dna5", 0) < 1
+            or cli_counts.get("wavefront_bwd_dna5", 0) < 1
+            or fk.forward_plain.calls or fk.backward_plain.calls):
+        raise AssertionError(f"realign CLI launches {cli_counts}")
+    rprep = rst.out["prepare"]
+    log(f"realign CLI on the card ({len(rcigars)} stored pairs, "
+        f"{len(rst.out['jobs'][0])} jobs, ND={rprep['ND']}, W={rprep['W']}): "
+        f"{n_same} of {len(rwant)} cigars equal the JAX CLI's --engine "
+        f"pallas output; launches {cli_counts}")
+    del rst, rprep
+
+    # -- 15. realign at bench scale ----------------------------------------
+    hint = (max(r[2] for r in dreads), da.prepare(dsm, dreads)["ND"])
+
+    def realign_bench():
+        outs = [da.run(dsm, dreads[i:i + DNA_GROUP], ragged_left=True,
+                       ragged_right=True, compact_k=DNA_COMPACT_K,
+                       shape_hint=hint)
+                for i in range(0, len(dreads), DNA_GROUP)]
+        torch.cuda.synchronize()
+        return outs
+
+    fk.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    dheld = torch.cuda.memory_allocated()
+    douts = realign_bench()
+    dtimes = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        realign_bench()
+        dtimes.append(time.perf_counter() - t0)
+    dna_counts = dict(fk.KERNEL_LAUNCHES)
+    dpeak = torch.cuda.max_memory_allocated()
+    if (dna_counts.get("wavefront_fwd_dna5", 0) <= 0
+            or dna_counts.get("wavefront_bwd_dna5", 0) <= 0
+            or fk.forward_plain.calls or fk.backward_plain.calls):
+        raise AssertionError(f"realign path launches {dna_counts}")
+    for o in douts:
+        if not torch.isfinite(o["totals"]).all():
+            raise AssertionError("realign totals not finite")
+    drate = len(dreads) / statistics.median(dtimes)
+    log(f"dna_realign_alignments_per_sec {drate:.1f} ({len(dreads)} x "
+        f"{dreads[0][2]} bases, chunks of {DNA_GROUP}, group {DNA_GROUP}, "
+        f"ND={douts[0]['prep']['ND']}, W={douts[0]['prep']['W']}; median of "
+        f"{[round(t, 4) for t in dtimes]} s); peak device memory "
+        f"{dpeak / 1e9:.3f} GB ({dheld / 1e9:.3f} GB held before), launches "
+        f"{dna_counts}")
+    del douts
+    # the CLI end to end on the same 64 pairs, then its stages
+    bfasta, bcigars = realign_inputs(dreads)
+    bout = cli(bfasta, bcigars)
+    ctimes = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        cli(bfasta, bcigars)
+        ctimes.append(time.perf_counter() - t0)
+    if len(bout) != len(dreads):
+        raise AssertionError("the realign CLI lost a cigar")
+    cst = Stages()
+    cli(bfasta, bcigars, stage=cst)
+    crate = len(dreads) / statistics.median(ctimes)
+    log(f"realign CLI end to end: {crate:.1f} alignments/s "
+        f"({len(dreads)} cigars, {len(cst.out['jobs'][0])} jobs; median of "
+        f"{[round(t, 4) for t in ctimes]} s); stages (s, share): "
+        + cst.line())
+    del cst
+    torch.cuda.synchronize()
+
+    # -- 16. long DNA --------------------------------------------------------
+    l5 = Dna5Aligner(AlignmentParams(), device=dev, group=LONG_GROUP)
+    fk.reset_counts()
+    l10 = l5.run(dsm, [lpair])
+    torch.cuda.synchronize()
+    l10_counts = dict(fk.KERNEL_LAUNCHES)
+    if l10_counts != {"wavefront_fwd_tiled_dna5": 1,
+                      "wavefront_bwd_tiled_dna5": 1}:
+        raise AssertionError(f"the 10 kb pair did not route tiled: "
+                             f"{l10_counts}")
+    l10nd = l10["prep"]["bands"][0].n_diag
+    l10pairs = extract_pairs_auto(l10, 0, l10nd, thr, as_array=True)
+    d_vs_jax = check_long_pairs(l10pairs, dstored["tiled_pairs"], thr)
+    d_vs_eng = check_long_pairs(l10pairs, dstored["engine_pairs"], thr,
+                                score_atol=LONG_DNA_ENGINE_SCORE_ATOL)
+    log(f"10 kb DNA pair (l_x {lpair[2]}, l_y {lpair[3]}, ND={l10nd}, "
+        f"{l10['tiled']}, W={l10['prep']['W']}): routed tiled {l10_counts}; "
+        f"{len(l10pairs)} pairs; vs the JAX tiled path "
+        f"({len(dstored['tiled_pairs'])}): {d_vs_jax[0]} in one set only "
+        f"(max {d_vs_jax[1]:.3g} from the threshold), common max|d| "
+        f"{d_vs_jax[2]:.3g}; vs the f64 engine "
+        f"({len(dstored['engine_pairs'])}): {d_vs_eng[0]} in one set only "
+        f"(max {d_vs_eng[1]:.3g}), common max|d| {d_vs_eng[2]:.3g}")
+    del l10
+    big = synth_dna_pair(np.random.default_rng(7), DNA_LONG)
+
+    def long_dna():
+        out = l5.run(dsm, [big], compact_k=DNA_LONG_COMPACT_K,
+                     tile_diag=DNA_LONG_TILE)
+        pairs = extract_pairs_long(out, 0, out["prep"]["bands"][0].n_diag,
+                                   thr, as_array=True)
+        torch.cuda.synchronize()
+        return pairs, out
+
+    fk.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    bheld = torch.cuda.memory_allocated()
+    bpairs, bout_ = long_dna()
+    btimes = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        long_dna()
+        btimes.append(time.perf_counter() - t0)
+    big_counts = dict(fk.KERNEL_LAUNCHES)
+    bpeak = torch.cuda.max_memory_allocated()
+    if (big_counts.get("wavefront_fwd_tiled_dna5", 0) <= 0
+            or big_counts.get("wavefront_bwd_tiled_dna5", 0) <= 0
+            or fk.forward_tiled_plain.calls or fk.backward_tiled_plain.calls):
+        raise AssertionError(f"long DNA launches {big_counts}")
+    n_x = len(np.unique(bpairs[:, 1]))
+    if n_x < 0.98 * big[2] or not torch.isfinite(bout_["totals"]).all():
+        raise AssertionError(f"long DNA pair covers {n_x} of {big[2]} x")
+    btl = bout_["tiled"]
+    brate = (big[2] + big[3]) / statistics.median(btimes)
+    log(f"long_read_bases_per_sec {brate:.6g} (one {big[2]} x {big[3]} "
+        f"DNA pair, group {LONG_GROUP}, "
+        f"compact_k {DNA_LONG_COMPACT_K}, {btl}, W={bout_['prep']['W']}; "
+        f"median of {[round(t, 4) for t in btimes]} s); {len(bpairs)} pairs "
+        f"covering {n_x} of {big[2]} x; peak device memory "
+        f"{bpeak / 1e9:.3f} GB ({bheld / 1e9:.3f} GB held before), launches "
+        f"{big_counts}")
+    del bout_
+    torch.cuda.synchronize()
+    bst = Stages()
+    bout_ = l5.run(dsm, [big], compact_k=DNA_LONG_COMPACT_K,
+                   tile_diag=DNA_LONG_TILE, stage=bst)
+    bst("extract", lambda: extract_pairs_long(
+        bout_, 0, bout_["prep"]["bands"][0].n_diag, thr, as_array=True))
+    log("long DNA stages (s, share): " + bst.line())
+    del bout_
+
+    def tiled_args(st):
+        """(fwd args, bwd args, dims, prep) of a staged tiled run."""
+        prep, inp = st.out["prepare"], st.out["inputs"]
+        tl = prep["tiled"]
+        dims = dict(R=prep["R"], W=prep["W"], ND=tl["NDT"], C=prep["C"],
+                    TD=tl["TD"], spec=fk.Dna5Spec)
+        fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
+        return fa, fa + [inp["seedf"], inp["raggedf"]], dims, prep
+
+    bfa, bba, bd, bprep = tiled_args(bst)
+    (bfwd, bsh), (bposts, btot) = bst.out["fwd_tiled"], bst.out["bwd_tiled"]
+    del bst
+    ms.update(
+        dna5_fwd_long=cuda_ms(lambda: fk.wavefront_fwd_tiled(*bfa, **bd), 3),
+        dna5_bwd_long=cuda_ms(lambda: fk.wavefront_bwd_tiled(
+            *bba, bfwd, bsh, **bd), 3))
+    bcells = sum(int(b.width.sum()) for b in bprep["bands"])
+    bounds.update(
+        dna5_fwd_long=bound(bfa + [bfwd, bsh], bcells,
+                            FLOPS_PER_CELL["dna5_fwd"]),
+        dna5_bwd_long=bound(bba + [bfwd, bsh, bposts, btot], bcells,
+                            FLOPS_PER_CELL["dna5_bwd"]))
+    bgeom = (len(bprep["win"]), bd["R"], bd["W"], bd["TD"])
+    log(f"long DNA kernels (G={bgeom[0]}, R={bd['R']}, NDT={bd['ND']}, "
+        f"W={bd['W']}, {bcells} band cells): K6a dna5 "
+        f"{ms['dna5_fwd_long']:.3f} ms, K6b dna5 {ms['dna5_bwd_long']:.3f} "
+        f"ms per launch; bounds {bounds['dna5_fwd_long'][0]:.4f} ms "
+        f"({bounds['dna5_fwd_long'][1]}) / {bounds['dna5_bwd_long'][0]:.4f}"
+        f" ms ({bounds['dna5_bwd_long'][1]})")
+    del bfwd, bposts, bfa, bba
+    torch.cuda.synchronize()
+
+    # K6a/K6b dna5 against their plain versions at the main path's geometry
+    # (its G, R, W and TD) on a shorter pair of the same generator: two
+    # tiles, where a plain pass over the 100 kb pair's 200k diagonals would
+    # take most of an hour.  The kernels line takes these kernels' ms,
+    # plain ms, bound and error from this check, all on its inputs
+    pair = synth_dna_pair(np.random.default_rng(7), DNA_CHECK)
+    kst = Stages()
+    kout = l5.run(dsm, [pair], compact_k=DNA_LONG_COMPACT_K,
+                  tile_diag=DNA_LONG_TILE, stage=kst)
+    kfa, kba, kd, kprep = tiled_args(kst)
+    (kfwd, ksh), (kposts, ktot) = kst.out["fwd_tiled"], kst.out["bwd_tiled"]
+    del kst
+    if (len(kprep["win"]), kd["R"], kd["W"], kd["TD"]) != bgeom:
+        raise AssertionError(f"the check pair's geometry differs from the "
+                             f"100 kb pair's {bgeom}")
+    (pfwd, psh), ms["dna5_fwd_tiled_plain"] = timed(
+        lambda: fk.forward_tiled_plain(*kfa, **kd))
+    (pposts, ptot), ms["dna5_bwd_tiled_plain"] = timed(
+        lambda: fk.backward_tiled_plain(*kba, kfwd, ksh, **kd))
+    derr = max(same(what, got, want) for what, got, want in (
+        ("K6a dna5 fwd plane (2 tiles of 2048)", kfwd, pfwd),
+        ("K6a dna5 shifts (2 tiles of 2048)", ksh, psh),
+        ("K6b dna5 posteriors (2 tiles of 2048)", kposts, pposts),
+        ("K6b dna5 totals (2 tiles of 2048)", ktot, ptot)))
+    knd = kprep["bands"][0].n_diag
+    kpairs = [extract_pairs_long(dict(kout, posteriors=p, compact_chunks=(
+        compact_chunks(p, kout["tiled"]["DC"], min(
+            DNA_LONG_COMPACT_K, kout["tiled"]["DC"] * kd["W"])))), 0, knd,
+        thr, as_array=True) for p in (kposts, pposts)]
+    if not np.array_equal(*kpairs) or len(kpairs[0]) < pair[2]:
+        raise AssertionError("the check pair: kernel and plain planes give "
+                             "different pairs")
+    ms.update(
+        dna5_fwd_tiled=cuda_ms(lambda: fk.wavefront_fwd_tiled(*kfa, **kd),
+                               3),
+        dna5_bwd_tiled=cuda_ms(lambda: fk.wavefront_bwd_tiled(
+            *kba, kfwd, ksh, **kd), 3))
+    kcells = sum(int(b.width.sum()) for b in kprep["bands"])
+    bounds.update(
+        dna5_fwd_tiled=bound(kfa + [kfwd, ksh], kcells,
+                             FLOPS_PER_CELL["dna5_fwd"]),
+        dna5_bwd_tiled=bound(kba + [kfwd, ksh, kposts, ktot], kcells,
+                             FLOPS_PER_CELL["dna5_bwd"]))
+    log(f"long DNA kernels vs plain (a {pair[2]} x {pair[3]} pair, "
+        f"{kout['tiled']}, G={bgeom[0]}, R={kd['R']}, W={kd['W']}): fwd "
+        f"plane, shifts, posts, totals equal bit for bit, "
+        f"{len(kpairs[0])} pairs equal; K6a dna5 "
+        f"{ms['dna5_fwd_tiled']:.3f} ms vs plain "
+        f"{ms['dna5_fwd_tiled_plain']:.1f}, K6b dna5 "
+        f"{ms['dna5_bwd_tiled']:.3f} ms vs plain "
+        f"{ms['dna5_bwd_tiled_plain']:.1f}; bounds "
+        f"{bounds['dna5_fwd_tiled'][0]:.4f} / "
+        f"{bounds['dna5_bwd_tiled'][0]:.4f} ms")
+    del kout, kfwd, pfwd, kposts, pposts
+    torch.cuda.synchronize()
+
     src = "cpecan_tpu_torch/csrc/wavefront.cu"
 
     def entry(name, replaces, launches, err, key, bkey):
@@ -719,7 +1084,7 @@ def main():
                 # wavefront
                 "library_ms": None}
 
-    exact = 0.0   # phases 3, 10 and 12 hold these kernels bit for bit
+    exact = 0.0   # phases 3, 10, 12, 13 hold these kernels bit for bit
     log(json.dumps({"kernels": [
         entry("wavefront_fwd", "cpecan_tpu/ops/pallas_fb.py:635",
               launches["wavefront_fwd"], exact, "fwd", "fwd"),
@@ -735,6 +1100,24 @@ def main():
         entry("wavefront_bwd_tiled", "cpecan_tpu/ops/pallas_fb.py:2332",
               long_launches["wavefront_bwd_tiled"], exact, "bwd_long",
               "bwd_long"),
+        # phase 13 holds K1/K2 dna5 bit for bit, phase 16's check pair
+        # K6a/K6b dna5 (their ms, plain ms and bound are on that pair)
+        entry("wavefront_fwd_dna5",
+              "cpecan_tpu/ops/pallas_fb.py:635 (_Dna5Spec :340)",
+              dna_counts["wavefront_fwd_dna5"], exact, "dna5_fwd",
+              "dna5_fwd"),
+        entry("wavefront_bwd_dna5",
+              "cpecan_tpu/ops/pallas_fb.py:857 (_Dna5Spec :340)",
+              dna_counts["wavefront_bwd_dna5"], exact, "dna5_bwd",
+              "dna5_bwd"),
+        entry("wavefront_fwd_tiled_dna5",
+              "cpecan_tpu/ops/pallas_fb.py:2304 (_Dna5Spec :340)",
+              big_counts["wavefront_fwd_tiled_dna5"], derr,
+              "dna5_fwd_tiled", "dna5_fwd_tiled"),
+        entry("wavefront_bwd_tiled_dna5",
+              "cpecan_tpu/ops/pallas_fb.py:2332 (_Dna5Spec :340)",
+              big_counts["wavefront_bwd_tiled_dna5"], derr,
+              "dna5_bwd_tiled", "dna5_bwd_tiled"),
     ]}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -1,46 +1,60 @@
 // Band-local forward and posterior-backward wavefront kernels of the
-// strawman 3-state signal machine (getStrawManStateMachine3), for Hopper
-// (sm_90a).  Plain C entry points, loaded with ctypes by
+// pair-HMM machines, for Hopper (sm_90a): the strawman 3-state signal
+// machine (getStrawManStateMachine3) and the 5-state DNA machine
+// (getStateMachine5, cPecanRealign's).  Both kernels are templates on a
+// machine spec (Strawman, Dna5: states, scalars, emissions and the
+// forward/backward updates); every instance keeps its JAX spec's op order.
+// Plain C entry points, loaded with ctypes by
 // cpecan_tpu_torch/ops/cuda_build.py and wrapped by
 // cpecan_tpu_torch/ops/fb_kernels.py (wavefront_fwd, wavefront_bwd,
-// wavefront_bwd_exp, wavefront_fwd_tiled, wavefront_bwd_tiled).
+// wavefront_bwd_exp, wavefront_fwd_tiled, wavefront_bwd_tiled; the dna5
+// instances' entry points end in _dna5).
 //
 // Replaces (TPU, Pallas):
-//   sm3_fwd_kernel<false>  <- cpecan_tpu/ops/pallas_fb.py _sm3_forward_kernel
-//                             (:635, untiled, _StrawmanSpec)          K1
-//   sm3_bwd_kernel<false, false>
+//   sm3_fwd_kernel<Spec, false>
+//                          <- cpecan_tpu/ops/pallas_fb.py _sm3_forward_kernel
+//                             (:635, untiled; _StrawmanSpec, _Dna5Spec) K1
+//   sm3_bwd_kernel<Spec, false, false>
 //                          <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
 //                             -> _sm3_backward_body_w (:857, :900;
-//                             with_exp=False, untiled, _StrawmanSpec) K2
-//   sm3_bwd_kernel<true, false>
+//                             with_exp=False, untiled)                  K2
+//   sm3_bwd_kernel<Strawman, true, false>
 //                          <- the same body with with_exp=True (EM
 //                             expectations: accumulate_exp :1072 and
 //                             _StrawmanSpec.exp_probs_w :215)          K3
-//   sm3_fwd_kernel<true>   <- _sm3_forward_kernel(tile=...) (:2304), chained
+//   sm3_fwd_kernel<Spec, true>
+//                          <- _sm3_forward_kernel(tile=...) (:2304), chained
 //                             over the tiles by _run_tiled (:2447) with
 //                             _tile_steps.recenter (:2381)            K6a
-//   sm3_bwd_kernel<false, true>
+//   sm3_bwd_kernel<Spec, false, true>
 //                          <- _sm3_backward_kernel(tile=...) (:2332), the
 //                             shifts repaid as shf (:947, :1170, :1193) K6b
 //
 // Layout (identical to the JAX planes, index for index): G groups of R
 // reads, one group window of W lanes per diagonal starting at x = win[g, d],
 // lane l <-> cell (x = win[g, d] + l, y = d - x).
-//   scal   f32 [NS + 3S] = [8 transitions, start(3), end(3), ragged_end(3)]
+//   scal   f32 [NS + 3S] = [NS transitions, start(S), end(S), ragged_end(S)]
 //   win    i32 [G, NDp]
-//   xf     f32 [G*R, 9, X]      per-x model rows (emissions + gap-X table)
-//   yf     f32 [G*R, 2, Y]      events, flipped: y <-> column C - y
+//   xf     f32 [G*R, NXF, X]    per-x model rows (emissions + gap-X row)
+//   yf     f32 [G*R, 2, Y]      y elements, flipped: y <-> column C - y
 //   basef, widthf, seedf, raggedf  f32 [G*R, NDp]
-//   fwd    f32 [G, ND+1, 3, R, W]
+//   fwd    f32 [G, ND+1, S, R, W]
 //   posts  f32 [G, ND+1, R, W],  totals f32 [G*R]
 //   trans  f32 [G*R, 9]  (lanes frm*3 + to),  gapx f32 [G*R, X]  (EM only)
 //   shifts f32 [G*R, NT]  (tiled only; NT = ND / TD)
+// Strawman: S 3, NS 8, NXF 9 (Gaussian model rows 0-7, gap-X row 8), yf =
+// (event mean, noise).  Dna5: S 5, NS 13, NXF 6 (match rows of the x base
+// against y base 0..4, gap-X row 5), yf = (y base index as a float, gap-Y
+// emission); the match emission is a sum of five selects on the y base, as
+// the JAX spec has it, so a value outside 0..4 gives 0.0.
 //
 // Design: one block per read (grid G*R), one thread per lane (W threads).
 // Each diagonal depends on the previous one or two through lane shifts of
 // the group window, so the carried diagonals live in shared memory (a ring
-// of three [3, W] slots; one __syncthreads() per diagonal) and a shifted
+// of three [S, W] slots; one __syncthreads() per diagonal) and a shifted
 // read is a shared-memory read at lane l + s, CPECAN_NEG outside [0, W).
+// The dna5 ring is 3 * 5 * W floats (60 KB at W = 1024, past the 48 KB
+// default: the launchers raise the dynamic limit).
 //
 // What bounds it on the H100: the sequential chain of ND diagonals, each a
 // few dozen dependent flops plus one block barrier (latency, not bandwidth:
@@ -96,16 +110,18 @@
 // read-modify-writes, so no atomics are needed.
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "logspace.cuh"
 
 namespace {
 
-// strawman scalar order (pallas_fb.py T_MM..T_EY) and vector offsets
-enum { T_MM, T_XM, T_YM, T_OX, T_EX, T_SX, T_OY, T_EY, NS };
-constexpr int S = 3;
-constexpr int NSCAL = NS + 3 * S;
-constexpr int START = NS, END = NS + S, RAGGED_END = NS + 2 * S;
-constexpr int NXF = 9;
+// strawman scalar order (pallas_fb.py T_MM..T_EY)
+enum { T_MM, T_XM, T_YM, T_OX, T_EX, T_SX, T_OY, T_EY, SM3_NS };
+// dna5 scalar order (pallas_fb.py T5_SOX..T5_LEY): lower(4), middle(5),
+// upper(4)
+enum { T5_SOX, T5_SEX, T5_LOX, T5_LEX, T5_MM, T5_MSX, T5_MSY, T5_MLX,
+       T5_MLY, T5_SOY, T5_SEY, T5_LOY, T5_LEY, DNA5_NS };
 
 __device__ __forceinline__ bool in_band(int x, float base, float width) {
     const float xl = static_cast<float>(x);
@@ -123,19 +139,121 @@ struct Emissions {
     float match, gap_y;
 };
 
-// _StrawmanSpec.emissions: Gaussian x Gaussian over (event mean, noise)
-__device__ __forceinline__ Emissions emissions_at(const float* xb,
-                                                  const float* yb, int X,
-                                                  int Y, int x, int ycol) {
-    const float mean = yb[ycol];
-    const float noise = yb[Y + ycol];
-    Emissions e;
-    e.match = gauss(mean, xb[0 * X + x], xb[1 * X + x])
-              + gauss(noise, xb[2 * X + x], xb[3 * X + x]);
-    e.gap_y = gauss(mean, xb[4 * X + x], xb[5 * X + x])
-              + gauss(noise, xb[6 * X + x], xb[7 * X + x]);
-    return e;
-}
+// A machine spec: its S states, NS transition scalars, NXF x-feature rows
+// (GAP_X the gap-X emission row), the emissions of the cell (x, y) with y
+// at column ycol of the flipped y rows, and the forward and backward
+// updates of one cell.  The update arguments arrive aligned to the current
+// window, as in the JAX specs' *_update_w: p1m/p2m the sources at x - 1,
+// p1a at x; n1a at x, n1p/n2p at x + 1.  Entries a spec does not read are
+// never loaded (the compiler drops them).
+
+// _StrawmanSpec (pallas_fb.py:162-207)
+struct Strawman {
+    static constexpr int S = 3, NS = SM3_NS, NXF = 9, GAP_X = 8;
+
+    // Gaussian x Gaussian over (event mean, noise)
+    __device__ __forceinline__ static Emissions emissions_at(
+            const float* xb, const float* yb, int X, int Y, int x,
+            int ycol) {
+        const float mean = yb[ycol];
+        const float noise = yb[Y + ycol];
+        Emissions e;
+        e.match = gauss(mean, xb[0 * X + x], xb[1 * X + x])
+                  + gauss(noise, xb[2 * X + x], xb[3 * X + x]);
+        e.gap_y = gauss(mean, xb[4 * X + x], xb[5 * X + x])
+                  + gauss(noise, xb[6 * X + x], xb[7 * X + x]);
+        return e;
+    }
+
+    // _StrawmanSpec.fwd_update_w
+    __device__ __forceinline__ static void fwd_update(
+            const float* t, const float* p1m, const float* p1a,
+            const float* p2m, const Emissions& e, float e_gapx, float* out) {
+        out[0] = log_add3(p2m[0] + t[T_MM], p2m[1] + t[T_XM],
+                          p2m[2] + t[T_YM]) + e.match;
+        out[1] = log_add3(p1m[0] + t[T_OX], p1m[1] + t[T_EX],
+                          p1m[2] + t[T_SX]) + e_gapx;
+        out[2] = log_add(p1a[0] + t[T_OY], p1a[2] + t[T_EY]) + e.gap_y;
+    }
+
+    // _StrawmanSpec.bwd_update_w
+    __device__ __forceinline__ static void bwd_update(
+            const float* t, float e_gapx_p, float eg1, float em2p,
+            const float* n1a, const float* n1p, const float* n2p,
+            float* out) {
+        const float mid = em2p + n2p[0];
+        float bm = mid + t[T_MM];
+        float bx = mid + t[T_XM];
+        float by = mid + t[T_YM];
+        const float up = eg1 + n1a[2];
+        bm = log_add(bm, up + t[T_OY]);
+        by = log_add(by, up + t[T_EY]);
+        const float low = e_gapx_p + n1p[1];
+        bm = log_add(bm, low + t[T_OX]);
+        bx = log_add(bx, low + t[T_EX]);
+        by = log_add(by, low + t[T_SX]);
+        out[0] = bm;
+        out[1] = bx;
+        out[2] = by;
+    }
+};
+
+// _Dna5Spec (pallas_fb.py:340-392): M, shortGapX, shortGapY, longGapX,
+// longGapY
+struct Dna5 {
+    static constexpr int S = 5, NS = DNA5_NS, NXF = 6, GAP_X = 5;
+
+    // match: the x row of the y base (yf row 0, a float), summed over five
+    // selects in the JAX order; gap-Y: yf row 1 as is
+    __device__ __forceinline__ static Emissions emissions_at(
+            const float* xb, const float* yb, int X, int Y, int x,
+            int ycol) {
+        const float b = yb[ycol];
+        float m = b == 0.0f ? xb[0 * X + x] : 0.0f;
+        m = m + (b == 1.0f ? xb[1 * X + x] : 0.0f);
+        m = m + (b == 2.0f ? xb[2 * X + x] : 0.0f);
+        m = m + (b == 3.0f ? xb[3 * X + x] : 0.0f);
+        m = m + (b == 4.0f ? xb[4 * X + x] : 0.0f);
+        Emissions e;
+        e.match = m;
+        e.gap_y = yb[Y + ycol];
+        return e;
+    }
+
+    // _Dna5Spec.fwd_update_w
+    __device__ __forceinline__ static void fwd_update(
+            const float* t, const float* p1m, const float* p1a,
+            const float* p2m, const Emissions& e, float e_gapx, float* out) {
+        out[0] = log_add(log_add3(p2m[0] + t[T5_MM], p2m[1] + t[T5_MSX],
+                                  p2m[2] + t[T5_MSY]),
+                         log_add(p2m[3] + t[T5_MLX], p2m[4] + t[T5_MLY]))
+                 + e.match;
+        out[1] = log_add(p1m[0] + t[T5_SOX], p1m[1] + t[T5_SEX]) + e_gapx;
+        out[2] = log_add(p1a[0] + t[T5_SOY], p1a[2] + t[T5_SEY]) + e.gap_y;
+        out[3] = log_add(p1m[0] + t[T5_LOX], p1m[3] + t[T5_LEX]) + e_gapx;
+        out[4] = log_add(p1a[0] + t[T5_LOY], p1a[4] + t[T5_LEY]) + e.gap_y;
+    }
+
+    // _Dna5Spec.bwd_update_w, the JAX grouping kept exactly (log_add is not
+    // associative in f32)
+    __device__ __forceinline__ static void bwd_update(
+            const float* t, float e_gapx_p, float eg1, float em2p,
+            const float* n1a, const float* n1p, const float* n2p,
+            float* out) {
+        const float mid = em2p + n2p[0];
+        const float low_s = e_gapx_p + n1p[1];
+        const float low_l = e_gapx_p + n1p[3];
+        const float up_s = eg1 + n1a[2];
+        const float up_l = eg1 + n1a[4];
+        out[0] = log_add(log_add3(mid + t[T5_MM], low_s + t[T5_SOX],
+                                  low_l + t[T5_LOX]),
+                         log_add(up_s + t[T5_SOY], up_l + t[T5_LOY]));
+        out[1] = log_add(mid + t[T5_MSX], low_s + t[T5_SEX]);
+        out[2] = log_add(mid + t[T5_MSY], up_s + t[T5_SEY]);
+        out[3] = log_add(mid + t[T5_MLX], low_l + t[T5_LEX]);
+        out[4] = log_add(mid + t[T5_MLY], up_l + t[T5_LEY]);
+    }
+};
 
 // Block-wide reductions; every thread gets the result.  W is a multiple of
 // 32, and the per-warp partials are combined in a fixed order.
@@ -171,6 +289,7 @@ __device__ float block_sum(float v, float* red) {
 // m > -1e20 both lose m in this thread's lane and ``shift`` gains it
 // (_tile_steps.recenter).  Ends with a barrier, so the shifted slots are
 // visible to the next step's shifted reads.
+template <int S>
 __device__ __forceinline__ void recenter(float* a, float* b, bool cut_b,
                                          int l, int W, float* red,
                                          float& shift) {
@@ -192,7 +311,7 @@ __device__ __forceinline__ void recenter(float* a, float* b, bool cut_b,
     __syncthreads();
 }
 
-template <bool TILED>
+template <class Spec, bool TILED>
 __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
                                const int* __restrict__ win,
                                const float* __restrict__ xf,
@@ -202,6 +321,9 @@ __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
                                float* __restrict__ fwd,
                                float* __restrict__ shifts, int R, int W,
                                int ND, int NDp, int X, int C, int Y, int TD) {
+    constexpr int S = Spec::S;
+    constexpr int NSCAL = Spec::NS + 3 * S;
+    constexpr int START = Spec::NS;
     // ring [3 slots][S][W]: diagonal d in d % 3; red [32]: reduction
     // scratch (tiled only)
     extern __shared__ float ring[];
@@ -214,7 +336,7 @@ __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
 #pragma unroll
     for (int i = 0; i < NSCAL; ++i) t[i] = scal[i];
     const int* wg = win + static_cast<size_t>(g) * NDp;
-    const float* xb = xf + static_cast<size_t>(b) * NXF * X;
+    const float* xb = xf + static_cast<size_t>(b) * Spec::NXF * X;
     const float* yb = yf + static_cast<size_t>(b) * 2 * Y;
     const float* base = basef + static_cast<size_t>(b) * NDp;
     const float* width = widthf + static_cast<size_t>(b) * NDp;
@@ -241,9 +363,9 @@ __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
         if constexpr (TILED) {
             if (d > 1 && (d - 1) % TD == 0) {
                 // diagonals d - 1 and d - 2 in slots (d + 2) % 3, (d + 1) % 3
-                recenter(ring + ((d + 2) % 3) * S * W,
-                         ring + ((d + 1) % 3) * S * W, false, l, W, red,
-                         shift);
+                recenter<S>(ring + ((d + 2) % 3) * S * W,
+                            ring + ((d + 1) % 3) * S * W, false, l, W, red,
+                            shift);
                 if (l == 0)
                     shifts[static_cast<size_t>(b) * NT + (d - 1) / TD] =
                         shift;
@@ -257,31 +379,24 @@ __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
         float* cur = ring + (d % 3) * S * W;
         const int x = w + l;
         // lower / middle sources at x - 1, upper at x
-        const float p1m0 = shifted(p1, l, s1 - 1, W);
-        const float p1m1 = shifted(p1 + W, l, s1 - 1, W);
-        const float p1m2 = shifted(p1 + 2 * W, l, s1 - 1, W);
-        const float p1a0 = shifted(p1, l, s1, W);
-        const float p1a2 = shifted(p1 + 2 * W, l, s1, W);
-        const float p2m0 = shifted(p2, l, s2 - 1, W);
-        const float p2m1 = shifted(p2 + W, l, s2 - 1, W);
-        const float p2m2 = shifted(p2 + 2 * W, l, s2 - 1, W);
-        const Emissions e = emissions_at(xb, yb, X, Y, x, C - d + x);
-        // _StrawmanSpec.fwd_update_w
-        float nm = log_add3(p2m0 + t[T_MM], p2m1 + t[T_XM], p2m2 + t[T_YM])
-                   + e.match;
-        float nx = log_add3(p1m0 + t[T_OX], p1m1 + t[T_EX], p1m2 + t[T_SX])
-                   + xb[8 * X + x];
-        float ny = log_add(p1a0 + t[T_OY], p1a2 + t[T_EY]) + e.gap_y;
-        if (!in_band(x, base[d], width[d])) {
-            nm = nx = ny = CPECAN_NEG;
+        float p1m[S], p1a[S], p2m[S];
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+            p1m[i] = shifted(p1 + i * W, l, s1 - 1, W);
+            p1a[i] = shifted(p1 + i * W, l, s1, W);
+            p2m[i] = shifted(p2 + i * W, l, s2 - 1, W);
         }
-        cur[l] = nm;
-        cur[W + l] = nx;
-        cur[2 * W + l] = ny;
+        const Emissions e = Spec::emissions_at(xb, yb, X, Y, x, C - d + x);
+        float nv[S];
+        Spec::fwd_update(t, p1m, p1a, p2m, e, xb[Spec::GAP_X * X + x], nv);
+        const bool mask = in_band(x, base[d], width[d]);
         float* od = out + static_cast<size_t>(d) * plane_d;
-        od[0] = nm;
-        od[static_cast<size_t>(R) * W] = nx;
-        od[static_cast<size_t>(2) * R * W] = ny;
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+            const float v = mask ? nv[i] : CPECAN_NEG;
+            cur[i * W + l] = v;
+            od[static_cast<size_t>(i) * R * W] = v;
+        }
         __syncthreads();
     }
 }
@@ -307,7 +422,7 @@ __device__ __forceinline__ void exp_target(
         int wl, float b0, float b1, float b2, float total, bool m,
         bool carried, int l, int W, float* acc, float* gap_row) {
     const int x = wt + l;
-    Emissions e = emissions_at(xb, yb, X, Y, x, C - tt + x);
+    Emissions e = Strawman::emissions_at(xb, yb, X, Y, x, C - tt + x);
     if (carried) {
         const int j = l + (wt - wl);
         if (j < 0 || j >= W) e.match = e.gap_y = CPECAN_NEG;
@@ -325,7 +440,7 @@ __device__ __forceinline__ void exp_target(
     // middle: (tt-2, x-1) -> M; lower: (tt-1, x-1) -> X; upper: (tt-1, x)
     // -> Y
     const float mid = e.match + b0;
-    const float low = xb[8 * X + x] + b1;
+    const float low = xb[Strawman::GAP_X * X + x] + b1;
     const float up = e.gap_y + b2;
     float p[NTRANS];
     p[L_MM] = exp_prob(f0m0 + t[T_MM] + mid, total);
@@ -343,7 +458,7 @@ __device__ __forceinline__ void exp_target(
     gap_row[x] += (p[L_OX] + p[L_EX] + p[L_SX]) * mf;
 }
 
-template <bool WITH_EXP, bool TILED>
+template <class Spec, bool WITH_EXP, bool TILED>
 __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
                                const int* __restrict__ win,
                                const float* __restrict__ xf,
@@ -361,6 +476,11 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
                                int ND, int NDp, int X, int C, int Y,
                                int TD) {
     static_assert(!(WITH_EXP && TILED), "the tiled path has no EM sums");
+    static_assert(!WITH_EXP || std::is_same<Spec, Strawman>::value,
+                  "EM sums are ported for the strawman machine only");
+    constexpr int S = Spec::S;
+    constexpr int NSCAL = Spec::NS + 3 * S;
+    constexpr int END = Spec::NS + S, RAGGED_END = Spec::NS + 2 * S;
     // ring [3 slots][S][W]: bwd[d] in slot d % 3 (raw, at window w_d);
     // em [2 slots][W]: match emission of diagonal d + 1 at x = w_d + l in
     // slot d & 1; red [32]: reduction scratch; with the expectations,
@@ -378,7 +498,7 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
 #pragma unroll
     for (int i = 0; i < NSCAL; ++i) t[i] = scal[i];
     const int* wg = win + static_cast<size_t>(g) * NDp;
-    const float* xb = xf + static_cast<size_t>(b) * NXF * X;
+    const float* xb = xf + static_cast<size_t>(b) * Spec::NXF * X;
     const float* yb = yf + static_cast<size_t>(b) * 2 * Y;
     const float* base = basef + static_cast<size_t>(b) * NDp;
     const float* width = widthf + static_cast<size_t>(b) * NDp;
@@ -404,7 +524,7 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
     {
         const int x = wg[ND + 1] + l;
         em[((ND + 1) & 1) * W + l] =
-            emissions_at(xb, yb, X, Y, x, C - (ND + 2) + x).match;
+            Spec::emissions_at(xb, yb, X, Y, x, C - (ND + 2) + x).match;
     }
     float total = CPECAN_NEG;
     bool cut_prev = false;  // the seed cut of diagonal d + 1
@@ -431,9 +551,9 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
                 // the top of tile d / TD - 1; below the first tile the
                 // carried bwd[d + 1] and bwd[d + 2] (cut at d + 1) re-center
                 if (d < ND)
-                    recenter(ring + ((d + 1) % 3) * S * W,
-                             ring + ((d + 2) % 3) * S * W, cut_prev, l, W,
-                             red, shift);
+                    recenter<S>(ring + ((d + 1) % 3) * S * W,
+                                ring + ((d + 2) % 3) * S * W, cut_prev, l,
+                                W, red, shift);
                 shf = shifts[static_cast<size_t>(b) * NT + d / TD - 1] + shift;
             }
         }
@@ -451,44 +571,41 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
         float* cur = ring + (d % 3) * S * W;
         const int x = w + l;
         // bwd[d+1] at x (n1a) and at x+1 (n1p); bwd[d+2] at x+1 (n2p)
-        const float n1a2 = cut1 ? CPECAN_NEG : shifted(n1 + 2 * W, l, o1, W);
-        const float n1p1 = cut1 ? CPECAN_NEG : shifted(n1 + W, l, o1 + 1, W);
-        const float n2p0 = cut2 ? CPECAN_NEG : shifted(n2, l, o2 + 1, W);
+        float n1a[S], n1p[S], n2p[S];
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+            n1a[i] = cut1 ? CPECAN_NEG : shifted(n1 + i * W, l, o1, W);
+            n1p[i] = cut1 ? CPECAN_NEG : shifted(n1 + i * W, l, o1 + 1, W);
+            n2p[i] = cut2 ? CPECAN_NEG : shifted(n2 + i * W, l, o2 + 1, W);
+        }
         // emissions(d + 2) at x + 1, carried from the last step
         const float em2p = shifted(em + ((d + 1) & 1) * W, l, o1 + 1, W);
         // emissions(d + 1) at x, fresh (next step's carry)
-        const Emissions e1 = emissions_at(xb, yb, X, Y, x, C - (d + 1) + x);
+        const Emissions e1 =
+            Spec::emissions_at(xb, yb, X, Y, x, C - (d + 1) + x);
         // gap-X emission at x + 1; the last lane of the last window reads
         // past the x range, which lies outside every band
-        const float e_gapx_p = xb[8 * X + min(x + 1, X - 1)];
-        // _StrawmanSpec.bwd_update_w
-        const float mid = em2p + n2p0;
-        float bm = mid + t[T_MM];
-        float bx = mid + t[T_XM];
-        float by = mid + t[T_YM];
-        const float up = e1.gap_y + n1a2;
-        bm = log_add(bm, up + t[T_OY]);
-        by = log_add(by, up + t[T_EY]);
-        const float low = e_gapx_p + n1p1;
-        bm = log_add(bm, low + t[T_OX]);
-        bx = log_add(bx, low + t[T_EX]);
-        by = log_add(by, low + t[T_SX]);
+        const float e_gapx_p = xb[Spec::GAP_X * X + min(x + 1, X - 1)];
+        float bw[S];
+        Spec::bwd_update(t, e_gapx_p, e1.gap_y, em2p, n1a, n1p, n2p, bw);
         const bool mask = in_band(x, base[d], width[d]);
-        if (!mask) bm = bx = by = CPECAN_NEG;
-        if (sa && mask) {
-            const int v0 = ra ? RAGGED_END : END;
-            bm = t[v0];
-            bx = t[v0 + 1];
-            by = t[v0 + 2];
+        // the seed's end vector, selected per state so that t keeps
+        // constant indices (and stays in registers)
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+            if (!mask) bw[i] = CPECAN_NEG;
+            if (sa && mask) bw[i] = ra ? t[RAGGED_END + i] : t[END + i];
         }
         const float* fd = fin + static_cast<size_t>(d) * fplane_d;
-        const float f0 = fd[0];
-        const float f1 = fd[static_cast<size_t>(R) * W];
-        const float f2 = fd[static_cast<size_t>(2) * R * W];
+        float f[S];
+#pragma unroll
+        for (int i = 0; i < S; ++i) f[i] = fd[static_cast<size_t>(i) * R * W];
         if (sa) {
             // total = masked log-sum-exp over the read's lanes
             // (pallas_fb.py _masked_lse) at its seed diagonal
-            const float prod = log_add(log_add(f0 + bm, f1 + bx), f2 + by);
+            float prod = f[0] + bw[0];
+#pragma unroll
+            for (int i = 1; i < S; ++i) prod = log_add(prod, f[i] + bw[i]);
             const float vv = mask ? prod : CPECAN_NEG;
             const float m = block_max(vv, red);
             const float s = block_sum(mask ? expf(vv - m) : 0.0f, red);
@@ -497,7 +614,7 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
         }
         const float xl = static_cast<float>(x);
         const bool ok = mask && xl > 0.0f && xl < static_cast<float>(d);
-        float z = f0 + bm - total;
+        float z = f[0] + bw[0] - total;
         if constexpr (TILED) z = z + shf;
         pout[static_cast<size_t>(d) * pplane_d] =
             ok ? expf(fminf(z, 0.69f)) : 0.0f;
@@ -520,13 +637,11 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
                            acc, gap_row);
             }
             float* fs = fsh + (d % 3) * S * W;
-            fs[l] = f0;
-            fs[W + l] = f1;
-            fs[2 * W + l] = f2;
+#pragma unroll
+            for (int i = 0; i < S; ++i) fs[i * W + l] = f[i];
         }
-        cur[l] = bm;
-        cur[W + l] = bx;
-        cur[2 * W + l] = by;
+#pragma unroll
+        for (int i = 0; i < S; ++i) cur[i * W + l] = bw[i];
         em[(d & 1) * W + l] = e1.match;
         cut_prev = sa;
         __syncthreads();
@@ -578,24 +693,27 @@ int launch_config_error(int W) {
     return cudaSuccess;
 }
 
-template <bool WITH_EXP, bool TILED>
+template <class Spec, bool WITH_EXP, bool TILED>
 int launch_bwd(const void* scal, const void* win, const void* xf,
                const void* yf, const void* basef, const void* widthf,
                const void* seedf, const void* raggedf, const void* fwd,
                const void* shifts, void* posts, void* totals, void* trans,
                void* gapx, int G, int R, int W, int ND, int NDp, int X,
                int C, int Y, int TD, void* stream) {
+    constexpr int S = Spec::S;
     if (int e = launch_config_error(W)) return e;
     if (TILED && (TD <= 0 || ND % TD != 0)) return cudaErrorInvalidValue;
     // ring + em + red, and fsh with the expectations
     const size_t smem =
         sizeof(float) * ((3 * S + 2) * W + 32 + (WITH_EXP ? 3 * S * W : 0));
     if (smem > 48 * 1024) {
-        cudaFuncSetAttribute(sm3_bwd_kernel<WITH_EXP, TILED>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+        const cudaError_t e = cudaFuncSetAttribute(
+            sm3_bwd_kernel<Spec, WITH_EXP, TILED>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
     }
-    sm3_bwd_kernel<WITH_EXP, TILED>
+    sm3_bwd_kernel<Spec, WITH_EXP, TILED>
         <<<G * R, W, smem, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float*>(scal), static_cast<const int*>(win),
             static_cast<const float*>(xf), static_cast<const float*>(yf),
@@ -610,7 +728,7 @@ int launch_bwd(const void* scal, const void* win, const void* xf,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <bool TILED>
+template <class Spec, bool TILED>
 int launch_fwd(const void* scal, const void* win, const void* xf,
                const void* yf, const void* basef, const void* widthf,
                void* fwd, void* shifts, int G, int R, int W, int ND, int NDp,
@@ -618,13 +736,15 @@ int launch_fwd(const void* scal, const void* win, const void* xf,
     if (int e = launch_config_error(W)) return e;
     if (TILED && (TD <= 0 || ND % TD != 0)) return cudaErrorInvalidValue;
     // ring, and the reduction scratch of the re-centering
-    const size_t smem = sizeof(float) * (3 * S * W + (TILED ? 32 : 0));
+    const size_t smem = sizeof(float) * (3 * Spec::S * W + (TILED ? 32 : 0));
     if (smem > 48 * 1024) {
-        cudaFuncSetAttribute(sm3_fwd_kernel<TILED>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+        const cudaError_t e = cudaFuncSetAttribute(
+            sm3_fwd_kernel<Spec, TILED>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
     }
-    sm3_fwd_kernel<TILED>
+    sm3_fwd_kernel<Spec, TILED>
         <<<G * R, W, smem, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float*>(scal), static_cast<const int*>(win),
             static_cast<const float*>(xf), static_cast<const float*>(yf),
@@ -642,33 +762,58 @@ const char* wavefront_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int wavefront_fwd(const void* scal, const void* win, const void* xf,
-                  const void* yf, const void* basef, const void* widthf,
-                  void* fwd, int G, int R, int W, int ND, int NDp, int X,
-                  int C, int Y, void* stream) {
-    return launch_fwd<false>(scal, win, xf, yf, basef, widthf, fwd, nullptr,
-                             G, R, W, ND, NDp, X, C, Y, 0, stream);
-}
+// One entry point per kernel instance; the dna5 ones take the strawman
+// ones' arguments.
+#define WAVEFRONT_FWD_ENTRY(NAME, SPEC)                                     \
+    int NAME(const void* scal, const void* win, const void* xf,              \
+             const void* yf, const void* basef, const void* widthf,          \
+             void* fwd, int G, int R, int W, int ND, int NDp, int X, int C,  \
+             int Y, void* stream) {                                          \
+        return launch_fwd<SPEC, false>(scal, win, xf, yf, basef, widthf,     \
+                                       fwd, nullptr, G, R, W, ND, NDp, X, C, \
+                                       Y, 0, stream);                        \
+    }
+#define WAVEFRONT_FWD_TILED_ENTRY(NAME, SPEC)                               \
+    int NAME(const void* scal, const void* win, const void* xf,              \
+             const void* yf, const void* basef, const void* widthf,          \
+             void* fwd, void* shifts, int G, int R, int W, int ND, int NDp,  \
+             int X, int C, int Y, int TD, void* stream) {                    \
+        return launch_fwd<SPEC, true>(scal, win, xf, yf, basef, widthf, fwd, \
+                                      shifts, G, R, W, ND, NDp, X, C, Y, TD, \
+                                      stream);                               \
+    }
+#define WAVEFRONT_BWD_ENTRY(NAME, SPEC)                                     \
+    int NAME(const void* scal, const void* win, const void* xf,              \
+             const void* yf, const void* basef, const void* widthf,          \
+             const void* seedf, const void* raggedf, const void* fwd,        \
+             void* posts, void* totals, int G, int R, int W, int ND,         \
+             int NDp, int X, int C, int Y, void* stream) {                   \
+        return launch_bwd<SPEC, false, false>(                               \
+            scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,  \
+            posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X, C, Y, 0,   \
+            stream);                                                         \
+    }
+#define WAVEFRONT_BWD_TILED_ENTRY(NAME, SPEC)                               \
+    int NAME(const void* scal, const void* win, const void* xf,              \
+             const void* yf, const void* basef, const void* widthf,          \
+             const void* seedf, const void* raggedf, const void* fwd,        \
+             const void* shifts, void* posts, void* totals, int G, int R,    \
+             int W, int ND, int NDp, int X, int C, int Y, int TD,            \
+             void* stream) {                                                 \
+        return launch_bwd<SPEC, false, true>(                                \
+            scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, shifts,   \
+            posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X, C, Y, TD,  \
+            stream);                                                         \
+    }
 
-int wavefront_fwd_tiled(const void* scal, const void* win, const void* xf,
-                        const void* yf, const void* basef,
-                        const void* widthf, void* fwd, void* shifts, int G,
-                        int R, int W, int ND, int NDp, int X, int C, int Y,
-                        int TD, void* stream) {
-    return launch_fwd<true>(scal, win, xf, yf, basef, widthf, fwd, shifts,
-                            G, R, W, ND, NDp, X, C, Y, TD, stream);
-}
-
-int wavefront_bwd(const void* scal, const void* win, const void* xf,
-                  const void* yf, const void* basef, const void* widthf,
-                  const void* seedf, const void* raggedf, const void* fwd,
-                  void* posts, void* totals, int G, int R, int W, int ND,
-                  int NDp, int X, int C, int Y, void* stream) {
-    return launch_bwd<false, false>(scal, win, xf, yf, basef, widthf, seedf,
-                                    raggedf, fwd, nullptr, posts, totals,
-                                    nullptr, nullptr, G, R, W, ND, NDp, X, C,
-                                    Y, 0, stream);
-}
+WAVEFRONT_FWD_ENTRY(wavefront_fwd, Strawman)
+WAVEFRONT_FWD_ENTRY(wavefront_fwd_dna5, Dna5)
+WAVEFRONT_FWD_TILED_ENTRY(wavefront_fwd_tiled, Strawman)
+WAVEFRONT_FWD_TILED_ENTRY(wavefront_fwd_tiled_dna5, Dna5)
+WAVEFRONT_BWD_ENTRY(wavefront_bwd, Strawman)
+WAVEFRONT_BWD_ENTRY(wavefront_bwd_dna5, Dna5)
+WAVEFRONT_BWD_TILED_ENTRY(wavefront_bwd_tiled, Strawman)
+WAVEFRONT_BWD_TILED_ENTRY(wavefront_bwd_tiled_dna5, Dna5)
 
 int wavefront_bwd_exp(const void* scal, const void* win, const void* xf,
                       const void* yf, const void* basef, const void* widthf,
@@ -676,23 +821,9 @@ int wavefront_bwd_exp(const void* scal, const void* win, const void* xf,
                       const void* fwd, void* posts, void* totals,
                       void* trans, void* gapx, int G, int R, int W, int ND,
                       int NDp, int X, int C, int Y, void* stream) {
-    return launch_bwd<true, false>(scal, win, xf, yf, basef, widthf, seedf,
-                                   raggedf, fwd, nullptr, posts, totals,
-                                   trans, gapx, G, R, W, ND, NDp, X, C, Y, 0,
-                                   stream);
-}
-
-int wavefront_bwd_tiled(const void* scal, const void* win, const void* xf,
-                        const void* yf, const void* basef,
-                        const void* widthf, const void* seedf,
-                        const void* raggedf, const void* fwd,
-                        const void* shifts, void* posts, void* totals, int G,
-                        int R, int W, int ND, int NDp, int X, int C, int Y,
-                        int TD, void* stream) {
-    return launch_bwd<false, true>(scal, win, xf, yf, basef, widthf, seedf,
-                                   raggedf, fwd, shifts, posts, totals,
-                                   nullptr, nullptr, G, R, W, ND, NDp, X, C,
-                                   Y, TD, stream);
+    return launch_bwd<Strawman, true, false>(
+        scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,
+        posts, totals, trans, gapx, G, R, W, ND, NDp, X, C, Y, 0, stream);
 }
 
 }  // extern "C"

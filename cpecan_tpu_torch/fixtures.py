@@ -12,6 +12,14 @@ the f64 scan engine's pairs and the JAX package's tiled-path pairs from
 ``tests/fixtures/long_read.npz`` (built by
 ``tests/fixtures/make_long_read_fixture.py``).
 
+``load_dna5_realign`` gives the 5-state DNA (realign) path's checks from
+``tests/fixtures/dna5_realign.npz`` (built by
+``tests/fixtures/make_dna5_realign_fixture.py``): the first 8 pairs of
+bench.py's realign workload as a fasta text and gapless cigars with the JAX
+CLI's ``--engine pallas`` output for them, and a 10 kb pair
+(``synthetic.synth_dna_pair``, seed 7, ~20,000 diagonals) with the f64
+scan engine's pairs and the JAX package's tiled-path pairs.
+
 ``load_zymo_train`` gives what a training check of the same read needs:
 the lastz guide cigar and the JAX package's two-iteration trainModels
 result from ``tests/fixtures/zymo_train.npz`` (built by
@@ -34,6 +42,7 @@ _FIXTURES = os.path.join(_REPO, "tests", "fixtures")
 ZYMO_SLICE = os.path.join(_FIXTURES, "zymo_template_slice.npz")
 ZYMO_TRAIN = os.path.join(_FIXTURES, "zymo_train.npz")
 LONG_READ = os.path.join(_FIXTURES, "long_read.npz")
+DNA5_REALIGN = os.path.join(_FIXTURES, "dna5_realign.npz")
 
 # name -> repository-relative path of the vendored data files the port
 # reads (the JAX package's ``fixtures.fixture_path`` names)
@@ -81,6 +90,22 @@ def load_long_read():
     model, read = long_signal_read(int(stored["l_x"]), int(stored["l_y"]),
                                    int(stored["seed"]))
     return model, read, stored
+
+
+def load_dna5_realign():
+    """(fasta text, input cigar lines, the 10 kb pair (seq_x, seq_y, l_x,
+    l_y, anchors), stored arrays: ``cigars_out`` (the JAX CLI's output
+    lines), ``engine_pairs`` and ``tiled_pairs`` [N, 3] (score, x, y),
+    ``seed``, ``l_ref``, ``tile_diag``)."""
+    from .synthetic import dna_realign_batch, realign_inputs, synth_dna_pair
+
+    with np.load(DNA5_REALIGN) as z:
+        stored = {k: z[k] for k in z.files}
+    n = len(stored["cigars_in"])
+    fasta, cigars = realign_inputs(dna_realign_batch()[:n])
+    pair = synth_dna_pair(np.random.default_rng(int(stored["seed"])),
+                          int(stored["l_ref"]))
+    return fasta, cigars, pair, stored
 
 
 def load_zymo_train():

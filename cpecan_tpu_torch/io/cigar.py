@@ -1,5 +1,5 @@
-"""Exonerate cigar parsing (sonLib pairwiseAlignment convention; the part
-of ``cpecan_tpu/io/cigar.py`` that the port uses).
+"""Exonerate cigar I/O (sonLib pairwiseAlignment convention; a copy of
+``cpecan_tpu/io/cigar.py``).
 
 The text line names the *query* first:
 
@@ -50,3 +50,33 @@ def parse_cigar_line(line):
         contig1=c1, start1=int(s1), end1=int(e1), strand1=st1 == "+",
         contig2=c2, start2=int(s2), end2=int(e2), strand2=st2 == "+",
         score=float(score), operations=ops)
+
+
+def cigar_read_stream(fh):
+    for line in fh:
+        line = line.strip()
+        if line.startswith("cigar:"):
+            yield parse_cigar_line(line)
+
+
+def cigar_write(aln: PairwiseAlignment):
+    parts = ["cigar:", aln.contig2, str(aln.start2), str(aln.end2),
+             "+" if aln.strand2 else "-",
+             aln.contig1, str(aln.start1), str(aln.end1),
+             "+" if aln.strand1 else "-",
+             ("%g" % aln.score)]
+    for op, length in aln.operations:
+        parts.append(op)
+        parts.append(str(length))
+    return " ".join(parts)
+
+
+def check_pairwise_alignment(aln):
+    """checkPairwiseAlignment invariants (sonLib): coordinates consistent
+    with the operation lengths."""
+    d1 = sum(l for op, l in aln.operations if op != "I")
+    d2 = sum(l for op, l in aln.operations if op != "D")
+    span1 = aln.end1 - aln.start1 if aln.strand1 else aln.start1 - aln.end1
+    span2 = aln.end2 - aln.start2 if aln.strand2 else aln.start2 - aln.end2
+    if span1 != d1 or span2 != d2:
+        raise ValueError("cigar operation lengths do not match coordinates")

@@ -1,10 +1,11 @@
 """Pair-HMM state machines of the port (counterpart of
 ``cpecan_tpu/models/state_machines.py``).
 
-So far only the strawman 3-state signal machine, as an ``nn.Module`` whose
-buffers are the model tables the wavefront kernels gather from: moving the
-module to a device moves its tables once, which takes the place of the JAX
-aligner's per-machine table cache (``pallas_fb.py:1575`` ``_model_cache``).
+So far the strawman 3-state signal machine and the 5-state DNA machine,
+each an ``nn.Module`` whose buffers are the model tables the wavefront
+kernels gather from: moving the module to a device moves its tables once,
+which takes the place of the JAX aligner's per-machine table cache
+(``pallas_fb.py:1575`` ``_model_cache``).
 """
 
 import numpy as np
@@ -109,3 +110,139 @@ def machine_from_jax(sm):
                       np.asarray(m.gap_y_model, np.float64))
     return StateMachine3SignalStrawman(model, params=sm.p,
                                        gap_x_log_probs=sm.gap_x_log_probs)
+
+
+# Default log transition params of the 5-state machine,
+# impl/stateMachine.c:921-938.
+SM5_DEFAULTS = dict(
+    match_continue=-0.030064059121770816,
+    match_from_short_gap_x=-1.272871422049609,
+    match_from_long_gap_x=-5.673280173170473,
+    gap_short_open_x=-4.34381910900448,
+    gap_short_extend_x=-0.3388262689231553,
+    gap_short_switch_to_x=-4.910694825551255,
+    gap_long_open_x=-6.30810595366929,
+    gap_long_extend_x=-0.003442492794189331,
+    gap_long_switch_to_x=-6.30810595366929,
+)
+
+# Default DNA emission tables, impl/stateMachine.c:60-82.
+EMISSION_MATCH = -2.1149196655034745
+EMISSION_TRANSVERSION = -4.5691014376830479
+EMISSION_TRANSITION = -3.9833860032220842
+EMISSION_GAP = -1.6094379124341003  # log(0.2)
+LOG_QUARTER = -1.386294361          # impl/stateMachine.c:159 (N gap prob)
+LOG_QUARTER_SQ = -2.772588722       # impl/stateMachine.c:170 (N match prob)
+
+
+def default_dna_match_table():
+    m = np.array([
+        [EMISSION_MATCH, EMISSION_TRANSVERSION, EMISSION_TRANSITION,
+         EMISSION_TRANSVERSION],
+        [EMISSION_TRANSVERSION, EMISSION_MATCH, EMISSION_TRANSVERSION,
+         EMISSION_TRANSITION],
+        [EMISSION_TRANSITION, EMISSION_TRANSVERSION, EMISSION_MATCH,
+         EMISSION_TRANSVERSION],
+        [EMISSION_TRANSVERSION, EMISSION_TRANSITION, EMISSION_TRANSVERSION,
+         EMISSION_MATCH],
+    ])
+    return m
+
+
+def _extend_tables_with_n(match4, gapx4, gapy4):
+    """Row/col 4 holds the reference's N fallback values
+    (impl/stateMachine.c:155-173)."""
+    match5 = np.full((5, 5), LOG_QUARTER_SQ)
+    match5[:4, :4] = match4
+    gapx5 = np.concatenate([gapx4, [LOG_QUARTER]])
+    gapy5 = np.concatenate([gapy4, [LOG_QUARTER]])
+    return match5, gapx5, gapy5
+
+
+def _neg_clamped(a):
+    """f32 copy of a log table, -inf clamped to NEG in f64 first."""
+    return np.maximum(np.nan_to_num(np.asarray(a, np.float64), neginf=NEG),
+                      NEG).astype(np.float32)
+
+
+class StateMachine5(nn.Module):
+    """Classic 5-state affine-gap DNA pair-HMM (fiveState,
+    getStateMachine5, impl/stateMachine.c:902-959): states M, shortGapX,
+    shortGapY, longGapX, longGapY; X and Y are DNA bases (4 = N).
+
+    ``p`` holds the transition log probabilities, symmetric unless the
+    ``_y`` ones are given (impl/stateMachine.c:930-938); ``match_table``
+    [4, 4], ``gap_x_table`` and ``gap_y_table`` [4] the emission log
+    probabilities (numpy), which the N row and column extend to the
+    buffers (f32, -inf clamped to NEG): ``match5`` [5, 5], ``gapx5`` [5]
+    and ``gapy5`` [5]."""
+
+    S = 5
+
+    def __init__(self, params=None, match_table=None, gap_x_table=None,
+                 gap_y_table=None):
+        super().__init__()
+        p = dict(SM5_DEFAULTS) if params is None else dict(params)
+        for k in list(p):
+            if k.endswith("_x") and k[:-2] + "_y" not in p:
+                p[k[:-2] + "_y"] = p[k]
+        self.p = p
+        self.match_table = (default_dna_match_table() if match_table is None
+                            else np.asarray(match_table))
+        self.gap_x_table = (np.full(4, EMISSION_GAP) if gap_x_table is None
+                            else np.asarray(gap_x_table))
+        self.gap_y_table = (np.full(4, EMISSION_GAP) if gap_y_table is None
+                            else np.asarray(gap_y_table))
+        tables = _extend_tables_with_n(self.match_table, self.gap_x_table,
+                                       self.gap_y_table)
+        for name, table in zip(("match5", "gapx5", "gapy5"), tables):
+            self.register_buffer(name, torch.from_numpy(_neg_clamped(table)))
+
+    # impl/stateMachine.c:744-790
+    def start_vec(self):
+        return [0.0, LOG_ZERO, LOG_ZERO, LOG_ZERO, LOG_ZERO]
+
+    def ragged_start_vec(self):
+        return [LOG_ZERO, LOG_ZERO, LOG_ZERO, 0.0, 0.0]
+
+    def end_vec(self):
+        p = self.p
+        return [p["match_continue"], p["match_from_short_gap_x"],
+                p["match_from_short_gap_y"], p["match_from_long_gap_x"],
+                p["match_from_long_gap_y"]]
+
+    def ragged_end_vec(self):
+        p = self.p
+        return [p["gap_long_open_x"], p["gap_long_open_x"],
+                p["gap_long_open_y"], p["gap_long_extend_x"],
+                p["gap_long_extend_y"]]
+
+    def scalars(self, ragged_left=False):
+        """Kernel scalars [1, 28] f32 on the buffers' device: [13
+        transitions (lower 4, middle 5, upper 4), start(5), end(5),
+        ragged_end(5)], -inf clamped to NEG in f64 before the cast
+        (``Dna5PallasAligner._scalars``, pallas_fb.py:3091-3104)."""
+        p = self.p
+        vals = [p["gap_short_open_x"], p["gap_short_extend_x"],
+                p["gap_long_open_x"], p["gap_long_extend_x"],
+                p["match_continue"], p["match_from_short_gap_x"],
+                p["match_from_short_gap_y"], p["match_from_long_gap_x"],
+                p["match_from_long_gap_y"],
+                p["gap_short_open_y"], p["gap_short_extend_y"],
+                p["gap_long_open_y"], p["gap_long_extend_y"]]
+        start = self.ragged_start_vec() if ragged_left else self.start_vec()
+        arr = np.array([vals + list(start) + list(self.end_vec())
+                        + list(self.ragged_end_vec())], dtype=np.float64)
+        arr = np.maximum(np.nan_to_num(arr, neginf=NEG), NEG)
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            self.match5.device)
+
+
+def machine5_from_jax(sm):
+    """The port's 5-state machine with the weights of the JAX package's
+    ``StateMachine5``: reads only ``sm.p`` and its numpy tables
+    (``match_table``, ``gap_x_table``, ``gap_y_table``)."""
+    return StateMachine5(params=sm.p,
+                         match_table=np.asarray(sm.match_table, np.float64),
+                         gap_x_table=np.asarray(sm.gap_x_table, np.float64),
+                         gap_y_table=np.asarray(sm.gap_y_table, np.float64))

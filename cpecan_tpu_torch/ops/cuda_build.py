@@ -37,6 +37,10 @@ _SIGNATURES = {
     # ... raggedf fwd shifts posts totals | ... TD | stream
     "wavefront_bwd_tiled": [_P] * 12 + [_I] * 9 + [_P],
 }
+# the dna5 instances take their strawman counterparts' arguments
+_SIGNATURES.update({f"{name}_dna5": _SIGNATURES[name] for name in (
+    "wavefront_fwd", "wavefront_bwd", "wavefront_fwd_tiled",
+    "wavefront_bwd_tiled")})
 
 
 class _Library:

@@ -1,7 +1,11 @@
-"""Batched banded forward/backward posterior alignment of the strawman
-3-state signal machine on the wavefront kernels (counterpart of
-``cpecan_tpu/ops/pallas_fb.py`` ``StrawmanPallasAligner``: ``prepare``
-:1599-1702, ``run`` :1778-1922 and ``_run_tiled`` :2447-2616).
+"""Batched banded forward/backward posterior alignment on the wavefront
+kernels (counterpart of ``cpecan_tpu/ops/pallas_fb.py``
+``_PallasAlignerBase`` :1431-1477 and ``StrawmanPallasAligner``:
+``prepare`` :1599-1702, ``run`` :1778-1922 and ``_run_tiled``
+:2447-2616).  ``WavefrontAligner`` holds the machine-independent part;
+``StrawmanAligner`` (the strawman 3-state signal machine) and
+``Dna5Aligner`` (the 5-state DNA machine, ``Dna5PallasAligner`` :3084)
+supply the spec, the host feature inputs and the device features.
 
 A batch is packed into groups of R reads.  Each group shares one window of
 W lanes per anti-diagonal (``win[g, d]``, covering the union of the
@@ -33,11 +37,13 @@ from ..constants import NUM_OF_KMERS
 from .band import make_bands
 from .compact import compact_chunks, compact_posteriors, host_array
 from .device_bands import device_bands
-from .fb_kernels import (StrawmanSpec, wavefront_bwd, wavefront_bwd_exp,
+from .fb_kernels import (Dna5Spec, StrawmanSpec, _no_expectations,
+                         wavefront_bwd, wavefront_bwd_exp,
                          wavefront_bwd_tiled, wavefront_fwd,
                          wavefront_fwd_tiled)
-from .features import (assemble_features, feature_inputs, kx_from_codes,
-                       upload_u16)
+from .features import (assemble_dna5_features, assemble_features,
+                       dna5_feature_inputs, dna5_y_values, feature_inputs,
+                       kx_from_codes, upload_u16)
 
 # f32 posterior precision is bounded by the total log magnitude, which
 # grows with the diagonal count: past ~16k diagonals the untiled passes
@@ -57,6 +63,11 @@ def _round_up(v, m):
     return ((v + m - 1) // m) * m
 
 
+def _call(_name, fn):
+    """The default ``stage`` of ``run``: run the step."""
+    return fn()
+
+
 def device_memory_bytes(device):
     """Total memory of ``device``: the card's for CUDA, the host's RAM for
     the CPU."""
@@ -65,18 +76,29 @@ def device_memory_bytes(device):
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
-class StrawmanAligner:
-    """Group-of-R batched banded forward/backward on the wavefront kernels
-    for the strawman machine (getStrawManStateMachine3).
+class WavefrontAligner:
+    """Group-of-R batched banded forward/backward on the wavefront kernels,
+    parameterized by a machine spec (``fb_kernels``' ``StrawmanSpec``,
+    ``Dna5Spec``) and the per-machine feature hooks ``feature_inputs``
+    (host) and ``device_features``; the machine supplies the kernel
+    scalars (``sm.scalars``).
 
     Exact full backward (no traceback windowing), f32, posteriors emitted
     as band-local [R, W] windows per diagonal.  ``device`` is where the
     passes run: the CUDA device by default, whose CUDA kernels run them;
     ``"cpu"`` runs their plain PyTorch versions.  ``group`` is R (reads per
-    kernel block group).
+    kernel block group; 32, the JAX package's compiled default).
     """
 
-    spec = StrawmanSpec
+    spec = None
+
+    def feature_inputs(self, reads, X):
+        """dict of compact host arrays merged into prep."""
+        raise NotImplementedError
+
+    def device_features(self, sm, prep):
+        """(xf [Bp, NXF, X], yf [Bp, 2, C+X+256]) on ``self.device``."""
+        raise NotImplementedError
 
     def __init__(self, params=None, device="cuda", group=32):
         self.params = params or AlignmentParams()
@@ -133,7 +155,7 @@ class StrawmanAligner:
         C = L + 3
         NDp = _round_up(L + 3, 128) + 128
 
-        finputs = feature_inputs(reads + [reads[-1]] * (Bp - B), X)
+        finputs = self.feature_inputs(reads + [reads[-1]] * (Bp - B), X)
         A_max = max(1, max(len(r[4]) for r in reads))
         # anchors are (x, y) pairs: the wire dtype must cover both axes
         Y_max = max(r[3] for r in reads)
@@ -212,14 +234,7 @@ class StrawmanAligner:
         win = bm[na + nm:].reshape(G, NDp)
         basef, widthf, seedf, raggedf = device_bands(
             anch, meta, NDp, int(self.params.diagonal_expansion))
-        sp = prep.get("sp")
-        xf, yf = assemble_features(
-            torch.from_numpy(prep["codes"]).to(dev),
-            upload_u16(prep["evq"], dev),
-            torch.from_numpy(prep["evs"]).to(dev),
-            sm.match_model, sm.gap_y_model, sm.gap_x, prep["C"],
-            prep["C"] + prep["X"] + 256,
-            sp=None if sp is None else torch.from_numpy(sp).to(dev))
+        xf, yf = self.device_features(sm, prep)
         return dict(scal=sm.scalars(ragged_left=ragged_left), win=win,
                     xf=xf, yf=yf, basef=basef, widthf=widthf, seedf=seedf,
                     raggedf=raggedf)
@@ -240,7 +255,7 @@ class StrawmanAligner:
 
     def run(self, sm, reads, ragged_right=False, ragged_left=False,
             compact_k=4096, scale_params=None, shape_hint=None, bands=None,
-            expectations=False, mesh=None, tile_diag=None):
+            expectations=False, mesh=None, tile_diag=None, stage=None):
         """Posterior alignment of ``reads`` [(ref, events, l_x, l_y,
         anchors), ...] on machine ``sm``.
 
@@ -256,11 +271,19 @@ class StrawmanAligner:
         With ``expectations`` the backward also sums each read's EM
         expectations and "expectations" replaces "compact": {"trans"
         [B, 3, 3], "kmer_gap" [B, NUM_OF_KMERS + 2], "likelihood" [B]}
-        numpy f64 (``exp_finalize``)."""
+        numpy f64 (``exp_finalize``).
+
+        ``stage(name, fn)``, when given, runs each step of the run and
+        returns ``fn()``: "prepare", "inputs", "fwd", "bwd", "compact" (the
+        tiled path: "fwd_tiled", "bwd_tiled"; with ``expectations``:
+        "bwd_exp", "dispatch", "finalize"), so that a caller can time them."""
         if mesh is not None:
             raise NotImplementedError(
                 "data-parallel runs are not ported yet (ROADMAP Queue 1 "
                 "item 9)")
+        if expectations:
+            _no_expectations(self.spec)
+        stage = stage or _call
         est_x = _round_up(max(r[2] for r in reads) + 2, 128)
         est_nd = est_x + max(r[3] for r in reads) + 3
         if shape_hint is not None:
@@ -280,30 +303,37 @@ class StrawmanAligner:
         if long or tile_diag is not None:
             return self._run_tiled(sm, reads, ragged_left=ragged_left,
                                    compact_k=compact_k,
-                                   tile_diag=tile_diag or TILE_DIAG, **kw)
-        prep = self.prepare(sm, reads, **kw)
+                                   tile_diag=tile_diag or TILE_DIAG,
+                                   stage=stage, **kw)
+        prep = stage("prepare", lambda: self.prepare(sm, reads, **kw))
         ND, C, W, R = prep["ND"], prep["C"], prep["W"], prep["R"]
         self._check_planes(prep, prep["NDp"])
-        inp = self.device_inputs(sm, prep, ragged_left=ragged_left)
-        dims = dict(R=R, W=W, ND=ND, C=C)
-        fwd = wavefront_fwd(inp["scal"], inp["win"], inp["xf"], inp["yf"],
-                            inp["basef"], inp["widthf"], **dims)
+        inp = stage("inputs", lambda: self.device_inputs(
+            sm, prep, ragged_left=ragged_left))
+        dims = dict(R=R, W=W, ND=ND, C=C, spec=self.spec)
+        fwd = stage("fwd", lambda: wavefront_fwd(
+            inp["scal"], inp["win"], inp["xf"], inp["yf"], inp["basef"],
+            inp["widthf"], **dims))
         bargs = (inp["scal"], inp["win"], inp["xf"], inp["yf"], inp["basef"],
                  inp["widthf"], inp["seedf"], inp["raggedf"], fwd)
         if expectations:
             # E-step consumers read only the expectations: no compaction
-            posts, totals, trans, gapx = wavefront_bwd_exp(*bargs, **dims)
-            flat = host_array(exp_dispatch(trans, gapx, totals))
-            return dict(expectations=exp_finalize(prep, flat),
-                        posteriors=posts, totals=totals, prep=prep)
-        posts, totals = wavefront_bwd(*bargs, **dims)
-        compact = compact_posteriors(posts, min(compact_k, ND * W))
+            posts, totals, trans, gapx = stage(
+                "bwd_exp", lambda: wavefront_bwd_exp(*bargs, **dims))
+            flat = stage("dispatch", lambda: host_array(
+                exp_dispatch(trans, gapx, totals)))
+            return dict(expectations=stage(
+                "finalize", lambda: exp_finalize(prep, flat)),
+                posteriors=posts, totals=totals, prep=prep)
+        posts, totals = stage("bwd", lambda: wavefront_bwd(*bargs, **dims))
+        compact = stage("compact", lambda: compact_posteriors(
+            posts, min(compact_k, ND * W)))
         return dict(compact=compact, posteriors=posts, totals=totals,
                     prep=prep)
 
     def _run_tiled(self, sm, reads, *, ragged_right=False, ragged_left=False,
                    compact_k=4096, scale_params=None, shape_hint=None,
-                   bands=None, tile_diag=TILE_DIAG):
+                   bands=None, tile_diag=TILE_DIAG, stage=None):
         """The long-alignment path (``_run_tiled``, pallas_fb.py:2447-2616):
         the tiled forward and backward (``wavefront_fwd_tiled``/
         ``wavefront_bwd_tiled``, one launch each) over NDT = NT * TD
@@ -313,25 +343,74 @@ class StrawmanAligner:
         (``compact.compact_chunks``), "tiled": dict(TD, NT, NDT, DC),
         "posteriors" [G, NDT+1, R, W] (diagonals past a read's n_diag hold
         0), "totals" [G, R], "prep"}."""
-        prep = self.prepare(sm, reads, ragged_right=ragged_right,
-                            scale_params=scale_params, shape_hint=shape_hint,
-                            bands=bands, tile_diag=tile_diag)
+        stage = stage or _call
+        prep = stage("prepare", lambda: self.prepare(
+            sm, reads, ragged_right=ragged_right, scale_params=scale_params,
+            shape_hint=shape_hint, bands=bands, tile_diag=tile_diag))
         tiled = prep["tiled"]
         NDT, W = tiled["NDT"], prep["W"]
         self._check_planes(prep, NDT + 1)
-        inp = self.device_inputs(sm, prep, ragged_left=ragged_left)
-        dims = dict(R=prep["R"], W=W, ND=NDT, C=prep["C"], TD=tiled["TD"])
-        fwd, shifts = wavefront_fwd_tiled(
-            inp["scal"], inp["win"], inp["xf"], inp["yf"], inp["basef"],
-            inp["widthf"], **dims)
-        posts, totals = wavefront_bwd_tiled(
-            inp["scal"], inp["win"], inp["xf"], inp["yf"], inp["basef"],
-            inp["widthf"], inp["seedf"], inp["raggedf"], fwd, shifts, **dims)
+        inp = stage("inputs", lambda: self.device_inputs(
+            sm, prep, ragged_left=ragged_left))
+        dims = dict(R=prep["R"], W=W, ND=NDT, C=prep["C"], TD=tiled["TD"],
+                    spec=self.spec)
+        fargs = (inp["scal"], inp["win"], inp["xf"], inp["yf"], inp["basef"],
+                 inp["widthf"])
+        fwd, shifts = stage("fwd_tiled", lambda: wavefront_fwd_tiled(
+            *fargs, **dims))
+        posts, totals = stage("bwd_tiled", lambda: wavefront_bwd_tiled(
+            *fargs, inp["seedf"], inp["raggedf"], fwd, shifts, **dims))
         del fwd   # free the fwd plane before the compaction's copy
         DC = tiled["DC"]
-        chunks = compact_chunks(posts, DC, min(compact_k, DC * W))
+        chunks = stage("compact", lambda: compact_chunks(
+            posts, DC, min(compact_k, DC * W)))
         return dict(compact_chunks=chunks, tiled=dict(tiled),
                     posteriors=posts, totals=totals, prep=prep)
+
+
+class StrawmanAligner(WavefrontAligner):
+    """The strawman 3-state signal machine (getStrawManStateMachine3) on
+    the wavefront kernels.  Reads are (ref, events [n, >= 2], l_x, l_y,
+    anchors)."""
+
+    spec = StrawmanSpec
+
+    def feature_inputs(self, reads, X):
+        return feature_inputs(reads, X)
+
+    def device_features(self, sm, prep):
+        dev = self.device
+        sp = prep.get("sp")
+        return assemble_features(
+            torch.from_numpy(prep["codes"]).to(dev),
+            upload_u16(prep["evq"], dev),
+            torch.from_numpy(prep["evs"]).to(dev),
+            sm.match_model, sm.gap_y_model, sm.gap_x, prep["C"],
+            prep["C"] + prep["X"] + 256,
+            sp=None if sp is None else torch.from_numpy(sp).to(dev))
+
+
+class Dna5Aligner(WavefrontAligner):
+    """The classic 5-state DNA pair-HMM (getStateMachine5, cPecanRealign's
+    machine; ``models.state_machines.StateMachine5``) on the wavefront
+    kernels.  Reads are (seq_x, seq_y, l_x, l_y, anchors) with both sides
+    DNA strings.  No EM expectations yet: ``run(expectations=True)``
+    raises (ROADMAP Queue 1 item 3, dna5 EM)."""
+
+    spec = Dna5Spec
+
+    def feature_inputs(self, reads, X):
+        return dna5_feature_inputs(reads, X)
+
+    def device_features(self, sm, prep):
+        dev = self.device
+        # the y values are built on the host (dna5_y_values), from the
+        # buffer's five values
+        ev = dna5_y_values(prep["ydata"], prep["reads"],
+                           sm.gapy5.cpu().numpy())
+        return assemble_dna5_features(
+            torch.from_numpy(prep["bx"]).to(dev), torch.from_numpy(ev).to(dev),
+            sm.match5, sm.gapx5, prep["C"], prep["C"] + prep["X"] + 256)
 
 
 def exp_dispatch(trans, gapx, totals):

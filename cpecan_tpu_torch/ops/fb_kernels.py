@@ -1,7 +1,8 @@
-"""Band-local forward/backward wavefront of the strawman 3-state signal
-machine: the log-space helpers, the machine spec, the wavefront passes
-(forward, posterior backward, expectation backward) as plain PyTorch, and
-the wrappers that launch their CUDA kernels.
+"""Band-local forward/backward wavefront of the pair-HMM machines: the
+log-space helpers, the machine specs (the strawman 3-state signal machine
+and the 5-state DNA machine), the wavefront passes (forward, posterior
+backward, expectation backward) as plain PyTorch, and the wrappers that
+launch their CUDA kernels.
 
 Counterparts in the JAX package (``cpecan_tpu/ops/pallas_fb.py``):
 
@@ -9,6 +10,7 @@ Counterparts in the JAX package (``cpecan_tpu/ops/pallas_fb.py``):
 ``NEG``, ``log_add``,      ``NEG``, ``_log_add``, ``_log_add3``,
 ``log_add3``, ``gauss``    ``_gauss`` (:44-70)
 ``StrawmanSpec``           ``_StrawmanSpec`` (:162-207)
+``Dna5Spec``               ``_Dna5Spec`` (:340-392)
 ``wavefront_fwd``          ``_sm3_forward_kernel`` (:635), untiled
 ``wavefront_bwd``          ``_sm3_backward_kernel`` -> ``_sm3_backward_body_w``
                            (:857, :900), ``with_exp=False``, untiled
@@ -23,21 +25,27 @@ Counterparts in the JAX package (``cpecan_tpu/ops/pallas_fb.py``):
 
 Layout (the JAX planes, index for index): G groups of R reads; diagonal d
 of group g is a window of W lanes starting at x = ``win[g, d]``, lane l
-holding cell (x = win[g, d] + l, y = d - x).  ``xf`` [G*R, 9, X] holds the
-per-x model rows, ``yf`` [G*R, 2, C+X+256] the events flipped so that
-column C - y holds event y, ``basef``/``widthf``/``seedf``/``raggedf``
-[G*R, NDp] the band metadata.
+holding cell (x = win[g, d] + l, y = d - x).  ``xf`` [G*R, NXF, X] holds
+the per-x model rows, ``yf`` [G*R, 2, C+X+256] the y elements flipped so
+that column C - y holds element y, ``basef``/``widthf``/``seedf``/
+``raggedf`` [G*R, NDp] the band metadata.  Every pass and wrapper takes the
+machine ``spec`` (``StrawmanSpec`` unless given); its S states shape the
+forward plane [G, ND+1, S, R, W].
 
 Dispatch: every ``wavefront_*`` wrapper runs the plain version for a
 tensor on the CPU and launches the CUDA kernel
 (``cpecan_tpu_torch/csrc/wavefront.cu``) for a CUDA tensor; nothing falls
 back from one to the other.  The tiled pair sweeps all ND = NT * TD
 diagonals in one launch each: a tile of the TPU kernels is only a
-boundary here, where the carried diagonals re-center.  Each wrapper counts its kernel launches in
-``.launches``; each plain version counts its calls in ``.calls``.
+boundary here, where the carried diagonals re-center.  Every CUDA kernel's
+launches are counted in ``KERNEL_LAUNCHES`` under its entry point's name
+(``wavefront_fwd``, ``wavefront_fwd_dna5``, ...); a wrapper's
+``.launches`` reads its strawman entry there.  Each plain version counts
+its calls in ``.calls``.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -84,8 +92,12 @@ class StrawmanSpec:
     ``xf`` tensors are [..., 9, W] window rows; transition scalars ``t``
     are 0-d tensors or floats indexed by T_MM..T_EY."""
 
+    NAME = "strawman"
+    SUFFIX = ""   # of its CUDA kernels' entry points
     S = 3     # states: M, shortGapX, shortGapY
     NS = 8    # machine scalars
+    NXF = 9   # x-feature rows
+    GAP_X = 8  # the gap-X emission row of xf
 
     @staticmethod
     def emissions(xf, mean, noise):
@@ -99,7 +111,7 @@ class StrawmanSpec:
     # p1 at x; n1 at x, n1p/n2p/em2p at x+1
     @staticmethod
     def fwd_update_w(t, xf, e_match, e_gapy, p1m, p1, p2m):
-        e_gapx = xf[..., 8, :]
+        e_gapx = xf[..., StrawmanSpec.GAP_X, :]
         new_x = log_add3(p1m[0] + t[T_OX], p1m[1] + t[T_EX],
                          p1m[2] + t[T_SX]) + e_gapx
         new_m = log_add3(p2m[0] + t[T_MM], p2m[1] + t[T_XM],
@@ -157,6 +169,79 @@ class StrawmanSpec:
         return probs, probs["ox"] + probs["ex"] + probs["sx"]
 
 
+# 5-state DNA machine scalar order: lower(4), middle(5), upper(4)
+(T5_SOX, T5_SEX, T5_LOX, T5_LEX,
+ T5_MM, T5_MSX, T5_MSY, T5_MLX, T5_MLY,
+ T5_SOY, T5_SEY, T5_LOY, T5_LEY) = range(13)
+
+
+class Dna5Spec:
+    """Classic 5-state affine-gap DNA pair-HMM (stateMachine5_cellCalculate,
+    impl/stateMachine.c:830-866): states M, shortGapX, shortGapY, longGapX,
+    longGapY.
+
+    ``xf`` rows 0..4 are the match emissions of the x base against y base
+    0..4 (4 = N), row 5 the gap-X emission; ``yf`` row 0 carries the y base
+    index as a float, row 1 the gap-Y emission.  No EM expectations yet
+    (ROADMAP Queue 1 item 3, dna5 EM)."""
+
+    NAME = "dna5"
+    SUFFIX = "_dna5"
+    S = 5
+    NS = 13
+    NXF = 6
+    GAP_X = 5
+
+    @staticmethod
+    def emissions(xf, mean, noise):
+        # the match row picked by the y base: a sum of five selects, as the
+        # JAX spec has it (a value outside 0..4 gives 0.0, not a row)
+        e_match = torch.where(mean == 0.0, xf[..., 0, :], 0.0)
+        for b in range(1, 5):
+            e_match = e_match + torch.where(mean == float(b), xf[..., b, :],
+                                            0.0)
+        return e_match, noise
+
+    @staticmethod
+    def fwd_update_w(t, xf, e_match, e_gapy, p1m, p1, p2m):
+        e_gapx = xf[..., Dna5Spec.GAP_X, :]
+        new_sx = log_add(p1m[0] + t[T5_SOX], p1m[1] + t[T5_SEX]) + e_gapx
+        new_lx = log_add(p1m[0] + t[T5_LOX], p1m[3] + t[T5_LEX]) + e_gapx
+        new_m = log_add(
+            log_add3(p2m[0] + t[T5_MM], p2m[1] + t[T5_MSX],
+                     p2m[2] + t[T5_MSY]),
+            log_add(p2m[3] + t[T5_MLX], p2m[4] + t[T5_MLY])) + e_match
+        new_sy = log_add(p1[0] + t[T5_SOY], p1[2] + t[T5_SEY]) + e_gapy
+        new_ly = log_add(p1[0] + t[T5_LOY], p1[4] + t[T5_LEY]) + e_gapy
+        return [new_m, new_sx, new_sy, new_lx, new_ly]
+
+    @staticmethod
+    def bwd_update_w(t, e_gapx_p, eg1, em2p, n1, n1p, n2p):
+        # the JAX grouping, kept exactly: the piecewise-cubic log_add is not
+        # associative in f32
+        mid = em2p + n2p[0]
+        low_s = e_gapx_p + n1p[1]
+        low_l = e_gapx_p + n1p[3]
+        up_s = eg1 + n1[2]
+        up_l = eg1 + n1[4]
+        bw_m = log_add(
+            log_add3(mid + t[T5_MM], low_s + t[T5_SOX], low_l + t[T5_LOX]),
+            log_add(up_s + t[T5_SOY], up_l + t[T5_LOY]))
+        bw_sx = log_add(mid + t[T5_MSX], low_s + t[T5_SEX])
+        bw_sy = log_add(mid + t[T5_MSY], up_s + t[T5_SEY])
+        bw_lx = log_add(mid + t[T5_MLX], low_l + t[T5_LEX])
+        bw_ly = log_add(mid + t[T5_MLY], up_l + t[T5_LEY])
+        return [bw_m, bw_sx, bw_sy, bw_lx, bw_ly]
+
+
+def _no_expectations(spec):
+    """Refuse an expectation pass for a spec whose K3 is not ported."""
+    if not hasattr(spec, "exp_probs_w"):
+        raise NotImplementedError(
+            f"{spec.NAME} EM expectations are not ported yet (ROADMAP Queue "
+            f"1 item 3, dna5 EM: K3 for dna5 with pipeline/em.py)")
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch passes: every read of every group at once, one Python step
 # per diagonal.  Tensors are [G, R, W] per state; the per-group window
@@ -166,7 +251,8 @@ class StrawmanSpec:
 class _Frame:
     """Per-call views shared by the plain passes."""
 
-    def __init__(self, scal, win, xf, yf, basef, widthf, R, W):
+    def __init__(self, scal, win, xf, yf, basef, widthf, R, W, spec):
+        self.spec = spec
         self.G = win.shape[0]
         self.R, self.W = R, W
         dev = xf.device
@@ -207,7 +293,7 @@ class _Frame:
         x = w[g] + l."""
         xfw = self.cols(self.xf, w)
         ys = self.cols(self.yf, C - d + w)
-        return (xfw,) + StrawmanSpec.emissions(xfw, ys[:, :, 0], ys[:, :, 1])
+        return (xfw,) + self.spec.emissions(xfw, ys[:, :, 0], ys[:, :, 1])
 
 
 def _recenter(vals, acc):
@@ -221,18 +307,18 @@ def _recenter(vals, acc):
     return [v - c[..., None] for v in vals], acc + c
 
 
-def _forward(scal, win, xf, yf, basef, widthf, R, W, ND, C, TD):
+def _forward(scal, win, xf, yf, basef, widthf, R, W, ND, C, TD, spec):
     """The plain forward sweep shared by ``forward_plain`` and
     ``forward_tiled_plain``; with ``TD`` the carries re-center at every
     tile boundary (before diagonal t * TD + 1, t >= 1) and the shift each
     tile's rows carry comes back as [G, R, ND // TD]."""
-    fr = _Frame(scal, win, xf, yf, basef, widthf, R, W)
-    t, S = fr.t, StrawmanSpec.S
+    fr = _Frame(scal, win, xf, yf, basef, widthf, R, W, spec)
+    t, S = fr.t, spec.S
     out = torch.empty((fr.G, ND + 1, S, R, W), dtype=torch.float32,
                       device=xf.device)
     w0 = fr.win[:, 0]
     m0 = fr.band(0, w0)
-    prev1 = [torch.where(m0, t[StrawmanSpec.NS + i], NEG) for i in range(S)]
+    prev1 = [torch.where(m0, t[spec.NS + i], NEG) for i in range(S)]
     prev2 = [torch.full((fr.G, R, W), NEG, device=xf.device)] * S
     if TD:
         acc = torch.zeros((fr.G, R), device=xf.device)
@@ -251,8 +337,7 @@ def _forward(scal, win, xf, yf, basef, widthf, R, W, ND, C, TD):
         p1a = [fr.align(v, s1) for v in prev1]
         p2m = [fr.align(v, s2 - 1) for v in prev2]
         xfw, e_match, e_gapy = fr.emissions(d, w, C)
-        new = StrawmanSpec.fwd_update_w(t, xfw, e_match, e_gapy, p1m, p1a,
-                                        p2m)
+        new = spec.fwd_update_w(t, xfw, e_match, e_gapy, p1m, p1a, p2m)
         mask = fr.band(d, w)
         new = [torch.where(mask, v, NEG) for v in new]
         for i in range(S):
@@ -261,21 +346,23 @@ def _forward(scal, win, xf, yf, basef, widthf, R, W, ND, C, TD):
     return (out, shifts) if TD else out
 
 
-def forward_plain(scal, win, xf, yf, basef, widthf, *, R, W, ND, C):
-    """Plain PyTorch forward pass: fwd plane [G, ND+1, 3, R, W] (f32).
+def forward_plain(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
+                  spec=StrawmanSpec):
+    """Plain PyTorch forward pass: fwd plane [G, ND+1, S, R, W] (f32).
     Out-of-band cells hold exactly NEG."""
     forward_plain.calls += 1
-    return _forward(scal, win, xf, yf, basef, widthf, R, W, ND, C, None)
+    return _forward(scal, win, xf, yf, basef, widthf, R, W, ND, C, None,
+                    spec)
 
 
 forward_plain.calls = 0
 
 
 def forward_tiled_plain(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
-                        TD):
+                        TD, spec=StrawmanSpec):
     """Plain PyTorch tiled forward over ND = NT * TD diagonals (the long-
     alignment forward, ``_sm3_forward_kernel(tile=...)`` chained by
-    ``_run_tiled``): (fwd plane [G, ND+1, 3, R, W], shifts [G, R, NT]).
+    ``_run_tiled``): (fwd plane [G, ND+1, S, R, W], shifts [G, R, NT]).
 
     The same recurrence as ``forward_plain``, but before diagonal
     t * TD + 1 (t >= 1) the two carried diagonals of each read re-center:
@@ -284,7 +371,7 @@ def forward_tiled_plain(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
     t * TD + 1 .. t * TD + TD, and diagonal 0 for t = 0) hold the absolute
     forward minus shifts[..., t]; shifts[..., 0] = 0."""
     forward_tiled_plain.calls += 1
-    return _forward(scal, win, xf, yf, basef, widthf, R, W, ND, C, TD)
+    return _forward(scal, win, xf, yf, basef, widthf, R, W, ND, C, TD, spec)
 
 
 forward_tiled_plain.calls = 0
@@ -323,7 +410,7 @@ class _Expectations:
 
     def __init__(self, fr):
         self.fr = fr
-        S = StrawmanSpec.S
+        S = fr.spec.S
         self.acc = [torch.zeros((fr.G, fr.R, fr.W), device=fr.xf.device)
                     for _ in range(S * S)]
         self.gap = torch.zeros((fr.G, fr.R, fr.xf.shape[-1]),
@@ -333,11 +420,12 @@ class _Expectations:
         """Contributions of target diagonal ``d_t`` (window ``wt``), every
         input aligned to that window (``accumulate_exp``, :1072-1095)."""
         fr = self.fr
-        e_gapx = fr.cols(fr.xf[:, :, 8:9], wt)[:, :, 0]
-        probs, gap = StrawmanSpec.exp_probs_w(fr.t, e_gapx, em_t, eg_t, f0m,
-                                              f1m, f1a, bw2, total)
+        spec = fr.spec
+        e_gapx = fr.cols(fr.xf[:, :, spec.GAP_X:spec.GAP_X + 1], wt)[:, :, 0]
+        probs, gap = spec.exp_probs_w(fr.t, e_gapx, em_t, eg_t, f0m, f1m,
+                                      f1a, bw2, total)
         m = fr.band(d_t, wt).to(torch.float32)
-        for name, k in StrawmanSpec.EXP_LANES.items():
+        for name, k in spec.EXP_LANES.items():
             self.acc[k] = self.acc[k] + probs[name] * m
         x = fr.xcoord(wt).expand(fr.G, fr.R, fr.W)
         self.gap.scatter_add_(2, x, gap * m)
@@ -349,12 +437,12 @@ class _Expectations:
 
 
 def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
-              ND, C, with_exp, shifts=None, TD=None):
+              ND, C, with_exp, spec, shifts=None, TD=None):
     """The plain backward sweep shared by ``backward_plain``,
     ``backward_exp_plain`` and ``backward_tiled_plain``
     (``_sm3_backward_body_w``; with ``TD`` the tiled body)."""
-    fr = _Frame(scal, win, xf, yf, basef, widthf, R, W)
-    t, S, NS = fr.t, StrawmanSpec.S, StrawmanSpec.NS
+    fr = _Frame(scal, win, xf, yf, basef, widthf, R, W, spec)
+    t, S, NS = fr.t, spec.S, spec.NS
     G, dev = fr.G, xf.device
     seed = seedf.reshape(G, R, -1)
     ragged = raggedf.reshape(G, R, -1)
@@ -399,9 +487,9 @@ def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
         _, em1, eg1 = fr.emissions(d + 1, w, C)
         # gap-X emission at x+1 (clamped at the x range's end: that lane
         # lies outside every band)
-        e_gapx_p = fr.cols(fr.xf[:, :, 8:9], w + 1)[:, :, 0]
-        bw = StrawmanSpec.bwd_update_w(t, e_gapx_p, eg1, em2p, n1a, n1p,
-                                       n2p)
+        gx = spec.GAP_X
+        e_gapx_p = fr.cols(fr.xf[:, :, gx:gx + 1], w + 1)[:, :, 0]
+        bw = spec.bwd_update_w(t, e_gapx_p, eg1, em2p, n1a, n1p, n2p)
         mask = fr.band(d, w)
         seed_in = sa & mask
         bw = [torch.where(seed_in,
@@ -452,21 +540,21 @@ def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
 
 
 def backward_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
-                   R, W, ND, C):
+                   R, W, ND, C, spec=StrawmanSpec):
     """Plain PyTorch posterior backward: (posts [G, ND+1, R, W],
     totals [G, R]).  Match posterior exp(min(f + b - total, 0.69)) on
     in-band cells with 0 < x < d, 0 elsewhere and on diagonal 0; the total
     is the masked log-sum-exp of f + b at each read's seed diagonal."""
     backward_plain.calls += 1
     return _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
-                     R, W, ND, C, with_exp=False)
+                     R, W, ND, C, with_exp=False, spec=spec)
 
 
 backward_plain.calls = 0
 
 
 def backward_exp_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf,
-                       fwd, *, R, W, ND, C):
+                       fwd, *, R, W, ND, C, spec=StrawmanSpec):
     """Plain PyTorch expectation backward: ``backward_plain``'s (posts,
     totals) plus the EM sums (diagonalCalculation_signal_Expectations,
     impl/pairwiseAligner.c:868-912) of every read:
@@ -479,17 +567,18 @@ def backward_exp_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf,
     added at the step of diagonal t-2, after that step's total; the
     epilogue adds targets 2 and 1.  The transition sums are per lane over
     the targets, then over the lanes (``block_sum``), as the kernel
-    reduces them."""
+    reduces them.  Strawman only so far (``_no_expectations``)."""
+    _no_expectations(spec)
     backward_exp_plain.calls += 1
     return _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
-                     R, W, ND, C, with_exp=True)
+                     R, W, ND, C, with_exp=True, spec=spec)
 
 
 backward_exp_plain.calls = 0
 
 
 def backward_tiled_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf,
-                         fwd, shifts, *, R, W, ND, C, TD):
+                         fwd, shifts, *, R, W, ND, C, TD, spec=StrawmanSpec):
     """Plain PyTorch tiled posterior backward over ND = NT * TD diagonals
     (``_sm3_backward_kernel(tile=...)`` chained by ``_run_tiled``), fed the
     tiled forward's plane and shifts [G, R, NT]: (posts [G, ND+1, R, W],
@@ -503,7 +592,8 @@ def backward_tiled_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf,
     0.69))."""
     backward_tiled_plain.calls += 1
     return _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
-                     R, W, ND, C, with_exp=False, shifts=shifts, TD=TD)
+                     R, W, ND, C, with_exp=False, spec=spec, shifts=shifts,
+                     TD=TD)
 
 
 backward_tiled_plain.calls = 0
@@ -512,6 +602,10 @@ backward_tiled_plain.calls = 0
 # ---------------------------------------------------------------------------
 # Wrappers: plain version on the CPU, CUDA kernel on the card.
 # ---------------------------------------------------------------------------
+
+# launches of each CUDA kernel, by its entry point (spec.SUFFIX included)
+KERNEL_LAUNCHES = {}
+
 
 def _check_cuda_inputs(named, dtypes, device):
     for name, tns in named.items():
@@ -534,7 +628,27 @@ def _raise_on(code, lib, what):
                            f"({msg})")
 
 
-def _geometry(win, xf, yf, R, W, ND):
+def _counted(entry):
+    """Count one launch of kernel ``entry``."""
+    KERNEL_LAUNCHES[entry] = KERNEL_LAUNCHES.get(entry, 0) + 1
+
+
+class _Wrapper:
+    """A kernel wrapper whose ``launches`` reads ``KERNEL_LAUNCHES`` for
+    its strawman entry point (the wrapper's own name)."""
+
+    def __init__(self, fn):
+        functools.update_wrapper(self, fn)
+
+    def __call__(self, *args, **kwargs):
+        return self.__wrapped__(*args, **kwargs)
+
+    @property
+    def launches(self):
+        return KERNEL_LAUNCHES.get(self.__name__, 0)
+
+
+def _geometry(win, xf, yf, scal, R, W, ND, spec):
     G, NDp = win.shape
     if ND + 3 > NDp:
         raise ValueError(f"win has {NDp} diagonals, need ND+3 = {ND + 3}")
@@ -546,75 +660,96 @@ def _geometry(win, xf, yf, R, W, ND):
             f"group window W={W} does not fit one thread per lane (a "
             "multiple of 32, at most 1024): lower the group size or batch "
             "shape-homogeneous reads so that the group window stays narrow")
+    if xf.shape[1] != spec.NXF or scal.numel() != spec.NS + 3 * spec.S:
+        raise ValueError(
+            f"xf has {xf.shape[1]} rows and scal {scal.numel()} values; the "
+            f"{spec.NAME} kernels take {spec.NXF} and "
+            f"{spec.NS + 3 * spec.S}")
     return G, NDp, xf.shape[2], yf.shape[2]
 
 
-def wavefront_fwd(scal, win, xf, yf, basef, widthf, *, R, W, ND, C):
-    """Forward wavefront -> fwd plane [G, ND+1, 3, R, W] f32.  Plain
-    PyTorch for CPU tensors; the CUDA kernel ``sm3_fwd_kernel`` for CUDA
-    tensors (replaces cpecan_tpu/ops/pallas_fb.py:635
-    _sm3_forward_kernel)."""
-    if xf.device.type == "cpu":
-        return forward_plain(scal, win, xf, yf, basef, widthf, R=R, W=W,
-                             ND=ND, C=C)
+def _launch_fwd(name, scal, win, xf, yf, basef, widthf, R, W, ND, C, spec,
+                TD=None):
+    """Launch the forward kernel ``name`` + ``spec.SUFFIX`` of the library
+    on CUDA tensors (the tiled one with ``TD``); returns the fwd plane, and
+    with ``TD`` the shifts [G, R, ND // TD]."""
     if xf.device.type != "cuda":
         raise ValueError(f"no wavefront kernel for device {xf.device}")
     from .cuda_build import load_library
 
-    G, NDp, X, Y = _geometry(win, xf, yf, R, W, ND)
+    G, NDp, X, Y = _geometry(win, xf, yf, scal, R, W, ND, spec)
     _check_cuda_inputs(dict(scal=scal, win=win, xf=xf, yf=yf, basef=basef,
                             widthf=widthf), {"win": torch.int32}, xf.device)
     lib = load_library()
-    fwd = torch.empty((G, ND + 1, StrawmanSpec.S, R, W), dtype=torch.float32,
-                      device=xf.device)
+    outs = [torch.empty((G, ND + 1, spec.S, R, W), dtype=torch.float32,
+                        device=xf.device)]
+    if TD:
+        outs.append(torch.empty((G, R, ND // TD), dtype=torch.float32,
+                                device=xf.device))
     stream = torch.cuda.current_stream(xf.device).cuda_stream
-    code = lib.wavefront_fwd(_ptr(scal), _ptr(win), _ptr(xf), _ptr(yf),
-                             _ptr(basef), _ptr(widthf), _ptr(fwd), G, R, W,
-                             ND, NDp, X, C, Y, ctypes.c_void_p(stream))
-    _raise_on(code, lib, "wavefront_fwd")
-    wavefront_fwd.launches += 1
+    entry = name + spec.SUFFIX
+    args = [_ptr(v) for v in (scal, win, xf, yf, basef, widthf, *outs)]
+    args += [G, R, W, ND, NDp, X, C, Y] + ([TD] if TD else [])
+    code = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
+    _raise_on(code, lib, entry)
+    return entry, (tuple(outs) if TD else outs[0])
+
+
+@_Wrapper
+def wavefront_fwd(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
+                  spec=StrawmanSpec):
+    """Forward wavefront -> fwd plane [G, ND+1, S, R, W] f32.  Plain
+    PyTorch for CPU tensors; the CUDA kernel ``sm3_fwd_kernel<spec>`` for
+    CUDA tensors (replaces cpecan_tpu/ops/pallas_fb.py:635
+    _sm3_forward_kernel; entry ``wavefront_fwd`` + ``spec.SUFFIX``)."""
+    if xf.device.type == "cpu":
+        return forward_plain(scal, win, xf, yf, basef, widthf, R=R, W=W,
+                             ND=ND, C=C, spec=spec)
+    entry, fwd = _launch_fwd("wavefront_fwd", scal, win, xf, yf, basef,
+                             widthf, R, W, ND, C, spec)
+    _counted(entry)
     return fwd
 
 
-wavefront_fwd.launches = 0
 
-
+@_Wrapper
 def wavefront_bwd(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
-                  R, W, ND, C):
+                  R, W, ND, C, spec=StrawmanSpec):
     """Posterior backward -> (posts [G, ND+1, R, W], totals [G, R]) f32.
-    Plain PyTorch for CPU tensors; the CUDA kernel ``sm3_bwd_kernel`` for
-    CUDA tensors (replaces cpecan_tpu/ops/pallas_fb.py:857/:900
+    Plain PyTorch for CPU tensors; the CUDA kernel ``sm3_bwd_kernel<spec>``
+    for CUDA tensors (replaces cpecan_tpu/ops/pallas_fb.py:857/:900
     _sm3_backward_kernel, with_exp=False)."""
     if xf.device.type == "cpu":
         return backward_plain(scal, win, xf, yf, basef, widthf, seedf,
-                              raggedf, fwd, R=R, W=W, ND=ND, C=C)
-    out = _launch_bwd("wavefront_bwd", scal, win, xf, yf, basef, widthf,
-                      seedf, raggedf, fwd, R, W, ND, C, with_exp=False)
-    wavefront_bwd.launches += 1
+                              raggedf, fwd, R=R, W=W, ND=ND, C=C, spec=spec)
+    entry, out = _launch_bwd("wavefront_bwd", scal, win, xf, yf, basef,
+                             widthf, seedf, raggedf, fwd, R, W, ND, C,
+                             with_exp=False, spec=spec)
+    _counted(entry)
     return out
 
 
-wavefront_bwd.launches = 0
 
-
+@_Wrapper
 def wavefront_bwd_exp(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
-                      *, R, W, ND, C):
+                      *, R, W, ND, C, spec=StrawmanSpec):
     """Expectation backward -> (posts [G, ND+1, R, W], totals [G, R],
     trans [G, R, 9], gapx [G, 1, R, X]) f32 (see ``backward_exp_plain``).
     Plain PyTorch for CPU tensors; the CUDA kernel
-    ``sm3_bwd_kernel<true>`` for CUDA tensors (replaces
+    ``sm3_bwd_kernel<Strawman, true>`` for CUDA tensors (replaces
     cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
-    with_exp=True)."""
+    with_exp=True).  Strawman only so far (``_no_expectations``)."""
+    _no_expectations(spec)
     if xf.device.type == "cpu":
         return backward_exp_plain(scal, win, xf, yf, basef, widthf, seedf,
-                                  raggedf, fwd, R=R, W=W, ND=ND, C=C)
-    out = _launch_bwd("wavefront_bwd_exp", scal, win, xf, yf, basef, widthf,
-                      seedf, raggedf, fwd, R, W, ND, C, with_exp=True)
-    wavefront_bwd_exp.launches += 1
+                                  raggedf, fwd, R=R, W=W, ND=ND, C=C,
+                                  spec=spec)
+    entry, out = _launch_bwd("wavefront_bwd_exp", scal, win, xf, yf, basef,
+                             widthf, seedf, raggedf, fwd, R, W, ND, C,
+                             with_exp=True, spec=spec)
+    _counted(entry)
     return out
 
-
-wavefront_bwd_exp.launches = 0
 
 
 def _tiles(ND, TD):
@@ -623,78 +758,62 @@ def _tiles(ND, TD):
     return ND // TD
 
 
+@_Wrapper
 def wavefront_fwd_tiled(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
-                        TD):
+                        TD, spec=StrawmanSpec):
     """Tiled forward over ND = NT * TD diagonals -> (fwd plane
-    [G, ND+1, 3, R, W], shifts [G, R, NT]) f32 (see
+    [G, ND+1, S, R, W], shifts [G, R, NT]) f32 (see
     ``forward_tiled_plain``).  Plain PyTorch for CPU tensors; the CUDA
-    kernel ``sm3_fwd_kernel<true>`` for CUDA tensors (replaces
+    kernel ``sm3_fwd_kernel<spec, true>`` for CUDA tensors (replaces
     cpecan_tpu/ops/pallas_fb.py:2304 _sm3_forward_kernel(tile=...), K6a)."""
-    NT = _tiles(ND, TD)
+    _tiles(ND, TD)
     if xf.device.type == "cpu":
         return forward_tiled_plain(scal, win, xf, yf, basef, widthf, R=R,
-                                   W=W, ND=ND, C=C, TD=TD)
-    if xf.device.type != "cuda":
-        raise ValueError(f"no wavefront kernel for device {xf.device}")
-    from .cuda_build import load_library
-
-    G, NDp, X, Y = _geometry(win, xf, yf, R, W, ND)
-    _check_cuda_inputs(dict(scal=scal, win=win, xf=xf, yf=yf, basef=basef,
-                            widthf=widthf), {"win": torch.int32}, xf.device)
-    lib = load_library()
-    fwd = torch.empty((G, ND + 1, StrawmanSpec.S, R, W), dtype=torch.float32,
-                      device=xf.device)
-    shifts = torch.empty((G, R, NT), dtype=torch.float32, device=xf.device)
-    stream = torch.cuda.current_stream(xf.device).cuda_stream
-    code = lib.wavefront_fwd_tiled(
-        _ptr(scal), _ptr(win), _ptr(xf), _ptr(yf), _ptr(basef),
-        _ptr(widthf), _ptr(fwd), _ptr(shifts), G, R, W, ND, NDp, X, C, Y, TD,
-        ctypes.c_void_p(stream))
-    _raise_on(code, lib, "wavefront_fwd_tiled")
-    wavefront_fwd_tiled.launches += 1
-    return fwd, shifts
+                                   W=W, ND=ND, C=C, TD=TD, spec=spec)
+    entry, out = _launch_fwd("wavefront_fwd_tiled", scal, win, xf, yf,
+                             basef, widthf, R, W, ND, C, spec, TD=TD)
+    _counted(entry)
+    return out
 
 
-wavefront_fwd_tiled.launches = 0
 
-
+@_Wrapper
 def wavefront_bwd_tiled(scal, win, xf, yf, basef, widthf, seedf, raggedf,
-                        fwd, shifts, *, R, W, ND, C, TD):
+                        fwd, shifts, *, R, W, ND, C, TD, spec=StrawmanSpec):
     """Tiled posterior backward over ND = NT * TD diagonals -> (posts
     [G, ND+1, R, W], totals [G, R]) f32 (see ``backward_tiled_plain``).
     Plain PyTorch for CPU tensors; the CUDA kernel
-    ``sm3_bwd_kernel<false, true>`` for CUDA tensors (replaces
+    ``sm3_bwd_kernel<spec, false, true>`` for CUDA tensors (replaces
     cpecan_tpu/ops/pallas_fb.py:2332 _sm3_backward_kernel(tile=...),
     K6b)."""
     NT = _tiles(ND, TD)
     if xf.device.type == "cpu":
         return backward_tiled_plain(scal, win, xf, yf, basef, widthf, seedf,
                                     raggedf, fwd, shifts, R=R, W=W, ND=ND,
-                                    C=C, TD=TD)
+                                    C=C, TD=TD, spec=spec)
     G = win.shape[0]
     if tuple(shifts.shape) != (G, R, NT):
         raise ValueError(f"shifts has shape {tuple(shifts.shape)}, expected "
                          f"{(G, R, NT)}")
-    out = _launch_bwd("wavefront_bwd_tiled", scal, win, xf, yf, basef,
-                      widthf, seedf, raggedf, fwd, R, W, ND, C,
-                      with_exp=False, shifts=shifts, TD=TD)
-    wavefront_bwd_tiled.launches += 1
+    entry, out = _launch_bwd("wavefront_bwd_tiled", scal, win, xf, yf, basef,
+                             widthf, seedf, raggedf, fwd, R, W, ND, C,
+                             with_exp=False, spec=spec, shifts=shifts, TD=TD)
+    _counted(entry)
     return out
 
 
-wavefront_bwd_tiled.launches = 0
-
 
 def _launch_bwd(name, scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
-                R, W, ND, C, with_exp, shifts=None, TD=None):
-    """Launch the backward kernel ``name`` of the library on CUDA tensors
-    (the tiled one with ``shifts`` and ``TD``); returns its outputs."""
+                R, W, ND, C, with_exp, spec, shifts=None, TD=None):
+    """Launch the backward kernel ``name`` + ``spec.SUFFIX`` of the library
+    on CUDA tensors (the tiled one with ``shifts`` and ``TD``); returns
+    (entry point, its outputs)."""
     if xf.device.type != "cuda":
         raise ValueError(f"no wavefront kernel for device {xf.device}")
     from .cuda_build import load_library
 
-    G, NDp, X, Y = _geometry(win, xf, yf, R, W, ND)
-    if tuple(fwd.shape) != (G, ND + 1, StrawmanSpec.S, R, W):
+    G, NDp, X, Y = _geometry(win, xf, yf, scal, R, W, ND, spec)
+    if tuple(fwd.shape) != (G, ND + 1, spec.S, R, W):
         raise ValueError(f"fwd plane has shape {tuple(fwd.shape)}")
     named = dict(scal=scal, win=win, xf=xf, yf=yf, basef=basef,
                  widthf=widthf, seedf=seedf, raggedf=raggedf, fwd=fwd)
@@ -708,21 +827,19 @@ def _launch_bwd(name, scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
 
     outs = [empty(G, ND + 1, R, W), empty(G, R)]
     if with_exp:
-        S = StrawmanSpec.S
-        outs += [empty(G, R, S * S), empty(G, 1, R, X)]
+        outs += [empty(G, R, spec.S * spec.S), empty(G, 1, R, X)]
     stream = torch.cuda.current_stream(xf.device).cuda_stream
+    entry = name + spec.SUFFIX
     args = [_ptr(v) for v in (*named.values(), *outs)]
     args += [G, R, W, ND, NDp, X, C, Y] + ([TD] if TD else [])
-    code = getattr(lib, name)(*args, ctypes.c_void_p(stream))
-    _raise_on(code, lib, name)
-    return tuple(outs)
+    code = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
+    _raise_on(code, lib, entry)
+    return entry, tuple(outs)
 
 
 def reset_counts():
     """Zero every launch and plain-call counter of this module."""
-    wavefront_fwd.launches = wavefront_bwd.launches = 0
-    wavefront_bwd_exp.launches = 0
-    wavefront_fwd_tiled.launches = wavefront_bwd_tiled.launches = 0
+    KERNEL_LAUNCHES.clear()
     forward_plain.calls = backward_plain.calls = 0
     backward_exp_plain.calls = 0
     forward_tiled_plain.calls = backward_tiled_plain.calls = 0

@@ -1,14 +1,21 @@
-"""Per-read feature inputs of the strawman wavefront kernels.
+"""Per-read feature inputs of the wavefront kernels.
 
-Host side (numpy): compact uploads, counterparts of ``pallas_fb.py``
-``_quantize_events`` (:1331), ``_base_codes`` (:1360) and
-``StrawmanPallasAligner._feature_inputs`` (:1509).
-
-Device side (torch): ``dequantize_events`` (``_dequantize_events`` :1352),
-``kx_from_codes`` (``_kx_from_codes`` :1376) and ``assemble_features``
+Strawman, host side (numpy): compact uploads, counterparts of
+``pallas_fb.py`` ``_quantize_events`` (:1331), ``_base_codes`` (:1360) and
+``StrawmanPallasAligner._feature_inputs`` (:1509).  Device side (torch):
+``dequantize_events`` (``_dequantize_events`` :1352), ``kx_from_codes``
+(``_kx_from_codes`` :1376) and ``assemble_features``
 (``StrawmanPallasAligner._assemble_fn`` :1525-1573), which gathers the
 per-x model rows ``xf`` [B, 9, X] and lays the events out flipped in ``yf``
 [B, 2, C+X+256].
+
+5-state DNA: ``dna5_feature_inputs`` (``Dna5PallasAligner._feature_inputs``
+:3106-3118) on the host; ``dna5_y_values`` (the host half of
+``_device_features`` :3154-3166) and ``assemble_dna5_features``
+(``_assemble_fn`` :3133-3152), which gathers ``xf`` [B, 6, X] (the match
+rows of each x base against y base 0..4, then the gap-X row) and lays the
+y side out flipped in ``yf`` [B, 2, C+X+256] (base index as a float, gap-Y
+emission).
 """
 
 import numpy as np
@@ -122,6 +129,52 @@ def assemble_features(codes, evq, evs, mm, gm, gapx, C, Y, sp=None):
                 for r in (lvl_mu, lvl_sd, nz_mu, nz_sd)]
     rows += [torch.where(valid, gm[safe, c], 0.0) for c in range(4)]
     rows += [torch.clamp(torch.where(valid, gapx[safe], NEG), min=NEG)]
+    xf = torch.stack(rows, dim=1).to(torch.float32)
+    B, E, _ = ev.shape
+    n = min(E, C + 1)  # y in [0, C] maps to column C - y >= 0
+    yf = torch.zeros((B, 2, Y), dtype=torch.float32, device=xf.device)
+    yf[:, :, C - n + 1:C + 1] = ev[:, :n, :].flip(1).transpose(1, 2)
+    return xf.contiguous(), yf
+
+
+def dna5_feature_inputs(reads, X):
+    """Host inputs of the dna5 features for reads (seq_x, seq_y, l_x, l_y,
+    anchors): x base indices ``bx`` [B, X] int16 (x at column 1 + i; N, the
+    x = 0 boundary and the padding = 4) and the y-side frame ``ydata``
+    [B, max l_y + 1, 2] f32 (zeros; ``dna5_y_values`` fills it)."""
+    B = len(reads)
+    bx = np.full((B, X), 4, dtype=np.int16)
+    max_y = max(r[3] for r in reads)
+    ev = np.zeros((B, max_y + 1, 2), np.float32)
+    for r, (seq_x, _seq_y, l_x, _l_y, _a) in enumerate(reads):
+        b = np.minimum(K.seq_to_base_indices(seq_x), 4)
+        bx[r, 1:1 + l_x] = b[:l_x]
+    return dict(bx=bx, ydata=ev, reads=list(reads))
+
+
+def dna5_y_values(ydata, reads, gapy5):
+    """The y side as (base index, gap-Y emission) pairs: a filled copy of
+    ``ydata``.  Column 0 holds (4.0, gapy5[4]) and column 1 + j y base j;
+    columns past a read's l_y keep (0.0, 0.0), so their match emission is
+    the A row (outside the band, masked), as in the JAX package."""
+    ev = ydata.copy()
+    ev[:, 0, 0] = 4.0
+    ev[:, 0, 1] = gapy5[4]
+    for r, (_sx, seq_y, _lx, l_y, _a) in enumerate(reads):
+        by = np.minimum(K.seq_to_base_indices(seq_y), 4)[:l_y]
+        ev[r, 1:1 + l_y, 0] = by
+        ev[r, 1:1 + l_y, 1] = gapy5[by]
+    return ev
+
+
+def assemble_dna5_features(bx, ev, match5, gapx5, C, Y):
+    """(xf [B, 6, X], yf [B, 2, Y]) f32 on the inputs' device from the x
+    base indices ``bx`` [B, X], the y values ``ev`` [B, E, 2]
+    (``dna5_y_values``) and the machine's ``match5`` [5, 5] and ``gapx5``
+    [5] tables."""
+    b = bx.to(torch.int64).clamp(0, 4)
+    rows = [match5[b, col] for col in range(5)]
+    rows.append(torch.clamp(gapx5[b], min=NEG))
     xf = torch.stack(rows, dim=1).to(torch.float32)
     B, E, _ = ev.shape
     n = min(E, C + 1)  # y in [0, C] maps to column C - y >= 0

@@ -46,6 +46,13 @@ within 1.4e-4 of the threshold, common scores within 2.08e-2 on the
 fixture read), and the port against the JAX tiled path on the CPU agrees
 within 3.9e-3.
 
+The 10 kb DNA pair (``fixtures.load_dna5_realign``, ~20,000 diagonals,
+tiled) is held to the same bars against the JAX tiled path's pairs, but
+against the f64 engine its common scores get LONG_DNA_ENGINE_SCORE_ATOL:
+the JAX tiled path itself drifts from the engine by up to 5.11e-2 there
+(14 one-sided pairs, all within 3.9e-4 of the threshold), largest near the
+start of the pair, where the f32 backward carries the whole pair's mass.
+
 Trained HMMs (Baum-Welch iterations from the same start): each iteration
 writes its HMM with six decimals (``%f``) and the next reads it back, so
 two runs that agree to ~1e-5 can round a value apart; the second
@@ -75,6 +82,7 @@ EXP_GAP_SUM_RTOL = 2e-3
 TRAIN_GAP_ATOL = 1e-4
 KERNEL_GAPX_ATOL = 1e-30
 LONG_SCORE_ATOL = 2.5e-2
+LONG_DNA_ENGINE_SCORE_ATOL = 6e-2
 TILED_POST_ATOL, TILED_TOTAL_ATOL = 1e-2, 5e-2
 
 
@@ -237,11 +245,12 @@ def check_pairs(got, want, got_out, want_out, read_idx, threshold):
     return len(set(gs) ^ set(ws))
 
 
-def check_long_pairs(got, want, threshold):
+def check_long_pairs(got, want, threshold, score_atol=LONG_SCORE_ATOL):
     """(score, x, y) rows of one long read against a stored set [N, 3]
-    (LONG_SCORE_ATOL, FRINGE by score); returns (pairs in one set only,
-    their largest distance from the threshold, the largest common-score
-    |d|), the last two in probability units."""
+    (common scores within ``score_atol``, one-sided pairs within FRINGE of
+    the threshold); returns (pairs in one set only, their largest distance
+    from the threshold, the largest common-score |d|), the last two in
+    probability units."""
     gs = {(int(x), int(y)): int(s) for s, x, y in np.asarray(got).tolist()}
     ws = {(int(x), int(y)): int(s) for s, x, y in np.asarray(want).tolist()}
     one = set(gs) ^ set(ws)
@@ -252,7 +261,7 @@ def check_long_pairs(got, want, threshold):
                              f"{fringe:.3g} from the threshold")
     common = max((abs(gs[k] - ws[k]) / PAIR_ALIGNMENT_PROB_1
                   for k in set(gs) & set(ws)), default=0.0)
-    if common > LONG_SCORE_ATOL:
+    if common > score_atol:
         raise AssertionError(f"common pair scores differ by {common:.3g}")
     return len(one), fringe, common
 

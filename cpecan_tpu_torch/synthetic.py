@@ -1,9 +1,17 @@
-"""Synthetic signal reads at realistic scale, made from a seed.
+"""Synthetic reads at realistic scale, made from a seed.
 
-``synthetic_batch`` is the counterpart of
+Signal: ``synthetic_batch`` is the counterpart of
 ``__graft_entry__._synthetic_batch`` and ``long_signal_read`` of
 ``tools/exp_long_events.py::synth_read``: the same numpy rng call
-sequences, so both packages get byte-identical reads for the same seed."""
+sequences, so both packages get byte-identical reads for the same seed.
+
+DNA: ``synth_dna_pair`` is ``tools/exp_long_read.py::synth_dna_pair`` (the
+100 kb pair of bench.py's ``long_read_bases_per_sec``), and
+``dna_realign_batch`` the 64 x 2 kb pairs of bench.py's
+``dna_realign_alignments_per_sec`` (``bench_dna_realign``), with their
+cigars for the realign CLI."""
+
+import random
 
 import numpy as np
 
@@ -88,3 +96,67 @@ def long_signal_read(l_x=10000, l_y=17000, seed=11):
     anchors = [(x, int(x * l_y / l_x))
                for x in range(20, l_x - 20, ANCHOR_STEP)]
     return model, (ref, ev, l_x, l_y, anchors)
+
+
+BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def synth_dna_pair(rng, l_ref, sub=0.07, indel=0.05, anchor_step=64):
+    """A mutated copy of a random reference plus dense exact anchors
+    (every ~anchor_step bases, jittered like a lastz chain would be):
+    (seq_x, seq_y, l_x, l_y, anchors) from the numpy generator ``rng``."""
+    x = rng.integers(0, 4, l_ref)
+    keep = rng.random(l_ref) >= indel / 2          # deletions
+    y_parts = []
+    sub_mask = rng.random(l_ref) < sub
+    y_base = np.where(sub_mask, rng.integers(0, 4, l_ref), x)
+    # insertions: after ~indel/2 of positions, one random base
+    ins_mask = rng.random(l_ref) < indel / 2
+    pos_y = np.zeros(l_ref, np.int64)              # y coord of each kept x
+    yi = 0
+    for i in range(l_ref):
+        if keep[i]:
+            y_parts.append(y_base[i])
+            pos_y[i] = yi
+            yi += 1
+        else:
+            pos_y[i] = yi
+        if ins_mask[i]:
+            y_parts.append(rng.integers(0, 4))
+            yi += 1
+    y = np.array(y_parts)
+    sx = BASES[x].tobytes().decode()
+    sy = BASES[y].tobytes().decode()
+    anchors, px = [], -1
+    for i in range(anchor_step, l_ref - anchor_step, anchor_step):
+        j = int(pos_y[i])
+        if i > px and 0 < j < len(y) - 1:
+            anchors.append((i, j))
+            px = i
+    return sx, sy, len(sx), len(sy), anchors
+
+
+def dna_realign_batch(n_pairs=64, length=2000, seed=11):
+    """bench.py's realign workload: ``n_pairs`` pairs of ``length`` random
+    bases and a copy with ~9% substitutions (no indels) from
+    ``random.Random(seed)``, anchored every 50 bases: reads (seq_x, seq_y,
+    l_x, l_y, anchors)."""
+    rng = random.Random(seed)
+    reads = []
+    for _ in range(n_pairs):
+        sx = "".join(rng.choice("ACGT") for _ in range(length))
+        sy = "".join(c if rng.random() > 0.12 else rng.choice("ACGT")
+                     for c in sx)
+        anchors = [(j, j) for j in range(40, length - 40, 50)]
+        reads.append((sx, sy, length, len(sy), anchors))
+    return reads
+
+
+def realign_inputs(reads):
+    """(fasta text, cigar lines) that hand ``reads`` to the realign CLI:
+    pair i as sequences x<i> and y<i> and one gapless cigar over both."""
+    fasta, cigars = [], []
+    for i, (sx, sy, l_x, l_y, _a) in enumerate(reads):
+        fasta.append(f">x{i}\n{sx}\n>y{i}\n{sy}\n")
+        cigars.append(f"cigar: y{i} 0 {l_y} + x{i} 0 {l_x} + 0 M {l_x}")
+    return "".join(fasta), cigars

@@ -13,21 +13,24 @@ import pytest
 import torch
 
 from cpecan_tpu_torch.align import AlignmentParams
-from cpecan_tpu_torch.fixtures import (load_long_read, load_zymo_slice,
-                                       load_zymo_train, zymo_trained_params)
-from cpecan_tpu_torch.models.state_machines import \
-    StateMachine3SignalStrawman
+from cpecan_tpu_torch.fixtures import (load_dna5_realign, load_long_read,
+                                       load_zymo_slice, load_zymo_train,
+                                       zymo_trained_params)
+from cpecan_tpu_torch.models.state_machines import (
+    StateMachine3SignalStrawman, StateMachine5)
 from cpecan_tpu_torch.ops import fb_kernels as fk
-from cpecan_tpu_torch.ops.compact import (extract_pairs_auto,
+from cpecan_tpu_torch.ops.compact import (compact_posteriors,
+                                          extract_pairs_auto,
                                           extract_pairs_chunk)
-from cpecan_tpu_torch.ops.fb import StrawmanAligner
-from cpecan_tpu_torch.parity import (band_mask, check_exp_kernel,
+from cpecan_tpu_torch.ops.fb import Dna5Aligner, StrawmanAligner
+from cpecan_tpu_torch.parity import (LONG_DNA_ENGINE_SCORE_ATOL, band_mask,
+                                     check_exp_kernel,
                                      check_expectations, check_fwd,
                                      check_long_pairs, check_pairs,
                                      check_posts, check_tiled, check_totals,
                                      check_trained)
 from cpecan_tpu_torch.pipeline.train_models import TrainOptions, train
-from cpecan_tpu_torch.synthetic import synthetic_batch
+from cpecan_tpu_torch.synthetic import dna_realign_batch, synthetic_batch
 
 pytestmark = pytest.mark.gpu
 
@@ -227,3 +230,114 @@ def test_cuda_long_read_matches_fixture(cuda):
                              as_array=True)
     check_long_pairs(got, stored["tiled_pairs"], thr)
     check_long_pairs(got, stored["engine_pairs"], thr)
+
+
+@pytest.fixture(scope="module")
+def dna5_batch():
+    # 8 realign pairs of 600 bases (bench.py's generator, cut short)
+    return dna_realign_batch(n_pairs=8, length=600)
+
+
+def _dna5_inputs(cuda, reads, ragged, tile_diag=None):
+    pa = Dna5Aligner(device=cuda, group=8)
+    sm = StateMachine5()
+    prep = pa.prepare(sm, reads, ragged_right=ragged, tile_diag=tile_diag)
+    inp = pa.device_inputs(sm, prep, ragged_left=ragged)
+    nd = prep["tiled"]["NDT"] if tile_diag else prep["ND"]
+    dims = dict(R=prep["R"], W=prep["W"], ND=nd, C=prep["C"],
+                spec=fk.Dna5Spec)
+    return prep, inp, dims
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_cuda_dna5_kernels_match_plain(dna5_batch, cuda, ragged):
+    """K1/K2 for dna5 against their plain versions on the same card
+    inputs: fwd plane, posteriors and totals equal bit for bit, and so the
+    pair sets."""
+    prep, inp, dims = _dna5_inputs(cuda, dna5_batch, ragged)
+    fk.reset_counts()
+    fwd = _fwd(inp, dims, fk.wavefront_fwd)
+    posts, totals = _bwd(inp, dims, fwd, fk.wavefront_bwd)
+    torch.cuda.synchronize()
+    assert fk.KERNEL_LAUNCHES == {"wavefront_fwd_dna5": 1,
+                                  "wavefront_bwd_dna5": 1}
+    assert fk.forward_plain.calls == fk.backward_plain.calls == 0
+    assert torch.equal(fwd, _fwd(inp, dims, fk.forward_plain))
+    pposts, ptotals = _bwd(inp, dims, fwd, fk.backward_plain)
+    assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
+    thr = AlignmentParams().threshold
+    nds = [b.n_diag for b in prep["bands"]]
+    parts = [extract_pairs_chunk(dict(prep=prep, posteriors=p,
+                                      compact=compact_posteriors(p, 2048)),
+                                 list(range(len(nds))), nds, thr)
+             for p in (posts, pposts)]
+    for a, b in zip(*parts):
+        assert np.array_equal(a, b) and len(a) > 500
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_cuda_dna5_tiled_kernels_match_plain(dna5_batch, cuda, ragged):
+    """K6a/K6b for dna5 against their plain versions with tiles of 128
+    diagonals: fwd plane, shifts, posteriors and totals bit for bit."""
+    prep, inp, dims = _dna5_inputs(cuda, dna5_batch, ragged, tile_diag=128)
+    TD = prep["tiled"]["TD"]
+    fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
+    ba = fa + [inp["seedf"], inp["raggedf"]]
+    fk.reset_counts()
+    fwd, shifts = fk.wavefront_fwd_tiled(*fa, **dims, TD=TD)
+    posts, totals = fk.wavefront_bwd_tiled(*ba, fwd, shifts, **dims, TD=TD)
+    torch.cuda.synchronize()
+    assert fk.KERNEL_LAUNCHES == {"wavefront_fwd_tiled_dna5": 1,
+                                  "wavefront_bwd_tiled_dna5": 1}
+    pfwd, pshifts = fk.forward_tiled_plain(*fa, **dims, TD=TD)
+    assert torch.equal(fwd, pfwd) and torch.equal(shifts, pshifts)
+    assert torch.all(shifts[..., 1:] != 0.0)
+    pposts, ptotals = fk.backward_tiled_plain(*ba, fwd, shifts, **dims,
+                                              TD=TD)
+    assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
+
+
+def test_cuda_dna5_golden_pairs(cuda):
+    """The reference golden case AGCG x AGTTCG at threshold 0.2."""
+    params = AlignmentParams(threshold=0.2)
+    out = Dna5Aligner(params, device=cuda, group=8).run(
+        StateMachine5(), [("AGCG", "AGTTCG", 4, 6, [])])
+    got = extract_pairs_auto(out, 0, out["prep"]["bands"][0].n_diag, 0.2)
+    assert {(x, y) for _, x, y in got} == {(0, 0), (1, 1), (2, 4), (3, 5)}
+
+
+def test_cuda_dna5_long_pair_matches_fixture(cuda):
+    """The 10 kb pair (~20,000 diagonals) routes tiled on the card by
+    itself and its pairs meet the JAX tiled path's and the f64 engine's."""
+    _, _, pair, stored = load_dna5_realign()
+    thr = AlignmentParams().threshold
+    fk.reset_counts()
+    out = Dna5Aligner(device=cuda, group=8).run(StateMachine5(), [pair])
+    assert fk.KERNEL_LAUNCHES == {"wavefront_fwd_tiled_dna5": 1,
+                                  "wavefront_bwd_tiled_dna5": 1}
+    got = extract_pairs_auto(out, 0, out["prep"]["bands"][0].n_diag, thr,
+                             as_array=True)
+    check_long_pairs(got, stored["tiled_pairs"], thr)
+    check_long_pairs(got, stored["engine_pairs"], thr,
+                     score_atol=LONG_DNA_ENGINE_SCORE_ATOL)
+
+
+def test_cuda_realign_cli_matches_fixture(cuda, tmp_path):
+    """The realign CLI on the card: at least 7 of the 8 stored pairs' cigars
+    equal the JAX CLI's --engine pallas output (the JAX CLI test's bar)."""
+    import io
+
+    from cpecan_tpu_torch.cli.realign import main
+
+    fasta, cigars, _, stored = load_dna5_realign()
+    path = tmp_path / "realign.fa"
+    path.write_text(fasta)
+    out = io.StringIO()
+    fk.reset_counts()
+    main([str(path)], stdin=io.StringIO("\n".join(cigars) + "\n"),
+         stdout=out)
+    assert fk.KERNEL_LAUNCHES["wavefront_fwd_dna5"] == 1
+    got = out.getvalue().splitlines()
+    want = [str(c) for c in stored["cigars_out"]]
+    assert len(got) == len(want)
+    assert sum(a == b for a, b in zip(got, want)) >= len(want) - 1

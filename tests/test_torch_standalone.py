@@ -24,8 +24,10 @@ from cpecan_tpu.io import npread as j_npread
 from cpecan_tpu.io import poremodel as j_poremodel
 from cpecan_tpu.models import hmm as j_hmm
 from cpecan_tpu.models import kmers as j_kmers
+from cpecan_tpu.msa import multiple_aligner as j_msa
 from cpecan_tpu.ops import anchors as j_anchors
 from cpecan_tpu.ops import band as j_band
+from cpecan_tpu.ops import reweight as j_reweight
 from cpecan_tpu.utils import checkpoint as j_checkpoint
 
 import cpecan_tpu_torch.cli.batch as t_batch
@@ -37,9 +39,12 @@ from cpecan_tpu_torch.io import npread as t_npread
 from cpecan_tpu_torch.io import poremodel as t_poremodel
 from cpecan_tpu_torch.models import hmm as t_hmm
 from cpecan_tpu_torch.models import kmers as t_kmers
+from cpecan_tpu_torch.msa import multiple_aligner as t_msa
 from cpecan_tpu_torch.ops import anchors as t_anchors
 from cpecan_tpu_torch.ops import band as t_band
-from cpecan_tpu_torch.ops.fb import StrawmanAligner
+from cpecan_tpu_torch.ops import reweight as t_reweight
+from cpecan_tpu_torch.ops.fb import Dna5Aligner, StrawmanAligner
+from cpecan_tpu_torch.synthetic import synth_dna_pair
 from cpecan_tpu_torch.utils import checkpoint as t_checkpoint
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -92,6 +97,13 @@ def test_aligner_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         StrawmanAligner()
+
+
+def test_dna5_aligner_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        Dna5Aligner()
+    assert Dna5Aligner(device="cpu").group == 32
 
 
 def _bands():
@@ -250,10 +262,113 @@ def case_constants_and_fixture_paths():
         assert t_fixtures.fixture_path(name) == j_fixtures.fixture_path(name)
 
 
+def _posterior_pairs(seed, l_x, l_y):
+    """Aligned pairs (score, x, y) scattered around the diagonal, some
+    crossing: what a realign run hands the reweight and filter steps."""
+    rng = np.random.default_rng(seed)
+    pairs = set()
+    for x in range(l_x):
+        for y in (x - 1, x, x + 1, x + int(rng.integers(-6, 7))):
+            if 0 <= y < l_y and rng.random() < 0.6:
+                pairs.add((int(rng.integers(10 ** 5, 10 ** 7)), x, y))
+    return sorted(pairs, key=lambda t: (t[1], t[2]))
+
+
+def case_reweight():
+    pairs = _posterior_pairs(1, 120, 110)
+    for gamma in (0.0, 0.5, 2.0):
+        assert t_reweight.reweight_aligned_pairs_2(pairs, 120, 110, gamma) \
+            == j_reweight.reweight_aligned_pairs_2(pairs, 120, 110, gamma)
+
+
+def case_multiple_aligner():
+    import random
+
+    seq_x = "".join(np.random.default_rng(2).choice(list("ACGT"), 90))
+    seq_y = seq_x[:40] + "GG" + seq_x[40:85]
+    pairs = j_reweight.reweight_aligned_pairs_2(
+        _posterior_pairs(2, 90, 87), 90, 87, 0.5)
+    for gamma in (0.0, 0.3, 0.85):
+        got = t_msa.filter_pairwise_alignment_to_make_pairs_ordered(
+            pairs, seq_x, seq_y, gamma, rng=random.Random(4))
+        want = j_msa.filter_pairwise_alignment_to_make_pairs_ordered(
+            pairs, seq_x, seq_y, gamma, rng=random.Random(4))
+        assert got == want
+        assert got == t_msa.filter_pairwise_alignment_to_make_pairs_ordered(
+            pairs, seq_x, seq_y, gamma)
+    assert 0 < len(got) < len(pairs)
+
+
+def case_cigar_io():
+    text = ("cigar: y0 0 10 + x0 3 12 + 5.5 M 4 I 1 M 5\n"
+            "# a comment\n"
+            "cigar: y1 9 0 - x1 0 10 + 0 M 3 D 1 M 7\n")
+    got = list(t_cigar.cigar_read_stream(io.StringIO(text)))
+    want = list(j_cigar.cigar_read_stream(io.StringIO(text)))
+    assert [dataclasses.asdict(a) for a in got] == \
+        [dataclasses.asdict(a) for a in want]
+    assert [t_cigar.cigar_write(a) for a in got] == \
+        [j_cigar.cigar_write(a) for a in want]
+    for mod in (t_cigar, j_cigar):
+        mod.check_pairwise_alignment(got[0])
+        with pytest.raises(ValueError, match="do not match"):
+            mod.check_pairwise_alignment(got[1])
+
+
+def case_fasta_io(tmp_path):
+    paths = [tmp_path / "a.fa", tmp_path / "b.fa"]
+    paths[0].write_text(">s1 first\nACGT\nAC\n\n>s2\nGGG\n")
+    paths[1].write_text(">s1 longer\nACGTACGT\n>s3\nT\n")
+    with open(paths[0]) as fh:
+        got = list(t_fasta.read_fasta(fh))
+    with open(paths[0]) as fh:
+        assert got == list(j_fasta.read_fasta(fh))
+    assert t_fasta.sequences_from_fastas([str(p) for p in paths]) == \
+        j_fasta.sequences_from_fastas([str(p) for p in paths])
+
+
+def case_hmm_discrete(tmp_path):
+    for type_ in (j_hmm.TYPE_FIVE_STATE, j_hmm.TYPE_FIVE_STATE_ASYMMETRIC):
+        hmm = j_hmm.HmmDiscrete(5, 4, type_=type_)
+        hmm.randomize(np.random.default_rng(type_))
+        path = tmp_path / f"h{type_}.hmm"
+        with open(path, "w") as fh:
+            hmm.write(fh)
+        got, want = (mod.HmmDiscrete.load(str(path)) for mod in (t_hmm,
+                                                                 j_hmm))
+        for h in (got, want):
+            h.normalize()
+        np.testing.assert_array_equal(got.transitions, want.transitions)
+        np.testing.assert_array_equal(got.emissions, want.emissions)
+        for g, w in zip(got.to_sm5_params_symmetric(),
+                        want.to_sm5_params_symmetric()):
+            np.testing.assert_array_equal(np.asarray(list(g.values()) if
+                                                     isinstance(g, dict)
+                                                     else g),
+                                          np.asarray(list(w.values()) if
+                                                     isinstance(w, dict)
+                                                     else w))
+        assert t_hmm.sm5_from_hmm(got).p == j_hmm.sm5_from_hmm(want).p
+    got.type = j_hmm.TYPE_THREE_STATE
+    with pytest.raises(ValueError, match="cannot be loaded"):
+        t_hmm.sm5_from_hmm(got)
+
+
+def case_synth_dna_pair():
+    sys.path.insert(0, str(REPO / "tools"))
+    from exp_long_read import synth_dna_pair as tool_pair
+
+    for seed, n in ((7, 3000), (1, 500)):
+        assert synth_dna_pair(np.random.default_rng(seed), n) == \
+            tool_pair(np.random.default_rng(seed), n)
+
+
 CASES = {f.__name__[5:]: f for f in (
     case_make_bands, case_cigar, case_load_guides, case_npread,
     case_pore_model, case_hmm_round_trip, case_kmers, case_anchors,
-    case_checkpoint, case_constants_and_fixture_paths)}
+    case_checkpoint, case_constants_and_fixture_paths, case_reweight,
+    case_multiple_aligner, case_cigar_io, case_fasta_io, case_hmm_discrete,
+    case_synth_dna_pair)}
 
 
 @pytest.mark.parametrize("name", list(CASES))
