@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ and drives the strawman signal-alignment
-paths and the 5-state DNA realigner through them:
+paths, the 5-state DNA realigner and cPecanEm (DNA Baum-Welch) through
+them:
 
 1. versions, the card's name and power limit;
 2. the kernel build (nvcc, ptxas register report);
@@ -40,8 +41,11 @@ paths and the 5-state DNA realigner through them:
 12. the long-read path at full width: 64 such reads (seeds 11..74), group
    8, compact_k=4096, through run and extract_pairs_chunk: bases/s and
    alignments/s end to end (median of 3 after a warm-up), a stage split,
-   peak device memory and the launch counts; then K6a/K6b against their
-   plain versions on its inputs (bit for bit) and their ms per launch;
+   peak device memory, the launch counts and K6a/K6b ms per launch; then
+   K6a/K6b against their plain versions at that run's R, W and TD on one
+   1,500 x 2,550 read of the same generator (two tiles): fwd plane,
+   shifts, posteriors and totals bit for bit, equal pairs, and the
+   kernels' and plain versions' ms on it;
 13. the dna5 kernels (K1, K2, K6a, K6b for the 5-state DNA machine)
    against their plain versions on the first 32 pairs of bench.py's realign
    batch (64 x 2 kb, random.Random(11); group 32, ragged at both ends),
@@ -67,11 +71,27 @@ paths and the 5-state DNA realigner through them:
    against their plain versions at that run's geometry (G 1, R 8, W 128,
    TD 2048) on a 2 kb pair of the same generator (two tiles): fwd plane,
    shifts, posteriors and totals equal bit for bit, equal pairs, and the
-   kernels' and plain versions' ms on it.
+   kernels' and plain versions' ms on it;
+17. the dna5 expectation backward (K3 for the 5-state machine) against its
+   plain version on the first 32 alignments of bench.py's cPecanEm E-step
+   batch (128 x 1 kb, random.Random(3); group 32, ragged at both ends),
+   with the default machine and with the equalised fiveState start: fwd
+   planes, posteriors, totals and the 25 transition lanes equal bit for
+   bit, the 20 per-column accumulators within parity.KERNEL_GAPX_ATOL, the
+   finalized expectations of both, and their times;
+18. cPecanEm at full width: bench.py's dna_em_estep_alignments_per_sec (the
+   128 alignments, one shard, chunks of 64; median of 3 after a warm-up),
+   the E-step's stage split and one 64-pair chunk's kernel ms; three
+   expectation_maximisation iterations over one default-size shard (1,000
+   x 1 kb alignments of the same generator): s per iteration, the
+   likelihood rising, peak device memory and the launch counts; the
+   fixture case (tests/fixtures/dna5_em.npz) against the JAX package's
+   stored engine="pallas" models; cpecan-torch-em end to end on the card
+   (the fixture case against the stored model, the 128 alignments timed).
 
-The stage splits run the path's own code (``WavefrontAligner.run`` and
-``cli.realign.main`` take a ``stage`` hook), each step ended by a
-synchronize.
+The stage splits run the path's own code (``WavefrontAligner.run``,
+``cli.realign.main`` and ``pipeline.em.calculate_expectations_pallas``
+take a ``stage`` hook), each step ended by a synchronize.
 
 Each path's launch counts are read from a run that starts with every
 count at 0.  Any failed check raises (exit code != 0).  The last three
@@ -81,10 +101,12 @@ limit, and {"ok": true, "device": ...}.  Exits with 2 and prints no
 result when no CUDA device is present.
 """
 
+import contextlib
 import importlib.metadata
 import io
 import json
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -106,6 +128,7 @@ TILE_CHECK = 128     # phase 10's tile: 14 tiles over the bench chunk
 LONG_READS = 64      # phase 12: seeds 11 .. 74
 LONG_GROUP = 8
 LONG_COMPACT_K = 4096
+LONG_CHECK = (1500, 2550)  # phase 12: the read held against plain (2 tiles)
 DEVICE = "cuda"
 # H100 SXM data-sheet peaks (dense, 700 W): the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
@@ -116,15 +139,20 @@ F32_FLOPS_PER_S = 67e12
 # and posterior 211, the expectation targets 110 more.  Dna5: the match
 # emission 14 (five compares, five selects, four adds), eight log_adds and
 # 18 adds per update (322), the band mask 3 and the backward's seed
-# selects and posterior 10
+# selects and posterior 10; the dna5 expectation target 135 more (the
+# match emission 14, 13 probabilities of 5 each, 5 adds, 13 sums of 2, the
+# band mask 3, four y-base compares, the state masses 8, five column adds
+# of 2)
 FLOPS_PER_CELL = dict(fwd=240, bwd=245, bwd_exp=355, dna5_fwd=339,
-                      dna5_bwd=349)
+                      dna5_bwd=349, dna5_bwd_exp=484)
 DNA_GROUP = 32       # phases 13-15: bench.py's realign chunk and group
 DNA_COMPACT_K = 4096
 DNA_LONG = 100_000   # phase 16: bench.py's long_read_bases_per_sec pair
 DNA_LONG_COMPACT_K = 2048
 DNA_LONG_TILE = 2048
 DNA_CHECK = 2_000    # phase 16: the pair held against plain at that geometry
+EM_DNA_GROUP = 32    # phases 17-18: bench.py's bench_dna_em group
+EM_DNA_SHARD = 1000  # phase 18: one default-size shard of 1 kb alignments
 GOLDEN = {(0, 0), (1, 1), (2, 4), (3, 5)}
 
 
@@ -210,9 +238,12 @@ def main():
 
     from cpecan_tpu_torch.align import AlignmentParams
     from cpecan_tpu_torch.cli import realign
-    from cpecan_tpu_torch.fixtures import (load_dna5_realign, load_long_read,
-                                           load_zymo_slice, load_zymo_train,
+    from cpecan_tpu_torch.cli.batch import em_main
+    from cpecan_tpu_torch.fixtures import (load_dna5_em, load_dna5_realign,
+                                           load_long_read, load_zymo_slice,
+                                           load_zymo_train,
                                            zymo_trained_params)
+    from cpecan_tpu_torch.io.cigar import cigar_write
     from cpecan_tpu_torch.models.state_machines import (
         StateMachine3SignalStrawman, StateMachine5)
     from cpecan_tpu_torch.ops import fb_kernels as fk
@@ -225,16 +256,19 @@ def main():
     from cpecan_tpu_torch.ops.compact import host_array
     from cpecan_tpu_torch.ops.fb import (Dna5Aligner, StrawmanAligner,
                                          exp_dispatch, exp_finalize)
-    from cpecan_tpu_torch.parity import (LONG_DNA_ENGINE_SCORE_ATOL,
-                                         band_mask, check_exp_kernel,
+    from cpecan_tpu_torch.parity import (KERNEL_GAPX_ATOL,
+                                         LONG_DNA_ENGINE_SCORE_ATOL,
+                                         band_mask, check_em,
+                                         check_exp_kernel,
                                          check_expectations, check_fwd,
                                          check_long_pairs, check_pairs,
                                          check_posts, check_tiled,
                                          check_tiled_pairs, check_totals,
                                          check_trained)
+    from cpecan_tpu_torch.pipeline import em
     from cpecan_tpu_torch.pipeline.train_models import (
         TrainOptions, add_and_norm_expectations, strand_expectations, train)
-    from cpecan_tpu_torch.synthetic import (dna_realign_batch,
+    from cpecan_tpu_torch.synthetic import (dna_em_batch, dna_realign_batch,
                                             long_signal_read, realign_inputs,
                                             synth_dna_pair, synthetic_batch)
 
@@ -679,43 +713,80 @@ def main():
     lst("extract", lambda: extract_pairs_chunk(
         sout, list(range(len(snd))), snd, thr))
     log("long path stages (s, share): " + lst.line())
-    sprep, sinp = lst.out["prepare"], lst.out["inputs"]
-    stl = sprep["tiled"]
-    sd = dict(R=sprep["R"], W=sprep["W"], ND=stl["NDT"], C=sprep["C"],
-              TD=stl["TD"])
-    sa = [sinp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
-    sb = sa + [sinp["seedf"], sinp["raggedf"]]
+
+    def tiled_args(st, spec=fk.StrawmanSpec):
+        """(fwd args, bwd args, dims, prep) of a staged tiled run."""
+        prep, inp = st.out["prepare"], st.out["inputs"]
+        tl = prep["tiled"]
+        dims = dict(R=prep["R"], W=prep["W"], ND=tl["NDT"], C=prep["C"],
+                    TD=tl["TD"], spec=spec)
+        fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
+        return fa, fa + [inp["seedf"], inp["raggedf"]], dims, prep
+
+    sa, sb, sd, sprep = tiled_args(lst)
     (sfwd, ssh), (sposts, stot) = lst.out["fwd_tiled"], lst.out["bwd_tiled"]
     del lst, sout
-    # K6a/K6b against their plain versions on the main path's inputs
-    (pfwd, psh), ms["fwd_long_plain"] = timed(
-        lambda: fk.forward_tiled_plain(*sa, **sd))
-    same("K6a fwd plane (long path)", sfwd, pfwd)
-    same("K6a shifts (long path)", ssh, psh)
-    del pfwd
-    (pposts, ptot), ms["bwd_long_plain"] = timed(
-        lambda: fk.backward_tiled_plain(*sb, sfwd, ssh, **sd))
-    same("K6b posteriors (long path)", sposts, pposts)
-    same("K6b totals (long path)", stot, ptot)
-    del pposts
     ms.update(
-        fwd_long=cuda_ms(lambda: fk.wavefront_fwd_tiled(*sa, **sd), 3),
-        bwd_long=cuda_ms(lambda: fk.wavefront_bwd_tiled(
+        fwd_long_main=cuda_ms(lambda: fk.wavefront_fwd_tiled(*sa, **sd), 3),
+        bwd_long_main=cuda_ms(lambda: fk.wavefront_bwd_tiled(
             *sb, sfwd, ssh, **sd), 3))
     long_cells = sum(int(b.width.sum()) for b in sprep["bands"])
-    bounds.update(
-        fwd_long=bound(sa + [sfwd, ssh], long_cells, FLOPS_PER_CELL["fwd"]),
-        bwd_long=bound(sb + [sfwd, ssh, sposts, stot], long_cells,
-                       FLOPS_PER_CELL["bwd"]))
+    lgeom = (sd["R"], sd["W"], sd["TD"])
     log(f"long path kernels ({LONG_READS} reads, G={len(sprep['win'])}, "
-        f"NDT={stl['NDT']}, W={sd['W']}, {long_cells} band cells): "
-        f"K6a {ms['fwd_long']:.3f} ms, K6b {ms['bwd_long']:.3f} ms per "
-        f"launch, equal to their plain versions bit for bit (plain "
-        f"{ms['fwd_long_plain']:.1f} / {ms['bwd_long_plain']:.1f} ms); "
-        f"bounds K6a {bounds['fwd_long'][0]:.4f} ms "
-        f"({bounds['fwd_long'][1]}), K6b {bounds['bwd_long'][0]:.4f} ms "
-        f"({bounds['bwd_long'][1]})")
-    del sfwd, sposts
+        f"NDT={sd['ND']}, W={sd['W']}, {long_cells} band cells): "
+        f"K6a {ms['fwd_long_main']:.3f} ms, K6b {ms['bwd_long_main']:.3f} "
+        f"ms per launch")
+    del sfwd, sposts, sa, sb
+    torch.cuda.synchronize()
+    # K6a/K6b against their plain versions at the main path's R, W and TD
+    # on one shorter read of the same generator (two tiles; the main
+    # path's 64 reads would take ~6 minutes of plain passes).  The kernels
+    # line takes these kernels' ms, plain ms, bound and error from this
+    # check, all on its inputs
+    cread = long_signal_read(LONG_CHECK[0], LONG_CHECK[1], 11)[1]
+    cst = Stages()
+    cout = la.run(lsm, [cread], compact_k=LONG_COMPACT_K,
+                  tile_diag=sd["TD"], stage=cst)
+    ca, cb, cd, cprep = tiled_args(cst)
+    (cfwd, csh), (cposts, ctot) = cst.out["fwd_tiled"], cst.out["bwd_tiled"]
+    del cst
+    if (cd["R"], cd["W"], cd["TD"]) != lgeom:
+        raise AssertionError(f"the check read's R, W, TD differ from the "
+                             f"long path's {lgeom}")
+    (pfwd, psh), ms["fwd_long_plain"] = timed(
+        lambda: fk.forward_tiled_plain(*ca, **cd))
+    (pposts, ptot), ms["bwd_long_plain"] = timed(
+        lambda: fk.backward_tiled_plain(*cb, cfwd, csh, **cd))
+    for what, got, want in (("K6a fwd plane (check read)", cfwd, pfwd),
+                            ("K6a shifts (check read)", csh, psh),
+                            ("K6b posteriors (check read)", cposts, pposts),
+                            ("K6b totals (check read)", ctot, ptot)):
+        same(what, got, want)
+    cnd = cprep["bands"][0].n_diag
+    cpairs = [extract_pairs_long(dict(cout, posteriors=p, compact_chunks=(
+        compact_chunks(p, cout["tiled"]["DC"], min(
+            LONG_COMPACT_K, cout["tiled"]["DC"] * cd["W"])))), 0, cnd, thr,
+        as_array=True) for p in (cposts, pposts)]
+    if not np.array_equal(*cpairs) or len(cpairs[0]) < cread[2]:
+        raise AssertionError("the long check read: kernel and plain planes "
+                             "give different pairs")
+    ms.update(
+        fwd_long=cuda_ms(lambda: fk.wavefront_fwd_tiled(*ca, **cd), 3),
+        bwd_long=cuda_ms(lambda: fk.wavefront_bwd_tiled(
+            *cb, cfwd, csh, **cd), 3))
+    ccells = sum(int(b.width.sum()) for b in cprep["bands"])
+    bounds.update(
+        fwd_long=bound(ca + [cfwd, csh], ccells, FLOPS_PER_CELL["fwd"]),
+        bwd_long=bound(cb + [cfwd, csh, cposts, ctot], ccells,
+                       FLOPS_PER_CELL["bwd"]))
+    log(f"long path kernels vs plain (a {cread[2]} x {cread[3]} read, "
+        f"{cout['tiled']}, R={cd['R']}, W={cd['W']}): fwd plane, shifts, "
+        f"posts, totals equal bit for bit, {len(cpairs[0])} pairs equal; "
+        f"K6a {ms['fwd_long']:.3f} ms vs plain {ms['fwd_long_plain']:.1f}, "
+        f"K6b {ms['bwd_long']:.3f} ms vs plain {ms['bwd_long_plain']:.1f}; "
+        f"bounds {bounds['fwd_long'][0]:.4f} / {bounds['bwd_long'][0]:.4f} "
+        f"ms ({bounds['fwd_long'][1]})")
+    del cout, cfwd, pfwd, cposts, pposts
     torch.cuda.synchronize()
 
     # -- 13. the dna5 kernels vs plain on the first 32 realign pairs ------
@@ -984,16 +1055,7 @@ def main():
     log("long DNA stages (s, share): " + bst.line())
     del bout_
 
-    def tiled_args(st):
-        """(fwd args, bwd args, dims, prep) of a staged tiled run."""
-        prep, inp = st.out["prepare"], st.out["inputs"]
-        tl = prep["tiled"]
-        dims = dict(R=prep["R"], W=prep["W"], ND=tl["NDT"], C=prep["C"],
-                    TD=tl["TD"], spec=fk.Dna5Spec)
-        fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
-        return fa, fa + [inp["seedf"], inp["raggedf"]], dims, prep
-
-    bfa, bba, bd, bprep = tiled_args(bst)
+    bfa, bba, bd, bprep = tiled_args(bst, fk.Dna5Spec)
     (bfwd, bsh), (bposts, btot) = bst.out["fwd_tiled"], bst.out["bwd_tiled"]
     del bst
     ms.update(
@@ -1025,7 +1087,7 @@ def main():
     kst = Stages()
     kout = l5.run(dsm, [pair], compact_k=DNA_LONG_COMPACT_K,
                   tile_diag=DNA_LONG_TILE, stage=kst)
-    kfa, kba, kd, kprep = tiled_args(kst)
+    kfa, kba, kd, kprep = tiled_args(kst, fk.Dna5Spec)
     (kfwd, ksh), (kposts, ktot) = kst.out["fwd_tiled"], kst.out["bwd_tiled"]
     del kst
     if (len(kprep["win"]), kd["R"], kd["W"], kd["TD"]) != bgeom:
@@ -1070,6 +1132,200 @@ def main():
         f"{bounds['dna5_fwd_tiled'][0]:.4f} / "
         f"{bounds['dna5_bwd_tiled'][0]:.4f} ms")
     del kout, kfwd, pfwd, kposts, pposts
+    torch.cuda.synchronize()
+
+    # -- 17. K3 dna5 vs plain on the first 32 cPecanEm E-step pairs --------
+    # bench.py's E-step inputs (ragged at both ends), cut to their first
+    # group of 32; once with the default machine and once with the
+    # equalised fiveState start that bench.py's E-step runs
+    eseqs, ealns, erng = dna_em_batch()
+    eopts = em.EmOptions(train_emissions=True)
+    eparams = eopts.realign_params
+    ehmm = em.PipelineHmm("fiveState")
+    ehmm.equalise()
+    esm = ehmm.to_state_machine()
+    ea = Dna5Aligner(eparams, device=dev, group=EM_DNA_GROUP)
+    ejobs = em._alignment_jobs(ealns[:EM_DNA_GROUP], eseqs, eparams)
+    d5exp_err = 0.0
+    for name, machine in (("default", StateMachine5()), ("equalised", esm)):
+        xprep = ea.prepare(machine, ejobs, ragged_right=True)
+        xinp = ea.device_inputs(machine, xprep, ragged_left=True)
+        xdims = dict(R=xprep["R"], W=xprep["W"], ND=xprep["ND"],
+                     C=xprep["C"], spec=fk.Dna5Spec)
+        xfa = [xinp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                                 "widthf")]
+        xba = xfa + [xinp["seedf"], xinp["raggedf"]]
+        xfwd = fk.wavefront_fwd(*xfa, **xdims)
+        same(f"K1 dna5 fwd plane ({name} machine)", xfwd,
+             fk.forward_plain(*xfa, **xdims))
+        xk = fk.wavefront_bwd_exp(*xba, xfwd, **xdims)
+        xp, xp_ms = timed(lambda: fk.backward_exp_plain(*xba, xfwd, **xdims))
+        xerr = check_exp_kernel(xk, xp)
+        lanes = list(fk.Dna5Spec.EXP_LANES.values())
+        if not (bool(torch.all(xk[2][..., lanes] > 0))
+                and int((xk[2] != 0).sum(-1).max()) == len(lanes)):
+            raise AssertionError(f"{name} machine: dna5 transition lanes "
+                                 f"{xk[2][0, 0].tolist()}")
+        kfin, pfin = (ea.exp_finalize(xprep, host_array(ea.exp_dispatch(
+            xprep, xinp, o[2], o[3], o[1]))) for o in (xk, xp))
+        for k in ("trans", "likelihood"):
+            if not np.array_equal(kfin[k], pfin[k]):
+                raise AssertionError(f"{name} machine: finalized {k} differ")
+        if not np.abs(kfin["emis"] - pfin["emis"]).max() <= KERNEL_GAPX_ATOL:
+            raise AssertionError(f"{name} machine: finalized emis differ")
+        d5exp_err = max(d5exp_err, xerr)
+        if name == "equalised":
+            # the main path's machine: the line's ms, plain ms and bound
+            ms.update(dna5_bwd_exp=cuda_ms(lambda: fk.wavefront_bwd_exp(
+                *xba, xfwd, **xdims), 5), dna5_bwd_exp_plain=xp_ms)
+            xcells = sum(int(b.width.sum()) for b in xprep["bands"])
+            bounds["dna5_bwd_exp"] = bound(xba + [xfwd, *xk], xcells,
+                                           FLOPS_PER_CELL["dna5_bwd_exp"])
+        log(f"dna5 expectation kernel vs plain, {name} machine "
+            f"({len(ejobs)} E-step pairs, ragged, ND={xdims['ND']}, "
+            f"W={xdims['W']}): fwd, posts, totals, 25 trans lanes equal bit "
+            f"for bit, accumulators max|d| {xerr:.3g}; finalized trans and "
+            f"likelihoods equal, emis within {KERNEL_GAPX_ATOL}; plain "
+            f"{xp_ms:.1f} ms")
+    log(f"dna5 expectation kernel ms ({len(ejobs)} pairs, equalised "
+        f"machine): bwd_exp_dna5 {ms['dna5_bwd_exp']:.3f} vs plain "
+        f"{ms['dna5_bwd_exp_plain']:.1f}; bound "
+        f"{bounds['dna5_bwd_exp'][0]:.4f} ms ({bounds['dna5_bwd_exp'][1]})")
+    del xk, xp, xfwd, xinp
+    torch.cuda.synchronize()
+
+    # -- 18. cPecanEm at full width ----------------------------------------
+    # bench.py bench_dna_em: 128 x 1 kb alignments, the equalised fiveState
+    # start, shards drawn with the generator that made them, group 32,
+    # chunks of 64; median of 3 after a warm-up
+    eshards = em._shard_alignments(ealns, eopts, erng)
+
+    def estep_dna(stage=None):
+        out = em.calculate_expectations_pallas(eshards, eseqs, esm, eparams,
+                                               ea, stage=stage)
+        torch.cuda.synchronize()
+        return out
+
+    estep_dna()
+    etimes = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        estep_dna()
+        etimes.append(time.perf_counter() - t0)
+    erate = len(ealns) / statistics.median(etimes)
+    log(f"dna_em_estep_alignments_per_sec {erate:.1f} ({len(ealns)} x "
+        f"{len(eseqs['x0'])} bases, {len(eshards)} shard, chunks of "
+        f"{em.CHUNK}, group {EM_DNA_GROUP}; median of "
+        f"{[round(t, 4) for t in etimes]} s)")
+    est = Stages()
+    estep_dna(stage=est)
+    log("dna5 E-step stages (s, share): " + est.line())
+    cprep, cinp = est.out["prepare"], est.out["inputs"]
+    del est
+    # one 64-pair chunk's kernels, the main path's launch shape (its last
+    # chunk's inputs)
+    cdims = dict(R=cprep["R"], W=cprep["W"], ND=cprep["ND"], C=cprep["C"],
+                 spec=fk.Dna5Spec)
+    cfa = [cinp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
+    cfwd = fk.wavefront_fwd(*cfa, **cdims)
+    cexp_ms = cuda_ms(lambda: fk.wavefront_bwd_exp(
+        *cfa, cinp["seedf"], cinp["raggedf"], cfwd, **cdims), 3)
+    cfwd_ms = cuda_ms(lambda: fk.wavefront_fwd(*cfa, **cdims), 3)
+    log(f"dna5 E-step chunk kernels ({cprep['B']} pairs, "
+        f"G={len(cprep['win'])}, ND={cdims['ND']}, W={cdims['W']}): K1 dna5 "
+        f"{cfwd_ms:.3f} ms, K3 dna5 {cexp_ms:.3f} ms per launch")
+    del cfwd, cinp, cfa
+    # a real cPecanEm run: one default-size shard (1 Mbp: 1,000 x 1 kb
+    # alignments of the same generator), three iterations
+    bseqs, balns, brng = dna_em_batch(EM_DNA_SHARD)
+    bopts = em.EmOptions(iterations=EM_ITERATIONS, train_emissions=True)
+    starts = []
+
+    def mark(name, fn):
+        # each iteration's E-step starts with its jobs
+        if name == "jobs":
+            starts.append(time.perf_counter())
+        return fn()
+
+    fk.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    em_dna_held = torch.cuda.memory_allocated()
+    bhmm = em.expectation_maximisation(bseqs, balns, bopts, brng, aligner=ea,
+                                       stage=mark)
+    torch.cuda.synchronize()
+    starts.append(time.perf_counter())
+    em_dna_counts = dict(fk.KERNEL_LAUNCHES)
+    em_dna_peak = torch.cuda.max_memory_allocated()
+    if (em_dna_counts.get("wavefront_fwd_dna5", 0) <= 0
+            or em_dna_counts.get("wavefront_bwd_exp_dna5", 0) <= 0
+            or fk.forward_plain.calls or fk.backward_exp_plain.calls):
+        raise AssertionError(f"cPecanEm launches {em_dna_counts}")
+    bliks = bhmm.running_likelihoods
+    if len(bliks) != EM_ITERATIONS or not all(
+            b > a for a, b in zip(bliks, bliks[1:])):
+        raise AssertionError(f"cPecanEm likelihoods do not rise: {bliks}")
+    if not (np.isfinite(bhmm.transitions).all()
+            and np.isfinite(bhmm.emissions).all()):
+        raise AssertionError("cPecanEm model not finite")
+    biter = [b - a for a, b in zip(starts, starts[1:])]
+    log(f"cPecanEm at full width: {len(balns)} x {len(bseqs['x0'])} bases "
+        f"(one shard), {EM_ITERATIONS} iterations, likelihoods {bliks}, s "
+        f"per iteration {[round(t, 4) for t in biter]}, peak device memory "
+        f"{em_dna_peak / 1e9:.3f} GB ({em_dna_held / 1e9:.3f} GB held "
+        f"before), launches {em_dna_counts}")
+    # the fixture case against the JAX package's stored result
+    fseqs, falns, fstored = load_dna5_em()
+    fit = int(fstored["iterations"])
+    femax = 0.0
+    for mt in (str(m) for m in fstored["model_types"]):
+        fh = em.expectation_maximisation(
+            fseqs, falns, em.EmOptions(model_type=mt, iterations=fit,
+                                       train_emissions=True),
+            random.Random(int(fstored["rng_seed"])), device=dev)
+        femax = max(femax, check_em(
+            fh.transitions, fh.emissions, fh.running_likelihoods,
+            fstored[f"{mt}_transitions"], fstored[f"{mt}_emissions"],
+            fstored[f"{mt}_running"]))
+    # cpecan-torch-em end to end: the fixture case (its model against the
+    # stored one) and bench.py's 128 alignments (timed)
+    with tempfile.TemporaryDirectory() as tmp:
+        def em_cli(seqs, alns, name, iterations):
+            fa = os.path.join(tmp, f"{name}.fa")
+            cig = os.path.join(tmp, f"{name}.cigar")
+            with open(fa, "w") as fh:
+                fh.write("".join(f">{k}\n{v}\n" for k, v in seqs.items()))
+            with open(cig, "w") as fh:
+                fh.write("\n".join(cigar_write(a) for a in alns) + "\n")
+            model = os.path.join(tmp, f"{name}.hmm")
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(io.StringIO()):
+                rc = em_main(["--sequences", fa, "--alignments", cig,
+                              "--outputModel", model, "--iterations",
+                              str(iterations), "--trainEmissions",
+                              "--outputLastzScoringMatrix", model + ".lz",
+                              "--device", DEVICE])
+            torch.cuda.synchronize()
+            if rc != 0:
+                raise AssertionError(f"cpecan-torch-em exited {rc}")
+            with open(model + ".lz") as fh:
+                lz = fh.read()
+            return em.PipelineHmm.load(model), lz, time.perf_counter() - t0
+
+        ch, clz, _ = em_cli(fseqs, falns, "fixture", fit)
+        check_em(ch.transitions, ch.emissions, [ch.likelihood],
+                 fstored["fiveState_transitions"],
+                 fstored["fiveState_emissions"],
+                 fstored["fiveState_running"][-1:])
+        bh, blz, bcli_s = em_cli(eseqs, ealns, "bench", EM_ITERATIONS)
+    if not (np.isfinite(bh.transitions).all() and len(clz.splitlines()) == 7
+            and len(blz.splitlines()) == 7):
+        raise AssertionError("cpecan-torch-em wrote a bad model or matrix")
+    log(f"cPecanEm fixture case ({len(falns)} alignments, {fit} iterations, "
+        f"fiveState and fiveStateAsymmetric) vs the JAX package's stored "
+        f"engine=pallas result: model max|d| {femax:.3g}; cpecan-torch-em on "
+        f"the card: the fixture case's model within parity.EM_* of the "
+        f"stored one; {len(ealns)} alignments x {EM_ITERATIONS} iterations "
+        f"end to end in {bcli_s:.3f} s, final likelihood {bh.likelihood}")
     torch.cuda.synchronize()
 
     src = "cpecan_tpu_torch/csrc/wavefront.cu"
@@ -1118,6 +1374,13 @@ def main():
               "cpecan_tpu/ops/pallas_fb.py:2332 (_Dna5Spec :340)",
               big_counts["wavefront_bwd_tiled_dna5"], derr,
               "dna5_bwd_tiled", "dna5_bwd_tiled"),
+        # phase 17 holds K3 dna5 to its plain version (ms, plain ms and
+        # bound on its equalised-machine inputs); launches from phase 18's
+        # cPecanEm run
+        entry("wavefront_bwd_exp_dna5",
+              "cpecan_tpu/ops/pallas_fb.py:2221 (with_exp=True, _Dna5Spec "
+              ":406)", em_dna_counts["wavefront_bwd_exp_dna5"], d5exp_err,
+              "dna5_bwd_exp", "dna5_bwd_exp"),
     ]}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

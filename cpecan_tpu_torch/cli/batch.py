@@ -2,6 +2,9 @@
 
   - cpecan-torch-train-models  <- scripts/trainModels.py (signal-HMM
     Baum-Welch), the E-step on the wavefront kernels
+  - cpecan-torch-em  <- cPecanEm.py (DNA pair-HMM Baum-Welch), the E-step
+    on the 5-state wavefront kernels (the JAX CLI's E-step runs the scan
+    engine, which is not ported)
 
 Guide alignments come from a cigar file (one exonerate cigar per read,
 query name == read name), read as the JAX CLI reads them.
@@ -96,6 +99,86 @@ def train_models_main(argv=None):
         resume=args.resume, device=args.device)
     for i, (t_lik, c_lik) in enumerate(trajectory):
         print(f"iteration {i}\t{t_lik}\t{c_lik}")
+    return 0
+
+
+def em_main(argv=None):
+    """cPecanEm on the port (``cpecan_tpu/cli/batch.py::em_main``, flag for
+    flag, plus ``--device``): EM over the cigars of ``--alignments`` on the
+    sequences of ``--sequences``, the model written to ``--outputModel``
+    and, when asked, a lastz scoring matrix."""
+    p = argparse.ArgumentParser(
+        prog="cpecan-torch-em",
+        description="DNA pair-HMM expectation maximisation (cPecanEm.py "
+                    "equivalent) on the PyTorch/CUDA port.")
+    p.add_argument("--sequences", required=True, nargs="+",
+                   help="fasta files")
+    p.add_argument("--alignments", required=True,
+                   help="exonerate cigar file")
+    p.add_argument("--outputModel", default="hmm.txt")
+    p.add_argument("--modelType", default="fiveState",
+                   choices=["fiveState", "threeState",
+                            "threeStateAsymmetric"])
+    p.add_argument("--inputModel", default=None)
+    p.add_argument("--iterations", type=int, default=10)
+    p.add_argument("--trials", type=int, default=3)
+    p.add_argument("--randomStart", action="store_true")
+    p.add_argument("--useDefaultModelAsStart", action="store_true")
+    p.add_argument("--setJukesCantorStartingEmissions", type=float,
+                   default=None)
+    p.add_argument("--trainEmissions", action="store_true")
+    p.add_argument("--tieEmissions", action="store_true")
+    p.add_argument("--maxAlignmentLengthPerJob", type=int,
+                   default=1_000_000)
+    p.add_argument("--maxAlignmentLengthToSample", type=int,
+                   default=50_000_000)
+    p.add_argument("--outputLastzScoringMatrix", default=None)
+    p.add_argument("--checkpoint_dir", default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the E-step: cuda runs the CUDA "
+                        "kernels, cpu their plain PyTorch versions")
+    args = p.parse_args(argv)
+
+    from ..io.fasta import sequences_from_fastas
+    from ..pipeline.em import (EmOptions, expectation_maximisation,
+                               expectation_maximisation_trials,
+                               make_blast_scoring_matrix,
+                               write_lastz_scoring_matrix)
+
+    sequences = sequences_from_fastas(args.sequences)
+    alignments = []
+    with open(args.alignments) as fh:
+        for line in fh:
+            line = line.strip()
+            if line:
+                alignments.append(parse_cigar_line(line))
+    opts = EmOptions(
+        model_type=args.modelType, input_model=args.inputModel,
+        iterations=args.iterations, trials=args.trials,
+        random_start=args.randomStart,
+        use_default_model_as_start=args.useDefaultModelAsStart,
+        set_jukes_cantor_starting_emissions=
+            args.setJukesCantorStartingEmissions,
+        train_emissions=args.trainEmissions,
+        tie_emissions=args.tieEmissions,
+        max_alignment_length_per_job=args.maxAlignmentLengthPerJob,
+        max_alignment_length_to_sample=args.maxAlignmentLengthToSample)
+    if args.checkpoint_dir is not None:
+        hmm = expectation_maximisation(sequences, alignments, opts,
+                                       checkpoint_dir=args.checkpoint_dir,
+                                       resume=args.resume,
+                                       device=args.device)
+    else:
+        hmm = expectation_maximisation_trials(sequences, alignments, opts,
+                                              device=args.device)
+    hmm.write(args.outputModel)
+    if args.outputLastzScoringMatrix:
+        match_probs, gap_open, gap_extend = make_blast_scoring_matrix(
+            hmm, sequences.values())
+        with open(args.outputLastzScoringMatrix, "w") as fh:
+            write_lastz_scoring_matrix(fh, match_probs, gap_open, gap_extend)
+    print(f"final likelihood {hmm.likelihood}", file=sys.stderr)
     return 0
 
 

@@ -18,10 +18,11 @@
 //                          <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
 //                             -> _sm3_backward_body_w (:857, :900;
 //                             with_exp=False, untiled)                  K2
-//   sm3_bwd_kernel<Strawman, true, false>
+//   sm3_bwd_kernel<Spec, true, false>
 //                          <- the same body with with_exp=True (EM
 //                             expectations: accumulate_exp :1072 and
-//                             _StrawmanSpec.exp_probs_w :215)          K3
+//                             _StrawmanSpec.exp_probs_w :215 /
+//                             _Dna5Spec.exp_probs_w :406)              K3
 //   sm3_fwd_kernel<Spec, true>
 //                          <- _sm3_forward_kernel(tile=...) (:2304), chained
 //                             over the tiles by _run_tiled (:2447) with
@@ -40,7 +41,10 @@
 //   basef, widthf, seedf, raggedf  f32 [G*R, NDp]
 //   fwd    f32 [G, ND+1, S, R, W]
 //   posts  f32 [G, ND+1, R, W],  totals f32 [G*R]
-//   trans  f32 [G*R, 9]  (lanes frm*3 + to),  gapx f32 [G*R, X]  (EM only)
+//   trans  f32 [G*R, S*S]  (lanes frm*S + to; EM only)
+//   acc    f32 [G, NACC, R, X]  per-column accumulators (EM only; strawman
+//          NACC 1, the gap-X mass; dna5 NACC 20, row to*4 + by the mass
+//          into state to at a cell of y base by)
 //   shifts f32 [G*R, NT]  (tiled only; NT = ND / TD)
 // Strawman: S 3, NS 8, NXF 9 (Gaussian model rows 0-7, gap-X row 8), yf =
 // (event mean, noise).  Dna5: S 5, NS 13, NXF 6 (match rows of the x base
@@ -103,14 +107,18 @@
 //  5. Windows at the top: win is read up to ND + 2 (NDp >= ND + 3).
 //  6. No fallback: the build keeps --fmad=false and no fast math, and a
 //     failed build or launch raises in the wrapper.
-// The 9 transition sums are per-thread registers across the sweep, reduced
-// once at the end (block_sum, fixed order).  The gap-X mass goes to the
-// read's own row of gapx in global memory, column w_t + l; each column is
+// The machine's transition sums (strawman 9 lanes, dna5 its 13 active
+// ones of 25) are per-thread registers across the sweep, reduced once at
+// the end (block_sum, fixed order); the lanes that are no transition of
+// the machine are written as 0.  The per-column accumulators go to the
+// read's own rows of acc in global memory, column w_t + l; each column is
 // touched by one thread per target and the per-diagonal barrier orders the
-// read-modify-writes, so no atomics are needed.
+// read-modify-writes, so no atomics are needed.  Dna5 reads the target's y
+// base fresh (yf row 0 at column C - t + x, pallas_fb.py:1077; only the
+// emissions are carried) and adds a cell's five state masses to the rows
+// of its y base only: the other rows' contributions are +0.0, so skipping
+// them leaves every sum bit-equal, and an N (base 4) adds nothing.
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 #include "logspace.cuh"
 
@@ -196,6 +204,19 @@ struct Strawman {
         out[1] = bx;
         out[2] = by;
     }
+
+    // EM expectations: NLANE per-thread transition sums, sum k of them
+    // output lane lane(k) of the S*S table; NACC per-column accumulators
+    static constexpr int NLANE = 9, NACC = 1;
+    __host__ __device__ static constexpr int lane(int k) { return k; }
+
+    // _StrawmanSpec.exp_probs_w + accumulate_exp at one cell; lanes
+    // frm * 3 + to, lane 5 (X -> Y) no transition of the machine
+    __device__ __forceinline__ static void exp_probs(
+            const float* t, const Emissions& e, float e_gapx, float /*y*/,
+            const float* f0m, const float* f1m, const float* f1a,
+            const float* b, float total, bool m, float* acc, float* col,
+            size_t /*row_stride*/);
 };
 
 // _Dna5Spec (pallas_fb.py:340-392): M, shortGapX, shortGapY, longGapX,
@@ -253,6 +274,22 @@ struct Dna5 {
         out[3] = log_add(mid + t[T5_MLX], low_l + t[T5_LEX]);
         out[4] = log_add(mid + t[T5_MLY], up_l + t[T5_LEY]);
     }
+
+    // EM expectations: the 13 transitions (register k -> lane frm*5 + to,
+    // in _Dna5Spec.EXP_LANES' order) and 20 accumulators to*4 + by
+    static constexpr int NLANE = 13, NACC = 20;
+    __host__ __device__ static constexpr int lane(int k) {
+        constexpr int L[NLANE] = {0, 5, 10, 15, 20, 1, 6, 3, 18, 2, 12, 4,
+                                  24};
+        return L[k];
+    }
+
+    // _Dna5Spec.exp_probs_w + accumulate_exp at one cell
+    __device__ __forceinline__ static void exp_probs(
+            const float* t, const Emissions& e, float e_gapx, float y,
+            const float* f0m, const float* f1m, const float* f1a,
+            const float* b, float total, bool m, float* acc, float* col,
+            size_t row_stride);
 };
 
 // Block-wide reductions; every thread gets the result.  W is a multiple of
@@ -401,61 +438,126 @@ __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
     }
 }
 
-// transition lanes (frm * 3 + to); lane 5 (X -> Y) stays 0
+// strawman transition lanes (frm * 3 + to); lane 5 (X -> Y) stays 0
 enum { L_MM = 0, L_OX = 1, L_OY = 2, L_XM = 3, L_EX = 4, L_YM = 6, L_SX = 7,
-       L_EY = 8, NTRANS = 9 };
+       L_EY = 8 };
 
 __device__ __forceinline__ float exp_prob(float logp, float total) {
     return expf(fminf(logp - total, 10.0f));
 }
 
-// Posterior transition mass into target diagonal tt at x = wt + l
-// (_StrawmanSpec.exp_probs_w + accumulate_exp): sources fm = fwd[tt - 2]
-// at window wm (nullptr for target 1: no middle source) and fl =
-// fwd[tt - 1] at window wl, both shared-memory slots [S][W]; b0..b2 the
-// target's backward at lane l, already cut.  With ``carried`` the JAX
+__device__ __forceinline__ void Strawman::exp_probs(
+        const float* t, const Emissions& e, float e_gapx, float,
+        const float* f0m, const float* f1m, const float* f1a,
+        const float* b, float total, bool m, float* acc, float* col,
+        size_t) {
+    // middle: (tt-2, x-1) -> M; lower: (tt-1, x-1) -> X; upper: (tt-1, x)
+    // -> Y
+    const float mid = e.match + b[0];
+    const float low = e_gapx + b[1];
+    const float up = e.gap_y + b[2];
+    float p[NLANE];
+    p[L_MM] = exp_prob(f0m[0] + t[T_MM] + mid, total);
+    p[L_XM] = exp_prob(f0m[1] + t[T_XM] + mid, total);
+    p[L_YM] = exp_prob(f0m[2] + t[T_YM] + mid, total);
+    p[L_OX] = exp_prob(f1m[0] + t[T_OX] + low, total);
+    p[L_EX] = exp_prob(f1m[1] + t[T_EX] + low, total);
+    p[L_SX] = exp_prob(f1m[2] + t[T_SX] + low, total);
+    p[L_OY] = exp_prob(f1a[0] + t[T_OY] + up, total);
+    p[L_EY] = exp_prob(f1a[2] + t[T_EY] + up, total);
+    p[5] = 0.0f;
+    const float mf = m ? 1.0f : 0.0f;
+#pragma unroll
+    for (int k = 0; k < NLANE; ++k) acc[k] += p[k] * mf;
+    col[0] += (p[L_OX] + p[L_EX] + p[L_SX]) * mf;
+}
+
+__device__ __forceinline__ void Dna5::exp_probs(
+        const float* t, const Emissions& e, float e_gapx, float y,
+        const float* f0m, const float* f1m, const float* f1a,
+        const float* b, float total, bool m, float* acc, float* col,
+        size_t row_stride) {
+    // p[k] in EXP_LANES order: mm sxm sym lxm lym | msx sxsx mlx lxlx |
+    // msy sysy mly lyly
+    float p[NLANE];
+    // middle: (tt-2, x-1) -> M
+    const float mid = e.match + b[0];
+    p[0] = exp_prob(f0m[0] + t[T5_MM] + mid, total);
+    p[1] = exp_prob(f0m[1] + t[T5_MSX] + mid, total);
+    p[2] = exp_prob(f0m[2] + t[T5_MSY] + mid, total);
+    p[3] = exp_prob(f0m[3] + t[T5_MLX] + mid, total);
+    p[4] = exp_prob(f0m[4] + t[T5_MLY] + mid, total);
+    // lower: (tt-1, x-1) -> shortGapX / longGapX
+    const float low_s = e_gapx + b[1];
+    const float low_l = e_gapx + b[3];
+    p[5] = exp_prob(f1m[0] + t[T5_SOX] + low_s, total);
+    p[6] = exp_prob(f1m[1] + t[T5_SEX] + low_s, total);
+    p[7] = exp_prob(f1m[0] + t[T5_LOX] + low_l, total);
+    p[8] = exp_prob(f1m[3] + t[T5_LEX] + low_l, total);
+    // upper: (tt-1, x) -> shortGapY / longGapY
+    const float up_s = e.gap_y + b[2];
+    const float up_l = e.gap_y + b[4];
+    p[9] = exp_prob(f1a[0] + t[T5_SOY] + up_s, total);
+    p[10] = exp_prob(f1a[2] + t[T5_SEY] + up_s, total);
+    p[11] = exp_prob(f1a[0] + t[T5_LOY] + up_l, total);
+    p[12] = exp_prob(f1a[4] + t[T5_LEY] + up_l, total);
+    const float mf = m ? 1.0f : 0.0f;
+#pragma unroll
+    for (int k = 0; k < NLANE; ++k) acc[k] += p[k] * mf;
+    // the y base's rows only (to * 4 + by): the others' contributions,
+    // where(y == by, p_to, 0) * m, are +0.0; out of band all are
+    int by = -1;
+    if (y == 0.0f) by = 0;
+    if (y == 1.0f) by = 1;
+    if (y == 2.0f) by = 2;
+    if (y == 3.0f) by = 3;
+    if (m && by >= 0) {
+        // the mass into each state, summed in the JAX order
+        const float p_to[5] = {p[0] + p[1] + p[2] + p[3] + p[4],
+                               p[5] + p[6], p[9] + p[10], p[7] + p[8],
+                               p[11] + p[12]};
+#pragma unroll
+        for (int to = 0; to < 5; ++to)
+            col[(to * 4 + by) * row_stride] += p_to[to] * mf;
+    }
+}
+
+// Posterior transition mass into target diagonal tt at x = wt + l (each
+// spec's exp_probs_w + accumulate_exp): sources fm = fwd[tt - 2] at window
+// wm (nullptr for target 1: no middle source) and fl = fwd[tt - 1] at
+// window wl, both shared-memory slots [S][W]; bt the target's backward
+// slot [S][W] (raw), read as NEG where ``cut``.  With ``carried`` the JAX
 // kernel takes the target's emissions from last step's carry at window wl,
-// so lanes past that window read NEG there, and here.
+// so lanes past that window read NEG there, and here; the y element (dna5)
+// is read fresh.  acc the spec's per-thread transition sums, rows its
+// NACC accumulator rows of this read (row j at rows + j * row_stride).
+template <class Spec>
 __device__ __forceinline__ void exp_target(
         const float* t, const float* xb, const float* yb, int X, int Y,
         int C, int tt, int wt, const float* fm, int wm, const float* fl,
-        int wl, float b0, float b1, float b2, float total, bool m,
-        bool carried, int l, int W, float* acc, float* gap_row) {
+        int wl, const float* bt, bool cut, float total, bool m,
+        bool carried, int l, int W, float* acc, float* rows,
+        size_t row_stride) {
+    constexpr int S = Spec::S;
     const int x = wt + l;
-    Emissions e = Strawman::emissions_at(xb, yb, X, Y, x, C - tt + x);
+    const int ycol = C - tt + x;
+    Emissions e = Spec::emissions_at(xb, yb, X, Y, x, ycol);
     if (carried) {
         const int j = l + (wt - wl);
         if (j < 0 || j >= W) e.match = e.gap_y = CPECAN_NEG;
     }
     const int sm = wt - wm - 1;
     const int s1 = wt - wl;
-    const float f0m0 = fm ? shifted(fm, l, sm, W) : CPECAN_NEG;
-    const float f0m1 = fm ? shifted(fm + W, l, sm, W) : CPECAN_NEG;
-    const float f0m2 = fm ? shifted(fm + 2 * W, l, sm, W) : CPECAN_NEG;
-    const float f1m0 = shifted(fl, l, s1 - 1, W);
-    const float f1m1 = shifted(fl + W, l, s1 - 1, W);
-    const float f1m2 = shifted(fl + 2 * W, l, s1 - 1, W);
-    const float f1a0 = shifted(fl, l, s1, W);
-    const float f1a2 = shifted(fl + 2 * W, l, s1, W);
-    // middle: (tt-2, x-1) -> M; lower: (tt-1, x-1) -> X; upper: (tt-1, x)
-    // -> Y
-    const float mid = e.match + b0;
-    const float low = xb[Strawman::GAP_X * X + x] + b1;
-    const float up = e.gap_y + b2;
-    float p[NTRANS];
-    p[L_MM] = exp_prob(f0m0 + t[T_MM] + mid, total);
-    p[L_XM] = exp_prob(f0m1 + t[T_XM] + mid, total);
-    p[L_YM] = exp_prob(f0m2 + t[T_YM] + mid, total);
-    p[L_OX] = exp_prob(f1m0 + t[T_OX] + low, total);
-    p[L_EX] = exp_prob(f1m1 + t[T_EX] + low, total);
-    p[L_SX] = exp_prob(f1m2 + t[T_SX] + low, total);
-    p[L_OY] = exp_prob(f1a0 + t[T_OY] + up, total);
-    p[L_EY] = exp_prob(f1a2 + t[T_EY] + up, total);
-    p[5] = 0.0f;
-    const float mf = m ? 1.0f : 0.0f;
+    float f0m[S], f1m[S], f1a[S], b[S];
 #pragma unroll
-    for (int k = 0; k < NTRANS; ++k) acc[k] += p[k] * mf;
-    gap_row[x] += (p[L_OX] + p[L_EX] + p[L_SX]) * mf;
+    for (int i = 0; i < S; ++i) {
+        f0m[i] = fm ? shifted(fm + i * W, l, sm, W) : CPECAN_NEG;
+        f1m[i] = shifted(fl + i * W, l, s1 - 1, W);
+        f1a[i] = shifted(fl + i * W, l, s1, W);
+        b[i] = cut ? CPECAN_NEG : bt[i * W + l];
+    }
+    Spec::exp_probs(t, e, xb[Spec::GAP_X * X + x], yb[ycol], f0m, f1m, f1a,
+                    b, total, m, acc, rows + x, row_stride);
 }
 
 template <class Spec, bool WITH_EXP, bool TILED>
@@ -472,12 +574,10 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
                                float* __restrict__ posts,
                                float* __restrict__ totals,
                                float* __restrict__ trans,
-                               float* __restrict__ gapx, int R, int W,
+                               float* __restrict__ accf, int R, int W,
                                int ND, int NDp, int X, int C, int Y,
                                int TD) {
     static_assert(!(WITH_EXP && TILED), "the tiled path has no EM sums");
-    static_assert(!WITH_EXP || std::is_same<Spec, Strawman>::value,
-                  "EM sums are ported for the strawman machine only");
     constexpr int S = Spec::S;
     constexpr int NSCAL = Spec::NS + 3 * S;
     constexpr int END = Spec::NS + S, RAGGED_END = Spec::NS + 2 * S;
@@ -531,13 +631,16 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
     float shift = 0.0f;     // B, the running re-centering shift (tiled)
     float shf = 0.0f;       // A_t + B, repaid by the rows of tile t
     const int NT = TILED ? ND / TD : 0;
-    float acc[NTRANS];      // per-lane transition sums (expectations)
-    float* gap_row = nullptr;
+    float acc[Spec::NLANE];  // per-lane transition sums (expectations)
+    // this read's accumulator rows: acc[g, j, r, :] at rows + j * R * X
+    const size_t row_stride = static_cast<size_t>(R) * X;
+    float* rows = nullptr;
     if constexpr (WITH_EXP) {
 #pragma unroll
-        for (int k = 0; k < NTRANS; ++k) acc[k] = 0.0f;
-        gap_row = gapx + static_cast<size_t>(b) * X;
-        for (int c = l; c < X; c += W) gap_row[c] = 0.0f;
+        for (int k = 0; k < Spec::NLANE; ++k) acc[k] = 0.0f;
+        rows = accf + (static_cast<size_t>(g) * Spec::NACC * R + r) * X;
+        for (int j = 0; j < Spec::NACC; ++j)
+            for (int c = l; c < X; c += W) rows[j * row_stride + c] = 0.0f;
         // fwd[ND + 1] = NEG: the lower/upper source of target ND + 2
 #pragma unroll
         for (int i = 0; i < S; ++i)
@@ -627,14 +730,12 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
             if (tt <= ND + 2) {
                 const bool cut = seed[tt - 1] != 0.0f || seed[tt - 2] != 0.0f;
                 const int wt = wg[tt];
-                exp_target(t, xb, yb, X, Y, C, tt, wt,
-                           fsh + ((tt - 2) % 3) * S * W, wg[tt - 2],
-                           fsh + ((tt - 1) % 3) * S * W, wg[tt - 1],
-                           cut ? CPECAN_NEG : cur[l],
-                           cut ? CPECAN_NEG : cur[W + l],
-                           cut ? CPECAN_NEG : cur[2 * W + l], total,
-                           in_band(wt + l, base[tt], width[tt]), true, l, W,
-                           acc, gap_row);
+                exp_target<Spec>(t, xb, yb, X, Y, C, tt, wt,
+                                 fsh + ((tt - 2) % 3) * S * W, wg[tt - 2],
+                                 fsh + ((tt - 1) % 3) * S * W, wg[tt - 1],
+                                 cur, cut, total,
+                                 in_band(wt + l, base[tt], width[tt]), true,
+                                 l, W, acc, rows, row_stride);
             }
             float* fs = fsh + (d % 3) * S * W;
 #pragma unroll
@@ -651,38 +752,35 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
         // targets 3, 2 and 1.  The ring holds bwd[1], bwd[2], bwd[3] in
         // slots 1, 2, 0 and fsh holds fwd[1], fwd[2] in slots 1, 2 (NEG
         // where the diagonal lies past ND)
-        const float* b3 = ring;
         const bool cut3 = seed[2] != 0.0f || seed[1] != 0.0f;
-        exp_target(t, xb, yb, X, Y, C, 3, wg[3], fsh + S * W, wg[1],
-                   fsh + 2 * S * W, wg[2], cut3 ? CPECAN_NEG : b3[l],
-                   cut3 ? CPECAN_NEG : b3[W + l],
-                   cut3 ? CPECAN_NEG : b3[2 * W + l], total,
-                   in_band(wg[3] + l, base[3], width[3]), true, l, W, acc,
-                   gap_row);
+        exp_target<Spec>(t, xb, yb, X, Y, C, 3, wg[3], fsh + S * W, wg[1],
+                         fsh + 2 * S * W, wg[2], ring, cut3, total,
+                         in_band(wg[3] + l, base[3], width[3]), true, l, W,
+                         acc, rows, row_stride);
         // fwd[0] into slot 0 (target 3 read slots 1 and 2 only)
 #pragma unroll
         for (int i = 0; i < S; ++i)
             fsh[i * W + l] = fin[static_cast<size_t>(i) * R * W];
         __syncthreads();
-        const float* b2 = ring + 2 * S * W;
-        const bool cut2 = seed[1] != 0.0f;
-        exp_target(t, xb, yb, X, Y, C, 2, wg[2], fsh, wg[0], fsh + S * W,
-                   wg[1], cut2 ? CPECAN_NEG : b2[l],
-                   cut2 ? CPECAN_NEG : b2[W + l],
-                   cut2 ? CPECAN_NEG : b2[2 * W + l], total,
-                   in_band(wg[2] + l, base[2], width[2]), true, l, W, acc,
-                   gap_row);
-        __syncthreads();   // orders the gap_row columns of targets 2 and 1
+        exp_target<Spec>(t, xb, yb, X, Y, C, 2, wg[2], fsh, wg[0],
+                         fsh + S * W, wg[1], ring + 2 * S * W,
+                         seed[1] != 0.0f, total,
+                         in_band(wg[2] + l, base[2], width[2]), true, l, W,
+                         acc, rows, row_stride);
+        __syncthreads();   // orders the accumulator columns of targets 2, 1
         // target 1: no middle source, emissions(1) fresh (not a carry)
-        const float* b1 = ring + S * W;
-        exp_target(t, xb, yb, X, Y, C, 1, wg[1], nullptr, 0, fsh, wg[0],
-                   b1[l], b1[W + l], b1[2 * W + l], total,
-                   in_band(wg[1] + l, base[1], width[1]), false, l, W, acc,
-                   gap_row);
+        exp_target<Spec>(t, xb, yb, X, Y, C, 1, wg[1], nullptr, 0, fsh,
+                         wg[0], ring + S * W, false, total,
+                         in_band(wg[1] + l, base[1], width[1]), false, l, W,
+                         acc, rows, row_stride);
+        // the S*S table: the machine's lanes from their sums, the rest 0
+        float* tr = trans + static_cast<size_t>(b) * S * S;
+        if (l == 0)
+            for (int k = 0; k < S * S; ++k) tr[k] = 0.0f;
 #pragma unroll
-        for (int k = 0; k < NTRANS; ++k) {
+        for (int k = 0; k < Spec::NLANE; ++k) {
             const float s = block_sum(acc[k], red);
-            if (l == 0) trans[static_cast<size_t>(b) * NTRANS + k] = s;
+            if (l == 0) tr[Spec::lane(k)] = s;
         }
     }
 }
@@ -698,7 +796,7 @@ int launch_bwd(const void* scal, const void* win, const void* xf,
                const void* yf, const void* basef, const void* widthf,
                const void* seedf, const void* raggedf, const void* fwd,
                const void* shifts, void* posts, void* totals, void* trans,
-               void* gapx, int G, int R, int W, int ND, int NDp, int X,
+               void* accf, int G, int R, int W, int ND, int NDp, int X,
                int C, int Y, int TD, void* stream) {
     constexpr int S = Spec::S;
     if (int e = launch_config_error(W)) return e;
@@ -724,7 +822,7 @@ int launch_bwd(const void* scal, const void* win, const void* xf,
             static_cast<const float*>(fwd),
             static_cast<const float*>(shifts), static_cast<float*>(posts),
             static_cast<float*>(totals), static_cast<float*>(trans),
-            static_cast<float*>(gapx), R, W, ND, NDp, X, C, Y, TD);
+            static_cast<float*>(accf), R, W, ND, NDp, X, C, Y, TD);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -806,6 +904,19 @@ const char* wavefront_error_string(int code) {
             stream);                                                         \
     }
 
+#define WAVEFRONT_BWD_EXP_ENTRY(NAME, SPEC)                                 \
+    int NAME(const void* scal, const void* win, const void* xf,              \
+             const void* yf, const void* basef, const void* widthf,          \
+             const void* seedf, const void* raggedf, const void* fwd,        \
+             void* posts, void* totals, void* trans, void* acc, int G,       \
+             int R, int W, int ND, int NDp, int X, int C, int Y,             \
+             void* stream) {                                                 \
+        return launch_bwd<SPEC, true, false>(                                \
+            scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,  \
+            posts, totals, trans, acc, G, R, W, ND, NDp, X, C, Y, 0,         \
+            stream);                                                         \
+    }
+
 WAVEFRONT_FWD_ENTRY(wavefront_fwd, Strawman)
 WAVEFRONT_FWD_ENTRY(wavefront_fwd_dna5, Dna5)
 WAVEFRONT_FWD_TILED_ENTRY(wavefront_fwd_tiled, Strawman)
@@ -815,15 +926,7 @@ WAVEFRONT_BWD_ENTRY(wavefront_bwd_dna5, Dna5)
 WAVEFRONT_BWD_TILED_ENTRY(wavefront_bwd_tiled, Strawman)
 WAVEFRONT_BWD_TILED_ENTRY(wavefront_bwd_tiled_dna5, Dna5)
 
-int wavefront_bwd_exp(const void* scal, const void* win, const void* xf,
-                      const void* yf, const void* basef, const void* widthf,
-                      const void* seedf, const void* raggedf,
-                      const void* fwd, void* posts, void* totals,
-                      void* trans, void* gapx, int G, int R, int W, int ND,
-                      int NDp, int X, int C, int Y, void* stream) {
-    return launch_bwd<Strawman, true, false>(
-        scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,
-        posts, totals, trans, gapx, G, R, W, ND, NDp, X, C, Y, 0, stream);
-}
+WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp, Strawman)
+WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_dna5, Dna5)
 
 }  // extern "C"

@@ -20,6 +20,12 @@ CLI's ``--engine pallas`` output for them, and a 10 kb pair
 (``synthetic.synth_dna_pair``, seed 7, ~20,000 diagonals) with the f64
 scan engine's pairs and the JAX package's tiled-path pairs.
 
+``load_dna5_em`` gives the cPecanEm path's check from
+``tests/fixtures/dna5_em.npz`` (built by
+``tests/fixtures/make_dna5_em_fixture.py``): three small alignments
+(``synthetic.dna_em_batch``) with the JAX package's ``engine="pallas"``
+EM result for the fiveState and fiveStateAsymmetric models.
+
 ``load_zymo_train`` gives what a training check of the same read needs:
 the lastz guide cigar and the JAX package's two-iteration trainModels
 result from ``tests/fixtures/zymo_train.npz`` (built by
@@ -43,6 +49,7 @@ ZYMO_SLICE = os.path.join(_FIXTURES, "zymo_template_slice.npz")
 ZYMO_TRAIN = os.path.join(_FIXTURES, "zymo_train.npz")
 LONG_READ = os.path.join(_FIXTURES, "long_read.npz")
 DNA5_REALIGN = os.path.join(_FIXTURES, "dna5_realign.npz")
+DNA5_EM = os.path.join(_FIXTURES, "dna5_em.npz")
 
 # name -> repository-relative path of the vendored data files the port
 # reads (the JAX package's ``fixtures.fixture_path`` names)
@@ -106,6 +113,23 @@ def load_dna5_realign():
     pair = synth_dna_pair(np.random.default_rng(int(stored["seed"])),
                           int(stored["l_ref"]))
     return fasta, cigars, pair, stored
+
+
+def load_dna5_em():
+    """(sequences, alignments, stored arrays): the inputs regenerated by
+    ``synthetic.dna_em_batch`` from the stored ``n_pairs``, ``length``,
+    ``seed`` and ``redraw``; the stored ``iterations`` and, for each model
+    type ``m`` in ``model_types``, the JAX EM result ``{m}_transitions``,
+    ``{m}_emissions``, ``{m}_running`` (running likelihoods) and
+    ``{m}_likelihood``."""
+    from .synthetic import dna_em_batch
+
+    with np.load(DNA5_EM) as z:
+        stored = {k: z[k] for k in z.files}
+    seqs, alns, _ = dna_em_batch(
+        int(stored["n_pairs"]), int(stored["length"]), int(stored["seed"]),
+        float(stored["redraw"]))
+    return seqs, alns, stored
 
 
 def load_zymo_train():

@@ -30,7 +30,7 @@ _SIGNATURES = {
     "wavefront_fwd": [_P] * 7 + [_I] * 8 + [_P],
     # scal win xf yf basef widthf seedf raggedf fwd posts totals | ... | stream
     "wavefront_bwd": [_P] * 11 + [_I] * 8 + [_P],
-    # ... posts totals trans gapx | ... | stream
+    # ... posts totals trans acc | ... | stream
     "wavefront_bwd_exp": [_P] * 13 + [_I] * 8 + [_P],
     # scal win xf yf basef widthf fwd shifts | G R W ND NDp X C Y TD | stream
     "wavefront_fwd_tiled": [_P] * 8 + [_I] * 9 + [_P],
@@ -39,8 +39,8 @@ _SIGNATURES = {
 }
 # the dna5 instances take their strawman counterparts' arguments
 _SIGNATURES.update({f"{name}_dna5": _SIGNATURES[name] for name in (
-    "wavefront_fwd", "wavefront_bwd", "wavefront_fwd_tiled",
-    "wavefront_bwd_tiled")})
+    "wavefront_fwd", "wavefront_bwd", "wavefront_bwd_exp",
+    "wavefront_fwd_tiled", "wavefront_bwd_tiled")})
 
 
 class _Library:

@@ -15,8 +15,11 @@ forward and posterior-backward wavefronts (``fb_kernels``), and compacts
 each read's posteriors to its top-k cells for the host
 (``compact.compact_posteriors``).  With ``expectations`` the backward is
 the expectation backward instead, and its per-read EM sums come back in
-one device-to-host copy (``exp_dispatch``, ``exp_finalize``: the branch
-at pallas_fb.py:1877-1907 with :2084-2128).
+one device-to-host copy (each machine's ``exp_dispatch`` and
+``exp_finalize``: the branch at pallas_fb.py:1877-1907 with :2084-2128
+and :3168-3203); ``defer_expectations`` leaves that copy to
+``finalize_expectations``, so that a caller can queue every chunk's
+kernels before the first copy waits.
 
 Long alignments (2^14 estimated diagonals or more, 2^15 reference columns
 or more, or any run given ``tile_diag``) take the tiled path
@@ -253,9 +256,29 @@ class WavefrontAligner:
                 f"{G} groups of {R}): dispatch the batch in smaller chunks, "
                 f"lower the group size, or {SPLIT_REMEDY}")
 
+    def exp_dispatch(self, prep, inp, trans, acc, totals):
+        """The expectation sums of a run (its ``device_inputs`` ``inp``) as
+        ONE [G*R, F] f32 tensor on their device (the machine's
+        ``_exp_dispatch``)."""
+        raise NotImplementedError
+
+    def exp_finalize(self, prep, flat):
+        """Per-read expectations (numpy f64) from the flat host array (the
+        machine's ``_exp_finalize``)."""
+        raise NotImplementedError
+
+    def finalize_expectations(self, sm, out):
+        """The host half of a deferred E-step (``run(expectations=True,
+        defer_expectations=True)``, pallas_fb.py:2084-2090): one
+        device-to-host copy of the flat sums, then ``exp_finalize``.
+        ``sm`` is unused, as in the JAX signature."""
+        return self.exp_finalize(out["prep"],
+                                 host_array(out["expectations_flat"]))
+
     def run(self, sm, reads, ragged_right=False, ragged_left=False,
             compact_k=4096, scale_params=None, shape_hint=None, bands=None,
-            expectations=False, mesh=None, tile_diag=None, stage=None):
+            expectations=False, defer_expectations=False, mesh=None,
+            tile_diag=None, stage=None):
         """Posterior alignment of ``reads`` [(ref, events, l_x, l_y,
         anchors), ...] on machine ``sm``.
 
@@ -269,14 +292,20 @@ class WavefrontAligner:
         ``compact.extract_pairs_auto``/``_chunk`` as any other run's.
 
         With ``expectations`` the backward also sums each read's EM
-        expectations and "expectations" replaces "compact": {"trans"
-        [B, 3, 3], "kmer_gap" [B, NUM_OF_KMERS + 2], "likelihood" [B]}
-        numpy f64 (``exp_finalize``).
+        expectations and "expectations" replaces "compact": the machine's
+        ``exp_finalize`` (strawman {"trans" [B, 3, 3], "kmer_gap"
+        [B, NUM_OF_KMERS + 2], "likelihood" [B]}; dna5 {"trans" [B, 5, 5],
+        "emis" [B, 5, 4, 4], "likelihood" [B]}), numpy f64.  With
+        ``defer_expectations`` as well, the run copies nothing to the host
+        and returns {"expectations_flat": the dispatched sums on the device,
+        "totals", "prep"} for ``finalize_expectations`` (no posterior
+        plane: it frees before the next chunk).
 
         ``stage(name, fn)``, when given, runs each step of the run and
         returns ``fn()``: "prepare", "inputs", "fwd", "bwd", "compact" (the
         tiled path: "fwd_tiled", "bwd_tiled"; with ``expectations``:
-        "bwd_exp", "dispatch", "finalize"), so that a caller can time them."""
+        "bwd_exp", "dispatch", "finalize", no "finalize" when deferred), so
+        that a caller can time them."""
         if mesh is not None:
             raise NotImplementedError(
                 "data-parallel runs are not ported yet (ROADMAP Queue 1 "
@@ -318,12 +347,17 @@ class WavefrontAligner:
                  inp["widthf"], inp["seedf"], inp["raggedf"], fwd)
         if expectations:
             # E-step consumers read only the expectations: no compaction
-            posts, totals, trans, gapx = stage(
+            posts, totals, trans, acc = stage(
                 "bwd_exp", lambda: wavefront_bwd_exp(*bargs, **dims))
-            flat = stage("dispatch", lambda: host_array(
-                exp_dispatch(trans, gapx, totals)))
+            if defer_expectations:
+                flat = stage("dispatch", lambda: self.exp_dispatch(
+                    prep, inp, trans, acc, totals))
+                return dict(expectations_flat=flat, totals=totals,
+                            prep=prep)
+            flat = stage("dispatch", lambda: host_array(self.exp_dispatch(
+                prep, inp, trans, acc, totals)))
             return dict(expectations=stage(
-                "finalize", lambda: exp_finalize(prep, flat)),
+                "finalize", lambda: self.exp_finalize(prep, flat)),
                 posteriors=posts, totals=totals, prep=prep)
         posts, totals = stage("bwd", lambda: wavefront_bwd(*bargs, **dims))
         compact = stage("compact", lambda: compact_posteriors(
@@ -389,13 +423,19 @@ class StrawmanAligner(WavefrontAligner):
             prep["C"] + prep["X"] + 256,
             sp=None if sp is None else torch.from_numpy(sp).to(dev))
 
+    def exp_dispatch(self, prep, inp, trans, acc, totals):
+        return exp_dispatch(trans, acc, totals)
+
+    def exp_finalize(self, prep, flat):
+        return exp_finalize(prep, flat)
+
 
 class Dna5Aligner(WavefrontAligner):
     """The classic 5-state DNA pair-HMM (getStateMachine5, cPecanRealign's
-    machine; ``models.state_machines.StateMachine5``) on the wavefront
-    kernels.  Reads are (seq_x, seq_y, l_x, l_y, anchors) with both sides
-    DNA strings.  No EM expectations yet: ``run(expectations=True)``
-    raises (ROADMAP Queue 1 item 3, dna5 EM)."""
+    and cPecanEm's machine; ``models.state_machines.StateMachine5``) on the
+    wavefront kernels.  Reads are (seq_x, seq_y, l_x, l_y, anchors) with
+    both sides DNA strings.  Expectation runs give cPecanEm's E-step sums
+    (``dna5_exp_dispatch``, ``dna5_exp_finalize``)."""
 
     spec = Dna5Spec
 
@@ -412,13 +452,28 @@ class Dna5Aligner(WavefrontAligner):
             torch.from_numpy(prep["bx"]).to(dev), torch.from_numpy(ev).to(dev),
             sm.match5, sm.gapx5, prep["C"], prep["C"] + prep["X"] + 256)
 
+    def device_inputs(self, sm, prep, ragged_left=False):
+        """``WavefrontAligner.device_inputs`` plus ``bx`` [Bp, X], the x
+        base indices on the device for the emission contraction: uploaded
+        with the other inputs, before any kernel is queued, since a copy
+        from pageable host memory waits for the stream's queued work."""
+        inp = super().device_inputs(sm, prep, ragged_left=ragged_left)
+        inp["bx"] = torch.from_numpy(prep["bx"]).to(self.device)
+        return inp
+
+    def exp_dispatch(self, prep, inp, trans, acc, totals):
+        return dna5_exp_dispatch(trans, acc, totals, inp["bx"])
+
+    def exp_finalize(self, prep, flat):
+        return dna5_exp_finalize(prep, flat)
+
 
 def exp_dispatch(trans, gapx, totals):
-    """The expectation sums as ONE [G*R, 9 + X + 1] f32 tensor on their
-    device (``_exp_dispatch``, pallas_fb.py:2092-2109): 9 transition lanes,
-    X per-column gap-X masses (the per-kmer scatter happens on the host,
-    where the base codes are), 1 total; a single device-to-host copy takes
-    the whole E-step result."""
+    """The strawman expectation sums as ONE [G*R, 9 + X + 1] f32 tensor on
+    their device (``_exp_dispatch``, pallas_fb.py:2092-2109): 9 transition
+    lanes, X per-column gap-X masses (gapx [G, 1, R, X]; the per-kmer
+    scatter happens on the host, where the base codes are), 1 total; a
+    single device-to-host copy takes the whole E-step result."""
     G, R = totals.shape
     return torch.cat([trans.reshape(G * R, -1),
                       gapx[:, 0].reshape(G * R, -1),
@@ -444,3 +499,34 @@ def exp_finalize(prep, flat):
                       minlength=B * nb).reshape(B, nb)
     n_diag = np.asarray([b.n_diag for b in prep["bands"]])
     return {"trans": tr, "kmer_gap": seg, "likelihood": tot * n_diag}
+
+
+def dna5_exp_dispatch(trans, acc, totals, bx):
+    """The dna5 expectation sums as ONE [G*R, 25 + 80 + 1] f32 tensor on
+    their device (``Dna5PallasAligner._exp_dispatch``, pallas_fb.py:
+    3168-3191; cell_updateExpectations, impl/pairwiseAligner.c:423-441):
+    the 25 transition lanes; the 20 per-column (to-state, y-base)
+    accumulators acc [G, 20, R, X] contracted by each column's x base
+    ``bx`` [G*R, X] to emis[to, x base, y base] (80 values), the x base
+    one-hot 4 wide so that N columns (and the padding, base 4) drop out;
+    the total.  The contraction is a masked f32 sum over x, exact f32 on
+    every device (no matrix unit, no TF32)."""
+    G, R = totals.shape
+    X = acc.shape[-1]
+    a = acc.permute(0, 2, 1, 3).reshape(G * R, 5, 4, X)
+    emis = torch.stack([torch.where((bx == k)[:, None, None, :], a, 0.0)
+                        .sum(-1) for k in range(4)], dim=2)
+    return torch.cat([trans.reshape(G * R, 25), emis.reshape(G * R, 80),
+                      totals.reshape(G * R, 1)], dim=1)
+
+
+def dna5_exp_finalize(prep, flat):
+    """Per-read dna5 expectations from the flat host array
+    (``Dna5PallasAligner._exp_finalize``, pallas_fb.py:3193-3203): trans
+    [B, 5, 5], emis [B, 5, 4, 4] (to-state, x base, y base) and
+    likelihood [B] = total * n_diag; all f64."""
+    B = prep["B"]
+    n_diag = np.asarray([b.n_diag for b in prep["bands"]])
+    return {"trans": flat[:B, :25].reshape(B, 5, 5).astype(np.float64),
+            "emis": flat[:B, 25:105].reshape(B, 5, 4, 4).astype(np.float64),
+            "likelihood": flat[:B, 105].astype(np.float64) * n_diag}

@@ -10,7 +10,7 @@ Counterparts in the JAX package (``cpecan_tpu/ops/pallas_fb.py``):
 ``NEG``, ``log_add``,      ``NEG``, ``_log_add``, ``_log_add3``,
 ``log_add3``, ``gauss``    ``_gauss`` (:44-70)
 ``StrawmanSpec``           ``_StrawmanSpec`` (:162-207)
-``Dna5Spec``               ``_Dna5Spec`` (:340-392)
+``Dna5Spec``               ``_Dna5Spec`` (:340-449)
 ``wavefront_fwd``          ``_sm3_forward_kernel`` (:635), untiled
 ``wavefront_bwd``          ``_sm3_backward_kernel`` -> ``_sm3_backward_body_w``
                            (:857, :900), ``with_exp=False``, untiled
@@ -139,17 +139,21 @@ class StrawmanSpec:
     # is not a transition of this machine and stays 0)
     EXP_LANES = {"mm": 0, "ox": 1, "oy": 2, "xm": 3, "ex": 4,
                  "ym": 6, "sx": 7, "ey": 8}
+    EXP_NACC = 1       # per-column accumulators: the gap-X mass
+    EXP_Y_AUX = False  # exp_probs_w reads no y element
 
     @staticmethod
-    def exp_probs_w(t, e_gapx, em_t, eg_t, f0m, f1m, f1a, bw2, total):
+    def exp_probs_w(t, e_gapx, em_t, eg_t, y_t, f0m, f1m, f1a, bw2, total):
         """Posterior transition probabilities into one target diagonal
         (cell_signal_updateTransAndKmerSkipExpectations,
         impl/pairwiseAligner.c:442-459): p = exp(min(fwd_src + transition
         + emission + bwd_target - total, 10)), in the target diagonal's
         window.  f0m = fwd[t-2] at source x-1 (middle), f1m = fwd[t-1] at
         x-1 (lower), f1a = fwd[t-1] at x (upper), bw2 = bwd[t] at x,
-        em_t/eg_t = emissions(t) and e_gapx = the gap-X row at x.  Returns
-        ({name: p} keyed like EXP_LANES, gap-X mass ox + ex + sx)."""
+        em_t/eg_t = emissions(t), e_gapx = the gap-X row at x and y_t the
+        target's y element (None: EXP_Y_AUX is False).  Returns ({name: p}
+        keyed like EXP_LANES, (gap-X mass ox + ex + sx,)): the EXP_NACC
+        per-column contributions."""
         def p(logp):
             # the cap keeps p finite where total is still NEG (before a
             # read's seed diagonal), so that p * band mask is never NaN
@@ -166,7 +170,7 @@ class StrawmanSpec:
         up = eg_t + bw2[2]
         probs["oy"] = p(f1a[0] + t[T_OY] + up)
         probs["ey"] = p(f1a[2] + t[T_EY] + up)
-        return probs, probs["ox"] + probs["ex"] + probs["sx"]
+        return probs, (probs["ox"] + probs["ex"] + probs["sx"],)
 
 
 # 5-state DNA machine scalar order: lower(4), middle(5), upper(4)
@@ -182,8 +186,10 @@ class Dna5Spec:
 
     ``xf`` rows 0..4 are the match emissions of the x base against y base
     0..4 (4 = N), row 5 the gap-X emission; ``yf`` row 0 carries the y base
-    index as a float, row 1 the gap-Y emission.  No EM expectations yet
-    (ROADMAP Queue 1 item 3, dna5 EM)."""
+    index as a float, row 1 the gap-Y emission.  EM expectations
+    (cell_updateExpectations, impl/pairwiseAligner.c:423-441): the 13
+    transitions of the machine and the posterior mass into each state by
+    y base (``exp_probs_w``)."""
 
     NAME = "dna5"
     SUFFIX = "_dna5"
@@ -233,13 +239,63 @@ class Dna5Spec:
         bw_ly = log_add(mid + t[T5_MLY], up_l + t[T5_LEY])
         return [bw_m, bw_sx, bw_sy, bw_lx, bw_ly]
 
+    # transition lanes frm * 5 + to over (M, SX, SY, LX, LY): the 13
+    # transitions of the machine; the other 12 lanes of the [5, 5] table
+    # stay 0
+    EXP_LANES = {"mm": 0, "sxm": 5, "sym": 10, "lxm": 15, "lym": 20,
+                 "msx": 1, "sxsx": 6, "mlx": 3, "lxlx": 18,
+                 "msy": 2, "sysy": 12, "mly": 4, "lyly": 24}
+    # per-column accumulators to * 4 + by: the mass into state ``to`` at a
+    # cell of y base ``by`` (N, base 4, gets none, as in the engine)
+    EXP_NACC = 20
+    EXP_Y_AUX = True
+
+    @staticmethod
+    def exp_probs_w(t, e_gapx, em_t, eg_t, y_t, f0m, f1m, f1a, bw2, total):
+        """``StrawmanSpec.exp_probs_w`` for the 5-state machine
+        (``_Dna5Spec.exp_probs_w``, pallas_fb.py:406-449, op for op):
+        ({name: p} keyed like EXP_LANES, the 20 contributions
+        where(y_t == by, p_to[to], 0) in order to * 4 + by), p_to[to] the
+        posterior mass into state ``to`` summed in the JAX order."""
+        def p(logp):
+            return torch.exp(torch.clamp(logp - total, max=10.0))
+
+        # middle: (t-2, x-1) -> M; lower: (t-1, x-1) -> SX / LX; upper:
+        # (t-1, x) -> SY / LY
+        mid = em_t + bw2[0]
+        probs = {"mm": p(f0m[0] + t[T5_MM] + mid),
+                 "sxm": p(f0m[1] + t[T5_MSX] + mid),
+                 "sym": p(f0m[2] + t[T5_MSY] + mid),
+                 "lxm": p(f0m[3] + t[T5_MLX] + mid),
+                 "lym": p(f0m[4] + t[T5_MLY] + mid)}
+        low_s = e_gapx + bw2[1]
+        low_l = e_gapx + bw2[3]
+        probs["msx"] = p(f1m[0] + t[T5_SOX] + low_s)
+        probs["sxsx"] = p(f1m[1] + t[T5_SEX] + low_s)
+        probs["mlx"] = p(f1m[0] + t[T5_LOX] + low_l)
+        probs["lxlx"] = p(f1m[3] + t[T5_LEX] + low_l)
+        up_s = eg_t + bw2[2]
+        up_l = eg_t + bw2[4]
+        probs["msy"] = p(f1a[0] + t[T5_SOY] + up_s)
+        probs["sysy"] = p(f1a[2] + t[T5_SEY] + up_s)
+        probs["mly"] = p(f1a[0] + t[T5_LOY] + up_l)
+        probs["lyly"] = p(f1a[4] + t[T5_LEY] + up_l)
+        p_to = [(probs["mm"] + probs["sxm"] + probs["sym"] + probs["lxm"]
+                 + probs["lym"]),
+                probs["msx"] + probs["sxsx"],
+                probs["msy"] + probs["sysy"],
+                probs["mlx"] + probs["lxlx"],
+                probs["mly"] + probs["lyly"]]
+        return probs, tuple(torch.where(y_t == float(by), p_to[to], 0.0)
+                            for to in range(5) for by in range(4))
+
 
 def _no_expectations(spec):
     """Refuse an expectation pass for a spec whose K3 is not ported."""
     if not hasattr(spec, "exp_probs_w"):
         raise NotImplementedError(
             f"{spec.NAME} EM expectations are not ported yet (ROADMAP Queue "
-            f"1 item 3, dna5 EM: K3 for dna5 with pipeline/em.py)")
+            f"1 item 3 and Queue 2: the {spec.NAME} spec rows)")
 
 
 # ---------------------------------------------------------------------------
@@ -405,35 +461,42 @@ def block_sum(v):
 class _Expectations:
     """The expectation sums of one plain backward: per-lane transition sums
     (added up over the target diagonals, reduced over lanes at the end, as
-    the kernel's per-thread registers are) and the per-column gap-X mass
-    [G, R, X] in x frame."""
+    the kernel's per-thread registers are) and the spec's EXP_NACC
+    per-column accumulators [G, NACC, R, X] in x frame."""
 
-    def __init__(self, fr):
-        self.fr = fr
+    def __init__(self, fr, C):
+        self.fr, self.C = fr, C
         S = fr.spec.S
         self.acc = [torch.zeros((fr.G, fr.R, fr.W), device=fr.xf.device)
                     for _ in range(S * S)]
-        self.gap = torch.zeros((fr.G, fr.R, fr.xf.shape[-1]),
-                               device=fr.xf.device)
+        self.cols = torch.zeros(
+            (fr.G, fr.spec.EXP_NACC, fr.R, fr.xf.shape[-1]),
+            device=fr.xf.device)
 
     def add(self, d_t, wt, em_t, eg_t, f0m, f1m, f1a, bw2, total):
         """Contributions of target diagonal ``d_t`` (window ``wt``), every
-        input aligned to that window (``accumulate_exp``, :1072-1095)."""
+        input aligned to that window (``accumulate_exp``, :1072-1095); the
+        target's y element is read fresh at column C - d_t + x
+        (pallas_fb.py:1077), not carried."""
         fr = self.fr
         spec = fr.spec
         e_gapx = fr.cols(fr.xf[:, :, spec.GAP_X:spec.GAP_X + 1], wt)[:, :, 0]
-        probs, gap = spec.exp_probs_w(fr.t, e_gapx, em_t, eg_t, f0m, f1m,
-                                      f1a, bw2, total)
+        y_t = (fr.cols(fr.yf[:, :, :1], self.C - d_t + wt)[:, :, 0]
+               if spec.EXP_Y_AUX else None)
+        probs, contribs = spec.exp_probs_w(fr.t, e_gapx, em_t, eg_t, y_t,
+                                           f0m, f1m, f1a, bw2, total)
         m = fr.band(d_t, wt).to(torch.float32)
         for name, k in spec.EXP_LANES.items():
             self.acc[k] = self.acc[k] + probs[name] * m
-        x = fr.xcoord(wt).expand(fr.G, fr.R, fr.W)
-        self.gap.scatter_add_(2, x, gap * m)
+        # one scatter for all accumulators: each column of a read takes
+        # one value per accumulator from this target
+        x = fr.xcoord(wt)[:, None].expand(fr.G, len(contribs), fr.R, fr.W)
+        self.cols.scatter_add_(3, x, torch.stack(contribs, 1) * m[:, None])
 
     def result(self):
-        """(trans [G, R, 9], gapx [G, 1, R, X])."""
+        """(trans [G, R, S*S], per-column accumulators [G, NACC, R, X])."""
         trans = torch.stack([block_sum(a) for a in self.acc], dim=-1)
-        return trans, self.gap[:, None]
+        return trans, self.cols
 
 
 def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
@@ -455,7 +518,7 @@ def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
     # emissions(d+2) at w_{d+1}: match and gap-Y
     _, em_c, eg_c = fr.emissions(ND + 2, fr.win[:, ND + 1], C)
     if with_exp:
-        exp = _Expectations(fr)
+        exp = _Expectations(fr, C)
         f1 = [neg] * S      # fwd[d+1], raw at window w_{d+1}
     if TD:
         acc = torch.zeros((G, R), device=dev)       # backward shift B
@@ -556,18 +619,23 @@ backward_plain.calls = 0
 def backward_exp_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf,
                        fwd, *, R, W, ND, C, spec=StrawmanSpec):
     """Plain PyTorch expectation backward: ``backward_plain``'s (posts,
-    totals) plus the EM sums (diagonalCalculation_signal_Expectations,
+    totals) plus the EM sums (diagonalCalculation(_signal)_Expectations,
     impl/pairwiseAligner.c:868-912) of every read:
 
-    - trans [G, R, 9]: posterior transition mass, lanes ``frm * 3 + to``
-      (``StrawmanSpec.EXP_LANES``);
-    - gapx [G, 1, R, X]: posterior gap-X mass per reference column x.
+    - trans [G, R, S*S]: posterior transition mass, lanes ``frm * S + to``
+      (``spec.EXP_LANES``; lanes that are no transition of the machine
+      hold 0);
+    - acc [G, NACC, R, X]: the spec's EXP_NACC per-column accumulators in
+      x frame (the JAX layout, ``_exp_dispatch`` reads it so): strawman the
+      gap-X mass per reference column, dna5 the mass into state ``to`` by
+      y base ``by`` in row to * 4 + by.
 
     Each target diagonal t takes mass from sources on t-1 and t-2 and is
     added at the step of diagonal t-2, after that step's total; the
     epilogue adds targets 2 and 1.  The transition sums are per lane over
     the targets, then over the lanes (``block_sum``), as the kernel
-    reduces them.  Strawman only so far (``_no_expectations``)."""
+    reduces them.  A spec without ``exp_probs_w`` raises
+    (``_no_expectations``)."""
     _no_expectations(spec)
     backward_exp_plain.calls += 1
     return _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
@@ -734,11 +802,11 @@ def wavefront_bwd(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
 def wavefront_bwd_exp(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
                       *, R, W, ND, C, spec=StrawmanSpec):
     """Expectation backward -> (posts [G, ND+1, R, W], totals [G, R],
-    trans [G, R, 9], gapx [G, 1, R, X]) f32 (see ``backward_exp_plain``).
-    Plain PyTorch for CPU tensors; the CUDA kernel
-    ``sm3_bwd_kernel<Strawman, true>`` for CUDA tensors (replaces
-    cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
-    with_exp=True).  Strawman only so far (``_no_expectations``)."""
+    trans [G, R, S*S], acc [G, NACC, R, X]) f32 (see
+    ``backward_exp_plain``).  Plain PyTorch for CPU tensors; the CUDA
+    kernel ``sm3_bwd_kernel<spec, true, false>`` for CUDA tensors
+    (replaces cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
+    with_exp=True; entry ``wavefront_bwd_exp`` + ``spec.SUFFIX``)."""
     _no_expectations(spec)
     if xf.device.type == "cpu":
         return backward_exp_plain(scal, win, xf, yf, basef, widthf, seedf,
@@ -827,7 +895,8 @@ def _launch_bwd(name, scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
 
     outs = [empty(G, ND + 1, R, W), empty(G, R)]
     if with_exp:
-        outs += [empty(G, R, spec.S * spec.S), empty(G, 1, R, X)]
+        outs += [empty(G, R, spec.S * spec.S),
+                 empty(G, spec.EXP_NACC, R, X)]
     stream = torch.cuda.current_stream(xf.device).cuda_stream
     entry = name + spec.SUFFIX
     args = [_ptr(v) for v in (*named.values(), *outs)]

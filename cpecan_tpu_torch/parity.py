@@ -24,9 +24,20 @@ the f64 engine:
   EXP_GAP_ATOL, and each read's total within EXP_GAP_SUM_RTOL;
 - likelihood (total * n_diag): relative |d| <= TOTAL_RTOL, as the totals.
 
+The dna5 expectations (cPecanEm's E-step) take the same bars: per-column
+accumulators as the gap-X columns, finalized transition and emission
+expectations (``check_dna5_expectations``) as the transition sums, as
+``tests/test_pallas.py::test_dna5_pallas_expectations_match_engine`` holds
+the f32 kernel to the f64 engine.  A trained cPecanEm model (normalized
+transitions and emissions after a few iterations from the same start,
+kept in memory, never rounded through a file) agrees within
+|d| <= EM_RTOL * |v| + EM_ATOL, its running likelihoods within
+TOTAL_RTOL (``check_em``): port and JAX package differ by ~2e-6 in the
+model and ~2e-7 relative in likelihood on the fixture case.
+
 The expectation kernel against its plain version on the same card inputs
 runs the same f32 operations in the same order: posts, totals and
-transition sums are equal bit for bit, gap-X columns within
+transition sums are equal bit for bit, per-column accumulators within
 KERNEL_GAPX_ATOL (the plain version's scatter-add on the card flushes a
 denormal sum that the kernel's adds keep).
 
@@ -81,6 +92,7 @@ EXP_GAP_RTOL, EXP_GAP_ATOL = 5e-3, 1e-3
 EXP_GAP_SUM_RTOL = 2e-3
 TRAIN_GAP_ATOL = 1e-4
 KERNEL_GAPX_ATOL = 1e-30
+EM_RTOL, EM_ATOL = 1e-3, 2e-5
 LONG_SCORE_ATOL = 2.5e-2
 LONG_DNA_ENGINE_SCORE_ATOL = 6e-2
 TILED_POST_ATOL, TILED_TOTAL_ATOL = 1e-2, 5e-2
@@ -155,14 +167,15 @@ def _rel(what, got, want, rtol):
 
 
 def check_exp_sums(trans, gapx, want_trans, want_gapx):
-    """The expectation backward's sums: trans [G, R, 9] and gapx
-    [G, 1, R, X]; returns (trans max |d|, gapx max |d|)."""
+    """The expectation backward's sums: trans [G, R, S*S] and the
+    per-column accumulators gapx [G, NACC, R, X]; returns (trans max |d|,
+    accumulators max |d|)."""
     err_t = _close("transition sums", trans, want_trans, EXP_TRANS_RTOL,
                    EXP_TRANS_ATOL)
-    err_g = _close("gap-X columns", gapx, want_gapx, EXP_GAP_RTOL,
+    err_g = _close("per-column accumulators", gapx, want_gapx, EXP_GAP_RTOL,
                    EXP_GAP_ATOL)
-    _rel("per-read gap-X mass", _host(gapx).sum(-1),
-         _host(want_gapx).sum(-1), EXP_GAP_SUM_RTOL)
+    _rel("per-read accumulated mass", _host(gapx).sum(-1).sum(1),
+         _host(want_gapx).sum(-1).sum(1), EXP_GAP_SUM_RTOL)
     return err_t, err_g
 
 
@@ -177,8 +190,8 @@ def check_exp_kernel(got, want):
                 f"{float((g - w).abs().max())}")
     err = float((got[3] - want[3]).abs().max())
     if not err <= KERNEL_GAPX_ATOL:
-        raise AssertionError(f"gap-X columns differ from the plain version "
-                             f"by {err}")
+        raise AssertionError(f"per-column accumulators differ from the "
+                             f"plain version by {err}")
     return err
 
 
@@ -192,6 +205,32 @@ def check_expectations(got, want):
     _rel("per-read k-mer gap mass", np.sum(got["kmer_gap"], -1),
          np.sum(want["kmer_gap"], -1), EXP_GAP_SUM_RTOL)
     _rel("likelihoods", got["likelihood"], want["likelihood"], TOTAL_RTOL)
+    return err
+
+
+def check_dna5_expectations(got, want):
+    """Finalized per-read dna5 expectations {"trans" [B, 5, 5], "emis"
+    [B, 5, 4, 4], "likelihood" [B]}; returns (trans max |d|, emis
+    max |d|)."""
+    err_t = _close("transition expectations", got["trans"], want["trans"],
+                   EXP_TRANS_RTOL, EXP_TRANS_ATOL)
+    err_e = _close("emission expectations", got["emis"], want["emis"],
+                   EXP_TRANS_RTOL, EXP_TRANS_ATOL)
+    _rel("likelihoods", got["likelihood"], want["likelihood"], TOTAL_RTOL)
+    return err_t, err_e
+
+
+def check_em(transitions, emissions, running, want_transitions,
+             want_emissions, want_running):
+    """A trained cPecanEm model (normalized transitions and emissions) and
+    its running likelihoods against another run's; returns the model's
+    max |d|."""
+    err = max(_close("EM transitions", transitions, want_transitions,
+                     EM_RTOL, EM_ATOL),
+              _close("EM emissions", emissions, want_emissions, EM_RTOL,
+                     EM_ATOL))
+    _close("running likelihoods", np.asarray(running, np.float64),
+           np.asarray(want_running, np.float64), TOTAL_RTOL, 0.0)
     return err
 
 

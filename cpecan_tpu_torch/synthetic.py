@@ -9,7 +9,9 @@ DNA: ``synth_dna_pair`` is ``tools/exp_long_read.py::synth_dna_pair`` (the
 100 kb pair of bench.py's ``long_read_bases_per_sec``), and
 ``dna_realign_batch`` the 64 x 2 kb pairs of bench.py's
 ``dna_realign_alignments_per_sec`` (``bench_dna_realign``), with their
-cigars for the realign CLI."""
+cigars for the realign CLI, and ``dna_em_batch`` the 128 x 1 kb
+alignments of bench.py's ``dna_em_estep_alignments_per_sec``
+(``bench_dna_em``)."""
 
 import random
 
@@ -17,6 +19,7 @@ import numpy as np
 
 from .constants import KMER_LENGTH, MODEL_PARAMS, NUM_OF_KMERS
 from .fixtures import fixture_path
+from .io.cigar import parse_cigar_line
 from .io.poremodel import PoreModel, load_pore_model
 from .models.kmers import seq_to_kmer_indices
 from .models.state_machines import StateMachine3SignalStrawman
@@ -160,3 +163,26 @@ def realign_inputs(reads):
         fasta.append(f">x{i}\n{sx}\n>y{i}\n{sy}\n")
         cigars.append(f"cigar: y{i} 0 {l_y} + x{i} 0 {l_x} + 0 M {l_x}")
     return "".join(fasta), cigars
+
+
+def dna_em_batch(n_pairs=128, length=1000, seed=3, redraw=0.12):
+    """bench.py's cPecanEm E-step workload (``bench_dna_em``), byte for
+    byte: ``n_pairs`` pairs x<i> / y<i> of ``length`` random bases and a
+    copy with a share ``redraw`` of its bases drawn again (~9%
+    substitutions at 0.12) from ``random.Random(seed)``, each with one
+    gapless cigar ``M length``.  Returns (sequences {name: bases},
+    alignments [PairwiseAlignment], the generator): bench.py shards the
+    alignments with that generator next (``_shard_alignments``).  With
+    (3, 120, 21, 0.15) it is the case of tests/test_pipelines.py::
+    test_em_pallas_engine_matches_scan."""
+    rng = random.Random(seed)
+    seqs, alns = {}, []
+    for i in range(n_pairs):
+        sx = "".join(rng.choice("ACGT") for _ in range(length))
+        sy = "".join(c if rng.random() > redraw else rng.choice("ACGT")
+                     for c in sx)
+        seqs[f"x{i}"] = sx
+        seqs[f"y{i}"] = sy
+        alns.append(parse_cigar_line(
+            f"cigar: y{i} 0 {len(sy)} + x{i} 0 {length} + 0 M {length}"))
+    return seqs, alns, rng

@@ -5,11 +5,13 @@ The reference's checkpoint story is "the EM model file is the checkpoint"
 This module keeps that property (model text files remain reloadable) and
 adds what the reference lacks: a versioned, atomic, round-trippable
 trainer-state checkpoint (npz arrays + JSON metadata) so an interrupted EM
-run resumes from its exact iteration and likelihood trajectory.
+run resumes from its exact iteration, likelihood trajectory, and RNG state
+(SURVEY §5, checkpoint/resume).
 """
 
 import json
 import os
+import random
 import tempfile
 
 import numpy as np
@@ -52,6 +54,18 @@ def load_checkpoint(path):
         arrays = {k: z[k] for k in z.files if k != "__meta__"}
     step = meta.pop("step")
     return step, arrays, meta
+
+
+def rng_state_to_json(rng):
+    """random.Random state as JSON-able lists."""
+    version, internal, gauss = rng.getstate()
+    return [version, list(internal), gauss]
+
+
+def rng_state_from_json(state):
+    rng = random.Random()
+    rng.setstate((state[0], tuple(state[1]), state[2]))
+    return rng
 
 
 class CheckpointManager:

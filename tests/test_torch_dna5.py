@@ -306,23 +306,20 @@ def test_wrapper_launches_read_the_strawman_entry():
 
 
 def test_dna5_expectations_raise():
-    """No dna5 K3 yet: the run, the wrapper and the plain pass refuse
-    before any pass runs, naming the ROADMAP item."""
-    reads = _engine_reads()[:2]
+    """A dna5 expectation run past 2^14 estimated diagonals (an alignment
+    of more than ~8 kb a side that cPecanEm did not split) is refused
+    before any pass runs, naming the split (the JAX package runs it
+    untiled with a warning; ROADMAP Queue 3)."""
     ta = Dna5Aligner(device="cpu", group=8)
     fk.reset_counts()
-    with pytest.raises(NotImplementedError, match="dna5 EM"):
-        ta.run(StateMachine5(), reads, expectations=True)
-    assert fk.forward_plain.calls == 0
-    prep = ta.prepare(StateMachine5(), reads)
-    inp = ta.device_inputs(StateMachine5(), prep)
-    dims = dict(R=prep["R"], W=prep["W"], ND=prep["ND"], C=prep["C"],
-                spec=fk.Dna5Spec)
-    fwd = _fwd(inp, dims, fk.wavefront_fwd)
-    for fn in (fk.wavefront_bwd_exp, fk.backward_exp_plain):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            _bwd(inp, dims, fwd, fn)
-    assert fk.backward_exp_plain.calls == 0
+    for kw in (dict(shape_hint=(60, 2 ** 14)), dict(tile_diag=256)):
+        with pytest.raises(NotImplementedError, match="get_split_points"):
+            ta.run(StateMachine5(), _engine_reads()[:1], expectations=True,
+                   **kw)
+    long_pair = ("A" * 8200, "A" * 8200, 8200, 8200, [])
+    with pytest.raises(NotImplementedError, match="get_split_points"):
+        ta.run(StateMachine5(), [long_pair], expectations=True)
+    assert fk.forward_plain.calls == fk.backward_exp_plain.calls == 0
 
 
 def test_dna5_routing(monkeypatch):

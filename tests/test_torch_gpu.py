@@ -13,9 +13,9 @@ import pytest
 import torch
 
 from cpecan_tpu_torch.align import AlignmentParams
-from cpecan_tpu_torch.fixtures import (load_dna5_realign, load_long_read,
-                                       load_zymo_slice, load_zymo_train,
-                                       zymo_trained_params)
+from cpecan_tpu_torch.fixtures import (load_dna5_em, load_dna5_realign,
+                                       load_long_read, load_zymo_slice,
+                                       load_zymo_train, zymo_trained_params)
 from cpecan_tpu_torch.models.state_machines import (
     StateMachine3SignalStrawman, StateMachine5)
 from cpecan_tpu_torch.ops import fb_kernels as fk
@@ -24,13 +24,16 @@ from cpecan_tpu_torch.ops.compact import (compact_posteriors,
                                           extract_pairs_chunk)
 from cpecan_tpu_torch.ops.fb import Dna5Aligner, StrawmanAligner
 from cpecan_tpu_torch.parity import (LONG_DNA_ENGINE_SCORE_ATOL, band_mask,
+                                     check_dna5_expectations, check_em,
                                      check_exp_kernel,
                                      check_expectations, check_fwd,
                                      check_long_pairs, check_pairs,
                                      check_posts, check_tiled, check_totals,
                                      check_trained)
+from cpecan_tpu_torch.pipeline import em
 from cpecan_tpu_torch.pipeline.train_models import TrainOptions, train
-from cpecan_tpu_torch.synthetic import dna_realign_batch, synthetic_batch
+from cpecan_tpu_torch.synthetic import (dna_em_batch, dna_realign_batch,
+                                        synthetic_batch)
 
 pytestmark = pytest.mark.gpu
 
@@ -341,3 +344,89 @@ def test_cuda_realign_cli_matches_fixture(cuda, tmp_path):
     want = [str(c) for c in stored["cigars_out"]]
     assert len(got) == len(want)
     assert sum(a == b for a, b in zip(got, want)) >= len(want) - 1
+
+
+def _equalised_machine():
+    """The machine of cPecanEm's equalised fiveState start (bench.py's
+    E-step): every transition 1/5, every emission 1/16."""
+    hmm = em.PipelineHmm("fiveState")
+    hmm.equalise()
+    return hmm.to_state_machine()
+
+
+@pytest.mark.parametrize("machine", ["default", "equalised"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_cuda_dna5_exp_kernel_matches_plain(dna5_batch, cuda, ragged,
+                                            machine):
+    """K3 for dna5 against its plain version on the same card inputs:
+    posteriors, totals and the 25 transition lanes bit for bit, the 20
+    per-column accumulators within parity.KERNEL_GAPX_ATOL, and the
+    finalized expectations."""
+    sm = StateMachine5() if machine == "default" else _equalised_machine()
+    pa = Dna5Aligner(device=cuda, group=8)
+    prep = pa.prepare(sm, dna5_batch, ragged_right=ragged)
+    inp = pa.device_inputs(sm, prep, ragged_left=ragged)
+    dims = dict(R=prep["R"], W=prep["W"], ND=prep["ND"], C=prep["C"],
+                spec=fk.Dna5Spec)
+    fwd = _fwd(inp, dims, fk.wavefront_fwd)
+    assert torch.equal(fwd, _fwd(inp, dims, fk.forward_plain))
+    fk.reset_counts()
+    got = _bwd(inp, dims, fwd, fk.wavefront_bwd_exp)
+    torch.cuda.synchronize()
+    assert fk.KERNEL_LAUNCHES == {"wavefront_bwd_exp_dna5": 1}
+    assert fk.backward_exp_plain.calls == 0
+    want = _bwd(inp, dims, fwd, fk.backward_exp_plain)
+    check_exp_kernel(got, want)
+    lanes = list(fk.Dna5Spec.EXP_LANES.values())
+    idle = [k for k in range(25) if k not in lanes]
+    assert torch.all(got[2][..., idle] == 0.0)
+    assert torch.all(got[2][..., lanes] > 0.0)
+    kposts, ktotals = _bwd(inp, dims, fwd, fk.wavefront_bwd)
+    assert torch.equal(got[0], kposts) and torch.equal(got[1], ktotals)
+    fin = [pa.exp_finalize(prep, pa.exp_dispatch(
+        prep, inp, o[2], o[3], o[1]).cpu().numpy()) for o in (got, want)]
+    for k in ("trans", "likelihood"):
+        np.testing.assert_array_equal(fin[0][k], fin[1][k])
+    check_dna5_expectations(*fin)
+
+
+def test_cuda_dna5_estep_matches_cpu(cuda):
+    """A cPecanEm E-step (``calculate_expectations_pallas``, two chunks) on
+    the card against the same E-step on the CPU (plain passes)."""
+    seqs, alns, _ = dna_em_batch(n_pairs=70, length=200, seed=4)
+    sm = _equalised_machine()
+    params = em.EmOptions().realign_params
+    fk.reset_counts()
+    got = em.calculate_expectations_pallas(
+        [alns], seqs, sm, params, Dna5Aligner(params, device=cuda))
+    assert fk.KERNEL_LAUNCHES == {"wavefront_fwd_dna5": 2,
+                                  "wavefront_bwd_exp_dna5": 2}
+    want = em.calculate_expectations_pallas(
+        [alns], seqs, sm.to("cpu"), params,
+        Dna5Aligner(params, device="cpu", group=8))
+    check_dna5_expectations(
+        {"trans": got.transitions, "emis": got.emissions,
+         "likelihood": np.array([got.likelihood])},
+        {"trans": want.transitions, "emis": want.emissions,
+         "likelihood": np.array([want.likelihood])})
+
+
+@pytest.mark.parametrize("model_type", ["fiveState", "fiveStateAsymmetric"])
+def test_cuda_em_matches_fixture(cuda, model_type):
+    """cPecanEm on the card (three iterations) against the JAX package's
+    stored engine="pallas" result (tests/fixtures/dna5_em.npz)."""
+    import random
+
+    seqs, alns, stored = load_dna5_em()
+    fk.reset_counts()
+    hmm = em.expectation_maximisation(
+        seqs, alns, em.EmOptions(model_type=model_type,
+                                 iterations=int(stored["iterations"]),
+                                 train_emissions=True),
+        random.Random(int(stored["rng_seed"])), device=cuda)
+    assert fk.KERNEL_LAUNCHES["wavefront_bwd_exp_dna5"] == \
+        int(stored["iterations"])
+    check_em(hmm.transitions, hmm.emissions, hmm.running_likelihoods,
+             stored[f"{model_type}_transitions"],
+             stored[f"{model_type}_emissions"],
+             stored[f"{model_type}_running"])

@@ -254,6 +254,25 @@ def case_checkpoint(tmp_path):
             np.testing.assert_array_equal(arr["a"], arrays["a"])
 
 
+def case_rng_state_json():
+    import json
+    import random
+
+    rng = random.Random(11)
+    rng.random()
+    rng.gauss(0.0, 1.0)     # leaves a cached gauss in the state
+    state = t_checkpoint.rng_state_to_json(rng)
+    assert state == j_checkpoint.rng_state_to_json(rng)
+    # through JSON text, as a checkpoint stores it
+    state = json.loads(json.dumps(state))
+    restored = [mod.rng_state_from_json(state)
+                for mod in (t_checkpoint, j_checkpoint)]
+    assert restored[0].getstate() == restored[1].getstate() == rng.getstate()
+    want = [rng.gauss(0.0, 1.0), rng.random()]
+    for r in restored:
+        assert [r.gauss(0.0, 1.0), r.random()] == want
+
+
 def case_constants_and_fixture_paths():
     for name in dir(t_constants):
         if name.isupper():
@@ -366,7 +385,8 @@ def case_synth_dna_pair():
 CASES = {f.__name__[5:]: f for f in (
     case_make_bands, case_cigar, case_load_guides, case_npread,
     case_pore_model, case_hmm_round_trip, case_kmers, case_anchors,
-    case_checkpoint, case_constants_and_fixture_paths, case_reweight,
+    case_checkpoint, case_rng_state_json,
+    case_constants_and_fixture_paths, case_reweight,
     case_multiple_aligner, case_cigar_io, case_fasta_io, case_hmm_discrete,
     case_synth_dna_pair)}
 
