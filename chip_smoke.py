@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ and drives the strawman signal-alignment
-paths, the 5-state DNA realigner and cPecanEm (DNA Baum-Welch) through
+paths, the 5-state DNA realigner, cPecanEm (DNA Baum-Welch) and the vanilla
+signal machine (signalAlign's default, posteriors and trainModels) through
 them:
 
 1. versions, the card's name and power limit;
@@ -17,7 +18,7 @@ them:
    of 64 reads, compact_k=1024, then extract_pairs_chunk; end-to-end
    alignments/s and band cells/s (median of 3 after a warm-up), with the
    kernels' launch counts;
-6. forward + backward device time on the whole batch, kernels vs plain;
+6. forward + backward device time of the kernels on the whole batch;
 7. the EM expectation backward against its plain version on the first 32
    bench reads (ragged ends, per-read scaling), with the untrained machine
    and with the Zymo fixture's trained one (Y -> X open): forward planes,
@@ -46,13 +47,14 @@ them:
    1,500 x 2,550 read of the same generator (two tiles): fwd plane,
    shifts, posteriors and totals bit for bit, equal pairs, and the
    kernels' and plain versions' ms on it;
-13. the dna5 kernels (K1, K2, K6a, K6b for the 5-state DNA machine)
-   against their plain versions on the first 32 pairs of bench.py's realign
-   batch (64 x 2 kb, random.Random(11); group 32, ragged at both ends),
-   untiled and with tile_diag=128: fwd planes, shifts, posteriors and
-   totals equal bit for bit, equal pair sets (the tiled run's distance
-   from the untiled one is logged: it is the untiled f32 drift); the
-   golden AGCG x AGTTCG pairs at threshold 0.2;
+13. the dna5 kernels K1 and K2 against their plain versions on the first
+   32 pairs of bench.py's realign batch (64 x 2 kb, random.Random(11);
+   group 32, ragged at both ends): fwd planes, posteriors and totals equal
+   bit for bit, equal pair sets; K6a/K6b dna5 on the same pairs with
+   tile_diag=128 (32 tiles), their distance from the untiled run logged
+   (it is the untiled f32 drift; phase 16 and the gpu tests hold K6a/K6b
+   dna5 to their plain versions); the golden AGCG x AGTTCG pairs at
+   threshold 0.2;
 14. the realign CLI (cpecan_tpu_torch.cli.realign) on the card on the
    stored cigars of tests/fixtures/dna5_realign.npz: at least 7 of 8
    cigars equal the JAX CLI's --engine pallas output;
@@ -87,7 +89,24 @@ them:
    likelihood rising, peak device memory and the launch counts; the
    fixture case (tests/fixtures/dna5_em.npz) against the JAX package's
    stored engine="pallas" models; cpecan-torch-em end to end on the card
-   (the fixture case against the stored model, the 128 alignments timed).
+   (the fixture case against the stored model, the 128 alignments timed);
+19. the vanilla kernels (K1, K2, K3 for the vanilla machine) against their
+   plain versions: K1/K2 on the first 64-read chunk of bench.py's vanilla
+   cell (the bench batch on the vendored template model), K3 on its first
+   32 reads (group 32), each with the default machine and flush ends and
+   with the skip bins of the stored JAX vanilla training, ragged ends and
+   per-read scaling: fwd planes, posteriors, totals and the beta/alpha
+   accumulators equal bit for bit, and the finalized skip bins;
+20. the vanilla main path at full width: bench.py's
+   vanilla_alignments_per_sec (VanillaAligner(group=64).run over chunks of
+   64, compact_k=1024; median of 3 after a warm-up) with its stage split
+   and launch counts; the vanilla E-step rate on bench.py's signal-EM shape
+   (128 reads, group 32); the Zymo read's vanilla pairs and two vanilla
+   trainModels iterations against tests/fixtures/vanilla_zymo.npz; the
+   CLI with -smt vanilla once;
+21. K6a/K6b vanilla against their plain versions at phase 12's R, W and
+   TD on its 1,500 x 2,550 check read (two tiles), then phase 12's 64
+   long reads through VanillaAligner once, kernels only: bases/s.
 
 The stage splits run the path's own code (``WavefrontAligner.run``,
 ``cli.realign.main`` and ``pipeline.em.calculate_expectations_pallas``
@@ -142,9 +161,14 @@ F32_FLOPS_PER_S = 67e12
 # selects and posterior 10; the dna5 expectation target 135 more (the
 # match emission 14, 13 probabilities of 5 each, 5 adds, 13 sums of 2, the
 # band mask 3, four y-base compares, the state masses 8, five column adds
-# of 2)
+# of 2).  Vanilla: the emissions 50 (two Gaussians of 8, two inverse
+# Gaussians of 16, two adds), four log_adds and 9 adds per update (161),
+# the band mask 3, the backward's seed selects and posterior 10; the
+# expectation target 17 more (two probabilities of 5, their masked adds 4,
+# the band mask 3)
 FLOPS_PER_CELL = dict(fwd=240, bwd=245, bwd_exp=355, dna5_fwd=339,
-                      dna5_bwd=349, dna5_bwd_exp=484)
+                      dna5_bwd=349, dna5_bwd_exp=484, vanilla_fwd=214,
+                      vanilla_bwd=221, vanilla_bwd_exp=238)
 DNA_GROUP = 32       # phases 13-15: bench.py's realign chunk and group
 DNA_COMPACT_K = 4096
 DNA_LONG = 100_000   # phase 16: bench.py's long_read_bases_per_sec pair
@@ -153,6 +177,7 @@ DNA_LONG_TILE = 2048
 DNA_CHECK = 2_000    # phase 16: the pair held against plain at that geometry
 EM_DNA_GROUP = 32    # phases 17-18: bench.py's bench_dna_em group
 EM_DNA_SHARD = 1000  # phase 18: one default-size shard of 1 kb alignments
+VANILLA_E_READS = 128  # phase 20: bench.py's signal-EM shape (group 32)
 GOLDEN = {(0, 0), (1, 1), (2, 4), (3, 5)}
 
 
@@ -238,14 +263,17 @@ def main():
 
     from cpecan_tpu_torch.align import AlignmentParams
     from cpecan_tpu_torch.cli import realign
-    from cpecan_tpu_torch.cli.batch import em_main
-    from cpecan_tpu_torch.fixtures import (load_dna5_em, load_dna5_realign,
-                                           load_long_read, load_zymo_slice,
-                                           load_zymo_train,
+    from cpecan_tpu_torch.cli.batch import em_main, train_models_main
+    from cpecan_tpu_torch.fixtures import (fixture_path, load_dna5_em,
+                                           load_dna5_realign, load_long_read,
+                                           load_vanilla_zymo,
+                                           load_zymo_slice, load_zymo_train,
                                            zymo_trained_params)
     from cpecan_tpu_torch.io.cigar import cigar_write
+    from cpecan_tpu_torch.io.poremodel import load_pore_model
+    from cpecan_tpu_torch.models.hmm import VanillaHmm
     from cpecan_tpu_torch.models.state_machines import (
-        StateMachine3SignalStrawman, StateMachine5)
+        StateMachine3SignalStrawman, StateMachine3Vanilla, StateMachine5)
     from cpecan_tpu_torch.ops import fb_kernels as fk
     from cpecan_tpu_torch.ops.compact import (compact_chunks,
                                               compact_posteriors,
@@ -255,16 +283,17 @@ def main():
     from cpecan_tpu_torch.ops.cuda_build import build_info, load_library
     from cpecan_tpu_torch.ops.compact import host_array
     from cpecan_tpu_torch.ops.fb import (Dna5Aligner, StrawmanAligner,
-                                         exp_dispatch, exp_finalize)
+                                         VanillaAligner, exp_dispatch,
+                                         exp_finalize)
     from cpecan_tpu_torch.parity import (KERNEL_GAPX_ATOL,
                                          LONG_DNA_ENGINE_SCORE_ATOL,
-                                         band_mask, check_em,
+                                         TOTAL_RTOL, band_mask, check_em,
                                          check_exp_kernel,
                                          check_expectations, check_fwd,
-                                         check_long_pairs, check_pairs,
-                                         check_posts, check_tiled,
-                                         check_tiled_pairs, check_totals,
-                                         check_trained)
+                                         check_long_pairs, check_pair_sets,
+                                         check_pairs, check_posts,
+                                         check_tiled, check_tiled_pairs,
+                                         check_totals, check_trained)
     from cpecan_tpu_torch.pipeline import em
     from cpecan_tpu_torch.pipeline.train_models import (
         TrainOptions, add_and_norm_expectations, strand_expectations, train)
@@ -430,13 +459,10 @@ def main():
         return bwd_fn(*bb, fwd_fn(*ba, **bdims), **bdims)
 
     dev_ms = cuda_ms(lambda: once(fk.wavefront_fwd, fk.wavefront_bwd), 3)
-    plain_ms = cuda_ms(lambda: once(fk.forward_plain, fk.backward_plain), 1,
-                       warm=False)
     bcells = sum(int(b.width.sum()) for b in bprep["bands"])
     log(f"device fwd+bwd ({len(reads)} reads, G={len(bprep['win'])}): "
         f"kernels {dev_ms:.3f} ms ({bcells / dev_ms * 1e3:.4g} band "
-        f"cells/s), plain {plain_ms:.1f} ms "
-        f"({bcells / plain_ms * 1e3:.4g} band cells/s)")
+        f"cells/s)")
     torch.cuda.synchronize()
 
     # -- 7. K3 vs plain on the first 32 bench reads, training inputs -----
@@ -829,7 +855,9 @@ def main():
         dna5_fwd=bound(dfa + [dfwd_k], dcells, FLOPS_PER_CELL["dna5_fwd"]),
         dna5_bwd=bound(dba + [dfwd_k, dposts_k, dtot_k], dcells,
                        FLOPS_PER_CELL["dna5_bwd"]))
-    # the tiled pair on the same pairs, 128 diagonals per tile
+    # the tiled pair on the same pairs, 128 diagonals per tile (phase 16
+    # holds K6a/K6b dna5 to their plain versions at the long path's
+    # geometry)
     dtprep = da.prepare(dsm, dreads[:DNA_GROUP], ragged_right=True,
                         tile_diag=TILE_CHECK)
     dtinp = da.device_inputs(dsm, dtprep, ragged_left=True)
@@ -839,17 +867,8 @@ def main():
     dta = [dtinp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
     dtb = dta + [dtinp["seedf"], dtinp["raggedf"]]
     dtfwd_k, dtsh_k = fk.wavefront_fwd_tiled(*dta, **dtdims)
-    (dtfwd_p, dtsh_p), ms["dna5_tile128_fwd_plain"] = timed(
-        lambda: fk.forward_tiled_plain(*dta, **dtdims))
     dtposts_k, dttot_k = fk.wavefront_bwd_tiled(*dtb, dtfwd_k, dtsh_k,
                                                 **dtdims)
-    (dtposts_p, dttot_p), ms["dna5_tile128_bwd_plain"] = timed(
-        lambda: fk.backward_tiled_plain(*dtb, dtfwd_k, dtsh_k, **dtdims))
-    for what, got, want in (("K6a dna5 fwd plane", dtfwd_k, dtfwd_p),
-                            ("K6a dna5 shifts", dtsh_k, dtsh_p),
-                            ("K6b dna5 posteriors", dtposts_k, dtposts_p),
-                            ("K6b dna5 totals", dttot_k, dttot_p)):
-        same(what, got, want)
     if not bool((dtsh_k[..., 1:] != 0).all()):
         raise AssertionError("a dna5 tile boundary did not re-center")
     # the tiled planes against the untiled ones, logged and not held: at
@@ -861,17 +880,7 @@ def main():
     dtclip = float((dtposts_k[:, :ddims["ND"] + 1].clamp(max=1.0)
                     - dposts_k.clamp(max=1.0)).abs().max())
     dttot_err = float((dttot_k - dtot_k).abs().max())
-    dtparts = []
-    for p in (dtposts_k, dtposts_p):
-        dtparts.append(extract_pairs_chunk(dict(
-            prep=dtprep, posteriors=p, tiled=dtl,
-            compact_chunks=compact_chunks(p, dtl["DC"], min(
-                DNA_COMPACT_K, dtl["DC"] * dtdims["W"]))), drels, dnds, thr))
-    for i, (a, b) in enumerate(zip(*dtparts)):
-        if not np.array_equal(a, b):
-            raise AssertionError(f"dna5 tiled pairs of pair {i}: kernel and "
-                                 "plain planes give different pairs")
-    del dtfwd_k, dtfwd_p, dtposts_p
+    del dtfwd_k
     gold = Dna5Aligner(AlignmentParams(threshold=0.2), device=dev,
                        group=1).run(dsm, [("AGCG", "AGTTCG", 4, 6, [])])
     gpairs = {(x, y) for _, x, y in extract_pairs_auto(
@@ -883,14 +892,11 @@ def main():
         f"totals equal bit for bit, {sum(map(len, dparts[0]))} pairs equal; "
         f"ms fwd {ms['dna5_fwd']:.3f} vs plain {ms['dna5_fwd_plain']:.1f}, "
         f"bwd {ms['dna5_bwd']:.3f} vs plain {ms['dna5_bwd_plain']:.1f}; "
-        f"tiled (TD={dtl['TD']}, NT={dtl['NT']}): K6a/K6b fwd plane, shifts, "
-        f"posts, totals equal bit for bit, pairs equal; against the untiled "
-        f"run (the untiled drift) posts max|d| {dtclip:.3g} clipped at 1, "
+        f"tiled (TD={dtl['TD']}, NT={dtl['NT']}) against the untiled run "
+        f"(the untiled drift): posts max|d| {dtclip:.3g} clipped at 1, "
         f"{dtraw:.3g} raw (largest posterior untiled "
         f"{float(dposts_k.max()):.4g}, tiled {float(dtposts_k.max()):.4g}), "
-        f"totals max|d| {dttot_err:.3g}, "
-        f"plain ms {ms['dna5_tile128_fwd_plain']:.1f} / "
-        f"{ms['dna5_tile128_bwd_plain']:.1f}; golden AGCG x AGTTCG {gpairs}")
+        f"totals max|d| {dttot_err:.3g}; golden AGCG x AGTTCG {gpairs}")
     torch.cuda.synchronize()
 
     # -- 14. the realign CLI on the card vs the JAX CLI's stored output ---
@@ -1328,6 +1334,314 @@ def main():
         f"end to end in {bcli_s:.3f} s, final likelihood {bh.likelihood}")
     torch.cuda.synchronize()
 
+    # -- 19. the vanilla kernels vs plain on bench.py's vanilla cell --------
+    # bench.py's vanilla cell: the bench batch on the vendored template
+    # model.  Two machines: the default one with flush ends, and the skip
+    # bins of the stored JAX vanilla training with ragged ends and per-read
+    # scaling (the E-step's configuration)
+    tmodel = load_pore_model(fixture_path("template_median68pA.model"))
+    vjob, vsp, vstored = load_vanilla_zymo()
+    vmachines = {
+        "default": (StateMachine3Vanilla(tmodel), False, None),
+        "trained": (StateMachine3Vanilla(
+            tmodel, skip_bin_probs=vstored["t_skip"]), True, em_sp)}
+
+    def vanilla_inputs(machine, rs, group, ragged, sp):
+        """(aligner, prep, inputs, fwd args, bwd args, dims)."""
+        a = VanillaAligner(AlignmentParams(), device=dev, group=group)
+        prep = a.prepare(machine, rs, ragged_right=ragged,
+                         scale_params=None if sp is None else sp[:len(rs)])
+        inp = a.device_inputs(machine, prep, ragged_left=ragged)
+        vd = dict(R=prep["R"], W=prep["W"], ND=prep["ND"], C=prep["C"],
+                  spec=fk.VanillaSpec)
+        fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                               "widthf")]
+        return a, prep, inp, fa, fa + [inp["seedf"], inp["raggedf"]], vd
+
+    for name, (machine, ragged, vsp_) in vmachines.items():
+        _, kprep, _, kfa, kba, kd = vanilla_inputs(machine, reads[:CHUNK],
+                                                   GROUP, ragged, vsp_)
+        vfwd = fk.wavefront_fwd(*kfa, **kd)
+        vfwd_p, vfwd_ms = timed(lambda: fk.forward_plain(*kfa, **kd))
+        vposts, vtot = fk.wavefront_bwd(*kba, vfwd, **kd)
+        (vposts_p, vtot_p), vbwd_ms = timed(
+            lambda: fk.backward_plain(*kba, vfwd, **kd))
+        for what, got, want in (("K1 vanilla fwd plane", vfwd, vfwd_p),
+                                ("K2 vanilla posteriors", vposts, vposts_p),
+                                ("K2 vanilla totals", vtot, vtot_p)):
+            same(f"{what} ({name} machine)", got, want)
+        vnds = [b.n_diag for b in kprep["bands"]]
+        vparts = [extract_pairs_chunk(dict(
+            prep=kprep, posteriors=p, compact=compact_posteriors(
+                p, min(COMPACT_K, kd["ND"] * kd["W"]))), rels, vnds, thr)
+            for p in (vposts, vposts_p)]
+        for i, (a, b) in enumerate(zip(*vparts)):
+            if not np.array_equal(a, b) or len(a) == 0:
+                raise AssertionError(f"vanilla pairs of read {i} ({name} "
+                                     "machine): kernel and plain differ")
+        del vfwd_p, vposts_p
+        if name == "default":
+            # the main path's machine and chunk: the line's ms and bound
+            vchunk_parts = vparts[0]
+            ms.update(
+                vanilla_fwd=cuda_ms(lambda: fk.wavefront_fwd(*kfa, **kd), 5),
+                vanilla_fwd_plain=vfwd_ms,
+                vanilla_bwd=cuda_ms(lambda: fk.wavefront_bwd(
+                    *kba, vfwd, **kd), 5),
+                vanilla_bwd_plain=vbwd_ms)
+            vcells = sum(int(b.width.sum()) for b in kprep["bands"])
+            bounds.update(
+                vanilla_fwd=bound(kfa + [vfwd], vcells,
+                                  FLOPS_PER_CELL["vanilla_fwd"]),
+                vanilla_bwd=bound(kba + [vfwd, vposts, vtot], vcells,
+                                  FLOPS_PER_CELL["vanilla_bwd"]))
+        del vfwd, vposts
+        # K3 vanilla on the first group of 32 (the E-step's group)
+        ea_, eprep_, einp_, efa, eba, ed = vanilla_inputs(
+            machine, reads[:EM_GROUP], EM_GROUP, ragged, vsp_)
+        efwd = fk.wavefront_fwd(*efa, **ed)
+        vk = fk.wavefront_bwd_exp(*eba, efwd, **ed)
+        vp, vp_ms = timed(lambda: fk.backward_exp_plain(*eba, efwd, **ed))
+        check_exp_kernel(vk, vp)
+        same(f"K3 vanilla beta/alpha accumulators ({name} machine)", vk[3],
+             vp[3])
+        if vk[2].any() or not bool(vk[3].sum() > 0):
+            raise AssertionError(f"{name} machine: vanilla K3 lanes or "
+                                 "accumulators")
+        kfin, pfin = (ea_.exp_finalize(eprep_, host_array(ea_.exp_dispatch(
+            eprep_, einp_, o[2], o[3], o[1]))) for o in (vk, vp))
+        if not all(np.array_equal(kfin[k], pfin[k]) for k in kfin):
+            raise AssertionError(f"{name} machine: finalized vanilla "
+                                 "expectations differ")
+        if name == "trained":
+            ms.update(vanilla_bwd_exp=cuda_ms(lambda: fk.wavefront_bwd_exp(
+                *eba, efwd, **ed), 5), vanilla_bwd_exp_plain=vp_ms)
+            ecells = sum(int(b.width.sum()) for b in eprep_["bands"])
+            bounds["vanilla_bwd_exp"] = bound(
+                eba + [efwd, *vk], ecells, FLOPS_PER_CELL["vanilla_bwd_exp"])
+        log(f"vanilla kernels vs plain, {name} machine ({CHUNK} reads, "
+            f"ND={kd['ND']}, W={kd['W']}{', ragged, scaled' if ragged else ''}"
+            f"): K1/K2 fwd plane, posts, totals equal bit for bit, "
+            f"{sum(map(len, vparts[0]))} pairs equal; K3 ({EM_GROUP} reads): "
+            f"posts, totals, lanes, beta/alpha accumulators equal bit for "
+            f"bit, finalized skip bins and likelihoods equal; plain ms fwd "
+            f"{vfwd_ms:.1f}, bwd {vbwd_ms:.1f}, bwd_exp {vp_ms:.1f}")
+        del vk, vp, efwd
+    log(f"vanilla kernel ms: fwd {ms['vanilla_fwd']:.3f}, bwd "
+        f"{ms['vanilla_bwd']:.3f} ({CHUNK} reads, default machine), bwd_exp "
+        f"{ms['vanilla_bwd_exp']:.3f} ({EM_GROUP} reads, trained machine); "
+        f"bounds {bounds['vanilla_fwd'][0]:.4f} / "
+        f"{bounds['vanilla_bwd'][0]:.4f} / "
+        f"{bounds['vanilla_bwd_exp'][0]:.4f} ms ({bounds['vanilla_fwd'][1]})")
+    torch.cuda.synchronize()
+
+    # -- 20. the vanilla main path at full width ---------------------------
+    vsm = vmachines["default"][0]
+    vpa = VanillaAligner(AlignmentParams(), device=dev, group=GROUP)
+
+    def vanilla_path(stage=None):
+        outs = [vpa.run(vsm, reads[i:i + CHUNK], compact_k=COMPACT_K,
+                        stage=stage)
+                for i in range(0, len(reads), CHUNK)]
+        torch.cuda.synchronize()
+        return outs
+
+    fk.reset_counts()
+    vouts = vanilla_path()
+    vtimes = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        vanilla_path()
+        vtimes.append(time.perf_counter() - t0)
+    van_counts = dict(fk.KERNEL_LAUNCHES)
+    if (set(van_counts) != {"wavefront_fwd_vanilla", "wavefront_bwd_vanilla"}
+            or min(van_counts.values()) <= 0 or fk.forward_plain.calls
+            or fk.backward_plain.calls):
+        raise AssertionError(f"vanilla main path launches {van_counts}")
+    vall = []
+    for o in vouts:
+        if not torch.isfinite(o["totals"]).all():
+            raise AssertionError("vanilla main path totals not finite")
+        vnds = [b.n_diag for b in o["prep"]["bands"]]
+        vall += extract_pairs_chunk(o, list(range(len(vnds))), vnds, thr)
+    if len(vall) != len(reads) or min(map(len, vall)) == 0:
+        raise AssertionError("a read of the vanilla main path has no pairs")
+    for i, (a, b) in enumerate(zip(vall, vchunk_parts)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"vanilla main path read {i}: pairs differ "
+                                 "from phase 19's kernel run")
+    vrate = len(reads) / statistics.median(vtimes)
+    log(f"vanilla_alignments_per_sec {vrate:.1f} ({len(reads)} reads in "
+        f"chunks of {CHUNK}, group {GROUP}, compact_k {COMPACT_K}, "
+        f"{sum(map(len, vall))} pairs; median of "
+        f"{[round(t, 4) for t in vtimes]} s); launches {van_counts}")
+    del vouts
+    vst = Stages()
+    vanilla_path(stage=vst)
+    log("vanilla main path stages (s, share): " + vst.line())
+    del vst
+    # the vanilla E-step on bench.py's signal-EM shape
+    vea = VanillaAligner(AlignmentParams(), device=dev, group=EM_GROUP)
+    vsub = reads[:VANILLA_E_READS]
+
+    def vestep():
+        return vea.run(vsm, vsub, **em_kw)["expectations"]
+
+    fk.reset_counts()
+    vexp = vestep()
+    vetimes = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        vestep()
+        vetimes.append(time.perf_counter() - t0)
+    vexp_counts = dict(fk.KERNEL_LAUNCHES)
+    if (set(vexp_counts) != {"wavefront_fwd_vanilla",
+                             "wavefront_bwd_exp_vanilla"}
+            or fk.forward_plain.calls or fk.backward_exp_plain.calls):
+        raise AssertionError(f"vanilla E-step launches {vexp_counts}")
+    if not (vexp["skip_bins"].shape == (len(vsub), 60)
+            and np.isfinite(vexp["likelihood"]).all()
+            and (vexp["skip_bins"].sum(-1) > 0).all()):
+        raise AssertionError("vanilla E-step expectations")
+    log(f"vanilla E-step: {len(vsub) / statistics.median(vetimes):.1f} "
+        f"reads/s ({len(vsub)} reads, group {EM_GROUP}, ragged, one "
+        f"dispatch; median of {[round(t, 4) for t in vetimes]} s); "
+        f"launches {vexp_counts}")
+    est = Stages()
+    vea.run(vsm, vsub, stage=est, **em_kw)
+    log("vanilla E-step stages (s, share): " + est.line())
+    del est
+    # the Zymo read: pairs and two trainModels iterations against the JAX
+    # package's stored results, then the CLI once
+    zv = VanillaAligner(AlignmentParams(), device=dev, group=1).run(
+        vsm, [vjob], scale_params=vsp[None])
+    zvgot = {(x, y) for _, x, y in extract_pairs_auto(
+        zv, 0, zv["prep"]["bands"][0].n_diag, thr)}
+    zshared, zone = check_pair_sets(
+        zvgot, {(int(x), int(y)) for _, x, y in vstored["pairs"]})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        vt_hmm, vc_hmm, vtraj = train(
+            **zargs, out_template_hmm=os.path.join(tmp, "t.hmm"),
+            out_complement_hmm=os.path.join(tmp, "c.hmm"),
+            options=TrainOptions(sm_type="vanilla",
+                                 iterations=len(vstored["trajectory"])),
+            log=lambda m: None, device=dev)
+        vtrain_s = time.perf_counter() - t0
+        vtrain_err = check_trained(vt_hmm, vc_hmm, vtraj, vstored)
+        # cpecan-torch-train-models -smt vanilla, one iteration
+        guide = str(zstored["guide"])
+        rdir = os.path.join(tmp, "reads")
+        os.makedirs(rdir)
+        os.symlink(zargs["read_guide_pairs"][0][0],
+                   os.path.join(rdir, f"{guide.split()[1]}.npRead"))
+        with open(os.path.join(tmp, "guides.cig"), "w") as fh:
+            fh.write(guide + "\n")
+        cout_ = io.StringIO()
+        with contextlib.redirect_stdout(cout_), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = train_models_main([
+                "-d", rdir, "-r", zargs["reference_path"], "-o",
+                os.path.join(tmp, "out"), "-T", zargs["template_model"],
+                "-C", zargs["complement_model"], "--guides",
+                os.path.join(tmp, "guides.cig"), "-smt", "vanilla", "-i",
+                "1", "--device", DEVICE])
+        cli_hmm = VanillaHmm.load(os.path.join(tmp, "out",
+                                               "template_trained.hmm"))
+    cli_traj = [float(v) for v in cout_.getvalue().split()[-2:]]
+    if (rc != 0 or abs(cli_hmm.kmer_skip_bins.sum() - 1.0) > 1e-4
+            or not np.allclose(cli_traj, vstored["trajectory"][0],
+                               rtol=TOTAL_RTOL, atol=0.0)):
+        raise AssertionError(f"cpecan-torch-train-models -smt vanilla: rc "
+                             f"{rc}, trajectory {cli_traj}")
+    log(f"vanilla Zymo: {zshared} of {len(vstored['pairs'])} pairs shared "
+        f"with the JAX package's, {zone} in one set only; training "
+        f"({len(vtraj)} iterations, both strands) in {vtrain_s:.2f} s, "
+        f"trajectory {[tuple(round(v, 2) for v in t) for t in vtraj]}, "
+        f"skip bins max|d| {vtrain_err:.3g} vs the JAX package; "
+        f"cpecan-torch-train-models -smt vanilla on the card: rc 0, "
+        f"iteration 0 likelihoods {cli_traj}")
+    torch.cuda.synchronize()
+
+    # -- 21. K6a/K6b vanilla vs plain at the long path's geometry ----------
+    vla = VanillaAligner(AlignmentParams(), device=dev, group=LONG_GROUP)
+    vlsm = StateMachine3Vanilla(lmodel)
+    vcst = Stages()
+    vcout = vla.run(vlsm, [cread], compact_k=LONG_COMPACT_K,
+                    tile_diag=lgeom[2], stage=vcst)
+    tva, tvb, tvd, tvprep = tiled_args(vcst, fk.VanillaSpec)
+    (tvfwd, tvsh), (tvposts, tvtot) = (vcst.out["fwd_tiled"],
+                                       vcst.out["bwd_tiled"])
+    del vcst
+    if (tvd["R"], tvd["W"], tvd["TD"]) != lgeom:
+        raise AssertionError(f"the vanilla check read's R, W, TD differ from "
+                             f"the long path's {lgeom}")
+    (pfwd, psh), ms["vanilla_fwd_tiled_plain"] = timed(
+        lambda: fk.forward_tiled_plain(*tva, **tvd))
+    (pposts, ptot), ms["vanilla_bwd_tiled_plain"] = timed(
+        lambda: fk.backward_tiled_plain(*tvb, tvfwd, tvsh, **tvd))
+    for what, got, want in (
+            ("K6a vanilla fwd plane (check read)", tvfwd, pfwd),
+            ("K6a vanilla shifts (check read)", tvsh, psh),
+            ("K6b vanilla posteriors (check read)", tvposts, pposts),
+            ("K6b vanilla totals (check read)", tvtot, ptot)):
+        same(what, got, want)
+    tvnd = tvprep["bands"][0].n_diag
+    tvpairs = [extract_pairs_long(dict(vcout, posteriors=p, compact_chunks=(
+        compact_chunks(p, vcout["tiled"]["DC"], min(
+            LONG_COMPACT_K, vcout["tiled"]["DC"] * tvd["W"])))), 0, tvnd,
+        thr, as_array=True) for p in (tvposts, pposts)]
+    if not np.array_equal(*tvpairs) or len(tvpairs[0]) == 0:
+        raise AssertionError("the vanilla long check read: kernel and plain "
+                             "planes give different pairs")
+    ms.update(
+        vanilla_fwd_tiled=cuda_ms(lambda: fk.wavefront_fwd_tiled(
+            *tva, **tvd), 3),
+        vanilla_bwd_tiled=cuda_ms(lambda: fk.wavefront_bwd_tiled(
+            *tvb, tvfwd, tvsh, **tvd), 3))
+    tvcells = sum(int(b.width.sum()) for b in tvprep["bands"])
+    bounds.update(
+        vanilla_fwd_tiled=bound(tva + [tvfwd, tvsh], tvcells,
+                                FLOPS_PER_CELL["vanilla_fwd"]),
+        vanilla_bwd_tiled=bound(tvb + [tvfwd, tvsh, tvposts, tvtot],
+                                tvcells, FLOPS_PER_CELL["vanilla_bwd"]))
+    log(f"vanilla long kernels vs plain (a {cread[2]} x {cread[3]} read, "
+        f"{vcout['tiled']}, R={tvd['R']}, W={tvd['W']}): fwd plane, shifts, "
+        f"posts, totals equal bit for bit, {len(tvpairs[0])} pairs equal; "
+        f"K6a vanilla {ms['vanilla_fwd_tiled']:.3f} ms vs plain "
+        f"{ms['vanilla_fwd_tiled_plain']:.1f}, K6b vanilla "
+        f"{ms['vanilla_bwd_tiled']:.3f} ms vs plain "
+        f"{ms['vanilla_bwd_tiled_plain']:.1f}; bounds "
+        f"{bounds['vanilla_fwd_tiled'][0]:.4f} / "
+        f"{bounds['vanilla_bwd_tiled'][0]:.4f} ms")
+    del vcout, tvfwd, pfwd, tvposts, pposts, tva, tvb
+    torch.cuda.synchronize()
+    # phase 12's 64 long reads through the vanilla machine once
+    fk.reset_counts()
+    t0 = time.perf_counter()
+    vlong = vla.run(vlsm, lreads, compact_k=LONG_COMPACT_K)
+    vlnds = [b.n_diag for b in vlong["prep"]["bands"]]
+    vlparts = extract_pairs_chunk(vlong, list(range(len(vlnds))), vlnds, thr)
+    torch.cuda.synchronize()
+    vlong_s = time.perf_counter() - t0
+    vlong_counts = dict(fk.KERNEL_LAUNCHES)
+    if (vlong_counts != {"wavefront_fwd_tiled_vanilla": 1,
+                         "wavefront_bwd_tiled_vanilla": 1}
+            or fk.forward_tiled_plain.calls or fk.backward_tiled_plain.calls):
+        raise AssertionError(f"vanilla long path launches {vlong_counts}")
+    if (not torch.isfinite(vlong["totals"]).all()
+            or len(vlparts) != LONG_READS
+            or min(map(len, vlparts)) < lread[2]):
+        raise AssertionError("vanilla long path: totals not finite or a "
+                             "read with fewer pairs than bases")
+    log(f"vanilla long path: {LONG_READS} reads of {lread[2]} bases x "
+        f"{lread[3]} events (group {LONG_GROUP}, {vlong['tiled']}), one run "
+        f"after the check read, kernels only: {bases / vlong_s:.6g} bases/s "
+        f"e2e ({vlong_s:.4f} s), {sum(map(len, vlparts))} pairs, launches "
+        f"{vlong_counts}")
+    del vlong
+    torch.cuda.synchronize()
+
     src = "cpecan_tpu_torch/csrc/wavefront.cu"
 
     def entry(name, replaces, launches, err, key, bkey):
@@ -1340,7 +1654,7 @@ def main():
                 # wavefront
                 "library_ms": None}
 
-    exact = 0.0   # phases 3, 10, 12, 13 hold these kernels bit for bit
+    exact = 0.0   # phases 3, 10, 12, 13, 19, 21 hold these bit for bit
     log(json.dumps({"kernels": [
         entry("wavefront_fwd", "cpecan_tpu/ops/pallas_fb.py:635",
               launches["wavefront_fwd"], exact, "fwd", "fwd"),
@@ -1381,6 +1695,31 @@ def main():
               "cpecan_tpu/ops/pallas_fb.py:2221 (with_exp=True, _Dna5Spec "
               ":406)", em_dna_counts["wavefront_bwd_exp_dna5"], d5exp_err,
               "dna5_bwd_exp", "dna5_bwd_exp"),
+        # phase 19 holds K1/K2/K3 vanilla to plain (K1/K2 ms, plain ms and
+        # bound on the main path's default-machine chunk, K3 on the trained
+        # machine's E-step group), phase 21 K6a/K6b vanilla on its check
+        # read; launches from phases 20 (main path, E-step) and 21
+        entry("wavefront_fwd_vanilla",
+              "cpecan_tpu/ops/pallas_fb.py:635 (_VanillaSpec :456)",
+              van_counts["wavefront_fwd_vanilla"], exact, "vanilla_fwd",
+              "vanilla_fwd"),
+        entry("wavefront_bwd_vanilla",
+              "cpecan_tpu/ops/pallas_fb.py:857 (_VanillaSpec :456)",
+              van_counts["wavefront_bwd_vanilla"], exact, "vanilla_bwd",
+              "vanilla_bwd"),
+        entry("wavefront_bwd_exp_vanilla",
+              "cpecan_tpu/ops/pallas_fb.py:2221 (with_exp=True, "
+              "_VanillaSpec :506)",
+              vexp_counts["wavefront_bwd_exp_vanilla"], exact,
+              "vanilla_bwd_exp", "vanilla_bwd_exp"),
+        entry("wavefront_fwd_tiled_vanilla",
+              "cpecan_tpu/ops/pallas_fb.py:2304 (_VanillaSpec :456)",
+              vlong_counts["wavefront_fwd_tiled_vanilla"], exact,
+              "vanilla_fwd_tiled", "vanilla_fwd_tiled"),
+        entry("wavefront_bwd_tiled_vanilla",
+              "cpecan_tpu/ops/pallas_fb.py:2332 (_VanillaSpec :456)",
+              vlong_counts["wavefront_bwd_tiled_vanilla"], exact,
+              "vanilla_bwd_tiled", "vanilla_bwd_tiled"),
     ]}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -62,8 +62,8 @@ def train_models_main(argv=None):
     p.add_argument("--resume", action="store_true")
     p.add_argument("--engine", default="pallas", choices=["scan", "pallas"],
                    help="E-step engine: the batched wavefront kernels "
-                        "(pallas, threeState only) or the per-read scan "
-                        "engine (not ported yet)")
+                        "(pallas: threeState and vanilla) or the per-read "
+                        "scan engine (not ported yet)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the E-step: cuda runs the CUDA "
                         "kernels, cpu their plain PyTorch versions")

@@ -1,6 +1,6 @@
-// Log-space helpers of the strawman wavefront kernels, the device twins of
-// cpecan_tpu_torch/ops/fb_kernels.py (log_add, log_add3, gauss) and of
-// cpecan_tpu/ops/pallas_fb.py:44-70.
+// Log-space helpers of the wavefront kernels, the device twins of
+// cpecan_tpu_torch/ops/fb_kernels.py (log_add, log_add3, gauss, inv_gauss)
+// and of cpecan_tpu/ops/pallas_fb.py:44-70 and :137.
 //
 // Built with --fmad=false and without fast math, so every expression below
 // rounds like the PyTorch version on the same card: each line keeps the
@@ -43,4 +43,14 @@ __device__ __forceinline__ float gauss(float x, float mu, float sd) {
     if (!(sd > 0.0f)) return CPECAN_NEG;
     const float a = (x - mu) / sd;
     return -0.91893853320467267f - logf(sd) - 0.5f * a * a;
+}
+
+// log inverse-Gaussian pdf (emissions_signal_logInvGaussPdf,
+// impl/stateMachine.c:323-332) in the JAX _inv_gauss op order, the halving
+// last; CPECAN_NEG where x <= 0, lam <= 0 or mu == 0.
+__device__ __forceinline__ float inv_gauss(float x, float mu, float lam) {
+    if (x <= 0.0f || lam <= 0.0f || mu == 0.0f) return CPECAN_NEG;
+    const float a = (x - mu) / mu;
+    return (logf(lam) - 1.8378770664093453f - 3.0f * logf(x)
+            - lam * a * a / x) / 2.0f;
 }

@@ -1,19 +1,21 @@
 // Band-local forward and posterior-backward wavefront kernels of the
 // pair-HMM machines, for Hopper (sm_90a): the strawman 3-state signal
-// machine (getStrawManStateMachine3) and the 5-state DNA machine
-// (getStateMachine5, cPecanRealign's).  Both kernels are templates on a
-// machine spec (Strawman, Dna5: states, scalars, emissions and the
-// forward/backward updates); every instance keeps its JAX spec's op order.
-// Plain C entry points, loaded with ctypes by
+// machine (getStrawManStateMachine3), the vanilla 3-state signal machine
+// (getSignalStateMachine3Vanilla, signalAlign's default) and the 5-state
+// DNA machine (getStateMachine5, cPecanRealign's).  Both kernels are
+// templates on a machine spec (Strawman, Vanilla, Dna5: states, scalars,
+// emissions and the forward/backward updates); every instance keeps its
+// JAX spec's op order.  Plain C entry points, loaded with ctypes by
 // cpecan_tpu_torch/ops/cuda_build.py and wrapped by
 // cpecan_tpu_torch/ops/fb_kernels.py (wavefront_fwd, wavefront_bwd,
 // wavefront_bwd_exp, wavefront_fwd_tiled, wavefront_bwd_tiled; the dna5
-// instances' entry points end in _dna5).
+// and vanilla instances' entry points end in _dna5 and _vanilla).
 //
 // Replaces (TPU, Pallas):
 //   sm3_fwd_kernel<Spec, false>
 //                          <- cpecan_tpu/ops/pallas_fb.py _sm3_forward_kernel
-//                             (:635, untiled; _StrawmanSpec, _Dna5Spec) K1
+//                             (:635, untiled; _StrawmanSpec, _Dna5Spec,
+//                             _VanillaSpec)                             K1
 //   sm3_bwd_kernel<Spec, false, false>
 //                          <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
 //                             -> _sm3_backward_body_w (:857, :900;
@@ -22,7 +24,8 @@
 //                          <- the same body with with_exp=True (EM
 //                             expectations: accumulate_exp :1072 and
 //                             _StrawmanSpec.exp_probs_w :215 /
-//                             _Dna5Spec.exp_probs_w :406)              K3
+//                             _Dna5Spec.exp_probs_w :406 /
+//                             _VanillaSpec.exp_probs_w :506)           K3
 //   sm3_fwd_kernel<Spec, true>
 //                          <- _sm3_forward_kernel(tile=...) (:2304), chained
 //                             over the tiles by _run_tiled (:2447) with
@@ -44,10 +47,14 @@
 //   trans  f32 [G*R, S*S]  (lanes frm*S + to; EM only)
 //   acc    f32 [G, NACC, R, X]  per-column accumulators (EM only; strawman
 //          NACC 1, the gap-X mass; dna5 NACC 20, row to*4 + by the mass
-//          into state to at a cell of y base by)
+//          into state to at a cell of y base by; vanilla NACC 2, the beta
+//          (M -> X) and alpha (X -> X) masses)
 //   shifts f32 [G*R, NT]  (tiled only; NT = ND / TD)
 // Strawman: S 3, NS 8, NXF 9 (Gaussian model rows 0-7, gap-X row 8), yf =
-// (event mean, noise).  Dna5: S 5, NS 13, NXF 6 (match rows of the x base
+// (event mean, noise).  Vanilla: S 3, NS 2 (Y -> M, Y -> Y), NXF 13 (match
+// and gap-Y model rows 0-7, Gaussian level x inverse-Gaussian noise; rows
+// 8-12 the per-column log transitions a_mx, a_xx, a_mm, a_xm, a_my from
+// the k-mer skip bins), a silent gap-X, yf as strawman's.  Dna5: S 5, NS 13, NXF 6 (match rows of the x base
 // against y base 0..4, gap-X row 5), yf = (y base index as a float, gap-Y
 // emission); the match emission is a sum of five selects on the y base, as
 // the JAX spec has it, so a value outside 0..4 gives 0.0.
@@ -108,9 +115,9 @@
 //  6. No fallback: the build keeps --fmad=false and no fast math, and a
 //     failed build or launch raises in the wrapper.
 // The machine's transition sums (strawman 9 lanes, dna5 its 13 active
-// ones of 25) are per-thread registers across the sweep, reduced once at
-// the end (block_sum, fixed order); the lanes that are no transition of
-// the machine are written as 0.  The per-column accumulators go to the
+// ones of 25, vanilla none) are per-thread registers across the sweep,
+// reduced once at the end (block_sum, fixed order); the lanes that are no
+// transition of the machine are written as 0.  The per-column accumulators go to the
 // read's own rows of acc in global memory, column w_t + l; each column is
 // touched by one thread per target and the per-diagonal barrier orders the
 // read-modify-writes, so no atomics are needed.  Dna5 reads the target's y
@@ -147,13 +154,20 @@ struct Emissions {
     float match, gap_y;
 };
 
-// A machine spec: its S states, NS transition scalars, NXF x-feature rows
-// (GAP_X the gap-X emission row), the emissions of the cell (x, y) with y
-// at column ycol of the flipped y rows, and the forward and backward
-// updates of one cell.  The update arguments arrive aligned to the current
-// window, as in the JAX specs' *_update_w: p1m/p2m the sources at x - 1,
-// p1a at x; n1a at x, n1p/n2p at x + 1.  Entries a spec does not read are
-// never loaded (the compiler drops them).
+// A machine spec: its S states, NS transition scalars, NXF x-feature rows,
+// the emissions of the cell (x, y) with y at column ycol of the flipped y
+// rows, and the forward and backward updates of one cell.  The update
+// arguments arrive aligned to the current window, as in the JAX specs'
+// *_update_w: p1m/p2m the sources at x - 1, p1a at x; n1a at x, n1p/n2p at
+// x + 1.  Each update reads the x-feature rows it needs itself from the
+// read's rows xb (row i at xb[i * X + x']): the forward at x, the backward
+// at x and at x + 1, the latter clamped to X - 1 (the last lane of the last
+// window reads past the x range, which lies outside every band).  Entries
+// a spec does not read are never loaded (the compiler drops them).
+
+__device__ __forceinline__ int next_col(int x, int X) {
+    return min(x + 1, X - 1);
+}
 
 // _StrawmanSpec (pallas_fb.py:162-207)
 struct Strawman {
@@ -176,7 +190,9 @@ struct Strawman {
     // _StrawmanSpec.fwd_update_w
     __device__ __forceinline__ static void fwd_update(
             const float* t, const float* p1m, const float* p1a,
-            const float* p2m, const Emissions& e, float e_gapx, float* out) {
+            const float* p2m, const Emissions& e, const float* xb, int X,
+            int x, float* out) {
+        const float e_gapx = xb[GAP_X * X + x];
         out[0] = log_add3(p2m[0] + t[T_MM], p2m[1] + t[T_XM],
                           p2m[2] + t[T_YM]) + e.match;
         out[1] = log_add3(p1m[0] + t[T_OX], p1m[1] + t[T_EX],
@@ -186,9 +202,10 @@ struct Strawman {
 
     // _StrawmanSpec.bwd_update_w
     __device__ __forceinline__ static void bwd_update(
-            const float* t, float e_gapx_p, float eg1, float em2p,
-            const float* n1a, const float* n1p, const float* n2p,
+            const float* t, const float* xb, int X, int x, float eg1,
+            float em2p, const float* n1a, const float* n1p, const float* n2p,
             float* out) {
+        const float e_gapx_p = xb[GAP_X * X + next_col(x, X)];
         const float mid = em2p + n2p[0];
         float bm = mid + t[T_MM];
         float bx = mid + t[T_XM];
@@ -213,10 +230,10 @@ struct Strawman {
     // _StrawmanSpec.exp_probs_w + accumulate_exp at one cell; lanes
     // frm * 3 + to, lane 5 (X -> Y) no transition of the machine
     __device__ __forceinline__ static void exp_probs(
-            const float* t, const Emissions& e, float e_gapx, float /*y*/,
-            const float* f0m, const float* f1m, const float* f1a,
-            const float* b, float total, bool m, float* acc, float* col,
-            size_t /*row_stride*/);
+            const float* t, const Emissions& e, const float* xb, int X,
+            int x, float /*y*/, const float* f0m, const float* f1m,
+            const float* f1a, const float* b, float total, bool m,
+            float* acc, float* col, size_t /*row_stride*/);
 };
 
 // _Dna5Spec (pallas_fb.py:340-392): M, shortGapX, shortGapY, longGapX,
@@ -244,7 +261,9 @@ struct Dna5 {
     // _Dna5Spec.fwd_update_w
     __device__ __forceinline__ static void fwd_update(
             const float* t, const float* p1m, const float* p1a,
-            const float* p2m, const Emissions& e, float e_gapx, float* out) {
+            const float* p2m, const Emissions& e, const float* xb, int X,
+            int x, float* out) {
+        const float e_gapx = xb[GAP_X * X + x];
         out[0] = log_add(log_add3(p2m[0] + t[T5_MM], p2m[1] + t[T5_MSX],
                                   p2m[2] + t[T5_MSY]),
                          log_add(p2m[3] + t[T5_MLX], p2m[4] + t[T5_MLY]))
@@ -258,9 +277,10 @@ struct Dna5 {
     // _Dna5Spec.bwd_update_w, the JAX grouping kept exactly (log_add is not
     // associative in f32)
     __device__ __forceinline__ static void bwd_update(
-            const float* t, float e_gapx_p, float eg1, float em2p,
-            const float* n1a, const float* n1p, const float* n2p,
+            const float* t, const float* xb, int X, int x, float eg1,
+            float em2p, const float* n1a, const float* n1p, const float* n2p,
             float* out) {
+        const float e_gapx_p = xb[GAP_X * X + next_col(x, X)];
         const float mid = em2p + n2p[0];
         const float low_s = e_gapx_p + n1p[1];
         const float low_l = e_gapx_p + n1p[3];
@@ -286,10 +306,76 @@ struct Dna5 {
 
     // _Dna5Spec.exp_probs_w + accumulate_exp at one cell
     __device__ __forceinline__ static void exp_probs(
-            const float* t, const Emissions& e, float e_gapx, float y,
-            const float* f0m, const float* f1m, const float* f1a,
-            const float* b, float total, bool m, float* acc, float* col,
-            size_t row_stride);
+            const float* t, const Emissions& e, const float* xb, int X,
+            int x, float y, const float* f0m, const float* f1m,
+            const float* f1a, const float* b, float total, bool m,
+            float* acc, float* col, size_t row_stride);
+};
+
+// vanilla scalar order (pallas_fb.py VA_YM, VA_YY) and x-feature rows
+enum { VA_YM, VA_YY, VANILLA_NS };
+enum { LA_MX = 8, LA_XX, LA_MM, LA_XM, LA_MY };
+
+// _VanillaSpec (pallas_fb.py:456-517): per-column transitions from the
+// k-mer skip bins (rows 8-12), a silent gap-X, Gaussian level x
+// inverse-Gaussian noise emissions
+struct Vanilla {
+    static constexpr int S = 3, NS = VANILLA_NS, NXF = 13;
+
+    __device__ __forceinline__ static Emissions emissions_at(
+            const float* xb, const float* yb, int X, int Y, int x,
+            int ycol) {
+        const float mean = yb[ycol];
+        const float noise = yb[Y + ycol];
+        Emissions e;
+        e.match = gauss(mean, xb[0 * X + x], xb[1 * X + x])
+                  + inv_gauss(noise, xb[2 * X + x], xb[3 * X + x]);
+        e.gap_y = gauss(mean, xb[4 * X + x], xb[5 * X + x])
+                  + inv_gauss(noise, xb[6 * X + x], xb[7 * X + x]);
+        return e;
+    }
+
+    // _VanillaSpec.fwd_update_w: the transitions of column x
+    __device__ __forceinline__ static void fwd_update(
+            const float* t, const float* p1m, const float* p1a,
+            const float* p2m, const Emissions& e, const float* xb, int X,
+            int x, float* out) {
+        out[0] = log_add3(p2m[0] + xb[LA_MM * X + x],
+                          p2m[1] + xb[LA_XM * X + x], p2m[2] + t[VA_YM])
+                 + e.match;
+        out[1] = log_add(p1m[0] + xb[LA_MX * X + x],
+                         p1m[1] + xb[LA_XX * X + x]);
+        out[2] = log_add(p1a[0] + xb[LA_MY * X + x], p1a[2] + t[VA_YY])
+                 + e.gap_y;
+    }
+
+    // _VanillaSpec.bwd_update_w: the transitions into M and X at x + 1 are
+    // column x + 1's, M -> Y column x's
+    __device__ __forceinline__ static void bwd_update(
+            const float* t, const float* xb, int X, int x, float eg1,
+            float em2p, const float* n1a, const float* n1p, const float* n2p,
+            float* out) {
+        const int xp = next_col(x, X);
+        const float mid = em2p + n2p[0];
+        const float up = eg1 + n1a[2];
+        const float low = n1p[1];   // silent gap-X
+        out[0] = log_add3(mid + xb[LA_MM * X + xp], low + xb[LA_MX * X + xp],
+                          up + xb[LA_MY * X + x]);
+        out[1] = log_add(mid + xb[LA_XM * X + xp], low + xb[LA_XX * X + xp]);
+        out[2] = log_add(mid + t[VA_YM], up + t[VA_YY]);
+    }
+
+    // EM expectations: no transition lanes; accumulators beta (M -> X) and
+    // alpha (X -> X)
+    static constexpr int NLANE = 0, NACC = 2;
+    __host__ __device__ static constexpr int lane(int k) { return k; }
+
+    // _VanillaSpec.exp_probs_w + accumulate_exp at one cell
+    __device__ __forceinline__ static void exp_probs(
+            const float* t, const Emissions& e, const float* xb, int X,
+            int x, float y, const float* f0m, const float* f1m,
+            const float* f1a, const float* b, float total, bool m,
+            float* acc, float* col, size_t row_stride);
 };
 
 // Block-wide reductions; every thread gets the result.  W is a multiple of
@@ -347,6 +433,14 @@ __device__ __forceinline__ void recenter(float* a, float* b, bool cut_b,
     }
     __syncthreads();
 }
+
+// Every kernel must launch with W threads for any W the wrappers accept
+// (at most CPECAN_MAX_W).  One SM's 65,536 registers give 64 a thread at
+// 1024 threads; uncapped, the expectation instances compile to 106-114 and
+// their launches are refused past ~600 lanes.  The build caps every
+// instance at 64 (-maxrregcount, ops/cuda_build.py), which leaves the
+// instances that need fewer as they were.
+#define CPECAN_MAX_W 1024
 
 template <class Spec, bool TILED>
 __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
@@ -425,7 +519,7 @@ __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
         }
         const Emissions e = Spec::emissions_at(xb, yb, X, Y, x, C - d + x);
         float nv[S];
-        Spec::fwd_update(t, p1m, p1a, p2m, e, xb[Spec::GAP_X * X + x], nv);
+        Spec::fwd_update(t, p1m, p1a, p2m, e, xb, X, x, nv);
         const bool mask = in_band(x, base[d], width[d]);
         float* od = out + static_cast<size_t>(d) * plane_d;
 #pragma unroll
@@ -447,12 +541,13 @@ __device__ __forceinline__ float exp_prob(float logp, float total) {
 }
 
 __device__ __forceinline__ void Strawman::exp_probs(
-        const float* t, const Emissions& e, float e_gapx, float,
-        const float* f0m, const float* f1m, const float* f1a,
+        const float* t, const Emissions& e, const float* xb, int X, int x,
+        float, const float* f0m, const float* f1m, const float* f1a,
         const float* b, float total, bool m, float* acc, float* col,
         size_t) {
     // middle: (tt-2, x-1) -> M; lower: (tt-1, x-1) -> X; upper: (tt-1, x)
     // -> Y
+    const float e_gapx = xb[GAP_X * X + x];
     const float mid = e.match + b[0];
     const float low = e_gapx + b[1];
     const float up = e.gap_y + b[2];
@@ -473,10 +568,11 @@ __device__ __forceinline__ void Strawman::exp_probs(
 }
 
 __device__ __forceinline__ void Dna5::exp_probs(
-        const float* t, const Emissions& e, float e_gapx, float y,
-        const float* f0m, const float* f1m, const float* f1a,
+        const float* t, const Emissions& e, const float* xb, int X, int x,
+        float y, const float* f0m, const float* f1m, const float* f1a,
         const float* b, float total, bool m, float* acc, float* col,
         size_t row_stride) {
+    const float e_gapx = xb[GAP_X * X + x];
     // p[k] in EXP_LANES order: mm sxm sym lxm lym | msx sxsx mlx lxlx |
     // msy sysy mly lyly
     float p[NLANE];
@@ -522,6 +618,20 @@ __device__ __forceinline__ void Dna5::exp_probs(
     }
 }
 
+__device__ __forceinline__ void Vanilla::exp_probs(
+        const float*, const Emissions&, const float* xb, int X, int x,
+        float, const float*, const float* f1m, const float*, const float* b,
+        float total, bool m, float*, float* col, size_t row_stride) {
+    // lower: (tt-1, x-1) -> shortGapX at x, silent, with column x's
+    // transitions
+    const float low = b[1];
+    const float p_beta = exp_prob(f1m[0] + xb[LA_MX * X + x] + low, total);
+    const float p_alpha = exp_prob(f1m[1] + xb[LA_XX * X + x] + low, total);
+    const float mf = m ? 1.0f : 0.0f;
+    col[0] += p_beta * mf;
+    col[row_stride] += p_alpha * mf;
+}
+
 // Posterior transition mass into target diagonal tt at x = wt + l (each
 // spec's exp_probs_w + accumulate_exp): sources fm = fwd[tt - 2] at window
 // wm (nullptr for target 1: no middle source) and fl = fwd[tt - 1] at
@@ -556,8 +666,8 @@ __device__ __forceinline__ void exp_target(
         f1a[i] = shifted(fl + i * W, l, s1, W);
         b[i] = cut ? CPECAN_NEG : bt[i * W + l];
     }
-    Spec::exp_probs(t, e, xb[Spec::GAP_X * X + x], yb[ycol], f0m, f1m, f1a,
-                    b, total, m, acc, rows + x, row_stride);
+    Spec::exp_probs(t, e, xb, X, x, yb[ycol], f0m, f1m, f1a, b, total, m,
+                    acc, rows + x, row_stride);
 }
 
 template <class Spec, bool WITH_EXP, bool TILED>
@@ -631,7 +741,9 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
     float shift = 0.0f;     // B, the running re-centering shift (tiled)
     float shf = 0.0f;       // A_t + B, repaid by the rows of tile t
     const int NT = TILED ? ND / TD : 0;
-    float acc[Spec::NLANE];  // per-lane transition sums (expectations)
+    // per-lane transition sums (expectations; a machine without lanes
+    // keeps one unused register)
+    float acc[Spec::NLANE > 0 ? Spec::NLANE : 1];
     // this read's accumulator rows: acc[g, j, r, :] at rows + j * R * X
     const size_t row_stride = static_cast<size_t>(R) * X;
     float* rows = nullptr;
@@ -686,11 +798,8 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
         // emissions(d + 1) at x, fresh (next step's carry)
         const Emissions e1 =
             Spec::emissions_at(xb, yb, X, Y, x, C - (d + 1) + x);
-        // gap-X emission at x + 1; the last lane of the last window reads
-        // past the x range, which lies outside every band
-        const float e_gapx_p = xb[Spec::GAP_X * X + min(x + 1, X - 1)];
         float bw[S];
-        Spec::bwd_update(t, e_gapx_p, e1.gap_y, em2p, n1a, n1p, n2p, bw);
+        Spec::bwd_update(t, xb, X, x, e1.gap_y, em2p, n1a, n1p, n2p, bw);
         const bool mask = in_band(x, base[d], width[d]);
         // the seed's end vector, selected per state so that t keeps
         // constant indices (and stays in registers)
@@ -787,7 +896,8 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
 
 int launch_config_error(int W) {
     // one thread per lane: W must fill whole warps and fit one block
-    if (W <= 0 || W % 32 != 0 || W > 1024) return cudaErrorInvalidValue;
+    if (W <= 0 || W % 32 != 0 || W > CPECAN_MAX_W)
+        return cudaErrorInvalidValue;
     return cudaSuccess;
 }
 
@@ -860,8 +970,8 @@ const char* wavefront_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// One entry point per kernel instance; the dna5 ones take the strawman
-// ones' arguments.
+// One entry point per kernel instance; the dna5 and vanilla ones take the
+// strawman ones' arguments.
 #define WAVEFRONT_FWD_ENTRY(NAME, SPEC)                                     \
     int NAME(const void* scal, const void* win, const void* xf,              \
              const void* yf, const void* basef, const void* widthf,          \
@@ -926,7 +1036,13 @@ WAVEFRONT_BWD_ENTRY(wavefront_bwd_dna5, Dna5)
 WAVEFRONT_BWD_TILED_ENTRY(wavefront_bwd_tiled, Strawman)
 WAVEFRONT_BWD_TILED_ENTRY(wavefront_bwd_tiled_dna5, Dna5)
 
+WAVEFRONT_FWD_ENTRY(wavefront_fwd_vanilla, Vanilla)
+WAVEFRONT_FWD_TILED_ENTRY(wavefront_fwd_tiled_vanilla, Vanilla)
+WAVEFRONT_BWD_ENTRY(wavefront_bwd_vanilla, Vanilla)
+WAVEFRONT_BWD_TILED_ENTRY(wavefront_bwd_tiled_vanilla, Vanilla)
+
 WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp, Strawman)
 WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_dna5, Dna5)
+WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_vanilla, Vanilla)
 
 }  // extern "C"

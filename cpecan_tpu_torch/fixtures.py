@@ -31,6 +31,13 @@ the lastz guide cigar and the JAX package's two-iteration trainModels
 result from ``tests/fixtures/zymo_train.npz`` (built by
 ``tests/fixtures/make_zymo_train_fixture.py``); ``zymo_trained_params``
 the strawman machine parameters of its trained template HMM.
+
+``load_vanilla_zymo`` gives the vanilla machine's checks on the same read
+from ``tests/fixtures/vanilla_zymo.npz`` (built by
+``tests/fixtures/make_vanilla_fixture.py``): the read's template job as
+the trainer builds it from the guide, with the JAX package's vanilla pairs
+for it and its two-iteration vanilla trainModels result, whose template
+skip bins also give a trained vanilla machine.
 """
 
 import os
@@ -50,6 +57,7 @@ ZYMO_TRAIN = os.path.join(_FIXTURES, "zymo_train.npz")
 LONG_READ = os.path.join(_FIXTURES, "long_read.npz")
 DNA5_REALIGN = os.path.join(_FIXTURES, "dna5_realign.npz")
 DNA5_EM = os.path.join(_FIXTURES, "dna5_em.npz")
+VANILLA_ZYMO = os.path.join(_FIXTURES, "vanilla_zymo.npz")
 
 # name -> repository-relative path of the vendored data files the port
 # reads (the JAX package's ``fixtures.fixture_path`` names)
@@ -165,3 +173,24 @@ def zymo_trained_params():
     if not np.isfinite(params["gap_switch_to_x"]):
         raise AssertionError("the trained machine has no Y -> X transition")
     return params, gap_x
+
+
+def load_vanilla_zymo():
+    """(template job (ref, events, l_x, l_y, anchors), its scale params
+    [5], stored arrays).  The job is the trainer's
+    (``pipeline.train_models.strand_jobs``) for the guide of
+    ``load_zymo_train``; the stored arrays hold the JAX vanilla ``pairs``
+    [N, 3] (score, x, y) for it and the ``sp`` they were made with,
+    ``t_skip``/``c_skip`` [60] and ``trajectory`` [iterations, 2] of the JAX
+    vanilla trainer, and its first iteration's ``t1_skip``/``c1_skip``."""
+    from .align import AlignmentParams
+    from .pipeline.train_models import strand_jobs
+
+    args, _ = load_zymo_train()
+    with np.load(VANILLA_ZYMO) as z:
+        stored = {k: z[k] for k in z.files}
+    with open(args["reference_path"]) as fh:
+        ref = fh.readline().strip()
+    (job, sp), _ = strand_jobs(ref, *args["read_guide_pairs"][0],
+                               AlignmentParams())
+    return job, np.asarray(sp, np.float64), stored

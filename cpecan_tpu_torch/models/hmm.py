@@ -4,9 +4,11 @@
 ``ContinuousPairHmm`` ports impl/continuousHmm.c:74-375: it holds the
 merged expectation counts, normalizes them (the M-step), round-trips the
 reference's text format, and loads the result back into strawman machine
-parameters.  ``HmmDiscrete`` (impl/discreteHmm.c) and ``sm5_from_hmm``
-are cut to what cPecanRealign's ``--loadHmm`` calls: load, normalize and
-the 5-state machine's symmetric or asymmetric load.
+parameters.  ``VanillaHmm`` (impl/continuousHmm.c:378-635) does the same
+for the vanilla machine's 60 k-mer skip bins.  ``HmmDiscrete``
+(impl/discreteHmm.c) and ``sm5_from_hmm`` are cut to what cPecanRealign's
+``--loadHmm`` calls: load, normalize and the 5-state machine's symmetric
+or asymmetric load.
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ from ..constants import (LOG_ZERO, LONG_GAP_X, LONG_GAP_Y, MATCH,
 TYPE_FIVE_STATE = 0
 TYPE_FIVE_STATE_ASYMMETRIC = 1
 TYPE_THREE_STATE = 2
+TYPE_VANILLA = 4
 
 
 def _fmt(values):
@@ -258,4 +261,64 @@ class ContinuousPairHmm:
             if len(toks) != k:
                 raise ValueError("wrong number of kmer gap probs")
             hmm.kmer_gap_probs = np.array(toks, dtype=np.float64)
+        return hmm
+
+
+class VanillaHmm:
+    """60 k-mer skip-bin expectations (30 beta + 30 alpha) and copies of
+    the pore model (impl/continuousHmm.c:378-635)."""
+
+    def __init__(self, state_number=3, symbol_set_size=NUM_OF_KMERS,
+                 pseudocount=0.0):
+        self.type = TYPE_VANILLA
+        self.state_number = state_number
+        self.symbol_set_size = symbol_set_size
+        self.kmer_skip_bins = np.full(60, pseudocount, dtype=np.float64)
+        self.match_model = np.zeros(1 + symbol_set_size * 5)
+        self.scaled_match_model = np.zeros(1 + symbol_set_size * 5)
+        self.likelihood = 0.0
+
+    def add_expectations(self, acc):
+        self.kmer_skip_bins += np.asarray(acc["skip_bins"])
+        self.likelihood += float(acc["likelihood"])
+
+    def normalize(self):
+        # vanillaHmm_normalizeKmerSkipBins (impl/continuousHmm.c:429-438):
+        # alpha and beta normalized together, a reference quirk kept
+        self.kmer_skip_bins /= self.kmer_skip_bins.sum()
+
+    def implant_match_models(self, pore_model):
+        # vanillaHmm_implantMatchModelsintoHmm (impl/continuousHmm.c:448-459)
+        self.match_model = np.concatenate(
+            [[pore_model.match_correlation], pore_model.match_model.ravel()])
+        self.scaled_match_model = np.concatenate(
+            [[pore_model.gap_y_correlation], pore_model.gap_y_model.ravel()])
+
+    def write(self, fh):
+        # the 4-line format (impl/continuousHmm.c:482)
+        if np.isnan(self.kmer_skip_bins).any():
+            return
+        fh.write("%i\t%i\t%i\t\n" % (self.type, self.state_number,
+                                     self.symbol_set_size))
+        fh.write(_fmt(self.kmer_skip_bins))
+        fh.write("%f\n" % self.likelihood)
+        fh.write(_fmt(self.match_model))
+        fh.write("\n")
+        fh.write(_fmt(self.scaled_match_model))
+        fh.write("\n")
+
+    @classmethod
+    def load(cls, path):
+        with open(path) as fh:
+            header = fh.readline().split()
+            hmm = cls(int(header[1]), int(header[2]))
+            toks = fh.readline().split()
+            if len(toks) != 61:
+                raise ValueError("wrong number of skip bins")
+            hmm.kmer_skip_bins = np.array(toks[:60], dtype=np.float64)
+            hmm.likelihood = float(toks[-1])
+            hmm.match_model = np.array(fh.readline().split(),
+                                       dtype=np.float64)
+            hmm.scaled_match_model = np.array(fh.readline().split(),
+                                              dtype=np.float64)
         return hmm

@@ -1,11 +1,12 @@
 """Pair-HMM state machines of the port (counterpart of
 ``cpecan_tpu/models/state_machines.py``).
 
-So far the strawman 3-state signal machine and the 5-state DNA machine,
-each an ``nn.Module`` whose buffers are the model tables the wavefront
-kernels gather from: moving the module to a device moves its tables once,
-which takes the place of the JAX aligner's per-machine table cache
-(``pallas_fb.py:1575`` ``_model_cache``).
+So far the strawman and vanilla 3-state signal machines and the 5-state
+DNA machine, each an ``nn.Module`` whose buffers are the model tables the
+wavefront kernels gather from: moving the module to a device moves its
+tables once, which takes the place of the JAX aligner's per-machine table
+cache (``pallas_fb.py:1575`` ``_model_cache``).  Each gives the kernels'
+scalars (``scalars``), uploaded without waiting for queued kernels.
 """
 
 import numpy as np
@@ -13,7 +14,9 @@ import torch
 from torch import nn
 
 from ..constants import LOG_ZERO, NUM_OF_KMERS
-from ..io.poremodel import PoreModel
+from ..io.poremodel import (LEVEL_MEAN, LEVEL_SD, NOISE_LAMBDA, NOISE_MEAN,
+                            PoreModel)
+from ..ops.features import upload
 from ..ops.fb_kernels import NEG
 
 LOG_TENTH = -2.3025850929940455  # log(0.1), impl/stateMachine.c:1557
@@ -88,11 +91,26 @@ class StateMachine3SignalStrawman(nn.Module):
                 p["match_from_gap_y"], p["gap_open_x"], p["gap_extend_x"],
                 p["gap_switch_to_x"], p["gap_open_y"], p["gap_extend_y"]]
         start = self.ragged_start_vec() if ragged_left else self.start_vec()
-        arr = np.array([vals + list(start) + list(self.end_vec())
-                        + list(self.ragged_end_vec())], dtype=np.float64)
-        arr = np.maximum(np.nan_to_num(arr, neginf=NEG), NEG)
-        return torch.from_numpy(arr.astype(np.float32)).to(
-            self.match_model.device)
+        return _scalar_tensor(vals + list(start) + list(self.end_vec())
+                              + list(self.ragged_end_vec()),
+                              self.match_model.device)
+
+
+def _scalar_tensor(vals, device):
+    """Kernel scalars [1, n] f32 on ``device`` from log values: -inf
+    clamped to NEG in f64 before the cast."""
+    arr = np.array([vals], dtype=np.float64)
+    arr = np.maximum(np.nan_to_num(arr, neginf=NEG), NEG)
+    return upload(arr.astype(np.float32), device)
+
+
+def _pore_model_from_jax(m):
+    """The port's ``PoreModel`` with the fields of the JAX package's."""
+    return PoreModel(float(m.match_correlation),
+                     np.asarray(m.match_model, np.float64),
+                     np.asarray(m.skip_bins, np.float64),
+                     float(m.gap_y_correlation),
+                     np.asarray(m.gap_y_model, np.float64))
 
 
 def machine_from_jax(sm):
@@ -102,14 +120,98 @@ def machine_from_jax(sm):
     Reads only numpy and float attributes (``sm.p``, ``sm.gap_x_log_probs``
     and the fields of ``sm.model``), so it needs no JAX import of its own;
     the JAX package's pore model becomes the port's ``PoreModel``."""
-    m = sm.model
-    model = PoreModel(float(m.match_correlation),
-                      np.asarray(m.match_model, np.float64),
-                      np.asarray(m.skip_bins, np.float64),
-                      float(m.gap_y_correlation),
-                      np.asarray(m.gap_y_model, np.float64))
-    return StateMachine3SignalStrawman(model, params=sm.p,
+    return StateMachine3SignalStrawman(_pore_model_from_jax(sm.model),
+                                       params=sm.p,
                                        gap_x_log_probs=sm.gap_x_log_probs)
+
+
+# the vanilla model columns the kernels read (_model_tables, pallas_fb.py
+# :2652): the noise lambda, not the noise sd
+VANILLA_MODEL_COLUMNS = [LEVEL_MEAN, LEVEL_SD, NOISE_MEAN, NOISE_LAMBDA]
+
+
+class StateMachine3Vanilla(nn.Module):
+    """Nanopolish-style vanilla 3-state signal machine
+    (getSignalStateMachine3Vanilla, impl/stateMachine.c:1368-1409; the
+    reference signalAlign's default): per-column transitions from k-mer
+    skip probabilities in 30 |delta level mean| bins, Gaussian level x
+    inverse-Gaussian noise emissions, a silent gap-X.
+
+    Buffers (f32): ``match4`` and ``gap_y4`` [4096, 4], the pore model's
+    level mean, level sd, noise mean and noise lambda columns; ``skip60``
+    [60], the skip-bin probabilities (beta [0:30], alpha [30:60]; by
+    default the pore model's 30 bins twice, as
+    emissions_signal_loadPoreModel reads them).  The strand sets M -> Y's
+    share of the non-skip mass (``t_m_to_y_not_x``) and Y -> Y
+    (``t_e_to_e``), impl/stateMachine.c:1292-1304, 1625-1629."""
+
+    S = 3
+
+    def __init__(self, model: PoreModel, strand="template",
+                 skip_bin_probs=None):
+        super().__init__()
+        self.model = model
+        if strand == "template":
+            self.t_m_to_y_not_x, self.t_e_to_e = 0.17, 0.55
+        else:
+            self.t_m_to_y_not_x, self.t_e_to_e = 0.14, 0.49
+        if skip_bin_probs is None:
+            skip_bin_probs = np.concatenate([model.skip_bins,
+                                             model.skip_bins])
+        self.skip_bin_probs = np.asarray(skip_bin_probs, np.float64)
+        self.default_end_match_prob = -0.23552123624314988
+        self.default_end_from_x_prob = -1.6269694202638481
+        self.default_end_from_y_prob = -4.3187242127300092
+        cols = VANILLA_MODEL_COLUMNS
+        # the host copy of the level means gives the expectation finalize
+        # its skip bins without reading the card
+        self.level_mean = np.asarray(model.match_model[:, LEVEL_MEAN],
+                                     np.float32)
+        self.register_buffer("match4", torch.from_numpy(np.asarray(
+            model.match_model[:, cols], np.float32).copy()))
+        self.register_buffer("gap_y4", torch.from_numpy(np.asarray(
+            model.gap_y_model[:, cols], np.float32).copy()))
+        self.register_buffer("skip60", torch.from_numpy(np.asarray(
+            self.skip_bin_probs, np.float32).copy()))
+
+    def start_vec(self):
+        return [0.0, LOG_ZERO, LOG_ZERO]
+
+    def ragged_start_vec(self):
+        return [LOG_ZERO, 0.0, 0.0]
+
+    def end_vec(self):
+        return [self.default_end_match_prob, self.default_end_from_x_prob,
+                self.default_end_from_y_prob]
+
+    def ragged_end_vec(self):
+        # impl/stateMachine.c:1210-1222
+        return [(self.default_end_from_x_prob
+                 + self.default_end_from_y_prob) / 2.0,
+                self.default_end_from_x_prob, self.default_end_from_y_prob]
+
+    def scalars(self, ragged_left=False):
+        """Kernel scalars [1, 11] f32 on the buffers' device: [log Y -> M,
+        log Y -> Y, start(3), end(3), ragged_end(3)]
+        (``VanillaPallasAligner._scalars``, pallas_fb.py:2627-2636)."""
+        a_yy = self.t_e_to_e
+        start = self.ragged_start_vec() if ragged_left else self.start_vec()
+        return _scalar_tensor(
+            [np.log(1.0 - a_yy), np.log(a_yy)] + start + self.end_vec()
+            + self.ragged_end_vec(), self.match4.device)
+
+
+def vanilla_from_jax(sm):
+    """The port's vanilla machine with the weights of the JAX package's
+    ``StateMachine3Vanilla``: its pore model, skip-bin probabilities,
+    strand constants and end probabilities, read as numpy and floats."""
+    out = StateMachine3Vanilla(_pore_model_from_jax(sm.model),
+                               skip_bin_probs=np.asarray(sm.skip_bin_probs,
+                                                         np.float64))
+    for name in ("t_m_to_y_not_x", "t_e_to_e", "default_end_match_prob",
+                 "default_end_from_x_prob", "default_end_from_y_prob"):
+        setattr(out, name, float(getattr(sm, name)))
+    return out
 
 
 # Default log transition params of the 5-state machine,
@@ -193,10 +295,13 @@ class StateMachine5(nn.Module):
                             else np.asarray(gap_x_table))
         self.gap_y_table = (np.full(4, EMISSION_GAP) if gap_y_table is None
                             else np.asarray(gap_y_table))
-        tables = _extend_tables_with_n(self.match_table, self.gap_x_table,
-                                       self.gap_y_table)
+        tables = [_neg_clamped(t) for t in _extend_tables_with_n(
+            self.match_table, self.gap_x_table, self.gap_y_table)]
+        # the host copy of the gap-Y table builds the y side without
+        # reading the card
+        self.gapy5_host = tables[2]
         for name, table in zip(("match5", "gapx5", "gapy5"), tables):
-            self.register_buffer(name, torch.from_numpy(_neg_clamped(table)))
+            self.register_buffer(name, torch.from_numpy(table.copy()))
 
     # impl/stateMachine.c:744-790
     def start_vec(self):
@@ -231,11 +336,9 @@ class StateMachine5(nn.Module):
                 p["gap_short_open_y"], p["gap_short_extend_y"],
                 p["gap_long_open_y"], p["gap_long_extend_y"]]
         start = self.ragged_start_vec() if ragged_left else self.start_vec()
-        arr = np.array([vals + list(start) + list(self.end_vec())
-                        + list(self.ragged_end_vec())], dtype=np.float64)
-        arr = np.maximum(np.nan_to_num(arr, neginf=NEG), NEG)
-        return torch.from_numpy(arr.astype(np.float32)).to(
-            self.match5.device)
+        return _scalar_tensor(vals + list(start) + list(self.end_vec())
+                              + list(self.ragged_end_vec()),
+                              self.match5.device)
 
 
 def machine5_from_jax(sm):

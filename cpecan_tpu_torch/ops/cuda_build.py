@@ -19,10 +19,11 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("wavefront.cu", "logspace.cuh")
 # no fast math; --fmad=false keeps the kernels' rounding equal to the plain
-# PyTorch versions' on the same card
+# PyTorch versions' on the same card; 64 registers a thread at most, so
+# that every kernel launches with up to 1024 threads (one per lane)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-maxrregcount=64", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -37,10 +38,13 @@ _SIGNATURES = {
     # ... raggedf fwd shifts posts totals | ... TD | stream
     "wavefront_bwd_tiled": [_P] * 12 + [_I] * 9 + [_P],
 }
-# the dna5 instances take their strawman counterparts' arguments
-_SIGNATURES.update({f"{name}_dna5": _SIGNATURES[name] for name in (
-    "wavefront_fwd", "wavefront_bwd", "wavefront_bwd_exp",
-    "wavefront_fwd_tiled", "wavefront_bwd_tiled")})
+# the dna5 and vanilla instances take their strawman counterparts'
+# arguments
+_SIGNATURES.update({f"{name}{suffix}": _SIGNATURES[name]
+                    for suffix in ("_dna5", "_vanilla") for name in (
+                        "wavefront_fwd", "wavefront_bwd",
+                        "wavefront_bwd_exp", "wavefront_fwd_tiled",
+                        "wavefront_bwd_tiled")})
 
 
 class _Library:

@@ -3,9 +3,11 @@ kernels (counterpart of ``cpecan_tpu/ops/pallas_fb.py``
 ``_PallasAlignerBase`` :1431-1477 and ``StrawmanPallasAligner``:
 ``prepare`` :1599-1702, ``run`` :1778-1922 and ``_run_tiled``
 :2447-2616).  ``WavefrontAligner`` holds the machine-independent part;
-``StrawmanAligner`` (the strawman 3-state signal machine) and
-``Dna5Aligner`` (the 5-state DNA machine, ``Dna5PallasAligner`` :3084)
-supply the spec, the host feature inputs and the device features.
+``StrawmanAligner`` (the strawman 3-state signal machine),
+``VanillaAligner`` (the vanilla 3-state signal machine,
+``VanillaPallasAligner`` :2619) and ``Dna5Aligner`` (the 5-state DNA
+machine, ``Dna5PallasAligner`` :3084) supply the spec, the host feature
+inputs and the device features.
 
 A batch is packed into groups of R reads.  Each group shares one window of
 W lanes per anti-diagonal (``win[g, d]``, covering the union of the
@@ -40,13 +42,14 @@ from ..constants import NUM_OF_KMERS
 from .band import make_bands
 from .compact import compact_chunks, compact_posteriors, host_array
 from .device_bands import device_bands
-from .fb_kernels import (Dna5Spec, StrawmanSpec, _no_expectations,
-                         wavefront_bwd, wavefront_bwd_exp,
+from .fb_kernels import (Dna5Spec, StrawmanSpec, VanillaSpec,
+                         _no_expectations, wavefront_bwd, wavefront_bwd_exp,
                          wavefront_bwd_tiled, wavefront_fwd,
                          wavefront_fwd_tiled)
 from .features import (assemble_dna5_features, assemble_features,
-                       dna5_feature_inputs, dna5_y_values, feature_inputs,
-                       kx_from_codes, upload_u16)
+                       assemble_vanilla_features, dna5_feature_inputs,
+                       dna5_y_values, feature_inputs, host_bins,
+                       kx_from_codes, upload, upload_u16)
 
 # f32 posterior precision is bounded by the total log magnitude, which
 # grows with the diagonal count: past ~16k diagonals the untiled passes
@@ -230,7 +233,7 @@ class WavefrontAligner:
         sm = sm.to(dev)
         Bp, A = prep["anch"].shape[:2]
         G, NDp = prep["win"].shape
-        bm = torch.from_numpy(prep["bandmeta"]).to(dev)
+        bm = upload(prep["bandmeta"], dev)
         na, nm = Bp * A * 2, Bp * 4
         anch = bm[:na].reshape(Bp, A, 2)
         meta = bm[na:na + nm].reshape(Bp, 4)
@@ -294,8 +297,9 @@ class WavefrontAligner:
         With ``expectations`` the backward also sums each read's EM
         expectations and "expectations" replaces "compact": the machine's
         ``exp_finalize`` (strawman {"trans" [B, 3, 3], "kmer_gap"
-        [B, NUM_OF_KMERS + 2], "likelihood" [B]}; dna5 {"trans" [B, 5, 5],
-        "emis" [B, 5, 4, 4], "likelihood" [B]}), numpy f64.  With
+        [B, NUM_OF_KMERS + 2], "likelihood" [B]}; vanilla {"skip_bins"
+        [B, 60], "likelihood" [B]}; dna5 {"trans" [B, 5, 5], "emis"
+        [B, 5, 4, 4], "likelihood" [B]}), numpy f64.  With
         ``defer_expectations`` as well, the run copies nothing to the host
         and returns {"expectations_flat": the dispatched sums on the device,
         "totals", "prep"} for ``finalize_expectations`` (no posterior
@@ -416,18 +420,49 @@ class StrawmanAligner(WavefrontAligner):
         dev = self.device
         sp = prep.get("sp")
         return assemble_features(
-            torch.from_numpy(prep["codes"]).to(dev),
-            upload_u16(prep["evq"], dev),
-            torch.from_numpy(prep["evs"]).to(dev),
-            sm.match_model, sm.gap_y_model, sm.gap_x, prep["C"],
-            prep["C"] + prep["X"] + 256,
-            sp=None if sp is None else torch.from_numpy(sp).to(dev))
+            upload(prep["codes"], dev), upload_u16(prep["evq"], dev),
+            upload(prep["evs"], dev), sm.match_model, sm.gap_y_model,
+            sm.gap_x, prep["C"], prep["C"] + prep["X"] + 256,
+            sp=None if sp is None else upload(sp, dev))
 
     def exp_dispatch(self, prep, inp, trans, acc, totals):
         return exp_dispatch(trans, acc, totals)
 
     def exp_finalize(self, prep, flat):
         return exp_finalize(prep, flat)
+
+
+class VanillaAligner(StrawmanAligner):
+    """The vanilla 3-state signal machine (getSignalStateMachine3Vanilla,
+    signalAlign's default; ``models.state_machines.StateMachine3Vanilla``)
+    on the wavefront kernels: the strawman's reads and host inputs, the
+    per-column transitions assembled on the device from the k-mer skip
+    bins.  Expectation runs give the skip-bin EM sums
+    (``vanilla_exp_dispatch``, ``vanilla_exp_finalize``)."""
+
+    spec = VanillaSpec
+
+    def prepare(self, sm, reads, **kw):
+        """``WavefrontAligner.prepare`` plus ``level_mean``, the machine's
+        host level means, which the finalize bins the columns with."""
+        prep = super().prepare(sm, reads, **kw)
+        prep["level_mean"] = sm.level_mean
+        return prep
+
+    def device_features(self, sm, prep):
+        dev = self.device
+        sp = prep.get("sp")
+        return assemble_vanilla_features(
+            upload(prep["codes"], dev), upload_u16(prep["evq"], dev),
+            upload(prep["evs"], dev), sm.match4, sm.gap_y4, sm.skip60,
+            sm.t_m_to_y_not_x, prep["C"], prep["C"] + prep["X"] + 256,
+            sp=None if sp is None else upload(sp, dev))
+
+    def exp_dispatch(self, prep, inp, trans, acc, totals):
+        return vanilla_exp_dispatch(acc, totals)
+
+    def exp_finalize(self, prep, flat):
+        return vanilla_exp_finalize(prep, flat)
 
 
 class Dna5Aligner(WavefrontAligner):
@@ -445,20 +480,17 @@ class Dna5Aligner(WavefrontAligner):
     def device_features(self, sm, prep):
         dev = self.device
         # the y values are built on the host (dna5_y_values), from the
-        # buffer's five values
-        ev = dna5_y_values(prep["ydata"], prep["reads"],
-                           sm.gapy5.cpu().numpy())
+        # host copy of the buffer's five values
+        ev = dna5_y_values(prep["ydata"], prep["reads"], sm.gapy5_host)
         return assemble_dna5_features(
-            torch.from_numpy(prep["bx"]).to(dev), torch.from_numpy(ev).to(dev),
-            sm.match5, sm.gapx5, prep["C"], prep["C"] + prep["X"] + 256)
+            upload(prep["bx"], dev), upload(ev, dev), sm.match5, sm.gapx5,
+            prep["C"], prep["C"] + prep["X"] + 256)
 
     def device_inputs(self, sm, prep, ragged_left=False):
         """``WavefrontAligner.device_inputs`` plus ``bx`` [Bp, X], the x
-        base indices on the device for the emission contraction: uploaded
-        with the other inputs, before any kernel is queued, since a copy
-        from pageable host memory waits for the stream's queued work."""
+        base indices on the device for the emission contraction."""
         inp = super().device_inputs(sm, prep, ragged_left=ragged_left)
-        inp["bx"] = torch.from_numpy(prep["bx"]).to(self.device)
+        inp["bx"] = upload(prep["bx"], self.device)
         return inp
 
     def exp_dispatch(self, prep, inp, trans, acc, totals):
@@ -499,6 +531,36 @@ def exp_finalize(prep, flat):
                       minlength=B * nb).reshape(B, nb)
     n_diag = np.asarray([b.n_diag for b in prep["bands"]])
     return {"trans": tr, "kmer_gap": seg, "likelihood": tot * n_diag}
+
+
+def vanilla_exp_dispatch(acc, totals):
+    """The vanilla expectation sums as ONE [G*R, 2X + 1] f32 tensor on
+    their device (``VanillaPallasAligner._exp_dispatch``, pallas_fb.py:
+    2745-2757): each read's beta and alpha rows of acc [G, 2, R, X], then
+    its total; the skip-bin scatter happens on the host."""
+    G, R = totals.shape
+    return torch.cat([acc.permute(0, 2, 1, 3).reshape(G * R, -1),
+                      totals.reshape(G * R, 1)], dim=1)
+
+
+def vanilla_exp_finalize(prep, flat):
+    """Per-read vanilla expectations from the flat host array
+    (``VanillaPallasAligner._exp_finalize``, pallas_fb.py:2808-2826):
+    skip_bins [B, 60], each column's beta mass added to its skip bin and
+    its alpha mass to bin + 30 (vanillaHmm k-mer skip expectations,
+    impl/continuousHmm.c:410-426), in f64 with the bins of ``host_bins``;
+    likelihood [B] = total * n_diag."""
+    B, Bp, X = prep["B"], prep["Bp"], prep["X"]
+    bins = host_bins(prep["codes"], prep["level_mean"], prep.get("sp"))
+    masses = flat[:Bp, :2 * X].reshape(Bp, 2, X).astype(np.float64)
+    rows = 60 * np.arange(Bp)[:, None]
+    idx = np.concatenate([rows + bins, rows + bins + 30], axis=1)
+    # bincount adds in index order, as the JAX package's np.add.at does
+    skip = np.bincount(idx.ravel(), weights=masses.reshape(Bp, 2 * X).ravel(),
+                       minlength=Bp * 60).reshape(Bp, 60)
+    n_diag = np.asarray([b.n_diag for b in prep["bands"]])
+    tot = flat[:B, 2 * X].astype(np.float64)
+    return {"skip_bins": skip[:B], "likelihood": tot * n_diag}
 
 
 def dna5_exp_dispatch(trans, acc, totals, bx):

@@ -1,16 +1,18 @@
 """Band-local forward/backward wavefront of the pair-HMM machines: the
-log-space helpers, the machine specs (the strawman 3-state signal machine
-and the 5-state DNA machine), the wavefront passes (forward, posterior
-backward, expectation backward) as plain PyTorch, and the wrappers that
-launch their CUDA kernels.
+log-space helpers, the machine specs (the strawman 3-state signal machine,
+the vanilla 3-state signal machine and the 5-state DNA machine), the
+wavefront passes (forward, posterior backward, expectation backward) as
+plain PyTorch, and the wrappers that launch their CUDA kernels.
 
 Counterparts in the JAX package (``cpecan_tpu/ops/pallas_fb.py``):
 
 ========================  ==============================================
 ``NEG``, ``log_add``,      ``NEG``, ``_log_add``, ``_log_add3``,
-``log_add3``, ``gauss``    ``_gauss`` (:44-70)
+``log_add3``, ``gauss``,   ``_gauss`` (:44-70), ``_inv_gauss`` (:137)
+``inv_gauss``
 ``StrawmanSpec``           ``_StrawmanSpec`` (:162-207)
 ``Dna5Spec``               ``_Dna5Spec`` (:340-449)
+``VanillaSpec``            ``_VanillaSpec`` (:456-517)
 ``wavefront_fwd``          ``_sm3_forward_kernel`` (:635), untiled
 ``wavefront_bwd``          ``_sm3_backward_kernel`` -> ``_sm3_backward_body_w``
                            (:857, :900), ``with_exp=False``, untiled
@@ -30,7 +32,11 @@ the per-x model rows, ``yf`` [G*R, 2, C+X+256] the y elements flipped so
 that column C - y holds element y, ``basef``/``widthf``/``seedf``/
 ``raggedf`` [G*R, NDp] the band metadata.  Every pass and wrapper takes the
 machine ``spec`` (``StrawmanSpec`` unless given); its S states shape the
-forward plane [G, ND+1, S, R, W].
+forward plane [G, ND+1, S, R, W].  A spec's updates read the x-feature rows
+they need themselves, from window row views indexed like the full tensor
+(``xf[..., i, :]`` -> [G, R, W]): the backward hands it the rows at x and
+at x + 1 (clamped to the last column), the expectation sums the rows at
+the target's x, as the JAX specs' ``xfw``/``xfp`` are.
 
 Dispatch: every ``wavefront_*`` wrapper runs the plain version for a
 tensor on the CPU and launches the CUDA kernel
@@ -39,9 +45,9 @@ back from one to the other.  The tiled pair sweeps all ND = NT * TD
 diagonals in one launch each: a tile of the TPU kernels is only a
 boundary here, where the carried diagonals re-center.  Every CUDA kernel's
 launches are counted in ``KERNEL_LAUNCHES`` under its entry point's name
-(``wavefront_fwd``, ``wavefront_fwd_dna5``, ...); a wrapper's
-``.launches`` reads its strawman entry there.  Each plain version counts
-its calls in ``.calls``.
+(``wavefront_fwd``, ``wavefront_fwd_dna5``, ``wavefront_fwd_vanilla``,
+...); a wrapper's ``.launches`` reads its strawman entry there.  Each plain
+version counts its calls in ``.calls``.
 """
 
 import ctypes
@@ -84,13 +90,29 @@ def gauss(x, mu, sd):
                        NEG)
 
 
+def inv_gauss(x, mu, lam):
+    """log inverse-Gaussian pdf (emissions_signal_logInvGaussPdf,
+    impl/stateMachine.c:323-332), in the JAX ``_inv_gauss`` op order (the
+    halving last); NEG where x <= 0, lam <= 0 or mu == 0."""
+    l_two_pi = 1.8378770664093453
+    bad = (x <= 0.0) | (lam <= 0.0) | (mu == 0.0)
+    sx = torch.where(x > 0.0, x, 1.0)
+    smu = torch.where(mu != 0.0, mu, 1.0)
+    slam = torch.where(lam > 0.0, lam, 1.0)
+    a = (x - smu) / smu
+    out = (torch.log(slam) - l_two_pi - 3.0 * torch.log(sx)
+           - slam * a * a / sx) / 2.0
+    return torch.where(bad, NEG, out)
+
+
 class StrawmanSpec:
     """3-state strawman signal machine (stateMachine3_cellCalculate,
     impl/stateMachine.c:1306-1335): global scalar transitions, gap-X
     emission from a per-kmer table, Gaussian x Gaussian match emission.
 
-    ``xf`` tensors are [..., 9, W] window rows; transition scalars ``t``
-    are 0-d tensors or floats indexed by T_MM..T_EY."""
+    ``xf`` rows are [..., 9, W] window rows (a tensor or ``_Rows``);
+    transition scalars ``t`` are 0-d tensors or floats indexed by
+    T_MM..T_EY."""
 
     NAME = "strawman"
     SUFFIX = ""   # of its CUDA kernels' entry points
@@ -119,8 +141,10 @@ class StrawmanSpec:
         new_y = log_add(p1[0] + t[T_OY], p1[2] + t[T_EY]) + e_gapy
         return [new_m, new_x, new_y]
 
+    # xf at x, xfp at x+1; eg1 at x, em2p at x+1
     @staticmethod
-    def bwd_update_w(t, e_gapx_p, eg1, em2p, n1, n1p, n2p):
+    def bwd_update_w(t, xf, xfp, eg1, em2p, n1, n1p, n2p):
+        e_gapx_p = xfp[..., StrawmanSpec.GAP_X, :]
         mid = em2p + n2p[0]
         bw_m = mid + t[T_MM]
         bw_x = mid + t[T_XM]
@@ -143,14 +167,14 @@ class StrawmanSpec:
     EXP_Y_AUX = False  # exp_probs_w reads no y element
 
     @staticmethod
-    def exp_probs_w(t, e_gapx, em_t, eg_t, y_t, f0m, f1m, f1a, bw2, total):
+    def exp_probs_w(t, xfw, em_t, eg_t, y_t, f0m, f1m, f1a, bw2, total):
         """Posterior transition probabilities into one target diagonal
         (cell_signal_updateTransAndKmerSkipExpectations,
         impl/pairwiseAligner.c:442-459): p = exp(min(fwd_src + transition
         + emission + bwd_target - total, 10)), in the target diagonal's
         window.  f0m = fwd[t-2] at source x-1 (middle), f1m = fwd[t-1] at
         x-1 (lower), f1a = fwd[t-1] at x (upper), bw2 = bwd[t] at x,
-        em_t/eg_t = emissions(t), e_gapx = the gap-X row at x and y_t the
+        em_t/eg_t = emissions(t), xfw the x-feature rows at x and y_t the
         target's y element (None: EXP_Y_AUX is False).  Returns ({name: p}
         keyed like EXP_LANES, (gap-X mass ox + ex + sx,)): the EXP_NACC
         per-column contributions."""
@@ -159,6 +183,7 @@ class StrawmanSpec:
             # read's seed diagonal), so that p * band mask is never NaN
             return torch.exp(torch.clamp(logp - total, max=10.0))
 
+        e_gapx = xfw[..., StrawmanSpec.GAP_X, :]
         mid = em_t + bw2[0]
         probs = {"mm": p(f0m[0] + t[T_MM] + mid),
                  "xm": p(f0m[1] + t[T_XM] + mid),
@@ -222,9 +247,10 @@ class Dna5Spec:
         return [new_m, new_sx, new_sy, new_lx, new_ly]
 
     @staticmethod
-    def bwd_update_w(t, e_gapx_p, eg1, em2p, n1, n1p, n2p):
+    def bwd_update_w(t, xf, xfp, eg1, em2p, n1, n1p, n2p):
         # the JAX grouping, kept exactly: the piecewise-cubic log_add is not
         # associative in f32
+        e_gapx_p = xfp[..., Dna5Spec.GAP_X, :]
         mid = em2p + n2p[0]
         low_s = e_gapx_p + n1p[1]
         low_l = e_gapx_p + n1p[3]
@@ -251,7 +277,7 @@ class Dna5Spec:
     EXP_Y_AUX = True
 
     @staticmethod
-    def exp_probs_w(t, e_gapx, em_t, eg_t, y_t, f0m, f1m, f1a, bw2, total):
+    def exp_probs_w(t, xfw, em_t, eg_t, y_t, f0m, f1m, f1a, bw2, total):
         """``StrawmanSpec.exp_probs_w`` for the 5-state machine
         (``_Dna5Spec.exp_probs_w``, pallas_fb.py:406-449, op for op):
         ({name: p} keyed like EXP_LANES, the 20 contributions
@@ -262,6 +288,7 @@ class Dna5Spec:
 
         # middle: (t-2, x-1) -> M; lower: (t-1, x-1) -> SX / LX; upper:
         # (t-1, x) -> SY / LY
+        e_gapx = xfw[..., Dna5Spec.GAP_X, :]
         mid = em_t + bw2[0]
         probs = {"mm": p(f0m[0] + t[T5_MM] + mid),
                  "sxm": p(f0m[1] + t[T5_MSX] + mid),
@@ -288,6 +315,83 @@ class Dna5Spec:
                 probs["mly"] + probs["lyly"]]
         return probs, tuple(torch.where(y_t == float(by), p_to[to], 0.0)
                             for to in range(5) for by in range(4))
+
+
+# vanilla machine scalar order
+VA_YM, VA_YY = range(2)
+
+
+class VanillaSpec:
+    """Nanopolish-style vanilla 3-state signal machine
+    (stateMachine3Vanilla_cellCalculate, impl/stateMachine.c:1368-1409;
+    signalAlign's default): states M, shortGapX, shortGapY.
+
+    ``xf`` rows 0-3 are the match model (level mean, level sd, noise mean,
+    noise lambda) and rows 4-7 the gap-Y model of the column's k-mer,
+    Gaussian x inverse-Gaussian over (event mean, noise); rows 8-12 the
+    per-column transitions from the k-mer skip bins: log a_mx, a_xx, a_mm,
+    a_xm, a_my.  The two scalars are the strand's Y -> M and Y -> Y.
+    Gap-X is silent (no emission).  EM expectations
+    (cell_signal_updateBetaAndAlphaProb, impl/pairwiseAligner.c:493-513):
+    no transition lanes, two per-column accumulators, the beta (M -> X)
+    and alpha (X -> X) masses of each target column."""
+
+    NAME = "vanilla"
+    SUFFIX = "_vanilla"
+    S = 3
+    NS = 2
+    NXF = 13
+    LA_MX, LA_XX, LA_MM, LA_XM, LA_MY = range(8, 13)
+
+    @staticmethod
+    def emissions(xf, mean, noise):
+        e_match = (gauss(mean, xf[..., 0, :], xf[..., 1, :])
+                   + inv_gauss(noise, xf[..., 2, :], xf[..., 3, :]))
+        e_gapy = (gauss(mean, xf[..., 4, :], xf[..., 5, :])
+                  + inv_gauss(noise, xf[..., 6, :], xf[..., 7, :]))
+        return e_match, e_gapy
+
+    @staticmethod
+    def fwd_update_w(t, xf, e_match, e_gapy, p1m, p1, p2m):
+        V = VanillaSpec
+        new_x = log_add(p1m[0] + xf[..., V.LA_MX, :],
+                        p1m[1] + xf[..., V.LA_XX, :])
+        new_m = log_add3(p2m[0] + xf[..., V.LA_MM, :],
+                         p2m[1] + xf[..., V.LA_XM, :],
+                         p2m[2] + t[VA_YM]) + e_match
+        new_y = log_add(p1[0] + xf[..., V.LA_MY, :],
+                        p1[2] + t[VA_YY]) + e_gapy
+        return [new_m, new_x, new_y]
+
+    @staticmethod
+    def bwd_update_w(t, xf, xfp, eg1, em2p, n1, n1p, n2p):
+        # the transitions into a cell at x+1 are x+1's rows; M -> Y is x's
+        V = VanillaSpec
+        mid = em2p + n2p[0]
+        up = eg1 + n1[2]
+        low = n1p[1]   # silent gap-X: no emission on lower
+        bw_m = log_add3(mid + xfp[..., V.LA_MM, :], low + xfp[..., V.LA_MX, :],
+                        up + xf[..., V.LA_MY, :])
+        bw_x = log_add(mid + xfp[..., V.LA_XM, :], low + xfp[..., V.LA_XX, :])
+        bw_y = log_add(mid + t[VA_YM], up + t[VA_YY])
+        return [bw_m, bw_x, bw_y]
+
+    EXP_LANES = {}
+    EXP_NACC = 2       # per-column accumulators: beta (M -> X), alpha (X -> X)
+    EXP_Y_AUX = False
+
+    @staticmethod
+    def exp_probs_w(t, xfw, em_t, eg_t, y_t, f0m, f1m, f1a, bw2, total):
+        """``_VanillaSpec.exp_probs_w`` (pallas_fb.py:506-517): ({}, (beta,
+        alpha)), the M -> X and X -> X posterior masses into the target's
+        shortGapX at x, with the transitions of the target column."""
+        def p(logp):
+            return torch.exp(torch.clamp(logp - total, max=10.0))
+
+        low = bw2[1]   # silent gap-X: no emission
+        p_beta = p(f1m[0] + xfw[..., VanillaSpec.LA_MX, :] + low)
+        p_alpha = p(f1m[1] + xfw[..., VanillaSpec.LA_XX, :] + low)
+        return {}, (p_beta, p_alpha)
 
 
 def _no_expectations(spec):
@@ -350,6 +454,23 @@ class _Frame:
         xfw = self.cols(self.xf, w)
         ys = self.cols(self.yf, C - d + w)
         return (xfw,) + self.spec.emissions(xfw, ys[:, :, 0], ys[:, :, 1])
+
+
+class _Rows:
+    """Lazy window rows of a frame's ``xf`` for the windows starting at
+    ``start`` [G]: ``rows[..., i, :]`` is row i at x = start[g] + l
+    (clamped to the last column), [G, R, W], gathered when a spec first
+    reads it."""
+
+    def __init__(self, fr, start):
+        self.fr, self.start, self.got = fr, start, {}
+
+    def __getitem__(self, key):
+        i = key[-2]
+        if i not in self.got:
+            self.got[i] = self.fr.cols(self.fr.xf[:, :, i:i + 1],
+                                       self.start)[:, :, 0]
+        return self.got[i]
 
 
 def _recenter(vals, acc):
@@ -480,18 +601,20 @@ class _Expectations:
         (pallas_fb.py:1077), not carried."""
         fr = self.fr
         spec = fr.spec
-        e_gapx = fr.cols(fr.xf[:, :, spec.GAP_X:spec.GAP_X + 1], wt)[:, :, 0]
         y_t = (fr.cols(fr.yf[:, :, :1], self.C - d_t + wt)[:, :, 0]
                if spec.EXP_Y_AUX else None)
-        probs, contribs = spec.exp_probs_w(fr.t, e_gapx, em_t, eg_t, y_t,
-                                           f0m, f1m, f1a, bw2, total)
+        probs, contribs = spec.exp_probs_w(fr.t, _Rows(fr, wt), em_t, eg_t,
+                                           y_t, f0m, f1m, f1a, bw2, total)
         m = fr.band(d_t, wt).to(torch.float32)
         for name, k in spec.EXP_LANES.items():
             self.acc[k] = self.acc[k] + probs[name] * m
-        # one scatter for all accumulators: each column of a read takes
-        # one value per accumulator from this target
+        # each column of a read takes one value per accumulator from this
+        # target, so a gather, an add and a scatter sum it; scatter_add_'s
+        # atomic adds on the card would flush denormal terms that the
+        # kernel's adds keep
         x = fr.xcoord(wt)[:, None].expand(fr.G, len(contribs), fr.R, fr.W)
-        self.cols.scatter_add_(3, x, torch.stack(contribs, 1) * m[:, None])
+        self.cols.scatter_(3, x, self.cols.gather(3, x)
+                           + torch.stack(contribs, 1) * m[:, None])
 
     def result(self):
         """(trans [G, R, S*S], per-column accumulators [G, NACC, R, X])."""
@@ -547,12 +670,11 @@ def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
         n1p = [fr.align(v, o1 + 1) for v in n1]
         n2p = [fr.align(v, o2 + 1) for v in n2]
         em2p = fr.align(em_c, o1 + 1)
-        _, em1, eg1 = fr.emissions(d + 1, w, C)
-        # gap-X emission at x+1 (clamped at the x range's end: that lane
-        # lies outside every band)
-        gx = spec.GAP_X
-        e_gapx_p = fr.cols(fr.xf[:, :, gx:gx + 1], w + 1)[:, :, 0]
-        bw = spec.bwd_update_w(t, e_gapx_p, eg1, em2p, n1a, n1p, n2p)
+        xfw, em1, eg1 = fr.emissions(d + 1, w, C)
+        # the rows at x+1 are clamped at the x range's end: that lane lies
+        # outside every band
+        bw = spec.bwd_update_w(t, xfw, _Rows(fr, w + 1), eg1, em2p, n1a,
+                               n1p, n2p)
         mask = fr.band(d, w)
         seed_in = sa & mask
         bw = [torch.where(seed_in,
@@ -628,7 +750,8 @@ def backward_exp_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf,
     - acc [G, NACC, R, X]: the spec's EXP_NACC per-column accumulators in
       x frame (the JAX layout, ``_exp_dispatch`` reads it so): strawman the
       gap-X mass per reference column, dna5 the mass into state ``to`` by
-      y base ``by`` in row to * 4 + by.
+      y base ``by`` in row to * 4 + by, vanilla the beta (M -> X) and
+      alpha (X -> X) masses in rows 0 and 1.
 
     Each target diagonal t takes mass from sources on t-1 and t-2 and is
     added at the step of diagonal t-2, after that step's total; the

@@ -9,6 +9,14 @@ Strawman, host side (numpy): compact uploads, counterparts of
 per-x model rows ``xf`` [B, 9, X] and lays the events out flipped in ``yf``
 [B, 2, C+X+256].
 
+Vanilla: the strawman's host inputs; ``vanilla_kmer_pair``
+(``_vanilla_kmer_pair`` :1393), ``vanilla_skip_bins`` and
+``assemble_vanilla_features`` (``VanillaPallasAligner._assemble_fn``
+:2664-2732), which gathers ``xf`` [B, 13, X]: the match and gap-Y model
+rows of each column's k-mer and the five per-column log transitions from
+its k-mer skip bin; ``host_bins`` gives the expectation finalize the same
+bins on the host.
+
 5-state DNA: ``dna5_feature_inputs`` (``Dna5PallasAligner._feature_inputs``
 :3106-3118) on the host; ``dna5_y_values`` (the host half of
 ``_device_features`` :3154-3166) and ``assemble_dna5_features``
@@ -16,6 +24,10 @@ per-x model rows ``xf`` [B, 9, X] and lays the events out flipped in ``yf``
 rows of each x base against y base 0..4, then the gap-X row) and lays the
 y side out flipped in ``yf`` [B, 2, C+X+256] (base index as a float, gap-Y
 emission).
+
+Every host array goes to the card through ``upload``: a copy from pinned
+memory that does not wait for the kernels already queued, so that a
+pipeline can prepare its next chunk while the card runs this one.
 """
 
 import numpy as np
@@ -65,11 +77,22 @@ def feature_inputs(reads, X):
     return dict(ev=ev, codes=base_codes(reads, X), evq=evq, evs=evs)
 
 
+def upload(a, device):
+    """A numpy array as a tensor on ``device``.  To the card it goes from
+    pinned memory (torch's caching host allocator, which keeps the buffer
+    until the copy has ended) with ``non_blocking=True``: a copy from
+    pageable memory would wait for every kernel queued on the stream."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def upload_u16(a, device):
     """A u16 numpy array on ``device`` as its int16 bit pattern (2 bytes
     per value on the wire; torch's uint16 support on CUDA is partial)."""
-    return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).to(
-        device)
+    return upload(np.ascontiguousarray(a).view(np.int16), device)
 
 
 def dequantize_events(evq, evs):
@@ -135,6 +158,94 @@ def assemble_features(codes, evq, evs, mm, gm, gapx, C, Y, sp=None):
     yf = torch.zeros((B, 2, Y), dtype=torch.float32, device=xf.device)
     yf[:, :, C - n + 1:C + 1] = ev[:, :n, :].flip(1).transpose(1, 2)
     return xf.contiguous(), yf
+
+
+def vanilla_kmer_pair(kx):
+    """The getKmer2 skip-bin k-mer pair of each column from the per-column
+    k-mer indices kx [B, X] (kx[x] = the k-mer at ref position x - 1,
+    ``kx_from_codes``): kxp[x] = kx[x - 1] for x >= 2, else kx[1], and
+    kxn[x] = kx[x] for x >= 2, else kx[2] (StateMachine3Vanilla.x_skip_bins,
+    sequence_getKmer2, impl/pairwiseAligner.c:336-341).
+
+    As in the JAX package, kxp at the column x = l_x + 1 is a valid k-mer
+    where an index gather with a clipped position would give the sentinel:
+    that column lies outside every band (band x <= l_x), so no posterior
+    or expectation reads it."""
+    kxp = torch.cat([kx[:, 1:2].repeat(1, 2), kx[:, 1:-1]], 1)
+    kxn = torch.cat([kx[:, 2:3].repeat(1, 2), kx[:, 2:]], 1)
+    return kxp, kxn
+
+
+def vanilla_skip_bins(kxp, kxn, level_mean, sp=None):
+    """Per-column k-mer skip bins [B, X] int64: |level mean(kxn) - level
+    mean(kxp)| in 0.5 pA steps, clamped to 29
+    (emissions_signal_getKmerSkipBin, impl/stateMachine.c:389-420).
+    ``level_mean`` [4096] f32 is the unscaled table; with ``sp`` [B, 5]
+    each read's means are scaled, mean * scale + shift rounded once as
+    XLA's fused multiply-add rounds it.  An invalid k-mer's mean is 0.0,
+    unscaled, so the shift does not cancel there."""
+    def mean(idx):
+        m = level_mean[idx.clamp(0, NUM_OF_KMERS - 1)]
+        if sp is not None:
+            m = _fma(m, sp[:, 0:1], sp[:, 1:2])
+        return torch.where(idx > NUM_OF_KMERS, 0.0, m)
+
+    d = torch.abs(mean(kxn) - mean(kxp))
+    return torch.clamp((d / 0.5).to(torch.int64), max=29)
+
+
+def assemble_vanilla_features(codes, evq, evs, match4, gap_y4, skip60,
+                              t_m2y, C, Y, sp=None):
+    """(xf [B, 13, X], yf [B, 2, Y]) f32 on the inputs' device.
+
+    ``match4``/``gap_y4`` [4096, 4] are the machine's model columns (level
+    mean, level sd, noise mean, noise lambda), ``skip60`` [60] its skip-bin
+    probabilities (beta, then alpha), ``t_m2y`` the strand's M -> Y share
+    of the non-skip mass.  With ``sp`` [B, 5] = (scale, shift, var,
+    scale_sd, var_sd) the match rows are scaled per read: the noise lambda
+    by var_sd directly (``_assemble_fn`` :2684-2688).  Rows 8-12 are
+    log a_mx, a_xx, a_mm, a_xm, a_my of the column's skip bin (NEG where
+    the k-mer is invalid or the probability 0)."""
+    kxp, kxn = vanilla_kmer_pair(kx_from_codes(codes))
+    ev = dequantize_events(evq, evs)
+    valid = kxn <= NUM_OF_KMERS
+    safe = kxn.clamp(0, NUM_OF_KMERS - 1)
+    if sp is None:
+        rows = [match4[safe, c] for c in range(4)]
+    else:
+        rows = [_fma(match4[safe, 0], sp[:, 0:1], sp[:, 1:2])]
+        rows += [match4[safe, c] * sp[:, c + 1:c + 2] for c in (1, 2, 3)]
+    rows = [torch.where(valid, r, 0.0) for r in rows]
+    rows += [torch.where(valid, gap_y4[safe, c], 0.0) for c in range(4)]
+    b = vanilla_skip_bins(kxp, kxn, match4[:, 0], sp)
+    a_mx = skip60[b]
+    a_xx = skip60[b + 30]
+    a_my = (1.0 - a_mx) * t_m2y
+    # XLA fuses 1 - a_my into one multiply-add: a_mm rounds as it does
+    a_mm = _fma(1.0 - a_mx, torch.tensor(-t_m2y, dtype=torch.float32),
+                torch.tensor(1.0)) - a_mx
+    a_xm = 1.0 - a_xx
+    for a in (a_mx, a_xx, a_mm, a_xm, a_my):
+        rows.append(torch.where(valid & (a > 0.0),
+                                torch.log(torch.clamp(a, min=1e-37)), NEG))
+    xf = torch.stack(rows, dim=1).to(torch.float32)
+    B, E, _ = ev.shape
+    n = min(E, C + 1)  # y in [0, C] maps to column C - y >= 0
+    yf = torch.zeros((B, 2, Y), dtype=torch.float32, device=xf.device)
+    yf[:, :, C - n + 1:C + 1] = ev[:, :n, :].flip(1).transpose(1, 2)
+    return xf.contiguous(), yf
+
+
+def host_bins(codes, level_mean, sp=None):
+    """The skip bins of ``assemble_vanilla_features`` on the host (numpy
+    int64 [B, X]), by the same torch arithmetic on the CPU, so that the
+    expectation finalize scatters each column into the bin whose
+    transitions the kernels used (``VanillaPallasAligner._host_bins``
+    :2785)."""
+    kxp, kxn = vanilla_kmer_pair(kx_from_codes(torch.from_numpy(codes)))
+    return vanilla_skip_bins(
+        kxp, kxn, torch.from_numpy(level_mean),
+        None if sp is None else torch.from_numpy(sp)).numpy()
 
 
 def dna5_feature_inputs(reads, X):

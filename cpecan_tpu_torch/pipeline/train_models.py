@@ -1,14 +1,16 @@
 """trainModels-equivalent of the port: signal-HMM Baum-Welch over a set of
 npReads, the E-step batched through the wavefront kernels (counterpart of
-``cpecan_tpu/pipeline/train_models.py`` with ``engine="pallas"`` and the
-strawman ``threeState`` machine).
+``cpecan_tpu/pipeline/train_models.py`` with ``engine="pallas"``, for both
+of its machines: the strawman ``threeState`` and ``vanilla``).
 
-Per iteration and strand: one ``StrawmanAligner.run(expectations=True)``
-over all reads (per-read model scaling on the device), per-read
-expectation containers merged and normalized (the M-step,
-``models/hmm.py::ContinuousPairHmm``), the HMM written, the likelihoods
-tracked.  The next iteration's machine is loaded back from the written
-HMM, as the reference does (scripts/trainModels.py:118-236).
+Per iteration and strand: one expectation run (``StrawmanAligner`` or
+``VanillaAligner``, ``run(expectations=True)``) over all reads (per-read
+model scaling on the device), per-read expectation containers merged and
+normalized (the M-step, ``models/hmm.py``: ``ContinuousPairHmm``'s
+transitions and k-mer gap probabilities, ``VanillaHmm``'s 60 skip bins),
+the HMM written, the likelihoods tracked.  The next iteration's machine is
+loaded back from the written HMM, as the reference does
+(scripts/trainModels.py:118-236).
 """
 
 import copy
@@ -24,11 +26,12 @@ from ..cli.signal_align import get_remapped_anchor_pairs, make_event_slice
 from ..constants import KMER_LENGTH
 from ..io.fasta import reverse_complement
 from ..io.npread import load_npread
-from ..io.poremodel import load_pore_model
-from ..models.hmm import ContinuousPairHmm
-from ..models.state_machines import StateMachine3SignalStrawman
+from ..io.poremodel import load_pore_model, scale_model
+from ..models.hmm import ContinuousPairHmm, VanillaHmm
+from ..models.state_machines import (StateMachine3SignalStrawman,
+                                     StateMachine3Vanilla)
 from ..ops.anchors import filter_to_remove_overlap
-from ..ops.fb import StrawmanAligner
+from ..ops.fb import StrawmanAligner, VanillaAligner
 from ..utils.checkpoint import CheckpointManager
 
 # reads per kernel block group at most (the JAX package's compiled EM
@@ -38,7 +41,7 @@ MAX_GROUP = 32
 
 @dataclass
 class TrainOptions:
-    sm_type: str = "threeState"     # "vanilla" is not ported yet
+    sm_type: str = "threeState"     # or "vanilla"
     iterations: int = 10
     params: AlignmentParams = field(default_factory=AlignmentParams)
     # 'pallas' (the JAX package's name for it) batches the whole E-step
@@ -49,12 +52,15 @@ class TrainOptions:
 
 def add_and_norm_expectations(hmms):
     """add_and_norm_expectations (scripts/trainModels.py:108-115): merge
-    per-read ContinuousPairHmm expectation containers and normalize (the
-    M-step).  Returns (merged HMM, summed likelihood)."""
+    per-read expectation containers (ContinuousPairHmm or VanillaHmm) and
+    normalize (the M-step).  Returns (merged HMM, summed likelihood)."""
     merged = hmms[0]
     for h in hmms[1:]:
-        merged.transitions += h.transitions
-        merged.kmer_gap_probs += h.kmer_gap_probs
+        if isinstance(merged, VanillaHmm):
+            merged.kmer_skip_bins += h.kmer_skip_bins
+        else:
+            merged.transitions += h.transitions
+            merged.kmer_gap_probs += h.kmer_gap_probs
         merged.likelihood += h.likelihood
     likelihood = merged.likelihood
     merged.normalize()
@@ -73,22 +79,40 @@ def strawman_machine(model_file, hmm_file=None):
                                        params=params, gap_x_log_probs=gap_x)
 
 
+def vanilla_machine(model_file, hmm_file=None, strand=0):
+    """The vanilla machine of an E-step on strand 0 (template) or 1
+    (complement): the unscaled pore model with the skip bins of
+    ``hmm_file`` when given (train_models.py:80-92)."""
+    skip_bins = VanillaHmm.load(hmm_file).kmer_skip_bins if hmm_file else None
+    return StateMachine3Vanilla(
+        load_pore_model(model_file), skip_bin_probs=skip_bins,
+        strand="template" if strand == 0 else "complement")
+
+
 def strand_expectations(sm, jobs, sps, aligner):
     """Batched E-step of one strand (counterpart of
-    ``_pallas_strand_expectations``, train_models.py:68-134, strawman):
-    one expectation run over all ``jobs`` (ref, events, l_x, l_y, anchors)
+    ``_pallas_strand_expectations``, train_models.py:68-134): one
+    expectation run over all ``jobs`` (ref, events, l_x, l_y, anchors)
     with per-read ``sps`` (scale, shift, var, scale_sd, var_sd), ragged at
-    both ends.  Returns one ContinuousPairHmm container per read."""
+    both ends.  Returns one container per read: a ContinuousPairHmm for
+    the strawman machine, a VanillaHmm (with the read's scaled pore model
+    implanted, :122-125) for the vanilla one."""
     out = aligner.run(sm.to(aligner.device), jobs, expectations=True,
                       scale_params=np.asarray(sps, np.float64),
                       ragged_left=True, ragged_right=True)
     exp = out["expectations"]
     accs = []
     for i in range(len(jobs)):
-        h = ContinuousPairHmm(pseudocount=0.0001)
-        h.add_expectations({"trans": exp["trans"][i],
-                            "kmer_gap": exp["kmer_gap"][i],
-                            "likelihood": exp["likelihood"][i]})
+        if isinstance(sm, StateMachine3Vanilla):
+            h = VanillaHmm(pseudocount=0.0001)
+            h.implant_match_models(scale_model(sm.model, *sps[i]))
+            h.add_expectations({"skip_bins": exp["skip_bins"][i],
+                                "likelihood": exp["likelihood"][i]})
+        else:
+            h = ContinuousPairHmm(pseudocount=0.0001)
+            h.add_expectations({"trans": exp["trans"][i],
+                                "kmer_gap": exp["kmer_gap"][i],
+                                "likelihood": exp["likelihood"][i]})
         accs.append(h)
     return accs
 
@@ -127,7 +151,7 @@ def strand_jobs(reference_seq, npread_path, guide, params):
 def train(reference_path, read_guide_pairs, template_model, complement_model,
           out_template_hmm, out_complement_hmm, options: TrainOptions,
           log=print, checkpoint_dir=None, resume=False, mesh=None, *,
-          device):
+          device="cuda"):
     """Main EM loop (scripts/trainModels.py:118-236) on ``device`` (a CUDA
     device runs the CUDA kernels, the CPU their plain versions).
 
@@ -139,12 +163,9 @@ def train(reference_path, read_guide_pairs, template_model, complement_model,
             "item 7); use engine='pallas'")
     if options.engine != "pallas":
         raise ValueError(f"unknown engine {options.engine!r}")
-    if options.sm_type == "vanilla":
-        raise NotImplementedError(
-            "vanilla expectations are not ported yet (ROADMAP Queue 1 "
-            "item 3)")
-    if options.sm_type != "threeState":
+    if options.sm_type not in ("threeState", "vanilla"):
         raise ValueError(f"unknown sm_type {options.sm_type!r}")
+    vanilla = options.sm_type == "vanilla"
     if mesh is not None:
         raise NotImplementedError(
             "data-parallel E-steps are not ported yet (ROADMAP Queue 1 "
@@ -169,7 +190,7 @@ def train(reference_path, read_guide_pairs, template_model, complement_model,
                 fh.write(meta["complement_hmm"])
             t_hmm_file, c_hmm_file = out_template_hmm, out_complement_hmm
             log(f"resumed from checkpoint at iteration {step}")
-    aligner = StrawmanAligner(
+    aligner = (VanillaAligner if vanilla else StrawmanAligner)(
         options.params, device=torch.device(device),
         group=max(1, min(MAX_GROUP, len(read_guide_pairs))))
     # the jobs do not change between iterations; the machines do
@@ -181,10 +202,11 @@ def train(reference_path, read_guide_pairs, template_model, complement_model,
         for strand, model_file, hmm_file in (
                 (0, template_model, t_hmm_file),
                 (1, complement_model, c_hmm_file)):
+            sm = (vanilla_machine(model_file, hmm_file, strand) if vanilla
+                  else strawman_machine(model_file, hmm_file))
             accs = strand_expectations(
-                strawman_machine(model_file, hmm_file),
-                [j[strand][0] for j in jobs], [j[strand][1] for j in jobs],
-                aligner)
+                sm, [j[strand][0] for j in jobs],
+                [j[strand][1] for j in jobs], aligner)
             merged.append(add_and_norm_expectations(accs))
         (t_merged, t_lik), (c_merged, c_lik) = merged
         with open(out_template_hmm, "w") as fh:
@@ -205,6 +227,7 @@ def train(reference_path, read_guide_pairs, template_model, complement_model,
                 "template_hmm": t_text, "complement_hmm": c_text})
     if t_merged is None and t_hmm_file is not None:
         # resumed past the final iteration: reload the written models
-        t_merged = ContinuousPairHmm.load(t_hmm_file)
-        c_merged = ContinuousPairHmm.load(c_hmm_file)
+        loader = VanillaHmm if vanilla else ContinuousPairHmm
+        t_merged = loader.load(t_hmm_file)
+        c_merged = loader.load(c_hmm_file)
     return t_merged, c_merged, trajectory

@@ -13,23 +13,27 @@ import pytest
 import torch
 
 from cpecan_tpu_torch.align import AlignmentParams
-from cpecan_tpu_torch.fixtures import (load_dna5_em, load_dna5_realign,
-                                       load_long_read, load_zymo_slice,
+from cpecan_tpu_torch.fixtures import (fixture_path, load_dna5_em,
+                                       load_dna5_realign, load_long_read,
+                                       load_vanilla_zymo, load_zymo_slice,
                                        load_zymo_train, zymo_trained_params)
+from cpecan_tpu_torch.io.poremodel import load_pore_model
 from cpecan_tpu_torch.models.state_machines import (
-    StateMachine3SignalStrawman, StateMachine5)
+    StateMachine3SignalStrawman, StateMachine3Vanilla, StateMachine5)
 from cpecan_tpu_torch.ops import fb_kernels as fk
 from cpecan_tpu_torch.ops.compact import (compact_posteriors,
                                           extract_pairs_auto,
                                           extract_pairs_chunk)
-from cpecan_tpu_torch.ops.fb import Dna5Aligner, StrawmanAligner
+from cpecan_tpu_torch.ops.fb import (Dna5Aligner, StrawmanAligner,
+                                     VanillaAligner)
 from cpecan_tpu_torch.parity import (LONG_DNA_ENGINE_SCORE_ATOL, band_mask,
                                      check_dna5_expectations, check_em,
                                      check_exp_kernel,
                                      check_expectations, check_fwd,
-                                     check_long_pairs, check_pairs,
-                                     check_posts, check_tiled, check_totals,
-                                     check_trained)
+                                     check_long_pairs, check_pair_sets,
+                                     check_pairs, check_posts, check_tiled,
+                                     check_totals, check_trained,
+                                     check_vanilla_expectations)
 from cpecan_tpu_torch.pipeline import em
 from cpecan_tpu_torch.pipeline.train_models import TrainOptions, train
 from cpecan_tpu_torch.synthetic import (dna_em_batch, dna_realign_batch,
@@ -430,3 +434,160 @@ def test_cuda_em_matches_fixture(cuda, model_type):
              stored[f"{model_type}_transitions"],
              stored[f"{model_type}_emissions"],
              stored[f"{model_type}_running"])
+
+
+def _vanilla_machine(batch, trained):
+    """The batch's pore model as a vanilla machine; ``trained`` takes the
+    skip bins of the stored JAX vanilla training run."""
+    skip = load_vanilla_zymo()[2]["t_skip"] if trained else None
+    return StateMachine3Vanilla(batch[0].model, skip_bin_probs=skip)
+
+
+def _vanilla_inputs(cuda, batch, trained, ragged, tile_diag=None):
+    sm = _vanilla_machine(batch, trained)
+    reads = batch[1]
+    pa = VanillaAligner(device=cuda, group=8)
+    sp = np.random.default_rng(4).uniform(0.95, 1.05, (len(reads), 5))
+    prep = pa.prepare(sm, reads, ragged_right=ragged, scale_params=sp,
+                      tile_diag=tile_diag)
+    inp = pa.device_inputs(sm, prep, ragged_left=ragged)
+    ND = prep["tiled"]["NDT"] if tile_diag else prep["ND"]
+    dims = dict(R=prep["R"], W=prep["W"], ND=ND, C=prep["C"],
+                spec=fk.VanillaSpec)
+    if tile_diag:
+        dims["TD"] = prep["tiled"]["TD"]
+    return sm, prep, inp, dims
+
+
+@pytest.mark.parametrize("trained", [False, True],
+                         ids=["untrained", "trained"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_cuda_vanilla_kernels_match_plain(batch, cuda, ragged, trained):
+    """K1, K2 and K3 vanilla against their plain versions on the same card
+    inputs (per-read scaling): fwd plane, posteriors, totals and the
+    beta/alpha accumulators equal bit for bit."""
+    _, _, inp, dims = _vanilla_inputs(cuda, batch, trained, ragged)
+    fk.reset_counts()
+    fwd = _fwd(inp, dims, fk.wavefront_fwd)
+    posts, totals = _bwd(inp, dims, fwd, fk.wavefront_bwd)
+    got = _bwd(inp, dims, fwd, fk.wavefront_bwd_exp)
+    torch.cuda.synchronize()
+    assert fk.KERNEL_LAUNCHES == {"wavefront_fwd_vanilla": 1,
+                                  "wavefront_bwd_vanilla": 1,
+                                  "wavefront_bwd_exp_vanilla": 1}
+    assert fk.forward_plain.calls == fk.backward_plain.calls == 0
+    assert torch.equal(fwd, _fwd(inp, dims, fk.forward_plain))
+    pposts, ptotals = _bwd(inp, dims, fwd, fk.backward_plain)
+    assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
+    plain = _bwd(inp, dims, fwd, fk.backward_exp_plain)
+    check_exp_kernel(got, plain)
+    assert torch.equal(got[3], plain[3])
+    assert not got[2].any() and bool(got[3].sum() > 0)
+    assert torch.equal(got[0], posts) and torch.equal(got[1], totals)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_cuda_vanilla_tiled_kernels_match_plain(batch, cuda, ragged):
+    """K6a/K6b vanilla against their plain versions, tiles of 128
+    diagonals: fwd plane, shifts, posteriors, totals bit for bit."""
+    _, prep, inp, dims = _vanilla_inputs(cuda, batch, True, ragged,
+                                         tile_diag=128)
+    assert prep["tiled"]["NT"] >= 4
+    fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
+    ba = fa + [inp["seedf"], inp["raggedf"]]
+    fk.reset_counts()
+    fwd, shifts = fk.wavefront_fwd_tiled(*fa, **dims)
+    posts, totals = fk.wavefront_bwd_tiled(*ba, fwd, shifts, **dims)
+    torch.cuda.synchronize()
+    assert fk.KERNEL_LAUNCHES == {"wavefront_fwd_tiled_vanilla": 1,
+                                  "wavefront_bwd_tiled_vanilla": 1}
+    pfwd, pshifts = fk.forward_tiled_plain(*fa, **dims)
+    assert torch.equal(fwd, pfwd) and torch.equal(shifts, pshifts)
+    assert torch.all(shifts[..., 1:] != 0.0)
+    pposts, ptotals = fk.backward_tiled_plain(*ba, fwd, shifts, **dims)
+    assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
+
+
+def test_cuda_vanilla_exp_run_matches_cpu_run(batch, cuda):
+    """A whole vanilla expectation run on the card against the same run
+    on the CPU (plain passes), finalized into skip bins."""
+    sm = _vanilla_machine(batch, True)
+    reads = batch[1]
+    kw = dict(expectations=True, ragged_left=True, ragged_right=True,
+              scale_params=np.random.default_rng(4).uniform(
+                  0.95, 1.05, (len(reads), 5)))
+    got = VanillaAligner(device=cuda, group=8).run(sm, reads, **kw)
+    want = VanillaAligner(device="cpu", group=8).run(sm.to("cpu"), reads,
+                                                     **kw)
+    check_vanilla_expectations(got["expectations"], want["expectations"])
+
+
+def test_cuda_vanilla_zymo_matches_fixture(cuda, tmp_path):
+    """The Zymo read's vanilla pairs and two vanilla Baum-Welch iterations
+    on the card against the JAX package's stored results."""
+    job, sp, stored = load_vanilla_zymo()
+    sm = StateMachine3Vanilla(load_pore_model(
+        fixture_path("template_median68pA.model")))
+    thr = AlignmentParams().threshold
+    out = VanillaAligner(device=cuda, group=1).run(sm, [job],
+                                                    scale_params=sp[None])
+    got = {(x, y) for _, x, y in extract_pairs_auto(
+        out, 0, out["prep"]["bands"][0].n_diag, thr)}
+    check_pair_sets(got, {(int(x), int(y)) for _, x, y in stored["pairs"]})
+    args, _ = load_zymo_train()
+    fk.reset_counts()
+    t_hmm, c_hmm, traj = train(
+        **args, out_template_hmm=str(tmp_path / "t.hmm"),
+        out_complement_hmm=str(tmp_path / "c.hmm"),
+        options=TrainOptions(sm_type="vanilla",
+                             iterations=len(stored["trajectory"])),
+        log=lambda m: None, device=cuda)
+    assert fk.KERNEL_LAUNCHES["wavefront_bwd_exp_vanilla"] == 4
+    assert fk.backward_exp_plain.calls == fk.forward_plain.calls == 0
+    check_trained(t_hmm, c_hmm, traj, stored)
+
+
+@pytest.mark.parametrize("spec", [fk.StrawmanSpec, fk.VanillaSpec,
+                                  fk.Dna5Spec], ids=lambda s: s.NAME)
+def test_cuda_kernels_launch_at_the_widest_window(cuda, spec):
+    """Every kernel of a spec launches with W = 1024 threads, the widest
+    window the wrappers accept, and equals its plain version there: one
+    read whose band covers the whole window for 128 diagonals, seeded at
+    the last (random model rows, events and transitions)."""
+    rng = np.random.default_rng(6)
+    R, W, ND = 1, 1024, 128
+    X, C = W, ND + 3
+    Y, NDp = C + X + 256, 384
+    xf = rng.uniform(0.5, 2.0, (1, spec.NXF, X))
+    if spec is fk.VanillaSpec:
+        xf[:, 8:] = np.log(rng.uniform(0.05, 0.9, (1, 5, X)))
+    if spec is fk.Dna5Spec:
+        xf = np.log(rng.uniform(0.05, 0.9, (1, spec.NXF, X)))
+        yf = np.stack([rng.integers(0, 4, Y).astype(np.float64),
+                       np.log(rng.uniform(0.05, 0.9, Y))])[None]
+    else:
+        yf = rng.uniform(0.5, 2.0, (1, 2, Y))
+    scal = np.log(rng.uniform(0.05, 0.9, spec.NS + 3 * spec.S))
+    seedf = np.zeros((1, NDp))
+    seedf[0, ND] = 1.0
+
+    def dev(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=cuda)
+
+    fa = [dev(scal), dev(np.zeros((1, NDp)), torch.int32), dev(xf), dev(yf),
+          dev(np.zeros((1, NDp))), dev(np.full((1, NDp), float(W)))]
+    ba = fa + [dev(seedf), dev(np.zeros((1, NDp)))]
+    dims = dict(R=R, W=W, ND=ND, C=C, spec=spec)
+    fwd = fk.wavefront_fwd(*fa, **dims)
+    assert torch.equal(fwd, fk.forward_plain(*fa, **dims))
+    for kernel, plain in ((fk.wavefront_bwd, fk.backward_plain),
+                          (fk.wavefront_bwd_exp, fk.backward_exp_plain)):
+        got, want = kernel(*ba, fwd, **dims), plain(*ba, fwd, **dims)
+        assert torch.isfinite(got[1]).all()
+        assert all(torch.equal(g, w) for g, w in zip(got[:3], want[:3]))
+    tfwd, shifts = fk.wavefront_fwd_tiled(*fa, TD=ND, **dims)
+    assert torch.equal(tfwd, fwd)
+    tposts, ttot = fk.wavefront_bwd_tiled(*ba, tfwd, shifts, TD=ND, **dims)
+    want = fk.backward_tiled_plain(*ba, tfwd, shifts, TD=ND, **dims)
+    assert torch.equal(tposts, want[0]) and torch.equal(ttot, want[1])

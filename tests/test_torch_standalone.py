@@ -208,6 +208,37 @@ def case_hmm_round_trip(tmp_path):
     np.testing.assert_array_equal(gg, wg)
 
 
+def case_vanilla_hmm(tmp_path):
+    """VanillaHmm: add, normalize (beta and alpha together), implant, the
+    4-line text format and its load."""
+    rng = np.random.default_rng(8)
+    acc = {"skip_bins": rng.random(60), "likelihood": -987.25}
+    pore = t_poremodel.load_pore_model(t_fixtures.fixture_path(MODEL))
+    hmms = []
+    for mod in (t_hmm, j_hmm):
+        h = mod.VanillaHmm(pseudocount=1e-4)
+        h.add_expectations(acc)
+        h.add_expectations(acc)
+        h.normalize()
+        h.implant_match_models(pore)
+        hmms.append(h)
+    np.testing.assert_array_equal(hmms[0].kmer_skip_bins,
+                                  hmms[1].kmer_skip_bins)
+    texts = []
+    for h in hmms:
+        fh = io.StringIO()
+        h.write(fh)
+        texts.append(fh.getvalue())
+    assert texts[0] == texts[1] and len(texts[0].splitlines()) == 4
+    path = tmp_path / "v.hmm"
+    path.write_text(texts[0])
+    got = t_hmm.VanillaHmm.load(str(path))
+    want = j_hmm.VanillaHmm.load(str(path))
+    for f in ("kmer_skip_bins", "match_model", "scaled_match_model"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert (got.likelihood, got.type) == (want.likelihood, want.type)
+
+
 def case_kmers():
     rng = np.random.default_rng(9)
     seq = "".join(rng.choice(list("ACGTN"), 500, p=[.24, .24, .24, .24, .04]))
@@ -384,8 +415,8 @@ def case_synth_dna_pair():
 
 CASES = {f.__name__[5:]: f for f in (
     case_make_bands, case_cigar, case_load_guides, case_npread,
-    case_pore_model, case_hmm_round_trip, case_kmers, case_anchors,
-    case_checkpoint, case_rng_state_json,
+    case_pore_model, case_hmm_round_trip, case_vanilla_hmm, case_kmers,
+    case_anchors, case_checkpoint, case_rng_state_json,
     case_constants_and_fixture_paths, case_reweight,
     case_multiple_aligner, case_cigar_io, case_fasta_io, case_hmm_discrete,
     case_synth_dna_pair)}

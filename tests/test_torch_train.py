@@ -148,9 +148,8 @@ def test_train_models_cli_refuses_unread_flags(tmp_path, capsys, flag):
 
 @pytest.mark.parametrize("kw, match", [
     (dict(engine="scan"), "Queue 1 item 7"),
-    (dict(sm_type="vanilla"), "Queue 1 item 3"),
     (dict(mesh=object()), "Queue 1 item 9"),
-], ids=["scan", "vanilla", "mesh"])
+], ids=["scan", "mesh"])
 def test_unported_training_options_raise(tmp_path, kw, match):
     args, _ = load_zymo_train()
     mesh = kw.pop("mesh", None)
