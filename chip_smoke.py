@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ and drives the strawman signal-alignment
-paths, the 5-state DNA realigner, cPecanEm (DNA Baum-Welch) and the vanilla
-signal machine (signalAlign's default, posteriors and trainModels) through
-them:
+paths, the 5-state DNA realigner, cPecanEm (DNA Baum-Welch), the vanilla
+signal machine (signalAlign's default, posteriors and trainModels), the
+4-state signal machine and the signalAlign batch pipeline through them:
 
 1. versions, the card's name and power limit;
 2. the kernel build (nvcc, ptxas register report);
@@ -106,11 +106,36 @@ them:
    CLI with -smt vanilla once;
 21. K6a/K6b vanilla against their plain versions at phase 12's R, W and
    TD on its 1,500 x 2,550 check read (two tiles), then phase 12's 64
-   long reads through VanillaAligner once, kernels only: bases/s.
+   long reads through VanillaAligner once, kernels only: bases/s;
+22. the sm4 kernels (K1, K2, K3, K6a, K6b for the 4-state machine) against
+   their plain versions: K1/K2 on the first bench chunk with the default
+   machine; K3 through one Sm4Aligner.run(expectations=True) on its first
+   32 reads with ragged ends, per-read scaling and a trained-looking
+   machine (every transition finite, a non-zero gap-X table); phase 12's
+   64 long reads routed tiled once, then K6a/K6b against plain on its
+   check read: fwd planes, shifts, posteriors, totals and transition lanes
+   bit for bit, the shortGapX columns within parity.KERNEL_GAPX_ATOL,
+   equal pairs, ms, plain ms and bounds;
+23. the signalAlign pipeline at full width: bench.py's
+   signal_pipeline_reads_per_sec (run_batch_fast on 64 copies of the Zymo
+   read, each guided by the stored guide renamed to it, StrawmanAligner
+   group 32, chunk 64, compact_k 2048; median of 3 after a warm-up) with
+   its stage split, launch counts and peak device memory; the same reads
+   with -smt vanilla and fourState (median of 3 after a warm-up each);
+   every read aligned, every copy's tsv equal to read 0's, read 0's within
+   parity.check_tsv of the JAX package's stored tsv
+   (tests/fixtures/batch_zymo.npz) for each machine; each machine's first
+   chunk (template strand, as its warm-up run launched it) against the
+   plain passes, fwd plane, posteriors and totals bit for bit (the K1/K2
+   sm4 ms, plain ms and bound of the kernels line are this chunk's); the
+   one-chunk-behind drain over 256 reads in chunks of 64 against the same
+   runs serialized; cpecan-torch-signal-align-batch -smt vanilla on 4 of
+   the reads.
 
 The stage splits run the path's own code (``WavefrontAligner.run``,
-``cli.realign.main`` and ``pipeline.em.calculate_expectations_pallas``
-take a ``stage`` hook), each step ended by a synchronize.
+``cli.realign.main``, ``pipeline.em.calculate_expectations_pallas`` and
+``pipeline.signal_align_batch.run_batch_fast`` take a ``stage`` hook),
+each step ended by a synchronize.
 
 Each path's launch counts are read from a run that starts with every
 count at 0.  Any failed check raises (exit code != 0).  The last three
@@ -126,6 +151,7 @@ import io
 import json
 import os
 import random
+import shutil
 import statistics
 import subprocess
 import sys
@@ -165,10 +191,15 @@ F32_FLOPS_PER_S = 67e12
 # Gaussians of 16, two adds), four log_adds and 9 adds per update (161),
 # the band mask 3, the backward's seed selects and posterior 10; the
 # expectation target 17 more (two probabilities of 5, their masked adds 4,
-# the band mask 3)
+# the band mask 3).  Sm4: the strawman's emissions 34, seven log_adds and
+# 15 adds per update (281), the band mask 3 and the fourth state's select
+# 2; the backward's seed selects and posterior 11; the expectation target
+# 122 more (the emissions 34, 11 probabilities of 5, four adds, 11 masked
+# sums of 2, the shortGapX column add 4, the band mask 3)
 FLOPS_PER_CELL = dict(fwd=240, bwd=245, bwd_exp=355, dna5_fwd=339,
                       dna5_bwd=349, dna5_bwd_exp=484, vanilla_fwd=214,
-                      vanilla_bwd=221, vanilla_bwd_exp=238)
+                      vanilla_bwd=221, vanilla_bwd_exp=238, sm4_fwd=320,
+                      sm4_bwd=326, sm4_bwd_exp=448)
 DNA_GROUP = 32       # phases 13-15: bench.py's realign chunk and group
 DNA_COMPACT_K = 4096
 DNA_LONG = 100_000   # phase 16: bench.py's long_read_bases_per_sec pair
@@ -178,6 +209,12 @@ DNA_CHECK = 2_000    # phase 16: the pair held against plain at that geometry
 EM_DNA_GROUP = 32    # phases 17-18: bench.py's bench_dna_em group
 EM_DNA_SHARD = 1000  # phase 18: one default-size shard of 1 kb alignments
 VANILLA_E_READS = 128  # phase 20: bench.py's signal-EM shape (group 32)
+PIPE_READS = 64      # phase 23: bench.py's signal_pipeline_reads_per_sec
+PIPE_GROUP = 32
+PIPE_CHUNK = 64
+PIPE_COMPACT_K = 2048
+PIPE_CLI_READS = 4   # phase 23: the CLI's run
+PIPE_OVERLAP_READS = 256  # phase 23: the drain overlap over four chunks
 GOLDEN = {(0, 0), (1, 1), (2, 4), (3, 5)}
 
 
@@ -263,17 +300,21 @@ def main():
 
     from cpecan_tpu_torch.align import AlignmentParams
     from cpecan_tpu_torch.cli import realign
-    from cpecan_tpu_torch.cli.batch import em_main, train_models_main
-    from cpecan_tpu_torch.fixtures import (fixture_path, load_dna5_em,
+    from cpecan_tpu_torch.cli.batch import (em_main,
+                                            signal_align_batch_main,
+                                            train_models_main)
+    from cpecan_tpu_torch.fixtures import (fixture_path, load_batch_zymo,
+                                           load_dna5_em,
                                            load_dna5_realign, load_long_read,
                                            load_vanilla_zymo,
                                            load_zymo_slice, load_zymo_train,
                                            zymo_trained_params)
     from cpecan_tpu_torch.io.cigar import cigar_write
     from cpecan_tpu_torch.io.poremodel import load_pore_model
-    from cpecan_tpu_torch.models.hmm import VanillaHmm
+    from cpecan_tpu_torch.models.hmm import ContinuousPairHmm, VanillaHmm
     from cpecan_tpu_torch.models.state_machines import (
-        StateMachine3SignalStrawman, StateMachine3Vanilla, StateMachine5)
+        StateMachine3SignalStrawman, StateMachine3Vanilla, StateMachine4,
+        StateMachine5)
     from cpecan_tpu_torch.ops import fb_kernels as fk
     from cpecan_tpu_torch.ops.compact import (compact_chunks,
                                               compact_posteriors,
@@ -282,9 +323,9 @@ def main():
                                               extract_pairs_long)
     from cpecan_tpu_torch.ops.cuda_build import build_info, load_library
     from cpecan_tpu_torch.ops.compact import host_array
-    from cpecan_tpu_torch.ops.fb import (Dna5Aligner, StrawmanAligner,
-                                         VanillaAligner, exp_dispatch,
-                                         exp_finalize)
+    from cpecan_tpu_torch.ops.fb import (Dna5Aligner, Sm4Aligner,
+                                         StrawmanAligner, VanillaAligner,
+                                         exp_dispatch, exp_finalize)
     from cpecan_tpu_torch.parity import (KERNEL_GAPX_ATOL,
                                          LONG_DNA_ENGINE_SCORE_ATOL,
                                          TOTAL_RTOL, band_mask, check_em,
@@ -293,8 +334,10 @@ def main():
                                          check_long_pairs, check_pair_sets,
                                          check_pairs, check_posts,
                                          check_tiled, check_tiled_pairs,
-                                         check_totals, check_trained)
+                                         check_totals, check_trained,
+                                         check_tsv)
     from cpecan_tpu_torch.pipeline import em
+    from cpecan_tpu_torch.pipeline.signal_align_batch import run_batch_fast
     from cpecan_tpu_torch.pipeline.train_models import (
         TrainOptions, add_and_norm_expectations, strand_expectations, train)
     from cpecan_tpu_torch.synthetic import (dna_em_batch, dna_realign_batch,
@@ -1642,6 +1685,435 @@ def main():
     del vlong
     torch.cuda.synchronize()
 
+    # -- 22. the sm4 kernels vs plain ---------------------------------------
+    t22 = time.perf_counter()
+    # K1/K2 sm4 on the first bench chunk with the default 4-state machine
+    # and flush ends (phase 3's inputs); K3 sm4 through Sm4Aligner.run(
+    # expectations=True) on the first 32 reads with ragged ends, per-read
+    # scaling and a trained-looking machine (the M-step of a random
+    # 4-state table: every transition finite, a non-zero gap-X table);
+    # K6a/K6b sm4 on phase 12's 64 long reads once (routed tiled by
+    # themselves), then against their plain versions on its check read
+    rng4 = np.random.default_rng(21)
+    h4 = ContinuousPairHmm(state_number=4, pseudocount=1e-4)
+    h4.add_expectations({"trans": rng4.uniform(0.05, 1.0, (4, 4)),
+                         "kmer_gap": rng4.uniform(0.1, 1.0, 4098),
+                         "likelihood": -100.0})
+    h4.normalize()
+    p4, gx4 = h4.to_sm4_params()
+    sm4_default = StateMachine4(sm.model)
+    sm4_trained = StateMachine4(sm.model, params=p4, gap_x_log_probs=gx4)
+    s4a = Sm4Aligner(AlignmentParams(), device=dev, group=GROUP)
+    s4prep = s4a.prepare(sm4_default, reads[:CHUNK])
+    s4inp = s4a.device_inputs(sm4_default, s4prep)
+    s4d = dict(R=s4prep["R"], W=s4prep["W"], ND=s4prep["ND"],
+               C=s4prep["C"], spec=fk.Sm4Spec)
+    s4fa = [s4inp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                               "widthf")]
+    s4ba = s4fa + [s4inp["seedf"], s4inp["raggedf"]]
+    s4fwd = fk.wavefront_fwd(*s4fa, **s4d)
+    s4fwd_p, ms["sm4_fwd_bench_plain"] = timed(
+        lambda: fk.forward_plain(*s4fa, **s4d))
+    s4posts, s4tot = fk.wavefront_bwd(*s4ba, s4fwd, **s4d)
+    (s4posts_p, s4tot_p), ms["sm4_bwd_bench_plain"] = timed(
+        lambda: fk.backward_plain(*s4ba, s4fwd, **s4d))
+    for what, got, want in (("K1 sm4 fwd plane", s4fwd, s4fwd_p),
+                            ("K2 sm4 posteriors", s4posts, s4posts_p),
+                            ("K2 sm4 totals", s4tot, s4tot_p)):
+        same(what, got, want)
+    s4nds = [b.n_diag for b in s4prep["bands"]]
+    s4parts = [extract_pairs_chunk(dict(
+        prep=s4prep, posteriors=p, compact=compact_posteriors(
+            p, min(COMPACT_K, s4d["ND"] * s4d["W"]))), rels, s4nds, thr)
+        for p in (s4posts, s4posts_p)]
+    for i, (a, b) in enumerate(zip(*s4parts)):
+        if not np.array_equal(a, b) or len(a) == 0:
+            raise AssertionError(f"sm4 pairs of read {i}: kernel and plain "
+                                 "differ")
+    # the bench chunk's K1/K2 sm4 times (the kernels line takes phase
+    # 23's, on the pipeline's own chunk)
+    ms.update(
+        sm4_fwd_bench=cuda_ms(lambda: fk.wavefront_fwd(*s4fa, **s4d), 5),
+        sm4_bwd_bench=cuda_ms(lambda: fk.wavefront_bwd(*s4ba, s4fwd, **s4d),
+                              5))
+    s4cells = sum(int(b.width.sum()) for b in s4prep["bands"])
+    bounds.update(
+        sm4_fwd_bench=bound(s4fa + [s4fwd], s4cells,
+                            FLOPS_PER_CELL["sm4_fwd"]),
+        sm4_bwd_bench=bound(s4ba + [s4fwd, s4posts, s4tot], s4cells,
+                            FLOPS_PER_CELL["sm4_bwd"]))
+    del s4fwd_p, s4posts_p, s4fwd, s4posts
+    # K3 sm4: the E-step entry point, its launches counted from 0
+    s4ea = Sm4Aligner(AlignmentParams(), device=dev, group=EM_GROUP)
+    s4st = Stages()
+    fk.reset_counts()
+    s4exp = s4ea.run(sm4_trained, reads[:EM_GROUP], expectations=True,
+                     ragged_left=True, ragged_right=True,
+                     scale_params=em_sp[:EM_GROUP], stage=s4st)
+    sm4_exp_counts = dict(fk.KERNEL_LAUNCHES)
+    if (sm4_exp_counts != {"wavefront_fwd_sm4": 1,
+                           "wavefront_bwd_exp_sm4": 1}
+            or fk.forward_plain.calls or fk.backward_exp_plain.calls):
+        raise AssertionError(f"sm4 E-step launches {sm4_exp_counts}")
+    e4prep, e4inp = s4st.out["prepare"], s4st.out["inputs"]
+    e4d = dict(R=e4prep["R"], W=e4prep["W"], ND=e4prep["ND"],
+               C=e4prep["C"], spec=fk.Sm4Spec)
+    e4fa = [e4inp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                               "widthf")]
+    e4ba = e4fa + [e4inp["seedf"], e4inp["raggedf"]]
+    e4fwd, e4k = s4st.out["fwd"], s4st.out["bwd_exp"]
+    del s4st
+    same("K1 sm4 fwd plane (E-step)", e4fwd, fk.forward_plain(*e4fa,
+                                                               **e4d))
+    e4p, ms["sm4_bwd_exp_plain"] = timed(
+        lambda: fk.backward_exp_plain(*e4ba, e4fwd, **e4d))
+    sm4_exp_err = check_exp_kernel(e4k, e4p)
+    if (e4k[2][..., [6, 7, 9, 13, 14]].any()
+            or not bool((e4k[2][..., [0, 1, 2, 3, 4, 5, 8, 10, 11, 12, 15]]
+                         > 0).all())):
+        raise AssertionError("sm4 K3 transition lanes")
+    p4fin = s4ea.exp_finalize(e4prep, host_array(s4ea.exp_dispatch(
+        e4prep, e4inp, e4p[2], e4p[3], e4p[1])))
+    k4fin = s4exp["expectations"]
+    check_expectations(k4fin, p4fin)
+    if k4fin["trans"].shape != (EM_GROUP, 4, 4):
+        raise AssertionError(f"sm4 trans {k4fin['trans'].shape}")
+    ms["sm4_bwd_exp"] = cuda_ms(lambda: fk.wavefront_bwd_exp(
+        *e4ba, e4fwd, **e4d), 5)
+    e4cells = sum(int(b.width.sum()) for b in e4prep["bands"])
+    bounds["sm4_bwd_exp"] = bound(e4ba + [e4fwd, *e4k], e4cells,
+                                  FLOPS_PER_CELL["sm4_bwd_exp"])
+    del e4p, e4k, e4fwd
+    log(f"sm4 kernels vs plain: K1/K2 ({CHUNK} reads, default machine, "
+        f"ND={s4d['ND']}, W={s4d['W']}): fwd plane, posts, totals equal bit "
+        f"for bit, {sum(map(len, s4parts[0]))} pairs equal; K3 "
+        f"({EM_GROUP} reads, trained machine, ragged, scaled, one "
+        f"Sm4Aligner.run(expectations=True), launches {sm4_exp_counts}): "
+        f"posts, totals, 16 lanes equal bit for bit (lanes 6, 7, 9, 13, 14 "
+        f"zero), shortGapX columns max|d| {sm4_exp_err:.3g}, finalized "
+        f"expectations within parity; ms fwd {ms['sm4_fwd_bench']:.3f} vs "
+        f"plain {ms['sm4_fwd_bench_plain']:.1f}, bwd "
+        f"{ms['sm4_bwd_bench']:.3f} vs plain "
+        f"{ms['sm4_bwd_bench_plain']:.1f}, bwd_exp {ms['sm4_bwd_exp']:.3f} "
+        f"vs plain {ms['sm4_bwd_exp_plain']:.1f}; bounds "
+        f"{bounds['sm4_fwd_bench'][0]:.4f} / "
+        f"{bounds['sm4_bwd_bench'][0]:.4f} / "
+        f"{bounds['sm4_bwd_exp'][0]:.4f} ms ({bounds['sm4_fwd_bench'][1]})")
+    torch.cuda.synchronize()
+    # K6a/K6b sm4: phase 12's 64 long reads route tiled by themselves
+    s4la = Sm4Aligner(AlignmentParams(), device=dev, group=LONG_GROUP)
+    s4lsm = StateMachine4(lmodel)
+    fk.reset_counts()
+    t0 = time.perf_counter()
+    s4long = s4la.run(s4lsm, lreads, compact_k=LONG_COMPACT_K)
+    s4lnds = [b.n_diag for b in s4long["prep"]["bands"]]
+    s4lparts = extract_pairs_chunk(s4long, list(range(len(s4lnds))), s4lnds,
+                                   thr)
+    torch.cuda.synchronize()
+    s4long_s = time.perf_counter() - t0
+    sm4_long_counts = dict(fk.KERNEL_LAUNCHES)
+    if (sm4_long_counts != {"wavefront_fwd_tiled_sm4": 1,
+                            "wavefront_bwd_tiled_sm4": 1}
+            or fk.forward_tiled_plain.calls or fk.backward_tiled_plain.calls):
+        raise AssertionError(f"sm4 long path launches {sm4_long_counts}")
+    if (not torch.isfinite(s4long["totals"]).all()
+            or len(s4lparts) != LONG_READS
+            or min(map(len, s4lparts)) < lread[2]):
+        raise AssertionError("sm4 long path: totals not finite or a read "
+                             "with fewer pairs than bases")
+    del s4long
+    torch.cuda.synchronize()
+    s4cst = Stages()
+    s4cout = s4la.run(s4lsm, [cread], compact_k=LONG_COMPACT_K,
+                      tile_diag=lgeom[2], stage=s4cst)
+    t4a, t4b, t4d, t4prep = tiled_args(s4cst, fk.Sm4Spec)
+    (t4fwd, t4sh), (t4posts, t4tot) = (s4cst.out["fwd_tiled"],
+                                       s4cst.out["bwd_tiled"])
+    del s4cst
+    if (t4d["R"], t4d["W"], t4d["TD"]) != lgeom:
+        raise AssertionError(f"the sm4 check read's R, W, TD differ from "
+                             f"the long path's {lgeom}")
+    (pfwd, psh), ms["sm4_fwd_tiled_plain"] = timed(
+        lambda: fk.forward_tiled_plain(*t4a, **t4d))
+    (pposts, ptot), ms["sm4_bwd_tiled_plain"] = timed(
+        lambda: fk.backward_tiled_plain(*t4b, t4fwd, t4sh, **t4d))
+    for what, got, want in (
+            ("K6a sm4 fwd plane (check read)", t4fwd, pfwd),
+            ("K6a sm4 shifts (check read)", t4sh, psh),
+            ("K6b sm4 posteriors (check read)", t4posts, pposts),
+            ("K6b sm4 totals (check read)", t4tot, ptot)):
+        same(what, got, want)
+    t4nd = t4prep["bands"][0].n_diag
+    t4pairs = [extract_pairs_long(dict(s4cout, posteriors=p, compact_chunks=(
+        compact_chunks(p, s4cout["tiled"]["DC"], min(
+            LONG_COMPACT_K, s4cout["tiled"]["DC"] * t4d["W"])))), 0, t4nd,
+        thr, as_array=True) for p in (t4posts, pposts)]
+    if not np.array_equal(*t4pairs) or len(t4pairs[0]) == 0:
+        raise AssertionError("the sm4 long check read: kernel and plain "
+                             "planes give different pairs")
+    ms.update(
+        sm4_fwd_tiled=cuda_ms(lambda: fk.wavefront_fwd_tiled(*t4a, **t4d),
+                              3),
+        sm4_bwd_tiled=cuda_ms(lambda: fk.wavefront_bwd_tiled(
+            *t4b, t4fwd, t4sh, **t4d), 3))
+    t4cells = sum(int(b.width.sum()) for b in t4prep["bands"])
+    bounds.update(
+        sm4_fwd_tiled=bound(t4a + [t4fwd, t4sh], t4cells,
+                            FLOPS_PER_CELL["sm4_fwd"]),
+        sm4_bwd_tiled=bound(t4b + [t4fwd, t4sh, t4posts, t4tot], t4cells,
+                            FLOPS_PER_CELL["sm4_bwd"]))
+    log(f"sm4 long path: {LONG_READS} reads routed tiled by themselves, one "
+        f"run, kernels only: {bases / s4long_s:.6g} bases/s e2e "
+        f"({s4long_s:.4f} s), {sum(map(len, s4lparts))} pairs, launches "
+        f"{sm4_long_counts}; K6a/K6b sm4 vs plain (a {cread[2]} x "
+        f"{cread[3]} read, {s4cout['tiled']}, R={t4d['R']}, W={t4d['W']}): "
+        f"fwd plane, shifts, posts, totals equal bit for bit, "
+        f"{len(t4pairs[0])} pairs equal; K6a sm4 {ms['sm4_fwd_tiled']:.3f} "
+        f"ms vs plain {ms['sm4_fwd_tiled_plain']:.1f}, K6b sm4 "
+        f"{ms['sm4_bwd_tiled']:.3f} ms vs plain "
+        f"{ms['sm4_bwd_tiled_plain']:.1f}; bounds "
+        f"{bounds['sm4_fwd_tiled'][0]:.4f} / "
+        f"{bounds['sm4_bwd_tiled'][0]:.4f} ms")
+    del s4cout, t4fwd, pfwd, t4posts, pposts, t4a, t4b
+    torch.cuda.synchronize()
+
+    # -- 23. the signalAlign pipeline at full width ----------------------
+    # bench.py's signal_pipeline_reads_per_sec workload: 64 copies of the
+    # Zymo npRead, each guided by the stored lastz guide renamed to it,
+    # StrawmanAligner(group=32), chunk 64, compact_k 2048
+    bargs, btsvs = load_batch_zymo()
+    blabel = bargs["label"]
+    bguide = bargs["npread_guide_pairs"][0][1].split()
+    bkw = dict(template_model_file=bargs["template_model_file"],
+               complement_model_file=bargs["complement_model_file"],
+               log=lambda m: None, chunk=PIPE_CHUNK,
+               compact_k=PIPE_COMPACT_K)
+    with tempfile.TemporaryDirectory() as ptmp:
+        prdir = os.path.join(ptmp, "reads")
+        os.makedirs(prdir)
+        ppairs = []
+        for i in range(PIPE_READS):
+            label = f"read{i:03d}"
+            dst = os.path.join(prdir, label + ".npRead")
+            shutil.copy(bargs["npread_guide_pairs"][0][0], dst)
+            ppairs.append((dst, " ".join([bguide[0], label] + bguide[2:])))
+        pout = os.path.join(ptmp, "out")
+
+        def pipeline(sm_type, aligner, out_dir=pout, pairs=ppairs, **kw):
+            res = run_batch_fast(bargs["reference_path"], pairs, out_dir,
+                                 aligner=aligner, sm_type=sm_type,
+                                 **bkw, **kw)
+            torch.cuda.synchronize()
+            return res
+
+        def check_pipeline(sm_type, res, out_dir=pout):
+            """Every read aligned, every copy's tsv read 0's (its label
+            aside), read 0's within parity of the JAX package's."""
+            if len(res) != PIPE_READS or not all(r[1] for r in res):
+                raise AssertionError(f"{sm_type} pipeline: "
+                                     f"{[r for r in res if not r[1]]}")
+            texts = []
+            for i in range(PIPE_READS):
+                with open(os.path.join(out_dir, f"read{i:03d}.tsv"),
+                          "rb") as fh:
+                    texts.append(fh.read().replace(
+                        f"\tread{i:03d}\t".encode(), b"\tLABEL\t"))
+            if any(t != texts[0] for t in texts):
+                raise AssertionError(f"{sm_type} pipeline: the copies' tsvs "
+                                     "differ")
+            return check_tsv(texts[0].replace(
+                b"\tLABEL\t", f"\t{blabel}\t".encode()), btsvs[sm_type],
+                bargs["threshold"])
+
+        def recorded(cls):
+            """An aligner of ``cls`` (group 32) whose first run, the first
+            chunk's template strand, goes through a ``Stages`` hook: its
+            inputs and kernel outputs are then held against the plain
+            passes (``hold_chunk``)."""
+            class Recorded(cls):
+                rec = None
+
+                def run(self, sm, reads, **kw):
+                    if self.rec is not None:
+                        return super().run(sm, reads, **kw)
+                    self.rec = Stages()
+                    return super().run(sm, reads, stage=self.rec, **kw)
+
+            return Recorded(AlignmentParams(), device=dev, group=PIPE_GROUP)
+
+        def hold_chunk(sm_type, pa):
+            """The kernels' fwd plane, posteriors and totals of the
+            pipeline's first chunk (template strand, as the warm-up run
+            launched them) equal forward_plain/backward_plain's on the
+            same inputs, bit for bit; returns (fwd args, bwd args, dims,
+            band cells, fwd, posts, totals, plain fwd ms, plain bwd ms)."""
+            st = pa.rec
+            pa.rec = Stages()   # an empty record: later runs go unhooked
+            prep, inp = st.out["prepare"], st.out["inputs"]
+            d = dict(R=prep["R"], W=prep["W"], ND=prep["ND"], C=prep["C"],
+                     spec=pa.spec)
+            fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                                   "widthf")]
+            ba = fa + [inp["seedf"], inp["raggedf"]]
+            fwd, (posts, tot) = st.out["fwd"], st.out["bwd"]
+            fwd_p, fms = timed(lambda: fk.forward_plain(*fa, **d))
+            (posts_p, tot_p), bms = timed(
+                lambda: fk.backward_plain(*ba, fwd, **d))
+            for what, got, want in (("fwd plane", fwd, fwd_p),
+                                    ("posteriors", posts, posts_p),
+                                    ("totals", tot, tot_p)):
+                same(f"{sm_type} pipeline chunk {what}", got, want)
+            cells = sum(int(b.width.sum()) for b in prep["bands"])
+            log(f"pipeline -smt {sm_type} chunk vs plain ({len(prep['bands'])}"
+                f" reads, template strand, G={len(prep['win'])}, R={d['R']}, "
+                f"W={d['W']}, ND={d['ND']}, ragged, scaled): fwd plane, "
+                f"posts, totals equal bit for bit; plain ms fwd {fms:.1f}, "
+                f"bwd {bms:.1f}")
+            return fa, ba, d, cells, fwd, posts, tot, fms, bms
+
+        def median_rate(sm_type, pa, n_reads=PIPE_READS, **kw):
+            """(reads/s of the median of 3 runs, the runs' seconds, the
+            last run's results)."""
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                res = pipeline(sm_type, pa, **kw)
+                times.append(time.perf_counter() - t0)
+            return n_reads / statistics.median(times), times, res
+
+        ppa = recorded(StrawmanAligner)
+        pres = pipeline("threeState", ppa)
+        fk.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        prate, ptimes, pres = median_rate("threeState", ppa)
+        pipe_counts = dict(fk.KERNEL_LAUNCHES)
+        pipe_peak = torch.cuda.max_memory_allocated()
+        if (pipe_counts != {"wavefront_fwd": 6, "wavefront_bwd": 6}
+                or fk.forward_plain.calls or fk.backward_plain.calls):
+            raise AssertionError(f"pipeline launches {pipe_counts}")
+        p_one, p_err = check_pipeline("threeState", pres)
+        pst = Stages()
+        pipeline("threeState", ppa, stage=pst)
+        log(f"signal_pipeline_reads_per_sec: {prate:.1f} reads/s e2e "
+            f"({PIPE_READS} reads, both strands, group {PIPE_GROUP}, chunk "
+            f"{PIPE_CHUNK}, compact_k {PIPE_COMPACT_K}; median of "
+            f"{[round(t, 4) for t in ptimes]} s), peak device memory "
+            f"{pipe_peak / 1e9:.3f} GB, launches in the 3 runs "
+            f"{pipe_counts}; "
+            f"read 0 vs the JAX package's tsv: {p_one} rows in one file "
+            f"only, posteriors max|d| {p_err:.3g}; every copy's tsv equal")
+        log("pipeline stages (s, share): " + pst.line())
+        del pst
+        hold_chunk("threeState", ppa)
+        prates = {"threeState": prate}
+        for sm_type, cls in (("vanilla", VanillaAligner),
+                             ("fourState", Sm4Aligner)):
+            pa = recorded(cls)
+            pipeline(sm_type, pa)
+            fk.reset_counts()
+            prates[sm_type], times, res = median_rate(sm_type, pa)
+            counts = dict(fk.KERNEL_LAUNCHES)
+            suffix = {"vanilla": "_vanilla", "fourState": "_sm4"}[sm_type]
+            if (counts != {f"wavefront_fwd{suffix}": 6,
+                           f"wavefront_bwd{suffix}": 6}
+                    or fk.forward_plain.calls or fk.backward_plain.calls):
+                raise AssertionError(f"{sm_type} pipeline launches {counts}")
+            one, err = check_pipeline(sm_type, res)
+            log(f"pipeline -smt {sm_type}: {prates[sm_type]:.1f} reads/s "
+                f"e2e (median of {[round(t, 4) for t in times]} s after a "
+                f"warm-up), launches in the 3 runs {counts}; read 0 vs the "
+                f"JAX package's tsv: {one} rows in one file only, "
+                f"posteriors max|d| {err:.3g}; every copy's tsv equal")
+            held = hold_chunk(sm_type, pa)
+            if sm_type == "fourState":
+                # the kernels line's K1/K2 sm4 entries: launches from these
+                # runs, ms, plain ms and bound on their first chunk
+                sm4_pipe_counts = counts
+                fa, ba, d, cells, fwd, posts, tot, fms, bms = held
+                ms.update(
+                    sm4_fwd=cuda_ms(lambda: fk.wavefront_fwd(*fa, **d), 5),
+                    sm4_bwd=cuda_ms(lambda: fk.wavefront_bwd(*ba, fwd, **d),
+                                    5),
+                    sm4_fwd_plain=fms, sm4_bwd_plain=bms)
+                bounds.update(
+                    sm4_fwd=bound(fa + [fwd], cells,
+                                  FLOPS_PER_CELL["sm4_fwd"]),
+                    sm4_bwd=bound(ba + [fwd, posts, tot], cells,
+                                  FLOPS_PER_CELL["sm4_bwd"]))
+                log(f"pipeline chunk K1/K2 sm4: ms fwd {ms['sm4_fwd']:.3f}, "
+                    f"bwd {ms['sm4_bwd']:.3f}; bounds "
+                    f"{bounds['sm4_fwd'][0]:.4f} / "
+                    f"{bounds['sm4_bwd'][0]:.4f} ms ({bounds['sm4_fwd'][1]})")
+            del held
+            torch.cuda.synchronize()
+        # the one-chunk-behind drain over several chunks: 256 reads in
+        # chunks of 64, against the same runs with each chunk's kernels
+        # waited for before the last chunk's drain (a "chunk" stage hook
+        # that synchronizes), interleaved
+        os.makedirs(os.path.join(ptmp, "more"))
+        opairs = list(ppairs)
+        for i in range(PIPE_READS, PIPE_OVERLAP_READS):
+            label = f"read{i:03d}"
+            dst = os.path.join(ptmp, "more", label + ".npRead")
+            shutil.copy(bargs["npread_guide_pairs"][0][0], dst)
+            opairs.append((dst, " ".join([bguide[0], label] + bguide[2:])))
+
+        def serial(name, fn):
+            res = fn()
+            if name == "chunk":
+                torch.cuda.synchronize()
+            return res
+
+        otimes = {"one chunk behind": [], "serialized": []}
+        pout2 = os.path.join(ptmp, "out256")
+        ores = pipeline("threeState", ppa, out_dir=pout2, pairs=opairs)
+        for _ in range(3):
+            for mode, hook in (("one chunk behind", None),
+                               ("serialized", serial)):
+                t0 = time.perf_counter()
+                ores = pipeline("threeState", ppa, out_dir=pout2,
+                                pairs=opairs, stage=hook)
+                otimes[mode].append(time.perf_counter() - t0)
+        if len(ores) != PIPE_OVERLAP_READS or not all(r[1] for r in ores):
+            raise AssertionError("the 256-read pipeline: "
+                                 f"{[r for r in ores if not r[1]]}")
+        orates = {m: PIPE_OVERLAP_READS / statistics.median(t)
+                  for m, t in otimes.items()}
+        log(f"pipeline drain overlap ({PIPE_OVERLAP_READS} reads, chunk "
+            f"{PIPE_CHUNK}, threeState): " + "; ".join(
+                f"{m} {orates[m]:.1f} reads/s (median of "
+                f"{[round(t, 4) for t in otimes[m]]} s)" for m in otimes))
+        # the CLI once: -smt vanilla on 4 of the 64 reads (-n)
+        with open(os.path.join(ptmp, "guides.cig"), "w") as fh:
+            fh.write("\n".join(g for _, g in ppairs) + "\n")
+        with open(bargs["reference_path"]) as fh:
+            pref = fh.readline().strip()
+        with open(os.path.join(ptmp, "ref.fa"), "w") as fh:
+            fh.write(">ZymoRef\n" + pref + "\n")
+        cerr = io.StringIO()
+        with contextlib.redirect_stderr(cerr):
+            rc = signal_align_batch_main([
+                "-d", prdir, "-r", os.path.join(ptmp, "ref.fa"), "-o",
+                os.path.join(ptmp, "cli"), "--guides",
+                os.path.join(ptmp, "guides.cig"), "--engine", "pallas",
+                "-smt", "vanilla", "-n", str(PIPE_CLI_READS), "--device",
+                DEVICE])
+        cli_tsvs = [f for f in os.listdir(os.path.join(ptmp, "cli"))
+                    if f.endswith(".tsv")]
+        formatter = [m for m in cerr.getvalue().splitlines()
+                     if m.startswith("tsv formatter:")]
+        n_cli = PIPE_CLI_READS
+        if (rc != 0 or len(cli_tsvs) != n_cli or len(formatter) != 1
+                or f"aligned {n_cli}/{n_cli} reads" not in cerr.getvalue()):
+            raise AssertionError(f"cpecan-torch-signal-align-batch: rc {rc}, "
+                                 f"{cli_tsvs}, log {cerr.getvalue()[-500:]}")
+    rates = ", ".join(f"{k} {v:.1f}" for k, v in prates.items())
+    log(f"phases 22-23 in {time.perf_counter() - t22:.1f} s; "
+        f"pipeline reads/s: {rates}; "
+        f"cpecan-torch-signal-align-batch --engine pallas -smt vanilla -n "
+        f"{n_cli} on the card: rc 0, {n_cli} tsvs, {formatter[0]}")
+    torch.cuda.synchronize()
+
     src = "cpecan_tpu_torch/csrc/wavefront.cu"
 
     def entry(name, replaces, launches, err, key, bkey):
@@ -1654,7 +2126,7 @@ def main():
                 # wavefront
                 "library_ms": None}
 
-    exact = 0.0   # phases 3, 10, 12, 13, 19, 21 hold these bit for bit
+    exact = 0.0   # phases 3, 10, 12, 13, 19, 21-23 hold these bit for bit
     log(json.dumps({"kernels": [
         entry("wavefront_fwd", "cpecan_tpu/ops/pallas_fb.py:635",
               launches["wavefront_fwd"], exact, "fwd", "fwd"),
@@ -1720,6 +2192,31 @@ def main():
               "cpecan_tpu/ops/pallas_fb.py:2332 (_VanillaSpec :456)",
               vlong_counts["wavefront_bwd_tiled_vanilla"], exact,
               "vanilla_bwd_tiled", "vanilla_bwd_tiled"),
+        # phases 22-23 hold the five sm4 instances to plain (K1/K2 ms,
+        # plain ms and bound on the fourState pipeline's first chunk, K3
+        # on the trained machine's E-step group, K6a/K6b on phase 12's
+        # check read); launches from phase 23's fourState pipeline
+        # (K1/K2), the E-step run (K3) and the 64 long reads (K6a/K6b)
+        entry("wavefront_fwd_sm4",
+              "cpecan_tpu/ops/pallas_fb.py:635 (_Sm4Spec :257)",
+              sm4_pipe_counts["wavefront_fwd_sm4"], exact, "sm4_fwd",
+              "sm4_fwd"),
+        entry("wavefront_bwd_sm4",
+              "cpecan_tpu/ops/pallas_fb.py:857 (_Sm4Spec :257)",
+              sm4_pipe_counts["wavefront_bwd_sm4"], exact, "sm4_bwd",
+              "sm4_bwd"),
+        entry("wavefront_bwd_exp_sm4",
+              "cpecan_tpu/ops/pallas_fb.py:2221 (with_exp=True, _Sm4Spec "
+              ":275)", sm4_exp_counts["wavefront_bwd_exp_sm4"], sm4_exp_err,
+              "sm4_bwd_exp", "sm4_bwd_exp"),
+        entry("wavefront_fwd_tiled_sm4",
+              "cpecan_tpu/ops/pallas_fb.py:2304 (_Sm4Spec :257)",
+              sm4_long_counts["wavefront_fwd_tiled_sm4"], exact,
+              "sm4_fwd_tiled", "sm4_fwd_tiled"),
+        entry("wavefront_bwd_tiled_sm4",
+              "cpecan_tpu/ops/pallas_fb.py:2332 (_Sm4Spec :257)",
+              sm4_long_counts["wavefront_bwd_tiled_sm4"], exact,
+              "sm4_bwd_tiled", "sm4_bwd_tiled"),
     ]}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

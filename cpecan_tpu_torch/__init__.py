@@ -1,8 +1,14 @@
-"""PyTorch/CUDA port of cpecan_tpu (banded pair-HMM signal alignment).
+"""PyTorch/CUDA port of cpecan_tpu (banded pair-HMM alignment).
 
-Its first slice is the strawman 3-state signal machine's posterior fast
-path (``ops.fb.StrawmanAligner``), running on an NVIDIA Hopper GPU through
-hand-written CUDA kernels (``csrc/``) and on the CPU through their plain
-PyTorch versions.  The JAX package ``cpecan_tpu`` is the reference; this
-package imports only its numpy modules.
+The pair-HMM machines (the strawman, vanilla and 4-state signal machines,
+the 5-state DNA machine) run their banded forward, posterior and EM
+expectation passes, untiled and tiled, on hand-written CUDA kernels for
+NVIDIA Hopper (``csrc/``, wrapped by ``ops.fb_kernels``) and on the CPU
+through their plain PyTorch versions.  On them sit the posterior aligners
+(``ops.fb``), the signalAlign batch pipeline
+(``pipeline.signal_align_batch``), trainModels (``pipeline.train_models``),
+cPecanRealign (``cli.realign``) and cPecanEm (``pipeline.em``), with their
+CLIs (``cli.batch``).  The JAX package ``cpecan_tpu`` is the reference;
+this package imports nothing of it, nor JAX, and keeps its own copies of
+the numpy-only modules it needs.
 """

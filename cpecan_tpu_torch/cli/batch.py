@@ -1,5 +1,8 @@
 """Batch CLIs of the port (a subset of ``cpecan_tpu/cli/batch.py``):
 
+  - cpecan-torch-signal-align-batch  <- scripts/signalAlign.py (batch
+    signal alignment over a read directory, posterior tsvs per read), on
+    the wavefront kernels (the JAX CLI's ``--engine pallas``)
   - cpecan-torch-train-models  <- scripts/trainModels.py (signal-HMM
     Baum-Welch), the E-step on the wavefront kernels
   - cpecan-torch-em  <- cPecanEm.py (DNA pair-HMM Baum-Welch), the E-step
@@ -7,7 +10,8 @@
     engine, which is not ported)
 
 Guide alignments come from a cigar file (one exonerate cigar per read,
-query name == read name), read as the JAX CLI reads them.
+query name == read name), read as the JAX CLI reads them; guiding fast5
+reads with bwa is not ported (ROADMAP Queue 1 item 8b).
 """
 
 import argparse
@@ -15,6 +19,7 @@ import glob
 import os
 import sys
 
+from ..fixtures import fixture_path
 from ..io.cigar import parse_cigar_line
 
 # flags of the JAX CLI that neither trainer reads (every read with a guide
@@ -35,6 +40,116 @@ def _load_guides(path):
             aln = parse_cigar_line(line)
             out[aln.contig2] = (line, aln)
     return out
+
+
+def _collect_read_pairs(files_dir, guides, log):
+    """Directory of .npRead files -> [(npread_path, guide line)]
+    (``cpecan_tpu/cli/batch.py::_collect_read_pairs``); .fast5 inputs are
+    refused (their conversion and bwa guiding are not ported)."""
+    npreads = sorted(glob.glob(os.path.join(files_dir, "*.npRead")))
+    fast5s = sorted(glob.glob(os.path.join(files_dir, "*.fast5")))
+    if fast5s:
+        raise NotImplementedError(
+            f"{len(fast5s)} .fast5 files in {files_dir}: fast5 conversion "
+            "and bwa guiding are not ported yet (ROADMAP Queue 1 item 8b); "
+            "convert them to .npRead files and pass --guides")
+    if npreads and not guides:
+        raise SystemExit(
+            f"{len(npreads)} .npRead files in {files_dir} but no --guides "
+            "file: npRead inputs need guide cigars")
+    pairs = []
+    for p in npreads:
+        name = os.path.basename(p).replace(".npRead", "")
+        if name in guides:
+            pairs.append((p, guides[name][0]))
+        else:
+            log(f"no guide for {name}, skipping")
+    return pairs
+
+
+def signal_align_batch_main(argv=None):
+    """signalAlign over a directory of npReads on the port
+    (``cpecan_tpu/cli/batch.py::signal_align_batch_main``, flag for flag,
+    plus ``--device``); the engine defaults to the wavefront kernels
+    (``pallas``), and the per-read ``scan`` engine is not ported."""
+    p = argparse.ArgumentParser(
+        prog="cpecan-torch-signal-align-batch",
+        description="Batch signal alignment (scripts/signalAlign.py "
+                    "equivalent) on the PyTorch/CUDA port.")
+    p.add_argument("--file_directory", "-d", required=True,
+                   help="directory of .npRead files")
+    p.add_argument("--ref", "-r", required=True,
+                   help="reference fasta (or bare one-line sequence file)")
+    p.add_argument("--output_location", "-o", required=True)
+    p.add_argument("--stateMachineType", "-smt", default="vanilla",
+                   choices=["vanilla", "threeState", "fourState", "echelon"])
+    p.add_argument("--threshold", "-t", type=float, default=0.01)
+    p.add_argument("--un-banded", "-ub", dest="banded", action="store_false",
+                   help="the scan engine's unbanded mode; the wavefront "
+                        "path is always banded, so it is refused")
+    p.add_argument("--nb_files", "-n", type=int, default=None)
+    p.add_argument("--guides", default=None,
+                   help="exonerate cigar file keyed by read name")
+    p.add_argument("--target_regions", "-q", default=None)
+    p.add_argument("--engine", default="pallas", choices=["scan", "pallas"],
+                   help="pallas: the batched wavefront kernels (threeState "
+                        "and vanilla); scan: the per-read engine (not "
+                        "ported yet)")
+    p.add_argument("--templateModel", "-T",
+                   default=fixture_path("template_median68pA.model"))
+    p.add_argument("--complementModel", "-C",
+                   default=fixture_path("complement_median68pA_pop2.model"))
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda runs the CUDA kernels, cpu "
+                        "their plain PyTorch versions")
+    args = p.parse_args(argv)
+    if args.engine == "scan":
+        raise NotImplementedError(
+            "the per-read scan engine is not ported yet (ROADMAP Queue 1 "
+            "item 7); use --engine pallas")
+    if not args.banded:
+        p.error("-ub/--un-banded has no effect on the wavefront path, "
+                "which is always banded (the JAX package's pallas engine "
+                "does not read it either); leave it out")
+
+    from ..io.fasta import read_fasta_file
+    from ..pipeline.signal_align_batch import run_batch_fast
+
+    log = lambda m: print(m, file=sys.stderr)
+    os.makedirs(args.output_location, exist_ok=True)
+    # a fasta reference becomes a bare one-line sequence file
+    ref_path = args.ref
+    with open(args.ref) as fh:
+        if fh.read(1) == ">":
+            ref_path = os.path.join(args.output_location, "reference.seq")
+            for _name, seq in read_fasta_file(args.ref):
+                with open(ref_path, "w") as out:
+                    print(seq, file=out)
+                break
+    guides = _load_guides(args.guides) if args.guides else None
+    if args.target_regions and guides:
+        from ..io.guide import TargetRegions
+        tr = TargetRegions(args.target_regions)
+        guides = {k: v for k, v in guides.items()
+                  if tr.check_aligned_region(min(v[1].start1, v[1].end1),
+                                             max(v[1].start1, v[1].end1))}
+    pairs = _collect_read_pairs(args.file_directory, guides, log)
+    if args.stateMachineType not in ("threeState", "vanilla"):
+        p.error("--engine pallas requires -smt threeState or vanilla")
+    if args.nb_files is not None:
+        # the JAX CLI's seeded shuffle-then-slice
+        import random
+        random.Random(0).shuffle(pairs)
+        pairs = pairs[:args.nb_files]
+    results = run_batch_fast(
+        ref_path, pairs, args.output_location,
+        template_model_file=args.templateModel,
+        complement_model_file=args.complementModel,
+        threshold=args.threshold, log=log, device=args.device,
+        sm_type=args.stateMachineType)
+    ok = sum(1 for _, s, _ in results if s)
+    print(f"aligned {ok}/{len(results)} reads", file=sys.stderr)
+    return 0 if ok else 1
 
 
 def train_models_main(argv=None):

@@ -32,3 +32,7 @@ SHORT_GAP_X = 1
 SHORT_GAP_Y = 2
 LONG_GAP_X = 3
 LONG_GAP_Y = 4
+
+# Strands (inc/stateMachine.h:34-37).
+TEMPLATE = 0
+COMPLEMENT = 1

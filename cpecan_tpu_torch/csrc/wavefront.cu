@@ -1,21 +1,22 @@
 // Band-local forward and posterior-backward wavefront kernels of the
 // pair-HMM machines, for Hopper (sm_90a): the strawman 3-state signal
 // machine (getStrawManStateMachine3), the vanilla 3-state signal machine
-// (getSignalStateMachine3Vanilla, signalAlign's default) and the 5-state
-// DNA machine (getStateMachine5, cPecanRealign's).  Both kernels are
-// templates on a machine spec (Strawman, Vanilla, Dna5: states, scalars,
+// (getSignalStateMachine3Vanilla, signalAlign's default), the 4-state signal
+// machine (getStateMachine4, signalAlign's fourState) and the 5-state DNA
+// machine (getStateMachine5, cPecanRealign's).  Both kernels are
+// templates on a machine spec (Strawman, Vanilla, Sm4, Dna5: states, scalars,
 // emissions and the forward/backward updates); every instance keeps its
 // JAX spec's op order.  Plain C entry points, loaded with ctypes by
 // cpecan_tpu_torch/ops/cuda_build.py and wrapped by
 // cpecan_tpu_torch/ops/fb_kernels.py (wavefront_fwd, wavefront_bwd,
-// wavefront_bwd_exp, wavefront_fwd_tiled, wavefront_bwd_tiled; the dna5
-// and vanilla instances' entry points end in _dna5 and _vanilla).
+// wavefront_bwd_exp, wavefront_fwd_tiled, wavefront_bwd_tiled; the dna5,
+// vanilla and sm4 instances' entry points end in _dna5, _vanilla and _sm4).
 //
 // Replaces (TPU, Pallas):
 //   sm3_fwd_kernel<Spec, false>
 //                          <- cpecan_tpu/ops/pallas_fb.py _sm3_forward_kernel
 //                             (:635, untiled; _StrawmanSpec, _Dna5Spec,
-//                             _VanillaSpec)                             K1
+//                             _VanillaSpec, _Sm4Spec)                   K1
 //   sm3_bwd_kernel<Spec, false, false>
 //                          <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
 //                             -> _sm3_backward_body_w (:857, :900;
@@ -25,7 +26,8 @@
 //                             expectations: accumulate_exp :1072 and
 //                             _StrawmanSpec.exp_probs_w :215 /
 //                             _Dna5Spec.exp_probs_w :406 /
-//                             _VanillaSpec.exp_probs_w :506)           K3
+//                             _VanillaSpec.exp_probs_w :506 /
+//                             _Sm4Spec.exp_probs_w :275)               K3
 //   sm3_fwd_kernel<Spec, true>
 //                          <- _sm3_forward_kernel(tile=...) (:2304), chained
 //                             over the tiles by _run_tiled (:2447) with
@@ -46,18 +48,20 @@
 //   posts  f32 [G, ND+1, R, W],  totals f32 [G*R]
 //   trans  f32 [G*R, S*S]  (lanes frm*S + to; EM only)
 //   acc    f32 [G, NACC, R, X]  per-column accumulators (EM only; strawman
-//          NACC 1, the gap-X mass; dna5 NACC 20, row to*4 + by the mass
-//          into state to at a cell of y base by; vanilla NACC 2, the beta
-//          (M -> X) and alpha (X -> X) masses)
+//          NACC 1, the gap-X mass; sm4 NACC 1, the shortGapX mass; dna5
+//          NACC 20, row to*4 + by the mass into state to at a cell of y base
+//          by; vanilla NACC 2, the beta (M -> X) and alpha (X -> X) masses)
 //   shifts f32 [G*R, NT]  (tiled only; NT = ND / TD)
 // Strawman: S 3, NS 8, NXF 9 (Gaussian model rows 0-7, gap-X row 8), yf =
 // (event mean, noise).  Vanilla: S 3, NS 2 (Y -> M, Y -> Y), NXF 13 (match
 // and gap-Y model rows 0-7, Gaussian level x inverse-Gaussian noise; rows
 // 8-12 the per-column log transitions a_mx, a_xx, a_mm, a_xm, a_my from
-// the k-mer skip bins), a silent gap-X, yf as strawman's.  Dna5: S 5, NS 13, NXF 6 (match rows of the x base
-// against y base 0..4, gap-X row 5), yf = (y base index as a float, gap-Y
-// emission); the match emission is a sum of five selects on the y base, as
-// the JAX spec has it, so a value outside 0..4 gives 0.0.
+// the k-mer skip bins), a silent gap-X, yf as strawman's.  Sm4: S 4 (M,
+// shortGapX, shortGapY, longGapX), NS 11, strawman's rows and emissions
+// (the gap-X row 8 for both X states).  Dna5: S 5, NS 13, NXF 6 (match
+// rows of the x base against y base 0..4, gap-X row 5), yf = (y base index
+// as a float, gap-Y emission); the match emission is a sum of five selects
+// on the y base, as the JAX spec has it, so a value outside 0..4 gives 0.0.
 //
 // Design: one block per read (grid G*R), one thread per lane (W threads).
 // Each diagonal depends on the previous one or two through lane shifts of
@@ -114,17 +118,18 @@
 //  5. Windows at the top: win is read up to ND + 2 (NDp >= ND + 3).
 //  6. No fallback: the build keeps --fmad=false and no fast math, and a
 //     failed build or launch raises in the wrapper.
-// The machine's transition sums (strawman 9 lanes, dna5 its 13 active
-// ones of 25, vanilla none) are per-thread registers across the sweep,
-// reduced once at the end (block_sum, fixed order); the lanes that are no
-// transition of the machine are written as 0.  The per-column accumulators go to the
-// read's own rows of acc in global memory, column w_t + l; each column is
-// touched by one thread per target and the per-diagonal barrier orders the
-// read-modify-writes, so no atomics are needed.  Dna5 reads the target's y
-// base fresh (yf row 0 at column C - t + x, pallas_fb.py:1077; only the
-// emissions are carried) and adds a cell's five state masses to the rows
-// of its y base only: the other rows' contributions are +0.0, so skipping
-// them leaves every sum bit-equal, and an N (base 4) adds nothing.
+// The machine's transition sums (strawman 9 lanes, sm4 its 11 active ones
+// of 16, dna5 its 13 active ones of 25, vanilla none) are per-thread
+// registers across the sweep, reduced once at the end (block_sum, fixed
+// order); the lanes that are no transition of the machine are written as
+// 0.  The per-column accumulators go to the read's own rows of acc in
+// global memory, column w_t + l; each column is touched by one thread per
+// target and the per-diagonal barrier orders the read-modify-writes, so
+// no atomics are needed.  Dna5 reads the target's y base fresh (yf row 0
+// at column C - t + x, pallas_fb.py:1077; only the emissions are carried)
+// and adds a cell's five state masses to the rows of its y base only: the
+// other rows' contributions are +0.0, so skipping them leaves every sum
+// bit-equal, and an N (base 4) adds nothing.
 #include <cuda_runtime.h>
 
 #include "logspace.cuh"
@@ -133,6 +138,10 @@ namespace {
 
 // strawman scalar order (pallas_fb.py T_MM..T_EY)
 enum { T_MM, T_XM, T_YM, T_OX, T_EX, T_SX, T_OY, T_EY, SM3_NS };
+// sm4 scalar order (pallas_fb.py T4_SOX..T4_SEY): lower(5), middle(4),
+// upper(2)
+enum { T4_SOX, T4_SEX, T4_LOX, T4_LEX, T4_LSX, T4_MM, T4_MSX, T4_MSY,
+       T4_MLX, T4_SOY, T4_SEY, SM4_NS };
 // dna5 scalar order (pallas_fb.py T5_SOX..T5_LEY): lower(4), middle(5),
 // upper(4)
 enum { T5_SOX, T5_SEX, T5_LOX, T5_LEX, T5_MM, T5_MSX, T5_MSY, T5_MLX,
@@ -234,6 +243,67 @@ struct Strawman {
             int x, float /*y*/, const float* f0m, const float* f1m,
             const float* f1a, const float* b, float total, bool m,
             float* acc, float* col, size_t /*row_stride*/);
+};
+
+// _Sm4Spec (pallas_fb.py:257-337): M, shortGapX, shortGapY, longGapX; the
+// strawman's emissions
+struct Sm4 {
+    static constexpr int S = 4, NS = SM4_NS, NXF = 9, GAP_X = 8;
+
+    __device__ __forceinline__ static Emissions emissions_at(
+            const float* xb, const float* yb, int X, int Y, int x,
+            int ycol) {
+        return Strawman::emissions_at(xb, yb, X, Y, x, ycol);
+    }
+
+    // _Sm4Spec.fwd_update_w, the JAX grouping kept exactly
+    __device__ __forceinline__ static void fwd_update(
+            const float* t, const float* p1m, const float* p1a,
+            const float* p2m, const Emissions& e, const float* xb, int X,
+            int x, float* out) {
+        const float e_gapx = xb[GAP_X * X + x];
+        out[0] = log_add(log_add(p2m[0] + t[T4_MM], p2m[1] + t[T4_MSX]),
+                         log_add(p2m[2] + t[T4_MSY], p2m[3] + t[T4_MLX]))
+                 + e.match;
+        out[1] = log_add(p1m[0] + t[T4_SOX], p1m[1] + t[T4_SEX]) + e_gapx;
+        out[2] = log_add(p1a[0] + t[T4_SOY], p1a[2] + t[T4_SEY]) + e.gap_y;
+        out[3] = log_add3(p1m[0] + t[T4_LOX], p1m[3] + t[T4_LEX],
+                          p1m[2] + t[T4_LSX]) + e_gapx;
+    }
+
+    // _Sm4Spec.bwd_update_w, the JAX grouping kept exactly
+    __device__ __forceinline__ static void bwd_update(
+            const float* t, const float* xb, int X, int x, float eg1,
+            float em2p, const float* n1a, const float* n1p, const float* n2p,
+            float* out) {
+        const float e_gapx_p = xb[GAP_X * X + next_col(x, X)];
+        const float mid = em2p + n2p[0];
+        const float low_s = e_gapx_p + n1p[1];
+        const float low_l = e_gapx_p + n1p[3];
+        const float up = eg1 + n1a[2];
+        out[0] = log_add(log_add(mid + t[T4_MM], low_s + t[T4_SOX]),
+                         log_add(low_l + t[T4_LOX], up + t[T4_SOY]));
+        out[1] = log_add(mid + t[T4_MSX], low_s + t[T4_SEX]);
+        out[2] = log_add3(mid + t[T4_MSY], low_l + t[T4_LSX],
+                          up + t[T4_SEY]);
+        out[3] = log_add(mid + t[T4_MLX], low_l + t[T4_LEX]);
+    }
+
+    // EM expectations: the 11 transitions (register k -> lane frm*4 + to,
+    // in _Sm4Spec.EXP_LANES' order; lanes 6, 7, 9, 13, 14 stay 0) and one
+    // accumulator, the shortGapX mass
+    static constexpr int NLANE = 11, NACC = 1;
+    __host__ __device__ static constexpr int lane(int k) {
+        constexpr int L[NLANE] = {0, 4, 8, 12, 1, 5, 3, 15, 11, 2, 10};
+        return L[k];
+    }
+
+    // _Sm4Spec.exp_probs_w + accumulate_exp at one cell
+    __device__ __forceinline__ static void exp_probs(
+            const float* t, const Emissions& e, const float* xb, int X,
+            int x, float y, const float* f0m, const float* f1m,
+            const float* f1a, const float* b, float total, bool m,
+            float* acc, float* col, size_t row_stride);
 };
 
 // _Dna5Spec (pallas_fb.py:340-392): M, shortGapX, shortGapY, longGapX,
@@ -565,6 +635,40 @@ __device__ __forceinline__ void Strawman::exp_probs(
 #pragma unroll
     for (int k = 0; k < NLANE; ++k) acc[k] += p[k] * mf;
     col[0] += (p[L_OX] + p[L_EX] + p[L_SX]) * mf;
+}
+
+__device__ __forceinline__ void Sm4::exp_probs(
+        const float* t, const Emissions& e, const float* xb, int X, int x,
+        float, const float* f0m, const float* f1m, const float* f1a,
+        const float* b, float total, bool m, float* acc, float* col,
+        size_t) {
+    const float e_gapx = xb[GAP_X * X + x];
+    // p[k] in EXP_LANES order: mm sxm sym lxm | msx sxsx | mlx lxlx sylx |
+    // msy sysy
+    float p[NLANE];
+    // middle: (tt-2, x-1) -> M
+    const float mid = e.match + b[0];
+    p[0] = exp_prob(f0m[0] + t[T4_MM] + mid, total);
+    p[1] = exp_prob(f0m[1] + t[T4_MSX] + mid, total);
+    p[2] = exp_prob(f0m[2] + t[T4_MSY] + mid, total);
+    p[3] = exp_prob(f0m[3] + t[T4_MLX] + mid, total);
+    // lower: (tt-1, x-1) -> shortGapX / longGapX
+    const float low_s = e_gapx + b[1];
+    const float low_l = e_gapx + b[3];
+    p[4] = exp_prob(f1m[0] + t[T4_SOX] + low_s, total);
+    p[5] = exp_prob(f1m[1] + t[T4_SEX] + low_s, total);
+    p[6] = exp_prob(f1m[0] + t[T4_LOX] + low_l, total);
+    p[7] = exp_prob(f1m[3] + t[T4_LEX] + low_l, total);
+    p[8] = exp_prob(f1m[2] + t[T4_LSX] + low_l, total);
+    // upper: (tt-1, x) -> shortGapY
+    const float up = e.gap_y + b[2];
+    p[9] = exp_prob(f1a[0] + t[T4_SOY] + up, total);
+    p[10] = exp_prob(f1a[2] + t[T4_SEY] + up, total);
+    const float mf = m ? 1.0f : 0.0f;
+#pragma unroll
+    for (int k = 0; k < NLANE; ++k) acc[k] += p[k] * mf;
+    // the k-mer gap counter: the shortGapX target only
+    col[0] += (p[4] + p[5]) * mf;
 }
 
 __device__ __forceinline__ void Dna5::exp_probs(
@@ -970,8 +1074,8 @@ const char* wavefront_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// One entry point per kernel instance; the dna5 and vanilla ones take the
-// strawman ones' arguments.
+// One entry point per kernel instance; the dna5, vanilla and sm4 ones take
+// the strawman ones' arguments.
 #define WAVEFRONT_FWD_ENTRY(NAME, SPEC)                                     \
     int NAME(const void* scal, const void* win, const void* xf,              \
              const void* yf, const void* basef, const void* widthf,          \
@@ -1044,5 +1148,11 @@ WAVEFRONT_BWD_TILED_ENTRY(wavefront_bwd_tiled_vanilla, Vanilla)
 WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp, Strawman)
 WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_dna5, Dna5)
 WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_vanilla, Vanilla)
+
+WAVEFRONT_FWD_ENTRY(wavefront_fwd_sm4, Sm4)
+WAVEFRONT_FWD_TILED_ENTRY(wavefront_fwd_tiled_sm4, Sm4)
+WAVEFRONT_BWD_ENTRY(wavefront_bwd_sm4, Sm4)
+WAVEFRONT_BWD_TILED_ENTRY(wavefront_bwd_tiled_sm4, Sm4)
+WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_sm4, Sm4)
 
 }  // extern "C"

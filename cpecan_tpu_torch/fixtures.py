@@ -38,6 +38,12 @@ from ``tests/fixtures/vanilla_zymo.npz`` (built by
 the trainer builds it from the guide, with the JAX package's vanilla pairs
 for it and its two-iteration vanilla trainModels result, whose template
 skip bins also give a trained vanilla machine.
+
+``load_batch_zymo`` gives the signalAlign batch pipeline's check on the
+same read from ``tests/fixtures/batch_zymo.npz`` (built by
+``tests/fixtures/make_batch_fixture.py``): the JAX package's
+``run_batch_fast`` posterior tsv of the read for the threeState, vanilla
+and fourState machines, with the guide it was made from.
 """
 
 import os
@@ -58,6 +64,7 @@ LONG_READ = os.path.join(_FIXTURES, "long_read.npz")
 DNA5_REALIGN = os.path.join(_FIXTURES, "dna5_realign.npz")
 DNA5_EM = os.path.join(_FIXTURES, "dna5_em.npz")
 VANILLA_ZYMO = os.path.join(_FIXTURES, "vanilla_zymo.npz")
+BATCH_ZYMO = os.path.join(_FIXTURES, "batch_zymo.npz")
 
 # name -> repository-relative path of the vendored data files the port
 # reads (the JAX package's ``fixtures.fixture_path`` names)
@@ -194,3 +201,25 @@ def load_vanilla_zymo():
     (job, sp), _ = strand_jobs(ref, *args["read_guide_pairs"][0],
                                AlignmentParams())
     return job, np.asarray(sp, np.float64), stored
+
+
+def load_batch_zymo():
+    """(run arguments, {sm_type: the JAX tsv's bytes}).  The arguments are
+    a dict of ``reference_path``, ``npread_guide_pairs`` [(npRead path,
+    guide cigar line)], ``template_model_file``, ``complement_model_file``,
+    ``threshold`` and ``group`` for
+    ``pipeline.signal_align_batch.run_batch_fast``; the read's tsv is
+    ``<label>.tsv``, the label given as ``label``."""
+    with np.load(BATCH_ZYMO) as z:
+        stored = {k: z[k] for k in z.files}
+    args = dict(
+        reference_path=fixture_path("ZymoRef.txt"),
+        npread_guide_pairs=[(fixture_path("ZymoC_ch_1_file1.npRead"),
+                             str(stored["guide"]))],
+        template_model_file=fixture_path("template_median68pA.model"),
+        complement_model_file=fixture_path(
+            "complement_median68pA_pop2.model"),
+        threshold=float(stored["threshold"]), group=int(stored["group"]))
+    tsvs = {k[:-4]: stored[k].tobytes() for k in stored
+            if k.endswith("_tsv")}
+    return dict(args, label=str(stored["label"])), tsvs

@@ -3,9 +3,10 @@
 
 ``ContinuousPairHmm`` ports impl/continuousHmm.c:74-375: it holds the
 merged expectation counts, normalizes them (the M-step), round-trips the
-reference's text format, and loads the result back into strawman machine
-parameters.  ``VanillaHmm`` (impl/continuousHmm.c:378-635) does the same
-for the vanilla machine's 60 k-mer skip bins.  ``HmmDiscrete``
+reference's text format (three- and four-state transition tables), and
+loads the result back into strawman or 4-state machine parameters.
+``VanillaHmm`` (impl/continuousHmm.c:378-635) does the same for the
+vanilla machine's 60 k-mer skip bins.  ``HmmDiscrete``
 (impl/discreteHmm.c) and ``sm5_from_hmm`` are cut to what cPecanRealign's
 ``--loadHmm`` calls: load, normalize and the 5-state machine's symmetric
 or asymmetric load.
@@ -229,6 +230,29 @@ class ContinuousPairHmm:
                 match_from_gap_y=np.log(t[SHORT_GAP_Y, MATCH]),
                 gap_extend_y=np.log(t[SHORT_GAP_Y, SHORT_GAP_Y]),
                 gap_switch_to_x=np.log(t[SHORT_GAP_Y, SHORT_GAP_X]),
+            )
+            gap_x = np.log(self.kmer_gap_probs)
+        return p, gap_x
+
+    def to_sm4_params(self):
+        """The fourState machine's (params, gap_x_log_probs) from the
+        normalized [4, 4] transitions (the JAX package's M-step loader for
+        it: the reference wires the same expectation hook into the 4-state
+        machine, impl/stateMachine.c:986,1800-1810, but ships no load)."""
+        t = self.transitions
+        with np.errstate(divide="ignore"):
+            p = dict(
+                match_continue=np.log(t[MATCH, MATCH]),
+                gap_short_open_x=np.log(t[MATCH, SHORT_GAP_X]),
+                gap_short_open_y=np.log(t[MATCH, SHORT_GAP_Y]),
+                gap_long_open_x=np.log(t[MATCH, LONG_GAP_X]),
+                match_from_short_gap_x=np.log(t[SHORT_GAP_X, MATCH]),
+                gap_short_extend_x=np.log(t[SHORT_GAP_X, SHORT_GAP_X]),
+                match_from_short_gap_y=np.log(t[SHORT_GAP_Y, MATCH]),
+                gap_short_extend_y=np.log(t[SHORT_GAP_Y, SHORT_GAP_Y]),
+                gap_long_switch_to_x=np.log(t[SHORT_GAP_Y, LONG_GAP_X]),
+                match_from_long_gap_x=np.log(t[LONG_GAP_X, MATCH]),
+                gap_long_extend_x=np.log(t[LONG_GAP_X, LONG_GAP_X]),
             )
             gap_x = np.log(self.kmer_gap_probs)
         return p, gap_x

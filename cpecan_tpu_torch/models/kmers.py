@@ -22,19 +22,23 @@ def seq_to_base_indices(seq):
     return np.where(arr >= 0, arr, N_SENTINEL)
 
 
-def seq_to_kmer_indices(seq):
-    """Kmer index of the 6-mer starting at each position p of ``seq``, for
-    the len(seq) - (KMER_LENGTH-1) positions whose window fits
-    (sequence_correctSeqLength, impl/pairwiseAligner.c:355-370).  A window
-    that holds a non-ACGT char gets N_SENTINEL."""
+def seq_to_kmer_indices(seq, length=None):
+    """Kmer index of the 6-mer starting at each position p of ``seq``.
+
+    ``length`` defaults to the len(seq) - (KMER_LENGTH-1) positions whose
+    window fits (sequence_correctSeqLength, impl/pairwiseAligner.c:355-370);
+    a caller may ask for more positions, whose clamped windows get
+    N_SENTINEL, as does a window that holds a non-ACGT char."""
     base = seq_to_base_indices(seq)
-    length = max(len(seq) - (KMER_LENGTH - 1), 0)
+    if length is None:
+        length = max(len(seq) - (KMER_LENGTH - 1), 0)
     out = np.full(length, N_SENTINEL, dtype=np.int64)
-    if length > 0:
-        windows = np.lib.stride_tricks.sliding_window_view(base,
-                                                           KMER_LENGTH)
+    valid_len = min(length, max(len(seq) - (KMER_LENGTH - 1), 0))
+    if valid_len > 0:
+        windows = np.lib.stride_tricks.sliding_window_view(
+            base[:valid_len + KMER_LENGTH - 1], KMER_LENGTH)
         ok = np.all(windows < 4, axis=1)
         # reference weighting: 4^5,4^4,4^3,4^2,4^1,4^0 (last char weight 1)
         weights = 4 ** np.arange(KMER_LENGTH - 1, -1, -1, dtype=np.int64)
-        out[:] = np.where(ok, windows @ weights, N_SENTINEL)
+        out[:valid_len] = np.where(ok, windows @ weights, N_SENTINEL)
     return out

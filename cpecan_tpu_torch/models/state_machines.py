@@ -1,12 +1,13 @@
 """Pair-HMM state machines of the port (counterpart of
 ``cpecan_tpu/models/state_machines.py``).
 
-So far the strawman and vanilla 3-state signal machines and the 5-state
-DNA machine, each an ``nn.Module`` whose buffers are the model tables the
-wavefront kernels gather from: moving the module to a device moves its
-tables once, which takes the place of the JAX aligner's per-machine table
-cache (``pallas_fb.py:1575`` ``_model_cache``).  Each gives the kernels'
-scalars (``scalars``), uploaded without waiting for queued kernels.
+So far the strawman and vanilla 3-state signal machines, the 4-state
+signal machine and the 5-state DNA machine, each an ``nn.Module`` whose
+buffers are the model tables the wavefront kernels gather from: moving
+the module to a device moves its tables once, which takes the place of
+the JAX aligner's per-machine table cache (``pallas_fb.py:1575``
+``_model_cache``).  Each gives the kernels' scalars (``scalars``),
+uploaded without waiting for queued kernels.
 """
 
 import numpy as np
@@ -123,6 +124,83 @@ def machine_from_jax(sm):
     return StateMachine3SignalStrawman(_pore_model_from_jax(sm.model),
                                        params=sm.p,
                                        gap_x_log_probs=sm.gap_x_log_probs)
+
+
+# Template-read transition defaults of the 4-state machine
+# (impl/stateMachine.c:996-1012)
+SM4_DEFAULTS = dict(
+    match_continue=-0.23552123624314988,
+    gap_short_open_x=-1.6269694202638481,
+    gap_short_open_y=-4.7241893208381773,
+    gap_long_open_x=-5.4173365013981227,
+    gap_short_extend_x=-1.6269694202638481,
+    match_from_short_gap_x=-0.21880828092192281,
+    gap_long_extend_x=-0.003442492794189331,
+    match_from_long_gap_x=-5.6732801731704612,
+    match_from_short_gap_y=-0.013406326748077823,
+    gap_short_extend_y=-4.724189320832104,
+    gap_long_switch_to_x=-5.4173365013920494,
+)
+
+
+class StateMachine4(StateMachine3SignalStrawman):
+    """fourState signal machine (getStateMachine4,
+    impl/stateMachine.c:961-1040, 1800-1809): match, shortGapX (skip),
+    shortGapY (extra event), longGapX.  The strawman's emissions and
+    buffers, but stateMachine4_construct leaves the gap-X table at the
+    zeros of emissions_signal_initEmissionsToZero (:1037), where the
+    strawman fills log(0.1)."""
+
+    S = 4
+
+    def __init__(self, model: PoreModel, params=None, gap_x_log_probs=None):
+        super().__init__(model, params=dict(params or SM4_DEFAULTS),
+                         gap_x_log_probs=(np.zeros(NUM_OF_KMERS)
+                                          if gap_x_log_probs is None
+                                          else gap_x_log_probs))
+
+    def start_vec(self):
+        return [0.0, LOG_ZERO, LOG_ZERO, LOG_ZERO]
+
+    def ragged_start_vec(self):
+        # stateMachine4_raggedStartStateProb (impl/stateMachine.c:792-795)
+        return [LOG_ZERO, LOG_ZERO, 0.0, 0.0]
+
+    def end_vec(self):
+        p = self.p
+        return [p["match_continue"], p["match_from_short_gap_x"],
+                p["match_from_short_gap_y"], p["match_from_long_gap_x"]]
+
+    def ragged_end_vec(self):
+        p = self.p
+        return [p["gap_long_open_x"], p["gap_long_open_x"],
+                p["gap_long_open_x"], p["gap_long_extend_x"]]
+
+    def scalars(self, ragged_left=False):
+        """Kernel scalars [1, 23] f32 on the buffers' device: [11
+        transitions (lower 5, middle 4, upper 2), start(4), end(4),
+        ragged_end(4)], -inf clamped to NEG in f64 before the cast
+        (``Sm4PallasAligner._scalars``, pallas_fb.py:3069-3081)."""
+        p = self.p
+        vals = [p["gap_short_open_x"], p["gap_short_extend_x"],
+                p["gap_long_open_x"], p["gap_long_extend_x"],
+                p["gap_long_switch_to_x"],
+                p["match_continue"], p["match_from_short_gap_x"],
+                p["match_from_short_gap_y"], p["match_from_long_gap_x"],
+                p["gap_short_open_y"], p["gap_short_extend_y"]]
+        start = self.ragged_start_vec() if ragged_left else self.start_vec()
+        return _scalar_tensor(vals + list(start) + list(self.end_vec())
+                              + list(self.ragged_end_vec()),
+                              self.match_model.device)
+
+
+def machine4_from_jax(sm):
+    """The port's 4-state machine with the weights of the JAX package's
+    ``StateMachine4``: reads only ``sm.p``, ``sm.gap_x_log_probs`` and the
+    numpy fields of ``sm.model``."""
+    return StateMachine4(_pore_model_from_jax(sm.model), params=sm.p,
+                         gap_x_log_probs=np.asarray(sm.gap_x_log_probs,
+                                                    np.float64))
 
 
 # the vanilla model columns the kernels read (_model_tables, pallas_fb.py

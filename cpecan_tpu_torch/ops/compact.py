@@ -9,7 +9,9 @@ The wire format is the JAX package's: per read the top-k cells of the
 windowed posterior plane as u16 fixed-point values (p * 65535, clipped to
 [0, 1]) and the flat plane index (d - 1) * W + l split into ``drow`` (u16
 while the row count fits, else int32) and ``lane`` (u8 for W <= 256, else
-u16).
+u16).  The compaction leaves for the host in flight (``HostCopy``): a run
+returns without waiting for its kernels, so that host work overlaps the
+next ones, and the extractors wait for the copy (``fetch``).
 """
 
 import numpy as np
@@ -25,25 +27,71 @@ def host_array(a):
     return np.asarray(a)
 
 
-def _top_k(p, k, W, n_rows):
+class HostCopy:
+    """Tensors on their way to the host, and what becomes of them there.
+
+    On the card, each tensor starts a ``non_blocking`` copy into pinned
+    host memory at construction, and a CUDA event is recorded after the
+    copies on the current stream: the caller goes on queueing work (the
+    JAX driver's ``copy_to_host_async``).  ``wait()`` blocks on that event
+    only, not on work queued after it, and returns ``finish(numpy
+    arrays)``.  On the CPU the tensors are the host arrays already."""
+
+    def __init__(self, tensors, finish):
+        self.finish = finish
+        self.event = None
+        if tensors[0].device.type == "cuda":
+            self.host = [torch.empty(t.shape, dtype=t.dtype,
+                                     pin_memory=True) for t in tensors]
+            for h, t in zip(self.host, tensors):
+                h.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(tensors[0].device))
+        else:
+            self.host = [t.detach() for t in tensors]
+
+    def wait(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return self.finish([h.numpy() for h in self.host])
+
+
+def fetch(out):
+    """Wait for the compaction of a run's output (out["compact"], or the
+    tiled path's out["compact_chunks"], a ``HostCopy``) and put the host
+    arrays in its place; returns ``out``."""
+    for key in ("compact", "compact_chunks"):
+        if isinstance(out.get(key), HostCopy):
+            out[key] = out[key].wait()
+    return out
+
+
+def _top_k(p, k, W, n_rows, finish=None):
     """The exact top-k along the last axis of ``p`` (flat (row, lane)
-    plane indices, ``n_rows`` rows of W lanes) in the wire format: (values
-    u16, drow, lane) numpy arrays.  Values are quantized in int32 on the
-    device and take their wire dtypes on the host."""
+    plane indices, ``n_rows`` rows of W lanes) in the wire format, on its
+    way to the host: a ``HostCopy`` whose ``wait()`` gives (values u16,
+    drow, lane) numpy arrays, passed through ``finish`` when given.
+    Values are quantized in int32 on the device and take their wire dtypes
+    on the host."""
     vals, idx = torch.topk(p, min(k, p.shape[-1]), dim=-1)
     qv = torch.round(torch.clamp(vals, 0.0, 1.0) * 65535.0).to(torch.int32)
     drow = torch.div(idx, W, rounding_mode="floor").to(torch.int32)
     lane = (idx % W).to(torch.int32)
-    qv, drow, lane = (host_array(a) for a in (qv, drow, lane))
     d_dt = np.uint16 if n_rows < 65536 else np.int32
     l_dt = np.uint8 if W <= 256 else np.uint16
-    return qv.astype(np.uint16), drow.astype(d_dt), lane.astype(l_dt)
+
+    def wire(arrays):
+        qv, drow, lane = arrays
+        out = qv.astype(np.uint16), drow.astype(d_dt), lane.astype(l_dt)
+        return finish(out) if finish else out
+
+    return HostCopy([qv, drow, lane], wire)
 
 
 def compact_posteriors(posts, k=4096):
     """Per read, the top-k posterior cells over all diagonals of the
     windowed plane ``posts`` [G, ND+1, R, W] -> (values u16, drow, lane),
-    each [G, R, k], as numpy arrays on the host.
+    each [G, R, k], on their way to the host (a ``HostCopy``: ``_top_k``).
 
     One exact ``torch.topk`` over the [G, R, ND*W] plane (diagonal 0 is
     never emitted)."""
@@ -57,16 +105,19 @@ def compact_chunks(posts, DC, k):
     diagonals (off = c * DC, diagonals off+1 .. off+DC) and every read, the
     exact top-k of that chunk, as ``compact_posteriors`` of the rows
     off .. off+DC would give it (drow counts from off).  One ``torch.topk``
-    over [G, R, NC, DC*W]; returns [(off, (values, drow, lane)), ...],
-    each array [G, R, k]."""
+    over [G, R, NC, DC*W]; a ``HostCopy`` of [(off, (values, drow, lane)),
+    ...], each array [G, R, k]."""
     G, ND1, R, W = posts.shape
     NC = (ND1 - 1) // DC
     if NC * DC != ND1 - 1:
         raise ValueError(f"{ND1 - 1} diagonals are not whole chunks of {DC}")
     p = posts[:, 1:].reshape(G, NC, DC, R, W).permute(0, 3, 1, 2, 4)
-    wire = _top_k(p.reshape(G, R, NC, DC * W), k, W, DC)
-    return [(c * DC, tuple(np.ascontiguousarray(a[:, :, c]) for a in wire))
-            for c in range(NC)]
+
+    def split(wire):
+        return [(c * DC, tuple(np.ascontiguousarray(a[:, :, c])
+                               for a in wire)) for c in range(NC)]
+
+    return _top_k(p.reshape(G, R, NC, DC * W), k, W, DC, finish=split)
 
 
 def extract_pairs_full(out, read_idx, threshold):
@@ -137,7 +188,7 @@ def _no_echelon(out):
     if out["posteriors"].ndim == 5:
         raise NotImplementedError(
             "multi-state (echelon) posterior outputs are not ported yet "
-            "(ROADMAP Queue 1 item 3)")
+            "(ROADMAP Queue 1 item 3c)")
 
 
 def extract_pairs_auto(out, read_idx, n_diag, threshold, as_array=False):
@@ -146,6 +197,7 @@ def extract_pairs_auto(out, read_idx, n_diag, threshold, as_array=False):
     dropped, so read that read's full windowed plane instead.  A tiled
     run's output goes to ``extract_pairs_long``."""
     _no_echelon(out)
+    fetch(out)
     if "tiled" in out:
         return extract_pairs_long(out, read_idx, n_diag, threshold,
                                   as_array=as_array)
@@ -185,6 +237,7 @@ def extract_pairs_chunk(out, rels, n_diags, threshold):
     output is extracted per read (``extract_pairs_long``, rows already in
     that order)."""
     _no_echelon(out)
+    fetch(out)
     if "tiled" in out:
         return [extract_pairs_long(out, int(rel), int(nd_i), threshold,
                                    as_array=True)
@@ -233,6 +286,7 @@ def extract_pairs_long(out, read_idx, n_diag, threshold, as_array=False):
     top-k saturated reads that read's rows of the chunk from the full
     windowed plane instead.  Returns (score, x, y) rows sorted by diagonal
     (stable), as ``extract_pairs_auto`` + the pipelines' drain order."""
+    fetch(out)
     prep = out["prep"]
     R, W = prep["R"], prep["W"]
     win = prep["win"]

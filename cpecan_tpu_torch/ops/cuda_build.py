@@ -38,10 +38,10 @@ _SIGNATURES = {
     # ... raggedf fwd shifts posts totals | ... TD | stream
     "wavefront_bwd_tiled": [_P] * 12 + [_I] * 9 + [_P],
 }
-# the dna5 and vanilla instances take their strawman counterparts'
+# the dna5, vanilla and sm4 instances take their strawman counterparts'
 # arguments
 _SIGNATURES.update({f"{name}{suffix}": _SIGNATURES[name]
-                    for suffix in ("_dna5", "_vanilla") for name in (
+                    for suffix in ("_dna5", "_vanilla", "_sm4") for name in (
                         "wavefront_fwd", "wavefront_bwd",
                         "wavefront_bwd_exp", "wavefront_fwd_tiled",
                         "wavefront_bwd_tiled")})

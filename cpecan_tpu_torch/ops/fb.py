@@ -5,7 +5,8 @@ kernels (counterpart of ``cpecan_tpu/ops/pallas_fb.py``
 :2447-2616).  ``WavefrontAligner`` holds the machine-independent part;
 ``StrawmanAligner`` (the strawman 3-state signal machine),
 ``VanillaAligner`` (the vanilla 3-state signal machine,
-``VanillaPallasAligner`` :2619) and ``Dna5Aligner`` (the 5-state DNA
+``VanillaPallasAligner`` :2619), ``Sm4Aligner`` (the 4-state signal
+machine, ``Sm4PallasAligner`` :3063) and ``Dna5Aligner`` (the 5-state DNA
 machine, ``Dna5PallasAligner`` :3084) supply the spec, the host feature
 inputs and the device features.
 
@@ -42,7 +43,7 @@ from ..constants import NUM_OF_KMERS
 from .band import make_bands
 from .compact import compact_chunks, compact_posteriors, host_array
 from .device_bands import device_bands
-from .fb_kernels import (Dna5Spec, StrawmanSpec, VanillaSpec,
+from .fb_kernels import (Dna5Spec, Sm4Spec, StrawmanSpec, VanillaSpec,
                          _no_expectations, wavefront_bwd, wavefront_bwd_exp,
                          wavefront_bwd_tiled, wavefront_fwd,
                          wavefront_fwd_tiled)
@@ -285,9 +286,10 @@ class WavefrontAligner:
         """Posterior alignment of ``reads`` [(ref, events, l_x, l_y,
         anchors), ...] on machine ``sm``.
 
-        Returns {"compact": (values u16, drow, lane) numpy arrays [G, R, k]
-        (compact.compact_posteriors), "posteriors": [G, ND+1, R, W] and
-        "totals": [G, R] tensors on the device, "prep": prepare's dict}.
+        Returns {"compact": (values u16, drow, lane) [G, R, k] on their way
+        to the host (compact.compact_posteriors), "posteriors":
+        [G, ND+1, R, W] and "totals": [G, R] tensors on the device, "prep":
+        prepare's dict}.
 
         A batch of 2^14 estimated diagonals or more (or 2^15 reference
         columns), or any run given ``tile_diag``, takes the tiled path
@@ -297,13 +299,21 @@ class WavefrontAligner:
         With ``expectations`` the backward also sums each read's EM
         expectations and "expectations" replaces "compact": the machine's
         ``exp_finalize`` (strawman {"trans" [B, 3, 3], "kmer_gap"
-        [B, NUM_OF_KMERS + 2], "likelihood" [B]}; vanilla {"skip_bins"
+        [B, NUM_OF_KMERS + 2], "likelihood" [B]}; sm4 the same with
+        "trans" [B, 4, 4]; vanilla {"skip_bins"
         [B, 60], "likelihood" [B]}; dna5 {"trans" [B, 5, 5], "emis"
         [B, 5, 4, 4], "likelihood" [B]}), numpy f64.  With
         ``defer_expectations`` as well, the run copies nothing to the host
         and returns {"expectations_flat": the dispatched sums on the device,
         "totals", "prep"} for ``finalize_expectations`` (no posterior
         plane: it frees before the next chunk).
+
+        The compaction's copy to the host only starts: "compact" (the
+        tiled path: "compact_chunks") is a ``compact.HostCopy``, which the
+        extractors wait for (``compact.fetch(out)`` puts the host arrays in
+        its place).  The run returns without waiting for its kernels, so
+        that the caller's host work overlaps them (the JAX driver's
+        ``copy_to_host_async``).
 
         ``stage(name, fn)``, when given, runs each step of the run and
         returns ``fn()``: "prepare", "inputs", "fwd", "bwd", "compact" (the
@@ -429,7 +439,17 @@ class StrawmanAligner(WavefrontAligner):
         return exp_dispatch(trans, acc, totals)
 
     def exp_finalize(self, prep, flat):
-        return exp_finalize(prep, flat)
+        return exp_finalize(prep, flat, self.spec.S)
+
+
+class Sm4Aligner(StrawmanAligner):
+    """The 4-state signal machine (getStateMachine4; ``models.
+    state_machines.StateMachine4``) on the wavefront kernels: the
+    strawman's reads, features and emissions, its own spec and scalars
+    (``Sm4PallasAligner``, pallas_fb.py:3063).  Expectation runs give
+    trans [B, 4, 4] and the shortGapX k-mer gap sums."""
+
+    spec = Sm4Spec
 
 
 class VanillaAligner(StrawmanAligner):
@@ -501,25 +521,25 @@ class Dna5Aligner(WavefrontAligner):
 
 
 def exp_dispatch(trans, gapx, totals):
-    """The strawman expectation sums as ONE [G*R, 9 + X + 1] f32 tensor on
-    their device (``_exp_dispatch``, pallas_fb.py:2092-2109): 9 transition
-    lanes, X per-column gap-X masses (gapx [G, 1, R, X]; the per-kmer
-    scatter happens on the host, where the base codes are), 1 total; a
-    single device-to-host copy takes the whole E-step result."""
+    """The strawman or 4-state expectation sums as ONE [G*R, S*S + X + 1]
+    f32 tensor on their device (``_exp_dispatch``, pallas_fb.py:2092-2109):
+    S*S transition lanes, X per-column gap-X masses (gapx [G, 1, R, X];
+    the per-kmer scatter happens on the host, where the base codes are), 1
+    total; a single device-to-host copy takes the whole E-step result."""
     G, R = totals.shape
     return torch.cat([trans.reshape(G * R, -1),
                       gapx[:, 0].reshape(G * R, -1),
                       totals.reshape(G * R, 1)], dim=1)
 
 
-def exp_finalize(prep, flat):
-    """Per-read expectations from the flat host array (``_exp_finalize``,
-    pallas_fb.py:2111-2128): trans [B, 3, 3], kmer_gap [B, NUM_OF_KMERS + 2]
-    (each column's gap-X mass added to the bin of its k-mer; k-mers with an
-    N and the padding land in the two bins past NUM_OF_KMERS) and
-    likelihood [B] = total * n_diag, as the reference has it; all f64."""
+def exp_finalize(prep, flat, S=StrawmanSpec.S):
+    """Per-read expectations from the flat host array of an S-state
+    machine (``_exp_finalize``, pallas_fb.py:2111-2128): trans [B, S, S],
+    kmer_gap [B, NUM_OF_KMERS + 2] (each column's gap-X mass added to the
+    bin of its k-mer; k-mers with an N and the padding land in the two bins
+    past NUM_OF_KMERS) and likelihood [B] = total * n_diag, as the
+    reference has it; all f64."""
     B, X = prep["B"], prep["X"]
-    S = StrawmanSpec.S
     tr = flat[:B, :S * S].reshape(B, S, S).astype(np.float64)
     gc = flat[:B, S * S:S * S + X].astype(np.float64)
     tot = flat[:B, S * S + X].astype(np.float64)

@@ -1,6 +1,7 @@
 """Band-local forward/backward wavefront of the pair-HMM machines: the
 log-space helpers, the machine specs (the strawman 3-state signal machine,
-the vanilla 3-state signal machine and the 5-state DNA machine), the
+the vanilla 3-state signal machine, the 4-state signal machine and the
+5-state DNA machine), the
 wavefront passes (forward, posterior backward, expectation backward) as
 plain PyTorch, and the wrappers that launch their CUDA kernels.
 
@@ -11,6 +12,7 @@ Counterparts in the JAX package (``cpecan_tpu/ops/pallas_fb.py``):
 ``log_add3``, ``gauss``,   ``_gauss`` (:44-70), ``_inv_gauss`` (:137)
 ``inv_gauss``
 ``StrawmanSpec``           ``_StrawmanSpec`` (:162-207)
+``Sm4Spec``                ``_Sm4Spec`` (:257-337)
 ``Dna5Spec``               ``_Dna5Spec`` (:340-449)
 ``VanillaSpec``            ``_VanillaSpec`` (:456-517)
 ``wavefront_fwd``          ``_sm3_forward_kernel`` (:635), untiled
@@ -46,8 +48,8 @@ diagonals in one launch each: a tile of the TPU kernels is only a
 boundary here, where the carried diagonals re-center.  Every CUDA kernel's
 launches are counted in ``KERNEL_LAUNCHES`` under its entry point's name
 (``wavefront_fwd``, ``wavefront_fwd_dna5``, ``wavefront_fwd_vanilla``,
-...); a wrapper's ``.launches`` reads its strawman entry there.  Each plain
-version counts its calls in ``.calls``.
+``wavefront_fwd_sm4``, ...); a wrapper's ``.launches`` reads its strawman
+entry there.  Each plain version counts its calls in ``.calls``.
 """
 
 import ctypes
@@ -196,6 +198,91 @@ class StrawmanSpec:
         probs["oy"] = p(f1a[0] + t[T_OY] + up)
         probs["ey"] = p(f1a[2] + t[T_EY] + up)
         return probs, (probs["ox"] + probs["ex"] + probs["sx"],)
+
+
+# 4-state signal machine scalar order: lower(5), middle(4), upper(2)
+(T4_SOX, T4_SEX, T4_LOX, T4_LEX, T4_LSX,
+ T4_MM, T4_MSX, T4_MSY, T4_MLX,
+ T4_SOY, T4_SEY) = range(11)
+
+
+class Sm4Spec:
+    """4-state signal machine (stateMachine4_cellCalculate,
+    impl/stateMachine.c:868-898): states M, shortGapX, shortGapY, longGapX;
+    the strawman's emissions and x-feature rows (gap-X row 8 for both X
+    states).  The updates keep the JAX spec's ``log_add`` grouping exactly
+    (the piecewise-cubic ``log_add`` is not associative in f32)."""
+
+    NAME = "sm4"
+    SUFFIX = "_sm4"
+    S = 4
+    NS = 11
+    NXF = 9
+    GAP_X = 8
+
+    emissions = staticmethod(StrawmanSpec.emissions)
+
+    @staticmethod
+    def fwd_update_w(t, xf, e_match, e_gapy, p1m, p1, p2m):
+        e_gapx = xf[..., Sm4Spec.GAP_X, :]
+        new_sx = log_add(p1m[0] + t[T4_SOX], p1m[1] + t[T4_SEX]) + e_gapx
+        new_lx = log_add3(p1m[0] + t[T4_LOX], p1m[3] + t[T4_LEX],
+                          p1m[2] + t[T4_LSX]) + e_gapx
+        new_m = log_add(
+            log_add(p2m[0] + t[T4_MM], p2m[1] + t[T4_MSX]),
+            log_add(p2m[2] + t[T4_MSY], p2m[3] + t[T4_MLX])) + e_match
+        new_sy = log_add(p1[0] + t[T4_SOY], p1[2] + t[T4_SEY]) + e_gapy
+        return [new_m, new_sx, new_sy, new_lx]
+
+    @staticmethod
+    def bwd_update_w(t, xf, xfp, eg1, em2p, n1, n1p, n2p):
+        e_gapx_p = xfp[..., Sm4Spec.GAP_X, :]
+        mid = em2p + n2p[0]
+        low_s = e_gapx_p + n1p[1]
+        low_l = e_gapx_p + n1p[3]
+        up = eg1 + n1[2]
+        bw_m = log_add(log_add(mid + t[T4_MM], low_s + t[T4_SOX]),
+                       log_add(low_l + t[T4_LOX], up + t[T4_SOY]))
+        bw_sx = log_add(mid + t[T4_MSX], low_s + t[T4_SEX])
+        bw_sy = log_add3(mid + t[T4_MSY], low_l + t[T4_LSX], up + t[T4_SEY])
+        bw_lx = log_add(mid + t[T4_MLX], low_l + t[T4_LEX])
+        return [bw_m, bw_sx, bw_sy, bw_lx]
+
+    # transition lanes frm * 4 + to over (M, SX, SY, LX): the 11
+    # transitions of the machine; lanes 6, 7, 9, 13 and 14 stay 0
+    EXP_LANES = {"mm": 0, "sxm": 4, "sym": 8, "lxm": 12,
+                 "msx": 1, "sxsx": 5,
+                 "mlx": 3, "lxlx": 15, "sylx": 11,
+                 "msy": 2, "sysy": 10}
+    EXP_NACC = 1       # per-column accumulators: the shortGapX mass
+    EXP_Y_AUX = False
+
+    @staticmethod
+    def exp_probs_w(t, xfw, em_t, eg_t, y_t, f0m, f1m, f1a, bw2, total):
+        """``_Sm4Spec.exp_probs_w`` (pallas_fb.py:275-304, op for op):
+        ({name: p} keyed like EXP_LANES, (the k-mer gap mass msx + sxsx,)):
+        the reference counts gap-X k-mers into the shortGapX target only
+        (impl/pairwiseAligner.c:456-459), not longGapX."""
+        def p(logp):
+            return torch.exp(torch.clamp(logp - total, max=10.0))
+
+        e_gapx = xfw[..., Sm4Spec.GAP_X, :]
+        mid = em_t + bw2[0]
+        probs = {"mm": p(f0m[0] + t[T4_MM] + mid),
+                 "sxm": p(f0m[1] + t[T4_MSX] + mid),
+                 "sym": p(f0m[2] + t[T4_MSY] + mid),
+                 "lxm": p(f0m[3] + t[T4_MLX] + mid)}
+        low_s = e_gapx + bw2[1]
+        low_l = e_gapx + bw2[3]
+        probs["msx"] = p(f1m[0] + t[T4_SOX] + low_s)
+        probs["sxsx"] = p(f1m[1] + t[T4_SEX] + low_s)
+        probs["mlx"] = p(f1m[0] + t[T4_LOX] + low_l)
+        probs["lxlx"] = p(f1m[3] + t[T4_LEX] + low_l)
+        probs["sylx"] = p(f1m[2] + t[T4_LSX] + low_l)
+        up = eg_t + bw2[2]
+        probs["msy"] = p(f1a[0] + t[T4_SOY] + up)
+        probs["sysy"] = p(f1a[2] + t[T4_SEY] + up)
+        return probs, (probs["msx"] + probs["sxsx"],)
 
 
 # 5-state DNA machine scalar order: lower(4), middle(5), upper(4)

@@ -87,6 +87,20 @@ TRAIN_GAP_ATOL, likelihoods TOTAL_RTOL.  A trained VanillaHmm's 60 skip
 bins (normalized together) take the k-mer gap probabilities' bar: on Zymo
 the port is within 1.3e-6 of the JAX package after two iterations.
 
+Posterior tsvs of the signalAlign batch pipeline (``check_tsv``): the
+rows of two files, keyed by (strand, reference position, event index),
+have the same key sets except rows whose posterior lies within FRINGE of
+the threshold in the file that has them; on a shared row every column but
+the posterior (column 13) is byte-equal, and the posteriors agree within
+TSV_POST_ATOL: the posterior planes' POST_ATOL, plus one step of the u16
+compaction (1/65535) and the 1e-6 of the tsv's six decimals.  One u16
+step alone does not hold between two f32 runs: a read's log total is
+-1e3 .. -1e4, where one f32 ulp is 2^-12 .. 2^-10, so a last-bit
+difference in the forward (XLA's and PyTorch's exp and log, or the card's
+and the CPU's) moves every posterior near 1 of the strand by 2.4e-4 or
+more (Zymo, the port's plain passes against the JAX package's, threeState:
+up to 7.33e-4 on the template strand, 2.45e-4 on the complement).
+
 Each check raises AssertionError with the size of the miss.
 """
 
@@ -112,6 +126,8 @@ ZYMO_SHARED, ZYMO_SYMDIFF = 0.98, 1
 LONG_SCORE_ATOL = 2.5e-2
 LONG_DNA_ENGINE_SCORE_ATOL = 6e-2
 TILED_POST_ATOL, TILED_TOTAL_ATOL = 1e-2, 5e-2
+TSV_POST_ATOL = POST_ATOL + 1.0 / 65535.0 + 1e-6
+TSV_POSTERIOR_COLUMN = 12   # 0-based: column 13 of writePosteriorProbs
 
 
 def band_mask(prep, basef, widthf):
@@ -381,3 +397,44 @@ def check_tiled_pairs(got, want, threshold):
         if abs(gs[k] - ws[k]) > tol:
             raise AssertionError(f"pair {k} scores {gs[k]} vs {ws[k]}")
     return len(set(gs) ^ set(ws))
+
+
+def _tsv_rows(text):
+    """{(strand, reference position, event index): the row's 15 fields}
+    of a posterior tsv's text (str or bytes)."""
+    if isinstance(text, bytes):
+        text = text.decode()
+    rows = {}
+    for line in text.splitlines():
+        f = line.split("\t")
+        if len(f) != 15:
+            raise AssertionError(f"tsv row with {len(f)} fields: {line!r}")
+        key = (f[4], int(f[1]), int(f[5]))
+        if key in rows:
+            raise AssertionError(f"tsv row {key} twice")
+        rows[key] = f
+    return rows
+
+
+def check_tsv(got, want, threshold=0.01):
+    """Two posterior tsvs (text or bytes) of the same read; returns (rows
+    in one file only, the largest posterior |d| on shared rows)."""
+    gr, wr = _tsv_rows(got), _tsv_rows(want)
+    if not wr:
+        raise AssertionError("the reference tsv has no rows")
+    col = TSV_POSTERIOR_COLUMN
+    one = set(gr) ^ set(wr)
+    for key in one:
+        p = float((gr.get(key) or wr[key])[col])
+        if abs(p - threshold) > FRINGE:
+            raise AssertionError(f"tsv row {key} (posterior {p}) in one "
+                                 "file only, away from the threshold")
+    err = 0.0
+    for key in set(gr) & set(wr):
+        g, w = gr[key], wr[key]
+        if g[:col] != w[:col] or g[col + 1:] != w[col + 1:]:
+            raise AssertionError(f"tsv row {key} differs: {g} vs {w}")
+        err = max(err, abs(float(g[col]) - float(w[col])))
+    if not err <= TSV_POST_ATOL:
+        raise AssertionError(f"tsv posteriors differ by {err}")
+    return len(one), err

@@ -13,28 +13,32 @@ import pytest
 import torch
 
 from cpecan_tpu_torch.align import AlignmentParams
-from cpecan_tpu_torch.fixtures import (fixture_path, load_dna5_em,
+from cpecan_tpu_torch.fixtures import (fixture_path, load_batch_zymo,
+                                       load_dna5_em,
                                        load_dna5_realign, load_long_read,
                                        load_vanilla_zymo, load_zymo_slice,
                                        load_zymo_train, zymo_trained_params)
 from cpecan_tpu_torch.io.poremodel import load_pore_model
+from cpecan_tpu_torch.models.hmm import ContinuousPairHmm
 from cpecan_tpu_torch.models.state_machines import (
-    StateMachine3SignalStrawman, StateMachine3Vanilla, StateMachine5)
+    StateMachine3SignalStrawman, StateMachine3Vanilla, StateMachine4,
+    StateMachine5)
 from cpecan_tpu_torch.ops import fb_kernels as fk
 from cpecan_tpu_torch.ops.compact import (compact_posteriors,
                                           extract_pairs_auto,
                                           extract_pairs_chunk)
-from cpecan_tpu_torch.ops.fb import (Dna5Aligner, StrawmanAligner,
-                                     VanillaAligner)
+from cpecan_tpu_torch.ops.fb import (Dna5Aligner, Sm4Aligner,
+                                     StrawmanAligner, VanillaAligner)
 from cpecan_tpu_torch.parity import (LONG_DNA_ENGINE_SCORE_ATOL, band_mask,
                                      check_dna5_expectations, check_em,
                                      check_exp_kernel,
                                      check_expectations, check_fwd,
                                      check_long_pairs, check_pair_sets,
                                      check_pairs, check_posts, check_tiled,
-                                     check_totals, check_trained,
+                                     check_totals, check_trained, check_tsv,
                                      check_vanilla_expectations)
 from cpecan_tpu_torch.pipeline import em
+from cpecan_tpu_torch.pipeline.signal_align_batch import run_batch_fast
 from cpecan_tpu_torch.pipeline.train_models import TrainOptions, train
 from cpecan_tpu_torch.synthetic import (dna_em_batch, dna_realign_batch,
                                         synthetic_batch)
@@ -547,8 +551,118 @@ def test_cuda_vanilla_zymo_matches_fixture(cuda, tmp_path):
     check_trained(t_hmm, c_hmm, traj, stored)
 
 
+def _sm4_machine(batch, trained):
+    """The batch's pore model as a 4-state machine; ``trained`` takes the
+    M-step of a random 4-state table (every transition finite, a non-zero
+    gap-X table), as tests/test_torch_sm4.py does."""
+    if not trained:
+        return StateMachine4(batch[0].model)
+    rng = np.random.default_rng(21)
+    h = ContinuousPairHmm(state_number=4, pseudocount=1e-4)
+    h.add_expectations({"trans": rng.uniform(0.05, 1.0, (4, 4)),
+                        "kmer_gap": rng.uniform(0.1, 1.0, 4098),
+                        "likelihood": -100.0})
+    h.normalize()
+    params, gap_x = h.to_sm4_params()
+    return StateMachine4(batch[0].model, params=params,
+                         gap_x_log_probs=gap_x)
+
+
+def _sm4_inputs(cuda, batch, trained, ragged, tile_diag=None):
+    sm = _sm4_machine(batch, trained)
+    reads = batch[1]
+    pa = Sm4Aligner(device=cuda, group=8)
+    sp = (np.random.default_rng(4).uniform(0.95, 1.05, (len(reads), 5))
+          if trained else None)
+    prep = pa.prepare(sm, reads, ragged_right=ragged, scale_params=sp,
+                      tile_diag=tile_diag)
+    inp = pa.device_inputs(sm, prep, ragged_left=ragged)
+    ND = prep["tiled"]["NDT"] if tile_diag else prep["ND"]
+    dims = dict(R=prep["R"], W=prep["W"], ND=ND, C=prep["C"],
+                spec=fk.Sm4Spec)
+    if tile_diag:
+        dims["TD"] = prep["tiled"]["TD"]
+    return prep, inp, dims
+
+
+@pytest.mark.parametrize("trained", [False, True],
+                         ids=["default", "trained"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_cuda_sm4_kernels_match_plain(batch, cuda, ragged, trained):
+    """K1, K2 and K3 sm4 against their plain versions on the same card
+    inputs (the trained machine with per-read scaling): fwd plane,
+    posteriors, totals and the 16 transition lanes bit for bit, the
+    shortGapX accumulator within parity.KERNEL_GAPX_ATOL."""
+    _, inp, dims = _sm4_inputs(cuda, batch, trained, ragged)
+    fk.reset_counts()
+    fwd = _fwd(inp, dims, fk.wavefront_fwd)
+    posts, totals = _bwd(inp, dims, fwd, fk.wavefront_bwd)
+    got = _bwd(inp, dims, fwd, fk.wavefront_bwd_exp)
+    torch.cuda.synchronize()
+    assert fk.KERNEL_LAUNCHES == {"wavefront_fwd_sm4": 1,
+                                  "wavefront_bwd_sm4": 1,
+                                  "wavefront_bwd_exp_sm4": 1}
+    assert fk.forward_plain.calls == fk.backward_plain.calls == 0
+    assert torch.equal(fwd, _fwd(inp, dims, fk.forward_plain))
+    pposts, ptotals = _bwd(inp, dims, fwd, fk.backward_plain)
+    assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
+    check_exp_kernel(got, _bwd(inp, dims, fwd, fk.backward_exp_plain))
+    assert got[2].shape[-1] == 16
+    assert not got[2][..., [6, 7, 9, 13, 14]].any()
+    assert torch.equal(got[0], posts) and torch.equal(got[1], totals)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_cuda_sm4_tiled_kernels_match_plain(batch, cuda, ragged):
+    """K6a/K6b sm4 against their plain versions, tiles of 128 diagonals:
+    fwd plane, shifts, posteriors, totals bit for bit."""
+    prep, inp, dims = _sm4_inputs(cuda, batch, True, ragged, tile_diag=128)
+    assert prep["tiled"]["NT"] >= 4
+    fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
+    ba = fa + [inp["seedf"], inp["raggedf"]]
+    fk.reset_counts()
+    fwd, shifts = fk.wavefront_fwd_tiled(*fa, **dims)
+    posts, totals = fk.wavefront_bwd_tiled(*ba, fwd, shifts, **dims)
+    torch.cuda.synchronize()
+    assert fk.KERNEL_LAUNCHES == {"wavefront_fwd_tiled_sm4": 1,
+                                  "wavefront_bwd_tiled_sm4": 1}
+    pfwd, pshifts = fk.forward_tiled_plain(*fa, **dims)
+    assert torch.equal(fwd, pfwd) and torch.equal(shifts, pshifts)
+    pposts, ptotals = fk.backward_tiled_plain(*ba, fwd, shifts, **dims)
+    assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
+
+
+@pytest.mark.parametrize("sm_type", ["threeState", "vanilla", "fourState"])
+def test_cuda_batch_pipeline_matches_cpu_run(cuda, tmp_path, sm_type):
+    """``run_batch_fast`` on the card for the Zymo read against the same
+    run on the CPU (plain passes) and against the JAX package's stored
+    tsv: the kernels of the machine launched once per strand."""
+    args, tsvs = load_batch_zymo()
+    label = args.pop("label")
+    ref = args.pop("reference_path")
+    got = {}
+    for device in ("cuda", "cpu"):
+        fk.reset_counts()
+        res = run_batch_fast(ref, args["npread_guide_pairs"],
+                             str(tmp_path / device), device=device,
+                             log=lambda m: None, sm_type=sm_type,
+                             **{k: v for k, v in args.items()
+                                if k != "npread_guide_pairs"})
+        assert [r[:2] for r in res] == [(label, True)]
+        got[device] = (tmp_path / device / f"{label}.tsv").read_bytes()
+        if device == "cuda":
+            suffix = {"threeState": "", "vanilla": "_vanilla",
+                      "fourState": "_sm4"}[sm_type]
+            assert fk.KERNEL_LAUNCHES == {f"wavefront_fwd{suffix}": 2,
+                                          f"wavefront_bwd{suffix}": 2}
+            assert fk.forward_plain.calls == fk.backward_plain.calls == 0
+    check_tsv(got["cuda"], got["cpu"], args["threshold"])
+    check_tsv(got["cuda"], tsvs[sm_type], args["threshold"])
+
+
 @pytest.mark.parametrize("spec", [fk.StrawmanSpec, fk.VanillaSpec,
-                                  fk.Dna5Spec], ids=lambda s: s.NAME)
+                                  fk.Dna5Spec, fk.Sm4Spec],
+                         ids=lambda s: s.NAME)
 def test_cuda_kernels_launch_at_the_widest_window(cuda, spec):
     """Every kernel of a spec launches with W = 1024 threads, the widest
     window the wrappers accept, and equals its plain version there: one

@@ -48,7 +48,7 @@ def runs(request, template_model, reads, jax_aligner):
     got = StrawmanAligner(device="cpu", group=jax_aligner.group).run(
         machine_from_jax(sm), reads, **kw)
     assert (fk.forward_plain.calls, fk.backward_plain.calls) == (1, 1)
-    return got, want
+    return tc.fetch(got), want
 
 
 def test_run_planes_match_jax(runs):
@@ -104,3 +104,23 @@ def test_saturated_topk_falls_back_to_full_plane(template_model, reads):
         assert len(full) > 8
         assert {(x, y) for _, x, y in full} == {
             (x, y) for _, x, y in parts[i].tolist()}
+
+
+def test_run_leaves_its_compaction_in_flight(template_model, reads):
+    """run returns with its compaction on its way to the host (a
+    ``compact.HostCopy``); an extractor waits for it and puts the host
+    arrays in its place, equal to a fresh compaction of the same plane."""
+    sm = machine_from_jax(StateMachine3SignalStrawman(template_model))
+    out = StrawmanAligner(device="cpu", group=8).run(sm, reads[:2],
+                                                     compact_k=64)
+    assert isinstance(out["compact"], tc.HostCopy)
+    thr = AlignmentParams().threshold
+    nd = out["prep"]["bands"][0].n_diag
+    pairs = tc.extract_pairs_auto(out, 0, nd, thr)
+    assert len(pairs) > 0
+    assert not isinstance(out["compact"], tc.HostCopy)
+    want = tc.compact_posteriors(out["posteriors"], 64).wait()
+    for got, ref in zip(out["compact"], want):
+        assert got.dtype == ref.dtype
+        np.testing.assert_array_equal(got, ref)
+    assert tc.fetch(out) is out

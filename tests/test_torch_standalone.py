@@ -20,6 +20,7 @@ import cpecan_tpu.constants as j_constants
 import cpecan_tpu.fixtures as j_fixtures
 from cpecan_tpu.io import cigar as j_cigar
 from cpecan_tpu.io import fasta as j_fasta
+from cpecan_tpu.io import guide as j_guide
 from cpecan_tpu.io import npread as j_npread
 from cpecan_tpu.io import poremodel as j_poremodel
 from cpecan_tpu.models import hmm as j_hmm
@@ -35,6 +36,7 @@ import cpecan_tpu_torch.constants as t_constants
 import cpecan_tpu_torch.fixtures as t_fixtures
 from cpecan_tpu_torch.io import cigar as t_cigar
 from cpecan_tpu_torch.io import fasta as t_fasta
+from cpecan_tpu_torch.io import guide as t_guide
 from cpecan_tpu_torch.io import npread as t_npread
 from cpecan_tpu_torch.io import poremodel as t_poremodel
 from cpecan_tpu_torch.models import hmm as t_hmm
@@ -66,6 +68,9 @@ def test_port_imports_with_jax_package_blocked():
         "loaded = {m.split('.')[0] for m, v in sys.modules.items() "
         "if v is not None}\n"
         "assert not loaded & {'jax', 'cpecan_tpu'}, loaded\n"
+        "assert {'cpecan_tpu_torch.pipeline.signal_align_batch', "
+        "'cpecan_tpu_torch.cli.batch', 'cpecan_tpu_torch.io.guide', "
+        "'cpecan_tpu_torch.native'} <= set(names), names\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -245,6 +250,11 @@ def case_kmers():
     for s in (seq, "ACG", "ACGTAC", ""):
         np.testing.assert_array_equal(t_kmers.seq_to_kmer_indices(s),
                                       j_kmers.seq_to_kmer_indices(s))
+        # the tsv writer asks for one position per base
+        for n in (len(s), len(s) + 3, 2):
+            np.testing.assert_array_equal(
+                t_kmers.seq_to_kmer_indices(s, length=n),
+                j_kmers.seq_to_kmer_indices(s, length=n))
         np.testing.assert_array_equal(t_kmers.seq_to_base_indices(s),
                                       j_kmers.seq_to_base_indices(s))
     assert t_fasta.reverse_complement(seq) == j_fasta.reverse_complement(seq)
@@ -413,13 +423,39 @@ def case_synth_dna_pair():
             tool_pair(np.random.default_rng(seed), n)
 
 
+def case_target_regions(tmp_path):
+    path = tmp_path / "regions.tsv"
+    path.write_text("500\t100\t x\n20\t60\n")
+    one = tmp_path / "one.tsv"
+    one.write_text("7\t3\n")
+    for p, presorted in ((path, False), (path, True), (one, False)):
+        got = t_guide.TargetRegions(str(p), already_sorted=presorted)
+        want = j_guide.TargetRegions(str(p), already_sorted=presorted)
+        np.testing.assert_array_equal(got.region_array, want.region_array)
+        for left in range(0, 600, 37):
+            for right in range(0, 600, 41):
+                assert got.check_aligned_region(left, right) == \
+                    want.check_aligned_region(left, right)
+    (tmp_path / "empty.tsv").write_text("")
+    for mod in (t_guide, j_guide):
+        with pytest.raises(ValueError, match="Empty"):
+            mod.TargetRegions(str(tmp_path / "empty.tsv"))
+
+
+def case_tsv_format_source():
+    """The native tsv formatter is the JAX package's source, byte for
+    byte (the port builds it into build/, not next to the source)."""
+    assert (PACKAGE / "native" / "tsv_format.cc").read_bytes() == \
+        (REPO / "cpecan_tpu" / "native" / "tsv_format.cc").read_bytes()
+
+
 CASES = {f.__name__[5:]: f for f in (
     case_make_bands, case_cigar, case_load_guides, case_npread,
     case_pore_model, case_hmm_round_trip, case_vanilla_hmm, case_kmers,
     case_anchors, case_checkpoint, case_rng_state_json,
     case_constants_and_fixture_paths, case_reweight,
     case_multiple_aligner, case_cigar_io, case_fasta_io, case_hmm_discrete,
-    case_synth_dna_pair)}
+    case_synth_dna_pair, case_target_regions, case_tsv_format_source)}
 
 
 @pytest.mark.parametrize("name", list(CASES))

@@ -52,7 +52,7 @@ def strawman_runs(request):
     assert (fk.forward_tiled_plain.calls, fk.backward_tiled_plain.calls,
             fk.forward_plain.calls) == (1, 1, 0)
     untiled = ta.run(machine_from_jax(sm), reads, **kw)
-    return got, untiled, want
+    return tc.fetch(got), tc.fetch(untiled), want
 
 
 def test_tiled_run_matches_jax_tiled_run(strawman_runs):
