@@ -5,7 +5,8 @@
 Builds the CUDA kernels from csrc/ and drives the strawman signal-alignment
 paths, the 5-state DNA realigner, cPecanEm (DNA Baum-Welch), the vanilla
 signal machine (signalAlign's default, posteriors and trainModels), the
-4-state signal machine and the signalAlign batch pipeline through them:
+4-state signal machine, the signalAlign batch pipeline and the echelon
+machine through them:
 
 1. versions, the card's name and power limit;
 2. the kernel build (nvcc, ptxas register report);
@@ -130,7 +131,29 @@ signal machine (signalAlign's default, posteriors and trainModels), the
    sm4 ms, plain ms and bound of the kernels line are this chunk's); the
    one-chunk-behind drain over 256 reads in chunks of 64 against the same
    runs serialized; cpecan-torch-signal-align-batch -smt vanilla on 4 of
-   the reads.
+   the reads;
+24. the echelon kernels (K1, K2 for the 7-state echelon machine) against
+   their plain versions on the first 32-read chunk of bench.py's echelon
+   cell (64 reads of 905 bases x 800 events with anchors on the vendored
+   template model, seed 6; group 32, the cell's shape hint): the fwd plane,
+   the five posterior planes and the totals bit for bit, equal expanded
+   pairs, max |d| per plane, ms, plain ms and bounds; one launch of each at
+   W = 1024 against plain;
+25. bench.py's echelon_alignments_per_sec: the 64 reads through
+   EchelonAligner(group=32).run in chunks of 32 (compact_k 4096, shape
+   hint), run and compaction to the host, median of 3 after a warm-up,
+   with the band cells/s, the pairs after the echelon expansion, the
+   launch counts and a stage split;
+26. bench.py's signal_pipeline_echelon_reads_per_sec: 32 copies of the
+   Zymo read through run_batch_fast(sm_type="echelon", threshold=0.15)
+   (EchelonAligner group 32), median of 3 after a warm-up, with phase 23's
+   stage split and launch counts; every read aligned, every copy's tsv
+   equal to read 0's, read 0's within parity.check_tsv(multi=True) of the
+   JAX package's stored tsv (tests/fixtures/echelon_zymo.npz); the
+   pipeline's first chunk (template strand, ragged, scaled: the skip bins
+   too) as the warm-up run launched it, its fwd plane, five posterior
+   planes and totals equal to the plain passes' bit for bit, as phase 23
+   holds the other three machines.
 
 The stage splits run the path's own code (``WavefrontAligner.run``,
 ``cli.realign.main``, ``pipeline.em.calculate_expectations_pallas`` and
@@ -151,6 +174,7 @@ import io
 import json
 import os
 import random
+import re
 import shutil
 import statistics
 import subprocess
@@ -195,11 +219,18 @@ F32_FLOPS_PER_S = 67e12
 # 15 adds per update (281), the band mask 3 and the fourth state's select
 # 2; the backward's seed selects and posterior 11; the expectation target
 # 122 more (the emissions 34, 11 probabilities of 5, four adds, 11 masked
-# sums of 2, the shortGapX column add 4, the band mask 3)
+# sums of 2, the shortGapX column add 4, the band mask 3).  Echelon: the
+# emissions 212 (per n = 1..5 a Gaussian of 8, an inverse Gaussian of 16,
+# their add, an exact log_add of 7 and the validity select, log n, duration
+# and clamp 5; the gap-Y term 27), the forward update 15 log_adds and 11
+# adds (581), the band mask 3 and seven selects; the backward update seven
+# log_adds and 12 adds (278), the band mask 3, the seed selects 10 and five
+# posteriors of 5
 FLOPS_PER_CELL = dict(fwd=240, bwd=245, bwd_exp=355, dna5_fwd=339,
                       dna5_bwd=349, dna5_bwd_exp=484, vanilla_fwd=214,
                       vanilla_bwd=221, vanilla_bwd_exp=238, sm4_fwd=320,
-                      sm4_bwd=326, sm4_bwd_exp=448)
+                      sm4_bwd=326, sm4_bwd_exp=448, echelon_fwd=803,
+                      echelon_bwd=528)
 DNA_GROUP = 32       # phases 13-15: bench.py's realign chunk and group
 DNA_COMPACT_K = 4096
 DNA_LONG = 100_000   # phase 16: bench.py's long_read_bases_per_sec pair
@@ -215,6 +246,13 @@ PIPE_CHUNK = 64
 PIPE_COMPACT_K = 2048
 PIPE_CLI_READS = 4   # phase 23: the CLI's run
 PIPE_OVERLAP_READS = 256  # phase 23: the drain overlap over four chunks
+ECH_READS = 64       # phases 24-25: bench.py's echelon cell
+ECH_GROUP = ECH_CHUNK = 32
+ECH_COMPACT_K = 4096
+ECH_THRESHOLD = 0.01
+# phase 26: bench.py's signal_pipeline_echelon_reads_per_sec
+ECH_PIPE_READS = 32
+ECH_PIPE_THRESHOLD = 0.15
 GOLDEN = {(0, 0), (1, 1), (2, 4), (3, 5)}
 
 
@@ -304,7 +342,7 @@ def main():
                                             signal_align_batch_main,
                                             train_models_main)
     from cpecan_tpu_torch.fixtures import (fixture_path, load_batch_zymo,
-                                           load_dna5_em,
+                                           load_dna5_em, load_echelon_zymo,
                                            load_dna5_realign, load_long_read,
                                            load_vanilla_zymo,
                                            load_zymo_slice, load_zymo_train,
@@ -318,12 +356,15 @@ def main():
     from cpecan_tpu_torch.ops import fb_kernels as fk
     from cpecan_tpu_torch.ops.compact import (compact_chunks,
                                               compact_posteriors,
+                                              extract_echelon_pairs_chunk,
+                                              fetch,
                                               extract_pairs_auto,
                                               extract_pairs_chunk,
                                               extract_pairs_long)
     from cpecan_tpu_torch.ops.cuda_build import build_info, load_library
     from cpecan_tpu_torch.ops.compact import host_array
-    from cpecan_tpu_torch.ops.fb import (Dna5Aligner, Sm4Aligner,
+    from cpecan_tpu_torch.ops.fb import (Dna5Aligner, EchelonAligner,
+                                         Sm4Aligner,
                                          StrawmanAligner, VanillaAligner,
                                          exp_dispatch, exp_finalize)
     from cpecan_tpu_torch.parity import (KERNEL_GAPX_ATOL,
@@ -341,6 +382,7 @@ def main():
     from cpecan_tpu_torch.pipeline.train_models import (
         TrainOptions, add_and_norm_expectations, strand_expectations, train)
     from cpecan_tpu_torch.synthetic import (dna_em_batch, dna_realign_batch,
+                                            echelon_batch,
                                             long_signal_read, realign_inputs,
                                             synth_dna_pair, synthetic_batch)
 
@@ -369,9 +411,16 @@ def main():
     path, build_s, build_log = build_info()
     log(f"build: {path.name} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {'%.2f s' % build_s if build_s is not None else 'cached'})")
+    # one line per kernel instance: its registers and spill
+    kernel = None
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+        m = re.search(r"sm3_(fwd|bwd)_kernelINS_\d+(\w+?)E((?:Lb[01]E)+)",
+                      line)
+        if m:
+            flags = ", ".join(re.findall(r"Lb([01])E", m.group(3)))
+            kernel = f"sm3_{m.group(1)}_kernel<{m.group(2)}, {flags}>"
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas: {kernel}: {line.strip()}")
 
     # -- 3. kernels vs plain on the first bench chunk --------------------
     sm, reads = synthetic_batch(**BATCH)
@@ -1925,11 +1974,11 @@ def main():
                 b"\tLABEL\t", f"\t{blabel}\t".encode()), btsvs[sm_type],
                 bargs["threshold"])
 
-        def recorded(cls):
+        def recorded(cls, params=AlignmentParams()):
             """An aligner of ``cls`` (group 32) whose first run, the first
             chunk's template strand, goes through a ``Stages`` hook: its
             inputs and kernel outputs are then held against the plain
-            passes (``hold_chunk``)."""
+            passes (``hold_chunk``; phases 23 and 26)."""
             class Recorded(cls):
                 rec = None
 
@@ -1939,7 +1988,7 @@ def main():
                     self.rec = Stages()
                     return super().run(sm, reads, stage=self.rec, **kw)
 
-            return Recorded(AlignmentParams(), device=dev, group=PIPE_GROUP)
+            return Recorded(params, device=dev, group=PIPE_GROUP)
 
         def hold_chunk(sm_type, pa):
             """The kernels' fwd plane, posteriors and totals of the
@@ -2114,6 +2163,227 @@ def main():
         f"{n_cli} on the card: rc 0, {n_cli} tsvs, {formatter[0]}")
     torch.cuda.synchronize()
 
+    # -- 24. the echelon kernels vs plain on bench.py's echelon cell -------
+    t24 = time.perf_counter()
+    # K1/K2 echelon on the first 32-read chunk of bench.py's echelon cell,
+    # prepared with the main path's shape hint (phase 25), so that this is
+    # the main path's first chunk
+    esm, ereads = echelon_batch(n_reads=ECH_READS)
+    esm = esm.to(dev)
+    eal = EchelonAligner(AlignmentParams(threshold=ECH_THRESHOLD), device=dev,
+                         group=ECH_GROUP)
+    ehint = (max(r[2] for r in ereads), eal.prepare(esm, ereads)["ND"])
+    eprep = eal.prepare(esm, ereads[:ECH_CHUNK], shape_hint=ehint)
+    einp = eal.device_inputs(esm, eprep)
+    ed = dict(R=eprep["R"], W=eprep["W"], ND=eprep["ND"], C=eprep["C"],
+              spec=fk.EchelonSpec)
+    efa = [einp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
+    eba = efa + [einp["seedf"], einp["raggedf"]]
+    efwd = fk.wavefront_fwd(*efa, **ed)
+    efwd_p, ms["echelon_fwd_plain"] = timed(
+        lambda: fk.forward_plain(*efa, **ed))
+    eposts, etot = fk.wavefront_bwd(*eba, efwd, **ed)
+    (eposts_p, etot_p), ms["echelon_bwd_plain"] = timed(
+        lambda: fk.backward_plain(*eba, efwd, **ed))
+    ech_err = {}
+    for what, got, want in (("fwd plane", efwd, efwd_p),
+                            ("posteriors", eposts, eposts_p),
+                            ("totals", etot, etot_p)):
+        ech_err[what] = float((got - want).abs().max())
+        same(f"K1/K2 echelon {what}", got, want)
+    if not torch.all(eposts[:, 0] == 0) or tuple(eposts.shape[2:4]) != (
+            5, ECH_CHUNK):
+        raise AssertionError(f"echelon posteriors {tuple(eposts.shape)}")
+    ends = [b.n_diag for b in eprep["bands"]]
+    erels = list(range(len(ends)))
+    eparts = [extract_echelon_pairs_chunk(dict(
+        prep=eprep, posteriors=p, compact=compact_posteriors(
+            p, min(ECH_COMPACT_K, ed["ND"] * ed["W"]))), erels, ends,
+        ECH_THRESHOLD) for p in (eposts, eposts_p)]
+    for i, (a, b) in enumerate(zip(*eparts)):
+        if not np.array_equal(a, b) or len(a) == 0:
+            raise AssertionError(f"echelon pairs of read {i}: kernel and "
+                                 "plain differ")
+    ms.update(
+        echelon_fwd=cuda_ms(lambda: fk.wavefront_fwd(*efa, **ed), 5),
+        echelon_bwd=cuda_ms(lambda: fk.wavefront_bwd(*eba, efwd, **ed), 5))
+    ecells = sum(int(b.width.sum()) for b in eprep["bands"])
+    bounds.update(
+        echelon_fwd=bound(efa + [efwd], ecells, FLOPS_PER_CELL["echelon_fwd"]),
+        echelon_bwd=bound(eba + [efwd, eposts, etot], ecells,
+                          FLOPS_PER_CELL["echelon_bwd"]))
+    del efwd_p, eposts_p, efwd, eposts
+    # one launch of each at W = 1024, the widest window: one read whose
+    # band covers the window for 128 diagonals, seeded at the last (random
+    # model rows, skip logs, validity bits, durations and events)
+    wrng = np.random.default_rng(6)
+    WW, WND = 1024, 128
+    WY = WND + 3 + WW + 256
+    wxf = wrng.uniform(0.5, 2.0, (1, fk.EchelonSpec.NXF, WW))
+    wxf[:, 24:28] = np.log(wrng.uniform(0.05, 0.9, (1, 4, WW)))
+    wxf[:, 28:] = wrng.integers(0, 2, (1, 5, WW))
+    wyf = np.concatenate([np.log(wrng.uniform(0.05, 0.9, (1, 6, WY))),
+                          wrng.uniform(0.5, 2.0, (1, 2, WY))], axis=1)
+    wseed = np.zeros((1, 384))
+    wseed[0, WND] = 1.0
+
+    def on_card(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+
+    wfa = [on_card(np.log(wrng.uniform(0.05, 0.9, 21))),
+           on_card(np.zeros((1, 384)), torch.int32), on_card(wxf),
+           on_card(wyf), on_card(np.zeros((1, 384))),
+           on_card(np.full((1, 384), float(WW)))]
+    wba = wfa + [on_card(wseed), on_card(np.zeros((1, 384)))]
+    wd = dict(R=1, W=WW, ND=WND, C=WND + 3, spec=fk.EchelonSpec)
+    wfwd = fk.wavefront_fwd(*wfa, **wd)
+    same("K1 echelon fwd plane at W = 1024", wfwd,
+         fk.forward_plain(*wfa, **wd))
+    wout = fk.wavefront_bwd(*wba, wfwd, **wd)
+    for what, got, want in zip(("posteriors", "totals"), wout,
+                               fk.backward_plain(*wba, wfwd, **wd)):
+        same(f"K2 echelon {what} at W = 1024", got, want)
+    if not torch.isfinite(wout[1]).all():
+        raise AssertionError("K2 echelon total at W = 1024 not finite")
+    w_ms = (cuda_ms(lambda: fk.wavefront_fwd(*wfa, **wd), 3),
+            cuda_ms(lambda: fk.wavefront_bwd(*wba, wfwd, **wd), 3))
+    log(f"echelon kernels vs plain ({ECH_CHUNK} reads of bench.py's echelon "
+        f"cell, ND={ed['ND']}, W={ed['W']}, R={ed['R']}): fwd plane, "
+        f"posts [G, ND+1, 5, R, W], totals equal bit for bit (max|d| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in ech_err.items())
+        + f"), {sum(map(len, eparts[0]))} expanded pairs equal; ms fwd "
+        f"{ms['echelon_fwd']:.3f} vs plain {ms['echelon_fwd_plain']:.1f}, "
+        f"bwd {ms['echelon_bwd']:.3f} vs plain "
+        f"{ms['echelon_bwd_plain']:.1f}; bounds "
+        f"{bounds['echelon_fwd'][0]:.4f} ({bounds['echelon_fwd'][1]}) / "
+        f"{bounds['echelon_bwd'][0]:.4f} ms ({bounds['echelon_bwd'][1]}); "
+        f"at W = {WW} (ND {WND}) both equal plain, ms fwd {w_ms[0]:.3f}, "
+        f"bwd {w_ms[1]:.3f}")
+    torch.cuda.synchronize()
+
+    # -- 25. echelon_alignments_per_sec -------------------------------------
+    def ech_main(stage=None):
+        outs = [eal.run(esm, ereads[i:i + ECH_CHUNK],
+                        compact_k=ECH_COMPACT_K, shape_hint=ehint,
+                        stage=stage)
+                for i in range(0, len(ereads), ECH_CHUNK)]
+        for o in outs:
+            fetch(o)
+        return outs
+
+    ech_main()
+    fk.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    etimes = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eouts = ech_main()
+        etimes.append(time.perf_counter() - t0)
+    ech_counts = dict(fk.KERNEL_LAUNCHES)
+    epeak = torch.cuda.max_memory_allocated()
+    n_chunks = -(-ECH_READS // ECH_CHUNK)
+    if (ech_counts != {"wavefront_fwd_echelon": 3 * n_chunks,
+                       "wavefront_bwd_echelon": 3 * n_chunks}
+            or fk.forward_plain.calls or fk.backward_plain.calls):
+        raise AssertionError(f"echelon main path launches {ech_counts}")
+    eall = []
+    for o in eouts:
+        if not torch.isfinite(o["totals"]).all():
+            raise AssertionError("echelon main path totals not finite")
+        nds = [b.n_diag for b in o["prep"]["bands"]]
+        eall += extract_echelon_pairs_chunk(o, list(range(len(nds))), nds,
+                                            ECH_THRESHOLD)
+    if len(eall) != ECH_READS or min(map(len, eall)) == 0:
+        raise AssertionError("an echelon read has no pairs")
+    for i, a in enumerate(eparts[0]):   # phase 24's chunk is the first
+        if not np.array_equal(eall[i], a):
+            raise AssertionError(f"echelon main path read {i} differs from "
+                                 "phase 24's kernel pairs")
+    ecells_all = sum(int(b.width.sum()) for o in eouts
+                     for b in o["prep"]["bands"])
+    edt = statistics.median(etimes)
+    est = Stages()
+    ech_main(stage=est)
+    log(f"echelon_alignments_per_sec: {ECH_READS / edt:.1f} alignments/s "
+        f"e2e ({ECH_READS} reads in chunks of {ECH_CHUNK}, group "
+        f"{ECH_GROUP}, compact_k {ECH_COMPACT_K}, shape hint {ehint}; run + "
+        f"compaction to the host, median of {[round(t, 4) for t in etimes]} "
+        f"s), {ecells_all / edt:.4g} band cells/s e2e, "
+        f"{sum(map(len, eall))} pairs after the expansion (threshold "
+        f"{ECH_THRESHOLD}), peak device memory {epeak / 1e9:.3f} GB, "
+        f"launches in the 3 runs {ech_counts}")
+    log("echelon main path stages (s, share): " + est.line())
+    del est, eouts, einp
+    torch.cuda.synchronize()
+
+    # -- 26. signal_pipeline_echelon_reads_per_sec --------------------------
+    eargs, etsvs = load_echelon_zymo()
+    eguide = eargs["npread_guide_pairs"][0][1].split()
+    with tempfile.TemporaryDirectory() as etmp:
+        epairs = []
+        for i in range(ECH_PIPE_READS):
+            label = f"read{i:03d}"
+            dst = os.path.join(etmp, label + ".npRead")
+            shutil.copy(eargs["npread_guide_pairs"][0][0], dst)
+            epairs.append((dst, " ".join([eguide[0], label] + eguide[2:])))
+        eout = os.path.join(etmp, "out")
+        # the warm-up run records the first chunk's template strand, held
+        # to the plain passes after the timed runs (hold_chunk, phase 23)
+        epa = recorded(EchelonAligner,
+                       AlignmentParams(threshold=ECH_PIPE_THRESHOLD))
+
+        def epipe(stage=None):
+            res = run_batch_fast(
+                eargs["reference_path"], epairs, eout,
+                template_model_file=eargs["template_model_file"],
+                complement_model_file=eargs["complement_model_file"],
+                log=lambda m: None, aligner=epa, sm_type="echelon",
+                threshold=ECH_PIPE_THRESHOLD, stage=stage)
+            torch.cuda.synchronize()
+            return res
+
+        epipe()
+        fk.reset_counts()
+        eptimes = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eres = epipe()
+            eptimes.append(time.perf_counter() - t0)
+        epipe_counts = dict(fk.KERNEL_LAUNCHES)
+        if (epipe_counts != {"wavefront_fwd_echelon": 6,
+                             "wavefront_bwd_echelon": 6}
+                or fk.forward_plain.calls or fk.backward_plain.calls):
+            raise AssertionError(f"echelon pipeline launches {epipe_counts}")
+        if len(eres) != ECH_PIPE_READS or not all(r[1] for r in eres):
+            raise AssertionError("echelon pipeline: "
+                                 f"{[r for r in eres if not r[1]]}")
+        etexts = []
+        for i in range(ECH_PIPE_READS):
+            with open(os.path.join(eout, f"read{i:03d}.tsv"), "rb") as fh:
+                etexts.append(fh.read().replace(f"\tread{i:03d}\t".encode(),
+                                                b"\tLABEL\t"))
+        if any(t != etexts[0] for t in etexts):
+            raise AssertionError("echelon pipeline: the copies' tsvs differ")
+        e_one, e_err = check_tsv(etexts[0].replace(
+            b"\tLABEL\t", f"\t{eargs['label']}\t".encode()),
+            etsvs["echelon"], ECH_PIPE_THRESHOLD, multi=True)
+        epst = Stages()
+        epipe(stage=epst)
+        erate = ECH_PIPE_READS / statistics.median(eptimes)
+        log(f"signal_pipeline_echelon_reads_per_sec: {erate:.1f} reads/s e2e "
+            f"({ECH_PIPE_READS} reads, both strands, group {PIPE_GROUP}, "
+            f"threshold {ECH_PIPE_THRESHOLD}; median of "
+            f"{[round(t, 4) for t in eptimes]} s after a warm-up), launches "
+            f"in the 3 runs {epipe_counts}; read 0 vs the JAX package's tsv: "
+            f"{e_one} rows in one file only, posteriors max|d| {e_err:.3g}, "
+            f"{len(etexts[0].splitlines())} rows; every copy's tsv equal")
+        log("echelon pipeline stages (s, share): " + epst.line())
+        del epst
+        hold_chunk("echelon", epa)
+    log(f"phases 24-26 in {time.perf_counter() - t24:.1f} s")
+    torch.cuda.synchronize()
+
     src = "cpecan_tpu_torch/csrc/wavefront.cu"
 
     def entry(name, replaces, launches, err, key, bkey):
@@ -2126,7 +2396,7 @@ def main():
                 # wavefront
                 "library_ms": None}
 
-    exact = 0.0   # phases 3, 10, 12, 13, 19, 21-23 hold these bit for bit
+    exact = 0.0   # phases 3, 10, 12, 13, 19, 21-24 hold these bit for bit
     log(json.dumps({"kernels": [
         entry("wavefront_fwd", "cpecan_tpu/ops/pallas_fb.py:635",
               launches["wavefront_fwd"], exact, "fwd", "fwd"),
@@ -2217,6 +2487,18 @@ def main():
               "cpecan_tpu/ops/pallas_fb.py:2332 (_Sm4Spec :257)",
               sm4_long_counts["wavefront_bwd_tiled_sm4"], exact,
               "sm4_bwd_tiled", "sm4_bwd_tiled"),
+        # phase 24 holds K1/K2 echelon to plain (ms, plain ms and bound on
+        # the first chunk of bench.py's echelon cell); launches from phase
+        # 25's main path
+        entry("wavefront_fwd_echelon",
+              "cpecan_tpu/ops/pallas_fb.py:635 (_EchelonSpec :528)",
+              ech_counts["wavefront_fwd_echelon"], ech_err["fwd plane"],
+              "echelon_fwd", "echelon_fwd"),
+        entry("wavefront_bwd_echelon",
+              "cpecan_tpu/ops/pallas_fb.py:857 (_EchelonSpec :528)",
+              ech_counts["wavefront_bwd_echelon"],
+              max(ech_err["posteriors"], ech_err["totals"]), "echelon_bwd",
+              "echelon_bwd"),
     ]}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -32,6 +32,9 @@ SHORT_GAP_X = 1
 SHORT_GAP_Y = 2
 LONG_GAP_X = 3
 LONG_GAP_Y = 4
+# The 7-state echelon machine's states (inc/stateMachine.h:38): match0 (an
+# extra event), match1..match5 (an event emitting 1..5 k-mers), gap-X.
+MATCH0, MATCH1, MATCH2, MATCH3, MATCH4, MATCH5, GAP_X = 0, 1, 2, 3, 4, 5, 6
 
 # Strands (inc/stateMachine.h:34-37).
 TEMPLATE = 0

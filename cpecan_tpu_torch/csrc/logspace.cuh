@@ -1,6 +1,7 @@
 // Log-space helpers of the wavefront kernels, the device twins of
-// cpecan_tpu_torch/ops/fb_kernels.py (log_add, log_add3, gauss, inv_gauss)
-// and of cpecan_tpu/ops/pallas_fb.py:44-70 and :137.
+// cpecan_tpu_torch/ops/fb_kernels.py (log_add, log_add3, exact_log_add,
+// gauss, inv_gauss) and of cpecan_tpu/ops/pallas_fb.py:44-70, :137 and
+// :520-525.
 //
 // Built with --fmad=false and without fast math, so every expression below
 // rounds like the PyTorch version on the same card: each line keeps the
@@ -36,6 +37,14 @@ __device__ __forceinline__ float log_add(float x, float y) {
 
 __device__ __forceinline__ float log_add3(float a, float b, float c) {
     return log_add(log_add(a, b), c);
+}
+
+// Exact log(exp(a) + exp(b)) (log1p of exp, not the cubic): the echelon
+// multi-k-mer fold (_exact_log_add, pallas_fb.py:520-525).
+__device__ __forceinline__ float exact_log_add(float a, float b) {
+    const float hi = fmaxf(a, b);
+    const float lo = fminf(a, b);
+    return hi + log1pf(expf(fmaxf(lo - hi, -80.0f)));
 }
 
 // log N(x; mu, sd); CPECAN_NEG where sd <= 0 (the reference's guard).

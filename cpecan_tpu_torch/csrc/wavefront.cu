@@ -2,21 +2,24 @@
 // pair-HMM machines, for Hopper (sm_90a): the strawman 3-state signal
 // machine (getStrawManStateMachine3), the vanilla 3-state signal machine
 // (getSignalStateMachine3Vanilla, signalAlign's default), the 4-state signal
-// machine (getStateMachine4, signalAlign's fourState) and the 5-state DNA
-// machine (getStateMachine5, cPecanRealign's).  Both kernels are
-// templates on a machine spec (Strawman, Vanilla, Sm4, Dna5: states, scalars,
-// emissions and the forward/backward updates); every instance keeps its
-// JAX spec's op order.  Plain C entry points, loaded with ctypes by
+// machine (getStateMachine4, signalAlign's fourState), the 7-state echelon
+// signal machine (getStateMachineEchelon, multi-k-mer events, multi-state
+// posteriors) and the 5-state DNA machine (getStateMachine5,
+// cPecanRealign's).  Both kernels are templates on a machine spec
+// (Strawman, Vanilla, Sm4, Echelon, Dna5: states, scalars, emissions and
+// the forward/backward updates); every instance keeps its JAX spec's op
+// order.  Plain C entry points, loaded with ctypes by
 // cpecan_tpu_torch/ops/cuda_build.py and wrapped by
 // cpecan_tpu_torch/ops/fb_kernels.py (wavefront_fwd, wavefront_bwd,
 // wavefront_bwd_exp, wavefront_fwd_tiled, wavefront_bwd_tiled; the dna5,
-// vanilla and sm4 instances' entry points end in _dna5, _vanilla and _sm4).
+// vanilla, sm4 and echelon instances' entry points end in _dna5, _vanilla,
+// _sm4 and _echelon; echelon has K1 and K2 only).
 //
 // Replaces (TPU, Pallas):
 //   sm3_fwd_kernel<Spec, false>
 //                          <- cpecan_tpu/ops/pallas_fb.py _sm3_forward_kernel
 //                             (:635, untiled; _StrawmanSpec, _Dna5Spec,
-//                             _VanillaSpec, _Sm4Spec)                   K1
+//                             _VanillaSpec, _Sm4Spec, _EchelonSpec)     K1
 //   sm3_bwd_kernel<Spec, false, false>
 //                          <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
 //                             -> _sm3_backward_body_w (:857, :900;
@@ -42,10 +45,12 @@
 //   scal   f32 [NS + 3S] = [NS transitions, start(S), end(S), ragged_end(S)]
 //   win    i32 [G, NDp]
 //   xf     f32 [G*R, NXF, X]    per-x model rows (emissions + gap-X row)
-//   yf     f32 [G*R, 2, Y]      y elements, flipped: y <-> column C - y
+//   yf     f32 [G*R, YR, Y]     y rows (2; echelon 8), flipped: y <-> column
+//                               C - y
 //   basef, widthf, seedf, raggedf  f32 [G*R, NDp]
 //   fwd    f32 [G, ND+1, S, R, W]
-//   posts  f32 [G, ND+1, R, W],  totals f32 [G*R]
+//   posts  f32 [G, ND+1, NPS, R, W] (NPS 1 but for echelon's 5 match
+//          states),  totals f32 [G*R]
 //   trans  f32 [G*R, S*S]  (lanes frm*S + to; EM only)
 //   acc    f32 [G, NACC, R, X]  per-column accumulators (EM only; strawman
 //          NACC 1, the gap-X mass; sm4 NACC 1, the shortGapX mass; dna5
@@ -62,6 +67,13 @@
 // rows of the x base against y base 0..4, gap-X row 5), yf = (y base index
 // as a float, gap-Y emission); the match emission is a sum of five selects
 // on the y base, as the JAX spec has it, so a value outside 0..4 gives 0.0.
+// Echelon: S 7 (match0, match1..match5, gap-X), NS 0, NXF 33 (rows 4i..4i+3
+// the Gaussian level x inverse-Gaussian noise model of the k-mer at offset
+// i = 0..4, 20-23 the gap-Y model of the first, 24-27 the skip logs la_mx,
+// la_mh, la_xx, la_xh, 28-32 the validity of n = 1..5 k-mers), YR 8 (the
+// duration posteriors dur_0..dur_5, the event mean, the noise); its match
+// emission is NEM = 5 per-n terms, which the backward carries and
+// realigns leaf by leaf, and its posteriors are those of match1..match5.
 //
 // Design: one block per read (grid G*R), one thread per lane (W threads).
 // Each diagonal depends on the previous one or two through lane shifts of
@@ -69,7 +81,8 @@
 // of three [S, W] slots; one __syncthreads() per diagonal) and a shifted
 // read is a shared-memory read at lane l + s, CPECAN_NEG outside [0, W).
 // The dna5 ring is 3 * 5 * W floats (60 KB at W = 1024, past the 48 KB
-// default: the launchers raise the dynamic limit).
+// default: the launchers raise the dynamic limit); the echelon backward's
+// ring and emission carry are 3 * 7 * W + 2 * 5 * W floats (124 KB).
 //
 // What bounds it on the H100: the sequential chain of ND diagonals, each a
 // few dozen dependent flops plus one block barrier (latency, not bandwidth:
@@ -163,9 +176,27 @@ struct Emissions {
     float match, gap_y;
 };
 
+// a match emission of N terms (echelon's per-n terms)
+template <int N>
+struct EmissionsN {
+    float match[N];
+    float gap_y;
+};
+
+// leaf k of a match emission: what the backward carries
+__device__ __forceinline__ float em_leaf(const Emissions& e, int) {
+    return e.match;
+}
+template <int N>
+__device__ __forceinline__ float em_leaf(const EmissionsN<N>& e, int k) {
+    return e.match[k];
+}
+
 // A machine spec: its S states, NS transition scalars, NXF x-feature rows,
-// the emissions of the cell (x, y) with y at column ycol of the flipped y
-// rows, and the forward and backward updates of one cell.  The update
+// YR y rows, the NEM leaves of its match emission, the NPS states whose
+// posteriors the backward writes (post_state(j)), the emissions of the cell
+// (x, y) with y at column ycol of the flipped y rows, and the forward and
+// backward updates of one cell.  The update
 // arguments arrive aligned to the current window, as in the JAX specs'
 // *_update_w: p1m/p2m the sources at x - 1, p1a at x; n1a at x, n1p/n2p at
 // x + 1.  Each update reads the x-feature rows it needs itself from the
@@ -179,7 +210,15 @@ __device__ __forceinline__ int next_col(int x, int X) {
 }
 
 // _StrawmanSpec (pallas_fb.py:162-207)
-struct Strawman {
+// the y rows, match emission leaves and posterior states of the machines
+// with one match state: (event mean or y base, noise or gap-Y), one leaf,
+// the match state's posteriors
+struct OneMatch {
+    static constexpr int YR = 2, NEM = 1, NPS = 1;
+    __host__ __device__ static constexpr int post_state(int) { return 0; }
+};
+
+struct Strawman : OneMatch {
     static constexpr int S = 3, NS = SM3_NS, NXF = 9, GAP_X = 8;
 
     // Gaussian x Gaussian over (event mean, noise)
@@ -212,10 +251,10 @@ struct Strawman {
     // _StrawmanSpec.bwd_update_w
     __device__ __forceinline__ static void bwd_update(
             const float* t, const float* xb, int X, int x, float eg1,
-            float em2p, const float* n1a, const float* n1p, const float* n2p,
-            float* out) {
+            const float* em2p, const float* n1a, const float* n1p,
+            const float* n2p, float* out) {
         const float e_gapx_p = xb[GAP_X * X + next_col(x, X)];
-        const float mid = em2p + n2p[0];
+        const float mid = em2p[0] + n2p[0];
         float bm = mid + t[T_MM];
         float bx = mid + t[T_XM];
         float by = mid + t[T_YM];
@@ -247,7 +286,7 @@ struct Strawman {
 
 // _Sm4Spec (pallas_fb.py:257-337): M, shortGapX, shortGapY, longGapX; the
 // strawman's emissions
-struct Sm4 {
+struct Sm4 : OneMatch {
     static constexpr int S = 4, NS = SM4_NS, NXF = 9, GAP_X = 8;
 
     __device__ __forceinline__ static Emissions emissions_at(
@@ -274,10 +313,10 @@ struct Sm4 {
     // _Sm4Spec.bwd_update_w, the JAX grouping kept exactly
     __device__ __forceinline__ static void bwd_update(
             const float* t, const float* xb, int X, int x, float eg1,
-            float em2p, const float* n1a, const float* n1p, const float* n2p,
-            float* out) {
+            const float* em2p, const float* n1a, const float* n1p,
+            const float* n2p, float* out) {
         const float e_gapx_p = xb[GAP_X * X + next_col(x, X)];
-        const float mid = em2p + n2p[0];
+        const float mid = em2p[0] + n2p[0];
         const float low_s = e_gapx_p + n1p[1];
         const float low_l = e_gapx_p + n1p[3];
         const float up = eg1 + n1a[2];
@@ -308,7 +347,7 @@ struct Sm4 {
 
 // _Dna5Spec (pallas_fb.py:340-392): M, shortGapX, shortGapY, longGapX,
 // longGapY
-struct Dna5 {
+struct Dna5 : OneMatch {
     static constexpr int S = 5, NS = DNA5_NS, NXF = 6, GAP_X = 5;
 
     // match: the x row of the y base (yf row 0, a float), summed over five
@@ -348,10 +387,10 @@ struct Dna5 {
     // associative in f32)
     __device__ __forceinline__ static void bwd_update(
             const float* t, const float* xb, int X, int x, float eg1,
-            float em2p, const float* n1a, const float* n1p, const float* n2p,
-            float* out) {
+            const float* em2p, const float* n1a, const float* n1p,
+            const float* n2p, float* out) {
         const float e_gapx_p = xb[GAP_X * X + next_col(x, X)];
-        const float mid = em2p + n2p[0];
+        const float mid = em2p[0] + n2p[0];
         const float low_s = e_gapx_p + n1p[1];
         const float low_l = e_gapx_p + n1p[3];
         const float up_s = eg1 + n1a[2];
@@ -389,7 +428,7 @@ enum { LA_MX = 8, LA_XX, LA_MM, LA_XM, LA_MY };
 // _VanillaSpec (pallas_fb.py:456-517): per-column transitions from the
 // k-mer skip bins (rows 8-12), a silent gap-X, Gaussian level x
 // inverse-Gaussian noise emissions
-struct Vanilla {
+struct Vanilla : OneMatch {
     static constexpr int S = 3, NS = VANILLA_NS, NXF = 13;
 
     __device__ __forceinline__ static Emissions emissions_at(
@@ -423,10 +462,10 @@ struct Vanilla {
     // column x + 1's, M -> Y column x's
     __device__ __forceinline__ static void bwd_update(
             const float* t, const float* xb, int X, int x, float eg1,
-            float em2p, const float* n1a, const float* n1p, const float* n2p,
-            float* out) {
+            const float* em2p, const float* n1a, const float* n1p,
+            const float* n2p, float* out) {
         const int xp = next_col(x, X);
-        const float mid = em2p + n2p[0];
+        const float mid = em2p[0] + n2p[0];
         const float up = eg1 + n1a[2];
         const float low = n1p[1];   // silent gap-X
         out[0] = log_add3(mid + xb[LA_MM * X + xp], low + xb[LA_MX * X + xp],
@@ -446,6 +485,107 @@ struct Vanilla {
             int x, float y, const float* f0m, const float* f1m,
             const float* f1a, const float* b, float total, bool m,
             float* acc, float* col, size_t row_stride);
+};
+
+// echelon x-feature rows (pallas_fb.py:536-541)
+enum { EC_GAP_Y = 20, EC_LA_MX = 24, EC_LA_MH, EC_LA_XX, EC_LA_XH,
+       EC_VALID = 27 };
+
+// _EchelonSpec (pallas_fb.py:528-620): match0 (an extra event), match1..5
+// (an event emitting 1..5 k-mers), gap-X (silent); per-column transitions
+// (rows 24-27), no transition scalars.  No K3 (the reference defines no
+// echelon EM) and no tiled instance.
+struct Echelon {
+    static constexpr int S = 7, NS = 0, NXF = 33, YR = 8, NEM = 5, NPS = 5;
+    // the posteriors of match1..match5
+    __host__ __device__ static constexpr int post_state(int j) {
+        return j + 1;
+    }
+    // no expectations: the register array of the template keeps length 1
+    static constexpr int NLANE = 0;
+
+    // per n = 1..5: the exact fold of the offsets 0..n-1's Gaussian level x
+    // inverse-Gaussian noise terms from 0.0 (the reference's quirk,
+    // impl/stateMachine.c:533), minus log n (f32) where n k-mers fit, plus
+    // dur_n; the gap-Y term of the first k-mer plus dur_0
+    __device__ __forceinline__ static EmissionsN<NEM> emissions_at(
+            const float* xb, const float* yb, int X, int Y, int x,
+            int ycol) {
+        constexpr float LOG_N[NEM] = {0.0f, 0.693147182f, 1.09861231f,
+                                      1.38629436f, 1.60943794f};
+        const float mean = yb[6 * Y + ycol];
+        const float noise = yb[7 * Y + ycol];
+        EmissionsN<NEM> e;
+        float acc = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NEM; ++i) {
+            const float term =
+                gauss(mean, xb[(4 * i) * X + x], xb[(4 * i + 1) * X + x])
+                + inv_gauss(noise, xb[(4 * i + 2) * X + x],
+                            xb[(4 * i + 3) * X + x]);
+            acc = exact_log_add(acc, term);
+            const float e_n = xb[(EC_VALID + i + 1) * X + x] > 0.5f
+                                  ? acc - LOG_N[i] : CPECAN_NEG;
+            e.match[i] = fmaxf(e_n + yb[(i + 1) * Y + ycol], CPECAN_NEG);
+        }
+        const float e_scaled =
+            gauss(mean, xb[EC_GAP_Y * X + x], xb[(EC_GAP_Y + 1) * X + x])
+            + inv_gauss(noise, xb[(EC_GAP_Y + 2) * X + x],
+                        xb[(EC_GAP_Y + 3) * X + x]);
+        e.gap_y = fmaxf(e_scaled + yb[ycol], CPECAN_NEG);
+        return e;
+    }
+
+    // _EchelonSpec.fwd_update_w: the sources of every match_n fold once
+    // (one transition for all n); the forward reads p2m[0..6], p1a[1..5]
+    // and p1m[1..6]
+    __device__ __forceinline__ static void fwd_update(
+            const float*, const float* p1m, const float* p1a,
+            const float* p2m, const EmissionsN<NEM>& e, const float* xb,
+            int X, int x, float* out) {
+        const float la_mx = xb[EC_LA_MX * X + x];
+        const float la_mh = xb[EC_LA_MH * X + x];
+        const float la_xx = xb[EC_LA_XX * X + x];
+        const float la_xh = xb[EC_LA_XH * X + x];
+        float src_m = p2m[0];
+#pragma unroll
+        for (int i = 1; i < 6; ++i) src_m = log_add(src_m, p2m[i]);
+        const float mid = log_add(src_m + la_mh, p2m[6] + la_xh);
+        float src_u = p1a[1];
+#pragma unroll
+        for (int i = 2; i < 6; ++i) src_u = log_add(src_u, p1a[i]);
+        out[0] = src_u + la_mh + e.gap_y;
+#pragma unroll
+        for (int i = 0; i < NEM; ++i) out[1 + i] = mid + e.match[i];
+        float src_l = p1m[1];
+#pragma unroll
+        for (int i = 2; i < 6; ++i) src_l = log_add(src_l, p1m[i]);
+        out[6] = log_add(src_l + la_mx, p1m[6] + la_xx);
+    }
+
+    // _EchelonSpec.bwd_update_w: em2p the per-n terms at (d+2, x+1), eg1
+    // the gap-Y term at (d+1, x); the transitions into x+1 are column
+    // x+1's, into match0 column x's.  Reads n1a[0], n1p[6], n2p[1..5]
+    __device__ __forceinline__ static void bwd_update(
+            const float*, const float* xb, int X, int x, float eg1,
+            const float* em2p, const float* n1a, const float* n1p,
+            const float* n2p, float* out) {
+        const int xp = next_col(x, X);
+        float mid = em2p[0] + n2p[1];
+#pragma unroll
+        for (int n = 2; n < 6; ++n) mid = log_add(mid, em2p[n - 1] + n2p[n]);
+        const float low = n1p[6];
+        const float up = eg1 + n1a[0];
+        const float la_mh_p = xb[EC_LA_MH * X + xp];
+        out[0] = mid + la_mh_p;
+        // match1..5 share one outgoing fan
+        const float bm = log_add3(mid + la_mh_p, low + xb[EC_LA_MX * X + xp],
+                                  up + xb[EC_LA_MH * X + x]);
+#pragma unroll
+        for (int i = 1; i < 6; ++i) out[i] = bm;
+        out[6] = log_add(mid + xb[EC_LA_XH * X + xp],
+                         low + xb[EC_LA_XX * X + xp]);
+    }
 };
 
 // Block-wide reductions; every thread gets the result.  W is a multiple of
@@ -538,7 +678,7 @@ __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
     for (int i = 0; i < NSCAL; ++i) t[i] = scal[i];
     const int* wg = win + static_cast<size_t>(g) * NDp;
     const float* xb = xf + static_cast<size_t>(b) * Spec::NXF * X;
-    const float* yb = yf + static_cast<size_t>(b) * 2 * Y;
+    const float* yb = yf + static_cast<size_t>(b) * Spec::YR * Y;
     const float* base = basef + static_cast<size_t>(b) * NDp;
     const float* width = widthf + static_cast<size_t>(b) * NDp;
     // fwd[g, d, i, r, l]
@@ -587,7 +727,7 @@ __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
             p1a[i] = shifted(p1 + i * W, l, s1, W);
             p2m[i] = shifted(p2 + i * W, l, s2 - 1, W);
         }
-        const Emissions e = Spec::emissions_at(xb, yb, X, Y, x, C - d + x);
+        const auto e = Spec::emissions_at(xb, yb, X, Y, x, C - d + x);
         float nv[S];
         Spec::fwd_update(t, p1m, p1a, p2m, e, xb, X, x, nv);
         const bool mask = in_band(x, base[d], width[d]);
@@ -793,16 +933,17 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
                                int TD) {
     static_assert(!(WITH_EXP && TILED), "the tiled path has no EM sums");
     constexpr int S = Spec::S;
+    constexpr int NEM = Spec::NEM;
     constexpr int NSCAL = Spec::NS + 3 * S;
     constexpr int END = Spec::NS + S, RAGGED_END = Spec::NS + 2 * S;
     // ring [3 slots][S][W]: bwd[d] in slot d % 3 (raw, at window w_d);
-    // em [2 slots][W]: match emission of diagonal d + 1 at x = w_d + l in
-    // slot d & 1; red [32]: reduction scratch; with the expectations,
-    // fsh [3 slots][S][W]: fwd[d] in slot d % 3
+    // em [2 slots][NEM][W]: the match emission's leaves of diagonal d + 1 at
+    // x = w_d + l in slot d & 1; red [32]: reduction scratch; with the
+    // expectations, fsh [3 slots][S][W]: fwd[d] in slot d % 3
     extern __shared__ float smem[];
     float* ring = smem;
     float* em = smem + 3 * S * W;
-    float* red = em + 2 * W;
+    float* red = em + 2 * NEM * W;
     float* fsh = red + 32;
     const int b = blockIdx.x;
     const int g = b / R;
@@ -813,7 +954,7 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
     for (int i = 0; i < NSCAL; ++i) t[i] = scal[i];
     const int* wg = win + static_cast<size_t>(g) * NDp;
     const float* xb = xf + static_cast<size_t>(b) * Spec::NXF * X;
-    const float* yb = yf + static_cast<size_t>(b) * 2 * Y;
+    const float* yb = yf + static_cast<size_t>(b) * Spec::YR * Y;
     const float* base = basef + static_cast<size_t>(b) * NDp;
     const float* width = widthf + static_cast<size_t>(b) * NDp;
     const float* seed = seedf + static_cast<size_t>(b) * NDp;
@@ -821,13 +962,16 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
     const size_t fplane_d = static_cast<size_t>(S) * R * W;
     const float* fin = fwd + static_cast<size_t>(g) * (ND + 1) * fplane_d
                        + static_cast<size_t>(r) * W + l;
-    const size_t pplane_d = static_cast<size_t>(R) * W;
+    // posts[g, d, j, r, l]
+    const size_t pstate = static_cast<size_t>(R) * W;
+    const size_t pplane_d = Spec::NPS * pstate;
     float* pout = posts + static_cast<size_t>(g) * (ND + 1) * pplane_d
                   + static_cast<size_t>(r) * W + l;
 
-    // diagonal 0 is never swept: zero it (the saturated-extraction
-    // fallback reads the whole plane)
-    pout[0] = 0.0f;
+    // diagonal 0 is never swept: zero it for every posterior state (the
+    // saturated-extraction fallback reads the whole plane)
+#pragma unroll
+    for (int j = 0; j < Spec::NPS; ++j) pout[j * pstate] = 0.0f;
     // bwd[ND + 1] = bwd[ND + 2] = NEG; em carry = emissions(ND + 2) at the
     // window of ND + 1
 #pragma unroll
@@ -837,8 +981,10 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
     }
     {
         const int x = wg[ND + 1] + l;
-        em[((ND + 1) & 1) * W + l] =
-            Spec::emissions_at(xb, yb, X, Y, x, C - (ND + 2) + x).match;
+        const auto e = Spec::emissions_at(xb, yb, X, Y, x, C - (ND + 2) + x);
+#pragma unroll
+        for (int k = 0; k < NEM; ++k)
+            em[(((ND + 1) & 1) * NEM + k) * W + l] = em_leaf(e, k);
     }
     float total = CPECAN_NEG;
     bool cut_prev = false;  // the seed cut of diagonal d + 1
@@ -897,11 +1043,15 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
             n1p[i] = cut1 ? CPECAN_NEG : shifted(n1 + i * W, l, o1 + 1, W);
             n2p[i] = cut2 ? CPECAN_NEG : shifted(n2 + i * W, l, o2 + 1, W);
         }
-        // emissions(d + 2) at x + 1, carried from the last step
-        const float em2p = shifted(em + ((d + 1) & 1) * W, l, o1 + 1, W);
+        // emissions(d + 2) at x + 1, carried from the last step (each leaf
+        // realigned alike)
+        float em2p[NEM];
+#pragma unroll
+        for (int k = 0; k < NEM; ++k)
+            em2p[k] = shifted(em + (((d + 1) & 1) * NEM + k) * W, l, o1 + 1,
+                              W);
         // emissions(d + 1) at x, fresh (next step's carry)
-        const Emissions e1 =
-            Spec::emissions_at(xb, yb, X, Y, x, C - (d + 1) + x);
+        const auto e1 = Spec::emissions_at(xb, yb, X, Y, x, C - (d + 1) + x);
         float bw[S];
         Spec::bwd_update(t, xb, X, x, e1.gap_y, em2p, n1a, n1p, n2p, bw);
         const bool mask = in_band(x, base[d], width[d]);
@@ -930,10 +1080,14 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
         }
         const float xl = static_cast<float>(x);
         const bool ok = mask && xl > 0.0f && xl < static_cast<float>(d);
-        float z = f[0] + bw[0] - total;
-        if constexpr (TILED) z = z + shf;
-        pout[static_cast<size_t>(d) * pplane_d] =
-            ok ? expf(fminf(z, 0.69f)) : 0.0f;
+#pragma unroll
+        for (int j = 0; j < Spec::NPS; ++j) {
+            const int si = Spec::post_state(j);
+            float z = f[si] + bw[si] - total;
+            if constexpr (TILED) z = z + shf;
+            pout[static_cast<size_t>(d) * pplane_d + j * pstate] =
+                ok ? expf(fminf(z, 0.69f)) : 0.0f;
+        }
         if constexpr (WITH_EXP) {
             // target tt = d + 3 from fwd[d + 1] and fwd[d + 2]; its
             // backward bwd[tt] is this lane's entry of the slot that
@@ -956,7 +1110,9 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
         }
 #pragma unroll
         for (int i = 0; i < S; ++i) cur[i * W + l] = bw[i];
-        em[(d & 1) * W + l] = e1.match;
+#pragma unroll
+        for (int k = 0; k < NEM; ++k)
+            em[((d & 1) * NEM + k) * W + l] = em_leaf(e1, k);
         cut_prev = sa;
         __syncthreads();
     }
@@ -1016,8 +1172,8 @@ int launch_bwd(const void* scal, const void* win, const void* xf,
     if (int e = launch_config_error(W)) return e;
     if (TILED && (TD <= 0 || ND % TD != 0)) return cudaErrorInvalidValue;
     // ring + em + red, and fsh with the expectations
-    const size_t smem =
-        sizeof(float) * ((3 * S + 2) * W + 32 + (WITH_EXP ? 3 * S * W : 0));
+    const size_t smem = sizeof(float) * ((3 * S + 2 * Spec::NEM) * W + 32
+                                         + (WITH_EXP ? 3 * S * W : 0));
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             sm3_bwd_kernel<Spec, WITH_EXP, TILED>,
@@ -1074,8 +1230,8 @@ const char* wavefront_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// One entry point per kernel instance; the dna5, vanilla and sm4 ones take
-// the strawman ones' arguments.
+// One entry point per kernel instance; the dna5, vanilla, sm4 and echelon
+// ones take the strawman ones' arguments.
 #define WAVEFRONT_FWD_ENTRY(NAME, SPEC)                                     \
     int NAME(const void* scal, const void* win, const void* xf,              \
              const void* yf, const void* basef, const void* widthf,          \
@@ -1154,5 +1310,8 @@ WAVEFRONT_FWD_TILED_ENTRY(wavefront_fwd_tiled_sm4, Sm4)
 WAVEFRONT_BWD_ENTRY(wavefront_bwd_sm4, Sm4)
 WAVEFRONT_BWD_TILED_ENTRY(wavefront_bwd_tiled_sm4, Sm4)
 WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_sm4, Sm4)
+
+WAVEFRONT_FWD_ENTRY(wavefront_fwd_echelon, Echelon)
+WAVEFRONT_BWD_ENTRY(wavefront_bwd_echelon, Echelon)
 
 }  // extern "C"

@@ -43,7 +43,10 @@ skip bins also give a trained vanilla machine.
 same read from ``tests/fixtures/batch_zymo.npz`` (built by
 ``tests/fixtures/make_batch_fixture.py``): the JAX package's
 ``run_batch_fast`` posterior tsv of the read for the threeState, vanilla
-and fourState machines, with the guide it was made from.
+and fourState machines, with the guide it was made from;
+``load_echelon_zymo`` the same for the echelon machine at threshold 0.15
+from ``tests/fixtures/echelon_zymo.npz`` (built by
+``tests/fixtures/make_echelon_fixture.py``).
 """
 
 import os
@@ -65,6 +68,7 @@ DNA5_REALIGN = os.path.join(_FIXTURES, "dna5_realign.npz")
 DNA5_EM = os.path.join(_FIXTURES, "dna5_em.npz")
 VANILLA_ZYMO = os.path.join(_FIXTURES, "vanilla_zymo.npz")
 BATCH_ZYMO = os.path.join(_FIXTURES, "batch_zymo.npz")
+ECHELON_ZYMO = os.path.join(_FIXTURES, "echelon_zymo.npz")
 
 # name -> repository-relative path of the vendored data files the port
 # reads (the JAX package's ``fixtures.fixture_path`` names)
@@ -203,14 +207,14 @@ def load_vanilla_zymo():
     return job, np.asarray(sp, np.float64), stored
 
 
-def load_batch_zymo():
+def load_batch_zymo(path=BATCH_ZYMO):
     """(run arguments, {sm_type: the JAX tsv's bytes}).  The arguments are
     a dict of ``reference_path``, ``npread_guide_pairs`` [(npRead path,
     guide cigar line)], ``template_model_file``, ``complement_model_file``,
     ``threshold`` and ``group`` for
     ``pipeline.signal_align_batch.run_batch_fast``; the read's tsv is
     ``<label>.tsv``, the label given as ``label``."""
-    with np.load(BATCH_ZYMO) as z:
+    with np.load(path) as z:
         stored = {k: z[k] for k in z.files}
     args = dict(
         reference_path=fixture_path("ZymoRef.txt"),
@@ -223,3 +227,9 @@ def load_batch_zymo():
     tsvs = {k[:-4]: stored[k].tobytes() for k in stored
             if k.endswith("_tsv")}
     return dict(args, label=str(stored["label"])), tsvs
+
+
+def load_echelon_zymo():
+    """``load_batch_zymo`` of ``echelon_zymo.npz``: the run arguments
+    (threshold 0.15) and {"echelon": the JAX tsv's bytes}."""
+    return load_batch_zymo(ECHELON_ZYMO)

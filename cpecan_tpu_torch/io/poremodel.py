@@ -1,5 +1,5 @@
-"""Pore-model file I/O and read-specific scaling (the part of
-``cpecan_tpu/io/poremodel.py`` that the port uses).
+"""Pore-model file I/O, read-specific scaling and k-mer skip bins (the part
+of ``cpecan_tpu/io/poremodel.py`` that the port uses).
 
 Parity with emissions_signal_loadPoreModel (impl/stateMachine.c:243-321):
 3-line text format
@@ -60,3 +60,31 @@ def scale_model(model: PoreModel, scale, shift, var, scale_sd, var_sd):
     m[:, NOISE_LAMBDA] = m[:, NOISE_LAMBDA] * var_sd
     m[:, NOISE_SD] = np.sqrt(m[:, NOISE_MEAN] ** 3 / m[:, NOISE_LAMBDA])
     return replace(model, match_model=m)
+
+
+def kmer_skip_bin_table(match_model, kmer_idx_prev, kmer_idx_next,
+                        scale=None, shift=None):
+    """emissions_signal_getKmerSkipBin (impl/stateMachine.c:389-420): bin of
+    |level_mean(k_i) - level_mean(k_{i-1})| in 0.5 pA steps, clamped to 29.
+
+    Indices > NUM_OF_KMERS-1 contribute a 0.0 model mean (the reference's
+    out-of-range guard, impl/stateMachine.c:222-225).
+
+    ``scale``/``shift`` apply emissions_signal_scaleModel's level_mean
+    transform per lookup (broadcast against the index arrays, e.g. [B, 1]
+    per-read columns against [B, X] indices): the bins the reference
+    computes from a per-read *scaled* model, without materializing one
+    scaled table per read.  The shift cancels between two valid kmers but
+    not against the out-of-range 0.0 guard, so it is applied before the
+    difference, exactly as the reference does.
+    """
+    def mean(idx):
+        idx = np.asarray(idx)
+        safe = np.clip(idx, 0, NUM_OF_KMERS - 1)
+        m = match_model[safe, LEVEL_MEAN]
+        if scale is not None:
+            m = m * scale + shift
+        return np.where(idx > NUM_OF_KMERS, 0.0, m)
+
+    d = np.abs(mean(kmer_idx_next) - mean(kmer_idx_prev))
+    return np.minimum((d / 0.5).astype(np.int64), 29)

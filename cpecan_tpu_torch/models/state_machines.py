@@ -2,7 +2,8 @@
 ``cpecan_tpu/models/state_machines.py``).
 
 So far the strawman and vanilla 3-state signal machines, the 4-state
-signal machine and the 5-state DNA machine, each an ``nn.Module`` whose
+signal machine, the 7-state echelon machine (and its echelonB variant) and
+the 5-state DNA machine, each an ``nn.Module`` whose
 buffers are the model tables the wavefront kernels gather from: moving
 the module to a device moves its tables once, which takes the place of
 the JAX aligner's per-machine table cache (``pallas_fb.py:1575``
@@ -14,9 +15,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..constants import LOG_ZERO, NUM_OF_KMERS
+from ..constants import GAP_X, LOG_ZERO, MATCH1, NUM_OF_KMERS
 from ..io.poremodel import (LEVEL_MEAN, LEVEL_SD, NOISE_LAMBDA, NOISE_MEAN,
                             PoreModel)
+from ..models import kmers
 from ..ops.features import upload
 from ..ops.fb_kernels import NEG
 
@@ -288,6 +290,138 @@ def vanilla_from_jax(sm):
                                                          np.float64))
     for name in ("t_m_to_y_not_x", "t_e_to_e", "default_end_match_prob",
                  "default_end_from_x_prob", "default_end_from_y_prob"):
+        setattr(out, name, float(getattr(sm, name)))
+    return out
+
+
+def _getkmer2_positions(l_x):
+    """sequence_getKmer2 pointer positions per column x
+    (impl/pairwiseAligner.c:336-341): index x-1 maps to element x-2 for
+    x >= 2, else element 0."""
+    x = np.arange(l_x + 1)
+    return np.where(x - 1 > 0, x - 2, 0)
+
+
+def _kmer_idx_at(ref_seq, positions):
+    all_idx = kmers.seq_to_kmer_indices(ref_seq, length=len(ref_seq))
+    return all_idx[np.clip(positions, 0, len(ref_seq) - 1)]
+
+
+class StateMachineEchelon(nn.Module):
+    """7-state multi-k-mer-per-event signal machine (stateMachineEchelon,
+    getStateMachineEchelon, impl/stateMachine.c:1411-1459, 1652-1692,
+    1823-1833): states match0..match5 and gap-X.  An event emits 1..5
+    k-mers (match1..match5) with a Poisson duration posterior, or none
+    (match0, an extra event); gap-X skips a k-mer silently.  The skip
+    transitions of a column come from the k-mer skip bin of its k-mer pair:
+    echelon couples alpha to beta (``_skip_logs``).
+
+    Buffers (f32): ``mm4`` and ``gm4`` [4096, 4], the pore model's match
+    and gap-Y (extra event) level mean, level sd, noise mean and noise
+    lambda columns (``EchelonPallasAligner._model_tables``,
+    pallas_fb.py:3285-3295).  ``skip_bin_probs`` [60] (numpy f64): the pore
+    model's 30 skip bins twice, as emissions_signal_loadPoreModel reads
+    them; getKmerSkipProb reads only [bin].  The reference has no echelon
+    EM: its expectation hook is NULL (impl/stateMachine.c:1831)."""
+
+    S = 7
+
+    def __init__(self, model: PoreModel, skip_bin_probs=None):
+        super().__init__()
+        self.model = model
+        if skip_bin_probs is None:
+            skip_bin_probs = np.concatenate([model.skip_bins,
+                                             model.skip_bins])
+        self.skip_bin_probs = np.asarray(skip_bin_probs, np.float64)
+        # the reference keeps these end probabilities in *probability*
+        # space, flagged "todo these aren't log and won't work"
+        # (impl/stateMachine.c:1667-1669); kept verbatim
+        self.default_end_match_prob = 0.79015888282447311
+        self.default_end_from_x_prob = 0.19652425498269727
+        cols = VANILLA_MODEL_COLUMNS
+        self.register_buffer("mm4", torch.from_numpy(np.asarray(
+            model.match_model[:, cols], np.float32).copy()))
+        self.register_buffer("gm4", torch.from_numpy(np.asarray(
+            model.gap_y_model[:, cols], np.float32).copy()))
+
+    def start_vec(self):
+        v = [LOG_ZERO] * 7
+        v[MATCH1] = 0.0
+        return v
+
+    def ragged_start_vec(self):
+        v = [LOG_ZERO] * 7
+        v[GAP_X] = 0.0
+        return v
+
+    def end_vec(self):
+        return ([self.default_end_match_prob] * 6
+                + [self.default_end_from_x_prob])
+
+    def ragged_end_vec(self):
+        return self.end_vec()
+
+    def _skip_logs(self, a_mx):
+        """Per-column skip transition logs (la_mx, la_mh, la_xx, la_xh) from
+        the skip probabilities ``a_mx`` (f64): echelon couples alpha to beta
+        (a_xx = a_mx, la_xh = la_mh; impl/stateMachine.c:1420-1426)."""
+        with np.errstate(divide="ignore"):
+            la_mx = np.log(a_mx)
+            la_mh = np.log(1.0 - a_mx)
+        return la_mx, la_mh, la_mx, la_mh
+
+    def scalars(self, ragged_left=False):
+        """Kernel scalars [1, 21] f32 on the buffers' device: [start(7),
+        end(7), ragged_end(7)] (no transition scalars: the transitions are
+        per column), -inf clamped to NEG in f64 before the cast
+        (``EchelonPallasAligner._scalars``, pallas_fb.py:3242-3247)."""
+        start = self.ragged_start_vec() if ragged_left else self.start_vec()
+        return _scalar_tensor(list(start) + list(self.end_vec())
+                              + list(self.ragged_end_vec()),
+                              self.mm4.device)
+
+
+class StateMachineEchelonB(StateMachineEchelon):
+    """EchelonB variant (stateMachineEchelonB_cellCalculate,
+    impl/stateMachine.c:1461-1510): echelon's topology and emissions, but
+    the skip transitions are four global scalars (match -> skip / hub,
+    skip continue / -> hub) instead of per-k-mer skip bins, decoupling
+    alpha from beta.  The reference defines no constructor; the default
+    takes the pore model's mean skip-bin probability for both, as the JAX
+    package does."""
+
+    def __init__(self, model: PoreModel, match_to_skip=None,
+                 skip_continue=None):
+        super().__init__(model)
+        if match_to_skip is None:
+            match_to_skip = float(np.mean(model.skip_bins))
+        if skip_continue is None:
+            skip_continue = match_to_skip
+        self.match_to_skip = float(match_to_skip)
+        self.skip_continue = float(skip_continue)
+
+    def _skip_logs(self, a_mx):
+        with np.errstate(divide="ignore"):
+            la_mx = np.full_like(a_mx, np.log(self.match_to_skip))
+            la_mh = np.full_like(a_mx, np.log1p(-self.match_to_skip))
+            la_xx = np.full_like(a_mx, np.log(self.skip_continue))
+            la_xh = np.full_like(a_mx, np.log1p(-self.skip_continue))
+        return la_mx, la_mh, la_xx, la_xh
+
+
+def echelon_from_jax(sm):
+    """The port's echelon machine (``StateMachineEchelonB`` for the JAX
+    package's echelonB) with the weights of the JAX package's: its pore
+    model, skip-bin probabilities, end probabilities and echelonB's
+    ``match_to_skip``/``skip_continue``, read as numpy and floats."""
+    model = _pore_model_from_jax(sm.model)
+    if hasattr(sm, "match_to_skip"):
+        out = StateMachineEchelonB(model, match_to_skip=sm.match_to_skip,
+                                   skip_continue=sm.skip_continue)
+    else:
+        out = StateMachineEchelon(model)
+    out.skip_bin_probs = np.asarray(sm.skip_bin_probs, np.float64)
+    for name in ("default_end_match_prob", "default_end_from_x_prob"):
         setattr(out, name, float(getattr(sm, name)))
     return out
 

@@ -1,15 +1,20 @@
 """Posterior compaction on the device and pair extraction on the host
 (counterparts of ``cpecan_tpu/ops/pallas_fb.py`` ``compact_posteriors``
 :3416, ``extract_pairs_from_pallas`` :3394, ``_compact_row`` :3482,
-``_flat_ix`` :3495, ``extract_pairs_compact`` :3508, ``extract_pairs_auto``
-:3585, ``extract_pairs_chunk`` :3625, ``extract_pairs_long`` :3747, and the
-per-chunk compaction of ``_run_tiled`` :2597-2614).
+``_flat_ix`` :3495, ``extract_pairs_compact`` :3508,
+``extract_echelon_pairs`` :3538, ``extract_pairs_auto`` :3585,
+``extract_pairs_chunk`` :3625, ``extract_echelon_pairs_chunk`` :3685,
+``extract_pairs_long`` :3747, and the per-chunk compaction of
+``_run_tiled`` :2597-2614).
 
 The wire format is the JAX package's: per read the top-k cells of the
 windowed posterior plane as u16 fixed-point values (p * 65535, clipped to
-[0, 1]) and the flat plane index (d - 1) * W + l split into ``drow`` (u16
-while the row count fits, else int32) and ``lane`` (u8 for W <= 256, else
-u16).  The compaction leaves for the host in flight (``HostCopy``): a run
+[0, 1]) and the flat plane index (d - 1) * W' + l split into ``drow`` =
+flat // W' (u16 while the row count fits, else int32) and ``lane`` =
+flat % W' (u8 for W' <= 256, else u16).  W' is the window W, or NP * W
+for a multi-state plane [G, ND+1, NP, R, W] (echelon), whose state and
+lane flatten into one row of NP * W: flat = (d - 1) * NP * W + state * W
++ lane.  The compaction leaves for the host in flight (``HostCopy``): a run
 returns without waiting for its kernels, so that host work overlaps the
 next ones, and the extractors wait for the copy (``fetch``).
 """
@@ -90,13 +95,20 @@ def _top_k(p, k, W, n_rows, finish=None):
 
 def compact_posteriors(posts, k=4096):
     """Per read, the top-k posterior cells over all diagonals of the
-    windowed plane ``posts`` [G, ND+1, R, W] -> (values u16, drow, lane),
-    each [G, R, k], on their way to the host (a ``HostCopy``: ``_top_k``).
+    windowed plane ``posts`` [G, ND+1, R, W], or a multi-state plane
+    [G, ND+1, NP, R, W] -> (values u16, drow, lane), each [G, R, k], on
+    their way to the host (a ``HostCopy``: ``_top_k``).
 
-    One exact ``torch.topk`` over the [G, R, ND*W] plane (diagonal 0 is
-    never emitted)."""
-    G, ND1, R, W = posts.shape
-    p = posts[:, 1:].permute(0, 2, 1, 3).reshape(G, R, (ND1 - 1) * W)
+    One exact ``torch.topk`` over the [G, R, ND*W'] plane, W' = W or
+    NP * W (diagonal 0 is never emitted)."""
+    if posts.ndim == 5:
+        G, ND1, NP, R, W0 = posts.shape
+        p = posts[:, 1:].permute(0, 3, 1, 2, 4).reshape(
+            G, R, (ND1 - 1) * NP * W0)
+        W = NP * W0
+    else:
+        G, ND1, R, W = posts.shape
+        p = posts[:, 1:].permute(0, 2, 1, 3).reshape(G, R, (ND1 - 1) * W)
     return _top_k(p, k, W, ND1 - 1)
 
 
@@ -182,21 +194,78 @@ def extract_pairs_compact(vals, idx, read_idx, n_diag, prep, threshold,
                     (d - x - 1).tolist()))
 
 
-def _no_echelon(out):
-    # checked before the tiled route: the JAX package decodes a tiled
-    # multi-state output with W lanes per row (ROADMAP Queue 3)
+def _single_state(out):
+    """Refuse a multi-state posterior output (echelon), whose rows these
+    extractors would decode with W lanes instead of NP * W."""
     if out["posteriors"].ndim == 5:
-        raise NotImplementedError(
-            "multi-state (echelon) posterior outputs are not ported yet "
-            "(ROADMAP Queue 1 item 3c)")
+        raise ValueError("multi-state posterior output: use "
+                         "extract_echelon_pairs or "
+                         "extract_echelon_pairs_chunk")
+
+
+def _expand(score, x, y, j):
+    """The echelon expansion (diagonalCalculationMultiPosteriorMatchProbs,
+    impl/pairwiseAligner.c:845-856) of cells (x, y) in state j (match_{j+1},
+    j = 0..4) scoring ``score``: each emits the j + 1 pairs (x + n - 1,
+    y - 1), n = 0..j ascending, cell after cell -> [N, 3] int64."""
+    reps = j + 1
+    base = np.repeat(np.arange(len(x)), reps)
+    ends = np.cumsum(reps)
+    n = (np.arange(int(ends[-1]) if len(ends) else 0)
+         - np.repeat(ends - reps, reps))
+    return np.stack([score[base], x[base] + n - 1, y[base] - 1],
+                    axis=1).astype(np.int64).reshape(-1, 3)
+
+
+def _scores(p):
+    return np.floor(np.minimum(np.asarray(p, np.float64), 1.0)
+                    * PAIR_ALIGNMENT_PROB_1).astype(np.int64)
+
+
+def extract_echelon_pairs(out, read_idx, n_diag, threshold):
+    """One read's pairs of a multi-state (echelon) run, with the echelon
+    expansion: a cell (x, y) in state match_s (s = 1..5) above the
+    threshold emits the s pairs (x + n - 1, y - 1), n < s (``_expand``).
+    Reads the compacted top-k (flat = (d - 1) * NP * W + state * W + lane),
+    or, when the read's top-k saturated (every kept cell clears the
+    threshold), the read's full plane [ND+1, NP, W].  Returns a list of
+    (score, x, y) in the JAX package's order: the top-k order, or the full
+    plane's (d, state, lane) order."""
+    fetch(out)
+    vals, *idx = out["compact"]
+    prep = out["prep"]
+    R, W = prep["R"], prep["W"]
+    NP = out["posteriors"].shape[2]
+    win = np.asarray(prep["win"])
+    g, r = divmod(read_idx, R)
+    v = _compact_row(vals, g, r)
+    if v.size and v[-1] >= threshold:
+        sub = host_array(out["posteriors"][g, : n_diag + 1, :, r])
+        d, j, l = np.nonzero(sub >= threshold)
+        p = sub[d, j, l]
+    else:
+        ix = _flat_ix(tuple(a[g, r] for a in idx), NP * W)
+        keep = v >= threshold
+        ix, p = ix[keep], v[keep]
+        d = ix // (NP * W) + 1
+        j = ix % (NP * W) // W
+        l = ix % W
+        ok = d <= n_diag
+        d, j, l, p = d[ok], j[ok], l[ok], p[ok]
+    x = win[g, d].astype(np.int64) + l
+    y = d - x
+    ok = (x >= 1) & (y >= 1)
+    ap = _expand(_scores(p[ok]), x[ok], y[ok], j[ok].astype(np.int64))
+    return list(map(tuple, ap.tolist()))
 
 
 def extract_pairs_auto(out, read_idx, n_diag, threshold, as_array=False):
     """Pair extraction that detects top-k saturation: when every one of a
     read's k compacted cells clears the threshold, pairs may have been
     dropped, so read that read's full windowed plane instead.  A tiled
-    run's output goes to ``extract_pairs_long``."""
-    _no_echelon(out)
+    run's output goes to ``extract_pairs_long``; a multi-state output
+    raises ``ValueError``."""
+    _single_state(out)
     fetch(out)
     if "tiled" in out:
         return extract_pairs_long(out, read_idx, n_diag, threshold,
@@ -235,8 +304,8 @@ def extract_pairs_chunk(out, rels, n_diags, threshold):
     as_array=True)`` followed by a stable argsort.  Reads whose top-k
     saturated fall back to the per-read full-plane path.  A tiled run's
     output is extracted per read (``extract_pairs_long``, rows already in
-    that order)."""
-    _no_echelon(out)
+    that order).  A multi-state output raises ``ValueError``."""
+    _single_state(out)
     fetch(out)
     if "tiled" in out:
         return [extract_pairs_long(out, int(rel), int(nd_i), threshold,
@@ -275,6 +344,52 @@ def extract_pairs_chunk(out, rels, n_diags, threshold):
     for i in np.nonzero(sat)[0]:
         full = extract_pairs_auto(out, int(rels[i]), int(nd[i]), threshold,
                                   as_array=True).reshape(-1, 3)
+        parts[i] = full[np.argsort(full[:, 1] + full[:, 2], kind="stable")]
+    return parts
+
+
+def extract_echelon_pairs_chunk(out, rels, n_diags, threshold):
+    """``extract_pairs_chunk`` for a multi-state (echelon) run, with the
+    echelon expansion (state j emits j + 1 pairs, ``_expand``), vectorized
+    over the chunk: a list of [N, 3] int64 (score, x, y) arrays, one per
+    entry of ``rels``, each sorted by x + y with stable ties, exactly
+    ``extract_echelon_pairs`` followed by a stable argsort on x + y.
+    Reads whose top-k saturated fall back to the per-read path."""
+    fetch(out)
+    vals, *idx = out["compact"]
+    prep = out["prep"]
+    R, W = prep["R"], prep["W"]
+    NP = out["posteriors"].shape[2]
+    win = np.asarray(prep["win"])
+    rels = np.asarray(rels, np.int64)
+    nd = np.asarray(n_diags, np.int64)
+    v = np.asarray(vals)
+    k = v.shape[-1]
+    v = v.reshape(-1, k)[rels]
+    if v.dtype == np.uint16:
+        v = v.astype(np.float32) / np.float32(65535.0)
+    ix = _flat_ix(tuple(np.asarray(a).reshape(-1, k) for a in idx),
+                  NP * W, sel=rels)
+    sat = (v[:, -1] >= threshold) if k else np.zeros(len(rels), bool)
+    d = ix // (NP * W) + 1
+    keep = (v >= threshold) & (d <= nd[:, None]) & ~sat[:, None]
+    rsel, csel = np.nonzero(keep)
+    dk = d[rsel, csel]
+    jk = ix[rsel, csel] % (NP * W) // W
+    x = win[rels[rsel] // R, dk].astype(np.int64) + ix[rsel, csel] % W
+    y = dk - x
+    ok = (x >= 1) & (y >= 1)
+    rsel, jk, x, y = rsel[ok], jk[ok], x[ok], y[ok]
+    ap = _expand(_scores(v[rsel, csel[ok]]), x, y, jk)
+    rr = np.repeat(rsel, jk + 1)
+    order = np.argsort((rr << np.int64(32)) | (ap[:, 1] + ap[:, 2]),
+                       kind="stable")
+    ap = ap[order]
+    parts = np.split(ap, np.searchsorted(rr[order], np.arange(1, len(rels))))
+    for i in np.nonzero(sat)[0]:
+        full = np.asarray(extract_echelon_pairs(out, int(rels[i]),
+                                                int(nd[i]), threshold),
+                          np.int64).reshape(-1, 3)
         parts[i] = full[np.argsort(full[:, 1] + full[:, 2], kind="stable")]
     return parts
 

@@ -39,12 +39,14 @@ _SIGNATURES = {
     "wavefront_bwd_tiled": [_P] * 12 + [_I] * 9 + [_P],
 }
 # the dna5, vanilla and sm4 instances take their strawman counterparts'
-# arguments
+# arguments; echelon has K1 and K2 only
 _SIGNATURES.update({f"{name}{suffix}": _SIGNATURES[name]
                     for suffix in ("_dna5", "_vanilla", "_sm4") for name in (
                         "wavefront_fwd", "wavefront_bwd",
                         "wavefront_bwd_exp", "wavefront_fwd_tiled",
                         "wavefront_bwd_tiled")})
+_SIGNATURES.update({f"{name}_echelon": _SIGNATURES[name]
+                    for name in ("wavefront_fwd", "wavefront_bwd")})
 
 
 class _Library:

@@ -6,7 +6,9 @@ kernels (counterpart of ``cpecan_tpu/ops/pallas_fb.py``
 ``StrawmanAligner`` (the strawman 3-state signal machine),
 ``VanillaAligner`` (the vanilla 3-state signal machine,
 ``VanillaPallasAligner`` :2619), ``Sm4Aligner`` (the 4-state signal
-machine, ``Sm4PallasAligner`` :3063) and ``Dna5Aligner`` (the 5-state DNA
+machine, ``Sm4PallasAligner`` :3063), ``EchelonAligner`` (the 7-state
+echelon signal machine with multi-state posteriors,
+``EchelonPallasAligner`` :3233) and ``Dna5Aligner`` (the 5-state DNA
 machine, ``Dna5PallasAligner`` :3084) supply the spec, the host feature
 inputs and the device features.
 
@@ -30,7 +32,8 @@ or more, or any run given ``tile_diag``) take the tiled path
 kernels re-center each read's carries at every TD-diagonal tile boundary
 and repay the shifts in the posteriors, and the posteriors compact per
 chunk of TD diagonals (``compact.compact_chunks``; extraction:
-``compact.extract_pairs_long``).
+``compact.extract_pairs_long``).  A machine with multi-state posteriors
+(echelon) has no tiled path: such a run raises before any launch.
 """
 
 import os
@@ -43,14 +46,17 @@ from ..constants import NUM_OF_KMERS
 from .band import make_bands
 from .compact import compact_chunks, compact_posteriors, host_array
 from .device_bands import device_bands
-from .fb_kernels import (Dna5Spec, Sm4Spec, StrawmanSpec, VanillaSpec,
-                         _no_expectations, wavefront_bwd, wavefront_bwd_exp,
+from .fb_kernels import (Dna5Spec, EchelonSpec, Sm4Spec, StrawmanSpec,
+                         VanillaSpec, _no_expectations, post_planes,
+                         post_states, wavefront_bwd, wavefront_bwd_exp,
                          wavefront_bwd_tiled, wavefront_fwd,
                          wavefront_fwd_tiled)
-from .features import (assemble_dna5_features, assemble_features,
-                       assemble_vanilla_features, dna5_feature_inputs,
-                       dna5_y_values, feature_inputs, host_bins,
-                       kx_from_codes, upload, upload_u16)
+from .features import (assemble_dna5_features, assemble_echelon_features,
+                       assemble_features, assemble_vanilla_features,
+                       dna5_feature_inputs, dna5_y_values,
+                       echelon_feature_inputs, echelon_skip_logs,
+                       feature_inputs, host_bins, kx_from_codes, upload,
+                       upload_u16)
 
 # f32 posterior precision is bounded by the total log magnitude, which
 # grows with the diagonal count: past ~16k diagonals the untiled passes
@@ -248,10 +254,11 @@ class WavefrontAligner:
 
     def _check_planes(self, prep, n_rows):
         """Refuse a batch whose fwd [G, n_rows, S, R, W] and posterior
-        [G, n_rows, R, W] planes would not fit the device's
+        [G, n_rows, (NPS,) R, W] planes would not fit the device's
         PLANE_MEMORY_SHARE, naming the remedies."""
         G, R, W = prep["Bp"] // prep["R"], prep["R"], prep["W"]
-        plane_bytes = 4 * G * n_rows * R * W * (self.spec.S + 1)
+        planes = self.spec.S + len(post_states(self.spec))
+        plane_bytes = 4 * G * n_rows * R * W * planes
         limit = PLANE_MEMORY_SHARE * device_memory_bytes(self.device)
         if plane_bytes > limit:
             raise ValueError(
@@ -288,8 +295,10 @@ class WavefrontAligner:
 
         Returns {"compact": (values u16, drow, lane) [G, R, k] on their way
         to the host (compact.compact_posteriors), "posteriors":
-        [G, ND+1, R, W] and "totals": [G, R] tensors on the device, "prep":
-        prepare's dict}.
+        [G, ND+1, R, W] ([G, ND+1, NPS, R, W] for a machine with
+        multi-state posteriors, echelon: extract with
+        ``compact.extract_echelon_pairs``/``_chunk``) and "totals": [G, R]
+        tensors on the device, "prep": prepare's dict}.
 
         A batch of 2^14 estimated diagonals or more (or 2^15 reference
         columns), or any run given ``tile_diag``, takes the tiled path
@@ -333,6 +342,17 @@ class WavefrontAligner:
             est_x = max(est_x, _round_up(shape_hint[0] + 2, 128))
             est_nd = max(est_nd, shape_hint[1])
         long = est_x >= TILED_MIN_COLUMNS or est_nd >= TILED_MIN_DIAGONALS
+        if post_planes(self.spec) and (long or tile_diag is not None):
+            # the JAX package routes such a run tiled and decodes its
+            # multi-state planes with W lanes per row, which gives wrong
+            # pairs with no error (ROADMAP Queue 3); the port refuses
+            raise NotImplementedError(
+                f"~{est_nd} diagonals / {est_x} columns"
+                + (f", tile_diag={tile_diag}" if tile_diag is not None
+                   else "")
+                + f": the {self.spec.NAME} machine's multi-state posteriors "
+                "have no tiled path, and f32 posteriors degrade past ~16k "
+                f"diagonals untiled: {SPLIT_REMEDY}")
         if expectations and (long or tile_diag is not None):
             # the JAX package runs long expectation runs untiled with a
             # warning; the port refuses (ROADMAP Queue 3)
@@ -483,6 +503,36 @@ class VanillaAligner(StrawmanAligner):
 
     def exp_finalize(self, prep, flat):
         return vanilla_exp_finalize(prep, flat)
+
+
+class EchelonAligner(StrawmanAligner):
+    """The 7-state echelon signal machine (getStateMachineEchelon;
+    ``models.state_machines.StateMachineEchelon`` and
+    ``StateMachineEchelonB``) on the wavefront kernels, with multi-state
+    posterior windows [G, ND+1, 5, R, W] (match1..match5), extracted with
+    ``compact.extract_echelon_pairs``/``_chunk`` (``EchelonPallasAligner``,
+    pallas_fb.py:3233-3390).  The skip logs of every column are computed
+    on the host through the machine's own ``_skip_logs`` (echelon: per
+    k-mer skip bin, alpha = beta; echelonB: four global scalars).
+
+    No expectations (the reference defines no echelon EM) and no tiled
+    path: a run of 2^14 estimated diagonals or more, 2^15 columns or more,
+    or given ``tile_diag`` raises before any launch."""
+
+    spec = EchelonSpec
+
+    def feature_inputs(self, reads, X):
+        return echelon_feature_inputs(reads, X)
+
+    def device_features(self, sm, prep):
+        dev = self.device
+        sp = prep.get("sp")
+        la4 = echelon_skip_logs(sm, prep["kxp"], prep["kx5"][:, 0], sp)
+        return assemble_echelon_features(
+            upload(prep["kx5"], dev), upload(la4, dev),
+            upload(prep["validm"], dev), upload(prep["ev"], dev), sm.mm4,
+            sm.gm4, prep["C"], prep["C"] + prep["X"] + 256,
+            sp=None if sp is None else upload(sp, dev))
 
 
 class Dna5Aligner(WavefrontAligner):

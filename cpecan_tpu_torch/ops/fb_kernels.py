@@ -1,7 +1,7 @@
 """Band-local forward/backward wavefront of the pair-HMM machines: the
 log-space helpers, the machine specs (the strawman 3-state signal machine,
-the vanilla 3-state signal machine, the 4-state signal machine and the
-5-state DNA machine), the
+the vanilla 3-state signal machine, the 4-state signal machine, the 7-state
+echelon signal machine and the 5-state DNA machine), the
 wavefront passes (forward, posterior backward, expectation backward) as
 plain PyTorch, and the wrappers that launch their CUDA kernels.
 
@@ -15,6 +15,8 @@ Counterparts in the JAX package (``cpecan_tpu/ops/pallas_fb.py``):
 ``Sm4Spec``                ``_Sm4Spec`` (:257-337)
 ``Dna5Spec``               ``_Dna5Spec`` (:340-449)
 ``VanillaSpec``            ``_VanillaSpec`` (:456-517)
+``exact_log_add``,         ``_exact_log_add`` (:520-525),
+``EchelonSpec``            ``_EchelonSpec`` (:528-620)
 ``wavefront_fwd``          ``_sm3_forward_kernel`` (:635), untiled
 ``wavefront_bwd``          ``_sm3_backward_kernel`` -> ``_sm3_backward_body_w``
                            (:857, :900), ``with_exp=False``, untiled
@@ -31,10 +33,13 @@ Layout (the JAX planes, index for index): G groups of R reads; diagonal d
 of group g is a window of W lanes starting at x = ``win[g, d]``, lane l
 holding cell (x = win[g, d] + l, y = d - x).  ``xf`` [G*R, NXF, X] holds
 the per-x model rows, ``yf`` [G*R, 2, C+X+256] the y elements flipped so
-that column C - y holds element y, ``basef``/``widthf``/``seedf``/
-``raggedf`` [G*R, NDp] the band metadata.  Every pass and wrapper takes the
-machine ``spec`` (``StrawmanSpec`` unless given); its S states shape the
-forward plane [G, ND+1, S, R, W].  A spec's updates read the x-feature rows
+that column C - y holds element y (a spec's ``Y_ROWS`` rows, 2 unless it
+says otherwise), ``basef``/``widthf``/``seedf``/``raggedf`` [G*R, NDp] the
+band metadata.  Every pass and wrapper takes the machine ``spec``
+(``StrawmanSpec`` unless given); its S states shape the forward plane
+[G, ND+1, S, R, W], and the posterior plane is [G, ND+1, R, W] (the match
+state's), or [G, ND+1, NPS, R, W] for a spec with ``POST_STATES`` (echelon:
+match1..match5).  A spec's updates read the x-feature rows
 they need themselves, from window row views indexed like the full tensor
 (``xf[..., i, :]`` -> [G, R, W]): the backward hands it the rows at x and
 at x + 1 (clamped to the last column), the expectation sums the rows at
@@ -48,13 +53,15 @@ diagonals in one launch each: a tile of the TPU kernels is only a
 boundary here, where the carried diagonals re-center.  Every CUDA kernel's
 launches are counted in ``KERNEL_LAUNCHES`` under its entry point's name
 (``wavefront_fwd``, ``wavefront_fwd_dna5``, ``wavefront_fwd_vanilla``,
-``wavefront_fwd_sm4``, ...); a wrapper's ``.launches`` reads its strawman
-entry there.  Each plain version counts its calls in ``.calls``.
+``wavefront_fwd_sm4``, ``wavefront_fwd_echelon``, ...); a wrapper's
+``.launches`` reads its strawman entry there.  Each plain version counts
+its calls in ``.calls``.
 """
 
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 NEG = -1e30  # finite stand-in for LOG_ZERO inside the passes (no NaNs)
@@ -481,12 +488,158 @@ class VanillaSpec:
         return {}, (p_beta, p_alpha)
 
 
+def exact_log_add(a, b):
+    """Exact log(exp(a) + exp(b)) (log1p of exp, not the piecewise cubic):
+    the echelon multi-k-mer fold uses the true logAdd in the reference
+    too (``_exact_log_add``, pallas_fb.py:520-525)."""
+    hi = torch.maximum(a, b)
+    lo = torch.minimum(a, b)
+    return hi + torch.log1p(torch.exp(torch.clamp(lo - hi, min=-80.0)))
+
+
+# log(n) of the multi-k-mer split, n = 1..5: float(np.log(n)) rounded to f32
+# as the JAX trace rounds the Python constant
+_LOG_N = [float(np.float32(np.log(n))) for n in range(1, 6)]
+# echelon x-feature rows: per-offset match models 4i..4i+3 (i = 0..4), the
+# gap-Y model of the first k-mer 20..23, the skip logs 24..27, the validity
+# of n = 1..5 k-mers 28..32
+EC_GAP_Y = 20
+EC_LA_MX, EC_LA_MH, EC_LA_XX, EC_LA_XH = range(24, 28)
+EC_VALID = 27   # + n
+
+
+class EchelonSpec:
+    """7-state echelon signal machine (stateMachineEchelon_cellCalculate,
+    impl/stateMachine.c:1411-1459): states match0, match1..match5, gap-X.
+    An event emits 1..5 k-mers with a Poisson duration posterior (match_n,
+    from any state at (x - 1, y - 1)) or none (match0, an extra event from
+    match1..5 at (x, y - 1)); gap-X skips a k-mer silently.  The transitions
+    are per column (the skip logs of its k-mer skip bin, rows 24-27); there
+    are no transition scalars (NS 0).
+
+    ``xf`` rows: 4i..4i+3 the (level mean, level sd, noise mean, noise
+    lambda) of the k-mer at offset i, i = 0..4; 20..23 the gap-Y model of
+    the first k-mer; 24..27 la_mx, la_mh, la_xx, la_xh; 28..32 the validity
+    of n = 1..5 k-mers.  ``yf`` rows (Y_ROWS 8): 0..5 the duration
+    posteriors dur_0..dur_5, 6 the event mean, 7 the noise.  The match
+    emission is the 5-tuple of per-n terms, which the backward carries
+    and realigns leaf by leaf; the posteriors are those of
+    match1..match5 (POST_STATES), expanded to n pairs each on the host
+    (diagonalCalculationMultiPosteriorMatchProbs,
+    impl/pairwiseAligner.c:824-866).  No K3: the reference defines no
+    echelon EM (its cellCalculateUpdateExpectations is NULL,
+    impl/stateMachine.c:1823-1833), and no tiled path."""
+
+    NAME = "echelon"
+    SUFFIX = "_echelon"
+    S = 7
+    NS = 0
+    NXF = 33
+    Y_ROWS = 8
+    POST_STATES = (1, 2, 3, 4, 5)
+
+    @staticmethod
+    def emissions(xf, *ys):
+        """((w_1..w_5), scaled): w_n = max(e_n + dur_n, NEG), e_n the n-k-mer
+        match term (the exact fold over offsets 0..n-1, from 0.0, minus
+        log n; NEG where n k-mers do not fit), scaled = the gap-Y term of
+        the first k-mer + dur_0."""
+        dur = ys[:6]
+        mean, noise = ys[6], ys[7]
+        # multipleKmerMatchProb folds from 0.0, not log-zero: a reference
+        # quirk kept bit for bit (impl/stateMachine.c:533)
+        acc = torch.zeros_like(mean)
+        w_n = []
+        for n in range(1, 6):
+            i = n - 1
+            term = (gauss(mean, xf[..., 4 * i, :], xf[..., 4 * i + 1, :])
+                    + inv_gauss(noise, xf[..., 4 * i + 2, :],
+                                xf[..., 4 * i + 3, :]))
+            acc = exact_log_add(acc, term)
+            e_n = torch.where(xf[..., EC_VALID + n, :] > 0.5,
+                              acc - _LOG_N[i], NEG)
+            w_n.append(torch.clamp(e_n + dur[n], min=NEG))
+        e_scaled = (gauss(mean, xf[..., EC_GAP_Y, :], xf[..., EC_GAP_Y + 1, :])
+                    + inv_gauss(noise, xf[..., EC_GAP_Y + 2, :],
+                                xf[..., EC_GAP_Y + 3, :]))
+        return tuple(w_n), torch.clamp(e_scaled + dur[0], min=NEG)
+
+    @staticmethod
+    def fwd_update_w(t, xf, e_match, e_gapy, p1m, p1, p2m):
+        la_mx = xf[..., EC_LA_MX, :]
+        la_mh = xf[..., EC_LA_MH, :]
+        la_xx = xf[..., EC_LA_XX, :]
+        la_xh = xf[..., EC_LA_XH, :]
+        # middle: every state at (d-2, x-1) -> match_n; the transition is
+        # the same for every n, so the sources fold once
+        src_m = p2m[0]
+        for i in range(1, 6):
+            src_m = log_add(src_m, p2m[i])
+        mid = log_add(src_m + la_mh, p2m[6] + la_xh)
+        new_mn = [mid + w for w in e_match]
+        # upper: match_1..5 at (d-1, x) -> match0 (an extra event)
+        src_u = p1[1]
+        for i in range(2, 6):
+            src_u = log_add(src_u, p1[i])
+        new_m0 = src_u + la_mh + e_gapy
+        # lower: match_1..5 / gap-X at (d-1, x-1) -> gap-X (silent)
+        src_l = p1m[1]
+        for i in range(2, 6):
+            src_l = log_add(src_l, p1m[i])
+        new_x = log_add(src_l + la_mx, p1m[6] + la_xx)
+        return [new_m0] + new_mn + [new_x]
+
+    @staticmethod
+    def bwd_update_w(t, xf, xfp, eg1, em2p, n1, n1p, n2p):
+        # em2p: the per-n terms at (d+2, x+1); eg1: scaled + dur_0 at
+        # (d+1, x); the transitions into x+1 are column x+1's, into match0
+        # (at x) column x's
+        mid = em2p[0] + n2p[1]
+        for n in range(2, 6):
+            mid = log_add(mid, em2p[n - 1] + n2p[n])
+        low = n1p[6]
+        up = eg1 + n1[0]
+        la_mh_p = xfp[..., EC_LA_MH, :]
+        bw_m0 = mid + la_mh_p
+        # match_1..5 share one outgoing fan (they differ in their forward
+        # emissions only)
+        bw_m = log_add3(mid + la_mh_p, low + xfp[..., EC_LA_MX, :],
+                        up + xf[..., EC_LA_MH, :])
+        bw_x = log_add(mid + xfp[..., EC_LA_XH, :],
+                       low + xfp[..., EC_LA_XX, :])
+        return [bw_m0] + [bw_m] * 5 + [bw_x]
+
+
 def _no_expectations(spec):
-    """Refuse an expectation pass for a spec whose K3 is not ported."""
+    """Refuse an expectation pass for a spec without one."""
+    if spec is EchelonSpec:
+        raise NotImplementedError(
+            "the echelon machine has no EM expectations: the reference "
+            "defines none (its cellCalculateUpdateExpectations is NULL, "
+            "impl/stateMachine.c:1823-1833)")
     if not hasattr(spec, "exp_probs_w"):
         raise NotImplementedError(
             f"{spec.NAME} EM expectations are not ported yet (ROADMAP Queue "
             f"1 item 3 and Queue 2: the {spec.NAME} spec rows)")
+
+
+def post_states(spec):
+    """The states whose posteriors a spec's backward writes: (0,), the
+    match state, unless it names its own (``POST_STATES``)."""
+    return getattr(spec, "POST_STATES", (0,))
+
+
+def post_planes(spec):
+    """The state axis of a spec's posterior output: () for the match plane
+    alone ([G, ND+1, R, W]), (NPS,) for one plane per state of
+    ``POST_STATES`` ([G, ND+1, NPS, R, W]).  Empty (false) for every
+    one-match spec."""
+    return (len(spec.POST_STATES),) if hasattr(spec, "POST_STATES") else ()
+
+
+def _tmap(fn, v):
+    """fn on each leaf of a spec's emission (a tensor or a tuple of them)."""
+    return tuple(fn(x) for x in v) if isinstance(v, tuple) else fn(v)
 
 
 # ---------------------------------------------------------------------------
@@ -537,10 +690,12 @@ class _Frame:
 
     def emissions(self, d, w, C):
         """(x-feature rows, match, gap-Y emission) of diagonal d at
-        x = w[g] + l."""
+        x = w[g] + l; the spec reads its Y_ROWS y rows."""
         xfw = self.cols(self.xf, w)
         ys = self.cols(self.yf, C - d + w)
-        return (xfw,) + self.spec.emissions(xfw, ys[:, :, 0], ys[:, :, 1])
+        n = getattr(self.spec, "Y_ROWS", 2)
+        return (xfw,) + self.spec.emissions(xfw, *(ys[:, :, i]
+                                                   for i in range(n)))
 
 
 class _Rows:
@@ -719,7 +874,10 @@ def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
     G, dev = fr.G, xf.device
     seed = seedf.reshape(G, R, -1)
     ragged = raggedf.reshape(G, R, -1)
-    posts = torch.empty((G, ND + 1, R, W), dtype=torch.float32, device=dev)
+    pstates = post_states(spec)
+    multi = post_planes(spec)
+    posts = torch.empty((G, ND + 1) + multi + (R, W), dtype=torch.float32,
+                        device=dev)
     posts[:, 0] = 0.0
     neg = torch.full((G, R, W), NEG, device=dev)
     n1 = [neg] * S          # bwd[d+1], raw at window w_{d+1}
@@ -756,7 +914,7 @@ def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
         n1a = [fr.align(v, o1) for v in n1]
         n1p = [fr.align(v, o1 + 1) for v in n1]
         n2p = [fr.align(v, o2 + 1) for v in n2]
-        em2p = fr.align(em_c, o1 + 1)
+        em2p = _tmap(lambda v: fr.align(v, o1 + 1), em_c)
         xfw, em1, eg1 = fr.emissions(d + 1, w, C)
         # the rows at x+1 are clamped at the x range's end: that lane lies
         # outside every band
@@ -786,11 +944,18 @@ def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
             f1 = f
         xl = fr.xcoord(w)
         ok = mask & (xl > 0) & (xl < d)
-        z = f[0] + bw[0] - total
-        if TD:
-            z = z + shf
-        posts[:, d] = torch.where(ok, torch.exp(torch.clamp(z, max=0.69)),
-                                  0.0)
+
+        def post_of(si):
+            z = f[si] + bw[si] - total
+            if TD:
+                z = z + shf
+            return torch.where(ok, torch.exp(torch.clamp(z, max=0.69)), 0.0)
+
+        if multi:
+            for j, si in enumerate(pstates):
+                posts[:, d, j] = post_of(si)
+        else:
+            posts[:, d] = post_of(0)
         n2, n1, em_c, eg_c = n1, bw, em1, eg1
     if not with_exp:
         return posts, total[..., 0]
@@ -813,10 +978,12 @@ def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
 
 def backward_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
                    R, W, ND, C, spec=StrawmanSpec):
-    """Plain PyTorch posterior backward: (posts [G, ND+1, R, W],
-    totals [G, R]).  Match posterior exp(min(f + b - total, 0.69)) on
-    in-band cells with 0 < x < d, 0 elsewhere and on diagonal 0; the total
-    is the masked log-sum-exp of f + b at each read's seed diagonal."""
+    """Plain PyTorch posterior backward: (posts [G, ND+1, R, W], or
+    [G, ND+1, NPS, R, W] for a spec with POST_STATES, totals [G, R]).
+    Posterior exp(min(f + b - total, 0.69)) of the match state (or of each
+    of the POST_STATES) on in-band cells with 0 < x < d, 0 elsewhere and on
+    diagonal 0; the total is the masked log-sum-exp of f + b at each read's
+    seed diagonal."""
     backward_plain.calls += 1
     return _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
                      R, W, ND, C, with_exp=False, spec=spec)
@@ -993,9 +1160,10 @@ def wavefront_fwd(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
 @_Wrapper
 def wavefront_bwd(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
                   R, W, ND, C, spec=StrawmanSpec):
-    """Posterior backward -> (posts [G, ND+1, R, W], totals [G, R]) f32.
-    Plain PyTorch for CPU tensors; the CUDA kernel ``sm3_bwd_kernel<spec>``
-    for CUDA tensors (replaces cpecan_tpu/ops/pallas_fb.py:857/:900
+    """Posterior backward -> (posts [G, ND+1, R, W] or, for a spec with
+    POST_STATES, [G, ND+1, NPS, R, W], totals [G, R]) f32.  Plain PyTorch
+    for CPU tensors; the CUDA kernel ``sm3_bwd_kernel<spec>`` for CUDA
+    tensors (replaces cpecan_tpu/ops/pallas_fb.py:857/:900
     _sm3_backward_kernel, with_exp=False)."""
     if xf.device.type == "cpu":
         return backward_plain(scal, win, xf, yf, basef, widthf, seedf,
@@ -1030,7 +1198,13 @@ def wavefront_bwd_exp(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
 
 
 
-def _tiles(ND, TD):
+def _tiles(ND, TD, spec):
+    if post_planes(spec):
+        # the JAX package has no multi-state tiled path either: its tiled
+        # extraction decodes W lanes per row (ROADMAP Queue 3)
+        raise NotImplementedError(
+            f"the {spec.NAME} machine has no tiled kernels (multi-state "
+            "posteriors)")
     if TD <= 0 or ND % TD:
         raise ValueError(f"ND={ND} is not a whole number of TD={TD} tiles")
     return ND // TD
@@ -1044,7 +1218,7 @@ def wavefront_fwd_tiled(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
     ``forward_tiled_plain``).  Plain PyTorch for CPU tensors; the CUDA
     kernel ``sm3_fwd_kernel<spec, true>`` for CUDA tensors (replaces
     cpecan_tpu/ops/pallas_fb.py:2304 _sm3_forward_kernel(tile=...), K6a)."""
-    _tiles(ND, TD)
+    _tiles(ND, TD, spec)
     if xf.device.type == "cpu":
         return forward_tiled_plain(scal, win, xf, yf, basef, widthf, R=R,
                                    W=W, ND=ND, C=C, TD=TD, spec=spec)
@@ -1064,7 +1238,7 @@ def wavefront_bwd_tiled(scal, win, xf, yf, basef, widthf, seedf, raggedf,
     ``sm3_bwd_kernel<spec, false, true>`` for CUDA tensors (replaces
     cpecan_tpu/ops/pallas_fb.py:2332 _sm3_backward_kernel(tile=...),
     K6b)."""
-    NT = _tiles(ND, TD)
+    NT = _tiles(ND, TD, spec)
     if xf.device.type == "cpu":
         return backward_tiled_plain(scal, win, xf, yf, basef, widthf, seedf,
                                     raggedf, fwd, shifts, R=R, W=W, ND=ND,
@@ -1103,7 +1277,7 @@ def _launch_bwd(name, scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=xf.device)
 
-    outs = [empty(G, ND + 1, R, W), empty(G, R)]
+    outs = [empty(G, ND + 1, *post_planes(spec), R, W), empty(G, R)]
     if with_exp:
         outs += [empty(G, R, spec.S * spec.S),
                  empty(G, spec.EXP_NACC, R, X)]

@@ -25,6 +25,16 @@ rows of each x base against y base 0..4, then the gap-X row) and lays the
 y side out flipped in ``yf`` [B, 2, C+X+256] (base index as a float, gap-Y
 emission).
 
+Echelon: ``echelon_feature_inputs`` (``EchelonPallasAligner.
+_feature_inputs`` :3249-3283) on the host: per-offset k-mer indices, the
+skip-bin k-mer pair, the multi-k-mer validity bits and the raw f32 events
+(echelon does not quantize them); ``echelon_skip_logs`` (the host half of
+``_device_features`` :3365-3390), the per-column skip logs in f64 from the
+k-mer skip bins of each read's (scaled) level means; and
+``assemble_echelon_features`` (``_assemble_fn`` :3301-3363), which gathers
+``xf`` [B, 33, X] and lays out ``yf`` [B, 8, C+X+256]: the Poisson duration
+posteriors dur_0..dur_5, the event mean and the noise.
+
 Every host array goes to the card through ``upload``: a copy from pinned
 memory that does not wait for the kernels already queued, so that a
 pipeline can prepare its next chunk while the card runs this one.
@@ -291,4 +301,133 @@ def assemble_dna5_features(bx, ev, match5, gapx5, C, Y):
     n = min(E, C + 1)  # y in [0, C] maps to column C - y >= 0
     yf = torch.zeros((B, 2, Y), dtype=torch.float32, device=xf.device)
     yf[:, :, C - n + 1:C + 1] = ev[:, :n, :].flip(1).transpose(1, 2)
+    return xf.contiguous(), yf
+
+
+def echelon_feature_inputs(reads, X):
+    """Host inputs of the echelon features for reads (ref, events [n, 3],
+    l_x, l_y, anchors): ``kxp`` [B, X] int16, the previous k-mer of each
+    column's skip-bin pair (getKmer2 position); ``kx5`` [B, 5, X] int16,
+    the k-mers at that position + 1 + i, i = 0..4 (32767 past the read);
+    ``validm`` [B, X] u8, bit n - 1 set where n k-mers fit (the reference's
+    last base ``chars[p + 6n]`` upper case); ``ev`` [B, max n + 1, 3] f32
+    (mean, noise, duration) from row 1 on."""
+    from ..models.state_machines import _getkmer2_positions
+
+    B = len(reads)
+    kxp = np.full((B, X), np.int16(32767), dtype=np.int16)
+    kx5 = np.full((B, 5, X), np.int16(32767), dtype=np.int16)
+    validm = np.zeros((B, X), np.uint8)
+    max_ev = max(r[1].shape[0] for r in reads)
+    ev = np.zeros((B, max_ev + 1, 3), np.float32)
+    for r, (ref, events, l_x, _l_y, _a) in enumerate(reads):
+        refp = ref + "n" * 30  # sequence_padSequence
+        pos = _getkmer2_positions(l_x)
+        n_pos = len(pos)
+        # one k-mer pass per read, sliced six ways
+        all_idx = K.seq_to_kmer_indices(refp, length=len(refp))
+        hi = len(refp) - 1
+        kxp[r, :n_pos] = all_idx[np.clip(pos, 0, hi)]
+        for i in range(5):
+            kx5[r, i, :n_pos] = all_idx[np.clip(pos + 1 + i, 0, hi)]
+        chars = np.frombuffer(refp.encode(), dtype=np.uint8)
+        bits = np.zeros(n_pos, np.uint8)
+        for n in range(1, 6):
+            idx = np.clip(pos + 6 * n, 0, len(chars) - 1)
+            ok = ((pos + 6 * n < len(chars)) & (chars[idx] >= 65)
+                  & (chars[idx] <= 90))
+            bits |= ok.astype(np.uint8) << (n - 1)
+        validm[r, :n_pos] = bits
+        ev[r, 1:1 + len(events), :] = events[:, :3]
+    return dict(kxp=kxp, kx5=kx5, validm=validm, ev=ev)
+
+
+def echelon_skip_logs(sm, kxp, k0, sp=None):
+    """Per-column skip transition logs la4 [B, 4, X] f32 (la_mx, la_mh,
+    la_xx, la_xh; -inf clamped to NEG) of an echelon machine ``sm``: the
+    skip bin of each column's k-mer pair (``kxp`` and ``k0`` = kx5[:, 0])
+    from the level means of ``sm.model``, scaled per read in f64 with
+    ``sp`` [B, 5] (the bins of the reference's per-read scaled model), the
+    machine's ``skip_bin_probs`` at that bin and its ``_skip_logs``.  On the
+    host in f64 as the JAX package computes them: a bin that flips changes
+    the column's transitions."""
+    from ..io.poremodel import kmer_skip_bin_table
+
+    bins = kmer_skip_bin_table(
+        sm.model.match_model, kxp.astype(np.int64), k0.astype(np.int64),
+        scale=None if sp is None else sp[:, 0:1].astype(np.float64),
+        shift=None if sp is None else sp[:, 1:2].astype(np.float64))
+    la4 = np.stack(sm._skip_logs(sm.skip_bin_probs[bins]), axis=1)
+    return np.maximum(np.nan_to_num(la4, neginf=NEG), NEG).astype(np.float32)
+
+
+# emissions_signal_getDurationProb (impl/stateMachine.c:552): the Poisson
+# duration posterior of n = 0..5 k-mers, dur_n = (n + 1) l_beta + n log lam
+# - log n! - 2 lam, lam = duration / c
+_DUR_C = 0.00332005312085
+_DUR_L_BETA = 0.1397619423751586
+_DUR_L_F = (0.0, 0.0, 0.69314718056, 1.79175946923, 3.17805383035,
+            4.78749174278)
+# XLA rewrites the JAX assembly's arithmetic before it runs, and the port
+# rounds as it does: the division by c becomes a product with the f32
+# reciprocal (2 lam: with twice it), (n + 1) l_beta - log n! one f32
+# constant, and n log lam + that constant and the subtraction of 2 lam
+# fused multiply-adds
+_DUR_RECIP = float(np.float32(1.0) / np.float32(_DUR_C))
+_DUR_RECIP2 = float(np.float32(2.0) * np.float32(_DUR_RECIP))
+_DUR_CONST = [float(np.float32(np.float32((n + 1) * _DUR_L_BETA)
+                               - np.float32(_DUR_L_F[n]))) for n in range(6)]
+
+
+def echelon_durations(dur):
+    """The duration rows dur_0..dur_5 [B, 6, E] f32 of event durations
+    ``dur`` [B, E] f32 (NEG-like where a duration is 0 and n > 0), rounded
+    as XLA computes the JAX assembly's (``_DUR_*``)."""
+    lam = dur * _DUR_RECIP
+    pos = lam > 0.0
+    log_lam = torch.log(torch.where(pos, lam, 1.0)).to(torch.float64)
+    two_lam = dur.to(torch.float64) * _DUR_RECIP2
+    rows = []
+    for n in range(6):
+        t = torch.where(pos, (log_lam * n + _DUR_CONST[n]).to(torch.float32),
+                        _DUR_CONST[0] if n == 0 else NEG)
+        rows.append((t.to(torch.float64) - two_lam).to(torch.float32))
+    return torch.stack(rows, dim=1)
+
+
+def assemble_echelon_features(kx5, la4, validm, ev, mm4, gm4, C, Y,
+                              sp=None):
+    """(xf [B, 33, X], yf [B, 8, Y]) f32 on the inputs' device from the
+    host inputs (``echelon_feature_inputs``, ``echelon_skip_logs``) and
+    the machine's ``mm4``/``gm4`` [4096, 4] tables.  With ``sp`` [B, 5] =
+    (scale, shift, var, scale_sd, var_sd) the five per-offset match-model
+    gathers are scaled per read (emissions_signal_scaleModel: level mean *
+    scale + shift, level sd * var, noise mean * scale_sd, lambda * var_sd);
+    the gap-Y model and the durations are read-independent."""
+    rows = []
+    kx5 = kx5.to(torch.int64)
+    for i in range(5):
+        ki = kx5[:, i]
+        valid = ki <= NUM_OF_KMERS
+        safe = ki.clamp(0, NUM_OF_KMERS - 1)
+        if sp is None:
+            rows += [torch.where(valid, mm4[safe, c], 0.0) for c in range(4)]
+        else:
+            lvl_mu = _fma(mm4[safe, 0], sp[:, 0:1], sp[:, 1:2])
+            rows += [torch.where(valid, r, 0.0) for r in (
+                lvl_mu, mm4[safe, 1] * sp[:, 2:3], mm4[safe, 2] * sp[:, 3:4],
+                mm4[safe, 3] * sp[:, 4:5])]
+    k0 = kx5[:, 0]
+    v0 = k0 <= NUM_OF_KMERS
+    s0 = k0.clamp(0, NUM_OF_KMERS - 1)
+    rows += [torch.where(v0, gm4[s0, c], 0.0) for c in range(4)]
+    rows += [la4[:, i] for i in range(4)]
+    vm = validm.to(torch.int32)
+    rows += [((vm >> (n - 1)) & 1).to(torch.float32) for n in range(1, 6)]
+    xf = torch.stack(rows, dim=1).to(torch.float32)
+    B, E, _ = ev.shape
+    n = min(E, C + 1)  # y in [0, C] maps to column C - y >= 0
+    yf = torch.zeros((B, 8, Y), dtype=torch.float32, device=xf.device)
+    yf[:, :6, C - n + 1:C + 1] = echelon_durations(ev[:, :n, 2]).flip(2)
+    yf[:, 6:8, C - n + 1:C + 1] = ev[:, :n, :2].flip(1).transpose(1, 2)
     return xf.contiguous(), yf

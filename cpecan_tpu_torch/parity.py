@@ -12,7 +12,11 @@ the last bits, and the forward's rounding walks along the diagonals:
 - extracted pairs: equal sets, except pairs whose posterior lies within
   FRINGE of the threshold in either run (the fringe the JAX package's
   compiled-TPU differential campaign accepted); common pairs' scores
-  within the posterior tolerance plus two u16 wire steps.
+  within the posterior tolerance plus two u16 wire steps.  The echelon
+  machine's expanded pairs (``check_echelon_pairs``) take the same bars:
+  a pair there comes from one cell of one of five match states, and one
+  (x, y) can come from several, so its rows pair up by score and a
+  pair's fringe is that of its source cells.
 
 EM expectations (``run(expectations=True)``) carry the posterior error of
 their terms, so they get the bar that ``tests/test_pallas.py::
@@ -99,7 +103,11 @@ step alone does not hold between two f32 runs: a read's log total is
 difference in the forward (XLA's and PyTorch's exp and log, or the card's
 and the CPU's) moves every posterior near 1 of the strand by 2.4e-4 or
 more (Zymo, the port's plain passes against the JAX package's, threeState:
-up to 7.33e-4 on the template strand, 2.45e-4 on the complement).
+up to 7.33e-4 on the template strand, 2.45e-4 on the complement).  An
+echelon tsv can hold several rows of one key (cells of different match
+states expand to the same pair): ``check_tsv(multi=True)`` pairs a key's
+rows up in posterior order, and a row past the other file's count for its
+key is a row in one file only.
 
 Each check raises AssertionError with the size of the miss.
 """
@@ -333,6 +341,62 @@ def check_pairs(got, want, got_out, want_out, read_idx, threshold):
     return len(set(gs) ^ set(ws))
 
 
+def _echelon_posterior(out, read_idx, x, y, j):
+    """Posterior of match state j + 1 at cell (x, y) (1-based) in a run's
+    multi-state plane [G, ND+1, NP, R, W] (0 outside the read's window)."""
+    prep = out["prep"]
+    g, r = divmod(read_idx, prep["R"])
+    d = x + y
+    if not 0 < d < out["posteriors"].shape[1]:
+        return 0.0
+    lane = x - int(prep["win"][g, d])
+    if not 0 <= lane < prep["W"]:
+        return 0.0
+    return float(out["posteriors"][g, d, j, r, lane])
+
+
+def check_echelon_pairs(got, want, got_out, want_out, read_idx, threshold):
+    """One read's expanded echelon pairs (score, x, y) from two runs: each
+    (x, y) may come from several cells (state j + 1 at (x - n + 1, y + 1)
+    emits it for n <= j).  The pairs of a key pair up in order of their
+    scores, highest first, within SCORE_ATOL; a pair one run has past the
+    other's count for its key must have a source cell whose posterior lies
+    within FRINGE of the threshold in either run.  Returns the number of
+    such fringe pairs."""
+    gs, ws = {}, {}
+    for rows, dst in ((got, gs), (want, ws)):
+        for s, x, y in rows:
+            dst.setdefault((int(x), int(y)), []).append(int(s))
+    n_one = 0
+    for key in set(gs) | set(ws):
+        g = sorted(gs.get(key, []), reverse=True)
+        w = sorted(ws.get(key, []), reverse=True)
+        n = min(len(g), len(w))
+        for a, b in zip(g[:n], w[:n]):
+            if abs(a - b) > SCORE_ATOL:
+                raise AssertionError(f"read {read_idx} pair {key} scores "
+                                     f"{a} vs {b}")
+        if len(g) == len(w):
+            continue
+        n_one += abs(len(g) - len(w))
+        px, py = key
+        near = False
+        for j in range(5):
+            for n in range(j + 1):
+                # the cell (x, y) of state j + 1 emitting (x + n - 1, y - 1)
+                x, y = px - n + 1, py + 1
+                p = [_echelon_posterior(o, read_idx, x, y, j)
+                     for o in (got_out, want_out)]
+                if ((p[0] >= threshold) != (p[1] >= threshold)
+                        and min(abs(v - threshold) for v in p) <= FRINGE):
+                    near = True
+        if not near:
+            raise AssertionError(f"read {read_idx} pair {key}: {len(g)} vs "
+                                 f"{len(w)} rows, no source cell near the "
+                                 "threshold")
+    return n_one
+
+
 def check_pair_sets(got, want):
     """Two pair sets {(x, y)} of one read: at least ZYMO_SHARED of
     ``want`` in ``got`` and at most ZYMO_SYMDIFF pairs in one set only;
@@ -399,9 +463,11 @@ def check_tiled_pairs(got, want, threshold):
     return len(set(gs) ^ set(ws))
 
 
-def _tsv_rows(text):
-    """{(strand, reference position, event index): the row's 15 fields}
-    of a posterior tsv's text (str or bytes)."""
+def _tsv_rows(text, multi=False):
+    """{(strand, reference position, event index): the row's 15 fields} of
+    a posterior tsv's text (str or bytes); with ``multi`` {key: [rows,
+    highest posterior first]}, for the echelon expansion, where several
+    cells can emit the same pair."""
     if isinstance(text, bytes):
         text = text.decode()
     rows = {}
@@ -410,31 +476,46 @@ def _tsv_rows(text):
         if len(f) != 15:
             raise AssertionError(f"tsv row with {len(f)} fields: {line!r}")
         key = (f[4], int(f[1]), int(f[5]))
+        if multi:
+            rows.setdefault(key, []).append(f)
+            continue
         if key in rows:
             raise AssertionError(f"tsv row {key} twice")
         rows[key] = f
+    if multi:
+        for v in rows.values():
+            v.sort(key=lambda f: -float(f[TSV_POSTERIOR_COLUMN]))
     return rows
 
 
-def check_tsv(got, want, threshold=0.01):
+def check_tsv(got, want, threshold=0.01, multi=False):
     """Two posterior tsvs (text or bytes) of the same read; returns (rows
-    in one file only, the largest posterior |d| on shared rows)."""
-    gr, wr = _tsv_rows(got), _tsv_rows(want)
+    in one file only, the largest posterior |d| on shared rows).  With
+    ``multi`` (echelon) a key may hold several rows: the rows of a key pair
+    up in order of their posteriors, highest first, and the rows one file
+    has past the other's count are its rows in one file only."""
+    gr, wr = _tsv_rows(got, multi), _tsv_rows(want, multi)
     if not wr:
         raise AssertionError("the reference tsv has no rows")
+    if not multi:
+        gr = {k: [v] for k, v in gr.items()}
+        wr = {k: [v] for k, v in wr.items()}
     col = TSV_POSTERIOR_COLUMN
-    one = set(gr) ^ set(wr)
-    for key in one:
-        p = float((gr.get(key) or wr[key])[col])
+    one = []
+    err = 0.0
+    for key in set(gr) | set(wr):
+        g, w = gr.get(key, []), wr.get(key, [])
+        n = min(len(g), len(w))
+        one += [(key, f) for f in g[n:] + w[n:]]
+        for gf, wf in zip(g[:n], w[:n]):
+            if gf[:col] != wf[:col] or gf[col + 1:] != wf[col + 1:]:
+                raise AssertionError(f"tsv row {key} differs: {gf} vs {wf}")
+            err = max(err, abs(float(gf[col]) - float(wf[col])))
+    for key, f in one:
+        p = float(f[col])
         if abs(p - threshold) > FRINGE:
             raise AssertionError(f"tsv row {key} (posterior {p}) in one "
                                  "file only, away from the threshold")
-    err = 0.0
-    for key in set(gr) & set(wr):
-        g, w = gr[key], wr[key]
-        if g[:col] != w[:col] or g[col + 1:] != w[col + 1:]:
-            raise AssertionError(f"tsv row {key} differs: {g} vs {w}")
-        err = max(err, abs(float(g[col]) - float(w[col])))
     if not err <= TSV_POST_ATOL:
         raise AssertionError(f"tsv posteriors differ by {err}")
     return len(one), err

@@ -3,16 +3,15 @@
 
 Aligns a set of npReads to a reference, both strands of every read, and
 writes each read's 15-column posterior tsv (writePosteriorProbs), for the
-threeState (strawman), vanilla (signalAlign's default) and fourState
-machines, on the wavefront kernels.  The reference runs one vanillaAlign
-process per read (scripts/signalAlign.py:101-141); here reads go through
-the aligner in chunks, a chunk's two strand runs in a handful of kernel
-launches with per-read model scaling on the device.
+threeState (strawman), vanilla (signalAlign's default), fourState and
+echelon machines, on the wavefront kernels.  The reference runs one
+vanillaAlign process per read (scripts/signalAlign.py:101-141); here reads
+go through the aligner in chunks, a chunk's two strand runs in a handful
+of kernel launches with per-read model scaling on the device.
 
-Not ported: the echelon machine (ROADMAP Queue 1 item 3c), data-parallel
-runs over a mesh (item 9), fast5 inputs (``prepare_fast5_reads``, item 8b)
-and ``run_batch``, the per-read scan-engine batch (item 8b, after the scan
-engine, item 7).
+Not ported: data-parallel runs over a mesh (ROADMAP Queue 1 item 9), fast5
+inputs (``prepare_fast5_reads``, item 8b) and ``run_batch``, the per-read
+scan-engine batch (item 8b, after the scan engine, item 7).
 """
 
 import dataclasses
@@ -34,14 +33,18 @@ from ..io.npread import load_npread
 from ..io.poremodel import load_pore_model, scale_model
 from ..models.hmm import ContinuousPairHmm, VanillaHmm
 from ..models.state_machines import (StateMachine3SignalStrawman,
-                                     StateMachine3Vanilla, StateMachine4)
+                                     StateMachine3Vanilla, StateMachine4,
+                                     StateMachineEchelon)
 from ..ops.anchors import filter_to_remove_overlap
 from ..ops.band import make_band, make_bands
-from ..ops.compact import extract_pairs_chunk, fetch
-from ..ops.fb import Sm4Aligner, StrawmanAligner, VanillaAligner, _call
+from ..ops.compact import (extract_echelon_pairs_chunk, extract_pairs_chunk,
+                           fetch)
+from ..ops.fb import (EchelonAligner, Sm4Aligner, StrawmanAligner,
+                      VanillaAligner, _call)
+from ..ops.fb_kernels import post_planes
 
 ALIGNERS = {"threeState": StrawmanAligner, "vanilla": VanillaAligner,
-            "fourState": Sm4Aligner}
+            "fourState": Sm4Aligner, "echelon": EchelonAligner}
 # reads per kernel group at most (the JAX package's compiled group); a
 # smaller batch takes one group of its own size
 MAX_GROUP = 32
@@ -69,9 +72,11 @@ def run_batch_fast(reference_path, npread_guide_pairs, out_dir, *,
     ``reference_path``; writes ``<out_dir>/<label>.tsv`` per read (label:
     the npRead's base name) and returns [(label, ok, message)].
 
-    ``sm_type``: 'threeState', 'vanilla' or 'fourState' (echelon is not
-    ported: ROADMAP Queue 1 item 3c); ``in_*_hmm`` load trained transitions
-    and k-mer gap probabilities (vanilla: skip bins) as vanillaAlign does.
+    ``sm_type``: 'threeState', 'vanilla', 'fourState' or 'echelon' (its
+    multi-state posteriors expand to pairs through
+    ``extract_echelon_pairs_chunk``); ``in_*_hmm`` load trained transitions
+    and k-mer gap probabilities (vanilla: skip bins) as vanillaAlign does
+    (echelon has no HMM to load and refuses one).
     ``device`` is where the aligner runs (the card's CUDA kernels by
     default, ``"cpu"`` their plain versions); ``aligner`` reuses an aligner
     of the machine's class, ``group`` is its R (None: MAX_GROUP, or the
@@ -94,14 +99,16 @@ def run_batch_fast(reference_path, npread_guide_pairs, out_dir, *,
     "load" (per-read preprocessing), "bands", "chunk" (a chunk's two strand
     runs), "fetch" (waiting for the compaction on the host), "extract" and
     "write"; posteriors are normalized by the exact per-read total, as in
-    the JAX driver."""
-    if sm_type == "echelon":
-        raise NotImplementedError(
-            "the echelon machine is not ported yet (ROADMAP Queue 1 item "
-            "3c)")
+    the JAX driver.  The per-read scale parameters scale the match model
+    and, for echelon, the k-mer skip bins too (``EchelonAligner``)."""
     if sm_type not in ALIGNERS:
         raise ValueError("run_batch_fast supports sm_type 'threeState', "
-                         "'vanilla' or 'fourState'")
+                         "'vanilla', 'fourState' or 'echelon'")
+    if sm_type == "echelon" and (in_template_hmm or in_complement_hmm):
+        # the reference defines no echelon EM (its expectation hook is
+        # NULL, impl/stateMachine.c:1831); refused before any work, where
+        # the JAX driver refuses it after loading the reads
+        raise ValueError("echelon has no trainable HMM to load")
     if mesh is not None:
         raise NotImplementedError(
             "data-parallel runs over a mesh are not ported yet (ROADMAP "
@@ -163,8 +170,10 @@ def run_batch_fast(reference_path, npread_guide_pairs, out_dir, *,
         stage("fetch", lambda: [fetch(o) for o in outs.values()])
         # one vectorized extraction per strand over the whole chunk, rows
         # in the tsv's stable diagonal order
+        extract = (extract_echelon_pairs_chunk if post_planes(pa.spec)
+                   else extract_pairs_chunk)
         aps = stage("extract", lambda: {
-            strand: extract_pairs_chunk(
+            strand: extract(
                 out, list(range(len(idxs))),
                 [out["prep"]["bands"][rel].n_diag
                  for rel in range(len(idxs))], params.threshold)
@@ -354,6 +363,9 @@ def _strand_machine(sm_type, model_file, hmm_file, strand):
     loadHmmRoutine (vanillaAlign.c:104-138), each read scaled on the
     device."""
     model = load_pore_model(model_file)
+    if sm_type == "echelon":
+        # no HMM to load (run_batch_fast refuses one)
+        return StateMachineEchelon(model), model
     if sm_type == "vanilla":
         skip_bins = (VanillaHmm.load(hmm_file).kmer_skip_bins
                      if hmm_file else None)

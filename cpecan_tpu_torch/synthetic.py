@@ -4,6 +4,9 @@ Signal: ``synthetic_batch`` is the counterpart of
 ``__graft_entry__._synthetic_batch`` and ``long_signal_read`` of
 ``tools/exp_long_events.py::synth_read``: the same numpy rng call
 sequences, so both packages get byte-identical reads for the same seed.
+``echelon_batch`` is the 64-read batch of bench.py's
+``echelon_alignments_per_sec`` (``bench_echelon``) on the vendored
+template pore model.
 
 DNA: ``synth_dna_pair`` is ``tools/exp_long_read.py::synth_dna_pair`` (the
 100 kb pair of bench.py's ``long_read_bases_per_sec``), and
@@ -22,7 +25,8 @@ from .fixtures import fixture_path
 from .io.cigar import parse_cigar_line
 from .io.poremodel import PoreModel, load_pore_model
 from .models.kmers import seq_to_kmer_indices
-from .models.state_machines import StateMachine3SignalStrawman
+from .models.state_machines import (StateMachine3SignalStrawman,
+                                    StateMachineEchelon)
 
 
 def synthetic_batch(n_reads=4, n_ref=160, n_events=150, seed=0,
@@ -75,6 +79,39 @@ def synthetic_batch(n_reads=4, n_ref=160, n_events=150, seed=0,
 
 # anchors every ANCHOR_STEP reference positions along the event staircase
 ANCHOR_STEP = 25
+
+
+def echelon_batch(n_reads=64, n_ref=905, n_events=800, seed=6):
+    """(machine, reads): bench.py's echelon cell (``bench_echelon``, the
+    same rng call sequence): the untrained ``StateMachineEchelon`` of the
+    vendored template model and ``n_reads`` random references of
+    ``n_ref`` bases with ``n_events`` events (mean at the model's level
+    mean of the diagonal's k-mer + N(0, 0.5), noise the model's noise
+    mean (at least 0.1), duration 0.01) and nine anchors each."""
+    model = load_pore_model(fixture_path("template_median68pA.model"))
+    rng = np.random.default_rng(seed)
+    mm = model.match_model
+    reads = []
+    for _ in range(n_reads):
+        ref = "".join(rng.choice(list("ACGT"), n_ref))
+        l_x = n_ref - (KMER_LENGTH - 1)
+        kidx = seq_to_kmer_indices(ref)
+        ev = np.zeros((n_events, 3))
+        for i in range(n_events):
+            k = kidx[min(int(i * l_x / n_events), l_x - 1)]
+            ev[i, 0] = mm[k, 0] + rng.normal(0, 0.5)
+            ev[i, 1] = max(mm[k, 2], 0.1)
+            ev[i, 2] = 0.01
+        anchors = []
+        px = py = -1
+        for j in range(1, 10):
+            x = int(j * (l_x - 2) / 10) + 1
+            y = int(j * (n_events - 2) / 10) + 1
+            if x > px and y > py:
+                anchors.append((x, y))
+                px, py = x, y
+        reads.append((ref, ev, l_x, n_events, anchors))
+    return StateMachineEchelon(model), reads
 
 
 def long_signal_read(l_x=10000, l_y=17000, seed=11):

@@ -14,7 +14,7 @@ import torch
 
 from cpecan_tpu_torch.align import AlignmentParams
 from cpecan_tpu_torch.fixtures import (fixture_path, load_batch_zymo,
-                                       load_dna5_em,
+                                       load_dna5_em, load_echelon_zymo,
                                        load_dna5_realign, load_long_read,
                                        load_vanilla_zymo, load_zymo_slice,
                                        load_zymo_train, zymo_trained_params)
@@ -22,13 +22,15 @@ from cpecan_tpu_torch.io.poremodel import load_pore_model
 from cpecan_tpu_torch.models.hmm import ContinuousPairHmm
 from cpecan_tpu_torch.models.state_machines import (
     StateMachine3SignalStrawman, StateMachine3Vanilla, StateMachine4,
-    StateMachine5)
+    StateMachine5, StateMachineEchelon, StateMachineEchelonB)
 from cpecan_tpu_torch.ops import fb_kernels as fk
 from cpecan_tpu_torch.ops.compact import (compact_posteriors,
+                                          extract_echelon_pairs_chunk,
                                           extract_pairs_auto,
                                           extract_pairs_chunk)
-from cpecan_tpu_torch.ops.fb import (Dna5Aligner, Sm4Aligner,
-                                     StrawmanAligner, VanillaAligner)
+from cpecan_tpu_torch.ops.fb import (Dna5Aligner, EchelonAligner,
+                                     Sm4Aligner, StrawmanAligner,
+                                     VanillaAligner)
 from cpecan_tpu_torch.parity import (LONG_DNA_ENGINE_SCORE_ATOL, band_mask,
                                      check_dna5_expectations, check_em,
                                      check_exp_kernel,
@@ -632,12 +634,14 @@ def test_cuda_sm4_tiled_kernels_match_plain(batch, cuda, ragged):
     assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
 
 
-@pytest.mark.parametrize("sm_type", ["threeState", "vanilla", "fourState"])
+@pytest.mark.parametrize("sm_type", ["threeState", "vanilla", "fourState",
+                                     "echelon"])
 def test_cuda_batch_pipeline_matches_cpu_run(cuda, tmp_path, sm_type):
     """``run_batch_fast`` on the card for the Zymo read against the same
     run on the CPU (plain passes) and against the JAX package's stored
     tsv: the kernels of the machine launched once per strand."""
-    args, tsvs = load_batch_zymo()
+    args, tsvs = (load_echelon_zymo() if sm_type == "echelon"
+                  else load_batch_zymo())
     label = args.pop("label")
     ref = args.pop("reference_path")
     got = {}
@@ -652,22 +656,89 @@ def test_cuda_batch_pipeline_matches_cpu_run(cuda, tmp_path, sm_type):
         got[device] = (tmp_path / device / f"{label}.tsv").read_bytes()
         if device == "cuda":
             suffix = {"threeState": "", "vanilla": "_vanilla",
-                      "fourState": "_sm4"}[sm_type]
+                      "fourState": "_sm4", "echelon": "_echelon"}[sm_type]
             assert fk.KERNEL_LAUNCHES == {f"wavefront_fwd{suffix}": 2,
                                           f"wavefront_bwd{suffix}": 2}
             assert fk.forward_plain.calls == fk.backward_plain.calls == 0
-    check_tsv(got["cuda"], got["cpu"], args["threshold"])
-    check_tsv(got["cuda"], tsvs[sm_type], args["threshold"])
+    multi = sm_type == "echelon"
+    check_tsv(got["cuda"], got["cpu"], args["threshold"], multi=multi)
+    check_tsv(got["cuda"], tsvs[sm_type], args["threshold"], multi=multi)
+
+
+def _echelon_inputs(cuda, batch, machine, ragged):
+    """The batch (its events given durations) on an echelon machine:
+    ``machine`` "A" (per-k-mer skip bins) with flush ends, or "B"
+    (echelonB's global skips) with ragged ends and per-read scaling."""
+    sm0, reads = batch
+    rng = np.random.default_rng(8)
+    reads = [(r[0], np.concatenate([r[1][:, :2], rng.uniform(
+        0.002, 0.03, (len(r[1]), 1))], axis=1)) + tuple(r[2:])
+        for r in reads]
+    sm = (StateMachineEchelon(sm0.model) if machine == "A"
+          else StateMachineEchelonB(sm0.model, 0.2, 0.35))
+    sp = (np.random.default_rng(4).uniform(0.95, 1.05, (len(reads), 5))
+          if machine == "B" else None)
+    pa = EchelonAligner(device=cuda, group=8)
+    prep = pa.prepare(sm, reads, ragged_right=ragged, scale_params=sp)
+    inp = pa.device_inputs(sm, prep, ragged_left=ragged)
+    dims = dict(R=prep["R"], W=prep["W"], ND=prep["ND"], C=prep["C"],
+                spec=fk.EchelonSpec)
+    return prep, inp, dims
+
+
+@pytest.mark.parametrize("machine", ["A", "B"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_cuda_echelon_kernels_match_plain(batch, cuda, ragged, machine):
+    """K1 and K2 echelon against their plain versions on the same card
+    inputs: the fwd plane [G, ND+1, 7, R, W], the five posterior planes
+    [G, ND+1, 5, R, W] and the totals bit for bit."""
+    _, inp, dims = _echelon_inputs(cuda, batch, machine, ragged)
+    fk.reset_counts()
+    fwd = _fwd(inp, dims, fk.wavefront_fwd)
+    posts, totals = _bwd(inp, dims, fwd, fk.wavefront_bwd)
+    torch.cuda.synchronize()
+    assert fk.KERNEL_LAUNCHES == {"wavefront_fwd_echelon": 1,
+                                  "wavefront_bwd_echelon": 1}
+    assert fk.forward_plain.calls == fk.backward_plain.calls == 0
+    assert fwd.shape[2] == 7 and posts.shape[2] == 5
+    assert torch.equal(fwd, _fwd(inp, dims, fk.forward_plain))
+    pposts, ptotals = _bwd(inp, dims, fwd, fk.backward_plain)
+    assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
+    assert torch.all(posts[:, 0] == 0.0) and bool((posts > 0.5).any())
+
+
+def test_cuda_echelon_compaction_matches_cpu(batch, cuda):
+    """The multi-state compaction (state and lane flattened into rows of
+    5 * W) and the chunk extraction of the card's posteriors against the
+    same posteriors compacted and extracted on the CPU."""
+    prep, inp, dims = _echelon_inputs(cuda, batch, "A", False)
+    fwd = _fwd(inp, dims, fk.wavefront_fwd)
+    posts, _ = _bwd(inp, dims, fwd, fk.wavefront_bwd)
+    k = 512
+    rels = list(range(len(prep["bands"])))
+    nds = [b.n_diag for b in prep["bands"]]
+    parts = {}
+    for dev in ("cuda", "cpu"):
+        p = posts.to(dev)
+        comp = compact_posteriors(p, k)
+        parts[dev] = extract_echelon_pairs_chunk(
+            dict(prep=prep, posteriors=p, compact=comp), rels, nds, 0.15)
+        # lanes past 256 of the 5 * W rows ship as u16
+        assert comp.wait()[2].dtype == np.uint16
+    assert sum(map(len, parts["cpu"])) > 0
+    for a, b in zip(parts["cuda"], parts["cpu"]):
+        assert np.array_equal(a, b)
 
 
 @pytest.mark.parametrize("spec", [fk.StrawmanSpec, fk.VanillaSpec,
-                                  fk.Dna5Spec, fk.Sm4Spec],
+                                  fk.Dna5Spec, fk.Sm4Spec, fk.EchelonSpec],
                          ids=lambda s: s.NAME)
 def test_cuda_kernels_launch_at_the_widest_window(cuda, spec):
     """Every kernel of a spec launches with W = 1024 threads, the widest
     window the wrappers accept, and equals its plain version there: one
     read whose band covers the whole window for 128 diagonals, seeded at
-    the last (random model rows, events and transitions)."""
+    the last (random model rows, events and transitions).  Echelon has
+    K1 and K2 only."""
     rng = np.random.default_rng(6)
     R, W, ND = 1, 1024, 128
     X, C = W, ND + 3
@@ -679,6 +750,12 @@ def test_cuda_kernels_launch_at_the_widest_window(cuda, spec):
         xf = np.log(rng.uniform(0.05, 0.9, (1, spec.NXF, X)))
         yf = np.stack([rng.integers(0, 4, Y).astype(np.float64),
                        np.log(rng.uniform(0.05, 0.9, Y))])[None]
+    elif spec is fk.EchelonSpec:
+        # skip logs, validity bits; durations as log probabilities
+        xf[:, 24:28] = np.log(rng.uniform(0.05, 0.9, (1, 4, X)))
+        xf[:, 28:] = rng.integers(0, 2, (1, 5, X))
+        yf = np.concatenate([np.log(rng.uniform(0.05, 0.9, (1, 6, Y))),
+                             rng.uniform(0.5, 2.0, (1, 2, Y))], axis=1)
     else:
         yf = rng.uniform(0.5, 2.0, (1, 2, Y))
     scal = np.log(rng.uniform(0.05, 0.9, spec.NS + 3 * spec.S))
@@ -695,11 +772,15 @@ def test_cuda_kernels_launch_at_the_widest_window(cuda, spec):
     dims = dict(R=R, W=W, ND=ND, C=C, spec=spec)
     fwd = fk.wavefront_fwd(*fa, **dims)
     assert torch.equal(fwd, fk.forward_plain(*fa, **dims))
-    for kernel, plain in ((fk.wavefront_bwd, fk.backward_plain),
-                          (fk.wavefront_bwd_exp, fk.backward_exp_plain)):
+    pairs = [(fk.wavefront_bwd, fk.backward_plain)]
+    if hasattr(spec, "exp_probs_w"):
+        pairs.append((fk.wavefront_bwd_exp, fk.backward_exp_plain))
+    for kernel, plain in pairs:
         got, want = kernel(*ba, fwd, **dims), plain(*ba, fwd, **dims)
         assert torch.isfinite(got[1]).all()
         assert all(torch.equal(g, w) for g, w in zip(got[:3], want[:3]))
+    if hasattr(spec, "POST_STATES"):
+        return
     tfwd, shifts = fk.wavefront_fwd_tiled(*fa, TD=ND, **dims)
     assert torch.equal(tfwd, fwd)
     tposts, ttot = fk.wavefront_bwd_tiled(*ba, tfwd, shifts, TD=ND, **dims)

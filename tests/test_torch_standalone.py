@@ -78,6 +78,31 @@ def test_port_imports_with_jax_package_blocked():
     assert int(res.stdout.split()[-1]) >= 20
 
 
+def test_echelon_runs_with_jax_package_blocked():
+    """The echelon machine, its aligner, the multi-state extraction and the
+    batch pipeline's echelon machine run in a process where ``jax`` and
+    ``cpecan_tpu`` cannot be imported (a small plain run on the CPU)."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = sys.modules['cpecan_tpu'] = None\n"
+        "from cpecan_tpu_torch.ops.fb import EchelonAligner\n"
+        "from cpecan_tpu_torch.ops.compact import "
+        "extract_echelon_pairs_chunk\n"
+        "from cpecan_tpu_torch.pipeline.signal_align_batch import ALIGNERS\n"
+        "from cpecan_tpu_torch.synthetic import echelon_batch\n"
+        "sm, reads = echelon_batch(n_reads=2, n_ref=60, n_events=50)\n"
+        "out = EchelonAligner(device='cpu', group=2).run(sm, reads)\n"
+        "nds = [b.n_diag for b in out['prep']['bands']]\n"
+        "parts = extract_echelon_pairs_chunk(out, [0, 1], nds, 0.01)\n"
+        "assert ALIGNERS['echelon'] is EchelonAligner\n"
+        "assert tuple(out['posteriors'].shape[2:4]) == (5, 2)\n"
+        "print(sum(map(len, parts)))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) > 50
+
+
 def _imports(path):
     """Top-level package names a Python file imports (absolute imports)."""
     names = set()
@@ -183,6 +208,35 @@ def case_pore_model():
         for f in dataclasses.fields(w):
             np.testing.assert_array_equal(getattr(g, f.name),
                                           getattr(w, f.name))
+
+
+def case_kmer_skip_bin_table():
+    """The copied emissions_signal_getKmerSkipBin table (with per-read
+    scaling, the invalid-k-mer guard and the clamp to 29) and the getKmer2
+    position helpers of the echelon machine."""
+    from cpecan_tpu.models import state_machines as j_sm
+    from cpecan_tpu_torch.models import state_machines as t_sm
+
+    model = j_poremodel.load_pore_model(j_fixtures.fixture_path(MODEL))
+    rng = np.random.default_rng(9)
+    prev = rng.integers(0, 4200, (4, 300))
+    nxt = rng.integers(0, 4200, (4, 300))
+    prev[0, :5] = [4095, 4096, 4097, 32767, 0]
+    for kw in ({}, dict(scale=rng.uniform(0.9, 1.1, (4, 1)),
+                        shift=rng.uniform(-5.0, 5.0, (4, 1)))):
+        got = t_poremodel.kmer_skip_bin_table(model.match_model, prev, nxt,
+                                              **kw)
+        want = j_poremodel.kmer_skip_bin_table(model.match_model, prev, nxt,
+                                               **kw)
+        assert got.dtype == want.dtype and got.max() == 29
+        np.testing.assert_array_equal(got, want)
+    for l_x in (0, 1, 2, 57):
+        np.testing.assert_array_equal(t_sm._getkmer2_positions(l_x),
+                                      j_sm._getkmer2_positions(l_x))
+    ref = "ACGTTGCAN" * 5 + "n" * 30
+    pos = np.arange(-3, len(ref) + 4)
+    np.testing.assert_array_equal(t_sm._kmer_idx_at(ref, pos),
+                                  j_sm._kmer_idx_at(ref, pos))
 
 
 def case_hmm_round_trip(tmp_path):
@@ -451,7 +505,8 @@ def case_tsv_format_source():
 
 CASES = {f.__name__[5:]: f for f in (
     case_make_bands, case_cigar, case_load_guides, case_npread,
-    case_pore_model, case_hmm_round_trip, case_vanilla_hmm, case_kmers,
+    case_pore_model, case_kmer_skip_bin_table, case_hmm_round_trip,
+    case_vanilla_hmm, case_kmers,
     case_anchors, case_checkpoint, case_rng_state_json,
     case_constants_and_fixture_paths, case_reweight,
     case_multiple_aligner, case_cigar_io, case_fasta_io, case_hmm_discrete,
