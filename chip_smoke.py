@@ -5,8 +5,8 @@
 Builds the CUDA kernels from csrc/ and drives the strawman signal-alignment
 paths, the 5-state DNA realigner, cPecanEm (DNA Baum-Welch), the vanilla
 signal machine (signalAlign's default, posteriors and trainModels), the
-4-state signal machine, the signalAlign batch pipeline and the echelon
-machine through them:
+4-state signal machine, the signalAlign batch pipeline, the echelon
+machine and the HDP machine through them:
 
 1. versions, the card's name and power limit;
 2. the kernel build (nvcc, ptxas register report);
@@ -153,7 +153,24 @@ machine through them:
    pipeline's first chunk (template strand, ragged, scaled: the skip bins
    too) as the warm-up run launched it, its fwd plane, five posterior
    planes and totals equal to the plain passes' bit for bit, as phase 23
-   holds the other three machines.
+   holds the other three machines;
+27. the HDP kernels (K1, K2, K3 for the streamed HDP machine): bench.py's
+   HDP machine (``synthetic.hdp_model``, sampled by the port's copy of the
+   HDP; the sampler that ran and its time logged), the first 64-read chunk
+   of bench.py's HDP cell (the bench batch, group 64): the card's emission
+   stream against the host's build from the same inputs
+   (parity.check_hdp_stream), K1/K2 hdp against their plain versions, the
+   fwd plane, posteriors and totals bit for bit and equal pairs from a
+   compaction of 2048 (saturated: the exact fallback); K3 hdp on the
+   first 32-read group of phase 28's E-step (ragged) as phase 7 holds K3;
+   ms, plain ms and bounds, and the stream build's ms;
+28. bench.py's hdp_alignments_per_sec: the 256 reads through
+   HdpAligner(group=64).run in chunks of 64, compact_k 2048, the
+   compaction copied to the host, median of 3 after a warm-up, with the
+   launch counts and a stage split (prepare, inputs, stream, fwd, bwd,
+   compact, and the extraction of each chunk); the HDP E-step on bench.py's
+   signal-EM shape (128 reads, group 32, ragged), median of 3 after a
+   warm-up.
 
 The stage splits run the path's own code (``WavefrontAligner.run``,
 ``cli.realign.main``, ``pipeline.em.calculate_expectations_pallas`` and
@@ -225,12 +242,15 @@ F32_FLOPS_PER_S = 67e12
 # and clamp 5; the gap-Y term 27), the forward update 15 log_adds and 11
 # adds (581), the band mask 3 and seven selects; the backward update seven
 # log_adds and 12 adds (278), the band mask 3, the seed selects 10 and five
-# posteriors of 5
+# posteriors of 5.  Hdp: the strawman's counts without its emissions (34,
+# twice in the expectation target), one stream read and its window check
+# (1)
 FLOPS_PER_CELL = dict(fwd=240, bwd=245, bwd_exp=355, dna5_fwd=339,
                       dna5_bwd=349, dna5_bwd_exp=484, vanilla_fwd=214,
                       vanilla_bwd=221, vanilla_bwd_exp=238, sm4_fwd=320,
                       sm4_bwd=326, sm4_bwd_exp=448, echelon_fwd=803,
-                      echelon_bwd=528)
+                      echelon_bwd=528, hdp_fwd=207, hdp_bwd=212,
+                      hdp_bwd_exp=288)
 DNA_GROUP = 32       # phases 13-15: bench.py's realign chunk and group
 DNA_COMPACT_K = 4096
 DNA_LONG = 100_000   # phase 16: bench.py's long_read_bases_per_sec pair
@@ -253,6 +273,8 @@ ECH_THRESHOLD = 0.01
 # phase 26: bench.py's signal_pipeline_echelon_reads_per_sec
 ECH_PIPE_READS = 32
 ECH_PIPE_THRESHOLD = 0.15
+HDP_GROUP = HDP_CHUNK = 64   # phases 27-28: bench.py's HDP cell (bench_hdp)
+HDP_COMPACT_K = 2048
 GOLDEN = {(0, 0), (1, 1), (2, 4), (3, 5)}
 
 
@@ -351,8 +373,8 @@ def main():
     from cpecan_tpu_torch.io.poremodel import load_pore_model
     from cpecan_tpu_torch.models.hmm import ContinuousPairHmm, VanillaHmm
     from cpecan_tpu_torch.models.state_machines import (
-        StateMachine3SignalStrawman, StateMachine3Vanilla, StateMachine4,
-        StateMachine5)
+        StateMachine3Hdp, StateMachine3SignalStrawman, StateMachine3Vanilla,
+        StateMachine4, StateMachine5)
     from cpecan_tpu_torch.ops import fb_kernels as fk
     from cpecan_tpu_torch.ops.compact import (compact_chunks,
                                               compact_posteriors,
@@ -364,7 +386,7 @@ def main():
     from cpecan_tpu_torch.ops.cuda_build import build_info, load_library
     from cpecan_tpu_torch.ops.compact import host_array
     from cpecan_tpu_torch.ops.fb import (Dna5Aligner, EchelonAligner,
-                                         Sm4Aligner,
+                                         HdpAligner, Sm4Aligner,
                                          StrawmanAligner, VanillaAligner,
                                          exp_dispatch, exp_finalize)
     from cpecan_tpu_torch.parity import (KERNEL_GAPX_ATOL,
@@ -372,6 +394,7 @@ def main():
                                          TOTAL_RTOL, band_mask, check_em,
                                          check_exp_kernel,
                                          check_expectations, check_fwd,
+                                         check_hdp_stream,
                                          check_long_pairs, check_pair_sets,
                                          check_pairs, check_posts,
                                          check_tiled, check_tiled_pairs,
@@ -382,7 +405,7 @@ def main():
     from cpecan_tpu_torch.pipeline.train_models import (
         TrainOptions, add_and_norm_expectations, strand_expectations, train)
     from cpecan_tpu_torch.synthetic import (dna_em_batch, dna_realign_batch,
-                                            echelon_batch,
+                                            echelon_batch, hdp_model,
                                             long_signal_read, realign_inputs,
                                             synth_dna_pair, synthetic_batch)
 
@@ -2384,6 +2407,193 @@ def main():
     log(f"phases 24-26 in {time.perf_counter() - t24:.1f} s")
     torch.cuda.synchronize()
 
+    # -- 27. the HDP kernels vs plain on bench.py's HDP chunk -------------
+    t27 = time.perf_counter()
+    # bench.py's HDP machine, sampled here by the port's own HDP copy
+    t0 = time.perf_counter()
+    hsm = hdp_model()
+    hdp_s = time.perf_counter() - t0
+    sampler = hsm.nhdp.hdp.sampler
+    hpa = HdpAligner(AlignmentParams(), device=dev, group=HDP_GROUP)
+    # the first 64-read chunk of bench.py's HDP cell (its reads are the
+    # bench batch): the main path's (phase 28) first chunk
+    hprep = hpa.prepare(hsm, reads[:HDP_CHUNK])
+    hinp = hpa.device_inputs(hsm, hprep)
+    hest = hpa.emission_stream(hsm, hprep, hinp)
+    # the stream built on the host from the same inputs
+    csm = StateMachine3Hdp(hsm.nhdp)
+    cpa = HdpAligner(AlignmentParams(), device="cpu", group=HDP_GROUP)
+    t0 = time.perf_counter()
+    cest = cpa.emission_stream(csm, hprep, cpa.device_inputs(csm, hprep))
+    cest_s = time.perf_counter() - t0
+    stream_err = check_hdp_stream(hest, cest)
+    del cest
+    hd = dict(R=hprep["R"], W=hprep["W"], ND=hprep["ND"], C=hprep["C"],
+              spec=fk.HdpSpec, est=hest)
+    hfa = [hinp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
+    hba = hfa + [hinp["seedf"], hinp["raggedf"]]
+    hfwd = fk.wavefront_fwd(*hfa, **hd)
+    hfwd_p, ms["hdp_fwd_plain"] = timed(lambda: fk.forward_plain(*hfa, **hd))
+    hposts, htot = fk.wavefront_bwd(*hba, hfwd, **hd)
+    (hposts_p, htot_p), ms["hdp_bwd_plain"] = timed(
+        lambda: fk.backward_plain(*hba, hfwd, **hd))
+    for what, got, want in (("fwd plane", hfwd, hfwd_p),
+                            ("posteriors", hposts, hposts_p),
+                            ("totals", htot, htot_p)):
+        same(f"K1/K2 hdp {what}", got, want)
+    if not torch.all(hposts[:, 0] == 0) or not torch.isfinite(htot).all():
+        raise AssertionError("hdp posteriors or totals")
+    hnds = [b.n_diag for b in hprep["bands"]]
+    hrels = list(range(len(hnds)))
+    hcomps = [compact_posteriors(p, min(HDP_COMPACT_K, hd["ND"] * hd["W"]))
+              for p in (hposts, hposts_p)]
+    hparts = [extract_pairs_chunk(dict(prep=hprep, posteriors=p, compact=c),
+                                  hrels, hnds, thr)
+              for p, c in zip((hposts, hposts_p), hcomps)]
+    # reads whose top-k ends above the threshold: the exact fallback
+    hsat = int((hcomps[0].wait()[0][0, :, -1] / 65535.0 >= thr).sum())
+    for i, (a, b) in enumerate(zip(*hparts)):
+        if not np.array_equal(a, b) or len(a) == 0:
+            raise AssertionError(f"hdp pairs of read {i}: kernel and plain "
+                                 "differ")
+    del hfwd_p, hposts_p
+    ms.update(hdp_fwd=cuda_ms(lambda: fk.wavefront_fwd(*hfa, **hd), 5),
+              hdp_bwd=cuda_ms(lambda: fk.wavefront_bwd(*hba, hfwd, **hd),
+                              5))
+    hcells = sum(int(b.width.sum()) for b in hprep["bands"])
+    # the bytes the hdp kernels read: of xf only the gap-X row 8, no y row
+    # (the stream replaces the emission rows)
+    hread = [hinp["scal"], hinp["win"], hinp["xf"][:, 8:9], hinp["basef"],
+             hinp["widthf"]]
+    bounds.update(
+        hdp_fwd=bound(hread + [hest, hfwd], hcells,
+                      FLOPS_PER_CELL["hdp_fwd"]),
+        hdp_bwd=bound(hread + [hinp["seedf"], hinp["raggedf"], hfwd, hest,
+                               hposts, htot], hcells,
+                      FLOPS_PER_CELL["hdp_bwd"]))
+    hstream_ms = cuda_ms(lambda: hpa.emission_stream(hsm, hprep, hinp), 5)
+    del hfwd, hposts, hest, hinp
+    # K3 hdp on the first 32-read group of phase 28's E-step (bench.py's
+    # signal-EM shape: 128 reads, group 32, ragged at both ends)
+    hea = HdpAligner(AlignmentParams(), device=dev, group=EM_GROUP)
+    hesub = reads[:VANILLA_E_READS]
+    heprep = hea.prepare(hsm, hesub, ragged_right=True)
+    heinp = hea.device_inputs(hsm, heprep, ragged_left=True)
+    n = EM_GROUP
+    hed = dict(R=n, W=heprep["W"], ND=heprep["ND"], C=heprep["C"],
+               spec=fk.HdpSpec,
+               est=hea.emission_stream(hsm, heprep, heinp)[:1].contiguous())
+    heb = [heinp["scal"], heinp["win"][:1]] + [
+        heinp[k][:n] for k in ("xf", "yf", "basef", "widthf", "seedf",
+                               "raggedf")]
+    hefwd = fk.wavefront_fwd(*heb[:6], **hed)
+    same("K1 hdp fwd plane (E-step group)", hefwd,
+         fk.forward_plain(*heb[:6], **hed))
+    hek = fk.wavefront_bwd_exp(*heb, hefwd, **hed)
+    hep, ms["hdp_bwd_exp_plain"] = timed(
+        lambda: fk.backward_exp_plain(*heb, hefwd, **hed))
+    hdp_exp_err = check_exp_kernel(hek, hep)
+    if not float(hek[2].sum()) > 0:
+        raise AssertionError("hdp transition sums are 0")
+    ms["hdp_bwd_exp"] = cuda_ms(
+        lambda: fk.wavefront_bwd_exp(*heb, hefwd, **hed), 5)
+    hecells = sum(int(b.width.sum()) for b in heprep["bands"][:n])
+    bounds["hdp_bwd_exp"] = bound(
+        heb[:2] + [heb[2][:, 8:9]] + heb[4:] + [hed["est"], hefwd, *hek],
+        hecells, FLOPS_PER_CELL["hdp_bwd_exp"])
+    del hek, hep, hefwd, heinp
+    log(f"hdp model: bench.py's flat_hdp_model_2 (4,097 DPs, grid 120) "
+        f"sampled by the {sampler} sampler in {hdp_s:.2f} s")
+    log(f"hdp kernels vs plain ({HDP_CHUNK} reads of bench.py's HDP cell, "
+        f"G={len(hprep['win'])}, R={hd['R']}, W={hd['W']}, ND={hd['ND']}): "
+        f"fwd plane, posts, totals equal bit for bit, "
+        f"{sum(map(len, hparts[0]))} pairs equal (compact_k "
+        f"{HDP_COMPACT_K}, saturated in {hsat} reads); stream vs the host's build max|d| {stream_err:.3g} "
+        f"(host build {cest_s:.2f} s); K3 hdp vs plain ({n} reads, ragged, "
+        f"ND={hed['ND']}, W={hed['W']}): posts, totals, trans equal, gapx "
+        f"max|d| {hdp_exp_err:.3g}; ms fwd {ms['hdp_fwd']:.3f} vs plain "
+        f"{ms['hdp_fwd_plain']:.1f}, bwd {ms['hdp_bwd']:.3f} vs plain "
+        f"{ms['hdp_bwd_plain']:.1f}, bwd_exp {ms['hdp_bwd_exp']:.3f} vs "
+        f"plain {ms['hdp_bwd_exp_plain']:.1f}, stream build "
+        f"{hstream_ms:.3f}; bounds "
+        + ", ".join(f"{k} {bounds[k][0]:.4f} ({bounds[k][1]})"
+                    for k in ("hdp_fwd", "hdp_bwd", "hdp_bwd_exp")))
+    torch.cuda.synchronize()
+
+    # -- 28. hdp_alignments_per_sec -----------------------------------------
+    def hdp_main(stage=None):
+        outs = [hpa.run(hsm, reads[i:i + HDP_CHUNK],
+                        compact_k=HDP_COMPACT_K, stage=stage)
+                for i in range(0, len(reads), HDP_CHUNK)]
+        for o in outs:
+            fetch(o)
+        return outs
+
+    hdp_main()
+    fk.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    htimes = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        houts = hdp_main()
+        htimes.append(time.perf_counter() - t0)
+    hdp_counts = dict(fk.KERNEL_LAUNCHES)
+    hpeak = torch.cuda.max_memory_allocated()
+    n_chunks = -(-len(reads) // HDP_CHUNK)
+    if (hdp_counts != {"wavefront_fwd_hdp": 3 * n_chunks,
+                       "wavefront_bwd_hdp": 3 * n_chunks}
+            or fk.forward_plain.calls or fk.backward_plain.calls):
+        raise AssertionError(f"hdp main path launches {hdp_counts}")
+    hall = []
+    for o in houts:
+        if not torch.isfinite(o["totals"]).all():
+            raise AssertionError("hdp main path totals not finite")
+        nds = [b.n_diag for b in o["prep"]["bands"]]
+        hall += extract_pairs_chunk(o, list(range(len(nds))), nds, thr)
+    if len(hall) != len(reads) or min(map(len, hall)) == 0:
+        raise AssertionError("an hdp read has no pairs")
+    for i, a in enumerate(hparts[0]):   # phase 27's chunk is the first
+        if not np.array_equal(hall[i], a):
+            raise AssertionError(f"hdp main path read {i} differs from "
+                                 "phase 27's kernel pairs")
+    del houts
+    hrate = len(reads) / statistics.median(htimes)
+    hst = Stages()
+    for o in hdp_main(stage=hst):
+        nds = [b.n_diag for b in o["prep"]["bands"]]
+        hst("extract", lambda: extract_pairs_chunk(
+            o, list(range(len(nds))), nds, thr))
+    # the E-step on bench.py's signal-EM shape
+    fk.reset_counts()
+    hexp = hea.run(hsm, hesub, **em_kw)["expectations"]
+    hetimes = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        hea.run(hsm, hesub, **em_kw)
+        hetimes.append(time.perf_counter() - t0)
+    hexp_counts = dict(fk.KERNEL_LAUNCHES)
+    if (hexp_counts != {"wavefront_fwd_hdp": 4, "wavefront_bwd_exp_hdp": 4}
+            or fk.forward_plain.calls or fk.backward_exp_plain.calls):
+        raise AssertionError(f"hdp E-step launches {hexp_counts}")
+    if not (hexp["trans"].shape == (len(hesub), 3, 3)
+            and np.isfinite(hexp["likelihood"]).all()
+            and (hexp["trans"].sum((1, 2)) > 0).all()):
+        raise AssertionError("hdp E-step expectations")
+    log(f"hdp_alignments_per_sec {hrate:.1f} alignments/s e2e "
+        f"({len(reads)} reads in chunks of {HDP_CHUNK}, group {HDP_GROUP}, "
+        f"compact_k {HDP_COMPACT_K}, run + compaction to the host; median "
+        f"of {[round(t, 4) for t in htimes]} s after a warm-up), "
+        f"{sum(map(len, hall))} pairs, peak device memory "
+        f"{hpeak / 1e9:.3f} GB, launches in the 3 runs {hdp_counts}")
+    log("hdp main path stages (s, share): " + hst.line())
+    log(f"hdp E-step: {len(hesub) / statistics.median(hetimes):.1f} reads/s "
+        f"({len(hesub)} reads, group {EM_GROUP}, ragged; median of "
+        f"{[round(t, 4) for t in hetimes]} s after a warm-up), launches in "
+        f"4 runs {hexp_counts}")
+    del hst
+    log(f"phases 27-28 in {time.perf_counter() - t27:.1f} s")
+    torch.cuda.synchronize()
+
     src = "cpecan_tpu_torch/csrc/wavefront.cu"
 
     def entry(name, replaces, launches, err, key, bkey):
@@ -2396,7 +2606,7 @@ def main():
                 # wavefront
                 "library_ms": None}
 
-    exact = 0.0   # phases 3, 10, 12, 13, 19, 21-24 hold these bit for bit
+    exact = 0.0   # phases 3, 10, 12, 13, 19, 21-24, 27 hold these bit for bit
     log(json.dumps({"kernels": [
         entry("wavefront_fwd", "cpecan_tpu/ops/pallas_fb.py:635",
               launches["wavefront_fwd"], exact, "fwd", "fwd"),
@@ -2499,6 +2709,20 @@ def main():
               ech_counts["wavefront_bwd_echelon"],
               max(ech_err["posteriors"], ech_err["totals"]), "echelon_bwd",
               "echelon_bwd"),
+        # phase 27 holds K1/K2 hdp to plain on the first chunk of bench.py's
+        # HDP cell (ms, plain ms and bound there), K3 hdp on the first
+        # group of the E-step; launches from phase 28's main path and
+        # E-step
+        entry("wavefront_fwd_hdp",
+              "cpecan_tpu/ops/pallas_fb.py:635 (_HdpSpec :2829)",
+              hdp_counts["wavefront_fwd_hdp"], exact, "hdp_fwd", "hdp_fwd"),
+        entry("wavefront_bwd_hdp",
+              "cpecan_tpu/ops/pallas_fb.py:857 (_HdpSpec :2829)",
+              hdp_counts["wavefront_bwd_hdp"], exact, "hdp_bwd", "hdp_bwd"),
+        entry("wavefront_bwd_exp_hdp",
+              "cpecan_tpu/ops/pallas_fb.py:2221 (with_exp=True, _HdpSpec "
+              ":2829)", hexp_counts["wavefront_bwd_exp_hdp"], hdp_exp_err,
+              "hdp_bwd_exp", "hdp_bwd_exp"),
     ]}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

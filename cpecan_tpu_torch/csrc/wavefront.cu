@@ -1,25 +1,28 @@
 // Band-local forward and posterior-backward wavefront kernels of the
 // pair-HMM machines, for Hopper (sm_90a): the strawman 3-state signal
-// machine (getStrawManStateMachine3), the vanilla 3-state signal machine
+// machine (getStrawManStateMachine3), the HDP 3-state signal machine
+// (getHdpStateMachine3, streamed emissions), the vanilla 3-state signal machine
 // (getSignalStateMachine3Vanilla, signalAlign's default), the 4-state signal
 // machine (getStateMachine4, signalAlign's fourState), the 7-state echelon
 // signal machine (getStateMachineEchelon, multi-k-mer events, multi-state
 // posteriors) and the 5-state DNA machine (getStateMachine5,
 // cPecanRealign's).  Both kernels are templates on a machine spec
-// (Strawman, Vanilla, Sm4, Echelon, Dna5: states, scalars, emissions and
-// the forward/backward updates); every instance keeps its JAX spec's op
-// order.  Plain C entry points, loaded with ctypes by
+// (Strawman, Hdp, Vanilla, Sm4, Echelon, Dna5: states, scalars, emissions
+// and the forward/backward updates); every instance keeps its JAX spec's
+// op order.  Plain C entry points, loaded with ctypes by
 // cpecan_tpu_torch/ops/cuda_build.py and wrapped by
 // cpecan_tpu_torch/ops/fb_kernels.py (wavefront_fwd, wavefront_bwd,
 // wavefront_bwd_exp, wavefront_fwd_tiled, wavefront_bwd_tiled; the dna5,
-// vanilla, sm4 and echelon instances' entry points end in _dna5, _vanilla,
-// _sm4 and _echelon; echelon has K1 and K2 only).
+// vanilla, sm4, echelon and hdp instances' entry points end in _dna5,
+// _vanilla, _sm4, _echelon and _hdp; echelon has K1 and K2 only, hdp K1,
+// K2 and K3).
 //
 // Replaces (TPU, Pallas):
 //   sm3_fwd_kernel<Spec, false>
 //                          <- cpecan_tpu/ops/pallas_fb.py _sm3_forward_kernel
 //                             (:635, untiled; _StrawmanSpec, _Dna5Spec,
-//                             _VanillaSpec, _Sm4Spec, _EchelonSpec)     K1
+//                             _VanillaSpec, _Sm4Spec, _EchelonSpec,
+//                             the streamed _HdpSpec :2829)              K1
 //   sm3_bwd_kernel<Spec, false, false>
 //                          <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
 //                             -> _sm3_backward_body_w (:857, :900;
@@ -51,6 +54,8 @@
 //   fwd    f32 [G, ND+1, S, R, W]
 //   posts  f32 [G, ND+1, NPS, R, W] (NPS 1 but for echelon's 5 match
 //          states),  totals f32 [G*R]
+//   est    f32 [G, ND+3, R, W]  the emission stream of a streamed spec
+//          (hdp): diagonal d's match = gap-Y emission at its own window
 //   trans  f32 [G*R, S*S]  (lanes frm*S + to; EM only)
 //   acc    f32 [G, NACC, R, X]  per-column accumulators (EM only; strawman
 //          NACC 1, the gap-X mass; sm4 NACC 1, the shortGapX mass; dna5
@@ -74,6 +79,17 @@
 // duration posteriors dur_0..dur_5, the event mean, the noise); its match
 // emission is NEM = 5 per-n terms, which the backward carries and
 // realigns leaf by leaf, and its posteriors are those of match1..match5.
+// Hdp: the strawman's scalars, transitions, gap-X row 8 and expectations;
+// its match and gap-Y emission is one value, the k-mer's HDP spline density
+// at the event mean, which the host builds per diagonal into est
+// (ops/features.py hdp_stream; xf rows 0-7 and yf are zeros and unread).
+// On the TPU the stream was double-buffered through VMEM by DMA because
+// per-lane table gathers do not vectorize there (pallas_fb.py:737-753,
+// :973-1003); here lane l reads est[g, d, r, l] with one coalesced load
+// per diagonal, and the backward's reads at another window w are
+// est[g, d, r, l + w - win[g, d]], CPECAN_NEG outside [0, W)
+// (emissions_at's realignment, pallas_fb.py:990-993): L2 and ordinary
+// loads take the place of the ring.
 //
 // Design: one block per read (grid G*R), one thread per lane (W threads).
 // Each diagonal depends on the previous one or two through lane shifts of
@@ -176,6 +192,12 @@ struct Emissions {
     float match, gap_y;
 };
 
+// the emissions come from the feature rows (false) or from the stream est
+// (true; only Hdp)
+struct FromRows {
+    static constexpr bool STREAMED = false;
+};
+
 // a match emission of N terms (echelon's per-n terms)
 template <int N>
 struct EmissionsN {
@@ -213,7 +235,7 @@ __device__ __forceinline__ int next_col(int x, int X) {
 // the y rows, match emission leaves and posterior states of the machines
 // with one match state: (event mean or y base, noise or gap-Y), one leaf,
 // the match state's posteriors
-struct OneMatch {
+struct OneMatch : FromRows {
     static constexpr int YR = 2, NEM = 1, NPS = 1;
     __host__ __device__ static constexpr int post_state(int) { return 0; }
 };
@@ -282,6 +304,12 @@ struct Strawman : OneMatch {
             int x, float /*y*/, const float* f0m, const float* f1m,
             const float* f1a, const float* b, float total, bool m,
             float* acc, float* col, size_t /*row_stride*/);
+};
+
+// _HdpSpec (pallas_fb.py:2829): the strawman with streamed emissions (match
+// == gap-Y, impl/stateMachine.c:1353-1354); emissions_at is never called
+struct Hdp : Strawman {
+    static constexpr bool STREAMED = true;
 };
 
 // _Sm4Spec (pallas_fb.py:257-337): M, shortGapX, shortGapY, longGapX; the
@@ -495,7 +523,7 @@ enum { EC_GAP_Y = 20, EC_LA_MX = 24, EC_LA_MH, EC_LA_XX, EC_LA_XH,
 // (an event emitting 1..5 k-mers), gap-X (silent); per-column transitions
 // (rows 24-27), no transition scalars.  No K3 (the reference defines no
 // echelon EM) and no tiled instance.
-struct Echelon {
+struct Echelon : FromRows {
     static constexpr int S = 7, NS = 0, NXF = 33, YR = 8, NEM = 5, NPS = 5;
     // the posteriors of match1..match5
     __host__ __device__ static constexpr int post_state(int j) {
@@ -644,6 +672,26 @@ __device__ __forceinline__ void recenter(float* a, float* b, bool cut_b,
     __syncthreads();
 }
 
+// The emissions of diagonal dd at x, which is lane j of dd's own window
+// (x = win[dd] + j): the spec's own from the feature rows, or for a
+// streamed spec the stream's entry est[dd, j] of this read (eb), CPECAN_NEG
+// where j falls outside [0, W) (emissions_at, pallas_fb.py:977-1000).
+template <class Spec>
+__device__ __forceinline__ auto cell_emissions(const float* xb,
+                                               const float* yb,
+                                               const float* eb, int X, int Y,
+                                               int C, int dd, int x, int j,
+                                               int R, int W) {
+    if constexpr (Spec::STREAMED) {
+        const float v = (j >= 0 && j < W)
+                            ? eb[static_cast<size_t>(dd) * R * W + j]
+                            : CPECAN_NEG;
+        return Emissions{v, v};
+    } else {
+        return Spec::emissions_at(xb, yb, X, Y, x, C - dd + x);
+    }
+}
+
 // Every kernel must launch with W threads for any W the wrappers accept
 // (at most CPECAN_MAX_W).  One SM's 65,536 registers give 64 a thread at
 // 1024 threads; uncapped, the expectation instances compile to 106-114 and
@@ -659,6 +707,7 @@ __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
                                const float* __restrict__ yf,
                                const float* __restrict__ basef,
                                const float* __restrict__ widthf,
+                               const float* __restrict__ est,
                                float* __restrict__ fwd,
                                float* __restrict__ shifts, int R, int W,
                                int ND, int NDp, int X, int C, int Y, int TD) {
@@ -681,6 +730,11 @@ __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
     const float* yb = yf + static_cast<size_t>(b) * Spec::YR * Y;
     const float* base = basef + static_cast<size_t>(b) * NDp;
     const float* width = widthf + static_cast<size_t>(b) * NDp;
+    // this read's stream est[g, :, r, :] (streamed specs only)
+    const float* eb = Spec::STREAMED
+                          ? est + static_cast<size_t>(g) * (ND + 3) * R * W
+                                + static_cast<size_t>(r) * W
+                          : nullptr;
     // fwd[g, d, i, r, l]
     const size_t plane_d = static_cast<size_t>(S) * R * W;
     float* out = fwd + static_cast<size_t>(g) * (ND + 1) * plane_d
@@ -727,7 +781,8 @@ __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
             p1a[i] = shifted(p1 + i * W, l, s1, W);
             p2m[i] = shifted(p2 + i * W, l, s2 - 1, W);
         }
-        const auto e = Spec::emissions_at(xb, yb, X, Y, x, C - d + x);
+        const auto e = cell_emissions<Spec>(xb, yb, eb, X, Y, C, d, x, l, R,
+                                            W);
         float nv[S];
         Spec::fwd_update(t, p1m, p1a, p2m, e, xb, X, x, nv);
         const bool mask = in_band(x, base[d], width[d]);
@@ -882,20 +937,21 @@ __device__ __forceinline__ void Vanilla::exp_probs(
 // window wl, both shared-memory slots [S][W]; bt the target's backward
 // slot [S][W] (raw), read as NEG where ``cut``.  With ``carried`` the JAX
 // kernel takes the target's emissions from last step's carry at window wl,
-// so lanes past that window read NEG there, and here; the y element (dna5)
-// is read fresh.  acc the spec's per-thread transition sums, rows its
+// so lanes past that window read NEG there, and here (a streamed spec's
+// carry is the stream of tt realigned to wl, so the same); the y element
+// (dna5) is read fresh.  acc the spec's per-thread transition sums, rows its
 // NACC accumulator rows of this read (row j at rows + j * row_stride).
 template <class Spec>
 __device__ __forceinline__ void exp_target(
-        const float* t, const float* xb, const float* yb, int X, int Y,
-        int C, int tt, int wt, const float* fm, int wm, const float* fl,
-        int wl, const float* bt, bool cut, float total, bool m,
-        bool carried, int l, int W, float* acc, float* rows,
+        const float* t, const float* xb, const float* yb, const float* eb,
+        int X, int Y, int C, int R, int tt, int wt, const float* fm, int wm,
+        const float* fl, int wl, const float* bt, bool cut, float total,
+        bool m, bool carried, int l, int W, float* acc, float* rows,
         size_t row_stride) {
     constexpr int S = Spec::S;
     const int x = wt + l;
     const int ycol = C - tt + x;
-    Emissions e = Spec::emissions_at(xb, yb, X, Y, x, ycol);
+    Emissions e = cell_emissions<Spec>(xb, yb, eb, X, Y, C, tt, x, l, R, W);
     if (carried) {
         const int j = l + (wt - wl);
         if (j < 0 || j >= W) e.match = e.gap_y = CPECAN_NEG;
@@ -924,6 +980,7 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
                                const float* __restrict__ seedf,
                                const float* __restrict__ raggedf,
                                const float* __restrict__ fwd,
+                               const float* __restrict__ est,
                                const float* __restrict__ shifts,
                                float* __restrict__ posts,
                                float* __restrict__ totals,
@@ -959,6 +1016,10 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
     const float* width = widthf + static_cast<size_t>(b) * NDp;
     const float* seed = seedf + static_cast<size_t>(b) * NDp;
     const float* ragged = raggedf + static_cast<size_t>(b) * NDp;
+    const float* eb = Spec::STREAMED
+                          ? est + static_cast<size_t>(g) * (ND + 3) * R * W
+                                + static_cast<size_t>(r) * W
+                          : nullptr;
     const size_t fplane_d = static_cast<size_t>(S) * R * W;
     const float* fin = fwd + static_cast<size_t>(g) * (ND + 1) * fplane_d
                        + static_cast<size_t>(r) * W + l;
@@ -981,7 +1042,8 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
     }
     {
         const int x = wg[ND + 1] + l;
-        const auto e = Spec::emissions_at(xb, yb, X, Y, x, C - (ND + 2) + x);
+        const auto e = cell_emissions<Spec>(xb, yb, eb, X, Y, C, ND + 2, x,
+                                            x - wg[ND + 2], R, W);
 #pragma unroll
         for (int k = 0; k < NEM; ++k)
             em[(((ND + 1) & 1) * NEM + k) * W + l] = em_leaf(e, k);
@@ -1051,7 +1113,8 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
             em2p[k] = shifted(em + (((d + 1) & 1) * NEM + k) * W, l, o1 + 1,
                               W);
         // emissions(d + 1) at x, fresh (next step's carry)
-        const auto e1 = Spec::emissions_at(xb, yb, X, Y, x, C - (d + 1) + x);
+        const auto e1 = cell_emissions<Spec>(xb, yb, eb, X, Y, C, d + 1, x,
+                                             x - wg[d + 1], R, W);
         float bw[S];
         Spec::bwd_update(t, xb, X, x, e1.gap_y, em2p, n1a, n1p, n2p, bw);
         const bool mask = in_band(x, base[d], width[d]);
@@ -1097,7 +1160,7 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
             if (tt <= ND + 2) {
                 const bool cut = seed[tt - 1] != 0.0f || seed[tt - 2] != 0.0f;
                 const int wt = wg[tt];
-                exp_target<Spec>(t, xb, yb, X, Y, C, tt, wt,
+                exp_target<Spec>(t, xb, yb, eb, X, Y, C, R, tt, wt,
                                  fsh + ((tt - 2) % 3) * S * W, wg[tt - 2],
                                  fsh + ((tt - 1) % 3) * S * W, wg[tt - 1],
                                  cur, cut, total,
@@ -1122,7 +1185,8 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
         // slots 1, 2, 0 and fsh holds fwd[1], fwd[2] in slots 1, 2 (NEG
         // where the diagonal lies past ND)
         const bool cut3 = seed[2] != 0.0f || seed[1] != 0.0f;
-        exp_target<Spec>(t, xb, yb, X, Y, C, 3, wg[3], fsh + S * W, wg[1],
+        exp_target<Spec>(t, xb, yb, eb, X, Y, C, R, 3, wg[3], fsh + S * W,
+                         wg[1],
                          fsh + 2 * S * W, wg[2], ring, cut3, total,
                          in_band(wg[3] + l, base[3], width[3]), true, l, W,
                          acc, rows, row_stride);
@@ -1131,14 +1195,15 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
         for (int i = 0; i < S; ++i)
             fsh[i * W + l] = fin[static_cast<size_t>(i) * R * W];
         __syncthreads();
-        exp_target<Spec>(t, xb, yb, X, Y, C, 2, wg[2], fsh, wg[0],
+        exp_target<Spec>(t, xb, yb, eb, X, Y, C, R, 2, wg[2], fsh, wg[0],
                          fsh + S * W, wg[1], ring + 2 * S * W,
                          seed[1] != 0.0f, total,
                          in_band(wg[2] + l, base[2], width[2]), true, l, W,
                          acc, rows, row_stride);
         __syncthreads();   // orders the accumulator columns of targets 2, 1
         // target 1: no middle source, emissions(1) fresh (not a carry)
-        exp_target<Spec>(t, xb, yb, X, Y, C, 1, wg[1], nullptr, 0, fsh,
+        exp_target<Spec>(t, xb, yb, eb, X, Y, C, R, 1, wg[1], nullptr, 0,
+                         fsh,
                          wg[0], ring + S * W, false, total,
                          in_band(wg[1] + l, base[1], width[1]), false, l, W,
                          acc, rows, row_stride);
@@ -1165,7 +1230,8 @@ template <class Spec, bool WITH_EXP, bool TILED>
 int launch_bwd(const void* scal, const void* win, const void* xf,
                const void* yf, const void* basef, const void* widthf,
                const void* seedf, const void* raggedf, const void* fwd,
-               const void* shifts, void* posts, void* totals, void* trans,
+               const void* est, const void* shifts, void* posts,
+               void* totals, void* trans,
                void* accf, int G, int R, int W, int ND, int NDp, int X,
                int C, int Y, int TD, void* stream) {
     constexpr int S = Spec::S;
@@ -1189,7 +1255,7 @@ int launch_bwd(const void* scal, const void* win, const void* xf,
             static_cast<const float*>(widthf),
             static_cast<const float*>(seedf),
             static_cast<const float*>(raggedf),
-            static_cast<const float*>(fwd),
+            static_cast<const float*>(fwd), static_cast<const float*>(est),
             static_cast<const float*>(shifts), static_cast<float*>(posts),
             static_cast<float*>(totals), static_cast<float*>(trans),
             static_cast<float*>(accf), R, W, ND, NDp, X, C, Y, TD);
@@ -1199,8 +1265,8 @@ int launch_bwd(const void* scal, const void* win, const void* xf,
 template <class Spec, bool TILED>
 int launch_fwd(const void* scal, const void* win, const void* xf,
                const void* yf, const void* basef, const void* widthf,
-               void* fwd, void* shifts, int G, int R, int W, int ND, int NDp,
-               int X, int C, int Y, int TD, void* stream) {
+               const void* est, void* fwd, void* shifts, int G, int R, int W,
+               int ND, int NDp, int X, int C, int Y, int TD, void* stream) {
     if (int e = launch_config_error(W)) return e;
     if (TILED && (TD <= 0 || ND % TD != 0)) return cudaErrorInvalidValue;
     // ring, and the reduction scratch of the re-centering
@@ -1217,7 +1283,8 @@ int launch_fwd(const void* scal, const void* win, const void* xf,
             static_cast<const float*>(scal), static_cast<const int*>(win),
             static_cast<const float*>(xf), static_cast<const float*>(yf),
             static_cast<const float*>(basef),
-            static_cast<const float*>(widthf), static_cast<float*>(fwd),
+            static_cast<const float*>(widthf),
+            static_cast<const float*>(est), static_cast<float*>(fwd),
             static_cast<float*>(shifts), R, W, ND, NDp, X, C, Y, TD);
     return static_cast<int>(cudaGetLastError());
 }
@@ -1231,24 +1298,24 @@ const char* wavefront_error_string(int code) {
 }
 
 // One entry point per kernel instance; the dna5, vanilla, sm4 and echelon
-// ones take the strawman ones' arguments.
+// ones take the strawman ones' arguments, the hdp ones the stream too.
 #define WAVEFRONT_FWD_ENTRY(NAME, SPEC)                                     \
     int NAME(const void* scal, const void* win, const void* xf,              \
              const void* yf, const void* basef, const void* widthf,          \
              void* fwd, int G, int R, int W, int ND, int NDp, int X, int C,  \
              int Y, void* stream) {                                          \
         return launch_fwd<SPEC, false>(scal, win, xf, yf, basef, widthf,     \
-                                       fwd, nullptr, G, R, W, ND, NDp, X, C, \
-                                       Y, 0, stream);                        \
+                                       nullptr, fwd, nullptr, G, R, W, ND,   \
+                                       NDp, X, C, Y, 0, stream);             \
     }
 #define WAVEFRONT_FWD_TILED_ENTRY(NAME, SPEC)                               \
     int NAME(const void* scal, const void* win, const void* xf,              \
              const void* yf, const void* basef, const void* widthf,          \
              void* fwd, void* shifts, int G, int R, int W, int ND, int NDp,  \
              int X, int C, int Y, int TD, void* stream) {                    \
-        return launch_fwd<SPEC, true>(scal, win, xf, yf, basef, widthf, fwd, \
-                                      shifts, G, R, W, ND, NDp, X, C, Y, TD, \
-                                      stream);                               \
+        return launch_fwd<SPEC, true>(scal, win, xf, yf, basef, widthf,      \
+                                      nullptr, fwd, shifts, G, R, W, ND,     \
+                                      NDp, X, C, Y, TD, stream);             \
     }
 #define WAVEFRONT_BWD_ENTRY(NAME, SPEC)                                     \
     int NAME(const void* scal, const void* win, const void* xf,              \
@@ -1258,8 +1325,8 @@ const char* wavefront_error_string(int code) {
              int NDp, int X, int C, int Y, void* stream) {                   \
         return launch_bwd<SPEC, false, false>(                               \
             scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,  \
-            posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X, C, Y, 0,   \
-            stream);                                                         \
+            nullptr, posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X,   \
+            C, Y, 0, stream);                                                \
     }
 #define WAVEFRONT_BWD_TILED_ENTRY(NAME, SPEC)                               \
     int NAME(const void* scal, const void* win, const void* xf,              \
@@ -1269,9 +1336,9 @@ const char* wavefront_error_string(int code) {
              int W, int ND, int NDp, int X, int C, int Y, int TD,            \
              void* stream) {                                                 \
         return launch_bwd<SPEC, false, true>(                                \
-            scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, shifts,   \
-            posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X, C, Y, TD,  \
-            stream);                                                         \
+            scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,  \
+            shifts, posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X, C, \
+            Y, TD, stream);                                                  \
     }
 
 #define WAVEFRONT_BWD_EXP_ENTRY(NAME, SPEC)                                 \
@@ -1283,8 +1350,43 @@ const char* wavefront_error_string(int code) {
              void* stream) {                                                 \
         return launch_bwd<SPEC, true, false>(                                \
             scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,  \
-            posts, totals, trans, acc, G, R, W, ND, NDp, X, C, Y, 0,         \
-            stream);                                                         \
+            nullptr, posts, totals, trans, acc, G, R, W, ND, NDp, X, C, Y,   \
+            0, stream);                                                      \
+    }
+
+// the streamed spec's entry points take the stream est after the features
+// (forward) or after the fwd plane (backward)
+#define WAVEFRONT_FWD_STREAMED_ENTRY(NAME, SPEC)                            \
+    int NAME(const void* scal, const void* win, const void* xf,              \
+             const void* yf, const void* basef, const void* widthf,          \
+             const void* est, void* fwd, int G, int R, int W, int ND,        \
+             int NDp, int X, int C, int Y, void* stream) {                   \
+        return launch_fwd<SPEC, false>(scal, win, xf, yf, basef, widthf,     \
+                                       est, fwd, nullptr, G, R, W, ND, NDp,  \
+                                       X, C, Y, 0, stream);                  \
+    }
+#define WAVEFRONT_BWD_STREAMED_ENTRY(NAME, SPEC)                            \
+    int NAME(const void* scal, const void* win, const void* xf,              \
+             const void* yf, const void* basef, const void* widthf,          \
+             const void* seedf, const void* raggedf, const void* fwd,        \
+             const void* est, void* posts, void* totals, int G, int R,       \
+             int W, int ND, int NDp, int X, int C, int Y, void* stream) {    \
+        return launch_bwd<SPEC, false, false>(                               \
+            scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, est,      \
+            nullptr, posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X,   \
+            C, Y, 0, stream);                                                \
+    }
+#define WAVEFRONT_BWD_EXP_STREAMED_ENTRY(NAME, SPEC)                        \
+    int NAME(const void* scal, const void* win, const void* xf,              \
+             const void* yf, const void* basef, const void* widthf,          \
+             const void* seedf, const void* raggedf, const void* fwd,        \
+             const void* est, void* posts, void* totals, void* trans,        \
+             void* acc, int G, int R, int W, int ND, int NDp, int X, int C,  \
+             int Y, void* stream) {                                          \
+        return launch_bwd<SPEC, true, false>(                                \
+            scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, est,      \
+            nullptr, posts, totals, trans, acc, G, R, W, ND, NDp, X, C, Y,   \
+            0, stream);                                                      \
     }
 
 WAVEFRONT_FWD_ENTRY(wavefront_fwd, Strawman)
@@ -1313,5 +1415,9 @@ WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_sm4, Sm4)
 
 WAVEFRONT_FWD_ENTRY(wavefront_fwd_echelon, Echelon)
 WAVEFRONT_BWD_ENTRY(wavefront_bwd_echelon, Echelon)
+
+WAVEFRONT_FWD_STREAMED_ENTRY(wavefront_fwd_hdp, Hdp)
+WAVEFRONT_BWD_STREAMED_ENTRY(wavefront_bwd_hdp, Hdp)
+WAVEFRONT_BWD_EXP_STREAMED_ENTRY(wavefront_bwd_exp_hdp, Hdp)
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 """Pair-HMM state machines of the port (counterpart of
 ``cpecan_tpu/models/state_machines.py``).
 
-So far the strawman and vanilla 3-state signal machines, the 4-state
+The strawman, HDP and vanilla 3-state signal machines, the 4-state
 signal machine, the 7-state echelon machine (and its echelonB variant) and
 the 5-state DNA machine, each an ``nn.Module`` whose
 buffers are the model tables the wavefront kernels gather from: moving
@@ -89,14 +89,18 @@ class StateMachine3SignalStrawman(nn.Module):
         [8 transitions, start(3), end(3), ragged_end(3)], -inf clamped to
         NEG in f64 before the cast (``StrawmanPallasAligner._scalars``,
         pallas_fb.py:1486-1497)."""
-        p = self.p
-        vals = [p["match_continue"], p["match_from_gap_x"],
-                p["match_from_gap_y"], p["gap_open_x"], p["gap_extend_x"],
-                p["gap_switch_to_x"], p["gap_open_y"], p["gap_extend_y"]]
-        start = self.ragged_start_vec() if ragged_left else self.start_vec()
-        return _scalar_tensor(vals + list(start) + list(self.end_vec())
-                              + list(self.ragged_end_vec()),
-                              self.match_model.device)
+        return _sm3_scalars(self, ragged_left, self.match_model.device)
+
+
+def _sm3_scalars(sm, ragged_left, device):
+    """The 3-state signal machines' kernel scalars (strawman, HDP)."""
+    p = sm.p
+    vals = [p["match_continue"], p["match_from_gap_x"],
+            p["match_from_gap_y"], p["gap_open_x"], p["gap_extend_x"],
+            p["gap_switch_to_x"], p["gap_open_y"], p["gap_extend_y"]]
+    start = sm.ragged_start_vec() if ragged_left else sm.start_vec()
+    return _scalar_tensor(vals + list(start) + list(sm.end_vec())
+                          + list(sm.ragged_end_vec()), device)
 
 
 def _scalar_tensor(vals, device):
@@ -424,6 +428,91 @@ def echelon_from_jax(sm):
     for name in ("default_end_match_prob", "default_end_from_x_prob"):
         setattr(out, name, float(getattr(sm, name)))
     return out
+
+
+class StateMachine3Hdp(nn.Module):
+    """threeState machine with HDP k-mer density emissions
+    (getHdpStateMachine3, stateMachine3Hdp_construct,
+    impl/stateMachine.c:1563-1608): the strawman's topology, transitions
+    and gap-X table; the match and gap-Y emissions are one density, the
+    cubic-spline interpolation of the k-mer's sampled HDP density on the
+    grid (get_nanopore_kmer_density -> grid_spline_interp,
+    impl/hdp.c:2577-2601), evaluated on the card as the emission stream
+    (``ops.features.hdp_stream``).
+
+    ``nhdp`` is a sampled and finalized ``hdp.nanopore_hdp.NanoporeHDP``
+    (anything with its ``density_tables()``).  ``log_density=True`` takes
+    the log of the density; False keeps the reference's raw density where
+    its DP expects a log probability (impl/stateMachine.c:1353), kept on
+    purpose as the JAX package keeps it.
+
+    Buffers (f32, as ``HdpPallasAligner._hdp_tables``): ``tables`` and
+    ``slopes`` [4096, G], the k-mer leaves' densities and spline slopes on
+    the grid, and ``gap_x`` [4096] (log probabilities, -inf clamped to
+    NEG).  ``grid`` [G] stays a host f64 array: the stream reads its
+    first point, step and last point as f32 scalars (``grid_scalars``)."""
+
+    S = 3
+
+    def __init__(self, nhdp, params=None, gap_x_log_probs=None,
+                 log_density=True):
+        super().__init__()
+        self.nhdp = nhdp
+        self.p = dict(params or SM3_NANOPORE_DEFAULTS)
+        self.log_density = bool(log_density)
+        self.gap_x_log_probs = (np.full(NUM_OF_KMERS, LOG_TENTH)
+                                if gap_x_log_probs is None
+                                else np.asarray(gap_x_log_probs))
+        grid, tables, slopes = nhdp.density_tables()
+        self.grid = np.asarray(grid, np.float64)
+        self.register_buffer("tables", torch.from_numpy(np.asarray(
+            tables, np.float32).copy()))
+        self.register_buffer("slopes", torch.from_numpy(np.asarray(
+            slopes, np.float32).copy()))
+        self.register_buffer("gap_x", torch.from_numpy(np.nan_to_num(
+            np.asarray(self.gap_x_log_probs, np.float32), neginf=NEG)))
+
+    start_vec = StateMachine3SignalStrawman.start_vec
+    ragged_start_vec = StateMachine3SignalStrawman.ragged_start_vec
+    end_vec = StateMachine3SignalStrawman.end_vec
+    ragged_end_vec = StateMachine3SignalStrawman.ragged_end_vec
+
+    def scalars(self, ragged_left=False):
+        """The strawman's kernel scalars [1, 17] f32 on the buffers' device
+        (``HdpPallasAligner`` inherits ``StrawmanPallasAligner._scalars``)."""
+        return _sm3_scalars(self, ragged_left, self.tables.device)
+
+    def grid_scalars(self):
+        """(first point, step, last point) of the grid as f32, the step
+        taken in f64 (``_stream_args``' grid0, dx and glast)."""
+        g = self.grid
+        return (float(np.float32(g[0])), float(np.float32(g[1] - g[0])),
+                float(np.float32(g[-1])))
+
+
+class _DensityTables:
+    """Another HDP's density tables as numpy arrays: what
+    ``StateMachine3Hdp`` reads of an HDP."""
+
+    def __init__(self, grid, tables, slopes):
+        self.tables = (np.array(grid, np.float64), np.array(tables),
+                       np.array(slopes))
+
+    def density_tables(self):
+        return self.tables
+
+
+def hdp_from_jax(sm):
+    """The port's HDP machine with the model of the JAX package's
+    ``StateMachine3Hdp``: its HDP's density tables
+    (``sm.nhdp.density_tables()``), transition params, gap-X table and
+    ``log_density``, read as numpy arrays and floats, so that both
+    packages run one sampled model with no second Gibbs run."""
+    return StateMachine3Hdp(_DensityTables(*sm.nhdp.density_tables()),
+                            params=sm.p,
+                            gap_x_log_probs=np.asarray(sm.gap_x_log_probs,
+                                                       np.float64),
+                            log_density=sm.log_density)
 
 
 # Default log transition params of the 5-state machine,

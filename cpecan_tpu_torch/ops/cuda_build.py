@@ -47,6 +47,11 @@ _SIGNATURES.update({f"{name}{suffix}": _SIGNATURES[name]
                         "wavefront_bwd_tiled")})
 _SIGNATURES.update({f"{name}_echelon": _SIGNATURES[name]
                     for name in ("wavefront_fwd", "wavefront_bwd")})
+# hdp (streamed): K1, K2 and K3, each with the stream est after the
+# features (K1) or after the fwd plane (K2, K3)
+_SIGNATURES.update({f"{name}_hdp": [_P] + _SIGNATURES[name]
+                    for name in ("wavefront_fwd", "wavefront_bwd",
+                                 "wavefront_bwd_exp")})
 
 
 class _Library:

@@ -8,9 +8,10 @@ kernels (counterpart of ``cpecan_tpu/ops/pallas_fb.py``
 ``VanillaPallasAligner`` :2619), ``Sm4Aligner`` (the 4-state signal
 machine, ``Sm4PallasAligner`` :3063), ``EchelonAligner`` (the 7-state
 echelon signal machine with multi-state posteriors,
-``EchelonPallasAligner`` :3233) and ``Dna5Aligner`` (the 5-state DNA
-machine, ``Dna5PallasAligner`` :3084) supply the spec, the host feature
-inputs and the device features.
+``EchelonPallasAligner`` :3233), ``HdpAligner`` (the HDP 3-state signal
+machine with a streamed emission, ``HdpPallasAligner`` :2840) and
+``Dna5Aligner`` (the 5-state DNA machine, ``Dna5PallasAligner`` :3084)
+supply the spec, the host feature inputs and the device features.
 
 A batch is packed into groups of R reads.  Each group shares one window of
 W lanes per anti-diagonal (``win[g, d]``, covering the union of the
@@ -33,7 +34,8 @@ kernels re-center each read's carries at every TD-diagonal tile boundary
 and repay the shifts in the posteriors, and the posteriors compact per
 chunk of TD diagonals (``compact.compact_chunks``; extraction:
 ``compact.extract_pairs_long``).  A machine with multi-state posteriors
-(echelon) has no tiled path: such a run raises before any launch.
+(echelon) or a streamed emission (HDP) has no tiled path: such a run
+raises before any launch.
 """
 
 import os
@@ -46,17 +48,18 @@ from ..constants import NUM_OF_KMERS
 from .band import make_bands
 from .compact import compact_chunks, compact_posteriors, host_array
 from .device_bands import device_bands
-from .fb_kernels import (Dna5Spec, EchelonSpec, Sm4Spec, StrawmanSpec,
-                         VanillaSpec, _no_expectations, post_planes,
-                         post_states, wavefront_bwd, wavefront_bwd_exp,
-                         wavefront_bwd_tiled, wavefront_fwd,
-                         wavefront_fwd_tiled)
-from .features import (assemble_dna5_features, assemble_echelon_features,
-                       assemble_features, assemble_vanilla_features,
+from .fb_kernels import (Dna5Spec, EchelonSpec, HdpSpec, Sm4Spec,
+                         StrawmanSpec, VanillaSpec, _no_expectations,
+                         post_planes, post_states, streamed, wavefront_bwd,
+                         wavefront_bwd_exp, wavefront_bwd_tiled,
+                         wavefront_fwd, wavefront_fwd_tiled)
+from .features import (HDP_STREAM_SCRATCH_BYTES, assemble_dna5_features,
+                       assemble_echelon_features, assemble_features,
+                       assemble_hdp_features, assemble_vanilla_features,
                        dna5_feature_inputs, dna5_y_values,
                        echelon_feature_inputs, echelon_skip_logs,
-                       feature_inputs, host_bins, kx_from_codes, upload,
-                       upload_u16)
+                       feature_inputs, hdp_feature_inputs, hdp_stream,
+                       host_bins, kx_from_codes, upload, upload_u16)
 
 # f32 posterior precision is bounded by the total log magnitude, which
 # grows with the diagonal count: past ~16k diagonals the untiled passes
@@ -236,8 +239,13 @@ class WavefrontAligner:
     def device_inputs(self, sm, prep, ragged_left=False):
         """The wavefront passes' inputs on ``self.device``: a dict of
         scal, win, xf, yf, basef, widthf, seedf, raggedf."""
+        sm = sm.to(self.device)
+        xf, yf = self.device_features(sm, prep)
+        return dict(self._band_inputs(sm, prep, ragged_left), xf=xf, yf=yf)
+
+    def _band_inputs(self, sm, prep, ragged_left):
+        """scal, win, basef, widthf, seedf, raggedf on ``self.device``."""
         dev = self.device
-        sm = sm.to(dev)
         Bp, A = prep["anch"].shape[:2]
         G, NDp = prep["win"].shape
         bm = upload(prep["bandmeta"], dev)
@@ -247,18 +255,21 @@ class WavefrontAligner:
         win = bm[na + nm:].reshape(G, NDp)
         basef, widthf, seedf, raggedf = device_bands(
             anch, meta, NDp, int(self.params.diagonal_expansion))
-        xf, yf = self.device_features(sm, prep)
         return dict(scal=sm.scalars(ragged_left=ragged_left), win=win,
-                    xf=xf, yf=yf, basef=basef, widthf=widthf, seedf=seedf,
-                    raggedf=raggedf)
+                    basef=basef, widthf=widthf, seedf=seedf, raggedf=raggedf)
 
     def _check_planes(self, prep, n_rows):
         """Refuse a batch whose fwd [G, n_rows, S, R, W] and posterior
-        [G, n_rows, (NPS,) R, W] planes would not fit the device's
+        [G, n_rows, (NPS,) R, W] planes, and a streamed machine's emission
+        stream [G, ND+3, R, W] (n_rows >= ND + 3) with its build's scratch
+        (HDP_STREAM_SCRATCH_BYTES), would not fit the device's
         PLANE_MEMORY_SHARE, naming the remedies."""
         G, R, W = prep["Bp"] // prep["R"], prep["R"], prep["W"]
-        planes = self.spec.S + len(post_states(self.spec))
+        planes = (self.spec.S + len(post_states(self.spec))
+                  + int(streamed(self.spec)))
         plane_bytes = 4 * G * n_rows * R * W * planes
+        if streamed(self.spec):
+            plane_bytes += HDP_STREAM_SCRATCH_BYTES
         limit = PLANE_MEMORY_SHARE * device_memory_bytes(self.device)
         if plane_bytes > limit:
             raise ValueError(
@@ -276,6 +287,11 @@ class WavefrontAligner:
     def exp_finalize(self, prep, flat):
         """Per-read expectations (numpy f64) from the flat host array (the
         machine's ``_exp_finalize``)."""
+        raise NotImplementedError
+
+    def emission_stream(self, sm, prep, inp):
+        """A streamed machine's emission stream est [G, ND+3, R, W] on
+        ``self.device`` (``_stream_args``)."""
         raise NotImplementedError
 
     def finalize_expectations(self, sm, out):
@@ -325,10 +341,11 @@ class WavefrontAligner:
         ``copy_to_host_async``).
 
         ``stage(name, fn)``, when given, runs each step of the run and
-        returns ``fn()``: "prepare", "inputs", "fwd", "bwd", "compact" (the
-        tiled path: "fwd_tiled", "bwd_tiled"; with ``expectations``:
-        "bwd_exp", "dispatch", "finalize", no "finalize" when deferred), so
-        that a caller can time them."""
+        returns ``fn()``: "prepare", "inputs", a streamed machine's
+        "stream", "fwd", "bwd", "compact" (the tiled path: "fwd_tiled",
+        "bwd_tiled"; with ``expectations``: "bwd_exp", "dispatch",
+        "finalize", no "finalize" when deferred), so that a caller can time
+        them."""
         if mesh is not None:
             raise NotImplementedError(
                 "data-parallel runs are not ported yet (ROADMAP Queue 1 "
@@ -342,16 +359,21 @@ class WavefrontAligner:
             est_x = max(est_x, _round_up(shape_hint[0] + 2, 128))
             est_nd = max(est_nd, shape_hint[1])
         long = est_x >= TILED_MIN_COLUMNS or est_nd >= TILED_MIN_DIAGONALS
-        if post_planes(self.spec) and (long or tile_diag is not None):
-            # the JAX package routes such a run tiled and decodes its
-            # multi-state planes with W lanes per row, which gives wrong
-            # pairs with no error (ROADMAP Queue 3); the port refuses
+        # the JAX package routes a multi-state run tiled and decodes its
+        # planes with W lanes per row, which gives wrong pairs with no
+        # error, and runs a streamed one of 2^14 diagonals or more untiled
+        # with a warning (its tiled path raises for it); the port refuses
+        # both (ROADMAP Queue 3)
+        no_tiles = ("multi-state posteriors" if post_planes(self.spec)
+                    else "streamed emissions" if streamed(self.spec)
+                    else None)
+        if no_tiles and (long or tile_diag is not None):
             raise NotImplementedError(
                 f"~{est_nd} diagonals / {est_x} columns"
                 + (f", tile_diag={tile_diag}" if tile_diag is not None
                    else "")
-                + f": the {self.spec.NAME} machine's multi-state posteriors "
-                "have no tiled path, and f32 posteriors degrade past ~16k "
+                + f": the {self.spec.NAME} machine's {no_tiles} have no "
+                "tiled path, and f32 posteriors degrade past ~16k "
                 f"diagonals untiled: {SPLIT_REMEDY}")
         if expectations and (long or tile_diag is not None):
             # the JAX package runs long expectation runs untiled with a
@@ -374,6 +396,9 @@ class WavefrontAligner:
         inp = stage("inputs", lambda: self.device_inputs(
             sm, prep, ragged_left=ragged_left))
         dims = dict(R=R, W=W, ND=ND, C=C, spec=self.spec)
+        if streamed(self.spec):
+            dims["est"] = stage("stream", lambda: self.emission_stream(
+                sm, prep, inp))
         fwd = stage("fwd", lambda: wavefront_fwd(
             inp["scal"], inp["win"], inp["xf"], inp["yf"], inp["basef"],
             inp["widthf"], **dims))
@@ -533,6 +558,52 @@ class EchelonAligner(StrawmanAligner):
             upload(prep["validm"], dev), upload(prep["ev"], dev), sm.mm4,
             sm.gm4, prep["C"], prep["C"] + prep["X"] + 256,
             sp=None if sp is None else upload(sp, dev))
+
+
+class HdpAligner(StrawmanAligner):
+    """The HDP 3-state signal machine (getHdpStateMachine3; ``models.
+    state_machines.StateMachine3Hdp``) on the wavefront kernels: the
+    strawman's reads, scalars, gap-X row and expectations
+    (``exp_dispatch``, ``exp_finalize``: trans [B, 3, 3], kmer_gap,
+    likelihood); the match and gap-Y emission is the HDP density of the
+    column's k-mer at the event mean, which ``emission_stream`` builds per
+    diagonal (``features.hdp_stream``) and the kernels read
+    (``HdpPallasAligner``, pallas_fb.py:2840-3060).
+
+    As in the JAX package, the stream takes no ``scale_params`` (a given
+    scaling is ignored).  No tiled path (the JAX package has none either) and no data-parallel
+    run yet: a run of 2^14 estimated diagonals or more (where the JAX
+    package only warns), of 2^15 columns or more, given ``tile_diag`` or
+    given ``mesh`` raises before any launch."""
+
+    spec = HdpSpec
+
+    def feature_inputs(self, reads, X):
+        return hdp_feature_inputs(reads, X)
+
+    def device_features(self, sm, prep):
+        return assemble_hdp_features(self._kmers(prep), sm.gap_x)
+
+    def device_inputs(self, sm, prep, ragged_left=False):
+        """The strawman's inputs and "kx" [Bp, X] the column k-mers, which
+        the features and the stream (``emission_stream``) read: the codes
+        go to the device once."""
+        sm = sm.to(self.device)
+        kx = self._kmers(prep)
+        xf, yf = assemble_hdp_features(kx, sm.gap_x)
+        return dict(self._band_inputs(sm, prep, ragged_left), xf=xf, yf=yf,
+                    kx=kx)
+
+    def _kmers(self, prep):
+        return kx_from_codes(upload(prep["codes"], self.device))
+
+    def emission_stream(self, sm, prep, inp):
+        dev = self.device
+        sm = sm.to(dev)
+        return hdp_stream(inp["win"], inp["kx"], upload(prep["evm"], dev),
+                          sm.tables, sm.slopes, sm.grid_scalars(),
+                          R=prep["R"], ND=prep["ND"], W=prep["W"],
+                          log_density=sm.log_density)
 
 
 class Dna5Aligner(WavefrontAligner):

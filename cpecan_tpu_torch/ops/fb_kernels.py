@@ -12,6 +12,7 @@ Counterparts in the JAX package (``cpecan_tpu/ops/pallas_fb.py``):
 ``log_add3``, ``gauss``,   ``_gauss`` (:44-70), ``_inv_gauss`` (:137)
 ``inv_gauss``
 ``StrawmanSpec``           ``_StrawmanSpec`` (:162-207)
+``HdpSpec``                ``_HdpSpec`` (:2829), streamed emissions
 ``Sm4Spec``                ``_Sm4Spec`` (:257-337)
 ``Dna5Spec``               ``_Dna5Spec`` (:340-449)
 ``VanillaSpec``            ``_VanillaSpec`` (:456-517)
@@ -35,7 +36,12 @@ holding cell (x = win[g, d] + l, y = d - x).  ``xf`` [G*R, NXF, X] holds
 the per-x model rows, ``yf`` [G*R, 2, C+X+256] the y elements flipped so
 that column C - y holds element y (a spec's ``Y_ROWS`` rows, 2 unless it
 says otherwise), ``basef``/``widthf``/``seedf``/``raggedf`` [G*R, NDp] the
-band metadata.  Every pass and wrapper takes the machine ``spec``
+band metadata.  A streamed spec (``HdpSpec``) reads its match and gap-Y
+emissions from ``est`` [G, ND+3, R, W] instead, the emission of diagonal d
+at its own window, lane l at x = win[g, d] + l (``features.hdp_stream``);
+a pass that needs them at another window realigns them, NEG outside
+[0, W) (``emissions_at``, pallas_fb.py:977-1000).  Every pass and
+wrapper takes the machine ``spec``
 (``StrawmanSpec`` unless given); its S states shape the forward plane
 [G, ND+1, S, R, W], and the posterior plane is [G, ND+1, R, W] (the match
 state's), or [G, ND+1, NPS, R, W] for a spec with ``POST_STATES`` (echelon:
@@ -53,7 +59,8 @@ diagonals in one launch each: a tile of the TPU kernels is only a
 boundary here, where the carried diagonals re-center.  Every CUDA kernel's
 launches are counted in ``KERNEL_LAUNCHES`` under its entry point's name
 (``wavefront_fwd``, ``wavefront_fwd_dna5``, ``wavefront_fwd_vanilla``,
-``wavefront_fwd_sm4``, ``wavefront_fwd_echelon``, ...); a wrapper's
+``wavefront_fwd_sm4``, ``wavefront_fwd_echelon``, ``wavefront_fwd_hdp``,
+...); a wrapper's
 ``.launches`` reads its strawman entry there.  Each plain version counts
 its calls in ``.calls``.
 """
@@ -205,6 +212,19 @@ class StrawmanSpec:
         probs["oy"] = p(f1a[0] + t[T_OY] + up)
         probs["ey"] = p(f1a[2] + t[T_EY] + up)
         return probs, (probs["ox"] + probs["ex"] + probs["sx"],)
+
+
+class HdpSpec(StrawmanSpec):
+    """The strawman machine with HDP k-mer density emissions
+    (stateMachine3HDP_cellCalculate, impl/stateMachine.c:1337-1366): the
+    strawman's topology, transitions, gap-X row and expectations; the
+    match and gap-Y emission is one spline density, streamed
+    (``STREAMED``): the passes read it from ``est`` rather than computing
+    it from the feature rows (``emissions`` is never called)."""
+
+    NAME = "hdp"
+    SUFFIX = "_hdp"
+    STREAMED = True
 
 
 # 4-state signal machine scalar order: lower(5), middle(4), upper(2)
@@ -637,6 +657,11 @@ def post_planes(spec):
     return (len(spec.POST_STATES),) if hasattr(spec, "POST_STATES") else ()
 
 
+def streamed(spec):
+    """Whether a spec reads its emissions from a stream (``HdpSpec``)."""
+    return getattr(spec, "STREAMED", False)
+
+
 def _tmap(fn, v):
     """fn on each leaf of a spec's emission (a tensor or a tuple of them)."""
     return tuple(fn(x) for x in v) if isinstance(v, tuple) else fn(v)
@@ -651,8 +676,10 @@ def _tmap(fn, v):
 class _Frame:
     """Per-call views shared by the plain passes."""
 
-    def __init__(self, scal, win, xf, yf, basef, widthf, R, W, spec):
+    def __init__(self, scal, win, xf, yf, basef, widthf, R, W, spec,
+                 est=None):
         self.spec = spec
+        self.est = est
         self.G = win.shape[0]
         self.R, self.W = R, W
         dev = xf.device
@@ -690,8 +717,12 @@ class _Frame:
 
     def emissions(self, d, w, C):
         """(x-feature rows, match, gap-Y emission) of diagonal d at
-        x = w[g] + l; the spec reads its Y_ROWS y rows."""
+        x = w[g] + l; the spec reads its Y_ROWS y rows, a streamed spec
+        the stream of d realigned from its own window to w."""
         xfw = self.cols(self.xf, w)
+        if streamed(self.spec):
+            e = self.align(self.est[:, d], w - self.win[:, d])
+            return xfw, e, e
         ys = self.cols(self.yf, C - d + w)
         n = getattr(self.spec, "Y_ROWS", 2)
         return (xfw,) + self.spec.emissions(xfw, *(ys[:, :, i]
@@ -726,12 +757,13 @@ def _recenter(vals, acc):
     return [v - c[..., None] for v in vals], acc + c
 
 
-def _forward(scal, win, xf, yf, basef, widthf, R, W, ND, C, TD, spec):
+def _forward(scal, win, xf, yf, basef, widthf, R, W, ND, C, TD, spec,
+             est=None):
     """The plain forward sweep shared by ``forward_plain`` and
     ``forward_tiled_plain``; with ``TD`` the carries re-center at every
     tile boundary (before diagonal t * TD + 1, t >= 1) and the shift each
     tile's rows carry comes back as [G, R, ND // TD]."""
-    fr = _Frame(scal, win, xf, yf, basef, widthf, R, W, spec)
+    fr = _Frame(scal, win, xf, yf, basef, widthf, R, W, spec, est)
     t, S = fr.t, spec.S
     out = torch.empty((fr.G, ND + 1, S, R, W), dtype=torch.float32,
                       device=xf.device)
@@ -766,12 +798,13 @@ def _forward(scal, win, xf, yf, basef, widthf, R, W, ND, C, TD, spec):
 
 
 def forward_plain(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
-                  spec=StrawmanSpec):
+                  spec=StrawmanSpec, est=None):
     """Plain PyTorch forward pass: fwd plane [G, ND+1, S, R, W] (f32).
-    Out-of-band cells hold exactly NEG."""
+    Out-of-band cells hold exactly NEG.  A streamed spec reads its
+    emissions from ``est`` [G, ND+3, R, W]."""
     forward_plain.calls += 1
     return _forward(scal, win, xf, yf, basef, widthf, R, W, ND, C, None,
-                    spec)
+                    spec, est)
 
 
 forward_plain.calls = 0
@@ -865,11 +898,11 @@ class _Expectations:
 
 
 def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
-              ND, C, with_exp, spec, shifts=None, TD=None):
+              ND, C, with_exp, spec, shifts=None, TD=None, est=None):
     """The plain backward sweep shared by ``backward_plain``,
     ``backward_exp_plain`` and ``backward_tiled_plain``
     (``_sm3_backward_body_w``; with ``TD`` the tiled body)."""
-    fr = _Frame(scal, win, xf, yf, basef, widthf, R, W, spec)
+    fr = _Frame(scal, win, xf, yf, basef, widthf, R, W, spec, est)
     t, S, NS = fr.t, spec.S, spec.NS
     G, dev = fr.G, xf.device
     seed = seedf.reshape(G, R, -1)
@@ -977,23 +1010,23 @@ def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
 
 
 def backward_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
-                   R, W, ND, C, spec=StrawmanSpec):
+                   R, W, ND, C, spec=StrawmanSpec, est=None):
     """Plain PyTorch posterior backward: (posts [G, ND+1, R, W], or
     [G, ND+1, NPS, R, W] for a spec with POST_STATES, totals [G, R]).
     Posterior exp(min(f + b - total, 0.69)) of the match state (or of each
     of the POST_STATES) on in-band cells with 0 < x < d, 0 elsewhere and on
     diagonal 0; the total is the masked log-sum-exp of f + b at each read's
-    seed diagonal."""
+    seed diagonal.  A streamed spec reads its emissions from ``est``."""
     backward_plain.calls += 1
     return _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
-                     R, W, ND, C, with_exp=False, spec=spec)
+                     R, W, ND, C, with_exp=False, spec=spec, est=est)
 
 
 backward_plain.calls = 0
 
 
 def backward_exp_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf,
-                       fwd, *, R, W, ND, C, spec=StrawmanSpec):
+                       fwd, *, R, W, ND, C, spec=StrawmanSpec, est=None):
     """Plain PyTorch expectation backward: ``backward_plain``'s (posts,
     totals) plus the EM sums (diagonalCalculation(_signal)_Expectations,
     impl/pairwiseAligner.c:868-912) of every read:
@@ -1012,11 +1045,12 @@ def backward_exp_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf,
     epilogue adds targets 2 and 1.  The transition sums are per lane over
     the targets, then over the lanes (``block_sum``), as the kernel
     reduces them.  A spec without ``exp_probs_w`` raises
-    (``_no_expectations``)."""
+    (``_no_expectations``); a streamed spec reads its emissions from
+    ``est``."""
     _no_expectations(spec)
     backward_exp_plain.calls += 1
     return _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
-                     R, W, ND, C, with_exp=True, spec=spec)
+                     R, W, ND, C, with_exp=True, spec=spec, est=est)
 
 
 backward_exp_plain.calls = 0
@@ -1093,8 +1127,25 @@ class _Wrapper:
         return KERNEL_LAUNCHES.get(self.__name__, 0)
 
 
-def _geometry(win, xf, yf, scal, R, W, ND, spec):
+def _stream(spec, est, G, R, W, ND):
+    """Check that a streamed spec has its stream est [G, ND+3, R, W] and
+    that no other spec is given one."""
+    if not streamed(spec):
+        if est is not None:
+            raise ValueError(f"the {spec.NAME} machine takes no emission "
+                             "stream (est)")
+        return
+    if est is None:
+        raise ValueError(f"the {spec.NAME} machine reads its emissions from "
+                         "a stream: pass est [G, ND+3, R, W]")
+    if tuple(est.shape) != (G, ND + 3, R, W):
+        raise ValueError(f"est has shape {tuple(est.shape)}, expected "
+                         f"{(G, ND + 3, R, W)}")
+
+
+def _geometry(win, xf, yf, scal, R, W, ND, spec, est=None):
     G, NDp = win.shape
+    _stream(spec, est, G, R, W, ND)
     if ND + 3 > NDp:
         raise ValueError(f"win has {NDp} diagonals, need ND+3 = {ND + 3}")
     if xf.shape[0] != G * R or yf.shape[0] != G * R:
@@ -1114,17 +1165,21 @@ def _geometry(win, xf, yf, scal, R, W, ND, spec):
 
 
 def _launch_fwd(name, scal, win, xf, yf, basef, widthf, R, W, ND, C, spec,
-                TD=None):
+                TD=None, est=None):
     """Launch the forward kernel ``name`` + ``spec.SUFFIX`` of the library
-    on CUDA tensors (the tiled one with ``TD``); returns the fwd plane, and
-    with ``TD`` the shifts [G, R, ND // TD]."""
+    on CUDA tensors (the tiled one with ``TD``; a streamed spec's with
+    ``est``); returns the fwd plane, and with ``TD`` the shifts
+    [G, R, ND // TD]."""
     if xf.device.type != "cuda":
         raise ValueError(f"no wavefront kernel for device {xf.device}")
     from .cuda_build import load_library
 
-    G, NDp, X, Y = _geometry(win, xf, yf, scal, R, W, ND, spec)
-    _check_cuda_inputs(dict(scal=scal, win=win, xf=xf, yf=yf, basef=basef,
-                            widthf=widthf), {"win": torch.int32}, xf.device)
+    G, NDp, X, Y = _geometry(win, xf, yf, scal, R, W, ND, spec, est)
+    named = dict(scal=scal, win=win, xf=xf, yf=yf, basef=basef,
+                 widthf=widthf)
+    if est is not None:
+        named["est"] = est
+    _check_cuda_inputs(named, {"win": torch.int32}, xf.device)
     lib = load_library()
     outs = [torch.empty((G, ND + 1, spec.S, R, W), dtype=torch.float32,
                         device=xf.device)]
@@ -1133,7 +1188,7 @@ def _launch_fwd(name, scal, win, xf, yf, basef, widthf, R, W, ND, C, spec,
                                 device=xf.device))
     stream = torch.cuda.current_stream(xf.device).cuda_stream
     entry = name + spec.SUFFIX
-    args = [_ptr(v) for v in (scal, win, xf, yf, basef, widthf, *outs)]
+    args = [_ptr(v) for v in (*named.values(), *outs)]
     args += [G, R, W, ND, NDp, X, C, Y] + ([TD] if TD else [])
     code = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
     _raise_on(code, lib, entry)
@@ -1142,16 +1197,18 @@ def _launch_fwd(name, scal, win, xf, yf, basef, widthf, R, W, ND, C, spec,
 
 @_Wrapper
 def wavefront_fwd(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
-                  spec=StrawmanSpec):
-    """Forward wavefront -> fwd plane [G, ND+1, S, R, W] f32.  Plain
-    PyTorch for CPU tensors; the CUDA kernel ``sm3_fwd_kernel<spec>`` for
-    CUDA tensors (replaces cpecan_tpu/ops/pallas_fb.py:635
-    _sm3_forward_kernel; entry ``wavefront_fwd`` + ``spec.SUFFIX``)."""
+                  spec=StrawmanSpec, est=None):
+    """Forward wavefront -> fwd plane [G, ND+1, S, R, W] f32; a streamed
+    spec reads its emissions from ``est`` [G, ND+3, R, W].  Plain PyTorch
+    for CPU tensors; the CUDA kernel ``sm3_fwd_kernel<spec>`` for CUDA
+    tensors (replaces cpecan_tpu/ops/pallas_fb.py:635 _sm3_forward_kernel;
+    entry ``wavefront_fwd`` + ``spec.SUFFIX``)."""
     if xf.device.type == "cpu":
+        _stream(spec, est, win.shape[0], R, W, ND)
         return forward_plain(scal, win, xf, yf, basef, widthf, R=R, W=W,
-                             ND=ND, C=C, spec=spec)
+                             ND=ND, C=C, spec=spec, est=est)
     entry, fwd = _launch_fwd("wavefront_fwd", scal, win, xf, yf, basef,
-                             widthf, R, W, ND, C, spec)
+                             widthf, R, W, ND, C, spec, est=est)
     _counted(entry)
     return fwd
 
@@ -1159,18 +1216,21 @@ def wavefront_fwd(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
 
 @_Wrapper
 def wavefront_bwd(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
-                  R, W, ND, C, spec=StrawmanSpec):
+                  R, W, ND, C, spec=StrawmanSpec, est=None):
     """Posterior backward -> (posts [G, ND+1, R, W] or, for a spec with
-    POST_STATES, [G, ND+1, NPS, R, W], totals [G, R]) f32.  Plain PyTorch
-    for CPU tensors; the CUDA kernel ``sm3_bwd_kernel<spec>`` for CUDA
-    tensors (replaces cpecan_tpu/ops/pallas_fb.py:857/:900
-    _sm3_backward_kernel, with_exp=False)."""
+    POST_STATES, [G, ND+1, NPS, R, W], totals [G, R]) f32; a streamed spec
+    reads its emissions from ``est``.  Plain PyTorch for CPU tensors; the
+    CUDA kernel ``sm3_bwd_kernel<spec>`` for CUDA tensors (replaces
+    cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
+    with_exp=False)."""
     if xf.device.type == "cpu":
+        _stream(spec, est, win.shape[0], R, W, ND)
         return backward_plain(scal, win, xf, yf, basef, widthf, seedf,
-                              raggedf, fwd, R=R, W=W, ND=ND, C=C, spec=spec)
+                              raggedf, fwd, R=R, W=W, ND=ND, C=C, spec=spec,
+                              est=est)
     entry, out = _launch_bwd("wavefront_bwd", scal, win, xf, yf, basef,
                              widthf, seedf, raggedf, fwd, R, W, ND, C,
-                             with_exp=False, spec=spec)
+                             with_exp=False, spec=spec, est=est)
     _counted(entry)
     return out
 
@@ -1178,27 +1238,35 @@ def wavefront_bwd(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
 
 @_Wrapper
 def wavefront_bwd_exp(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
-                      *, R, W, ND, C, spec=StrawmanSpec):
+                      *, R, W, ND, C, spec=StrawmanSpec, est=None):
     """Expectation backward -> (posts [G, ND+1, R, W], totals [G, R],
     trans [G, R, S*S], acc [G, NACC, R, X]) f32 (see
-    ``backward_exp_plain``).  Plain PyTorch for CPU tensors; the CUDA
-    kernel ``sm3_bwd_kernel<spec, true, false>`` for CUDA tensors
-    (replaces cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
+    ``backward_exp_plain``); a streamed spec reads its emissions from
+    ``est``.  Plain PyTorch for CPU tensors; the CUDA kernel
+    ``sm3_bwd_kernel<spec, true, false>`` for CUDA tensors (replaces
+    cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
     with_exp=True; entry ``wavefront_bwd_exp`` + ``spec.SUFFIX``)."""
     _no_expectations(spec)
     if xf.device.type == "cpu":
+        _stream(spec, est, win.shape[0], R, W, ND)
         return backward_exp_plain(scal, win, xf, yf, basef, widthf, seedf,
                                   raggedf, fwd, R=R, W=W, ND=ND, C=C,
-                                  spec=spec)
+                                  spec=spec, est=est)
     entry, out = _launch_bwd("wavefront_bwd_exp", scal, win, xf, yf, basef,
                              widthf, seedf, raggedf, fwd, R, W, ND, C,
-                             with_exp=True, spec=spec)
+                             with_exp=True, spec=spec, est=est)
     _counted(entry)
     return out
 
 
 
 def _tiles(ND, TD, spec):
+    if streamed(spec):
+        # the JAX package's tiled path refuses a streamed spec too
+        # (_run_tiled, pallas_fb.py:2459-2462)
+        raise NotImplementedError(
+            f"the {spec.NAME} machine has no tiled kernels (streamed "
+            "emissions)")
     if post_planes(spec):
         # the JAX package has no multi-state tiled path either: its tiled
         # extraction decodes W lanes per row (ROADMAP Queue 3)
@@ -1256,19 +1324,21 @@ def wavefront_bwd_tiled(scal, win, xf, yf, basef, widthf, seedf, raggedf,
 
 
 def _launch_bwd(name, scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
-                R, W, ND, C, with_exp, spec, shifts=None, TD=None):
+                R, W, ND, C, with_exp, spec, shifts=None, TD=None, est=None):
     """Launch the backward kernel ``name`` + ``spec.SUFFIX`` of the library
-    on CUDA tensors (the tiled one with ``shifts`` and ``TD``); returns
-    (entry point, its outputs)."""
+    on CUDA tensors (the tiled one with ``shifts`` and ``TD``; a streamed
+    spec's with ``est``); returns (entry point, its outputs)."""
     if xf.device.type != "cuda":
         raise ValueError(f"no wavefront kernel for device {xf.device}")
     from .cuda_build import load_library
 
-    G, NDp, X, Y = _geometry(win, xf, yf, scal, R, W, ND, spec)
+    G, NDp, X, Y = _geometry(win, xf, yf, scal, R, W, ND, spec, est)
     if tuple(fwd.shape) != (G, ND + 1, spec.S, R, W):
         raise ValueError(f"fwd plane has shape {tuple(fwd.shape)}")
     named = dict(scal=scal, win=win, xf=xf, yf=yf, basef=basef,
                  widthf=widthf, seedf=seedf, raggedf=raggedf, fwd=fwd)
+    if est is not None:
+        named["est"] = est
     if TD:
         named["shifts"] = shifts
     _check_cuda_inputs(named, {"win": torch.int32}, xf.device)

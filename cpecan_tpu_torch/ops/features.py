@@ -35,6 +35,14 @@ k-mer skip bins of each read's (scaled) level means; and
 ``xf`` [B, 33, X] and lays out ``yf`` [B, 8, C+X+256]: the Poisson duration
 posteriors dur_0..dur_5, the event mean and the noise.
 
+HDP: ``hdp_feature_inputs`` (the strawman's base codes and the raw f32
+event means: the HDP stream does not quantize them, ``_stream_args``
+:2913-2917) on the host; ``assemble_hdp_features``
+(``HdpPallasAligner._device_features`` :2846-2866): ``xf`` [B, 9, X] with
+only the gap-X row 8 set and a zero one-column ``yf``; and ``hdp_stream``
+(``_stream_args`` :2884-3060), the per-diagonal emission windows
+[G, ND+3, R, W] of the HDP's spline densities.
+
 Every host array goes to the card through ``upload``: a copy from pinned
 memory that does not wait for the kernels already queued, so that a
 pipeline can prepare its next chunk while the card runs this one.
@@ -431,3 +439,134 @@ def assemble_echelon_features(kx5, la4, validm, ev, mm4, gm4, C, Y,
     yf[:, :6, C - n + 1:C + 1] = echelon_durations(ev[:, :n, 2]).flip(2)
     yf[:, 6:8, C - n + 1:C + 1] = ev[:, :n, :2].flip(1).transpose(1, 2)
     return xf.contiguous(), yf
+
+
+def hdp_feature_inputs(reads, X):
+    """Host inputs of the HDP features: base codes [B, X+5] u8 and the f32
+    event means ``evm`` [B, E+1] (row 0 and the rows past a read's events
+    0.0, as the strawman's ``ev`` column 0), not quantized."""
+    B = len(reads)
+    max_ev = max(r[1].shape[0] for r in reads)
+    evm = np.zeros((B, max_ev + 1), np.float32)
+    for r, (_ref, events, _l_x, _l_y, _a) in enumerate(reads):
+        evm[r, 1:1 + len(events)] = events[:, 0]
+    return dict(codes=base_codes(reads, X), evm=evm)
+
+
+def assemble_hdp_features(kx, gapx):
+    """(xf [B, 9, X], yf [B, 2, 1]) f32 on ``kx``'s device from the column
+    k-mers ``kx`` [B, X] (``kx_from_codes``): xf row 8 is the gap-X log
+    probability of the column's k-mer (NEG where the k-mer is invalid),
+    the other rows are zeros (``_device_features``, pallas_fb.py:
+    2846-2866).  The match and gap-Y emissions come from the stream
+    (``hdp_stream``), so the kernels read no y row: yf is a zero
+    placeholder of one column, where the JAX package passes zeros
+    [B, 2, C+X+256]."""
+    valid = kx <= NUM_OF_KMERS
+    safe = kx.clamp(0, NUM_OF_KMERS - 1)
+    B, X = kx.shape
+    xf = torch.zeros((B, 9, X), dtype=torch.float32, device=kx.device)
+    xf[:, 8] = torch.clamp(torch.where(valid, gapx[safe], NEG), min=NEG)
+    yf = torch.zeros((B, 2, 1), dtype=torch.float32, device=kx.device)
+    return xf, yf
+
+
+# cells of the stream built at once: hdp_stream's per-cell temporaries
+# (int64 table rows, gathered weights, masks) take ~40 B a cell, so a block
+# holds ~170 MB whatever the batch, on top of the stream itself
+HDP_STREAM_BLOCK_CELLS = 2 ** 22
+HDP_STREAM_SCRATCH_BYTES = 40 * HDP_STREAM_BLOCK_CELLS
+
+
+def hdp_stream(win, kx, evm, tables, slopes, grid_scalars, *, R, ND, W,
+               log_density):
+    """The HDP emission stream est [G, ND+3, R, W] f32: lane l of diagonal d
+    of group g holds the emission of cell (x = win[g, d] + l, y = d - x) of
+    each read, the spline density of k-mer k(x) at event mean evm[y]
+    (``_stream_args``, pallas_fb.py:2884-3060; dir_proc_density,
+    impl/hdp.c:2577-2601).
+
+    The JAX package forms it as a matrix product of per-column table rows
+    A[x] = (tab[k(x)], slo[k(x)]) with per-event grid weights Wv[y] (the
+    cubic interpolation's four coefficients at grid i and i + 1, or the
+    end clamps at grid0 and glast) and gathers each diagonal's window from
+    it.  A row of Wv has four non-zeros, so here each cell gathers its four
+    table entries and sums the four products in the contraction's order:
+    f32 throughout, no matrix unit (nothing depends on the caller's TF32
+    settings) and no [B, X, E] intermediate.  The cells are independent:
+    they are built in blocks of diagonals of at most
+    HDP_STREAM_BLOCK_CELLS cells, so that the build needs the stream and
+    HDP_STREAM_SCRATCH_BYTES more.
+
+    ``tables``/``slopes`` [4096, Gl] f32, ``grid_scalars`` the grid's
+    (first point, step, last point) as f32 values, ``win`` [G, NDp] int,
+    ``kx`` [B, X] the column k-mers (``kx_from_codes``), ``evm`` [B, E]
+    f32.  Cells with y outside [0, E) have density 0; with
+    ``log_density`` a density > 0 becomes its log and the others NEG, else
+    (the reference's raw-density mode) the density stays and only invalid
+    k-mers are NEG."""
+    dev = tables.device
+    Gl = tables.shape[1]
+    grid0, dx, glast = (torch.tensor(v, dtype=torch.float32, device=dev)
+                        for v in grid_scalars)
+    B, X = kx.shape
+    G = B // R
+    E = evm.shape[1]
+    valid = kx <= NUM_OF_KMERS
+    safe = kx.clamp(0, NUM_OF_KMERS - 1)
+    # per event: the grid cell i and the weights of tab[i], tab[i + 1],
+    # slo[i], slo[i + 1] (u*y0 + t*y1 + t*u*(a*u + b*t) expanded); below
+    # grid0 tab[0] + slo[0] (m - grid0), above glast the last point's
+    mean = evm
+    i = torch.clamp(((mean - grid0) / dx).to(torch.int32), 0, Gl - 2)
+    t = (mean - (grid0 + i.to(torch.float32) * dx)) / dx
+    u = 1.0 - t
+    w = [u + t * u * u - t * t * u, t + t * t * u - t * u * u,
+         t * u * u * dx, -t * t * u * dx]
+    low = mean <= grid0
+    high = mean >= glast
+    zero = torch.zeros_like(mean)
+    one = torch.ones_like(mean)
+    w = [torch.where(low, e0, torch.where(high, eh, wm)) for wm, e0, eh in (
+        (w[0], one, zero), (w[1], zero, one),
+        (w[2], mean - grid0, zero), (w[3], zero, mean - glast))]
+    i = torch.where(low, 0, torch.where(high, Gl - 2, i)).to(torch.int64)
+    tab = tables.reshape(-1)
+    slo = slopes.reshape(-1)
+    D = ND + 3
+    lane = torch.arange(W, device=dev)
+    est = torch.empty((G, D, R, W), dtype=torch.float32, device=dev)
+    step = max(1, HDP_STREAM_BLOCK_CELLS // (G * R * W))
+    for d0 in range(0, D, step):
+        d1 = min(D, d0 + step)
+        n = d1 - d0
+        # the block's cells: x, y and the read
+        xg = win[:, d0:d1].to(torch.int64)[:, :, None] + lane    # [G, n, W]
+        yg = torch.arange(d0, d1, device=dev)[None, :, None] - xg
+        ok = (yg >= 0) & (yg < E)
+
+        def per_cell(v, idx, m):
+            """v [B, m] read at idx [G, n, W] for each read ->
+            [G, n, R, W]."""
+            v = v.reshape(G, 1, R, m).expand(G, n, R, m)
+            return torch.gather(v, 3, idx[:, :, None, :].expand(G, n, R, W))
+
+        yc = yg.clamp(0, E - 1)
+        xc = xg.clamp(0, X - 1)
+        row = per_cell(safe, xc, X) * Gl + per_cell(i, yc, E)
+        kv = per_cell(valid, xc, X)
+        dens = (per_cell(w[0], yc, E) * tab[row]
+                + per_cell(w[1], yc, E) * tab[row + 1]
+                + per_cell(w[2], yc, E) * slo[row]
+                + per_cell(w[3], yc, E) * slo[row + 1])
+        del row
+        dens = torch.where(ok[:, :, None, :] & kv,
+                           torch.clamp(dens, min=0.0), 0.0)
+        if log_density:
+            # an invalid k-mer's density is 0 (its table row is zeroed):
+            # NEG
+            est[:, d0:d1] = torch.where(
+                dens > 0.0, torch.log(torch.clamp(dens, min=1e-30)), NEG)
+        else:
+            est[:, d0:d1] = torch.where(kv, dens, NEG)
+    return est

@@ -109,6 +109,14 @@ states expand to the same pair): ``check_tsv(multi=True)`` pairs a key's
 rows up in posterior order, and a row past the other file's count for its
 key is a row in one file only.
 
+The HDP emission stream (``check_hdp_stream``): two builds of the stream
+[G, ND+3, R, W] have the same NEG cells (y outside the events, invalid
+k-mers, zero densities in log mode), and the other entries agree within
+HDP_STREAM_ATOL, the bar ``tests/test_pallas.py::
+test_hdp_stream_builds_agree`` holds the JAX package's two builds (matrix
+product and scan) to: f32 sums of the spline's four terms in another
+order.
+
 Each check raises AssertionError with the size of the miss.
 """
 
@@ -136,6 +144,7 @@ LONG_DNA_ENGINE_SCORE_ATOL = 6e-2
 TILED_POST_ATOL, TILED_TOTAL_ATOL = 1e-2, 5e-2
 TSV_POST_ATOL = POST_ATOL + 1.0 / 65535.0 + 1e-6
 TSV_POSTERIOR_COLUMN = 12   # 0-based: column 13 of writePosteriorProbs
+HDP_STREAM_ATOL = 1e-4
 
 
 def band_mask(prep, basef, widthf):
@@ -148,6 +157,23 @@ def band_mask(prep, basef, widthf):
     base = base.transpose(0, 2, 1)[..., None]             # [G, ND+1, R, 1]
     width = width.transpose(0, 2, 1)[..., None]
     return (x >= base) & (x < base + width)
+
+
+def check_hdp_stream(got, want):
+    """Two HDP emission streams [G, ND+3, R, W]: equal NEG masks (entries
+    below -1e29), the rest within HDP_STREAM_ATOL; returns the max |d|."""
+    got, want = _host(got), _host(want)
+    if got.shape != want.shape:
+        raise AssertionError(f"streams of shapes {got.shape} and "
+                             f"{want.shape}")
+    neg = want < -1e29
+    if not np.array_equal(neg, got < -1e29):
+        raise AssertionError(f"the streams' NEG masks differ in "
+                             f"{int((neg != (got < -1e29)).sum())} cells")
+    err = float(np.abs(np.where(neg, 0.0, got - want)).max())
+    if not err < HDP_STREAM_ATOL:
+        raise AssertionError(f"streams differ by {err}")
+    return err
 
 
 def check_fwd(got, want, mask):

@@ -6,7 +6,9 @@ Signal: ``synthetic_batch`` is the counterpart of
 sequences, so both packages get byte-identical reads for the same seed.
 ``echelon_batch`` is the 64-read batch of bench.py's
 ``echelon_alignments_per_sec`` (``bench_echelon``) on the vendored
-template pore model.
+template pore model, and ``hdp_model`` the HDP machine of bench.py's
+``hdp_alignments_per_sec`` (``bench_hdp``), sampled by the port's own copy
+of the HDP.
 
 DNA: ``synth_dna_pair`` is ``tools/exp_long_read.py::synth_dna_pair`` (the
 100 kb pair of bench.py's ``long_read_bases_per_sec``), and
@@ -25,7 +27,8 @@ from .fixtures import fixture_path
 from .io.cigar import parse_cigar_line
 from .io.poremodel import PoreModel, load_pore_model
 from .models.kmers import seq_to_kmer_indices
-from .models.state_machines import (StateMachine3SignalStrawman,
+from .models.state_machines import (StateMachine3Hdp,
+                                    StateMachine3SignalStrawman,
                                     StateMachineEchelon)
 
 
@@ -112,6 +115,34 @@ def echelon_batch(n_reads=64, n_ref=905, n_events=800, seed=6):
                 px, py = x, y
         reads.append((ref, ev, l_x, n_events, anchors))
     return StateMachineEchelon(model), reads
+
+
+def hdp_model():
+    """The HDP machine of bench.py's ``hdp_alignments_per_sec``
+    (``bench_hdp``, the same rng call sequence): a 200-base reference from
+    ``default_rng(1)``, two signals per k-mer (the vendored template
+    model's level mean + N(0, 1)), ``flat_hdp_model_2("ACGT", 6, 1, 1, 1,
+    1, 30, 110, 120, template_median68pA.model)``, Gibbs sampling with 6
+    samples, burn-in 100, thinning 20 (the HDP's own seed, 0), finalized;
+    log densities.  The native sampler runs where it builds, else the
+    Python one (``HierarchicalDirichletProcess.execute_gibbs_sampling``);
+    the one that ran is ``sm.nhdp.hdp.sampler``."""
+    from .hdp.nanopore_hdp import flat_hdp_model_2
+
+    model_path = fixture_path("template_median68pA.model")
+    mm = load_pore_model(model_path).match_model
+    rng = np.random.default_rng(1)
+    ref = "".join(rng.choice(list("ACGT"), 200))
+    kidx = seq_to_kmer_indices(ref)
+    kmers = [ref[p:p + 6] for p in range(len(kidx)) for _ in (0, 1)]
+    signals = [mm[kidx[p], 0] + rng.normal(0, 1.0)
+               for p in range(len(kidx)) for _ in (0, 1)]
+    nhdp = flat_hdp_model_2("ACGT", 6, 1.0, 1.0, 1.0, 1.0, 30.0, 110.0, 120,
+                            model_path)
+    nhdp.update_from_assignments(kmers, signals)
+    nhdp.execute_gibbs_sampling(num_samples=6, burn_in=100, thinning=20)
+    nhdp.finalize_distributions()
+    return StateMachine3Hdp(nhdp)
 
 
 def long_signal_read(l_x=10000, l_y=17000, seed=11):

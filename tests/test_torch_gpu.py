@@ -29,13 +29,14 @@ from cpecan_tpu_torch.ops.compact import (compact_posteriors,
                                           extract_pairs_auto,
                                           extract_pairs_chunk)
 from cpecan_tpu_torch.ops.fb import (Dna5Aligner, EchelonAligner,
-                                     Sm4Aligner, StrawmanAligner,
-                                     VanillaAligner)
+                                     HdpAligner, Sm4Aligner,
+                                     StrawmanAligner, VanillaAligner)
 from cpecan_tpu_torch.parity import (LONG_DNA_ENGINE_SCORE_ATOL, band_mask,
                                      check_dna5_expectations, check_em,
                                      check_exp_kernel,
                                      check_expectations, check_fwd,
-                                     check_long_pairs, check_pair_sets,
+                                     check_hdp_stream, check_long_pairs,
+                                     check_pair_sets,
                                      check_pairs, check_posts, check_tiled,
                                      check_totals, check_trained, check_tsv,
                                      check_vanilla_expectations)
@@ -43,7 +44,7 @@ from cpecan_tpu_torch.pipeline import em
 from cpecan_tpu_torch.pipeline.signal_align_batch import run_batch_fast
 from cpecan_tpu_torch.pipeline.train_models import TrainOptions, train
 from cpecan_tpu_torch.synthetic import (dna_em_batch, dna_realign_batch,
-                                        synthetic_batch)
+                                        hdp_model, synthetic_batch)
 
 pytestmark = pytest.mark.gpu
 
@@ -730,15 +731,83 @@ def test_cuda_echelon_compaction_matches_cpu(batch, cuda):
         assert np.array_equal(a, b)
 
 
+@pytest.fixture(scope="module")
+def hdp_sm():
+    """bench.py's HDP machine, sampled by the port (log densities)."""
+    return hdp_model()
+
+
+def _hdp_inputs(cuda, batch, sm, ragged):
+    pa = HdpAligner(device=cuda, group=8)
+    prep = pa.prepare(sm, batch[1], ragged_right=ragged)
+    inp = pa.device_inputs(sm, prep, ragged_left=ragged)
+    dims = dict(R=prep["R"], W=prep["W"], ND=prep["ND"], C=prep["C"],
+                spec=fk.HdpSpec, est=pa.emission_stream(sm, prep, inp))
+    return pa, prep, inp, dims
+
+
+@pytest.mark.parametrize("mode", ["log", "raw"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_cuda_hdp_kernels_match_plain(batch, cuda, hdp_sm, ragged, mode):
+    """K1, K2 and K3 hdp against their plain versions on the same card
+    inputs and stream: the fwd plane, posteriors, totals and transition
+    sums bit for bit, the gap-X columns within KERNEL_GAPX_ATOL; the
+    card's stream against the one built on the CPU from the same inputs
+    (``check_hdp_stream``)."""
+    sm = hdp_sm
+    if mode == "raw":
+        sm = type(hdp_sm)(hdp_sm.nhdp, log_density=False)
+    pa, prep, inp, dims = _hdp_inputs(cuda, batch, sm, ragged)
+    cpu = HdpAligner(device="cpu", group=8)
+    csm = type(sm)(sm.nhdp, log_density=sm.log_density)
+    cinp = cpu.device_inputs(csm, prep, ragged_left=ragged)
+    check_hdp_stream(dims["est"], cpu.emission_stream(csm, prep, cinp))
+    fk.reset_counts()
+    fwd = _fwd(inp, dims, fk.wavefront_fwd)
+    posts, totals = _bwd(inp, dims, fwd, fk.wavefront_bwd)
+    got = _bwd(inp, dims, fwd, fk.wavefront_bwd_exp)
+    torch.cuda.synchronize()
+    assert fk.KERNEL_LAUNCHES == {"wavefront_fwd_hdp": 1,
+                                  "wavefront_bwd_hdp": 1,
+                                  "wavefront_bwd_exp_hdp": 1}
+    assert fk.forward_plain.calls == fk.backward_plain.calls == 0
+    assert torch.equal(fwd, _fwd(inp, dims, fk.forward_plain))
+    pposts, ptotals = _bwd(inp, dims, fwd, fk.backward_plain)
+    assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
+    assert torch.all(posts[:, 0] == 0.0) and bool((posts > 0.5).any())
+    check_exp_kernel(got, _bwd(inp, dims, fwd, fk.backward_exp_plain))
+    assert torch.equal(got[0], posts) and torch.equal(got[1], totals)
+
+
+def test_cuda_hdp_run_matches_cpu_run(batch, cuda, hdp_sm):
+    """A whole HDP run on the card (stream, K1, K2, compaction) against the
+    same run on the CPU: posteriors, totals and each read's pairs with a
+    saturated top-k (the exact fallback)."""
+    reads = batch[1]
+    card, host = (HdpAligner(device=dev, group=8).run(m, reads,
+                                                      compact_k=64)
+                  for dev, m in ((cuda, hdp_sm),
+                                 ("cpu", type(hdp_sm)(hdp_sm.nhdp))))
+    check_posts(card["posteriors"], host["posteriors"])
+    check_totals(card["totals"], host["totals"])
+    thr = AlignmentParams().threshold
+    for i, b in enumerate(host["prep"]["bands"]):
+        check_pairs(extract_pairs_auto(card, i, b.n_diag, thr),
+                    extract_pairs_auto(host, i, b.n_diag, thr), card, host,
+                    i, thr)
+
+
 @pytest.mark.parametrize("spec", [fk.StrawmanSpec, fk.VanillaSpec,
-                                  fk.Dna5Spec, fk.Sm4Spec, fk.EchelonSpec],
+                                  fk.Dna5Spec, fk.Sm4Spec, fk.EchelonSpec,
+                                  fk.HdpSpec],
                          ids=lambda s: s.NAME)
 def test_cuda_kernels_launch_at_the_widest_window(cuda, spec):
     """Every kernel of a spec launches with W = 1024 threads, the widest
     window the wrappers accept, and equals its plain version there: one
     read whose band covers the whole window for 128 diagonals, seeded at
-    the last (random model rows, events and transitions).  Echelon has
-    K1 and K2 only."""
+    the last (random model rows, events and transitions; for the streamed
+    HDP spec a random emission stream of log densities, some NEG).
+    Echelon has K1 and K2 only; echelon and HDP have no tiled kernels."""
     rng = np.random.default_rng(6)
     R, W, ND = 1, 1024, 128
     X, C = W, ND + 3
@@ -770,6 +839,10 @@ def test_cuda_kernels_launch_at_the_widest_window(cuda, spec):
           dev(np.zeros((1, NDp))), dev(np.full((1, NDp), float(W)))]
     ba = fa + [dev(seedf), dev(np.zeros((1, NDp)))]
     dims = dict(R=R, W=W, ND=ND, C=C, spec=spec)
+    if spec is fk.HdpSpec:
+        est = np.log(rng.uniform(0.01, 0.9, (1, ND + 3, 1, W)))
+        est[rng.random(est.shape) < 0.05] = fk.NEG
+        dims["est"] = dev(est)
     fwd = fk.wavefront_fwd(*fa, **dims)
     assert torch.equal(fwd, fk.forward_plain(*fa, **dims))
     pairs = [(fk.wavefront_bwd, fk.backward_plain)]
@@ -779,7 +852,7 @@ def test_cuda_kernels_launch_at_the_widest_window(cuda, spec):
         got, want = kernel(*ba, fwd, **dims), plain(*ba, fwd, **dims)
         assert torch.isfinite(got[1]).all()
         assert all(torch.equal(g, w) for g, w in zip(got[:3], want[:3]))
-    if hasattr(spec, "POST_STATES"):
+    if hasattr(spec, "POST_STATES") or fk.streamed(spec):
         return
     tfwd, shifts = fk.wavefront_fwd_tiled(*fa, TD=ND, **dims)
     assert torch.equal(tfwd, fwd)

@@ -4,6 +4,7 @@ either, and each module the port keeps its own copy of behaves as its
 original in the JAX package on the repository's fixtures."""
 
 import ast
+import contextlib
 import dataclasses
 import io
 import os
@@ -96,6 +97,30 @@ def test_echelon_runs_with_jax_package_blocked():
         "parts = extract_echelon_pairs_chunk(out, [0, 1], nds, 0.01)\n"
         "assert ALIGNERS['echelon'] is EchelonAligner\n"
         "assert tuple(out['posteriors'].shape[2:4]) == (5, 2)\n"
+        "print(sum(map(len, parts)))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) > 50
+
+
+def test_hdp_runs_with_jax_package_blocked():
+    """The port's HDP (its sampler, the bench recipe's machine) and an
+    ``HdpAligner`` run with its emission stream run in a process where
+    ``jax`` and ``cpecan_tpu`` cannot be imported (a small plain run on
+    the CPU)."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = sys.modules['cpecan_tpu'] = None\n"
+        "from cpecan_tpu_torch.ops.fb import HdpAligner\n"
+        "from cpecan_tpu_torch.ops.compact import extract_pairs_chunk\n"
+        "from cpecan_tpu_torch.synthetic import hdp_model, synthetic_batch\n"
+        "sm = hdp_model()\n"
+        "assert sm.nhdp.hdp.sampler in ('native', 'python')\n"
+        "_, reads = synthetic_batch(n_reads=2, n_ref=60, n_events=50)\n"
+        "out = HdpAligner(device='cpu', group=2).run(sm, reads)\n"
+        "nds = [b.n_diag for b in out['prep']['bands']]\n"
+        "parts = extract_pairs_chunk(out, [0, 1], nds, 0.01)\n"
         "print(sum(map(len, parts)))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -496,6 +521,186 @@ def case_target_regions(tmp_path):
             mod.TargetRegions(str(tmp_path / "empty.tsv"))
 
 
+def _tiny_hdp(mod, seed, sample_gamma=False):
+    """tests/test_hdp_interop.py's tiny HDP (4 leaves under one root, two
+    signal clusters), built and fed data by ``mod`` (either package's
+    ``hdp.hdp``), not yet sampled."""
+    rng = np.random.default_rng(seed)
+    data = np.concatenate([rng.normal(-2.0, 0.5, 150),
+                           rng.normal(2.0, 0.5, 150)])
+    dp_ids = np.concatenate([rng.integers(0, 2, 150),
+                             rng.integers(2, 4, 150)])
+    kwargs = dict(grid_start=-8.0, grid_stop=8.0, grid_length=120,
+                  mu=0.0, nu=1.0, alpha=2.0, beta=5.0, seed=seed)
+    if sample_gamma:
+        hdp = mod.HierarchicalDirichletProcess(
+            5, 2, gamma_alpha=[2.0, 2.0], gamma_beta=[0.5, 0.5], **kwargs)
+    else:
+        hdp = mod.HierarchicalDirichletProcess(5, 2, gamma=[4.0, 4.0],
+                                               **kwargs)
+    for leaf in range(4):
+        hdp.set_dir_proc_parent(leaf, 4)
+    hdp.finalize_structure()
+    hdp.pass_data(data, dp_ids)
+    return hdp
+
+
+@contextlib.contextmanager
+def _factor_order():
+    """Both packages' HDP factors hashed by their creation order, while the
+    context lasts (build, sample and read an HDP inside it).  A factor
+    hashes by its id otherwise, so the order in
+    which the Python sampler visits a set of factors (and the JSON state
+    lists them) follows memory addresses: neither package repeats its own
+    draws from one seed.  With the creation order as the hash both do, and
+    a copy of the sampler must repeat the original's draws."""
+    from cpecan_tpu.hdp import hdp as j_hdp
+    from cpecan_tpu_torch.hdp import hdp as t_hdp
+
+    saved = []
+    for mod in (t_hdp, j_hdp):
+        cls = mod.Factor
+        serial = {}
+        init = cls.__init__
+
+        def counted_init(self, *a, _init=init, _serial=serial, **kw):
+            _serial[id(self)] = len(_serial)
+            _init(self, *a, **kw)
+
+        saved.append((cls, init, cls.__hash__))
+        cls.__init__ = counted_init
+        cls.__hash__ = lambda self, _serial=serial: _serial[id(self)]
+    try:
+        yield
+    finally:
+        for cls, init, hash_ in saved:
+            cls.__init__, cls.__hash__ = init, hash_
+
+
+def _hdp_samplers(backend, sample_gamma):
+    """Both packages' tiny HDPs sampled by ``backend`` with one seed (and
+    ``_factor_order``): the densities and slopes on the grid, the gammas
+    and the sample count equal bit for bit."""
+    from cpecan_tpu.hdp import hdp as j_hdp
+    from cpecan_tpu.hdp import native as j_native
+    from cpecan_tpu_torch.hdp import hdp as t_hdp
+    from cpecan_tpu_torch.hdp import native as t_native
+
+    if j_native.native_available():
+        assert t_native.native_available()
+    got, want = [], []
+    for mod, out in ((t_hdp, got), (j_hdp, want)):
+        with _factor_order():
+            h = _tiny_hdp(mod, 3, sample_gamma)
+            h.execute_gibbs_sampling(num_samples=8, burn_in=3500,
+                                     thinning=100, backend=backend)
+            h.finalize_distributions()
+        out.append(h)
+    got, want = got[0], want[0]
+    assert got.sampler == ("python" if backend == "python" or not
+                           t_native.native_available() else "native")
+    for g, w in zip(got.density_tables(), want.density_tables()):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got.gamma, want.gamma)
+    assert got.samples_taken == want.samples_taken > 0
+
+
+def case_hdp_python_sampler():
+    _hdp_samplers("python", sample_gamma=True)
+
+
+def case_hdp_native_sampler():
+    """The native sampler (the port's build of the copied source, or, where
+    no C++ toolchain builds it, the Python fallback of both packages)."""
+    _hdp_samplers("auto", sample_gamma=False)
+    _hdp_samplers("auto", sample_gamma=True)
+
+
+def case_hdp_serialization(tmp_path):
+    """The JSON sampler state (``serialize``/``deserialize``) and the
+    NanoporeHDP wrapper file: the port writes the JAX package's bytes, and
+    each reads the other's back to equal densities."""
+    from cpecan_tpu.hdp import hdp as j_hdp
+    from cpecan_tpu.hdp import nanopore_hdp as j_nhdp
+    from cpecan_tpu_torch.hdp import hdp as t_hdp
+    from cpecan_tpu_torch.hdp import nanopore_hdp as t_nhdp
+
+    paths = [str(tmp_path / f"{n}.json") for n in ("t", "j")]
+    hdps = []
+    for mod, path in zip((t_hdp, j_hdp), paths):
+        with _factor_order():
+            h = _tiny_hdp(mod, 5)
+            h.execute_gibbs_sampling(num_samples=4, burn_in=900,
+                                     thinning=100, backend="python")
+            h.finalize_distributions()
+            h.serialize(path)
+        hdps.append(h)
+    assert open(paths[0]).read() == open(paths[1]).read()
+    x = np.linspace(-6.3, 6.3, 41)
+    for mod, path in ((t_hdp, paths[1]), (j_hdp, paths[0])):
+        back = mod.HierarchicalDirichletProcess.deserialize(path)
+        for dp_id in range(5):
+            np.testing.assert_array_equal(
+                back.dir_proc_density_vec(x, dp_id),
+                hdps[1].dir_proc_density_vec(x, dp_id))
+    for mod, h, name in ((t_nhdp, hdps[0], "t"), (j_nhdp, hdps[1], "j")):
+        mod.NanoporeHDP(h, "ACGT", 1).serialize(str(tmp_path / f"{name}.n"))
+    got = t_nhdp.NanoporeHDP.deserialize(str(tmp_path / "j.n"))
+    assert (got.alphabet, got.kmer_length) == ("ACGT", 1)
+    for g, w in zip(got.density_tables(),
+                    j_nhdp.NanoporeHDP.deserialize(
+                        str(tmp_path / "t.n")).density_tables()):
+        np.testing.assert_array_equal(g, w)
+
+
+def case_hdp_text_io(tmp_path):
+    """The reference text format (``text_io``): the port writes the JAX
+    package's text for the HDP and the NanoporeHDP, and reads it back to
+    the same densities and factor counts."""
+    from cpecan_tpu.hdp import hdp as j_hdp
+    from cpecan_tpu.hdp import nanopore_hdp as j_nhdp
+    from cpecan_tpu.hdp import text_io as j_text
+    from cpecan_tpu_torch.hdp import hdp as t_hdp
+    from cpecan_tpu_torch.hdp import nanopore_hdp as t_nhdp
+    from cpecan_tpu_torch.hdp import text_io as t_text
+
+    hdps, texts = [], []
+    for mod, text in ((t_hdp, t_text), (j_hdp, j_text)):
+        buf = io.StringIO()
+        with _factor_order():
+            h = _tiny_hdp(mod, 7, sample_gamma=True)
+            h.execute_gibbs_sampling(num_samples=4, burn_in=900,
+                                     thinning=100, backend="python")
+            h.finalize_distributions()
+            text.serialize_hdp_text(h, buf)
+        hdps.append(h)
+        texts.append(buf.getvalue())
+    assert texts[0] == texts[1]
+    back = t_text.deserialize_hdp_text(io.StringIO(texts[1]))
+    x = np.linspace(-6.3, 6.3, 41)
+    for dp_id in range(5):
+        np.testing.assert_array_equal(back.dir_proc_density_vec(x, dp_id),
+                                      hdps[1].dir_proc_density_vec(x, dp_id))
+        assert len(back.dps[dp_id].factors) == \
+            len(hdps[1].dps[dp_id].factors)
+    for mod, text, h, name in ((t_nhdp, t_text, hdps[0], "t"),
+                               (j_nhdp, j_text, hdps[1], "j")):
+        text.serialize_nhdp_text(mod.NanoporeHDP(h, "ACGT", 1),
+                                 str(tmp_path / name))
+    assert (tmp_path / "t").read_text() == (tmp_path / "j").read_text()
+    got = t_text.deserialize_nhdp_text(str(tmp_path / "j"))
+    for g, w in zip(got.density_tables(), j_nhdp.NanoporeHDP(
+            hdps[1], "ACGT", 1).density_tables()):
+        np.testing.assert_array_equal(g, w)
+
+
+def case_hdp_gibbs_source():
+    """The native HDP sampler is the JAX package's source, byte for byte
+    (the port builds it into build/, not next to the source)."""
+    assert (PACKAGE / "native" / "hdp_gibbs.cc").read_bytes() == \
+        (REPO / "cpecan_tpu" / "native" / "hdp_gibbs.cc").read_bytes()
+
+
 def case_tsv_format_source():
     """The native tsv formatter is the JAX package's source, byte for
     byte (the port builds it into build/, not next to the source)."""
@@ -510,7 +715,9 @@ CASES = {f.__name__[5:]: f for f in (
     case_anchors, case_checkpoint, case_rng_state_json,
     case_constants_and_fixture_paths, case_reweight,
     case_multiple_aligner, case_cigar_io, case_fasta_io, case_hmm_discrete,
-    case_synth_dna_pair, case_target_regions, case_tsv_format_source)}
+    case_synth_dna_pair, case_target_regions, case_tsv_format_source,
+    case_hdp_python_sampler, case_hdp_native_sampler,
+    case_hdp_serialization, case_hdp_text_io, case_hdp_gibbs_source)}
 
 
 @pytest.mark.parametrize("name", list(CASES))
