@@ -70,7 +70,9 @@ machine and the HDP machine through them:
    workload (synth_dna_pair(default_rng(7), 100_000), group 8,
    compact_k=2048, tile_diag=2048, extract_pairs_long): bases/s end to end
    (median of 3 after a warm-up), a stage split, peak device memory,
-   coverage >= 98% of x, and K6a/K6b dna5 ms per launch; then K6a/K6b dna5
+   coverage >= 98% of x, and K6a/K6b dna5 ms per launch and ns a diagonal,
+   their bounds for the pair's row and for all 8 rows of its group, and
+   their ptxas report (stored beside a cached library); then K6a/K6b dna5
    against their plain versions at that run's geometry (G 1, R 8, W 128,
    TD 2048) on a 2 kb pair of the same generator (two tiles): fwd plane,
    shifts, posteriors and totals equal bit for bit, equal pairs, and the
@@ -435,14 +437,16 @@ def main():
     log(f"build: {path.name} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {'%.2f s' % build_s if build_s is not None else 'cached'})")
     # one line per kernel instance: its registers and spill
-    kernel = None
+    kernel, ptxas = None, {}
     for line in build_log.splitlines():
-        m = re.search(r"sm3_(fwd|bwd)_kernelINS_\d+(\w+?)E((?:Lb[01]E)+)",
-                      line)
+        m = re.search(r"sm3_(fwd|bwd)_(kernel|tiled_sel)INS_\d+(\w+?)E"
+                      r"((?:Lb[01]E)*)", line)
         if m:
-            flags = ", ".join(re.findall(r"Lb([01])E", m.group(3)))
-            kernel = f"sm3_{m.group(1)}_kernel<{m.group(2)}, {flags}>"
+            flags = "".join(", " + f
+                            for f in re.findall(r"Lb([01])E", m.group(4)))
+            kernel = f"sm3_{m.group(1)}_{m.group(2)}<{m.group(3)}{flags}>"
         elif "registers" in line or "spill" in line:
+            ptxas.setdefault(kernel, []).append(line.strip())
             log(f"  ptxas: {kernel}: {line.strip()}")
 
     # -- 3. kernels vs plain on the first bench chunk --------------------
@@ -1185,18 +1189,44 @@ def main():
             *bba, bfwd, bsh, **bd), 3))
     bcells = sum(int(b.width.sum()) for b in bprep["bands"])
     bounds.update(
-        dna5_fwd_long=bound(bfa + [bfwd, bsh], bcells,
-                            FLOPS_PER_CELL["dna5_fwd"]),
-        dna5_bwd_long=bound(bba + [bfwd, bsh, bposts, btot], bcells,
-                            FLOPS_PER_CELL["dna5_bwd"]))
+        dna5_fwd_long_padded=bound(bfa + [bfwd, bsh], bcells,
+                                   FLOPS_PER_CELL["dna5_fwd"]),
+        dna5_bwd_long_padded=bound(bba + [bfwd, bsh, bposts, btot], bcells,
+                                   FLOPS_PER_CELL["dna5_bwd"]))
     bgeom = (len(bprep["win"]), bd["R"], bd["W"], bd["TD"])
+    # the bound of the real work: the pair's row of its group (G 1; the
+    # other R - 1 rows are padding) of the per-row inputs (axis 0), the
+    # planes (R axis -2), the shifts and the totals (axis 1)
+    nr = len(bprep["bands"])
+    if bgeom[0] != 1:
+        raise AssertionError(f"the 100 kb pair runs in {bgeom[0]} groups")
+    rfa = bfa[:2] + [t[:nr] for t in bfa[2:]]
+    rba = rfa + [t[:nr] for t in bba[len(bfa):]]
+    rfwd, rsh = bfwd[..., :nr, :], bsh[:, :nr]
+    bounds.update(
+        dna5_fwd_long=bound(rfa + [rfwd, rsh], bcells,
+                            FLOPS_PER_CELL["dna5_fwd"]),
+        dna5_bwd_long=bound(rba + [rfwd, rsh, bposts[..., :nr, :],
+                                   btot[:, :nr]], bcells,
+                            FLOPS_PER_CELL["dna5_bwd"]))
     log(f"long DNA kernels (G={bgeom[0]}, R={bd['R']}, NDT={bd['ND']}, "
         f"W={bd['W']}, {bcells} band cells): K6a dna5 "
         f"{ms['dna5_fwd_long']:.3f} ms, K6b dna5 {ms['dna5_bwd_long']:.3f} "
-        f"ms per launch; bounds {bounds['dna5_fwd_long'][0]:.4f} ms "
+        f"ms per launch ({ms['dna5_fwd_long'] * 1e6 / bd['ND']:.1f} / "
+        f"{ms['dna5_bwd_long'] * 1e6 / bd['ND']:.1f} ns a diagonal); "
+        f"bounds {bounds['dna5_fwd_long'][0]:.4f} ms "
         f"({bounds['dna5_fwd_long'][1]}) / {bounds['dna5_bwd_long'][0]:.4f}"
-        f" ms ({bounds['dna5_bwd_long'][1]})")
-    del bfwd, bposts, bfa, bba
+        f" ms ({bounds['dna5_bwd_long'][1]}) for the pair's {nr} row, "
+        f"{bounds['dna5_fwd_long_padded'][0]:.4f} / "
+        f"{bounds['dna5_bwd_long_padded'][0]:.4f} ms counting all "
+        f"{bd['R']} rows' planes")
+    # the dna5 tiled kernels' registers and spill
+    for name in ("sm3_fwd_tiled_sel<Dna5>", "sm3_bwd_tiled_sel<Dna5>"):
+        if name not in ptxas:
+            raise AssertionError(f"no ptxas report for {name}")
+        for line in ptxas[name]:
+            log(f"  ptxas: {name}: {line}")
+    del bfwd, bposts, bfa, bba, rfa, rba, rfwd, rsh
     torch.cuda.synchronize()
 
     # K6a/K6b dna5 against their plain versions at the main path's geometry
@@ -2596,15 +2626,21 @@ def main():
 
     src = "cpecan_tpu_torch/csrc/wavefront.cu"
 
-    def entry(name, replaces, launches, err, key, bkey):
-        return {"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": ms[key],
-                "plain_ms": ms[key + "_plain"],
-                "bound_ms": bounds[bkey][0], "bound_by": bounds[bkey][1],
-                # no single PyTorch call computes a banded pair-HMM
-                # wavefront
-                "library_ms": None}
+    def entry(name, replaces, launches, err, key, bkey, main=None):
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": err, "ms": ms[key],
+               "plain_ms": ms[key + "_plain"],
+               "bound_ms": bounds[bkey][0], "bound_by": bounds[bkey][1],
+               # no single PyTorch call computes a banded pair-HMM
+               # wavefront
+               "library_ms": None}
+        if main:
+            # the same kernel on the main path's own inputs: the bound of
+            # its real rows, and of all rows of its groups
+            row.update(main_ms=ms[main], main_bound_ms=bounds[main][0],
+                       main_bound_ms_padded=bounds[main + "_padded"][0])
+        return row
 
     exact = 0.0   # phases 3, 10, 12, 13, 19, 21-24, 27 hold these bit for bit
     log(json.dumps({"kernels": [
@@ -2623,7 +2659,9 @@ def main():
               long_launches["wavefront_bwd_tiled"], exact, "bwd_long",
               "bwd_long"),
         # phase 13 holds K1/K2 dna5 bit for bit, phase 16's check pair
-        # K6a/K6b dna5 (their ms, plain ms and bound are on that pair)
+        # K6a/K6b dna5 (their ms, plain ms and bound are on that pair;
+        # main_ms, main_bound_ms and main_bound_ms_padded on the 100 kb
+        # pair)
         entry("wavefront_fwd_dna5",
               "cpecan_tpu/ops/pallas_fb.py:635 (_Dna5Spec :340)",
               dna_counts["wavefront_fwd_dna5"], exact, "dna5_fwd",
@@ -2635,11 +2673,11 @@ def main():
         entry("wavefront_fwd_tiled_dna5",
               "cpecan_tpu/ops/pallas_fb.py:2304 (_Dna5Spec :340)",
               big_counts["wavefront_fwd_tiled_dna5"], derr,
-              "dna5_fwd_tiled", "dna5_fwd_tiled"),
+              "dna5_fwd_tiled", "dna5_fwd_tiled", main="dna5_fwd_long"),
         entry("wavefront_bwd_tiled_dna5",
               "cpecan_tpu/ops/pallas_fb.py:2332 (_Dna5Spec :340)",
               big_counts["wavefront_bwd_tiled_dna5"], derr,
-              "dna5_bwd_tiled", "dna5_bwd_tiled"),
+              "dna5_bwd_tiled", "dna5_bwd_tiled", main="dna5_bwd_long"),
         # phase 17 holds K3 dna5 to its plain version (ms, plain ms and
         # bound on its equalised-machine inputs); launches from phase 18's
         # cPecanEm run

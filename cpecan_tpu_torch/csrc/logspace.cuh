@@ -39,6 +39,35 @@ __device__ __forceinline__ float log_add3(float a, float b, float c) {
     return log_add(log_add(a, b), c);
 }
 
+// log_add without branches, for the tiled dna5 kernels (sm3_fwd_tiled_sel,
+// sm3_bwd_tiled_sel): the same interval tests select the four coefficients
+// of the gap's cubic, then one Horner evaluation.  Under --fmad=false these
+// are the same f32 operations, in the same order, as the branch log_add
+// takes, so the two agree bit for bit (and with fb_kernels.log_add, which
+// evaluates all four cubics and selects); lanes of a warp at different gaps
+// no longer diverge.  Coefficients by interval (d <= 1.0, <= 2.5, <= 4.5,
+// else), highest power first; a gap >= 7.5 still gives hi.
+__device__ __forceinline__ float log_add_sel(float x, float y) {
+    const float lo = fminf(x, y);
+    const float hi = fmaxf(x, y);
+    const float d = hi - lo;
+    const bool i0 = d <= 1.0f, i1 = d <= 2.5f, i2 = d <= 4.5f;
+    const float c3 = i0 ? -0.009350833524763f : i1 ? -0.014532321752540f
+                   : i2 ? -0.004605031767994f : -0.000458661602210f;
+    const float c2 = i0 ? 0.130659527668286f : i1 ? 0.139942324101744f
+                   : i2 ? 0.063427417320019f : 0.009695946122598f;
+    const float c1 = i0 ? 0.498799810682272f : i1 ? 0.495635523139337f
+                   : i2 ? 0.695956496475118f : 0.930734667215156f;
+    const float c0 = i0 ? 0.693203116424741f : i1 ? 0.692140569840976f
+                   : i2 ? 0.514272634594009f : 0.168037164329057f;
+    const float lk = ((c3 * d + c2) * d + c1) * d + c0;
+    return d >= 7.5f ? hi : lk + lo;
+}
+
+__device__ __forceinline__ float log_add3_sel(float a, float b, float c) {
+    return log_add_sel(log_add_sel(a, b), c);
+}
+
 // Exact log(exp(a) + exp(b)) (log1p of exp, not the cubic): the echelon
 // multi-k-mer fold (_exact_log_add, pallas_fb.py:520-525).
 __device__ __forceinline__ float exact_log_add(float a, float b) {

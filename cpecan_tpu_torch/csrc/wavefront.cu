@@ -41,6 +41,13 @@
 //   sm3_bwd_kernel<Spec, false, true>
 //                          <- _sm3_backward_kernel(tile=...) (:2332), the
 //                             shifts repaid as shf (:947, :1170, :1193) K6b
+//   sm3_fwd_tiled_sel<Dna5>, sm3_bwd_tiled_sel<Dna5>
+//                          <- K6a and K6b for the 5-state DNA machine (the
+//                             100 kb pair's path): the same recurrences
+//                             with a shorter step (the note above
+//                             sm3_fwd_tiled_sel); the tiled instances of
+//                             the two templates above serve Strawman,
+//                             Vanilla and Sm4
 //
 // Layout (identical to the JAX planes, index for index): G groups of R
 // reads, one group window of W lanes per diagonal starting at x = win[g, d],
@@ -430,6 +437,63 @@ struct Dna5 : OneMatch {
         out[2] = log_add(mid + t[T5_MSY], up_s + t[T5_SEY]);
         out[3] = log_add(mid + t[T5_MLX], low_l + t[T5_LEX]);
         out[4] = log_add(mid + t[T5_MLY], up_l + t[T5_LEY]);
+    }
+
+    // The forms of sm3_fwd_tiled_sel and sm3_bwd_tiled_sel: the same
+    // arithmetic on the cell's inputs loaded into registers (in:
+    // yf rows 0-1 at the cell's column, then xf rows 0-5), with the
+    // branch-free log_add_sel
+    __device__ __forceinline__ static Emissions emissions_in(
+            const float* in) {
+        const float b = in[0];
+        float m = b == 0.0f ? in[YR + 0] : 0.0f;
+        m = m + (b == 1.0f ? in[YR + 1] : 0.0f);
+        m = m + (b == 2.0f ? in[YR + 2] : 0.0f);
+        m = m + (b == 3.0f ? in[YR + 3] : 0.0f);
+        m = m + (b == 4.0f ? in[YR + 4] : 0.0f);
+        Emissions e;
+        e.match = m;
+        e.gap_y = in[1];
+        return e;
+    }
+
+    __device__ __forceinline__ static void fwd_update_sel(
+            const float* t, const float* p1m, const float* p1a,
+            const float* p2m, const Emissions& e, float e_gapx, float* out) {
+        out[0] = log_add_sel(log_add3_sel(p2m[0] + t[T5_MM],
+                                          p2m[1] + t[T5_MSX],
+                                          p2m[2] + t[T5_MSY]),
+                             log_add_sel(p2m[3] + t[T5_MLX],
+                                         p2m[4] + t[T5_MLY]))
+                 + e.match;
+        out[1] = log_add_sel(p1m[0] + t[T5_SOX], p1m[1] + t[T5_SEX])
+                 + e_gapx;
+        out[2] = log_add_sel(p1a[0] + t[T5_SOY], p1a[2] + t[T5_SEY])
+                 + e.gap_y;
+        out[3] = log_add_sel(p1m[0] + t[T5_LOX], p1m[3] + t[T5_LEX])
+                 + e_gapx;
+        out[4] = log_add_sel(p1a[0] + t[T5_LOY], p1a[4] + t[T5_LEY])
+                 + e.gap_y;
+    }
+
+    // e_gapx_p: the gap-X row at next_col(x)
+    __device__ __forceinline__ static void bwd_update_sel(
+            const float* t, float e_gapx_p, float eg1, const float* em2p,
+            const float* n1a, const float* n1p, const float* n2p,
+            float* out) {
+        const float mid = em2p[0] + n2p[0];
+        const float low_s = e_gapx_p + n1p[1];
+        const float low_l = e_gapx_p + n1p[3];
+        const float up_s = eg1 + n1a[2];
+        const float up_l = eg1 + n1a[4];
+        out[0] = log_add_sel(log_add3_sel(mid + t[T5_MM], low_s + t[T5_SOX],
+                                          low_l + t[T5_LOX]),
+                             log_add_sel(up_s + t[T5_SOY],
+                                         up_l + t[T5_LOY]));
+        out[1] = log_add_sel(mid + t[T5_MSX], low_s + t[T5_SEX]);
+        out[2] = log_add_sel(mid + t[T5_MSY], up_s + t[T5_SEY]);
+        out[3] = log_add_sel(mid + t[T5_MLX], low_l + t[T5_LEX]);
+        out[4] = log_add_sel(mid + t[T5_MLY], up_l + t[T5_LEY]);
     }
 
     // EM expectations: the 13 transitions (register k -> lane frm*5 + to,
@@ -1219,6 +1283,385 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
     }
 }
 
+// ---------------------------------------------------------------------------
+// The tiled kernels of the 5-state DNA machine (K6a, K6b dna5): the tiled
+// recurrences of sm3_fwd_kernel<Spec, true> / sm3_bwd_kernel<Spec, false,
+// true>, computed identically, with a shorter step.  On the lone long pair
+// (the 100 kb DNA pair: one real block of W = 128 threads, 200,704
+// diagonals on one SM, one warp per scheduler) nothing hides a stall, so a
+// step costs its whole instruction stream plus whatever load it waits on
+// (1.30 / 1.79 us a diagonal on the H100 with the templates above).  What
+// goes (PERF.md section 6):
+//  - divergence: the eight log-adds of a step are log_add_sel, one Horner
+//    form on selected coefficients, where lanes of a warp at different
+//    gaps walked up to four cubics of the branch log_add (the largest
+//    cost of a step);
+//  - bookkeeping: the three ring slots rotate as pointers (no % 3 a step)
+//    and a down-counter finds the tile boundary (no % TD); the backward's
+//    end vectors sit in shared memory, read on seed diagonals only;
+//  - waits on memory: the backward's one DRAM read a step, the posterior
+//    state's fwd plane entry, is copied F_AHEAD diagonals ahead into
+//    shared memory with cp.async (each lane its own entry, one group a
+//    step; the other four states' entries are read on the seed diagonal
+//    only), and the lines of the band scalars (both kernels) and of the
+//    rows (the backward) are prefetched into L1 L1_AHEAD diagonals ahead.
+//    The rest of a cell's inputs are L1 hits, loaded unconditionally at the
+//    top of the step so that they overlap the log-add chain; staging all
+//    of them in shared memory with cp.async made K6a slower and K6b no
+//    faster.
+// The re-centering, one block per read, one thread per lane, the
+// three-slot carried ring and one barrier per diagonal are as in the
+// templates above.
+
+// 4-byte asynchronous copy global -> shared (sm_80+), and its groups
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a hint to bring p's line into L1 (no register waits on it)
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
+}
+
+// how many diagonals ahead sm3_bwd_tiled_sel copies its fwd plane entries,
+// and how far ahead both kernels prefetch the lines of their band scalars
+// (one line holds 32 diagonals) and the backward those of its rows
+constexpr int F_AHEAD = 3, L1_AHEAD = 64;
+
+template <class Spec>
+__global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
+                                  const int* __restrict__ win,
+                                  const float* __restrict__ xf,
+                                  const float* __restrict__ yf,
+                                  const float* __restrict__ basef,
+                                  const float* __restrict__ widthf,
+                                  float* __restrict__ fwd,
+                                  float* __restrict__ shifts, int R, int W,
+                                  int ND, int NDp, int X, int C, int Y,
+                                  int TD) {
+    constexpr int S = Spec::S;
+    constexpr int NSCAL = Spec::NS + 3 * S;
+    constexpr int START = Spec::NS;
+    constexpr int YR = Spec::YR, NXF = Spec::NXF;
+    // ring [3 slots][S][W]; red [32]: the re-centering's scratch
+    extern __shared__ float ring[];
+    float* red = ring + 3 * S * W;
+    const int b = blockIdx.x;
+    const int g = b / R;
+    const int r = b - g * R;
+    const int l = threadIdx.x;
+    float t[NSCAL];
+#pragma unroll
+    for (int i = 0; i < NSCAL; ++i) t[i] = scal[i];
+    const int* wg = win + static_cast<size_t>(g) * NDp;
+    const float* xb = xf + static_cast<size_t>(b) * NXF * X;
+    const float* yb = yf + static_cast<size_t>(b) * YR * Y;
+    const float* base = basef + static_cast<size_t>(b) * NDp;
+    const float* width = widthf + static_cast<size_t>(b) * NDp;
+    const size_t plane_d = static_cast<size_t>(S) * R * W;
+    float* od = fwd + static_cast<size_t>(g) * (ND + 1) * plane_d
+                + static_cast<size_t>(r) * W + l;
+
+    // d = 0: the start vector inside the band; the slot of d = -1 is NEG
+    const bool m0 = in_band(wg[0] + l, base[0], width[0]);
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+        const float v = m0 ? t[START + i] : CPECAN_NEG;
+        ring[(0 * S + i) * W + l] = v;
+        ring[(2 * S + i) * W + l] = CPECAN_NEG;
+        od[static_cast<size_t>(i) * R * W] = v;
+    }
+    float shift = 0.0f;   // A, the running re-centering shift
+    const int NT = ND / TD;
+    if (l == 0) shifts[static_cast<size_t>(b) * NT] = 0.0f;
+    __syncthreads();
+
+    float* p1 = ring;              // diagonal d - 1
+    float* p2 = ring + 2 * S * W;  // diagonal d - 2
+    float* cur = ring + S * W;
+    int w1 = wg[0], w2 = wg[0];    // the windows of d - 1 and d - 2
+    int left = TD, tile = 0;       // diagonals left in tile ``tile``
+    for (int d = 1; d <= ND; ++d) {
+        if (left == 0) {
+            // before diagonal tile * TD + 1: re-center d - 1 and d - 2
+            recenter<S>(p1, p2, false, l, W, red, shift);
+            ++tile;
+            if (l == 0) shifts[static_cast<size_t>(b) * NT + tile] = shift;
+            left = TD;
+        }
+        --left;
+        if (d + L1_AHEAD <= ND) {
+            prefetch_l1(wg + d + L1_AHEAD);
+            prefetch_l1(base + d + L1_AHEAD);
+            prefetch_l1(width + d + L1_AHEAD);
+        }
+        const float bd = base[d], wd = width[d];
+        const int w = wg[d];
+        // the cell's inputs: y rows at its column, x rows at x
+        float in[YR + NXF];
+        {
+            const int x = w + l;
+            const int ycol = C - d + x;
+#pragma unroll
+            for (int i = 0; i < YR; ++i) in[i] = yb[i * Y + ycol];
+#pragma unroll
+            for (int i = 0; i < NXF; ++i) in[YR + i] = xb[i * X + x];
+        }
+        const int s1 = w - w1;
+        const int s2 = w - w2;
+        // lower / middle sources at x - 1, upper at x
+        float p1m[S], p1a[S], p2m[S];
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+            p1m[i] = shifted(p1 + i * W, l, s1 - 1, W);
+            p1a[i] = shifted(p1 + i * W, l, s1, W);
+            p2m[i] = shifted(p2 + i * W, l, s2 - 1, W);
+        }
+        const Emissions e = Spec::emissions_in(in);
+        float nv[S];
+        Spec::fwd_update_sel(t, p1m, p1a, p2m, e, in[YR + Spec::GAP_X],
+                             nv);
+        const bool mask = in_band(w + l, bd, wd);
+        od += plane_d;
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+            const float v = mask ? nv[i] : CPECAN_NEG;
+            cur[i * W + l] = v;
+            od[static_cast<size_t>(i) * R * W] = v;
+        }
+        w2 = w1;
+        w1 = w;
+        float* const old = p2;
+        p2 = p1;
+        p1 = cur;
+        cur = old;
+        __syncthreads();
+    }
+}
+
+template <class Spec>
+__global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
+                                  const int* __restrict__ win,
+                                  const float* __restrict__ xf,
+                                  const float* __restrict__ yf,
+                                  const float* __restrict__ basef,
+                                  const float* __restrict__ widthf,
+                                  const float* __restrict__ seedf,
+                                  const float* __restrict__ raggedf,
+                                  const float* __restrict__ fwd,
+                                  const float* __restrict__ shifts,
+                                  float* __restrict__ posts,
+                                  float* __restrict__ totals, int R, int W,
+                                  int ND, int NDp, int X, int C, int Y,
+                                  int TD) {
+    constexpr int S = Spec::S;
+    constexpr int NEM = Spec::NEM;
+    constexpr int END = Spec::NS + S;
+    constexpr int YR = Spec::YR, NXF = Spec::NXF;
+    static_assert(Spec::NPS == 1 && 2 * S <= 32,
+                  "one posterior plane; the end vectors fit tend");
+    constexpr int QF = F_AHEAD + 1;
+    // ring [3 slots][S][W]: bwd[d] raw at w_d; em [2 slots][NEM][W]: the
+    // match emission's leaves of diagonal d + 1 at x = w_d + l; red [32];
+    // tend [32]: the end and ragged-end vectors (read on seed diagonals
+    // only, so they take no registers); fst [QF][W]: fwd[d] of the
+    // posterior's state, copied F_AHEAD diagonals ahead (step j = ND - d + 1
+    // reads slot j % QF), each lane its own entry
+    extern __shared__ float smem[];
+    float* ring = smem;
+    float* em_rd = smem + 3 * S * W;  // emissions(d + 2) at w_{d+1}
+    float* em_wr = em_rd + NEM * W;
+    float* red = em_wr + NEM * W;
+    float* tend = red + 32;
+    float* fst = tend + 32;
+    const int b = blockIdx.x;
+    const int g = b / R;
+    const int r = b - g * R;
+    const int l = threadIdx.x;
+    float t[Spec::NS];
+#pragma unroll
+    for (int i = 0; i < Spec::NS; ++i) t[i] = scal[i];
+    if (l < 2 * S) tend[l] = scal[END + l];
+    const int* wg = win + static_cast<size_t>(g) * NDp;
+    const float* xb = xf + static_cast<size_t>(b) * NXF * X;
+    const float* yb = yf + static_cast<size_t>(b) * YR * Y;
+    const float* base = basef + static_cast<size_t>(b) * NDp;
+    const float* width = widthf + static_cast<size_t>(b) * NDp;
+    const float* seed = seedf + static_cast<size_t>(b) * NDp;
+    const float* ragged = raggedf + static_cast<size_t>(b) * NDp;
+    const size_t fplane_d = static_cast<size_t>(S) * R * W;
+    const float* fin = fwd + static_cast<size_t>(g) * (ND + 1) * fplane_d
+                       + static_cast<size_t>(r) * W + l;
+    const size_t pstate = static_cast<size_t>(R) * W;
+    float* pout = posts + static_cast<size_t>(g) * (ND + 1) * pstate
+                  + static_cast<size_t>(r) * W + l;
+
+    // diagonal 0 is never swept
+    pout[0] = 0.0f;
+    // bwd[ND + 1] = bwd[ND + 2] = NEG; em carry = emissions(ND + 2) at the
+    // window of ND + 1
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+        ring[(1 * S + i) * W + l] = CPECAN_NEG;
+        ring[(2 * S + i) * W + l] = CPECAN_NEG;
+    }
+    {
+        const int x = wg[ND + 1] + l;
+        const auto e = Spec::emissions_at(xb, yb, X, Y, x, C - (ND + 2) + x);
+#pragma unroll
+        for (int k = 0; k < NEM; ++k) em_rd[k * W + l] = em_leaf(e, k);
+    }
+    // the fwd entries of diagonals ND .. ND - F_AHEAD + 1 into slots 1 ..
+    // F_AHEAD, one group each (empty below diagonal 1)
+    for (int j = 1; j <= F_AHEAD; ++j) {
+        const int k = ND + 1 - j;
+        if (k >= 1) cp_async4(fst + j * W + l, fin + k * fplane_d);
+        cp_async_commit();
+    }
+    __syncthreads();
+
+    float total = CPECAN_NEG;
+    bool cut_prev = false;       // the seed cut of diagonal d + 1
+    float shift = 0.0f;          // B, the running re-centering shift
+    float shf = 0.0f;            // A_t + B, repaid by the rows of tile t
+    const int NT = ND / TD;
+    float* n1 = ring + S * W;      // bwd[d + 1]
+    float* n2 = ring + 2 * S * W;  // bwd[d + 2]
+    float* cur = ring;
+    int w1 = wg[ND + 1], w2 = wg[ND + 2];  // the windows of d + 1, d + 2
+    int left = 0, tile = NT;       // diagonals left in tile ``tile``
+    int rs = 1, is = 0;            // the fst slots of d and of d - F_AHEAD
+    pout += static_cast<size_t>(ND) * pstate;
+    for (int d = ND; d >= 1; --d) {
+        if (left == 0) {
+            // the top of tile d / TD - 1; below the first tile the carried
+            // bwd[d + 1] and bwd[d + 2] (cut at d + 1) re-center
+            if (d < ND) recenter<S>(n1, n2, cut_prev, l, W, red, shift);
+            --tile;
+            shf = shifts[static_cast<size_t>(b) * NT + tile] + shift;
+            left = TD;
+        }
+        --left;
+        if (d > L1_AHEAD) {
+            prefetch_l1(wg + d - L1_AHEAD);
+            prefetch_l1(base + d - L1_AHEAD);
+            prefetch_l1(width + d - L1_AHEAD);
+            prefetch_l1(seed + d - L1_AHEAD);
+            prefetch_l1(ragged + d - L1_AHEAD);
+        }
+        const float bd = base[d], wd = width[d];
+        const bool sa = seed[d] != 0.0f;   // block-uniform
+        const bool ra = ragged[d] != 0.0f;
+        const int w = wg[d];
+        const int x = w + l;
+        const float* fd = fin + static_cast<size_t>(d) * fplane_d;
+        if (d - F_AHEAD >= 1)
+            cp_async4(fst + is * W + l, fd - F_AHEAD * fplane_d);
+        cp_async_commit();
+        // the cell's inputs: emissions(d + 1)'s y rows at column C - (d +
+        // 1) + x and x rows at x, the gap-X row at next_col(x)
+        float in[YR + NXF];
+        {
+            const int ycol = C - (d + 1) + x;
+            const int xp = next_col(x, X);
+#pragma unroll
+            for (int i = 0; i < YR; ++i) in[i] = yb[i * Y + ycol];
+#pragma unroll
+            for (int i = 0; i < NXF; ++i)
+                in[YR + i] = xb[i * X + (i == Spec::GAP_X ? xp : x)];
+            // the lines the sweep reaches next (x falls, the column rises)
+#pragma unroll
+            for (int i = 0; i < YR; ++i)
+                prefetch_l1(yb + i * Y + min(ycol + L1_AHEAD, Y - 1));
+#pragma unroll
+            for (int i = 0; i < NXF; ++i)
+                prefetch_l1(xb + i * X + max(x - L1_AHEAD, 0));
+        }
+        const int o1 = w - w1;
+        const int o2 = w - w2;
+        // the seed diagonal cuts the carried bwd[d + 1], bwd[d + 2]
+        const bool cut1 = sa;
+        const bool cut2 = sa || cut_prev;
+        float n1a[S], n1p[S], n2p[S];
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+            n1a[i] = cut1 ? CPECAN_NEG : shifted(n1 + i * W, l, o1, W);
+            n1p[i] = cut1 ? CPECAN_NEG : shifted(n1 + i * W, l, o1 + 1, W);
+            n2p[i] = cut2 ? CPECAN_NEG : shifted(n2 + i * W, l, o2 + 1, W);
+        }
+        float em2p[NEM];
+#pragma unroll
+        for (int k = 0; k < NEM; ++k)
+            em2p[k] = shifted(em_rd + k * W, l, o1 + 1, W);
+        // emissions(d + 1) at x (next step's carry)
+        const auto e1 = Spec::emissions_in(in);
+        float bw[S];
+        Spec::bwd_update_sel(t, in[YR + Spec::GAP_X], e1.gap_y, em2p, n1a,
+                             n1p, n2p, bw);
+        const bool mask = in_band(x, bd, wd);
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+            if (!mask) bw[i] = CPECAN_NEG;
+            if (sa && mask) bw[i] = tend[(ra ? S : 0) + i];
+        }
+        // fwd[d] of the posterior's state (the others' are read on the
+        // seed diagonal only): its group is the F_AHEAD + 1-th newest
+        cp_async_wait<F_AHEAD>();
+        const float f0 = fst[rs * W + l];
+        if (sa) {
+            // total = masked log-sum-exp over the read's lanes at its seed
+            // diagonal (sm3_bwd_kernel's, with the branch log_add)
+            float prod = f0 + bw[0];
+#pragma unroll
+            for (int i = 1; i < S; ++i)
+                prod = log_add(prod, fd[static_cast<size_t>(i) * R * W]
+                                         + bw[i]);
+            const float vv = mask ? prod : CPECAN_NEG;
+            const float m = block_max(vv, red);
+            const float s = block_sum(mask ? expf(vv - m) : 0.0f, red);
+            total = m + logf(fmaxf(s, 1e-37f));
+            total = total + shf;
+        }
+        const float xl = static_cast<float>(x);
+        const bool ok = mask && xl > 0.0f && xl < static_cast<float>(d);
+        float z = f0 + bw[0] - total;
+        z = z + shf;
+        *pout = ok ? expf(fminf(z, 0.69f)) : 0.0f;
+        pout -= pstate;
+#pragma unroll
+        for (int i = 0; i < S; ++i) cur[i * W + l] = bw[i];
+#pragma unroll
+        for (int k = 0; k < NEM; ++k) em_wr[k * W + l] = em_leaf(e1, k);
+        cut_prev = sa;
+        w2 = w1;
+        w1 = w;
+        float* const old = n2;
+        n2 = n1;
+        n1 = cur;
+        cur = old;
+        float* const em_old = em_rd;
+        em_rd = em_wr;
+        em_wr = em_old;
+        rs = (rs + 1) % QF;
+        is = (is + 1) % QF;
+        __syncthreads();
+    }
+    if (l == 0) totals[b] = total;
+}
+
 int launch_config_error(int W) {
     // one thread per lane: W must fill whole warps and fit one block
     if (W <= 0 || W % 32 != 0 || W > CPECAN_MAX_W)
@@ -1289,6 +1732,66 @@ int launch_fwd(const void* scal, const void* win, const void* xf,
     return static_cast<int>(cudaGetLastError());
 }
 
+template <class Spec>
+int launch_fwd_sel(const void* scal, const void* win, const void* xf,
+                   const void* yf, const void* basef, const void* widthf,
+                   void* fwd, void* shifts, int G, int R, int W, int ND,
+                   int NDp, int X, int C, int Y, int TD, void* stream) {
+    if (int e = launch_config_error(W)) return e;
+    if (TD <= 0 || ND % TD != 0) return cudaErrorInvalidValue;
+    // ring, and the reduction scratch of the re-centering
+    const size_t smem = sizeof(float) * (3 * Spec::S * W + 32);
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            sm3_fwd_tiled_sel<Spec>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    sm3_fwd_tiled_sel<Spec>
+        <<<G * R, W, smem, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(scal), static_cast<const int*>(win),
+            static_cast<const float*>(xf), static_cast<const float*>(yf),
+            static_cast<const float*>(basef),
+            static_cast<const float*>(widthf), static_cast<float*>(fwd),
+            static_cast<float*>(shifts), R, W, ND, NDp, X, C, Y, TD);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <class Spec>
+int launch_bwd_sel(const void* scal, const void* win, const void* xf,
+                   const void* yf, const void* basef, const void* widthf,
+                   const void* seedf, const void* raggedf, const void* fwd,
+                   const void* shifts, void* posts, void* totals, int G,
+                   int R, int W, int ND, int NDp, int X, int C, int Y,
+                   int TD, void* stream) {
+    if (int e = launch_config_error(W)) return e;
+    if (TD <= 0 || ND % TD != 0) return cudaErrorInvalidValue;
+    // ring + em + red + the end vectors + the fwd entries ahead
+    const size_t smem = sizeof(float)
+                        * ((3 * Spec::S + 2 * Spec::NEM + F_AHEAD + 1) * W
+                           + 64);
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            sm3_bwd_tiled_sel<Spec>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    sm3_bwd_tiled_sel<Spec>
+        <<<G * R, W, smem, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(scal), static_cast<const int*>(win),
+            static_cast<const float*>(xf), static_cast<const float*>(yf),
+            static_cast<const float*>(basef),
+            static_cast<const float*>(widthf),
+            static_cast<const float*>(seedf),
+            static_cast<const float*>(raggedf),
+            static_cast<const float*>(fwd),
+            static_cast<const float*>(shifts), static_cast<float*>(posts),
+            static_cast<float*>(totals), R, W, ND, NDp, X, C, Y, TD);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1339,6 +1842,28 @@ const char* wavefront_error_string(int code) {
             scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,  \
             shifts, posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X, C, \
             Y, TD, stream);                                                  \
+    }
+// the select tiled kernels take the same arguments
+#define WAVEFRONT_FWD_TILED_SEL_ENTRY(NAME, SPEC)                           \
+    int NAME(const void* scal, const void* win, const void* xf,              \
+             const void* yf, const void* basef, const void* widthf,          \
+             void* fwd, void* shifts, int G, int R, int W, int ND, int NDp,  \
+             int X, int C, int Y, int TD, void* stream) {                    \
+        return launch_fwd_sel<SPEC>(scal, win, xf, yf, basef, widthf, fwd,  \
+                                    shifts, G, R, W, ND, NDp, X, C, Y, TD,   \
+                                    stream);                                 \
+    }
+#define WAVEFRONT_BWD_TILED_SEL_ENTRY(NAME, SPEC)                           \
+    int NAME(const void* scal, const void* win, const void* xf,              \
+             const void* yf, const void* basef, const void* widthf,          \
+             const void* seedf, const void* raggedf, const void* fwd,        \
+             const void* shifts, void* posts, void* totals, int G, int R,    \
+             int W, int ND, int NDp, int X, int C, int Y, int TD,            \
+             void* stream) {                                                 \
+        return launch_bwd_sel<SPEC>(scal, win, xf, yf, basef, widthf,        \
+                                    seedf, raggedf, fwd, shifts, posts,      \
+                                    totals, G, R, W, ND, NDp, X, C, Y, TD,   \
+                                    stream);                                 \
     }
 
 #define WAVEFRONT_BWD_EXP_ENTRY(NAME, SPEC)                                 \
@@ -1392,11 +1917,11 @@ const char* wavefront_error_string(int code) {
 WAVEFRONT_FWD_ENTRY(wavefront_fwd, Strawman)
 WAVEFRONT_FWD_ENTRY(wavefront_fwd_dna5, Dna5)
 WAVEFRONT_FWD_TILED_ENTRY(wavefront_fwd_tiled, Strawman)
-WAVEFRONT_FWD_TILED_ENTRY(wavefront_fwd_tiled_dna5, Dna5)
+WAVEFRONT_FWD_TILED_SEL_ENTRY(wavefront_fwd_tiled_dna5, Dna5)
 WAVEFRONT_BWD_ENTRY(wavefront_bwd, Strawman)
 WAVEFRONT_BWD_ENTRY(wavefront_bwd_dna5, Dna5)
 WAVEFRONT_BWD_TILED_ENTRY(wavefront_bwd_tiled, Strawman)
-WAVEFRONT_BWD_TILED_ENTRY(wavefront_bwd_tiled_dna5, Dna5)
+WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled_dna5, Dna5)
 
 WAVEFRONT_FWD_ENTRY(wavefront_fwd_vanilla, Vanilla)
 WAVEFRONT_FWD_TILED_ENTRY(wavefront_fwd_tiled_vanilla, Vanilla)

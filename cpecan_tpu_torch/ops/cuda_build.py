@@ -3,8 +3,9 @@
 The sources compile with ``nvcc`` into one shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  The library lands in ``build/kernels/`` at the repository root
-(gitignored), named by a hash of the sources and flags, and is built at
-first CUDA use: a fresh checkout builds it on its first call.
+(gitignored), named by a hash of the sources and flags, beside the output
+of the nvcc run that built it (its ptxas report), and is built at first
+CUDA use: a fresh checkout builds it on its first call.
 """
 
 import ctypes
@@ -60,7 +61,7 @@ class _Library:
     lib = None
     path = None
     build_seconds = None   # None when the library was already built
-    build_log = ""
+    build_log = ""         # the output of the nvcc run that built it
 
 
 def _nvcc():
@@ -83,24 +84,36 @@ def _digest():
     return h.hexdigest()[:16]
 
 
+def _built():
+    """(library path, build seconds or None, nvcc/ptxas output): nvcc runs
+    when the library or its stored output is missing; a cached library
+    comes with the output of the nvcc run that built it (``<lib>.log``,
+    written before the library, so a library never lacks it)."""
+    path = BUILD_DIR / f"libcpecan_wavefront_{_digest()}.so"
+    log = path.with_suffix(".log")
+    if path.exists() and log.exists():
+        return path, None, log.read_text()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "wavefront.cu")]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    seconds = time.perf_counter() - t0
+    tmp_log = log.with_suffix(f".{os.getpid()}.logtmp")
+    tmp_log.write_text(res.stdout + res.stderr)
+    os.replace(tmp_log, log)
+    os.replace(tmp, path)
+    return path, seconds, res.stdout + res.stderr
+
+
 def load_library():
     """The ctypes handle of the kernel library, built on first call."""
     if _Library.lib is not None:
         return _Library.lib
-    path = BUILD_DIR / f"libcpecan_wavefront_{_digest()}.so"
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / "wavefront.cu")]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, path)
-        _Library.build_seconds = time.perf_counter() - t0
-        _Library.build_log = res.stdout + res.stderr
+    path, _Library.build_seconds, _Library.build_log = _built()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

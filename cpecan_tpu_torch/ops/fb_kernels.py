@@ -56,7 +56,11 @@ tensor on the CPU and launches the CUDA kernel
 (``cpecan_tpu_torch/csrc/wavefront.cu``) for a CUDA tensor; nothing falls
 back from one to the other.  The tiled pair sweeps all ND = NT * TD
 diagonals in one launch each: a tile of the TPU kernels is only a
-boundary here, where the carried diagonals re-center.  Every CUDA kernel's
+boundary here, where the carried diagonals re-center.  The dna5 tiled pair
+runs its own kernels (``sm3_fwd_tiled_sel<Dna5>``,
+``sm3_bwd_tiled_sel<Dna5>``: the same recurrences with a branch-free
+log-add), the other specs the tiled instances of
+``sm3_fwd_kernel``/``sm3_bwd_kernel``.  Every CUDA kernel's
 launches are counted in ``KERNEL_LAUNCHES`` under its entry point's name
 (``wavefront_fwd``, ``wavefront_fwd_dna5``, ``wavefront_fwd_vanilla``,
 ``wavefront_fwd_sm4``, ``wavefront_fwd_echelon``, ``wavefront_fwd_hdp``,
@@ -1284,8 +1288,9 @@ def wavefront_fwd_tiled(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
     """Tiled forward over ND = NT * TD diagonals -> (fwd plane
     [G, ND+1, S, R, W], shifts [G, R, NT]) f32 (see
     ``forward_tiled_plain``).  Plain PyTorch for CPU tensors; the CUDA
-    kernel ``sm3_fwd_kernel<spec, true>`` for CUDA tensors (replaces
-    cpecan_tpu/ops/pallas_fb.py:2304 _sm3_forward_kernel(tile=...), K6a)."""
+    kernel ``sm3_fwd_kernel<spec, true>`` (dna5: ``sm3_fwd_tiled_sel``)
+    for CUDA tensors (replaces cpecan_tpu/ops/pallas_fb.py:2304
+    _sm3_forward_kernel(tile=...), K6a)."""
     _tiles(ND, TD, spec)
     if xf.device.type == "cpu":
         return forward_tiled_plain(scal, win, xf, yf, basef, widthf, R=R,
@@ -1303,9 +1308,9 @@ def wavefront_bwd_tiled(scal, win, xf, yf, basef, widthf, seedf, raggedf,
     """Tiled posterior backward over ND = NT * TD diagonals -> (posts
     [G, ND+1, R, W], totals [G, R]) f32 (see ``backward_tiled_plain``).
     Plain PyTorch for CPU tensors; the CUDA kernel
-    ``sm3_bwd_kernel<spec, false, true>`` for CUDA tensors (replaces
-    cpecan_tpu/ops/pallas_fb.py:2332 _sm3_backward_kernel(tile=...),
-    K6b)."""
+    ``sm3_bwd_kernel<spec, false, true>`` (dna5: ``sm3_bwd_tiled_sel``)
+    for CUDA tensors (replaces cpecan_tpu/ops/pallas_fb.py:2332
+    _sm3_backward_kernel(tile=...), K6b)."""
     NT = _tiles(ND, TD, spec)
     if xf.device.type == "cpu":
         return backward_tiled_plain(scal, win, xf, yf, basef, widthf, seedf,

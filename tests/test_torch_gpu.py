@@ -289,14 +289,77 @@ def test_cuda_dna5_kernels_match_plain(dna5_batch, cuda, ragged):
         assert np.array_equal(a, b) and len(a) > 500
 
 
+def _dna5_tiled_case(cuda, W, NT, ragged, TD=128):
+    """Synthetic tiled dna5 inputs at window W over NT tiles of TD: G 2 x R
+    2 reads (G 1 at W 1024); each group's band lower edge steps by 0 or 1
+    a diagonal (x ~ d / 2, as a real band's) and its window by 0, 1 or 2,
+    mostly 0, so the band drifts across the window's lanes; each read's
+    band ends at its seed diagonal (within 40 of ND); y bases 0..4 (4 = N)
+    and a few outside 0..4, random log-probability rows and scalars."""
+    rng = np.random.default_rng([5, W, NT, int(ragged)])
+    G, R = (1 if W == 1024 else 2), 2
+    ND = NT * TD
+    NDp = -(-(ND + 3) // 128) * 128 + 128
+    X, C = W + 2 * NDp, ND + 3
+    Y = C + X + 256
+    wmin, wmax = min(W // 2, 48), min(W - W // 4, 96)
+    lo = np.zeros((G, NDp), np.int64)   # the group's band lower edge
+    win = np.zeros((G, NDp), np.int64)
+    for g in range(G):
+        for d in range(1, NDp):
+            lo[g, d] = lo[g, d - 1] + rng.integers(0, 2)
+            off = lo[g, d] - win[g, d - 1]
+            # a window step keeping lanes [off, off + wmax) in the window,
+            # 0 preferred: the band drifts across the lanes
+            ok = [s for s in (0, 1, 2) if 0 <= off - s <= W - wmax - 2]
+            p = np.array([6.0, 1.0, 1.0])[ok]
+            win[g, d] = win[g, d - 1] + rng.choice(ok, p=p / p.sum())
+    assert set(np.diff(win[:, :ND + 3]).ravel()) == {0, 1, 2}
+    B = G * R
+    base, width, seedf = (np.zeros((B, NDp)) for _ in range(3))
+    for b in range(B):
+        n = ND - int(rng.integers(0, 40))
+        base[b, :n + 1] = lo[b // R, :n + 1] + rng.integers(0, 2, n + 1)
+        width[b, :n + 1] = rng.integers(wmin, wmax + 1, n + 1)
+        seedf[b, n] = 1.0
+    ybase = rng.choice([0.0, 1.0, 2.0, 3.0, 4.0, 5.0, 0.5], size=(B, Y),
+                       p=[0.22, 0.22, 0.22, 0.22, 0.08, 0.02, 0.02])
+    yf = np.stack([ybase, np.log(rng.uniform(0.05, 0.9, (B, Y)))], axis=1)
+
+    def dev(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=cuda)
+
+    fa = [dev(np.log(rng.uniform(0.05, 0.9, 28))), dev(win, torch.int32),
+          dev(np.log(rng.uniform(0.05, 0.9, (B, 6, X)))), dev(yf),
+          dev(base), dev(width)]
+    ba = fa + [dev(seedf), dev(seedf * float(ragged))]
+    return fa, ba, dict(R=R, W=W, ND=ND, C=C, spec=fk.Dna5Spec), TD
+
+
 @pytest.mark.parametrize("ragged", [False, True])
-def test_cuda_dna5_tiled_kernels_match_plain(dna5_batch, cuda, ragged):
-    """K6a/K6b for dna5 against their plain versions with tiles of 128
-    diagonals: fwd plane, shifts, posteriors and totals bit for bit."""
-    prep, inp, dims = _dna5_inputs(cuda, dna5_batch, ragged, tile_diag=128)
-    TD = prep["tiled"]["TD"]
-    fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
-    ba = fa + [inp["seedf"], inp["raggedf"]]
+@pytest.mark.parametrize("W, NT", [(None, None), (32, 1), (32, 2), (32, 3),
+                                   (128, 1), (128, 2), (128, 3), (1024, 1),
+                                   (1024, 2), (1024, 3)],
+                         ids=lambda v: "batch" if v is None else str(v))
+def test_cuda_dna5_tiled_kernels_match_plain(dna5_batch, cuda, ragged, W,
+                                             NT):
+    """K6a/K6b for dna5 (``sm3_fwd_tiled_sel``/``sm3_bwd_tiled_sel``)
+    against their plain versions with tiles of 128 diagonals: fwd plane,
+    shifts, posteriors and totals bit for bit.  On the realign batch (W
+    128) and on synthetic inputs at W 32, 128 and 1024 over one, two and
+    three tiles (the rotated ring slots and the tile down-counter at each
+    boundary), with windows stepping by 0, 1 and 2 and y bases including N
+    and values outside 0..4."""
+    if W is None:
+        prep, inp, dims = _dna5_inputs(cuda, dna5_batch, ragged,
+                                       tile_diag=128)
+        TD = prep["tiled"]["TD"]
+        fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                               "widthf")]
+        ba = fa + [inp["seedf"], inp["raggedf"]]
+    else:
+        fa, ba, dims, TD = _dna5_tiled_case(cuda, W, NT, ragged)
     fk.reset_counts()
     fwd, shifts = fk.wavefront_fwd_tiled(*fa, **dims, TD=TD)
     posts, totals = fk.wavefront_bwd_tiled(*ba, fwd, shifts, **dims, TD=TD)
@@ -305,10 +368,12 @@ def test_cuda_dna5_tiled_kernels_match_plain(dna5_batch, cuda, ragged):
                                   "wavefront_bwd_tiled_dna5": 1}
     pfwd, pshifts = fk.forward_tiled_plain(*fa, **dims, TD=TD)
     assert torch.equal(fwd, pfwd) and torch.equal(shifts, pshifts)
-    assert torch.all(shifts[..., 1:] != 0.0)
+    if dims["ND"] > TD:
+        assert torch.all(shifts[..., 1:] != 0.0)
     pposts, ptotals = fk.backward_tiled_plain(*ba, fwd, shifts, **dims,
                                               TD=TD)
     assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
+    assert torch.isfinite(totals).all() and (posts > 0.05).any()
 
 
 def test_cuda_dna5_golden_pairs(cuda):
