@@ -9,7 +9,8 @@ signal machine (signalAlign's default, posteriors and trainModels), the
 machine and the HDP machine through them:
 
 1. versions, the card's name and power limit;
-2. the kernel build (nvcc, ptxas register report);
+2. the kernel build (nvcc, ptxas register report); the kernels redesigned
+   for the card (K3 dna5, K6b strawman) within 64 registers, no spill;
 3. each kernel against its plain PyTorch version on the card, on the first
    64-read chunk of the bench batch (256 reads x 905 bases x 800 events,
    seed 7), with the tolerances of cpecan_tpu_torch/parity.py, and the
@@ -43,7 +44,8 @@ machine and the HDP machine through them:
 12. the long-read path at full width: 64 such reads (seeds 11..74), group
    8, compact_k=4096, through run and extract_pairs_chunk: bases/s and
    alignments/s end to end (median of 3 after a warm-up), a stage split,
-   peak device memory, the launch counts and K6a/K6b ms per launch; then
+   peak device memory, the launch counts and K6a/K6b ms per launch, ns a
+   diagonal and bounds on those reads; then
    K6a/K6b against their plain versions at that run's R, W and TD on one
    1,500 x 2,550 read of the same generator (two tiles): fwd plane,
    shifts, posteriors and totals bit for bit, equal pairs, and the
@@ -86,7 +88,8 @@ machine and the HDP machine through them:
    finalized expectations of both, and their times;
 18. cPecanEm at full width: bench.py's dna_em_estep_alignments_per_sec (the
    128 alignments, one shard, chunks of 64; median of 3 after a warm-up),
-   the E-step's stage split and one 64-pair chunk's kernel ms; three
+   the E-step's stage split and one 64-pair chunk's kernel ms (K3 dna5's
+   ns a diagonal and bound on it); three
    expectation_maximisation iterations over one default-size shard (1,000
    x 1 kb alignments of the same generator): s per iteration, the
    likelihood rising, peak device memory and the launch counts; the
@@ -278,6 +281,9 @@ ECH_PIPE_THRESHOLD = 0.15
 HDP_GROUP = HDP_CHUNK = 64   # phases 27-28: bench.py's HDP cell (bench_hdp)
 HDP_COMPACT_K = 2048
 GOLDEN = {(0, 0), (1, 1), (2, 4), (3, 5)}
+# the kernels redesigned for the H100 whose ptxas report phase 2 holds to
+# 64 registers and no spill
+REDESIGNED = ("sm3_bwd_tiled_sel<Dna5, 1>", "sm3_bwd_tiled_sel<Strawman, 0>")
 
 
 def log(msg):
@@ -350,6 +356,15 @@ def bound(tensors, cells, flops_per_cell):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = cells * flops_per_cell / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def posterior_fwd(fwd, seedf, R):
+    """The entries of a fwd plane [G, ND+1, S, R, W] that a posterior
+    backward of one posterior state (the match, 0) must read, as tensors
+    for ``bound``: that state's plane, and the other states' entries of
+    each read's lanes at its seed diagonals (its total)."""
+    b, d = torch.nonzero(seedf != 0, as_tuple=True)
+    return [fwd[:, :, 0], fwd[b // R, d, 1:, b % R, :]]
 
 
 def main():
@@ -448,6 +463,17 @@ def main():
         elif "registers" in line or "spill" in line:
             ptxas.setdefault(kernel, []).append(line.strip())
             log(f"  ptxas: {kernel}: {line.strip()}")
+    # the kernels redesigned for this card (K3 dna5, K6b strawman) stay
+    # within the 64-register cap without spilling
+    for name in REDESIGNED:
+        report = " ".join(ptxas.get(name, []))
+        regs = re.search(r"Used (\d+) registers", report)
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", report)
+        if not regs or len(spills) != 2:
+            raise AssertionError(f"no ptxas report for {name}")
+        if int(regs.group(1)) > 64 or any(int(s) for s in spills):
+            raise AssertionError(f"{name}: {report}")
+        log(f"  ptxas: {name} within 64 registers, no spill")
 
     # -- 3. kernels vs plain on the first bench chunk --------------------
     sm, reads = synthetic_batch(**BATCH)
@@ -877,10 +903,26 @@ def main():
             *sb, sfwd, ssh, **sd), 3))
     long_cells = sum(int(b.width.sum()) for b in sprep["bands"])
     lgeom = (sd["R"], sd["W"], sd["TD"])
+    # every row of the main path's groups is a read (64 = 8 x 8), so the
+    # bound of its real rows is that of all rows
+    if len(sprep["bands"]) != len(sprep["win"]) * sd["R"]:
+        raise AssertionError("the long path's groups hold padding rows")
+    bounds.update(
+        fwd_long_main=bound(sa + [sfwd, ssh], long_cells,
+                            FLOPS_PER_CELL["fwd"]),
+        bwd_long_main=bound(sb + posterior_fwd(sfwd, sb[6], sd["R"])
+                            + [ssh, sposts, stot], long_cells,
+                            FLOPS_PER_CELL["bwd"]))
+    bounds.update(fwd_long_main_padded=bounds["fwd_long_main"],
+                  bwd_long_main_padded=bounds["bwd_long_main"])
     log(f"long path kernels ({LONG_READS} reads, G={len(sprep['win'])}, "
         f"NDT={sd['ND']}, W={sd['W']}, {long_cells} band cells): "
         f"K6a {ms['fwd_long_main']:.3f} ms, K6b {ms['bwd_long_main']:.3f} "
-        f"ms per launch")
+        f"ms per launch ({ms['fwd_long_main'] * 1e6 / sd['ND']:.1f} / "
+        f"{ms['bwd_long_main'] * 1e6 / sd['ND']:.1f} ns a diagonal); "
+        f"bounds {bounds['fwd_long_main'][0]:.4f} / "
+        f"{bounds['bwd_long_main'][0]:.4f} ms "
+        f"({bounds['bwd_long_main'][1]})")
     del sfwd, sposts, sa, sb
     torch.cuda.synchronize()
     # K6a/K6b against their plain versions at the main path's R, W and TD
@@ -922,7 +964,8 @@ def main():
     ccells = sum(int(b.width.sum()) for b in cprep["bands"])
     bounds.update(
         fwd_long=bound(ca + [cfwd, csh], ccells, FLOPS_PER_CELL["fwd"]),
-        bwd_long=bound(cb + [cfwd, csh, cposts, ctot], ccells,
+        bwd_long=bound(cb + posterior_fwd(cfwd, cb[6], cd["R"])
+                       + [csh, cposts, ctot], ccells,
                        FLOPS_PER_CELL["bwd"]))
     log(f"long path kernels vs plain (a {cread[2]} x {cread[3]} read, "
         f"{cout['tiled']}, R={cd['R']}, W={cd['W']}): fwd plane, shifts, "
@@ -1221,7 +1264,7 @@ def main():
         f"{bounds['dna5_bwd_long_padded'][0]:.4f} ms counting all "
         f"{bd['R']} rows' planes")
     # the dna5 tiled kernels' registers and spill
-    for name in ("sm3_fwd_tiled_sel<Dna5>", "sm3_bwd_tiled_sel<Dna5>"):
+    for name in ("sm3_fwd_tiled_sel<Dna5>", "sm3_bwd_tiled_sel<Dna5, 0>"):
         if name not in ptxas:
             raise AssertionError(f"no ptxas report for {name}")
         for line in ptxas[name]:
@@ -1378,14 +1421,26 @@ def main():
     cdims = dict(R=cprep["R"], W=cprep["W"], ND=cprep["ND"], C=cprep["C"],
                  spec=fk.Dna5Spec)
     cfa = [cinp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
+    cba = cfa + [cinp["seedf"], cinp["raggedf"]]
     cfwd = fk.wavefront_fwd(*cfa, **cdims)
-    cexp_ms = cuda_ms(lambda: fk.wavefront_bwd_exp(
-        *cfa, cinp["seedf"], cinp["raggedf"], cfwd, **cdims), 3)
+    cexp = fk.wavefront_bwd_exp(*cba, cfwd, **cdims)
+    ms["dna5_bwd_exp_main"] = cuda_ms(lambda: fk.wavefront_bwd_exp(
+        *cba, cfwd, **cdims), 3)
     cfwd_ms = cuda_ms(lambda: fk.wavefront_fwd(*cfa, **cdims), 3)
+    # every row of the chunk's groups is a pair (64 = 2 x 32), so the
+    # bound of its real rows is that of all rows
+    if cprep["B"] != len(cprep["win"]) * cdims["R"]:
+        raise AssertionError("the E-step chunk's groups hold padding rows")
+    bounds["dna5_bwd_exp_main"] = bounds["dna5_bwd_exp_main_padded"] = bound(
+        cba + [cfwd, *cexp], sum(int(b.width.sum()) for b in cprep["bands"]),
+        FLOPS_PER_CELL["dna5_bwd_exp"])
     log(f"dna5 E-step chunk kernels ({cprep['B']} pairs, "
         f"G={len(cprep['win'])}, ND={cdims['ND']}, W={cdims['W']}): K1 dna5 "
-        f"{cfwd_ms:.3f} ms, K3 dna5 {cexp_ms:.3f} ms per launch")
-    del cfwd, cinp, cfa
+        f"{cfwd_ms:.3f} ms, K3 dna5 {ms['dna5_bwd_exp_main']:.3f} ms per "
+        f"launch ({ms['dna5_bwd_exp_main'] * 1e6 / cdims['ND']:.1f} ns a "
+        f"diagonal; bound {bounds['dna5_bwd_exp_main'][0]:.4f} ms, "
+        f"{bounds['dna5_bwd_exp_main'][1]})")
+    del cfwd, cexp, cinp, cfa, cba
     # a real cPecanEm run: one default-size shard (1 Mbp: 1,000 x 1 kb
     # alignments of the same generator), three iterations
     bseqs, balns, brng = dna_em_batch(EM_DNA_SHARD)
@@ -2652,12 +2707,14 @@ def main():
               "cpecan_tpu/ops/pallas_fb.py:2221 (with_exp=True)",
               em_launches["wavefront_bwd_exp"], exp_err, "bwd_exp",
               "bwd_exp"),
+        # phase 12 holds K6a/K6b to plain on its check read (ms, plain ms
+        # and bound there; main_ms and main_bound_ms on the 64 long reads)
         entry("wavefront_fwd_tiled", "cpecan_tpu/ops/pallas_fb.py:2304",
               long_launches["wavefront_fwd_tiled"], exact, "fwd_long",
-              "fwd_long"),
+              "fwd_long", main="fwd_long_main"),
         entry("wavefront_bwd_tiled", "cpecan_tpu/ops/pallas_fb.py:2332",
               long_launches["wavefront_bwd_tiled"], exact, "bwd_long",
-              "bwd_long"),
+              "bwd_long", main="bwd_long_main"),
         # phase 13 holds K1/K2 dna5 bit for bit, phase 16's check pair
         # K6a/K6b dna5 (their ms, plain ms and bound are on that pair;
         # main_ms, main_bound_ms and main_bound_ms_padded on the 100 kb
@@ -2679,12 +2736,13 @@ def main():
               big_counts["wavefront_bwd_tiled_dna5"], derr,
               "dna5_bwd_tiled", "dna5_bwd_tiled", main="dna5_bwd_long"),
         # phase 17 holds K3 dna5 to its plain version (ms, plain ms and
-        # bound on its equalised-machine inputs); launches from phase 18's
-        # cPecanEm run
+        # bound on its equalised-machine inputs; main_ms and main_bound_ms
+        # on phase 18's 64-pair chunk); launches from phase 18's cPecanEm
+        # run
         entry("wavefront_bwd_exp_dna5",
               "cpecan_tpu/ops/pallas_fb.py:2221 (with_exp=True, _Dna5Spec "
               ":406)", em_dna_counts["wavefront_bwd_exp_dna5"], d5exp_err,
-              "dna5_bwd_exp", "dna5_bwd_exp"),
+              "dna5_bwd_exp", "dna5_bwd_exp", main="dna5_bwd_exp_main"),
         # phase 19 holds K1/K2/K3 vanilla to plain (K1/K2 ms, plain ms and
         # bound on the main path's default-machine chunk, K3 on the trained
         # machine's E-step group), phase 21 K6a/K6b vanilla on its check

@@ -68,6 +68,19 @@ __device__ __forceinline__ float log_add3_sel(float a, float b, float c) {
     return log_add_sel(log_add_sel(a, b), c);
 }
 
+// The two log-adds as types, for the updates written once for both forms
+// (Strawman::bwd_update_with)
+struct LogAddBranch {
+    __device__ __forceinline__ static float add(float x, float y) {
+        return log_add(x, y);
+    }
+};
+struct LogAddSel {
+    __device__ __forceinline__ static float add(float x, float y) {
+        return log_add_sel(x, y);
+    }
+};
+
 // Exact log(exp(a) + exp(b)) (log1p of exp, not the cubic): the echelon
 // multi-k-mer fold (_exact_log_add, pallas_fb.py:520-525).
 __device__ __forceinline__ float exact_log_add(float a, float b) {
@@ -81,6 +94,17 @@ __device__ __forceinline__ float gauss(float x, float mu, float sd) {
     if (!(sd > 0.0f)) return CPECAN_NEG;
     const float a = (x - mu) / sd;
     return -0.91893853320467267f - logf(sd) - 0.5f * a * a;
+}
+
+// gauss with the guard as a select and log(sd) given (logsd = logf(sd),
+// computed once per column by the caller): the same f32 operations in the
+// same order where sd > 0, so it equals gauss bit for bit; where sd <= 0
+// the arithmetic's inf or NaN is discarded for CPECAN_NEG.
+__device__ __forceinline__ float gauss_sel(float x, float mu, float sd,
+                                           float logsd) {
+    const float a = (x - mu) / sd;
+    const float v = -0.91893853320467267f - logsd - 0.5f * a * a;
+    return sd > 0.0f ? v : CPECAN_NEG;
 }
 
 // log inverse-Gaussian pdf (emissions_signal_logInvGaussPdf,

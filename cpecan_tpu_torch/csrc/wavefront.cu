@@ -41,13 +41,21 @@
 //   sm3_bwd_kernel<Spec, false, true>
 //                          <- _sm3_backward_kernel(tile=...) (:2332), the
 //                             shifts repaid as shf (:947, :1170, :1193) K6b
-//   sm3_fwd_tiled_sel<Dna5>, sm3_bwd_tiled_sel<Dna5>
+//   sm3_fwd_tiled_sel<Dna5>, sm3_bwd_tiled_sel<Dna5, false>
 //                          <- K6a and K6b for the 5-state DNA machine (the
 //                             100 kb pair's path): the same recurrences
 //                             with a shorter step (the note above
 //                             sm3_fwd_tiled_sel); the tiled instances of
-//                             the two templates above serve Strawman,
-//                             Vanilla and Sm4
+//                             the two templates above serve K6a strawman
+//                             and K6a/K6b vanilla and sm4
+//   sm3_bwd_tiled_sel<Strawman, false>
+//                          <- K6b for the strawman machine (the long signal
+//                             reads' path), on the same template
+//   sm3_bwd_tiled_sel<Dna5, true>
+//                          <- K3 for the 5-state DNA machine (cPecanEm's
+//                             E-step): the sums of sm3_bwd_kernel<Dna5,
+//                             true, false>, untiled, with the select step
+//                             (the note above sm3_bwd_tiled_sel)
 //
 // Layout (identical to the JAX planes, index for index): G groups of R
 // reads, one group window of W lanes per diagonal starting at x = win[g, d],
@@ -161,7 +169,9 @@
 // 0.  The per-column accumulators go to the read's own rows of acc in
 // global memory, column w_t + l; each column is touched by one thread per
 // target and the per-diagonal barrier orders the read-modify-writes, so
-// no atomics are needed.  Dna5 reads the target's y base fresh (yf row 0
+// no atomics are needed (dna5's adds are atomic reductions, so that no
+// step waits on the read; the barrier orders them alike).  Dna5 reads the
+// target's y base fresh (yf row 0
 // at column C - t + x, pallas_fb.py:1077; only the emissions are carried)
 // and adds a cell's five state masses to the rows of its y base only: the
 // other rows' contributions are +0.0, so skipping them leaves every sum
@@ -244,24 +254,61 @@ __device__ __forceinline__ int next_col(int x, int X) {
 // the match state's posteriors
 struct OneMatch : FromRows {
     static constexpr int YR = 2, NEM = 1, NPS = 1;
+    // per-column logs that sm3_bwd_tiled_sel keeps across the steps where
+    // the window stays (Strawman: 4), and whether it reads the transitions
+    // from shared memory (Strawman: its step needs the registers)
+    static constexpr int NLSD = 0;
+    static constexpr bool T_SHARED = false;
     __host__ __device__ static constexpr int post_state(int) { return 0; }
 };
 
 struct Strawman : OneMatch {
     static constexpr int S = 3, NS = SM3_NS, NXF = 9, GAP_X = 8;
 
-    // Gaussian x Gaussian over (event mean, noise)
+    // Gaussian x Gaussian over (event mean, noise), written once for both
+    // forms: g(v, i) is the Gaussian of v under model rows i (mean) and
+    // i + 1 (sd)
+    template <class Gauss>
+    __device__ __forceinline__ static Emissions emissions_with(
+            float mean, float noise, Gauss g) {
+        Emissions e;
+        e.match = g(mean, 0) + g(noise, 2);
+        e.gap_y = g(mean, 4) + g(noise, 6);
+        return e;
+    }
+
     __device__ __forceinline__ static Emissions emissions_at(
             const float* xb, const float* yb, int X, int Y, int x,
             int ycol) {
-        const float mean = yb[ycol];
-        const float noise = yb[Y + ycol];
-        Emissions e;
-        e.match = gauss(mean, xb[0 * X + x], xb[1 * X + x])
-                  + gauss(noise, xb[2 * X + x], xb[3 * X + x]);
-        e.gap_y = gauss(mean, xb[4 * X + x], xb[5 * X + x])
-                  + gauss(noise, xb[6 * X + x], xb[7 * X + x]);
-        return e;
+        return emissions_with(yb[ycol], yb[Y + ycol], [&](float v, int i) {
+            return gauss(v, xb[i * X + x], xb[(i + 1) * X + x]);
+        });
+    }
+
+    // The forms of sm3_bwd_tiled_sel: in = yf rows 0-1 at the cell's
+    // column, then xf rows 0-8 (the gap-X row at next_col(x)); lsd the
+    // logs of the sd rows 1, 3, 5, 7 at x (col_logs, or col_logs_at from
+    // the rows; the template takes them again only where the window
+    // moves); the select-guarded gauss_sel
+    static constexpr int NLSD = 4;
+    static constexpr bool T_SHARED = true;
+    __device__ __forceinline__ static void col_logs(const float* in,
+                                                    float* lsd) {
+#pragma unroll
+        for (int k = 0; k < NLSD; ++k) lsd[k] = logf(in[YR + 2 * k + 1]);
+    }
+    __device__ __forceinline__ static void col_logs_at(const float* xb,
+                                                       int X, int x,
+                                                       float* lsd) {
+#pragma unroll
+        for (int k = 0; k < NLSD; ++k) lsd[k] = logf(xb[(2 * k + 1) * X + x]);
+    }
+
+    __device__ __forceinline__ static Emissions emissions_in(
+            const float* in, const float* lsd) {
+        return emissions_with(in[0], in[1], [&](float v, int i) {
+            return gauss_sel(v, in[YR + i], in[YR + i + 1], lsd[i / 2]);
+        });
     }
 
     // _StrawmanSpec.fwd_update_w
@@ -277,26 +324,43 @@ struct Strawman : OneMatch {
         out[2] = log_add(p1a[0] + t[T_OY], p1a[2] + t[T_EY]) + e.gap_y;
     }
 
-    // _StrawmanSpec.bwd_update_w
-    __device__ __forceinline__ static void bwd_update(
-            const float* t, const float* xb, int X, int x, float eg1,
-            const float* em2p, const float* n1a, const float* n1p,
-            const float* n2p, float* out) {
-        const float e_gapx_p = xb[GAP_X * X + next_col(x, X)];
+    // _StrawmanSpec.bwd_update_w, written once for both log-adds (LA:
+    // LogAddBranch, LogAddSel); e_gapx_p the gap-X row at next_col(x)
+    template <class LA>
+    __device__ __forceinline__ static void bwd_update_with(
+            const float* t, float e_gapx_p, float eg1, const float* em2p,
+            const float* n1a, const float* n1p, const float* n2p,
+            float* out) {
         const float mid = em2p[0] + n2p[0];
         float bm = mid + t[T_MM];
         float bx = mid + t[T_XM];
         float by = mid + t[T_YM];
         const float up = eg1 + n1a[2];
-        bm = log_add(bm, up + t[T_OY]);
-        by = log_add(by, up + t[T_EY]);
+        bm = LA::add(bm, up + t[T_OY]);
+        by = LA::add(by, up + t[T_EY]);
         const float low = e_gapx_p + n1p[1];
-        bm = log_add(bm, low + t[T_OX]);
-        bx = log_add(bx, low + t[T_EX]);
-        by = log_add(by, low + t[T_SX]);
+        bm = LA::add(bm, low + t[T_OX]);
+        bx = LA::add(bx, low + t[T_EX]);
+        by = LA::add(by, low + t[T_SX]);
         out[0] = bm;
         out[1] = bx;
         out[2] = by;
+    }
+
+    __device__ __forceinline__ static void bwd_update(
+            const float* t, const float* xb, int X, int x, float eg1,
+            const float* em2p, const float* n1a, const float* n1p,
+            const float* n2p, float* out) {
+        bwd_update_with<LogAddBranch>(t, xb[GAP_X * X + next_col(x, X)],
+                                      eg1, em2p, n1a, n1p, n2p, out);
+    }
+
+    __device__ __forceinline__ static void bwd_update_sel(
+            const float* t, float e_gapx_p, float eg1, const float* em2p,
+            const float* n1a, const float* n1p, const float* n2p,
+            float* out) {
+        bwd_update_with<LogAddSel>(t, e_gapx_p, eg1, em2p, n1a, n1p, n2p,
+                                   out);
     }
 
     // EM expectations: NLANE per-thread transition sums, sum k of them
@@ -975,9 +1039,13 @@ __device__ __forceinline__ void Dna5::exp_probs(
         const float p_to[5] = {p[0] + p[1] + p[2] + p[3] + p[4],
                                p[5] + p[6], p[9] + p[10], p[7] + p[8],
                                p[11] + p[12]};
+        // an atomic add (a reduction: nothing waits for it) where the
+        // template read-modify-wrote the column; the per-diagonal barrier
+        // still orders each column's adds.  The f32 atomic flushes a
+        // denormal term to 0, which parity.KERNEL_GAPX_ATOL allows
 #pragma unroll
         for (int to = 0; to < 5; ++to)
-            col[(to * 4 + by) * row_stride] += p_to[to] * mf;
+            atomicAdd(col + (to * 4 + by) * row_stride, p_to[to] * mf);
     }
 }
 
@@ -1312,6 +1380,15 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
 // The re-centering, one block per read, one thread per lane, the
 // three-slot carried ring and one barrier per diagonal are as in the
 // templates above.
+// The strawman's backward (K6b strawman: the 64 long signal reads, 8
+// blocks of 8 reads, 28,672 diagonals; 2.03 us a diagonal with the
+// template above) runs on the same template.  Its step adds four
+// Gaussians, each an IEEE division and a logf of its sd row: the logs of
+// a lane's column are kept in registers while the window stays (col_logs
+// again only on the steps where it moves, a block-uniform branch), the
+// guard is the select gauss_sel, and the transitions are read from shared
+// memory (T_SHARED), which keeps the step at 64 registers without a
+// spill.
 
 // 4-byte asynchronous copy global -> shared (sm_80+), and its groups
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -1336,10 +1413,11 @@ __device__ __forceinline__ void prefetch_l1(const void* p) {
     asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
 }
 
-// how many diagonals ahead sm3_bwd_tiled_sel copies its fwd plane entries,
-// and how far ahead both kernels prefetch the lines of their band scalars
-// (one line holds 32 diagonals) and the backward those of its rows
-constexpr int F_AHEAD = 3, L1_AHEAD = 64;
+// how many diagonals ahead sm3_bwd_tiled_sel copies its fwd plane entries
+// (tiled, and WITH_EXP), and how far ahead the select kernels prefetch
+// the lines of their band scalars (one line holds 32 diagonals) and the
+// backwards those of their rows
+constexpr int F_AHEAD = 3, X_AHEAD = 1, L1_AHEAD = 64;
 
 template <class Spec>
 __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
@@ -1452,7 +1530,34 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
     }
 }
 
+// the emissions of a cell from its inputs in registers, with the spec's
+// per-column logs where it keeps them
 template <class Spec>
+__device__ __forceinline__ Emissions tiled_emissions(const float* in,
+                                                     const float* lsd) {
+    if constexpr (Spec::NLSD > 0) {
+        return Spec::emissions_in(in, lsd);
+    } else {
+        return Spec::emissions_in(in);
+    }
+}
+
+// The tiled backward (K6b) and, WITH_EXP, the untiled expectation backward
+// (K3: no tiles and no shifts; its trans and acc come last).  The
+// expectation form is sm3_bwd_kernel<Spec, true, false>'s recurrence,
+// posteriors, totals and EM sums, computed identically (the same targets
+// in the same order, the same f32 operations): on the E-step's chunks (64
+// blocks of W = 128 threads, 2,000 diagonals; one warp per scheduler) it
+// stages all S fwd entries of a diagonal X_AHEAD diagonal ahead (one step
+// hides the read; deeper staging measured slower), and the slots of d + 1
+// and d + 2 are the targets' sources, so X_AHEAD + 3 slots take the place
+// of the other template's fsh ring and its stores; the transitions sit in
+// shared memory (64 registers, no spill); the targets are t = d + 3 at
+// step d and 3, 2 and 1 after the loop; the column sums are the spec's
+// atomic reductions (Dna5::exp_probs), each column's adds ordered by the
+// per-diagonal barrier.  Every line it does not add is the tiled form's,
+// whose instances compile to the same SASS as without it.
+template <class Spec, bool WITH_EXP>
 __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
                                   const int* __restrict__ win,
                                   const float* __restrict__ xf,
@@ -1466,20 +1571,29 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
                                   float* __restrict__ posts,
                                   float* __restrict__ totals, int R, int W,
                                   int ND, int NDp, int X, int C, int Y,
-                                  int TD) {
+                                  int TD, float* __restrict__ trans,
+                                  float* __restrict__ accf) {
     constexpr int S = Spec::S;
     constexpr int NEM = Spec::NEM;
     constexpr int END = Spec::NS + S;
     constexpr int YR = Spec::YR, NXF = Spec::NXF;
-    static_assert(Spec::NPS == 1 && 2 * S <= 32,
-                  "one posterior plane; the end vectors fit tend");
-    constexpr int QF = F_AHEAD + 1;
+    constexpr bool T_SHARED = WITH_EXP || Spec::T_SHARED;
+    static_assert(Spec::NPS == 1 && 2 * S + (T_SHARED ? Spec::NS : 0) <= 32
+                      && !(WITH_EXP && Spec::STREAMED),
+                  "one posterior plane; the end vectors (and the shared "
+                  "transitions) fit tend; the targets' emissions come from "
+                  "the rows");
+    // the fwd slots: the posterior state's entry, copied F_AHEAD diagonals
+    // ahead, or WITH_EXP all S entries, X_AHEAD diagonals ahead
+    constexpr int AHEAD = WITH_EXP ? X_AHEAD : F_AHEAD;
+    constexpr int QS = WITH_EXP ? S : 1;
+    constexpr int QF = WITH_EXP ? X_AHEAD + 3 : F_AHEAD + 1;
     // ring [3 slots][S][W]: bwd[d] raw at w_d; em [2 slots][NEM][W]: the
     // match emission's leaves of diagonal d + 1 at x = w_d + l; red [32];
     // tend [32]: the end and ragged-end vectors (read on seed diagonals
-    // only, so they take no registers); fst [QF][W]: fwd[d] of the
-    // posterior's state, copied F_AHEAD diagonals ahead (step j = ND - d + 1
-    // reads slot j % QF), each lane its own entry
+    // only, so they take no registers), then with T_SHARED the
+    // transitions; fst [QF][QS][W]: fwd[d] (step j = ND - d + 1 reads slot
+    // j % QF), each lane its own entries
     extern __shared__ float smem[];
     float* ring = smem;
     float* em_rd = smem + 3 * S * W;  // emissions(d + 2) at w_{d+1}
@@ -1491,9 +1605,16 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     const int g = b / R;
     const int r = b - g * R;
     const int l = threadIdx.x;
-    float t[Spec::NS];
+    // the transitions in registers, or with T_SHARED after the end
+    // vectors in tend
+    float t_reg[T_SHARED ? 1 : Spec::NS];
+    float* t = T_SHARED ? tend + 2 * S : t_reg;
+    if constexpr (T_SHARED) {
+        if (l < Spec::NS) t[l] = scal[l];
+    } else {
 #pragma unroll
-    for (int i = 0; i < Spec::NS; ++i) t[i] = scal[i];
+        for (int i = 0; i < Spec::NS; ++i) t[i] = scal[i];
+    }
     if (l < 2 * S) tend[l] = scal[END + l];
     const int* wg = win + static_cast<size_t>(g) * NDp;
     const float* xb = xf + static_cast<size_t>(b) * NXF * X;
@@ -1503,6 +1624,7 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     const float* seed = seedf + static_cast<size_t>(b) * NDp;
     const float* ragged = raggedf + static_cast<size_t>(b) * NDp;
     const size_t fplane_d = static_cast<size_t>(S) * R * W;
+    const size_t fstate = static_cast<size_t>(R) * W;
     const float* fin = fwd + static_cast<size_t>(g) * (ND + 1) * fplane_d
                        + static_cast<size_t>(r) * W + l;
     const size_t pstate = static_cast<size_t>(R) * W;
@@ -1518,17 +1640,40 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
         ring[(1 * S + i) * W + l] = CPECAN_NEG;
         ring[(2 * S + i) * W + l] = CPECAN_NEG;
     }
+    // a spec's per-column logs (NLSD > 0), kept for x = w_{d+1} + l at the
+    // top of step d
+    float lsd[Spec::NLSD > 0 ? Spec::NLSD : 1];
     {
         const int x = wg[ND + 1] + l;
         const auto e = Spec::emissions_at(xb, yb, X, Y, x, C - (ND + 2) + x);
 #pragma unroll
         for (int k = 0; k < NEM; ++k) em_rd[k * W + l] = em_leaf(e, k);
+        if constexpr (Spec::NLSD > 0) Spec::col_logs_at(xb, X, x, lsd);
     }
-    // the fwd entries of diagonals ND .. ND - F_AHEAD + 1 into slots 1 ..
-    // F_AHEAD, one group each (empty below diagonal 1)
-    for (int j = 1; j <= F_AHEAD; ++j) {
+    // WITH_EXP: the per-lane transition sums and this read's accumulator
+    // rows (acc[g, j, r, :] at rows + j * R * X); fwd[ND + 1] = NEG (slot
+    // 0), the lower/upper source of target ND + 2
+    float acc[WITH_EXP ? Spec::NLANE : 1];
+    const size_t row_stride = static_cast<size_t>(R) * X;
+    float* rows = accf + (static_cast<size_t>(g) * Spec::NACC * R + r) * X;
+    if constexpr (WITH_EXP) {
+#pragma unroll
+        for (int k = 0; k < Spec::NLANE; ++k) acc[k] = 0.0f;
+        for (int j = 0; j < Spec::NACC; ++j)
+            for (int c = l; c < X; c += W) rows[j * row_stride + c] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < S; ++i) fst[i * W + l] = CPECAN_NEG;
+    }
+    // the fwd entries of diagonals ND .. ND - AHEAD + 1 into slots 1 ..
+    // AHEAD, one group each (empty below diagonal 1)
+    for (int j = 1; j <= AHEAD; ++j) {
         const int k = ND + 1 - j;
-        if (k >= 1) cp_async4(fst + j * W + l, fin + k * fplane_d);
+        if (k >= 1) {
+#pragma unroll
+            for (int i = 0; i < QS; ++i)
+                cp_async4(fst + (j * QS + i) * W + l,
+                          fin + k * fplane_d + i * fstate);
+        }
         cp_async_commit();
     }
     __syncthreads();
@@ -1537,24 +1682,30 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     bool cut_prev = false;       // the seed cut of diagonal d + 1
     float shift = 0.0f;          // B, the running re-centering shift
     float shf = 0.0f;            // A_t + B, repaid by the rows of tile t
-    const int NT = ND / TD;
+    const int NT = WITH_EXP ? 1 : ND / TD;
     float* n1 = ring + S * W;      // bwd[d + 1]
     float* n2 = ring + 2 * S * W;  // bwd[d + 2]
-    float* cur = ring;
-    int w1 = wg[ND + 1], w2 = wg[ND + 2];  // the windows of d + 1, d + 2
+    float* cur = ring;             // WITH_EXP: bwd[d + 3] until bwd[d]
+    // the windows of d + 1, d + 2 and, WITH_EXP, d + 3 (read from the
+    // first target on, d = ND - 1)
+    int w1 = wg[ND + 1], w2 = wg[ND + 2], w3 = 0;
     int left = 0, tile = NT;       // diagonals left in tile ``tile``
-    int rs = 1, is = 0;            // the fst slots of d and of d - F_AHEAD
+    // the fst slots of d, of d - AHEAD and, WITH_EXP, of d + 1 and d + 2
+    int rs = 1, is = (1 + AHEAD) % QF, rs1 = 0, rs2 = QF - 1;
     pout += static_cast<size_t>(ND) * pstate;
     for (int d = ND; d >= 1; --d) {
-        if (left == 0) {
-            // the top of tile d / TD - 1; below the first tile the carried
-            // bwd[d + 1] and bwd[d + 2] (cut at d + 1) re-center
-            if (d < ND) recenter<S>(n1, n2, cut_prev, l, W, red, shift);
-            --tile;
-            shf = shifts[static_cast<size_t>(b) * NT + tile] + shift;
-            left = TD;
+        if constexpr (!WITH_EXP) {
+            if (left == 0) {
+                // the top of tile d / TD - 1; below the first tile the
+                // carried bwd[d + 1] and bwd[d + 2] (cut at d + 1)
+                // re-center
+                if (d < ND) recenter<S>(n1, n2, cut_prev, l, W, red, shift);
+                --tile;
+                shf = shifts[static_cast<size_t>(b) * NT + tile] + shift;
+                left = TD;
+            }
+            --left;
         }
-        --left;
         if (d > L1_AHEAD) {
             prefetch_l1(wg + d - L1_AHEAD);
             prefetch_l1(base + d - L1_AHEAD);
@@ -1568,8 +1719,12 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
         const int w = wg[d];
         const int x = w + l;
         const float* fd = fin + static_cast<size_t>(d) * fplane_d;
-        if (d - F_AHEAD >= 1)
-            cp_async4(fst + is * W + l, fd - F_AHEAD * fplane_d);
+        if (d - AHEAD >= 1) {
+#pragma unroll
+            for (int i = 0; i < QS; ++i)
+                cp_async4(fst + (is * QS + i) * W + l,
+                          fd - AHEAD * fplane_d + i * fstate);
+        }
         cp_async_commit();
         // the cell's inputs: emissions(d + 1)'s y rows at column C - (d +
         // 1) + x and x rows at x, the gap-X row at next_col(x)
@@ -1606,8 +1761,12 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
 #pragma unroll
         for (int k = 0; k < NEM; ++k)
             em2p[k] = shifted(em_rd + k * W, l, o1 + 1, W);
-        // emissions(d + 1) at x (next step's carry)
-        const auto e1 = Spec::emissions_in(in);
+        // emissions(d + 1) at x (next step's carry); the column logs
+        // change only where the window moves
+        if constexpr (Spec::NLSD > 0) {
+            if (w != w1) Spec::col_logs(in, lsd);
+        }
+        const auto e1 = tiled_emissions<Spec>(in, lsd);
         float bw[S];
         Spec::bwd_update_sel(t, in[YR + Spec::GAP_X], e1.gap_y, em2p, n1a,
                              n1p, n2p, bw);
@@ -1617,35 +1776,59 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
             if (!mask) bw[i] = CPECAN_NEG;
             if (sa && mask) bw[i] = tend[(ra ? S : 0) + i];
         }
-        // fwd[d] of the posterior's state (the others' are read on the
-        // seed diagonal only): its group is the F_AHEAD + 1-th newest
-        cp_async_wait<F_AHEAD>();
-        const float f0 = fst[rs * W + l];
+        // fwd[d] (of the posterior's state: the others' are read on the
+        // seed diagonal only, unless WITH_EXP): its group is the AHEAD +
+        // 1-th newest
+        cp_async_wait<AHEAD>();
+        float f[QS];
+#pragma unroll
+        for (int i = 0; i < QS; ++i) f[i] = fst[(rs * QS + i) * W + l];
         if (sa) {
             // total = masked log-sum-exp over the read's lanes at its seed
             // diagonal (sm3_bwd_kernel's, with the branch log_add)
-            float prod = f0 + bw[0];
+            float prod = f[0] + bw[0];
 #pragma unroll
-            for (int i = 1; i < S; ++i)
-                prod = log_add(prod, fd[static_cast<size_t>(i) * R * W]
-                                         + bw[i]);
+            for (int i = 1; i < S; ++i) {
+                if constexpr (WITH_EXP) {
+                    prod = log_add(prod, f[i] + bw[i]);
+                } else {
+                    prod = log_add(prod, fd[static_cast<size_t>(i) * R * W]
+                                             + bw[i]);
+                }
+            }
             const float vv = mask ? prod : CPECAN_NEG;
             const float m = block_max(vv, red);
             const float s = block_sum(mask ? expf(vv - m) : 0.0f, red);
             total = m + logf(fmaxf(s, 1e-37f));
-            total = total + shf;
+            if constexpr (!WITH_EXP) total = total + shf;
         }
         const float xl = static_cast<float>(x);
         const bool ok = mask && xl > 0.0f && xl < static_cast<float>(d);
-        float z = f0 + bw[0] - total;
-        z = z + shf;
+        float z = f[0] + bw[0] - total;
+        if constexpr (!WITH_EXP) z = z + shf;
         *pout = ok ? expf(fminf(z, 0.69f)) : 0.0f;
         pout -= pstate;
+        if constexpr (WITH_EXP) {
+            if (d < ND) {
+                // target tt = d + 3 (<= ND + 2) from fwd[d + 1] and fwd[d
+                // + 2]; its backward bwd[tt] is this lane's entry of cur,
+                // which bwd[d] overwrites below
+                const int tt = d + 3;
+                const bool cut = seed[tt - 1] != 0.0f
+                                 || seed[tt - 2] != 0.0f;
+                exp_target<Spec>(t, xb, yb, nullptr, X, Y, C, R, tt, w3,
+                                 fst + rs1 * S * W, w1, fst + rs2 * S * W,
+                                 w2, cur, cut, total,
+                                 in_band(w3 + l, base[tt], width[tt]), true,
+                                 l, W, acc, rows, row_stride);
+            }
+        }
 #pragma unroll
         for (int i = 0; i < S; ++i) cur[i * W + l] = bw[i];
 #pragma unroll
         for (int k = 0; k < NEM; ++k) em_wr[k * W + l] = em_leaf(e1, k);
         cut_prev = sa;
+        w3 = w2;
         w2 = w1;
         w1 = w;
         float* const old = n2;
@@ -1655,11 +1838,49 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
         float* const em_old = em_rd;
         em_rd = em_wr;
         em_wr = em_old;
+        rs2 = rs1;
+        rs1 = rs;
         rs = (rs + 1) % QF;
         is = (is + 1) % QF;
         __syncthreads();
     }
     if (l == 0) totals[b] = total;
+    if constexpr (WITH_EXP) {
+        // targets 3, 2 and 1: cur, n1, n2 hold bwd[3], bwd[1], bwd[2] and
+        // the fst slots rs1, rs2 fwd[1], fwd[2] (NEG where the diagonal
+        // lies past ND); fwd[0] goes into slot rs (target 3 reads rs1 and
+        // rs2 only)
+        const float* fs1 = fst + rs1 * S * W;
+        const float* fs2 = fst + rs2 * S * W;
+        float* fs0 = fst + rs * S * W;
+        const bool cut3 = seed[2] != 0.0f || seed[1] != 0.0f;
+        exp_target<Spec>(t, xb, yb, nullptr, X, Y, C, R, 3, wg[3], fs1,
+                         wg[1], fs2, wg[2], cur, cut3, total,
+                         in_band(wg[3] + l, base[3], width[3]), true, l, W,
+                         acc, rows, row_stride);
+#pragma unroll
+        for (int i = 0; i < S; ++i) fs0[i * W + l] = fin[i * fstate];
+        __syncthreads();
+        exp_target<Spec>(t, xb, yb, nullptr, X, Y, C, R, 2, wg[2], fs0,
+                         wg[0], fs1, wg[1], n2, seed[1] != 0.0f, total,
+                         in_band(wg[2] + l, base[2], width[2]), true, l, W,
+                         acc, rows, row_stride);
+        __syncthreads();   // orders the accumulator columns of targets 2, 1
+        // target 1: no middle source, emissions(1) fresh (not a carry)
+        exp_target<Spec>(t, xb, yb, nullptr, X, Y, C, R, 1, wg[1], nullptr,
+                         0, fs0, wg[0], n1, false, total,
+                         in_band(wg[1] + l, base[1], width[1]), false, l, W,
+                         acc, rows, row_stride);
+        // the S*S table: the machine's lanes from their sums, the rest 0
+        float* tr = trans + static_cast<size_t>(b) * S * S;
+        if (l == 0)
+            for (int k = 0; k < S * S; ++k) tr[k] = 0.0f;
+#pragma unroll
+        for (int k = 0; k < Spec::NLANE; ++k) {
+            const float s = block_sum(acc[k], red);
+            if (l == 0) tr[Spec::lane(k)] = s;
+        }
+    }
 }
 
 int launch_config_error(int W) {
@@ -1758,27 +1979,27 @@ int launch_fwd_sel(const void* scal, const void* win, const void* xf,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <class Spec>
+template <class Spec, bool WITH_EXP>
 int launch_bwd_sel(const void* scal, const void* win, const void* xf,
                    const void* yf, const void* basef, const void* widthf,
                    const void* seedf, const void* raggedf, const void* fwd,
-                   const void* shifts, void* posts, void* totals, int G,
-                   int R, int W, int ND, int NDp, int X, int C, int Y,
-                   int TD, void* stream) {
+                   const void* shifts, void* posts, void* totals,
+                   void* trans, void* accf, int G, int R, int W, int ND,
+                   int NDp, int X, int C, int Y, int TD, void* stream) {
     if (int e = launch_config_error(W)) return e;
-    if (TD <= 0 || ND % TD != 0) return cudaErrorInvalidValue;
-    // ring + em + red + the end vectors + the fwd entries ahead
+    if (!WITH_EXP && (TD <= 0 || ND % TD != 0)) return cudaErrorInvalidValue;
+    // ring + em + red + the end vectors + the fwd slots
+    constexpr int NQ = WITH_EXP ? (X_AHEAD + 3) * Spec::S : F_AHEAD + 1;
     const size_t smem = sizeof(float)
-                        * ((3 * Spec::S + 2 * Spec::NEM + F_AHEAD + 1) * W
-                           + 64);
+                        * ((3 * Spec::S + 2 * Spec::NEM + NQ) * W + 64);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            sm3_bwd_tiled_sel<Spec>,
+            sm3_bwd_tiled_sel<Spec, WITH_EXP>,
             cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(smem));
         if (e != cudaSuccess) return static_cast<int>(e);
     }
-    sm3_bwd_tiled_sel<Spec>
+    sm3_bwd_tiled_sel<Spec, WITH_EXP>
         <<<G * R, W, smem, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float*>(scal), static_cast<const int*>(win),
             static_cast<const float*>(xf), static_cast<const float*>(yf),
@@ -1788,7 +2009,8 @@ int launch_bwd_sel(const void* scal, const void* win, const void* xf,
             static_cast<const float*>(raggedf),
             static_cast<const float*>(fwd),
             static_cast<const float*>(shifts), static_cast<float*>(posts),
-            static_cast<float*>(totals), R, W, ND, NDp, X, C, Y, TD);
+            static_cast<float*>(totals), R, W, ND, NDp, X, C, Y, TD,
+            static_cast<float*>(trans), static_cast<float*>(accf));
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -1860,10 +2082,10 @@ const char* wavefront_error_string(int code) {
              const void* shifts, void* posts, void* totals, int G, int R,    \
              int W, int ND, int NDp, int X, int C, int Y, int TD,            \
              void* stream) {                                                 \
-        return launch_bwd_sel<SPEC>(scal, win, xf, yf, basef, widthf,        \
-                                    seedf, raggedf, fwd, shifts, posts,      \
-                                    totals, G, R, W, ND, NDp, X, C, Y, TD,   \
-                                    stream);                                 \
+        return launch_bwd_sel<SPEC, false>(                                  \
+            scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, shifts,   \
+            posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X, C, Y, TD,  \
+            stream);                                                         \
     }
 
 #define WAVEFRONT_BWD_EXP_ENTRY(NAME, SPEC)                                 \
@@ -1877,6 +2099,20 @@ const char* wavefront_error_string(int code) {
             scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,  \
             nullptr, posts, totals, trans, acc, G, R, W, ND, NDp, X, C, Y,   \
             0, stream);                                                      \
+    }
+
+// the select expectation kernel takes the same arguments
+#define WAVEFRONT_BWD_EXP_SEL_ENTRY(NAME, SPEC)                             \
+    int NAME(const void* scal, const void* win, const void* xf,              \
+             const void* yf, const void* basef, const void* widthf,          \
+             const void* seedf, const void* raggedf, const void* fwd,        \
+             void* posts, void* totals, void* trans, void* acc, int G,       \
+             int R, int W, int ND, int NDp, int X, int C, int Y,             \
+             void* stream) {                                                 \
+        return launch_bwd_sel<SPEC, true>(                                   \
+            scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,  \
+            posts, totals, trans, acc, G, R, W, ND, NDp, X, C, Y, 0,         \
+            stream);                                                         \
     }
 
 // the streamed spec's entry points take the stream est after the features
@@ -1920,7 +2156,7 @@ WAVEFRONT_FWD_TILED_ENTRY(wavefront_fwd_tiled, Strawman)
 WAVEFRONT_FWD_TILED_SEL_ENTRY(wavefront_fwd_tiled_dna5, Dna5)
 WAVEFRONT_BWD_ENTRY(wavefront_bwd, Strawman)
 WAVEFRONT_BWD_ENTRY(wavefront_bwd_dna5, Dna5)
-WAVEFRONT_BWD_TILED_ENTRY(wavefront_bwd_tiled, Strawman)
+WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled, Strawman)
 WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled_dna5, Dna5)
 
 WAVEFRONT_FWD_ENTRY(wavefront_fwd_vanilla, Vanilla)
@@ -1929,7 +2165,7 @@ WAVEFRONT_BWD_ENTRY(wavefront_bwd_vanilla, Vanilla)
 WAVEFRONT_BWD_TILED_ENTRY(wavefront_bwd_tiled_vanilla, Vanilla)
 
 WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp, Strawman)
-WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_dna5, Dna5)
+WAVEFRONT_BWD_EXP_SEL_ENTRY(wavefront_bwd_exp_dna5, Dna5)
 WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_vanilla, Vanilla)
 
 WAVEFRONT_FWD_ENTRY(wavefront_fwd_sm4, Sm4)

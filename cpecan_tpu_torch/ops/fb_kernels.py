@@ -58,14 +58,16 @@ back from one to the other.  The tiled pair sweeps all ND = NT * TD
 diagonals in one launch each: a tile of the TPU kernels is only a
 boundary here, where the carried diagonals re-center.  The dna5 tiled pair
 runs its own kernels (``sm3_fwd_tiled_sel<Dna5>``,
-``sm3_bwd_tiled_sel<Dna5>``: the same recurrences with a branch-free
-log-add), the other specs the tiled instances of
-``sm3_fwd_kernel``/``sm3_bwd_kernel``.  Every CUDA kernel's
-launches are counted in ``KERNEL_LAUNCHES`` under its entry point's name
-(``wavefront_fwd``, ``wavefront_fwd_dna5``, ``wavefront_fwd_vanilla``,
-``wavefront_fwd_sm4``, ``wavefront_fwd_echelon``, ``wavefront_fwd_hdp``,
-...); a wrapper's
-``.launches`` reads its strawman entry there.  Each plain version counts
+``sm3_bwd_tiled_sel<Dna5, false>``: the same recurrences with a
+branch-free log-add), as do K6b strawman
+(``sm3_bwd_tiled_sel<Strawman, false>``) and K3 dna5 (the untiled
+expectation form ``sm3_bwd_tiled_sel<Dna5, true>``); the other specs run
+the instances of ``sm3_fwd_kernel``/``sm3_bwd_kernel``.  Every CUDA
+kernel's launches are counted in ``KERNEL_LAUNCHES`` under its entry
+point's name (``wavefront_fwd``, ``wavefront_fwd_dna5``,
+``wavefront_fwd_vanilla``, ``wavefront_fwd_sm4``, ``wavefront_fwd_echelon``,
+``wavefront_fwd_hdp``, ...); a wrapper's ``.launches`` reads its strawman
+entry there.  Each plain version counts
 its calls in ``.calls``.
 """
 
@@ -887,13 +889,17 @@ class _Expectations:
         m = fr.band(d_t, wt).to(torch.float32)
         for name, k in spec.EXP_LANES.items():
             self.acc[k] = self.acc[k] + probs[name] * m
-        # each column of a read takes one value per accumulator from this
-        # target, so a gather, an add and a scatter sum it; scatter_add_'s
-        # atomic adds on the card would flush denormal terms that the
-        # kernel's adds keep
         x = fr.xcoord(wt)[:, None].expand(fr.G, len(contribs), fr.R, fr.W)
-        self.cols.scatter_(3, x, self.cols.gather(3, x)
-                           + torch.stack(contribs, 1) * m[:, None])
+        self.add_cols(x, torch.stack(contribs, 1) * m[:, None])
+
+    def add_cols(self, x, v):
+        """Add one target's terms ``v`` to the accumulators' columns ``x``.
+        Each column of a read takes one term per accumulator from a target,
+        so a gather, an add and a scatter sum it; scatter_add_'s atomic
+        adds on the card would flush denormal terms that the kernels' plain
+        adds keep (dna5's kernel adds atomically: the denormal margin of
+        parity.KERNEL_GAPX_ATOL)."""
+        self.cols.scatter_(3, x, self.cols.gather(3, x) + v)
 
     def result(self):
         """(trans [G, R, S*S], per-column accumulators [G, NACC, R, X])."""
@@ -1247,7 +1253,8 @@ def wavefront_bwd_exp(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
     trans [G, R, S*S], acc [G, NACC, R, X]) f32 (see
     ``backward_exp_plain``); a streamed spec reads its emissions from
     ``est``.  Plain PyTorch for CPU tensors; the CUDA kernel
-    ``sm3_bwd_kernel<spec, true, false>`` for CUDA tensors (replaces
+    ``sm3_bwd_kernel<spec, true, false>`` (dna5: the untiled
+    ``sm3_bwd_tiled_sel<Dna5, true>``) for CUDA tensors (replaces
     cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
     with_exp=True; entry ``wavefront_bwd_exp`` + ``spec.SUFFIX``)."""
     _no_expectations(spec)
@@ -1308,9 +1315,10 @@ def wavefront_bwd_tiled(scal, win, xf, yf, basef, widthf, seedf, raggedf,
     """Tiled posterior backward over ND = NT * TD diagonals -> (posts
     [G, ND+1, R, W], totals [G, R]) f32 (see ``backward_tiled_plain``).
     Plain PyTorch for CPU tensors; the CUDA kernel
-    ``sm3_bwd_kernel<spec, false, true>`` (dna5: ``sm3_bwd_tiled_sel``)
-    for CUDA tensors (replaces cpecan_tpu/ops/pallas_fb.py:2332
-    _sm3_backward_kernel(tile=...), K6b)."""
+    ``sm3_bwd_kernel<spec, false, true>`` (strawman and dna5:
+    ``sm3_bwd_tiled_sel``) for CUDA tensors (replaces
+    cpecan_tpu/ops/pallas_fb.py:2332 _sm3_backward_kernel(tile=...),
+    K6b)."""
     NT = _tiles(ND, TD, spec)
     if xf.device.type == "cpu":
         return backward_tiled_plain(scal, win, xf, yf, basef, widthf, seedf,

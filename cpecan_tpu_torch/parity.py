@@ -55,8 +55,9 @@ The expectation kernel against its plain version on the same card inputs
 runs the same f32 operations in the same order: posts, totals and
 transition sums are equal bit for bit, per-column accumulators within
 KERNEL_GAPX_ATOL, the margin of a denormal term (the plain version adds
-them with a gather and a scatter: an atomic scatter-add on the card would
-flush denormal terms that the kernel's adds keep).
+them with a gather and a scatter, which keep denormal terms; an f32
+atomic add on the card flushes them, as dna5's expectation kernel's
+column adds do).
 
 The tiled path against the untiled one on the same reads
 (``tests/test_pallas_tiled.py``'s bar): the re-centering moves the f32

@@ -197,37 +197,56 @@ def test_wide_group_window_raises(cuda):
 
 
 @pytest.mark.parametrize("ragged", [False, True])
-def test_cuda_tiled_kernels_match_plain(batch, cuda, ragged):
-    """K6a/K6b against their plain versions on the same card inputs, with
-    tiles of 128 diagonals: fwd plane, shifts, posteriors and totals equal
-    bit for bit; against the untiled kernels within the tiled tolerances."""
-    sm, reads = batch
-    pa = StrawmanAligner(device=cuda, group=8)
-    prep = pa.prepare(sm, reads, ragged_right=ragged, tile_diag=128)
-    inp = pa.device_inputs(sm, prep, ragged_left=ragged)
-    tl = prep["tiled"]
-    assert tl["NT"] >= 4
-    dims = dict(R=prep["R"], W=prep["W"], ND=tl["NDT"], C=prep["C"],
-                TD=tl["TD"])
-    fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
-    ba = fa + [inp["seedf"], inp["raggedf"]]
+@pytest.mark.parametrize("W, NT", [(None, None), (32, 1), (32, 2), (32, 3),
+                                   (128, 1), (128, 2), (128, 3), (1024, 1),
+                                   (1024, 2), (1024, 3)],
+                         ids=lambda v: "batch" if v is None else str(v))
+def test_cuda_tiled_kernels_match_plain(batch, cuda, ragged, W, NT):
+    """K6a/K6b (K6b: ``sm3_bwd_tiled_sel<Strawman, false>``) against their
+    plain versions on the same card inputs, with tiles of 128 diagonals:
+    fwd plane, shifts, posteriors and totals equal bit for bit.  On the batch
+    (W > 128), also against the untiled kernels within the tiled
+    tolerances; on synthetic inputs at W 32, 128 and 1024 over one, two and
+    three tiles (the rotated slots, the tile down-counter and the column
+    logs kept while the window stays), with windows stepping by 0, 1 and 2
+    and a few sd <= 0."""
+    if W is None:
+        sm, reads = batch
+        pa = StrawmanAligner(device=cuda, group=8)
+        prep = pa.prepare(sm, reads, ragged_right=ragged, tile_diag=128)
+        inp = pa.device_inputs(sm, prep, ragged_left=ragged)
+        tl = prep["tiled"]
+        assert tl["NT"] >= 4
+        dims = dict(R=prep["R"], W=prep["W"], ND=tl["NDT"], C=prep["C"])
+        TD = tl["TD"]
+        fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                               "widthf")]
+        ba = fa + [inp["seedf"], inp["raggedf"]]
+    else:
+        fa, ba, dims, TD = _tiled_case(cuda, fk.StrawmanSpec, W, NT, ragged)
     fk.reset_counts()
-    fwd, shifts = fk.wavefront_fwd_tiled(*fa, **dims)
-    posts, totals = fk.wavefront_bwd_tiled(*ba, fwd, shifts, **dims)
+    fwd, shifts = fk.wavefront_fwd_tiled(*fa, **dims, TD=TD)
+    posts, totals = fk.wavefront_bwd_tiled(*ba, fwd, shifts, **dims, TD=TD)
     torch.cuda.synchronize()
     assert fk.wavefront_fwd_tiled.launches == 1
     assert fk.wavefront_bwd_tiled.launches == 1
     assert fk.forward_tiled_plain.calls == fk.backward_tiled_plain.calls == 0
-    pfwd, pshifts = fk.forward_tiled_plain(*fa, **dims)
+    pfwd, pshifts = fk.forward_tiled_plain(*fa, **dims, TD=TD)
     assert torch.equal(fwd, pfwd) and torch.equal(shifts, pshifts)
-    assert torch.all(shifts[..., 1:] != 0.0)
-    pposts, ptotals = fk.backward_tiled_plain(*ba, fwd, shifts, **dims)
+    if dims["ND"] > TD:
+        assert torch.all(shifts[..., 1:] != 0.0)
+    pposts, ptotals = fk.backward_tiled_plain(*ba, fwd, shifts, **dims,
+                                              TD=TD)
     assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
-    uprep = pa.prepare(sm, reads, ragged_right=ragged)
-    uinp = pa.device_inputs(sm, uprep, ragged_left=ragged)
-    udims = dict(R=uprep["R"], W=uprep["W"], ND=uprep["ND"], C=uprep["C"])
-    ufwd = _fwd(uinp, udims, fk.wavefront_fwd)
-    check_tiled(posts, totals, *_bwd(uinp, udims, ufwd, fk.wavefront_bwd))
+    assert torch.isfinite(totals).all() and (posts > 0.0).any()
+    if W is None:
+        uprep = pa.prepare(sm, reads, ragged_right=ragged)
+        uinp = pa.device_inputs(sm, uprep, ragged_left=ragged)
+        udims = dict(R=uprep["R"], W=uprep["W"], ND=uprep["ND"],
+                     C=uprep["C"])
+        ufwd = _fwd(uinp, udims, fk.wavefront_fwd)
+        check_tiled(posts, totals,
+                    *_bwd(uinp, udims, ufwd, fk.wavefront_bwd))
 
 
 def test_cuda_long_read_matches_fixture(cuda):
@@ -289,16 +308,25 @@ def test_cuda_dna5_kernels_match_plain(dna5_batch, cuda, ragged):
         assert np.array_equal(a, b) and len(a) > 500
 
 
-def _dna5_tiled_case(cuda, W, NT, ragged, TD=128):
-    """Synthetic tiled dna5 inputs at window W over NT tiles of TD: G 2 x R
-    2 reads (G 1 at W 1024); each group's band lower edge steps by 0 or 1
-    a diagonal (x ~ d / 2, as a real band's) and its window by 0, 1 or 2,
-    mostly 0, so the band drifts across the window's lanes; each read's
-    band ends at its seed diagonal (within 40 of ND); y bases 0..4 (4 = N)
-    and a few outside 0..4, random log-probability rows and scalars."""
-    rng = np.random.default_rng([5, W, NT, int(ragged)])
+def _synthetic_case(cuda, spec, W, ND, ragged, seed, every=False,
+                    scal=None):
+    """Synthetic inputs of ``spec`` (dna5 or strawman) at window W over ND
+    diagonals: G 2 x R 2 reads (G 1 at W 1024).  Each group's band lower
+    edge steps by 0 or 1 a diagonal (x ~ d / 2, as a real band's) and its
+    window by 0, 1 or 2, mostly 0, so the band drifts across the window's
+    lanes, and over 128 diagonals or more it steps by each of 0, 1 and 2
+    (asserted); with ``every`` the edge steps by 1 from diagonal 20 on and
+    the window with it, so that it shifts on (asserted: over 95% of) the
+    diagonals there.  The dna5 draws at a given seed are those the dna5
+    tiled cases have always drawn.  Each read's
+    band ends at its seed diagonal (within 40 of ND).  Random rows and
+    scalars (``scal``, if given, replaces the latter): dna5 y bases 0..4 (4
+    = N) and a few outside 0..4, log-probability rows; strawman Gaussian
+    model rows with a few sd <= 0 (NEG emissions), events near the model
+    means, a gap-X log-probability row.  Returns (fwd args, bwd args,
+    dims)."""
+    rng = np.random.default_rng(seed)
     G, R = (1 if W == 1024 else 2), 2
-    ND = NT * TD
     NDp = -(-(ND + 3) // 128) * 128 + 128
     X, C = W + 2 * NDp, ND + 3
     Y = C + X + 256
@@ -307,34 +335,65 @@ def _dna5_tiled_case(cuda, W, NT, ragged, TD=128):
     win = np.zeros((G, NDp), np.int64)
     for g in range(G):
         for d in range(1, NDp):
-            lo[g, d] = lo[g, d - 1] + rng.integers(0, 2)
+            lo[g, d] = lo[g, d - 1] + (int(d > 20) if every
+                                       else rng.integers(0, 2))
             off = lo[g, d] - win[g, d - 1]
-            # a window step keeping lanes [off, off + wmax) in the window,
-            # 0 preferred: the band drifts across the lanes
+            # a window step keeping lanes [off, off + wmax) in the window:
+            # 0 preferred (the band drifts across the lanes), or with
+            # ``every`` 1 (the window follows the band)
             ok = [s for s in (0, 1, 2) if 0 <= off - s <= W - wmax - 2]
-            p = np.array([6.0, 1.0, 1.0])[ok]
+            p = np.array([0.01, 1.0, 0.01] if every
+                         else [6.0, 1.0, 1.0])[ok]
             win[g, d] = win[g, d - 1] + rng.choice(ok, p=p / p.sum())
-    assert set(np.diff(win[:, :ND + 3]).ravel()) == {0, 1, 2}
+    steps = np.diff(win[:, :ND + 3])
+    if every:
+        # the window moves on nearly every diagonal past 20
+        assert np.mean(steps[:, 20:] != 0) > 0.95
+    elif ND >= 128:
+        assert set(steps.ravel()) == {0, 1, 2}
     B = G * R
     base, width, seedf = (np.zeros((B, NDp)) for _ in range(3))
     for b in range(B):
-        n = ND - int(rng.integers(0, 40))
+        n = ND - int(rng.integers(0, min(40, ND)))
         base[b, :n + 1] = lo[b // R, :n + 1] + rng.integers(0, 2, n + 1)
         width[b, :n + 1] = rng.integers(wmin, wmax + 1, n + 1)
         seedf[b, n] = 1.0
-    ybase = rng.choice([0.0, 1.0, 2.0, 3.0, 4.0, 5.0, 0.5], size=(B, Y),
-                       p=[0.22, 0.22, 0.22, 0.22, 0.08, 0.02, 0.02])
-    yf = np.stack([ybase, np.log(rng.uniform(0.05, 0.9, (B, Y)))], axis=1)
+    if spec is fk.Dna5Spec:
+        ybase = rng.choice([0.0, 1.0, 2.0, 3.0, 4.0, 5.0, 0.5], size=(B, Y),
+                           p=[0.22, 0.22, 0.22, 0.22, 0.08, 0.02, 0.02])
+        yf = np.stack([ybase, np.log(rng.uniform(0.05, 0.9, (B, Y)))],
+                      axis=1)
+        # the random scalars are drawn before the x rows (the dna5 tiled
+        # cases' draws since they were written)
+        rscal = np.log(rng.uniform(0.05, 0.9, spec.NS + 3 * spec.S))
+        xf = np.log(rng.uniform(0.05, 0.9, (B, 6, X)))
+    else:
+        xf = np.empty((B, 9, X))
+        xf[:, 0:8:2] = rng.uniform(70.0, 90.0, (B, 4, X))
+        xf[:, 1:8:2] = rng.uniform(3.0, 12.0, (B, 4, X))
+        bad = rng.random((B, 4, X)) < 0.01
+        xf[:, 1:8:2][bad] = rng.choice([0.0, -1.0], bad.sum())
+        xf[:, 8] = np.log(rng.uniform(0.05, 0.9, (B, X)))
+        yf = rng.uniform(70.0, 90.0, (B, 2, Y))
+        rscal = np.log(rng.uniform(0.05, 0.9, spec.NS + 3 * spec.S))
 
     def dev(a, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=cuda)
 
-    fa = [dev(np.log(rng.uniform(0.05, 0.9, 28))), dev(win, torch.int32),
-          dev(np.log(rng.uniform(0.05, 0.9, (B, 6, X)))), dev(yf),
-          dev(base), dev(width)]
+    if scal is None:
+        scal = dev(rscal)
+    fa = [scal, dev(win, torch.int32), dev(xf), dev(yf), dev(base),
+          dev(width)]
     ba = fa + [dev(seedf), dev(seedf * float(ragged))]
-    return fa, ba, dict(R=R, W=W, ND=ND, C=C, spec=fk.Dna5Spec), TD
+    return fa, ba, dict(R=R, W=W, ND=ND, C=C, spec=spec)
+
+
+def _tiled_case(cuda, spec, W, NT, ragged, TD=128):
+    """``_synthetic_case`` over NT tiles of TD diagonals."""
+    fa, ba, dims = _synthetic_case(cuda, spec, W, NT * TD, ragged,
+                                   [5, W, NT, int(ragged)])
+    return fa, ba, dims, TD
 
 
 @pytest.mark.parametrize("ragged", [False, True])
@@ -359,7 +418,8 @@ def test_cuda_dna5_tiled_kernels_match_plain(dna5_batch, cuda, ragged, W,
                                "widthf")]
         ba = fa + [inp["seedf"], inp["raggedf"]]
     else:
-        fa, ba, dims, TD = _dna5_tiled_case(cuda, W, NT, ragged)
+        fa, ba, dims, TD = _tiled_case(cuda, fk.Dna5Spec, W, NT,
+                                       ragged)
     fk.reset_counts()
     fwd, shifts = fk.wavefront_fwd_tiled(*fa, **dims, TD=TD)
     posts, totals = fk.wavefront_bwd_tiled(*ba, fwd, shifts, **dims, TD=TD)
@@ -432,38 +492,108 @@ def _equalised_machine():
 
 @pytest.mark.parametrize("machine", ["default", "equalised"])
 @pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("W, ND, every", [
+    (None, None, None), (32, 2, False), (32, 3, False), (32, 300, True),
+    (128, 300, True), (128, 257, False), (1024, 2, False), (1024, 3, False),
+    (1024, 150, True)],
+    ids=lambda v: "batch" if v is None else str(v))
 def test_cuda_dna5_exp_kernel_matches_plain(dna5_batch, cuda, ragged,
-                                            machine):
-    """K3 for dna5 against its plain version on the same card inputs:
-    posteriors, totals and the 25 transition lanes bit for bit, the 20
-    per-column accumulators within parity.KERNEL_GAPX_ATOL, and the
-    finalized expectations."""
+                                            machine, W, ND, every):
+    """K3 for dna5 (``sm3_bwd_tiled_sel<Dna5, true>``) against its plain
+    version on the same card inputs: posteriors, totals and the 25
+    transition lanes bit for bit, the 20 per-column accumulators within
+    parity.KERNEL_GAPX_ATOL; its posteriors and totals equal K2 dna5's.  On
+    the realign batch (W 128) also the finalized expectations; on
+    synthetic inputs at W 32, 128 and 1024 with the machine's scalars, ND 2
+    and 3 (fewer diagonals than the fwd slots: the staging's empty groups
+    and the tail's slots) and 150-300, with windows drifting or shifting
+    on every diagonal."""
     sm = StateMachine5() if machine == "default" else _equalised_machine()
-    pa = Dna5Aligner(device=cuda, group=8)
-    prep = pa.prepare(sm, dna5_batch, ragged_right=ragged)
-    inp = pa.device_inputs(sm, prep, ragged_left=ragged)
-    dims = dict(R=prep["R"], W=prep["W"], ND=prep["ND"], C=prep["C"],
-                spec=fk.Dna5Spec)
-    fwd = _fwd(inp, dims, fk.wavefront_fwd)
-    assert torch.equal(fwd, _fwd(inp, dims, fk.forward_plain))
+    if W is None:
+        pa = Dna5Aligner(device=cuda, group=8)
+        prep = pa.prepare(sm, dna5_batch, ragged_right=ragged)
+        inp = pa.device_inputs(sm, prep, ragged_left=ragged)
+        dims = dict(R=prep["R"], W=prep["W"], ND=prep["ND"], C=prep["C"],
+                    spec=fk.Dna5Spec)
+        fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                               "widthf")]
+        ba = fa + [inp["seedf"], inp["raggedf"]]
+    else:
+        fa, ba, dims = _synthetic_case(
+            cuda, fk.Dna5Spec, W, ND, ragged, [7, W, ND, int(ragged)],
+            every=every, scal=sm.scalars(ragged_left=ragged).to(cuda))
+    fwd = fk.wavefront_fwd(*fa, **dims)
+    assert torch.equal(fwd, fk.forward_plain(*fa, **dims))
     fk.reset_counts()
-    got = _bwd(inp, dims, fwd, fk.wavefront_bwd_exp)
+    got = fk.wavefront_bwd_exp(*ba, fwd, **dims)
     torch.cuda.synchronize()
     assert fk.KERNEL_LAUNCHES == {"wavefront_bwd_exp_dna5": 1}
     assert fk.backward_exp_plain.calls == 0
-    want = _bwd(inp, dims, fwd, fk.backward_exp_plain)
+    want = fk.backward_exp_plain(*ba, fwd, **dims)
     check_exp_kernel(got, want)
+    assert torch.isfinite(got[1]).all()
     lanes = list(fk.Dna5Spec.EXP_LANES.values())
     idle = [k for k in range(25) if k not in lanes]
     assert torch.all(got[2][..., idle] == 0.0)
-    assert torch.all(got[2][..., lanes] > 0.0)
-    kposts, ktotals = _bwd(inp, dims, fwd, fk.wavefront_bwd)
+    kposts, ktotals = fk.wavefront_bwd(*ba, fwd, **dims)
     assert torch.equal(got[0], kposts) and torch.equal(got[1], ktotals)
+    if W is not None:
+        return
+    assert torch.all(got[2][..., lanes] > 0.0)
     fin = [pa.exp_finalize(prep, pa.exp_dispatch(
         prep, inp, o[2], o[3], o[1]).cpu().numpy()) for o in (got, want)]
     for k in ("trans", "likelihood"):
         np.testing.assert_array_equal(fin[0][k], fin[1][k])
     check_dna5_expectations(*fin)
+
+
+def _add_cols_flushed(self, x, v):
+    """``fk._Expectations.add_cols`` as an f32 atomic add on the card does
+    it: a denormal operand or sum is flushed to (signed) zero."""
+    def ftz(a):
+        return torch.where(a.abs() < torch.finfo(a.dtype).tiny, a * 0.0, a)
+
+    self.cols.scatter_(3, x, ftz(ftz(self.cols.gather(3, x)) + ftz(v)))
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_cuda_dna5_exp_kernel_flushes_only_denormal_terms(cuda, ragged,
+                                                          monkeypatch):
+    """K3 dna5 adds its per-column terms with f32 atomics, which flush a
+    denormal term to 0.  With the long gaps' opening transitions at -92
+    (e^-92 ~ 1e-40) every term into the long-gap rows (12-19) is denormal
+    (synthetic inputs, W 128, 300 diagonals).  The kernel's accumulators
+    equal the plain version's with its column adds flushed so, bit for
+    bit; the unflushed plain version differs from that only at entries
+    that took a denormal term, by at most what those terms add up to, and
+    within parity.KERNEL_GAPX_ATOL.  Two launches are bit-identical: the
+    per-diagonal barrier orders each column's adds."""
+    scal = StateMachine5().scalars(ragged_left=ragged).clone()
+    scal[0, [fk.T5_LOX, fk.T5_LOY]] = -92.0
+    W, ND = 128, 300
+    fa, ba, dims = _synthetic_case(cuda, fk.Dna5Spec, W, ND, ragged,
+                                   [11, W, ND, int(ragged)],
+                                   scal=scal.to(cuda))
+    fwd = fk.wavefront_fwd(*fa, **dims)
+    got = fk.wavefront_bwd_exp(*ba, fwd, **dims)
+    again = fk.wavefront_bwd_exp(*ba, fwd, **dims)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    want = fk.backward_exp_plain(*ba, fwd, **dims)
+    check_exp_kernel(got, want)
+    monkeypatch.setattr(fk._Expectations, "add_cols", _add_cols_flushed)
+    flushed = fk.backward_exp_plain(*ba, fwd, **dims)
+    for a, b in zip(got, flushed):
+        assert torch.equal(a, b)
+    tiny = torch.finfo(torch.float32).tiny
+    denormal = (want[3] != 0.0) & (want[3].abs() < tiny)
+    assert denormal[:, 12:].sum() > 100
+    assert denormal[:, :12].sum() < denormal[:, 12:].sum()
+    differ = got[3] != want[3]
+    assert differ.any()
+    # each column takes one term a target diagonal: at most ND + 3 flushed
+    assert float((got[3] - want[3]).abs().max()) <= (ND + 3) * tiny
 
 
 def test_cuda_dna5_estep_matches_cpu(cuda):

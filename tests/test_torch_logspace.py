@@ -171,3 +171,169 @@ def test_log_add_sel_equals_plain_log_add_bit_for_bit(order):
                      (7.5, 1e38)):
         assert ((d > lo_) & (d <= hi_)).sum() > 1000
     assert (got == np.float32(fk.NEG)).any()
+
+
+# -- gauss_sel and the strawman's forms written once (wavefront.cu
+# Strawman::bwd_update_with, emissions_with, emissions_in), transcribed
+# from the sources and held to the plain fb_kernels versions ---------------
+
+WAVEFRONT = (Path(__file__).resolve().parents[1] / "cpecan_tpu_torch"
+             / "csrc" / "wavefront.cu").read_text()
+
+
+def _gauss_sel_torch(x, mu, sd, logsd):
+    """gauss_sel, transcribed from the header: its constant, guard and
+    expression read from the source."""
+    m = re.search(r"float gauss_sel\(float x, float mu, float sd,\s*"
+                  r"float logsd\) \{\n(.*?)\n\}", HEADER, re.S)
+    body = m.group(1)
+    assert "const float a = (x - mu) / sd;" in body
+    c = re.search(r"const float v = " + LITERAL
+                  + r"f - logsd - 0\.5f \* a \* a;", body).group(1)
+    assert "return sd > 0.0f ? v : CPECAN_NEG;" in body
+    a = (x - mu) / sd
+    v = float(c) - logsd - 0.5 * a * a
+    return torch.where(sd > 0.0, v, torch.full_like(v, fk.NEG))
+
+
+def _gauss_grid():
+    """(x, mu, sd) f32: sd <= 0 (0, -0, negatives), tiny and huge sds, and
+    ordinary ones, against events near and far from the mean."""
+    rng = np.random.default_rng(11)
+    sd = np.concatenate([[0.0, -0.0, -1.0, -1e-30, 1e-30, 1e-20, 1e-3,
+                          1e20, 3.4e38], rng.uniform(0.1, 10.0, 200),
+                         rng.uniform(-2.0, 0.5, 50)]).astype(np.float32)
+    x = rng.normal(80.0, 30.0, sd.size).astype(np.float32)
+    mu = (x + rng.normal(0.0, 5.0, sd.size)).astype(np.float32)
+    mu[:9] = x[:9] - np.float32(2.5)
+    g = np.meshgrid(np.arange(sd.size), np.arange(3), indexing="ij")[0]
+    shift = np.float32([0.0, 1.5, -300.0])[np.arange(3)][None, :]
+    return (torch.from_numpy((x[g] + shift).ravel()),
+            torch.from_numpy(mu[g].ravel()), torch.from_numpy(sd[g].ravel()))
+
+
+def test_gauss_sel_equals_plain_gauss_bit_for_bit():
+    """gauss_sel with logsd = log(sd) equals fb_kernels.gauss bit for bit,
+    NEG where sd <= 0 (the discarded arithmetic's NaN and inf never leak;
+    a tiny sd overflows to -inf in both)."""
+    x, mu, sd = _gauss_grid()
+    got = _gauss_sel_torch(x, mu, sd, torch.log(sd))
+    want = fk.gauss(x, mu, sd)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool((got[sd <= 0] == np.float32(fk.NEG)).all())
+    assert torch.isfinite(got[sd >= 1e-3]).all() and (sd <= 0).sum() >= 9
+
+
+def _strawman_method(name):
+    """The statements of ``Strawman::name``'s body, one per line."""
+    start = WAVEFRONT.index("struct Strawman : OneMatch {")
+    m = re.compile(name + r"\((.*?)\) \{\n(.*?)\n    \}", re.S).search(
+        WAVEFRONT, start)
+    return [s.strip() for s in m.group(2).split(";") if s.strip()]
+
+
+def _run_statements(stmts, env):
+    """Run the C statements ``type name = expr`` / ``name = expr`` /
+    ``return ...`` as Python in ``env`` (LA::add -> LA)."""
+    for s in stmts:
+        s = re.sub(r"^(const )?(float|Emissions) ", "", s)
+        s = s.replace("LA::add", "LA")
+        if re.fullmatch(r"\w+", s):
+            continue        # a declaration without a value
+        exec(s, env)
+    return env
+
+
+def _bwd_update_torch(la, t, e_gapx_p, eg1, em2p, n1a, n1p, n2p):
+    """Strawman::bwd_update_with<LA>, transcribed statement by statement
+    from wavefront.cu."""
+    stmts = _strawman_method("bwd_update_with")
+    assert sum("LA::add" in s for s in stmts) == 5
+    out = [None] * 3
+    env = dict(t=t, e_gapx_p=e_gapx_p, eg1=eg1, em2p=em2p, n1a=n1a,
+               n1p=n1p, n2p=n2p, out=out, LA=la,
+               **{k: getattr(fk, k) for k in ("T_MM", "T_XM", "T_YM",
+                                              "T_OX", "T_EX", "T_SX",
+                                              "T_OY", "T_EY")})
+    _run_statements(stmts, env)
+    return out
+
+
+def _update_grid():
+    """Sources with NEG operands and gaps at the cubic boundaries: every
+    input a mix of ordinary log values, NEG and values 1.0, 2.5, 4.5 and
+    7.5 apart (and their f32 neighbours) from a common offset."""
+    rng = np.random.default_rng(12)
+    n = 20_000
+    f32 = np.float32
+    ends = np.array([0.0, 1.0, 2.5, 4.5, 7.5], np.float32)
+    near = np.concatenate([ends, np.nextafter(ends, f32(np.inf)),
+                           np.nextafter(ends, f32(-np.inf))])
+
+    def draw():
+        v = rng.uniform(-30.0, 0.0, n).astype(np.float32)
+        k = rng.random(n)
+        v[k < 0.15] = f32(fk.NEG)
+        pick = (k >= 0.15) & (k < 0.5)
+        v[pick] = f32(-5.0) - rng.choice(near, pick.sum())
+        return torch.from_numpy(v)
+
+    t = torch.from_numpy(np.log(rng.uniform(0.05, 0.9, 8)).astype(
+        np.float32))
+    t[[0, 3, 5]] = torch.tensor([0.0, -4.5, -2.5])
+    return t, draw
+
+
+@pytest.mark.parametrize("form", ["branch", "sel"])
+def test_strawman_bwd_update_with_equals_plain(form):
+    """Strawman::bwd_update_with, transcribed, equals
+    fb_kernels.StrawmanSpec.bwd_update_w bit for bit with either log-add
+    (bwd_update: the branch log_add, which fb_kernels.log_add equals;
+    bwd_update_sel: log_add_sel), NEG sources and cubic-boundary gaps
+    included."""
+    t, draw = _update_grid()
+    e_gapx_p, eg1, em2p = draw(), draw(), draw()
+    n1a, n1p, n2p = ([draw() for _ in range(3)] for _ in range(3))
+    la = fk.log_add if form == "branch" else _log_add_sel_torch
+    got = _bwd_update_torch(la, t, e_gapx_p, eg1, [em2p], n1a, n1p, n2p)
+    xfp = torch.zeros((9, e_gapx_p.numel()))
+    xfp[fk.StrawmanSpec.GAP_X] = e_gapx_p
+    want = fk.StrawmanSpec.bwd_update_w(t, None, xfp, eg1, em2p, n1a, n1p,
+                                        n2p)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert any(bool((g == np.float32(fk.NEG)).any()) for g in got)
+
+
+def test_strawman_emissions_in_equals_plain():
+    """Strawman::emissions_in (emissions_with over gauss_sel, the sd rows'
+    logs from col_logs or col_logs_at), transcribed, equals
+    fb_kernels.StrawmanSpec.emissions bit for bit, sd <= 0 included."""
+    x, mu, sd = _gauss_grid()
+    n = x.numel()
+    rng = np.random.default_rng(13)
+    rows = torch.from_numpy(rng.uniform(50.0, 120.0, (9, n)).astype(
+        np.float32))
+    rows[1::2][:4] = sd[torch.from_numpy(rng.permutation(
+        np.tile(np.arange(n), 4)).reshape(4, n))]
+    mean, noise = x, mu
+    # col_logs: lsd[k] = logf(in[YR + 2k + 1])
+    col = " ".join(_strawman_method("col_logs"))
+    assert "lsd[k] = logf(in[YR + 2 * k + 1])" in col
+    col_at = " ".join(_strawman_method("col_logs_at"))
+    assert "lsd[k] = logf(xb[(2 * k + 1) * X + x])" in col_at
+    lsd = [torch.log(rows[2 * k + 1]) for k in range(4)]
+    # emissions_in: g(v, i) = gauss_sel(v, in[YR + i], in[YR + i + 1],
+    # lsd[i / 2]) folded by emissions_with
+    body = " ".join(_strawman_method("emissions_in"))
+    assert "gauss_sel(v, in[YR + i], in[YR + i + 1], lsd[i / 2])" in body
+    assert "emissions_with(in[0], in[1]," in body
+    env = dict(mean=mean, noise=noise, e=type("E", (), {})(),
+               g=lambda v, i: _gauss_sel_torch(v, rows[i], rows[i + 1],
+                                               lsd[i // 2]))
+    _run_statements([s for s in _strawman_method("emissions_with")
+                     if not s.startswith("return")], env)
+    e_match, e_gapy = fk.StrawmanSpec.emissions(rows, mean, noise)
+    for g, w in ((env["e"].match, e_match), (env["e"].gap_y, e_gapy)):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert bool((e_match == np.float32(fk.NEG)).any())
