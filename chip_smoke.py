@@ -10,7 +10,8 @@ machine and the HDP machine through them:
 
 1. versions, the card's name and power limit;
 2. the kernel build (nvcc, ptxas register report); the kernels redesigned
-   for the card (K3 dna5, K6b strawman) within 64 registers, no spill;
+   for the card (K3 dna5, K6b strawman, K6a strawman, K2 dna5) within 64
+   registers, no spill;
 3. each kernel against its plain PyTorch version on the card, on the first
    64-read chunk of the bench batch (256 reads x 905 bases x 800 events,
    seed 7), with the tolerances of cpecan_tpu_torch/parity.py, and the
@@ -283,7 +284,9 @@ HDP_COMPACT_K = 2048
 GOLDEN = {(0, 0), (1, 1), (2, 4), (3, 5)}
 # the kernels redesigned for the H100 whose ptxas report phase 2 holds to
 # 64 registers and no spill
-REDESIGNED = ("sm3_bwd_tiled_sel<Dna5, 1>", "sm3_bwd_tiled_sel<Strawman, 0>")
+REDESIGNED = ("sm3_bwd_tiled_sel<Dna5, 1, 0>",
+              "sm3_bwd_tiled_sel<Strawman, 0, 1>",
+              "sm3_fwd_tiled_sel<Strawman>", "sm3_bwd_tiled_sel<Dna5, 0, 0>")
 
 
 def log(msg):
@@ -463,8 +466,8 @@ def main():
         elif "registers" in line or "spill" in line:
             ptxas.setdefault(kernel, []).append(line.strip())
             log(f"  ptxas: {kernel}: {line.strip()}")
-    # the kernels redesigned for this card (K3 dna5, K6b strawman) stay
-    # within the 64-register cap without spilling
+    # the kernels redesigned for this card (K3 dna5, K6b strawman, K6a
+    # strawman, K2 dna5) stay within the 64-register cap without spilling
     for name in REDESIGNED:
         report = " ".join(ptxas.get(name, []))
         regs = re.search(r"Used (\d+) registers", report)
@@ -501,8 +504,8 @@ def main():
     cells = sum(int(b.width.sum()) for b in prep["bands"])
     bounds = dict(
         fwd=bound(args + [fwd_k], cells, FLOPS_PER_CELL["fwd"]),
-        bwd=bound(bargs + [fwd_k, posts_k, tot_k], cells,
-                  FLOPS_PER_CELL["bwd"]))
+        bwd=bound(bargs + posterior_fwd(fwd_k, bargs[6], dims["R"])
+                  + [posts_k, tot_k], cells, FLOPS_PER_CELL["bwd"]))
     nds = [b.n_diag for b in prep["bands"]]
     rels = list(range(len(nds)))
     chunk_outs = [dict(prep=prep, posteriors=posts,
@@ -1015,7 +1018,8 @@ def main():
     dcells = sum(int(b.width.sum()) for b in dprep["bands"])
     bounds.update(
         dna5_fwd=bound(dfa + [dfwd_k], dcells, FLOPS_PER_CELL["dna5_fwd"]),
-        dna5_bwd=bound(dba + [dfwd_k, dposts_k, dtot_k], dcells,
+        dna5_bwd=bound(dba + posterior_fwd(dfwd_k, dba[6], ddims["R"])
+                       + [dposts_k, dtot_k], dcells,
                        FLOPS_PER_CELL["dna5_bwd"]))
     # the tiled pair on the same pairs, 128 diagonals per tile (phase 16
     # holds K6a/K6b dna5 to their plain versions at the long path's
@@ -1053,7 +1057,10 @@ def main():
         f"ND={ddims['ND']}, W={ddims['W']}): K1/K2 fwd plane, posts, "
         f"totals equal bit for bit, {sum(map(len, dparts[0]))} pairs equal; "
         f"ms fwd {ms['dna5_fwd']:.3f} vs plain {ms['dna5_fwd_plain']:.1f}, "
-        f"bwd {ms['dna5_bwd']:.3f} vs plain {ms['dna5_bwd_plain']:.1f}; "
+        f"bwd {ms['dna5_bwd']:.3f} vs plain {ms['dna5_bwd_plain']:.1f} "
+        f"({ms['dna5_fwd'] * 1e6 / ddims['ND']:.1f} / "
+        f"{ms['dna5_bwd'] * 1e6 / ddims['ND']:.1f} ns a diagonal; bounds "
+        f"{bounds['dna5_fwd'][0]:.4f} / {bounds['dna5_bwd'][0]:.4f} ms); "
         f"tiled (TD={dtl['TD']}, NT={dtl['NT']}) against the untiled run "
         f"(the untiled drift): posts max|d| {dtclip:.3g} clipped at 1, "
         f"{dtraw:.3g} raw (largest posterior untiled "
@@ -1234,7 +1241,9 @@ def main():
     bounds.update(
         dna5_fwd_long_padded=bound(bfa + [bfwd, bsh], bcells,
                                    FLOPS_PER_CELL["dna5_fwd"]),
-        dna5_bwd_long_padded=bound(bba + [bfwd, bsh, bposts, btot], bcells,
+        dna5_bwd_long_padded=bound(bba + posterior_fwd(bfwd, bba[6],
+                                                       bd["R"])
+                                   + [bsh, bposts, btot], bcells,
                                    FLOPS_PER_CELL["dna5_bwd"]))
     bgeom = (len(bprep["win"]), bd["R"], bd["W"], bd["TD"])
     # the bound of the real work: the pair's row of its group (G 1; the
@@ -1249,9 +1258,9 @@ def main():
     bounds.update(
         dna5_fwd_long=bound(rfa + [rfwd, rsh], bcells,
                             FLOPS_PER_CELL["dna5_fwd"]),
-        dna5_bwd_long=bound(rba + [rfwd, rsh, bposts[..., :nr, :],
-                                   btot[:, :nr]], bcells,
-                            FLOPS_PER_CELL["dna5_bwd"]))
+        dna5_bwd_long=bound(rba + posterior_fwd(rfwd, rba[6], bd["R"])
+                            + [rsh, bposts[..., :nr, :], btot[:, :nr]],
+                            bcells, FLOPS_PER_CELL["dna5_bwd"]))
     log(f"long DNA kernels (G={bgeom[0]}, R={bd['R']}, NDT={bd['ND']}, "
         f"W={bd['W']}, {bcells} band cells): K6a dna5 "
         f"{ms['dna5_fwd_long']:.3f} ms, K6b dna5 {ms['dna5_bwd_long']:.3f} "
@@ -1264,7 +1273,7 @@ def main():
         f"{bounds['dna5_bwd_long_padded'][0]:.4f} ms counting all "
         f"{bd['R']} rows' planes")
     # the dna5 tiled kernels' registers and spill
-    for name in ("sm3_fwd_tiled_sel<Dna5>", "sm3_bwd_tiled_sel<Dna5, 0>"):
+    for name in ("sm3_fwd_tiled_sel<Dna5>", "sm3_bwd_tiled_sel<Dna5, 0, 1>"):
         if name not in ptxas:
             raise AssertionError(f"no ptxas report for {name}")
         for line in ptxas[name]:
@@ -1313,7 +1322,8 @@ def main():
     bounds.update(
         dna5_fwd_tiled=bound(kfa + [kfwd, ksh], kcells,
                              FLOPS_PER_CELL["dna5_fwd"]),
-        dna5_bwd_tiled=bound(kba + [kfwd, ksh, kposts, ktot], kcells,
+        dna5_bwd_tiled=bound(kba + posterior_fwd(kfwd, kba[6], kd["R"])
+                             + [ksh, kposts, ktot], kcells,
                              FLOPS_PER_CELL["dna5_bwd"]))
     log(f"long DNA kernels vs plain (a {pair[2]} x {pair[3]} pair, "
         f"{kout['tiled']}, G={bgeom[0]}, R={kd['R']}, W={kd['W']}): fwd "
@@ -1593,7 +1603,9 @@ def main():
             bounds.update(
                 vanilla_fwd=bound(kfa + [vfwd], vcells,
                                   FLOPS_PER_CELL["vanilla_fwd"]),
-                vanilla_bwd=bound(kba + [vfwd, vposts, vtot], vcells,
+                vanilla_bwd=bound(kba + posterior_fwd(vfwd, kba[6],
+                                                      kd["R"])
+                                  + [vposts, vtot], vcells,
                                   FLOPS_PER_CELL["vanilla_bwd"]))
         del vfwd, vposts
         # K3 vanilla on the first group of 32 (the E-step's group)
@@ -1803,8 +1815,10 @@ def main():
     bounds.update(
         vanilla_fwd_tiled=bound(tva + [tvfwd, tvsh], tvcells,
                                 FLOPS_PER_CELL["vanilla_fwd"]),
-        vanilla_bwd_tiled=bound(tvb + [tvfwd, tvsh, tvposts, tvtot],
-                                tvcells, FLOPS_PER_CELL["vanilla_bwd"]))
+        vanilla_bwd_tiled=bound(tvb + posterior_fwd(tvfwd, tvb[6],
+                                                    tvd["R"])
+                                + [tvsh, tvposts, tvtot], tvcells,
+                                FLOPS_PER_CELL["vanilla_bwd"]))
     log(f"vanilla long kernels vs plain (a {cread[2]} x {cread[3]} read, "
         f"{vcout['tiled']}, R={tvd['R']}, W={tvd['W']}): fwd plane, shifts, "
         f"posts, totals equal bit for bit, {len(tvpairs[0])} pairs equal; "
@@ -1897,7 +1911,8 @@ def main():
     bounds.update(
         sm4_fwd_bench=bound(s4fa + [s4fwd], s4cells,
                             FLOPS_PER_CELL["sm4_fwd"]),
-        sm4_bwd_bench=bound(s4ba + [s4fwd, s4posts, s4tot], s4cells,
+        sm4_bwd_bench=bound(s4ba + posterior_fwd(s4fwd, s4ba[6], s4d["R"])
+                            + [s4posts, s4tot], s4cells,
                             FLOPS_PER_CELL["sm4_bwd"]))
     del s4fwd_p, s4posts_p, s4fwd, s4posts
     # K3 sm4: the E-step entry point, its launches counted from 0
@@ -2017,7 +2032,8 @@ def main():
     bounds.update(
         sm4_fwd_tiled=bound(t4a + [t4fwd, t4sh], t4cells,
                             FLOPS_PER_CELL["sm4_fwd"]),
-        sm4_bwd_tiled=bound(t4b + [t4fwd, t4sh, t4posts, t4tot], t4cells,
+        sm4_bwd_tiled=bound(t4b + posterior_fwd(t4fwd, t4b[6], t4d["R"])
+                            + [t4sh, t4posts, t4tot], t4cells,
                             FLOPS_PER_CELL["sm4_bwd"]))
     log(f"sm4 long path: {LONG_READS} reads routed tiled by themselves, one "
         f"run, kernels only: {bases / s4long_s:.6g} bases/s e2e "
@@ -2195,7 +2211,8 @@ def main():
                 bounds.update(
                     sm4_fwd=bound(fa + [fwd], cells,
                                   FLOPS_PER_CELL["sm4_fwd"]),
-                    sm4_bwd=bound(ba + [fwd, posts, tot], cells,
+                    sm4_bwd=bound(ba + posterior_fwd(fwd, ba[6], d["R"])
+                                  + [posts, tot], cells,
                                   FLOPS_PER_CELL["sm4_bwd"]))
                 log(f"pipeline chunk K1/K2 sm4: ms fwd {ms['sm4_fwd']:.3f}, "
                     f"bwd {ms['sm4_bwd']:.3f}; bounds "
@@ -2318,6 +2335,9 @@ def main():
     ecells = sum(int(b.width.sum()) for b in eprep["bands"])
     bounds.update(
         echelon_fwd=bound(efa + [efwd], ecells, FLOPS_PER_CELL["echelon_fwd"]),
+        # the whole fwd plane: echelon's posteriors are those of five of
+        # its seven states (match1..match5), so it reads 5/7 of the plane
+        # on every diagonal; posterior_fwd counts one posterior state
         echelon_bwd=bound(eba + [efwd, eposts, etot], ecells,
                           FLOPS_PER_CELL["echelon_bwd"]))
     del efwd_p, eposts_p, efwd, eposts
@@ -2553,8 +2573,9 @@ def main():
     bounds.update(
         hdp_fwd=bound(hread + [hest, hfwd], hcells,
                       FLOPS_PER_CELL["hdp_fwd"]),
-        hdp_bwd=bound(hread + [hinp["seedf"], hinp["raggedf"], hfwd, hest,
-                               hposts, htot], hcells,
+        hdp_bwd=bound(hread + [hinp["seedf"], hinp["raggedf"], hest,
+                               hposts, htot]
+                      + posterior_fwd(hfwd, hinp["seedf"], hd["R"]), hcells,
                       FLOPS_PER_CELL["hdp_bwd"]))
     hstream_ms = cuda_ms(lambda: hpa.emission_stream(hsm, hprep, hinp), 5)
     del hfwd, hposts, hest, hinp

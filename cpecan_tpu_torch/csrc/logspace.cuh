@@ -39,7 +39,7 @@ __device__ __forceinline__ float log_add3(float a, float b, float c) {
     return log_add(log_add(a, b), c);
 }
 
-// log_add without branches, for the tiled dna5 kernels (sm3_fwd_tiled_sel,
+// log_add without branches, for the select kernels (sm3_fwd_tiled_sel,
 // sm3_bwd_tiled_sel): the same interval tests select the four coefficients
 // of the gap's cubic, then one Horner evaluation.  Under --fmad=false these
 // are the same f32 operations, in the same order, as the branch log_add
@@ -69,15 +69,23 @@ __device__ __forceinline__ float log_add3_sel(float a, float b, float c) {
 }
 
 // The two log-adds as types, for the updates written once for both forms
-// (Strawman::bwd_update_with)
+// (Strawman::fwd_update_with, Strawman::bwd_update_with)
 struct LogAddBranch {
     __device__ __forceinline__ static float add(float x, float y) {
         return log_add(x, y);
+    }
+    __device__ __forceinline__ static float add3(float a, float b,
+                                                 float c) {
+        return log_add3(a, b, c);
     }
 };
 struct LogAddSel {
     __device__ __forceinline__ static float add(float x, float y) {
         return log_add_sel(x, y);
+    }
+    __device__ __forceinline__ static float add3(float a, float b,
+                                                 float c) {
+        return log_add3_sel(a, b, c);
     }
 };
 

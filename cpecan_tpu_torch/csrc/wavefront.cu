@@ -26,7 +26,9 @@
 //   sm3_bwd_kernel<Spec, false, false>
 //                          <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
 //                             -> _sm3_backward_body_w (:857, :900;
-//                             with_exp=False, untiled)                  K2
+//                             with_exp=False, untiled; _StrawmanSpec,
+//                             _VanillaSpec, _Sm4Spec, _EchelonSpec,
+//                             _HdpSpec)                                 K2
 //   sm3_bwd_kernel<Spec, true, false>
 //                          <- the same body with with_exp=True (EM
 //                             expectations: accumulate_exp :1072 and
@@ -37,21 +39,26 @@
 //   sm3_fwd_kernel<Spec, true>
 //                          <- _sm3_forward_kernel(tile=...) (:2304), chained
 //                             over the tiles by _run_tiled (:2447) with
-//                             _tile_steps.recenter (:2381)            K6a
+//                             _tile_steps.recenter (:2381); _VanillaSpec,
+//                             _Sm4Spec                                K6a
 //   sm3_bwd_kernel<Spec, false, true>
 //                          <- _sm3_backward_kernel(tile=...) (:2332), the
-//                             shifts repaid as shf (:947, :1170, :1193) K6b
-//   sm3_fwd_tiled_sel<Dna5>, sm3_bwd_tiled_sel<Dna5, false>
+//                             shifts repaid as shf (:947, :1170, :1193);
+//                             _VanillaSpec, _Sm4Spec                  K6b
+//   sm3_fwd_tiled_sel<Dna5>, sm3_bwd_tiled_sel<Dna5, false, true>
 //                          <- K6a and K6b for the 5-state DNA machine (the
 //                             100 kb pair's path): the same recurrences
 //                             with a shorter step (the note above
-//                             sm3_fwd_tiled_sel); the tiled instances of
-//                             the two templates above serve K6a strawman
-//                             and K6a/K6b vanilla and sm4
-//   sm3_bwd_tiled_sel<Strawman, false>
-//                          <- K6b for the strawman machine (the long signal
-//                             reads' path), on the same template
-//   sm3_bwd_tiled_sel<Dna5, true>
+//                             sm3_fwd_tiled_sel)
+//   sm3_fwd_tiled_sel<Strawman>, sm3_bwd_tiled_sel<Strawman, false, true>
+//                          <- K6a and K6b for the strawman machine (the
+//                             long signal reads' path), on the same
+//                             templates
+//   sm3_bwd_tiled_sel<Dna5, false, false>
+//                          <- K2 for the 5-state DNA machine (the
+//                             realigner's posteriors): the untiled
+//                             posterior form, with the select step
+//   sm3_bwd_tiled_sel<Dna5, true, false>
 //                          <- K3 for the 5-state DNA machine (cPecanEm's
 //                             E-step): the sums of sm3_bwd_kernel<Dna5,
 //                             true, false>, untiled, with the select step
@@ -285,11 +292,11 @@ struct Strawman : OneMatch {
         });
     }
 
-    // The forms of sm3_bwd_tiled_sel: in = yf rows 0-1 at the cell's
-    // column, then xf rows 0-8 (the gap-X row at next_col(x)); lsd the
-    // logs of the sd rows 1, 3, 5, 7 at x (col_logs, or col_logs_at from
-    // the rows; the template takes them again only where the window
-    // moves); the select-guarded gauss_sel
+    // The forms of sm3_fwd_tiled_sel and sm3_bwd_tiled_sel: in = yf rows
+    // 0-1 at the cell's column, then xf rows 0-8 (the backward's gap-X
+    // row at next_col(x)); lsd the logs of the sd rows 1, 3, 5, 7 at x
+    // (col_logs, or col_logs_at from the rows; the templates take them
+    // again only where the window moves); the select-guarded gauss_sel
     static constexpr int NLSD = 4;
     static constexpr bool T_SHARED = true;
     __device__ __forceinline__ static void col_logs(const float* in,
@@ -311,17 +318,33 @@ struct Strawman : OneMatch {
         });
     }
 
-    // _StrawmanSpec.fwd_update_w
+    // _StrawmanSpec.fwd_update_w, written once for both log-adds (LA:
+    // LogAddBranch, LogAddSel); e_gapx the gap-X row at x
+    template <class LA>
+    __device__ __forceinline__ static void fwd_update_with(
+            const float* t, const float* p1m, const float* p1a,
+            const float* p2m, const Emissions& e, float e_gapx,
+            float* out) {
+        out[0] = LA::add3(p2m[0] + t[T_MM], p2m[1] + t[T_XM],
+                          p2m[2] + t[T_YM]) + e.match;
+        out[1] = LA::add3(p1m[0] + t[T_OX], p1m[1] + t[T_EX],
+                          p1m[2] + t[T_SX]) + e_gapx;
+        out[2] = LA::add(p1a[0] + t[T_OY], p1a[2] + t[T_EY]) + e.gap_y;
+    }
+
     __device__ __forceinline__ static void fwd_update(
             const float* t, const float* p1m, const float* p1a,
             const float* p2m, const Emissions& e, const float* xb, int X,
             int x, float* out) {
-        const float e_gapx = xb[GAP_X * X + x];
-        out[0] = log_add3(p2m[0] + t[T_MM], p2m[1] + t[T_XM],
-                          p2m[2] + t[T_YM]) + e.match;
-        out[1] = log_add3(p1m[0] + t[T_OX], p1m[1] + t[T_EX],
-                          p1m[2] + t[T_SX]) + e_gapx;
-        out[2] = log_add(p1a[0] + t[T_OY], p1a[2] + t[T_EY]) + e.gap_y;
+        fwd_update_with<LogAddBranch>(t, p1m, p1a, p2m, e,
+                                      xb[GAP_X * X + x], out);
+    }
+
+    __device__ __forceinline__ static void fwd_update_sel(
+            const float* t, const float* p1m, const float* p1a,
+            const float* p2m, const Emissions& e, float e_gapx,
+            float* out) {
+        fwd_update_with<LogAddSel>(t, p1m, p1a, p2m, e, e_gapx, out);
     }
 
     // _StrawmanSpec.bwd_update_w, written once for both log-adds (LA:
@@ -482,31 +505,10 @@ struct Dna5 : OneMatch {
         out[4] = log_add(p1a[0] + t[T5_LOY], p1a[4] + t[T5_LEY]) + e.gap_y;
     }
 
-    // _Dna5Spec.bwd_update_w, the JAX grouping kept exactly (log_add is not
-    // associative in f32)
-    __device__ __forceinline__ static void bwd_update(
-            const float* t, const float* xb, int X, int x, float eg1,
-            const float* em2p, const float* n1a, const float* n1p,
-            const float* n2p, float* out) {
-        const float e_gapx_p = xb[GAP_X * X + next_col(x, X)];
-        const float mid = em2p[0] + n2p[0];
-        const float low_s = e_gapx_p + n1p[1];
-        const float low_l = e_gapx_p + n1p[3];
-        const float up_s = eg1 + n1a[2];
-        const float up_l = eg1 + n1a[4];
-        out[0] = log_add(log_add3(mid + t[T5_MM], low_s + t[T5_SOX],
-                                  low_l + t[T5_LOX]),
-                         log_add(up_s + t[T5_SOY], up_l + t[T5_LOY]));
-        out[1] = log_add(mid + t[T5_MSX], low_s + t[T5_SEX]);
-        out[2] = log_add(mid + t[T5_MSY], up_s + t[T5_SEY]);
-        out[3] = log_add(mid + t[T5_MLX], low_l + t[T5_LEX]);
-        out[4] = log_add(mid + t[T5_MLY], up_l + t[T5_LEY]);
-    }
-
-    // The forms of sm3_fwd_tiled_sel and sm3_bwd_tiled_sel: the same
-    // arithmetic on the cell's inputs loaded into registers (in:
-    // yf rows 0-1 at the cell's column, then xf rows 0-5), with the
-    // branch-free log_add_sel
+    // The forms of sm3_fwd_tiled_sel and sm3_bwd_tiled_sel (the
+    // backward's only form): the arithmetic above on the cell's inputs
+    // loaded into registers (in: yf rows 0-1 at the cell's column, then
+    // xf rows 0-5), with the branch-free log_add_sel
     __device__ __forceinline__ static Emissions emissions_in(
             const float* in) {
         const float b = in[0];
@@ -540,7 +542,8 @@ struct Dna5 : OneMatch {
                  + e.gap_y;
     }
 
-    // e_gapx_p: the gap-X row at next_col(x)
+    // _Dna5Spec.bwd_update_w, the JAX grouping kept exactly (log_add is
+    // not associative in f32); e_gapx_p: the gap-X row at next_col(x)
     __device__ __forceinline__ static void bwd_update_sel(
             const float* t, float e_gapx_p, float eg1, const float* em2p,
             const float* n1a, const float* n1p, const float* n2p,
@@ -1382,13 +1385,21 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
 // templates above.
 // The strawman's backward (K6b strawman: the 64 long signal reads, 8
 // blocks of 8 reads, 28,672 diagonals; 2.03 us a diagonal with the
-// template above) runs on the same template.  Its step adds four
-// Gaussians, each an IEEE division and a logf of its sd row: the logs of
-// a lane's column are kept in registers while the window stays (col_logs
-// again only on the steps where it moves, a block-uniform branch), the
-// guard is the select gauss_sel, and the transitions are read from shared
-// memory (T_SHARED), which keeps the step at 64 registers without a
-// spill.
+// template above on an H100 80GB HBM3 at 700 W) runs on the same template.
+// Its step adds four Gaussians, each an IEEE division and a logf of its sd
+// row: the logs of a lane's column are kept in registers while the window
+// stays (col_logs again only on the steps where it moves, a block-uniform
+// branch), the guard is the select gauss_sel, and the transitions are read
+// from shared memory (T_SHARED), which keeps the step at 64 registers
+// without a spill.  The strawman's forward (K6a strawman, the same reads;
+// 1.49 us a diagonal with the template above on the same card) runs on the
+// forward template with the same traits: its four Gaussians, the column
+// logs taken first for diagonal 0's window (col_logs_at) and again on the
+// steps where the window moves, the scalars in shared memory, the five
+// log-adds of Strawman::fwd_update_with as log_add_sel.  K2 for the 5-state
+// DNA machine (the realigner's 2 kb pairs, ND ~4,000), whose step was the
+// one K6b dna5 had before its redesign, is the untiled posterior form of
+// the backward template.
 
 // 4-byte asynchronous copy global -> shared (sm_80+), and its groups
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -1414,10 +1425,22 @@ __device__ __forceinline__ void prefetch_l1(const void* p) {
 }
 
 // how many diagonals ahead sm3_bwd_tiled_sel copies its fwd plane entries
-// (tiled, and WITH_EXP), and how far ahead the select kernels prefetch
-// the lines of their band scalars (one line holds 32 diagonals) and the
-// backwards those of their rows
+// (the posterior forms, and WITH_EXP), and how far ahead the select
+// kernels prefetch the lines of their band scalars (one line holds 32
+// diagonals) and the backwards those of their rows
 constexpr int F_AHEAD = 3, X_AHEAD = 1, L1_AHEAD = 64;
+
+// the emissions of a cell from its inputs in registers, with the spec's
+// per-column logs where it keeps them
+template <class Spec>
+__device__ __forceinline__ Emissions tiled_emissions(const float* in,
+                                                     const float* lsd) {
+    if constexpr (Spec::NLSD > 0) {
+        return Spec::emissions_in(in, lsd);
+    } else {
+        return Spec::emissions_in(in);
+    }
+}
 
 template <class Spec>
 __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
@@ -1434,16 +1457,26 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
     constexpr int NSCAL = Spec::NS + 3 * S;
     constexpr int START = Spec::NS;
     constexpr int YR = Spec::YR, NXF = Spec::NXF;
-    // ring [3 slots][S][W]; red [32]: the re-centering's scratch
+    constexpr bool T_SHARED = Spec::T_SHARED;
+    static_assert(NSCAL <= 32, "the shared scalars fit their 32 floats");
+    // ring [3 slots][S][W]; red [32]: the re-centering's scratch; with
+    // T_SHARED, the scalars [32]
     extern __shared__ float ring[];
     float* red = ring + 3 * S * W;
     const int b = blockIdx.x;
     const int g = b / R;
     const int r = b - g * R;
     const int l = threadIdx.x;
-    float t[NSCAL];
+    // the scalars in registers, or with T_SHARED after red
+    float t_reg[T_SHARED ? 1 : NSCAL];
+    float* t = T_SHARED ? red + 32 : t_reg;
+    if constexpr (T_SHARED) {
+        if (l < NSCAL) t[l] = scal[l];
+        __syncthreads();
+    } else {
 #pragma unroll
-    for (int i = 0; i < NSCAL; ++i) t[i] = scal[i];
+        for (int i = 0; i < NSCAL; ++i) t[i] = scal[i];
+    }
     const int* wg = win + static_cast<size_t>(g) * NDp;
     const float* xb = xf + static_cast<size_t>(b) * NXF * X;
     const float* yb = yf + static_cast<size_t>(b) * YR * Y;
@@ -1452,6 +1485,10 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
     const size_t plane_d = static_cast<size_t>(S) * R * W;
     float* od = fwd + static_cast<size_t>(g) * (ND + 1) * plane_d
                 + static_cast<size_t>(r) * W + l;
+    // a spec's per-column logs (NLSD > 0), kept for x = w_{d-1} + l at the
+    // top of step d: diagonal 0's window first
+    float lsd[Spec::NLSD > 0 ? Spec::NLSD : 1];
+    if constexpr (Spec::NLSD > 0) Spec::col_logs_at(xb, X, wg[0] + l, lsd);
 
     // d = 0: the start vector inside the band; the slot of d = -1 is NEG
     const bool m0 = in_band(wg[0] + l, base[0], width[0]);
@@ -1508,7 +1545,11 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
             p1a[i] = shifted(p1 + i * W, l, s1, W);
             p2m[i] = shifted(p2 + i * W, l, s2 - 1, W);
         }
-        const Emissions e = Spec::emissions_in(in);
+        // the column logs change only where the window moves
+        if constexpr (Spec::NLSD > 0) {
+            if (w != w1) Spec::col_logs(in, lsd);
+        }
+        const Emissions e = tiled_emissions<Spec>(in, lsd);
         float nv[S];
         Spec::fwd_update_sel(t, p1m, p1a, p2m, e, in[YR + Spec::GAP_X],
                              nv);
@@ -1530,21 +1571,14 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
     }
 }
 
-// the emissions of a cell from its inputs in registers, with the spec's
-// per-column logs where it keeps them
-template <class Spec>
-__device__ __forceinline__ Emissions tiled_emissions(const float* in,
-                                                     const float* lsd) {
-    if constexpr (Spec::NLSD > 0) {
-        return Spec::emissions_in(in, lsd);
-    } else {
-        return Spec::emissions_in(in);
-    }
-}
-
-// The tiled backward (K6b) and, WITH_EXP, the untiled expectation backward
-// (K3: no tiles and no shifts; its trans and acc come last).  The
-// expectation form is sm3_bwd_kernel<Spec, true, false>'s recurrence,
+// The posterior backward in three forms: TILED, the tiled backward (K6b);
+// neither flag, the untiled posterior backward (K2: no tiles, no
+// re-centering and no shift, so total and z lose the shf term; no shifts
+// buffer is read); WITH_EXP, the untiled expectation backward (K3; its
+// trans and acc come last).  The untiled posterior form is
+// sm3_bwd_kernel<Spec, false, false>'s recurrence, posteriors and totals,
+// computed identically, with the tiled form's step.  The expectation form
+// is sm3_bwd_kernel<Spec, true, false>'s recurrence,
 // posteriors, totals and EM sums, computed identically (the same targets
 // in the same order, the same f32 operations): on the E-step's chunks (64
 // blocks of W = 128 threads, 2,000 diagonals; one warp per scheduler) it
@@ -1555,9 +1589,10 @@ __device__ __forceinline__ Emissions tiled_emissions(const float* in,
 // shared memory (64 registers, no spill); the targets are t = d + 3 at
 // step d and 3, 2 and 1 after the loop; the column sums are the spec's
 // atomic reductions (Dna5::exp_probs), each column's adds ordered by the
-// per-diagonal barrier.  Every line it does not add is the tiled form's,
-// whose instances compile to the same SASS as without it.
-template <class Spec, bool WITH_EXP>
+// per-diagonal barrier.  Every line either untiled form does not add is
+// the tiled form's; what the flags add sits under if constexpr, so each
+// form's instances compile to the same SASS as without the others.
+template <class Spec, bool WITH_EXP, bool TILED>
 __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
                                   const int* __restrict__ win,
                                   const float* __restrict__ xf,
@@ -1579,10 +1614,11 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     constexpr int YR = Spec::YR, NXF = Spec::NXF;
     constexpr bool T_SHARED = WITH_EXP || Spec::T_SHARED;
     static_assert(Spec::NPS == 1 && 2 * S + (T_SHARED ? Spec::NS : 0) <= 32
-                      && !(WITH_EXP && Spec::STREAMED),
+                      && !(WITH_EXP && Spec::STREAMED)
+                      && !(WITH_EXP && TILED),
                   "one posterior plane; the end vectors (and the shared "
                   "transitions) fit tend; the targets' emissions come from "
-                  "the rows");
+                  "the rows; the tiled path has no EM sums");
     // the fwd slots: the posterior state's entry, copied F_AHEAD diagonals
     // ahead, or WITH_EXP all S entries, X_AHEAD diagonals ahead
     constexpr int AHEAD = WITH_EXP ? X_AHEAD : F_AHEAD;
@@ -1682,7 +1718,7 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     bool cut_prev = false;       // the seed cut of diagonal d + 1
     float shift = 0.0f;          // B, the running re-centering shift
     float shf = 0.0f;            // A_t + B, repaid by the rows of tile t
-    const int NT = WITH_EXP ? 1 : ND / TD;
+    const int NT = TILED ? ND / TD : 1;
     float* n1 = ring + S * W;      // bwd[d + 1]
     float* n2 = ring + 2 * S * W;  // bwd[d + 2]
     float* cur = ring;             // WITH_EXP: bwd[d + 3] until bwd[d]
@@ -1694,7 +1730,7 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     int rs = 1, is = (1 + AHEAD) % QF, rs1 = 0, rs2 = QF - 1;
     pout += static_cast<size_t>(ND) * pstate;
     for (int d = ND; d >= 1; --d) {
-        if constexpr (!WITH_EXP) {
+        if constexpr (TILED) {
             if (left == 0) {
                 // the top of tile d / TD - 1; below the first tile the
                 // carried bwd[d + 1] and bwd[d + 2] (cut at d + 1)
@@ -1800,12 +1836,12 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
             const float m = block_max(vv, red);
             const float s = block_sum(mask ? expf(vv - m) : 0.0f, red);
             total = m + logf(fmaxf(s, 1e-37f));
-            if constexpr (!WITH_EXP) total = total + shf;
+            if constexpr (TILED) total = total + shf;
         }
         const float xl = static_cast<float>(x);
         const bool ok = mask && xl > 0.0f && xl < static_cast<float>(d);
         float z = f[0] + bw[0] - total;
-        if constexpr (!WITH_EXP) z = z + shf;
+        if constexpr (TILED) z = z + shf;
         *pout = ok ? expf(fminf(z, 0.69f)) : 0.0f;
         pout -= pstate;
         if constexpr (WITH_EXP) {
@@ -1960,8 +1996,9 @@ int launch_fwd_sel(const void* scal, const void* win, const void* xf,
                    int NDp, int X, int C, int Y, int TD, void* stream) {
     if (int e = launch_config_error(W)) return e;
     if (TD <= 0 || ND % TD != 0) return cudaErrorInvalidValue;
-    // ring, and the reduction scratch of the re-centering
-    const size_t smem = sizeof(float) * (3 * Spec::S * W + 32);
+    // ring, the reduction scratch of the re-centering and the shared
+    // scalars
+    const size_t smem = sizeof(float) * (3 * Spec::S * W + 64);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             sm3_fwd_tiled_sel<Spec>,
@@ -1979,7 +2016,7 @@ int launch_fwd_sel(const void* scal, const void* win, const void* xf,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <class Spec, bool WITH_EXP>
+template <class Spec, bool WITH_EXP, bool TILED>
 int launch_bwd_sel(const void* scal, const void* win, const void* xf,
                    const void* yf, const void* basef, const void* widthf,
                    const void* seedf, const void* raggedf, const void* fwd,
@@ -1987,19 +2024,19 @@ int launch_bwd_sel(const void* scal, const void* win, const void* xf,
                    void* trans, void* accf, int G, int R, int W, int ND,
                    int NDp, int X, int C, int Y, int TD, void* stream) {
     if (int e = launch_config_error(W)) return e;
-    if (!WITH_EXP && (TD <= 0 || ND % TD != 0)) return cudaErrorInvalidValue;
+    if (TILED && (TD <= 0 || ND % TD != 0)) return cudaErrorInvalidValue;
     // ring + em + red + the end vectors + the fwd slots
     constexpr int NQ = WITH_EXP ? (X_AHEAD + 3) * Spec::S : F_AHEAD + 1;
     const size_t smem = sizeof(float)
                         * ((3 * Spec::S + 2 * Spec::NEM + NQ) * W + 64);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            sm3_bwd_tiled_sel<Spec, WITH_EXP>,
+            sm3_bwd_tiled_sel<Spec, WITH_EXP, TILED>,
             cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(smem));
         if (e != cudaSuccess) return static_cast<int>(e);
     }
-    sm3_bwd_tiled_sel<Spec, WITH_EXP>
+    sm3_bwd_tiled_sel<Spec, WITH_EXP, TILED>
         <<<G * R, W, smem, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float*>(scal), static_cast<const int*>(win),
             static_cast<const float*>(xf), static_cast<const float*>(yf),
@@ -2082,9 +2119,22 @@ const char* wavefront_error_string(int code) {
              const void* shifts, void* posts, void* totals, int G, int R,    \
              int W, int ND, int NDp, int X, int C, int Y, int TD,            \
              void* stream) {                                                 \
-        return launch_bwd_sel<SPEC, false>(                                  \
+        return launch_bwd_sel<SPEC, false, true>(                            \
             scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, shifts,   \
             posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X, C, Y, TD,  \
+            stream);                                                         \
+    }
+
+// the untiled select posterior kernel takes the untiled one's arguments
+#define WAVEFRONT_BWD_SEL_ENTRY(NAME, SPEC)                                 \
+    int NAME(const void* scal, const void* win, const void* xf,              \
+             const void* yf, const void* basef, const void* widthf,          \
+             const void* seedf, const void* raggedf, const void* fwd,        \
+             void* posts, void* totals, int G, int R, int W, int ND,         \
+             int NDp, int X, int C, int Y, void* stream) {                   \
+        return launch_bwd_sel<SPEC, false, false>(                           \
+            scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,  \
+            posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X, C, Y, 0,   \
             stream);                                                         \
     }
 
@@ -2109,7 +2159,7 @@ const char* wavefront_error_string(int code) {
              void* posts, void* totals, void* trans, void* acc, int G,       \
              int R, int W, int ND, int NDp, int X, int C, int Y,             \
              void* stream) {                                                 \
-        return launch_bwd_sel<SPEC, true>(                                   \
+        return launch_bwd_sel<SPEC, true, false>(                            \
             scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,  \
             posts, totals, trans, acc, G, R, W, ND, NDp, X, C, Y, 0,         \
             stream);                                                         \
@@ -2152,10 +2202,10 @@ const char* wavefront_error_string(int code) {
 
 WAVEFRONT_FWD_ENTRY(wavefront_fwd, Strawman)
 WAVEFRONT_FWD_ENTRY(wavefront_fwd_dna5, Dna5)
-WAVEFRONT_FWD_TILED_ENTRY(wavefront_fwd_tiled, Strawman)
+WAVEFRONT_FWD_TILED_SEL_ENTRY(wavefront_fwd_tiled, Strawman)
 WAVEFRONT_FWD_TILED_SEL_ENTRY(wavefront_fwd_tiled_dna5, Dna5)
 WAVEFRONT_BWD_ENTRY(wavefront_bwd, Strawman)
-WAVEFRONT_BWD_ENTRY(wavefront_bwd_dna5, Dna5)
+WAVEFRONT_BWD_SEL_ENTRY(wavefront_bwd_dna5, Dna5)
 WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled, Strawman)
 WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled_dna5, Dna5)
 

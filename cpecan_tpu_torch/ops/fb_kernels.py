@@ -56,13 +56,13 @@ tensor on the CPU and launches the CUDA kernel
 (``cpecan_tpu_torch/csrc/wavefront.cu``) for a CUDA tensor; nothing falls
 back from one to the other.  The tiled pair sweeps all ND = NT * TD
 diagonals in one launch each: a tile of the TPU kernels is only a
-boundary here, where the carried diagonals re-center.  The dna5 tiled pair
-runs its own kernels (``sm3_fwd_tiled_sel<Dna5>``,
-``sm3_bwd_tiled_sel<Dna5, false>``: the same recurrences with a
-branch-free log-add), as do K6b strawman
-(``sm3_bwd_tiled_sel<Strawman, false>``) and K3 dna5 (the untiled
-expectation form ``sm3_bwd_tiled_sel<Dna5, true>``); the other specs run
-the instances of ``sm3_fwd_kernel``/``sm3_bwd_kernel``.  Every CUDA
+boundary here, where the carried diagonals re-center.  The dna5 and
+strawman tiled pairs run the select kernels (``sm3_fwd_tiled_sel<Spec>``,
+``sm3_bwd_tiled_sel<Spec, false, true>``: the same recurrences with a
+branch-free log-add), as do K2 dna5 (the untiled posterior form
+``sm3_bwd_tiled_sel<Dna5, false, false>``) and K3 dna5 (the untiled
+expectation form ``sm3_bwd_tiled_sel<Dna5, true, false>``); the other
+instances are those of ``sm3_fwd_kernel``/``sm3_bwd_kernel``.  Every CUDA
 kernel's launches are counted in ``KERNEL_LAUNCHES`` under its entry
 point's name (``wavefront_fwd``, ``wavefront_fwd_dna5``,
 ``wavefront_fwd_vanilla``, ``wavefront_fwd_sm4``, ``wavefront_fwd_echelon``,
@@ -1230,7 +1230,8 @@ def wavefront_bwd(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
     """Posterior backward -> (posts [G, ND+1, R, W] or, for a spec with
     POST_STATES, [G, ND+1, NPS, R, W], totals [G, R]) f32; a streamed spec
     reads its emissions from ``est``.  Plain PyTorch for CPU tensors; the
-    CUDA kernel ``sm3_bwd_kernel<spec>`` for CUDA tensors (replaces
+    CUDA kernel ``sm3_bwd_kernel<spec, false, false>`` (dna5: the untiled
+    ``sm3_bwd_tiled_sel<Dna5, false, false>``) for CUDA tensors (replaces
     cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
     with_exp=False)."""
     if xf.device.type == "cpu":
@@ -1254,7 +1255,7 @@ def wavefront_bwd_exp(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
     ``backward_exp_plain``); a streamed spec reads its emissions from
     ``est``.  Plain PyTorch for CPU tensors; the CUDA kernel
     ``sm3_bwd_kernel<spec, true, false>`` (dna5: the untiled
-    ``sm3_bwd_tiled_sel<Dna5, true>``) for CUDA tensors (replaces
+    ``sm3_bwd_tiled_sel<Dna5, true, false>``) for CUDA tensors (replaces
     cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
     with_exp=True; entry ``wavefront_bwd_exp`` + ``spec.SUFFIX``)."""
     _no_expectations(spec)
@@ -1295,9 +1296,10 @@ def wavefront_fwd_tiled(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
     """Tiled forward over ND = NT * TD diagonals -> (fwd plane
     [G, ND+1, S, R, W], shifts [G, R, NT]) f32 (see
     ``forward_tiled_plain``).  Plain PyTorch for CPU tensors; the CUDA
-    kernel ``sm3_fwd_kernel<spec, true>`` (dna5: ``sm3_fwd_tiled_sel``)
-    for CUDA tensors (replaces cpecan_tpu/ops/pallas_fb.py:2304
-    _sm3_forward_kernel(tile=...), K6a)."""
+    kernel ``sm3_fwd_kernel<spec, true>`` (strawman and dna5:
+    ``sm3_fwd_tiled_sel``) for CUDA tensors (replaces
+    cpecan_tpu/ops/pallas_fb.py:2304 _sm3_forward_kernel(tile=...),
+    K6a)."""
     _tiles(ND, TD, spec)
     if xf.device.type == "cpu":
         return forward_tiled_plain(scal, win, xf, yf, basef, widthf, R=R,
@@ -1316,7 +1318,7 @@ def wavefront_bwd_tiled(scal, win, xf, yf, basef, widthf, seedf, raggedf,
     [G, ND+1, R, W], totals [G, R]) f32 (see ``backward_tiled_plain``).
     Plain PyTorch for CPU tensors; the CUDA kernel
     ``sm3_bwd_kernel<spec, false, true>`` (strawman and dna5:
-    ``sm3_bwd_tiled_sel``) for CUDA tensors (replaces
+    ``sm3_bwd_tiled_sel<spec, false, true>``) for CUDA tensors (replaces
     cpecan_tpu/ops/pallas_fb.py:2332 _sm3_backward_kernel(tile=...),
     K6b)."""
     NT = _tiles(ND, TD, spec)

@@ -197,19 +197,23 @@ def test_wide_group_window_raises(cuda):
 
 
 @pytest.mark.parametrize("ragged", [False, True])
-@pytest.mark.parametrize("W, NT", [(None, None), (32, 1), (32, 2), (32, 3),
-                                   (128, 1), (128, 2), (128, 3), (1024, 1),
-                                   (1024, 2), (1024, 3)],
-                         ids=lambda v: "batch" if v is None else str(v))
-def test_cuda_tiled_kernels_match_plain(batch, cuda, ragged, W, NT):
-    """K6a/K6b (K6b: ``sm3_bwd_tiled_sel<Strawman, false>``) against their
-    plain versions on the same card inputs, with tiles of 128 diagonals:
-    fwd plane, shifts, posteriors and totals equal bit for bit.  On the batch
+@pytest.mark.parametrize("W, NT, every", [
+    pytest.param(W, NT, False,
+                 id="batch-batch" if W is None else f"{W}-{NT}")
+    for W, NT in ((None, None), (32, 1), (32, 2), (32, 3), (128, 1),
+                  (128, 2), (128, 3), (1024, 1), (1024, 2), (1024, 3))]
+    + [pytest.param(128, 3, True, id="128-3-every")])
+def test_cuda_tiled_kernels_match_plain(batch, cuda, ragged, W, NT, every):
+    """K6a/K6b strawman (``sm3_fwd_tiled_sel<Strawman>``,
+    ``sm3_bwd_tiled_sel<Strawman, false, true>``) against their plain
+    versions on the same card inputs, with tiles of 128 diagonals: fwd
+    plane, shifts, posteriors and totals equal bit for bit.  On the batch
     (W > 128), also against the untiled kernels within the tiled
     tolerances; on synthetic inputs at W 32, 128 and 1024 over one, two and
     three tiles (the rotated slots, the tile down-counter and the column
     logs kept while the window stays), with windows stepping by 0, 1 and 2
-    and a few sd <= 0."""
+    and a few sd <= 0; with ``every``, a window that moves on over 95% of
+    the diagonals (the column logs taken again on each of them)."""
     if W is None:
         sm, reads = batch
         pa = StrawmanAligner(device=cuda, group=8)
@@ -223,7 +227,8 @@ def test_cuda_tiled_kernels_match_plain(batch, cuda, ragged, W, NT):
                                "widthf")]
         ba = fa + [inp["seedf"], inp["raggedf"]]
     else:
-        fa, ba, dims, TD = _tiled_case(cuda, fk.StrawmanSpec, W, NT, ragged)
+        fa, ba, dims, TD = _tiled_case(cuda, fk.StrawmanSpec, W, NT, ragged,
+                                       every=every)
     fk.reset_counts()
     fwd, shifts = fk.wavefront_fwd_tiled(*fa, **dims, TD=TD)
     posts, totals = fk.wavefront_bwd_tiled(*ba, fwd, shifts, **dims, TD=TD)
@@ -283,21 +288,45 @@ def _dna5_inputs(cuda, reads, ragged, tile_diag=None):
 
 
 @pytest.mark.parametrize("ragged", [False, True])
-def test_cuda_dna5_kernels_match_plain(dna5_batch, cuda, ragged):
-    """K1/K2 for dna5 against their plain versions on the same card
-    inputs: fwd plane, posteriors and totals equal bit for bit, and so the
-    pair sets."""
-    prep, inp, dims = _dna5_inputs(cuda, dna5_batch, ragged)
+@pytest.mark.parametrize("W, ND, every", [
+    (None, None, None), (32, 2, False), (32, 3, False), (32, 5, False),
+    (128, 300, True), (128, 257, False), (1024, 2, False), (1024, 5, False),
+    (1024, 150, True)],
+    ids=lambda v: "batch" if v is None else str(v))
+def test_cuda_dna5_kernels_match_plain(dna5_batch, cuda, ragged, W, ND,
+                                       every):
+    """K1/K2 for dna5 (K2: the untiled ``sm3_bwd_tiled_sel<Dna5, false,
+    false>``) against their plain versions on the same card inputs: fwd
+    plane, posteriors and totals equal bit for bit, and on the realign
+    batch so the pair sets.  On synthetic inputs at W 32, 128 and 1024:
+    ND 2, 3 and 5 (no more diagonals than the fwd slots copied ahead: the
+    prologue's empty groups and the tail's rotated slots), and 150-300
+    with windows drifting or shifting on every diagonal; y bases include N
+    and values outside 0..4."""
+    if W is None:
+        prep, inp, dims = _dna5_inputs(cuda, dna5_batch, ragged)
+        fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                               "widthf")]
+        ba = fa + [inp["seedf"], inp["raggedf"]]
+    else:
+        fa, ba, dims = _synthetic_case(cuda, fk.Dna5Spec, W, ND, ragged,
+                                       [9, W, ND, int(ragged)], every=every)
     fk.reset_counts()
-    fwd = _fwd(inp, dims, fk.wavefront_fwd)
-    posts, totals = _bwd(inp, dims, fwd, fk.wavefront_bwd)
+    fwd = fk.wavefront_fwd(*fa, **dims)
+    posts, totals = fk.wavefront_bwd(*ba, fwd, **dims)
     torch.cuda.synchronize()
     assert fk.KERNEL_LAUNCHES == {"wavefront_fwd_dna5": 1,
                                   "wavefront_bwd_dna5": 1}
     assert fk.forward_plain.calls == fk.backward_plain.calls == 0
-    assert torch.equal(fwd, _fwd(inp, dims, fk.forward_plain))
-    pposts, ptotals = _bwd(inp, dims, fwd, fk.backward_plain)
+    assert torch.equal(fwd, fk.forward_plain(*fa, **dims))
+    pposts, ptotals = fk.backward_plain(*ba, fwd, **dims)
     assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
+    assert torch.isfinite(totals).all()
+    # at ND 2 only the cell (1, 1) can carry a posterior, and a band may
+    # miss it
+    assert (posts > 0.0).any() or ND == 2
+    if W is not None:
+        return
     thr = AlignmentParams().threshold
     nds = [b.n_diag for b in prep["bands"]]
     parts = [extract_pairs_chunk(dict(prep=prep, posteriors=p,
@@ -389,10 +418,10 @@ def _synthetic_case(cuda, spec, W, ND, ragged, seed, every=False,
     return fa, ba, dict(R=R, W=W, ND=ND, C=C, spec=spec)
 
 
-def _tiled_case(cuda, spec, W, NT, ragged, TD=128):
+def _tiled_case(cuda, spec, W, NT, ragged, TD=128, every=False):
     """``_synthetic_case`` over NT tiles of TD diagonals."""
     fa, ba, dims = _synthetic_case(cuda, spec, W, NT * TD, ragged,
-                                   [5, W, NT, int(ragged)])
+                                   [5, W, NT, int(ragged)], every=every)
     return fa, ba, dims, TD
 
 
@@ -499,7 +528,7 @@ def _equalised_machine():
     ids=lambda v: "batch" if v is None else str(v))
 def test_cuda_dna5_exp_kernel_matches_plain(dna5_batch, cuda, ragged,
                                             machine, W, ND, every):
-    """K3 for dna5 (``sm3_bwd_tiled_sel<Dna5, true>``) against its plain
+    """K3 for dna5 (``sm3_bwd_tiled_sel<Dna5, true, false>``) against its plain
     version on the same card inputs: posteriors, totals and the 25
     transition lanes bit for bit, the 20 per-column accumulators within
     parity.KERNEL_GAPX_ATOL; its posteriors and totals equal K2 dna5's.  On

@@ -234,10 +234,11 @@ def _strawman_method(name):
 
 def _run_statements(stmts, env):
     """Run the C statements ``type name = expr`` / ``name = expr`` /
-    ``return ...`` as Python in ``env`` (LA::add -> LA)."""
+    ``return ...`` as Python in ``env`` (LA::add3 -> LA3, LA::add ->
+    LA)."""
     for s in stmts:
         s = re.sub(r"^(const )?(float|Emissions) ", "", s)
-        s = s.replace("LA::add", "LA")
+        s = s.replace("LA::add3", "LA3").replace("LA::add", "LA")
         if re.fullmatch(r"\w+", s):
             continue        # a declaration without a value
         exec(s, env)
@@ -252,6 +253,35 @@ def _bwd_update_torch(la, t, e_gapx_p, eg1, em2p, n1a, n1p, n2p):
     out = [None] * 3
     env = dict(t=t, e_gapx_p=e_gapx_p, eg1=eg1, em2p=em2p, n1a=n1a,
                n1p=n1p, n2p=n2p, out=out, LA=la,
+               **{k: getattr(fk, k) for k in ("T_MM", "T_XM", "T_YM",
+                                              "T_OX", "T_EX", "T_SX",
+                                              "T_OY", "T_EY")})
+    _run_statements(stmts, env)
+    return out
+
+
+def _fwd_update_torch(la, t, p1m, p1a, p2m, e_match, e_gapy, e_gapx):
+    """Strawman::fwd_update_with<LA>, transcribed statement by statement
+    from wavefront.cu; LA::add3 is the header's log_add3 (or
+    log_add3_sel), two LA::adds."""
+    stmts = _strawman_method("fwd_update_with")
+    assert sum("LA::add3" in s for s in stmts) == 2
+    assert sum("LA::add(" in s for s in stmts) == 1
+    for name in ("log_add3", "log_add3_sel"):
+        inner = "log_add" + name[len("log_add3"):]
+        assert re.search(r"float " + name + r"\(float a, float b, float c\) "
+                         r"\{\n    return " + inner + r"\(" + inner
+                         + r"\(a, b\), c\);\n\}", HEADER), name
+    for cls, two, three in (("LogAddBranch", "log_add", "log_add3"),
+                            ("LogAddSel", "log_add_sel", "log_add3_sel")):
+        body = re.search(r"struct " + cls + r" \{\n(.*?)\n\};", HEADER,
+                         re.S).group(1)
+        assert f"return {two}(x, y);" in body
+        assert f"return {three}(a, b, c);" in body
+    out = [None] * 3
+    env = dict(t=t, p1m=p1m, p1a=p1a, p2m=p2m, e_gapx=e_gapx, out=out,
+               LA=la, LA3=lambda a, b, c: la(la(a, b), c),
+               e=type("E", (), dict(match=e_match, gap_y=e_gapy))(),
                **{k: getattr(fk, k) for k in ("T_MM", "T_XM", "T_YM",
                                               "T_OX", "T_EX", "T_SX",
                                               "T_OY", "T_EY")})
@@ -303,6 +333,32 @@ def test_strawman_bwd_update_with_equals_plain(form):
     for g, w in zip(got, want):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
     assert any(bool((g == np.float32(fk.NEG)).any()) for g in got)
+
+
+@pytest.mark.parametrize("form", ["branch", "sel"])
+def test_strawman_fwd_update_with_equals_plain(form):
+    """Strawman::fwd_update_with, transcribed, equals
+    fb_kernels.StrawmanSpec.fwd_update_w bit for bit with either log-add
+    (fwd_update, K1 strawman and K1 hdp: the branch log_add;
+    fwd_update_sel, K6a strawman: log_add_sel), NEG sources, NEG
+    emissions and cubic-boundary gaps included."""
+    t, draw = _update_grid()
+    p1m, p1a, p2m = ([draw() for _ in range(3)] for _ in range(3))
+    e_match, e_gapy, e_gapx = draw(), draw(), draw()
+    la = fk.log_add if form == "branch" else _log_add_sel_torch
+    got = _fwd_update_torch(la, t, p1m, p1a, p2m, e_match, e_gapy, e_gapx)
+    xf = torch.zeros((9, e_gapx.numel()))
+    xf[fk.StrawmanSpec.GAP_X] = e_gapx
+    want = fk.StrawmanSpec.fwd_update_w(t, xf, e_match, e_gapy, p1m, p1a,
+                                        p2m)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert any(bool((g == np.float32(fk.NEG)).any()) for g in got)
+    # the sources reach every cubic and the cutoff
+    d = (p2m[0] + t[fk.T_MM] - p2m[1] - t[fk.T_XM]).abs()
+    for lo_, hi_ in ((0, 1.0), (1.0, 2.5), (2.5, 4.5), (4.5, 7.5),
+                     (7.5, 1e38)):
+        assert ((d > lo_) & (d <= hi_)).sum() > 100
 
 
 def test_strawman_emissions_in_equals_plain():
