@@ -286,7 +286,9 @@ GOLDEN = {(0, 0), (1, 1), (2, 4), (3, 5)}
 # 64 registers and no spill
 REDESIGNED = ("sm3_bwd_tiled_sel<Dna5, 1, 0>",
               "sm3_bwd_tiled_sel<Strawman, 0, 1>",
-              "sm3_fwd_tiled_sel<Strawman>", "sm3_bwd_tiled_sel<Dna5, 0, 0>")
+              "sm3_fwd_tiled_sel<Strawman>", "sm3_bwd_tiled_sel<Dna5, 0, 0>",
+              "sm3_bwd_tiled_sel<Sm4, 0, 1>",
+              "sm3_bwd_tiled_sel<Vanilla, 0, 1>")
 
 
 def log(msg):
@@ -467,7 +469,8 @@ def main():
             ptxas.setdefault(kernel, []).append(line.strip())
             log(f"  ptxas: {kernel}: {line.strip()}")
     # the kernels redesigned for this card (K3 dna5, K6b strawman, K6a
-    # strawman, K2 dna5) stay within the 64-register cap without spilling
+    # strawman, K2 dna5, K6b sm4, K6b vanilla) stay within the 64-register
+    # cap without spilling
     for name in REDESIGNED:
         report = " ".join(ptxas.get(name, []))
         regs = re.search(r"Used (\d+) registers", report)
@@ -897,36 +900,41 @@ def main():
         fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
         return fa, fa + [inp["seedf"], inp["raggedf"]], dims, prep
 
-    sa, sb, sd, sprep = tiled_args(lst)
-    (sfwd, ssh), (sposts, stot) = lst.out["fwd_tiled"], lst.out["bwd_tiled"]
-    del lst, sout
-    ms.update(
-        fwd_long_main=cuda_ms(lambda: fk.wavefront_fwd_tiled(*sa, **sd), 3),
-        bwd_long_main=cuda_ms(lambda: fk.wavefront_bwd_tiled(
-            *sb, sfwd, ssh, **sd), 3))
-    long_cells = sum(int(b.width.sum()) for b in sprep["bands"])
+    def long_main(st, spec, fwd_key, bwd_key, flops):
+        """K6a/K6b of ``spec`` timed on the inputs of a staged run ``st``
+        of the 64 long reads (ms[fwd_key], ms[bwd_key]), and their bounds;
+        every row of the run's groups is a read (64 = 8 x 8), so the bound
+        of its real rows is that of all rows.  Returns (a log line, the
+        run's dims)."""
+        fa, ba, dims, prep = tiled_args(st, spec)
+        (fwd, sh), (posts, tot) = st.out["fwd_tiled"], st.out["bwd_tiled"]
+        if len(prep["bands"]) != len(prep["win"]) * dims["R"]:
+            raise AssertionError("the long path's groups hold padding rows")
+        ms[fwd_key] = cuda_ms(lambda: fk.wavefront_fwd_tiled(*fa, **dims), 3)
+        ms[bwd_key] = cuda_ms(lambda: fk.wavefront_bwd_tiled(
+            *ba, fwd, sh, **dims), 3)
+        cells = sum(int(b.width.sum()) for b in prep["bands"])
+        bounds[fwd_key] = bound(fa + [fwd, sh], cells,
+                                FLOPS_PER_CELL[flops + "fwd"])
+        bounds[bwd_key] = bound(ba + posterior_fwd(fwd, ba[6], dims["R"])
+                                + [sh, posts, tot], cells,
+                                FLOPS_PER_CELL[flops + "bwd"])
+        for key in (fwd_key, bwd_key):
+            bounds[key + "_padded"] = bounds[key]
+        nd = dims["ND"]
+        return (f"G={len(prep['win'])}, NDT={nd}, W={dims['W']}, {cells} "
+                f"band cells): K6a {ms[fwd_key]:.3f} ms, K6b "
+                f"{ms[bwd_key]:.3f} ms per launch "
+                f"({ms[fwd_key] * 1e6 / nd:.1f} / "
+                f"{ms[bwd_key] * 1e6 / nd:.1f} ns a diagonal); bounds "
+                f"{bounds[fwd_key][0]:.4f} / {bounds[bwd_key][0]:.4f} ms "
+                f"({bounds[bwd_key][1]})"), dims
+
+    lline, sd = long_main(lst, fk.StrawmanSpec, "fwd_long_main",
+                          "bwd_long_main", "")
     lgeom = (sd["R"], sd["W"], sd["TD"])
-    # every row of the main path's groups is a read (64 = 8 x 8), so the
-    # bound of its real rows is that of all rows
-    if len(sprep["bands"]) != len(sprep["win"]) * sd["R"]:
-        raise AssertionError("the long path's groups hold padding rows")
-    bounds.update(
-        fwd_long_main=bound(sa + [sfwd, ssh], long_cells,
-                            FLOPS_PER_CELL["fwd"]),
-        bwd_long_main=bound(sb + posterior_fwd(sfwd, sb[6], sd["R"])
-                            + [ssh, sposts, stot], long_cells,
-                            FLOPS_PER_CELL["bwd"]))
-    bounds.update(fwd_long_main_padded=bounds["fwd_long_main"],
-                  bwd_long_main_padded=bounds["bwd_long_main"])
-    log(f"long path kernels ({LONG_READS} reads, G={len(sprep['win'])}, "
-        f"NDT={sd['ND']}, W={sd['W']}, {long_cells} band cells): "
-        f"K6a {ms['fwd_long_main']:.3f} ms, K6b {ms['bwd_long_main']:.3f} "
-        f"ms per launch ({ms['fwd_long_main'] * 1e6 / sd['ND']:.1f} / "
-        f"{ms['bwd_long_main'] * 1e6 / sd['ND']:.1f} ns a diagonal); "
-        f"bounds {bounds['fwd_long_main'][0]:.4f} / "
-        f"{bounds['bwd_long_main'][0]:.4f} ms "
-        f"({bounds['bwd_long_main'][1]})")
-    del sfwd, sposts, sa, sb
+    del lst, sout
+    log(f"long path kernels ({LONG_READS} reads, {lline}")
     torch.cuda.synchronize()
     # K6a/K6b against their plain versions at the main path's R, W and TD
     # on one shorter read of the same generator (two tiles; the main
@@ -1855,6 +1863,14 @@ def main():
         f"{vlong_counts}")
     del vlong
     torch.cuda.synchronize()
+    # K6a/K6b vanilla on the inputs of a staged run of the same reads
+    vst = Stages()
+    vla.run(vlsm, lreads, compact_k=LONG_COMPACT_K, stage=vst)
+    vline, _ = long_main(vst, fk.VanillaSpec, "vanilla_fwd_tiled_main",
+                         "vanilla_bwd_tiled_main", "vanilla_")
+    del vst
+    log(f"vanilla long path kernels ({LONG_READS} reads, {vline}")
+    torch.cuda.synchronize()
 
     # -- 22. the sm4 kernels vs plain ---------------------------------------
     t22 = time.perf_counter()
@@ -1994,6 +2010,14 @@ def main():
         raise AssertionError("sm4 long path: totals not finite or a read "
                              "with fewer pairs than bases")
     del s4long
+    torch.cuda.synchronize()
+    # K6a/K6b sm4 on the inputs of a staged run of the same reads
+    s4st = Stages()
+    s4la.run(s4lsm, lreads, compact_k=LONG_COMPACT_K, stage=s4st)
+    s4line, _ = long_main(s4st, fk.Sm4Spec, "sm4_fwd_tiled_main",
+                          "sm4_bwd_tiled_main", "sm4_")
+    del s4st
+    log(f"sm4 long path kernels ({LONG_READS} reads, {s4line}")
     torch.cuda.synchronize()
     s4cst = Stages()
     s4cout = s4la.run(s4lsm, [cread], compact_k=LONG_COMPACT_K,
@@ -2767,7 +2791,8 @@ def main():
         # phase 19 holds K1/K2/K3 vanilla to plain (K1/K2 ms, plain ms and
         # bound on the main path's default-machine chunk, K3 on the trained
         # machine's E-step group), phase 21 K6a/K6b vanilla on its check
-        # read; launches from phases 20 (main path, E-step) and 21
+        # read (main_ms and main_bound_ms on the 64 long reads); launches
+        # from phases 20 (main path, E-step) and 21
         entry("wavefront_fwd_vanilla",
               "cpecan_tpu/ops/pallas_fb.py:635 (_VanillaSpec :456)",
               van_counts["wavefront_fwd_vanilla"], exact, "vanilla_fwd",
@@ -2784,16 +2809,19 @@ def main():
         entry("wavefront_fwd_tiled_vanilla",
               "cpecan_tpu/ops/pallas_fb.py:2304 (_VanillaSpec :456)",
               vlong_counts["wavefront_fwd_tiled_vanilla"], exact,
-              "vanilla_fwd_tiled", "vanilla_fwd_tiled"),
+              "vanilla_fwd_tiled", "vanilla_fwd_tiled",
+              main="vanilla_fwd_tiled_main"),
         entry("wavefront_bwd_tiled_vanilla",
               "cpecan_tpu/ops/pallas_fb.py:2332 (_VanillaSpec :456)",
               vlong_counts["wavefront_bwd_tiled_vanilla"], exact,
-              "vanilla_bwd_tiled", "vanilla_bwd_tiled"),
+              "vanilla_bwd_tiled", "vanilla_bwd_tiled",
+              main="vanilla_bwd_tiled_main"),
         # phases 22-23 hold the five sm4 instances to plain (K1/K2 ms,
         # plain ms and bound on the fourState pipeline's first chunk, K3
         # on the trained machine's E-step group, K6a/K6b on phase 12's
-        # check read); launches from phase 23's fourState pipeline
-        # (K1/K2), the E-step run (K3) and the 64 long reads (K6a/K6b)
+        # check read, their main_ms and main_bound_ms on the 64 long
+        # reads); launches from phase 23's fourState pipeline (K1/K2), the
+        # E-step run (K3) and the 64 long reads (K6a/K6b)
         entry("wavefront_fwd_sm4",
               "cpecan_tpu/ops/pallas_fb.py:635 (_Sm4Spec :257)",
               sm4_pipe_counts["wavefront_fwd_sm4"], exact, "sm4_fwd",
@@ -2809,11 +2837,11 @@ def main():
         entry("wavefront_fwd_tiled_sm4",
               "cpecan_tpu/ops/pallas_fb.py:2304 (_Sm4Spec :257)",
               sm4_long_counts["wavefront_fwd_tiled_sm4"], exact,
-              "sm4_fwd_tiled", "sm4_fwd_tiled"),
+              "sm4_fwd_tiled", "sm4_fwd_tiled", main="sm4_fwd_tiled_main"),
         entry("wavefront_bwd_tiled_sm4",
               "cpecan_tpu/ops/pallas_fb.py:2332 (_Sm4Spec :257)",
               sm4_long_counts["wavefront_bwd_tiled_sm4"], exact,
-              "sm4_bwd_tiled", "sm4_bwd_tiled"),
+              "sm4_bwd_tiled", "sm4_bwd_tiled", main="sm4_bwd_tiled_main"),
         # phase 24 holds K1/K2 echelon to plain (ms, plain ms and bound on
         # the first chunk of bench.py's echelon cell); launches from phase
         # 25's main path

@@ -69,7 +69,8 @@ __device__ __forceinline__ float log_add3_sel(float a, float b, float c) {
 }
 
 // The two log-adds as types, for the updates written once for both forms
-// (Strawman::fwd_update_with, Strawman::bwd_update_with)
+// (Strawman::fwd_update_with, the bwd_update_with of Strawman, Sm4 and
+// Vanilla)
 struct LogAddBranch {
     __device__ __forceinline__ static float add(float x, float y) {
         return log_add(x, y);
@@ -123,4 +124,17 @@ __device__ __forceinline__ float inv_gauss(float x, float mu, float lam) {
     const float a = (x - mu) / mu;
     return (logf(lam) - 1.8378770664093453f - 3.0f * logf(x)
             - lam * a * a / x) / 2.0f;
+}
+
+// inv_gauss with the guard as a select and the logs given (loglam =
+// logf(lam), computed once per column by the caller, logx = logf(x), once
+// per cell): the same f32 operations in the same order where the guard
+// passes, so it equals inv_gauss bit for bit; elsewhere the arithmetic's
+// inf or NaN is discarded for CPECAN_NEG.
+__device__ __forceinline__ float inv_gauss_sel(float x, float mu, float lam,
+                                               float loglam, float logx) {
+    const float a = (x - mu) / mu;
+    const float v = (loglam - 1.8378770664093453f - 3.0f * logx
+                     - lam * a * a / x) / 2.0f;
+    return (x <= 0.0f || lam <= 0.0f || mu == 0.0f) ? CPECAN_NEG : v;
 }

@@ -23,13 +23,13 @@
 //                             (:635, untiled; _StrawmanSpec, _Dna5Spec,
 //                             _VanillaSpec, _Sm4Spec, _EchelonSpec,
 //                             the streamed _HdpSpec :2829)              K1
-//   sm3_bwd_kernel<Spec, false, false>
+//   sm3_bwd_kernel<Spec, false>
 //                          <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
 //                             -> _sm3_backward_body_w (:857, :900;
 //                             with_exp=False, untiled; _StrawmanSpec,
 //                             _VanillaSpec, _Sm4Spec, _EchelonSpec,
 //                             _HdpSpec)                                 K2
-//   sm3_bwd_kernel<Spec, true, false>
+//   sm3_bwd_kernel<Spec, true>
 //                          <- the same body with with_exp=True (EM
 //                             expectations: accumulate_exp :1072 and
 //                             _StrawmanSpec.exp_probs_w :215 /
@@ -41,27 +41,25 @@
 //                             over the tiles by _run_tiled (:2447) with
 //                             _tile_steps.recenter (:2381); _VanillaSpec,
 //                             _Sm4Spec                                K6a
-//   sm3_bwd_kernel<Spec, false, true>
+//   sm3_bwd_tiled_sel<Spec, false, true>
 //                          <- _sm3_backward_kernel(tile=...) (:2332), the
 //                             shifts repaid as shf (:947, :1170, :1193);
-//                             _VanillaSpec, _Sm4Spec                  K6b
-//   sm3_fwd_tiled_sel<Dna5>, sm3_bwd_tiled_sel<Dna5, false, true>
-//                          <- K6a and K6b for the 5-state DNA machine (the
-//                             100 kb pair's path): the same recurrences
-//                             with a shorter step (the note above
-//                             sm3_fwd_tiled_sel)
-//   sm3_fwd_tiled_sel<Strawman>, sm3_bwd_tiled_sel<Strawman, false, true>
-//                          <- K6a and K6b for the strawman machine (the
-//                             long signal reads' path), on the same
-//                             templates
+//                             _Dna5Spec (the 100 kb pair's path),
+//                             _StrawmanSpec, _VanillaSpec, _Sm4Spec (the
+//                             long signal reads' path), with the select
+//                             step (the note above sm3_fwd_tiled_sel)  K6b
+//   sm3_fwd_tiled_sel<Dna5>, sm3_fwd_tiled_sel<Strawman>
+//                          <- K6a for the 5-state DNA machine and the
+//                             strawman machine: the same recurrences with
+//                             a shorter step
 //   sm3_bwd_tiled_sel<Dna5, false, false>
 //                          <- K2 for the 5-state DNA machine (the
 //                             realigner's posteriors): the untiled
 //                             posterior form, with the select step
 //   sm3_bwd_tiled_sel<Dna5, true, false>
 //                          <- K3 for the 5-state DNA machine (cPecanEm's
-//                             E-step): the sums of sm3_bwd_kernel<Dna5,
-//                             true, false>, untiled, with the select step
+//                             E-step): the sums of sm3_bwd_kernel<Spec,
+//                             true>, untiled, with the select step
 //                             (the note above sm3_bwd_tiled_sel)
 //
 // Layout (identical to the JAX planes, index for index): G groups of R
@@ -255,26 +253,51 @@ __device__ __forceinline__ int next_col(int x, int X) {
     return min(x + 1, X - 1);
 }
 
-// _StrawmanSpec (pallas_fb.py:162-207)
 // the y rows, match emission leaves and posterior states of the machines
 // with one match state: (event mean or y base, noise or gap-Y), one leaf,
 // the match state's posteriors
 struct OneMatch : FromRows {
     static constexpr int YR = 2, NEM = 1, NPS = 1;
     // per-column logs that sm3_bwd_tiled_sel keeps across the steps where
-    // the window stays (Strawman: 4), and whether it reads the transitions
-    // from shared memory (Strawman: its step needs the registers)
+    // the window stays (the signal machines: 4), and whether it reads the
+    // transitions from shared memory (the signal machines: their steps
+    // need the registers)
     static constexpr int NLSD = 0;
     static constexpr bool T_SHARED = false;
+    // per-column transitions (Vanilla): sm3_bwd_tiled_sel loads the rows
+    // that row_at_next names at next_col(x) and hands the update all x
+    // rows; otherwise the gap-X row alone is loaded there and handed over
+    static constexpr bool COL_TRANS = false;
     __host__ __device__ static constexpr int post_state(int) { return 0; }
 };
 
-struct Strawman : OneMatch {
-    static constexpr int S = 3, NS = SM3_NS, NXF = 9, GAP_X = 8;
+// The forms of sm3_fwd_tiled_sel and sm3_bwd_tiled_sel for the signal
+// machines (Strawman, Sm4, Vanilla): in = yf rows 0-1 at the cell's column,
+// then the xf rows (the backward's rows of the next column at next_col(x));
+// model rows 0-7 are (mean, sd or lambda) pairs, and lsd holds the logs of
+// rows 1, 3, 5, 7 at x (col_logs, or col_logs_at from the rows; the
+// templates take them again only where the window moves)
+struct SignalRows : OneMatch {
+    static constexpr int NLSD = 4;
+    static constexpr bool T_SHARED = true;
+    __device__ __forceinline__ static void col_logs(const float* in,
+                                                    float* lsd) {
+#pragma unroll
+        for (int k = 0; k < NLSD; ++k) lsd[k] = logf(in[YR + 2 * k + 1]);
+    }
+    __device__ __forceinline__ static void col_logs_at(const float* xb,
+                                                       int X, int x,
+                                                       float* lsd) {
+#pragma unroll
+        for (int k = 0; k < NLSD; ++k) lsd[k] = logf(xb[(2 * k + 1) * X + x]);
+    }
+};
 
-    // Gaussian x Gaussian over (event mean, noise), written once for both
-    // forms: g(v, i) is the Gaussian of v under model rows i (mean) and
-    // i + 1 (sd)
+// the strawman's emissions (Strawman, Sm4): Gaussian x Gaussian over
+// (event mean, noise)
+struct GaussRows : SignalRows {
+    // written once for both forms: g(v, i) is the Gaussian of v under
+    // model rows i (mean) and i + 1 (sd)
     template <class Gauss>
     __device__ __forceinline__ static Emissions emissions_with(
             float mean, float noise, Gauss g) {
@@ -292,31 +315,19 @@ struct Strawman : OneMatch {
         });
     }
 
-    // The forms of sm3_fwd_tiled_sel and sm3_bwd_tiled_sel: in = yf rows
-    // 0-1 at the cell's column, then xf rows 0-8 (the backward's gap-X
-    // row at next_col(x)); lsd the logs of the sd rows 1, 3, 5, 7 at x
-    // (col_logs, or col_logs_at from the rows; the templates take them
-    // again only where the window moves); the select-guarded gauss_sel
-    static constexpr int NLSD = 4;
-    static constexpr bool T_SHARED = true;
-    __device__ __forceinline__ static void col_logs(const float* in,
-                                                    float* lsd) {
-#pragma unroll
-        for (int k = 0; k < NLSD; ++k) lsd[k] = logf(in[YR + 2 * k + 1]);
-    }
-    __device__ __forceinline__ static void col_logs_at(const float* xb,
-                                                       int X, int x,
-                                                       float* lsd) {
-#pragma unroll
-        for (int k = 0; k < NLSD; ++k) lsd[k] = logf(xb[(2 * k + 1) * X + x]);
-    }
-
+    // the select templates' form: the select-guarded gauss_sel on the
+    // kept logs
     __device__ __forceinline__ static Emissions emissions_in(
             const float* in, const float* lsd) {
         return emissions_with(in[0], in[1], [&](float v, int i) {
             return gauss_sel(v, in[YR + i], in[YR + i + 1], lsd[i / 2]);
         });
     }
+};
+
+// _StrawmanSpec (pallas_fb.py:162-207)
+struct Strawman : GaussRows {
+    static constexpr int S = 3, NS = SM3_NS, NXF = 9, GAP_X = 8;
 
     // _StrawmanSpec.fwd_update_w, written once for both log-adds (LA:
     // LogAddBranch, LogAddSel); e_gapx the gap-X row at x
@@ -407,15 +418,9 @@ struct Hdp : Strawman {
 };
 
 // _Sm4Spec (pallas_fb.py:257-337): M, shortGapX, shortGapY, longGapX; the
-// strawman's emissions
-struct Sm4 : OneMatch {
+// strawman's emissions and select forms
+struct Sm4 : GaussRows {
     static constexpr int S = 4, NS = SM4_NS, NXF = 9, GAP_X = 8;
-
-    __device__ __forceinline__ static Emissions emissions_at(
-            const float* xb, const float* yb, int X, int Y, int x,
-            int ycol) {
-        return Strawman::emissions_at(xb, yb, X, Y, x, ycol);
-    }
 
     // _Sm4Spec.fwd_update_w, the JAX grouping kept exactly
     __device__ __forceinline__ static void fwd_update(
@@ -432,22 +437,40 @@ struct Sm4 : OneMatch {
                           p1m[2] + t[T4_LSX]) + e_gapx;
     }
 
-    // _Sm4Spec.bwd_update_w, the JAX grouping kept exactly
-    __device__ __forceinline__ static void bwd_update(
-            const float* t, const float* xb, int X, int x, float eg1,
-            const float* em2p, const float* n1a, const float* n1p,
-            const float* n2p, float* out) {
-        const float e_gapx_p = xb[GAP_X * X + next_col(x, X)];
+    // _Sm4Spec.bwd_update_w, the JAX grouping kept exactly, written once
+    // for both log-adds (LA: LogAddBranch, LogAddSel); e_gapx_p the gap-X
+    // row at next_col(x)
+    template <class LA>
+    __device__ __forceinline__ static void bwd_update_with(
+            const float* t, float e_gapx_p, float eg1, const float* em2p,
+            const float* n1a, const float* n1p, const float* n2p,
+            float* out) {
         const float mid = em2p[0] + n2p[0];
         const float low_s = e_gapx_p + n1p[1];
         const float low_l = e_gapx_p + n1p[3];
         const float up = eg1 + n1a[2];
-        out[0] = log_add(log_add(mid + t[T4_MM], low_s + t[T4_SOX]),
-                         log_add(low_l + t[T4_LOX], up + t[T4_SOY]));
-        out[1] = log_add(mid + t[T4_MSX], low_s + t[T4_SEX]);
-        out[2] = log_add3(mid + t[T4_MSY], low_l + t[T4_LSX],
+        out[0] = LA::add(LA::add(mid + t[T4_MM], low_s + t[T4_SOX]),
+                         LA::add(low_l + t[T4_LOX], up + t[T4_SOY]));
+        out[1] = LA::add(mid + t[T4_MSX], low_s + t[T4_SEX]);
+        out[2] = LA::add3(mid + t[T4_MSY], low_l + t[T4_LSX],
                           up + t[T4_SEY]);
-        out[3] = log_add(mid + t[T4_MLX], low_l + t[T4_LEX]);
+        out[3] = LA::add(mid + t[T4_MLX], low_l + t[T4_LEX]);
+    }
+
+    __device__ __forceinline__ static void bwd_update(
+            const float* t, const float* xb, int X, int x, float eg1,
+            const float* em2p, const float* n1a, const float* n1p,
+            const float* n2p, float* out) {
+        bwd_update_with<LogAddBranch>(t, xb[GAP_X * X + next_col(x, X)],
+                                      eg1, em2p, n1a, n1p, n2p, out);
+    }
+
+    __device__ __forceinline__ static void bwd_update_sel(
+            const float* t, float e_gapx_p, float eg1, const float* em2p,
+            const float* n1a, const float* n1p, const float* n2p,
+            float* out) {
+        bwd_update_with<LogAddSel>(t, e_gapx_p, eg1, em2p, n1a, n1p, n2p,
+                                   out);
     }
 
     // EM expectations: the 11 transitions (register k -> lane frm*4 + to,
@@ -587,20 +610,56 @@ enum { LA_MX = 8, LA_XX, LA_MM, LA_XM, LA_MY };
 // _VanillaSpec (pallas_fb.py:456-517): per-column transitions from the
 // k-mer skip bins (rows 8-12), a silent gap-X, Gaussian level x
 // inverse-Gaussian noise emissions
-struct Vanilla : OneMatch {
+struct Vanilla : SignalRows {
     static constexpr int S = 3, NS = VANILLA_NS, NXF = 13;
+
+    // the transitions into M and X at x + 1 are column x + 1's (rows
+    // LA_MX .. LA_XM), M -> Y column x's
+    static constexpr bool COL_TRANS = true;
+    __host__ __device__ static constexpr bool row_at_next(int i) {
+        return i >= LA_MX && i <= LA_XM;
+    }
+
+    // Gaussian level x inverse-Gaussian noise, written once for both
+    // forms: g(v, i) is the Gaussian of v under model rows i (mean) and
+    // i + 1 (sd), ig(v, i) the inverse Gaussian under rows i (mean) and
+    // i + 1 (lambda)
+    template <class Gauss, class InvGauss>
+    __device__ __forceinline__ static Emissions emissions_with(
+            float mean, float noise, Gauss g, InvGauss ig) {
+        Emissions e;
+        e.match = g(mean, 0) + ig(noise, 2);
+        e.gap_y = g(mean, 4) + ig(noise, 6);
+        return e;
+    }
 
     __device__ __forceinline__ static Emissions emissions_at(
             const float* xb, const float* yb, int X, int Y, int x,
             int ycol) {
-        const float mean = yb[ycol];
-        const float noise = yb[Y + ycol];
-        Emissions e;
-        e.match = gauss(mean, xb[0 * X + x], xb[1 * X + x])
-                  + inv_gauss(noise, xb[2 * X + x], xb[3 * X + x]);
-        e.gap_y = gauss(mean, xb[4 * X + x], xb[5 * X + x])
-                  + inv_gauss(noise, xb[6 * X + x], xb[7 * X + x]);
-        return e;
+        return emissions_with(
+            yb[ycol], yb[Y + ycol],
+            [&](float v, int i) {
+                return gauss(v, xb[i * X + x], xb[(i + 1) * X + x]);
+            },
+            [&](float v, int i) {
+                return inv_gauss(v, xb[i * X + x], xb[(i + 1) * X + x]);
+            });
+    }
+
+    // the select templates' form: gauss_sel and inv_gauss_sel on the kept
+    // logs of the sd and lambda rows, the noise's log taken once a cell
+    __device__ __forceinline__ static Emissions emissions_in(
+            const float* in, const float* lsd) {
+        const float lnoise = logf(in[1]);
+        return emissions_with(
+            in[0], in[1],
+            [&](float v, int i) {
+                return gauss_sel(v, in[YR + i], in[YR + i + 1], lsd[i / 2]);
+            },
+            [&](float v, int i) {
+                return inv_gauss_sel(v, in[YR + i], in[YR + i + 1],
+                                     lsd[i / 2], lnoise);
+            });
     }
 
     // _VanillaSpec.fwd_update_w: the transitions of column x
@@ -617,20 +676,40 @@ struct Vanilla : OneMatch {
                  + e.gap_y;
     }
 
-    // _VanillaSpec.bwd_update_w: the transitions into M and X at x + 1 are
-    // column x + 1's, M -> Y column x's
+    // _VanillaSpec.bwd_update_w, written once for both log-adds (LA:
+    // LogAddBranch, LogAddSel); row(i) the transition row i at its column
+    // (row_at_next)
+    template <class LA, class Rows>
+    __device__ __forceinline__ static void bwd_update_with(
+            const float* t, Rows row, float eg1, const float* em2p,
+            const float* n1a, const float* n1p, const float* n2p,
+            float* out) {
+        const float mid = em2p[0] + n2p[0];
+        const float up = eg1 + n1a[2];
+        const float low = n1p[1];   // silent gap-X
+        out[0] = LA::add3(mid + row(LA_MM), low + row(LA_MX),
+                          up + row(LA_MY));
+        out[1] = LA::add(mid + row(LA_XM), low + row(LA_XX));
+        out[2] = LA::add(mid + t[VA_YM], up + t[VA_YY]);
+    }
+
     __device__ __forceinline__ static void bwd_update(
             const float* t, const float* xb, int X, int x, float eg1,
             const float* em2p, const float* n1a, const float* n1p,
             const float* n2p, float* out) {
         const int xp = next_col(x, X);
-        const float mid = em2p[0] + n2p[0];
-        const float up = eg1 + n1a[2];
-        const float low = n1p[1];   // silent gap-X
-        out[0] = log_add3(mid + xb[LA_MM * X + xp], low + xb[LA_MX * X + xp],
-                          up + xb[LA_MY * X + x]);
-        out[1] = log_add(mid + xb[LA_XM * X + xp], low + xb[LA_XX * X + xp]);
-        out[2] = log_add(mid + t[VA_YM], up + t[VA_YY]);
+        bwd_update_with<LogAddBranch>(
+            t, [&](int i) { return xb[i * X + (row_at_next(i) ? xp : x)]; },
+            eg1, em2p, n1a, n1p, n2p, out);
+    }
+
+    // xr: the x rows as sm3_bwd_tiled_sel loads them
+    __device__ __forceinline__ static void bwd_update_sel(
+            const float* t, const float* xr, float eg1, const float* em2p,
+            const float* n1a, const float* n1p, const float* n2p,
+            float* out) {
+        bwd_update_with<LogAddSel>(t, [&](int i) { return xr[i]; }, eg1,
+                                   em2p, n1a, n1p, n2p, out);
     }
 
     // EM expectations: no transition lanes; accumulators beta (M -> X) and
@@ -1105,7 +1184,7 @@ __device__ __forceinline__ void exp_target(
                     acc, rows + x, row_stride);
 }
 
-template <class Spec, bool WITH_EXP, bool TILED>
+template <class Spec, bool WITH_EXP>
 __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
                                const int* __restrict__ win,
                                const float* __restrict__ xf,
@@ -1116,14 +1195,11 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
                                const float* __restrict__ raggedf,
                                const float* __restrict__ fwd,
                                const float* __restrict__ est,
-                               const float* __restrict__ shifts,
                                float* __restrict__ posts,
                                float* __restrict__ totals,
                                float* __restrict__ trans,
                                float* __restrict__ accf, int R, int W,
-                               int ND, int NDp, int X, int C, int Y,
-                               int TD) {
-    static_assert(!(WITH_EXP && TILED), "the tiled path has no EM sums");
+                               int ND, int NDp, int X, int C, int Y) {
     constexpr int S = Spec::S;
     constexpr int NEM = Spec::NEM;
     constexpr int NSCAL = Spec::NS + 3 * S;
@@ -1185,9 +1261,6 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
     }
     float total = CPECAN_NEG;
     bool cut_prev = false;  // the seed cut of diagonal d + 1
-    float shift = 0.0f;     // B, the running re-centering shift (tiled)
-    float shf = 0.0f;       // A_t + B, repaid by the rows of tile t
-    const int NT = TILED ? ND / TD : 0;
     // per-lane transition sums (expectations; a machine without lanes
     // keeps one unused register)
     float acc[Spec::NLANE > 0 ? Spec::NLANE : 1];
@@ -1208,17 +1281,6 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
     __syncthreads();
 
     for (int d = ND; d >= 1; --d) {
-        if constexpr (TILED) {
-            if (d % TD == 0) {
-                // the top of tile d / TD - 1; below the first tile the
-                // carried bwd[d + 1] and bwd[d + 2] (cut at d + 1) re-center
-                if (d < ND)
-                    recenter<S>(ring + ((d + 1) % 3) * S * W,
-                                ring + ((d + 2) % 3) * S * W, cut_prev, l,
-                                W, red, shift);
-                shf = shifts[static_cast<size_t>(b) * NT + d / TD - 1] + shift;
-            }
-        }
         const int w = wg[d];
         const int o1 = w - wg[d + 1];
         const int o2 = w - wg[d + 2];
@@ -1274,15 +1336,13 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
             const float m = block_max(vv, red);
             const float s = block_sum(mask ? expf(vv - m) : 0.0f, red);
             total = m + logf(fmaxf(s, 1e-37f));
-            if constexpr (TILED) total = total + shf;
         }
         const float xl = static_cast<float>(x);
         const bool ok = mask && xl > 0.0f && xl < static_cast<float>(d);
 #pragma unroll
         for (int j = 0; j < Spec::NPS; ++j) {
             const int si = Spec::post_state(j);
-            float z = f[si] + bw[si] - total;
-            if constexpr (TILED) z = z + shf;
+            const float z = f[si] + bw[si] - total;
             pout[static_cast<size_t>(d) * pplane_d + j * pstate] =
                 ok ? expf(fminf(z, 0.69f)) : 0.0f;
         }
@@ -1356,12 +1416,13 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
 
 // ---------------------------------------------------------------------------
 // The tiled kernels of the 5-state DNA machine (K6a, K6b dna5): the tiled
-// recurrences of sm3_fwd_kernel<Spec, true> / sm3_bwd_kernel<Spec, false,
-// true>, computed identically, with a shorter step.  On the lone long pair
-// (the 100 kb DNA pair: one real block of W = 128 threads, 200,704
-// diagonals on one SM, one warp per scheduler) nothing hides a stall, so a
-// step costs its whole instruction stream plus whatever load it waits on
-// (1.30 / 1.79 us a diagonal on the H100 with the templates above).  What
+// recurrences of sm3_fwd_kernel<Spec, true> and of the tiled backward,
+// computed identically, with a shorter step.  On the lone long pair (the
+// 100 kb DNA pair: one real block of W = 128 threads, 200,704 diagonals on
+// one SM, one warp per scheduler) nothing hides a stall, so a step costs
+// its whole instruction stream plus whatever load it waits on (1.30 / 1.79
+// us a diagonal on the H100 with sm3_fwd_kernel's tiled form and
+// sm3_bwd_kernel's, since removed).  What
 // goes (PERF.md section 6):
 //  - divergence: the eight log-adds of a step are log_add_sel, one Horner
 //    form on selected coefficients, where lanes of a warp at different
@@ -1384,8 +1445,9 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
 // three-slot carried ring and one barrier per diagonal are as in the
 // templates above.
 // The strawman's backward (K6b strawman: the 64 long signal reads, 8
-// blocks of 8 reads, 28,672 diagonals; 2.03 us a diagonal with the
-// template above on an H100 80GB HBM3 at 700 W) runs on the same template.
+// blocks of 8 reads, 28,672 diagonals; 2.03 us a diagonal with
+// sm3_bwd_kernel's tiled form on an H100 80GB HBM3 at 700 W) runs on the
+// same template.
 // Its step adds four Gaussians, each an IEEE division and a logf of its sd
 // row: the logs of a lane's column are kept in registers while the window
 // stays (col_logs again only on the steps where it moves, a block-uniform
@@ -1399,7 +1461,15 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
 // log-adds of Strawman::fwd_update_with as log_add_sel.  K2 for the 5-state
 // DNA machine (the realigner's 2 kb pairs, ND ~4,000), whose step was the
 // one K6b dna5 had before its redesign, is the untiled posterior form of
-// the backward template.
+// the backward template.  The fourState and vanilla backwards (K6b sm4 and
+// K6b vanilla, the same long reads; 2.33 and 2.05 us a diagonal with
+// sm3_bwd_kernel's tiled form on the same card) run on the backward
+// template with the signal machines' traits (SignalRows: the column logs
+// and the shared transitions): sm4 with the strawman's emissions and the
+// seven log-adds of Sm4::bwd_update_with; vanilla, whose transitions into
+// M and X come from the next column's rows (COL_TRANS, row_at_next), with
+// gauss_sel and inv_gauss_sel on the kept logs of its sd and lambda rows
+// and the noise's log taken once a cell.
 
 // 4-byte asynchronous copy global -> shared (sm_80+), and its groups
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -1439,6 +1509,33 @@ __device__ __forceinline__ Emissions tiled_emissions(const float* in,
         return Spec::emissions_in(in, lsd);
     } else {
         return Spec::emissions_in(in);
+    }
+}
+
+// whether sm3_bwd_tiled_sel loads x row i of a cell at next_col(x): the
+// gap-X row, or with per-column transitions the rows the spec names
+template <class Spec>
+__device__ __forceinline__ constexpr bool row_at_next(int i) {
+    if constexpr (Spec::COL_TRANS) {
+        return Spec::row_at_next(i);
+    } else {
+        return i == Spec::GAP_X;
+    }
+}
+
+// the backward update of sm3_bwd_tiled_sel from the cell's inputs in
+// registers: the spec's select form takes the gap-X row, or with
+// per-column transitions all x rows
+template <class Spec>
+__device__ __forceinline__ void tiled_bwd_update(
+        const float* t, const float* in, float eg1, const float* em2p,
+        const float* n1a, const float* n1p, const float* n2p, float* out) {
+    if constexpr (Spec::COL_TRANS) {
+        Spec::bwd_update_sel(t, in + Spec::YR, eg1, em2p, n1a, n1p, n2p,
+                             out);
+    } else {
+        Spec::bwd_update_sel(t, in[Spec::YR + Spec::GAP_X], eg1, em2p, n1a,
+                             n1p, n2p, out);
     }
 }
 
@@ -1576,9 +1673,9 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
 // re-centering and no shift, so total and z lose the shf term; no shifts
 // buffer is read); WITH_EXP, the untiled expectation backward (K3; its
 // trans and acc come last).  The untiled posterior form is
-// sm3_bwd_kernel<Spec, false, false>'s recurrence, posteriors and totals,
+// sm3_bwd_kernel<Spec, false>'s recurrence, posteriors and totals,
 // computed identically, with the tiled form's step.  The expectation form
-// is sm3_bwd_kernel<Spec, true, false>'s recurrence,
+// is sm3_bwd_kernel<Spec, true>'s recurrence,
 // posteriors, totals and EM sums, computed identically (the same targets
 // in the same order, the same f32 operations): on the E-step's chunks (64
 // blocks of W = 128 threads, 2,000 diagonals; one warp per scheduler) it
@@ -1725,7 +1822,12 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     // the windows of d + 1, d + 2 and, WITH_EXP, d + 3 (read from the
     // first target on, d = ND - 1)
     int w1 = wg[ND + 1], w2 = wg[ND + 2], w3 = 0;
-    int left = 0, tile = NT;       // diagonals left in tile ``tile``
+    int left = 0;                  // diagonals left in the tile
+    // the index of shifts[b, t] while tile t is swept (the tiles run top
+    // down; it starts one past the top tile): a running index keeps no
+    // row offset live across the sweep, a register that K6b vanilla needs
+    // to stay without a spill
+    int sidx = b * NT + NT;
     // the fst slots of d, of d - AHEAD and, WITH_EXP, of d + 1 and d + 2
     int rs = 1, is = (1 + AHEAD) % QF, rs1 = 0, rs2 = QF - 1;
     pout += static_cast<size_t>(ND) * pstate;
@@ -1736,8 +1838,7 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
                 // carried bwd[d + 1] and bwd[d + 2] (cut at d + 1)
                 // re-center
                 if (d < ND) recenter<S>(n1, n2, cut_prev, l, W, red, shift);
-                --tile;
-                shf = shifts[static_cast<size_t>(b) * NT + tile] + shift;
+                shf = shifts[--sidx] + shift;
                 left = TD;
             }
             --left;
@@ -1772,7 +1873,7 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
             for (int i = 0; i < YR; ++i) in[i] = yb[i * Y + ycol];
 #pragma unroll
             for (int i = 0; i < NXF; ++i)
-                in[YR + i] = xb[i * X + (i == Spec::GAP_X ? xp : x)];
+                in[YR + i] = xb[i * X + (row_at_next<Spec>(i) ? xp : x)];
             // the lines the sweep reaches next (x falls, the column rises)
 #pragma unroll
             for (int i = 0; i < YR; ++i)
@@ -1804,8 +1905,7 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
         }
         const auto e1 = tiled_emissions<Spec>(in, lsd);
         float bw[S];
-        Spec::bwd_update_sel(t, in[YR + Spec::GAP_X], e1.gap_y, em2p, n1a,
-                             n1p, n2p, bw);
+        tiled_bwd_update<Spec>(t, in, e1.gap_y, em2p, n1a, n1p, n2p, bw);
         const bool mask = in_band(x, bd, wd);
 #pragma unroll
         for (int i = 0; i < S; ++i) {
@@ -1926,28 +2026,26 @@ int launch_config_error(int W) {
     return cudaSuccess;
 }
 
-template <class Spec, bool WITH_EXP, bool TILED>
+template <class Spec, bool WITH_EXP>
 int launch_bwd(const void* scal, const void* win, const void* xf,
                const void* yf, const void* basef, const void* widthf,
                const void* seedf, const void* raggedf, const void* fwd,
-               const void* est, const void* shifts, void* posts,
-               void* totals, void* trans,
+               const void* est, void* posts, void* totals, void* trans,
                void* accf, int G, int R, int W, int ND, int NDp, int X,
-               int C, int Y, int TD, void* stream) {
+               int C, int Y, void* stream) {
     constexpr int S = Spec::S;
     if (int e = launch_config_error(W)) return e;
-    if (TILED && (TD <= 0 || ND % TD != 0)) return cudaErrorInvalidValue;
     // ring + em + red, and fsh with the expectations
     const size_t smem = sizeof(float) * ((3 * S + 2 * Spec::NEM) * W + 32
                                          + (WITH_EXP ? 3 * S * W : 0));
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            sm3_bwd_kernel<Spec, WITH_EXP, TILED>,
+            sm3_bwd_kernel<Spec, WITH_EXP>,
             cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(smem));
         if (e != cudaSuccess) return static_cast<int>(e);
     }
-    sm3_bwd_kernel<Spec, WITH_EXP, TILED>
+    sm3_bwd_kernel<Spec, WITH_EXP>
         <<<G * R, W, smem, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float*>(scal), static_cast<const int*>(win),
             static_cast<const float*>(xf), static_cast<const float*>(yf),
@@ -1956,9 +2054,9 @@ int launch_bwd(const void* scal, const void* win, const void* xf,
             static_cast<const float*>(seedf),
             static_cast<const float*>(raggedf),
             static_cast<const float*>(fwd), static_cast<const float*>(est),
-            static_cast<const float*>(shifts), static_cast<float*>(posts),
-            static_cast<float*>(totals), static_cast<float*>(trans),
-            static_cast<float*>(accf), R, W, ND, NDp, X, C, Y, TD);
+            static_cast<float*>(posts), static_cast<float*>(totals),
+            static_cast<float*>(trans), static_cast<float*>(accf), R, W, ND,
+            NDp, X, C, Y);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -2085,22 +2183,10 @@ const char* wavefront_error_string(int code) {
              const void* seedf, const void* raggedf, const void* fwd,        \
              void* posts, void* totals, int G, int R, int W, int ND,         \
              int NDp, int X, int C, int Y, void* stream) {                   \
-        return launch_bwd<SPEC, false, false>(                               \
+        return launch_bwd<SPEC, false>(                                      \
             scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,  \
-            nullptr, posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X,   \
-            C, Y, 0, stream);                                                \
-    }
-#define WAVEFRONT_BWD_TILED_ENTRY(NAME, SPEC)                               \
-    int NAME(const void* scal, const void* win, const void* xf,              \
-             const void* yf, const void* basef, const void* widthf,          \
-             const void* seedf, const void* raggedf, const void* fwd,        \
-             const void* shifts, void* posts, void* totals, int G, int R,    \
-             int W, int ND, int NDp, int X, int C, int Y, int TD,            \
-             void* stream) {                                                 \
-        return launch_bwd<SPEC, false, true>(                                \
-            scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,  \
-            shifts, posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X, C, \
-            Y, TD, stream);                                                  \
+            posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X, C, Y,      \
+            stream);                                                         \
     }
 // the select tiled kernels take the same arguments
 #define WAVEFRONT_FWD_TILED_SEL_ENTRY(NAME, SPEC)                           \
@@ -2145,10 +2231,9 @@ const char* wavefront_error_string(int code) {
              void* posts, void* totals, void* trans, void* acc, int G,       \
              int R, int W, int ND, int NDp, int X, int C, int Y,             \
              void* stream) {                                                 \
-        return launch_bwd<SPEC, true, false>(                                \
+        return launch_bwd<SPEC, true>(                                       \
             scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,  \
-            nullptr, posts, totals, trans, acc, G, R, W, ND, NDp, X, C, Y,   \
-            0, stream);                                                      \
+            posts, totals, trans, acc, G, R, W, ND, NDp, X, C, Y, stream);   \
     }
 
 // the select expectation kernel takes the same arguments
@@ -2182,10 +2267,10 @@ const char* wavefront_error_string(int code) {
              const void* seedf, const void* raggedf, const void* fwd,        \
              const void* est, void* posts, void* totals, int G, int R,       \
              int W, int ND, int NDp, int X, int C, int Y, void* stream) {    \
-        return launch_bwd<SPEC, false, false>(                               \
+        return launch_bwd<SPEC, false>(                                      \
             scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, est,      \
-            nullptr, posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X,   \
-            C, Y, 0, stream);                                                \
+            posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X, C, Y,      \
+            stream);                                                         \
     }
 #define WAVEFRONT_BWD_EXP_STREAMED_ENTRY(NAME, SPEC)                        \
     int NAME(const void* scal, const void* win, const void* xf,              \
@@ -2194,10 +2279,9 @@ const char* wavefront_error_string(int code) {
              const void* est, void* posts, void* totals, void* trans,        \
              void* acc, int G, int R, int W, int ND, int NDp, int X, int C,  \
              int Y, void* stream) {                                          \
-        return launch_bwd<SPEC, true, false>(                                \
+        return launch_bwd<SPEC, true>(                                       \
             scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, est,      \
-            nullptr, posts, totals, trans, acc, G, R, W, ND, NDp, X, C, Y,   \
-            0, stream);                                                      \
+            posts, totals, trans, acc, G, R, W, ND, NDp, X, C, Y, stream);   \
     }
 
 WAVEFRONT_FWD_ENTRY(wavefront_fwd, Strawman)
@@ -2212,7 +2296,7 @@ WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled_dna5, Dna5)
 WAVEFRONT_FWD_ENTRY(wavefront_fwd_vanilla, Vanilla)
 WAVEFRONT_FWD_TILED_ENTRY(wavefront_fwd_tiled_vanilla, Vanilla)
 WAVEFRONT_BWD_ENTRY(wavefront_bwd_vanilla, Vanilla)
-WAVEFRONT_BWD_TILED_ENTRY(wavefront_bwd_tiled_vanilla, Vanilla)
+WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled_vanilla, Vanilla)
 
 WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp, Strawman)
 WAVEFRONT_BWD_EXP_SEL_ENTRY(wavefront_bwd_exp_dna5, Dna5)
@@ -2221,7 +2305,7 @@ WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_vanilla, Vanilla)
 WAVEFRONT_FWD_ENTRY(wavefront_fwd_sm4, Sm4)
 WAVEFRONT_FWD_TILED_ENTRY(wavefront_fwd_tiled_sm4, Sm4)
 WAVEFRONT_BWD_ENTRY(wavefront_bwd_sm4, Sm4)
-WAVEFRONT_BWD_TILED_ENTRY(wavefront_bwd_tiled_sm4, Sm4)
+WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled_sm4, Sm4)
 WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_sm4, Sm4)
 
 WAVEFRONT_FWD_ENTRY(wavefront_fwd_echelon, Echelon)

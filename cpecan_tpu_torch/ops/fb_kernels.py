@@ -59,7 +59,9 @@ diagonals in one launch each: a tile of the TPU kernels is only a
 boundary here, where the carried diagonals re-center.  The dna5 and
 strawman tiled pairs run the select kernels (``sm3_fwd_tiled_sel<Spec>``,
 ``sm3_bwd_tiled_sel<Spec, false, true>``: the same recurrences with a
-branch-free log-add), as do K2 dna5 (the untiled posterior form
+branch-free log-add), as do the vanilla and sm4 tiled backwards
+(``sm3_bwd_tiled_sel<Spec, false, true>``; their tiled forwards are
+``sm3_fwd_kernel<Spec, true>``), K2 dna5 (the untiled posterior form
 ``sm3_bwd_tiled_sel<Dna5, false, false>``) and K3 dna5 (the untiled
 expectation form ``sm3_bwd_tiled_sel<Dna5, true, false>``); the other
 instances are those of ``sm3_fwd_kernel``/``sm3_bwd_kernel``.  Every CUDA
@@ -1230,7 +1232,7 @@ def wavefront_bwd(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
     """Posterior backward -> (posts [G, ND+1, R, W] or, for a spec with
     POST_STATES, [G, ND+1, NPS, R, W], totals [G, R]) f32; a streamed spec
     reads its emissions from ``est``.  Plain PyTorch for CPU tensors; the
-    CUDA kernel ``sm3_bwd_kernel<spec, false, false>`` (dna5: the untiled
+    CUDA kernel ``sm3_bwd_kernel<spec, false>`` (dna5: the untiled
     ``sm3_bwd_tiled_sel<Dna5, false, false>``) for CUDA tensors (replaces
     cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
     with_exp=False)."""
@@ -1254,7 +1256,7 @@ def wavefront_bwd_exp(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
     trans [G, R, S*S], acc [G, NACC, R, X]) f32 (see
     ``backward_exp_plain``); a streamed spec reads its emissions from
     ``est``.  Plain PyTorch for CPU tensors; the CUDA kernel
-    ``sm3_bwd_kernel<spec, true, false>`` (dna5: the untiled
+    ``sm3_bwd_kernel<spec, true>`` (dna5: the untiled
     ``sm3_bwd_tiled_sel<Dna5, true, false>``) for CUDA tensors (replaces
     cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
     with_exp=True; entry ``wavefront_bwd_exp`` + ``spec.SUFFIX``)."""
@@ -1317,8 +1319,7 @@ def wavefront_bwd_tiled(scal, win, xf, yf, basef, widthf, seedf, raggedf,
     """Tiled posterior backward over ND = NT * TD diagonals -> (posts
     [G, ND+1, R, W], totals [G, R]) f32 (see ``backward_tiled_plain``).
     Plain PyTorch for CPU tensors; the CUDA kernel
-    ``sm3_bwd_kernel<spec, false, true>`` (strawman and dna5:
-    ``sm3_bwd_tiled_sel<spec, false, true>``) for CUDA tensors (replaces
+    ``sm3_bwd_tiled_sel<spec, false, true>`` for CUDA tensors (replaces
     cpecan_tpu/ops/pallas_fb.py:2332 _sm3_backward_kernel(tile=...),
     K6b)."""
     NT = _tiles(ND, TD, spec)

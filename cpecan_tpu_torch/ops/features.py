@@ -564,9 +564,13 @@ def hdp_stream(win, kx, evm, tables, slopes, grid_scalars, *, R, ND, W,
                            torch.clamp(dens, min=0.0), 0.0)
         if log_density:
             # an invalid k-mer's density is 0 (its table row is zeroed):
-            # NEG
-            est[:, d0:d1] = torch.where(
-                dens > 0.0, torch.log(torch.clamp(dens, min=1e-30)), NEG)
+            # NEG.  The log is taken in f64 and rounded once to f32, so
+            # that a cell's value does not depend on the block it was
+            # built in: the CPU's f32 log was seen to round some cells an
+            # ulp apart between calls on the same input
+            lg = torch.clamp(dens, min=1e-30).double().log_().float()
+            est[:, d0:d1] = torch.where(dens > 0.0, lg, NEG)
+            del lg
         else:
             est[:, d0:d1] = torch.where(kv, dens, NEG)
     return est

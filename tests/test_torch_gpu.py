@@ -339,8 +339,9 @@ def test_cuda_dna5_kernels_match_plain(dna5_batch, cuda, ragged, W, ND,
 
 def _synthetic_case(cuda, spec, W, ND, ragged, seed, every=False,
                     scal=None):
-    """Synthetic inputs of ``spec`` (dna5 or strawman) at window W over ND
-    diagonals: G 2 x R 2 reads (G 1 at W 1024).  Each group's band lower
+    """Synthetic inputs of ``spec`` (dna5, strawman, sm4 or vanilla) at
+    window W over ND diagonals: G 2 x R 2 reads (G 1 at W 1024).  Each
+    group's band lower
     edge steps by 0 or 1 a diagonal (x ~ d / 2, as a real band's) and its
     window by 0, 1 or 2, mostly 0, so the band drifts across the window's
     lanes, and over 128 diagonals or more it steps by each of 0, 1 and 2
@@ -350,10 +351,12 @@ def _synthetic_case(cuda, spec, W, ND, ragged, seed, every=False,
     tiled cases have always drawn.  Each read's
     band ends at its seed diagonal (within 40 of ND).  Random rows and
     scalars (``scal``, if given, replaces the latter): dna5 y bases 0..4 (4
-    = N) and a few outside 0..4, log-probability rows; strawman Gaussian
-    model rows with a few sd <= 0 (NEG emissions), events near the model
-    means, a gap-X log-probability row.  Returns (fwd args, bwd args,
-    dims)."""
+    = N) and a few outside 0..4, log-probability rows; strawman and sm4
+    Gaussian model rows with a few sd <= 0 (NEG emissions), events near the
+    model means, a gap-X log-probability row; vanilla Gaussian level and
+    inverse-Gaussian noise rows with a few sd <= 0, lambda <= 0 and noise
+    means of 0, noise near the noise means with a few zeros, log
+    transition rows.  Returns (fwd args, bwd args, dims)."""
     rng = np.random.default_rng(seed)
     G, R = (1 if W == 1024 else 2), 2
     NDp = -(-(ND + 3) // 128) * 128 + 128
@@ -396,6 +399,24 @@ def _synthetic_case(cuda, spec, W, ND, ragged, seed, every=False,
         # cases' draws since they were written)
         rscal = np.log(rng.uniform(0.05, 0.9, spec.NS + 3 * spec.S))
         xf = np.log(rng.uniform(0.05, 0.9, (B, 6, X)))
+    elif spec is fk.VanillaSpec:
+        # level (mean, sd) rows 0-1 and 4-5, noise (mean, lambda) rows 2-3
+        # and 6-7, a few sd <= 0, lambda <= 0 and noise means of 0; the
+        # log transitions of rows 8-12; events near the level means, noise
+        # near the noise means, a few <= 0
+        xf = np.empty((B, 13, X))
+        xf[:, 0:8:4] = rng.uniform(70.0, 90.0, (B, 2, X))
+        xf[:, 1:8:4] = rng.uniform(3.0, 12.0, (B, 2, X))
+        xf[:, 2:8:4] = rng.uniform(0.8, 2.5, (B, 2, X))
+        xf[:, 3:8:4] = rng.uniform(5.0, 60.0, (B, 2, X))
+        for r0, bad_vals in ((1, [0.0, -1.0]), (2, [0.0]), (3, [0.0, -2.0])):
+            bad = rng.random((B, 2, X)) < 0.01
+            xf[:, r0:8:4][bad] = rng.choice(bad_vals, bad.sum())
+        xf[:, 8:] = np.log(rng.uniform(0.05, 0.9, (B, 5, X)))
+        yf = np.stack([rng.uniform(70.0, 90.0, (B, Y)),
+                       rng.uniform(0.5, 3.0, (B, Y))], axis=1)
+        yf[:, 1][rng.random((B, Y)) < 0.001] = 0.0
+        rscal = np.log(rng.uniform(0.05, 0.9, spec.NS + 3 * spec.S))
     else:
         xf = np.empty((B, 9, X))
         xf[:, 0:8:2] = rng.uniform(70.0, 90.0, (B, 4, X))
@@ -717,26 +738,65 @@ def test_cuda_vanilla_kernels_match_plain(batch, cuda, ragged, trained):
     assert torch.equal(got[0], posts) and torch.equal(got[1], totals)
 
 
-@pytest.mark.parametrize("ragged", [False, True])
-def test_cuda_vanilla_tiled_kernels_match_plain(batch, cuda, ragged):
-    """K6a/K6b vanilla against their plain versions, tiles of 128
-    diagonals: fwd plane, shifts, posteriors, totals bit for bit."""
-    _, prep, inp, dims = _vanilla_inputs(cuda, batch, True, ragged,
-                                         tile_diag=128)
-    assert prep["tiled"]["NT"] >= 4
-    fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
-    ba = fa + [inp["seedf"], inp["raggedf"]]
+def _tiled_params():
+    """(ragged, W, NT, every) of the tiled tests of the vanilla and sm4
+    machines: the batch under its old ids ``False``/``True``, and
+    ``test_cuda_tiled_kernels_match_plain``'s synthetic cases."""
+    cases = [pytest.param(ragged, None, None, False, id=str(ragged))
+             for ragged in (False, True)]
+    for ragged in (False, True):
+        cases += [pytest.param(ragged, W, NT, False,
+                               id=f"{W}-{NT}-{ragged}")
+                  for W in (32, 128, 1024) for NT in (1, 2, 3)]
+        cases.append(pytest.param(ragged, 128, 3, True,
+                                  id=f"128-3-every-{ragged}"))
+    return cases
+
+
+def _check_tiled(spec, fa, ba, dims, TD, batch):
+    """K6a/K6b of ``spec`` against their plain versions: fwd plane,
+    shifts, posteriors and totals bit for bit, each kernel launched once;
+    re-centered tile boundaries; finite totals and some posterior > 0."""
     fk.reset_counts()
-    fwd, shifts = fk.wavefront_fwd_tiled(*fa, **dims)
-    posts, totals = fk.wavefront_bwd_tiled(*ba, fwd, shifts, **dims)
+    fwd, shifts = fk.wavefront_fwd_tiled(*fa, **dims, TD=TD)
+    posts, totals = fk.wavefront_bwd_tiled(*ba, fwd, shifts, **dims, TD=TD)
     torch.cuda.synchronize()
-    assert fk.KERNEL_LAUNCHES == {"wavefront_fwd_tiled_vanilla": 1,
-                                  "wavefront_bwd_tiled_vanilla": 1}
-    pfwd, pshifts = fk.forward_tiled_plain(*fa, **dims)
+    assert fk.KERNEL_LAUNCHES == {f"wavefront_fwd_tiled{spec.SUFFIX}": 1,
+                                  f"wavefront_bwd_tiled{spec.SUFFIX}": 1}
+    pfwd, pshifts = fk.forward_tiled_plain(*fa, **dims, TD=TD)
     assert torch.equal(fwd, pfwd) and torch.equal(shifts, pshifts)
-    assert torch.all(shifts[..., 1:] != 0.0)
-    pposts, ptotals = fk.backward_tiled_plain(*ba, fwd, shifts, **dims)
+    if batch or dims["ND"] > TD:
+        assert torch.all(shifts[..., 1:] != 0.0)
+    pposts, ptotals = fk.backward_tiled_plain(*ba, fwd, shifts, **dims,
+                                              TD=TD)
     assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
+    if not batch:
+        assert torch.isfinite(totals).all() and (posts > 0.0).any()
+
+
+@pytest.mark.parametrize("ragged, W, NT, every", _tiled_params())
+def test_cuda_vanilla_tiled_kernels_match_plain(batch, cuda, ragged, W, NT,
+                                                every):
+    """K6a/K6b vanilla (K6b: ``sm3_bwd_tiled_sel<Vanilla, false, true>``)
+    against their plain versions, tiles of 128 diagonals: fwd plane,
+    shifts, posteriors, totals bit for bit.  On the batch (trained skip
+    bins, per-read scaling), and on synthetic inputs at W 32, 128 and 1024
+    over one, two and three tiles, with windows stepping by 0, 1 and 2 or
+    (``every``) moving on nearly every diagonal (the sd and lambda rows'
+    logs taken again on each), a few sd <= 0, lambda <= 0, zero noise
+    means and zero noise."""
+    if W is None:
+        _, prep, inp, dims = _vanilla_inputs(cuda, batch, True, ragged,
+                                             tile_diag=128)
+        assert prep["tiled"]["NT"] >= 4
+        TD = dims.pop("TD")
+        fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                               "widthf")]
+        ba = fa + [inp["seedf"], inp["raggedf"]]
+    else:
+        fa, ba, dims, TD = _tiled_case(cuda, fk.VanillaSpec, W, NT, ragged,
+                                       every=every)
+    _check_tiled(fk.VanillaSpec, fa, ba, dims, TD, W is None)
 
 
 def test_cuda_vanilla_exp_run_matches_cpu_run(batch, cuda):
@@ -839,24 +899,27 @@ def test_cuda_sm4_kernels_match_plain(batch, cuda, ragged, trained):
     assert torch.equal(got[0], posts) and torch.equal(got[1], totals)
 
 
-@pytest.mark.parametrize("ragged", [False, True])
-def test_cuda_sm4_tiled_kernels_match_plain(batch, cuda, ragged):
-    """K6a/K6b sm4 against their plain versions, tiles of 128 diagonals:
-    fwd plane, shifts, posteriors, totals bit for bit."""
-    prep, inp, dims = _sm4_inputs(cuda, batch, True, ragged, tile_diag=128)
-    assert prep["tiled"]["NT"] >= 4
-    fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
-    ba = fa + [inp["seedf"], inp["raggedf"]]
-    fk.reset_counts()
-    fwd, shifts = fk.wavefront_fwd_tiled(*fa, **dims)
-    posts, totals = fk.wavefront_bwd_tiled(*ba, fwd, shifts, **dims)
-    torch.cuda.synchronize()
-    assert fk.KERNEL_LAUNCHES == {"wavefront_fwd_tiled_sm4": 1,
-                                  "wavefront_bwd_tiled_sm4": 1}
-    pfwd, pshifts = fk.forward_tiled_plain(*fa, **dims)
-    assert torch.equal(fwd, pfwd) and torch.equal(shifts, pshifts)
-    pposts, ptotals = fk.backward_tiled_plain(*ba, fwd, shifts, **dims)
-    assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
+@pytest.mark.parametrize("ragged, W, NT, every", _tiled_params())
+def test_cuda_sm4_tiled_kernels_match_plain(batch, cuda, ragged, W, NT,
+                                            every):
+    """K6a/K6b sm4 (K6b: ``sm3_bwd_tiled_sel<Sm4, false, true>``) against
+    their plain versions, tiles of 128 diagonals: fwd plane, shifts,
+    posteriors, totals bit for bit.  On the batch (the trained machine,
+    per-read scaling), and on synthetic inputs at W 32, 128 and 1024 over
+    one, two and three tiles, with windows stepping by 0, 1 and 2 or
+    (``every``) moving on nearly every diagonal, a few sd <= 0."""
+    if W is None:
+        prep, inp, dims = _sm4_inputs(cuda, batch, True, ragged,
+                                      tile_diag=128)
+        assert prep["tiled"]["NT"] >= 4
+        TD = dims.pop("TD")
+        fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                               "widthf")]
+        ba = fa + [inp["seedf"], inp["raggedf"]]
+    else:
+        fa, ba, dims, TD = _tiled_case(cuda, fk.Sm4Spec, W, NT, ragged,
+                                       every=every)
+    _check_tiled(fk.Sm4Spec, fa, ba, dims, TD, W is None)
 
 
 @pytest.mark.parametrize("sm_type", ["threeState", "vanilla", "fourState",

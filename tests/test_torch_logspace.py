@@ -224,12 +224,16 @@ def test_gauss_sel_equals_plain_gauss_bit_for_bit():
     assert torch.isfinite(got[sd >= 1e-3]).all() and (sd <= 0).sum() >= 9
 
 
-def _strawman_method(name):
-    """The statements of ``Strawman::name``'s body, one per line."""
-    start = WAVEFRONT.index("struct Strawman : OneMatch {")
+def _method(struct, name):
+    """The statements of ``struct::name``'s body, one per line, its
+    comments dropped (the struct's own method, not one it inherits)."""
+    start = WAVEFRONT.index(f"struct {struct} : ")
+    end = WAVEFRONT.index("\n};\n", start)
     m = re.compile(name + r"\((.*?)\) \{\n(.*?)\n    \}", re.S).search(
-        WAVEFRONT, start)
-    return [s.strip() for s in m.group(2).split(";") if s.strip()]
+        WAVEFRONT, start, end)
+    assert m, (struct, name)
+    body = re.sub(r"//[^\n]*", "", m.group(2))
+    return [s.strip() for s in body.split(";") if s.strip()]
 
 
 def _run_statements(stmts, env):
@@ -248,7 +252,7 @@ def _run_statements(stmts, env):
 def _bwd_update_torch(la, t, e_gapx_p, eg1, em2p, n1a, n1p, n2p):
     """Strawman::bwd_update_with<LA>, transcribed statement by statement
     from wavefront.cu."""
-    stmts = _strawman_method("bwd_update_with")
+    stmts = _method("Strawman", "bwd_update_with")
     assert sum("LA::add" in s for s in stmts) == 5
     out = [None] * 3
     env = dict(t=t, e_gapx_p=e_gapx_p, eg1=eg1, em2p=em2p, n1a=n1a,
@@ -264,7 +268,7 @@ def _fwd_update_torch(la, t, p1m, p1a, p2m, e_match, e_gapy, e_gapx):
     """Strawman::fwd_update_with<LA>, transcribed statement by statement
     from wavefront.cu; LA::add3 is the header's log_add3 (or
     log_add3_sel), two LA::adds."""
-    stmts = _strawman_method("fwd_update_with")
+    stmts = _method("Strawman", "fwd_update_with")
     assert sum("LA::add3" in s for s in stmts) == 2
     assert sum("LA::add(" in s for s in stmts) == 1
     for name in ("log_add3", "log_add3_sel"):
@@ -289,10 +293,11 @@ def _fwd_update_torch(la, t, p1m, p1a, p2m, e_match, e_gapy, e_gapx):
     return out
 
 
-def _update_grid():
+def _update_grid(nt=8):
     """Sources with NEG operands and gaps at the cubic boundaries: every
     input a mix of ordinary log values, NEG and values 1.0, 2.5, 4.5 and
-    7.5 apart (and their f32 neighbours) from a common offset."""
+    7.5 apart (and their f32 neighbours) from a common offset; ``nt``
+    transition scalars."""
     rng = np.random.default_rng(12)
     n = 20_000
     f32 = np.float32
@@ -308,9 +313,10 @@ def _update_grid():
         v[pick] = f32(-5.0) - rng.choice(near, pick.sum())
         return torch.from_numpy(v)
 
-    t = torch.from_numpy(np.log(rng.uniform(0.05, 0.9, 8)).astype(
+    t = torch.from_numpy(np.log(rng.uniform(0.05, 0.9, nt)).astype(
         np.float32))
-    t[[0, 3, 5]] = torch.tensor([0.0, -4.5, -2.5])
+    pick = [i for i in (0, 3, 5) if i < nt]
+    t[pick] = torch.tensor([0.0, -4.5, -2.5][:len(pick)])
     return t, draw
 
 
@@ -374,22 +380,220 @@ def test_strawman_emissions_in_equals_plain():
         np.tile(np.arange(n), 4)).reshape(4, n))]
     mean, noise = x, mu
     # col_logs: lsd[k] = logf(in[YR + 2k + 1])
-    col = " ".join(_strawman_method("col_logs"))
+    col = " ".join(_method("SignalRows", "col_logs"))
     assert "lsd[k] = logf(in[YR + 2 * k + 1])" in col
-    col_at = " ".join(_strawman_method("col_logs_at"))
+    col_at = " ".join(_method("SignalRows", "col_logs_at"))
     assert "lsd[k] = logf(xb[(2 * k + 1) * X + x])" in col_at
     lsd = [torch.log(rows[2 * k + 1]) for k in range(4)]
     # emissions_in: g(v, i) = gauss_sel(v, in[YR + i], in[YR + i + 1],
     # lsd[i / 2]) folded by emissions_with
-    body = " ".join(_strawman_method("emissions_in"))
+    body = " ".join(_method("GaussRows", "emissions_in"))
     assert "gauss_sel(v, in[YR + i], in[YR + i + 1], lsd[i / 2])" in body
     assert "emissions_with(in[0], in[1]," in body
     env = dict(mean=mean, noise=noise, e=type("E", (), {})(),
                g=lambda v, i: _gauss_sel_torch(v, rows[i], rows[i + 1],
                                                lsd[i // 2]))
-    _run_statements([s for s in _strawman_method("emissions_with")
+    _run_statements([s for s in _method("GaussRows", "emissions_with")
                      if not s.startswith("return")], env)
     e_match, e_gapy = fk.StrawmanSpec.emissions(rows, mean, noise)
     for g, w in ((env["e"].match, e_match), (env["e"].gap_y, e_gapy)):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
     assert bool((e_match == np.float32(fk.NEG)).any())
+
+
+# -- the fourState and vanilla forms of sm3_bwd_tiled_sel (wavefront.cu
+# Sm4::bwd_update_with, Vanilla::bwd_update_with and emissions_in, and the
+# header's inv_gauss_sel), transcribed and held to fb_kernels ------------
+
+
+def _la3(la):
+    """LA::add3 of the header's log-add types: log_add3 (log_add3_sel),
+    the pair log-add applied twice (asserted in the strawman's forward
+    test)."""
+    return lambda a, b, c: la(la(a, b), c)
+
+
+def _bits_equal(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("form", ["branch", "sel"])
+def test_sm4_bwd_update_with_equals_plain(form):
+    """Sm4::bwd_update_with, transcribed, equals
+    fb_kernels.Sm4Spec.bwd_update_w bit for bit with either log-add
+    (bwd_update, K2 and K3 sm4: the branch log_add; bwd_update_sel, K6b
+    sm4: log_add_sel), NEG sources and cubic-boundary gaps included."""
+    stmts = _method("Sm4", "bwd_update_with")
+    assert sum(len(re.findall(r"LA::add\(", s)) for s in stmts) == 5
+    assert sum(len(re.findall(r"LA::add3\(", s)) for s in stmts) == 1
+    for form_name, la_type in (("bwd_update", "LogAddBranch"),
+                               ("bwd_update_sel", "LogAddSel")):
+        call = " ".join(_method("Sm4", form_name))
+        assert f"bwd_update_with<{la_type}>(t," in call, form_name
+    t, draw = _update_grid(11)
+    e_gapx_p, eg1, em2p = draw(), draw(), draw()
+    n1a, n1p, n2p = ([draw() for _ in range(4)] for _ in range(3))
+    la = fk.log_add if form == "branch" else _log_add_sel_torch
+    out = [None] * 4
+    env = dict(t=t, e_gapx_p=e_gapx_p, eg1=eg1, em2p=[em2p], n1a=n1a,
+               n1p=n1p, n2p=n2p, out=out, LA=la, LA3=_la3(la),
+               **{k: getattr(fk, k) for k in dir(fk)
+                  if k.startswith("T4_")})
+    _run_statements(stmts, env)
+    xfp = torch.zeros((9, e_gapx_p.numel()))
+    xfp[fk.Sm4Spec.GAP_X] = e_gapx_p
+    want = fk.Sm4Spec.bwd_update_w(t, None, xfp, eg1, em2p, n1a, n1p, n2p)
+    _bits_equal(out, want)
+    assert all(bool((g == np.float32(fk.NEG)).any()) for g in out)
+    d = (out[0] - out[1]).abs()
+    assert ((d > 0.0) & (d < 7.5)).sum() > 1000
+
+
+def _vanilla_row_at_next():
+    """Vanilla::row_at_next, transcribed: the x rows sm3_bwd_tiled_sel
+    loads at next_col(x) (the template's load asserted too)."""
+    body = " ".join(_method("Vanilla", "row_at_next"))
+    m = re.fullmatch(r"return i >= (\w+) && i <= (\w+)", body)
+    assert m, body
+    lo, hi = (getattr(fk.VanillaSpec, v) for v in m.groups())
+    assert re.search(r"in\[YR \+ i\] = xb\[i \* X \+ \(row_at_next<Spec>"
+                     r"\(i\) \? xp : x\)\]", WAVEFRONT)
+    return lambda i: lo <= i <= hi
+
+
+@pytest.mark.parametrize("form", ["branch", "sel"])
+def test_vanilla_bwd_update_with_equals_plain(form):
+    """Vanilla::bwd_update_with, transcribed, equals
+    fb_kernels.VanillaSpec.bwd_update_w bit for bit with either log-add
+    (bwd_update, K2 and K3 vanilla: the branch log_add; bwd_update_sel,
+    K6b vanilla: log_add_sel): the transitions into M and X read at x + 1
+    (rows 8-11, row_at_next), M -> Y at x; NEG sources and cubic-boundary
+    gaps included."""
+    stmts = _method("Vanilla", "bwd_update_with")
+    assert sum(len(re.findall(r"LA::add\(", s)) for s in stmts) == 2
+    assert sum(len(re.findall(r"LA::add3\(", s)) for s in stmts) == 1
+    branch = " ".join(_method("Vanilla", "bwd_update"))
+    assert ("bwd_update_with<LogAddBranch>( t, [&](int i) { return "
+            "xb[i * X + (row_at_next(i) ? xp : x)]") in re.sub(
+                r"\s+", " ", branch)
+    sel = " ".join(_method("Vanilla", "bwd_update_sel"))
+    assert "bwd_update_with<LogAddSel>(t, [&](int i) { return xr[i]" in sel
+    at_next = _vanilla_row_at_next()
+    t, draw = _update_grid(2)
+    eg1, em2p = draw(), draw()
+    n1a, n1p, n2p = ([draw() for _ in range(3)] for _ in range(3))
+    n = eg1.numel()
+    xf, xfp = torch.zeros((13, n)), torch.zeros((13, n))
+    for i in range(8, 13):
+        (xfp if at_next(i) else xf)[i] = draw()
+    la = fk.log_add if form == "branch" else _log_add_sel_torch
+    out = [None] * 3
+    env = dict(t=t, eg1=eg1, em2p=[em2p], n1a=n1a, n1p=n1p, n2p=n2p,
+               out=out, LA=la, LA3=_la3(la),
+               row=lambda i: (xfp if at_next(i) else xf)[i],
+               VA_YM=fk.VA_YM, VA_YY=fk.VA_YY,
+               **{k: getattr(fk.VanillaSpec, k)
+                  for k in ("LA_MX", "LA_XX", "LA_MM", "LA_XM", "LA_MY")})
+    _run_statements(stmts, env)
+    want = fk.VanillaSpec.bwd_update_w(t, xf, xfp, eg1, em2p, n1a, n1p, n2p)
+    _bits_equal(out, want)
+    assert all(bool((g == np.float32(fk.NEG)).any()) for g in out)
+    assert [i for i in range(13) if at_next(i)] == [8, 9, 10, 11]
+
+
+def _inv_gauss_sel_torch(x, mu, lam, loglam, logx):
+    """inv_gauss_sel, transcribed from the header: its constant, guard and
+    expression read from the source."""
+    m = re.search(r"float inv_gauss_sel\(float x, float mu, float lam,\s*"
+                  r"float loglam, float logx\) \{\n(.*?)\n\}", HEADER, re.S)
+    body = re.sub(r"\s+", " ", m.group(1))
+    assert "const float a = (x - mu) / mu;" in body
+    c = re.search(r"const float v = \(loglam - " + LITERAL
+                  + r"f - 3\.0f \* logx - lam \* a \* a / x\) / 2\.0f;",
+                  body).group(1)
+    assert ("return (x <= 0.0f || lam <= 0.0f || mu == 0.0f) ? CPECAN_NEG "
+            ": v;") in body
+    # the plain version's constant, the same decimals
+    assert c in inspect.getsource(fk.inv_gauss)
+    a = (x - mu) / mu
+    v = (loglam - float(c) - 3.0 * logx - lam * a * a / x) / 2.0
+    bad = (x <= 0.0) | (lam <= 0.0) | (mu == 0.0)
+    return torch.where(bad, torch.full_like(v, fk.NEG), v)
+
+
+def _inv_gauss_grid():
+    """(x, mu, lam) f32: x <= 0 (0, -0, negatives), lam <= 0, mu == 0 (0,
+    -0), tiny and huge values, and ordinary noise values near their
+    means."""
+    rng = np.random.default_rng(14)
+    n = 3000
+    x = rng.uniform(0.2, 4.0, n)
+    mu = x * rng.uniform(0.5, 1.5, n)
+    lam = rng.uniform(0.5, 80.0, n)
+    specials = [0.0, -0.0, -1.0, -1e-30, 1e-30, 1e-20, 1e20]
+    k = len(specials)
+    x[:k], mu[k:2 * k], lam[2 * k:3 * k] = specials, specials, specials
+    x, mu, lam = (torch.from_numpy(v.astype(np.float32))
+                  for v in (x, mu, lam))
+    return x, mu, lam
+
+
+def test_inv_gauss_sel_equals_plain_inv_gauss_bit_for_bit():
+    """inv_gauss_sel with loglam = log(lam) and logx = log(x) equals
+    fb_kernels.inv_gauss bit for bit, NEG where x <= 0, lam <= 0 or mu ==
+    0 (the discarded arithmetic's NaN and inf never leak)."""
+    x, mu, lam = _inv_gauss_grid()
+    got = _inv_gauss_sel_torch(x, mu, lam, torch.log(lam), torch.log(x))
+    want = fk.inv_gauss(x, mu, lam)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    bad = (x <= 0) | (lam <= 0) | (mu == 0)
+    assert bool((got[bad] == np.float32(fk.NEG)).all())
+    assert int((x <= 0).sum()) >= 4 and int((lam <= 0).sum()) >= 4
+    assert int((mu == 0).sum()) == 2
+    # past the special values every input is an ordinary noise value
+    assert torch.isfinite(got[21:]).all() and bool((~bad).sum() > 2900)
+
+
+def test_vanilla_emissions_in_equals_plain():
+    """Vanilla::emissions_in (emissions_with over gauss_sel and
+    inv_gauss_sel, the sd and lambda rows' logs from col_logs, the noise's
+    log taken once a cell), transcribed, equals
+    fb_kernels.VanillaSpec.emissions bit for bit, sd <= 0, lambda <= 0, a
+    zero noise mean and noise <= 0 included."""
+    gx, gmu, gsd = _gauss_grid()
+    n = gx.numel()
+    ix, imu, ilam = (v[torch.from_numpy(np.random.default_rng(15).integers(
+        0, v.numel(), n))] for v in _inv_gauss_grid())
+    rng = np.random.default_rng(16)
+    rows = torch.zeros((13, n))
+    rows[0], rows[4] = gmu, gmu.flip(0)
+    rows[1], rows[5] = gsd, gsd.roll(7)
+    rows[2], rows[6] = imu, imu.roll(11)
+    rows[3], rows[7] = ilam, ilam.flip(0)
+    rows[8:] = torch.from_numpy(rng.uniform(-5.0, 0.0, (5, n)).astype(
+        np.float32))
+    mean, noise = gx, ix
+    # col_logs (SignalRows): the logs of rows 1, 3, 5, 7
+    assert "lsd[k] = logf(in[YR + 2 * k + 1])" in " ".join(
+        _method("SignalRows", "col_logs"))
+    lsd = [torch.log(rows[2 * k + 1]) for k in range(4)]
+    body = re.sub(r"\s+", " ", " ".join(_method("Vanilla", "emissions_in")))
+    assert "lnoise = logf(in[1])" in body
+    assert "emissions_with( in[0], in[1]," in body
+    assert "gauss_sel(v, in[YR + i], in[YR + i + 1], lsd[i / 2])" in body
+    assert ("inv_gauss_sel(v, in[YR + i], in[YR + i + 1], lsd[i / 2], "
+            "lnoise)") in body
+    lnoise = torch.log(noise)
+    env = dict(mean=mean, noise=noise, e=type("E", (), {})(),
+               g=lambda v, i: _gauss_sel_torch(v, rows[i], rows[i + 1],
+                                               lsd[i // 2]),
+               ig=lambda v, i: _inv_gauss_sel_torch(v, rows[i], rows[i + 1],
+                                                    lsd[i // 2], lnoise))
+    _run_statements([s for s in _method("Vanilla", "emissions_with")
+                     if not s.startswith("return")], env)
+    e_match, e_gapy = fk.VanillaSpec.emissions(rows, mean, noise)
+    _bits_equal((env["e"].match, env["e"].gap_y), (e_match, e_gapy))
+    for e in (e_match, e_gapy):
+        neg = e == np.float32(fk.NEG)
+        assert bool(neg.any()) and int((~neg).sum()) > n // 2

@@ -13,8 +13,11 @@ with this tree's ``cuda_build.NVCC_FLAGS``, all nvcc runs at once, into
 ``chip_smoke.py`` names it (``sm3_bwd_tiled_sel<Dna5, 0, 1>``); a
 ``--rename OLD=NEW`` pairs an instance of the first tree with one whose
 template arguments changed.  SASS is compared whole (``cuobjdump -sass``,
-the instruction text without addresses and encodings).  Prints one line
-per instance and tree; exits 1 if a build fails.  Needs the CUDA toolkit
+the instruction text without addresses and encodings); an instance that
+differs only in the offsets of its constant-bank-0 operands (the kernel
+parameter block: a parameter removed or added before others) reads
+"same SASS but parameter offsets".  Prints one line per instance and
+tree; exits 1 if a build fails.  Needs the CUDA toolkit
 (the GPU machine); imports no JAX.
 """
 
@@ -69,6 +72,11 @@ def sass(lib, cuobjdump):
     return funcs
 
 
+def without_params(code):
+    """``code`` with every constant-bank-0 offset blanked."""
+    return [re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][.]", i) for i in code]
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("trees", nargs="+", help="source trees, the first the "
@@ -106,9 +114,12 @@ def main(argv=None):
         for tree, funcs, reg in zip(args.trees[1:], code[1:], regs[1:]):
             if new not in funcs:
                 state = "gone"
+            elif funcs[new] == ref[name]:
+                state = "same SASS"
+            elif without_params(funcs[new]) == without_params(ref[name]):
+                state = "same SASS but parameter offsets"
             else:
-                state = "same SASS" if funcs[new] == ref[name] else (
-                    "different SASS")
+                state = "different SASS"
             print(f"{name} -> {tree}: {new}: {state} ({len(ref[name])} / "
                   f"{len(funcs.get(new, []))} instructions); ptxas "
                   f"{regs[0].get(name)} / {reg.get(new)}")
