@@ -9,9 +9,10 @@ signal machine (signalAlign's default, posteriors and trainModels), the
 machine and the HDP machine through them:
 
 1. versions, the card's name and power limit;
-2. the kernel build (nvcc, ptxas register report); the kernels redesigned
-   for the card (K3 dna5, K6b strawman, K6a strawman, K2 dna5) within 64
-   registers, no spill;
+2. the kernel build (nvcc, ptxas register report); every select instance
+   (the kernels redesigned for the card: K6a and K6b dna5, K3 dna5, K6b
+   strawman, K6a strawman, K2 dna5, K6b sm4 and vanilla, K6a sm4 and
+   vanilla) within 64 registers, no spill;
 3. each kernel against its plain PyTorch version on the card, on the first
    64-read chunk of the bench batch (256 reads x 905 bases x 800 events,
    seed 7), with the tolerances of cpecan_tpu_torch/parity.py, and the
@@ -185,8 +186,9 @@ each step ended by a synchronize.
 
 Each path's launch counts are read from a run that starts with every
 count at 0.  Any failed check raises (exit code != 0).  The last three
-lines are a JSON record of the kernels (times, launches, the least time
-the card could take and what bounds it), the card's name and power
+lines are a JSON record of the kernels (times, launches and the passes
+of the main path they were counted over, the least time the card could
+take and what bounds it), the card's name and power
 limit, and {"ok": true, "device": ...}.  Exits with 2 and prints no
 result when no CUDA device is present.
 """
@@ -282,13 +284,15 @@ ECH_PIPE_THRESHOLD = 0.15
 HDP_GROUP = HDP_CHUNK = 64   # phases 27-28: bench.py's HDP cell (bench_hdp)
 HDP_COMPACT_K = 2048
 GOLDEN = {(0, 0), (1, 1), (2, 4), (3, 5)}
-# the kernels redesigned for the H100 whose ptxas report phase 2 holds to
-# 64 registers and no spill
-REDESIGNED = ("sm3_bwd_tiled_sel<Dna5, 1, 0>",
+# the kernels redesigned for the H100 (every select instance) whose ptxas
+# report phase 2 holds to 64 registers and no spill
+REDESIGNED = ("sm3_fwd_tiled_sel<Dna5>", "sm3_bwd_tiled_sel<Dna5, 0, 1>",
+              "sm3_bwd_tiled_sel<Dna5, 1, 0>",
               "sm3_bwd_tiled_sel<Strawman, 0, 1>",
               "sm3_fwd_tiled_sel<Strawman>", "sm3_bwd_tiled_sel<Dna5, 0, 0>",
               "sm3_bwd_tiled_sel<Sm4, 0, 1>",
-              "sm3_bwd_tiled_sel<Vanilla, 0, 1>")
+              "sm3_bwd_tiled_sel<Vanilla, 0, 1>", "sm3_fwd_tiled_sel<Sm4>",
+              "sm3_fwd_tiled_sel<Vanilla>")
 
 
 def log(msg):
@@ -468,9 +472,8 @@ def main():
         elif "registers" in line or "spill" in line:
             ptxas.setdefault(kernel, []).append(line.strip())
             log(f"  ptxas: {kernel}: {line.strip()}")
-    # the kernels redesigned for this card (K3 dna5, K6b strawman, K6a
-    # strawman, K2 dna5, K6b sm4, K6b vanilla) stay within the 64-register
-    # cap without spilling
+    # the kernels redesigned for this card (every select instance) stay
+    # within the 64-register cap without spilling
     for name in REDESIGNED:
         report = " ".join(ptxas.get(name, []))
         regs = re.search(r"Used (\d+) registers", report)
@@ -2726,9 +2729,11 @@ def main():
 
     src = "cpecan_tpu_torch/csrc/wavefront.cu"
 
-    def entry(name, replaces, launches, err, key, bkey, main=None):
+    def entry(name, replaces, launches, passes, err, key, bkey, main=None):
+        # launches counted over ``passes`` passes of the main path
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": launches,
+               "passes": passes, "launches_per_pass": launches / passes,
                "max_abs_err": err, "ms": ms[key],
                "plain_ms": ms[key + "_plain"],
                "bound_ms": bounds[bkey][0], "bound_by": bounds[bkey][1],
@@ -2743,22 +2748,25 @@ def main():
         return row
 
     exact = 0.0   # phases 3, 10, 12, 13, 19, 21-24, 27 hold these bit for bit
+    # passes: a warm-up and 3 timed runs (4; phases 5, 12, 15, 16, 20 and
+    # the E-steps of 20 and 28), the EM iterations (phases 9, 18), 3 timed
+    # runs (phases 23, 25, 28) or one run (phases 21, 22)
     log(json.dumps({"kernels": [
         entry("wavefront_fwd", "cpecan_tpu/ops/pallas_fb.py:635",
-              launches["wavefront_fwd"], exact, "fwd", "fwd"),
+              launches["wavefront_fwd"], 4, exact, "fwd", "fwd"),
         entry("wavefront_bwd", "cpecan_tpu/ops/pallas_fb.py:857",
-              launches["wavefront_bwd"], exact, "bwd", "bwd"),
+              launches["wavefront_bwd"], 4, exact, "bwd", "bwd"),
         entry("wavefront_bwd_exp",
               "cpecan_tpu/ops/pallas_fb.py:2221 (with_exp=True)",
-              em_launches["wavefront_bwd_exp"], exp_err, "bwd_exp",
-              "bwd_exp"),
+              em_launches["wavefront_bwd_exp"], EM_ITERATIONS, exp_err,
+              "bwd_exp", "bwd_exp"),
         # phase 12 holds K6a/K6b to plain on its check read (ms, plain ms
         # and bound there; main_ms and main_bound_ms on the 64 long reads)
         entry("wavefront_fwd_tiled", "cpecan_tpu/ops/pallas_fb.py:2304",
-              long_launches["wavefront_fwd_tiled"], exact, "fwd_long",
+              long_launches["wavefront_fwd_tiled"], 4, exact, "fwd_long",
               "fwd_long", main="fwd_long_main"),
         entry("wavefront_bwd_tiled", "cpecan_tpu/ops/pallas_fb.py:2332",
-              long_launches["wavefront_bwd_tiled"], exact, "bwd_long",
+              long_launches["wavefront_bwd_tiled"], 4, exact, "bwd_long",
               "bwd_long", main="bwd_long_main"),
         # phase 13 holds K1/K2 dna5 bit for bit, phase 16's check pair
         # K6a/K6b dna5 (their ms, plain ms and bound are on that pair;
@@ -2766,19 +2774,19 @@ def main():
         # pair)
         entry("wavefront_fwd_dna5",
               "cpecan_tpu/ops/pallas_fb.py:635 (_Dna5Spec :340)",
-              dna_counts["wavefront_fwd_dna5"], exact, "dna5_fwd",
+              dna_counts["wavefront_fwd_dna5"], 4, exact, "dna5_fwd",
               "dna5_fwd"),
         entry("wavefront_bwd_dna5",
               "cpecan_tpu/ops/pallas_fb.py:857 (_Dna5Spec :340)",
-              dna_counts["wavefront_bwd_dna5"], exact, "dna5_bwd",
+              dna_counts["wavefront_bwd_dna5"], 4, exact, "dna5_bwd",
               "dna5_bwd"),
         entry("wavefront_fwd_tiled_dna5",
               "cpecan_tpu/ops/pallas_fb.py:2304 (_Dna5Spec :340)",
-              big_counts["wavefront_fwd_tiled_dna5"], derr,
+              big_counts["wavefront_fwd_tiled_dna5"], 4, derr,
               "dna5_fwd_tiled", "dna5_fwd_tiled", main="dna5_fwd_long"),
         entry("wavefront_bwd_tiled_dna5",
               "cpecan_tpu/ops/pallas_fb.py:2332 (_Dna5Spec :340)",
-              big_counts["wavefront_bwd_tiled_dna5"], derr,
+              big_counts["wavefront_bwd_tiled_dna5"], 4, derr,
               "dna5_bwd_tiled", "dna5_bwd_tiled", main="dna5_bwd_long"),
         # phase 17 holds K3 dna5 to its plain version (ms, plain ms and
         # bound on its equalised-machine inputs; main_ms and main_bound_ms
@@ -2786,8 +2794,9 @@ def main():
         # run
         entry("wavefront_bwd_exp_dna5",
               "cpecan_tpu/ops/pallas_fb.py:2221 (with_exp=True, _Dna5Spec "
-              ":406)", em_dna_counts["wavefront_bwd_exp_dna5"], d5exp_err,
-              "dna5_bwd_exp", "dna5_bwd_exp", main="dna5_bwd_exp_main"),
+              ":406)", em_dna_counts["wavefront_bwd_exp_dna5"],
+              EM_ITERATIONS, d5exp_err, "dna5_bwd_exp", "dna5_bwd_exp",
+              main="dna5_bwd_exp_main"),
         # phase 19 holds K1/K2/K3 vanilla to plain (K1/K2 ms, plain ms and
         # bound on the main path's default-machine chunk, K3 on the trained
         # machine's E-step group), phase 21 K6a/K6b vanilla on its check
@@ -2795,25 +2804,25 @@ def main():
         # from phases 20 (main path, E-step) and 21
         entry("wavefront_fwd_vanilla",
               "cpecan_tpu/ops/pallas_fb.py:635 (_VanillaSpec :456)",
-              van_counts["wavefront_fwd_vanilla"], exact, "vanilla_fwd",
+              van_counts["wavefront_fwd_vanilla"], 4, exact, "vanilla_fwd",
               "vanilla_fwd"),
         entry("wavefront_bwd_vanilla",
               "cpecan_tpu/ops/pallas_fb.py:857 (_VanillaSpec :456)",
-              van_counts["wavefront_bwd_vanilla"], exact, "vanilla_bwd",
+              van_counts["wavefront_bwd_vanilla"], 4, exact, "vanilla_bwd",
               "vanilla_bwd"),
         entry("wavefront_bwd_exp_vanilla",
               "cpecan_tpu/ops/pallas_fb.py:2221 (with_exp=True, "
               "_VanillaSpec :506)",
-              vexp_counts["wavefront_bwd_exp_vanilla"], exact,
+              vexp_counts["wavefront_bwd_exp_vanilla"], 4, exact,
               "vanilla_bwd_exp", "vanilla_bwd_exp"),
         entry("wavefront_fwd_tiled_vanilla",
               "cpecan_tpu/ops/pallas_fb.py:2304 (_VanillaSpec :456)",
-              vlong_counts["wavefront_fwd_tiled_vanilla"], exact,
+              vlong_counts["wavefront_fwd_tiled_vanilla"], 1, exact,
               "vanilla_fwd_tiled", "vanilla_fwd_tiled",
               main="vanilla_fwd_tiled_main"),
         entry("wavefront_bwd_tiled_vanilla",
               "cpecan_tpu/ops/pallas_fb.py:2332 (_VanillaSpec :456)",
-              vlong_counts["wavefront_bwd_tiled_vanilla"], exact,
+              vlong_counts["wavefront_bwd_tiled_vanilla"], 1, exact,
               "vanilla_bwd_tiled", "vanilla_bwd_tiled",
               main="vanilla_bwd_tiled_main"),
         # phases 22-23 hold the five sm4 instances to plain (K1/K2 ms,
@@ -2824,34 +2833,34 @@ def main():
         # E-step run (K3) and the 64 long reads (K6a/K6b)
         entry("wavefront_fwd_sm4",
               "cpecan_tpu/ops/pallas_fb.py:635 (_Sm4Spec :257)",
-              sm4_pipe_counts["wavefront_fwd_sm4"], exact, "sm4_fwd",
+              sm4_pipe_counts["wavefront_fwd_sm4"], 3, exact, "sm4_fwd",
               "sm4_fwd"),
         entry("wavefront_bwd_sm4",
               "cpecan_tpu/ops/pallas_fb.py:857 (_Sm4Spec :257)",
-              sm4_pipe_counts["wavefront_bwd_sm4"], exact, "sm4_bwd",
+              sm4_pipe_counts["wavefront_bwd_sm4"], 3, exact, "sm4_bwd",
               "sm4_bwd"),
         entry("wavefront_bwd_exp_sm4",
               "cpecan_tpu/ops/pallas_fb.py:2221 (with_exp=True, _Sm4Spec "
-              ":275)", sm4_exp_counts["wavefront_bwd_exp_sm4"], sm4_exp_err,
+              ":275)", sm4_exp_counts["wavefront_bwd_exp_sm4"], 1, sm4_exp_err,
               "sm4_bwd_exp", "sm4_bwd_exp"),
         entry("wavefront_fwd_tiled_sm4",
               "cpecan_tpu/ops/pallas_fb.py:2304 (_Sm4Spec :257)",
-              sm4_long_counts["wavefront_fwd_tiled_sm4"], exact,
+              sm4_long_counts["wavefront_fwd_tiled_sm4"], 1, exact,
               "sm4_fwd_tiled", "sm4_fwd_tiled", main="sm4_fwd_tiled_main"),
         entry("wavefront_bwd_tiled_sm4",
               "cpecan_tpu/ops/pallas_fb.py:2332 (_Sm4Spec :257)",
-              sm4_long_counts["wavefront_bwd_tiled_sm4"], exact,
+              sm4_long_counts["wavefront_bwd_tiled_sm4"], 1, exact,
               "sm4_bwd_tiled", "sm4_bwd_tiled", main="sm4_bwd_tiled_main"),
         # phase 24 holds K1/K2 echelon to plain (ms, plain ms and bound on
         # the first chunk of bench.py's echelon cell); launches from phase
         # 25's main path
         entry("wavefront_fwd_echelon",
               "cpecan_tpu/ops/pallas_fb.py:635 (_EchelonSpec :528)",
-              ech_counts["wavefront_fwd_echelon"], ech_err["fwd plane"],
+              ech_counts["wavefront_fwd_echelon"], 3, ech_err["fwd plane"],
               "echelon_fwd", "echelon_fwd"),
         entry("wavefront_bwd_echelon",
               "cpecan_tpu/ops/pallas_fb.py:857 (_EchelonSpec :528)",
-              ech_counts["wavefront_bwd_echelon"],
+              ech_counts["wavefront_bwd_echelon"], 3,
               max(ech_err["posteriors"], ech_err["totals"]), "echelon_bwd",
               "echelon_bwd"),
         # phase 27 holds K1/K2 hdp to plain on the first chunk of bench.py's
@@ -2860,13 +2869,13 @@ def main():
         # E-step
         entry("wavefront_fwd_hdp",
               "cpecan_tpu/ops/pallas_fb.py:635 (_HdpSpec :2829)",
-              hdp_counts["wavefront_fwd_hdp"], exact, "hdp_fwd", "hdp_fwd"),
+              hdp_counts["wavefront_fwd_hdp"], 3, exact, "hdp_fwd", "hdp_fwd"),
         entry("wavefront_bwd_hdp",
               "cpecan_tpu/ops/pallas_fb.py:857 (_HdpSpec :2829)",
-              hdp_counts["wavefront_bwd_hdp"], exact, "hdp_bwd", "hdp_bwd"),
+              hdp_counts["wavefront_bwd_hdp"], 3, exact, "hdp_bwd", "hdp_bwd"),
         entry("wavefront_bwd_exp_hdp",
               "cpecan_tpu/ops/pallas_fb.py:2221 (with_exp=True, _HdpSpec "
-              ":2829)", hexp_counts["wavefront_bwd_exp_hdp"], hdp_exp_err,
+              ":2829)", hexp_counts["wavefront_bwd_exp_hdp"], 4, hdp_exp_err,
               "hdp_bwd_exp", "hdp_bwd_exp"),
     ]}))
     log(smi_line())

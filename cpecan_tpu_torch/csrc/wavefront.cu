@@ -18,8 +18,7 @@
 // K2 and K3).
 //
 // Replaces (TPU, Pallas):
-//   sm3_fwd_kernel<Spec, false>
-//                          <- cpecan_tpu/ops/pallas_fb.py _sm3_forward_kernel
+//   sm3_fwd_kernel<Spec>   <- cpecan_tpu/ops/pallas_fb.py _sm3_forward_kernel
 //                             (:635, untiled; _StrawmanSpec, _Dna5Spec,
 //                             _VanillaSpec, _Sm4Spec, _EchelonSpec,
 //                             the streamed _HdpSpec :2829)              K1
@@ -36,11 +35,14 @@
 //                             _Dna5Spec.exp_probs_w :406 /
 //                             _VanillaSpec.exp_probs_w :506 /
 //                             _Sm4Spec.exp_probs_w :275)               K3
-//   sm3_fwd_kernel<Spec, true>
+//   sm3_fwd_tiled_sel<Spec>
 //                          <- _sm3_forward_kernel(tile=...) (:2304), chained
 //                             over the tiles by _run_tiled (:2447) with
-//                             _tile_steps.recenter (:2381); _VanillaSpec,
-//                             _Sm4Spec                                K6a
+//                             _tile_steps.recenter (:2381); _Dna5Spec (the
+//                             100 kb pair's path), _StrawmanSpec,
+//                             _VanillaSpec, _Sm4Spec (the long signal
+//                             reads' path), with the select step (the
+//                             note above it)                          K6a
 //   sm3_bwd_tiled_sel<Spec, false, true>
 //                          <- _sm3_backward_kernel(tile=...) (:2332), the
 //                             shifts repaid as shf (:947, :1170, :1193);
@@ -48,10 +50,6 @@
 //                             _StrawmanSpec, _VanillaSpec, _Sm4Spec (the
 //                             long signal reads' path), with the select
 //                             step (the note above sm3_fwd_tiled_sel)  K6b
-//   sm3_fwd_tiled_sel<Dna5>, sm3_fwd_tiled_sel<Strawman>
-//                          <- K6a for the 5-state DNA machine and the
-//                             strawman machine: the same recurrences with
-//                             a shorter step
 //   sm3_bwd_tiled_sel<Dna5, false, false>
 //                          <- K2 for the 5-state DNA machine (the
 //                             realigner's posteriors): the untiled
@@ -422,19 +420,36 @@ struct Hdp : Strawman {
 struct Sm4 : GaussRows {
     static constexpr int S = 4, NS = SM4_NS, NXF = 9, GAP_X = 8;
 
-    // _Sm4Spec.fwd_update_w, the JAX grouping kept exactly
+    // _Sm4Spec.fwd_update_w, the JAX grouping kept exactly, written once
+    // for both log-adds (LA: LogAddBranch, LogAddSel); e_gapx the gap-X
+    // row at x
+    template <class LA>
+    __device__ __forceinline__ static void fwd_update_with(
+            const float* t, const float* p1m, const float* p1a,
+            const float* p2m, const Emissions& e, float e_gapx,
+            float* out) {
+        out[0] = LA::add(LA::add(p2m[0] + t[T4_MM], p2m[1] + t[T4_MSX]),
+                         LA::add(p2m[2] + t[T4_MSY], p2m[3] + t[T4_MLX]))
+                 + e.match;
+        out[1] = LA::add(p1m[0] + t[T4_SOX], p1m[1] + t[T4_SEX]) + e_gapx;
+        out[2] = LA::add(p1a[0] + t[T4_SOY], p1a[2] + t[T4_SEY]) + e.gap_y;
+        out[3] = LA::add3(p1m[0] + t[T4_LOX], p1m[3] + t[T4_LEX],
+                          p1m[2] + t[T4_LSX]) + e_gapx;
+    }
+
     __device__ __forceinline__ static void fwd_update(
             const float* t, const float* p1m, const float* p1a,
             const float* p2m, const Emissions& e, const float* xb, int X,
             int x, float* out) {
-        const float e_gapx = xb[GAP_X * X + x];
-        out[0] = log_add(log_add(p2m[0] + t[T4_MM], p2m[1] + t[T4_MSX]),
-                         log_add(p2m[2] + t[T4_MSY], p2m[3] + t[T4_MLX]))
-                 + e.match;
-        out[1] = log_add(p1m[0] + t[T4_SOX], p1m[1] + t[T4_SEX]) + e_gapx;
-        out[2] = log_add(p1a[0] + t[T4_SOY], p1a[2] + t[T4_SEY]) + e.gap_y;
-        out[3] = log_add3(p1m[0] + t[T4_LOX], p1m[3] + t[T4_LEX],
-                          p1m[2] + t[T4_LSX]) + e_gapx;
+        fwd_update_with<LogAddBranch>(t, p1m, p1a, p2m, e,
+                                      xb[GAP_X * X + x], out);
+    }
+
+    __device__ __forceinline__ static void fwd_update_sel(
+            const float* t, const float* p1m, const float* p1a,
+            const float* p2m, const Emissions& e, float e_gapx,
+            float* out) {
+        fwd_update_with<LogAddSel>(t, p1m, p1a, p2m, e, e_gapx, out);
     }
 
     // _Sm4Spec.bwd_update_w, the JAX grouping kept exactly, written once
@@ -662,18 +677,36 @@ struct Vanilla : SignalRows {
             });
     }
 
-    // _VanillaSpec.fwd_update_w: the transitions of column x
+    // _VanillaSpec.fwd_update_w: the transitions of column x, written
+    // once for both log-adds (LA: LogAddBranch, LogAddSel); row(i) the
+    // transition row i at x (the forward reads no row at the next column)
+    template <class LA, class Rows>
+    __device__ __forceinline__ static void fwd_update_with(
+            const float* t, Rows row, const float* p1m, const float* p1a,
+            const float* p2m, const Emissions& e, float* out) {
+        out[0] = LA::add3(p2m[0] + row(LA_MM), p2m[1] + row(LA_XM),
+                          p2m[2] + t[VA_YM])
+                 + e.match;
+        out[1] = LA::add(p1m[0] + row(LA_MX), p1m[1] + row(LA_XX));
+        out[2] = LA::add(p1a[0] + row(LA_MY), p1a[2] + t[VA_YY])
+                 + e.gap_y;
+    }
+
     __device__ __forceinline__ static void fwd_update(
             const float* t, const float* p1m, const float* p1a,
             const float* p2m, const Emissions& e, const float* xb, int X,
             int x, float* out) {
-        out[0] = log_add3(p2m[0] + xb[LA_MM * X + x],
-                          p2m[1] + xb[LA_XM * X + x], p2m[2] + t[VA_YM])
-                 + e.match;
-        out[1] = log_add(p1m[0] + xb[LA_MX * X + x],
-                         p1m[1] + xb[LA_XX * X + x]);
-        out[2] = log_add(p1a[0] + xb[LA_MY * X + x], p1a[2] + t[VA_YY])
-                 + e.gap_y;
+        fwd_update_with<LogAddBranch>(
+            t, [&](int i) { return xb[i * X + x]; }, p1m, p1a, p2m, e, out);
+    }
+
+    // xr: the x rows as sm3_fwd_tiled_sel loads them
+    __device__ __forceinline__ static void fwd_update_sel(
+            const float* t, const float* p1m, const float* p1a,
+            const float* p2m, const Emissions& e, const float* xr,
+            float* out) {
+        fwd_update_with<LogAddSel>(t, [&](int i) { return xr[i]; }, p1m,
+                                   p1a, p2m, e, out);
     }
 
     // _VanillaSpec.bwd_update_w, written once for both log-adds (LA:
@@ -910,7 +943,7 @@ __device__ __forceinline__ auto cell_emissions(const float* xb,
 // instances that need fewer as they were.
 #define CPECAN_MAX_W 1024
 
-template <class Spec, bool TILED>
+template <class Spec>
 __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
                                const int* __restrict__ win,
                                const float* __restrict__ xf,
@@ -918,16 +951,13 @@ __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
                                const float* __restrict__ basef,
                                const float* __restrict__ widthf,
                                const float* __restrict__ est,
-                               float* __restrict__ fwd,
-                               float* __restrict__ shifts, int R, int W,
-                               int ND, int NDp, int X, int C, int Y, int TD) {
+                               float* __restrict__ fwd, int R, int W, int ND,
+                               int NDp, int X, int C, int Y) {
     constexpr int S = Spec::S;
     constexpr int NSCAL = Spec::NS + 3 * S;
     constexpr int START = Spec::NS;
-    // ring [3 slots][S][W]: diagonal d in d % 3; red [32]: reduction
-    // scratch (tiled only)
+    // ring [3 slots][S][W]: diagonal d in d % 3
     extern __shared__ float ring[];
-    float* red = ring + 3 * S * W;
     const int b = blockIdx.x;
     const int g = b / R;
     const int r = b - g * R;
@@ -959,23 +989,9 @@ __global__ void sm3_fwd_kernel(const float* __restrict__ scal,
         ring[(2 * S + i) * W + l] = CPECAN_NEG;
         out[static_cast<size_t>(i) * R * W] = v;
     }
-    float shift = 0.0f;   // A, the running re-centering shift (tiled)
-    const int NT = TILED ? ND / TD : 0;
-    if (TILED && l == 0) shifts[static_cast<size_t>(b) * NT] = 0.0f;
     __syncthreads();
 
     for (int d = 1; d <= ND; ++d) {
-        if constexpr (TILED) {
-            if (d > 1 && (d - 1) % TD == 0) {
-                // diagonals d - 1 and d - 2 in slots (d + 2) % 3, (d + 1) % 3
-                recenter<S>(ring + ((d + 2) % 3) * S * W,
-                            ring + ((d + 1) % 3) * S * W, false, l, W, red,
-                            shift);
-                if (l == 0)
-                    shifts[static_cast<size_t>(b) * NT + (d - 1) / TD] =
-                        shift;
-            }
-        }
         const int w = wg[d];
         const int s1 = w - wg[d - 1];
         const int s2 = w - wg[d >= 2 ? d - 2 : 0];
@@ -1415,15 +1431,14 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
 }
 
 // ---------------------------------------------------------------------------
-// The tiled kernels of the 5-state DNA machine (K6a, K6b dna5): the tiled
-// recurrences of sm3_fwd_kernel<Spec, true> and of the tiled backward,
-// computed identically, with a shorter step.  On the lone long pair (the
+// The tiled kernels (K6a, K6b), designed first for the 5-state DNA machine:
+// the recurrences of the templates above over tiles, computed identically,
+// with a shorter step.  On the lone long pair (the
 // 100 kb DNA pair: one real block of W = 128 threads, 200,704 diagonals on
 // one SM, one warp per scheduler) nothing hides a stall, so a step costs
 // its whole instruction stream plus whatever load it waits on (1.30 / 1.79
-// us a diagonal on the H100 with sm3_fwd_kernel's tiled form and
-// sm3_bwd_kernel's, since removed).  What
-// goes (PERF.md section 6):
+// us a diagonal on the H100 with sm3_fwd_kernel's and sm3_bwd_kernel's
+// tiled forms).  What goes (PERF.md section 6):
 //  - divergence: the eight log-adds of a step are log_add_sel, one Horner
 //    form on selected coefficients, where lanes of a warp at different
 //    gaps walked up to four cubics of the branch log_add (the largest
@@ -1469,7 +1484,13 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
 // seven log-adds of Sm4::bwd_update_with; vanilla, whose transitions into
 // M and X come from the next column's rows (COL_TRANS, row_at_next), with
 // gauss_sel and inv_gauss_sel on the kept logs of its sd and lambda rows
-// and the noise's log taken once a cell.
+// and the noise's log taken once a cell.  Their forwards (K6a sm4 and K6a
+// vanilla, the same reads; 1.78 and 1.58 us a diagonal with
+// sm3_fwd_kernel's tiled form on the same card) run on the forward template
+// with the same traits: sm4 with the seven log-adds of
+// Sm4::fwd_update_with (23 scalars in shared memory, its ring of four
+// states past 48 KB at W = 1024); vanilla with all x rows handed to
+// Vanilla::fwd_update_with (tiled_fwd_update), every transition read at x.
 
 // 4-byte asynchronous copy global -> shared (sm_80+), and its groups
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -1536,6 +1557,21 @@ __device__ __forceinline__ void tiled_bwd_update(
     } else {
         Spec::bwd_update_sel(t, in[Spec::YR + Spec::GAP_X], eg1, em2p, n1a,
                              n1p, n2p, out);
+    }
+}
+
+// the forward update of sm3_fwd_tiled_sel from the cell's inputs in
+// registers: the spec's select form takes the gap-X row, or with
+// per-column transitions all x rows (all read at x)
+template <class Spec>
+__device__ __forceinline__ void tiled_fwd_update(
+        const float* t, const float* in, const float* p1m, const float* p1a,
+        const float* p2m, const Emissions& e, float* out) {
+    if constexpr (Spec::COL_TRANS) {
+        Spec::fwd_update_sel(t, p1m, p1a, p2m, e, in + Spec::YR, out);
+    } else {
+        Spec::fwd_update_sel(t, p1m, p1a, p2m, e, in[Spec::YR + Spec::GAP_X],
+                             out);
     }
 }
 
@@ -1648,8 +1684,7 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
         }
         const Emissions e = tiled_emissions<Spec>(in, lsd);
         float nv[S];
-        Spec::fwd_update_sel(t, p1m, p1a, p2m, e, in[YR + Spec::GAP_X],
-                             nv);
+        tiled_fwd_update<Spec>(t, in, p1m, p1a, p2m, e, nv);
         const bool mask = in_band(w + l, bd, wd);
         od += plane_d;
 #pragma unroll
@@ -2060,30 +2095,29 @@ int launch_bwd(const void* scal, const void* win, const void* xf,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <class Spec, bool TILED>
+template <class Spec>
 int launch_fwd(const void* scal, const void* win, const void* xf,
                const void* yf, const void* basef, const void* widthf,
-               const void* est, void* fwd, void* shifts, int G, int R, int W,
-               int ND, int NDp, int X, int C, int Y, int TD, void* stream) {
+               const void* est, void* fwd, int G, int R, int W, int ND,
+               int NDp, int X, int C, int Y, void* stream) {
     if (int e = launch_config_error(W)) return e;
-    if (TILED && (TD <= 0 || ND % TD != 0)) return cudaErrorInvalidValue;
-    // ring, and the reduction scratch of the re-centering
-    const size_t smem = sizeof(float) * (3 * Spec::S * W + (TILED ? 32 : 0));
+    // the ring
+    const size_t smem = sizeof(float) * 3 * Spec::S * W;
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            sm3_fwd_kernel<Spec, TILED>,
+            sm3_fwd_kernel<Spec>,
             cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(smem));
         if (e != cudaSuccess) return static_cast<int>(e);
     }
-    sm3_fwd_kernel<Spec, TILED>
+    sm3_fwd_kernel<Spec>
         <<<G * R, W, smem, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float*>(scal), static_cast<const int*>(win),
             static_cast<const float*>(xf), static_cast<const float*>(yf),
             static_cast<const float*>(basef),
             static_cast<const float*>(widthf),
-            static_cast<const float*>(est), static_cast<float*>(fwd),
-            static_cast<float*>(shifts), R, W, ND, NDp, X, C, Y, TD);
+            static_cast<const float*>(est), static_cast<float*>(fwd), R, W,
+            ND, NDp, X, C, Y);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -2164,18 +2198,9 @@ const char* wavefront_error_string(int code) {
              const void* yf, const void* basef, const void* widthf,          \
              void* fwd, int G, int R, int W, int ND, int NDp, int X, int C,  \
              int Y, void* stream) {                                          \
-        return launch_fwd<SPEC, false>(scal, win, xf, yf, basef, widthf,     \
-                                       nullptr, fwd, nullptr, G, R, W, ND,   \
-                                       NDp, X, C, Y, 0, stream);             \
-    }
-#define WAVEFRONT_FWD_TILED_ENTRY(NAME, SPEC)                               \
-    int NAME(const void* scal, const void* win, const void* xf,              \
-             const void* yf, const void* basef, const void* widthf,          \
-             void* fwd, void* shifts, int G, int R, int W, int ND, int NDp,  \
-             int X, int C, int Y, int TD, void* stream) {                    \
-        return launch_fwd<SPEC, true>(scal, win, xf, yf, basef, widthf,      \
-                                      nullptr, fwd, shifts, G, R, W, ND,     \
-                                      NDp, X, C, Y, TD, stream);             \
+        return launch_fwd<SPEC>(scal, win, xf, yf, basef, widthf,            \
+                                nullptr, fwd, G, R, W, ND, NDp, X, C, Y,     \
+                                stream);                                     \
     }
 #define WAVEFRONT_BWD_ENTRY(NAME, SPEC)                                     \
     int NAME(const void* scal, const void* win, const void* xf,              \
@@ -2257,9 +2282,8 @@ const char* wavefront_error_string(int code) {
              const void* yf, const void* basef, const void* widthf,          \
              const void* est, void* fwd, int G, int R, int W, int ND,        \
              int NDp, int X, int C, int Y, void* stream) {                   \
-        return launch_fwd<SPEC, false>(scal, win, xf, yf, basef, widthf,     \
-                                       est, fwd, nullptr, G, R, W, ND, NDp,  \
-                                       X, C, Y, 0, stream);                  \
+        return launch_fwd<SPEC>(scal, win, xf, yf, basef, widthf, est,       \
+                                fwd, G, R, W, ND, NDp, X, C, Y, stream);     \
     }
 #define WAVEFRONT_BWD_STREAMED_ENTRY(NAME, SPEC)                            \
     int NAME(const void* scal, const void* win, const void* xf,              \
@@ -2294,7 +2318,7 @@ WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled, Strawman)
 WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled_dna5, Dna5)
 
 WAVEFRONT_FWD_ENTRY(wavefront_fwd_vanilla, Vanilla)
-WAVEFRONT_FWD_TILED_ENTRY(wavefront_fwd_tiled_vanilla, Vanilla)
+WAVEFRONT_FWD_TILED_SEL_ENTRY(wavefront_fwd_tiled_vanilla, Vanilla)
 WAVEFRONT_BWD_ENTRY(wavefront_bwd_vanilla, Vanilla)
 WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled_vanilla, Vanilla)
 
@@ -2303,7 +2327,7 @@ WAVEFRONT_BWD_EXP_SEL_ENTRY(wavefront_bwd_exp_dna5, Dna5)
 WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_vanilla, Vanilla)
 
 WAVEFRONT_FWD_ENTRY(wavefront_fwd_sm4, Sm4)
-WAVEFRONT_FWD_TILED_ENTRY(wavefront_fwd_tiled_sm4, Sm4)
+WAVEFRONT_FWD_TILED_SEL_ENTRY(wavefront_fwd_tiled_sm4, Sm4)
 WAVEFRONT_BWD_ENTRY(wavefront_bwd_sm4, Sm4)
 WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled_sm4, Sm4)
 WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_sm4, Sm4)

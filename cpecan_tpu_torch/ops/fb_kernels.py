@@ -56,15 +56,14 @@ tensor on the CPU and launches the CUDA kernel
 (``cpecan_tpu_torch/csrc/wavefront.cu``) for a CUDA tensor; nothing falls
 back from one to the other.  The tiled pair sweeps all ND = NT * TD
 diagonals in one launch each: a tile of the TPU kernels is only a
-boundary here, where the carried diagonals re-center.  The dna5 and
-strawman tiled pairs run the select kernels (``sm3_fwd_tiled_sel<Spec>``,
-``sm3_bwd_tiled_sel<Spec, false, true>``: the same recurrences with a
-branch-free log-add), as do the vanilla and sm4 tiled backwards
-(``sm3_bwd_tiled_sel<Spec, false, true>``; their tiled forwards are
-``sm3_fwd_kernel<Spec, true>``), K2 dna5 (the untiled posterior form
-``sm3_bwd_tiled_sel<Dna5, false, false>``) and K3 dna5 (the untiled
-expectation form ``sm3_bwd_tiled_sel<Dna5, true, false>``); the other
-instances are those of ``sm3_fwd_kernel``/``sm3_bwd_kernel``.  Every CUDA
+boundary here, where the carried diagonals re-center.  Every tiled pair
+(dna5, strawman, vanilla, sm4) runs the select kernels
+(``sm3_fwd_tiled_sel<Spec>``, ``sm3_bwd_tiled_sel<Spec, false, true>``:
+the same recurrences with a branch-free log-add), as do K2 dna5 (the
+untiled posterior form ``sm3_bwd_tiled_sel<Dna5, false, false>``) and K3
+dna5 (the untiled expectation form ``sm3_bwd_tiled_sel<Dna5, true,
+false>``); the other instances are those of
+``sm3_fwd_kernel``/``sm3_bwd_kernel``.  Every CUDA
 kernel's launches are counted in ``KERNEL_LAUNCHES`` under its entry
 point's name (``wavefront_fwd``, ``wavefront_fwd_dna5``,
 ``wavefront_fwd_vanilla``, ``wavefront_fwd_sm4``, ``wavefront_fwd_echelon``,
@@ -1298,8 +1297,7 @@ def wavefront_fwd_tiled(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
     """Tiled forward over ND = NT * TD diagonals -> (fwd plane
     [G, ND+1, S, R, W], shifts [G, R, NT]) f32 (see
     ``forward_tiled_plain``).  Plain PyTorch for CPU tensors; the CUDA
-    kernel ``sm3_fwd_kernel<spec, true>`` (strawman and dna5:
-    ``sm3_fwd_tiled_sel``) for CUDA tensors (replaces
+    kernel ``sm3_fwd_tiled_sel<spec>`` for CUDA tensors (replaces
     cpecan_tpu/ops/pallas_fb.py:2304 _sm3_forward_kernel(tile=...),
     K6a)."""
     _tiles(ND, TD, spec)

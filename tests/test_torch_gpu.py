@@ -777,14 +777,15 @@ def _check_tiled(spec, fa, ba, dims, TD, batch):
 @pytest.mark.parametrize("ragged, W, NT, every", _tiled_params())
 def test_cuda_vanilla_tiled_kernels_match_plain(batch, cuda, ragged, W, NT,
                                                 every):
-    """K6a/K6b vanilla (K6b: ``sm3_bwd_tiled_sel<Vanilla, false, true>``)
-    against their plain versions, tiles of 128 diagonals: fwd plane,
-    shifts, posteriors, totals bit for bit.  On the batch (trained skip
-    bins, per-read scaling), and on synthetic inputs at W 32, 128 and 1024
-    over one, two and three tiles, with windows stepping by 0, 1 and 2 or
-    (``every``) moving on nearly every diagonal (the sd and lambda rows'
-    logs taken again on each), a few sd <= 0, lambda <= 0, zero noise
-    means and zero noise."""
+    """K6a/K6b vanilla (``sm3_fwd_tiled_sel<Vanilla>``,
+    ``sm3_bwd_tiled_sel<Vanilla, false, true>``) against their plain
+    versions, tiles of 128 diagonals: fwd plane, shifts, posteriors,
+    totals bit for bit.  On the batch (trained skip bins, per-read
+    scaling), and on synthetic inputs at W 32, 128 and 1024 over one, two
+    and three tiles, with windows stepping by 0, 1 and 2 or (``every``)
+    moving on nearly every diagonal (the sd and lambda rows' logs taken
+    again on each), a few sd <= 0, lambda <= 0, zero noise means and zero
+    noise."""
     if W is None:
         _, prep, inp, dims = _vanilla_inputs(cuda, batch, True, ragged,
                                              tile_diag=128)
@@ -902,12 +903,15 @@ def test_cuda_sm4_kernels_match_plain(batch, cuda, ragged, trained):
 @pytest.mark.parametrize("ragged, W, NT, every", _tiled_params())
 def test_cuda_sm4_tiled_kernels_match_plain(batch, cuda, ragged, W, NT,
                                             every):
-    """K6a/K6b sm4 (K6b: ``sm3_bwd_tiled_sel<Sm4, false, true>``) against
-    their plain versions, tiles of 128 diagonals: fwd plane, shifts,
-    posteriors, totals bit for bit.  On the batch (the trained machine,
-    per-read scaling), and on synthetic inputs at W 32, 128 and 1024 over
-    one, two and three tiles, with windows stepping by 0, 1 and 2 or
-    (``every``) moving on nearly every diagonal, a few sd <= 0."""
+    """K6a/K6b sm4 (``sm3_fwd_tiled_sel<Sm4>``, ``sm3_bwd_tiled_sel<Sm4,
+    false, true>``) against their plain versions, tiles of 128 diagonals:
+    fwd plane, shifts, posteriors, totals bit for bit.  On the batch (the
+    trained machine, per-read scaling), and on synthetic inputs at W 32,
+    128 and 1024 over one, two and three tiles (at W 1024 the forward's
+    ring of four states takes 3 x 4 x 1024 floats and 64 more, past the
+    48 KB default, which its launcher raises), with windows stepping by 0,
+    1 and 2 or (``every``) moving on nearly every diagonal, a few sd <=
+    0."""
     if W is None:
         prep, inp, dims = _sm4_inputs(cuda, batch, True, ragged,
                                       tile_diag=128)

@@ -239,9 +239,10 @@ def _method(struct, name):
 def _run_statements(stmts, env):
     """Run the C statements ``type name = expr`` / ``name = expr`` /
     ``return ...`` as Python in ``env`` (LA::add3 -> LA3, LA::add ->
-    LA)."""
+    LA), each on one line."""
     for s in stmts:
-        s = re.sub(r"^(const )?(float|Emissions) ", "", s)
+        s = re.sub(r"\s+", " ", re.sub(r"^(const )?(float|Emissions) ", "",
+                                        s))
         s = s.replace("LA::add3", "LA3").replace("LA::add", "LA")
         if re.fullmatch(r"\w+", s):
             continue        # a declaration without a value
@@ -401,9 +402,10 @@ def test_strawman_emissions_in_equals_plain():
     assert bool((e_match == np.float32(fk.NEG)).any())
 
 
-# -- the fourState and vanilla forms of sm3_bwd_tiled_sel (wavefront.cu
-# Sm4::bwd_update_with, Vanilla::bwd_update_with and emissions_in, and the
-# header's inv_gauss_sel), transcribed and held to fb_kernels ------------
+# -- the fourState and vanilla forms of sm3_bwd_tiled_sel and
+# sm3_fwd_tiled_sel (wavefront.cu Sm4:: and Vanilla::bwd_update_with and
+# fwd_update_with, Vanilla::emissions_in, and the header's inv_gauss_sel),
+# transcribed and held to fb_kernels ---------------------------------------
 
 
 def _la3(la):
@@ -500,6 +502,97 @@ def test_vanilla_bwd_update_with_equals_plain(form):
     _bits_equal(out, want)
     assert all(bool((g == np.float32(fk.NEG)).any()) for g in out)
     assert [i for i in range(13) if at_next(i)] == [8, 9, 10, 11]
+
+
+def _cubic_ranges_reached(d):
+    """Each cubic of the log-add and its cutoff holds over 100 of the gaps
+    ``d``."""
+    for lo_, hi_ in ((0, 1.0), (1.0, 2.5), (2.5, 4.5), (4.5, 7.5),
+                     (7.5, 1e38)):
+        assert ((d > lo_) & (d <= hi_)).sum() > 100
+
+
+@pytest.mark.parametrize("form", ["branch", "sel"])
+def test_sm4_fwd_update_with_equals_plain(form):
+    """Sm4::fwd_update_with, transcribed, equals
+    fb_kernels.Sm4Spec.fwd_update_w bit for bit with either log-add
+    (fwd_update, K1 sm4: the branch log_add; fwd_update_sel, K6a sm4 on
+    sm3_fwd_tiled_sel: log_add_sel), the JAX grouping of M's four sources
+    kept; NEG sources, NEG emissions and cubic-boundary gaps included."""
+    stmts = _method("Sm4", "fwd_update_with")
+    assert sum(len(re.findall(r"LA::add\(", s)) for s in stmts) == 5
+    assert sum(len(re.findall(r"LA::add3\(", s)) for s in stmts) == 1
+    branch = re.sub(r"\s+", " ", " ".join(_method("Sm4", "fwd_update")))
+    assert ("fwd_update_with<LogAddBranch>(t, p1m, p1a, p2m, e, "
+            "xb[GAP_X * X + x], out)") in branch
+    sel = " ".join(_method("Sm4", "fwd_update_sel"))
+    assert ("fwd_update_with<LogAddSel>(t, p1m, p1a, p2m, e, e_gapx, out)"
+            in sel)
+    t, draw = _update_grid(11)
+    p1m, p1a, p2m = ([draw() for _ in range(4)] for _ in range(3))
+    e_match, e_gapy, e_gapx = draw(), draw(), draw()
+    la = fk.log_add if form == "branch" else _log_add_sel_torch
+    out = [None] * 4
+    env = dict(t=t, p1m=p1m, p1a=p1a, p2m=p2m, e_gapx=e_gapx, out=out,
+               LA=la, LA3=_la3(la),
+               e=type("E", (), dict(match=e_match, gap_y=e_gapy))(),
+               **{k: getattr(fk, k) for k in dir(fk)
+                  if k.startswith("T4_")})
+    _run_statements(stmts, env)
+    xf = torch.zeros((9, e_gapx.numel()))
+    xf[fk.Sm4Spec.GAP_X] = e_gapx
+    want = fk.Sm4Spec.fwd_update_w(t, xf, e_match, e_gapy, p1m, p1a, p2m)
+    _bits_equal(out, want)
+    assert all(bool((g == np.float32(fk.NEG)).any()) for g in out)
+    # M's inner pairs reach every cubic and the cutoff
+    _cubic_ranges_reached(
+        (p2m[0] + t[fk.T4_MM] - p2m[1] - t[fk.T4_MSX]).abs())
+
+
+@pytest.mark.parametrize("form", ["branch", "sel"])
+def test_vanilla_fwd_update_with_equals_plain(form):
+    """Vanilla::fwd_update_with, transcribed, equals
+    fb_kernels.VanillaSpec.fwd_update_w bit for bit with either log-add
+    (fwd_update, K1 vanilla: the branch log_add; fwd_update_sel, K6a
+    vanilla on sm3_fwd_tiled_sel: log_add_sel): every transition row read
+    at x (the branch form from xb at x, the select form from the x rows
+    the template loads at x, handed over whole by tiled_fwd_update); NEG
+    sources, NEG emissions and cubic-boundary gaps included."""
+    stmts = _method("Vanilla", "fwd_update_with")
+    assert sum(len(re.findall(r"LA::add\(", s)) for s in stmts) == 2
+    assert sum(len(re.findall(r"LA::add3\(", s)) for s in stmts) == 1
+    branch = re.sub(r"\s+", " ", " ".join(_method("Vanilla", "fwd_update")))
+    assert ("fwd_update_with<LogAddBranch>( t, [&](int i) { return "
+            "xb[i * X + x] }, p1m, p1a, p2m, e, out)") in branch
+    sel = re.sub(r"\s+", " ", " ".join(_method("Vanilla", "fwd_update_sel")))
+    assert "fwd_update_with<LogAddSel>(t, [&](int i) { return xr[i]" in sel
+    fwd = WAVEFRONT[WAVEFRONT.index("void sm3_fwd_tiled_sel("):]
+    assert "in[YR + i] = xb[i * X + x];" in fwd[:fwd.index("\n}\n")]
+    assert re.search(r"if constexpr \(Spec::COL_TRANS\) \{\s*"
+                     r"Spec::fwd_update_sel\(t, p1m, p1a, p2m, e, "
+                     r"in \+ Spec::YR, out\);", WAVEFRONT)
+    t, draw = _update_grid(2)
+    p1m, p1a, p2m = ([draw() for _ in range(3)] for _ in range(3))
+    e_match, e_gapy = draw(), draw()
+    n = e_match.numel()
+    xf = torch.zeros((13, n))
+    for i in range(8, 13):
+        xf[i] = draw()
+    la = fk.log_add if form == "branch" else _log_add_sel_torch
+    out = [None] * 3
+    env = dict(t=t, p1m=p1m, p1a=p1a, p2m=p2m, out=out, LA=la,
+               LA3=_la3(la), row=lambda i: xf[i],
+               e=type("E", (), dict(match=e_match, gap_y=e_gapy))(),
+               VA_YM=fk.VA_YM, VA_YY=fk.VA_YY,
+               **{k: getattr(fk.VanillaSpec, k)
+                  for k in ("LA_MX", "LA_XX", "LA_MM", "LA_XM", "LA_MY")})
+    _run_statements(stmts, env)
+    want = fk.VanillaSpec.fwd_update_w(t, xf, e_match, e_gapy, p1m, p1a,
+                                       p2m)
+    _bits_equal(out, want)
+    assert all(bool((g == np.float32(fk.NEG)).any()) for g in out)
+    _cubic_ranges_reached((p1m[0] + xf[fk.VanillaSpec.LA_MX]
+                           - p1m[1] - xf[fk.VanillaSpec.LA_XX]).abs())
 
 
 def _inv_gauss_sel_torch(x, mu, lam, loglam, logx):
