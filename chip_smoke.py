@@ -12,7 +12,8 @@ machine and the HDP machine through them:
 2. the kernel build (nvcc, ptxas register report); every select instance
    (the kernels redesigned for the card: K6a and K6b dna5, K3 dna5, K6b
    strawman, K6a strawman, K2 dna5, K6b sm4 and vanilla, K6a sm4 and
-   vanilla) within 64 registers, no spill;
+   vanilla, K1 and K2 echelon) and the echelon emission pre-pass within
+   64 registers, no spill;
 3. each kernel against its plain PyTorch version on the card, on the first
    64-read chunk of the bench batch (256 reads x 905 bases x 800 events,
    seed 7), with the tolerances of cpecan_tpu_torch/parity.py, and the
@@ -139,18 +140,21 @@ machine and the HDP machine through them:
    one-chunk-behind drain over 256 reads in chunks of 64 against the same
    runs serialized; cpecan-torch-signal-align-batch -smt vanilla on 4 of
    the reads;
-24. the echelon kernels (K1, K2 for the 7-state echelon machine) against
-   their plain versions on the first 32-read chunk of bench.py's echelon
-   cell (64 reads of 905 bases x 800 events with anchors on the vendored
-   template model, seed 6; group 32, the cell's shape hint): the fwd plane,
-   the five posterior planes and the totals bit for bit, equal expanded
-   pairs, max |d| per plane, ms, plain ms and bounds; one launch of each at
-   W = 1024 against plain;
+24. the echelon kernels (K1, K2 for the 7-state echelon machine, each
+   the emission pre-pass and then its recurrence) against their plain
+   versions on the first 32-read chunk of bench.py's echelon cell (64
+   reads of 905 bases x 800 events with anchors on the vendored template
+   model, seed 6; group 32, the cell's shape hint): the pre-pass's planes
+   (k = 0 and 1) against echelon_emissions_plain, the fwd plane, the five
+   posterior planes and the totals bit for bit, equal expanded pairs, max
+   |d| per plane, ms of the pre-pass and of each recurrence, plain ms and
+   bounds; one launch of each at W = 1024 against plain;
 25. bench.py's echelon_alignments_per_sec: the 64 reads through
    EchelonAligner(group=32).run in chunks of 32 (compact_k 4096, shape
    hint), run and compaction to the host, median of 3 after a warm-up,
    with the band cells/s, the pairs after the echelon expansion, the
-   launch counts and a stage split;
+   launch counts, a stage split and its staged split (pre-pass, K1, K2,
+   prepare, the rest);
 26. bench.py's signal_pipeline_echelon_reads_per_sec: 32 copies of the
    Zymo read through run_batch_fast(sm_type="echelon", threshold=0.15)
    (EchelonAligner group 32), median of 3 after a warm-up, with phase 23's
@@ -250,15 +254,15 @@ F32_FLOPS_PER_S = 67e12
 # and clamp 5; the gap-Y term 27), the forward update 15 log_adds and 11
 # adds (581), the band mask 3 and seven selects; the backward update seven
 # log_adds and 12 adds (278), the band mask 3, the seed selects 10 and five
-# posteriors of 5.  Hdp: the strawman's counts without its emissions (34,
+# posteriors of 5; the emission pre-pass the emissions alone (212).  Hdp: the strawman's counts without its emissions (34,
 # twice in the expectation target), one stream read and its window check
 # (1)
 FLOPS_PER_CELL = dict(fwd=240, bwd=245, bwd_exp=355, dna5_fwd=339,
                       dna5_bwd=349, dna5_bwd_exp=484, vanilla_fwd=214,
                       vanilla_bwd=221, vanilla_bwd_exp=238, sm4_fwd=320,
                       sm4_bwd=326, sm4_bwd_exp=448, echelon_fwd=803,
-                      echelon_bwd=528, hdp_fwd=207, hdp_bwd=212,
-                      hdp_bwd_exp=288)
+                      echelon_bwd=528, echelon_emissions=212, hdp_fwd=207,
+                      hdp_bwd=212, hdp_bwd_exp=288)
 DNA_GROUP = 32       # phases 13-15: bench.py's realign chunk and group
 DNA_COMPACT_K = 4096
 DNA_LONG = 100_000   # phase 16: bench.py's long_read_bases_per_sec pair
@@ -286,13 +290,18 @@ HDP_COMPACT_K = 2048
 GOLDEN = {(0, 0), (1, 1), (2, 4), (3, 5)}
 # the kernels redesigned for the H100 (every select instance) whose ptxas
 # report phase 2 holds to 64 registers and no spill
-REDESIGNED = ("sm3_fwd_tiled_sel<Dna5>", "sm3_bwd_tiled_sel<Dna5, 0, 1>",
+REDESIGNED = ("sm3_fwd_tiled_sel<Dna5, 1>",
+              "sm3_bwd_tiled_sel<Dna5, 0, 1>",
               "sm3_bwd_tiled_sel<Dna5, 1, 0>",
               "sm3_bwd_tiled_sel<Strawman, 0, 1>",
-              "sm3_fwd_tiled_sel<Strawman>", "sm3_bwd_tiled_sel<Dna5, 0, 0>",
+              "sm3_fwd_tiled_sel<Strawman, 1>",
+              "sm3_bwd_tiled_sel<Dna5, 0, 0>",
               "sm3_bwd_tiled_sel<Sm4, 0, 1>",
-              "sm3_bwd_tiled_sel<Vanilla, 0, 1>", "sm3_fwd_tiled_sel<Sm4>",
-              "sm3_fwd_tiled_sel<Vanilla>")
+              "sm3_bwd_tiled_sel<Vanilla, 0, 1>",
+              "sm3_fwd_tiled_sel<Sm4, 1>", "sm3_fwd_tiled_sel<Vanilla, 1>",
+              "sm3_fwd_tiled_sel<Echelon, 0>",
+              "sm3_bwd_tiled_sel<Echelon, 0, 0>",
+              "sm3_emissions_kernel<Echelon>")
 
 
 def log(msg):
@@ -463,12 +472,11 @@ def main():
     # one line per kernel instance: its registers and spill
     kernel, ptxas = None, {}
     for line in build_log.splitlines():
-        m = re.search(r"sm3_(fwd|bwd)_(kernel|tiled_sel)INS_\d+(\w+?)E"
-                      r"((?:Lb[01]E)*)", line)
+        m = re.search(r"(sm3_\w+?)INS_\d+(\w+?)E((?:Lb[01]E)*)", line)
         if m:
             flags = "".join(", " + f
-                            for f in re.findall(r"Lb([01])E", m.group(4)))
-            kernel = f"sm3_{m.group(1)}_{m.group(2)}<{m.group(3)}{flags}>"
+                            for f in re.findall(r"Lb([01])E", m.group(3)))
+            kernel = f"{m.group(1)}<{m.group(2)}{flags}>"
         elif "registers" in line or "spill" in line:
             ptxas.setdefault(kernel, []).append(line.strip())
             log(f"  ptxas: {kernel}: {line.strip()}")
@@ -1284,7 +1292,7 @@ def main():
         f"{bounds['dna5_bwd_long_padded'][0]:.4f} ms counting all "
         f"{bd['R']} rows' planes")
     # the dna5 tiled kernels' registers and spill
-    for name in ("sm3_fwd_tiled_sel<Dna5>", "sm3_bwd_tiled_sel<Dna5, 0, 1>"):
+    for name in ("sm3_fwd_tiled_sel<Dna5, 1>", "sm3_bwd_tiled_sel<Dna5, 0, 1>"):
         if name not in ptxas:
             raise AssertionError(f"no ptxas report for {name}")
         for line in ptxas[name]:
@@ -2331,13 +2339,27 @@ def main():
               spec=fk.EchelonSpec)
     efa = [einp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
     eba = efa + [einp["seedf"], einp["raggedf"]]
+    egeo = {k: ed[k] for k in ("R", "W", "ND", "C")}
+
+    def prepass(fa, geo, k):
+        return fk.echelon_emissions(fa[1], fa[2], fa[3], k=k, **geo)
+
+    # the emission pre-pass at both offsets against its plain twin
+    ech_err = {}
+    for k in (0, 1):
+        got = prepass(efa, egeo, k)
+        want, ms[f"echelon_emissions_k{k}_plain"] = timed(
+            lambda: fk.echelon_emissions_plain(efa[1], efa[2], efa[3], k=k,
+                                               **egeo))
+        ech_err[f"pre-pass k={k}"] = float((got - want).abs().max())
+        same(f"echelon pre-pass plane k={k}", got, want)
+    eplanes = [prepass(efa, egeo, k) for k in (0, 1)]
     efwd = fk.wavefront_fwd(*efa, **ed)
     efwd_p, ms["echelon_fwd_plain"] = timed(
         lambda: fk.forward_plain(*efa, **ed))
     eposts, etot = fk.wavefront_bwd(*eba, efwd, **ed)
     (eposts_p, etot_p), ms["echelon_bwd_plain"] = timed(
         lambda: fk.backward_plain(*eba, efwd, **ed))
-    ech_err = {}
     for what, got, want in (("fwd plane", efwd, efwd_p),
                             ("posteriors", eposts, eposts_p),
                             ("totals", etot, etot_p)):
@@ -2356,18 +2378,41 @@ def main():
         if not np.array_equal(a, b) or len(a) == 0:
             raise AssertionError(f"echelon pairs of read {i}: kernel and "
                                  "plain differ")
+    # each wrapper (the pre-pass, then its recurrence), the pre-pass alone
+    # at both offsets and each recurrence alone on the pre-pass's plane
     ms.update(
         echelon_fwd=cuda_ms(lambda: fk.wavefront_fwd(*efa, **ed), 5),
-        echelon_bwd=cuda_ms(lambda: fk.wavefront_bwd(*eba, efwd, **ed), 5))
+        echelon_bwd=cuda_ms(lambda: fk.wavefront_bwd(*eba, efwd, **ed), 5),
+        echelon_emissions_k0=cuda_ms(lambda: prepass(efa, egeo, 0), 5),
+        echelon_emissions_k1=cuda_ms(lambda: prepass(efa, egeo, 1), 5),
+        echelon_fwd_recurrence=cuda_ms(lambda: fk._launch_fwd(
+            "wavefront_fwd", *efa, ed["R"], ed["W"], ed["ND"], ed["C"],
+            fk.EchelonSpec, plane=eplanes[0]), 5),
+        echelon_bwd_recurrence=cuda_ms(lambda: fk._launch_bwd(
+            "wavefront_bwd", *eba, efwd, ed["R"], ed["W"], ed["ND"],
+            ed["C"], False, fk.EchelonSpec, plane=eplanes[1]), 5))
+    # the pre-pass per launch: the mean of its two offsets
+    ms["echelon_emissions"] = (ms["echelon_emissions_k0"]
+                               + ms["echelon_emissions_k1"]) / 2
+    ms["echelon_emissions_plain"] = (ms["echelon_emissions_k0_plain"]
+                                     + ms["echelon_emissions_k1_plain"]) / 2
     ecells = sum(int(b.width.sum()) for b in eprep["bands"])
     bounds.update(
+        # the whole function of each wrapper (the pre-pass's work included):
+        # the same inputs and outputs as before the pre-pass existed
         echelon_fwd=bound(efa + [efwd], ecells, FLOPS_PER_CELL["echelon_fwd"]),
         # the whole fwd plane: echelon's posteriors are those of five of
         # its seven states (match1..match5), so it reads 5/7 of the plane
         # on every diagonal; posterior_fwd counts one posterior state
         echelon_bwd=bound(eba + [efwd, eposts, etot], ecells,
-                          FLOPS_PER_CELL["echelon_bwd"]))
-    del efwd_p, eposts_p, efwd, eposts
+                          FLOPS_PER_CELL["echelon_bwd"]),
+        # the pre-pass: its window rows, its plane written once, and the
+        # emissions of every cell of the plane (it computes the window,
+        # not only the band)
+        echelon_emissions=bound(
+            [efa[1], efa[2], efa[3], eplanes[0]], eplanes[0][:, :, 0].numel(),
+            FLOPS_PER_CELL["echelon_emissions"]))
+    del efwd_p, eposts_p, efwd, eposts, eplanes
     # one launch of each at W = 1024, the widest window: one read whose
     # band covers the window for 128 diagonals, seeded at the last (random
     # model rows, skip logs, validity bits, durations and events)
@@ -2392,6 +2437,11 @@ def main():
            on_card(np.full((1, 384), float(WW)))]
     wba = wfa + [on_card(wseed), on_card(np.zeros((1, 384)))]
     wd = dict(R=1, W=WW, ND=WND, C=WND + 3, spec=fk.EchelonSpec)
+    wgeo = {k: wd[k] for k in ("R", "W", "ND", "C")}
+    for k in (0, 1):
+        same(f"echelon pre-pass plane k={k} at W = 1024",
+             prepass(wfa, wgeo, k),
+             fk.echelon_emissions_plain(wfa[1], wfa[2], wfa[3], k=k, **wgeo))
     wfwd = fk.wavefront_fwd(*wfa, **wd)
     same("K1 echelon fwd plane at W = 1024", wfwd,
          fk.forward_plain(*wfa, **wd))
@@ -2403,18 +2453,31 @@ def main():
         raise AssertionError("K2 echelon total at W = 1024 not finite")
     w_ms = (cuda_ms(lambda: fk.wavefront_fwd(*wfa, **wd), 3),
             cuda_ms(lambda: fk.wavefront_bwd(*wba, wfwd, **wd), 3))
+    nd = ed["ND"]
     log(f"echelon kernels vs plain ({ECH_CHUNK} reads of bench.py's echelon "
-        f"cell, ND={ed['ND']}, W={ed['W']}, R={ed['R']}): fwd plane, "
-        f"posts [G, ND+1, 5, R, W], totals equal bit for bit (max|d| "
+        f"cell, ND={nd}, W={ed['W']}, R={ed['R']}): pre-pass planes "
+        f"[G, ND+3, 6, R, W] at k = 0 and 1, fwd plane, posts "
+        f"[G, ND+1, 5, R, W], totals equal bit for bit (max|d| "
         + ", ".join(f"{k} {v:.3g}" for k, v in ech_err.items())
-        + f"), {sum(map(len, eparts[0]))} expanded pairs equal; ms fwd "
-        f"{ms['echelon_fwd']:.3f} vs plain {ms['echelon_fwd_plain']:.1f}, "
-        f"bwd {ms['echelon_bwd']:.3f} vs plain "
-        f"{ms['echelon_bwd_plain']:.1f}; bounds "
+        + f"), {sum(map(len, eparts[0]))} expanded pairs equal; ms: "
+        f"pre-pass k=0 {ms['echelon_emissions_k0']:.4f}, k=1 "
+        f"{ms['echelon_emissions_k1']:.4f} (plain "
+        f"{ms['echelon_emissions_k0_plain']:.1f}, "
+        f"{ms['echelon_emissions_k1_plain']:.1f}); wrapper (pre-pass and "
+        f"recurrence) fwd {ms['echelon_fwd']:.4f} vs plain "
+        f"{ms['echelon_fwd_plain']:.1f}, bwd {ms['echelon_bwd']:.4f} vs "
+        f"plain {ms['echelon_bwd_plain']:.1f}; recurrence alone fwd "
+        f"{ms['echelon_fwd_recurrence']:.4f} "
+        f"({ms['echelon_fwd_recurrence'] * 1e6 / nd:.0f} ns a diagonal), "
+        f"bwd {ms['echelon_bwd_recurrence']:.4f} "
+        f"({ms['echelon_bwd_recurrence'] * 1e6 / nd:.0f} ns a diagonal); "
+        f"bounds (the whole function of each wrapper) "
         f"{bounds['echelon_fwd'][0]:.4f} ({bounds['echelon_fwd'][1]}) / "
-        f"{bounds['echelon_bwd'][0]:.4f} ms ({bounds['echelon_bwd'][1]}); "
-        f"at W = {WW} (ND {WND}) both equal plain, ms fwd {w_ms[0]:.3f}, "
-        f"bwd {w_ms[1]:.3f}")
+        f"{bounds['echelon_bwd'][0]:.4f} ({bounds['echelon_bwd'][1]}) / "
+        f"pre-pass {bounds['echelon_emissions'][0]:.4f} ms "
+        f"({bounds['echelon_emissions'][1]}); at W = {WW} (ND {WND}) the "
+        f"pre-pass planes and both wrappers equal plain, ms fwd "
+        f"{w_ms[0]:.3f}, bwd {w_ms[1]:.3f}")
     torch.cuda.synchronize()
 
     # -- 25. echelon_alignments_per_sec -------------------------------------
@@ -2439,8 +2502,10 @@ def main():
     epeak = torch.cuda.max_memory_allocated()
     n_chunks = -(-ECH_READS // ECH_CHUNK)
     if (ech_counts != {"wavefront_fwd_echelon": 3 * n_chunks,
-                       "wavefront_bwd_echelon": 3 * n_chunks}
-            or fk.forward_plain.calls or fk.backward_plain.calls):
+                       "wavefront_bwd_echelon": 3 * n_chunks,
+                       "wavefront_emissions_echelon": 6 * n_chunks}
+            or fk.forward_plain.calls or fk.backward_plain.calls
+            or fk.echelon_emissions_plain.calls):
         raise AssertionError(f"echelon main path launches {ech_counts}")
     eall = []
     for o in eouts:
@@ -2459,7 +2524,30 @@ def main():
                      for b in o["prep"]["bands"])
     edt = statistics.median(etimes)
     est = Stages()
-    ech_main(stage=est)
+    # the staged run times each pre-pass too (ended by a synchronize, as
+    # each stage is), so that the fwd and bwd stages split into the
+    # pre-pass and the recurrence
+    pre_s = {0: 0.0, 1: 0.0}
+    wrapped = fk.echelon_emissions
+
+    def timed_prepass(*a, k, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = wrapped(*a, k=k, **kw)
+        torch.cuda.synchronize()
+        pre_s[k] += time.perf_counter() - t0
+        return out
+
+    fk.echelon_emissions = timed_prepass
+    try:
+        ech_main(stage=est)
+    finally:
+        fk.echelon_emissions = wrapped
+    e_total = sum(est.s.values())
+    e_split = {"pre-pass": pre_s[0] + pre_s[1],
+               "K1": est.s["fwd"] - pre_s[0], "K2": est.s["bwd"] - pre_s[1],
+               "prepare": est.s["prepare"]}
+    e_split["the rest"] = e_total - sum(e_split.values())
     log(f"echelon_alignments_per_sec: {ECH_READS / edt:.1f} alignments/s "
         f"e2e ({ECH_READS} reads in chunks of {ECH_CHUNK}, group "
         f"{ECH_GROUP}, compact_k {ECH_COMPACT_K}, shape hint {ehint}; run + "
@@ -2469,6 +2557,8 @@ def main():
         f"{ECH_THRESHOLD}), peak device memory {epeak / 1e9:.3f} GB, "
         f"launches in the 3 runs {ech_counts}")
     log("echelon main path stages (s, share): " + est.line())
+    log("echelon main path staged split (s, share): " + ", ".join(
+        f"{k} {v:.4f} ({v / e_total:.1%})" for k, v in e_split.items()))
     del est, eouts, einp
     torch.cuda.synchronize()
 
@@ -2507,8 +2597,10 @@ def main():
             eptimes.append(time.perf_counter() - t0)
         epipe_counts = dict(fk.KERNEL_LAUNCHES)
         if (epipe_counts != {"wavefront_fwd_echelon": 6,
-                             "wavefront_bwd_echelon": 6}
-                or fk.forward_plain.calls or fk.backward_plain.calls):
+                             "wavefront_bwd_echelon": 6,
+                             "wavefront_emissions_echelon": 12}
+                or fk.forward_plain.calls or fk.backward_plain.calls
+                or fk.echelon_emissions_plain.calls):
             raise AssertionError(f"echelon pipeline launches {epipe_counts}")
         if len(eres) != ECH_PIPE_READS or not all(r[1] for r in eres):
             raise AssertionError("echelon pipeline: "
@@ -2851,18 +2943,29 @@ def main():
               "cpecan_tpu/ops/pallas_fb.py:2332 (_Sm4Spec :257)",
               sm4_long_counts["wavefront_bwd_tiled_sm4"], 1, exact,
               "sm4_bwd_tiled", "sm4_bwd_tiled", main="sm4_bwd_tiled_main"),
-        # phase 24 holds K1/K2 echelon to plain (ms, plain ms and bound on
-        # the first chunk of bench.py's echelon cell); launches from phase
-        # 25's main path
-        entry("wavefront_fwd_echelon",
-              "cpecan_tpu/ops/pallas_fb.py:635 (_EchelonSpec :528)",
-              ech_counts["wavefront_fwd_echelon"], 3, ech_err["fwd plane"],
-              "echelon_fwd", "echelon_fwd"),
-        entry("wavefront_bwd_echelon",
-              "cpecan_tpu/ops/pallas_fb.py:857 (_EchelonSpec :528)",
-              ech_counts["wavefront_bwd_echelon"], 3,
-              max(ech_err["posteriors"], ech_err["totals"]), "echelon_bwd",
-              "echelon_bwd"),
+        # phase 24 holds the pre-pass and K1/K2 echelon to plain (ms,
+        # plain ms and bound on the first chunk of bench.py's echelon
+        # cell: ms, plain ms and the bound each the whole wrapper, its
+        # pre-pass included; recurrence_ms the recurrence alone on the
+        # pre-pass's plane; the pre-pass's ms the mean of its two
+        # offsets); launches from phase 25's main path
+        dict(entry("wavefront_fwd_echelon",
+                   "cpecan_tpu/ops/pallas_fb.py:635 (_EchelonSpec :528)",
+                   ech_counts["wavefront_fwd_echelon"], 3,
+                   ech_err["fwd plane"], "echelon_fwd", "echelon_fwd"),
+             recurrence_ms=ms["echelon_fwd_recurrence"]),
+        dict(entry("wavefront_bwd_echelon",
+                   "cpecan_tpu/ops/pallas_fb.py:857 (_EchelonSpec :528)",
+                   ech_counts["wavefront_bwd_echelon"], 3,
+                   max(ech_err["posteriors"], ech_err["totals"]),
+                   "echelon_bwd", "echelon_bwd"),
+             recurrence_ms=ms["echelon_bwd_recurrence"]),
+        entry("wavefront_emissions_echelon",
+              "none: the emission half of K1/K2 echelon's body "
+              "(cpecan_tpu/ops/pallas_fb.py:528-620, _EchelonSpec)",
+              ech_counts["wavefront_emissions_echelon"], 3,
+              max(ech_err["pre-pass k=0"], ech_err["pre-pass k=1"]),
+              "echelon_emissions", "echelon_emissions"),
         # phase 27 holds K1/K2 hdp to plain on the first chunk of bench.py's
         # HDP cell (ms, plain ms and bound there), K3 hdp on the first
         # group of the E-step; launches from phase 28's main path and

@@ -12,22 +12,21 @@
 // op order.  Plain C entry points, loaded with ctypes by
 // cpecan_tpu_torch/ops/cuda_build.py and wrapped by
 // cpecan_tpu_torch/ops/fb_kernels.py (wavefront_fwd, wavefront_bwd,
-// wavefront_bwd_exp, wavefront_fwd_tiled, wavefront_bwd_tiled; the dna5,
-// vanilla, sm4, echelon and hdp instances' entry points end in _dna5,
-// _vanilla, _sm4, _echelon and _hdp; echelon has K1 and K2 only, hdp K1,
-// K2 and K3).
+// wavefront_bwd_exp, wavefront_fwd_tiled, wavefront_bwd_tiled,
+// echelon_emissions; the dna5, vanilla, sm4, echelon and hdp instances'
+// entry points end in _dna5, _vanilla, _sm4, _echelon and _hdp; echelon
+// has K1 and K2 only and its emission pre-pass, hdp K1, K2 and K3).
 //
 // Replaces (TPU, Pallas):
 //   sm3_fwd_kernel<Spec>   <- cpecan_tpu/ops/pallas_fb.py _sm3_forward_kernel
 //                             (:635, untiled; _StrawmanSpec, _Dna5Spec,
-//                             _VanillaSpec, _Sm4Spec, _EchelonSpec,
-//                             the streamed _HdpSpec :2829)              K1
+//                             _VanillaSpec, _Sm4Spec, the streamed
+//                             _HdpSpec :2829)                           K1
 //   sm3_bwd_kernel<Spec, false>
 //                          <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
 //                             -> _sm3_backward_body_w (:857, :900;
 //                             with_exp=False, untiled; _StrawmanSpec,
-//                             _VanillaSpec, _Sm4Spec, _EchelonSpec,
-//                             _HdpSpec)                                 K2
+//                             _VanillaSpec, _Sm4Spec, _HdpSpec)         K2
 //   sm3_bwd_kernel<Spec, true>
 //                          <- the same body with with_exp=True (EM
 //                             expectations: accumulate_exp :1072 and
@@ -35,7 +34,7 @@
 //                             _Dna5Spec.exp_probs_w :406 /
 //                             _VanillaSpec.exp_probs_w :506 /
 //                             _Sm4Spec.exp_probs_w :275)               K3
-//   sm3_fwd_tiled_sel<Spec>
+//   sm3_fwd_tiled_sel<Spec, true>
 //                          <- _sm3_forward_kernel(tile=...) (:2304), chained
 //                             over the tiles by _run_tiled (:2447) with
 //                             _tile_steps.recenter (:2381); _Dna5Spec (the
@@ -59,6 +58,14 @@
 //                             E-step): the sums of sm3_bwd_kernel<Spec,
 //                             true>, untiled, with the select step
 //                             (the note above sm3_bwd_tiled_sel)
+//   sm3_fwd_tiled_sel<Echelon, false>, sm3_bwd_tiled_sel<Echelon, false,
+//   false>                 <- K1 and K2 for the 7-state echelon machine
+//                             (_EchelonSpec :528): the untiled forms,
+//                             reading the emissions from the plane of
+//   sm3_emissions_kernel<Echelon>, which replaces no TPU kernel: the
+//                             emission half of those kernels' body,
+//                             computed for every cell of the batch first
+//                             (the note above it)
 //
 // Layout (identical to the JAX planes, index for index): G groups of R
 // reads, one group window of W lanes per diagonal starting at x = win[g, d],
@@ -115,8 +122,10 @@
 // of three [S, W] slots; one __syncthreads() per diagonal) and a shifted
 // read is a shared-memory read at lane l + s, CPECAN_NEG outside [0, W).
 // The dna5 ring is 3 * 5 * W floats (60 KB at W = 1024, past the 48 KB
-// default: the launchers raise the dynamic limit); the echelon backward's
-// ring and emission carry are 3 * 7 * W + 2 * 5 * W floats (124 KB).
+// default: the launchers raise the dynamic limit); the echelon forward's
+// ring and staged plane slots are 3 * 7 * W + 4 * 6 * W floats (184 KB),
+// its backward's ring, staged fwd entries and plane slots 3 * 7 * W + 2 *
+// 5 * W + 3 * 6 * W floats (201 KB).
 //
 // What bounds it on the H100: the sequential chain of ND diagonals, each a
 // few dozen dependent flops plus one block barrier (latency, not bandwidth:
@@ -213,9 +222,11 @@ struct Emissions {
 };
 
 // the emissions come from the feature rows (false) or from the stream est
-// (true; only Hdp)
+// (true; only Hdp); EM_PLANE > 0: the select templates read them, that
+// many leaves a cell, from the emission pre-pass's plane (only Echelon)
 struct FromRows {
     static constexpr bool STREAMED = false;
+    static constexpr int EM_PLANE = 0;
 };
 
 // a match emission of N terms (echelon's per-n terms)
@@ -228,10 +239,6 @@ struct EmissionsN {
 // leaf k of a match emission: what the backward carries
 __device__ __forceinline__ float em_leaf(const Emissions& e, int) {
     return e.match;
-}
-template <int N>
-__device__ __forceinline__ float em_leaf(const EmissionsN<N>& e, int k) {
-    return e.match[k];
 }
 
 // A machine spec: its S states, NS transition scalars, NXF x-feature rows,
@@ -765,15 +772,37 @@ enum { EC_GAP_Y = 20, EC_LA_MX = 24, EC_LA_MH, EC_LA_XX, EC_LA_XH,
 // _EchelonSpec (pallas_fb.py:528-620): match0 (an extra event), match1..5
 // (an event emitting 1..5 k-mers), gap-X (silent); per-column transitions
 // (rows 24-27), no transition scalars.  No K3 (the reference defines no
-// echelon EM) and no tiled instance.
+// echelon EM) and no tiled instance.  Its K1 and K2 are the untiled forms
+// of the select templates, which read the emissions from the plane of the
+// emission pre-pass (EM_PLANE: sm3_emissions_kernel evaluates
+// emissions_at for every cell of the batch first) and load only the skip
+// logs of a cell (fwd_row, bwd_row, row_at_next).
 struct Echelon : FromRows {
     static constexpr int S = 7, NS = 0, NXF = 33, YR = 8, NEM = 5, NPS = 5;
+    // the pre-pass plane's leaves: the five match terms, then the gap-Y
+    // term
+    static constexpr int EM_PLANE = NEM + 1;
+    static constexpr int NLSD = 0;
+    static constexpr bool T_SHARED = false;
     // the posteriors of match1..match5
     __host__ __device__ static constexpr int post_state(int j) {
         return j + 1;
     }
-    // no expectations: the register array of the template keeps length 1
-    static constexpr int NLANE = 0;
+    // the x rows a step loads: the forward's four skip logs at x; the
+    // backward's four at next_col(x) (the transitions into x + 1) and
+    // la_mh at x (match1..5 -> match0)
+    __host__ __device__ static constexpr bool fwd_row(int i) {
+        return i >= EC_LA_MX && i <= EC_LA_XH;
+    }
+    __host__ __device__ static constexpr bool row_at_next(int i) {
+        return i >= EC_LA_MX && i <= EC_LA_XH;
+    }
+    __host__ __device__ static constexpr bool bwd_row(int i) {
+        return i == EC_LA_MH;
+    }
+    // no expectations: the register array of the template keeps length
+    // 1, no accumulator rows
+    static constexpr int NLANE = 0, NACC = 0;
 
     // per n = 1..5: the exact fold of the offsets 0..n-1's Gaussian level x
     // inverse-Gaussian noise terms from 0.0 (the reference's quirk,
@@ -807,55 +836,69 @@ struct Echelon : FromRows {
         return e;
     }
 
-    // _EchelonSpec.fwd_update_w: the sources of every match_n fold once
-    // (one transition for all n); the forward reads p2m[0..6], p1a[1..5]
-    // and p1m[1..6]
-    __device__ __forceinline__ static void fwd_update(
-            const float*, const float* p1m, const float* p1a,
-            const float* p2m, const EmissionsN<NEM>& e, const float* xb,
-            int X, int x, float* out) {
-        const float la_mx = xb[EC_LA_MX * X + x];
-        const float la_mh = xb[EC_LA_MH * X + x];
-        const float la_xx = xb[EC_LA_XX * X + x];
-        const float la_xh = xb[EC_LA_XH * X + x];
+    // _EchelonSpec.fwd_update_w with log_add_sel, its grouping kept: the
+    // sources of every match_n fold once (one transition for all n); xr
+    // the x rows at x (fwd_row).  Reads p2m[0..6], p1a[1..5], p1m[1..6]
+    __device__ __forceinline__ static void fwd_update_sel(
+            const float* p1m, const float* p1a, const float* p2m,
+            const EmissionsN<NEM>& e, const float* xr, float* out) {
+        const float la_mx = xr[EC_LA_MX];
+        const float la_mh = xr[EC_LA_MH];
+        const float la_xx = xr[EC_LA_XX];
+        const float la_xh = xr[EC_LA_XH];
         float src_m = p2m[0];
-#pragma unroll
-        for (int i = 1; i < 6; ++i) src_m = log_add(src_m, p2m[i]);
-        const float mid = log_add(src_m + la_mh, p2m[6] + la_xh);
+        src_m = log_add_sel(src_m, p2m[1]);
+        src_m = log_add_sel(src_m, p2m[2]);
+        src_m = log_add_sel(src_m, p2m[3]);
+        src_m = log_add_sel(src_m, p2m[4]);
+        src_m = log_add_sel(src_m, p2m[5]);
+        const float mid = log_add_sel(src_m + la_mh, p2m[6] + la_xh);
         float src_u = p1a[1];
-#pragma unroll
-        for (int i = 2; i < 6; ++i) src_u = log_add(src_u, p1a[i]);
+        src_u = log_add_sel(src_u, p1a[2]);
+        src_u = log_add_sel(src_u, p1a[3]);
+        src_u = log_add_sel(src_u, p1a[4]);
+        src_u = log_add_sel(src_u, p1a[5]);
         out[0] = src_u + la_mh + e.gap_y;
-#pragma unroll
-        for (int i = 0; i < NEM; ++i) out[1 + i] = mid + e.match[i];
+        out[1] = mid + e.match[0];
+        out[2] = mid + e.match[1];
+        out[3] = mid + e.match[2];
+        out[4] = mid + e.match[3];
+        out[5] = mid + e.match[4];
         float src_l = p1m[1];
-#pragma unroll
-        for (int i = 2; i < 6; ++i) src_l = log_add(src_l, p1m[i]);
-        out[6] = log_add(src_l + la_mx, p1m[6] + la_xx);
+        src_l = log_add_sel(src_l, p1m[2]);
+        src_l = log_add_sel(src_l, p1m[3]);
+        src_l = log_add_sel(src_l, p1m[4]);
+        src_l = log_add_sel(src_l, p1m[5]);
+        out[6] = log_add_sel(src_l + la_mx, p1m[6] + la_xx);
     }
 
-    // _EchelonSpec.bwd_update_w: em2p the per-n terms at (d+2, x+1), eg1
-    // the gap-Y term at (d+1, x); the transitions into x+1 are column
-    // x+1's, into match0 column x's.  Reads n1a[0], n1p[6], n2p[1..5]
-    __device__ __forceinline__ static void bwd_update(
-            const float*, const float* xb, int X, int x, float eg1,
-            const float* em2p, const float* n1a, const float* n1p,
-            const float* n2p, float* out) {
-        const int xp = next_col(x, X);
+    // _EchelonSpec.bwd_update_w with log_add_sel, its grouping kept: em2p
+    // the per-n terms at (d+2, x+1), eg1 the gap-Y term at (d+1, x); the
+    // transitions into x+1 are column x+1's (xrp, the rows at next_col(x)),
+    // into match0 column x's (xr, the rows at x).  Reads n1a[0], n1p[6],
+    // n2p[1..5]
+    __device__ __forceinline__ static void bwd_update_sel(
+            const float* xr, const float* xrp, float eg1, const float* em2p,
+            const float* n1a, const float* n1p, const float* n2p,
+            float* out) {
         float mid = em2p[0] + n2p[1];
-#pragma unroll
-        for (int n = 2; n < 6; ++n) mid = log_add(mid, em2p[n - 1] + n2p[n]);
+        mid = log_add_sel(mid, em2p[1] + n2p[2]);
+        mid = log_add_sel(mid, em2p[2] + n2p[3]);
+        mid = log_add_sel(mid, em2p[3] + n2p[4]);
+        mid = log_add_sel(mid, em2p[4] + n2p[5]);
         const float low = n1p[6];
         const float up = eg1 + n1a[0];
-        const float la_mh_p = xb[EC_LA_MH * X + xp];
+        const float la_mh_p = xrp[EC_LA_MH];
         out[0] = mid + la_mh_p;
         // match1..5 share one outgoing fan
-        const float bm = log_add3(mid + la_mh_p, low + xb[EC_LA_MX * X + xp],
-                                  up + xb[EC_LA_MH * X + x]);
-#pragma unroll
-        for (int i = 1; i < 6; ++i) out[i] = bm;
-        out[6] = log_add(mid + xb[EC_LA_XH * X + xp],
-                         low + xb[EC_LA_XX * X + xp]);
+        const float bm = log_add3_sel(mid + la_mh_p, low + xrp[EC_LA_MX],
+                                      up + xr[EC_LA_MH]);
+        out[1] = bm;
+        out[2] = bm;
+        out[3] = bm;
+        out[4] = bm;
+        out[5] = bm;
+        out[6] = log_add_sel(mid + xrp[EC_LA_XH], low + xrp[EC_LA_XX]);
     }
 };
 
@@ -1491,6 +1534,28 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
 // Sm4::fwd_update_with (23 scalars in shared memory, its ring of four
 // states past 48 KB at W = 1024); vanilla with all x rows handed to
 // Vanilla::fwd_update_with (tiled_fwd_update), every transition read at x.
+// K1 and K2 echelon (bench.py's echelon chunk: 32 blocks of 128 threads,
+// 1,700 diagonals; 4.7 and 5.3 us a diagonal on sm3_fwd_kernel and
+// sm3_bwd_kernel on the same card) run the untiled forms of both
+// templates.  Their emissions (18 logf and 18 divisions a cell, on each
+// step's one dependent chain, and the backward's evaluated again) come
+// from the plane of sm3_emissions_kernel, computed first on every SM
+// (EM_PLANE); each step stages its plane slot with cp.async (the forward
+// F_AHEAD diagonals ahead, the backward E_AHEAD with its five posterior
+// states' fwd entries: both fit 227 KB at W = 1024), loads the four skip
+// logs alone (fwd_row, bwd_row, row_at_next) and folds with log_add_sel
+// (15 and 7); the backward reads the carried match terms across lanes
+// from the plane's staged slot of d + 1, so it writes no em ring.
+//
+// Two rules keep every other instance's SASS as it was.  Both templates
+// take one pointer slot, aux, after the fwd plane: the tiled forms' shifts
+// (the forward writes them, the backward reads them), the untiled forms'
+// emission plane (EM_PLANE specs), else null; an added parameter, even one
+// no instance reads, changed the register allocation of the untiled dna5
+// backward instances (same instructions).  And the backward names its
+// form's constants without a constexpr local that some instance leaves
+// unread (the same effect): they are written out or come from functions at
+// namespace scope (bwd_ahead, em_ring_leaves).
 
 // 4-byte asynchronous copy global -> shared (sm_80+), and its groups
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -1518,8 +1583,124 @@ __device__ __forceinline__ void prefetch_l1(const void* p) {
 // how many diagonals ahead sm3_bwd_tiled_sel copies its fwd plane entries
 // (the posterior forms, and WITH_EXP), and how far ahead the select
 // kernels prefetch the lines of their band scalars (one line holds 32
-// diagonals) and the backwards those of their rows
-constexpr int F_AHEAD = 3, X_AHEAD = 1, L1_AHEAD = 64;
+// diagonals) and the backwards those of their rows.  E_AHEAD: how far
+// ahead the backward of a spec with an emission plane copies its fwd
+// entries and plane slots (ring, five staged fwd entries and the plane's
+// slots must fit 227 KB at W = 1024); the forward stages its plane slots
+// F_AHEAD ahead
+constexpr int F_AHEAD = 3, X_AHEAD = 1, L1_AHEAD = 64, E_AHEAD = 1;
+
+// the staging depth of sm3_bwd_tiled_sel's fwd entries (and plane slots)
+template <class Spec, bool WITH_EXP>
+__host__ __device__ constexpr int bwd_ahead() {
+    return WITH_EXP ? X_AHEAD : Spec::EM_PLANE > 0 ? E_AHEAD : F_AHEAD;
+}
+
+// the fwd state whose entries sm3_bwd_tiled_sel stages in slot i: all S
+// states WITH_EXP, else the posterior states
+template <class Spec, bool WITH_EXP>
+__host__ __device__ constexpr int staged_state(int i) {
+    return WITH_EXP ? i : Spec::post_state(i);
+}
+
+// the staged slot of fwd state i in a posterior form, -1 if the state is
+// no posterior state (its entry is read on seed diagonals only)
+template <class Spec>
+__host__ __device__ constexpr int post_slot(int i) {
+    for (int j = 0; j < Spec::NPS; ++j)
+        if (Spec::post_state(j) == i) return j;
+    return -1;
+}
+
+// the leaves of sm3_bwd_tiled_sel's em ring: none with an emission plane
+template <class Spec>
+__host__ __device__ constexpr int em_ring_leaves() {
+    return Spec::EM_PLANE > 0 ? 0 : Spec::NEM;
+}
+
+// fwd[d] of state i at a seed diagonal in sm3_bwd_tiled_sel: its staged
+// entry (f: all S states WITH_EXP, else the posterior states'), or the
+// plane's entry fd of a state that is not staged
+template <class Spec, bool WITH_EXP>
+__device__ __forceinline__ float seed_fwd(const float* f, const float* fd,
+                                          int i, int R, int W) {
+    const int j = WITH_EXP ? i : post_slot<Spec>(i);
+    return j >= 0 ? f[j] : fd[static_cast<size_t>(i) * R * W];
+}
+
+// a cell's emissions from a staged slot of the pre-pass plane ([NL][W]:
+// the match terms, then the gap-Y term)
+template <class Spec>
+__device__ __forceinline__ EmissionsN<Spec::NEM> plane_emissions(
+        const float* slot, int l, int W) {
+    EmissionsN<Spec::NEM> e;
+#pragma unroll
+    for (int k = 0; k < Spec::NEM; ++k) e.match[k] = slot[k * W + l];
+    e.gap_y = slot[Spec::NEM * W + l];
+    return e;
+}
+
+// ---------------------------------------------------------------------------
+// The emission pre-pass of the echelon pair (K1 and K2 echelon).  It
+// replaces no TPU kernel: it is the emission half of the TPU kernels' body
+// (_EchelonSpec's emissions, pallas_fb.py:528-620, which
+// _sm3_forward_kernel and _sm3_backward_body_w evaluate per cell), moved
+// off the serial diagonal chain.  A cell's echelon emissions
+// (Echelon::emissions_at) take 18 logf, 18 IEEE divisions, 5 expf and 5
+// log1pf; inside the recurrences they sat on the one dependent chain of a
+// block that has one warp per scheduler (32 blocks of 128 threads on 132
+// SMs for bench.py's echelon chunk), and the backward evaluated every
+// diagonal's again.  Here one thread a cell, over every (diagonal, read,
+// lane) of the batch, evaluates the same device function under the same
+// build (--fmad=false, no fast math), so the plane equals what the
+// recurrences computed before, bit for bit, on all SMs at once.
+// Plane em [G, ND+3, NL, R, W] (NL = Spec::EM_PLANE: the five match terms,
+// then the gap-Y term): slot d holds the emissions of diagonal d + k at x =
+// win[g, d] + l, in d's own window.  k = 0: what the forward reads
+// (cell_emissions(d, w_d + l)); k = 1: what the backward reads, the fresh
+// emissions of (d + 1, w_d + l) and, in slot ND + 1, its first carry (ND +
+// 2, w_{ND+1} + l), lanes outside the window of d + 1 included.  A slot
+// whose diagonal d + k lies past ND + 2 (the last one a pass reads) holds
+// CPECAN_NEG.
+// Bound: the plane's bytes (NL x 4 B a cell, written once; the feature rows
+// it reads are about 1/W of that) at the card's memory rate, against the
+// emission arithmetic; the writes are coalesced over lanes.
+template <class Spec>
+__global__ void sm3_emissions_kernel(const int* __restrict__ win,
+                                     const float* __restrict__ xf,
+                                     const float* __restrict__ yf,
+                                     float* __restrict__ em, int G, int R,
+                                     int W, int ND, int NDp, int X, int C,
+                                     int Y, int k) {
+    constexpr int NL = Spec::EM_PLANE;
+    const long long n = static_cast<long long>(G) * (ND + 3) * R * W;
+    const long long i =
+        static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    // i = ((g * (ND + 3) + d) * R + r) * W + l
+    const int l = static_cast<int>(i % W);
+    const long long gdr = i / W;
+    const int r = static_cast<int>(gdr % R);
+    const long long gd = gdr / R;
+    const int d = static_cast<int>(gd % (ND + 3));
+    const int g = static_cast<int>(gd / (ND + 3));
+    const size_t leaf = static_cast<size_t>(R) * W;
+    float* out = em + (static_cast<size_t>(gd) * NL * R + r) * W + l;
+    const int dd = d + k;
+    if (dd > ND + 2) {
+#pragma unroll
+        for (int j = 0; j < NL; ++j) out[j * leaf] = CPECAN_NEG;
+        return;
+    }
+    const size_t b = static_cast<size_t>(g) * R + r;
+    const int x = win[static_cast<size_t>(g) * NDp + d] + l;
+    const auto e = Spec::emissions_at(xf + b * Spec::NXF * X,
+                                      yf + b * Spec::YR * Y, X, Y, x,
+                                      C - dd + x);
+#pragma unroll
+    for (int j = 0; j < Spec::NEM; ++j) out[j * leaf] = e.match[j];
+    out[Spec::NEM * leaf] = e.gap_y;
+}
 
 // the emissions of a cell from its inputs in registers, with the spec's
 // per-column logs where it keeps them
@@ -1575,7 +1756,16 @@ __device__ __forceinline__ void tiled_fwd_update(
     }
 }
 
-template <class Spec>
+// The forward in two forms: TILED, the tiled forward (K6a); untiled (K1
+// echelon: no tiles, no re-centering, no shifts written).  A spec with an
+// emission plane (EM_PLANE: echelon) reads each cell's emissions from the
+// pre-pass's plane (slot d at its own window, k = 0), staged F_AHEAD
+// diagonals ahead into shared memory with cp.async (each lane its own
+// entries, one group a step), and loads only the x rows its step reads
+// (fwd_row); the other specs compute them from their rows.  What a form or
+// the plane adds sits under if constexpr, so the tiled instances of the
+// other specs compile to the same SASS as without it.
+template <class Spec, bool TILED>
 __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
                                   const int* __restrict__ win,
                                   const float* __restrict__ xf,
@@ -1583,7 +1773,7 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
                                   const float* __restrict__ basef,
                                   const float* __restrict__ widthf,
                                   float* __restrict__ fwd,
-                                  float* __restrict__ shifts, int R, int W,
+                                  float* __restrict__ aux, int R, int W,
                                   int ND, int NDp, int X, int C, int Y,
                                   int TD) {
     constexpr int S = Spec::S;
@@ -1591,11 +1781,15 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
     constexpr int START = Spec::NS;
     constexpr int YR = Spec::YR, NXF = Spec::NXF;
     constexpr bool T_SHARED = Spec::T_SHARED;
+    constexpr int NL = Spec::EM_PLANE;
+    constexpr int QE = F_AHEAD + 1;
     static_assert(NSCAL <= 32, "the shared scalars fit their 32 floats");
     // ring [3 slots][S][W]; red [32]: the re-centering's scratch; with
-    // T_SHARED, the scalars [32]
+    // T_SHARED, the scalars [32]; with an emission plane, its staged slots
+    // [QE][NL][W] (diagonal d in slot d % QE)
     extern __shared__ float ring[];
     float* red = ring + 3 * S * W;
+    float* es = red + 64;
     const int b = blockIdx.x;
     const int g = b / R;
     const int r = b - g * R;
@@ -1618,6 +1812,13 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
     const size_t plane_d = static_cast<size_t>(S) * R * W;
     float* od = fwd + static_cast<size_t>(g) * (ND + 1) * plane_d
                 + static_cast<size_t>(r) * W + l;
+    // this lane's entries of the plane: leaf j of slot d at eb[(d * NL +
+    // j) * R * W]
+    const size_t leaf = static_cast<size_t>(R) * W;
+    const float* eb = NL > 0 ? aux + static_cast<size_t>(g) * (ND + 3) * NL
+                                         * leaf
+                                   + static_cast<size_t>(r) * W + l
+                             : nullptr;
     // a spec's per-column logs (NLSD > 0), kept for x = w_{d-1} + l at the
     // top of step d: diagonal 0's window first
     float lsd[Spec::NLSD > 0 ? Spec::NLSD : 1];
@@ -1633,8 +1834,24 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
         od[static_cast<size_t>(i) * R * W] = v;
     }
     float shift = 0.0f;   // A, the running re-centering shift
-    const int NT = ND / TD;
-    if (l == 0) shifts[static_cast<size_t>(b) * NT] = 0.0f;
+    const int NT = TILED ? ND / TD : 1;
+    if constexpr (TILED) {
+        if (l == 0) aux[static_cast<size_t>(b) * NT] = 0.0f;
+    }
+    // the plane's slots of diagonals 1 .. F_AHEAD, one group each (empty
+    // past ND)
+    int rs = 1, is = 0;   // the staged slots of d and of d + F_AHEAD
+    if constexpr (NL > 0) {
+        for (int j = 1; j <= F_AHEAD; ++j) {
+            if (j <= ND) {
+#pragma unroll
+                for (int k = 0; k < NL; ++k)
+                    cp_async4(es + (j * NL + k) * W + l,
+                              eb + (j * NL + k) * leaf);
+            }
+            cp_async_commit();
+        }
+    }
     __syncthreads();
 
     float* p1 = ring;              // diagonal d - 1
@@ -1643,30 +1860,49 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
     int w1 = wg[0], w2 = wg[0];    // the windows of d - 1 and d - 2
     int left = TD, tile = 0;       // diagonals left in tile ``tile``
     for (int d = 1; d <= ND; ++d) {
-        if (left == 0) {
-            // before diagonal tile * TD + 1: re-center d - 1 and d - 2
-            recenter<S>(p1, p2, false, l, W, red, shift);
-            ++tile;
-            if (l == 0) shifts[static_cast<size_t>(b) * NT + tile] = shift;
-            left = TD;
+        if constexpr (TILED) {
+            if (left == 0) {
+                // before diagonal tile * TD + 1: re-center d - 1 and d - 2
+                recenter<S>(p1, p2, false, l, W, red, shift);
+                ++tile;
+                if (l == 0) aux[static_cast<size_t>(b) * NT + tile] = shift;
+                left = TD;
+            }
+            --left;
         }
-        --left;
         if (d + L1_AHEAD <= ND) {
             prefetch_l1(wg + d + L1_AHEAD);
             prefetch_l1(base + d + L1_AHEAD);
             prefetch_l1(width + d + L1_AHEAD);
         }
+        if constexpr (NL > 0) {
+            // the plane's slot of d + F_AHEAD
+            if (d + F_AHEAD <= ND) {
+#pragma unroll
+                for (int k = 0; k < NL; ++k)
+                    cp_async4(es + (is * NL + k) * W + l,
+                              eb + ((d + F_AHEAD) * NL + k) * leaf);
+            }
+            cp_async_commit();
+        }
         const float bd = base[d], wd = width[d];
         const int w = wg[d];
-        // the cell's inputs: y rows at its column, x rows at x
+        // the cell's inputs: y rows at its column, x rows at x (a spec
+        // with an emission plane: the x rows its step reads)
         float in[YR + NXF];
         {
             const int x = w + l;
-            const int ycol = C - d + x;
+            if constexpr (NL > 0) {
 #pragma unroll
-            for (int i = 0; i < YR; ++i) in[i] = yb[i * Y + ycol];
+                for (int i = 0; i < NXF; ++i)
+                    if (Spec::fwd_row(i)) in[YR + i] = xb[i * X + x];
+            } else {
+                const int ycol = C - d + x;
 #pragma unroll
-            for (int i = 0; i < NXF; ++i) in[YR + i] = xb[i * X + x];
+                for (int i = 0; i < YR; ++i) in[i] = yb[i * Y + ycol];
+#pragma unroll
+                for (int i = 0; i < NXF; ++i) in[YR + i] = xb[i * X + x];
+            }
         }
         const int s1 = w - w1;
         const int s2 = w - w2;
@@ -1678,13 +1914,24 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
             p1a[i] = shifted(p1 + i * W, l, s1, W);
             p2m[i] = shifted(p2 + i * W, l, s2 - 1, W);
         }
-        // the column logs change only where the window moves
-        if constexpr (Spec::NLSD > 0) {
-            if (w != w1) Spec::col_logs(in, lsd);
-        }
-        const Emissions e = tiled_emissions<Spec>(in, lsd);
         float nv[S];
-        tiled_fwd_update<Spec>(t, in, p1m, p1a, p2m, e, nv);
+        if constexpr (NL > 0) {
+            // the plane's slot of d: its group is the F_AHEAD + 1-th newest
+            cp_async_wait<F_AHEAD>();
+            Spec::fwd_update_sel(p1m, p1a, p2m,
+                                 plane_emissions<Spec>(es + rs * NL * W, l,
+                                                       W),
+                                 in + YR, nv);
+            rs = rs + 1 == QE ? 0 : rs + 1;
+            is = is + 1 == QE ? 0 : is + 1;
+        } else {
+            // the column logs change only where the window moves
+            if constexpr (Spec::NLSD > 0) {
+                if (w != w1) Spec::col_logs(in, lsd);
+            }
+            const Emissions e = tiled_emissions<Spec>(in, lsd);
+            tiled_fwd_update<Spec>(t, in, p1m, p1a, p2m, e, nv);
+        }
         const bool mask = in_band(w + l, bd, wd);
         od += plane_d;
 #pragma unroll
@@ -1724,6 +1971,17 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
 // per-diagonal barrier.  Every line either untiled form does not add is
 // the tiled form's; what the flags add sits under if constexpr, so each
 // form's instances compile to the same SASS as without the others.
+// The untiled posterior form of a spec with an emission plane (EM_PLANE:
+// K2 echelon) reads a cell's gap-Y term from the pre-pass's plane (slot d,
+// k = 1) at its own lane and the carried match terms from slot d + 1 at
+// lane l + o1 + 1 (CPECAN_NEG outside [0, W)), as the em ring gave them:
+// the plane's slots are staged E_AHEAD diagonals ahead with the fwd entries
+// (one cp.async group a step) in E_AHEAD + 2 shared slots, the slot of d +
+// 1 read across lanes after the barrier that ends its step, so no em ring
+// is written.  It writes NPS posterior planes (echelon: match1..match5),
+// stages those states' fwd entries, reads the others' on seed diagonals
+// only, and loads only the x rows its step reads (bwd_row at x,
+// row_at_next at next_col(x)).
 template <class Spec, bool WITH_EXP, bool TILED>
 __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
                                   const int* __restrict__ win,
@@ -1734,7 +1992,7 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
                                   const float* __restrict__ seedf,
                                   const float* __restrict__ raggedf,
                                   const float* __restrict__ fwd,
-                                  const float* __restrict__ shifts,
+                                  const float* __restrict__ aux,
                                   float* __restrict__ posts,
                                   float* __restrict__ totals, int R, int W,
                                   int ND, int NDp, int X, int C, int Y,
@@ -1745,37 +2003,47 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     constexpr int END = Spec::NS + S;
     constexpr int YR = Spec::YR, NXF = Spec::NXF;
     constexpr bool T_SHARED = WITH_EXP || Spec::T_SHARED;
-    static_assert(Spec::NPS == 1 && 2 * S + (T_SHARED ? Spec::NS : 0) <= 32
+    static_assert((Spec::NPS == 1 || (!WITH_EXP && !TILED))
+                      && 2 * S + (T_SHARED ? Spec::NS : 0) <= 32
                       && !(WITH_EXP && Spec::STREAMED)
-                      && !(WITH_EXP && TILED),
-                  "one posterior plane; the end vectors (and the shared "
-                  "transitions) fit tend; the targets' emissions come from "
-                  "the rows; the tiled path has no EM sums");
-    // the fwd slots: the posterior state's entry, copied F_AHEAD diagonals
-    // ahead, or WITH_EXP all S entries, X_AHEAD diagonals ahead
-    constexpr int AHEAD = WITH_EXP ? X_AHEAD : F_AHEAD;
-    constexpr int QS = WITH_EXP ? S : 1;
-    constexpr int QF = WITH_EXP ? X_AHEAD + 3 : F_AHEAD + 1;
+                      && !(WITH_EXP && TILED)
+                      && !(Spec::EM_PLANE > 0 && TILED),
+                  "several posterior planes and the emission plane in the "
+                  "untiled posterior form only; the end vectors (and the "
+                  "shared transitions) fit tend; the targets' emissions "
+                  "come from the rows; the tiled path has no EM sums");
+    // the fwd slots: the posterior states' entries, copied F_AHEAD
+    // diagonals ahead (E_AHEAD with an emission plane), or WITH_EXP all S
+    // entries, X_AHEAD diagonals ahead
+    constexpr int AHEAD = bwd_ahead<Spec, WITH_EXP>();
+    constexpr int QS = WITH_EXP ? S : Spec::NPS;
+    constexpr int QF = WITH_EXP ? X_AHEAD + 3 : AHEAD + 1;
     // ring [3 slots][S][W]: bwd[d] raw at w_d; em [2 slots][NEM][W]: the
     // match emission's leaves of diagonal d + 1 at x = w_d + l; red [32];
     // tend [32]: the end and ragged-end vectors (read on seed diagonals
     // only, so they take no registers), then with T_SHARED the
     // transitions; fst [QF][QS][W]: fwd[d] (step j = ND - d + 1 reads slot
-    // j % QF), each lane its own entries
+    // j % QF), each lane its own entries; with an emission plane (EM_PLANE
+    // leaves, no em ring), ps [AHEAD + 2][EM_PLANE][W]: its slot of d (step
+    // j reads slot j % (AHEAD + 2), and the previous step's across lanes).
+    // (The form's constants are written out or taken from functions at
+    // namespace scope: a constexpr local that no instance reads changed the
+    // SASS of the other untiled instances)
     extern __shared__ float smem[];
     float* ring = smem;
     float* em_rd = smem + 3 * S * W;  // emissions(d + 2) at w_{d+1}
-    float* em_wr = em_rd + NEM * W;
-    float* red = em_wr + NEM * W;
+    float* em_wr = em_rd + em_ring_leaves<Spec>() * W;
+    float* red = em_wr + em_ring_leaves<Spec>() * W;
     float* tend = red + 32;
     float* fst = tend + 32;
+    float* ps = fst + QF * QS * W;
     const int b = blockIdx.x;
     const int g = b / R;
     const int r = b - g * R;
     const int l = threadIdx.x;
     // the transitions in registers, or with T_SHARED after the end
     // vectors in tend
-    float t_reg[T_SHARED ? 1 : Spec::NS];
+    float t_reg[T_SHARED || Spec::NS == 0 ? 1 : Spec::NS];
     float* t = T_SHARED ? tend + 2 * S : t_reg;
     if constexpr (T_SHARED) {
         if (l < Spec::NS) t[l] = scal[l];
@@ -1796,11 +2064,22 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     const float* fin = fwd + static_cast<size_t>(g) * (ND + 1) * fplane_d
                        + static_cast<size_t>(r) * W + l;
     const size_t pstate = static_cast<size_t>(R) * W;
-    float* pout = posts + static_cast<size_t>(g) * (ND + 1) * pstate
+    const size_t pplane_d = Spec::NPS * pstate;
+    float* pout = posts + static_cast<size_t>(g) * (ND + 1) * pplane_d
                   + static_cast<size_t>(r) * W + l;
+    // this lane's entries of the plane: leaf j of slot d at eb[(d *
+    // EM_PLANE + j) * R * W]
+    const size_t leaf = static_cast<size_t>(R) * W;
+    const float* eb =
+        Spec::EM_PLANE > 0
+            ? aux + static_cast<size_t>(g) * (ND + 3) * Spec::EM_PLANE
+                           * leaf
+                  + static_cast<size_t>(r) * W + l
+            : nullptr;
 
     // diagonal 0 is never swept
-    pout[0] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < Spec::NPS; ++j) pout[j * pstate] = 0.0f;
     // bwd[ND + 1] = bwd[ND + 2] = NEG; em carry = emissions(ND + 2) at the
     // window of ND + 1
 #pragma unroll
@@ -1811,7 +2090,12 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     // a spec's per-column logs (NLSD > 0), kept for x = w_{d+1} + l at the
     // top of step d
     float lsd[Spec::NLSD > 0 ? Spec::NLSD : 1];
-    {
+    if constexpr (Spec::EM_PLANE > 0) {
+        // the plane's slot ND + 1 (the first carry) into staged slot 0
+#pragma unroll
+        for (int k = 0; k < NEM; ++k)
+            ps[k * W + l] = eb[((ND + 1) * Spec::EM_PLANE + k) * leaf];
+    } else {
         const int x = wg[ND + 1] + l;
         const auto e = Spec::emissions_at(xb, yb, X, Y, x, C - (ND + 2) + x);
 #pragma unroll
@@ -1832,15 +2116,22 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
 #pragma unroll
         for (int i = 0; i < S; ++i) fst[i * W + l] = CPECAN_NEG;
     }
-    // the fwd entries of diagonals ND .. ND - AHEAD + 1 into slots 1 ..
-    // AHEAD, one group each (empty below diagonal 1)
+    // the fwd entries (and plane slots) of diagonals ND .. ND - AHEAD + 1
+    // into slots 1 .. AHEAD, one group each (empty below diagonal 1)
     for (int j = 1; j <= AHEAD; ++j) {
         const int k = ND + 1 - j;
         if (k >= 1) {
 #pragma unroll
             for (int i = 0; i < QS; ++i)
                 cp_async4(fst + (j * QS + i) * W + l,
-                          fin + k * fplane_d + i * fstate);
+                          fin + k * fplane_d
+                              + staged_state<Spec, WITH_EXP>(i) * fstate);
+            if constexpr (Spec::EM_PLANE > 0) {
+#pragma unroll
+                for (int i = 0; i < Spec::EM_PLANE; ++i)
+                    cp_async4(ps + (j * Spec::EM_PLANE + i) * W + l,
+                              eb + (k * Spec::EM_PLANE + i) * leaf);
+            }
         }
         cp_async_commit();
     }
@@ -1858,14 +2149,16 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     // first target on, d = ND - 1)
     int w1 = wg[ND + 1], w2 = wg[ND + 2], w3 = 0;
     int left = 0;                  // diagonals left in the tile
-    // the index of shifts[b, t] while tile t is swept (the tiles run top
+    // the index of shifts[b, t] (aux) while tile t is swept (the tiles run top
     // down; it starts one past the top tile): a running index keeps no
     // row offset live across the sweep, a register that K6b vanilla needs
     // to stay without a spill
     int sidx = b * NT + NT;
     // the fst slots of d, of d - AHEAD and, WITH_EXP, of d + 1 and d + 2
     int rs = 1, is = (1 + AHEAD) % QF, rs1 = 0, rs2 = QF - 1;
-    pout += static_cast<size_t>(ND) * pstate;
+    // the plane's staged slots of d + 1, of d and of d - AHEAD
+    int es1 = 0, es = 1, eis = (1 + AHEAD) % (AHEAD + 2);
+    pout += static_cast<size_t>(ND) * pplane_d;
     for (int d = ND; d >= 1; --d) {
         if constexpr (TILED) {
             if (left == 0) {
@@ -1873,7 +2166,7 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
                 // carried bwd[d + 1] and bwd[d + 2] (cut at d + 1)
                 // re-center
                 if (d < ND) recenter<S>(n1, n2, cut_prev, l, W, red, shift);
-                shf = shifts[--sidx] + shift;
+                shf = aux[--sidx] + shift;
                 left = TD;
             }
             --left;
@@ -1895,27 +2188,49 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
 #pragma unroll
             for (int i = 0; i < QS; ++i)
                 cp_async4(fst + (is * QS + i) * W + l,
-                          fd - AHEAD * fplane_d + i * fstate);
+                          fd - AHEAD * fplane_d
+                              + staged_state<Spec, WITH_EXP>(i) * fstate);
+            if constexpr (Spec::EM_PLANE > 0) {
+#pragma unroll
+                for (int i = 0; i < Spec::EM_PLANE; ++i)
+                    cp_async4(ps + (eis * Spec::EM_PLANE + i) * W + l,
+                              eb + ((d - AHEAD) * Spec::EM_PLANE + i)
+                                       * leaf);
+            }
         }
         cp_async_commit();
         // the cell's inputs: emissions(d + 1)'s y rows at column C - (d +
-        // 1) + x and x rows at x, the gap-X row at next_col(x)
+        // 1) + x and x rows at x, the gap-X row at next_col(x); a spec
+        // with an emission plane loads only the x rows its step reads, at
+        // x (in) and at next_col(x) (inp)
         float in[YR + NXF];
+        float inp[Spec::EM_PLANE > 0 ? NXF : 1];
         {
             const int ycol = C - (d + 1) + x;
             const int xp = next_col(x, X);
+            if constexpr (Spec::EM_PLANE > 0) {
 #pragma unroll
-            for (int i = 0; i < YR; ++i) in[i] = yb[i * Y + ycol];
+                for (int i = 0; i < NXF; ++i) {
+                    if (Spec::bwd_row(i)) in[YR + i] = xb[i * X + x];
+                    if (Spec::row_at_next(i)) inp[i] = xb[i * X + xp];
+                    if (Spec::bwd_row(i) || Spec::row_at_next(i))
+                        prefetch_l1(xb + i * X + max(x - L1_AHEAD, 0));
+                }
+            } else {
 #pragma unroll
-            for (int i = 0; i < NXF; ++i)
-                in[YR + i] = xb[i * X + (row_at_next<Spec>(i) ? xp : x)];
-            // the lines the sweep reaches next (x falls, the column rises)
+                for (int i = 0; i < YR; ++i) in[i] = yb[i * Y + ycol];
 #pragma unroll
-            for (int i = 0; i < YR; ++i)
-                prefetch_l1(yb + i * Y + min(ycol + L1_AHEAD, Y - 1));
+                for (int i = 0; i < NXF; ++i)
+                    in[YR + i] = xb[i * X + (row_at_next<Spec>(i) ? xp : x)];
+                // the lines the sweep reaches next (x falls, the column
+                // rises)
 #pragma unroll
-            for (int i = 0; i < NXF; ++i)
-                prefetch_l1(xb + i * X + max(x - L1_AHEAD, 0));
+                for (int i = 0; i < YR; ++i)
+                    prefetch_l1(yb + i * Y + min(ycol + L1_AHEAD, Y - 1));
+#pragma unroll
+                for (int i = 0; i < NXF; ++i)
+                    prefetch_l1(xb + i * X + max(x - L1_AHEAD, 0));
+            }
         }
         const int o1 = w - w1;
         const int o2 = w - w2;
@@ -1931,16 +2246,33 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
         }
         float em2p[NEM];
 #pragma unroll
-        for (int k = 0; k < NEM; ++k)
-            em2p[k] = shifted(em_rd + k * W, l, o1 + 1, W);
-        // emissions(d + 1) at x (next step's carry); the column logs
-        // change only where the window moves
-        if constexpr (Spec::NLSD > 0) {
-            if (w != w1) Spec::col_logs(in, lsd);
+        for (int k = 0; k < NEM; ++k) {
+            if constexpr (Spec::EM_PLANE > 0) {
+                em2p[k] = shifted(ps + (es1 * Spec::EM_PLANE + k) * W, l,
+                                  o1 + 1, W);
+            } else {
+                em2p[k] = shifted(em_rd + k * W, l, o1 + 1, W);
+            }
         }
-        const auto e1 = tiled_emissions<Spec>(in, lsd);
         float bw[S];
-        tiled_bwd_update<Spec>(t, in, e1.gap_y, em2p, n1a, n1p, n2p, bw);
+        Emissions e1;   // without a plane: next step's carry
+        if constexpr (Spec::EM_PLANE > 0) {
+            // the plane's slot of d (and fwd[d]): the AHEAD + 1-th newest
+            // group
+            cp_async_wait<AHEAD>();
+            Spec::bwd_update_sel(in + YR, inp,
+                                 ps[(es * Spec::EM_PLANE + NEM) * W + l],
+                                 em2p, n1a, n1p, n2p, bw);
+        } else {
+            // emissions(d + 1) at x (next step's carry); the column logs
+            // change only where the window moves
+            if constexpr (Spec::NLSD > 0) {
+                if (w != w1) Spec::col_logs(in, lsd);
+            }
+            e1 = tiled_emissions<Spec>(in, lsd);
+            tiled_bwd_update<Spec>(t, in, e1.gap_y, em2p, n1a, n1p, n2p,
+                                   bw);
+        }
         const bool mask = in_band(x, bd, wd);
 #pragma unroll
         for (int i = 0; i < S; ++i) {
@@ -1957,16 +2289,12 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
         if (sa) {
             // total = masked log-sum-exp over the read's lanes at its seed
             // diagonal (sm3_bwd_kernel's, with the branch log_add)
-            float prod = f[0] + bw[0];
+            float prod = seed_fwd<Spec, WITH_EXP>(f, fd, 0, R, W) + bw[0];
 #pragma unroll
-            for (int i = 1; i < S; ++i) {
-                if constexpr (WITH_EXP) {
-                    prod = log_add(prod, f[i] + bw[i]);
-                } else {
-                    prod = log_add(prod, fd[static_cast<size_t>(i) * R * W]
-                                             + bw[i]);
-                }
-            }
+            for (int i = 1; i < S; ++i)
+                prod = log_add(prod,
+                               seed_fwd<Spec, WITH_EXP>(f, fd, i, R, W)
+                                   + bw[i]);
             const float vv = mask ? prod : CPECAN_NEG;
             const float m = block_max(vv, red);
             const float s = block_sum(mask ? expf(vv - m) : 0.0f, red);
@@ -1975,10 +2303,13 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
         }
         const float xl = static_cast<float>(x);
         const bool ok = mask && xl > 0.0f && xl < static_cast<float>(d);
-        float z = f[0] + bw[0] - total;
-        if constexpr (TILED) z = z + shf;
-        *pout = ok ? expf(fminf(z, 0.69f)) : 0.0f;
-        pout -= pstate;
+#pragma unroll
+        for (int j = 0; j < Spec::NPS; ++j) {
+            float z = f[j] + bw[Spec::post_state(j)] - total;
+            if constexpr (TILED) z = z + shf;
+            pout[j * pstate] = ok ? expf(fminf(z, 0.69f)) : 0.0f;
+        }
+        pout -= pplane_d;
         if constexpr (WITH_EXP) {
             if (d < ND) {
                 // target tt = d + 3 (<= ND + 2) from fwd[d + 1] and fwd[d
@@ -1996,8 +2327,10 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
         }
 #pragma unroll
         for (int i = 0; i < S; ++i) cur[i * W + l] = bw[i];
+        if constexpr (Spec::EM_PLANE == 0) {
 #pragma unroll
-        for (int k = 0; k < NEM; ++k) em_wr[k * W + l] = em_leaf(e1, k);
+            for (int k = 0; k < NEM; ++k) em_wr[k * W + l] = em_leaf(e1, k);
+        }
         cut_prev = sa;
         w3 = w2;
         w2 = w1;
@@ -2013,6 +2346,11 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
         rs1 = rs;
         rs = (rs + 1) % QF;
         is = (is + 1) % QF;
+        if constexpr (Spec::EM_PLANE > 0) {
+            es1 = es;
+            es = es + 1 == AHEAD + 2 ? 0 : es + 1;
+            eis = eis + 1 == AHEAD + 2 ? 0 : eis + 1;
+        }
         __syncthreads();
     }
     if (l == 0) totals[b] = total;
@@ -2121,30 +2459,33 @@ int launch_fwd(const void* scal, const void* win, const void* xf,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <class Spec>
+template <class Spec, bool TILED>
 int launch_fwd_sel(const void* scal, const void* win, const void* xf,
                    const void* yf, const void* basef, const void* widthf,
-                   void* fwd, void* shifts, int G, int R, int W, int ND,
+                   void* fwd, void* aux, int G, int R, int W, int ND,
                    int NDp, int X, int C, int Y, int TD, void* stream) {
     if (int e = launch_config_error(W)) return e;
-    if (TD <= 0 || ND % TD != 0) return cudaErrorInvalidValue;
-    // ring, the reduction scratch of the re-centering and the shared
-    // scalars
-    const size_t smem = sizeof(float) * (3 * Spec::S * W + 64);
+    if (TILED && (TD <= 0 || ND % TD != 0)) return cudaErrorInvalidValue;
+    // ring, the reduction scratch of the re-centering, the shared scalars
+    // and the emission plane's staged slots
+    const size_t smem = sizeof(float)
+                        * ((3 * Spec::S + (F_AHEAD + 1) * Spec::EM_PLANE)
+                               * W
+                           + 64);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            sm3_fwd_tiled_sel<Spec>,
+            sm3_fwd_tiled_sel<Spec, TILED>,
             cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(smem));
         if (e != cudaSuccess) return static_cast<int>(e);
     }
-    sm3_fwd_tiled_sel<Spec>
+    sm3_fwd_tiled_sel<Spec, TILED>
         <<<G * R, W, smem, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float*>(scal), static_cast<const int*>(win),
             static_cast<const float*>(xf), static_cast<const float*>(yf),
             static_cast<const float*>(basef),
             static_cast<const float*>(widthf), static_cast<float*>(fwd),
-            static_cast<float*>(shifts), R, W, ND, NDp, X, C, Y, TD);
+            static_cast<float*>(aux), R, W, ND, NDp, X, C, Y, TD);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -2152,15 +2493,21 @@ template <class Spec, bool WITH_EXP, bool TILED>
 int launch_bwd_sel(const void* scal, const void* win, const void* xf,
                    const void* yf, const void* basef, const void* widthf,
                    const void* seedf, const void* raggedf, const void* fwd,
-                   const void* shifts, void* posts, void* totals,
+                   const void* aux, void* posts, void* totals,
                    void* trans, void* accf, int G, int R, int W, int ND,
                    int NDp, int X, int C, int Y, int TD, void* stream) {
     if (int e = launch_config_error(W)) return e;
     if (TILED && (TD <= 0 || ND % TD != 0)) return cudaErrorInvalidValue;
-    // ring + em + red + the end vectors + the fwd slots
-    constexpr int NQ = WITH_EXP ? (X_AHEAD + 3) * Spec::S : F_AHEAD + 1;
+    // ring + em + red + the end vectors + the fwd slots + the emission
+    // plane's staged slots
+    constexpr int AHEAD = bwd_ahead<Spec, WITH_EXP>();
+    constexpr int NQ = WITH_EXP ? (X_AHEAD + 3) * Spec::S
+                                : (AHEAD + 1) * Spec::NPS;
+    constexpr int NE = (AHEAD + 2) * Spec::EM_PLANE;
     const size_t smem = sizeof(float)
-                        * ((3 * Spec::S + 2 * Spec::NEM + NQ) * W + 64);
+                        * ((3 * Spec::S + 2 * em_ring_leaves<Spec>() + NQ
+                            + NE) * W
+                           + 64);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             sm3_bwd_tiled_sel<Spec, WITH_EXP, TILED>,
@@ -2177,9 +2524,30 @@ int launch_bwd_sel(const void* scal, const void* win, const void* xf,
             static_cast<const float*>(seedf),
             static_cast<const float*>(raggedf),
             static_cast<const float*>(fwd),
-            static_cast<const float*>(shifts), static_cast<float*>(posts),
-            static_cast<float*>(totals), R, W, ND, NDp, X, C, Y, TD,
-            static_cast<float*>(trans), static_cast<float*>(accf));
+            static_cast<const float*>(aux),
+            static_cast<float*>(posts), static_cast<float*>(totals), R, W,
+            ND, NDp, X, C, Y, TD, static_cast<float*>(trans),
+            static_cast<float*>(accf));
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <class Spec>
+int launch_emissions(const void* win, const void* xf, const void* yf,
+                     void* em, int G, int R, int W, int ND, int NDp, int X,
+                     int C, int Y, int k, void* stream) {
+    if (int e = launch_config_error(W)) return e;
+    if (k < 0 || k > 1) return cudaErrorInvalidValue;
+    // one thread a cell of the plane [G, ND+3, R, W]
+    constexpr int THREADS = 256;
+    const long long n = static_cast<long long>(G) * (ND + 3) * R * W;
+    const long long blocks = (n + THREADS - 1) / THREADS;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    sm3_emissions_kernel<Spec>
+        <<<static_cast<unsigned>(blocks), THREADS, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const int*>(win), static_cast<const float*>(xf),
+            static_cast<const float*>(yf), static_cast<float*>(em), G, R, W,
+            ND, NDp, X, C, Y, k);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -2219,9 +2587,9 @@ const char* wavefront_error_string(int code) {
              const void* yf, const void* basef, const void* widthf,          \
              void* fwd, void* shifts, int G, int R, int W, int ND, int NDp,  \
              int X, int C, int Y, int TD, void* stream) {                    \
-        return launch_fwd_sel<SPEC>(scal, win, xf, yf, basef, widthf, fwd,  \
-                                    shifts, G, R, W, ND, NDp, X, C, Y, TD,   \
-                                    stream);                                 \
+        return launch_fwd_sel<SPEC, true>(scal, win, xf, yf, basef, widthf, \
+                                          fwd, shifts, G, R, W, ND, NDp, X,  \
+                                          C, Y, TD, stream);                 \
     }
 #define WAVEFRONT_BWD_TILED_SEL_ENTRY(NAME, SPEC)                           \
     int NAME(const void* scal, const void* win, const void* xf,              \
@@ -2273,6 +2641,40 @@ const char* wavefront_error_string(int code) {
             scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,  \
             posts, totals, trans, acc, G, R, W, ND, NDp, X, C, Y, 0,         \
             stream);                                                         \
+    }
+
+// the untiled select kernels of a spec with an emission plane (echelon)
+// take the pre-pass's plane em after the features (forward) or after the
+// fwd plane (backward), as the streamed spec's entry points take est; the
+// templates read it through aux, the tiled forms' shifts
+#define WAVEFRONT_FWD_PLANE_ENTRY(NAME, SPEC)                               \
+    int NAME(const void* scal, const void* win, const void* xf,              \
+             const void* yf, const void* basef, const void* widthf,          \
+             const void* em, void* fwd, int G, int R, int W, int ND,         \
+             int NDp, int X, int C, int Y, void* stream) {                   \
+        return launch_fwd_sel<SPEC, false>(                                  \
+            scal, win, xf, yf, basef, widthf, fwd, const_cast<void*>(em), G, \
+            R, W, ND, NDp, X, C, Y, 0, stream);                              \
+    }
+#define WAVEFRONT_BWD_PLANE_ENTRY(NAME, SPEC)                               \
+    int NAME(const void* scal, const void* win, const void* xf,              \
+             const void* yf, const void* basef, const void* widthf,          \
+             const void* seedf, const void* raggedf, const void* fwd,        \
+             const void* em, void* posts, void* totals, int G, int R, int W, \
+             int ND, int NDp, int X, int C, int Y, void* stream) {           \
+        return launch_bwd_sel<SPEC, false, false>(                           \
+            scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, em,       \
+            posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X, C, Y, 0,   \
+            stream);                                                         \
+    }
+// the emission pre-pass: the plane em [G, ND+3, EM_PLANE, R, W] at offset
+// k (0: the forward's, 1: the backward's)
+#define WAVEFRONT_EMISSIONS_ENTRY(NAME, SPEC)                               \
+    int NAME(const void* win, const void* xf, const void* yf, void* em,      \
+             int G, int R, int W, int ND, int NDp, int X, int C, int Y,      \
+             int k, void* stream) {                                          \
+        return launch_emissions<SPEC>(win, xf, yf, em, G, R, W, ND, NDp, X,  \
+                                      C, Y, k, stream);                      \
     }
 
 // the streamed spec's entry points take the stream est after the features
@@ -2332,8 +2734,9 @@ WAVEFRONT_BWD_ENTRY(wavefront_bwd_sm4, Sm4)
 WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled_sm4, Sm4)
 WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_sm4, Sm4)
 
-WAVEFRONT_FWD_ENTRY(wavefront_fwd_echelon, Echelon)
-WAVEFRONT_BWD_ENTRY(wavefront_bwd_echelon, Echelon)
+WAVEFRONT_EMISSIONS_ENTRY(wavefront_emissions_echelon, Echelon)
+WAVEFRONT_FWD_PLANE_ENTRY(wavefront_fwd_echelon, Echelon)
+WAVEFRONT_BWD_PLANE_ENTRY(wavefront_bwd_echelon, Echelon)
 
 WAVEFRONT_FWD_STREAMED_ENTRY(wavefront_fwd_hdp, Hdp)
 WAVEFRONT_BWD_STREAMED_ENTRY(wavefront_bwd_hdp, Hdp)

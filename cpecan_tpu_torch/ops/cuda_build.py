@@ -40,19 +40,24 @@ _SIGNATURES = {
     "wavefront_bwd_tiled": [_P] * 12 + [_I] * 9 + [_P],
 }
 # the dna5, vanilla and sm4 instances take their strawman counterparts'
-# arguments; echelon has K1 and K2 only
+# arguments
 _SIGNATURES.update({f"{name}{suffix}": _SIGNATURES[name]
                     for suffix in ("_dna5", "_vanilla", "_sm4") for name in (
                         "wavefront_fwd", "wavefront_bwd",
                         "wavefront_bwd_exp", "wavefront_fwd_tiled",
                         "wavefront_bwd_tiled")})
-_SIGNATURES.update({f"{name}_echelon": _SIGNATURES[name]
-                    for name in ("wavefront_fwd", "wavefront_bwd")})
 # hdp (streamed): K1, K2 and K3, each with the stream est after the
-# features (K1) or after the fwd plane (K2, K3)
-_SIGNATURES.update({f"{name}_hdp": [_P] + _SIGNATURES[name]
-                    for name in ("wavefront_fwd", "wavefront_bwd",
-                                 "wavefront_bwd_exp")})
+# features (K1) or after the fwd plane (K2, K3); echelon: K1 and K2 only,
+# each with the emission pre-pass's plane in the same place
+_SIGNATURES.update({f"{name}{suffix}": [_P] + _SIGNATURES[name]
+                    for suffix, names in (
+                        ("_hdp", ("wavefront_fwd", "wavefront_bwd",
+                                  "wavefront_bwd_exp")),
+                        ("_echelon", ("wavefront_fwd", "wavefront_bwd")))
+                    for name in names})
+# the echelon emission pre-pass: win xf yf em | G R W ND NDp X C Y k |
+# stream
+_SIGNATURES["wavefront_emissions_echelon"] = [_P] * 4 + [_I] * 9 + [_P]
 
 
 class _Library:

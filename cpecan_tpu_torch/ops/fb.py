@@ -50,7 +50,8 @@ from .compact import compact_chunks, compact_posteriors, host_array
 from .device_bands import device_bands
 from .fb_kernels import (Dna5Spec, EchelonSpec, HdpSpec, Sm4Spec,
                          StrawmanSpec, VanillaSpec, _no_expectations,
-                         post_planes, post_states, streamed, wavefront_bwd,
+                         planar, post_planes, post_states, streamed,
+                         wavefront_bwd,
                          wavefront_bwd_exp, wavefront_bwd_tiled,
                          wavefront_fwd, wavefront_fwd_tiled)
 from .features import (HDP_STREAM_SCRATCH_BYTES, assemble_dna5_features,
@@ -262,7 +263,9 @@ class WavefrontAligner:
         """Refuse a batch whose fwd [G, n_rows, S, R, W] and posterior
         [G, n_rows, (NPS,) R, W] planes, and a streamed machine's emission
         stream [G, ND+3, R, W] (n_rows >= ND + 3) with its build's scratch
-        (HDP_STREAM_SCRATCH_BYTES), would not fit the device's
+        (HDP_STREAM_SCRATCH_BYTES), or a planar machine's emission
+        pre-pass plane [G, ND+3, EM_LEAVES, R, W] (one lives during each
+        pass, beside the fwd plane), would not fit the device's
         PLANE_MEMORY_SHARE, naming the remedies."""
         G, R, W = prep["Bp"] // prep["R"], prep["R"], prep["W"]
         planes = (self.spec.S + len(post_states(self.spec))
@@ -270,6 +273,9 @@ class WavefrontAligner:
         plane_bytes = 4 * G * n_rows * R * W * planes
         if streamed(self.spec):
             plane_bytes += HDP_STREAM_SCRATCH_BYTES
+        if planar(self.spec):
+            plane_bytes += (4 * G * (prep["ND"] + 3) * R * W
+                            * self.spec.EM_LEAVES)
         limit = PLANE_MEMORY_SHARE * device_memory_bytes(self.device)
         if plane_bytes > limit:
             raise ValueError(

@@ -28,6 +28,9 @@ Counterparts in the JAX package (``cpecan_tpu/ops/pallas_fb.py``):
                            ``_tile_steps.recenter`` (:2381)
 ``wavefront_bwd_tiled``    ``_sm3_backward_kernel(tile=...)`` (:2332) chained
                            the same way, repaying the shifts (``shf``)
+``echelon_emissions``      none: the emission half of K1/K2 echelon's body
+                           (``_EchelonSpec``'s emissions, :528-620), for
+                           every cell first
 ========================  ==============================================
 
 Layout (the JAX planes, index for index): G groups of R reads; diagonal d
@@ -58,17 +61,20 @@ back from one to the other.  The tiled pair sweeps all ND = NT * TD
 diagonals in one launch each: a tile of the TPU kernels is only a
 boundary here, where the carried diagonals re-center.  Every tiled pair
 (dna5, strawman, vanilla, sm4) runs the select kernels
-(``sm3_fwd_tiled_sel<Spec>``, ``sm3_bwd_tiled_sel<Spec, false, true>``:
-the same recurrences with a branch-free log-add), as do K2 dna5 (the
-untiled posterior form ``sm3_bwd_tiled_sel<Dna5, false, false>``) and K3
-dna5 (the untiled expectation form ``sm3_bwd_tiled_sel<Dna5, true,
-false>``); the other instances are those of
-``sm3_fwd_kernel``/``sm3_bwd_kernel``.  Every CUDA
+(``sm3_fwd_tiled_sel<Spec, true>``, ``sm3_bwd_tiled_sel<Spec, false,
+true>``: the same recurrences with a branch-free log-add), as do K2 dna5
+(the untiled posterior form ``sm3_bwd_tiled_sel<Dna5, false, false>``),
+K3 dna5 (the untiled expectation form ``sm3_bwd_tiled_sel<Dna5, true,
+false>``) and K1/K2 echelon (the untiled forms
+``sm3_fwd_tiled_sel<Echelon, false>`` and ``sm3_bwd_tiled_sel<Echelon,
+false, false>``, each after the emission pre-pass ``echelon_emissions``,
+whose plane the wrapper allocates and drops after the launch); the other
+instances are those of ``sm3_fwd_kernel``/``sm3_bwd_kernel``.  Every CUDA
 kernel's launches are counted in ``KERNEL_LAUNCHES`` under its entry
 point's name (``wavefront_fwd``, ``wavefront_fwd_dna5``,
 ``wavefront_fwd_vanilla``, ``wavefront_fwd_sm4``, ``wavefront_fwd_echelon``,
-``wavefront_fwd_hdp``, ...); a wrapper's ``.launches`` reads its strawman
-entry there.  Each plain version counts
+``wavefront_emissions_echelon``, ``wavefront_fwd_hdp``, ...); a wrapper's
+``.launches`` reads its strawman entry there.  Each plain version counts
 its calls in ``.calls``.
 """
 
@@ -564,6 +570,9 @@ class EchelonSpec:
     NXF = 33
     Y_ROWS = 8
     POST_STATES = (1, 2, 3, 4, 5)
+    # the leaves of the emission pre-pass's plane (``echelon_emissions``):
+    # the five match terms, then the gap-Y term
+    EM_LEAVES = 6
 
     @staticmethod
     def emissions(xf, *ys):
@@ -669,6 +678,12 @@ def streamed(spec):
     return getattr(spec, "STREAMED", False)
 
 
+def planar(spec):
+    """Whether a spec's kernels read their emissions from the plane of an
+    emission pre-pass (``EchelonSpec``: ``echelon_emissions``)."""
+    return getattr(spec, "EM_LEAVES", 0) > 0
+
+
 def _tmap(fn, v):
     """fn on each leaf of a spec's emission (a tensor or a tuple of them)."""
     return tuple(fn(x) for x in v) if isinstance(v, tuple) else fn(v)
@@ -681,22 +696,27 @@ def _tmap(fn, v):
 # ---------------------------------------------------------------------------
 
 class _Frame:
-    """Per-call views shared by the plain passes."""
+    """Per-call views shared by the plain passes; ``plane`` a planar
+    spec's emission plane at offset ``k`` (``echelon_emissions_plain``),
+    read in place of the inline emissions."""
 
     def __init__(self, scal, win, xf, yf, basef, widthf, R, W, spec,
-                 est=None):
+                 est=None, plane=None, k=0):
         self.spec = spec
         self.est = est
+        self.plane, self.k = plane, k
         self.G = win.shape[0]
         self.R, self.W = R, W
         dev = xf.device
-        self.t = scal.reshape(-1).to(torch.float32)
+        if scal is not None:
+            self.t = scal.reshape(-1).to(torch.float32)
         self.win = win.to(torch.int64)
         self.lane = torch.arange(W, device=dev)
         self.xf = xf.reshape(self.G, R, xf.shape[1], xf.shape[2])
         self.yf = yf.reshape(self.G, R, yf.shape[1], yf.shape[2])
-        self.basef = basef.reshape(self.G, R, -1)
-        self.widthf = widthf.reshape(self.G, R, -1)
+        if basef is not None:
+            self.basef = basef.reshape(self.G, R, -1)
+            self.widthf = widthf.reshape(self.G, R, -1)
 
     def align(self, v, s):
         """out[g, r, l] = v[g, r, l + s[g]]; NEG where l + s[g] falls
@@ -725,8 +745,14 @@ class _Frame:
     def emissions(self, d, w, C):
         """(x-feature rows, match, gap-Y emission) of diagonal d at
         x = w[g] + l; the spec reads its Y_ROWS y rows, a streamed spec
-        the stream of d realigned from its own window to w."""
+        the stream of d realigned from its own window to w, and given a
+        plane the plane's slot d - k (which holds diagonal d at that
+        slot's window: the windows the passes ask for)."""
         xfw = self.cols(self.xf, w)
+        if self.plane is not None:
+            e = self.plane[:, d - self.k]
+            n = self.spec.EM_LEAVES - 1
+            return xfw, tuple(e[:, j] for j in range(n)), e[:, n]
         if streamed(self.spec):
             e = self.align(self.est[:, d], w - self.win[:, d])
             return xfw, e, e
@@ -765,12 +791,12 @@ def _recenter(vals, acc):
 
 
 def _forward(scal, win, xf, yf, basef, widthf, R, W, ND, C, TD, spec,
-             est=None):
+             est=None, plane=None):
     """The plain forward sweep shared by ``forward_plain`` and
     ``forward_tiled_plain``; with ``TD`` the carries re-center at every
     tile boundary (before diagonal t * TD + 1, t >= 1) and the shift each
     tile's rows carry comes back as [G, R, ND // TD]."""
-    fr = _Frame(scal, win, xf, yf, basef, widthf, R, W, spec, est)
+    fr = _Frame(scal, win, xf, yf, basef, widthf, R, W, spec, est, plane, 0)
     t, S = fr.t, spec.S
     out = torch.empty((fr.G, ND + 1, S, R, W), dtype=torch.float32,
                       device=xf.device)
@@ -805,13 +831,15 @@ def _forward(scal, win, xf, yf, basef, widthf, R, W, ND, C, TD, spec,
 
 
 def forward_plain(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
-                  spec=StrawmanSpec, est=None):
+                  spec=StrawmanSpec, est=None, plane=None):
     """Plain PyTorch forward pass: fwd plane [G, ND+1, S, R, W] (f32).
     Out-of-band cells hold exactly NEG.  A streamed spec reads its
-    emissions from ``est`` [G, ND+3, R, W]."""
+    emissions from ``est`` [G, ND+3, R, W]; a planar spec reads them from
+    ``plane``, the k = 0 plane of ``echelon_emissions_plain``, when given
+    (the same values as its inline emissions)."""
     forward_plain.calls += 1
     return _forward(scal, win, xf, yf, basef, widthf, R, W, ND, C, None,
-                    spec, est)
+                    spec, est, plane)
 
 
 forward_plain.calls = 0
@@ -909,11 +937,12 @@ class _Expectations:
 
 
 def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
-              ND, C, with_exp, spec, shifts=None, TD=None, est=None):
+              ND, C, with_exp, spec, shifts=None, TD=None, est=None,
+              plane=None):
     """The plain backward sweep shared by ``backward_plain``,
     ``backward_exp_plain`` and ``backward_tiled_plain``
     (``_sm3_backward_body_w``; with ``TD`` the tiled body)."""
-    fr = _Frame(scal, win, xf, yf, basef, widthf, R, W, spec, est)
+    fr = _Frame(scal, win, xf, yf, basef, widthf, R, W, spec, est, plane, 1)
     t, S, NS = fr.t, spec.S, spec.NS
     G, dev = fr.G, xf.device
     seed = seedf.reshape(G, R, -1)
@@ -1021,19 +1050,49 @@ def _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, R, W,
 
 
 def backward_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
-                   R, W, ND, C, spec=StrawmanSpec, est=None):
+                   R, W, ND, C, spec=StrawmanSpec, est=None, plane=None):
     """Plain PyTorch posterior backward: (posts [G, ND+1, R, W], or
     [G, ND+1, NPS, R, W] for a spec with POST_STATES, totals [G, R]).
     Posterior exp(min(f + b - total, 0.69)) of the match state (or of each
     of the POST_STATES) on in-band cells with 0 < x < d, 0 elsewhere and on
     diagonal 0; the total is the masked log-sum-exp of f + b at each read's
-    seed diagonal.  A streamed spec reads its emissions from ``est``."""
+    seed diagonal.  A streamed spec reads its emissions from ``est``; a
+    planar spec from ``plane``, the k = 1 plane of
+    ``echelon_emissions_plain``, when given."""
     backward_plain.calls += 1
     return _backward(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
-                     R, W, ND, C, with_exp=False, spec=spec, est=est)
+                     R, W, ND, C, with_exp=False, spec=spec, est=est,
+                     plane=plane)
 
 
 backward_plain.calls = 0
+
+
+def echelon_emissions_plain(win, xf, yf, *, R, W, ND, C, k,
+                            spec=EchelonSpec):
+    """Plain PyTorch emission pre-pass of a planar spec: the plane
+    [G, ND+3, EM_LEAVES, R, W] f32 whose slot d holds the emissions of
+    diagonal d + k at x = win[g, d] + l, in d's own window (the five match
+    terms, then the gap-Y term), NEG where d + k > ND + 2.  k = 0 is what
+    the forward reads (diagonal d at its window), k = 1 what the backward
+    reads (diagonal d + 1 at the window of d, lanes outside the window of
+    d + 1 included; slot ND + 1 its first carry).  Each slot is
+    ``_Frame.emissions`` of that diagonal, the inline emissions of the
+    plain passes."""
+    if k not in (0, 1):
+        raise ValueError(f"k={k}: the pre-pass plane is at offset 0 or 1")
+    echelon_emissions_plain.calls += 1
+    fr = _Frame(None, win, xf, yf, None, None, R, W, spec)
+    out = torch.full((fr.G, ND + 3, spec.EM_LEAVES, R, W), NEG,
+                     dtype=torch.float32, device=xf.device)
+    for d in range(ND + 3 - k):
+        _, e_match, e_gapy = fr.emissions(d + k, fr.win[:, d], C)
+        for j, v in enumerate(e_match + (e_gapy,)):
+            out[:, d, j] = v
+    return out
+
+
+echelon_emissions_plain.calls = 0
 
 
 def backward_exp_plain(scal, win, xf, yf, basef, widthf, seedf, raggedf,
@@ -1154,6 +1213,10 @@ def _stream(spec, est, G, R, W, ND):
                          f"{(G, ND + 3, R, W)}")
 
 
+def _plane_shape(spec, G, R, W, ND):
+    return (G, ND + 3, spec.EM_LEAVES, R, W)
+
+
 def _geometry(win, xf, yf, scal, R, W, ND, spec, est=None):
     G, NDp = win.shape
     _stream(spec, est, G, R, W, ND)
@@ -1176,11 +1239,11 @@ def _geometry(win, xf, yf, scal, R, W, ND, spec, est=None):
 
 
 def _launch_fwd(name, scal, win, xf, yf, basef, widthf, R, W, ND, C, spec,
-                TD=None, est=None):
+                TD=None, est=None, plane=None):
     """Launch the forward kernel ``name`` + ``spec.SUFFIX`` of the library
     on CUDA tensors (the tiled one with ``TD``; a streamed spec's with
-    ``est``); returns the fwd plane, and with ``TD`` the shifts
-    [G, R, ND // TD]."""
+    ``est``, a planar spec's with its pre-pass ``plane``); returns the fwd
+    plane, and with ``TD`` the shifts [G, R, ND // TD]."""
     if xf.device.type != "cuda":
         raise ValueError(f"no wavefront kernel for device {xf.device}")
     from .cuda_build import load_library
@@ -1190,6 +1253,12 @@ def _launch_fwd(name, scal, win, xf, yf, basef, widthf, R, W, ND, C, spec,
                  widthf=widthf)
     if est is not None:
         named["est"] = est
+    if planar(spec):
+        if plane is None or tuple(plane.shape) != _plane_shape(spec, G, R,
+                                                               W, ND):
+            raise ValueError(f"the {spec.NAME} forward reads the k = 0 "
+                             "plane of echelon_emissions")
+        named["plane"] = plane
     _check_cuda_inputs(named, {"win": torch.int32}, xf.device)
     lib = load_library()
     outs = [torch.empty((G, ND + 1, spec.S, R, W), dtype=torch.float32,
@@ -1207,19 +1276,65 @@ def _launch_fwd(name, scal, win, xf, yf, basef, widthf, R, W, ND, C, spec,
 
 
 @_Wrapper
+def echelon_emissions(win, xf, yf, *, R, W, ND, C, k, spec=EchelonSpec):
+    """Emission pre-pass of a planar spec -> the plane
+    [G, ND+3, EM_LEAVES, R, W] f32 at offset ``k`` (see
+    ``echelon_emissions_plain``).  Plain PyTorch for CPU tensors; the CUDA
+    kernel ``sm3_emissions_kernel<spec>`` for CUDA tensors (entry
+    ``wavefront_emissions`` + ``spec.SUFFIX``; it replaces no TPU kernel:
+    it is the emission half of K1/K2 echelon's body, ``_EchelonSpec``
+    pallas_fb.py:528-620, for every cell at once).  ``wavefront_fwd`` and
+    ``wavefront_bwd`` launch it for a planar spec themselves."""
+    if not planar(spec):
+        raise ValueError(f"the {spec.NAME} machine has no emission pre-pass")
+    if xf.device.type == "cpu":
+        return echelon_emissions_plain(win, xf, yf, R=R, W=W, ND=ND, C=C,
+                                       k=k, spec=spec)
+    if xf.device.type != "cuda":
+        raise ValueError(f"no emission kernel for device {xf.device}")
+    if k not in (0, 1):
+        raise ValueError(f"k={k}: the pre-pass plane is at offset 0 or 1")
+    from .cuda_build import load_library
+
+    G, NDp = win.shape
+    if ND + 3 > NDp or xf.shape[0] != G * R or yf.shape[0] != G * R:
+        raise ValueError(f"win {tuple(win.shape)}, xf/yf {xf.shape[0]}/"
+                         f"{yf.shape[0]} reads for R={R}, ND={ND}")
+    _check_cuda_inputs(dict(win=win, xf=xf, yf=yf), {"win": torch.int32},
+                       xf.device)
+    lib = load_library()
+    plane = torch.empty(_plane_shape(spec, G, R, W, ND), dtype=torch.float32,
+                        device=xf.device)
+    entry = "wavefront_emissions" + spec.SUFFIX
+    stream = torch.cuda.current_stream(xf.device).cuda_stream
+    code = getattr(lib, entry)(_ptr(win), _ptr(xf), _ptr(yf), _ptr(plane),
+                               G, R, W, ND, NDp, xf.shape[2], C, yf.shape[2],
+                               k, ctypes.c_void_p(stream))
+    _raise_on(code, lib, entry)
+    _counted(entry)
+    return plane
+
+
+@_Wrapper
 def wavefront_fwd(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
                   spec=StrawmanSpec, est=None):
     """Forward wavefront -> fwd plane [G, ND+1, S, R, W] f32; a streamed
     spec reads its emissions from ``est`` [G, ND+3, R, W].  Plain PyTorch
     for CPU tensors; the CUDA kernel ``sm3_fwd_kernel<spec>`` for CUDA
     tensors (replaces cpecan_tpu/ops/pallas_fb.py:635 _sm3_forward_kernel;
-    entry ``wavefront_fwd`` + ``spec.SUFFIX``)."""
+    entry ``wavefront_fwd`` + ``spec.SUFFIX``); echelon: the emission
+    pre-pass (``echelon_emissions``, k = 0), then the untiled select
+    forward ``sm3_fwd_tiled_sel<Echelon, false>`` on its plane, which is
+    freed after the launch."""
     if xf.device.type == "cpu":
         _stream(spec, est, win.shape[0], R, W, ND)
         return forward_plain(scal, win, xf, yf, basef, widthf, R=R, W=W,
                              ND=ND, C=C, spec=spec, est=est)
+    plane = (echelon_emissions(win, xf, yf, R=R, W=W, ND=ND, C=C, k=0,
+                               spec=spec)
+             if planar(spec) and xf.device.type == "cuda" else None)
     entry, fwd = _launch_fwd("wavefront_fwd", scal, win, xf, yf, basef,
-                             widthf, R, W, ND, C, spec, est=est)
+                             widthf, R, W, ND, C, spec, est=est, plane=plane)
     _counted(entry)
     return fwd
 
@@ -1231,8 +1346,9 @@ def wavefront_bwd(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
     """Posterior backward -> (posts [G, ND+1, R, W] or, for a spec with
     POST_STATES, [G, ND+1, NPS, R, W], totals [G, R]) f32; a streamed spec
     reads its emissions from ``est``.  Plain PyTorch for CPU tensors; the
-    CUDA kernel ``sm3_bwd_kernel<spec, false>`` (dna5: the untiled
-    ``sm3_bwd_tiled_sel<Dna5, false, false>``) for CUDA tensors (replaces
+    CUDA kernel ``sm3_bwd_kernel<spec, false>`` (dna5 and echelon: the
+    untiled ``sm3_bwd_tiled_sel<spec, false, false>``, echelon's after its
+    emission pre-pass at k = 1) for CUDA tensors (replaces
     cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
     with_exp=False)."""
     if xf.device.type == "cpu":
@@ -1240,9 +1356,12 @@ def wavefront_bwd(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
         return backward_plain(scal, win, xf, yf, basef, widthf, seedf,
                               raggedf, fwd, R=R, W=W, ND=ND, C=C, spec=spec,
                               est=est)
+    plane = (echelon_emissions(win, xf, yf, R=R, W=W, ND=ND, C=C, k=1,
+                               spec=spec)
+             if planar(spec) and xf.device.type == "cuda" else None)
     entry, out = _launch_bwd("wavefront_bwd", scal, win, xf, yf, basef,
                              widthf, seedf, raggedf, fwd, R, W, ND, C,
-                             with_exp=False, spec=spec, est=est)
+                             with_exp=False, spec=spec, est=est, plane=plane)
     _counted(entry)
     return out
 
@@ -1297,7 +1416,7 @@ def wavefront_fwd_tiled(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
     """Tiled forward over ND = NT * TD diagonals -> (fwd plane
     [G, ND+1, S, R, W], shifts [G, R, NT]) f32 (see
     ``forward_tiled_plain``).  Plain PyTorch for CPU tensors; the CUDA
-    kernel ``sm3_fwd_tiled_sel<spec>`` for CUDA tensors (replaces
+    kernel ``sm3_fwd_tiled_sel<spec, true>`` for CUDA tensors (replaces
     cpecan_tpu/ops/pallas_fb.py:2304 _sm3_forward_kernel(tile=...),
     K6a)."""
     _tiles(ND, TD, spec)
@@ -1338,10 +1457,12 @@ def wavefront_bwd_tiled(scal, win, xf, yf, basef, widthf, seedf, raggedf,
 
 
 def _launch_bwd(name, scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
-                R, W, ND, C, with_exp, spec, shifts=None, TD=None, est=None):
+                R, W, ND, C, with_exp, spec, shifts=None, TD=None, est=None,
+                plane=None):
     """Launch the backward kernel ``name`` + ``spec.SUFFIX`` of the library
     on CUDA tensors (the tiled one with ``shifts`` and ``TD``; a streamed
-    spec's with ``est``); returns (entry point, its outputs)."""
+    spec's with ``est``, a planar spec's with its pre-pass ``plane``);
+    returns (entry point, its outputs)."""
     if xf.device.type != "cuda":
         raise ValueError(f"no wavefront kernel for device {xf.device}")
     from .cuda_build import load_library
@@ -1353,6 +1474,12 @@ def _launch_bwd(name, scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
                  widthf=widthf, seedf=seedf, raggedf=raggedf, fwd=fwd)
     if est is not None:
         named["est"] = est
+    if planar(spec):
+        if plane is None or tuple(plane.shape) != _plane_shape(spec, G, R,
+                                                               W, ND):
+            raise ValueError(f"the {spec.NAME} backward reads the k = 1 "
+                             "plane of echelon_emissions")
+        named["plane"] = plane
     if TD:
         named["shifts"] = shifts
     _check_cuda_inputs(named, {"win": torch.int32}, xf.device)
@@ -1380,3 +1507,4 @@ def reset_counts():
     forward_plain.calls = backward_plain.calls = 0
     backward_exp_plain.calls = 0
     forward_tiled_plain.calls = backward_tiled_plain.calls = 0
+    echelon_emissions_plain.calls = 0

@@ -1,28 +1,41 @@
-"""Time the tiled kernel pair (K6a, K6b) of the strawman, vanilla and
-fourState machines as built from several source trees, on the inputs of
-``chip_smoke.py``'s phases 12, 21 and 22: the 64 long reads
-(``long_signal_read`` of the fixture long read's lengths, seeds 11..74,
-group 8) and the 1,500 x 2,550 check read (seed 11, the long reads' tile).
+"""Time kernels as built from several source trees, on the inputs of
+``chip_smoke.py``, one path at a time (``--path``):
+
+- ``long`` (the default): the tiled pair (K6a, K6b) of the strawman,
+  vanilla and fourState machines on the inputs of phases 12, 21 and 22:
+  the 64 long reads (``long_signal_read`` of the fixture long read's
+  lengths, seeds 11..74, group 8) and the 1,500 x 2,550 check read (seed
+  11, the long reads' tile);
+- ``echelon``: the untiled echelon pair (K1 and K2 echelon) on phase 24's
+  inputs: the first 32-read chunk of bench.py's echelon cell
+  (``echelon_batch``'s 64 reads, group 32, with phase 25's shape hint).
+  For a tree with the emission pre-pass (``echelon_emissions``) the
+  pre-pass at both offsets and each recurrence alone on its plane are
+  timed too.
 
     python cpecan_tpu_torch/tools/tiled_times.py build/parent .
+    python cpecan_tpu_torch/tools/tiled_times.py --path echelon build/parent .
 
-Each tree is a directory holding ``cpecan_tpu_torch/csrc`` (a parent
-unpacked with ``git archive`` beside the change, say).  Every tree's
-kernel library builds at once with this tree's ``cuda_build.NVCC_FLAGS``
-into ``build/tiled_times/``.  For each machine and read set, one staged
-run of this tree's aligner (on the first tree's library) gives the
-inputs; then each tree's K6a and K6b launch on them in turns, ``--rounds``
+Each tree is a directory holding ``cpecan_tpu_torch`` (a parent unpacked
+with ``git archive`` beside the change, say).  Each tree's own
+``ops.cuda_build`` and ``ops.fb_kernels`` are loaded under a package name
+of their own, so that each tree's wrappers call its own library through
+its own C signatures (trees whose wrappers differ compare as they are).
+Every tree's library builds at once, with its own ``NVCC_FLAGS``, into
+``build/tiled_times/``.  The inputs are staged once by this tree's
+aligner; then each tree's kernels launch on them in turns, ``--rounds``
 rounds of every tree in order, each a mean of 3 launches after a warm-up
 (CUDA events), and each tree's outputs must equal the first tree's bit
-for bit.  Prints one JSON line per machine, read set and tree: the
-median ms of each kernel over the rounds, every round's ms, ns a
-diagonal, and the card's name and power limit.  Run the file by its path
-(the package beside it is the one measured).  Exits 2 without a CUDA
-device, 1 if a build fails; imports no JAX.
+for bit.  Prints one JSON line per case (machine and read set) and tree:
+the median ms of each timing over the rounds, every round's ms, ns a
+diagonal, and the card's name and power limit.  Run the file by its path.
+Exits 2 without a CUDA device, 1 if a build fails; imports no JAX.
 """
 
 import argparse
 import ctypes
+import importlib
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -30,71 +43,171 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
-LONG_READS, LONG_GROUP, LONG_COMPACT_K = 64, 8, 4096
+LONG_READS, LONG_GROUP = 64, 8
 LONG_CHECK = (1500, 2550)
+ECH_READS, ECH_CHUNK, ECH_THRESHOLD = 64, 32, 0.01
 
 
-def build(trees, cuda_build):
-    """The ctypes handle of each tree's kernel library, all nvcc runs at
-    once."""
+def load_tree(i, tree):
+    """(cuda_build, fb_kernels) of ``tree``'s package, imported as the
+    package ``_tiled_times_<i>``."""
+    name = f"_tiled_times_{i}"
+    pkg = Path(tree).resolve() / "cpecan_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return (importlib.import_module(f"{name}.ops.cuda_build"),
+            importlib.import_module(f"{name}.ops.fb_kernels"))
+
+
+def build(trees, builds):
+    """Build every tree's library at once and hand each to its own
+    cuda_build."""
     out = ROOT / "build" / "tiled_times"
     out.mkdir(parents=True, exist_ok=True)
     libs = [out / f"tree{i}.so" for i in range(len(trees))]
     procs = [subprocess.Popen(
-        [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
+        [cb._nvcc(), *cb.NVCC_FLAGS, "-o", str(lib),
          str(Path(tree) / "cpecan_tpu_torch" / "csrc" / "wavefront.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for tree, lib in zip(trees, libs)]
-    handles = []
-    for tree, proc, lib in zip(trees, procs, libs):
+        for tree, cb, lib in zip(trees, builds, libs)]
+    for tree, cb, proc, lib in zip(trees, builds, procs, libs):
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"build of {tree} failed:\n{log}")
         handle = ctypes.CDLL(str(lib))
-        for name, argtypes in cuda_build._SIGNATURES.items():
+        for name, argtypes in cb._SIGNATURES.items():
             getattr(handle, name).argtypes = argtypes
             getattr(handle, name).restype = ctypes.c_int
         handle.wavefront_error_string.argtypes = [ctypes.c_int]
         handle.wavefront_error_string.restype = ctypes.c_char_p
-        handles.append(handle)
-    return handles
+        cb._Library.lib, cb._Library.path = handle, lib
+
+
+def long_cases(fks, dev):
+    """The tiled pairs' cases: (header, ND, one (outputs, {timing: launch})
+    function per tree)."""
+    from cpecan_tpu_torch.align import AlignmentParams
+    from cpecan_tpu_torch.fixtures import load_long_read
+    from cpecan_tpu_torch.models.state_machines import (
+        StateMachine3SignalStrawman, StateMachine3Vanilla, StateMachine4)
+    from cpecan_tpu_torch.ops.fb import (TILE_DIAG, Sm4Aligner,
+                                         StrawmanAligner, VanillaAligner)
+    from cpecan_tpu_torch.synthetic import long_signal_read
+
+    lmodel, lread, _ = load_long_read()
+    lreads = [long_signal_read(lread[2], lread[3], seed)[1]
+              for seed in range(11, 11 + LONG_READS)]
+    cread = long_signal_read(LONG_CHECK[0], LONG_CHECK[1], 11)[1]
+    machines = (
+        ("strawman", StrawmanAligner, StateMachine3SignalStrawman,
+         "StrawmanSpec"),
+        ("vanilla", VanillaAligner, StateMachine3Vanilla, "VanillaSpec"),
+        ("fourState", Sm4Aligner, StateMachine4, "Sm4Spec"))
+    for label, aligner_cls, machine_cls, spec in machines:
+        aligner = aligner_cls(AlignmentParams(), device=dev,
+                              group=LONG_GROUP)
+        machine = machine_cls(lmodel)
+        td = TILE_DIAG
+        for reads_label, reads in (("64 long reads", lreads),
+                                   ("check read", [cread])):
+            prep = aligner.prepare(machine, reads, tile_diag=td)
+            inp = aligner.device_inputs(machine, prep)
+            td = prep["tiled"]["TD"]
+            dims = dict(R=prep["R"], W=prep["W"], ND=prep["tiled"]["NDT"],
+                        C=prep["C"], TD=td)
+            fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                                   "widthf")]
+            ba = fa + [inp["seedf"], inp["raggedf"]]
+
+            def launches(fk, fa=fa, ba=ba, dims=dims, spec=spec):
+                d = dict(dims, spec=getattr(fk, spec))
+                fwd, sh = fk.wavefront_fwd_tiled(*fa, **d)
+                posts, tot = fk.wavefront_bwd_tiled(*ba, fwd, sh, **d)
+                return (fwd, sh, posts, tot), {
+                    "fwd": lambda: fk.wavefront_fwd_tiled(*fa, **d),
+                    "bwd": lambda: fk.wavefront_bwd_tiled(*ba, fwd, sh,
+                                                          **d)}
+
+            yield ({"machine": label, "reads": reads_label,
+                    "NDT": dims["ND"], "W": dims["W"]}, dims["ND"],
+                   [lambda fk=fk: launches(fk) for fk in fks])
+            del fa, ba, inp, prep
+
+
+def echelon_cases(fks, dev):
+    """The untiled echelon pair's one case, as ``long_cases``."""
+    from cpecan_tpu_torch.align import AlignmentParams
+    from cpecan_tpu_torch.ops.fb import EchelonAligner
+    from cpecan_tpu_torch.synthetic import echelon_batch
+
+    esm, ereads = echelon_batch(n_reads=ECH_READS)
+    esm = esm.to(dev)
+    eal = EchelonAligner(AlignmentParams(threshold=ECH_THRESHOLD),
+                         device=dev, group=ECH_CHUNK)
+    hint = (max(r[2] for r in ereads), eal.prepare(esm, ereads)["ND"])
+    prep = eal.prepare(esm, ereads[:ECH_CHUNK], shape_hint=hint)
+    inp = eal.device_inputs(esm, prep)
+    R, W, ND, C = prep["R"], prep["W"], prep["ND"], prep["C"]
+    fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
+    ba = fa + [inp["seedf"], inp["raggedf"]]
+
+    def launches(fk):
+        d = dict(R=R, W=W, ND=ND, C=C, spec=fk.EchelonSpec)
+        fwd = fk.wavefront_fwd(*fa, **d)
+        posts, tot = fk.wavefront_bwd(*ba, fwd, **d)
+        out = {"fwd": lambda: fk.wavefront_fwd(*fa, **d),
+               "bwd": lambda: fk.wavefront_bwd(*ba, fwd, **d)}
+        if hasattr(fk, "echelon_emissions"):
+            geo = dict(R=R, W=W, ND=ND, C=C)
+            planes = [fk.echelon_emissions(fa[1], fa[2], fa[3], k=k, **geo)
+                      for k in (0, 1)]
+            out.update(
+                prepass_k0=lambda: fk.echelon_emissions(
+                    fa[1], fa[2], fa[3], k=0, **geo),
+                prepass_k1=lambda: fk.echelon_emissions(
+                    fa[1], fa[2], fa[3], k=1, **geo),
+                fwd_recurrence=lambda: fk._launch_fwd(
+                    "wavefront_fwd", *fa, R, W, ND, C, fk.EchelonSpec,
+                    plane=planes[0]),
+                bwd_recurrence=lambda: fk._launch_bwd(
+                    "wavefront_bwd", *ba, fwd, R, W, ND, C, False,
+                    fk.EchelonSpec, plane=planes[1]))
+        return (fwd, posts, tot), out
+
+    yield ({"reads": ECH_CHUNK, "ND": ND, "W": W, "R": R}, ND,
+           [lambda fk=fk: launches(fk) for fk in fks])
+
+
+PATHS = {"long": long_cases, "echelon": echelon_cases}
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("trees", nargs="+", help="source trees, the first the "
                    "reference")
+    p.add_argument("--path", choices=sorted(PATHS), default="long")
     p.add_argument("--rounds", type=int, default=3)
     args = p.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     sys.modules["jax"] = None
+    sys.modules["cpecan_tpu"] = None
     import torch
 
     if not torch.cuda.is_available():
         print("tiled_times: no CUDA device", file=sys.stderr)
         return 2
-    from cpecan_tpu_torch.align import AlignmentParams
-    from cpecan_tpu_torch.fixtures import load_long_read
-    from cpecan_tpu_torch.models.state_machines import (
-        StateMachine3SignalStrawman, StateMachine3Vanilla, StateMachine4)
-    from cpecan_tpu_torch.ops import cuda_build
-    from cpecan_tpu_torch.ops import fb_kernels as fk
-    from cpecan_tpu_torch.ops.fb import (Sm4Aligner, StrawmanAligner,
-                                         VanillaAligner)
-    from cpecan_tpu_torch.synthetic import long_signal_read
-
+    loaded = [load_tree(i, tree) for i, tree in enumerate(args.trees)]
     try:
-        handles = build(args.trees, cuda_build)
+        build(args.trees, [cb for cb, _ in loaded])
     except RuntimeError as exc:
         print(exc)
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    dev = torch.device("cuda")
-
-    def use(handle):
-        cuda_build._Library.lib = handle
 
     def cuda_ms(fn, reps=3):
         fn()
@@ -108,74 +221,32 @@ def main(argv=None):
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    lmodel, lread, _ = load_long_read()
-    lreads = [long_signal_read(lread[2], lread[3], seed)[1]
-              for seed in range(11, 11 + LONG_READS)]
-    cread = long_signal_read(LONG_CHECK[0], LONG_CHECK[1], 11)[1]
-    machines = (
-        ("strawman", StrawmanAligner, StateMachine3SignalStrawman,
-         fk.StrawmanSpec),
-        ("vanilla", VanillaAligner, StateMachine3Vanilla, fk.VanillaSpec),
-        ("fourState", Sm4Aligner, StateMachine4, fk.Sm4Spec))
-    use(handles[0])
-    for label, aligner_cls, machine_cls, spec in machines:
-        aligner = aligner_cls(AlignmentParams(), device=dev,
-                              group=LONG_GROUP)
-        machine = machine_cls(lmodel)
-        td = None
-        for reads_label, reads in (("64 long reads", lreads),
-                                   ("check read", [cread])):
-            st = {}
-
-            def stage(name, fn):
-                st[name] = res = fn()
-                return res
-
-            aligner.run(machine, reads, compact_k=LONG_COMPACT_K,
-                        tile_diag=td, stage=stage)
-            prep, inp = st["prepare"], st["inputs"]
-            tl = prep["tiled"]
-            td = tl["TD"]
-            dims = dict(R=prep["R"], W=prep["W"], ND=tl["NDT"], C=prep["C"],
-                        TD=td, spec=spec)
-            fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef",
-                                   "widthf")]
-            ba = fa + [inp["seedf"], inp["raggedf"]]
-            (fwd, sh), (posts, tot) = st["fwd_tiled"], st["bwd_tiled"]
-            del st
-            times = [dict(fwd=[], bwd=[]) for _ in handles]
-            for i, handle in enumerate(handles):
-                use(handle)
-                got = fk.wavefront_fwd_tiled(*fa, **dims)
-                if not (torch.equal(got[0], fwd) and torch.equal(got[1], sh)):
-                    raise AssertionError(f"{args.trees[i]}: K6a {label} "
-                                         "differs from the first tree's")
-                got = fk.wavefront_bwd_tiled(*ba, fwd, sh, **dims)
-                if not (torch.equal(got[0], posts)
-                        and torch.equal(got[1], tot)):
-                    raise AssertionError(f"{args.trees[i]}: K6b {label} "
-                                         "differs from the first tree's")
-                del got
-            for _ in range(args.rounds):
-                for i, handle in enumerate(handles):
-                    use(handle)
-                    times[i]["fwd"].append(cuda_ms(
-                        lambda: fk.wavefront_fwd_tiled(*fa, **dims)))
-                    times[i]["bwd"].append(cuda_ms(
-                        lambda: fk.wavefront_bwd_tiled(*ba, fwd, sh,
-                                                       **dims)))
-            use(handles[0])
-            for tree, t in zip(args.trees, times):
-                row = {"machine": label, "reads": reads_label, "tree": tree,
-                       "NDT": dims["ND"], "W": dims["W"], "card": smi}
-                for k in ("fwd", "bwd"):
-                    med = statistics.median(t[k])
-                    row.update({f"{k}_ms": med, f"{k}_rounds_ms": t[k],
-                                f"{k}_ns_per_diagonal":
-                                    med * 1e6 / dims["ND"]})
-                print(json.dumps(row), flush=True)
-            del fa, ba, fwd, sh, posts, tot, inp, prep
-            torch.cuda.synchronize()
+    fks = [fk for _, fk in loaded]
+    for header, nd, trees in PATHS[args.path](fks, torch.device("cuda")):
+        ref, runs = None, []
+        for tree, launches in zip(args.trees, trees):
+            outs, fns = launches()
+            if ref is None:
+                ref = outs
+            elif not all(torch.equal(a, b) for a, b in zip(outs, ref)):
+                raise AssertionError(f"{tree}: {header} differs from the "
+                                     "first tree's")
+            runs.append(fns)
+            del outs
+        times = [{k: [] for k in fns} for fns in runs]
+        for _ in range(args.rounds):
+            for fns, t in zip(runs, times):
+                for k, fn in fns.items():
+                    t[k].append(cuda_ms(fn))
+        for tree, t in zip(args.trees, times):
+            row = dict(header, tree=tree, card=smi)
+            for k, v in t.items():
+                med = statistics.median(v)
+                row.update({f"{k}_ms": med, f"{k}_rounds_ms": v,
+                            f"{k}_ns_per_diagonal": med * 1e6 / nd})
+            print(json.dumps(row), flush=True)
+        del ref, runs
+        torch.cuda.synchronize()
     return 0
 
 

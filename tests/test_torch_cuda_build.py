@@ -2,8 +2,9 @@
 with a stand-in for ``nvcc``: a cached library comes back with the ptxas
 report of the run that built it, and a failed build raises.  And the entry
 table: the C entry points of ``csrc/wavefront.cu``, the ctypes signatures
-that load them and ``chip_smoke.py``'s kernels line name the same 25
-kernel instances."""
+that load them and ``chip_smoke.py``'s kernels line name the same 26
+kernel instances (25 wavefront instances and the echelon emission
+pre-pass)."""
 
 import ctypes
 import re
@@ -101,14 +102,14 @@ def test_every_signature_has_one_entry_point_of_its_shape():
     entries = _entries()
     names = [name for _, name in entries]
     assert sorted(names) == sorted(cuda_build._SIGNATURES)
-    assert len(set(names)) == len(names) == 25
+    assert len(set(names)) == len(names) == 26
     for macro, name in entries:
         assert cuda_build._SIGNATURES[name] == macros[macro], name
 
 
 def test_chip_smoke_kernels_line_names_every_entry_point():
     """chip_smoke.py's kernels line has one entry per kernel instance: all
-    25 entry points, each once."""
+    26 entry points, each once."""
     smoke = (REPO / "chip_smoke.py").read_text()
     line = smoke[smoke.index('log(json.dumps({"kernels": ['):]
     named = re.findall(r'entry\("(wavefront_\w+)",', line)

@@ -3,7 +3,9 @@ posteriors) vs the JAX package (interpret-mode Pallas kernels on the CPU):
 the machines (echelon and echelonB) and their skip logs, the feature
 assembly, K1 and K2 for the echelon spec, whole posterior runs and their
 expanded pairs, the multi-state compaction and extraction, and the
-refusals (no tiled path, no expectations).  The CUDA kernels are held
+refusals (no tiled path, no expectations); and the plain passes fed the
+emission pre-pass's planes against their inline emissions, and the plane
+budget.  The CUDA kernels are held
 against these plain versions on the card by tests/test_torch_gpu.py.
 Tolerances: cpecan_tpu_torch/parity.py.
 
@@ -24,10 +26,12 @@ from cpecan_tpu.models.state_machines import (StateMachineEchelon,
                                               StateMachineEchelonB)
 from cpecan_tpu.ops import pallas_fb as jfb
 
+from cpecan_tpu_torch.align import AlignmentParams as TorchParams
 from cpecan_tpu_torch.models.state_machines import echelon_from_jax
 from cpecan_tpu_torch.ops import compact as tc
 from cpecan_tpu_torch.ops import fb_kernels as fk
 from cpecan_tpu_torch.ops.fb import EchelonAligner
+from cpecan_tpu_torch.synthetic import echelon_batch
 from cpecan_tpu_torch.parity import (band_mask, check_echelon_pairs,
                                      check_fwd, check_posts, check_totals)
 
@@ -351,3 +355,99 @@ def test_tiled_wrappers_and_single_state_extractors_refuse(runs):
         with pytest.raises(NotImplementedError, match="no tiled kernels"):
             fn(*([x] * (6 if fn is fk.wavefront_fwd_tiled else 10)), R=1,
                W=128, ND=128, C=131, TD=128, spec=fk.EchelonSpec)
+
+
+def _planes(inp, dims):
+    """``echelon_emissions`` at k = 0 and k = 1 (its plain twin on CPU
+    tensors)."""
+    geo = {k: dims[k] for k in ("R", "W", "ND", "C")}
+    return [fk.echelon_emissions(inp["win"], inp["xf"], inp["yf"], k=k,
+                                 **geo) for k in (0, 1)]
+
+
+def _same_bits(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_plain_passes_on_the_emission_planes_equal_inline(case):
+    """The plain passes fed ``echelon_emissions``' planes (the wrapper's
+    plain twin on CPU tensors: k = 0 to the forward, k = 1 to the
+    backward, as the card's K1 and K2 read the pre-pass) equal
+    forward_plain / backward_plain with their inline emissions bit for
+    bit: the fwd plane, the five posterior planes and the totals; the
+    planes are [G, ND+3, 6, R, W], NEG in the k = 1 plane's slot ND + 2."""
+    inp, dims = case["inp"], case["dims"]
+    fk.reset_counts()
+    planes = _planes(inp, dims)
+    assert fk.echelon_emissions_plain.calls == 2 and not fk.KERNEL_LAUNCHES
+    G, ND, R, W = (inp["win"].shape[0], dims["ND"], dims["R"], dims["W"])
+    assert all(p.shape == (G, ND + 3, 6, R, W) for p in planes)
+    assert bool((planes[1][:, ND + 2] == np.float32(fk.NEG)).all())
+    fwd = _fwd(inp, dims, fk.forward_plain)
+    _same_bits([_fwd(inp, dict(dims, plane=planes[0]), fk.forward_plain)],
+               [fwd])
+    _same_bits(_bwd(inp, dict(dims, plane=planes[1]), fwd,
+                    fk.backward_plain),
+               _bwd(inp, dims, fwd, fk.backward_plain))
+
+
+def test_backward_plane_holds_lanes_outside_the_next_window():
+    """On reads whose group window moves (two 300-base references of
+    bench.py's echelon recipe, ragged, group 2: W 128 of X 384), slot d of
+    the k = 1 plane is diagonal d + 1 in d's window: equal to slot d + 1
+    of the k = 0 plane moved into that window, and real emissions on the
+    lanes that lie outside the window of d + 1 (where that realignment
+    gives NEG); the backward fed it equals the inline backward bit for
+    bit."""
+    sm, reads = echelon_batch(n_reads=2, n_ref=300, n_events=260)
+    ta = EchelonAligner(TorchParams(threshold=THR), device="cpu", group=2)
+    prep = ta.prepare(sm, reads, ragged_right=True)
+    inp = ta.device_inputs(sm, prep, ragged_left=True)
+    dims = dict(R=prep["R"], W=prep["W"], ND=prep["ND"], C=prep["C"],
+                spec=fk.EchelonSpec)
+    planes = _planes(inp, dims)
+    G, ND, R, W = (inp["win"].shape[0], dims["ND"], dims["R"], dims["W"])
+    win = inp["win"].to(torch.int64)
+    lane = torch.arange(W)
+    outside = 0
+    for d in range(ND + 1):
+        s = (win[:, d] - win[:, d + 1])[:, None] + lane[None, :]    # [G, W]
+        ok = ((s >= 0) & (s < W))[:, None, None, :].expand(G, 6, R, W)
+        moved = torch.gather(planes[0][:, d + 1], 3, s.clamp(0, W - 1)[
+            :, None, None, :].expand(G, 6, R, W))
+        assert torch.equal(planes[1][:, d][ok], moved[ok])
+        outside += int((planes[1][:, d][~ok] > np.float32(fk.NEG)).sum())
+    assert outside > 100
+    fwd = _fwd(inp, dims, fk.forward_plain)
+    _same_bits(_bwd(inp, dict(dims, plane=planes[1]), fwd,
+                    fk.backward_plain),
+               _bwd(inp, dims, fwd, fk.backward_plain))
+
+
+def test_plane_check_counts_the_emission_plane(template_model,
+                                               monkeypatch):
+    """``_check_planes`` budgets the fwd, posterior and emission pre-pass
+    planes: a device that holds all but the last byte of that refuses the
+    run before any pass, naming the remedies; one that holds a byte more
+    runs."""
+    from cpecan_tpu_torch.ops import fb
+    reads = _reads(template_model)
+    ta = EchelonAligner(device="cpu", group=8)
+    sm = echelon_from_jax(StateMachineEchelon(template_model))
+    prep = ta.prepare(sm, reads)
+    G = prep["Bp"] // prep["R"]
+    need = 4 * G * prep["R"] * prep["W"] * (
+        prep["NDp"] * (fk.EchelonSpec.S + 5)
+        + (prep["ND"] + 3) * fk.EchelonSpec.EM_LEAVES)
+    share = fb.PLANE_MEMORY_SHARE
+    fk.reset_counts()
+    monkeypatch.setattr(fb, "device_memory_bytes",
+                        lambda device: (need - 1) / share)
+    with pytest.raises(ValueError, match="smaller chunks.*get_split_points"):
+        ta.run(sm, reads)
+    assert fk.forward_plain.calls == fk.backward_plain.calls == 0
+    monkeypatch.setattr(fb, "device_memory_bytes",
+                        lambda device: (need + 1) / share)
+    ta.run(sm, reads)
+    assert fk.forward_plain.calls == fk.backward_plain.calls == 1

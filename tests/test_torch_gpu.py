@@ -339,7 +339,8 @@ def test_cuda_dna5_kernels_match_plain(dna5_batch, cuda, ragged, W, ND,
 
 def _synthetic_case(cuda, spec, W, ND, ragged, seed, every=False,
                     scal=None):
-    """Synthetic inputs of ``spec`` (dna5, strawman, sm4 or vanilla) at
+    """Synthetic inputs of ``spec`` (dna5, strawman, sm4, vanilla or
+    echelon) at
     window W over ND diagonals: G 2 x R 2 reads (G 1 at W 1024).  Each
     group's band lower
     edge steps by 0 or 1 a diagonal (x ~ d / 2, as a real band's) and its
@@ -356,7 +357,9 @@ def _synthetic_case(cuda, spec, W, ND, ragged, seed, every=False,
     model means, a gap-X log-probability row; vanilla Gaussian level and
     inverse-Gaussian noise rows with a few sd <= 0, lambda <= 0 and noise
     means of 0, noise near the noise means with a few zeros, log
-    transition rows.  Returns (fwd args, bwd args, dims)."""
+    transition rows; echelon the vanilla's level and noise rows for each
+    offset and for gap-Y, log skip rows, random validity bits, log
+    duration rows.  Returns (fwd args, bwd args, dims)."""
     rng = np.random.default_rng(seed)
     G, R = (1 if W == 1024 else 2), 2
     NDp = -(-(ND + 3) // 128) * 128 + 128
@@ -416,6 +419,27 @@ def _synthetic_case(cuda, spec, W, ND, ragged, seed, every=False,
         yf = np.stack([rng.uniform(70.0, 90.0, (B, Y)),
                        rng.uniform(0.5, 3.0, (B, Y))], axis=1)
         yf[:, 1][rng.random((B, Y)) < 0.001] = 0.0
+        rscal = np.log(rng.uniform(0.05, 0.9, spec.NS + 3 * spec.S))
+    elif spec is fk.EchelonSpec:
+        # per offset and for gap-Y: level (mean, sd) and noise (mean,
+        # lambda), a few sd <= 0, lambda <= 0 and noise means of 0; the
+        # skip logs (rows 24-27) and the validity bits (28-32); durations
+        # as log probabilities, events near the level means, noise near
+        # the noise means with a few zeros
+        xf = np.empty((B, 33, X))
+        xf[:, 0:24:4] = rng.uniform(70.0, 90.0, (B, 6, X))
+        xf[:, 1:24:4] = rng.uniform(3.0, 12.0, (B, 6, X))
+        xf[:, 2:24:4] = rng.uniform(0.8, 2.5, (B, 6, X))
+        xf[:, 3:24:4] = rng.uniform(5.0, 60.0, (B, 6, X))
+        for r0, bad_vals in ((1, [0.0, -1.0]), (2, [0.0]), (3, [0.0, -2.0])):
+            bad = rng.random((B, 6, X)) < 0.01
+            xf[:, r0:24:4][bad] = rng.choice(bad_vals, bad.sum())
+        xf[:, 24:28] = np.log(rng.uniform(0.05, 0.9, (B, 4, X)))
+        xf[:, 28:] = rng.integers(0, 2, (B, 5, X))
+        yf = np.concatenate([np.log(rng.uniform(0.05, 0.9, (B, 6, Y))),
+                             rng.uniform(70.0, 90.0, (B, 1, Y)),
+                             rng.uniform(0.5, 3.0, (B, 1, Y))], axis=1)
+        yf[:, 7][rng.random((B, Y)) < 0.001] = 0.0
         rscal = np.log(rng.uniform(0.05, 0.9, spec.NS + 3 * spec.S))
     else:
         xf = np.empty((B, 9, X))
@@ -949,8 +973,11 @@ def test_cuda_batch_pipeline_matches_cpu_run(cuda, tmp_path, sm_type):
         if device == "cuda":
             suffix = {"threeState": "", "vanilla": "_vanilla",
                       "fourState": "_sm4", "echelon": "_echelon"}[sm_type]
-            assert fk.KERNEL_LAUNCHES == {f"wavefront_fwd{suffix}": 2,
-                                          f"wavefront_bwd{suffix}": 2}
+            # echelon's wrappers launch the emission pre-pass too
+            want = {f"wavefront_fwd{suffix}": 2, f"wavefront_bwd{suffix}": 2}
+            if sm_type == "echelon":
+                want["wavefront_emissions_echelon"] = 4
+            assert fk.KERNEL_LAUNCHES == want
             assert fk.forward_plain.calls == fk.backward_plain.calls == 0
     multi = sm_type == "echelon"
     check_tsv(got["cuda"], got["cpu"], args["threshold"], multi=multi)
@@ -981,22 +1008,62 @@ def _echelon_inputs(cuda, batch, machine, ragged):
 @pytest.mark.parametrize("machine", ["A", "B"])
 @pytest.mark.parametrize("ragged", [False, True])
 def test_cuda_echelon_kernels_match_plain(batch, cuda, ragged, machine):
-    """K1 and K2 echelon against their plain versions on the same card
-    inputs: the fwd plane [G, ND+1, 7, R, W], the five posterior planes
-    [G, ND+1, 5, R, W] and the totals bit for bit."""
+    """K1 and K2 echelon (each wrapper: the emission pre-pass, then its
+    recurrence) against their plain versions on the same card inputs: the
+    fwd plane [G, ND+1, 7, R, W], the five posterior planes
+    [G, ND+1, 5, R, W] and the totals bit for bit; one pre-pass launch per
+    wrapper, and the pre-pass's planes at k = 0 and 1 equal to its plain
+    twin."""
     _, inp, dims = _echelon_inputs(cuda, batch, machine, ragged)
     fk.reset_counts()
     fwd = _fwd(inp, dims, fk.wavefront_fwd)
     posts, totals = _bwd(inp, dims, fwd, fk.wavefront_bwd)
     torch.cuda.synchronize()
     assert fk.KERNEL_LAUNCHES == {"wavefront_fwd_echelon": 1,
-                                  "wavefront_bwd_echelon": 1}
+                                  "wavefront_bwd_echelon": 1,
+                                  "wavefront_emissions_echelon": 2}
     assert fk.forward_plain.calls == fk.backward_plain.calls == 0
+    assert fk.echelon_emissions_plain.calls == 0
     assert fwd.shape[2] == 7 and posts.shape[2] == 5
     assert torch.equal(fwd, _fwd(inp, dims, fk.forward_plain))
     pposts, ptotals = _bwd(inp, dims, fwd, fk.backward_plain)
     assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
     assert torch.all(posts[:, 0] == 0.0) and bool((posts > 0.5).any())
+    _check_echelon_planes(inp["win"], inp["xf"], inp["yf"], dims)
+
+
+def _check_echelon_planes(win, xf, yf, dims):
+    """The pre-pass's planes at k = 0 and 1 equal its plain twin's."""
+    geo = {k: dims[k] for k in ("R", "W", "ND", "C")}
+    for k in (0, 1):
+        got = fk.echelon_emissions(win, xf, yf, k=k, **geo)
+        assert got.shape == (win.shape[0], geo["ND"] + 3, 6, geo["R"],
+                             geo["W"])
+        assert torch.equal(got, fk.echelon_emissions_plain(win, xf, yf, k=k,
+                                                           **geo))
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("W, ND, every", [
+    (32, 150, False), (32, 300, True), (128, 200, False),
+    (1024, 130, False), (32, 2, False), (32, 3, False)])
+def test_cuda_echelon_kernels_match_plain_on_moving_windows(cuda, ragged, W,
+                                                            ND, every):
+    """K1/K2 echelon and the pre-pass against plain on synthetic inputs
+    whose group window drifts (and with ``every`` shifts on nearly every
+    diagonal), so that the backward reads lanes outside the window of
+    d + 1 on many steps: the pre-pass planes, the fwd plane, the five
+    posterior planes and the totals bit for bit, at W 32, 128 and 1024 and
+    ND 2 and 3."""
+    fa, ba, dims = _synthetic_case(cuda, fk.EchelonSpec, W, ND, ragged,
+                                   [9, W, ND, int(ragged)], every=every)
+    fwd = fk.wavefront_fwd(*fa, **dims)
+    assert torch.equal(fwd, fk.forward_plain(*fa, **dims))
+    got = fk.wavefront_bwd(*ba, fwd, **dims)
+    want = fk.backward_plain(*ba, fwd, **dims)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.isfinite(got[1]).all()
+    _check_echelon_planes(fa[1], fa[2], fa[3], dims)
 
 
 def test_cuda_echelon_compaction_matches_cpu(batch, cuda):

@@ -690,3 +690,107 @@ def test_vanilla_emissions_in_equals_plain():
     for e in (e_match, e_gapy):
         neg = e == np.float32(fk.NEG)
         assert bool(neg.any()) and int((~neg).sum()) > n // 2
+
+
+# -- the echelon machine's select updates (wavefront.cu
+# Echelon::fwd_update_sel and bwd_update_sel, K1/K2 echelon on the select
+# templates), transcribed and held to fb_kernels ----------------------------
+
+
+def _echelon_rows(name):
+    """The x rows ``Echelon::name`` names (fwd_row, bwd_row, row_at_next),
+    transcribed."""
+    body = " ".join(_method("Echelon", name))
+    m = (re.fullmatch(r"return i >= (\w+) && i <= (\w+)", body)
+         or re.fullmatch(r"return i == (\w+)", body))
+    assert m, body
+    lo, hi = (getattr(fk, v) for v in (m.groups() * 2)[:2])
+    return [i for i in range(fk.EchelonSpec.NXF) if lo <= i <= hi]
+
+
+def _echelon_env(draw, rows):
+    """x rows [NXF, n]: the named ``rows`` drawn (log transitions), every
+    other row NaN, so that a row the update reads without loading it
+    shows."""
+    n = draw().numel()
+    xr = torch.full((fk.EchelonSpec.NXF, n), float("nan"))
+    for i in rows:
+        xr[i] = draw()
+    return xr
+
+
+def _sel_env(**kw):
+    return dict(kw, log_add_sel=_log_add_sel_torch,
+                log_add3_sel=_la3(_log_add_sel_torch),
+                **{k: getattr(fk, k) for k in ("EC_LA_MX", "EC_LA_MH",
+                                               "EC_LA_XX", "EC_LA_XH")})
+
+
+def test_echelon_fwd_update_sel_equals_plain():
+    """Echelon::fwd_update_sel (15 log_add_sel in _EchelonSpec's grouping),
+    transcribed, equals fb_kernels.EchelonSpec.fwd_update_w bit for bit on
+    the x rows the forward template loads (fwd_row: the four skip logs at
+    x; every other row NaN), NEG sources, NEG emissions and
+    cubic-boundary gaps included."""
+    stmts = _method("Echelon", "fwd_update_sel")
+    assert sum(len(re.findall(r"log_add_sel\(", s)) for s in stmts) == 15
+    assert not any("log_add(" in s or "log_add3(" in s for s in stmts)
+    fwd = WAVEFRONT[WAVEFRONT.index("void sm3_fwd_tiled_sel("):]
+    fwd = fwd[:fwd.index("\n}\n")]
+    assert "if (Spec::fwd_row(i)) in[YR + i] = xb[i * X + x];" in fwd
+    assert re.search(r"Spec::fwd_update_sel\(p1m, p1a, p2m,\s*"
+                     r"plane_emissions<Spec>\(es \+ rs \* NL \* W, l,\s*"
+                     r"W\),\s*in \+ YR, nv\);", fwd)
+    rows = _echelon_rows("fwd_row")
+    assert rows == [24, 25, 26, 27]
+    _, draw = _update_grid(1)
+    p1m, p1a, p2m = ([draw() for _ in range(7)] for _ in range(3))
+    e_match = tuple(draw() for _ in range(5))
+    e_gapy = draw()
+    xr = _echelon_env(draw, rows)
+    out = [None] * 7
+    env = _sel_env(p1m=p1m, p1a=p1a, p2m=p2m, xr=xr, out=out,
+                   e=type("E", (), dict(match=list(e_match),
+                                        gap_y=e_gapy))())
+    _run_statements(stmts, env)
+    want = fk.EchelonSpec.fwd_update_w(None, xr, e_match, e_gapy, p1m, p1a,
+                                       p2m)
+    _bits_equal(out, want)
+    assert all(bool((g == np.float32(fk.NEG)).any()) for g in out)
+    assert all(bool(torch.isfinite(g).all()) for g in out)
+    _cubic_ranges_reached((p2m[0] - p2m[1]).abs())
+
+
+def test_echelon_bwd_update_sel_equals_plain():
+    """Echelon::bwd_update_sel (seven log_add_sel in _EchelonSpec's
+    grouping), transcribed, equals fb_kernels.EchelonSpec.bwd_update_w bit
+    for bit on the x rows the backward template loads (row_at_next: the
+    four skip logs at next_col(x); bwd_row: la_mh at x; every other row
+    NaN), NEG sources and cubic-boundary gaps included."""
+    stmts = _method("Echelon", "bwd_update_sel")
+    assert sum(len(re.findall(r"log_add_sel\(", s)) for s in stmts) == 5
+    assert sum(len(re.findall(r"log_add3_sel\(", s)) for s in stmts) == 1
+    bwd = WAVEFRONT[WAVEFRONT.index("void sm3_bwd_tiled_sel("):]
+    bwd = bwd[:bwd.index("\n}\n")]
+    assert "if (Spec::bwd_row(i)) in[YR + i] = xb[i * X + x];" in bwd
+    assert "if (Spec::row_at_next(i)) inp[i] = xb[i * X + xp];" in bwd
+    assert re.search(r"Spec::bwd_update_sel\(in \+ YR, inp,\s*"
+                     r"ps\[\(es \* Spec::EM_PLANE \+ NEM\) \* W \+ l\],"
+                     r"\s*em2p, n1a, n1p, n2p, bw\);", bwd)
+    at_x, at_next = _echelon_rows("bwd_row"), _echelon_rows("row_at_next")
+    assert at_x == [25] and at_next == [24, 25, 26, 27]
+    _, draw = _update_grid(1)
+    eg1 = draw()
+    em2p = [draw() for _ in range(5)]
+    n1a, n1p, n2p = ([draw() for _ in range(7)] for _ in range(3))
+    xr, xrp = _echelon_env(draw, at_x), _echelon_env(draw, at_next)
+    out = [None] * 7
+    env = _sel_env(xr=xr, xrp=xrp, eg1=eg1, em2p=em2p, n1a=n1a, n1p=n1p,
+                   n2p=n2p, out=out)
+    _run_statements(stmts, env)
+    want = fk.EchelonSpec.bwd_update_w(None, xr, xrp, eg1, em2p, n1a, n1p,
+                                       n2p)
+    _bits_equal(out, want)
+    assert all(bool((g == np.float32(fk.NEG)).any()) for g in out)
+    assert all(bool(torch.isfinite(g).all()) for g in out)
+    _cubic_ranges_reached((em2p[0] + n2p[1] - em2p[1] - n2p[2]).abs())
