@@ -12,8 +12,8 @@ machine and the HDP machine through them:
 2. the kernel build (nvcc, ptxas register report); every select instance
    (the kernels redesigned for the card: K6a and K6b dna5, K3 dna5, K6b
    strawman, K6a strawman, K2 dna5, K6b sm4 and vanilla, K6a sm4 and
-   vanilla, K1 and K2 echelon) and the echelon emission pre-pass within
-   64 registers, no spill;
+   vanilla, K1 and K2 echelon, K2 strawman and vanilla) and the echelon
+   emission pre-pass within 64 registers, no spill;
 3. each kernel against its plain PyTorch version on the card, on the first
    64-read chunk of the bench batch (256 reads x 905 bases x 800 events,
    seed 7), with the tolerances of cpecan_tpu_torch/parity.py, and the
@@ -301,7 +301,9 @@ REDESIGNED = ("sm3_fwd_tiled_sel<Dna5, 1>",
               "sm3_fwd_tiled_sel<Sm4, 1>", "sm3_fwd_tiled_sel<Vanilla, 1>",
               "sm3_fwd_tiled_sel<Echelon, 0>",
               "sm3_bwd_tiled_sel<Echelon, 0, 0>",
-              "sm3_emissions_kernel<Echelon>")
+              "sm3_emissions_kernel<Echelon>",
+              "sm3_bwd_tiled_sel<Strawman, 0, 0>",
+              "sm3_bwd_tiled_sel<Vanilla, 0, 0>")
 
 
 def log(msg):
@@ -493,6 +495,8 @@ def main():
         log(f"  ptxas: {name} within 64 registers, no spill")
 
     # -- 3. kernels vs plain on the first bench chunk --------------------
+    # K1 strawman (sm3_fwd_kernel<Strawman>) and K2 strawman (the untiled
+    # select posterior form, sm3_bwd_tiled_sel<Strawman, 0, 0>), bit for bit
     sm, reads = synthetic_batch(**BATCH)
     pa = StrawmanAligner(AlignmentParams(), device=dev, group=GROUP)
     prep = pa.prepare(sm, reads[:CHUNK])
@@ -1564,6 +1568,9 @@ def main():
     torch.cuda.synchronize()
 
     # -- 19. the vanilla kernels vs plain on bench.py's vanilla cell --------
+    # K1 vanilla (sm3_fwd_kernel<Vanilla>), K2 vanilla (the untiled select
+    # posterior form, sm3_bwd_tiled_sel<Vanilla, 0, 0>) and K3 vanilla
+    # (sm3_bwd_kernel<Vanilla, 1>), bit for bit
     # bench.py's vanilla cell: the bench batch on the vendored template
     # model.  Two machines: the default one with flush ends, and the skip
     # bins of the stored JAX vanilla training with ragged ends and per-read
@@ -2843,6 +2850,9 @@ def main():
     # passes: a warm-up and 3 timed runs (4; phases 5, 12, 15, 16, 20 and
     # the E-steps of 20 and 28), the EM iterations (phases 9, 18), 3 timed
     # runs (phases 23, 25, 28) or one run (phases 21, 22)
+    # K2 strawman, K2 dna5 and K2 vanilla run the untiled select posterior
+    # form (sm3_bwd_tiled_sel<Spec, 0, 0>), K2 sm4 and K2 hdp
+    # sm3_bwd_kernel<Spec, 0>
     log(json.dumps({"kernels": [
         entry("wavefront_fwd", "cpecan_tpu/ops/pallas_fb.py:635",
               launches["wavefront_fwd"], 4, exact, "fwd", "fwd"),

@@ -25,8 +25,8 @@
 //   sm3_bwd_kernel<Spec, false>
 //                          <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
 //                             -> _sm3_backward_body_w (:857, :900;
-//                             with_exp=False, untiled; _StrawmanSpec,
-//                             _VanillaSpec, _Sm4Spec, _HdpSpec)         K2
+//                             with_exp=False, untiled; _Sm4Spec,
+//                             _HdpSpec)                                 K2
 //   sm3_bwd_kernel<Spec, true>
 //                          <- the same body with with_exp=True (EM
 //                             expectations: accumulate_exp :1072 and
@@ -49,9 +49,11 @@
 //                             _StrawmanSpec, _VanillaSpec, _Sm4Spec (the
 //                             long signal reads' path), with the select
 //                             step (the note above sm3_fwd_tiled_sel)  K6b
-//   sm3_bwd_tiled_sel<Dna5, false, false>
-//                          <- K2 for the 5-state DNA machine (the
-//                             realigner's posteriors): the untiled
+//   sm3_bwd_tiled_sel<Spec, false, false>
+//                          <- K2 (the same body, with_exp=False) for the
+//                             5-state DNA machine (the realigner's
+//                             posteriors), _StrawmanSpec and _VanillaSpec
+//                             (the signal posterior chunks): the untiled
 //                             posterior form, with the select step
 //   sm3_bwd_tiled_sel<Dna5, true, false>
 //                          <- K3 for the 5-state DNA machine (cPecanEm's
@@ -1519,7 +1521,11 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
 // log-adds of Strawman::fwd_update_with as log_add_sel.  K2 for the 5-state
 // DNA machine (the realigner's 2 kb pairs, ND ~4,000), whose step was the
 // one K6b dna5 had before its redesign, is the untiled posterior form of
-// the backward template.  The fourState and vanilla backwards (K6b sm4 and
+// the backward template.  So are K2 strawman and K2 vanilla (the signal
+// posterior path's 64-read chunks: 64 blocks of 128 threads, 1,700
+// diagonals; ~1,950 and ~2,020 ns a diagonal on sm3_bwd_kernel on the same
+// card), with the traits of their K6b below and none of its tile
+// bookkeeping.  The fourState and vanilla backwards (K6b sm4 and
 // K6b vanilla, the same long reads; 2.33 and 2.05 us a diagonal with
 // sm3_bwd_kernel's tiled form on the same card) run on the backward
 // template with the signal machines' traits (SignalRows: the column logs
@@ -2604,7 +2610,8 @@ const char* wavefront_error_string(int code) {
             stream);                                                         \
     }
 
-// the untiled select posterior kernel takes the untiled one's arguments
+// the untiled select posterior kernels (K2 dna5, strawman and vanilla:
+// sm3_bwd_tiled_sel<Spec, false, false>) take the untiled one's arguments
 #define WAVEFRONT_BWD_SEL_ENTRY(NAME, SPEC)                                 \
     int NAME(const void* scal, const void* win, const void* xf,              \
              const void* yf, const void* basef, const void* widthf,          \
@@ -2714,14 +2721,14 @@ WAVEFRONT_FWD_ENTRY(wavefront_fwd, Strawman)
 WAVEFRONT_FWD_ENTRY(wavefront_fwd_dna5, Dna5)
 WAVEFRONT_FWD_TILED_SEL_ENTRY(wavefront_fwd_tiled, Strawman)
 WAVEFRONT_FWD_TILED_SEL_ENTRY(wavefront_fwd_tiled_dna5, Dna5)
-WAVEFRONT_BWD_ENTRY(wavefront_bwd, Strawman)
+WAVEFRONT_BWD_SEL_ENTRY(wavefront_bwd, Strawman)
 WAVEFRONT_BWD_SEL_ENTRY(wavefront_bwd_dna5, Dna5)
 WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled, Strawman)
 WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled_dna5, Dna5)
 
 WAVEFRONT_FWD_ENTRY(wavefront_fwd_vanilla, Vanilla)
 WAVEFRONT_FWD_TILED_SEL_ENTRY(wavefront_fwd_tiled_vanilla, Vanilla)
-WAVEFRONT_BWD_ENTRY(wavefront_bwd_vanilla, Vanilla)
+WAVEFRONT_BWD_SEL_ENTRY(wavefront_bwd_vanilla, Vanilla)
 WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled_vanilla, Vanilla)
 
 WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp, Strawman)

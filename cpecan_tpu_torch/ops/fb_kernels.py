@@ -62,10 +62,11 @@ diagonals in one launch each: a tile of the TPU kernels is only a
 boundary here, where the carried diagonals re-center.  Every tiled pair
 (dna5, strawman, vanilla, sm4) runs the select kernels
 (``sm3_fwd_tiled_sel<Spec, true>``, ``sm3_bwd_tiled_sel<Spec, false,
-true>``: the same recurrences with a branch-free log-add), as do K2 dna5
-(the untiled posterior form ``sm3_bwd_tiled_sel<Dna5, false, false>``),
-K3 dna5 (the untiled expectation form ``sm3_bwd_tiled_sel<Dna5, true,
-false>``) and K1/K2 echelon (the untiled forms
+true>``: the same recurrences with a branch-free log-add), as do K2 dna5,
+K2 strawman and K2 vanilla (the untiled posterior form
+``sm3_bwd_tiled_sel<Spec, false, false>``), K3 dna5 (the untiled
+expectation form ``sm3_bwd_tiled_sel<Dna5, true, false>``) and K1/K2
+echelon (the untiled forms
 ``sm3_fwd_tiled_sel<Echelon, false>`` and ``sm3_bwd_tiled_sel<Echelon,
 false, false>``, each after the emission pre-pass ``echelon_emissions``,
 whose plane the wrapper allocates and drops after the launch); the other
@@ -1345,10 +1346,11 @@ def wavefront_bwd(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
                   R, W, ND, C, spec=StrawmanSpec, est=None):
     """Posterior backward -> (posts [G, ND+1, R, W] or, for a spec with
     POST_STATES, [G, ND+1, NPS, R, W], totals [G, R]) f32; a streamed spec
-    reads its emissions from ``est``.  Plain PyTorch for CPU tensors; the
-    CUDA kernel ``sm3_bwd_kernel<spec, false>`` (dna5 and echelon: the
-    untiled ``sm3_bwd_tiled_sel<spec, false, false>``, echelon's after its
-    emission pre-pass at k = 1) for CUDA tensors (replaces
+    reads its emissions from ``est``.  Plain PyTorch for CPU tensors; for
+    CUDA tensors the CUDA kernel ``sm3_bwd_tiled_sel<spec, false, false>``,
+    the untiled select posterior form (strawman, vanilla, dna5 and echelon,
+    echelon's after its emission pre-pass at k = 1), or for sm4 and hdp
+    ``sm3_bwd_kernel<spec, false>`` (replaces
     cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
     with_exp=False)."""
     if xf.device.type == "cpu":

@@ -11,10 +11,18 @@
   (``echelon_batch``'s 64 reads, group 32, with phase 25's shape hint).
   For a tree with the emission pre-pass (``echelon_emissions``) the
   pre-pass at both offsets and each recurrence alone on its plane are
-  timed too.
+  timed too;
+- ``posterior``: the untiled signal pairs (K1 and K2 strawman, K1 and K2
+  vanilla) on the inputs of phases 3/5 and 19/20: each 64-read chunk of
+  bench.py's 256 signal reads (``synthetic_batch(256, 905, 800, seed=7)``,
+  group 64; ND 1,700, W 128) as the strawman main path runs it, and the
+  same chunks on the default vanilla machine of the vendored template
+  model.  Chunk 0 is the chunk whose kernel ms ``chip_smoke.py`` reports.
 
     python cpecan_tpu_torch/tools/tiled_times.py build/parent .
     python cpecan_tpu_torch/tools/tiled_times.py --path echelon build/parent .
+    python cpecan_tpu_torch/tools/tiled_times.py --path posterior \
+        build/parent . . build/parent
 
 Each tree is a directory holding ``cpecan_tpu_torch`` (a parent unpacked
 with ``git archive`` beside the change, say).  Each tree's own
@@ -46,6 +54,8 @@ ROOT = Path(__file__).resolve().parents[2]
 LONG_READS, LONG_GROUP = 64, 8
 LONG_CHECK = (1500, 2550)
 ECH_READS, ECH_CHUNK, ECH_THRESHOLD = 64, 32, 0.01
+POST_BATCH = dict(n_reads=256, n_ref=905, n_events=800, seed=7)
+POST_CHUNK = 64
 
 
 def load_tree(i, tree):
@@ -181,7 +191,50 @@ def echelon_cases(fks, dev):
            [lambda fk=fk: launches(fk) for fk in fks])
 
 
-PATHS = {"long": long_cases, "echelon": echelon_cases}
+def posterior_cases(fks, dev):
+    """The untiled signal pairs' cases, one per machine and chunk, as
+    ``long_cases``."""
+    from cpecan_tpu_torch.align import AlignmentParams
+    from cpecan_tpu_torch.fixtures import fixture_path
+    from cpecan_tpu_torch.io.poremodel import load_pore_model
+    from cpecan_tpu_torch.models.state_machines import StateMachine3Vanilla
+    from cpecan_tpu_torch.ops.fb import StrawmanAligner, VanillaAligner
+    from cpecan_tpu_torch.synthetic import synthetic_batch
+
+    sm, reads = synthetic_batch(**POST_BATCH)
+    vsm = StateMachine3Vanilla(
+        load_pore_model(fixture_path("template_median68pA.model")))
+    machines = (("strawman", StrawmanAligner, sm, "StrawmanSpec"),
+                ("vanilla", VanillaAligner, vsm, "VanillaSpec"))
+    for label, aligner_cls, machine, spec in machines:
+        aligner = aligner_cls(AlignmentParams(), device=dev,
+                              group=POST_CHUNK)
+        for i in range(0, len(reads), POST_CHUNK):
+            prep = aligner.prepare(machine, reads[i:i + POST_CHUNK])
+            inp = aligner.device_inputs(machine, prep)
+            dims = dict(R=prep["R"], W=prep["W"], ND=prep["ND"],
+                        C=prep["C"])
+            fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                                   "widthf")]
+            ba = fa + [inp["seedf"], inp["raggedf"]]
+
+            def launches(fk, fa=fa, ba=ba, dims=dims, spec=spec):
+                d = dict(dims, spec=getattr(fk, spec))
+                fwd = fk.wavefront_fwd(*fa, **d)
+                posts, tot = fk.wavefront_bwd(*ba, fwd, **d)
+                return (fwd, posts, tot), {
+                    "fwd": lambda: fk.wavefront_fwd(*fa, **d),
+                    "bwd": lambda: fk.wavefront_bwd(*ba, fwd, **d)}
+
+            yield ({"machine": label, "chunk": i // POST_CHUNK,
+                    "reads": len(reads[i:i + POST_CHUNK]), "ND": dims["ND"],
+                    "W": dims["W"]}, dims["ND"],
+                   [lambda fk=fk: launches(fk) for fk in fks])
+            del fa, ba, inp, prep
+
+
+PATHS = {"long": long_cases, "echelon": echelon_cases,
+         "posterior": posterior_cases}
 
 
 def main(argv=None):

@@ -470,6 +470,43 @@ def _tiled_case(cuda, spec, W, NT, ragged, TD=128, every=False):
     return fa, ba, dims, TD
 
 
+@pytest.mark.parametrize("spec", [fk.StrawmanSpec, fk.VanillaSpec],
+                         ids=lambda s: s.NAME)
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("W, ND, every", [
+    (32, 2, False), (32, 3, False), (32, 5, False), (128, 300, True),
+    (128, 257, False), (1024, 2, False), (1024, 5, False),
+    (1024, 150, True)])
+def test_cuda_signal_kernels_match_plain_on_moving_windows(cuda, spec,
+                                                           ragged, W, ND,
+                                                           every):
+    """K1 and K2 of the strawman and vanilla machines (K2: the untiled
+    ``sm3_bwd_tiled_sel<Spec, false, false>``) against their plain
+    versions on synthetic inputs whose group window drifts (and with
+    ``every`` shifts on nearly every diagonal), so that the backward reads
+    lanes outside the window of d + 1 on many steps: the fwd plane, the
+    posteriors and the totals bit for bit, at W 32, 128 and 1024.  ND 2, 3
+    and 5 leave fewer diagonals than the fwd slots copied ahead (the
+    prologue's empty groups and the tail's rotated slots)."""
+    fa, ba, dims = _synthetic_case(cuda, spec, W, ND, ragged,
+                                   [9, W, ND, int(ragged)], every=every)
+    fk.reset_counts()
+    fwd = fk.wavefront_fwd(*fa, **dims)
+    posts, totals = fk.wavefront_bwd(*ba, fwd, **dims)
+    torch.cuda.synchronize()
+    assert fk.KERNEL_LAUNCHES == {"wavefront_fwd" + spec.SUFFIX: 1,
+                                  "wavefront_bwd" + spec.SUFFIX: 1}
+    assert fk.forward_plain.calls == fk.backward_plain.calls == 0
+    assert torch.equal(fwd, fk.forward_plain(*fa, **dims))
+    pposts, ptotals = fk.backward_plain(*ba, fwd, **dims)
+    assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
+    assert torch.all(posts[:, 0] == 0.0)
+    assert torch.isfinite(totals).all()
+    # at ND 2 only the cell (1, 1) can carry a posterior, and a band may
+    # miss it
+    assert (posts > 0.0).any() or ND == 2
+
+
 @pytest.mark.parametrize("ragged", [False, True])
 @pytest.mark.parametrize("W, NT", [(None, None), (32, 1), (32, 2), (32, 3),
                                    (128, 1), (128, 2), (128, 3), (1024, 1),
