@@ -12,8 +12,9 @@ machine and the HDP machine through them:
 2. the kernel build (nvcc, ptxas register report); every select instance
    (the kernels redesigned for the card: K6a and K6b dna5, K3 dna5, K6b
    strawman, K6a strawman, K2 dna5, K6b sm4 and vanilla, K6a sm4 and
-   vanilla, K1 and K2 echelon, K2 strawman and vanilla) and the echelon
-   emission pre-pass within 64 registers, no spill;
+   vanilla, K1 and K2 echelon, K2 strawman and vanilla, K2 hdp and K1
+   vanilla) and the echelon emission pre-pass within 64 registers, no
+   spill;
 3. each kernel against its plain PyTorch version on the card, on the first
    64-read chunk of the bench batch (256 reads x 905 bases x 800 events,
    seed 7), with the tolerances of cpecan_tpu_torch/parity.py, and the
@@ -26,10 +27,10 @@ machine and the HDP machine through them:
 6. forward + backward device time of the kernels on the whole batch;
 7. the EM expectation backward against its plain version on the first 32
    bench reads (ragged ends, per-read scaling), with the untrained machine
-   and with the Zymo fixture's trained one (Y -> X open): forward planes,
-   posteriors, totals and transition sums equal bit for bit, gap-X
-   columns within parity.KERNEL_GAPX_ATOL, the finalized expectations of
-   both, and their times;
+   and with the Zymo fixture's trained one (Y -> X open): posteriors,
+   totals and transition sums equal bit for bit, gap-X columns within
+   parity.KERNEL_GAPX_ATOL, the finalized expectations of both, and their
+   times;
 8. two Baum-Welch iterations of trainModels on the Zymo read (both
    strands) against the JAX package's stored result;
 9. the trainer at full width: three EM iterations (E-step, merge and
@@ -85,10 +86,10 @@ machine and the HDP machine through them:
 17. the dna5 expectation backward (K3 for the 5-state machine) against its
    plain version on the first 32 alignments of bench.py's cPecanEm E-step
    batch (128 x 1 kb, random.Random(3); group 32, ragged at both ends),
-   with the default machine and with the equalised fiveState start: fwd
-   planes, posteriors, totals and the 25 transition lanes equal bit for
-   bit, the 20 per-column accumulators within parity.KERNEL_GAPX_ATOL, the
-   finalized expectations of both, and their times;
+   with the equalised fiveState start that the E-step runs: posteriors,
+   totals and the 25 transition lanes equal bit for bit, the 20
+   per-column accumulators within parity.KERNEL_GAPX_ATOL, the finalized
+   expectations, and their times;
 18. cPecanEm at full width: bench.py's dna_em_estep_alignments_per_sec (the
    128 alignments, one shard, chunks of 64; median of 3 after a warm-up),
    the E-step's stage split and one 64-pair chunk's kernel ms (K3 dna5's
@@ -101,11 +102,11 @@ machine and the HDP machine through them:
    (the fixture case against the stored model, the 128 alignments timed);
 19. the vanilla kernels (K1, K2, K3 for the vanilla machine) against their
    plain versions: K1/K2 on the first 64-read chunk of bench.py's vanilla
-   cell (the bench batch on the vendored template model), K3 on its first
-   32 reads (group 32), each with the default machine and flush ends and
-   with the skip bins of the stored JAX vanilla training, ragged ends and
-   per-read scaling: fwd planes, posteriors, totals and the beta/alpha
-   accumulators equal bit for bit, and the finalized skip bins;
+   cell (the bench batch on the vendored template model) with the default
+   machine and flush ends, K3 on its first 32 reads (group 32) with the
+   skip bins of the stored JAX vanilla training, ragged ends and per-read
+   scaling: fwd plane, posteriors, totals and the beta/alpha accumulators
+   equal bit for bit, and the finalized skip bins;
 20. the vanilla main path at full width: bench.py's
    vanilla_alignments_per_sec (VanillaAligner(group=64).run over chunks of
    64, compact_k=1024; median of 3 after a warm-up) with its stage split
@@ -116,15 +117,15 @@ machine and the HDP machine through them:
 21. K6a/K6b vanilla against their plain versions at phase 12's R, W and
    TD on its 1,500 x 2,550 check read (two tiles), then phase 12's 64
    long reads through VanillaAligner once, kernels only: bases/s;
-22. the sm4 kernels (K1, K2, K3, K6a, K6b for the 4-state machine) against
-   their plain versions: K1/K2 on the first bench chunk with the default
-   machine; K3 through one Sm4Aligner.run(expectations=True) on its first
-   32 reads with ragged ends, per-read scaling and a trained-looking
-   machine (every transition finite, a non-zero gap-X table); phase 12's
-   64 long reads routed tiled once, then K6a/K6b against plain on its
-   check read: fwd planes, shifts, posteriors, totals and transition lanes
-   bit for bit, the shortGapX columns within parity.KERNEL_GAPX_ATOL,
-   equal pairs, ms, plain ms and bounds;
+22. the sm4 kernels K3, K6a and K6b (the 4-state machine's; phase 23 holds
+   K1/K2 sm4) against their plain versions: K3 through one
+   Sm4Aligner.run(expectations=True) on the first 32 bench reads with
+   ragged ends, per-read scaling and a trained-looking machine (every
+   transition finite, a non-zero gap-X table); phase 12's 64 long reads
+   routed tiled once, then K6a/K6b against plain on its check read: fwd
+   planes, shifts, posteriors, totals and transition lanes bit for bit,
+   the shortGapX columns within parity.KERNEL_GAPX_ATOL, equal pairs, ms,
+   plain ms and bounds;
 23. the signalAlign pipeline at full width: bench.py's
    signal_pipeline_reads_per_sec (run_batch_fast on 64 copies of the Zymo
    read, each guided by the stored guide renamed to it, StrawmanAligner
@@ -189,11 +190,12 @@ The stage splits run the path's own code (``WavefrontAligner.run``,
 each step ended by a synchronize.
 
 Each path's launch counts are read from a run that starts with every
-count at 0.  Any failed check raises (exit code != 0).  The last three
-lines are a JSON record of the kernels (times, launches and the passes
-of the main path they were counted over, the least time the card could
-take and what bounds it), the card's name and power
-limit, and {"ok": true, "device": ...}.  Exits with 2 and prints no
+count at 0.  Any failed check raises (exit code != 0).  After the phases,
+one line each gives a phase's wall seconds (``phase N: s``), then their
+sum.  The last three lines are a JSON record of the kernels (times,
+launches and the passes of the main path they were counted over, the
+least time the card could take and what bounds it), the card's name and
+power limit, and {"ok": true, "device": ...}.  Exits with 2 and prints no
 result when no CUDA device is present.
 """
 
@@ -303,7 +305,9 @@ REDESIGNED = ("sm3_fwd_tiled_sel<Dna5, 1>",
               "sm3_bwd_tiled_sel<Echelon, 0, 0>",
               "sm3_emissions_kernel<Echelon>",
               "sm3_bwd_tiled_sel<Strawman, 0, 0>",
-              "sm3_bwd_tiled_sel<Vanilla, 0, 0>")
+              "sm3_bwd_tiled_sel<Vanilla, 0, 0>",
+              "sm3_bwd_tiled_sel<Hdp, 0, 0>",
+              "sm3_fwd_tiled_sel<Vanilla, 0>")
 
 
 def log(msg):
@@ -344,6 +348,24 @@ def timed(fn):
     end.record()
     end.synchronize()
     return res, start.elapsed_time(end)
+
+
+class PhaseClock:
+    """Wall seconds of each phase: ``start(n)`` ends the running phase and
+    starts phase n, ``stop()`` ends the last one."""
+
+    def __init__(self):
+        self.s = {}
+        self.n = self.t0 = None
+
+    def start(self, n):
+        now = time.perf_counter()
+        if self.n is not None:
+            self.s[self.n] = now - self.t0
+        self.n, self.t0 = n, now
+
+    def stop(self):
+        self.start(None)
 
 
 class Stages:
@@ -455,6 +477,8 @@ def main():
 
     dev = torch.device(DEVICE)
     thr = AlignmentParams().threshold
+    clock = PhaseClock()
+    clock.start(1)
     try:
         triton = importlib.metadata.version("triton")
     except importlib.metadata.PackageNotFoundError:
@@ -466,6 +490,7 @@ def main():
         f"nvidia-smi: {smi}")
 
     # -- 2. build --------------------------------------------------------
+    clock.start(2)
     t0 = time.perf_counter()
     load_library()
     path, build_s, build_log = build_info()
@@ -495,6 +520,7 @@ def main():
         log(f"  ptxas: {name} within 64 registers, no spill")
 
     # -- 3. kernels vs plain on the first bench chunk --------------------
+    clock.start(3)
     # K1 strawman (sm3_fwd_kernel<Strawman>) and K2 strawman (the untiled
     # select posterior form, sm3_bwd_tiled_sel<Strawman, 0, 0>), bit for bit
     sm, reads = synthetic_batch(**BATCH)
@@ -547,6 +573,7 @@ def main():
         f"{ms['bwd_plain']:.1f}")
 
     # -- 4. Zymo read vs the f64 engine ----------------------------------
+    clock.start(4)
     model, zread, zpairs = load_zymo_slice()
     zout = StrawmanAligner(AlignmentParams(), device=dev, group=1).run(
         StateMachine3SignalStrawman(model), [zread])
@@ -560,6 +587,7 @@ def main():
     torch.cuda.synchronize()
 
     # -- 5. the main path at bench scale ---------------------------------
+    clock.start(5)
     def main_path():
         parts, outs = [], []
         for i in range(0, len(reads), CHUNK):
@@ -615,6 +643,7 @@ def main():
     del st, sout
 
     # -- 6. device-only fwd+bwd, whole batch -----------------------------
+    clock.start(6)
     bprep = pa.prepare(sm, reads)
     binp = pa.device_inputs(sm, bprep)
     bdims = dict(R=bprep["R"], W=bprep["W"], ND=bprep["ND"], C=bprep["C"])
@@ -632,6 +661,7 @@ def main():
     torch.cuda.synchronize()
 
     # -- 7. K3 vs plain on the first 32 bench reads, training inputs -----
+    clock.start(7)
     # the inputs of phase 9's E-step (ragged ends, per-read scaling), cut
     # to their first group of 32 reads; once with the untrained machine
     # (Y -> X closed: LOG_ZERO) and once with a trained one (Y -> X open)
@@ -652,11 +682,6 @@ def main():
             finp[k][:n] for k in ("xf", "yf", "basef", "widthf", "seedf",
                                   "raggedf")]
         efwd = fk.wavefront_fwd(*mb[:6], **edims)
-        pfwd = fk.forward_plain(*mb[:6], **edims)
-        if not torch.equal(efwd, pfwd):
-            raise AssertionError(
-                f"{name} machine: forward kernel differs from its plain "
-                f"version by {float((efwd - pfwd).abs().max())}")
         ek = fk.wavefront_bwd_exp(*mb, efwd, **edims)
         ep, ep_ms = timed(lambda: fk.backward_exp_plain(*mb, efwd, **edims))
         e_gap = check_exp_kernel(ek, ep)
@@ -671,8 +696,8 @@ def main():
         if name == "untrained":
             kexp, eb, ebfwd, ek_plain_ms = mexp, mb, efwd, ep_ms
         log(f"expectation kernel vs plain, {name} machine ({n} reads, "
-            f"ragged, scaled, ND={edims['ND']}, W={edims['W']}): fwd, "
-            f"posts, totals, trans equal; gapx max|d| {e_gap:.3g}; Y -> X "
+            f"ragged, scaled, ND={edims['ND']}, W={edims['W']}): posts, "
+            f"totals, trans equal; gapx max|d| {e_gap:.3g}; Y -> X "
             f"sums {float(y_to_x.min()):.4g}-{float(y_to_x.max()):.4g}")
     ms.update(
         bwd_exp=cuda_ms(lambda: fk.wavefront_bwd_exp(*eb, ebfwd, **edims),
@@ -685,6 +710,7 @@ def main():
         f"{ms['bwd_exp']:.3f} vs plain {ms['bwd_exp_plain']:.1f}")
 
     # -- 8. Zymo training vs the JAX package's result ---------------------
+    clock.start(8)
     zargs, zstored = load_zymo_train()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -700,6 +726,7 @@ def main():
         f"max|d| {ztrans:.3g} vs the JAX package")
 
     # -- 9. the trainer at full width -------------------------------------
+    clock.start(9)
     em_kw = dict(expectations=True, ragged_left=True, ragged_right=True)
     # the full-width E-step against phase 7's on the reads they share
     first = epa.run(sm, reads, scale_params=em_sp, **em_kw)["expectations"]
@@ -768,6 +795,7 @@ def main():
     torch.cuda.synchronize()
 
     # -- 10. K6a/K6b vs plain on the first bench chunk, 14 tiles ----------
+    clock.start(10)
     tprep = pa.prepare(sm, reads[:CHUNK], tile_diag=TILE_CHECK)
     tinp = pa.device_inputs(sm, tprep)
     tl = tprep["tiled"]
@@ -820,6 +848,7 @@ def main():
     torch.cuda.synchronize()
 
     # -- 11. the fixture long read routes tiled by itself -----------------
+    clock.start(11)
     lmodel, lread, lstored = load_long_read()
     lsm = StateMachine3SignalStrawman(lmodel)
     la = StrawmanAligner(AlignmentParams(), device=dev, group=LONG_GROUP)
@@ -851,6 +880,7 @@ def main():
     torch.cuda.synchronize()
 
     # -- 12. the long-read path at full width -----------------------------
+    clock.start(12)
     lreads = [long_signal_read(lread[2], lread[3], seed)[1]
               for seed in range(11, 11 + LONG_READS)]
     bases = sum(r[2] + r[3] for r in lreads)
@@ -1004,6 +1034,7 @@ def main():
     torch.cuda.synchronize()
 
     # -- 13. the dna5 kernels vs plain on the first 32 realign pairs ------
+    clock.start(13)
     dreads = dna_realign_batch()
     dsm = StateMachine5()
     da = Dna5Aligner(AlignmentParams(), device=dev, group=DNA_GROUP)
@@ -1092,6 +1123,7 @@ def main():
     torch.cuda.synchronize()
 
     # -- 14. the realign CLI on the card vs the JAX CLI's stored output ---
+    clock.start(14)
     def cli(fasta_text, cigars, stage=None):
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "realign.fa")
@@ -1126,6 +1158,7 @@ def main():
     del rst, rprep
 
     # -- 15. realign at bench scale ----------------------------------------
+    clock.start(15)
     hint = (max(r[2] for r in dreads), da.prepare(dsm, dreads)["ND"])
 
     def realign_bench():
@@ -1183,6 +1216,7 @@ def main():
     torch.cuda.synchronize()
 
     # -- 16. long DNA --------------------------------------------------------
+    clock.start(16)
     l5 = Dna5Aligner(AlignmentParams(), device=dev, group=LONG_GROUP)
     fk.reset_counts()
     l10 = l5.run(dsm, [lpair])
@@ -1362,9 +1396,10 @@ def main():
     torch.cuda.synchronize()
 
     # -- 17. K3 dna5 vs plain on the first 32 cPecanEm E-step pairs --------
+    clock.start(17)
     # bench.py's E-step inputs (ragged at both ends), cut to their first
-    # group of 32; once with the default machine and once with the
-    # equalised fiveState start that bench.py's E-step runs
+    # group of 32, with the equalised fiveState start that bench.py's
+    # E-step runs (the gpu tests hold the default machine too)
     eseqs, ealns, erng = dna_em_batch()
     eopts = em.EmOptions(train_emissions=True)
     eparams = eopts.realign_params
@@ -1373,47 +1408,41 @@ def main():
     esm = ehmm.to_state_machine()
     ea = Dna5Aligner(eparams, device=dev, group=EM_DNA_GROUP)
     ejobs = em._alignment_jobs(ealns[:EM_DNA_GROUP], eseqs, eparams)
-    d5exp_err = 0.0
-    for name, machine in (("default", StateMachine5()), ("equalised", esm)):
-        xprep = ea.prepare(machine, ejobs, ragged_right=True)
-        xinp = ea.device_inputs(machine, xprep, ragged_left=True)
-        xdims = dict(R=xprep["R"], W=xprep["W"], ND=xprep["ND"],
-                     C=xprep["C"], spec=fk.Dna5Spec)
-        xfa = [xinp[k] for k in ("scal", "win", "xf", "yf", "basef",
-                                 "widthf")]
-        xba = xfa + [xinp["seedf"], xinp["raggedf"]]
-        xfwd = fk.wavefront_fwd(*xfa, **xdims)
-        same(f"K1 dna5 fwd plane ({name} machine)", xfwd,
-             fk.forward_plain(*xfa, **xdims))
-        xk = fk.wavefront_bwd_exp(*xba, xfwd, **xdims)
-        xp, xp_ms = timed(lambda: fk.backward_exp_plain(*xba, xfwd, **xdims))
-        xerr = check_exp_kernel(xk, xp)
-        lanes = list(fk.Dna5Spec.EXP_LANES.values())
-        if not (bool(torch.all(xk[2][..., lanes] > 0))
-                and int((xk[2] != 0).sum(-1).max()) == len(lanes)):
-            raise AssertionError(f"{name} machine: dna5 transition lanes "
-                                 f"{xk[2][0, 0].tolist()}")
-        kfin, pfin = (ea.exp_finalize(xprep, host_array(ea.exp_dispatch(
-            xprep, xinp, o[2], o[3], o[1]))) for o in (xk, xp))
-        for k in ("trans", "likelihood"):
-            if not np.array_equal(kfin[k], pfin[k]):
-                raise AssertionError(f"{name} machine: finalized {k} differ")
-        if not np.abs(kfin["emis"] - pfin["emis"]).max() <= KERNEL_GAPX_ATOL:
-            raise AssertionError(f"{name} machine: finalized emis differ")
-        d5exp_err = max(d5exp_err, xerr)
-        if name == "equalised":
-            # the main path's machine: the line's ms, plain ms and bound
-            ms.update(dna5_bwd_exp=cuda_ms(lambda: fk.wavefront_bwd_exp(
-                *xba, xfwd, **xdims), 5), dna5_bwd_exp_plain=xp_ms)
-            xcells = sum(int(b.width.sum()) for b in xprep["bands"])
-            bounds["dna5_bwd_exp"] = bound(xba + [xfwd, *xk], xcells,
-                                           FLOPS_PER_CELL["dna5_bwd_exp"])
-        log(f"dna5 expectation kernel vs plain, {name} machine "
-            f"({len(ejobs)} E-step pairs, ragged, ND={xdims['ND']}, "
-            f"W={xdims['W']}): fwd, posts, totals, 25 trans lanes equal bit "
-            f"for bit, accumulators max|d| {xerr:.3g}; finalized trans and "
-            f"likelihoods equal, emis within {KERNEL_GAPX_ATOL}; plain "
-            f"{xp_ms:.1f} ms")
+    xprep = ea.prepare(esm, ejobs, ragged_right=True)
+    xinp = ea.device_inputs(esm, xprep, ragged_left=True)
+    xdims = dict(R=xprep["R"], W=xprep["W"], ND=xprep["ND"],
+                 C=xprep["C"], spec=fk.Dna5Spec)
+    xfa = [xinp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                             "widthf")]
+    xba = xfa + [xinp["seedf"], xinp["raggedf"]]
+    xfwd = fk.wavefront_fwd(*xfa, **xdims)
+    xk = fk.wavefront_bwd_exp(*xba, xfwd, **xdims)
+    xp, xp_ms = timed(lambda: fk.backward_exp_plain(*xba, xfwd, **xdims))
+    d5exp_err = check_exp_kernel(xk, xp)
+    lanes = list(fk.Dna5Spec.EXP_LANES.values())
+    if not (bool(torch.all(xk[2][..., lanes] > 0))
+            and int((xk[2] != 0).sum(-1).max()) == len(lanes)):
+        raise AssertionError("equalised machine: dna5 transition lanes "
+                             f"{xk[2][0, 0].tolist()}")
+    kfin, pfin = (ea.exp_finalize(xprep, host_array(ea.exp_dispatch(
+        xprep, xinp, o[2], o[3], o[1]))) for o in (xk, xp))
+    for k in ("trans", "likelihood"):
+        if not np.array_equal(kfin[k], pfin[k]):
+            raise AssertionError(f"equalised machine: finalized {k} differ")
+    if not np.abs(kfin["emis"] - pfin["emis"]).max() <= KERNEL_GAPX_ATOL:
+        raise AssertionError("equalised machine: finalized emis differ")
+    # the line's ms, plain ms and bound
+    ms.update(dna5_bwd_exp=cuda_ms(lambda: fk.wavefront_bwd_exp(
+        *xba, xfwd, **xdims), 5), dna5_bwd_exp_plain=xp_ms)
+    xcells = sum(int(b.width.sum()) for b in xprep["bands"])
+    bounds["dna5_bwd_exp"] = bound(xba + [xfwd, *xk], xcells,
+                                   FLOPS_PER_CELL["dna5_bwd_exp"])
+    log(f"dna5 expectation kernel vs plain, equalised machine "
+        f"({len(ejobs)} E-step pairs, ragged, ND={xdims['ND']}, "
+        f"W={xdims['W']}): posts, totals, 25 trans lanes equal bit "
+        f"for bit, accumulators max|d| {d5exp_err:.3g}; finalized trans and "
+        f"likelihoods equal, emis within {KERNEL_GAPX_ATOL}; plain "
+        f"{xp_ms:.1f} ms")
     log(f"dna5 expectation kernel ms ({len(ejobs)} pairs, equalised "
         f"machine): bwd_exp_dna5 {ms['dna5_bwd_exp']:.3f} vs plain "
         f"{ms['dna5_bwd_exp_plain']:.1f}; bound "
@@ -1422,6 +1451,7 @@ def main():
     torch.cuda.synchronize()
 
     # -- 18. cPecanEm at full width ----------------------------------------
+    clock.start(18)
     # bench.py bench_dna_em: 128 x 1 kb alignments, the equalised fiveState
     # start, shards drawn with the generator that made them, group 32,
     # chunks of 64; median of 3 after a warm-up
@@ -1568,19 +1598,22 @@ def main():
     torch.cuda.synchronize()
 
     # -- 19. the vanilla kernels vs plain on bench.py's vanilla cell --------
-    # K1 vanilla (sm3_fwd_kernel<Vanilla>), K2 vanilla (the untiled select
-    # posterior form, sm3_bwd_tiled_sel<Vanilla, 0, 0>) and K3 vanilla
+    clock.start(19)
+    # K1 vanilla (the untiled select forward, sm3_fwd_tiled_sel<Vanilla,
+    # 0>), K2 vanilla (the untiled select posterior form,
+    # sm3_bwd_tiled_sel<Vanilla, 0, 0>) and K3 vanilla
     # (sm3_bwd_kernel<Vanilla, 1>), bit for bit
     # bench.py's vanilla cell: the bench batch on the vendored template
-    # model.  Two machines: the default one with flush ends, and the skip
-    # bins of the stored JAX vanilla training with ragged ends and per-read
-    # scaling (the E-step's configuration)
+    # model.  K1/K2 on the default machine with flush ends (the main
+    # path's), K3 on the skip bins of the stored JAX vanilla training with
+    # ragged ends and per-read scaling (the E-step's configuration); phase
+    # 23 holds K1/K2 vanilla to plain on ragged, scaled reads too
     tmodel = load_pore_model(fixture_path("template_median68pA.model"))
     vjob, vsp, vstored = load_vanilla_zymo()
     vmachines = {
-        "default": (StateMachine3Vanilla(tmodel), False, None),
-        "trained": (StateMachine3Vanilla(
-            tmodel, skip_bin_probs=vstored["t_skip"]), True, em_sp)}
+        "default": StateMachine3Vanilla(tmodel),
+        "trained": StateMachine3Vanilla(tmodel,
+                                        skip_bin_probs=vstored["t_skip"])}
 
     def vanilla_inputs(machine, rs, group, ragged, sp):
         """(aligner, prep, inputs, fwd args, bwd args, dims)."""
@@ -1594,78 +1627,76 @@ def main():
                                "widthf")]
         return a, prep, inp, fa, fa + [inp["seedf"], inp["raggedf"]], vd
 
-    for name, (machine, ragged, vsp_) in vmachines.items():
-        _, kprep, _, kfa, kba, kd = vanilla_inputs(machine, reads[:CHUNK],
-                                                   GROUP, ragged, vsp_)
-        vfwd = fk.wavefront_fwd(*kfa, **kd)
-        vfwd_p, vfwd_ms = timed(lambda: fk.forward_plain(*kfa, **kd))
-        vposts, vtot = fk.wavefront_bwd(*kba, vfwd, **kd)
-        (vposts_p, vtot_p), vbwd_ms = timed(
-            lambda: fk.backward_plain(*kba, vfwd, **kd))
-        for what, got, want in (("K1 vanilla fwd plane", vfwd, vfwd_p),
-                                ("K2 vanilla posteriors", vposts, vposts_p),
-                                ("K2 vanilla totals", vtot, vtot_p)):
-            same(f"{what} ({name} machine)", got, want)
-        vnds = [b.n_diag for b in kprep["bands"]]
-        vparts = [extract_pairs_chunk(dict(
-            prep=kprep, posteriors=p, compact=compact_posteriors(
-                p, min(COMPACT_K, kd["ND"] * kd["W"]))), rels, vnds, thr)
-            for p in (vposts, vposts_p)]
-        for i, (a, b) in enumerate(zip(*vparts)):
-            if not np.array_equal(a, b) or len(a) == 0:
-                raise AssertionError(f"vanilla pairs of read {i} ({name} "
-                                     "machine): kernel and plain differ")
-        del vfwd_p, vposts_p
-        if name == "default":
-            # the main path's machine and chunk: the line's ms and bound
-            vchunk_parts = vparts[0]
-            ms.update(
-                vanilla_fwd=cuda_ms(lambda: fk.wavefront_fwd(*kfa, **kd), 5),
-                vanilla_fwd_plain=vfwd_ms,
-                vanilla_bwd=cuda_ms(lambda: fk.wavefront_bwd(
-                    *kba, vfwd, **kd), 5),
-                vanilla_bwd_plain=vbwd_ms)
-            vcells = sum(int(b.width.sum()) for b in kprep["bands"])
-            bounds.update(
-                vanilla_fwd=bound(kfa + [vfwd], vcells,
-                                  FLOPS_PER_CELL["vanilla_fwd"]),
-                vanilla_bwd=bound(kba + posterior_fwd(vfwd, kba[6],
-                                                      kd["R"])
-                                  + [vposts, vtot], vcells,
-                                  FLOPS_PER_CELL["vanilla_bwd"]))
-        del vfwd, vposts
-        # K3 vanilla on the first group of 32 (the E-step's group)
-        ea_, eprep_, einp_, efa, eba, ed = vanilla_inputs(
-            machine, reads[:EM_GROUP], EM_GROUP, ragged, vsp_)
-        efwd = fk.wavefront_fwd(*efa, **ed)
-        vk = fk.wavefront_bwd_exp(*eba, efwd, **ed)
-        vp, vp_ms = timed(lambda: fk.backward_exp_plain(*eba, efwd, **ed))
-        check_exp_kernel(vk, vp)
-        same(f"K3 vanilla beta/alpha accumulators ({name} machine)", vk[3],
-             vp[3])
-        if vk[2].any() or not bool(vk[3].sum() > 0):
-            raise AssertionError(f"{name} machine: vanilla K3 lanes or "
-                                 "accumulators")
-        kfin, pfin = (ea_.exp_finalize(eprep_, host_array(ea_.exp_dispatch(
-            eprep_, einp_, o[2], o[3], o[1]))) for o in (vk, vp))
-        if not all(np.array_equal(kfin[k], pfin[k]) for k in kfin):
-            raise AssertionError(f"{name} machine: finalized vanilla "
-                                 "expectations differ")
-        if name == "trained":
-            ms.update(vanilla_bwd_exp=cuda_ms(lambda: fk.wavefront_bwd_exp(
-                *eba, efwd, **ed), 5), vanilla_bwd_exp_plain=vp_ms)
-            ecells = sum(int(b.width.sum()) for b in eprep_["bands"])
-            bounds["vanilla_bwd_exp"] = bound(
-                eba + [efwd, *vk], ecells, FLOPS_PER_CELL["vanilla_bwd_exp"])
-        log(f"vanilla kernels vs plain, {name} machine ({CHUNK} reads, "
-            f"ND={kd['ND']}, W={kd['W']}{', ragged, scaled' if ragged else ''}"
-            f"): K1/K2 fwd plane, posts, totals equal bit for bit, "
-            f"{sum(map(len, vparts[0]))} pairs equal; K3 ({EM_GROUP} reads): "
-            f"posts, totals, lanes, beta/alpha accumulators equal bit for "
-            f"bit, finalized skip bins and likelihoods equal; plain ms fwd "
-            f"{vfwd_ms:.1f}, bwd {vbwd_ms:.1f}, bwd_exp {vp_ms:.1f}")
-        del vk, vp, efwd
-    log(f"vanilla kernel ms: fwd {ms['vanilla_fwd']:.3f}, bwd "
+    _, kprep, _, kfa, kba, kd = vanilla_inputs(
+        vmachines["default"], reads[:CHUNK], GROUP, False, None)
+    vfwd = fk.wavefront_fwd(*kfa, **kd)
+    vfwd_p, vfwd_ms = timed(lambda: fk.forward_plain(*kfa, **kd))
+    vposts, vtot = fk.wavefront_bwd(*kba, vfwd, **kd)
+    (vposts_p, vtot_p), vbwd_ms = timed(
+        lambda: fk.backward_plain(*kba, vfwd, **kd))
+    for what, got, want in (("K1 vanilla fwd plane", vfwd, vfwd_p),
+                            ("K2 vanilla posteriors", vposts, vposts_p),
+                            ("K2 vanilla totals", vtot, vtot_p)):
+        same(f"{what} (default machine)", got, want)
+    vnds = [b.n_diag for b in kprep["bands"]]
+    vparts = [extract_pairs_chunk(dict(
+        prep=kprep, posteriors=p, compact=compact_posteriors(
+            p, min(COMPACT_K, kd["ND"] * kd["W"]))), rels, vnds, thr)
+        for p in (vposts, vposts_p)]
+    for i, (a, b) in enumerate(zip(*vparts)):
+        if not np.array_equal(a, b) or len(a) == 0:
+            raise AssertionError(f"vanilla pairs of read {i}: kernel and "
+                                 "plain differ")
+    del vfwd_p, vposts_p
+    # the main path's machine and chunk: the line's ms and bound
+    vchunk_parts = vparts[0]
+    ms.update(
+        vanilla_fwd=cuda_ms(lambda: fk.wavefront_fwd(*kfa, **kd), 5),
+        vanilla_fwd_plain=vfwd_ms,
+        vanilla_bwd=cuda_ms(lambda: fk.wavefront_bwd(*kba, vfwd, **kd), 5),
+        vanilla_bwd_plain=vbwd_ms)
+    vcells = sum(int(b.width.sum()) for b in kprep["bands"])
+    bounds.update(
+        vanilla_fwd=bound(kfa + [vfwd], vcells,
+                          FLOPS_PER_CELL["vanilla_fwd"]),
+        vanilla_bwd=bound(kba + posterior_fwd(vfwd, kba[6], kd["R"])
+                          + [vposts, vtot], vcells,
+                          FLOPS_PER_CELL["vanilla_bwd"]))
+    del vfwd, vposts
+    log(f"vanilla kernels vs plain, default machine ({CHUNK} reads, "
+        f"ND={kd['ND']}, W={kd['W']}): K1/K2 (sm3_fwd_tiled_sel<Vanilla, "
+        f"0>, sm3_bwd_tiled_sel<Vanilla, 0, 0>) fwd plane, posts, totals "
+        f"equal bit for bit, {sum(map(len, vparts[0]))} pairs equal; plain "
+        f"ms fwd {vfwd_ms:.1f}, bwd {vbwd_ms:.1f}")
+    # K3 vanilla on the first group of 32 (the E-step's group)
+    ea_, eprep_, einp_, efa, eba, ed = vanilla_inputs(
+        vmachines["trained"], reads[:EM_GROUP], EM_GROUP, True, em_sp)
+    efwd = fk.wavefront_fwd(*efa, **ed)
+    vk = fk.wavefront_bwd_exp(*eba, efwd, **ed)
+    vp, vp_ms = timed(lambda: fk.backward_exp_plain(*eba, efwd, **ed))
+    check_exp_kernel(vk, vp)
+    same("K3 vanilla beta/alpha accumulators (trained machine)", vk[3],
+         vp[3])
+    if vk[2].any() or not bool(vk[3].sum() > 0):
+        raise AssertionError("trained machine: vanilla K3 lanes or "
+                             "accumulators")
+    kfin, pfin = (ea_.exp_finalize(eprep_, host_array(ea_.exp_dispatch(
+        eprep_, einp_, o[2], o[3], o[1]))) for o in (vk, vp))
+    if not all(np.array_equal(kfin[k], pfin[k]) for k in kfin):
+        raise AssertionError("trained machine: finalized vanilla "
+                             "expectations differ")
+    ms.update(vanilla_bwd_exp=cuda_ms(lambda: fk.wavefront_bwd_exp(
+        *eba, efwd, **ed), 5), vanilla_bwd_exp_plain=vp_ms)
+    ecells = sum(int(b.width.sum()) for b in eprep_["bands"])
+    bounds["vanilla_bwd_exp"] = bound(
+        eba + [efwd, *vk], ecells, FLOPS_PER_CELL["vanilla_bwd_exp"])
+    log(f"vanilla K3 vs plain, trained machine ({EM_GROUP} reads, "
+        f"ND={ed['ND']}, W={ed['W']}, ragged, scaled): posts, totals, "
+        f"lanes, beta/alpha accumulators equal bit for bit, finalized skip "
+        f"bins and likelihoods equal; plain ms bwd_exp {vp_ms:.1f}")
+    del vk, vp, efwd
+    log(f"vanilla kernel ms: fwd (sm3_fwd_tiled_sel<Vanilla, 0>) "
+        f"{ms['vanilla_fwd']:.3f}, bwd "
         f"{ms['vanilla_bwd']:.3f} ({CHUNK} reads, default machine), bwd_exp "
         f"{ms['vanilla_bwd_exp']:.3f} ({EM_GROUP} reads, trained machine); "
         f"bounds {bounds['vanilla_fwd'][0]:.4f} / "
@@ -1674,7 +1705,8 @@ def main():
     torch.cuda.synchronize()
 
     # -- 20. the vanilla main path at full width ---------------------------
-    vsm = vmachines["default"][0]
+    clock.start(20)
+    vsm = vmachines["default"]
     vpa = VanillaAligner(AlignmentParams(), device=dev, group=GROUP)
 
     def vanilla_path(stage=None):
@@ -1802,6 +1834,7 @@ def main():
     torch.cuda.synchronize()
 
     # -- 21. K6a/K6b vanilla vs plain at the long path's geometry ----------
+    clock.start(21)
     vla = VanillaAligner(AlignmentParams(), device=dev, group=LONG_GROUP)
     vlsm = StateMachine3Vanilla(lmodel)
     vcst = Stages()
@@ -1891,14 +1924,14 @@ def main():
     torch.cuda.synchronize()
 
     # -- 22. the sm4 kernels vs plain ---------------------------------------
-    t22 = time.perf_counter()
-    # K1/K2 sm4 on the first bench chunk with the default 4-state machine
-    # and flush ends (phase 3's inputs); K3 sm4 through Sm4Aligner.run(
-    # expectations=True) on the first 32 reads with ragged ends, per-read
-    # scaling and a trained-looking machine (the M-step of a random
-    # 4-state table: every transition finite, a non-zero gap-X table);
-    # K6a/K6b sm4 on phase 12's 64 long reads once (routed tiled by
-    # themselves), then against their plain versions on its check read
+    clock.start(22)
+    # K3 sm4 through Sm4Aligner.run(expectations=True) on the first 32
+    # reads with ragged ends, per-read scaling and a trained-looking
+    # machine (the M-step of a random 4-state table: every transition
+    # finite, a non-zero gap-X table); K6a/K6b sm4 on phase 12's 64 long
+    # reads once (routed tiled by themselves), then against their plain
+    # versions on its check read.  Phase 23 holds K1/K2 sm4 to plain on
+    # the fourState pipeline's first chunk (the main path's)
     rng4 = np.random.default_rng(21)
     h4 = ContinuousPairHmm(state_number=4, pseudocount=1e-4)
     h4.add_expectations({"trans": rng4.uniform(0.05, 1.0, (4, 4)),
@@ -1906,49 +1939,7 @@ def main():
                          "likelihood": -100.0})
     h4.normalize()
     p4, gx4 = h4.to_sm4_params()
-    sm4_default = StateMachine4(sm.model)
     sm4_trained = StateMachine4(sm.model, params=p4, gap_x_log_probs=gx4)
-    s4a = Sm4Aligner(AlignmentParams(), device=dev, group=GROUP)
-    s4prep = s4a.prepare(sm4_default, reads[:CHUNK])
-    s4inp = s4a.device_inputs(sm4_default, s4prep)
-    s4d = dict(R=s4prep["R"], W=s4prep["W"], ND=s4prep["ND"],
-               C=s4prep["C"], spec=fk.Sm4Spec)
-    s4fa = [s4inp[k] for k in ("scal", "win", "xf", "yf", "basef",
-                               "widthf")]
-    s4ba = s4fa + [s4inp["seedf"], s4inp["raggedf"]]
-    s4fwd = fk.wavefront_fwd(*s4fa, **s4d)
-    s4fwd_p, ms["sm4_fwd_bench_plain"] = timed(
-        lambda: fk.forward_plain(*s4fa, **s4d))
-    s4posts, s4tot = fk.wavefront_bwd(*s4ba, s4fwd, **s4d)
-    (s4posts_p, s4tot_p), ms["sm4_bwd_bench_plain"] = timed(
-        lambda: fk.backward_plain(*s4ba, s4fwd, **s4d))
-    for what, got, want in (("K1 sm4 fwd plane", s4fwd, s4fwd_p),
-                            ("K2 sm4 posteriors", s4posts, s4posts_p),
-                            ("K2 sm4 totals", s4tot, s4tot_p)):
-        same(what, got, want)
-    s4nds = [b.n_diag for b in s4prep["bands"]]
-    s4parts = [extract_pairs_chunk(dict(
-        prep=s4prep, posteriors=p, compact=compact_posteriors(
-            p, min(COMPACT_K, s4d["ND"] * s4d["W"]))), rels, s4nds, thr)
-        for p in (s4posts, s4posts_p)]
-    for i, (a, b) in enumerate(zip(*s4parts)):
-        if not np.array_equal(a, b) or len(a) == 0:
-            raise AssertionError(f"sm4 pairs of read {i}: kernel and plain "
-                                 "differ")
-    # the bench chunk's K1/K2 sm4 times (the kernels line takes phase
-    # 23's, on the pipeline's own chunk)
-    ms.update(
-        sm4_fwd_bench=cuda_ms(lambda: fk.wavefront_fwd(*s4fa, **s4d), 5),
-        sm4_bwd_bench=cuda_ms(lambda: fk.wavefront_bwd(*s4ba, s4fwd, **s4d),
-                              5))
-    s4cells = sum(int(b.width.sum()) for b in s4prep["bands"])
-    bounds.update(
-        sm4_fwd_bench=bound(s4fa + [s4fwd], s4cells,
-                            FLOPS_PER_CELL["sm4_fwd"]),
-        sm4_bwd_bench=bound(s4ba + posterior_fwd(s4fwd, s4ba[6], s4d["R"])
-                            + [s4posts, s4tot], s4cells,
-                            FLOPS_PER_CELL["sm4_bwd"]))
-    del s4fwd_p, s4posts_p, s4fwd, s4posts
     # K3 sm4: the E-step entry point, its launches counted from 0
     s4ea = Sm4Aligner(AlignmentParams(), device=dev, group=EM_GROUP)
     s4st = Stages()
@@ -1969,8 +1960,6 @@ def main():
     e4ba = e4fa + [e4inp["seedf"], e4inp["raggedf"]]
     e4fwd, e4k = s4st.out["fwd"], s4st.out["bwd_exp"]
     del s4st
-    same("K1 sm4 fwd plane (E-step)", e4fwd, fk.forward_plain(*e4fa,
-                                                               **e4d))
     e4p, ms["sm4_bwd_exp_plain"] = timed(
         lambda: fk.backward_exp_plain(*e4ba, e4fwd, **e4d))
     sm4_exp_err = check_exp_kernel(e4k, e4p)
@@ -1990,21 +1979,14 @@ def main():
     bounds["sm4_bwd_exp"] = bound(e4ba + [e4fwd, *e4k], e4cells,
                                   FLOPS_PER_CELL["sm4_bwd_exp"])
     del e4p, e4k, e4fwd
-    log(f"sm4 kernels vs plain: K1/K2 ({CHUNK} reads, default machine, "
-        f"ND={s4d['ND']}, W={s4d['W']}): fwd plane, posts, totals equal bit "
-        f"for bit, {sum(map(len, s4parts[0]))} pairs equal; K3 "
+    log(f"sm4 kernels vs plain: K3 "
         f"({EM_GROUP} reads, trained machine, ragged, scaled, one "
         f"Sm4Aligner.run(expectations=True), launches {sm4_exp_counts}): "
         f"posts, totals, 16 lanes equal bit for bit (lanes 6, 7, 9, 13, 14 "
         f"zero), shortGapX columns max|d| {sm4_exp_err:.3g}, finalized "
-        f"expectations within parity; ms fwd {ms['sm4_fwd_bench']:.3f} vs "
-        f"plain {ms['sm4_fwd_bench_plain']:.1f}, bwd "
-        f"{ms['sm4_bwd_bench']:.3f} vs plain "
-        f"{ms['sm4_bwd_bench_plain']:.1f}, bwd_exp {ms['sm4_bwd_exp']:.3f} "
-        f"vs plain {ms['sm4_bwd_exp_plain']:.1f}; bounds "
-        f"{bounds['sm4_fwd_bench'][0]:.4f} / "
-        f"{bounds['sm4_bwd_bench'][0]:.4f} / "
-        f"{bounds['sm4_bwd_exp'][0]:.4f} ms ({bounds['sm4_fwd_bench'][1]})")
+        f"expectations within parity; ms bwd_exp {ms['sm4_bwd_exp']:.3f} "
+        f"vs plain {ms['sm4_bwd_exp_plain']:.1f}; bound "
+        f"{bounds['sm4_bwd_exp'][0]:.4f} ms ({bounds['sm4_bwd_exp'][1]})")
     torch.cuda.synchronize()
     # K6a/K6b sm4: phase 12's 64 long reads route tiled by themselves
     s4la = Sm4Aligner(AlignmentParams(), device=dev, group=LONG_GROUP)
@@ -2093,6 +2075,7 @@ def main():
     torch.cuda.synchronize()
 
     # -- 23. the signalAlign pipeline at full width ----------------------
+    clock.start(23)
     # bench.py's signal_pipeline_reads_per_sec workload: 64 copies of the
     # Zymo npRead, each guided by the stored lastz guide renamed to it,
     # StrawmanAligner(group=32), chunk 64, compact_k 2048
@@ -2324,14 +2307,13 @@ def main():
             raise AssertionError(f"cpecan-torch-signal-align-batch: rc {rc}, "
                                  f"{cli_tsvs}, log {cerr.getvalue()[-500:]}")
     rates = ", ".join(f"{k} {v:.1f}" for k, v in prates.items())
-    log(f"phases 22-23 in {time.perf_counter() - t22:.1f} s; "
-        f"pipeline reads/s: {rates}; "
+    log(f"pipeline reads/s: {rates}; "
         f"cpecan-torch-signal-align-batch --engine pallas -smt vanilla -n "
         f"{n_cli} on the card: rc 0, {n_cli} tsvs, {formatter[0]}")
     torch.cuda.synchronize()
 
     # -- 24. the echelon kernels vs plain on bench.py's echelon cell -------
-    t24 = time.perf_counter()
+    clock.start(24)
     # K1/K2 echelon on the first 32-read chunk of bench.py's echelon cell,
     # prepared with the main path's shape hint (phase 25), so that this is
     # the main path's first chunk
@@ -2488,6 +2470,7 @@ def main():
     torch.cuda.synchronize()
 
     # -- 25. echelon_alignments_per_sec -------------------------------------
+    clock.start(25)
     def ech_main(stage=None):
         outs = [eal.run(esm, ereads[i:i + ECH_CHUNK],
                         compact_k=ECH_COMPACT_K, shape_hint=ehint,
@@ -2570,6 +2553,7 @@ def main():
     torch.cuda.synchronize()
 
     # -- 26. signal_pipeline_echelon_reads_per_sec --------------------------
+    clock.start(26)
     eargs, etsvs = load_echelon_zymo()
     eguide = eargs["npread_guide_pairs"][0][1].split()
     with tempfile.TemporaryDirectory() as etmp:
@@ -2635,11 +2619,13 @@ def main():
         log("echelon pipeline stages (s, share): " + epst.line())
         del epst
         hold_chunk("echelon", epa)
-    log(f"phases 24-26 in {time.perf_counter() - t24:.1f} s")
     torch.cuda.synchronize()
 
     # -- 27. the HDP kernels vs plain on bench.py's HDP chunk -------------
-    t27 = time.perf_counter()
+    clock.start(27)
+    # K1 hdp (sm3_fwd_kernel<Hdp>), K2 hdp (the untiled select posterior
+    # form reading the stream, sm3_bwd_tiled_sel<Hdp, 0, 0>) and K3 hdp
+    # (sm3_bwd_kernel<Hdp, 1>)
     # bench.py's HDP machine, sampled here by the port's own HDP copy
     t0 = time.perf_counter()
     hsm = hdp_model()
@@ -2719,8 +2705,6 @@ def main():
         heinp[k][:n] for k in ("xf", "yf", "basef", "widthf", "seedf",
                                "raggedf")]
     hefwd = fk.wavefront_fwd(*heb[:6], **hed)
-    same("K1 hdp fwd plane (E-step group)", hefwd,
-         fk.forward_plain(*heb[:6], **hed))
     hek = fk.wavefront_bwd_exp(*heb, hefwd, **hed)
     hep, ms["hdp_bwd_exp_plain"] = timed(
         lambda: fk.backward_exp_plain(*heb, hefwd, **hed))
@@ -2738,7 +2722,8 @@ def main():
         f"sampled by the {sampler} sampler in {hdp_s:.2f} s")
     log(f"hdp kernels vs plain ({HDP_CHUNK} reads of bench.py's HDP cell, "
         f"G={len(hprep['win'])}, R={hd['R']}, W={hd['W']}, ND={hd['ND']}): "
-        f"fwd plane, posts, totals equal bit for bit, "
+        f"K1/K2 (sm3_fwd_kernel<Hdp>, sm3_bwd_tiled_sel<Hdp, 0, 0>) fwd "
+        f"plane, posts, totals equal bit for bit, "
         f"{sum(map(len, hparts[0]))} pairs equal (compact_k "
         f"{HDP_COMPACT_K}, saturated in {hsat} reads); stream vs the host's build max|d| {stream_err:.3g} "
         f"(host build {cest_s:.2f} s); K3 hdp vs plain ({n} reads, ragged, "
@@ -2753,6 +2738,7 @@ def main():
     torch.cuda.synchronize()
 
     # -- 28. hdp_alignments_per_sec -----------------------------------------
+    clock.start(28)
     def hdp_main(stage=None):
         outs = [hpa.run(hsm, reads[i:i + HDP_CHUNK],
                         compact_k=HDP_COMPACT_K, stage=stage)
@@ -2823,7 +2809,6 @@ def main():
         f"{[round(t, 4) for t in hetimes]} s after a warm-up), launches in "
         f"4 runs {hexp_counts}")
     del hst
-    log(f"phases 27-28 in {time.perf_counter() - t27:.1f} s")
     torch.cuda.synchronize()
 
     src = "cpecan_tpu_torch/csrc/wavefront.cu"
@@ -2846,13 +2831,18 @@ def main():
                        main_bound_ms_padded=bounds[main + "_padded"][0])
         return row
 
+    clock.stop()
+    for n, sec in clock.s.items():
+        log(f"phase {n}: {sec:.1f} s")
+    log(f"phases 1-{max(clock.s)}: {sum(clock.s.values()):.1f} s")
     exact = 0.0   # phases 3, 10, 12, 13, 19, 21-24, 27 hold these bit for bit
     # passes: a warm-up and 3 timed runs (4; phases 5, 12, 15, 16, 20 and
     # the E-steps of 20 and 28), the EM iterations (phases 9, 18), 3 timed
     # runs (phases 23, 25, 28) or one run (phases 21, 22)
-    # K2 strawman, K2 dna5 and K2 vanilla run the untiled select posterior
-    # form (sm3_bwd_tiled_sel<Spec, 0, 0>), K2 sm4 and K2 hdp
-    # sm3_bwd_kernel<Spec, 0>
+    # K2 strawman, K2 dna5, K2 vanilla and K2 hdp run the untiled select
+    # posterior form (sm3_bwd_tiled_sel<Spec, 0, 0>; hdp's reads its
+    # stream), K2 sm4 sm3_bwd_kernel<Sm4, 0>; K1 vanilla the untiled select
+    # forward (sm3_fwd_tiled_sel<Vanilla, 0>)
     log(json.dumps({"kernels": [
         entry("wavefront_fwd", "cpecan_tpu/ops/pallas_fb.py:635",
               launches["wavefront_fwd"], 4, exact, "fwd", "fwd"),

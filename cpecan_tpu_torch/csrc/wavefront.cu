@@ -20,13 +20,15 @@
 // Replaces (TPU, Pallas):
 //   sm3_fwd_kernel<Spec>   <- cpecan_tpu/ops/pallas_fb.py _sm3_forward_kernel
 //                             (:635, untiled; _StrawmanSpec, _Dna5Spec,
-//                             _VanillaSpec, _Sm4Spec, the streamed
-//                             _HdpSpec :2829)                           K1
+//                             _Sm4Spec, the streamed _HdpSpec :2829)    K1
+//   sm3_fwd_tiled_sel<Vanilla, false>
+//                          <- the same kernel for _VanillaSpec (:456): the
+//                             untiled select forward (the note above
+//                             sm3_fwd_tiled_sel)                        K1
 //   sm3_bwd_kernel<Spec, false>
 //                          <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
 //                             -> _sm3_backward_body_w (:857, :900;
-//                             with_exp=False, untiled; _Sm4Spec,
-//                             _HdpSpec)                                 K2
+//                             with_exp=False, untiled; _Sm4Spec)        K2
 //   sm3_bwd_kernel<Spec, true>
 //                          <- the same body with with_exp=True (EM
 //                             expectations: accumulate_exp :1072 and
@@ -53,8 +55,9 @@
 //                          <- K2 (the same body, with_exp=False) for the
 //                             5-state DNA machine (the realigner's
 //                             posteriors), _StrawmanSpec and _VanillaSpec
-//                             (the signal posterior chunks): the untiled
-//                             posterior form, with the select step
+//                             (the signal posterior chunks) and the
+//                             streamed _HdpSpec: the untiled posterior
+//                             form, with the select step
 //   sm3_bwd_tiled_sel<Dna5, true, false>
 //                          <- K3 for the 5-state DNA machine (cPecanEm's
 //                             E-step): the sums of sm3_bwd_kernel<Spec,
@@ -115,8 +118,14 @@
 // :973-1003); here lane l reads est[g, d, r, l] with one coalesced load
 // per diagonal, and the backward's reads at another window w are
 // est[g, d, r, l + w - win[g, d]], CPECAN_NEG outside [0, W)
-// (emissions_at's realignment, pallas_fb.py:990-993): L2 and ordinary
-// loads take the place of the ring.
+// (emissions_at's realignment, pallas_fb.py:990-993): L2, ordinary loads
+// and, in the posterior backward, cp.async copies into shared slots take
+// the place of the ring.  The stream's layout is offset 0 (row d at d's
+// own window; the echelon pre-pass plane's backward slots are at offset
+// 1): the posterior backward's step d reads est[d + 1] at lane l + o1 (o1
+// = w_d - w_{d+1}) and carries it in the em ring, whose read at lane l +
+// o1 + 1 gives est[d + 2] at lane l + o2 + 1 (o2 = w_d - w_{d+2}),
+// CPECAN_NEG where either lane falls outside [0, W).
 //
 // Design: one block per read (grid G*R), one thread per lane (W threads).
 // Each diagonal depends on the previous one or two through lane shifts of
@@ -701,6 +710,10 @@ struct Vanilla : SignalRows {
                  + e.gap_y;
     }
 
+    // the branch form, sm3_fwd_kernel's: no entry point launches
+    // sm3_fwd_kernel<Vanilla> since K1 vanilla runs the untiled select
+    // forward, but tests/test_torch_wavefront_emulated.py holds that one
+    // to it
     __device__ __forceinline__ static void fwd_update(
             const float* t, const float* p1m, const float* p1a,
             const float* p2m, const Emissions& e, const float* xb, int X,
@@ -1525,13 +1538,20 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
 // posterior path's 64-read chunks: 64 blocks of 128 threads, 1,700
 // diagonals; ~1,950 and ~2,020 ns a diagonal on sm3_bwd_kernel on the same
 // card), with the traits of their K6b below and none of its tile
-// bookkeeping.  The fourState and vanilla backwards (K6b sm4 and
-// K6b vanilla, the same long reads; 2.33 and 2.05 us a diagonal with
-// sm3_bwd_kernel's tiled form on the same card) run on the backward
-// template with the signal machines' traits (SignalRows: the column logs
-// and the shared transitions): sm4 with the strawman's emissions and the
-// seven log-adds of Sm4::bwd_update_with; vanilla, whose transitions into
-// M and X come from the next column's rows (COL_TRANS, row_at_next), with
+// bookkeeping, and K2 hdp (bench.py's HDP chunk, the same geometry; ~1,530
+// ns a diagonal on sm3_bwd_kernel on the same card), which computes no
+// emission: it reads the stream (STREAMED, below: rows staged ahead into
+// shared memory) and loads the gap-X row alone, without the column logs
+// its SignalRows traits would take.  K1 vanilla (the same chunks; ~1,510
+// ns a diagonal on sm3_fwd_kernel) is the untiled form of the forward
+// template with its K6a's traits.  The fourState and vanilla backwards
+// (K6b sm4 and K6b vanilla, the same long reads; 2.33 and 2.05 us a
+// diagonal with sm3_bwd_kernel's tiled form on the same card) run on the
+// backward template with the signal machines' traits (SignalRows: the
+// column logs and the shared transitions): sm4 with the strawman's
+// emissions and the seven log-adds of Sm4::bwd_update_with; vanilla,
+// whose transitions into M and X come from the next column's rows
+// (COL_TRANS, row_at_next), with
 // gauss_sel and inv_gauss_sel on the kept logs of its sd and lambda rows
 // and the noise's log taken once a cell.  Their forwards (K6a sm4 and K6a
 // vanilla, the same reads; 1.78 and 1.58 us a diagonal with
@@ -1622,6 +1642,13 @@ __host__ __device__ constexpr int post_slot(int i) {
 template <class Spec>
 __host__ __device__ constexpr int em_ring_leaves() {
     return Spec::EM_PLANE > 0 ? 0 : Spec::NEM;
+}
+
+// the leaves a step of sm3_bwd_tiled_sel stages in its shared slots ps:
+// an emission plane's, or a streamed spec's one stream row
+template <class Spec>
+__host__ __device__ constexpr int staged_leaves() {
+    return Spec::EM_PLANE > 0 ? Spec::EM_PLANE : Spec::STREAMED ? 1 : 0;
 }
 
 // fwd[d] of state i at a seed diagonal in sm3_bwd_tiled_sel: its staged
@@ -1763,9 +1790,10 @@ __device__ __forceinline__ void tiled_fwd_update(
 }
 
 // The forward in two forms: TILED, the tiled forward (K6a); untiled (K1
-// echelon: no tiles, no re-centering, no shifts written).  A spec with an
-// emission plane (EM_PLANE: echelon) reads each cell's emissions from the
-// pre-pass's plane (slot d at its own window, k = 0), staged F_AHEAD
+// echelon and K1 vanilla: no tiles, no re-centering, no shifts written,
+// aux null but for echelon's plane).  A spec with an emission plane
+// (EM_PLANE: echelon) reads each cell's emissions from the pre-pass's
+// plane (slot d at its own window, k = 0), staged F_AHEAD
 // diagonals ahead into shared memory with cp.async (each lane its own
 // entries, one group a step), and loads only the x rows its step reads
 // (fwd_row); the other specs compute them from their rows.  What a form or
@@ -1988,6 +2016,21 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
 // stages those states' fwd entries, reads the others' on seed diagonals
 // only, and loads only the x rows its step reads (bwd_row at x,
 // row_at_next at next_col(x)).
+// The untiled posterior form of a streamed spec (STREAMED: K2 hdp) reads
+// its emissions from the stream est [G, ND+3, R, W] through aux (row d at
+// d's own window): each row is copied F_AHEAD diagonals ahead into one of
+// F_AHEAD + 2 shared slots, in the cp.async group of the fwd entries of
+// its diagonal, so the wait before step d's fwd read completes row d and
+// the barrier that ends step d shows it to every lane; step d - 1 then
+// reads it across lanes: est[d + 1] at lane l + o1, CPECAN_NEG outside
+// [0, W), at the top of step d.  That value is both the gap-Y term and
+// next step's carry in the em ring, whose read at lane l + o1 + 1 is
+// est[d + 2] at lane l + o2 + 1 under both lanes' guards.  It loads only
+// the gap-X row at next_col(x): no y row, no model row, no column log.
+// (On bench.py's HDP chunks, on an H100 80GB HBM3 at 700 W, the staged
+// rows beat a plain load of est[d + 1] at the top of the step, its row
+// prefetched into L1 64 diagonals ahead: ~555 against ~655 ns a
+// diagonal.)
 template <class Spec, bool WITH_EXP, bool TILED>
 __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
                                   const int* __restrict__ win,
@@ -2031,7 +2074,9 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     // transitions; fst [QF][QS][W]: fwd[d] (step j = ND - d + 1 reads slot
     // j % QF), each lane its own entries; with an emission plane (EM_PLANE
     // leaves, no em ring), ps [AHEAD + 2][EM_PLANE][W]: its slot of d (step
-    // j reads slot j % (AHEAD + 2), and the previous step's across lanes).
+    // j reads slot j % (AHEAD + 2), and the previous step's across lanes);
+    // a streamed spec's ps [AHEAD + 2][1][W]: the stream's row of d, read
+    // across lanes the step after.
     // (The form's constants are written out or taken from functions at
     // namespace scope: a constexpr local that no instance reads changed the
     // SASS of the other untiled instances)
@@ -2074,13 +2119,17 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     float* pout = posts + static_cast<size_t>(g) * (ND + 1) * pplane_d
                   + static_cast<size_t>(r) * W + l;
     // this lane's entries of the plane: leaf j of slot d at eb[(d *
-    // EM_PLANE + j) * R * W]
+    // EM_PLANE + j) * R * W]; a streamed spec's stream est[g, :, r, :]
+    // (row d at eb[d * R * W], read across lanes)
     const size_t leaf = static_cast<size_t>(R) * W;
     const float* eb =
         Spec::EM_PLANE > 0
             ? aux + static_cast<size_t>(g) * (ND + 3) * Spec::EM_PLANE
                            * leaf
                   + static_cast<size_t>(r) * W + l
+        : Spec::STREAMED
+            ? aux + static_cast<size_t>(g) * (ND + 3) * leaf
+                  + static_cast<size_t>(r) * W
             : nullptr;
 
     // diagonal 0 is never swept
@@ -2101,6 +2150,13 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
 #pragma unroll
         for (int k = 0; k < NEM; ++k)
             ps[k * W + l] = eb[((ND + 1) * Spec::EM_PLANE + k) * leaf];
+    } else if constexpr (Spec::STREAMED) {
+        // the first carry, the stream of ND + 2 at the window of ND + 1,
+        // and the stream's row ND + 1 into staged slot 0 (no model rows,
+        // no column logs: the stream holds the emissions)
+        em_rd[l] = shifted(eb + (ND + 2) * leaf, l, wg[ND + 1] - wg[ND + 2],
+                           W);
+        ps[l] = eb[(ND + 1) * leaf + l];
     } else {
         const int x = wg[ND + 1] + l;
         const auto e = Spec::emissions_at(xb, yb, X, Y, x, C - (ND + 2) + x);
@@ -2122,8 +2178,9 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
 #pragma unroll
         for (int i = 0; i < S; ++i) fst[i * W + l] = CPECAN_NEG;
     }
-    // the fwd entries (and plane slots) of diagonals ND .. ND - AHEAD + 1
-    // into slots 1 .. AHEAD, one group each (empty below diagonal 1)
+    // the fwd entries (and plane slots or stream rows) of diagonals ND ..
+    // ND - AHEAD + 1 into slots 1 .. AHEAD, one group each (empty below
+    // diagonal 1)
     for (int j = 1; j <= AHEAD; ++j) {
         const int k = ND + 1 - j;
         if (k >= 1) {
@@ -2137,6 +2194,8 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
                 for (int i = 0; i < Spec::EM_PLANE; ++i)
                     cp_async4(ps + (j * Spec::EM_PLANE + i) * W + l,
                               eb + (k * Spec::EM_PLANE + i) * leaf);
+            } else if constexpr (Spec::STREAMED) {
+                cp_async4(ps + j * W + l, eb + k * leaf + l);
             }
         }
         cp_async_commit();
@@ -2162,7 +2221,7 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     int sidx = b * NT + NT;
     // the fst slots of d, of d - AHEAD and, WITH_EXP, of d + 1 and d + 2
     int rs = 1, is = (1 + AHEAD) % QF, rs1 = 0, rs2 = QF - 1;
-    // the plane's staged slots of d + 1, of d and of d - AHEAD
+    // the staged slots (plane or stream) of d + 1, of d and of d - AHEAD
     int es1 = 0, es = 1, eis = (1 + AHEAD) % (AHEAD + 2);
     pout += static_cast<size_t>(ND) * pplane_d;
     for (int d = ND; d >= 1; --d) {
@@ -2202,15 +2261,20 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
                     cp_async4(ps + (eis * Spec::EM_PLANE + i) * W + l,
                               eb + ((d - AHEAD) * Spec::EM_PLANE + i)
                                        * leaf);
+            } else if constexpr (Spec::STREAMED) {
+                cp_async4(ps + eis * W + l, eb + (d - AHEAD) * leaf + l);
             }
         }
         cp_async_commit();
         // the cell's inputs: emissions(d + 1)'s y rows at column C - (d +
         // 1) + x and x rows at x, the gap-X row at next_col(x); a spec
         // with an emission plane loads only the x rows its step reads, at
-        // x (in) and at next_col(x) (inp)
+        // x (in) and at next_col(x) (inp); a streamed spec only the gap-X
+        // row, and emissions(d + 1) at x from the stream (e1, next step's
+        // carry too)
         float in[YR + NXF];
         float inp[Spec::EM_PLANE > 0 ? NXF : 1];
+        Emissions e1;   // without a plane: next step's carry
         {
             const int ycol = C - (d + 1) + x;
             const int xp = next_col(x, X);
@@ -2222,6 +2286,13 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
                     if (Spec::bwd_row(i) || Spec::row_at_next(i))
                         prefetch_l1(xb + i * X + max(x - L1_AHEAD, 0));
                 }
+            } else if constexpr (Spec::STREAMED) {
+                // est[d + 1] at lane l + w - w_{d+1}, CPECAN_NEG outside
+                // [0, W): a read across lanes of its staged slot, complete
+                // since the barrier that ended step d + 1
+                e1.match = e1.gap_y = shifted(ps + es1 * W, l, w - w1, W);
+                in[YR + Spec::GAP_X] = xb[Spec::GAP_X * X + xp];
+                prefetch_l1(xb + Spec::GAP_X * X + max(x - L1_AHEAD, 0));
             } else {
 #pragma unroll
                 for (int i = 0; i < YR; ++i) in[i] = yb[i * Y + ycol];
@@ -2261,7 +2332,6 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
             }
         }
         float bw[S];
-        Emissions e1;   // without a plane: next step's carry
         if constexpr (Spec::EM_PLANE > 0) {
             // the plane's slot of d (and fwd[d]): the AHEAD + 1-th newest
             // group
@@ -2270,12 +2340,15 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
                                  ps[(es * Spec::EM_PLANE + NEM) * W + l],
                                  em2p, n1a, n1p, n2p, bw);
         } else {
-            // emissions(d + 1) at x (next step's carry); the column logs
+            // emissions(d + 1) at x (next step's carry), but for a
+            // streamed spec, which read them above; the column logs
             // change only where the window moves
-            if constexpr (Spec::NLSD > 0) {
-                if (w != w1) Spec::col_logs(in, lsd);
+            if constexpr (!Spec::STREAMED) {
+                if constexpr (Spec::NLSD > 0) {
+                    if (w != w1) Spec::col_logs(in, lsd);
+                }
+                e1 = tiled_emissions<Spec>(in, lsd);
             }
-            e1 = tiled_emissions<Spec>(in, lsd);
             tiled_bwd_update<Spec>(t, in, e1.gap_y, em2p, n1a, n1p, n2p,
                                    bw);
         }
@@ -2352,7 +2425,7 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
         rs1 = rs;
         rs = (rs + 1) % QF;
         is = (is + 1) % QF;
-        if constexpr (Spec::EM_PLANE > 0) {
+        if constexpr (Spec::EM_PLANE > 0 || Spec::STREAMED) {
             es1 = es;
             es = es + 1 == AHEAD + 2 ? 0 : es + 1;
             eis = eis + 1 == AHEAD + 2 ? 0 : eis + 1;
@@ -2505,11 +2578,11 @@ int launch_bwd_sel(const void* scal, const void* win, const void* xf,
     if (int e = launch_config_error(W)) return e;
     if (TILED && (TD <= 0 || ND % TD != 0)) return cudaErrorInvalidValue;
     // ring + em + red + the end vectors + the fwd slots + the emission
-    // plane's staged slots
+    // plane's or the stream's staged slots
     constexpr int AHEAD = bwd_ahead<Spec, WITH_EXP>();
     constexpr int NQ = WITH_EXP ? (X_AHEAD + 3) * Spec::S
                                 : (AHEAD + 1) * Spec::NPS;
-    constexpr int NE = (AHEAD + 2) * Spec::EM_PLANE;
+    constexpr int NE = (AHEAD + 2) * staged_leaves<Spec>();
     const size_t smem = sizeof(float)
                         * ((3 * Spec::S + 2 * em_ring_leaves<Spec>() + NQ
                             + NE) * W
@@ -2586,6 +2659,18 @@ const char* wavefront_error_string(int code) {
             scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,  \
             posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X, C, Y,      \
             stream);                                                         \
+    }
+// the untiled select forward of a spec without an emission plane (K1
+// vanilla: sm3_fwd_tiled_sel<Spec, false>) takes the untiled one's
+// arguments
+#define WAVEFRONT_FWD_SEL_ENTRY(NAME, SPEC)                                 \
+    int NAME(const void* scal, const void* win, const void* xf,              \
+             const void* yf, const void* basef, const void* widthf,          \
+             void* fwd, int G, int R, int W, int ND, int NDp, int X, int C,  \
+             int Y, void* stream) {                                          \
+        return launch_fwd_sel<SPEC, false>(scal, win, xf, yf, basef, widthf, \
+                                           fwd, nullptr, G, R, W, ND, NDp,  \
+                                           X, C, Y, 0, stream);              \
     }
 // the select tiled kernels take the same arguments
 #define WAVEFRONT_FWD_TILED_SEL_ENTRY(NAME, SPEC)                           \
@@ -2685,7 +2770,9 @@ const char* wavefront_error_string(int code) {
     }
 
 // the streamed spec's entry points take the stream est after the features
-// (forward) or after the fwd plane (backward)
+// (forward) or after the fwd plane (backward); its posterior backward (K2
+// hdp) is the untiled select form sm3_bwd_tiled_sel<Spec, false, false>,
+// which reads est through aux
 #define WAVEFRONT_FWD_STREAMED_ENTRY(NAME, SPEC)                            \
     int NAME(const void* scal, const void* win, const void* xf,              \
              const void* yf, const void* basef, const void* widthf,          \
@@ -2700,9 +2787,9 @@ const char* wavefront_error_string(int code) {
              const void* seedf, const void* raggedf, const void* fwd,        \
              const void* est, void* posts, void* totals, int G, int R,       \
              int W, int ND, int NDp, int X, int C, int Y, void* stream) {    \
-        return launch_bwd<SPEC, false>(                                      \
+        return launch_bwd_sel<SPEC, false, false>(                           \
             scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, est,      \
-            posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X, C, Y,      \
+            posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X, C, Y, 0,   \
             stream);                                                         \
     }
 #define WAVEFRONT_BWD_EXP_STREAMED_ENTRY(NAME, SPEC)                        \
@@ -2726,7 +2813,7 @@ WAVEFRONT_BWD_SEL_ENTRY(wavefront_bwd_dna5, Dna5)
 WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled, Strawman)
 WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled_dna5, Dna5)
 
-WAVEFRONT_FWD_ENTRY(wavefront_fwd_vanilla, Vanilla)
+WAVEFRONT_FWD_SEL_ENTRY(wavefront_fwd_vanilla, Vanilla)
 WAVEFRONT_FWD_TILED_SEL_ENTRY(wavefront_fwd_tiled_vanilla, Vanilla)
 WAVEFRONT_BWD_SEL_ENTRY(wavefront_bwd_vanilla, Vanilla)
 WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled_vanilla, Vanilla)

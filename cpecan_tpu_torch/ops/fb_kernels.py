@@ -63,10 +63,11 @@ boundary here, where the carried diagonals re-center.  Every tiled pair
 (dna5, strawman, vanilla, sm4) runs the select kernels
 (``sm3_fwd_tiled_sel<Spec, true>``, ``sm3_bwd_tiled_sel<Spec, false,
 true>``: the same recurrences with a branch-free log-add), as do K2 dna5,
-K2 strawman and K2 vanilla (the untiled posterior form
-``sm3_bwd_tiled_sel<Spec, false, false>``), K3 dna5 (the untiled
-expectation form ``sm3_bwd_tiled_sel<Dna5, true, false>``) and K1/K2
-echelon (the untiled forms
+K2 strawman, K2 vanilla and K2 hdp (the untiled posterior form
+``sm3_bwd_tiled_sel<Spec, false, false>``; hdp's reads its stream ``est``),
+K1 vanilla (the untiled forward ``sm3_fwd_tiled_sel<Vanilla, false>``), K3
+dna5 (the untiled expectation form ``sm3_bwd_tiled_sel<Dna5, true,
+false>``) and K1/K2 echelon (the untiled forms
 ``sm3_fwd_tiled_sel<Echelon, false>`` and ``sm3_bwd_tiled_sel<Echelon,
 false, false>``, each after the emission pre-pass ``echelon_emissions``,
 whose plane the wrapper allocates and drops after the launch); the other
@@ -1321,9 +1322,11 @@ def wavefront_fwd(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
                   spec=StrawmanSpec, est=None):
     """Forward wavefront -> fwd plane [G, ND+1, S, R, W] f32; a streamed
     spec reads its emissions from ``est`` [G, ND+3, R, W].  Plain PyTorch
-    for CPU tensors; the CUDA kernel ``sm3_fwd_kernel<spec>`` for CUDA
-    tensors (replaces cpecan_tpu/ops/pallas_fb.py:635 _sm3_forward_kernel;
-    entry ``wavefront_fwd`` + ``spec.SUFFIX``); echelon: the emission
+    for CPU tensors; the CUDA kernel ``sm3_fwd_kernel<spec>`` (strawman,
+    dna5, sm4, hdp) for CUDA tensors (replaces
+    cpecan_tpu/ops/pallas_fb.py:635 _sm3_forward_kernel; entry
+    ``wavefront_fwd`` + ``spec.SUFFIX``); vanilla: the untiled select
+    forward ``sm3_fwd_tiled_sel<Vanilla, false>``; echelon: the emission
     pre-pass (``echelon_emissions``, k = 0), then the untiled select
     forward ``sm3_fwd_tiled_sel<Echelon, false>`` on its plane, which is
     freed after the launch."""
@@ -1348,9 +1351,9 @@ def wavefront_bwd(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
     POST_STATES, [G, ND+1, NPS, R, W], totals [G, R]) f32; a streamed spec
     reads its emissions from ``est``.  Plain PyTorch for CPU tensors; for
     CUDA tensors the CUDA kernel ``sm3_bwd_tiled_sel<spec, false, false>``,
-    the untiled select posterior form (strawman, vanilla, dna5 and echelon,
-    echelon's after its emission pre-pass at k = 1), or for sm4 and hdp
-    ``sm3_bwd_kernel<spec, false>`` (replaces
+    the untiled select posterior form (strawman, vanilla, dna5, hdp, which
+    reads ``est`` there, and echelon, after its emission pre-pass at k =
+    1), or for sm4 ``sm3_bwd_kernel<Sm4, false>`` (replaces
     cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
     with_exp=False)."""
     if xf.device.type == "cpu":

@@ -17,11 +17,17 @@
   bench.py's 256 signal reads (``synthetic_batch(256, 905, 800, seed=7)``,
   group 64; ND 1,700, W 128) as the strawman main path runs it, and the
   same chunks on the default vanilla machine of the vendored template
-  model.  Chunk 0 is the chunk whose kernel ms ``chip_smoke.py`` reports.
+  model.  Chunk 0 is the chunk whose kernel ms ``chip_smoke.py`` reports;
+- ``hdp``: the HDP pair (K1 and K2 hdp) on the inputs of phases 27/28:
+  each 64-read chunk of bench.py's HDP cell (the same 256 reads, group 64,
+  on ``synthetic.hdp_model()``), the model and each chunk's emission
+  stream built once and handed to every tree.
 
     python cpecan_tpu_torch/tools/tiled_times.py build/parent .
     python cpecan_tpu_torch/tools/tiled_times.py --path echelon build/parent .
     python cpecan_tpu_torch/tools/tiled_times.py --path posterior \
+        build/parent . . build/parent
+    python cpecan_tpu_torch/tools/tiled_times.py --path hdp \
         build/parent . . build/parent
 
 Each tree is a directory holding ``cpecan_tpu_torch`` (a parent unpacked
@@ -56,6 +62,7 @@ LONG_CHECK = (1500, 2550)
 ECH_READS, ECH_CHUNK, ECH_THRESHOLD = 64, 32, 0.01
 POST_BATCH = dict(n_reads=256, n_ref=905, n_events=800, seed=7)
 POST_CHUNK = 64
+HDP_CHUNK = 64
 
 
 def load_tree(i, tree):
@@ -233,8 +240,41 @@ def posterior_cases(fks, dev):
             del fa, ba, inp, prep
 
 
+def hdp_cases(fks, dev):
+    """The HDP pair's cases, one per chunk, as ``long_cases``."""
+    from cpecan_tpu_torch.align import AlignmentParams
+    from cpecan_tpu_torch.ops.fb import HdpAligner
+    from cpecan_tpu_torch.synthetic import hdp_model, synthetic_batch
+
+    _, reads = synthetic_batch(**POST_BATCH)
+    hsm = hdp_model()
+    aligner = HdpAligner(AlignmentParams(), device=dev, group=HDP_CHUNK)
+    for i in range(0, len(reads), HDP_CHUNK):
+        prep = aligner.prepare(hsm, reads[i:i + HDP_CHUNK])
+        inp = aligner.device_inputs(hsm, prep)
+        dims = dict(R=prep["R"], W=prep["W"], ND=prep["ND"], C=prep["C"],
+                    est=aligner.emission_stream(hsm, prep, inp))
+        fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                               "widthf")]
+        ba = fa + [inp["seedf"], inp["raggedf"]]
+
+        def launches(fk, fa=fa, ba=ba, dims=dims):
+            d = dict(dims, spec=fk.HdpSpec)
+            fwd = fk.wavefront_fwd(*fa, **d)
+            posts, tot = fk.wavefront_bwd(*ba, fwd, **d)
+            return (fwd, posts, tot), {
+                "fwd": lambda: fk.wavefront_fwd(*fa, **d),
+                "bwd": lambda: fk.wavefront_bwd(*ba, fwd, **d)}
+
+        yield ({"machine": "hdp", "chunk": i // HDP_CHUNK,
+                "reads": len(reads[i:i + HDP_CHUNK]), "ND": dims["ND"],
+                "W": dims["W"]}, dims["ND"],
+               [lambda fk=fk: launches(fk) for fk in fks])
+        del fa, ba, inp, prep, dims
+
+
 PATHS = {"long": long_cases, "echelon": echelon_cases,
-         "posterior": posterior_cases}
+         "posterior": posterior_cases, "hdp": hdp_cases}
 
 
 def main(argv=None):

@@ -45,6 +45,7 @@ from cpecan_tpu_torch.pipeline.signal_align_batch import run_batch_fast
 from cpecan_tpu_torch.pipeline.train_models import TrainOptions, train
 from cpecan_tpu_torch.synthetic import (dna_em_batch, dna_realign_batch,
                                         hdp_model, synthetic_batch)
+from torch_cases import synthetic_case
 
 pytestmark = pytest.mark.gpu
 
@@ -309,8 +310,8 @@ def test_cuda_dna5_kernels_match_plain(dna5_batch, cuda, ragged, W, ND,
                                "widthf")]
         ba = fa + [inp["seedf"], inp["raggedf"]]
     else:
-        fa, ba, dims = _synthetic_case(cuda, fk.Dna5Spec, W, ND, ragged,
-                                       [9, W, ND, int(ragged)], every=every)
+        fa, ba, dims = synthetic_case(cuda, fk.Dna5Spec, W, ND, ragged,
+                                      [9, W, ND, int(ragged)], every=every)
     fk.reset_counts()
     fwd = fk.wavefront_fwd(*fa, **dims)
     posts, totals = fk.wavefront_bwd(*ba, fwd, **dims)
@@ -337,141 +338,15 @@ def test_cuda_dna5_kernels_match_plain(dna5_batch, cuda, ragged, W, ND,
         assert np.array_equal(a, b) and len(a) > 500
 
 
-def _synthetic_case(cuda, spec, W, ND, ragged, seed, every=False,
-                    scal=None):
-    """Synthetic inputs of ``spec`` (dna5, strawman, sm4, vanilla or
-    echelon) at
-    window W over ND diagonals: G 2 x R 2 reads (G 1 at W 1024).  Each
-    group's band lower
-    edge steps by 0 or 1 a diagonal (x ~ d / 2, as a real band's) and its
-    window by 0, 1 or 2, mostly 0, so the band drifts across the window's
-    lanes, and over 128 diagonals or more it steps by each of 0, 1 and 2
-    (asserted); with ``every`` the edge steps by 1 from diagonal 20 on and
-    the window with it, so that it shifts on (asserted: over 95% of) the
-    diagonals there.  The dna5 draws at a given seed are those the dna5
-    tiled cases have always drawn.  Each read's
-    band ends at its seed diagonal (within 40 of ND).  Random rows and
-    scalars (``scal``, if given, replaces the latter): dna5 y bases 0..4 (4
-    = N) and a few outside 0..4, log-probability rows; strawman and sm4
-    Gaussian model rows with a few sd <= 0 (NEG emissions), events near the
-    model means, a gap-X log-probability row; vanilla Gaussian level and
-    inverse-Gaussian noise rows with a few sd <= 0, lambda <= 0 and noise
-    means of 0, noise near the noise means with a few zeros, log
-    transition rows; echelon the vanilla's level and noise rows for each
-    offset and for gap-Y, log skip rows, random validity bits, log
-    duration rows.  Returns (fwd args, bwd args, dims)."""
-    rng = np.random.default_rng(seed)
-    G, R = (1 if W == 1024 else 2), 2
-    NDp = -(-(ND + 3) // 128) * 128 + 128
-    X, C = W + 2 * NDp, ND + 3
-    Y = C + X + 256
-    wmin, wmax = min(W // 2, 48), min(W - W // 4, 96)
-    lo = np.zeros((G, NDp), np.int64)   # the group's band lower edge
-    win = np.zeros((G, NDp), np.int64)
-    for g in range(G):
-        for d in range(1, NDp):
-            lo[g, d] = lo[g, d - 1] + (int(d > 20) if every
-                                       else rng.integers(0, 2))
-            off = lo[g, d] - win[g, d - 1]
-            # a window step keeping lanes [off, off + wmax) in the window:
-            # 0 preferred (the band drifts across the lanes), or with
-            # ``every`` 1 (the window follows the band)
-            ok = [s for s in (0, 1, 2) if 0 <= off - s <= W - wmax - 2]
-            p = np.array([0.01, 1.0, 0.01] if every
-                         else [6.0, 1.0, 1.0])[ok]
-            win[g, d] = win[g, d - 1] + rng.choice(ok, p=p / p.sum())
-    steps = np.diff(win[:, :ND + 3])
-    if every:
-        # the window moves on nearly every diagonal past 20
-        assert np.mean(steps[:, 20:] != 0) > 0.95
-    elif ND >= 128:
-        assert set(steps.ravel()) == {0, 1, 2}
-    B = G * R
-    base, width, seedf = (np.zeros((B, NDp)) for _ in range(3))
-    for b in range(B):
-        n = ND - int(rng.integers(0, min(40, ND)))
-        base[b, :n + 1] = lo[b // R, :n + 1] + rng.integers(0, 2, n + 1)
-        width[b, :n + 1] = rng.integers(wmin, wmax + 1, n + 1)
-        seedf[b, n] = 1.0
-    if spec is fk.Dna5Spec:
-        ybase = rng.choice([0.0, 1.0, 2.0, 3.0, 4.0, 5.0, 0.5], size=(B, Y),
-                           p=[0.22, 0.22, 0.22, 0.22, 0.08, 0.02, 0.02])
-        yf = np.stack([ybase, np.log(rng.uniform(0.05, 0.9, (B, Y)))],
-                      axis=1)
-        # the random scalars are drawn before the x rows (the dna5 tiled
-        # cases' draws since they were written)
-        rscal = np.log(rng.uniform(0.05, 0.9, spec.NS + 3 * spec.S))
-        xf = np.log(rng.uniform(0.05, 0.9, (B, 6, X)))
-    elif spec is fk.VanillaSpec:
-        # level (mean, sd) rows 0-1 and 4-5, noise (mean, lambda) rows 2-3
-        # and 6-7, a few sd <= 0, lambda <= 0 and noise means of 0; the
-        # log transitions of rows 8-12; events near the level means, noise
-        # near the noise means, a few <= 0
-        xf = np.empty((B, 13, X))
-        xf[:, 0:8:4] = rng.uniform(70.0, 90.0, (B, 2, X))
-        xf[:, 1:8:4] = rng.uniform(3.0, 12.0, (B, 2, X))
-        xf[:, 2:8:4] = rng.uniform(0.8, 2.5, (B, 2, X))
-        xf[:, 3:8:4] = rng.uniform(5.0, 60.0, (B, 2, X))
-        for r0, bad_vals in ((1, [0.0, -1.0]), (2, [0.0]), (3, [0.0, -2.0])):
-            bad = rng.random((B, 2, X)) < 0.01
-            xf[:, r0:8:4][bad] = rng.choice(bad_vals, bad.sum())
-        xf[:, 8:] = np.log(rng.uniform(0.05, 0.9, (B, 5, X)))
-        yf = np.stack([rng.uniform(70.0, 90.0, (B, Y)),
-                       rng.uniform(0.5, 3.0, (B, Y))], axis=1)
-        yf[:, 1][rng.random((B, Y)) < 0.001] = 0.0
-        rscal = np.log(rng.uniform(0.05, 0.9, spec.NS + 3 * spec.S))
-    elif spec is fk.EchelonSpec:
-        # per offset and for gap-Y: level (mean, sd) and noise (mean,
-        # lambda), a few sd <= 0, lambda <= 0 and noise means of 0; the
-        # skip logs (rows 24-27) and the validity bits (28-32); durations
-        # as log probabilities, events near the level means, noise near
-        # the noise means with a few zeros
-        xf = np.empty((B, 33, X))
-        xf[:, 0:24:4] = rng.uniform(70.0, 90.0, (B, 6, X))
-        xf[:, 1:24:4] = rng.uniform(3.0, 12.0, (B, 6, X))
-        xf[:, 2:24:4] = rng.uniform(0.8, 2.5, (B, 6, X))
-        xf[:, 3:24:4] = rng.uniform(5.0, 60.0, (B, 6, X))
-        for r0, bad_vals in ((1, [0.0, -1.0]), (2, [0.0]), (3, [0.0, -2.0])):
-            bad = rng.random((B, 6, X)) < 0.01
-            xf[:, r0:24:4][bad] = rng.choice(bad_vals, bad.sum())
-        xf[:, 24:28] = np.log(rng.uniform(0.05, 0.9, (B, 4, X)))
-        xf[:, 28:] = rng.integers(0, 2, (B, 5, X))
-        yf = np.concatenate([np.log(rng.uniform(0.05, 0.9, (B, 6, Y))),
-                             rng.uniform(70.0, 90.0, (B, 1, Y)),
-                             rng.uniform(0.5, 3.0, (B, 1, Y))], axis=1)
-        yf[:, 7][rng.random((B, Y)) < 0.001] = 0.0
-        rscal = np.log(rng.uniform(0.05, 0.9, spec.NS + 3 * spec.S))
-    else:
-        xf = np.empty((B, 9, X))
-        xf[:, 0:8:2] = rng.uniform(70.0, 90.0, (B, 4, X))
-        xf[:, 1:8:2] = rng.uniform(3.0, 12.0, (B, 4, X))
-        bad = rng.random((B, 4, X)) < 0.01
-        xf[:, 1:8:2][bad] = rng.choice([0.0, -1.0], bad.sum())
-        xf[:, 8] = np.log(rng.uniform(0.05, 0.9, (B, X)))
-        yf = rng.uniform(70.0, 90.0, (B, 2, Y))
-        rscal = np.log(rng.uniform(0.05, 0.9, spec.NS + 3 * spec.S))
-
-    def dev(a, dtype=torch.float32):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                               device=cuda)
-
-    if scal is None:
-        scal = dev(rscal)
-    fa = [scal, dev(win, torch.int32), dev(xf), dev(yf), dev(base),
-          dev(width)]
-    ba = fa + [dev(seedf), dev(seedf * float(ragged))]
-    return fa, ba, dict(R=R, W=W, ND=ND, C=C, spec=spec)
-
-
 def _tiled_case(cuda, spec, W, NT, ragged, TD=128, every=False):
-    """``_synthetic_case`` over NT tiles of TD diagonals."""
-    fa, ba, dims = _synthetic_case(cuda, spec, W, NT * TD, ragged,
-                                   [5, W, NT, int(ragged)], every=every)
+    """``synthetic_case`` over NT tiles of TD diagonals."""
+    fa, ba, dims = synthetic_case(cuda, spec, W, NT * TD, ragged,
+                                  [5, W, NT, int(ragged)], every=every)
     return fa, ba, dims, TD
 
 
-@pytest.mark.parametrize("spec", [fk.StrawmanSpec, fk.VanillaSpec],
-                         ids=lambda s: s.NAME)
+@pytest.mark.parametrize("spec", [fk.StrawmanSpec, fk.VanillaSpec,
+                                  fk.HdpSpec], ids=lambda s: s.NAME)
 @pytest.mark.parametrize("ragged", [False, True])
 @pytest.mark.parametrize("W, ND, every", [
     (32, 2, False), (32, 3, False), (32, 5, False), (128, 300, True),
@@ -480,16 +355,40 @@ def _tiled_case(cuda, spec, W, NT, ragged, TD=128, every=False):
 def test_cuda_signal_kernels_match_plain_on_moving_windows(cuda, spec,
                                                            ragged, W, ND,
                                                            every):
-    """K1 and K2 of the strawman and vanilla machines (K2: the untiled
-    ``sm3_bwd_tiled_sel<Spec, false, false>``) against their plain
-    versions on synthetic inputs whose group window drifts (and with
-    ``every`` shifts on nearly every diagonal), so that the backward reads
-    lanes outside the window of d + 1 on many steps: the fwd plane, the
-    posteriors and the totals bit for bit, at W 32, 128 and 1024.  ND 2, 3
-    and 5 leave fewer diagonals than the fwd slots copied ahead (the
-    prologue's empty groups and the tail's rotated slots)."""
-    fa, ba, dims = _synthetic_case(cuda, spec, W, ND, ragged,
-                                   [9, W, ND, int(ragged)], every=every)
+    """K1 and K2 of the strawman, vanilla and HDP machines (K1 vanilla:
+    the untiled ``sm3_fwd_tiled_sel<Vanilla, false>``; K2: the untiled
+    ``sm3_bwd_tiled_sel<Spec, false, false>``, hdp's reading its stream)
+    against their plain versions on synthetic inputs whose group window
+    drifts (and with ``every`` shifts on nearly every diagonal), so that
+    the backward reads lanes outside the window of d + 1 on many steps:
+    the fwd plane, the posteriors and the totals bit for bit, at W 32, 128
+    and 1024.  ND 2, 3 and 5 leave fewer diagonals than the fwd slots
+    copied ahead (the prologue's empty groups and the tail's rotated
+    slots)."""
+    fa, ba, dims = synthetic_case(cuda, spec, W, ND, ragged,
+                                  [9, W, ND, int(ragged)], every=every)
+    _check_signal_pair(spec, fa, ba, dims, ND)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("W, ND", [(32, 150), (128, 257), (1024, 140)])
+def test_cuda_hdp_kernels_match_plain_at_the_window_edge(cuda, ragged, W,
+                                                         ND):
+    """K1 and K2 hdp against their plain versions where every band is its
+    group's whole window, so that the cells at the window's edge lanes
+    count: where the window stays at d + 1 and moves at d + 2, the carried
+    stream entry of lane W - 1 (lane l + o1 + 1 = W of the em ring) is
+    NEG, though its stream entry at lane l + o2 + 1 lies inside the
+    window; bit for bit, at W 32, 128 and 1024."""
+    fa, ba, dims = synthetic_case(cuda, fk.HdpSpec, W, ND, ragged,
+                                  [23, W, ND, int(ragged)], edge=True)
+    _check_signal_pair(fk.HdpSpec, fa, ba, dims, ND)
+
+
+def _check_signal_pair(spec, fa, ba, dims, ND):
+    """K1 and K2 of ``spec`` launched once each on the card, then their
+    fwd plane, posteriors and totals against the plain versions', bit for
+    bit."""
     fk.reset_counts()
     fwd = fk.wavefront_fwd(*fa, **dims)
     posts, totals = fk.wavefront_bwd(*ba, fwd, **dims)
@@ -630,7 +529,7 @@ def test_cuda_dna5_exp_kernel_matches_plain(dna5_batch, cuda, ragged,
                                "widthf")]
         ba = fa + [inp["seedf"], inp["raggedf"]]
     else:
-        fa, ba, dims = _synthetic_case(
+        fa, ba, dims = synthetic_case(
             cuda, fk.Dna5Spec, W, ND, ragged, [7, W, ND, int(ragged)],
             every=every, scal=sm.scalars(ragged_left=ragged).to(cuda))
     fwd = fk.wavefront_fwd(*fa, **dims)
@@ -682,8 +581,8 @@ def test_cuda_dna5_exp_kernel_flushes_only_denormal_terms(cuda, ragged,
     scal = StateMachine5().scalars(ragged_left=ragged).clone()
     scal[0, [fk.T5_LOX, fk.T5_LOY]] = -92.0
     W, ND = 128, 300
-    fa, ba, dims = _synthetic_case(cuda, fk.Dna5Spec, W, ND, ragged,
-                                   [11, W, ND, int(ragged)],
+    fa, ba, dims = synthetic_case(cuda, fk.Dna5Spec, W, ND, ragged,
+                                  [11, W, ND, int(ragged)],
                                    scal=scal.to(cuda))
     fwd = fk.wavefront_fwd(*fa, **dims)
     got = fk.wavefront_bwd_exp(*ba, fwd, **dims)
@@ -1092,8 +991,8 @@ def test_cuda_echelon_kernels_match_plain_on_moving_windows(cuda, ragged, W,
     d + 1 on many steps: the pre-pass planes, the fwd plane, the five
     posterior planes and the totals bit for bit, at W 32, 128 and 1024 and
     ND 2 and 3."""
-    fa, ba, dims = _synthetic_case(cuda, fk.EchelonSpec, W, ND, ragged,
-                                   [9, W, ND, int(ragged)], every=every)
+    fa, ba, dims = synthetic_case(cuda, fk.EchelonSpec, W, ND, ragged,
+                                  [9, W, ND, int(ragged)], every=every)
     fwd = fk.wavefront_fwd(*fa, **dims)
     assert torch.equal(fwd, fk.forward_plain(*fa, **dims))
     got = fk.wavefront_bwd(*ba, fwd, **dims)
