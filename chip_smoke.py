@@ -12,13 +12,14 @@ machine and the HDP machine through them:
 2. the kernel build (nvcc, ptxas register report); every select instance
    (the kernels redesigned for the card: K6a and K6b dna5, K3 dna5, K6b
    strawman, K6a strawman, K2 dna5, K6b sm4 and vanilla, K6a sm4 and
-   vanilla, K1 and K2 echelon, K2 strawman and vanilla, K2 hdp and K1
-   vanilla) and the echelon emission pre-pass within 64 registers, no
-   spill;
+   vanilla, K1 and K2 echelon, K2 strawman and vanilla, K2 hdp, K1
+   vanilla, K1 strawman and K1 dna5) and the echelon emission pre-pass
+   within 64 registers, no spill;
 3. each kernel against its plain PyTorch version on the card, on the first
    64-read chunk of the bench batch (256 reads x 905 bases x 800 events,
    seed 7), with the tolerances of cpecan_tpu_torch/parity.py, and the
-   pair sets extracted from both;
+   pair sets extracted from both (K1 strawman sm3_fwd_tiled_sel<Strawman,
+   0>, K2 strawman sm3_bwd_tiled_sel<Strawman, 0, 0>);
 4. the Zymo MinION read against the f64 scan engine's stored pairs;
 5. the main path at bench scale: StrawmanAligner(group=64).run over chunks
    of 64 reads, compact_k=1024, then extract_pairs_chunk; end-to-end
@@ -54,7 +55,8 @@ machine and the HDP machine through them:
    1,500 x 2,550 read of the same generator (two tiles): fwd plane,
    shifts, posteriors and totals bit for bit, equal pairs, and the
    kernels' and plain versions' ms on it;
-13. the dna5 kernels K1 and K2 against their plain versions on the first
+13. the dna5 kernels K1 and K2 (sm3_fwd_tiled_sel<Dna5, 0>,
+   sm3_bwd_tiled_sel<Dna5, 0, 0>) against their plain versions on the first
    32 pairs of bench.py's realign batch (64 x 2 kb, random.Random(11);
    group 32, ragged at both ends): fwd planes, posteriors and totals equal
    bit for bit, equal pair sets; K6a/K6b dna5 on the same pairs with
@@ -307,7 +309,9 @@ REDESIGNED = ("sm3_fwd_tiled_sel<Dna5, 1>",
               "sm3_bwd_tiled_sel<Strawman, 0, 0>",
               "sm3_bwd_tiled_sel<Vanilla, 0, 0>",
               "sm3_bwd_tiled_sel<Hdp, 0, 0>",
-              "sm3_fwd_tiled_sel<Vanilla, 0>")
+              "sm3_fwd_tiled_sel<Vanilla, 0>",
+              "sm3_fwd_tiled_sel<Strawman, 0>",
+              "sm3_fwd_tiled_sel<Dna5, 0>")
 
 
 def log(msg):
@@ -521,8 +525,9 @@ def main():
 
     # -- 3. kernels vs plain on the first bench chunk --------------------
     clock.start(3)
-    # K1 strawman (sm3_fwd_kernel<Strawman>) and K2 strawman (the untiled
-    # select posterior form, sm3_bwd_tiled_sel<Strawman, 0, 0>), bit for bit
+    # K1 strawman (the untiled select forward, sm3_fwd_tiled_sel<Strawman,
+    # 0>) and K2 strawman (the untiled select posterior form,
+    # sm3_bwd_tiled_sel<Strawman, 0, 0>), bit for bit
     sm, reads = synthetic_batch(**BATCH)
     pa = StrawmanAligner(AlignmentParams(), device=dev, group=GROUP)
     prep = pa.prepare(sm, reads[:CHUNK])
@@ -1035,6 +1040,9 @@ def main():
 
     # -- 13. the dna5 kernels vs plain on the first 32 realign pairs ------
     clock.start(13)
+    # K1 dna5 (the untiled select forward, sm3_fwd_tiled_sel<Dna5, 0>) and
+    # K2 dna5 (the untiled select posterior form, sm3_bwd_tiled_sel<Dna5,
+    # 0, 0>), bit for bit
     dreads = dna_realign_batch()
     dsm = StateMachine5()
     da = Dna5Aligner(AlignmentParams(), device=dev, group=DNA_GROUP)
@@ -2841,8 +2849,9 @@ def main():
     # runs (phases 23, 25, 28) or one run (phases 21, 22)
     # K2 strawman, K2 dna5, K2 vanilla and K2 hdp run the untiled select
     # posterior form (sm3_bwd_tiled_sel<Spec, 0, 0>; hdp's reads its
-    # stream), K2 sm4 sm3_bwd_kernel<Sm4, 0>; K1 vanilla the untiled select
-    # forward (sm3_fwd_tiled_sel<Vanilla, 0>)
+    # stream), K2 sm4 sm3_bwd_kernel<Sm4, 0>; K1 strawman, K1 dna5 and K1
+    # vanilla the untiled select forward (sm3_fwd_tiled_sel<Spec, 0>), K1
+    # sm4 and K1 hdp sm3_fwd_kernel<Spec>
     log(json.dumps({"kernels": [
         entry("wavefront_fwd", "cpecan_tpu/ops/pallas_fb.py:635",
               launches["wavefront_fwd"], 4, exact, "fwd", "fwd"),

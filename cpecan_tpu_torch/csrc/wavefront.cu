@@ -19,10 +19,11 @@
 //
 // Replaces (TPU, Pallas):
 //   sm3_fwd_kernel<Spec>   <- cpecan_tpu/ops/pallas_fb.py _sm3_forward_kernel
-//                             (:635, untiled; _StrawmanSpec, _Dna5Spec,
-//                             _Sm4Spec, the streamed _HdpSpec :2829)    K1
-//   sm3_fwd_tiled_sel<Vanilla, false>
-//                          <- the same kernel for _VanillaSpec (:456): the
+//                             (:635, untiled; _Sm4Spec, the streamed
+//                             _HdpSpec :2829)                           K1
+//   sm3_fwd_tiled_sel<Spec, false>
+//                          <- the same kernel for _StrawmanSpec (:162),
+//                             _Dna5Spec (:340) and _VanillaSpec (:456): the
 //                             untiled select forward (the note above
 //                             sm3_fwd_tiled_sel)                        K1
 //   sm3_bwd_kernel<Spec, false>
@@ -359,6 +360,8 @@ struct Strawman : GaussRows {
         out[2] = LA::add(p1a[0] + t[T_OY], p1a[2] + t[T_EY]) + e.gap_y;
     }
 
+    // the branch form, sm3_fwd_kernel's: K1 hdp runs it (Hdp derives from
+    // Strawman); K1 strawman runs the untiled select forward
     __device__ __forceinline__ static void fwd_update(
             const float* t, const float* p1m, const float* p1a,
             const float* p2m, const Emissions& e, const float* xb, int X,
@@ -545,7 +548,10 @@ struct Dna5 : OneMatch {
         return e;
     }
 
-    // _Dna5Spec.fwd_update_w
+    // _Dna5Spec.fwd_update_w, the branch form, sm3_fwd_kernel's: no entry
+    // point launches sm3_fwd_kernel<Dna5> since K1 dna5 runs the untiled
+    // select forward, but tests/test_torch_wavefront_emulated.py holds that
+    // one to it
     __device__ __forceinline__ static void fwd_update(
             const float* t, const float* p1m, const float* p1a,
             const float* p2m, const Emissions& e, const float* xb, int X,
@@ -1542,16 +1548,20 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
 // ns a diagonal on sm3_bwd_kernel on the same card), which computes no
 // emission: it reads the stream (STREAMED, below: rows staged ahead into
 // shared memory) and loads the gap-X row alone, without the column logs
-// its SignalRows traits would take.  K1 vanilla (the same chunks; ~1,510
-// ns a diagonal on sm3_fwd_kernel) is the untiled form of the forward
-// template with its K6a's traits.  The fourState and vanilla backwards
-// (K6b sm4 and K6b vanilla, the same long reads; 2.33 and 2.05 us a
-// diagonal with sm3_bwd_kernel's tiled form on the same card) run on the
-// backward template with the signal machines' traits (SignalRows: the
-// column logs and the shared transitions): sm4 with the strawman's
-// emissions and the seven log-adds of Sm4::bwd_update_with; vanilla,
-// whose transitions into M and X come from the next column's rows
-// (COL_TRANS, row_at_next), with
+// its SignalRows traits would take.  K1 vanilla and K1 strawman (the same
+// chunks; ~1,510 and ~1,380 ns a diagonal on sm3_fwd_kernel) are the
+// untiled form of the forward template with their K6a's traits, and so is
+// K1 dna5 (the realigner's 32-pair chunks: 32 blocks of 128 threads, one
+// warp per scheduler on 32 of the 132 SMs, ~4,000 diagonals; ~1,190 ns a
+// diagonal on sm3_fwd_kernel): the select step, its band scalars
+// prefetched into L1, its scalars in registers.  The fourState and
+// vanilla backwards (K6b sm4 and K6b vanilla, the same long reads; 2.33
+// and 2.05 us a diagonal with sm3_bwd_kernel's tiled form on the same
+// card) run on the backward template with the signal machines' traits
+// (SignalRows: the column logs and the shared transitions): sm4 with the
+// strawman's emissions and the seven log-adds of Sm4::bwd_update_with;
+// vanilla, whose transitions into M and X come from the next column's
+// rows (COL_TRANS, row_at_next), with
 // gauss_sel and inv_gauss_sel on the kept logs of its sd and lambda rows
 // and the noise's log taken once a cell.  Their forwards (K6a sm4 and K6a
 // vanilla, the same reads; 1.78 and 1.58 us a diagonal with
@@ -1790,10 +1800,10 @@ __device__ __forceinline__ void tiled_fwd_update(
 }
 
 // The forward in two forms: TILED, the tiled forward (K6a); untiled (K1
-// echelon and K1 vanilla: no tiles, no re-centering, no shifts written,
-// aux null but for echelon's plane).  A spec with an emission plane
-// (EM_PLANE: echelon) reads each cell's emissions from the pre-pass's
-// plane (slot d at its own window, k = 0), staged F_AHEAD
+// strawman, dna5, vanilla and echelon: no tiles, no re-centering, no
+// shifts written, aux null but for echelon's plane).  A spec with an
+// emission plane (EM_PLANE: echelon) reads each cell's emissions from the
+// pre-pass's plane (slot d at its own window, k = 0), staged F_AHEAD
 // diagonals ahead into shared memory with cp.async (each lane its own
 // entries, one group a step), and loads only the x rows its step reads
 // (fwd_row); the other specs compute them from their rows.  What a form or
@@ -2661,8 +2671,8 @@ const char* wavefront_error_string(int code) {
             stream);                                                         \
     }
 // the untiled select forward of a spec without an emission plane (K1
-// vanilla: sm3_fwd_tiled_sel<Spec, false>) takes the untiled one's
-// arguments
+// strawman, dna5 and vanilla: sm3_fwd_tiled_sel<Spec, false>) takes the
+// untiled one's arguments
 #define WAVEFRONT_FWD_SEL_ENTRY(NAME, SPEC)                                 \
     int NAME(const void* scal, const void* win, const void* xf,              \
              const void* yf, const void* basef, const void* widthf,          \
@@ -2804,8 +2814,8 @@ const char* wavefront_error_string(int code) {
             posts, totals, trans, acc, G, R, W, ND, NDp, X, C, Y, stream);   \
     }
 
-WAVEFRONT_FWD_ENTRY(wavefront_fwd, Strawman)
-WAVEFRONT_FWD_ENTRY(wavefront_fwd_dna5, Dna5)
+WAVEFRONT_FWD_SEL_ENTRY(wavefront_fwd, Strawman)
+WAVEFRONT_FWD_SEL_ENTRY(wavefront_fwd_dna5, Dna5)
 WAVEFRONT_FWD_TILED_SEL_ENTRY(wavefront_fwd_tiled, Strawman)
 WAVEFRONT_FWD_TILED_SEL_ENTRY(wavefront_fwd_tiled_dna5, Dna5)
 WAVEFRONT_BWD_SEL_ENTRY(wavefront_bwd, Strawman)

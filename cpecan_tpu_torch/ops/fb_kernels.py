@@ -18,7 +18,10 @@ Counterparts in the JAX package (``cpecan_tpu/ops/pallas_fb.py``):
 ``VanillaSpec``            ``_VanillaSpec`` (:456-517)
 ``exact_log_add``,         ``_exact_log_add`` (:520-525),
 ``EchelonSpec``            ``_EchelonSpec`` (:528-620)
-``wavefront_fwd``          ``_sm3_forward_kernel`` (:635), untiled
+``wavefront_fwd``          ``_sm3_forward_kernel`` (:635), untiled (on the
+                           card ``sm3_fwd_tiled_sel<Spec, false>`` for
+                           strawman, dna5, vanilla and echelon,
+                           ``sm3_fwd_kernel<Spec>`` for sm4 and hdp)
 ``wavefront_bwd``          ``_sm3_backward_kernel`` -> ``_sm3_backward_body_w``
                            (:857, :900), ``with_exp=False``, untiled
 ``wavefront_bwd_exp``      the same body with ``with_exp=True`` (EM
@@ -65,15 +68,16 @@ boundary here, where the carried diagonals re-center.  Every tiled pair
 true>``: the same recurrences with a branch-free log-add), as do K2 dna5,
 K2 strawman, K2 vanilla and K2 hdp (the untiled posterior form
 ``sm3_bwd_tiled_sel<Spec, false, false>``; hdp's reads its stream ``est``),
-K1 vanilla (the untiled forward ``sm3_fwd_tiled_sel<Vanilla, false>``), K3
-dna5 (the untiled expectation form ``sm3_bwd_tiled_sel<Dna5, true,
-false>``) and K1/K2 echelon (the untiled forms
-``sm3_fwd_tiled_sel<Echelon, false>`` and ``sm3_bwd_tiled_sel<Echelon,
-false, false>``, each after the emission pre-pass ``echelon_emissions``,
-whose plane the wrapper allocates and drops after the launch); the other
-instances are those of ``sm3_fwd_kernel``/``sm3_bwd_kernel``.  Every CUDA
-kernel's launches are counted in ``KERNEL_LAUNCHES`` under its entry
-point's name (``wavefront_fwd``, ``wavefront_fwd_dna5``,
+K1 strawman, K1 dna5 and K1 vanilla (the untiled forward
+``sm3_fwd_tiled_sel<Spec, false>``), K3 dna5 (the untiled expectation
+form ``sm3_bwd_tiled_sel<Dna5, true, false>``) and K1/K2 echelon (the
+untiled forms ``sm3_fwd_tiled_sel<Echelon, false>`` and
+``sm3_bwd_tiled_sel<Echelon, false, false>``, each after the emission
+pre-pass ``echelon_emissions``, whose plane the wrapper allocates and
+drops after the launch); the other instances are those of
+``sm3_fwd_kernel``/``sm3_bwd_kernel``.  Every CUDA kernel's launches
+are counted in ``KERNEL_LAUNCHES`` under its entry point's name
+(``wavefront_fwd``, ``wavefront_fwd_dna5``,
 ``wavefront_fwd_vanilla``, ``wavefront_fwd_sm4``, ``wavefront_fwd_echelon``,
 ``wavefront_emissions_echelon``, ``wavefront_fwd_hdp``, ...); a wrapper's
 ``.launches`` reads its strawman entry there.  Each plain version counts
@@ -1322,11 +1326,11 @@ def wavefront_fwd(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
                   spec=StrawmanSpec, est=None):
     """Forward wavefront -> fwd plane [G, ND+1, S, R, W] f32; a streamed
     spec reads its emissions from ``est`` [G, ND+3, R, W].  Plain PyTorch
-    for CPU tensors; the CUDA kernel ``sm3_fwd_kernel<spec>`` (strawman,
-    dna5, sm4, hdp) for CUDA tensors (replaces
+    for CPU tensors; for CUDA tensors the untiled select forward
+    ``sm3_fwd_tiled_sel<spec, false>`` (strawman, dna5, vanilla), or for
+    sm4 and hdp ``sm3_fwd_kernel<spec>`` (replaces
     cpecan_tpu/ops/pallas_fb.py:635 _sm3_forward_kernel; entry
-    ``wavefront_fwd`` + ``spec.SUFFIX``); vanilla: the untiled select
-    forward ``sm3_fwd_tiled_sel<Vanilla, false>``; echelon: the emission
+    ``wavefront_fwd`` + ``spec.SUFFIX``); echelon: the emission
     pre-pass (``echelon_emissions``, k = 0), then the untiled select
     forward ``sm3_fwd_tiled_sel<Echelon, false>`` on its plane, which is
     freed after the launch."""

@@ -21,13 +21,21 @@
 - ``hdp``: the HDP pair (K1 and K2 hdp) on the inputs of phases 27/28:
   each 64-read chunk of bench.py's HDP cell (the same 256 reads, group 64,
   on ``synthetic.hdp_model()``), the model and each chunk's emission
-  stream built once and handed to every tree.
+  stream built once and handed to every tree;
+- ``realign``: the untiled dna5 pair (K1 and K2 dna5) on the inputs of
+  phases 13 and 15: bench.py's realign batch (``dna_realign_batch()``: 64
+  x 2 kb pairs, ``random.Random(11)``), group 32, ragged at both ends:
+  each 32-pair chunk as phase 15's ``Dna5Aligner.run`` stages it (the
+  shape hint of all 64 pairs).  Chunk 0 equals phase 13's chunk (staged
+  without the hint), whose kernel ms ``chip_smoke.py`` reports.
 
     python cpecan_tpu_torch/tools/tiled_times.py build/parent .
     python cpecan_tpu_torch/tools/tiled_times.py --path echelon build/parent .
     python cpecan_tpu_torch/tools/tiled_times.py --path posterior \
         build/parent . . build/parent
     python cpecan_tpu_torch/tools/tiled_times.py --path hdp \
+        build/parent . . build/parent
+    python cpecan_tpu_torch/tools/tiled_times.py --path realign \
         build/parent . . build/parent
 
 Each tree is a directory holding ``cpecan_tpu_torch`` (a parent unpacked
@@ -63,6 +71,7 @@ ECH_READS, ECH_CHUNK, ECH_THRESHOLD = 64, 32, 0.01
 POST_BATCH = dict(n_reads=256, n_ref=905, n_events=800, seed=7)
 POST_CHUNK = 64
 HDP_CHUNK = 64
+DNA_CHUNK = 32
 
 
 def load_tree(i, tree):
@@ -273,8 +282,44 @@ def hdp_cases(fks, dev):
         del fa, ba, inp, prep, dims
 
 
+def realign_cases(fks, dev):
+    """The untiled dna5 pair's cases, one per chunk, as ``long_cases``."""
+    from cpecan_tpu_torch.align import AlignmentParams
+    from cpecan_tpu_torch.models.state_machines import StateMachine5
+    from cpecan_tpu_torch.ops.fb import Dna5Aligner
+    from cpecan_tpu_torch.synthetic import dna_realign_batch
+
+    reads = dna_realign_batch()
+    dsm = StateMachine5()
+    aligner = Dna5Aligner(AlignmentParams(), device=dev, group=DNA_CHUNK)
+    hint = (max(r[2] for r in reads), aligner.prepare(dsm, reads)["ND"])
+    for i in range(0, len(reads), DNA_CHUNK):
+        prep = aligner.prepare(dsm, reads[i:i + DNA_CHUNK],
+                               ragged_right=True, shape_hint=hint)
+        inp = aligner.device_inputs(dsm, prep, ragged_left=True)
+        dims = dict(R=prep["R"], W=prep["W"], ND=prep["ND"], C=prep["C"])
+        fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                               "widthf")]
+        ba = fa + [inp["seedf"], inp["raggedf"]]
+
+        def launches(fk, fa=fa, ba=ba, dims=dims):
+            d = dict(dims, spec=fk.Dna5Spec)
+            fwd = fk.wavefront_fwd(*fa, **d)
+            posts, tot = fk.wavefront_bwd(*ba, fwd, **d)
+            return (fwd, posts, tot), {
+                "fwd": lambda: fk.wavefront_fwd(*fa, **d),
+                "bwd": lambda: fk.wavefront_bwd(*ba, fwd, **d)}
+
+        yield ({"machine": "dna5", "chunk": i // DNA_CHUNK,
+                "reads": len(reads[i:i + DNA_CHUNK]), "ND": dims["ND"],
+                "W": dims["W"]}, dims["ND"],
+               [lambda fk=fk: launches(fk) for fk in fks])
+        del fa, ba, inp, prep
+
+
 PATHS = {"long": long_cases, "echelon": echelon_cases,
-         "posterior": posterior_cases, "hdp": hdp_cases}
+         "posterior": posterior_cases, "hdp": hdp_cases,
+         "realign": realign_cases}
 
 
 def main(argv=None):

@@ -296,10 +296,11 @@ def _dna5_inputs(cuda, reads, ragged, tile_diag=None):
     ids=lambda v: "batch" if v is None else str(v))
 def test_cuda_dna5_kernels_match_plain(dna5_batch, cuda, ragged, W, ND,
                                        every):
-    """K1/K2 for dna5 (K2: the untiled ``sm3_bwd_tiled_sel<Dna5, false,
-    false>``) against their plain versions on the same card inputs: fwd
-    plane, posteriors and totals equal bit for bit, and on the realign
-    batch so the pair sets.  On synthetic inputs at W 32, 128 and 1024:
+    """K1/K2 for dna5 (K1: the untiled ``sm3_fwd_tiled_sel<Dna5, false>``,
+    K2: the untiled ``sm3_bwd_tiled_sel<Dna5, false, false>``) against
+    their plain versions on the same card inputs: fwd plane, posteriors
+    and totals equal bit for bit, and on the realign batch so the pair
+    sets.  On synthetic inputs at W 32, 128 and 1024:
     ND 2, 3 and 5 (no more diagonals than the fwd slots copied ahead: the
     prologue's empty groups and the tail's rotated slots), and 150-300
     with windows drifting or shifting on every diagonal; y bases include N
@@ -355,16 +356,17 @@ def _tiled_case(cuda, spec, W, NT, ragged, TD=128, every=False):
 def test_cuda_signal_kernels_match_plain_on_moving_windows(cuda, spec,
                                                            ragged, W, ND,
                                                            every):
-    """K1 and K2 of the strawman, vanilla and HDP machines (K1 vanilla:
-    the untiled ``sm3_fwd_tiled_sel<Vanilla, false>``; K2: the untiled
-    ``sm3_bwd_tiled_sel<Spec, false, false>``, hdp's reading its stream)
-    against their plain versions on synthetic inputs whose group window
-    drifts (and with ``every`` shifts on nearly every diagonal), so that
-    the backward reads lanes outside the window of d + 1 on many steps:
-    the fwd plane, the posteriors and the totals bit for bit, at W 32, 128
-    and 1024.  ND 2, 3 and 5 leave fewer diagonals than the fwd slots
-    copied ahead (the prologue's empty groups and the tail's rotated
-    slots)."""
+    """K1 and K2 of the strawman, vanilla and HDP machines (K1 strawman
+    and K1 vanilla: the untiled ``sm3_fwd_tiled_sel<Spec, false>``, whose
+    column logs are taken again where the window moves; K1 hdp
+    ``sm3_fwd_kernel<Hdp>``; K2: the untiled ``sm3_bwd_tiled_sel<Spec,
+    false, false>``, hdp's reading its stream) against their plain
+    versions on synthetic inputs whose group window drifts (and with
+    ``every`` shifts on nearly every diagonal), so that the backward reads
+    lanes outside the window of d + 1 on many steps: the fwd plane, the
+    posteriors and the totals bit for bit, at W 32, 128 and 1024.  ND 2,
+    3 and 5 leave fewer diagonals than the fwd slots copied ahead (the
+    prologue's empty groups and the tail's rotated slots)."""
     fa, ba, dims = synthetic_case(cuda, spec, W, ND, ragged,
                                   [9, W, ND, int(ragged)], every=every)
     _check_signal_pair(spec, fa, ba, dims, ND)

@@ -7,6 +7,7 @@ import ast
 import contextlib
 import dataclasses
 import io
+import itertools
 import os
 import pathlib
 import subprocess
@@ -553,7 +554,10 @@ def _factor_order():
     which the Python sampler visits a set of factors (and the JSON state
     lists them) follows memory addresses: neither package repeats its own
     draws from one seed.  With the creation order as the hash both do, and
-    a copy of the sampler must repeat the original's draws."""
+    a copy of the sampler must repeat the original's draws.  The order is
+    a running count, not the number of ids seen: a new factor may take a
+    dead one's id, and the count of ids would then hand the next factor a
+    number already in use, in one package's run and not the other's."""
     from cpecan_tpu.hdp import hdp as j_hdp
     from cpecan_tpu_torch.hdp import hdp as t_hdp
 
@@ -563,8 +567,9 @@ def _factor_order():
         serial = {}
         init = cls.__init__
 
-        def counted_init(self, *a, _init=init, _serial=serial, **kw):
-            _serial[id(self)] = len(_serial)
+        def counted_init(self, *a, _init=init, _serial=serial,
+                         _count=itertools.count(), **kw):
+            _serial[id(self)] = next(_count)
             _init(self, *a, **kw)
 
         saved.append((cls, init, cls.__hash__))

@@ -9,12 +9,16 @@ bit for bit, and against the plain PyTorch versions within
 
 - ``sm3_fwd_tiled_sel<Vanilla, 0>`` (K1 vanilla, entry
   ``wavefront_fwd_vanilla``) against ``sm3_fwd_kernel<Vanilla>``;
+- ``sm3_fwd_tiled_sel<Strawman, 0>`` and ``sm3_fwd_tiled_sel<Dna5, 0>`` (K1
+  strawman and K1 dna5, entries ``wavefront_fwd`` and
+  ``wavefront_fwd_dna5``) against ``sm3_fwd_kernel<Strawman>`` and
+  ``sm3_fwd_kernel<Dna5>``;
 - ``sm3_bwd_tiled_sel<Hdp, 0, 0>`` (K2 hdp, entry ``wavefront_bwd_hdp``:
   the streamed posterior form) against ``sm3_bwd_kernel<Hdp, 0>``, on
   bands that cover the windows' edges too.
 
 The old forms stay in the source for the instances that still run them;
-this translation unit instantiates them for the two specs itself
+this translation unit instantiates them for the redesigned specs itself
 (``OLD_ENTRIES``).  Needs g++ (skips without it); the library is built
 once into ``build/emulated/`` (~30 s) and reused while the sources stay
 the same.
@@ -49,10 +53,24 @@ GXX_FLAGS = ("-std=c++17", "-pedantic", "-O2", "-ffp-contract=off",
 EMULATED_RTOL = 1e-5
 EMULATED_POST_ATOL = 1e-5
 
-# the older kernels of the two redesigned instances, with their entry
-# points' C signatures
+# the older kernels of the redesigned instances, with their entry points'
+# C signatures
 OLD_ENTRIES = r"""
 extern "C" {
+int emu_old_wavefront_fwd(
+        const void* scal, const void* win, const void* xf, const void* yf,
+        const void* basef, const void* widthf, void* fwd, int G, int R,
+        int W, int ND, int NDp, int X, int C, int Y, void* stream) {
+    return launch_fwd<Strawman>(scal, win, xf, yf, basef, widthf, nullptr,
+                                fwd, G, R, W, ND, NDp, X, C, Y, stream);
+}
+int emu_old_wavefront_fwd_dna5(
+        const void* scal, const void* win, const void* xf, const void* yf,
+        const void* basef, const void* widthf, void* fwd, int G, int R,
+        int W, int ND, int NDp, int X, int C, int Y, void* stream) {
+    return launch_fwd<Dna5>(scal, win, xf, yf, basef, widthf, nullptr, fwd,
+                            G, R, W, ND, NDp, X, C, Y, stream);
+}
 int emu_old_wavefront_fwd_vanilla(
         const void* scal, const void* win, const void* xf, const void* yf,
         const void* basef, const void* widthf, void* fwd, int G, int R,
@@ -173,7 +191,8 @@ def lib():
     handle = ctypes.CDLL(str(build_emulated(cuda_build.CSRC, BUILD_DIR)))
     names = dict(cuda_build._SIGNATURES)
     names.update({f"emu_old_{n}": cuda_build._SIGNATURES[n]
-                  for n in ("wavefront_fwd_vanilla", "wavefront_bwd_hdp")})
+                  for n in ("wavefront_fwd", "wavefront_fwd_dna5",
+                            "wavefront_fwd_vanilla", "wavefront_bwd_hdp")})
     for name, argtypes in names.items():
         getattr(handle, name).argtypes = argtypes
         getattr(handle, name).restype = ctypes.c_int
@@ -221,6 +240,21 @@ CASES = [(32, 2, False), (32, 5, False), (32, 150, True), (64, 300, True),
          (64, 257, False)]
 
 
+def _check_k1(lib, spec, seed, W, ND, every, ragged):
+    """The untiled select forward of ``spec`` (entry ``wavefront_fwd`` +
+    its suffix) against its old kernel (``emu_old_`` + that entry) bit for
+    bit, and against the plain version within ``EMULATED_RTOL``, on
+    ``synthetic_case`` at ``seed``."""
+    fa, _, dims = synthetic_case("cpu", spec, W, ND, ragged,
+                                 [seed, W, ND, int(ragged)], every=every)
+    entry = "wavefront_fwd" + spec.SUFFIX
+    new = _fwd(lib, entry, fa, dims)
+    old = _fwd(lib, "emu_old_" + entry, fa, dims)
+    assert torch.equal(new, old)
+    _close(new, fk.forward_plain(*fa, **dims), EMULATED_RTOL)
+    assert torch.isfinite(new).all() and (new > -1e29).any()
+
+
 @pytest.mark.parametrize("ragged", [False, True])
 @pytest.mark.parametrize("W, ND, every", CASES)
 def test_k1_vanilla_select_form_equals_the_old_kernel(lib, W, ND, every,
@@ -230,13 +264,26 @@ def test_k1_vanilla_select_form_equals_the_old_kernel(lib, W, ND, every,
     stays, the scalars in shared memory, every x row read at x) gives
     ``sm3_fwd_kernel<Vanilla>``'s fwd plane bit for bit, and the plain
     version's within ``EMULATED_RTOL``."""
-    fa, _, dims = synthetic_case("cpu", fk.VanillaSpec, W, ND, ragged,
-                                 [17, W, ND, int(ragged)], every=every)
-    new = _fwd(lib, "wavefront_fwd_vanilla", fa, dims)
-    old = _fwd(lib, "emu_old_wavefront_fwd_vanilla", fa, dims)
-    assert torch.equal(new, old)
-    _close(new, fk.forward_plain(*fa, **dims), EMULATED_RTOL)
-    assert torch.isfinite(new).all() and (new > -1e29).any()
+    _check_k1(lib, fk.VanillaSpec, 17, W, ND, every, ragged)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("W, ND, every", CASES)
+@pytest.mark.parametrize("spec, seed", [(fk.StrawmanSpec, 23),
+                                        (fk.Dna5Spec, 29)],
+                         ids=["strawman", "dna5"])
+def test_k1_strawman_and_dna5_select_forms_equal_the_old_kernels(
+        lib, spec, seed, W, ND, every, ragged):
+    """K1 strawman's ``sm3_fwd_tiled_sel<Strawman, 0>`` (the column logs
+    of diagonal 0's window, taken again only where the window moves; the
+    four Gaussians as ``gauss_sel``; the scalars in shared memory; the five
+    log-adds as ``log_add_sel``) and K1 dna5's ``sm3_fwd_tiled_sel<Dna5,
+    0>`` (the select emissions on y bases that include N and values outside
+    0..4, the eight log-adds as ``log_add_sel``, the scalars in registers)
+    give ``sm3_fwd_kernel<Strawman>``'s and ``sm3_fwd_kernel<Dna5>``'s fwd
+    planes bit for bit, and the plain versions' within
+    ``EMULATED_RTOL``."""
+    _check_k1(lib, spec, seed, W, ND, every, ragged)
 
 
 @pytest.mark.parametrize("edge", [False, True])
