@@ -13,8 +13,8 @@ machine and the HDP machine through them:
    (the kernels redesigned for the card: K6a and K6b dna5, K3 dna5, K6b
    strawman, K6a strawman, K2 dna5, K6b sm4 and vanilla, K6a sm4 and
    vanilla, K1 and K2 echelon, K2 strawman and vanilla, K2 hdp, K1
-   vanilla, K1 strawman and K1 dna5) and the echelon emission pre-pass
-   within 64 registers, no spill;
+   vanilla, K1 strawman, K1 dna5, K1 and K2 sm4) and the echelon emission
+   pre-pass within 64 registers, no spill;
 3. each kernel against its plain PyTorch version on the card, on the first
    64-read chunk of the bench batch (256 reads x 905 bases x 800 events,
    seed 7), with the tolerances of cpecan_tpu_torch/parity.py, and the
@@ -120,8 +120,9 @@ machine and the HDP machine through them:
    TD on its 1,500 x 2,550 check read (two tiles), then phase 12's 64
    long reads through VanillaAligner once, kernels only: bases/s;
 22. the sm4 kernels K3, K6a and K6b (the 4-state machine's; phase 23 holds
-   K1/K2 sm4) against their plain versions: K3 through one
-   Sm4Aligner.run(expectations=True) on the first 32 bench reads with
+   K1/K2 sm4, the untiled select forms sm3_fwd_tiled_sel<Sm4, 0> and
+   sm3_bwd_tiled_sel<Sm4, 0, 0>) against their plain versions: K3 through
+   one Sm4Aligner.run(expectations=True) on the first 32 bench reads with
    ragged ends, per-read scaling and a trained-looking machine (every
    transition finite, a non-zero gap-X table); phase 12's 64 long reads
    routed tiled once, then K6a/K6b against plain on its check read: fwd
@@ -139,7 +140,8 @@ machine and the HDP machine through them:
    (tests/fixtures/batch_zymo.npz) for each machine; each machine's first
    chunk (template strand, as its warm-up run launched it) against the
    plain passes, fwd plane, posteriors and totals bit for bit (the K1/K2
-   sm4 ms, plain ms and bound of the kernels line are this chunk's); the
+   sm4 ms, plain ms and bound of the kernels line are this chunk's: K1
+   sm3_fwd_tiled_sel<Sm4, 0>, K2 sm3_bwd_tiled_sel<Sm4, 0, 0>); the
    one-chunk-behind drain over 256 reads in chunks of 64 against the same
    runs serialized; cpecan-torch-signal-align-batch -smt vanilla on 4 of
    the reads;
@@ -311,7 +313,9 @@ REDESIGNED = ("sm3_fwd_tiled_sel<Dna5, 1>",
               "sm3_bwd_tiled_sel<Hdp, 0, 0>",
               "sm3_fwd_tiled_sel<Vanilla, 0>",
               "sm3_fwd_tiled_sel<Strawman, 0>",
-              "sm3_fwd_tiled_sel<Dna5, 0>")
+              "sm3_fwd_tiled_sel<Dna5, 0>",
+              "sm3_fwd_tiled_sel<Sm4, 0>",
+              "sm3_bwd_tiled_sel<Sm4, 0, 0>")
 
 
 def log(msg):
@@ -2847,11 +2851,11 @@ def main():
     # passes: a warm-up and 3 timed runs (4; phases 5, 12, 15, 16, 20 and
     # the E-steps of 20 and 28), the EM iterations (phases 9, 18), 3 timed
     # runs (phases 23, 25, 28) or one run (phases 21, 22)
-    # K2 strawman, K2 dna5, K2 vanilla and K2 hdp run the untiled select
-    # posterior form (sm3_bwd_tiled_sel<Spec, 0, 0>; hdp's reads its
-    # stream), K2 sm4 sm3_bwd_kernel<Sm4, 0>; K1 strawman, K1 dna5 and K1
-    # vanilla the untiled select forward (sm3_fwd_tiled_sel<Spec, 0>), K1
-    # sm4 and K1 hdp sm3_fwd_kernel<Spec>
+    # K2 strawman, K2 dna5, K2 vanilla, K2 sm4 and K2 hdp run the untiled
+    # select posterior form (sm3_bwd_tiled_sel<Spec, 0, 0>; hdp's reads
+    # its stream); K1 strawman, K1 dna5, K1 vanilla and K1 sm4 the untiled
+    # select forward (sm3_fwd_tiled_sel<Spec, 0>), K1 hdp
+    # sm3_fwd_kernel<Hdp>
     log(json.dumps({"kernels": [
         entry("wavefront_fwd", "cpecan_tpu/ops/pallas_fb.py:635",
               launches["wavefront_fwd"], 4, exact, "fwd", "fwd"),
@@ -2926,8 +2930,10 @@ def main():
               vlong_counts["wavefront_bwd_tiled_vanilla"], 1, exact,
               "vanilla_bwd_tiled", "vanilla_bwd_tiled",
               main="vanilla_bwd_tiled_main"),
-        # phases 22-23 hold the five sm4 instances to plain (K1/K2 ms,
-        # plain ms and bound on the fourState pipeline's first chunk, K3
+        # phases 22-23 hold the five sm4 instances to plain (K1/K2, the
+        # untiled select forms sm3_fwd_tiled_sel<Sm4, 0> and
+        # sm3_bwd_tiled_sel<Sm4, 0, 0>: ms, plain ms and bound on the
+        # fourState pipeline's first chunk, K3
         # on the trained machine's E-step group, K6a/K6b on phase 12's
         # check read, their main_ms and main_bound_ms on the 64 long
         # reads); launches from phase 23's fourState pipeline (K1/K2), the

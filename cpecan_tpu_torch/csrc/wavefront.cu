@@ -19,19 +19,18 @@
 //
 // Replaces (TPU, Pallas):
 //   sm3_fwd_kernel<Spec>   <- cpecan_tpu/ops/pallas_fb.py _sm3_forward_kernel
-//                             (:635, untiled; _Sm4Spec, the streamed
-//                             _HdpSpec :2829)                           K1
+//                             (:635, untiled; the streamed _HdpSpec
+//                             :2829)                                    K1
 //   sm3_fwd_tiled_sel<Spec, false>
 //                          <- the same kernel for _StrawmanSpec (:162),
-//                             _Dna5Spec (:340) and _VanillaSpec (:456): the
-//                             untiled select forward (the note above
+//                             _Sm4Spec (:257), _Dna5Spec (:340) and
+//                             _VanillaSpec (:456): the untiled select
+//                             forward (the note above
 //                             sm3_fwd_tiled_sel)                        K1
-//   sm3_bwd_kernel<Spec, false>
-//                          <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
-//                             -> _sm3_backward_body_w (:857, :900;
-//                             with_exp=False, untiled; _Sm4Spec)        K2
 //   sm3_bwd_kernel<Spec, true>
-//                          <- the same body with with_exp=True (EM
+//                          <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
+//                             -> _sm3_backward_body_w (:857, :900) with
+//                             with_exp=True (EM
 //                             expectations: accumulate_exp :1072 and
 //                             _StrawmanSpec.exp_probs_w :215 /
 //                             _Dna5Spec.exp_probs_w :406 /
@@ -56,7 +55,8 @@
 //                          <- K2 (the same body, with_exp=False) for the
 //                             5-state DNA machine (the realigner's
 //                             posteriors), _StrawmanSpec and _VanillaSpec
-//                             (the signal posterior chunks) and the
+//                             (the signal posterior chunks), _Sm4Spec (the
+//                             fourState pipeline's chunks) and the
 //                             streamed _HdpSpec: the untiled posterior
 //                             form, with the select step
 //   sm3_bwd_tiled_sel<Dna5, true, false>
@@ -458,6 +458,9 @@ struct Sm4 : GaussRows {
                           p1m[2] + t[T4_LSX]) + e_gapx;
     }
 
+    // the branch form, sm3_fwd_kernel's: no entry point launches
+    // sm3_fwd_kernel<Sm4> since K1 sm4 runs the untiled select forward,
+    // but tests/test_torch_wavefront_emulated.py holds that one to it
     __device__ __forceinline__ static void fwd_update(
             const float* t, const float* p1m, const float* p1a,
             const float* p2m, const Emissions& e, const float* xb, int X,
@@ -1570,18 +1573,22 @@ __global__ void sm3_bwd_kernel(const float* __restrict__ scal,
 // Sm4::fwd_update_with (23 scalars in shared memory, its ring of four
 // states past 48 KB at W = 1024); vanilla with all x rows handed to
 // Vanilla::fwd_update_with (tiled_fwd_update), every transition read at x.
-// K1 and K2 echelon (bench.py's echelon chunk: 32 blocks of 128 threads,
-// 1,700 diagonals; 4.7 and 5.3 us a diagonal on sm3_fwd_kernel and
-// sm3_bwd_kernel on the same card) run the untiled forms of both
-// templates.  Their emissions (18 logf and 18 divisions a cell, on each
-// step's one dependent chain, and the backward's evaluated again) come
-// from the plane of sm3_emissions_kernel, computed first on every SM
-// (EM_PLANE); each step stages its plane slot with cp.async (the forward
-// F_AHEAD diagonals ahead, the backward E_AHEAD with its five posterior
-// states' fwd entries: both fit 227 KB at W = 1024), loads the four skip
-// logs alone (fwd_row, bwd_row, row_at_next) and folds with log_add_sel
-// (15 and 7); the backward reads the carried match terms across lanes
-// from the plane's staged slot of d + 1, so it writes no em ring.
+// K1 and K2 sm4 (the fourState pipeline's chunks: 64 blocks of 256
+// threads, ~1,640 diagonals; ~1,840 and ~2,390 ns a diagonal on
+// sm3_fwd_kernel and sm3_bwd_kernel on the same card) are the untiled
+// forms of both templates with those traits.  K1 and K2 echelon
+// (bench.py's echelon chunk: 32 blocks of 128 threads, 1,700 diagonals;
+// 4.7 and 5.3 us a diagonal on sm3_fwd_kernel and sm3_bwd_kernel on the
+// same card) run the untiled forms of both templates.  Their emissions
+// (18 logf and 18 divisions a cell, on each step's one dependent chain,
+// and the backward's evaluated again) come from the plane of
+// sm3_emissions_kernel, computed first on every SM (EM_PLANE); each step
+// stages its plane slot with cp.async (the forward F_AHEAD diagonals
+// ahead, the backward E_AHEAD with its five posterior states' fwd
+// entries: both fit 227 KB at W = 1024), loads the four skip logs alone
+// (fwd_row, bwd_row, row_at_next) and folds with log_add_sel (15 and 7);
+// the backward reads the carried match terms across lanes from the
+// plane's staged slot of d + 1, so it writes no em ring.
 //
 // Two rules keep every other instance's SASS as it was.  Both templates
 // take one pointer slot, aux, after the fwd plane: the tiled forms' shifts
@@ -1800,7 +1807,7 @@ __device__ __forceinline__ void tiled_fwd_update(
 }
 
 // The forward in two forms: TILED, the tiled forward (K6a); untiled (K1
-// strawman, dna5, vanilla and echelon: no tiles, no re-centering, no
+// strawman, dna5, vanilla, sm4 and echelon: no tiles, no re-centering, no
 // shifts written, aux null but for echelon's plane).  A spec with an
 // emission plane (EM_PLANE: echelon) reads each cell's emissions from the
 // pre-pass's plane (slot d at its own window, k = 0), staged F_AHEAD
@@ -2650,29 +2657,9 @@ const char* wavefront_error_string(int code) {
 
 // One entry point per kernel instance; the dna5, vanilla, sm4 and echelon
 // ones take the strawman ones' arguments, the hdp ones the stream too.
-#define WAVEFRONT_FWD_ENTRY(NAME, SPEC)                                     \
-    int NAME(const void* scal, const void* win, const void* xf,              \
-             const void* yf, const void* basef, const void* widthf,          \
-             void* fwd, int G, int R, int W, int ND, int NDp, int X, int C,  \
-             int Y, void* stream) {                                          \
-        return launch_fwd<SPEC>(scal, win, xf, yf, basef, widthf,            \
-                                nullptr, fwd, G, R, W, ND, NDp, X, C, Y,     \
-                                stream);                                     \
-    }
-#define WAVEFRONT_BWD_ENTRY(NAME, SPEC)                                     \
-    int NAME(const void* scal, const void* win, const void* xf,              \
-             const void* yf, const void* basef, const void* widthf,          \
-             const void* seedf, const void* raggedf, const void* fwd,        \
-             void* posts, void* totals, int G, int R, int W, int ND,         \
-             int NDp, int X, int C, int Y, void* stream) {                   \
-        return launch_bwd<SPEC, false>(                                      \
-            scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,  \
-            posts, totals, nullptr, nullptr, G, R, W, ND, NDp, X, C, Y,      \
-            stream);                                                         \
-    }
+
 // the untiled select forward of a spec without an emission plane (K1
-// strawman, dna5 and vanilla: sm3_fwd_tiled_sel<Spec, false>) takes the
-// untiled one's arguments
+// strawman, dna5, vanilla and sm4: sm3_fwd_tiled_sel<Spec, false>)
 #define WAVEFRONT_FWD_SEL_ENTRY(NAME, SPEC)                                 \
     int NAME(const void* scal, const void* win, const void* xf,              \
              const void* yf, const void* basef, const void* widthf,          \
@@ -2705,8 +2692,8 @@ const char* wavefront_error_string(int code) {
             stream);                                                         \
     }
 
-// the untiled select posterior kernels (K2 dna5, strawman and vanilla:
-// sm3_bwd_tiled_sel<Spec, false, false>) take the untiled one's arguments
+// the untiled select posterior kernels (K2 dna5, strawman, vanilla and
+// sm4: sm3_bwd_tiled_sel<Spec, false, false>)
 #define WAVEFRONT_BWD_SEL_ENTRY(NAME, SPEC)                                 \
     int NAME(const void* scal, const void* win, const void* xf,              \
              const void* yf, const void* basef, const void* widthf,          \
@@ -2832,9 +2819,9 @@ WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp, Strawman)
 WAVEFRONT_BWD_EXP_SEL_ENTRY(wavefront_bwd_exp_dna5, Dna5)
 WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_vanilla, Vanilla)
 
-WAVEFRONT_FWD_ENTRY(wavefront_fwd_sm4, Sm4)
+WAVEFRONT_FWD_SEL_ENTRY(wavefront_fwd_sm4, Sm4)
 WAVEFRONT_FWD_TILED_SEL_ENTRY(wavefront_fwd_tiled_sm4, Sm4)
-WAVEFRONT_BWD_ENTRY(wavefront_bwd_sm4, Sm4)
+WAVEFRONT_BWD_SEL_ENTRY(wavefront_bwd_sm4, Sm4)
 WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled_sm4, Sm4)
 WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_sm4, Sm4)
 

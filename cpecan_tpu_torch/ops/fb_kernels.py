@@ -20,8 +20,8 @@ Counterparts in the JAX package (``cpecan_tpu/ops/pallas_fb.py``):
 ``EchelonSpec``            ``_EchelonSpec`` (:528-620)
 ``wavefront_fwd``          ``_sm3_forward_kernel`` (:635), untiled (on the
                            card ``sm3_fwd_tiled_sel<Spec, false>`` for
-                           strawman, dna5, vanilla and echelon,
-                           ``sm3_fwd_kernel<Spec>`` for sm4 and hdp)
+                           strawman, dna5, vanilla, sm4 and echelon,
+                           ``sm3_fwd_kernel<Hdp>`` for hdp)
 ``wavefront_bwd``          ``_sm3_backward_kernel`` -> ``_sm3_backward_body_w``
                            (:857, :900), ``with_exp=False``, untiled
 ``wavefront_bwd_exp``      the same body with ``with_exp=True`` (EM
@@ -66,9 +66,9 @@ boundary here, where the carried diagonals re-center.  Every tiled pair
 (dna5, strawman, vanilla, sm4) runs the select kernels
 (``sm3_fwd_tiled_sel<Spec, true>``, ``sm3_bwd_tiled_sel<Spec, false,
 true>``: the same recurrences with a branch-free log-add), as do K2 dna5,
-K2 strawman, K2 vanilla and K2 hdp (the untiled posterior form
+K2 strawman, K2 vanilla, K2 sm4 and K2 hdp (the untiled posterior form
 ``sm3_bwd_tiled_sel<Spec, false, false>``; hdp's reads its stream ``est``),
-K1 strawman, K1 dna5 and K1 vanilla (the untiled forward
+K1 strawman, K1 dna5, K1 vanilla and K1 sm4 (the untiled forward
 ``sm3_fwd_tiled_sel<Spec, false>``), K3 dna5 (the untiled expectation
 form ``sm3_bwd_tiled_sel<Dna5, true, false>``) and K1/K2 echelon (the
 untiled forms ``sm3_fwd_tiled_sel<Echelon, false>`` and
@@ -1327,8 +1327,8 @@ def wavefront_fwd(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
     """Forward wavefront -> fwd plane [G, ND+1, S, R, W] f32; a streamed
     spec reads its emissions from ``est`` [G, ND+3, R, W].  Plain PyTorch
     for CPU tensors; for CUDA tensors the untiled select forward
-    ``sm3_fwd_tiled_sel<spec, false>`` (strawman, dna5, vanilla), or for
-    sm4 and hdp ``sm3_fwd_kernel<spec>`` (replaces
+    ``sm3_fwd_tiled_sel<spec, false>`` (strawman, dna5, vanilla, sm4), or
+    for hdp ``sm3_fwd_kernel<Hdp>`` (replaces
     cpecan_tpu/ops/pallas_fb.py:635 _sm3_forward_kernel; entry
     ``wavefront_fwd`` + ``spec.SUFFIX``); echelon: the emission
     pre-pass (``echelon_emissions``, k = 0), then the untiled select
@@ -1355,11 +1355,10 @@ def wavefront_bwd(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, *,
     POST_STATES, [G, ND+1, NPS, R, W], totals [G, R]) f32; a streamed spec
     reads its emissions from ``est``.  Plain PyTorch for CPU tensors; for
     CUDA tensors the CUDA kernel ``sm3_bwd_tiled_sel<spec, false, false>``,
-    the untiled select posterior form (strawman, vanilla, dna5, hdp, which
-    reads ``est`` there, and echelon, after its emission pre-pass at k =
-    1), or for sm4 ``sm3_bwd_kernel<Sm4, false>`` (replaces
-    cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
-    with_exp=False)."""
+    the untiled select posterior form (strawman, vanilla, dna5, sm4, hdp,
+    which reads ``est`` there, and echelon, after its emission pre-pass at
+    k = 1) (replaces cpecan_tpu/ops/pallas_fb.py:857/:900
+    _sm3_backward_kernel, with_exp=False)."""
     if xf.device.type == "cpu":
         _stream(spec, est, win.shape[0], R, W, ND)
         return backward_plain(scal, win, xf, yf, basef, widthf, seedf,

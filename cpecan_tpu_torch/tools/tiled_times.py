@@ -27,7 +27,14 @@
   x 2 kb pairs, ``random.Random(11)``), group 32, ragged at both ends:
   each 32-pair chunk as phase 15's ``Dna5Aligner.run`` stages it (the
   shape hint of all 64 pairs).  Chunk 0 equals phase 13's chunk (staged
-  without the hint), whose kernel ms ``chip_smoke.py`` reports.
+  without the hint), whose kernel ms ``chip_smoke.py`` reports;
+- ``fourstate``: the untiled sm4 pair (K1 and K2 sm4) on phase 23's
+  fourState pipeline chunks: ``run_batch_fast(sm_type="fourState")`` on
+  64 copies of the Zymo read (``fixtures.load_batch_zymo``, each guided
+  by the stored guide renamed to it), group 32, chunk 64, every run of
+  the aligner (each strand's chunk) recorded through a ``stage`` hook
+  once.  The template strand's chunk is the chunk whose kernel ms
+  ``chip_smoke.py`` reports.
 
     python cpecan_tpu_torch/tools/tiled_times.py build/parent .
     python cpecan_tpu_torch/tools/tiled_times.py --path echelon build/parent .
@@ -36,6 +43,8 @@
     python cpecan_tpu_torch/tools/tiled_times.py --path hdp \
         build/parent . . build/parent
     python cpecan_tpu_torch/tools/tiled_times.py --path realign \
+        build/parent . . build/parent
+    python cpecan_tpu_torch/tools/tiled_times.py --path fourstate \
         build/parent . . build/parent
 
 Each tree is a directory holding ``cpecan_tpu_torch`` (a parent unpacked
@@ -72,6 +81,7 @@ POST_BATCH = dict(n_reads=256, n_ref=905, n_events=800, seed=7)
 POST_CHUNK = 64
 HDP_CHUNK = 64
 DNA_CHUNK = 32
+PIPE_READS, PIPE_GROUP, PIPE_CHUNK, PIPE_COMPACT_K = 64, 32, 64, 2048
 
 
 def load_tree(i, tree):
@@ -317,9 +327,87 @@ def realign_cases(fks, dev):
         del fa, ba, inp, prep
 
 
+def fourstate_runs(dev):
+    """[(prep, device inputs)] of every run of the Sm4Aligner in phase
+    23's fourState pipeline (64 Zymo copies, group 32, chunk 64): the
+    template strand's chunk, then the complement's."""
+    import shutil
+    import tempfile
+
+    from cpecan_tpu_torch.align import AlignmentParams
+    from cpecan_tpu_torch.fixtures import load_batch_zymo
+    from cpecan_tpu_torch.ops.fb import Sm4Aligner
+    from cpecan_tpu_torch.pipeline.signal_align_batch import run_batch_fast
+
+    records = []
+
+    class Recorded(Sm4Aligner):
+        """Keeps each run's staged inputs (its "prepare" and "inputs")."""
+
+        def run(self, sm, reads, **kw):
+            rec = {}
+
+            def stage(name, fn):
+                res = fn()
+                if name in ("prepare", "inputs"):
+                    rec[name] = res
+                return res
+
+            records.append(rec)
+            return super().run(sm, reads, stage=stage, **kw)
+
+    bargs, _ = load_batch_zymo()
+    guide = bargs["npread_guide_pairs"][0][1].split()
+    aligner = Recorded(AlignmentParams(), device=dev, group=PIPE_GROUP)
+    with tempfile.TemporaryDirectory() as tmp:
+        pairs = []
+        for i in range(PIPE_READS):
+            label = f"read{i:03d}"
+            dst = Path(tmp) / f"{label}.npRead"
+            shutil.copy(bargs["npread_guide_pairs"][0][0], dst)
+            pairs.append((str(dst), " ".join([guide[0], label]
+                                             + guide[2:])))
+        res = run_batch_fast(
+            bargs["reference_path"], pairs, str(Path(tmp) / "out"),
+            template_model_file=bargs["template_model_file"],
+            complement_model_file=bargs["complement_model_file"],
+            log=lambda m: None, chunk=PIPE_CHUNK, compact_k=PIPE_COMPACT_K,
+            aligner=aligner, sm_type="fourState")
+    if len(res) != PIPE_READS or not all(r[1] for r in res):
+        raise AssertionError(f"fourState pipeline: {res}")
+    return [(rec["prepare"], rec["inputs"]) for rec in records]
+
+
+def fourstate_cases(fks, dev):
+    """The untiled sm4 pair's cases, one per recorded run of the fourState
+    pipeline (``fourstate_runs``), as ``long_cases``."""
+    runs = fourstate_runs(dev)
+    for i in range(len(runs)):
+        prep, inp = runs[i]
+        runs[i] = None
+        dims = dict(R=prep["R"], W=prep["W"], ND=prep["ND"], C=prep["C"])
+        fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                               "widthf")]
+        ba = fa + [inp["seedf"], inp["raggedf"]]
+
+        def launches(fk, fa=fa, ba=ba, dims=dims):
+            d = dict(dims, spec=fk.Sm4Spec)
+            fwd = fk.wavefront_fwd(*fa, **d)
+            posts, tot = fk.wavefront_bwd(*ba, fwd, **d)
+            return (fwd, posts, tot), {
+                "fwd": lambda: fk.wavefront_fwd(*fa, **d),
+                "bwd": lambda: fk.wavefront_bwd(*ba, fwd, **d)}
+
+        yield ({"machine": "fourState", "run": i,
+                "reads": len(prep["bands"]), "G": len(prep["win"]),
+                "R": dims["R"], "ND": dims["ND"], "W": dims["W"]},
+               dims["ND"], [lambda fk=fk: launches(fk) for fk in fks])
+        del fa, ba, inp, prep
+
+
 PATHS = {"long": long_cases, "echelon": echelon_cases,
          "posterior": posterior_cases, "hdp": hdp_cases,
-         "realign": realign_cases}
+         "realign": realign_cases, "fourstate": fourstate_cases}
 
 
 def main(argv=None):

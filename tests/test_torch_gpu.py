@@ -347,7 +347,8 @@ def _tiled_case(cuda, spec, W, NT, ragged, TD=128, every=False):
 
 
 @pytest.mark.parametrize("spec", [fk.StrawmanSpec, fk.VanillaSpec,
-                                  fk.HdpSpec], ids=lambda s: s.NAME)
+                                  fk.Sm4Spec, fk.HdpSpec],
+                         ids=lambda s: s.NAME)
 @pytest.mark.parametrize("ragged", [False, True])
 @pytest.mark.parametrize("W, ND, every", [
     (32, 2, False), (32, 3, False), (32, 5, False), (128, 300, True),
@@ -356,10 +357,10 @@ def _tiled_case(cuda, spec, W, NT, ragged, TD=128, every=False):
 def test_cuda_signal_kernels_match_plain_on_moving_windows(cuda, spec,
                                                            ragged, W, ND,
                                                            every):
-    """K1 and K2 of the strawman, vanilla and HDP machines (K1 strawman
-    and K1 vanilla: the untiled ``sm3_fwd_tiled_sel<Spec, false>``, whose
-    column logs are taken again where the window moves; K1 hdp
-    ``sm3_fwd_kernel<Hdp>``; K2: the untiled ``sm3_bwd_tiled_sel<Spec,
+    """K1 and K2 of the strawman, vanilla, 4-state and HDP machines (K1
+    strawman, vanilla and sm4: the untiled ``sm3_fwd_tiled_sel<Spec,
+    false>``, whose column logs are taken again where the window moves; K1
+    hdp ``sm3_fwd_kernel<Hdp>``; K2: the untiled ``sm3_bwd_tiled_sel<Spec,
     false, false>``, hdp's reading its stream) against their plain
     versions on synthetic inputs whose group window drifts (and with
     ``every`` shifts on nearly every diagonal), so that the backward reads
@@ -839,8 +840,10 @@ def _sm4_inputs(cuda, batch, trained, ragged, tile_diag=None):
                          ids=["default", "trained"])
 @pytest.mark.parametrize("ragged", [False, True])
 def test_cuda_sm4_kernels_match_plain(batch, cuda, ragged, trained):
-    """K1, K2 and K3 sm4 against their plain versions on the same card
-    inputs (the trained machine with per-read scaling): fwd plane,
+    """K1, K2 and K3 sm4 (K1 the untiled ``sm3_fwd_tiled_sel<Sm4,
+    false>``, K2 the untiled ``sm3_bwd_tiled_sel<Sm4, false, false>``, K3
+    ``sm3_bwd_kernel<Sm4, true>``) against their plain versions on the same
+    card inputs (the trained machine with per-read scaling): fwd plane,
     posteriors, totals and the 16 transition lanes bit for bit, the
     shortGapX accumulator within parity.KERNEL_GAPX_ATOL."""
     _, inp, dims = _sm4_inputs(cuda, batch, trained, ragged)

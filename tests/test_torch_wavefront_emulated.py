@@ -1,7 +1,8 @@
 """``cpecan_tpu_torch/csrc/wavefront.cu`` itself, compiled for the CPU with
-g++ against the stand-in ``tests/cuda_emulation/cuda_runtime.h`` (one host
-thread per CUDA thread, a barrier per ``__syncthreads``, cp.async copies
-done as late as the hardware may do them): the select instances that
+g++ against the stand-in ``tests/cuda_emulation/cuda_runtime.h`` (one
+fiber per CUDA thread taking turns on the calling thread, a barrier per
+``__syncthreads``, cp.async copies done as late as the hardware may do
+them): the select instances that
 replaced an older kernel against that kernel, both in the same library,
 bit for bit, and against the plain PyTorch versions within
 ``EMULATED_RTOL``, on small synthetic inputs whose windows move (W 32 and
@@ -13,6 +14,10 @@ bit for bit, and against the plain PyTorch versions within
   strawman and K1 dna5, entries ``wavefront_fwd`` and
   ``wavefront_fwd_dna5``) against ``sm3_fwd_kernel<Strawman>`` and
   ``sm3_fwd_kernel<Dna5>``;
+- ``sm3_fwd_tiled_sel<Sm4, 0>`` and ``sm3_bwd_tiled_sel<Sm4, 0, 0>`` (K1
+  and K2 sm4, entries ``wavefront_fwd_sm4`` and ``wavefront_bwd_sm4``)
+  against ``sm3_fwd_kernel<Sm4>`` and ``sm3_bwd_kernel<Sm4, 0>``, K2 on the
+  same fwd plane;
 - ``sm3_bwd_tiled_sel<Hdp, 0, 0>`` (K2 hdp, entry ``wavefront_bwd_hdp``:
   the streamed posterior form) against ``sm3_bwd_kernel<Hdp, 0>``, on
   bands that cover the windows' edges too.
@@ -77,6 +82,24 @@ int emu_old_wavefront_fwd_vanilla(
         int W, int ND, int NDp, int X, int C, int Y, void* stream) {
     return launch_fwd<Vanilla>(scal, win, xf, yf, basef, widthf, nullptr,
                                fwd, G, R, W, ND, NDp, X, C, Y, stream);
+}
+int emu_old_wavefront_fwd_sm4(
+        const void* scal, const void* win, const void* xf, const void* yf,
+        const void* basef, const void* widthf, void* fwd, int G, int R,
+        int W, int ND, int NDp, int X, int C, int Y, void* stream) {
+    return launch_fwd<Sm4>(scal, win, xf, yf, basef, widthf, nullptr, fwd,
+                           G, R, W, ND, NDp, X, C, Y, stream);
+}
+int emu_old_wavefront_bwd_sm4(
+        const void* scal, const void* win, const void* xf, const void* yf,
+        const void* basef, const void* widthf, const void* seedf,
+        const void* raggedf, const void* fwd, void* posts, void* totals,
+        int G, int R, int W, int ND, int NDp, int X, int C, int Y,
+        void* stream) {
+    return launch_bwd<Sm4, false>(scal, win, xf, yf, basef, widthf, seedf,
+                                  raggedf, fwd, nullptr, posts, totals,
+                                  nullptr, nullptr, G, R, W, ND, NDp, X, C,
+                                  Y, stream);
 }
 int emu_old_wavefront_bwd_hdp(
         const void* scal, const void* win, const void* xf, const void* yf,
@@ -192,7 +215,8 @@ def lib():
     names = dict(cuda_build._SIGNATURES)
     names.update({f"emu_old_{n}": cuda_build._SIGNATURES[n]
                   for n in ("wavefront_fwd", "wavefront_fwd_dna5",
-                            "wavefront_fwd_vanilla", "wavefront_bwd_hdp")})
+                            "wavefront_fwd_vanilla", "wavefront_fwd_sm4",
+                            "wavefront_bwd_sm4", "wavefront_bwd_hdp")})
     for name, argtypes in names.items():
         getattr(handle, name).argtypes = argtypes
         getattr(handle, name).restype = ctypes.c_int
@@ -286,6 +310,53 @@ def test_k1_strawman_and_dna5_select_forms_equal_the_old_kernels(
     _check_k1(lib, spec, seed, W, ND, every, ragged)
 
 
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("W, ND, every", CASES)
+def test_k1_sm4_select_form_equals_the_old_kernel(lib, W, ND, every, ragged):
+    """K1 sm4's ``sm3_fwd_tiled_sel<Sm4, 0>`` (the strawman's column logs,
+    taken again only where the window moves, and ``gauss_sel`` on Gaussian
+    rows with a few sd <= 0; the 23 scalars in shared memory; the seven
+    log-adds of ``Sm4::fwd_update_with`` as ``log_add_sel``) gives
+    ``sm3_fwd_kernel<Sm4>``'s fwd plane bit for bit, and the plain
+    version's within ``EMULATED_RTOL``."""
+    _check_k1(lib, fk.Sm4Spec, 31, W, ND, every, ragged)
+
+
+def _check_k2(lib, spec, seed, W, ND, every, ragged, edge=False):
+    """The untiled select posterior form of ``spec`` (entry
+    ``wavefront_bwd`` + its suffix) against its old kernel (``emu_old_`` +
+    that entry) bit for bit on the same fwd plane (that of the spec's K1
+    entry), and against the plain version within ``EMULATED_POST_ATOL`` and
+    ``EMULATED_RTOL``, on ``synthetic_case`` at ``seed``."""
+    _, ba, dims = synthetic_case("cpu", spec, W, ND, ragged,
+                                 [seed, W, ND, int(ragged)], every=every,
+                                 edge=edge)
+    fwd = _fwd(lib, "wavefront_fwd" + spec.SUFFIX, ba[:6], dims)
+    _close(fwd, fk.forward_plain(*ba[:6], **dims), EMULATED_RTOL)
+    entry = "wavefront_bwd" + spec.SUFFIX
+    posts, totals = _bwd(lib, entry, ba, fwd, dims)
+    oposts, ototals = _bwd(lib, "emu_old_" + entry, ba, fwd, dims)
+    assert torch.equal(posts, oposts) and torch.equal(totals, ototals)
+    pposts, ptotals = fk.backward_plain(*ba, fwd, **dims)
+    _close(posts, pposts, 0.0, EMULATED_POST_ATOL)
+    _close(totals, ptotals, EMULATED_RTOL)
+    assert torch.all(posts[:, 0] == 0.0) and torch.isfinite(totals).all()
+    assert (posts > 0.0).any() or ND == 2
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("W, ND, every", CASES)
+def test_k2_sm4_select_form_equals_the_old_kernel(lib, W, ND, every, ragged):
+    """K2 sm4's ``sm3_bwd_tiled_sel<Sm4, 0, 0>`` (the untiled select
+    posterior form: the strawman's emissions from the kept column logs, the
+    carried match and gap-Y terms through the em ring, the seven log-adds
+    of ``Sm4::bwd_update_with`` as ``log_add_sel``) gives
+    ``sm3_bwd_kernel<Sm4, 0>``'s posteriors and totals bit for bit on the
+    same fwd plane, and the plain version's within ``EMULATED_POST_ATOL``
+    and ``EMULATED_RTOL``."""
+    _check_k2(lib, fk.Sm4Spec, 37, W, ND, every, ragged)
+
+
 @pytest.mark.parametrize("edge", [False, True])
 @pytest.mark.parametrize("ragged", [False, True])
 @pytest.mark.parametrize("W, ND, every", CASES)
@@ -299,16 +370,4 @@ def test_k2_hdp_select_form_equals_the_old_kernel(lib, W, ND, every, ragged,
     and ``EMULATED_RTOL``.  With ``edge`` the bands cover the windows'
     edge lanes, where the carry's two guards (lanes l + o1 + 1 and l + o2 +
     1) part."""
-    _, ba, dims = synthetic_case("cpu", fk.HdpSpec, W, ND, ragged,
-                                 [19, W, ND, int(ragged)], every=every,
-                                 edge=edge)
-    fwd = _fwd(lib, "wavefront_fwd_hdp", ba[:6], dims)
-    _close(fwd, fk.forward_plain(*ba[:6], **dims), EMULATED_RTOL)
-    posts, totals = _bwd(lib, "wavefront_bwd_hdp", ba, fwd, dims)
-    oposts, ototals = _bwd(lib, "emu_old_wavefront_bwd_hdp", ba, fwd, dims)
-    assert torch.equal(posts, oposts) and torch.equal(totals, ototals)
-    pposts, ptotals = fk.backward_plain(*ba, fwd, **dims)
-    _close(posts, pposts, 0.0, EMULATED_POST_ATOL)
-    _close(totals, ptotals, EMULATED_RTOL)
-    assert torch.all(posts[:, 0] == 0.0) and torch.isfinite(totals).all()
-    assert (posts > 0.0).any() or ND == 2
+    _check_k2(lib, fk.HdpSpec, 19, W, ND, every, ragged, edge)

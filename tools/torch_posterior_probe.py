@@ -1,6 +1,6 @@
 """Probe where the posterior backward of the signal machines (K2 and K6b
-strawman and vanilla) spends its time beyond its form, on the inputs of
-``chip_smoke.py``:
+strawman and vanilla) and the fourState pair (K1 and K2 sm4) spend their
+time beyond their form, on the inputs of ``chip_smoke.py``:
 
 - ``forms``: the untiled posterior form (K2, ``wavefront_bwd``) against
   the tiled one (K6b, ``wavefront_bwd_tiled``) on the same reads: the
@@ -15,15 +15,26 @@ strawman and vanilla) spends its time beyond its form, on the inputs of
   are kept);
 - ``count``: the share of warp-steps of K2 with a lane whose model sd
   row is <= 0, on the bench chunk and on one group of 8 long reads
-  (CPU; from the inputs alone).
+  (CPU; from the inputs alone);
+- ``fourstate``: K1 and K2 sm4 on each chunk of the fourState pipeline
+  (``tiled_times.fourstate_runs``: phase 23's 64 Zymo copies, group 32,
+  both strands) with the shares of ``lane_shares``: as they are, with
+  every model sd row entry <= 0 set to 1.0, and with the group window
+  widened to each of 512, 768 and 1024 lanes past its own (the feature
+  rows extended by columns copied from mid-read, the windows and bands
+  as they were, so that only warps with no lane in any band are added;
+  their fwd plane's first W lanes must equal the chunk's own, bit for
+  bit).  Not run by default.
 
-    python tools/torch_posterior_probe.py             # all three
+    python tools/torch_posterior_probe.py             # the first three
     python tools/torch_posterior_probe.py --probe count   # CPU only
+    python tools/torch_posterior_probe.py --probe fourstate
 
-Times are CUDA events: the median of 3 (``forms``) or 5 (``padding``)
-rounds, each the mean of 3 launches after a warm-up.  Prints one JSON
-line per machine and probe, with the card's name and power limit.  The
-card's probes exit 2 without a CUDA device; imports no JAX.
+Times are CUDA events: the median of 3 (``forms``) or 5 (``padding``,
+``fourstate``: the variants in turns) rounds, each the mean of 3
+launches after a warm-up.  Prints one JSON line per machine and probe,
+with the card's name and power limit.  The card's probes exit 2 without
+a CUDA device; imports no JAX.
 """
 
 import argparse
@@ -178,9 +189,111 @@ def count():
             window_moves=float(np.mean(np.diff(w) != 0)))), flush=True)
 
 
+def lane_shares(inp, R, W, ND):
+    """Shares of a strawman-row spec's staged inputs over the warp-steps
+    of its untiled pair (step d at lanes x = win[g, d] + l): those with a
+    lane whose model sd row is <= 0 (x clamped as the kernels' next_col
+    clamps), those with a lane inside the read's band at d, and the
+    diagonals where the group window moves."""
+    import torch
+
+    win, xf = inp["win"].long(), inp["xf"]
+    base, width = inp["basef"], inp["widthf"]
+    lanes = torch.arange(W, device=win.device)
+    pad = live = 0
+    for b in range(xf.shape[0]):
+        wd = win[b // R, 1:ND + 1, None] + lanes
+        x = torch.clamp(wd, max=xf.shape[2] - 1)
+        lane_bad = (xf[b, 1:8:2][:, x] <= 0).any(0)
+        pad += int(lane_bad.reshape(ND, W // 32, 32).any(2).sum())
+        lo, wid = base[b, 1:ND + 1, None], width[b, 1:ND + 1, None]
+        xl = wd.float()
+        inside = (xl >= lo) & (xl < lo + wid)
+        live += int(inside.reshape(ND, W // 32, 32).any(2).sum())
+    steps = xf.shape[0] * ND * (W // 32)
+    moves = (torch.diff(win[:, :ND + 3], dim=1) != 0).float().mean()
+    return {"warp_steps_with_a_padding_lane": pad / steps,
+            "warp_steps_in_band": live / steps,
+            "window_moves": float(moves)}
+
+
+def widened(t, pad):
+    """Feature rows ``t`` [B, rows, N] with ``pad`` columns appended,
+    copied from the middle of the read (model rows a real column holds)."""
+    import torch
+
+    n = t.shape[2]
+    src = t[..., n // 2:]
+    reps = -(-pad // src.shape[2])
+    return torch.cat([t, src.repeat(1, 1, reps)[..., :pad]], 2)
+
+
+def fourstate(dev, card):
+    import torch
+
+    from cpecan_tpu_torch.ops import fb_kernels as fk
+    from cpecan_tpu_torch.tools.tiled_times import fourstate_runs
+
+    runs = fourstate_runs(dev)
+    for i in range(len(runs)):
+        prep, inp = runs[i]
+        runs[i] = None
+        R, W, ND, C = prep["R"], prep["W"], prep["ND"], prep["C"]
+        fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                               "widthf")]
+        tail = [inp["seedf"], inp["raggedf"]]
+        del inp
+        d = dict(R=R, ND=ND, C=C, spec=fk.Sm4Spec)
+        ref = fk.wavefront_fwd(*fa, W=W, **d)
+        ref_posts, ref_tot = fk.wavefront_bwd(*fa, *tail, ref, W=W, **d)
+        xf1 = fa[2].clone()
+        for r in (1, 3, 5, 7):
+            xf1[:, r][xf1[:, r] <= 0] = 1.0
+        variants = {"as_is": (fa, W),
+                    "padding_1": (fa[:2] + [xf1] + fa[3:], W)}
+        for w2 in (512, 768, 1024):
+            if w2 > W:
+                variants[f"W{w2}"] = (fa[:2] + [widened(fa[2], w2 - W),
+                                                widened(fa[3], w2 - W)]
+                                      + fa[4:], w2)
+        row = dict(probe="fourstate", run=i, G=len(prep["win"]), R=R, W=W,
+                   ND=ND, card=card, **lane_shares(
+                       dict(win=fa[1], xf=fa[2], basef=fa[4],
+                            widthf=fa[5]), R, W, ND))
+        fwds = {}
+        for name, (f_, w_) in variants.items():
+            fwds[name] = fk.wavefront_fwd(*f_, W=w_, **d)
+            if name.startswith("W"):
+                posts, tot = fk.wavefront_bwd(*f_, *tail, fwds[name], W=w_,
+                                              **d)
+                row[f"{name}_fwd_equal"] = bool(torch.equal(
+                    fwds[name][..., :W], ref))
+                row[f"{name}_posts_max_abs_diff"] = float(
+                    (posts[..., :W] - ref_posts).abs().max())
+                row[f"{name}_totals_max_abs_diff"] = float(
+                    (tot - ref_tot).abs().max())
+                del posts, tot
+        for _ in range(5):
+            for name, (f_, w_) in variants.items():
+                fwd = fwds[name]
+                row.setdefault(f"{name}_fwd_ms", []).append(cuda_ms(
+                    lambda: fk.wavefront_fwd(*f_, W=w_, **d), 1))
+                row.setdefault(f"{name}_bwd_ms", []).append(cuda_ms(
+                    lambda: fk.wavefront_bwd(*f_, *tail, fwd, W=w_, **d),
+                    1))
+        for name in variants:
+            for k in ("fwd", "bwd"):
+                med = statistics.median(row[f"{name}_{k}_ms"])
+                row[f"{name}_{k}_ns_per_diagonal"] = med * 1e6 / ND
+        print(json.dumps(row), flush=True)
+        del fa, tail, ref, ref_posts, ref_tot, fwds, variants, xf1
+        torch.cuda.synchronize()
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--probe", choices=("forms", "padding", "count", "all"),
+    p.add_argument("--probe", choices=("forms", "padding", "count",
+                                        "fourstate", "all"),
                    default="all")
     args = p.parse_args(argv)
     sys.path.insert(0, str(ROOT))
@@ -203,6 +316,8 @@ def main(argv=None):
         forms(dev, card)
     if args.probe in ("padding", "all"):
         padding(dev, card)
+    if args.probe == "fourstate":
+        fourstate(dev, card)
     return 0
 
 
