@@ -13,8 +13,8 @@ machine and the HDP machine through them:
    (the kernels redesigned for the card: K6a and K6b dna5, K3 dna5, K6b
    strawman, K6a strawman, K2 dna5, K6b sm4 and vanilla, K6a sm4 and
    vanilla, K1 and K2 echelon, K2 strawman and vanilla, K2 hdp, K1
-   vanilla, K1 strawman, K1 dna5, K1 and K2 sm4) and the echelon emission
-   pre-pass within 64 registers, no spill;
+   vanilla, K1 strawman, K1 dna5, K1 and K2 sm4, K3 strawman and sm4) and
+   the echelon emission pre-pass within 64 registers, no spill;
 3. each kernel against its plain PyTorch version on the card, on the first
    64-read chunk of the bench batch (256 reads x 905 bases x 800 events,
    seed 7), with the tolerances of cpecan_tpu_torch/parity.py, and the
@@ -26,7 +26,8 @@ machine and the HDP machine through them:
    alignments/s and band cells/s (median of 3 after a warm-up), with the
    kernels' launch counts;
 6. forward + backward device time of the kernels on the whole batch;
-7. the EM expectation backward against its plain version on the first 32
+7. the EM expectation backward (K3 strawman, the untiled select form
+   sm3_bwd_tiled_sel<Strawman, 1, 0>) against its plain version on the first 32
    bench reads (ragged ends, per-read scaling), with the untrained machine
    and with the Zymo fixture's trained one (Y -> X open): posteriors,
    totals and transition sums equal bit for bit, gap-X columns within
@@ -121,7 +122,8 @@ machine and the HDP machine through them:
    long reads through VanillaAligner once, kernels only: bases/s;
 22. the sm4 kernels K3, K6a and K6b (the 4-state machine's; phase 23 holds
    K1/K2 sm4, the untiled select forms sm3_fwd_tiled_sel<Sm4, 0> and
-   sm3_bwd_tiled_sel<Sm4, 0, 0>) against their plain versions: K3 through
+   sm3_bwd_tiled_sel<Sm4, 0, 0>) against their plain versions: K3
+   (sm3_bwd_tiled_sel<Sm4, 1, 0>) through
    one Sm4Aligner.run(expectations=True) on the first 32 bench reads with
    ragged ends, per-read scaling and a trained-looking machine (every
    transition finite, a non-zero gap-X table); phase 12's 64 long reads
@@ -240,7 +242,8 @@ F32_FLOPS_PER_S = 67e12
 # f32 operations per band cell and diagonal, counted from the kernels'
 # arithmetic (an exp or log counts one): strawman emissions 34, a
 # piecewise-cubic log_add 38, the forward update 205, the backward update
-# and posterior 211, the expectation targets 110 more.  Dna5: the match
+# and posterior 211, the expectation targets 76 more (their emissions are
+# the backward's own, carried).  Dna5: the match
 # emission 14 (five compares, five selects, four adds), eight log_adds and
 # 18 adds per update (322), the band mask 3 and the backward's seed
 # selects and posterior 10; the dna5 expectation target 135 more (the
@@ -253,20 +256,20 @@ F32_FLOPS_PER_S = 67e12
 # the band mask 3).  Sm4: the strawman's emissions 34, seven log_adds and
 # 15 adds per update (281), the band mask 3 and the fourth state's select
 # 2; the backward's seed selects and posterior 11; the expectation target
-# 122 more (the emissions 34, 11 probabilities of 5, four adds, 11 masked
-# sums of 2, the shortGapX column add 4, the band mask 3).  Echelon: the
-# emissions 212 (per n = 1..5 a Gaussian of 8, an inverse Gaussian of 16,
-# their add, an exact log_add of 7 and the validity select, log n, duration
-# and clamp 5; the gap-Y term 27), the forward update 15 log_adds and 11
-# adds (581), the band mask 3 and seven selects; the backward update seven
-# log_adds and 12 adds (278), the band mask 3, the seed selects 10 and five
-# posteriors of 5; the emission pre-pass the emissions alone (212).  Hdp: the strawman's counts without its emissions (34,
-# twice in the expectation target), one stream read and its window check
-# (1)
-FLOPS_PER_CELL = dict(fwd=240, bwd=245, bwd_exp=355, dna5_fwd=339,
+# 88 more (11 probabilities of 5, four adds, 11 masked sums of 2, the
+# shortGapX column add 4, the band mask 3; its emissions carried).
+# Echelon: the emissions 212 (per n = 1..5 a Gaussian of 8, an inverse
+# Gaussian of 16, their add, an exact log_add of 7 and the validity select,
+# log n, duration and clamp 5; the gap-Y term 27), the forward update 15
+# log_adds and 11 adds (581), the band mask 3 and seven selects; the
+# backward update seven log_adds and 12 adds (278), the band mask 3, the
+# seed selects 10 and five posteriors of 5; the emission pre-pass the
+# emissions alone (212).  Hdp: the strawman's counts without its emissions
+# (34), one stream read and its window check (1)
+FLOPS_PER_CELL = dict(fwd=240, bwd=245, bwd_exp=321, dna5_fwd=339,
                       dna5_bwd=349, dna5_bwd_exp=484, vanilla_fwd=214,
                       vanilla_bwd=221, vanilla_bwd_exp=238, sm4_fwd=320,
-                      sm4_bwd=326, sm4_bwd_exp=448, echelon_fwd=803,
+                      sm4_bwd=326, sm4_bwd_exp=414, echelon_fwd=803,
                       echelon_bwd=528, echelon_emissions=212, hdp_fwd=207,
                       hdp_bwd=212, hdp_bwd_exp=288)
 DNA_GROUP = 32       # phases 13-15: bench.py's realign chunk and group
@@ -315,7 +318,9 @@ REDESIGNED = ("sm3_fwd_tiled_sel<Dna5, 1>",
               "sm3_fwd_tiled_sel<Strawman, 0>",
               "sm3_fwd_tiled_sel<Dna5, 0>",
               "sm3_fwd_tiled_sel<Sm4, 0>",
-              "sm3_bwd_tiled_sel<Sm4, 0, 0>")
+              "sm3_bwd_tiled_sel<Sm4, 0, 0>",
+              "sm3_bwd_tiled_sel<Strawman, 1, 0>",
+              "sm3_bwd_tiled_sel<Sm4, 1, 0>")
 
 
 def log(msg):

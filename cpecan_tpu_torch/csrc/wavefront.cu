@@ -32,10 +32,8 @@
 //                             -> _sm3_backward_body_w (:857, :900) with
 //                             with_exp=True (EM
 //                             expectations: accumulate_exp :1072 and
-//                             _StrawmanSpec.exp_probs_w :215 /
-//                             _Dna5Spec.exp_probs_w :406 /
-//                             _VanillaSpec.exp_probs_w :506 /
-//                             _Sm4Spec.exp_probs_w :275)               K3
+//                             _VanillaSpec.exp_probs_w :506 / the
+//                             streamed _HdpSpec's, the strawman's)     K3
 //   sm3_fwd_tiled_sel<Spec, true>
 //                          <- _sm3_forward_kernel(tile=...) (:2304), chained
 //                             over the tiles by _run_tiled (:2447) with
@@ -59,11 +57,17 @@
 //                             fourState pipeline's chunks) and the
 //                             streamed _HdpSpec: the untiled posterior
 //                             form, with the select step
-//   sm3_bwd_tiled_sel<Dna5, true, false>
+//   sm3_bwd_tiled_sel<Spec, true, false>
 //                          <- K3 for the 5-state DNA machine (cPecanEm's
-//                             E-step): the sums of sm3_bwd_kernel<Spec,
-//                             true>, untiled, with the select step
-//                             (the note above sm3_bwd_tiled_sel)
+//                             E-step; _Dna5Spec.exp_probs_w :406), the
+//                             strawman (trainModels' threeState E-step;
+//                             _StrawmanSpec.exp_probs_w :215) and the
+//                             4-state machine (the fourState E-step;
+//                             _Sm4Spec.exp_probs_w :275): the sums of
+//                             sm3_bwd_kernel<Spec, true>, untiled, with
+//                             the select step, the strawman's and sm4's
+//                             targets' emissions from the carry (the
+//                             note above sm3_bwd_tiled_sel)
 //   sm3_fwd_tiled_sel<Echelon, false>, sm3_bwd_tiled_sel<Echelon, false,
 //   false>                 <- K1 and K2 for the 7-state echelon machine
 //                             (_EchelonSpec :528): the untiled forms,
@@ -239,6 +243,10 @@ struct Emissions {
 struct FromRows {
     static constexpr bool STREAMED = false;
     static constexpr int EM_PLANE = 0;
+    // whether sm3_bwd_tiled_sel's expectation form takes its targets'
+    // emissions from the carry ring (only the Gaussian machines, whose
+    // emissions are four gauss a cell) instead of computing them again
+    static constexpr bool EXP_CARRY = false;
 };
 
 // a match emission of N terms (echelon's per-n terms)
@@ -313,6 +321,7 @@ struct SignalRows : OneMatch {
 // the strawman's emissions (Strawman, Sm4): Gaussian x Gaussian over
 // (event mean, noise)
 struct GaussRows : SignalRows {
+    static constexpr bool EXP_CARRY = true;
     // written once for both forms: g(v, i) is the Gaussian of v under
     // model rows i (mean) and i + 1 (sd)
     template <class Gauss>
@@ -496,6 +505,9 @@ struct Sm4 : GaussRows {
         out[3] = LA::add(mid + t[T4_MLX], low_l + t[T4_LEX]);
     }
 
+    // the branch form, sm3_bwd_kernel's: no entry point launches
+    // sm3_bwd_kernel<Sm4, ...> since K2 and K3 sm4 run the untiled select
+    // forms, but tests/test_torch_wavefront_emulated.py holds those to it
     __device__ __forceinline__ static void bwd_update(
             const float* t, const float* xb, int X, int x, float eg1,
             const float* em2p, const float* n1a, const float* n1p,
@@ -1238,21 +1250,17 @@ __device__ __forceinline__ void Vanilla::exp_probs(
 // carry is the stream of tt realigned to wl, so the same); the y element
 // (dna5) is read fresh.  acc the spec's per-thread transition sums, rows its
 // NACC accumulator rows of this read (row j at rows + j * row_stride).
+// exp_target_with takes the target's emissions e as given (sm3_bwd_tiled_sel
+// reads them from its carry ring, EXP_CARRY), exp_target computes them.
 template <class Spec>
-__device__ __forceinline__ void exp_target(
-        const float* t, const float* xb, const float* yb, const float* eb,
-        int X, int Y, int C, int R, int tt, int wt, const float* fm, int wm,
+__device__ __forceinline__ void exp_target_with(
+        const float* t, const float* xb, const float* yb, int X, int C,
+        int tt, int wt, const Emissions& e, const float* fm, int wm,
         const float* fl, int wl, const float* bt, bool cut, float total,
-        bool m, bool carried, int l, int W, float* acc, float* rows,
-        size_t row_stride) {
+        bool m, int l, int W, float* acc, float* rows, size_t row_stride) {
     constexpr int S = Spec::S;
     const int x = wt + l;
     const int ycol = C - tt + x;
-    Emissions e = cell_emissions<Spec>(xb, yb, eb, X, Y, C, tt, x, l, R, W);
-    if (carried) {
-        const int j = l + (wt - wl);
-        if (j < 0 || j >= W) e.match = e.gap_y = CPECAN_NEG;
-    }
     const int sm = wt - wm - 1;
     const int s1 = wt - wl;
     float f0m[S], f1m[S], f1a[S], b[S];
@@ -1265,6 +1273,32 @@ __device__ __forceinline__ void exp_target(
     }
     Spec::exp_probs(t, e, xb, X, x, yb[ycol], f0m, f1m, f1a, b, total, m,
                     acc, rows + x, row_stride);
+}
+
+template <class Spec>
+__device__ __forceinline__ void exp_target(
+        const float* t, const float* xb, const float* yb, const float* eb,
+        int X, int Y, int C, int R, int tt, int wt, const float* fm, int wm,
+        const float* fl, int wl, const float* bt, bool cut, float total,
+        bool m, bool carried, int l, int W, float* acc, float* rows,
+        size_t row_stride) {
+    const int x = wt + l;
+    Emissions e = cell_emissions<Spec>(xb, yb, eb, X, Y, C, tt, x, l, R, W);
+    if (carried) {
+        const int j = l + (wt - wl);
+        if (j < 0 || j >= W) e.match = e.gap_y = CPECAN_NEG;
+    }
+    exp_target_with<Spec>(t, xb, yb, X, C, tt, wt, e, fm, wm, fl, wl, bt,
+                          cut, total, m, l, W, acc, rows, row_stride);
+}
+
+// a target's emissions from a slot of sm3_bwd_tiled_sel's em ring ([2][W]:
+// the match leaf, then the gap-Y term) at lane l + s, CPECAN_NEG outside
+// [0, W): what exp_target computes with ``carried``, where the carry's
+// window lies s lanes after the target's
+__device__ __forceinline__ Emissions carried_emissions(const float* slot,
+                                                       int l, int s, int W) {
+    return Emissions{shifted(slot, l, s, W), shifted(slot + W, l, s, W)};
 }
 
 template <class Spec, bool WITH_EXP>
@@ -1661,6 +1695,64 @@ __host__ __device__ constexpr int em_ring_leaves() {
     return Spec::EM_PLANE > 0 ? 0 : Spec::NEM;
 }
 
+// whether sm3_bwd_tiled_sel's form takes its targets' emissions from the
+// em ring (WITH_EXP and EXP_CARRY): then the ring has three slots, each
+// with the gap-Y term after the match leaves
+template <class Spec, bool WITH_EXP>
+__host__ __device__ constexpr bool exp_carry() {
+    return WITH_EXP && Spec::EXP_CARRY;
+}
+
+// the floats a lane keeps in one slot of sm3_bwd_tiled_sel's em ring, and
+// the ring's slots
+template <class Spec, bool WITH_EXP>
+__host__ __device__ constexpr int em_slot_leaves() {
+    return exp_carry<Spec, WITH_EXP>() ? Spec::NEM + 1
+                                       : em_ring_leaves<Spec>();
+}
+
+template <class Spec, bool WITH_EXP>
+__host__ __device__ constexpr int em_ring_slots() {
+    return exp_carry<Spec, WITH_EXP>() ? 3 : 2;
+}
+
+// the per-lane transition sums that sm3_bwd_tiled_sel keeps in shared
+// memory (exp_carry: a slab [W][NLANE], each lane its own row, which keeps
+// the step within 64 registers without a spill), else in registers
+template <class Spec, bool WITH_EXP>
+__host__ __device__ constexpr int acc_slab_lanes() {
+    return exp_carry<Spec, WITH_EXP>() ? Spec::NLANE : 0;
+}
+
+// a target of sm3_bwd_tiled_sel's expectation form (exp_target's
+// arguments): with CARRY (exp_carry) and ``carried`` its emissions from
+// the em ring's slot cs at lane l + wt - wl, and its sums at acc_s (the
+// slab), else exp_target's (acc_s too with CARRY, else acc)
+template <class Spec, bool CARRY>
+__device__ __forceinline__ void sel_target(
+        const float* t, const float* xb, const float* yb, int X, int Y,
+        int C, int R, int tt, int wt, const float* fm, int wm,
+        const float* fl, int wl, const float* bt, bool cut, float total,
+        bool m, bool carried, const float* cs, int l, int W, float* acc,
+        float* acc_s, float* rows, size_t row_stride) {
+    if constexpr (CARRY) {
+        if (carried) {
+            exp_target_with<Spec>(t, xb, yb, X, C, tt, wt,
+                                  carried_emissions(cs, l, wt - wl, W), fm,
+                                  wm, fl, wl, bt, cut, total, m, l, W, acc_s,
+                                  rows, row_stride);
+        } else {
+            exp_target<Spec>(t, xb, yb, nullptr, X, Y, C, R, tt, wt, fm, wm,
+                             fl, wl, bt, cut, total, m, false, l, W, acc_s,
+                             rows, row_stride);
+        }
+    } else {
+        exp_target<Spec>(t, xb, yb, nullptr, X, Y, C, R, tt, wt, fm, wm, fl,
+                         wl, bt, cut, total, m, carried, l, W, acc, rows,
+                         row_stride);
+    }
+}
+
 // the leaves a step of sm3_bwd_tiled_sel stages in its shared slots ps:
 // an emission plane's, or a streamed spec's one stream row
 template <class Spec>
@@ -2018,8 +2110,28 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
 // of the other template's fsh ring and its stores; the transitions sit in
 // shared memory (64 registers, no spill); the targets are t = d + 3 at
 // step d and 3, 2 and 1 after the loop; the column sums are the spec's
-// atomic reductions (Dna5::exp_probs), each column's adds ordered by the
-// per-diagonal barrier.  Every line either untiled form does not add is
+// (Dna5::exp_probs: atomic reductions; Strawman's and Sm4's one column a
+// plain read-modify-write), each column's adds ordered by the
+// per-diagonal barrier.  The Gaussian machines' form (EXP_CARRY: K3
+// strawman and K3 sm4, the E-steps' 32-read groups) takes a target's
+// emissions from the em ring, as the JAX body takes them from its carry
+// (pallas_fb.py:1180-1181), where the other form computes them again at
+// every step (four gauss, each a division and a logf): step d writes
+// e1, emissions(d + 1) at w_d, match and gap-Y, into its slot; step d
+// reads em2p from the slot of d + 1 and target d + 3's emissions, at lane
+// l + w_{d+3} - w_{d+2} (CPECAN_NEG outside [0, W)), from the slot of d
+// + 2.  Three slots, since a neighbour's write of step d's slot is
+// ordered against no read of the same step; targets 3 and 2 read the
+// slots of steps 2 and 1, target 1 computes its own.  The values equal
+// the fresh ones bit for bit (gauss_sel on the kept logs is gauss).  Its
+// per-lane transition sums sit in a shared slab (acc_slab_lanes), each
+// lane its own row, the same adds in the same order: in registers the
+// forms spilled 8 (strawman) and 16 bytes (sm4).  On an H100 80GB HBM3 at
+// 700 W (32 blocks of 128 threads, 1,700 diagonals) the forms run ~1,250
+// (strawman) and ~1,390 ns (sm4) a diagonal, against ~2,950 and ~3,330
+// on sm3_bwd_kernel; computing the targets' emissions afresh instead
+// cost ~600 ns a diagonal more, the sums in registers ~6%.
+// Every line either untiled form does not add is
 // the tiled form's; what the flags add sits under if constexpr, so each
 // form's instances compile to the same SASS as without the others.
 // The untiled posterior form of a spec with an emission plane (EM_PLANE:
@@ -2073,11 +2185,13 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
                       && 2 * S + (T_SHARED ? Spec::NS : 0) <= 32
                       && !(WITH_EXP && Spec::STREAMED)
                       && !(WITH_EXP && TILED)
-                      && !(Spec::EM_PLANE > 0 && TILED),
+                      && !(Spec::EM_PLANE > 0 && TILED)
+                      && (!exp_carry<Spec, WITH_EXP>() || NEM == 1),
                   "several posterior planes and the emission plane in the "
                   "untiled posterior form only; the end vectors (and the "
                   "shared transitions) fit tend; the targets' emissions "
-                  "come from the rows; the tiled path has no EM sums");
+                  "come from the rows or the em ring (one match leaf); "
+                  "the tiled path has no EM sums");
     // the fwd slots: the posterior states' entries, copied F_AHEAD
     // diagonals ahead (E_AHEAD with an emission plane), or WITH_EXP all S
     // entries, X_AHEAD diagonals ahead
@@ -2085,7 +2199,8 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     constexpr int QS = WITH_EXP ? S : Spec::NPS;
     constexpr int QF = WITH_EXP ? X_AHEAD + 3 : AHEAD + 1;
     // ring [3 slots][S][W]: bwd[d] raw at w_d; em [2 slots][NEM][W]: the
-    // match emission's leaves of diagonal d + 1 at x = w_d + l; red [32];
+    // match emission's leaves of diagonal d + 1 at x = w_d + l (with
+    // exp_carry [3 slots][NEM + 1][W], the gap-Y term too); red [32];
     // tend [32]: the end and ragged-end vectors (read on seed diagonals
     // only, so they take no registers), then with T_SHARED the
     // transitions; fst [QF][QS][W]: fwd[d] (step j = ND - d + 1 reads slot
@@ -2100,15 +2215,21 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     extern __shared__ float smem[];
     float* ring = smem;
     float* em_rd = smem + 3 * S * W;  // emissions(d + 2) at w_{d+1}
-    float* em_wr = em_rd + em_ring_leaves<Spec>() * W;
-    float* red = em_wr + em_ring_leaves<Spec>() * W;
+    float* em_wr = em_rd + em_slot_leaves<Spec, WITH_EXP>() * W;
+    float* red = em_wr + em_slot_leaves<Spec, WITH_EXP>() * W;
     float* tend = red + 32;
     float* fst = tend + 32;
     float* ps = fst + QF * QS * W;
+    // exp_carry: the ring's third slot, emissions(d + 3) at w_{d+2} (its
+    // spec stages no plane or stream slots, so it takes their place), then
+    // the slab of the transition sums (this lane's row at acc_s, below)
+    float* em_t2 = ps;
     const int b = blockIdx.x;
     const int g = b / R;
     const int r = b - g * R;
     const int l = threadIdx.x;
+    float* acc_s = em_t2 + em_slot_leaves<Spec, WITH_EXP>() * W
+                   + l * acc_slab_lanes<Spec, WITH_EXP>();
     // the transitions in registers, or with T_SHARED after the end
     // vectors in tend
     float t_reg[T_SHARED || Spec::NS == 0 ? 1 : Spec::NS];
@@ -2179,17 +2300,24 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
         const auto e = Spec::emissions_at(xb, yb, X, Y, x, C - (ND + 2) + x);
 #pragma unroll
         for (int k = 0; k < NEM; ++k) em_rd[k * W + l] = em_leaf(e, k);
+        if constexpr (exp_carry<Spec, WITH_EXP>())
+            em_rd[NEM * W + l] = e.gap_y;
         if constexpr (Spec::NLSD > 0) Spec::col_logs_at(xb, X, x, lsd);
     }
-    // WITH_EXP: the per-lane transition sums and this read's accumulator
-    // rows (acc[g, j, r, :] at rows + j * R * X); fwd[ND + 1] = NEG (slot
-    // 0), the lower/upper source of target ND + 2
-    float acc[WITH_EXP ? Spec::NLANE : 1];
+    // WITH_EXP: the per-lane transition sums (with exp_carry at acc_s) and
+    // this read's accumulator rows (acc[g, j, r, :] at rows + j * R * X);
+    // fwd[ND + 1] = NEG (slot 0), the lower/upper source of target ND + 2
+    float acc[WITH_EXP && !exp_carry<Spec, WITH_EXP>() ? Spec::NLANE : 1];
     const size_t row_stride = static_cast<size_t>(R) * X;
     float* rows = accf + (static_cast<size_t>(g) * Spec::NACC * R + r) * X;
     if constexpr (WITH_EXP) {
+        if constexpr (exp_carry<Spec, WITH_EXP>()) {
 #pragma unroll
-        for (int k = 0; k < Spec::NLANE; ++k) acc[k] = 0.0f;
+            for (int k = 0; k < Spec::NLANE; ++k) acc_s[k] = 0.0f;
+        } else {
+#pragma unroll
+            for (int k = 0; k < Spec::NLANE; ++k) acc[k] = 0.0f;
+        }
         for (int j = 0; j < Spec::NACC; ++j)
             for (int c = l; c < X; c += W) rows[j * row_stride + c] = 0.0f;
 #pragma unroll
@@ -2414,11 +2542,13 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
                 const int tt = d + 3;
                 const bool cut = seed[tt - 1] != 0.0f
                                  || seed[tt - 2] != 0.0f;
-                exp_target<Spec>(t, xb, yb, nullptr, X, Y, C, R, tt, w3,
-                                 fst + rs1 * S * W, w1, fst + rs2 * S * W,
-                                 w2, cur, cut, total,
-                                 in_band(w3 + l, base[tt], width[tt]), true,
-                                 l, W, acc, rows, row_stride);
+                // exp_carry: emissions(tt) at w3 + l, step d + 2's e1 (at
+                // w2) read across lanes
+                sel_target<Spec, exp_carry<Spec, WITH_EXP>()>(
+                    t, xb, yb, X, Y, C, R, tt, w3, fst + rs1 * S * W, w1,
+                    fst + rs2 * S * W, w2, cur, cut, total,
+                    in_band(w3 + l, base[tt], width[tt]), true, em_t2, l, W,
+                    acc, acc_s, rows, row_stride);
             }
         }
 #pragma unroll
@@ -2426,6 +2556,8 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
         if constexpr (Spec::EM_PLANE == 0) {
 #pragma unroll
             for (int k = 0; k < NEM; ++k) em_wr[k * W + l] = em_leaf(e1, k);
+            if constexpr (exp_carry<Spec, WITH_EXP>())
+                em_wr[NEM * W + l] = e1.gap_y;
         }
         cut_prev = sa;
         w3 = w2;
@@ -2435,9 +2567,16 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
         n2 = n1;
         n1 = cur;
         cur = old;
-        float* const em_old = em_rd;
-        em_rd = em_wr;
-        em_wr = em_old;
+        if constexpr (exp_carry<Spec, WITH_EXP>()) {
+            float* const em_old = em_t2;
+            em_t2 = em_rd;
+            em_rd = em_wr;
+            em_wr = em_old;
+        } else {
+            float* const em_old = em_rd;
+            em_rd = em_wr;
+            em_wr = em_old;
+        }
         rs2 = rs1;
         rs1 = rs;
         rs = (rs + 1) % QF;
@@ -2454,35 +2593,42 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
         // targets 3, 2 and 1: cur, n1, n2 hold bwd[3], bwd[1], bwd[2] and
         // the fst slots rs1, rs2 fwd[1], fwd[2] (NEG where the diagonal
         // lies past ND); fwd[0] goes into slot rs (target 3 reads rs1 and
-        // rs2 only)
+        // rs2 only); with exp_carry the em ring's em_t2 and em_rd hold the
+        // e1 of steps 2 and 1, emissions(3) at w_2 and emissions(2) at w_1
         const float* fs1 = fst + rs1 * S * W;
         const float* fs2 = fst + rs2 * S * W;
         float* fs0 = fst + rs * S * W;
         const bool cut3 = seed[2] != 0.0f || seed[1] != 0.0f;
-        exp_target<Spec>(t, xb, yb, nullptr, X, Y, C, R, 3, wg[3], fs1,
-                         wg[1], fs2, wg[2], cur, cut3, total,
-                         in_band(wg[3] + l, base[3], width[3]), true, l, W,
-                         acc, rows, row_stride);
+        sel_target<Spec, exp_carry<Spec, WITH_EXP>()>(
+            t, xb, yb, X, Y, C, R, 3, wg[3], fs1, wg[1], fs2, wg[2], cur,
+            cut3, total, in_band(wg[3] + l, base[3], width[3]), true, em_t2,
+            l, W, acc, acc_s, rows, row_stride);
 #pragma unroll
         for (int i = 0; i < S; ++i) fs0[i * W + l] = fin[i * fstate];
         __syncthreads();
-        exp_target<Spec>(t, xb, yb, nullptr, X, Y, C, R, 2, wg[2], fs0,
-                         wg[0], fs1, wg[1], n2, seed[1] != 0.0f, total,
-                         in_band(wg[2] + l, base[2], width[2]), true, l, W,
-                         acc, rows, row_stride);
+        sel_target<Spec, exp_carry<Spec, WITH_EXP>()>(
+            t, xb, yb, X, Y, C, R, 2, wg[2], fs0, wg[0], fs1, wg[1], n2,
+            seed[1] != 0.0f, total, in_band(wg[2] + l, base[2], width[2]),
+            true, em_rd, l, W, acc, acc_s, rows, row_stride);
         __syncthreads();   // orders the accumulator columns of targets 2, 1
         // target 1: no middle source, emissions(1) fresh (not a carry)
-        exp_target<Spec>(t, xb, yb, nullptr, X, Y, C, R, 1, wg[1], nullptr,
-                         0, fs0, wg[0], n1, false, total,
-                         in_band(wg[1] + l, base[1], width[1]), false, l, W,
-                         acc, rows, row_stride);
+        sel_target<Spec, exp_carry<Spec, WITH_EXP>()>(
+            t, xb, yb, X, Y, C, R, 1, wg[1], nullptr, 0, fs0, wg[0], n1,
+            false, total, in_band(wg[1] + l, base[1], width[1]), false,
+            nullptr, l, W, acc, acc_s, rows, row_stride);
         // the S*S table: the machine's lanes from their sums, the rest 0
         float* tr = trans + static_cast<size_t>(b) * S * S;
         if (l == 0)
             for (int k = 0; k < S * S; ++k) tr[k] = 0.0f;
 #pragma unroll
         for (int k = 0; k < Spec::NLANE; ++k) {
-            const float s = block_sum(acc[k], red);
+            float v;
+            if constexpr (exp_carry<Spec, WITH_EXP>()) {
+                v = acc_s[k];
+            } else {
+                v = acc[k];
+            }
+            const float s = block_sum(v, red);
             if (l == 0) tr[Spec::lane(k)] = s;
         }
     }
@@ -2601,8 +2747,11 @@ int launch_bwd_sel(const void* scal, const void* win, const void* xf,
                                 : (AHEAD + 1) * Spec::NPS;
     constexpr int NE = (AHEAD + 2) * staged_leaves<Spec>();
     const size_t smem = sizeof(float)
-                        * ((3 * Spec::S + 2 * em_ring_leaves<Spec>() + NQ
-                            + NE) * W
+                        * ((3 * Spec::S
+                            + em_ring_slots<Spec, WITH_EXP>()
+                                  * em_slot_leaves<Spec, WITH_EXP>()
+                            + NQ + NE + acc_slab_lanes<Spec, WITH_EXP>())
+                               * W
                            + 64);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
@@ -2815,7 +2964,7 @@ WAVEFRONT_FWD_TILED_SEL_ENTRY(wavefront_fwd_tiled_vanilla, Vanilla)
 WAVEFRONT_BWD_SEL_ENTRY(wavefront_bwd_vanilla, Vanilla)
 WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled_vanilla, Vanilla)
 
-WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp, Strawman)
+WAVEFRONT_BWD_EXP_SEL_ENTRY(wavefront_bwd_exp, Strawman)
 WAVEFRONT_BWD_EXP_SEL_ENTRY(wavefront_bwd_exp_dna5, Dna5)
 WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_vanilla, Vanilla)
 
@@ -2823,7 +2972,7 @@ WAVEFRONT_FWD_SEL_ENTRY(wavefront_fwd_sm4, Sm4)
 WAVEFRONT_FWD_TILED_SEL_ENTRY(wavefront_fwd_tiled_sm4, Sm4)
 WAVEFRONT_BWD_SEL_ENTRY(wavefront_bwd_sm4, Sm4)
 WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled_sm4, Sm4)
-WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_sm4, Sm4)
+WAVEFRONT_BWD_EXP_SEL_ENTRY(wavefront_bwd_exp_sm4, Sm4)
 
 WAVEFRONT_EMISSIONS_ENTRY(wavefront_emissions_echelon, Echelon)
 WAVEFRONT_FWD_PLANE_ENTRY(wavefront_fwd_echelon, Echelon)

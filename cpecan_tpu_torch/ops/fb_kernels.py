@@ -69,9 +69,10 @@ true>``: the same recurrences with a branch-free log-add), as do K2 dna5,
 K2 strawman, K2 vanilla, K2 sm4 and K2 hdp (the untiled posterior form
 ``sm3_bwd_tiled_sel<Spec, false, false>``; hdp's reads its stream ``est``),
 K1 strawman, K1 dna5, K1 vanilla and K1 sm4 (the untiled forward
-``sm3_fwd_tiled_sel<Spec, false>``), K3 dna5 (the untiled expectation
-form ``sm3_bwd_tiled_sel<Dna5, true, false>``) and K1/K2 echelon (the
-untiled forms ``sm3_fwd_tiled_sel<Echelon, false>`` and
+``sm3_fwd_tiled_sel<Spec, false>``), K3 dna5, K3 strawman and K3 sm4 (the
+untiled expectation form ``sm3_bwd_tiled_sel<Spec, true, false>``;
+strawman's and sm4's targets read their emissions from the carry) and
+K1/K2 echelon (the untiled forms ``sm3_fwd_tiled_sel<Echelon, false>`` and
 ``sm3_bwd_tiled_sel<Echelon, false, false>``, each after the emission
 pre-pass ``echelon_emissions``, whose plane the wrapper allocates and
 drops after the launch); the other instances are those of
@@ -1382,8 +1383,9 @@ def wavefront_bwd_exp(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
     trans [G, R, S*S], acc [G, NACC, R, X]) f32 (see
     ``backward_exp_plain``); a streamed spec reads its emissions from
     ``est``.  Plain PyTorch for CPU tensors; the CUDA kernel
-    ``sm3_bwd_kernel<spec, true>`` (dna5: the untiled
-    ``sm3_bwd_tiled_sel<Dna5, true, false>``) for CUDA tensors (replaces
+    ``sm3_bwd_kernel<spec, true>`` (vanilla, hdp) or the untiled
+    ``sm3_bwd_tiled_sel<spec, true, false>`` (dna5, strawman, sm4) for
+    CUDA tensors (replaces
     cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
     with_exp=True; entry ``wavefront_bwd_exp`` + ``spec.SUFFIX``)."""
     _no_expectations(spec)

@@ -34,7 +34,16 @@
   by the stored guide renamed to it), group 32, chunk 64, every run of
   the aligner (each strand's chunk) recorded through a ``stage`` hook
   once.  The template strand's chunk is the chunk whose kernel ms
-  ``chip_smoke.py`` reports.
+  ``chip_smoke.py`` reports;
+- ``estep``: the expectation backward (K3) of the strawman and fourState
+  machines on the groups whose kernel ms ``chip_smoke.py`` reports: K3
+  strawman on phase 7's (the first 32 of bench.py's 256 signal reads,
+  ragged at both ends, per-read scaling, group 32), with the untrained
+  machine and with the trained one of ``zymo_trained_params``; K3 sm4 on
+  phase 22's (the same 32 reads as ``Sm4Aligner.run(expectations=True)``
+  stages them, its trained-looking machine).  Each tree's K1 feeds its
+  K3, and the fwd plane and all four K3 outputs must equal the first
+  tree's.
 
     python cpecan_tpu_torch/tools/tiled_times.py build/parent .
     python cpecan_tpu_torch/tools/tiled_times.py --path echelon build/parent .
@@ -45,6 +54,8 @@
     python cpecan_tpu_torch/tools/tiled_times.py --path realign \
         build/parent . . build/parent
     python cpecan_tpu_torch/tools/tiled_times.py --path fourstate \
+        build/parent . . build/parent
+    python cpecan_tpu_torch/tools/tiled_times.py --path estep \
         build/parent . . build/parent
 
 Each tree is a directory holding ``cpecan_tpu_torch`` (a parent unpacked
@@ -82,6 +93,7 @@ POST_CHUNK = 64
 HDP_CHUNK = 64
 DNA_CHUNK = 32
 PIPE_READS, PIPE_GROUP, PIPE_CHUNK, PIPE_COMPACT_K = 64, 32, 64, 2048
+EM_GROUP = 32
 
 
 def load_tree(i, tree):
@@ -405,9 +417,69 @@ def fourstate_cases(fks, dev):
         del fa, ba, inp, prep
 
 
+def estep_cases(fks, dev):
+    """The expectation backwards' cases (K3 strawman with both machines,
+    K3 sm4), as ``long_cases``: the inputs of ``chip_smoke.py``'s phases
+    7 and 22, staged by this tree's aligners."""
+    import numpy as np
+
+    from cpecan_tpu_torch.align import AlignmentParams
+    from cpecan_tpu_torch.fixtures import zymo_trained_params
+    from cpecan_tpu_torch.models.hmm import ContinuousPairHmm
+    from cpecan_tpu_torch.models.state_machines import (
+        StateMachine3SignalStrawman, StateMachine4)
+    from cpecan_tpu_torch.ops.fb import Sm4Aligner, StrawmanAligner
+    from cpecan_tpu_torch.synthetic import synthetic_batch
+
+    sm, reads = synthetic_batch(**POST_BATCH)
+    n = EM_GROUP
+    # phase 7: the scaling of phase 9's E-step, the batch's inputs cut to
+    # their first group
+    em_sp = np.random.default_rng(4).uniform(0.95, 1.05, (len(reads), 5))
+    tparams, tgap_x = zymo_trained_params()
+    epa = StrawmanAligner(AlignmentParams(), device=dev, group=n)
+    full = epa.prepare(sm, reads, ragged_right=True, scale_params=em_sp)
+    # phase 22: the M-step of a random 4-state table, the first 32 reads
+    # as Sm4Aligner.run(expectations=True) stages them
+    rng4 = np.random.default_rng(21)
+    h4 = ContinuousPairHmm(state_number=4, pseudocount=1e-4)
+    h4.add_expectations({"trans": rng4.uniform(0.05, 1.0, (4, 4)),
+                         "kmer_gap": rng4.uniform(0.1, 1.0, 4098),
+                         "likelihood": -100.0})
+    h4.normalize()
+    p4, gx4 = h4.to_sm4_params()
+    sm4 = StateMachine4(sm.model, params=p4, gap_x_log_probs=gx4)
+    s4a = Sm4Aligner(AlignmentParams(), device=dev, group=n)
+    s4prep = s4a.prepare(sm4, reads[:n], ragged_right=True,
+                         scale_params=em_sp[:n])
+    cases = (
+        ("strawman", "untrained", sm, epa, full, "StrawmanSpec"),
+        ("strawman", "trained", StateMachine3SignalStrawman(
+            sm.model, params=tparams, gap_x_log_probs=tgap_x), epa, full,
+         "StrawmanSpec"),
+        ("fourState", "trained", sm4, s4a, s4prep, "Sm4Spec"))
+    keys = ("xf", "yf", "basef", "widthf", "seedf", "raggedf")
+    for label, mlabel, machine, aligner, prep, spec in cases:
+        inp = aligner.device_inputs(machine, prep, ragged_left=True)
+        ba = [inp["scal"], inp["win"][:1]] + [inp[k][:n] for k in keys]
+        dims = dict(R=n, W=prep["W"], ND=prep["ND"], C=prep["C"])
+
+        def launches(fk, ba=ba, dims=dims, spec=spec):
+            d = dict(dims, spec=getattr(fk, spec))
+            fwd = fk.wavefront_fwd(*ba[:6], **d)
+            return (fwd, *fk.wavefront_bwd_exp(*ba, fwd, **d)), {
+                "bwd_exp": lambda: fk.wavefront_bwd_exp(*ba, fwd, **d)}
+
+        yield ({"machine": label, "params": mlabel, "reads": n,
+                "ND": dims["ND"], "W": dims["W"]}, dims["ND"],
+               [lambda fk=fk: launches(fk) for fk in fks])
+        del ba, inp
+
+
 PATHS = {"long": long_cases, "echelon": echelon_cases,
          "posterior": posterior_cases, "hdp": hdp_cases,
-         "realign": realign_cases, "fourstate": fourstate_cases}
+         "realign": realign_cases, "fourstate": fourstate_cases,
+         "estep": estep_cases}
 
 
 def main(argv=None):

@@ -373,6 +373,48 @@ def test_cuda_signal_kernels_match_plain_on_moving_windows(cuda, spec,
     _check_signal_pair(spec, fa, ba, dims, ND)
 
 
+@pytest.mark.parametrize("spec", [fk.StrawmanSpec, fk.Sm4Spec],
+                         ids=lambda s: s.NAME)
+@pytest.mark.parametrize("edge", [False, True])
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("W, ND, every", [
+    (32, 2, False), (32, 3, False), (32, 300, True), (128, 300, True),
+    (128, 257, False), (1024, 2, False), (1024, 5, False),
+    (1024, 150, True)])
+def test_cuda_signal_exp_kernels_match_plain_on_moving_windows(
+        cuda, spec, edge, ragged, W, ND, every):
+    """K3 strawman and K3 sm4 (the untiled ``sm3_bwd_tiled_sel<Spec,
+    true, false>``, whose targets read their match and gap-Y emissions
+    across lanes from the three-slot carry ring) against their plain
+    versions on synthetic inputs whose group window drifts or (``every``)
+    shifts on nearly every diagonal, so that the carry's window w_{t-1}
+    differs from the target's w_t; with ``edge`` every band is its
+    group's whole window, so the edge lanes, where the carry's read falls
+    outside [0, W), count: posteriors, totals and the S x S table bit for
+    bit, the accumulator columns within parity.KERNEL_GAPX_ATOL
+    (``check_exp_kernel``), at W 32, 128 and 1024; ND 2, 3 and 5 leave
+    fewer diagonals than the ring's and the staged slots.  Its posteriors
+    and totals equal K2's."""
+    fa, ba, dims = synthetic_case(cuda, spec, W, ND, ragged,
+                                  [13, W, ND, int(ragged)], every=every,
+                                  edge=edge)
+    fwd = fk.wavefront_fwd(*fa, **dims)
+    assert torch.equal(fwd, fk.forward_plain(*fa, **dims))
+    fk.reset_counts()
+    got = fk.wavefront_bwd_exp(*ba, fwd, **dims)
+    torch.cuda.synchronize()
+    assert fk.KERNEL_LAUNCHES == {"wavefront_bwd_exp" + spec.SUFFIX: 1}
+    assert fk.backward_exp_plain.calls == 0
+    check_exp_kernel(got, fk.backward_exp_plain(*ba, fwd, **dims))
+    lanes = list(spec.EXP_LANES.values())
+    idle = [k for k in range(spec.S ** 2) if k not in lanes]
+    assert torch.all(got[2][..., idle] == 0.0)
+    assert torch.isfinite(got[1]).all()
+    assert (got[2][..., lanes] > 0.0).any() or ND == 2
+    kposts, ktotals = fk.wavefront_bwd(*ba, fwd, **dims)
+    assert torch.equal(got[0], kposts) and torch.equal(got[1], ktotals)
+
+
 @pytest.mark.parametrize("ragged", [False, True])
 @pytest.mark.parametrize("W, ND", [(32, 150), (128, 257), (1024, 140)])
 def test_cuda_hdp_kernels_match_plain_at_the_window_edge(cuda, ragged, W,
@@ -842,10 +884,11 @@ def _sm4_inputs(cuda, batch, trained, ragged, tile_diag=None):
 def test_cuda_sm4_kernels_match_plain(batch, cuda, ragged, trained):
     """K1, K2 and K3 sm4 (K1 the untiled ``sm3_fwd_tiled_sel<Sm4,
     false>``, K2 the untiled ``sm3_bwd_tiled_sel<Sm4, false, false>``, K3
-    ``sm3_bwd_kernel<Sm4, true>``) against their plain versions on the same
-    card inputs (the trained machine with per-read scaling): fwd plane,
-    posteriors, totals and the 16 transition lanes bit for bit, the
-    shortGapX accumulator within parity.KERNEL_GAPX_ATOL."""
+    the untiled ``sm3_bwd_tiled_sel<Sm4, true, false>``) against their
+    plain versions on the same card inputs (the trained machine with
+    per-read scaling): fwd plane, posteriors, totals and the 16 transition
+    lanes bit for bit, the shortGapX accumulator within
+    parity.KERNEL_GAPX_ATOL."""
     _, inp, dims = _sm4_inputs(cuda, batch, trained, ragged)
     fk.reset_counts()
     fwd = _fwd(inp, dims, fk.wavefront_fwd)

@@ -20,7 +20,13 @@ bit for bit, and against the plain PyTorch versions within
   same fwd plane;
 - ``sm3_bwd_tiled_sel<Hdp, 0, 0>`` (K2 hdp, entry ``wavefront_bwd_hdp``:
   the streamed posterior form) against ``sm3_bwd_kernel<Hdp, 0>``, on
-  bands that cover the windows' edges too.
+  bands that cover the windows' edges too;
+- ``sm3_bwd_tiled_sel<Strawman, 1, 0>`` and ``sm3_bwd_tiled_sel<Sm4, 1,
+  0>`` (K3 strawman and K3 sm4, entries ``wavefront_bwd_exp`` and
+  ``wavefront_bwd_exp_sm4``: the untiled expectation form, its targets'
+  emissions from the carry ring) against ``sm3_bwd_kernel<Strawman, 1>``
+  and ``sm3_bwd_kernel<Sm4, 1>``: posteriors, totals, the S x S table and
+  the accumulator columns, on bands that cover the windows' edges too.
 
 The old forms stay in the source for the instances that still run them;
 this translation unit instantiates them for the redesigned specs itself
@@ -111,6 +117,27 @@ int emu_old_wavefront_bwd_hdp(
                                   raggedf, fwd, est, posts, totals, nullptr,
                                   nullptr, G, R, W, ND, NDp, X, C, Y,
                                   stream);
+}
+int emu_old_wavefront_bwd_exp(
+        const void* scal, const void* win, const void* xf, const void* yf,
+        const void* basef, const void* widthf, const void* seedf,
+        const void* raggedf, const void* fwd, void* posts, void* totals,
+        void* trans, void* acc, int G, int R, int W, int ND, int NDp, int X,
+        int C, int Y, void* stream) {
+    return launch_bwd<Strawman, true>(scal, win, xf, yf, basef, widthf,
+                                      seedf, raggedf, fwd, nullptr, posts,
+                                      totals, trans, acc, G, R, W, ND, NDp,
+                                      X, C, Y, stream);
+}
+int emu_old_wavefront_bwd_exp_sm4(
+        const void* scal, const void* win, const void* xf, const void* yf,
+        const void* basef, const void* widthf, const void* seedf,
+        const void* raggedf, const void* fwd, void* posts, void* totals,
+        void* trans, void* acc, int G, int R, int W, int ND, int NDp, int X,
+        int C, int Y, void* stream) {
+    return launch_bwd<Sm4, true>(scal, win, xf, yf, basef, widthf, seedf,
+                                 raggedf, fwd, nullptr, posts, totals, trans,
+                                 acc, G, R, W, ND, NDp, X, C, Y, stream);
 }
 }
 """
@@ -216,7 +243,8 @@ def lib():
     names.update({f"emu_old_{n}": cuda_build._SIGNATURES[n]
                   for n in ("wavefront_fwd", "wavefront_fwd_dna5",
                             "wavefront_fwd_vanilla", "wavefront_fwd_sm4",
-                            "wavefront_bwd_sm4", "wavefront_bwd_hdp")})
+                            "wavefront_bwd_sm4", "wavefront_bwd_hdp",
+                            "wavefront_bwd_exp", "wavefront_bwd_exp_sm4")})
     for name, argtypes in names.items():
         getattr(handle, name).argtypes = argtypes
         getattr(handle, name).restype = ctypes.c_int
@@ -249,6 +277,15 @@ def _bwd(lib, entry, ba, fwd, dims):
     G = ba[1].shape[0]
     outs = [torch.empty((G, dims["ND"] + 1, dims["R"], dims["W"])),
             torch.empty((G, dims["R"]))]
+    return _launch(lib, entry, ba + [fwd], outs, dims)
+
+
+def _bwd_exp(lib, entry, ba, fwd, dims):
+    G, S = ba[1].shape[0], dims["spec"].S
+    R, X = dims["R"], ba[2].shape[2]
+    outs = [torch.empty((G, dims["ND"] + 1, R, dims["W"])),
+            torch.empty((G, R)), torch.empty((G, R, S * S)),
+            torch.empty((G, dims["spec"].EXP_NACC, R, X))]
     return _launch(lib, entry, ba + [fwd], outs, dims)
 
 
@@ -371,3 +408,46 @@ def test_k2_hdp_select_form_equals_the_old_kernel(lib, W, ND, every, ragged,
     edge lanes, where the carry's two guards (lanes l + o1 + 1 and l + o2 +
     1) part."""
     _check_k2(lib, fk.HdpSpec, 19, W, ND, every, ragged, edge)
+
+
+@pytest.mark.parametrize("ragged, edge", [(False, False), (True, True)],
+                         ids=["inner", "ragged-edge"])
+@pytest.mark.parametrize("W, ND, every", CASES)
+@pytest.mark.parametrize("spec, seed", [(fk.StrawmanSpec, 41),
+                                        (fk.Sm4Spec, 43)],
+                         ids=["strawman", "sm4"])
+def test_k3_strawman_and_sm4_select_forms_equal_the_old_kernels(
+        lib, spec, seed, W, ND, every, ragged, edge):
+    """K3 strawman's and K3 sm4's ``sm3_bwd_tiled_sel<Spec, 1, 0>`` (the
+    untiled expectation form: the select step, all S fwd entries staged
+    ahead in the slots that feed the targets, the transitions in shared
+    memory, and the targets' match and gap-Y emissions read across lanes
+    from the three-slot carry ring, EXP_CARRY) give
+    ``sm3_bwd_kernel<Spec, 1>``'s posteriors, totals, S x S transition
+    table and accumulator columns bit for bit on the same fwd plane, and
+    the plain version's within ``EMULATED_POST_ATOL`` and
+    ``EMULATED_RTOL``.  The cases' windows drift or (``every``) step on
+    nearly every diagonal, so the carry is read at lanes l + w_{t} -
+    w_{t-1} != l; with ``edge`` (and ragged ends) the bands cover the
+    windows' edge lanes, where that read falls outside [0, W), else they
+    lie inside the windows; each read's band ends at its seed diagonal,
+    whose cut the targets above it take."""
+    _, ba, dims = synthetic_case("cpu", spec, W, ND, ragged,
+                                 [seed, W, ND, int(ragged)], every=every,
+                                 edge=edge)
+    fwd = _fwd(lib, "wavefront_fwd" + spec.SUFFIX, ba[:6], dims)
+    entry = "wavefront_bwd_exp" + spec.SUFFIX
+    new = _bwd_exp(lib, entry, ba, fwd, dims)
+    old = _bwd_exp(lib, "emu_old_" + entry, ba, fwd, dims)
+    for got, want in zip(new, old):
+        assert torch.equal(got, want)
+    posts, totals, trans, acc = new
+    pposts, ptotals, ptrans, pacc = fk.backward_exp_plain(*ba, fwd, **dims)
+    _close(posts, pposts, 0.0, EMULATED_POST_ATOL)
+    _close(totals, ptotals, EMULATED_RTOL)
+    _close(trans, ptrans, EMULATED_RTOL, EMULATED_POST_ATOL)
+    _close(acc, pacc, EMULATED_RTOL, EMULATED_POST_ATOL)
+    lanes = list(spec.EXP_LANES.values())
+    assert torch.all(trans[..., [k for k in range(spec.S ** 2)
+                                 if k not in lanes]] == 0.0)
+    assert (trans[..., lanes] > 0.0).any() and (acc > 0.0).any() or ND == 2
