@@ -13,8 +13,9 @@ machine and the HDP machine through them:
    (the kernels redesigned for the card: K6a and K6b dna5, K3 dna5, K6b
    strawman, K6a strawman, K2 dna5, K6b sm4 and vanilla, K6a sm4 and
    vanilla, K1 and K2 echelon, K2 strawman and vanilla, K2 hdp, K1
-   vanilla, K1 strawman, K1 dna5, K1 and K2 sm4, K3 strawman and sm4) and
-   the echelon emission pre-pass within 64 registers, no spill;
+   vanilla, K1 strawman, K1 dna5, K1 and K2 sm4, K3 strawman and sm4, K1
+   hdp, K3 vanilla) and the echelon emission pre-pass within 64
+   registers, no spill;
 3. each kernel against its plain PyTorch version on the card, on the first
    64-read chunk of the bench batch (256 reads x 905 bases x 800 events,
    seed 7), with the tolerances of cpecan_tpu_torch/parity.py, and the
@@ -320,7 +321,9 @@ REDESIGNED = ("sm3_fwd_tiled_sel<Dna5, 1>",
               "sm3_fwd_tiled_sel<Sm4, 0>",
               "sm3_bwd_tiled_sel<Sm4, 0, 0>",
               "sm3_bwd_tiled_sel<Strawman, 1, 0>",
-              "sm3_bwd_tiled_sel<Sm4, 1, 0>")
+              "sm3_bwd_tiled_sel<Sm4, 1, 0>",
+              "sm3_fwd_tiled_sel<Hdp, 0>",
+              "sm3_bwd_tiled_sel<Vanilla, 1, 0>")
 
 
 def log(msg):
@@ -1618,8 +1621,8 @@ def main():
     clock.start(19)
     # K1 vanilla (the untiled select forward, sm3_fwd_tiled_sel<Vanilla,
     # 0>), K2 vanilla (the untiled select posterior form,
-    # sm3_bwd_tiled_sel<Vanilla, 0, 0>) and K3 vanilla
-    # (sm3_bwd_kernel<Vanilla, 1>), bit for bit
+    # sm3_bwd_tiled_sel<Vanilla, 0, 0>) and K3 vanilla (the untiled
+    # expectation form, sm3_bwd_tiled_sel<Vanilla, 1, 0>), bit for bit
     # bench.py's vanilla cell: the bench batch on the vendored template
     # model.  K1/K2 on the default machine with flush ends (the main
     # path's), K3 on the skip bins of the stored JAX vanilla training with
@@ -1715,6 +1718,7 @@ def main():
     log(f"vanilla kernel ms: fwd (sm3_fwd_tiled_sel<Vanilla, 0>) "
         f"{ms['vanilla_fwd']:.3f}, bwd "
         f"{ms['vanilla_bwd']:.3f} ({CHUNK} reads, default machine), bwd_exp "
+        f"(sm3_bwd_tiled_sel<Vanilla, 1, 0>) "
         f"{ms['vanilla_bwd_exp']:.3f} ({EM_GROUP} reads, trained machine); "
         f"bounds {bounds['vanilla_fwd'][0]:.4f} / "
         f"{bounds['vanilla_bwd'][0]:.4f} / "
@@ -2640,7 +2644,8 @@ def main():
 
     # -- 27. the HDP kernels vs plain on bench.py's HDP chunk -------------
     clock.start(27)
-    # K1 hdp (sm3_fwd_kernel<Hdp>), K2 hdp (the untiled select posterior
+    # K1 hdp (the streamed untiled select forward, sm3_fwd_tiled_sel<Hdp,
+    # 0>), K2 hdp (the untiled select posterior
     # form reading the stream, sm3_bwd_tiled_sel<Hdp, 0, 0>) and K3 hdp
     # (sm3_bwd_kernel<Hdp, 1>)
     # bench.py's HDP machine, sampled here by the port's own HDP copy
@@ -2739,7 +2744,8 @@ def main():
         f"sampled by the {sampler} sampler in {hdp_s:.2f} s")
     log(f"hdp kernels vs plain ({HDP_CHUNK} reads of bench.py's HDP cell, "
         f"G={len(hprep['win'])}, R={hd['R']}, W={hd['W']}, ND={hd['ND']}): "
-        f"K1/K2 (sm3_fwd_kernel<Hdp>, sm3_bwd_tiled_sel<Hdp, 0, 0>) fwd "
+        f"K1/K2 (sm3_fwd_tiled_sel<Hdp, 0>, sm3_bwd_tiled_sel<Hdp, 0, 0>) "
+        f"fwd "
         f"plane, posts, totals equal bit for bit, "
         f"{sum(map(len, hparts[0]))} pairs equal (compact_k "
         f"{HDP_COMPACT_K}, saturated in {hsat} reads); stream vs the host's build max|d| {stream_err:.3g} "
@@ -2858,9 +2864,10 @@ def main():
     # runs (phases 23, 25, 28) or one run (phases 21, 22)
     # K2 strawman, K2 dna5, K2 vanilla, K2 sm4 and K2 hdp run the untiled
     # select posterior form (sm3_bwd_tiled_sel<Spec, 0, 0>; hdp's reads
-    # its stream); K1 strawman, K1 dna5, K1 vanilla and K1 sm4 the untiled
-    # select forward (sm3_fwd_tiled_sel<Spec, 0>), K1 hdp
-    # sm3_fwd_kernel<Hdp>
+    # its stream); K1 strawman, K1 dna5, K1 vanilla, K1 sm4 and K1 hdp the
+    # untiled select forward (sm3_fwd_tiled_sel<Spec, 0>; hdp's stages its
+    # stream); K3 strawman, dna5, sm4 and vanilla the untiled expectation
+    # form (sm3_bwd_tiled_sel<Spec, 1, 0>), K3 hdp sm3_bwd_kernel<Hdp, 1>
     log(json.dumps({"kernels": [
         entry("wavefront_fwd", "cpecan_tpu/ops/pallas_fb.py:635",
               launches["wavefront_fwd"], 4, exact, "fwd", "fwd"),

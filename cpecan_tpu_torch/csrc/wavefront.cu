@@ -18,22 +18,23 @@
 // has K1 and K2 only and its emission pre-pass, hdp K1, K2 and K3).
 //
 // Replaces (TPU, Pallas):
-//   sm3_fwd_kernel<Spec>   <- cpecan_tpu/ops/pallas_fb.py _sm3_forward_kernel
-//                             (:635, untiled; the streamed _HdpSpec
-//                             :2829)                                    K1
 //   sm3_fwd_tiled_sel<Spec, false>
-//                          <- the same kernel for _StrawmanSpec (:162),
-//                             _Sm4Spec (:257), _Dna5Spec (:340) and
-//                             _VanillaSpec (:456): the untiled select
+//                          <- cpecan_tpu/ops/pallas_fb.py _sm3_forward_kernel
+//                             (:635, untiled) for _StrawmanSpec (:162),
+//                             _Sm4Spec (:257), _Dna5Spec (:340),
+//                             _VanillaSpec (:456) and the streamed
+//                             _HdpSpec (:2829): the untiled select
 //                             forward (the note above
-//                             sm3_fwd_tiled_sel)                        K1
+//                             sm3_fwd_tiled_sel); sm3_fwd_kernel<Spec>,
+//                             the first port of that kernel, stays in the
+//                             source for tests/test_torch_wavefront_
+//                             emulated.py, which holds these to it      K1
 //   sm3_bwd_kernel<Spec, true>
 //                          <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
 //                             -> _sm3_backward_body_w (:857, :900) with
 //                             with_exp=True (EM
 //                             expectations: accumulate_exp :1072 and
-//                             _VanillaSpec.exp_probs_w :506 / the
-//                             streamed _HdpSpec's, the strawman's)     K3
+//                             the streamed _HdpSpec's, the strawman's)  K3
 //   sm3_fwd_tiled_sel<Spec, true>
 //                          <- _sm3_forward_kernel(tile=...) (:2304), chained
 //                             over the tiles by _run_tiled (:2447) with
@@ -61,9 +62,11 @@
 //                          <- K3 for the 5-state DNA machine (cPecanEm's
 //                             E-step; _Dna5Spec.exp_probs_w :406), the
 //                             strawman (trainModels' threeState E-step;
-//                             _StrawmanSpec.exp_probs_w :215) and the
+//                             _StrawmanSpec.exp_probs_w :215), the
 //                             4-state machine (the fourState E-step;
-//                             _Sm4Spec.exp_probs_w :275): the sums of
+//                             _Sm4Spec.exp_probs_w :275) and the vanilla
+//                             machine (trainModels' -smt vanilla E-step;
+//                             _VanillaSpec.exp_probs_w :506): the sums of
 //                             sm3_bwd_kernel<Spec, true>, untiled, with
 //                             the select step, the strawman's and sm4's
 //                             targets' emissions from the carry (the
@@ -369,8 +372,10 @@ struct Strawman : GaussRows {
         out[2] = LA::add(p1a[0] + t[T_OY], p1a[2] + t[T_EY]) + e.gap_y;
     }
 
-    // the branch form, sm3_fwd_kernel's: K1 hdp runs it (Hdp derives from
-    // Strawman); K1 strawman runs the untiled select forward
+    // the branch form, sm3_fwd_kernel's: no entry point launches
+    // sm3_fwd_kernel<Strawman> or <Hdp> since K1 strawman and K1 hdp run
+    // the untiled select forward, but tests/test_torch_wavefront_emulated.py
+    // holds those to it
     __device__ __forceinline__ static void fwd_update(
             const float* t, const float* p1m, const float* p1a,
             const float* p2m, const Emissions& e, const float* xb, int X,
@@ -443,6 +448,10 @@ struct Strawman : GaussRows {
 // == gap-Y, impl/stateMachine.c:1353-1354); emissions_at is never called
 struct Hdp : Strawman {
     static constexpr bool STREAMED = true;
+    // the x rows the untiled select forward loads: the gap-X row alone
+    __host__ __device__ static constexpr bool fwd_row(int i) {
+        return i == GAP_X;
+    }
 };
 
 // _Sm4Spec (pallas_fb.py:257-337): M, shortGapX, shortGapY, longGapX; the
@@ -1899,15 +1908,23 @@ __device__ __forceinline__ void tiled_fwd_update(
 }
 
 // The forward in two forms: TILED, the tiled forward (K6a); untiled (K1
-// strawman, dna5, vanilla, sm4 and echelon: no tiles, no re-centering, no
-// shifts written, aux null but for echelon's plane).  A spec with an
-// emission plane (EM_PLANE: echelon) reads each cell's emissions from the
-// pre-pass's plane (slot d at its own window, k = 0), staged F_AHEAD
-// diagonals ahead into shared memory with cp.async (each lane its own
-// entries, one group a step), and loads only the x rows its step reads
-// (fwd_row); the other specs compute them from their rows.  What a form or
-// the plane adds sits under if constexpr, so the tiled instances of the
-// other specs compile to the same SASS as without it.
+// strawman, dna5, vanilla, sm4, echelon and hdp: no tiles, no
+// re-centering, no shifts written, aux null but for echelon's plane and
+// hdp's stream).  A spec with an emission plane (EM_PLANE: echelon) reads
+// each cell's emissions from the pre-pass's plane (slot d at its own
+// window, k = 0), staged F_AHEAD diagonals ahead into shared memory with
+// cp.async (each lane its own entries, one group a step), and loads only
+// the x rows its step reads (fwd_row); a streamed spec (STREAMED: K1 hdp)
+// stages the rows of its stream est [G, ND+3, R, W] the same way, one leaf
+// a cell (staged_leaves), since row d at d's own window is the match =
+// gap-Y emission of lane l, which never leaves [0, W) in the forward; it
+// loads the gap-X row alone (fwd_row), takes no column log and folds with
+// Strawman::fwd_update_sel (bench.py's HDP chunks: 64 blocks of 128
+// threads, 1,700 diagonals; ~400 ns a diagonal against ~665 on
+// sm3_fwd_kernel, on an H100 80GB HBM3 at 700 W).  The other specs
+// compute their emissions from their rows.  What a form, the plane or the
+// stream adds sits under if constexpr, so the tiled instances of the other
+// specs compile to the same SASS as without it.
 template <class Spec, bool TILED>
 __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
                                   const int* __restrict__ win,
@@ -1924,12 +1941,12 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
     constexpr int START = Spec::NS;
     constexpr int YR = Spec::YR, NXF = Spec::NXF;
     constexpr bool T_SHARED = Spec::T_SHARED;
-    constexpr int NL = Spec::EM_PLANE;
+    constexpr int NL = staged_leaves<Spec>();
     constexpr int QE = F_AHEAD + 1;
     static_assert(NSCAL <= 32, "the shared scalars fit their 32 floats");
     // ring [3 slots][S][W]; red [32]: the re-centering's scratch; with
-    // T_SHARED, the scalars [32]; with an emission plane, its staged slots
-    // [QE][NL][W] (diagonal d in slot d % QE)
+    // T_SHARED, the scalars [32]; with an emission plane or a stream, its
+    // staged slots [QE][NL][W] (diagonal d in slot d % QE)
     extern __shared__ float ring[];
     float* red = ring + 3 * S * W;
     float* es = red + 64;
@@ -1956,16 +1973,18 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
     float* od = fwd + static_cast<size_t>(g) * (ND + 1) * plane_d
                 + static_cast<size_t>(r) * W + l;
     // this lane's entries of the plane: leaf j of slot d at eb[(d * NL +
-    // j) * R * W]
+    // j) * R * W]; of a stream (NL 1): row d at eb[d * R * W]
     const size_t leaf = static_cast<size_t>(R) * W;
     const float* eb = NL > 0 ? aux + static_cast<size_t>(g) * (ND + 3) * NL
                                          * leaf
                                    + static_cast<size_t>(r) * W + l
                              : nullptr;
     // a spec's per-column logs (NLSD > 0), kept for x = w_{d-1} + l at the
-    // top of step d: diagonal 0's window first
+    // top of step d: diagonal 0's window first (none where the emissions
+    // are staged)
     float lsd[Spec::NLSD > 0 ? Spec::NLSD : 1];
-    if constexpr (Spec::NLSD > 0) Spec::col_logs_at(xb, X, wg[0] + l, lsd);
+    if constexpr (Spec::NLSD > 0 && NL == 0)
+        Spec::col_logs_at(xb, X, wg[0] + l, lsd);
 
     // d = 0: the start vector inside the band; the slot of d = -1 is NEG
     const bool m0 = in_band(wg[0] + l, base[0], width[0]);
@@ -1981,8 +2000,8 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
     if constexpr (TILED) {
         if (l == 0) aux[static_cast<size_t>(b) * NT] = 0.0f;
     }
-    // the plane's slots of diagonals 1 .. F_AHEAD, one group each (empty
-    // past ND)
+    // the plane's (or the stream's) slots of diagonals 1 .. F_AHEAD, one
+    // group each (empty past ND)
     int rs = 1, is = 0;   // the staged slots of d and of d + F_AHEAD
     if constexpr (NL > 0) {
         for (int j = 1; j <= F_AHEAD; ++j) {
@@ -2019,7 +2038,7 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
             prefetch_l1(width + d + L1_AHEAD);
         }
         if constexpr (NL > 0) {
-            // the plane's slot of d + F_AHEAD
+            // the plane's (or the stream's) slot of d + F_AHEAD
             if (d + F_AHEAD <= ND) {
 #pragma unroll
                 for (int k = 0; k < NL; ++k)
@@ -2031,7 +2050,7 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
         const float bd = base[d], wd = width[d];
         const int w = wg[d];
         // the cell's inputs: y rows at its column, x rows at x (a spec
-        // with an emission plane: the x rows its step reads)
+        // with an emission plane or a stream: the x rows its step reads)
         float in[YR + NXF];
         {
             const int x = w + l;
@@ -2059,12 +2078,20 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
         }
         float nv[S];
         if constexpr (NL > 0) {
-            // the plane's slot of d: its group is the F_AHEAD + 1-th newest
+            // the plane's (or the stream's) slot of d: its group is the
+            // F_AHEAD + 1-th newest
             cp_async_wait<F_AHEAD>();
-            Spec::fwd_update_sel(p1m, p1a, p2m,
-                                 plane_emissions<Spec>(es + rs * NL * W, l,
-                                                       W),
-                                 in + YR, nv);
+            if constexpr (Spec::STREAMED) {
+                // est[d] at this lane: the match and gap-Y emission
+                const float v = es[rs * W + l];
+                tiled_fwd_update<Spec>(t, in, p1m, p1a, p2m,
+                                       Emissions{v, v}, nv);
+            } else {
+                Spec::fwd_update_sel(p1m, p1a, p2m,
+                                     plane_emissions<Spec>(es + rs * NL * W, l,
+                                                           W),
+                                     in + YR, nv);
+            }
             rs = rs + 1 == QE ? 0 : rs + 1;
             is = is + 1 == QE ? 0 : is + 1;
         } else {
@@ -2110,9 +2137,17 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
 // of the other template's fsh ring and its stores; the transitions sit in
 // shared memory (64 registers, no spill); the targets are t = d + 3 at
 // step d and 3, 2 and 1 after the loop; the column sums are the spec's
-// (Dna5::exp_probs: atomic reductions; Strawman's and Sm4's one column a
-// plain read-modify-write), each column's adds ordered by the
-// per-diagonal barrier.  The Gaussian machines' form (EXP_CARRY: K3
+// (Dna5::exp_probs: atomic reductions; Strawman's and Sm4's one column,
+// Vanilla's two, a plain read-modify-write), each column's adds ordered by
+// the per-diagonal barrier.  The vanilla form (K3 vanilla, the vanilla
+// E-step's 32-read groups) has no transition lanes (NLANE 0: the table is
+// all 0) and no carry (EXP_CARRY false): its targets are silent gap-X
+// cells whose masses Vanilla::exp_probs takes from the fwd and bwd
+// entries, the total and the rows LA_MX and LA_XX at the target's own
+// column, w_{d+3} + l, two fresh loads (the step's rows sit at
+// next_col(w_d + l)); the emissions that exp_target evaluates for it are
+// read by nothing and compile to nothing (the instance's SASS equals that
+// of a variant skipping them).  The Gaussian machines' form (EXP_CARRY: K3
 // strawman and K3 sm4, the E-steps' 32-read groups) takes a target's
 // emissions from the em ring, as the JAX body takes them from its carry
 // (pallas_fb.py:1180-1181), where the other form computes them again at
@@ -2307,7 +2342,9 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     // WITH_EXP: the per-lane transition sums (with exp_carry at acc_s) and
     // this read's accumulator rows (acc[g, j, r, :] at rows + j * R * X);
     // fwd[ND + 1] = NEG (slot 0), the lower/upper source of target ND + 2
-    float acc[WITH_EXP && !exp_carry<Spec, WITH_EXP>() ? Spec::NLANE : 1];
+    // (a machine without lanes, Vanilla, keeps one unused register)
+    float acc[WITH_EXP && !exp_carry<Spec, WITH_EXP>() && Spec::NLANE > 0
+                  ? Spec::NLANE : 1];
     const size_t row_stride = static_cast<size_t>(R) * X;
     float* rows = accf + (static_cast<size_t>(g) * Spec::NACC * R + r) * X;
     if constexpr (WITH_EXP) {
@@ -2709,9 +2746,10 @@ int launch_fwd_sel(const void* scal, const void* win, const void* xf,
     if (int e = launch_config_error(W)) return e;
     if (TILED && (TD <= 0 || ND % TD != 0)) return cudaErrorInvalidValue;
     // ring, the reduction scratch of the re-centering, the shared scalars
-    // and the emission plane's staged slots
+    // and the emission plane's or the stream's staged slots
     const size_t smem = sizeof(float)
-                        * ((3 * Spec::S + (F_AHEAD + 1) * Spec::EM_PLANE)
+                        * ((3 * Spec::S
+                            + (F_AHEAD + 1) * staged_leaves<Spec>())
                                * W
                            + 64);
     if (smem > 48 * 1024) {
@@ -2855,19 +2893,8 @@ const char* wavefront_error_string(int code) {
             stream);                                                         \
     }
 
-#define WAVEFRONT_BWD_EXP_ENTRY(NAME, SPEC)                                 \
-    int NAME(const void* scal, const void* win, const void* xf,              \
-             const void* yf, const void* basef, const void* widthf,          \
-             const void* seedf, const void* raggedf, const void* fwd,        \
-             void* posts, void* totals, void* trans, void* acc, int G,       \
-             int R, int W, int ND, int NDp, int X, int C, int Y,             \
-             void* stream) {                                                 \
-        return launch_bwd<SPEC, true>(                                       \
-            scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, nullptr,  \
-            posts, totals, trans, acc, G, R, W, ND, NDp, X, C, Y, stream);   \
-    }
-
-// the select expectation kernel takes the same arguments
+// the untiled select expectation kernels (K3 strawman, dna5, vanilla and
+// sm4: sm3_bwd_tiled_sel<Spec, true, false>)
 #define WAVEFRONT_BWD_EXP_SEL_ENTRY(NAME, SPEC)                             \
     int NAME(const void* scal, const void* win, const void* xf,              \
              const void* yf, const void* basef, const void* widthf,          \
@@ -2884,7 +2911,9 @@ const char* wavefront_error_string(int code) {
 // the untiled select kernels of a spec with an emission plane (echelon)
 // take the pre-pass's plane em after the features (forward) or after the
 // fwd plane (backward), as the streamed spec's entry points take est; the
-// templates read it through aux, the tiled forms' shifts
+// templates read it through aux, the tiled forms' shifts.  The streamed
+// spec's forward (K1 hdp) takes its stream est through the forward entry
+// too: the untiled select forward stages a stream as a one-leaf plane
 #define WAVEFRONT_FWD_PLANE_ENTRY(NAME, SPEC)                               \
     int NAME(const void* scal, const void* win, const void* xf,              \
              const void* yf, const void* basef, const void* widthf,          \
@@ -2915,18 +2944,10 @@ const char* wavefront_error_string(int code) {
                                       C, Y, k, stream);                      \
     }
 
-// the streamed spec's entry points take the stream est after the features
-// (forward) or after the fwd plane (backward); its posterior backward (K2
-// hdp) is the untiled select form sm3_bwd_tiled_sel<Spec, false, false>,
-// which reads est through aux
-#define WAVEFRONT_FWD_STREAMED_ENTRY(NAME, SPEC)                            \
-    int NAME(const void* scal, const void* win, const void* xf,              \
-             const void* yf, const void* basef, const void* widthf,          \
-             const void* est, void* fwd, int G, int R, int W, int ND,        \
-             int NDp, int X, int C, int Y, void* stream) {                   \
-        return launch_fwd<SPEC>(scal, win, xf, yf, basef, widthf, est,       \
-                                fwd, G, R, W, ND, NDp, X, C, Y, stream);     \
-    }
+// the streamed spec's backward entry points take the stream est after the
+// fwd plane; its posterior backward (K2 hdp) is the untiled select form
+// sm3_bwd_tiled_sel<Spec, false, false>, which reads est through aux, its
+// expectation backward (K3 hdp) sm3_bwd_kernel<Spec, true>
 #define WAVEFRONT_BWD_STREAMED_ENTRY(NAME, SPEC)                            \
     int NAME(const void* scal, const void* win, const void* xf,              \
              const void* yf, const void* basef, const void* widthf,          \
@@ -2966,7 +2987,7 @@ WAVEFRONT_BWD_TILED_SEL_ENTRY(wavefront_bwd_tiled_vanilla, Vanilla)
 
 WAVEFRONT_BWD_EXP_SEL_ENTRY(wavefront_bwd_exp, Strawman)
 WAVEFRONT_BWD_EXP_SEL_ENTRY(wavefront_bwd_exp_dna5, Dna5)
-WAVEFRONT_BWD_EXP_ENTRY(wavefront_bwd_exp_vanilla, Vanilla)
+WAVEFRONT_BWD_EXP_SEL_ENTRY(wavefront_bwd_exp_vanilla, Vanilla)
 
 WAVEFRONT_FWD_SEL_ENTRY(wavefront_fwd_sm4, Sm4)
 WAVEFRONT_FWD_TILED_SEL_ENTRY(wavefront_fwd_tiled_sm4, Sm4)
@@ -2978,7 +2999,7 @@ WAVEFRONT_EMISSIONS_ENTRY(wavefront_emissions_echelon, Echelon)
 WAVEFRONT_FWD_PLANE_ENTRY(wavefront_fwd_echelon, Echelon)
 WAVEFRONT_BWD_PLANE_ENTRY(wavefront_bwd_echelon, Echelon)
 
-WAVEFRONT_FWD_STREAMED_ENTRY(wavefront_fwd_hdp, Hdp)
+WAVEFRONT_FWD_PLANE_ENTRY(wavefront_fwd_hdp, Hdp)
 WAVEFRONT_BWD_STREAMED_ENTRY(wavefront_bwd_hdp, Hdp)
 WAVEFRONT_BWD_EXP_STREAMED_ENTRY(wavefront_bwd_exp_hdp, Hdp)
 

@@ -20,8 +20,7 @@ Counterparts in the JAX package (``cpecan_tpu/ops/pallas_fb.py``):
 ``EchelonSpec``            ``_EchelonSpec`` (:528-620)
 ``wavefront_fwd``          ``_sm3_forward_kernel`` (:635), untiled (on the
                            card ``sm3_fwd_tiled_sel<Spec, false>`` for
-                           strawman, dna5, vanilla, sm4 and echelon,
-                           ``sm3_fwd_kernel<Hdp>`` for hdp)
+                           every spec; hdp's stages its stream)
 ``wavefront_bwd``          ``_sm3_backward_kernel`` -> ``_sm3_backward_body_w``
                            (:857, :900), ``with_exp=False``, untiled
 ``wavefront_bwd_exp``      the same body with ``with_exp=True`` (EM
@@ -68,15 +67,16 @@ boundary here, where the carried diagonals re-center.  Every tiled pair
 true>``: the same recurrences with a branch-free log-add), as do K2 dna5,
 K2 strawman, K2 vanilla, K2 sm4 and K2 hdp (the untiled posterior form
 ``sm3_bwd_tiled_sel<Spec, false, false>``; hdp's reads its stream ``est``),
-K1 strawman, K1 dna5, K1 vanilla and K1 sm4 (the untiled forward
-``sm3_fwd_tiled_sel<Spec, false>``), K3 dna5, K3 strawman and K3 sm4 (the
-untiled expectation form ``sm3_bwd_tiled_sel<Spec, true, false>``;
-strawman's and sm4's targets read their emissions from the carry) and
-K1/K2 echelon (the untiled forms ``sm3_fwd_tiled_sel<Echelon, false>`` and
+K1 strawman, K1 dna5, K1 vanilla, K1 sm4 and K1 hdp (the untiled
+forward ``sm3_fwd_tiled_sel<Spec, false>``; hdp's stages the rows of its
+stream), K3 dna5, K3 strawman, K3 sm4 and K3 vanilla (the untiled
+expectation form ``sm3_bwd_tiled_sel<Spec, true, false>``; strawman's and
+sm4's targets read their emissions from the carry) and K1/K2 echelon (the
+untiled forms ``sm3_fwd_tiled_sel<Echelon, false>`` and
 ``sm3_bwd_tiled_sel<Echelon, false, false>``, each after the emission
 pre-pass ``echelon_emissions``, whose plane the wrapper allocates and
-drops after the launch); the other instances are those of
-``sm3_fwd_kernel``/``sm3_bwd_kernel``.  Every CUDA kernel's launches
+drops after the launch); K3 hdp runs ``sm3_bwd_kernel<Hdp, true>``.
+Every CUDA kernel's launches
 are counted in ``KERNEL_LAUNCHES`` under its entry point's name
 (``wavefront_fwd``, ``wavefront_fwd_dna5``,
 ``wavefront_fwd_vanilla``, ``wavefront_fwd_sm4``, ``wavefront_fwd_echelon``,
@@ -1328,8 +1328,8 @@ def wavefront_fwd(scal, win, xf, yf, basef, widthf, *, R, W, ND, C,
     """Forward wavefront -> fwd plane [G, ND+1, S, R, W] f32; a streamed
     spec reads its emissions from ``est`` [G, ND+3, R, W].  Plain PyTorch
     for CPU tensors; for CUDA tensors the untiled select forward
-    ``sm3_fwd_tiled_sel<spec, false>`` (strawman, dna5, vanilla, sm4), or
-    for hdp ``sm3_fwd_kernel<Hdp>`` (replaces
+    ``sm3_fwd_tiled_sel<spec, false>`` (strawman, dna5, vanilla, sm4, and
+    hdp, which stages the rows of ``est``) (replaces
     cpecan_tpu/ops/pallas_fb.py:635 _sm3_forward_kernel; entry
     ``wavefront_fwd`` + ``spec.SUFFIX``); echelon: the emission
     pre-pass (``echelon_emissions``, k = 0), then the untiled select
@@ -1382,9 +1382,9 @@ def wavefront_bwd_exp(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
     """Expectation backward -> (posts [G, ND+1, R, W], totals [G, R],
     trans [G, R, S*S], acc [G, NACC, R, X]) f32 (see
     ``backward_exp_plain``); a streamed spec reads its emissions from
-    ``est``.  Plain PyTorch for CPU tensors; the CUDA kernel
-    ``sm3_bwd_kernel<spec, true>`` (vanilla, hdp) or the untiled
-    ``sm3_bwd_tiled_sel<spec, true, false>`` (dna5, strawman, sm4) for
+    ``est``.  Plain PyTorch for CPU tensors; the untiled
+    ``sm3_bwd_tiled_sel<spec, true, false>`` (dna5, strawman, sm4,
+    vanilla) or for hdp the CUDA kernel ``sm3_bwd_kernel<Hdp, true>`` for
     CUDA tensors (replaces
     cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
     with_exp=True; entry ``wavefront_bwd_exp`` + ``spec.SUFFIX``)."""

@@ -35,15 +35,17 @@
   the aligner (each strand's chunk) recorded through a ``stage`` hook
   once.  The template strand's chunk is the chunk whose kernel ms
   ``chip_smoke.py`` reports;
-- ``estep``: the expectation backward (K3) of the strawman and fourState
-  machines on the groups whose kernel ms ``chip_smoke.py`` reports: K3
-  strawman on phase 7's (the first 32 of bench.py's 256 signal reads,
-  ragged at both ends, per-read scaling, group 32), with the untrained
-  machine and with the trained one of ``zymo_trained_params``; K3 sm4 on
-  phase 22's (the same 32 reads as ``Sm4Aligner.run(expectations=True)``
-  stages them, its trained-looking machine).  Each tree's K1 feeds its
-  K3, and the fwd plane and all four K3 outputs must equal the first
-  tree's.
+- ``estep``: the expectation backward (K3) of the strawman, fourState
+  and vanilla machines on the groups whose kernel ms ``chip_smoke.py``
+  reports: K3 strawman on phase 7's (the first 32 of bench.py's 256
+  signal reads, ragged at both ends, per-read scaling, group 32), with
+  the untrained machine and with the trained one of
+  ``zymo_trained_params``; K3 sm4 on phase 22's (the same 32 reads as
+  ``Sm4Aligner.run(expectations=True)`` stages them, its trained-looking
+  machine); K3 vanilla on phase 19's (the same 32 reads on the vendored
+  template model with the skip bins of the stored JAX vanilla training,
+  ``load_vanilla_zymo``).  Each tree's K1 feeds its K3, and the fwd plane
+  and all four K3 outputs must equal the first tree's.
 
     python cpecan_tpu_torch/tools/tiled_times.py build/parent .
     python cpecan_tpu_torch/tools/tiled_times.py --path echelon build/parent .
@@ -419,16 +421,20 @@ def fourstate_cases(fks, dev):
 
 def estep_cases(fks, dev):
     """The expectation backwards' cases (K3 strawman with both machines,
-    K3 sm4), as ``long_cases``: the inputs of ``chip_smoke.py``'s phases
-    7 and 22, staged by this tree's aligners."""
+    K3 sm4, K3 vanilla), as ``long_cases``: the inputs of
+    ``chip_smoke.py``'s phases 7, 22 and 19, staged by this tree's
+    aligners."""
     import numpy as np
 
     from cpecan_tpu_torch.align import AlignmentParams
-    from cpecan_tpu_torch.fixtures import zymo_trained_params
+    from cpecan_tpu_torch.fixtures import (fixture_path, load_vanilla_zymo,
+                                           zymo_trained_params)
+    from cpecan_tpu_torch.io.poremodel import load_pore_model
     from cpecan_tpu_torch.models.hmm import ContinuousPairHmm
     from cpecan_tpu_torch.models.state_machines import (
-        StateMachine3SignalStrawman, StateMachine4)
-    from cpecan_tpu_torch.ops.fb import Sm4Aligner, StrawmanAligner
+        StateMachine3SignalStrawman, StateMachine3Vanilla, StateMachine4)
+    from cpecan_tpu_torch.ops.fb import (Sm4Aligner, StrawmanAligner,
+                                         VanillaAligner)
     from cpecan_tpu_torch.synthetic import synthetic_batch
 
     sm, reads = synthetic_batch(**POST_BATCH)
@@ -452,12 +458,20 @@ def estep_cases(fks, dev):
     s4a = Sm4Aligner(AlignmentParams(), device=dev, group=n)
     s4prep = s4a.prepare(sm4, reads[:n], ragged_right=True,
                          scale_params=em_sp[:n])
+    # phase 19: the trained vanilla machine, the same reads and scaling
+    vsm = StateMachine3Vanilla(
+        load_pore_model(fixture_path("template_median68pA.model")),
+        skip_bin_probs=load_vanilla_zymo()[2]["t_skip"])
+    va = VanillaAligner(AlignmentParams(), device=dev, group=n)
+    vprep = va.prepare(vsm, reads[:n], ragged_right=True,
+                       scale_params=em_sp[:n])
     cases = (
         ("strawman", "untrained", sm, epa, full, "StrawmanSpec"),
         ("strawman", "trained", StateMachine3SignalStrawman(
             sm.model, params=tparams, gap_x_log_probs=tgap_x), epa, full,
          "StrawmanSpec"),
-        ("fourState", "trained", sm4, s4a, s4prep, "Sm4Spec"))
+        ("fourState", "trained", sm4, s4a, s4prep, "Sm4Spec"),
+        ("vanilla", "trained", vsm, va, vprep, "VanillaSpec"))
     keys = ("xf", "yf", "basef", "widthf", "seedf", "raggedf")
     for label, mlabel, machine, aligner, prep, spec in cases:
         inp = aligner.device_inputs(machine, prep, ragged_left=True)

@@ -360,8 +360,9 @@ def test_cuda_signal_kernels_match_plain_on_moving_windows(cuda, spec,
     """K1 and K2 of the strawman, vanilla, 4-state and HDP machines (K1
     strawman, vanilla and sm4: the untiled ``sm3_fwd_tiled_sel<Spec,
     false>``, whose column logs are taken again where the window moves; K1
-    hdp ``sm3_fwd_kernel<Hdp>``; K2: the untiled ``sm3_bwd_tiled_sel<Spec,
-    false, false>``, hdp's reading its stream) against their plain
+    hdp its streamed form, which stages its stream's rows; K2: the untiled
+    ``sm3_bwd_tiled_sel<Spec, false, false>``, hdp's reading its stream)
+    against their plain
     versions on synthetic inputs whose group window drifts (and with
     ``every`` shifts on nearly every diagonal), so that the backward reads
     lanes outside the window of d + 1 on many steps: the fwd plane, the
@@ -373,7 +374,8 @@ def test_cuda_signal_kernels_match_plain_on_moving_windows(cuda, spec,
     _check_signal_pair(spec, fa, ba, dims, ND)
 
 
-@pytest.mark.parametrize("spec", [fk.StrawmanSpec, fk.Sm4Spec],
+@pytest.mark.parametrize("spec", [fk.StrawmanSpec, fk.Sm4Spec,
+                                  fk.VanillaSpec],
                          ids=lambda s: s.NAME)
 @pytest.mark.parametrize("edge", [False, True])
 @pytest.mark.parametrize("ragged", [False, True])
@@ -383,18 +385,22 @@ def test_cuda_signal_kernels_match_plain_on_moving_windows(cuda, spec,
     (1024, 150, True)])
 def test_cuda_signal_exp_kernels_match_plain_on_moving_windows(
         cuda, spec, edge, ragged, W, ND, every):
-    """K3 strawman and K3 sm4 (the untiled ``sm3_bwd_tiled_sel<Spec,
-    true, false>``, whose targets read their match and gap-Y emissions
-    across lanes from the three-slot carry ring) against their plain
-    versions on synthetic inputs whose group window drifts or (``every``)
-    shifts on nearly every diagonal, so that the carry's window w_{t-1}
-    differs from the target's w_t; with ``edge`` every band is its
-    group's whole window, so the edge lanes, where the carry's read falls
-    outside [0, W), count: posteriors, totals and the S x S table bit for
-    bit, the accumulator columns within parity.KERNEL_GAPX_ATOL
-    (``check_exp_kernel``), at W 32, 128 and 1024; ND 2, 3 and 5 leave
-    fewer diagonals than the ring's and the staged slots.  Its posteriors
-    and totals equal K2's."""
+    """K3 strawman, K3 sm4 and K3 vanilla (the untiled
+    ``sm3_bwd_tiled_sel<Spec, true, false>``; the strawman's and sm4's
+    targets read their match and gap-Y emissions across lanes from the
+    three-slot carry ring, vanilla's silent gap-X targets the skip rows
+    at their own column) against their plain versions on synthetic inputs
+    whose group window drifts or (``every``) shifts on nearly every
+    diagonal, so that the carry's window w_{t-1} differs from the
+    target's w_t; with ``edge`` every band is its group's whole window, so
+    the edge lanes, where the carry's read falls outside [0, W), count:
+    posteriors, totals and the S x S table bit for bit, the accumulator
+    columns within parity.KERNEL_GAPX_ATOL (``check_exp_kernel``) and
+    vanilla's two (plain read-modify-writes, as the plain version's
+    gather, add and scatter) bit for bit, at W 32, 128 and 1024; ND 2, 3
+    and 5 leave fewer diagonals than the ring's and the staged slots.  Its
+    posteriors and totals equal K2's.  Vanilla has no transition lanes:
+    its whole table is 0."""
     fa, ba, dims = synthetic_case(cuda, spec, W, ND, ragged,
                                   [13, W, ND, int(ragged)], every=every,
                                   edge=edge)
@@ -405,12 +411,16 @@ def test_cuda_signal_exp_kernels_match_plain_on_moving_windows(
     torch.cuda.synchronize()
     assert fk.KERNEL_LAUNCHES == {"wavefront_bwd_exp" + spec.SUFFIX: 1}
     assert fk.backward_exp_plain.calls == 0
-    check_exp_kernel(got, fk.backward_exp_plain(*ba, fwd, **dims))
+    want = fk.backward_exp_plain(*ba, fwd, **dims)
+    check_exp_kernel(got, want)
+    if spec is fk.VanillaSpec:
+        assert torch.equal(got[3], want[3])
     lanes = list(spec.EXP_LANES.values())
     idle = [k for k in range(spec.S ** 2) if k not in lanes]
     assert torch.all(got[2][..., idle] == 0.0)
     assert torch.isfinite(got[1]).all()
-    assert (got[2][..., lanes] > 0.0).any() or ND == 2
+    assert not lanes or (got[2][..., lanes] > 0.0).any() or ND == 2
+    assert (got[3] > 0.0).any() or ND == 2
     kposts, ktotals = fk.wavefront_bwd(*ba, fwd, **dims)
     assert torch.equal(got[0], kposts) and torch.equal(got[1], ktotals)
 
@@ -428,6 +438,31 @@ def test_cuda_hdp_kernels_match_plain_at_the_window_edge(cuda, ragged, W,
     fa, ba, dims = synthetic_case(cuda, fk.HdpSpec, W, ND, ragged,
                                   [23, W, ND, int(ragged)], edge=True)
     _check_signal_pair(fk.HdpSpec, fa, ba, dims, ND)
+
+
+@pytest.mark.parametrize("W, ND, every", [
+    (32, 2, False), (32, 3, False), (32, 5, False), (32, 150, True),
+    (128, 300, True), (1024, 3, False), (1024, 5, False),
+    (1024, 140, True)])
+def test_cuda_k1_hdp_matches_plain_on_moving_windows_at_the_edge(
+        cuda, W, ND, every):
+    """K1 hdp (the streamed form of the untiled ``sm3_fwd_tiled_sel<Hdp,
+    false>``: each stream row staged F_AHEAD diagonals ahead, read at the
+    lane's own entry) against its plain version where every band is its
+    group's window (``edge``), so that the edge lanes' cells count, and
+    the window drifts or (``every``) shifts on nearly every diagonal, so
+    that a lane's stream entry belongs to another column from step to
+    step: the fwd plane bit for bit, at W 32, 128 and 1024; ND 2, 3 and 5
+    leave fewer diagonals than the staged slots."""
+    fa, _, dims = synthetic_case(cuda, fk.HdpSpec, W, ND, False,
+                                 [31, W, ND], every=every, edge=True)
+    fk.reset_counts()
+    fwd = fk.wavefront_fwd(*fa, **dims)
+    torch.cuda.synchronize()
+    assert fk.KERNEL_LAUNCHES == {"wavefront_fwd_hdp": 1}
+    assert fk.forward_plain.calls == 0
+    assert torch.equal(fwd, fk.forward_plain(*fa, **dims))
+    assert (fwd[:, 1:] > -1e29).any()
 
 
 def _check_signal_pair(spec, fa, ba, dims, ND):

@@ -346,9 +346,9 @@ def test_strawman_bwd_update_with_equals_plain(form):
 def test_strawman_fwd_update_with_equals_plain(form):
     """Strawman::fwd_update_with, transcribed, equals
     fb_kernels.StrawmanSpec.fwd_update_w bit for bit with either log-add
-    (fwd_update, K1 strawman and K1 hdp: the branch log_add;
-    fwd_update_sel, K6a strawman: log_add_sel), NEG sources, NEG
-    emissions and cubic-boundary gaps included."""
+    (fwd_update, the older sm3_fwd_kernel's: the branch log_add;
+    fwd_update_sel, K1 and K6a strawman and K1 hdp: log_add_sel), NEG
+    sources, NEG emissions and cubic-boundary gaps included."""
     t, draw = _update_grid()
     p1m, p1a, p2m = ([draw() for _ in range(3)] for _ in range(3))
     e_match, e_gapy, e_gapx = draw(), draw(), draw()
@@ -468,8 +468,9 @@ def _vanilla_row_at_next():
 def test_vanilla_bwd_update_with_equals_plain(form):
     """Vanilla::bwd_update_with, transcribed, equals
     fb_kernels.VanillaSpec.bwd_update_w bit for bit with either log-add
-    (bwd_update, K2 and K3 vanilla: the branch log_add; bwd_update_sel,
-    K6b vanilla: log_add_sel): the transitions into M and X read at x + 1
+    (bwd_update, the older sm3_bwd_kernel's: the branch log_add;
+    bwd_update_sel, K2, K3 and K6b vanilla: log_add_sel): the transitions
+    into M and X read at x + 1
     (rows 8-11, row_at_next), M -> Y at x; NEG sources and cubic-boundary
     gaps included."""
     stmts = _method("Vanilla", "bwd_update_with")

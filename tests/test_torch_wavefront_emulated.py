@@ -18,14 +18,19 @@ bit for bit, and against the plain PyTorch versions within
   and K2 sm4, entries ``wavefront_fwd_sm4`` and ``wavefront_bwd_sm4``)
   against ``sm3_fwd_kernel<Sm4>`` and ``sm3_bwd_kernel<Sm4, 0>``, K2 on the
   same fwd plane;
+- ``sm3_fwd_tiled_sel<Hdp, 0>`` (K1 hdp, entry ``wavefront_fwd_hdp``: the
+  streamed untiled forward, the stream's rows staged ahead) against
+  ``sm3_fwd_kernel<Hdp>``, on bands that cover the windows' edges;
 - ``sm3_bwd_tiled_sel<Hdp, 0, 0>`` (K2 hdp, entry ``wavefront_bwd_hdp``:
   the streamed posterior form) against ``sm3_bwd_kernel<Hdp, 0>``, on
   bands that cover the windows' edges too;
-- ``sm3_bwd_tiled_sel<Strawman, 1, 0>`` and ``sm3_bwd_tiled_sel<Sm4, 1,
-  0>`` (K3 strawman and K3 sm4, entries ``wavefront_bwd_exp`` and
-  ``wavefront_bwd_exp_sm4``: the untiled expectation form, its targets'
-  emissions from the carry ring) against ``sm3_bwd_kernel<Strawman, 1>``
-  and ``sm3_bwd_kernel<Sm4, 1>``: posteriors, totals, the S x S table and
+- ``sm3_bwd_tiled_sel<Strawman, 1, 0>``, ``sm3_bwd_tiled_sel<Sm4, 1, 0>``
+  and ``sm3_bwd_tiled_sel<Vanilla, 1, 0>`` (K3 strawman, K3 sm4 and K3
+  vanilla, entries ``wavefront_bwd_exp``, ``wavefront_bwd_exp_sm4`` and
+  ``wavefront_bwd_exp_vanilla``: the untiled expectation form, the
+  strawman's and sm4's targets' emissions from the carry ring) against
+  ``sm3_bwd_kernel<Strawman, 1>``, ``sm3_bwd_kernel<Sm4, 1>`` and
+  ``sm3_bwd_kernel<Vanilla, 1>``: posteriors, totals, the S x S table and
   the accumulator columns, on bands that cover the windows' edges too.
 
 The old forms stay in the source for the instances that still run them;
@@ -89,6 +94,14 @@ int emu_old_wavefront_fwd_vanilla(
     return launch_fwd<Vanilla>(scal, win, xf, yf, basef, widthf, nullptr,
                                fwd, G, R, W, ND, NDp, X, C, Y, stream);
 }
+int emu_old_wavefront_fwd_hdp(
+        const void* scal, const void* win, const void* xf, const void* yf,
+        const void* basef, const void* widthf, const void* est, void* fwd,
+        int G, int R, int W, int ND, int NDp, int X, int C, int Y,
+        void* stream) {
+    return launch_fwd<Hdp>(scal, win, xf, yf, basef, widthf, est, fwd, G, R,
+                           W, ND, NDp, X, C, Y, stream);
+}
 int emu_old_wavefront_fwd_sm4(
         const void* scal, const void* win, const void* xf, const void* yf,
         const void* basef, const void* widthf, void* fwd, int G, int R,
@@ -138,6 +151,17 @@ int emu_old_wavefront_bwd_exp_sm4(
     return launch_bwd<Sm4, true>(scal, win, xf, yf, basef, widthf, seedf,
                                  raggedf, fwd, nullptr, posts, totals, trans,
                                  acc, G, R, W, ND, NDp, X, C, Y, stream);
+}
+int emu_old_wavefront_bwd_exp_vanilla(
+        const void* scal, const void* win, const void* xf, const void* yf,
+        const void* basef, const void* widthf, const void* seedf,
+        const void* raggedf, const void* fwd, void* posts, void* totals,
+        void* trans, void* acc, int G, int R, int W, int ND, int NDp, int X,
+        int C, int Y, void* stream) {
+    return launch_bwd<Vanilla, true>(scal, win, xf, yf, basef, widthf,
+                                     seedf, raggedf, fwd, nullptr, posts,
+                                     totals, trans, acc, G, R, W, ND, NDp, X,
+                                     C, Y, stream);
 }
 }
 """
@@ -243,8 +267,10 @@ def lib():
     names.update({f"emu_old_{n}": cuda_build._SIGNATURES[n]
                   for n in ("wavefront_fwd", "wavefront_fwd_dna5",
                             "wavefront_fwd_vanilla", "wavefront_fwd_sm4",
-                            "wavefront_bwd_sm4", "wavefront_bwd_hdp",
-                            "wavefront_bwd_exp", "wavefront_bwd_exp_sm4")})
+                            "wavefront_fwd_hdp", "wavefront_bwd_sm4",
+                            "wavefront_bwd_hdp", "wavefront_bwd_exp",
+                            "wavefront_bwd_exp_sm4",
+                            "wavefront_bwd_exp_vanilla")})
     for name, argtypes in names.items():
         getattr(handle, name).argtypes = argtypes
         getattr(handle, name).restype = ctypes.c_int
@@ -301,13 +327,14 @@ CASES = [(32, 2, False), (32, 5, False), (32, 150, True), (64, 300, True),
          (64, 257, False)]
 
 
-def _check_k1(lib, spec, seed, W, ND, every, ragged):
+def _check_k1(lib, spec, seed, W, ND, every, ragged, edge=False):
     """The untiled select forward of ``spec`` (entry ``wavefront_fwd`` +
     its suffix) against its old kernel (``emu_old_`` + that entry) bit for
     bit, and against the plain version within ``EMULATED_RTOL``, on
     ``synthetic_case`` at ``seed``."""
     fa, _, dims = synthetic_case("cpu", spec, W, ND, ragged,
-                                 [seed, W, ND, int(ragged)], every=every)
+                                 [seed, W, ND, int(ragged)], every=every,
+                                 edge=edge)
     entry = "wavefront_fwd" + spec.SUFFIX
     new = _fwd(lib, entry, fa, dims)
     old = _fwd(lib, "emu_old_" + entry, fa, dims)
@@ -357,6 +384,20 @@ def test_k1_sm4_select_form_equals_the_old_kernel(lib, W, ND, every, ragged):
     ``sm3_fwd_kernel<Sm4>``'s fwd plane bit for bit, and the plain
     version's within ``EMULATED_RTOL``."""
     _check_k1(lib, fk.Sm4Spec, 31, W, ND, every, ragged)
+
+
+@pytest.mark.parametrize("W, ND, every", CASES)
+def test_k1_hdp_streamed_select_form_equals_the_old_kernel(lib, W, ND,
+                                                           every):
+    """K1 hdp's ``sm3_fwd_tiled_sel<Hdp, 0>`` (the untiled select forward's
+    streamed form: each stream row staged F_AHEAD diagonals ahead with the
+    emission plane's cp.async path, one leaf a cell, read at the lane's own
+    entry; the gap-X row alone, no column log; the scalars in shared
+    memory; the five log-adds as ``log_add_sel``) gives
+    ``sm3_fwd_kernel<Hdp>``'s fwd plane bit for bit, and the plain
+    version's within ``EMULATED_RTOL``, on bands that cover the windows'
+    edge lanes (ND 2 leaves fewer diagonals than the staged slots)."""
+    _check_k1(lib, fk.HdpSpec, 47, W, ND, every, False, edge=True)
 
 
 def _check_k2(lib, spec, seed, W, ND, every, ragged, edge=False):
@@ -414,24 +455,27 @@ def test_k2_hdp_select_form_equals_the_old_kernel(lib, W, ND, every, ragged,
                          ids=["inner", "ragged-edge"])
 @pytest.mark.parametrize("W, ND, every", CASES)
 @pytest.mark.parametrize("spec, seed", [(fk.StrawmanSpec, 41),
-                                        (fk.Sm4Spec, 43)],
-                         ids=["strawman", "sm4"])
+                                        (fk.Sm4Spec, 43),
+                                        (fk.VanillaSpec, 53)],
+                         ids=["strawman", "sm4", "vanilla"])
 def test_k3_strawman_and_sm4_select_forms_equal_the_old_kernels(
         lib, spec, seed, W, ND, every, ragged, edge):
-    """K3 strawman's and K3 sm4's ``sm3_bwd_tiled_sel<Spec, 1, 0>`` (the
-    untiled expectation form: the select step, all S fwd entries staged
-    ahead in the slots that feed the targets, the transitions in shared
-    memory, and the targets' match and gap-Y emissions read across lanes
-    from the three-slot carry ring, EXP_CARRY) give
-    ``sm3_bwd_kernel<Spec, 1>``'s posteriors, totals, S x S transition
-    table and accumulator columns bit for bit on the same fwd plane, and
-    the plain version's within ``EMULATED_POST_ATOL`` and
-    ``EMULATED_RTOL``.  The cases' windows drift or (``every``) step on
-    nearly every diagonal, so the carry is read at lanes l + w_{t} -
-    w_{t-1} != l; with ``edge`` (and ragged ends) the bands cover the
-    windows' edge lanes, where that read falls outside [0, W), else they
-    lie inside the windows; each read's band ends at its seed diagonal,
-    whose cut the targets above it take."""
+    """K3 strawman's, K3 sm4's and K3 vanilla's ``sm3_bwd_tiled_sel<Spec,
+    1, 0>`` (the untiled expectation form: the select step, all S fwd
+    entries staged ahead in the slots that feed the targets, the
+    transitions in shared memory; the strawman's and sm4's targets' match
+    and gap-Y emissions read across lanes from the three-slot carry ring,
+    EXP_CARRY; vanilla's targets, silent gap-X cells, with no transition
+    lanes and their two columns' masses from the rows at the target's
+    column) give ``sm3_bwd_kernel<Spec, 1>``'s posteriors, totals, S x S
+    transition table (all 0 for vanilla) and accumulator columns bit for
+    bit on the same fwd plane, and the plain version's within
+    ``EMULATED_POST_ATOL`` and ``EMULATED_RTOL``.  The cases' windows drift
+    or (``every``) step on nearly every diagonal, so the carry is read at
+    lanes l + w_{t} - w_{t-1} != l; with ``edge`` (and ragged ends) the
+    bands cover the windows' edge lanes, where that read falls outside [0,
+    W), else they lie inside the windows; each read's band ends at its
+    seed diagonal, whose cut the targets above it take."""
     _, ba, dims = synthetic_case("cpu", spec, W, ND, ragged,
                                  [seed, W, ND, int(ragged)], every=every,
                                  edge=edge)
@@ -450,4 +494,5 @@ def test_k3_strawman_and_sm4_select_forms_equal_the_old_kernels(
     lanes = list(spec.EXP_LANES.values())
     assert torch.all(trans[..., [k for k in range(spec.S ** 2)
                                  if k not in lanes]] == 0.0)
-    assert (trans[..., lanes] > 0.0).any() and (acc > 0.0).any() or ND == 2
+    assert ((trans[..., lanes] > 0.0).any() or not lanes) and (
+        acc > 0.0).any() or ND == 2
