@@ -180,8 +180,9 @@ machine and the HDP machine through them:
    stream against the host's build from the same inputs
    (parity.check_hdp_stream), K1/K2 hdp against their plain versions, the
    fwd plane, posteriors and totals bit for bit and equal pairs from a
-   compaction of 2048 (saturated: the exact fallback); K3 hdp on the
-   first 32-read group of phase 28's E-step (ragged) as phase 7 holds K3;
+   compaction of 2048 (saturated: the exact fallback); K3 hdp (the
+   streamed expectation form, sm3_bwd_tiled_sel<Hdp, 1, 0>) on the first
+   32-read group of phase 28's E-step (ragged) as phase 7 holds K3;
    ms, plain ms and bounds, and the stream build's ms;
 28. bench.py's hdp_alignments_per_sec: the 256 reads through
    HdpAligner(group=64).run in chunks of 64, compact_k 2048, the
@@ -323,7 +324,8 @@ REDESIGNED = ("sm3_fwd_tiled_sel<Dna5, 1>",
               "sm3_bwd_tiled_sel<Strawman, 1, 0>",
               "sm3_bwd_tiled_sel<Sm4, 1, 0>",
               "sm3_fwd_tiled_sel<Hdp, 0>",
-              "sm3_bwd_tiled_sel<Vanilla, 1, 0>")
+              "sm3_bwd_tiled_sel<Vanilla, 1, 0>",
+              "sm3_bwd_tiled_sel<Hdp, 1, 0>")
 
 
 def log(msg):
@@ -2647,7 +2649,8 @@ def main():
     # K1 hdp (the streamed untiled select forward, sm3_fwd_tiled_sel<Hdp,
     # 0>), K2 hdp (the untiled select posterior
     # form reading the stream, sm3_bwd_tiled_sel<Hdp, 0, 0>) and K3 hdp
-    # (sm3_bwd_kernel<Hdp, 1>)
+    # (the untiled expectation form reading the stream, its targets'
+    # emissions from the carry ring, sm3_bwd_tiled_sel<Hdp, 1, 0>)
     # bench.py's HDP machine, sampled here by the port's own HDP copy
     t0 = time.perf_counter()
     hsm = hdp_model()
@@ -2713,8 +2716,9 @@ def main():
                       FLOPS_PER_CELL["hdp_bwd"]))
     hstream_ms = cuda_ms(lambda: hpa.emission_stream(hsm, hprep, hinp), 5)
     del hfwd, hposts, hest, hinp
-    # K3 hdp on the first 32-read group of phase 28's E-step (bench.py's
-    # signal-EM shape: 128 reads, group 32, ragged at both ends)
+    # K3 hdp (sm3_bwd_tiled_sel<Hdp, 1, 0>) on the first 32-read group of
+    # phase 28's E-step (bench.py's signal-EM shape: 128 reads, group 32,
+    # ragged at both ends)
     hea = HdpAligner(AlignmentParams(), device=dev, group=EM_GROUP)
     hesub = reads[:VANILLA_E_READS]
     heprep = hea.prepare(hsm, hesub, ragged_right=True)
@@ -2749,7 +2753,8 @@ def main():
         f"plane, posts, totals equal bit for bit, "
         f"{sum(map(len, hparts[0]))} pairs equal (compact_k "
         f"{HDP_COMPACT_K}, saturated in {hsat} reads); stream vs the host's build max|d| {stream_err:.3g} "
-        f"(host build {cest_s:.2f} s); K3 hdp vs plain ({n} reads, ragged, "
+        f"(host build {cest_s:.2f} s); K3 hdp (sm3_bwd_tiled_sel<Hdp, 1, 0>) "
+        f"vs plain ({n} reads, ragged, "
         f"ND={hed['ND']}, W={hed['W']}): posts, totals, trans equal, gapx "
         f"max|d| {hdp_exp_err:.3g}; ms fwd {ms['hdp_fwd']:.3f} vs plain "
         f"{ms['hdp_fwd_plain']:.1f}, bwd {ms['hdp_bwd']:.3f} vs plain "
@@ -2866,8 +2871,9 @@ def main():
     # select posterior form (sm3_bwd_tiled_sel<Spec, 0, 0>; hdp's reads
     # its stream); K1 strawman, K1 dna5, K1 vanilla, K1 sm4 and K1 hdp the
     # untiled select forward (sm3_fwd_tiled_sel<Spec, 0>; hdp's stages its
-    # stream); K3 strawman, dna5, sm4 and vanilla the untiled expectation
-    # form (sm3_bwd_tiled_sel<Spec, 1, 0>), K3 hdp sm3_bwd_kernel<Hdp, 1>
+    # stream); K3 strawman, dna5, sm4, vanilla and hdp the untiled
+    # expectation form (sm3_bwd_tiled_sel<Spec, 1, 0>; hdp's reads its
+    # stream)
     log(json.dumps({"kernels": [
         entry("wavefront_fwd", "cpecan_tpu/ops/pallas_fb.py:635",
               launches["wavefront_fwd"], 4, exact, "fwd", "fwd"),
@@ -2994,9 +3000,9 @@ def main():
               max(ech_err["pre-pass k=0"], ech_err["pre-pass k=1"]),
               "echelon_emissions", "echelon_emissions"),
         # phase 27 holds K1/K2 hdp to plain on the first chunk of bench.py's
-        # HDP cell (ms, plain ms and bound there), K3 hdp on the first
-        # group of the E-step; launches from phase 28's main path and
-        # E-step
+        # HDP cell (ms, plain ms and bound there), K3 hdp (the streamed
+        # expectation form) on the first group of the E-step; launches
+        # from phase 28's main path and E-step
         entry("wavefront_fwd_hdp",
               "cpecan_tpu/ops/pallas_fb.py:635 (_HdpSpec :2829)",
               hdp_counts["wavefront_fwd_hdp"], 3, exact, "hdp_fwd", "hdp_fwd"),

@@ -29,12 +29,6 @@
 //                             the first port of that kernel, stays in the
 //                             source for tests/test_torch_wavefront_
 //                             emulated.py, which holds these to it      K1
-//   sm3_bwd_kernel<Spec, true>
-//                          <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
-//                             -> _sm3_backward_body_w (:857, :900) with
-//                             with_exp=True (EM
-//                             expectations: accumulate_exp :1072 and
-//                             the streamed _HdpSpec's, the strawman's)  K3
 //   sm3_fwd_tiled_sel<Spec, true>
 //                          <- _sm3_forward_kernel(tile=...) (:2304), chained
 //                             over the tiles by _run_tiled (:2447) with
@@ -59,18 +53,27 @@
 //                             streamed _HdpSpec: the untiled posterior
 //                             form, with the select step
 //   sm3_bwd_tiled_sel<Spec, true, false>
-//                          <- K3 for the 5-state DNA machine (cPecanEm's
-//                             E-step; _Dna5Spec.exp_probs_w :406), the
-//                             strawman (trainModels' threeState E-step;
+//                          <- cpecan_tpu/ops/pallas_fb.py _sm3_backward_kernel
+//                             -> _sm3_backward_body_w (:857, :900) with
+//                             with_exp=True (EM expectations:
+//                             accumulate_exp :1072), K3, for the 5-state
+//                             DNA machine (cPecanEm's E-step;
+//                             _Dna5Spec.exp_probs_w :406), the strawman
+//                             (trainModels' threeState E-step;
 //                             _StrawmanSpec.exp_probs_w :215), the
 //                             4-state machine (the fourState E-step;
-//                             _Sm4Spec.exp_probs_w :275) and the vanilla
+//                             _Sm4Spec.exp_probs_w :275), the vanilla
 //                             machine (trainModels' -smt vanilla E-step;
-//                             _VanillaSpec.exp_probs_w :506): the sums of
-//                             sm3_bwd_kernel<Spec, true>, untiled, with
-//                             the select step, the strawman's and sm4's
-//                             targets' emissions from the carry (the
-//                             note above sm3_bwd_tiled_sel)
+//                             _VanillaSpec.exp_probs_w :506) and the
+//                             streamed _HdpSpec (the HDP E-step; the
+//                             strawman's sums): the untiled expectation
+//                             form, with the select step, the strawman's,
+//                             sm4's and hdp's targets' emissions from the
+//                             carry (the note above sm3_bwd_tiled_sel);
+//                             sm3_bwd_kernel<Spec, true>, the first port
+//                             of that kernel, stays in the source for
+//                             tests/test_torch_wavefront_emulated.py,
+//                             which holds these to it                  K3
 //   sm3_fwd_tiled_sel<Echelon, false>, sm3_bwd_tiled_sel<Echelon, false,
 //   false>                 <- K1 and K2 for the 7-state echelon machine
 //                             (_EchelonSpec :528): the untiled forms,
@@ -155,7 +158,7 @@
 // lanes and never waits for them; the backward's plane reads are coalesced
 // and independent of the recurrence, so they overlap it.
 //
-// The EM expectations (sm3_bwd_kernel<true>) add, per step, the posterior
+// The EM expectations (the WITH_EXP forms) add, per step, the posterior
 // transition mass into one target diagonal t from sources on t-1 and t-2.
 // The JAX kernel adds target d+2 at step d, which needs fwd[d] shifted in
 // the same step it is fetched; here target t = d+3 is added at step d
@@ -414,6 +417,10 @@ struct Strawman : GaussRows {
         out[2] = by;
     }
 
+    // the branch form, sm3_bwd_kernel's: no entry point launches
+    // sm3_bwd_kernel<Strawman, ...> or <Hdp, ...> since K2 and K3 of both
+    // run the untiled select forms, but
+    // tests/test_torch_wavefront_emulated.py holds those to it
     __device__ __forceinline__ static void bwd_update(
             const float* t, const float* xb, int X, int x, float eg1,
             const float* em2p, const float* n1a, const float* n1p,
@@ -1733,14 +1740,27 @@ __host__ __device__ constexpr int acc_slab_lanes() {
     return exp_carry<Spec, WITH_EXP>() ? Spec::NLANE : 0;
 }
 
+// the floats a lane keeps in sm3_bwd_tiled_sel between its fwd slots and
+// its staged slots ps: a streamed spec's expectation form lays the em
+// ring's third slot and the slab there (a spec that stages nothing keeps
+// them at ps itself)
+template <class Spec, bool WITH_EXP>
+__host__ __device__ constexpr int staged_after() {
+    return Spec::STREAMED && exp_carry<Spec, WITH_EXP>()
+               ? em_slot_leaves<Spec, WITH_EXP>()
+                     + acc_slab_lanes<Spec, WITH_EXP>()
+               : 0;
+}
+
 // a target of sm3_bwd_tiled_sel's expectation form (exp_target's
-// arguments): with CARRY (exp_carry) and ``carried`` its emissions from
-// the em ring's slot cs at lane l + wt - wl, and its sums at acc_s (the
-// slab), else exp_target's (acc_s too with CARRY, else acc)
+// arguments; eb a streamed spec's stream, else null): with CARRY
+// (exp_carry) and ``carried`` its emissions from the em ring's slot cs at
+// lane l + wt - wl, and its sums at acc_s (the slab), else exp_target's
+// (acc_s too with CARRY, else acc)
 template <class Spec, bool CARRY>
 __device__ __forceinline__ void sel_target(
-        const float* t, const float* xb, const float* yb, int X, int Y,
-        int C, int R, int tt, int wt, const float* fm, int wm,
+        const float* t, const float* xb, const float* yb, const float* eb,
+        int X, int Y, int C, int R, int tt, int wt, const float* fm, int wm,
         const float* fl, int wl, const float* bt, bool cut, float total,
         bool m, bool carried, const float* cs, int l, int W, float* acc,
         float* acc_s, float* rows, size_t row_stride) {
@@ -1751,13 +1771,13 @@ __device__ __forceinline__ void sel_target(
                                   wm, fl, wl, bt, cut, total, m, l, W, acc_s,
                                   rows, row_stride);
         } else {
-            exp_target<Spec>(t, xb, yb, nullptr, X, Y, C, R, tt, wt, fm, wm,
-                             fl, wl, bt, cut, total, m, false, l, W, acc_s,
-                             rows, row_stride);
+            exp_target<Spec>(t, xb, yb, eb, X, Y, C, R, tt, wt, fm, wm, fl,
+                             wl, bt, cut, total, m, false, l, W, acc_s, rows,
+                             row_stride);
         }
     } else {
-        exp_target<Spec>(t, xb, yb, nullptr, X, Y, C, R, tt, wt, fm, wm, fl,
-                         wl, bt, cut, total, m, carried, l, W, acc, rows,
+        exp_target<Spec>(t, xb, yb, eb, X, Y, C, R, tt, wt, fm, wm, fl, wl,
+                         bt, cut, total, m, carried, l, W, acc, rows,
                          row_stride);
     }
 }
@@ -2195,6 +2215,22 @@ __global__ void sm3_fwd_tiled_sel(const float* __restrict__ scal,
 // rows beat a plain load of est[d + 1] at the top of the step, its row
 // prefetched into L1 64 diagonals ahead: ~555 against ~655 ns a
 // diagonal.)
+// The expectation form of a streamed spec (K3 hdp, the HDP E-step's
+// 32-read groups) is the two above at once: the stream's rows staged as
+// in K2 hdp (X_AHEAD ahead, in X_AHEAD + 2 slots, with all S fwd entries)
+// and the Gaussian machines' three-slot em ring (Hdp keeps its strawman
+// traits' EXP_CARRY), whose slot of step d holds e1 = est[d + 1] at lane l
+// + w_d - w_{d+1}, in both leaves; target t = d + 3 reads it from the slot
+// of step d + 2 at lane l + w_t - w_{t-1}, which is est[t] at lane l under
+// the one guard that the JAX body's carry (pallas_fb.py:1178-1181) and
+// sm3_bwd_kernel's exp_target(carried) apply, CPECAN_NEG outside [0, W).
+// The ring is chosen over keeping the stream rows of d + 1 .. d + 3
+// resident in a deeper slot ring: it is the path that already holds
+// strawman and sm4 bit-equal, it costs one shared store a step, and the
+// staged slots stay K2 hdp's.  Target 1 reads est[1] at its own lane from
+// the stream (eb), as exp_target does.  The ring's third slot and the
+// slab of the transition sums sit between the fwd slots and the staged
+// rows (staged_after), which keeps every other instance's layout.
 template <class Spec, bool WITH_EXP, bool TILED>
 __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
                                   const int* __restrict__ win,
@@ -2218,15 +2254,16 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     constexpr bool T_SHARED = WITH_EXP || Spec::T_SHARED;
     static_assert((Spec::NPS == 1 || (!WITH_EXP && !TILED))
                       && 2 * S + (T_SHARED ? Spec::NS : 0) <= 32
-                      && !(WITH_EXP && Spec::STREAMED)
+                      && !(Spec::STREAMED && TILED)
                       && !(WITH_EXP && TILED)
                       && !(Spec::EM_PLANE > 0 && TILED)
                       && (!exp_carry<Spec, WITH_EXP>() || NEM == 1),
                   "several posterior planes and the emission plane in the "
                   "untiled posterior form only; the end vectors (and the "
                   "shared transitions) fit tend; the targets' emissions "
-                  "come from the rows or the em ring (one match leaf); "
-                  "the tiled path has no EM sums");
+                  "come from the rows, the stream or the em ring (one match "
+                  "leaf); the tiled path has no EM sums, and its shifts "
+                  "take aux, where a stream would be");
     // the fwd slots: the posterior states' entries, copied F_AHEAD
     // diagonals ahead (E_AHEAD with an emission plane), or WITH_EXP all S
     // entries, X_AHEAD diagonals ahead
@@ -2255,10 +2292,15 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
     float* tend = red + 32;
     float* fst = tend + 32;
     float* ps = fst + QF * QS * W;
-    // exp_carry: the ring's third slot, emissions(d + 3) at w_{d+2} (its
-    // spec stages no plane or stream slots, so it takes their place), then
-    // the slab of the transition sums (this lane's row at acc_s, below)
+    // exp_carry: the ring's third slot, emissions(d + 3) at w_{d+2}, then
+    // the slab of the transition sums (this lane's row at acc_s, below):
+    // where the staged slots begin for a spec that stages none (strawman,
+    // sm4), and before them for a streamed spec, whose staged rows move
+    // past the slab (staged_after; moving them under if constexpr keeps
+    // the other instances' SASS, which one expression for all did not)
     float* em_t2 = ps;
+    if constexpr (staged_after<Spec, WITH_EXP>() > 0)
+        ps = em_t2 + staged_after<Spec, WITH_EXP>() * W;
     const int b = blockIdx.x;
     const int g = b / R;
     const int r = b - g * R;
@@ -2324,11 +2366,14 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
         for (int k = 0; k < NEM; ++k)
             ps[k * W + l] = eb[((ND + 1) * Spec::EM_PLANE + k) * leaf];
     } else if constexpr (Spec::STREAMED) {
-        // the first carry, the stream of ND + 2 at the window of ND + 1,
-        // and the stream's row ND + 1 into staged slot 0 (no model rows,
-        // no column logs: the stream holds the emissions)
-        em_rd[l] = shifted(eb + (ND + 2) * leaf, l, wg[ND + 1] - wg[ND + 2],
-                           W);
+        // the first carry, the stream of ND + 2 at the window of ND + 1
+        // (with exp_carry its gap-Y leaf too: the same value), and the
+        // stream's row ND + 1 into staged slot 0 (no model rows, no column
+        // logs: the stream holds the emissions)
+        const float e2 = shifted(eb + (ND + 2) * leaf, l,
+                                 wg[ND + 1] - wg[ND + 2], W);
+        em_rd[l] = e2;
+        if constexpr (exp_carry<Spec, WITH_EXP>()) em_rd[NEM * W + l] = e2;
         ps[l] = eb[(ND + 1) * leaf + l];
     } else {
         const int x = wg[ND + 1] + l;
@@ -2582,7 +2627,7 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
                 // exp_carry: emissions(tt) at w3 + l, step d + 2's e1 (at
                 // w2) read across lanes
                 sel_target<Spec, exp_carry<Spec, WITH_EXP>()>(
-                    t, xb, yb, X, Y, C, R, tt, w3, fst + rs1 * S * W, w1,
+                    t, xb, yb, eb, X, Y, C, R, tt, w3, fst + rs1 * S * W, w1,
                     fst + rs2 * S * W, w2, cur, cut, total,
                     in_band(w3 + l, base[tt], width[tt]), true, em_t2, l, W,
                     acc, acc_s, rows, row_stride);
@@ -2637,20 +2682,21 @@ __global__ void sm3_bwd_tiled_sel(const float* __restrict__ scal,
         float* fs0 = fst + rs * S * W;
         const bool cut3 = seed[2] != 0.0f || seed[1] != 0.0f;
         sel_target<Spec, exp_carry<Spec, WITH_EXP>()>(
-            t, xb, yb, X, Y, C, R, 3, wg[3], fs1, wg[1], fs2, wg[2], cur,
+            t, xb, yb, eb, X, Y, C, R, 3, wg[3], fs1, wg[1], fs2, wg[2], cur,
             cut3, total, in_band(wg[3] + l, base[3], width[3]), true, em_t2,
             l, W, acc, acc_s, rows, row_stride);
 #pragma unroll
         for (int i = 0; i < S; ++i) fs0[i * W + l] = fin[i * fstate];
         __syncthreads();
         sel_target<Spec, exp_carry<Spec, WITH_EXP>()>(
-            t, xb, yb, X, Y, C, R, 2, wg[2], fs0, wg[0], fs1, wg[1], n2,
+            t, xb, yb, eb, X, Y, C, R, 2, wg[2], fs0, wg[0], fs1, wg[1], n2,
             seed[1] != 0.0f, total, in_band(wg[2] + l, base[2], width[2]),
             true, em_rd, l, W, acc, acc_s, rows, row_stride);
         __syncthreads();   // orders the accumulator columns of targets 2, 1
-        // target 1: no middle source, emissions(1) fresh (not a carry)
+        // target 1: no middle source, emissions(1) fresh (not a carry; a
+        // stream's row 1 at its own lane)
         sel_target<Spec, exp_carry<Spec, WITH_EXP>()>(
-            t, xb, yb, X, Y, C, R, 1, wg[1], nullptr, 0, fs0, wg[0], n1,
+            t, xb, yb, eb, X, Y, C, R, 1, wg[1], nullptr, 0, fs0, wg[0], n1,
             false, total, in_band(wg[1] + l, base[1], width[1]), false,
             nullptr, l, W, acc, acc_s, rows, row_stride);
         // the S*S table: the machine's lanes from their sums, the rest 0
@@ -2946,8 +2992,9 @@ const char* wavefront_error_string(int code) {
 
 // the streamed spec's backward entry points take the stream est after the
 // fwd plane; its posterior backward (K2 hdp) is the untiled select form
-// sm3_bwd_tiled_sel<Spec, false, false>, which reads est through aux, its
-// expectation backward (K3 hdp) sm3_bwd_kernel<Spec, true>
+// sm3_bwd_tiled_sel<Spec, false, false>, its expectation backward (K3 hdp)
+// the untiled expectation form sm3_bwd_tiled_sel<Spec, true, false>; both
+// read est through aux
 #define WAVEFRONT_BWD_STREAMED_ENTRY(NAME, SPEC)                            \
     int NAME(const void* scal, const void* win, const void* xf,              \
              const void* yf, const void* basef, const void* widthf,          \
@@ -2966,9 +3013,10 @@ const char* wavefront_error_string(int code) {
              const void* est, void* posts, void* totals, void* trans,        \
              void* acc, int G, int R, int W, int ND, int NDp, int X, int C,  \
              int Y, void* stream) {                                          \
-        return launch_bwd<SPEC, true>(                                       \
+        return launch_bwd_sel<SPEC, true, false>(                            \
             scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd, est,      \
-            posts, totals, trans, acc, G, R, W, ND, NDp, X, C, Y, stream);   \
+            posts, totals, trans, acc, G, R, W, ND, NDp, X, C, Y, 0,         \
+            stream);                                                         \
     }
 
 WAVEFRONT_FWD_SEL_ENTRY(wavefront_fwd, Strawman)

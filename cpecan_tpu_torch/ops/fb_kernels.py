@@ -69,13 +69,13 @@ K2 strawman, K2 vanilla, K2 sm4 and K2 hdp (the untiled posterior form
 ``sm3_bwd_tiled_sel<Spec, false, false>``; hdp's reads its stream ``est``),
 K1 strawman, K1 dna5, K1 vanilla, K1 sm4 and K1 hdp (the untiled
 forward ``sm3_fwd_tiled_sel<Spec, false>``; hdp's stages the rows of its
-stream), K3 dna5, K3 strawman, K3 sm4 and K3 vanilla (the untiled
-expectation form ``sm3_bwd_tiled_sel<Spec, true, false>``; strawman's and
-sm4's targets read their emissions from the carry) and K1/K2 echelon (the
-untiled forms ``sm3_fwd_tiled_sel<Echelon, false>`` and
-``sm3_bwd_tiled_sel<Echelon, false, false>``, each after the emission
-pre-pass ``echelon_emissions``, whose plane the wrapper allocates and
-drops after the launch); K3 hdp runs ``sm3_bwd_kernel<Hdp, true>``.
+stream), K3 dna5, K3 strawman, K3 sm4, K3 vanilla and K3 hdp (the
+untiled expectation form ``sm3_bwd_tiled_sel<Spec, true, false>``;
+strawman's, sm4's and hdp's targets read their emissions from the carry,
+hdp's stages the rows of its stream) and K1/K2 echelon (the untiled forms
+``sm3_fwd_tiled_sel<Echelon, false>`` and ``sm3_bwd_tiled_sel<Echelon,
+false, false>``, each after the emission pre-pass ``echelon_emissions``,
+whose plane the wrapper allocates and drops after the launch).
 Every CUDA kernel's launches
 are counted in ``KERNEL_LAUNCHES`` under its entry point's name
 (``wavefront_fwd``, ``wavefront_fwd_dna5``,
@@ -1382,10 +1382,10 @@ def wavefront_bwd_exp(scal, win, xf, yf, basef, widthf, seedf, raggedf, fwd,
     """Expectation backward -> (posts [G, ND+1, R, W], totals [G, R],
     trans [G, R, S*S], acc [G, NACC, R, X]) f32 (see
     ``backward_exp_plain``); a streamed spec reads its emissions from
-    ``est``.  Plain PyTorch for CPU tensors; the untiled
-    ``sm3_bwd_tiled_sel<spec, true, false>`` (dna5, strawman, sm4,
-    vanilla) or for hdp the CUDA kernel ``sm3_bwd_kernel<Hdp, true>`` for
-    CUDA tensors (replaces
+    ``est``.  Plain PyTorch for CPU tensors; for CUDA tensors the CUDA
+    kernel ``sm3_bwd_tiled_sel<spec, true, false>``, the untiled
+    expectation form (dna5, strawman, sm4, vanilla, and hdp, which reads
+    ``est`` there) (replaces
     cpecan_tpu/ops/pallas_fb.py:857/:900 _sm3_backward_kernel,
     with_exp=True; entry ``wavefront_bwd_exp`` + ``spec.SUFFIX``)."""
     _no_expectations(spec)

@@ -44,8 +44,12 @@
   ``Sm4Aligner.run(expectations=True)`` stages them, its trained-looking
   machine); K3 vanilla on phase 19's (the same 32 reads on the vendored
   template model with the skip bins of the stored JAX vanilla training,
-  ``load_vanilla_zymo``).  Each tree's K1 feeds its K3, and the fwd plane
-  and all four K3 outputs must equal the first tree's.
+  ``load_vanilla_zymo``); K3 hdp on phase 27's (the first 32 of the HDP
+  E-step's 128 reads, the same bench reads, group 32, ragged at both ends,
+  on ``synthetic.hdp_model()``; the model and the group's emission stream
+  built once and handed to every tree, as ``hdp_cases`` does).  Each
+  tree's K1 feeds its K3, and the fwd plane and all four K3 outputs must
+  equal the first tree's.
 
     python cpecan_tpu_torch/tools/tiled_times.py build/parent .
     python cpecan_tpu_torch/tools/tiled_times.py --path echelon build/parent .
@@ -96,6 +100,7 @@ HDP_CHUNK = 64
 DNA_CHUNK = 32
 PIPE_READS, PIPE_GROUP, PIPE_CHUNK, PIPE_COMPACT_K = 64, 32, 64, 2048
 EM_GROUP = 32
+HDP_E_READS = 128
 
 
 def load_tree(i, tree):
@@ -421,8 +426,8 @@ def fourstate_cases(fks, dev):
 
 def estep_cases(fks, dev):
     """The expectation backwards' cases (K3 strawman with both machines,
-    K3 sm4, K3 vanilla), as ``long_cases``: the inputs of
-    ``chip_smoke.py``'s phases 7, 22 and 19, staged by this tree's
+    K3 sm4, K3 vanilla, K3 hdp), as ``long_cases``: the inputs of
+    ``chip_smoke.py``'s phases 7, 22, 19 and 27, staged by this tree's
     aligners."""
     import numpy as np
 
@@ -433,9 +438,9 @@ def estep_cases(fks, dev):
     from cpecan_tpu_torch.models.hmm import ContinuousPairHmm
     from cpecan_tpu_torch.models.state_machines import (
         StateMachine3SignalStrawman, StateMachine3Vanilla, StateMachine4)
-    from cpecan_tpu_torch.ops.fb import (Sm4Aligner, StrawmanAligner,
-                                         VanillaAligner)
-    from cpecan_tpu_torch.synthetic import synthetic_batch
+    from cpecan_tpu_torch.ops.fb import (HdpAligner, Sm4Aligner,
+                                         StrawmanAligner, VanillaAligner)
+    from cpecan_tpu_torch.synthetic import hdp_model, synthetic_batch
 
     sm, reads = synthetic_batch(**POST_BATCH)
     n = EM_GROUP
@@ -465,18 +470,27 @@ def estep_cases(fks, dev):
     va = VanillaAligner(AlignmentParams(), device=dev, group=n)
     vprep = va.prepare(vsm, reads[:n], ragged_right=True,
                        scale_params=em_sp[:n])
+    # phase 27: bench.py's HDP machine, the HDP E-step's reads staged as
+    # one run stages them (the stream of its first group)
+    hsm = hdp_model()
+    ha = HdpAligner(AlignmentParams(), device=dev, group=n)
+    hprep = ha.prepare(hsm, reads[:HDP_E_READS], ragged_right=True)
     cases = (
         ("strawman", "untrained", sm, epa, full, "StrawmanSpec"),
         ("strawman", "trained", StateMachine3SignalStrawman(
             sm.model, params=tparams, gap_x_log_probs=tgap_x), epa, full,
          "StrawmanSpec"),
         ("fourState", "trained", sm4, s4a, s4prep, "Sm4Spec"),
-        ("vanilla", "trained", vsm, va, vprep, "VanillaSpec"))
+        ("vanilla", "trained", vsm, va, vprep, "VanillaSpec"),
+        ("hdp", "sampled", hsm, ha, hprep, "HdpSpec"))
     keys = ("xf", "yf", "basef", "widthf", "seedf", "raggedf")
     for label, mlabel, machine, aligner, prep, spec in cases:
         inp = aligner.device_inputs(machine, prep, ragged_left=True)
         ba = [inp["scal"], inp["win"][:1]] + [inp[k][:n] for k in keys]
         dims = dict(R=n, W=prep["W"], ND=prep["ND"], C=prep["C"])
+        if spec == "HdpSpec":
+            dims["est"] = aligner.emission_stream(machine, prep,
+                                                  inp)[:1].contiguous()
 
         def launches(fk, ba=ba, dims=dims, spec=spec):
             d = dict(dims, spec=getattr(fk, spec))
@@ -487,7 +501,7 @@ def estep_cases(fks, dev):
         yield ({"machine": label, "params": mlabel, "reads": n,
                 "ND": dims["ND"], "W": dims["W"]}, dims["ND"],
                [lambda fk=fk: launches(fk) for fk in fks])
-        del ba, inp
+        del ba, inp, dims
 
 
 PATHS = {"long": long_cases, "echelon": echelon_cases,

@@ -465,6 +465,46 @@ def test_cuda_k1_hdp_matches_plain_on_moving_windows_at_the_edge(
     assert (fwd[:, 1:] > -1e29).any()
 
 
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("W, ND, every", [
+    (32, 2, False), (32, 3, False), (32, 150, True), (128, 300, True),
+    (128, 257, False), (1024, 3, False), (1024, 5, False),
+    (1024, 140, True)])
+def test_cuda_k3_hdp_matches_plain_on_moving_windows_at_the_edge(
+        cuda, ragged, W, ND, every):
+    """K3 hdp (the streamed form of the untiled expectation backward
+    ``sm3_bwd_tiled_sel<Hdp, true, false>``: the stream's rows staged
+    ahead with the fwd entries, each target's match and gap-Y emission
+    est[t] read across lanes from the three-slot carry ring) against its
+    plain version where every band is its group's window (``edge``), so
+    that the edge lanes, where a target's carried read at lane l + w_t -
+    w_{t-1} falls outside [0, W), count, and the window drifts or
+    (``every``) shifts on nearly every diagonal: posteriors, totals and
+    the S x S table bit for bit, the gap-X column within
+    parity.KERNEL_GAPX_ATOL (``check_exp_kernel``), at W 32, 128 and 1024;
+    ND 2, 3 and 5 leave fewer diagonals than the ring's and the staged
+    slots.  Its posteriors and totals equal K2 hdp's."""
+    _, ba, dims = synthetic_case(cuda, fk.HdpSpec, W, ND, ragged,
+                                 [37, W, ND, int(ragged)], every=every,
+                                 edge=True)
+    fwd = fk.wavefront_fwd(*ba[:6], **dims)
+    assert torch.equal(fwd, fk.forward_plain(*ba[:6], **dims))
+    fk.reset_counts()
+    got = fk.wavefront_bwd_exp(*ba, fwd, **dims)
+    torch.cuda.synchronize()
+    assert fk.KERNEL_LAUNCHES == {"wavefront_bwd_exp_hdp": 1}
+    assert fk.backward_exp_plain.calls == 0
+    check_exp_kernel(got, fk.backward_exp_plain(*ba, fwd, **dims))
+    lanes = list(fk.HdpSpec.EXP_LANES.values())
+    idle = [k for k in range(9) if k not in lanes]
+    assert torch.all(got[2][..., idle] == 0.0)
+    assert torch.isfinite(got[1]).all()
+    assert ((got[2][..., lanes] > 0.0).any() and (got[3] > 0.0).any()
+            or ND == 2)
+    kposts, ktotals = fk.wavefront_bwd(*ba, fwd, **dims)
+    assert torch.equal(got[0], kposts) and torch.equal(got[1], ktotals)
+
+
 def _check_signal_pair(spec, fa, ba, dims, ND):
     """K1 and K2 of ``spec`` launched once each on the card, then their
     fwd plane, posteriors and totals against the plain versions', bit for

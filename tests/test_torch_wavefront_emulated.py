@@ -31,7 +31,12 @@ bit for bit, and against the plain PyTorch versions within
   strawman's and sm4's targets' emissions from the carry ring) against
   ``sm3_bwd_kernel<Strawman, 1>``, ``sm3_bwd_kernel<Sm4, 1>`` and
   ``sm3_bwd_kernel<Vanilla, 1>``: posteriors, totals, the S x S table and
-  the accumulator columns, on bands that cover the windows' edges too.
+  the accumulator columns, on bands that cover the windows' edges too;
+- ``sm3_bwd_tiled_sel<Hdp, 1, 0>`` (K3 hdp, entry
+  ``wavefront_bwd_exp_hdp``: the expectation form's streamed form, the
+  stream's rows staged ahead and carried through the same ring) against
+  ``sm3_bwd_kernel<Hdp, 1>``, the same outputs, on bands that cover the
+  windows' edges too.
 
 The old forms stay in the source for the instances that still run them;
 this translation unit instantiates them for the redesigned specs itself
@@ -163,6 +168,16 @@ int emu_old_wavefront_bwd_exp_vanilla(
                                      totals, trans, acc, G, R, W, ND, NDp, X,
                                      C, Y, stream);
 }
+int emu_old_wavefront_bwd_exp_hdp(
+        const void* scal, const void* win, const void* xf, const void* yf,
+        const void* basef, const void* widthf, const void* seedf,
+        const void* raggedf, const void* fwd, const void* est, void* posts,
+        void* totals, void* trans, void* acc, int G, int R, int W, int ND,
+        int NDp, int X, int C, int Y, void* stream) {
+    return launch_bwd<Hdp, true>(scal, win, xf, yf, basef, widthf, seedf,
+                                 raggedf, fwd, est, posts, totals, trans,
+                                 acc, G, R, W, ND, NDp, X, C, Y, stream);
+}
 }
 """
 
@@ -270,7 +285,8 @@ def lib():
                             "wavefront_fwd_hdp", "wavefront_bwd_sm4",
                             "wavefront_bwd_hdp", "wavefront_bwd_exp",
                             "wavefront_bwd_exp_sm4",
-                            "wavefront_bwd_exp_vanilla")})
+                            "wavefront_bwd_exp_vanilla",
+                            "wavefront_bwd_exp_hdp")})
     for name, argtypes in names.items():
         getattr(handle, name).argtypes = argtypes
         getattr(handle, name).restype = ctypes.c_int
@@ -451,6 +467,36 @@ def test_k2_hdp_select_form_equals_the_old_kernel(lib, W, ND, every, ragged,
     _check_k2(lib, fk.HdpSpec, 19, W, ND, every, ragged, edge)
 
 
+def _check_k3(lib, spec, seed, W, ND, every, ragged, edge):
+    """The untiled expectation form of ``spec`` (entry
+    ``wavefront_bwd_exp`` + its suffix) against its old kernel
+    (``emu_old_`` + that entry) bit for bit on the same fwd plane (that of
+    the spec's K1 entry): posteriors, totals, the S x S table and the
+    accumulator columns; and against the plain version within
+    ``EMULATED_POST_ATOL`` and ``EMULATED_RTOL``, on ``synthetic_case`` at
+    ``seed``."""
+    _, ba, dims = synthetic_case("cpu", spec, W, ND, ragged,
+                                 [seed, W, ND, int(ragged)], every=every,
+                                 edge=edge)
+    fwd = _fwd(lib, "wavefront_fwd" + spec.SUFFIX, ba[:6], dims)
+    entry = "wavefront_bwd_exp" + spec.SUFFIX
+    new = _bwd_exp(lib, entry, ba, fwd, dims)
+    old = _bwd_exp(lib, "emu_old_" + entry, ba, fwd, dims)
+    for got, want in zip(new, old):
+        assert torch.equal(got, want)
+    posts, totals, trans, acc = new
+    pposts, ptotals, ptrans, pacc = fk.backward_exp_plain(*ba, fwd, **dims)
+    _close(posts, pposts, 0.0, EMULATED_POST_ATOL)
+    _close(totals, ptotals, EMULATED_RTOL)
+    _close(trans, ptrans, EMULATED_RTOL, EMULATED_POST_ATOL)
+    _close(acc, pacc, EMULATED_RTOL, EMULATED_POST_ATOL)
+    lanes = list(spec.EXP_LANES.values())
+    assert torch.all(trans[..., [k for k in range(spec.S ** 2)
+                                 if k not in lanes]] == 0.0)
+    assert ((trans[..., lanes] > 0.0).any() or not lanes) and (
+        acc > 0.0).any() or ND == 2
+
+
 @pytest.mark.parametrize("ragged, edge", [(False, False), (True, True)],
                          ids=["inner", "ragged-edge"])
 @pytest.mark.parametrize("W, ND, every", CASES)
@@ -476,23 +522,23 @@ def test_k3_strawman_and_sm4_select_forms_equal_the_old_kernels(
     bands cover the windows' edge lanes, where that read falls outside [0,
     W), else they lie inside the windows; each read's band ends at its
     seed diagonal, whose cut the targets above it take."""
-    _, ba, dims = synthetic_case("cpu", spec, W, ND, ragged,
-                                 [seed, W, ND, int(ragged)], every=every,
-                                 edge=edge)
-    fwd = _fwd(lib, "wavefront_fwd" + spec.SUFFIX, ba[:6], dims)
-    entry = "wavefront_bwd_exp" + spec.SUFFIX
-    new = _bwd_exp(lib, entry, ba, fwd, dims)
-    old = _bwd_exp(lib, "emu_old_" + entry, ba, fwd, dims)
-    for got, want in zip(new, old):
-        assert torch.equal(got, want)
-    posts, totals, trans, acc = new
-    pposts, ptotals, ptrans, pacc = fk.backward_exp_plain(*ba, fwd, **dims)
-    _close(posts, pposts, 0.0, EMULATED_POST_ATOL)
-    _close(totals, ptotals, EMULATED_RTOL)
-    _close(trans, ptrans, EMULATED_RTOL, EMULATED_POST_ATOL)
-    _close(acc, pacc, EMULATED_RTOL, EMULATED_POST_ATOL)
-    lanes = list(spec.EXP_LANES.values())
-    assert torch.all(trans[..., [k for k in range(spec.S ** 2)
-                                 if k not in lanes]] == 0.0)
-    assert ((trans[..., lanes] > 0.0).any() or not lanes) and (
-        acc > 0.0).any() or ND == 2
+    _check_k3(lib, spec, seed, W, ND, every, ragged, edge)
+
+
+@pytest.mark.parametrize("ragged, edge", [(False, False), (True, True)],
+                         ids=["inner", "ragged-edge"])
+@pytest.mark.parametrize("W, ND, every", CASES)
+def test_k3_hdp_select_form_equals_the_old_kernel(lib, W, ND, every, ragged,
+                                                  edge):
+    """K3 hdp's ``sm3_bwd_tiled_sel<Hdp, 1, 0>`` (the untiled expectation
+    form's streamed form: the stream's rows staged X_AHEAD diagonals ahead
+    with the fwd entries, est[d + 1] read across lanes and carried through
+    the three-slot em ring, so that target d + 3 reads est[d + 3] at lane l
+    + w_{d+3} - w_{d+2} of step d + 2's slot; the gap-X row alone; the
+    transition sums in the shared slab) gives ``sm3_bwd_kernel<Hdp, 1>``'s
+    posteriors, totals, S x S table and accumulator column bit for bit on
+    the same fwd plane, and the plain version's within
+    ``EMULATED_POST_ATOL`` and ``EMULATED_RTOL``.  With ``edge`` the bands
+    cover the windows' edge lanes, where a target's carried read, at lane
+    l + w_{tt} - w_{tt-1}, falls outside [0, W) and gives CPECAN_NEG."""
+    _check_k3(lib, fk.HdpSpec, 59, W, ND, every, ragged, edge)
