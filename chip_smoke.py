@@ -58,10 +58,13 @@ machine and the HDP machine through them:
    shifts, posteriors and totals bit for bit, equal pairs, and the
    kernels' and plain versions' ms on it;
 13. the dna5 kernels K1 and K2 (sm3_fwd_tiled_sel<Dna5, 0>,
-   sm3_bwd_tiled_sel<Dna5, 0, 0>) against their plain versions on the first
-   32 pairs of bench.py's realign batch (64 x 2 kb, random.Random(11);
+   sm3_bwd_tiled_sel<Dna5, 0, 0>) against their plain versions on 32 pairs
+   of bench.py's realign construction cut to 500 bases (random.Random(11);
    group 32, ragged at both ends): fwd planes, posteriors and totals equal
-   bit for bit, equal pair sets; K6a/K6b dna5 on the same pairs with
+   bit for bit, equal pair sets, the kernels' ms there (the check_ keys
+   of the kernels line; its plain_ms); the kernels timed on the first 32
+   pairs of bench.py's realign batch (64 x 2 kb; the ms and bound_ms
+   keys, as before the cut); K6a/K6b dna5 on those pairs with
    tile_diag=128 (32 tiles), their distance from the untiled run logged
    (it is the untiled f32 drift; phase 16 and the gpu tests hold K6a/K6b
    dna5 to their plain versions); the golden AGCG x AGTTCG pairs at
@@ -190,7 +193,20 @@ machine and the HDP machine through them:
    launch counts and a stage split (prepare, inputs, stream, fwd, bwd,
    compact, and the extraction of each chunk); the HDP E-step on bench.py's
    signal-EM shape (128 reads, group 32, ragged), median of 3 after a
-   warm-up.
+   warm-up;
+29. the MSA layer: bench.py's msa_pairwise_alignments_per_sec
+   (``msa.multiple_aligner.make_alignment`` on its 32 x 1 kb fragments,
+   random.Random(17), two spanning trees, the native greedy column build,
+   match_gamma 0.2, random.Random(5), with
+   ``msa.gpu.gpu_batch_align_fn`` on Dna5Aligner(group=32): chunks of 16
+   jobs, lastz anchoring, K1/K2 dna5), jobs/s over both rounds (median of
+   3 after a warm-up), the launch counts, the native library's path, a
+   stage split (anchoring, the aligner's steps, extraction, reweighting,
+   the column builds), whose stage hook keeps the last chunk's K1/K2 dna5
+   inputs and outputs (fwd plane, posteriors, totals): held to the plain
+   passes on them, bit for bit, with their ms, plain ms and bounds (of
+   the chunk's real rows, and of all 32 rows of its group); its 15 jobs
+   batched against one at a time.
 
 The stage splits run the path's own code (``WavefrontAligner.run``,
 ``cli.realign.main``, ``pipeline.em.calculate_expectations_pallas`` and
@@ -275,6 +291,7 @@ FLOPS_PER_CELL = dict(fwd=240, bwd=245, bwd_exp=321, dna5_fwd=339,
                       echelon_bwd=528, echelon_emissions=212, hdp_fwd=207,
                       hdp_bwd=212, hdp_bwd_exp=288)
 DNA_GROUP = 32       # phases 13-15: bench.py's realign chunk and group
+DNA_CHECK_LENGTH = 500   # phase 13: the realign pairs held to plain (ND 1,000)
 DNA_COMPACT_K = 4096
 DNA_LONG = 100_000   # phase 16: bench.py's long_read_bases_per_sec pair
 DNA_LONG_COMPACT_K = 2048
@@ -298,6 +315,7 @@ ECH_PIPE_READS = 32
 ECH_PIPE_THRESHOLD = 0.15
 HDP_GROUP = HDP_CHUNK = 64   # phases 27-28: bench.py's HDP cell (bench_hdp)
 HDP_COMPACT_K = 2048
+MSA_GROUP = 32       # phase 29: bench.py's MSA cell (its aligner's group)
 GOLDEN = {(0, 0), (1, 1), (2, 4), (3, 5)}
 # the kernels redesigned for the H100 (every select instance) whose ptxas
 # report phase 2 holds to 64 registers and no spill
@@ -416,6 +434,175 @@ def bound(tensors, cells, flops_per_cell):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = cells * flops_per_cell / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def msa_phase(dev, ms, bounds):
+    """Phase 29: bench.py's msa_pairwise_alignments_per_sec on the card
+    (``bench_msa``: 32 x 1 kb fragments, two spanning trees, greedy).
+    Adds the K1/K2 dna5 times and bounds of the last chunk of a staged
+    run to ``ms`` and ``bounds`` ("msa_dna5_fwd", "msa_dna5_bwd"); returns
+    the launches of the path's warm-up and 3 timed runs, its passes and
+    what they ran."""
+    import numpy as np
+
+    from cpecan_tpu_torch.align import AlignmentParams
+    from cpecan_tpu_torch.msa.gpu import CHUNK, gpu_batch_align_fn
+    from cpecan_tpu_torch.msa.multiple_aligner import (_get_poset_lib,
+                                                       make_alignment)
+    from cpecan_tpu_torch.native import load_library
+    from cpecan_tpu_torch.ops import fb_kernels as fk
+    from cpecan_tpu_torch.ops.fb import Dna5Aligner
+    from cpecan_tpu_torch.synthetic import msa_frags
+
+    # the measured rate is the native column build's, as bench.py's is
+    lib, what = load_library("msa_columns")
+    if _get_poset_lib() is None or not hasattr(lib, "msa_greedy"):
+        raise AssertionError(f"native msa_columns did not build: {what}")
+    frags = msa_frags()
+    aligner = Dna5Aligner(AlignmentParams(), device=dev, group=MSA_GROUP)
+
+    def run(stage=None):
+        """One make_alignment: (its result, each round's jobs and pair
+        lists)."""
+        inner = gpu_batch_align_fn(aligner=aligner, stage=stage)
+        rounds = []
+
+        def bfn(jobs):
+            res = inner(jobs)
+            rounds.append((list(jobs), res))
+            return res
+
+        mA = make_alignment(None, frags, spanning_trees=2,
+                            max_pairs_to_consider=10000,
+                            use_progressive_merging=False, match_gamma=0.2,
+                            rng=random.Random(5), batch_align_fn=bfn,
+                            stage=stage)
+        torch.cuda.synchronize()
+        return mA, rounds
+
+    fk.reset_counts()
+    mA, rounds = run()                # the warm-up
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again, _ = run()
+        times.append(time.perf_counter() - t0)
+        if (again.aligned_pairs != mA.aligned_pairs
+                or again.chosen_pairwise_alignments
+                != mA.chosen_pairwise_alignments):
+            raise AssertionError("an MSA run differs from the warm-up's")
+    counts = dict(fk.KERNEL_LAUNCHES)
+    jobs = [j for r_jobs, _ in rounds for j in r_jobs]
+    # bench.py's fragments are ragged at both ends in every job: one run
+    # per chunk of 16 jobs of a round
+    if not all(rl and rr for _x, _y, rl, rr in jobs):
+        raise AssertionError("an MSA job is not ragged at both ends")
+    runs = sum(-(-len(r_jobs) // CHUNK) for r_jobs, _ in rounds)
+    if (counts != {"wavefront_fwd_dna5": 4 * runs,
+                   "wavefront_bwd_dna5": 4 * runs}
+            or fk.forward_plain.calls or fk.backward_plain.calls):
+        raise AssertionError(f"MSA path launches {counts} ({runs} runs a "
+                             "pass)")
+    # what comes out: pairs kept, each column at most one position of a
+    # fragment, every kept pair inside one column
+    if not mA.aligned_pairs or len(rounds) != 2:
+        raise AssertionError("the MSA kept no aligned pair")
+    for members in mA.columns.members.values():
+        if len({s for s, _p in members}) != len(members):
+            raise AssertionError("an MSA column holds two positions of one "
+                                 "fragment")
+    for _sc, s1, p1, s2, p2 in mA.aligned_pairs:
+        if mA.columns.find((s1, p1)) != mA.columns.find((s2, p2)):
+            raise AssertionError("a kept pair spans two columns")
+    rate = len(jobs) / statistics.median(times)
+    n_cols = len(mA.columns.members)
+
+    # where one run spends its time: the path's own steps; the stage hook
+    # keeps each step's last result, the last chunk's inputs and outputs
+    st = Stages()
+    _, st_rounds = run(stage=st)
+    stage_line = st.line()
+    prep, inp = st.out["prepare"], st.out["inputs"]
+    fwd_k = st.out["fwd"]
+    posts_k, tot_k = st.out["bwd"]
+    dims = dict(R=prep["R"], W=prep["W"], ND=prep["ND"], C=prep["C"],
+                spec=fk.Dna5Spec)
+    fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
+    ba = fa + [inp["seedf"], inp["raggedf"]]
+    fwd_p, ms["msa_dna5_fwd_plain"] = timed(
+        lambda: fk.forward_plain(*fa, **dims))
+    (posts_p, tot_p), ms["msa_dna5_bwd_plain"] = timed(
+        lambda: fk.backward_plain(*ba, fwd_k, **dims))
+    for what_, got, want in (("K1 dna5 fwd plane", fwd_k, fwd_p),
+                             ("K2 dna5 posteriors", posts_k, posts_p),
+                             ("K2 dna5 totals", tot_k, tot_p)):
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"MSA chunk {what_} differs from the plain version by "
+                f"{float((got - want).abs().max())}")
+    del fwd_p, posts_p
+    ms.update(
+        msa_dna5_fwd=cuda_ms(lambda: fk.wavefront_fwd(*fa, **dims), 5),
+        msa_dna5_bwd=cuda_ms(lambda: fk.wavefront_bwd(*ba, fwd_k, **dims),
+                             5))
+    cells = sum(int(b.width.sum()) for b in prep["bands"])
+    n_chunk = len(prep["bands"])
+    if len(prep["win"]) != 1:
+        raise AssertionError(f"the MSA chunk runs in {len(prep['win'])} "
+                             "groups")
+    bounds.update(
+        msa_dna5_fwd_padded=bound(fa + [fwd_k], cells,
+                                  FLOPS_PER_CELL["dna5_fwd"]),
+        msa_dna5_bwd_padded=bound(ba + posterior_fwd(fwd_k, ba[6],
+                                                     dims["R"])
+                                  + [posts_k, tot_k], cells,
+                                  FLOPS_PER_CELL["dna5_bwd"]))
+    # the bound of the real work: the chunk's rows of its group (G 1; the
+    # other R - n_chunk rows are padding) of the per-row inputs (axis 0),
+    # the planes (R axis -2) and the totals (axis 1), as in phase 16
+    rfa = fa[:2] + [t[:n_chunk] for t in fa[2:]]
+    rba = rfa + [t[:n_chunk] for t in ba[len(fa):]]
+    rfwd = fwd_k[..., :n_chunk, :]
+    bounds.update(
+        msa_dna5_fwd=bound(rfa + [rfwd], cells, FLOPS_PER_CELL["dna5_fwd"]),
+        msa_dna5_bwd=bound(rba + posterior_fwd(rfwd, rba[6], dims["R"])
+                           + [posts_k[..., :n_chunk, :],
+                              tot_k[:, :n_chunk]], cells,
+                           FLOPS_PER_CELL["dna5_bwd"]))
+    del st, fwd_k, posts_k, inp
+    # the chunk's jobs one at a time give the pairs they gave batched
+    r_jobs, r_res = st_rounds[-1]
+    c0 = (len(r_jobs) - 1) // CHUNK * CHUNK
+    chunk_jobs, chunk_res = r_jobs[c0:], r_res[c0:]
+    single = gpu_batch_align_fn(aligner=aligner)
+    singles = [single([job])[0] for job in chunk_jobs]
+    if singles != chunk_res or n_chunk != len(chunk_jobs):
+        raise AssertionError("MSA chunk: batched pairs differ from one job "
+                             "at a time")
+
+    log(f"msa: native greedy column build {what}")
+    log(f"msa_pairwise_alignments_per_sec {rate:.1f} jobs/s ({len(jobs)} "
+        f"jobs over 2 rounds of {[len(r) for r, _ in rounds]}, "
+        f"{len(frags)} x {len(frags[0].seq)} bases, chunks of {CHUNK}, "
+        f"group {MSA_GROUP}, {runs} runs a pass, greedy columns; median "
+        f"of {[round(t, 4) for t in times]} s after a warm-up); "
+        f"{len(mA.aligned_pairs)} aligned pairs kept in {n_cols} columns; "
+        f"launches over the warm-up and 3 timed passes {counts}; "
+        f"{smi_line()}")
+    log("msa stages (s, share): " + stage_line)
+    log(f"msa last chunk vs plain ({n_chunk} jobs, R={dims['R']}, "
+        f"W={dims['W']}, ND={dims['ND']}, ragged at both ends): K1/K2 dna5 "
+        f"fwd plane, posts, totals equal bit for bit, batched == one at a "
+        f"time; ms fwd {ms['msa_dna5_fwd']:.3f} vs plain "
+        f"{ms['msa_dna5_fwd_plain']:.1f}, bwd {ms['msa_dna5_bwd']:.3f} vs "
+        f"plain {ms['msa_dna5_bwd_plain']:.1f}; bounds "
+        + ", ".join(f"{k} {bounds[k][0]:.4f} ({bounds[k][1]}; "
+                    f"{bounds[k + '_padded'][0]:.4f} counting all "
+                    f"{dims['R']} rows)"
+                    for k in ("msa_dna5_fwd", "msa_dna5_bwd")))
+    return dict(counts=counts, passes=4, rate=rate,
+                path="msa.gpu.gpu_batch_align_fn in make_alignment "
+                     "(phase 29)")
 
 
 def posterior_fwd(fwd, seedf, R):
@@ -1052,41 +1239,72 @@ def main():
     del cout, cfwd, pfwd, cposts, pposts
     torch.cuda.synchronize()
 
-    # -- 13. the dna5 kernels vs plain on the first 32 realign pairs ------
+    # -- 13. the dna5 kernels vs plain on 32 cut realign pairs -------------
     clock.start(13)
     # K1 dna5 (the untiled select forward, sm3_fwd_tiled_sel<Dna5, 0>) and
     # K2 dna5 (the untiled select posterior form, sm3_bwd_tiled_sel<Dna5,
-    # 0, 0>), bit for bit
+    # 0, 0>), bit for bit on a chunk of bench.py's realign pairs cut to
+    # DNA_CHECK_LENGTH bases (ND 1,000; phase 29 holds them on the MSA
+    # path's ND 2,001 chunk), and timed there ("dna5_fwd_check") and on
+    # the realign chunk itself ("dna5_fwd", as before the cut)
     dreads = dna_realign_batch()
     dsm = StateMachine5()
     da = Dna5Aligner(AlignmentParams(), device=dev, group=DNA_GROUP)
-    dprep = da.prepare(dsm, dreads[:DNA_GROUP], ragged_right=True)
-    dinp = da.device_inputs(dsm, dprep, ragged_left=True)
-    ddims = dict(R=dprep["R"], W=dprep["W"], ND=dprep["ND"], C=dprep["C"],
-                 spec=fk.Dna5Spec)
-    dfa = [dinp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
-    dba = dfa + [dinp["seedf"], dinp["raggedf"]]
-    dfwd_k = fk.wavefront_fwd(*dfa, **ddims)
-    dfwd_p, ms["dna5_fwd_plain"] = timed(
-        lambda: fk.forward_plain(*dfa, **ddims))
-    dposts_k, dtot_k = fk.wavefront_bwd(*dba, dfwd_k, **ddims)
-    (dposts_p, dtot_p), ms["dna5_bwd_plain"] = timed(
-        lambda: fk.backward_plain(*dba, dfwd_k, **ddims))
-    for what, got, want in (("K1 dna5 fwd plane", dfwd_k, dfwd_p),
-                            ("K2 dna5 posteriors", dposts_k, dposts_p),
-                            ("K2 dna5 totals", dtot_k, dtot_p)):
+
+    def dna5_chunk(reads):
+        """(prepare, dims, fwd args, bwd args) of one ragged chunk."""
+        prep = da.prepare(dsm, reads, ragged_right=True)
+        inp = da.device_inputs(dsm, prep, ragged_left=True)
+        dims = dict(R=prep["R"], W=prep["W"], ND=prep["ND"], C=prep["C"],
+                    spec=fk.Dna5Spec)
+        fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef",
+                               "widthf")]
+        return prep, dims, fa, fa + [inp["seedf"], inp["raggedf"]]
+
+    qreads = dna_realign_batch(n_pairs=DNA_GROUP, length=DNA_CHECK_LENGTH)
+    qprep, qdims, qfa, qba = dna5_chunk(qreads)
+    qfwd_k = fk.wavefront_fwd(*qfa, **qdims)
+    qfwd_p, ms["dna5_fwd_plain"] = timed(
+        lambda: fk.forward_plain(*qfa, **qdims))
+    qposts_k, qtot_k = fk.wavefront_bwd(*qba, qfwd_k, **qdims)
+    (qposts_p, qtot_p), ms["dna5_bwd_plain"] = timed(
+        lambda: fk.backward_plain(*qba, qfwd_k, **qdims))
+    for what, got, want in (("K1 dna5 fwd plane", qfwd_k, qfwd_p),
+                            ("K2 dna5 posteriors", qposts_k, qposts_p),
+                            ("K2 dna5 totals", qtot_k, qtot_p)):
         same(what, got, want)
-    del dfwd_p
-    dnds = [b.n_diag for b in dprep["bands"]]
-    drels = list(range(len(dnds)))
-    dparts = [extract_pairs_chunk(
-        dict(prep=dprep, posteriors=p, compact=compact_posteriors(
-            p, min(DNA_COMPACT_K, ddims["ND"] * ddims["W"]))), drels, dnds,
-        thr) for p in (dposts_k, dposts_p)]
-    for i, (a, b) in enumerate(zip(*dparts)):
-        if not np.array_equal(a, b) or len(a) < dreads[i][2]:
+    del qfwd_p
+    qnds = [b.n_diag for b in qprep["bands"]]
+    qparts = [extract_pairs_chunk(
+        dict(prep=qprep, posteriors=p, compact=compact_posteriors(
+            p, min(DNA_COMPACT_K, qdims["ND"] * qdims["W"]))),
+        list(range(len(qnds))), qnds, thr) for p in (qposts_k, qposts_p)]
+    for i, (a, b) in enumerate(zip(*qparts)):
+        if not np.array_equal(a, b) or len(a) < qreads[i][2]:
             raise AssertionError(f"dna5 pairs of pair {i}: kernel and plain "
                                  "planes give different pairs")
+    del qposts_p
+    ms.update(
+        dna5_fwd_check=cuda_ms(lambda: fk.wavefront_fwd(*qfa, **qdims), 5),
+        dna5_bwd_check=cuda_ms(lambda: fk.wavefront_bwd(*qba, qfwd_k,
+                                                        **qdims), 5))
+    qcells = sum(int(b.width.sum()) for b in qprep["bands"])
+    # 32 pairs in a group of 32 (here and below): no padded rows
+    bounds.update(
+        dna5_fwd_check=bound(qfa + [qfwd_k], qcells,
+                             FLOPS_PER_CELL["dna5_fwd"]),
+        dna5_bwd_check=bound(qba + posterior_fwd(qfwd_k, qba[6], qdims["R"])
+                             + [qposts_k, qtot_k], qcells,
+                             FLOPS_PER_CELL["dna5_bwd"]))
+    dna_check_nd = qdims["ND"]
+    del qfwd_k, qposts_k, qfa, qba
+    # the realign chunk (the main path's shapes, phase 15): the kernels
+    # timed, no plain pass
+    dprep, ddims, dfa, dba = dna5_chunk(dreads[:DNA_GROUP])
+    dfwd_k = fk.wavefront_fwd(*dfa, **ddims)
+    dposts_k, dtot_k = fk.wavefront_bwd(*dba, dfwd_k, **ddims)
+    if not torch.isfinite(dtot_k).all():
+        raise AssertionError("dna5 realign chunk: totals not finite")
     ms.update(
         dna5_fwd=cuda_ms(lambda: fk.wavefront_fwd(*dfa, **ddims), 5),
         dna5_bwd=cuda_ms(lambda: fk.wavefront_bwd(*dba, dfwd_k, **ddims),
@@ -1129,11 +1347,18 @@ def main():
         gold, 0, gold["prep"]["bands"][0].n_diag, 0.2)}
     if gpairs != GOLDEN:
         raise AssertionError(f"golden AGCG x AGTTCG pairs {gpairs}")
-    log(f"dna5 kernels vs plain ({DNA_GROUP} realign pairs, ragged, "
-        f"ND={ddims['ND']}, W={ddims['W']}): K1/K2 fwd plane, posts, "
-        f"totals equal bit for bit, {sum(map(len, dparts[0]))} pairs equal; "
-        f"ms fwd {ms['dna5_fwd']:.3f} vs plain {ms['dna5_fwd_plain']:.1f}, "
-        f"bwd {ms['dna5_bwd']:.3f} vs plain {ms['dna5_bwd_plain']:.1f} "
+    log(f"dna5 kernels vs plain ({DNA_GROUP} realign pairs cut to "
+        f"{DNA_CHECK_LENGTH} bases, ragged, ND={qdims['ND']}, "
+        f"W={qdims['W']}): K1/K2 fwd plane, posts, totals equal bit for "
+        f"bit, {sum(map(len, qparts[0]))} pairs equal; ms fwd "
+        f"{ms['dna5_fwd_check']:.3f} vs plain {ms['dna5_fwd_plain']:.1f}, "
+        f"bwd {ms['dna5_bwd_check']:.3f} vs plain "
+        f"{ms['dna5_bwd_plain']:.1f} (bounds "
+        f"{bounds['dna5_fwd_check'][0]:.4f} / "
+        f"{bounds['dna5_bwd_check'][0]:.4f} ms); the realign chunk "
+        f"({DNA_GROUP} pairs of {dreads[0][2]} bases, ND={ddims['ND']}, "
+        f"W={ddims['W']}): fwd {ms['dna5_fwd']:.3f}, bwd "
+        f"{ms['dna5_bwd']:.3f} ms "
         f"({ms['dna5_fwd'] * 1e6 / ddims['ND']:.1f} / "
         f"{ms['dna5_bwd'] * 1e6 / ddims['ND']:.1f} ns a diagonal; bounds "
         f"{bounds['dna5_fwd'][0]:.4f} / {bounds['dna5_bwd'][0]:.4f} ms); "
@@ -2839,7 +3064,31 @@ def main():
     del hst
     torch.cuda.synchronize()
 
+    # -- 29. the MSA layer: msa_pairwise_alignments_per_sec ----------------
+    clock.start(29)
+    msa = msa_phase(dev, ms, bounds)
+    torch.cuda.synchronize()
+
     src = "cpecan_tpu_torch/csrc/wavefront.cu"
+
+    def check_entry(key):
+        # K1/K2 dna5 on phase 13's cut pairs, where plain_ms was taken
+        return dict(check_nd=dna_check_nd, check_ms=ms[key + "_check"],
+                    check_bound_ms=bounds[key + "_check"][0])
+
+    def msa_entry(key, name):
+        # K1/K2 dna5 on the MSA path: its launches over its passes, and
+        # the kernels on its last chunk (the bound of its real rows, and
+        # of all rows of its group)
+        return dict(msa_path=msa["path"], msa_launches=msa["counts"][name],
+                    msa_passes=msa["passes"],
+                    msa_launches_per_pass=msa["counts"][name]
+                    / msa["passes"], msa_max_abs_err=0.0,
+                    msa_ms=ms["msa_" + key],
+                    msa_plain_ms=ms["msa_" + key + "_plain"],
+                    msa_bound_ms=bounds["msa_" + key][0],
+                    msa_bound_by=bounds["msa_" + key][1],
+                    msa_bound_ms_padded=bounds["msa_" + key + "_padded"][0])
 
     def entry(name, replaces, launches, passes, err, key, bkey, main=None):
         # launches counted over ``passes`` passes of the main path
@@ -2891,18 +3140,23 @@ def main():
         entry("wavefront_bwd_tiled", "cpecan_tpu/ops/pallas_fb.py:2332",
               long_launches["wavefront_bwd_tiled"], 4, exact, "bwd_long",
               "bwd_long", main="bwd_long_main"),
-        # phase 13 holds K1/K2 dna5 bit for bit, phase 16's check pair
+        # phase 13 holds K1/K2 dna5 bit for bit on its cut pairs (their
+        # plain ms there, beside the check_ keys; ms and bound on the
+        # realign chunk), phase 16's check pair
         # K6a/K6b dna5 (their ms, plain ms and bound are on that pair;
         # main_ms, main_bound_ms and main_bound_ms_padded on the 100 kb
-        # pair)
-        entry("wavefront_fwd_dna5",
-              "cpecan_tpu/ops/pallas_fb.py:635 (_Dna5Spec :340)",
-              dna_counts["wavefront_fwd_dna5"], 4, exact, "dna5_fwd",
-              "dna5_fwd"),
-        entry("wavefront_bwd_dna5",
-              "cpecan_tpu/ops/pallas_fb.py:857 (_Dna5Spec :340)",
-              dna_counts["wavefront_bwd_dna5"], 4, exact, "dna5_bwd",
-              "dna5_bwd"),
+        # pair); phase 29 K1/K2 dna5 on the MSA path's last chunk (the
+        # msa_ keys)
+        dict(entry("wavefront_fwd_dna5",
+                   "cpecan_tpu/ops/pallas_fb.py:635 (_Dna5Spec :340)",
+                   dna_counts["wavefront_fwd_dna5"], 4, exact, "dna5_fwd",
+                   "dna5_fwd"), **check_entry("dna5_fwd"),
+             **msa_entry("dna5_fwd", "wavefront_fwd_dna5")),
+        dict(entry("wavefront_bwd_dna5",
+                   "cpecan_tpu/ops/pallas_fb.py:857 (_Dna5Spec :340)",
+                   dna_counts["wavefront_bwd_dna5"], 4, exact, "dna5_bwd",
+                   "dna5_bwd"), **check_entry("dna5_bwd"),
+             **msa_entry("dna5_bwd", "wavefront_bwd_dna5")),
         entry("wavefront_fwd_tiled_dna5",
               "cpecan_tpu/ops/pallas_fb.py:2304 (_Dna5Spec :340)",
               big_counts["wavefront_fwd_tiled_dna5"], 4, derr,

@@ -1,15 +1,18 @@
 """Host-side native code of the port: the posterior-tsv block formatter
-(``tsv_format.cc``, a copy of ``cpecan_tpu/native/tsv_format.cc``) and the
+(``tsv_format.cc``, a copy of ``cpecan_tpu/native/tsv_format.cc``), the
 HDP Gibbs sampler (``hdp_gibbs.cc``, a copy of
 ``cpecan_tpu/native/hdp_gibbs.cc``; wrapped by ``cpecan_tpu_torch.hdp.
-native``).
+native``) and the MSA layer's greedy column build (``msa_columns.cc``, a
+copy of ``cpecan_tpu/native/msa_columns.cc``; wrapped by
+``cpecan_tpu_torch.msa.multiple_aligner``).
 
 A source builds with ``g++`` at its first use into ``build/native/`` at the
 repository root (gitignored), named by a hash of the source and flags, and
 loads with ``ctypes``.  Callers build it once, before any thread uses it;
 where no C++ toolchain is present ``load_library`` returns None and says
 why, and the caller's Python path runs instead (the tsv formatter's output
-is identical; the Python sampler draws another random stream).  Each
+is identical, and so are the greedy column build's columns; the Python
+sampler draws another random stream).  Each
 library has its own flags (``LIBRARY_FLAGS``): the sampler's are the JAX
 package's build (``-march=native``, OpenMP), retried without those two
 where the toolchain refuses them, as that build retries.

@@ -16,7 +16,8 @@ DNA: ``synth_dna_pair`` is ``tools/exp_long_read.py::synth_dna_pair`` (the
 ``dna_realign_alignments_per_sec`` (``bench_dna_realign``), with their
 cigars for the realign CLI, and ``dna_em_batch`` the 128 x 1 kb
 alignments of bench.py's ``dna_em_estep_alignments_per_sec``
-(``bench_dna_em``)."""
+(``bench_dna_em``); ``msa_frags`` the 32 x 1 kb fragments of bench.py's
+``msa_pairwise_alignments_per_sec`` (``bench_msa``)."""
 
 import random
 
@@ -254,3 +255,21 @@ def dna_em_batch(n_pairs=128, length=1000, seed=3, redraw=0.12):
         alns.append(parse_cigar_line(
             f"cigar: y{i} 0 {len(sy)} + x{i} 0 {length} + 0 M {length}"))
     return seqs, alns, rng
+
+
+def msa_frags(n_frags=32, length=1000, seed=17, rate=0.08):
+    """bench.py's MSA input (``bench_msa``), byte for byte: a base sequence
+    of ``length`` random bases from ``random.Random(seed)`` and ``n_frags``
+    copies of it, each base redrawn with probability ``rate`` by the same
+    generator, as ``SeqFrag(copy, 2 i, 2 i + 1)``: every fragment has its
+    own left and right end, so every pairwise job is ragged at both."""
+    from .msa.multiple_aligner import SeqFrag
+
+    rng = random.Random(seed)
+    base = "".join(rng.choice("ACGT") for _ in range(length))
+
+    def mutate(s):
+        return "".join(c if rng.random() > rate else rng.choice("ACGT")
+                       for c in s)
+
+    return [SeqFrag(mutate(base), 2 * i, 2 * i + 1) for i in range(n_frags)]

@@ -23,6 +23,8 @@ from cpecan_tpu_torch.models.hmm import ContinuousPairHmm
 from cpecan_tpu_torch.models.state_machines import (
     StateMachine3SignalStrawman, StateMachine3Vanilla, StateMachine4,
     StateMachine5, StateMachineEchelon, StateMachineEchelonB)
+from cpecan_tpu_torch.msa.gpu import gpu_batch_align_fn
+from cpecan_tpu_torch.msa.multiple_aligner import SeqFrag
 from cpecan_tpu_torch.ops import fb_kernels as fk
 from cpecan_tpu_torch.ops.compact import (compact_posteriors,
                                           extract_echelon_pairs_chunk,
@@ -44,7 +46,8 @@ from cpecan_tpu_torch.pipeline import em
 from cpecan_tpu_torch.pipeline.signal_align_batch import run_batch_fast
 from cpecan_tpu_torch.pipeline.train_models import TrainOptions, train
 from cpecan_tpu_torch.synthetic import (dna_em_batch, dna_realign_batch,
-                                        hdp_model, synthetic_batch)
+                                        hdp_model, msa_frags,
+                                        synthetic_batch)
 from torch_cases import synthetic_case
 
 pytestmark = pytest.mark.gpu
@@ -564,6 +567,53 @@ def test_cuda_dna5_tiled_kernels_match_plain(dna5_batch, cuda, ragged, W,
                                               TD=TD)
     assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
     assert torch.isfinite(totals).all() and (posts > 0.05).any()
+
+
+@pytest.mark.parametrize("ends", ["right", "both"])
+def test_cuda_msa_chunk_matches_plain(cuda, ends):
+    """One chunk of the MSA path (``gpu_batch_align_fn`` on a
+    Dna5Aligner of group 32: 15 jobs of six 600-base fragments of
+    ``msa_frags`` at seed 18, lastz-anchored, ragged at the right end or
+    at both): the K1/K2 dna5 outputs it launched (fwd plane, posteriors,
+    totals) equal their plain versions on the inputs the path gave them,
+    bit for bit, and the jobs one at a time give the batched pairs."""
+    frags = [SeqFrag(f.seq, 2 * i if ends == "both" else 0, 2 * i + 1)
+             for i, f in enumerate(msa_frags(n_frags=6, length=600,
+                                             seed=18))]
+    jobs = [(frags[a].seq, frags[b].seq,
+             frags[a].left_end_id != frags[b].left_end_id,
+             frags[a].right_end_id != frags[b].right_end_id)
+            for a in range(6) for b in range(a + 1, 6)]
+    assert {j[2:] for j in jobs} == {(ends == "both", True)}
+    aligner = Dna5Aligner(device=cuda, group=32)
+    out = {}
+
+    def keep(name, fn):
+        # the stage hook: each step's result (one run, so the chunk's)
+        out[name] = res = fn()
+        return res
+
+    fk.reset_counts()
+    batched = gpu_batch_align_fn(aligner=aligner, stage=keep)(jobs)
+    assert fk.KERNEL_LAUNCHES == {"wavefront_fwd_dna5": 1,
+                                  "wavefront_bwd_dna5": 1}
+    prep, inp = out["prepare"], out["inputs"]
+    assert len(prep["bands"]) == len(jobs)
+    # lastz anchored every job: bands far narrower than 600
+    assert max(int(b.width.max()) for b in prep["bands"]) < 300
+    dims = dict(R=prep["R"], W=prep["W"], ND=prep["ND"], C=prep["C"],
+                spec=fk.Dna5Spec)
+    fa = [inp[k] for k in ("scal", "win", "xf", "yf", "basef", "widthf")]
+    ba = fa + [inp["seedf"], inp["raggedf"]]
+    assert torch.equal(out["fwd"], fk.forward_plain(*fa, **dims))
+    posts, totals = out["bwd"]
+    pposts, ptotals = fk.backward_plain(*ba, out["fwd"], **dims)
+    assert torch.equal(posts, pposts) and torch.equal(totals, ptotals)
+    assert torch.isfinite(totals[:, : len(jobs)]).all()
+    singles = [gpu_batch_align_fn(aligner=aligner)([job])[0]
+               for job in jobs]
+    assert batched == singles
+    assert min(map(len, batched)) > 500
 
 
 def test_cuda_dna5_golden_pairs(cuda):

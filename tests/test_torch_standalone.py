@@ -30,6 +30,7 @@ from cpecan_tpu.models import kmers as j_kmers
 from cpecan_tpu.msa import multiple_aligner as j_msa
 from cpecan_tpu.ops import anchors as j_anchors
 from cpecan_tpu.ops import band as j_band
+from cpecan_tpu.ops import blast as j_blast
 from cpecan_tpu.ops import reweight as j_reweight
 from cpecan_tpu.utils import checkpoint as j_checkpoint
 
@@ -46,6 +47,7 @@ from cpecan_tpu_torch.models import kmers as t_kmers
 from cpecan_tpu_torch.msa import multiple_aligner as t_msa
 from cpecan_tpu_torch.ops import anchors as t_anchors
 from cpecan_tpu_torch.ops import band as t_band
+from cpecan_tpu_torch.ops import blast as t_blast
 from cpecan_tpu_torch.ops import reweight as t_reweight
 from cpecan_tpu_torch.ops.fb import Dna5Aligner, StrawmanAligner
 from cpecan_tpu_torch.synthetic import synth_dna_pair
@@ -127,6 +129,35 @@ def test_hdp_runs_with_jax_package_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) > 50
+
+
+def test_msa_runs_with_jax_package_blocked():
+    """The MSA layer (``make_alignment``, lastz anchoring, the native
+    greedy column build) on ``gpu_batch_align_fn(device="cpu")`` runs in a
+    process where ``jax`` and ``cpecan_tpu`` cannot be imported (a small
+    plain run on the CPU)."""
+    code = (
+        "import random, sys\n"
+        "sys.modules['jax'] = sys.modules['cpecan_tpu'] = None\n"
+        "from cpecan_tpu_torch.msa.gpu import gpu_batch_align_fn\n"
+        "from cpecan_tpu_torch.msa.multiple_aligner import (SeqFrag, "
+        "_get_poset_lib, make_alignment)\n"
+        "rng = random.Random(5)\n"
+        "base = ''.join(rng.choice('ACGT') for _ in range(40))\n"
+        "frags = [SeqFrag(''.join(c if rng.random() > 0.1 else 'A' "
+        "for c in base), i, i + 1) for i in range(3)]\n"
+        "mA = make_alignment(None, frags, spanning_trees=1, "
+        "max_pairs_to_consider=1000, use_progressive_merging=False, "
+        "match_gamma=0.2, rng=random.Random(1), "
+        "batch_align_fn=gpu_batch_align_fn(device='cpu'))\n"
+        "assert _get_poset_lib() is not None\n"
+        "from cpecan_tpu_torch.ops.blast import get_blast_pairs\n"
+        "assert len(get_blast_pairs(base * 15, base * 15, 0, True)) > 500\n"
+        "print(len(mA.aligned_pairs))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) > 40
 
 
 def _imports(path):
@@ -421,6 +452,65 @@ def case_reweight():
             == j_reweight.reweight_aligned_pairs_2(pairs, 120, 110, gamma)
 
 
+def case_blast():
+    """The lastz flags and the cigar-to-anchor conversion (the lastz runs
+    themselves: tests/test_torch_blast.py)."""
+    assert t_blast.LASTZ_ARGS == j_blast.LASTZ_ARGS
+    line = str(np.load(t_fixtures.ZYMO_TRAIN)["guide"])
+    for trim in (0, 3, 14):
+        got = t_blast._cigar_to_anchor_pairs(t_cigar.parse_cigar_line(line),
+                                             trim)
+        assert got == j_blast._cigar_to_anchor_pairs(
+            j_cigar.parse_cigar_line(line), trim)
+        assert len(got) > 50
+
+
+def _msa_maps(seed, n, length):
+    """Multiple aligned pairs (score, s1, p1, s2, p2) near the diagonal of
+    every fragment pair, some crossing."""
+    rng = np.random.default_rng(seed)
+    maps = []
+    for s1 in range(n):
+        for s2 in range(s1 + 1, n):
+            for p in range(length):
+                for q in (p - 1, p, p + int(rng.integers(-3, 4))):
+                    if 0 <= q < length and rng.random() < 0.5:
+                        maps.append((int(rng.integers(10 ** 5, 10 ** 7)),
+                                     s1, p, s2, q))
+    return maps
+
+
+def case_multiple_aligner_greedy():
+    """The greedy column build in its three consistency modes, the native
+    build, the distance matrix, the next best pair and the chains: equal
+    partitions, counts and picks."""
+    import random
+
+    seqs = ["".join(np.random.default_rng(s).choice(list("ACGT"), 30))
+            for s in range(5)]
+    maps = _msa_maps(4, 5, 30)
+    parts = []
+    for mod in (t_msa, j_msa):
+        frags = [mod.SeqFrag(s, i % 2, i % 3) for i, s in enumerate(seqs)]
+        for mode in ("poset", "poset-numpy", "bfs"):
+            cols = mod.make_columns_greedy(frags, maps, 0.3,
+                                           rng=random.Random(6),
+                                           consistency=mode)
+            parts.append(sorted(sorted(m) for m in cols.members.values()))
+        subs, nonsubs = mod.get_distance_matrix(cols, frags, 10_000)
+        chosen = set(mod.get_reference_pairwise_alignments(frags))
+        rng = random.Random(8)
+        parts.append((subs, nonsubs, sorted(chosen),
+                      [mod.get_next_best_pair(s, 5, subs, nonsubs, chosen,
+                                              rng) for s in range(5)],
+                      mod.get_distance_matrix(cols, frags, 7),
+                      mod.get_alignment_score(
+                          [(m[0], m[2], m[4]) for m in maps[:40]], 30, 28)))
+    assert all(p == parts[0] for p in parts[1:3])
+    assert parts[:4] == parts[4:]
+    assert len(parts[0]) < 5 * 30 - 30
+
+
 def case_multiple_aligner():
     import random
 
@@ -706,6 +796,13 @@ def case_hdp_gibbs_source():
         (REPO / "cpecan_tpu" / "native" / "hdp_gibbs.cc").read_bytes()
 
 
+def case_msa_columns_source():
+    """The native greedy column build is the JAX package's source, byte
+    for byte (the port builds it into build/, not next to the source)."""
+    assert (PACKAGE / "native" / "msa_columns.cc").read_bytes() == \
+        (REPO / "cpecan_tpu" / "native" / "msa_columns.cc").read_bytes()
+
+
 def case_tsv_format_source():
     """The native tsv formatter is the JAX package's source, byte for
     byte (the port builds it into build/, not next to the source)."""
@@ -719,7 +816,8 @@ CASES = {f.__name__[5:]: f for f in (
     case_vanilla_hmm, case_kmers,
     case_anchors, case_checkpoint, case_rng_state_json,
     case_constants_and_fixture_paths, case_reweight,
-    case_multiple_aligner, case_cigar_io, case_fasta_io, case_hmm_discrete,
+    case_multiple_aligner, case_multiple_aligner_greedy, case_blast,
+    case_msa_columns_source, case_cigar_io, case_fasta_io, case_hmm_discrete,
     case_synth_dna_pair, case_target_regions, case_tsv_format_source,
     case_hdp_python_sampler, case_hdp_native_sampler,
     case_hdp_serialization, case_hdp_text_io, case_hdp_gibbs_source)}
